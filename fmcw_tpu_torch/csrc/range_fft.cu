@@ -1,0 +1,200 @@
+// Kernel A of the radar front-end on Hopper: Hamming window, range FFT and
+// corner turn.
+//
+// Replaces the first half of fmcw_tpu/ops/frontend_pallas.py::_kernel
+// (stages 1-4 of its docstring: window, outer DFT over the lane slices,
+// twiddle, inner 128-point DFT on the MXU) and its split counterpart
+// fmcw_tpu/ops/split_frontend.py::_kernel_range.  The TPU kernel keeps the
+// whole 1 MiB frame in VMEM; an SM holds at most 227 KB, so the frame is cut
+// along the chirp axis instead: one block transforms kChirps chirps, and the
+// slow-time half runs as kernel B (slowtime_detect.cu) on range tiles.
+//
+// In:  iq int16 (B, nd, n, 2), I/Q interleaved (read as one 32-bit word).
+// Out: planar float32 re/im, RANGE-major (B, n, nd) — the corner turn is this
+//      kernel's store.
+//
+// Bound on an H100: bytes.  Per 1024x128 frame 0.5 MiB is read and 1 MiB
+// written (~0.47 us at 3.35 TB/s); the FFT is 5 n log2 n flops per chirp,
+// ~6.6 MFLOP per frame (~0.1 us at 67 TFLOP/s FP32).  Design against it:
+//  * each sample is read once, coalesced, and each output written once;
+//  * the FFT runs in shared memory as a Stockham radix-4 (radix-2 for an odd
+//    power) autosort transform, in place: each stage reads its butterflies
+//    into registers, synchronises, and writes them back, so one buffer
+//    serves all stages and the output comes out in natural order;
+//  * twiddles W_n^m are a float32 table computed in float64 on the host
+//    (the way fmcw_tpu/ops/frontend_pallas.py::_ct_split builds its table);
+//  * the corner-turned store writes kChirps = 8 consecutive floats (one
+//    32-byte sector) per range row and plane; the planar shared buffers are
+//    padded by kPad floats per row so that read is free of bank conflicts.
+// FP32 throughout; agreement with the plain twin (window times dense DFT
+// matmul) is held to 1e-5 of the map peak, not bit-exact.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kChirps = 8;      // chirps per block
+constexpr int kThreads = 256;
+constexpr int kPad = 4;         // row pad of the planar shared buffers
+constexpr int kMaxRange = 1024;
+
+template <int R>
+__device__ __forceinline__ void dft_small(float (&vr)[R], float (&vi)[R]);
+
+template <>
+__device__ __forceinline__ void dft_small<2>(float (&vr)[2], float (&vi)[2]) {
+    const float ar = vr[0], ai = vi[0];
+    vr[0] = ar + vr[1];
+    vi[0] = ai + vi[1];
+    vr[1] = ar - vr[1];
+    vi[1] = ai - vi[1];
+}
+
+template <>
+__device__ __forceinline__ void dft_small<4>(float (&vr)[4], float (&vi)[4]) {
+    // Forward 4-point DFT, W_4 = -i.
+    const float t0r = vr[0] + vr[2], t0i = vi[0] + vi[2];
+    const float t1r = vr[0] - vr[2], t1i = vi[0] - vi[2];
+    const float t2r = vr[1] + vr[3], t2i = vi[1] + vi[3];
+    const float t3r = vr[1] - vr[3], t3i = vi[1] - vi[3];
+    vr[0] = t0r + t2r;  vi[0] = t0i + t2i;
+    vr[2] = t0r - t2r;  vi[2] = t0i - t2i;
+    vr[1] = t1r + t3i;  vi[1] = t1i - t3r;   // t1 - i t3
+    vr[3] = t1r - t3i;  vi[3] = t1i + t3r;   // t1 + i t3
+}
+
+// One Stockham radix-R stage over the kChirps rows of the block, in place.
+// ns = product of the radices already applied.  Butterfly j of a row reads
+// x[j + r n/R], twiddles it by W_{ns R}^{r (j mod ns)}, and writes the R-point
+// DFT to x[(j - j mod ns) R + j mod ns + r ns].
+template <int R>
+__device__ __forceinline__ void stockham_stage(float* bre, float* bim,
+                                               const float2* tws, int log2n,
+                                               int log2ns) {
+    constexpr int kLog2R = R == 4 ? 2 : 1;
+    constexpr int kMax = kChirps * kMaxRange / R / kThreads;
+    const int n = 1 << log2n;
+    const int ns = 1 << log2ns;
+    const int log2nb = log2n - kLog2R;
+    const int nb = 1 << log2nb;
+    const int total = kChirps * nb;
+    const int stride = n + kPad;
+    const int tw_shift = log2n - log2ns - kLog2R;   // n / (ns R)
+    float vr[kMax][R], vi[kMax][R];
+#pragma unroll
+    for (int it = 0; it < kMax; ++it) {
+        const int idx = threadIdx.x + it * kThreads;
+        if (idx < total) {
+            const int g = idx >> log2nb;
+            const int j = idx & (nb - 1);
+            const int k = j & (ns - 1);
+            const float* pr = bre + g * stride;
+            const float* pi = bim + g * stride;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                float xr = pr[j + r * nb];
+                float xi = pi[j + r * nb];
+                if (r > 0) {
+                    const float2 w = tws[(r * k) << tw_shift];
+                    const float tr = xr * w.x - xi * w.y;
+                    const float ti = xr * w.y + xi * w.x;
+                    xr = tr;
+                    xi = ti;
+                }
+                vr[it][r] = xr;
+                vi[it][r] = xi;
+            }
+            dft_small<R>(vr[it], vi[it]);
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int it = 0; it < kMax; ++it) {
+        const int idx = threadIdx.x + it * kThreads;
+        if (idx < total) {
+            const int g = idx >> log2nb;
+            const int j = idx & (nb - 1);
+            const int k = j & (ns - 1);
+            const int dst = (j - k) * R + k;
+            float* pr = bre + g * stride;
+            float* pi = bim + g * stride;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                pr[dst + r * ns] = vr[it][r];
+                pi[dst + r * ns] = vi[it][r];
+            }
+        }
+    }
+    __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+range_fft_kernel(const uint32_t* __restrict__ iq, const float* __restrict__ win,
+                 const float2* __restrict__ tw, float* __restrict__ out_re,
+                 float* __restrict__ out_im, int nd, int log2n) {
+    extern __shared__ float smem[];
+    const int n = 1 << log2n;
+    const int stride = n + kPad;
+    float* bre = smem;
+    float* bim = smem + kChirps * stride;
+    float2* tws = reinterpret_cast<float2*>(bim + kChirps * stride);
+    const int b = blockIdx.y;
+    const int c0 = blockIdx.x * kChirps;
+
+    for (int i = threadIdx.x; i < n; i += kThreads) tws[i] = tw[i];
+    // 1. Window (one coalesced pass over the block's kChirps chirps).
+    const uint32_t* src = iq + ((size_t)b * nd + c0) * n;
+    for (int idx = threadIdx.x; idx < kChirps * n; idx += kThreads) {
+        const int g = idx >> log2n;
+        const int s = idx & (n - 1);
+        const uint32_t word = src[idx];
+        const float w = win[s];
+        bre[g * stride + s] = __fmul_rn((float)(int16_t)(word & 0xffffu), w);
+        bim[g * stride + s] = __fmul_rn((float)(int16_t)(word >> 16), w);
+    }
+    __syncthreads();
+    // 2. Range FFT: radix-4 stages, one radix-2 stage for an odd power.
+    int log2ns = 0;
+    while (log2n - log2ns >= 2) {
+        stockham_stage<4>(bre, bim, tws, log2n, log2ns);
+        log2ns += 2;
+    }
+    if (log2n - log2ns == 1) stockham_stage<2>(bre, bim, tws, log2n, log2ns);
+    // 3. Corner turn: range-major store, kChirps consecutive floats per row.
+    float* dst_re = out_re + (size_t)b * n * nd + c0;
+    float* dst_im = out_im + (size_t)b * n * nd + c0;
+    for (int idx = threadIdx.x; idx < kChirps * n; idx += kThreads) {
+        const int g = idx & (kChirps - 1);
+        const int s = idx / kChirps;
+        dst_re[(size_t)s * nd + g] = bre[g * stride + s];
+        dst_im[(size_t)s * nd + g] = bim[g * stride + s];
+    }
+}
+
+}  // namespace
+
+// iq: int16 (batch, nd, n, 2); win: float32 (n,); tw: complex float32 (n,)
+// with tw[m] = exp(-2 pi i m / n); out_re/out_im: float32 (batch, n, nd).
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int fmcw_range_fft(const void* iq, const void* win, const void* tw,
+                              void* out_re, void* out_im, int batch, int nd,
+                              int n, void* stream) {
+    int log2n = 0;
+    while ((1 << log2n) < n) ++log2n;
+    if (batch < 1 || batch > 65535 || n != (1 << log2n) || n < 16 ||
+        n > kMaxRange || nd < kChirps || nd % kChirps != 0)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        2 * kChirps * (n + kPad) * sizeof(float) + n * sizeof(float2);
+    cudaError_t err = cudaFuncSetAttribute(
+        range_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(nd / kChirps, batch);
+    range_fft_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        static_cast<const uint32_t*>(iq), static_cast<const float*>(win),
+        static_cast<const float2*>(tw), static_cast<float*>(out_re),
+        static_cast<float*>(out_im), nd, log2n);
+    return (int)cudaGetLastError();
+}

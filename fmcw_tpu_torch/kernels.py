@@ -1,0 +1,147 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+The sources are compiled on first use with ``nvcc`` for ``sm_90a`` (one
+``nvcc`` process per source, all started together, then one link) into a
+shared library with a plain C interface under ``build/`` beside the package,
+and loaded with ``ctypes``.  The library's name carries a hash of the sources
+and flags, so an edited source is rebuilt and an unchanged one is reused.
+No ``--use_fast_math``: the CFAR decision relies on IEEE division and on
+denormals being kept.
+
+Nothing here runs at import time; ``load()`` is called by the kernel
+wrappers in ``ops/frontend.py`` when they are handed a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("range_fft.cu", "slowtime_detect.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class SlowtimeConfig(ctypes.Structure):
+    """Mirror of ``struct SlowtimeConfig`` in csrc/slowtime_detect.cu."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "batch", "R", "ND", "T", "H",
+        "hr", "hd", "gr", "gd", "n_ref", "k",
+        "scale_min", "scale_nom", "scale_max",
+        "block_mode", "sb", "n_blk", "k_blk",
+        "so", "pgr", "exact_mag")]
+
+
+class BuildInfo:
+    """What the last build did: its library path, the seconds it took (0
+    when an earlier build was reused) and the compiler's register/shared
+    memory report (``-Xptxas -v``)."""
+
+    def __init__(self):
+        self.path: Path | None = None
+        self.seconds = 0.0
+        self.log = ""
+
+
+build_info = BuildInfo()
+_lib: ctypes.CDLL | None = None
+
+
+def build_dir() -> Path:
+    return CSRC.parent.parent / "build" / "fmcw_tpu_torch"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit (set CUDA_HOME)")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(out: Path) -> None:
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    objs = []
+    try:
+        for name in SOURCES:
+            # Per-process names: concurrent first uses must not clobber
+            # each other's objects; the finished library is renamed into
+            # place atomically.
+            obj = out.parent / f"{Path(name).stem}_{out.stem}_{os.getpid()}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = []
+        failed = []
+        for name, proc in zip(SOURCES, procs):
+            text, _ = proc.communicate()
+            logs.append(f"--- {name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(name)
+        build_info.log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_info.log}")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             *map(str, objs), "-o", str(tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        tmp.replace(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_info.seconds = time.perf_counter() - t0
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; declare its C entry
+    points.  Raises if ``nvcc`` is missing or a source does not compile."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    out = build_dir() / f"libfmcw_kernels_{_digest()}.so"
+    if not out.exists():
+        _build(out)
+    lib = ctypes.CDLL(str(out))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.fmcw_range_fft.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.fmcw_range_fft.restype = ci
+    lib.fmcw_slowtime_detect.argtypes = [vp] * 9 + [
+        ctypes.POINTER(SlowtimeConfig), vp]
+    lib.fmcw_slowtime_detect.restype = ci
+    build_info.path = out
+    _lib = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,228 @@
+"""2D OS-CFAR and peak grouping in plain PyTorch.
+
+The plain twin of the decision half of the CUDA kernel
+``csrc/slowtime_detect.cu`` (and of the epilogues ``_detect_epilogue``,
+``_block_scale`` and ``_peak_group_epilogue`` of
+``fmcw_tpu/ops/frontend_pallas.py``).  The decision is made by COUNTING,
+never by sorting: for the k-th largest training value ``est``
+(k = n_ref - rank_idx),
+
+    est >  T      <=>  count(refs >  T) >= k
+    est <  T      <=>  count(refs >= T) <  k
+    cut > est*s   <=>  count(refs >= q_min) < k,
+
+where q_min is the smallest float whose rounded product with the scale
+reaches the CUT (found by probing the bit patterns just below cut/s).  Every
+float sum (the per-cell adaptive-scale mean, the block sums) is taken in one
+fixed association order, which the CUDA kernel repeats exactly, so kernel
+and twin make bit-identical decisions on the same magnitudes:
+
+* per-cell mean: full-window minus guard-window box sums, each an inner sum
+  over dr ascending inside an outer sum over dd ascending (the tree of
+  ``fmcw_tpu/ops/cfar._box2d_sum`` and ``cfar_pallas._boxsum``);
+* block sums: rows of a block ascending, then its columns ascending; the
+  3x3-block neighborhood summed Doppler-offset-major, range-offset-minor
+  (the term order of ``fmcw_tpu/ops/cfar.block_scale_map``).
+
+All functions take maps with any leading batch dimensions, ``(..., R, D)``,
+wrap edges (the torus of the reference's line buffers).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..params import CfarParams
+from ..golden.fixed_point import _window_offsets
+
+
+def _wrap_pad(m: torch.Tensor, hr: int, hd: int) -> torch.Tensor:
+    """Pad the last two axes of ``m`` circularly by ``hr`` rows and ``hd``
+    columns on each side."""
+    if hr:
+        m = torch.cat([m[..., -hr:, :], m, m[..., :hr, :]], dim=-2)
+    if hd:
+        m = torch.cat([m[..., -hd:], m, m[..., :hd]], dim=-1)
+    return m
+
+
+def _box_sum(p: torch.Tensor, win_r: int, win_d: int) -> torch.Tensor:
+    """Sum over a win_r x win_d window of a map padded by the half-windows:
+    inner sum over rows ascending, outer over columns ascending."""
+    R = p.shape[-2] - win_r + 1
+    D = p.shape[-1] - win_d + 1
+    col = p[..., 0:R, :]
+    for i in range(1, win_r):
+        col = col + p[..., i:i + R, :]
+    acc = col[..., 0:D]
+    for j in range(1, win_d):
+        acc = acc + col[..., j:j + D]
+    return acc
+
+
+def check_supported(cfar: CfarParams):
+    if cfar.variant != "os":
+        raise NotImplementedError(
+            f"CFAR variant {cfar.variant!r}: the port implements 'os' only "
+            f"so far (CA/GO/SO are queued in ROADMAP.md)")
+    if cfar.edge_mode != "wrap":
+        raise NotImplementedError(
+            f"edge_mode {cfar.edge_mode!r}: the port implements 'wrap' only")
+
+
+def _q_min(cut: torch.Tensor, scale_f: torch.Tensor) -> torch.Tensor:
+    """Smallest float32 q with RN(q * scale) >= cut: it lies within two ulps
+    below RN(cut / scale), so probe those bit patterns."""
+    ti = (cut / scale_f).view(torch.int32)
+    q = (ti + 1).view(torch.float32)
+    for delta in (0, -1, -2):
+        c = (ti + delta).view(torch.float32)
+        q = torch.where(c * scale_f >= cut, c, q)
+    return q
+
+
+def _div(a: torch.Tensor, n: int) -> torch.Tensor:
+    """IEEE a / n elementwise.  (A Python scalar divisor would let PyTorch's
+    CUDA path multiply by its reciprocal instead, which can differ by an
+    ulp from the kernel's division.)"""
+    return a / torch.full_like(a, float(n))
+
+
+def _block_k(cfar: CfarParams):
+    n = 9 * cfar.scale_block * cfar.scale_block
+    return n, n - min((n * cfar.rank_pct) // 100, n - 1)
+
+
+def _nb9(a: torch.Tensor) -> torch.Tensor:
+    """Sum of the 3x3 wrapped neighborhood on a (..., Rb, Db) block grid,
+    Doppler-block offset outer, range-block offset inner."""
+    acc = None
+    for di in (-1, 0, 1):
+        for dr in (-1, 0, 1):
+            t = torch.roll(a, shifts=(-dr, -di), dims=(-2, -1))
+            acc = t if acc is None else acc + t
+    return acc
+
+
+def _block_reduce(x: torch.Tensor, b: int) -> torch.Tensor:
+    """(..., R, D) -> (..., R/b, D/b) block sums: the b rows of a block
+    ascending, then its b columns ascending."""
+    *lead, R, D = x.shape
+    rows = x.reshape(*lead, R // b, b, D)
+    acc = rows[..., 0, :]
+    for i in range(1, b):
+        acc = acc + rows[..., i, :]
+    cols = acc.reshape(*lead, R // b, D // b, b)
+    acc = cols[..., 0]
+    for j in range(1, b):
+        acc = acc + cols[..., j]
+    return acc
+
+
+def _to_cells(a: torch.Tensor, b: int) -> torch.Tensor:
+    return a.repeat_interleave(b, dim=-2).repeat_interleave(b, dim=-1)
+
+
+def block_scale_map(mag: torch.Tensor, cfar: CfarParams) -> torch.Tensor:
+    """Block-granular ("clutter-map") adaptive scale, int32 (..., R, D).
+
+    Per scale_block x scale_block tile: a clutter level from the 3x3-block
+    neighborhood mean; each cell exceeds-hi iff v > 1.5 x its own block's
+    mean and counts-lo iff v >= 0.5 x its own block's mean; the tile takes
+    scale_max when >= k of its neighborhood's 9*B^2 cells exceed hi,
+    scale_min when < k of them count lo, else scale_nom
+    (k = 9*B^2 - rank_idx).  Semantics of fmcw_tpu/ops/cfar.block_scale_map
+    (float mode)."""
+    b = cfar.scale_block
+    R, D = mag.shape[-2:]
+    if R % b or D % b:
+        raise ValueError(f"scale_block={b} must divide map shape {(R, D)}")
+    n, k = _block_k(cfar)
+    m = mag.to(torch.float32)
+    mean = _to_cells(_div(_nb9(_block_reduce(m, b)), n), b)
+    cnt_hi = _nb9(_block_reduce((m > 1.5 * mean).to(torch.int32), b))
+    cnt_lo = _nb9(_block_reduce((m >= 0.5 * mean).to(torch.int32), b))
+    scale_b = torch.where(cnt_hi >= k, cfar.scale_max,
+                          torch.where(cnt_lo < k, cfar.scale_min,
+                                      cfar.scale_nom))
+    return _to_cells(scale_b, b).to(torch.int32)
+
+
+def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
+            cfar: CfarParams = CfarParams(), need_debug: bool = False):
+    """2D OS-CFAR over (..., R, D) float32 magnitude maps.
+
+    Returns ``(det, threshold, scale)``: the zero-suppressed detection map
+    (the CUT where it exceeds est*scale, else 0, os_cfar_2d.vhd:204-217),
+    the threshold est*scale (only with ``need_debug``, else None — it needs
+    the rank stack, (..., R, D, n_ref) floats) and the int32 scale map.
+    ``scale_override`` != 0 replaces the adaptive scale (the cfar_scale_ovr
+    control port, radar_core.vhd:49)."""
+    check_supported(cfar)
+    m = mag.to(torch.float32)
+    R, D = m.shape[-2:]
+    hr, hd = cfar.halo_range, cfar.halo_doppler
+    k = cfar.n_ref - cfar.rank_idx
+    p = _wrap_pad(m, hr, hd)
+    offsets = _window_offsets(cfar)
+
+    def ref(dr, dd):
+        return p[..., hr + dr:hr + dr + R, hd + dd:hd + dd + D]
+
+    if cfar.scale_mode == "block":
+        scale = block_scale_map(m, cfar)
+    else:
+        gr, gd = cfar.guard_range, cfar.guard_doppler
+        pg = p[..., hr - gr:hr + gr + R, hd - gd:hd + gd + D]
+        sum_refs = (_box_sum(p, cfar.win_range, cfar.win_doppler)
+                    - _box_sum(pg, 2 * gr + 1, 2 * gd + 1))
+        mean = _div(sum_refs, cfar.n_ref)
+        t_hi = 1.5 * mean
+        t_lo = 0.5 * mean
+        cnt_hi = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
+        cnt_lo = torch.zeros_like(cnt_hi)
+        for dr, dd in offsets:
+            v = ref(dr, dd)
+            cnt_hi += v > t_hi
+            cnt_lo += v >= t_lo
+        scale = torch.where(cnt_hi >= k, cfar.scale_max,
+                            torch.where(cnt_lo < k, cfar.scale_min,
+                                        cfar.scale_nom)).to(torch.int32)
+    if int(scale_override) != 0:
+        scale = torch.full_like(scale, int(scale_override))
+    scale_f = scale.to(torch.float32)
+    q = _q_min(m, scale_f)
+    cnt = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
+    for dr, dd in offsets:
+        cnt += ref(dr, dd) >= q
+    det = torch.where((cnt < k) & (m > 0), m, torch.zeros_like(m))
+    threshold = None
+    if need_debug:
+        refs = torch.stack([ref(dr, dd) for dr, dd in offsets], dim=-1)
+        est = torch.topk(refs, k, dim=-1).values[..., -1]
+        threshold = est * scale_f
+    return det, threshold, scale
+
+
+def peak_group(det: torch.Tensor, radius: int = 1) -> torch.Tensor:
+    """Peak grouping: keep detections that are the strict local max of their
+    (2r+1)^2 wrapped neighborhood, ties broken toward the lower linear index
+    (row * D + col) — the semantics of fmcw_tpu/ops/cfar.peak_group."""
+    if radius <= 0:
+        return det
+    R, D = det.shape[-2:]
+    p = _wrap_pad(det, radius, radius)
+    ids = (torch.arange(R, device=det.device, dtype=torch.int32)[:, None] * D
+           + torch.arange(D, device=det.device, dtype=torch.int32)[None, :])
+    pid = _wrap_pad(ids, radius, radius)
+    best = torch.full_like(det, float("-inf"))
+    best_id = torch.zeros(det.shape, dtype=torch.int32, device=det.device)
+    for dr in range(2 * radius + 1):
+        for dd in range(2 * radius + 1):
+            nb = p[..., dr:dr + R, dd:dd + D]
+            nid = pid[dr:dr + R, dd:dd + D]
+            take = (nb > best) | ((nb == best) & (nid < best_id))
+            best = torch.where(take, nb, best)
+            best_id = torch.where(take, nid, best_id)
+    keep = (det > 0) & (best == det) & (best_id == ids)
+    return torch.where(keep, det, torch.zeros_like(det))

@@ -1,0 +1,274 @@
+"""The fused radar front-end as two CUDA kernels, with their plain twins.
+
+Port of ``fmcw_tpu/ops/frontend_pallas.py::rdm_frontend(detect=True)``.  The
+TPU kernel keeps a whole frame in VMEM; on the GPU it is split at the corner
+turn, as ``fmcw_tpu/ops/split_frontend.py`` splits it across chips:
+
+* ``range_fft`` (kernel A, ``csrc/range_fft.cu``): Hamming window and range
+  FFT per chirp, stored range-major — int16 (B, nd, nr, 2) -> planar float32
+  re/im (B, nr, nd);
+* ``slowtime_detect`` (kernel B, ``csrc/slowtime_detect.cu``): fused
+  slow-time operator (MTI + Doppler window + Doppler DFT), magnitude, 2D
+  OS-CFAR with per-cell or block scale, peak grouping, per-row maxima,
+  detection and non-finite counts.
+
+Each wrapper launches its kernel for a CUDA tensor and takes its plain
+PyTorch twin (``range_fft_plain``, ``slowtime_detect_plain``) only for a CPU
+tensor; any other device raises.  ``range_fft.launches`` and
+``slowtime_detect.launches`` count kernel launches (reset with
+``reset_launch_counts``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..params import CfarParams
+from . import cfar as C
+from .fft import dft_apply, doppler_apply, doppler_matrices
+from .magnitude import magnitude_float
+from .window import hamming_float
+
+# Range rows per kernel-B block.
+TILE_ROWS = 64
+
+
+def reset_launch_counts() -> None:
+    range_fft.launches = 0
+    slowtime_detect.launches = 0
+
+
+@functools.lru_cache(maxsize=32)
+def _tables(n: int, device: str):
+    """Kernel A constants on ``device``: the float window and the twiddle
+    table tw[m] = exp(-2 pi i m / n), computed in float64 then float32."""
+    m = np.arange(n, dtype=np.float64)
+    ang = -2.0 * np.pi * m / n
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    return (torch.as_tensor(hamming_float(n), device=device),
+            torch.as_tensor(tw, device=device))
+
+
+@functools.lru_cache(maxsize=32)
+def _slowtime_matrices(nd: int, notch_mode: int, transient: str,
+                       device: str):
+    """(Mr, Mi) for mti_bypass False and True, on ``device``."""
+    mr1, mi1, mr0, mi0 = doppler_matrices(nd, notch_mode, transient)
+    return tuple(torch.as_tensor(x, device=device)
+                 for x in (mr1, mi1, mr0, mi0))
+
+
+def _device_kind(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+# ---------------------------------------------------------------------------
+# Kernel A: window + range FFT + corner turn
+# ---------------------------------------------------------------------------
+
+def range_fft_plain(iq: torch.Tensor):
+    """Plain twin of kernel A: window times the dense DFT (four float32
+    matrix products), transposed to range-major.  iq int16 (B, nd, nr, 2)
+    -> (re, im), each float32 (B, nr, nd)."""
+    w = torch.as_tensor(hamming_float(iq.shape[-2]), device=iq.device)
+    x = iq.to(torch.float32)
+    re, im = dft_apply(x[..., 0] * w, x[..., 1] * w)
+    return (re.transpose(-1, -2).contiguous(),
+            im.transpose(-1, -2).contiguous())
+
+
+def range_fft(iq: torch.Tensor):
+    """Window + range FFT + corner turn of int16 frames (B, nd, nr, 2):
+    returns planar float32 (re, im), each (B, nr, nd).  Launches the CUDA
+    kernel for a CUDA tensor; the plain twin for a CPU tensor."""
+    if iq.dim() != 4 or iq.shape[-1] != 2 or iq.dtype != torch.int16:
+        raise ValueError(f"expected int16 iq (B, nd, nr, 2), got "
+                         f"{tuple(iq.shape)} {iq.dtype}")
+    if _device_kind(iq) == "cpu":
+        return range_fft_plain(iq)
+    B, nd, nr, _ = iq.shape
+    if nr & (nr - 1) or not 16 <= nr <= 1024 or nd % 8:
+        raise NotImplementedError(
+            f"range_fft kernel needs n_range a power of two in [16, 1024] "
+            f"and n_doppler a multiple of 8; got {nr}x{nd}")
+    iq = iq.contiguous()
+    if iq.data_ptr() % 4:
+        iq = iq.clone()
+    win, tw = _tables(nr, str(iq.device))
+    re = torch.empty((B, nr, nd), dtype=torch.float32, device=iq.device)
+    im = torch.empty_like(re)
+    lib = kernels.load()
+    err = lib.fmcw_range_fft(
+        iq.data_ptr(), win.data_ptr(), tw.data_ptr(), re.data_ptr(),
+        im.data_ptr(), B, nd, nr,
+        torch.cuda.current_stream(iq.device).cuda_stream)
+    kernels.check(err, "range_fft")
+    range_fft.launches += 1
+    return re, im
+
+
+# ---------------------------------------------------------------------------
+# Kernel B: slow-time operator + magnitude + CFAR + peak grouping
+# ---------------------------------------------------------------------------
+
+def slowtime_mag_plain(re: torch.Tensor, im: torch.Tensor, mti_bypass: bool,
+                       notch_mode: int = 2, transient: str = "zero",
+                       exact_mag: bool = False) -> torch.Tensor:
+    """Plain twin of kernel B's first half: slow-time operator and
+    magnitude of range-major (B, nr, nd) planes -> (B, nr, nd) magnitudes."""
+    yr, yi = doppler_apply(re, im, bool(mti_bypass), notch_mode, transient)
+    return magnitude_float(yr, yi, exact=exact_mag)
+
+
+def detect_plain(mag: torch.Tensor, cfar: CfarParams, scale_override: int = 0,
+                 peak_group_radius: int = 0):
+    """Plain twin of kernel B's second half on (B, nr, nd) magnitudes:
+    returns (det, row_max (B, nr), n_dets (B,) int32, nonfinite (B,) int32).
+    Bit-identical to the kernel's decision on the same magnitudes."""
+    det, _, _ = C.cfar_2d(mag, scale_override, cfar)
+    det = C.peak_group(det, peak_group_radius)
+    return (det, det.amax(dim=-1),
+            (det > 0).sum(dim=(-2, -1)).to(torch.int32),
+            (~torch.isfinite(mag)).sum(dim=(-2, -1)).to(torch.int32))
+
+
+def slowtime_detect_plain(re, im, mti_bypass=False, scale_override=0, *,
+                          cfar: CfarParams, notch_mode: int = 2,
+                          transient: str = "zero", exact_mag: bool = False,
+                          peak_group_radius: int = 0, emit_mag: bool = False):
+    """Plain twin of kernel B: see ``slowtime_detect``."""
+    mag = slowtime_mag_plain(re, im, mti_bypass, notch_mode, transient,
+                             exact_mag)
+    det, row_max, n_dets, nonfinite = detect_plain(mag, cfar, scale_override,
+                                                   peak_group_radius)
+    return det, (mag if emit_mag else None), row_max, n_dets, nonfinite
+
+
+def _kernel_halo(cfar: CfarParams, peak_group_radius: int) -> int:
+    """Rows beyond its tile whose magnitudes a kernel-B block computes: the
+    CFAR window plus the grouping radius (per-cell scale), or two blocks for
+    the 3x3-block scale neighbourhood plus the blocks the grouping radius
+    reaches (block scale)."""
+    h = cfar.halo_range + peak_group_radius
+    if cfar.scale_mode == "block":
+        sb = cfar.scale_block
+        h = max(h, (-(-peak_group_radius // sb) + 2) * sb)
+        h = -(-h // sb) * sb              # whole blocks
+    return h
+
+
+def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
+                     exact_mag):
+    if cfar.variant != "os" or cfar.edge_mode != "wrap":
+        raise NotImplementedError(
+            "slowtime_detect kernel: OS variant with wrap edges only "
+            "(CA/GO/SO are queued in ROADMAP.md)")
+    if nd not in (16, 32, 64, 128):
+        raise NotImplementedError(
+            f"slowtime_detect kernel: n_doppler in (16, 32, 64, 128), got "
+            f"{nd} (long CPIs are queued in ROADMAP.md)")
+    tile = min(TILE_ROWS, nr)
+    halo = _kernel_halo(cfar, peak_group_radius)
+    block = cfar.scale_mode == "block"
+    sb = cfar.scale_block
+    n_blk = 9 * sb * sb
+    ok = (nr % tile == 0 and tile + 2 * halo <= 128
+          and cfar.halo_doppler < nd and peak_group_radius < nd
+          and (not block or (tile % sb == 0 and nd % sb == 0
+                             and (tile + 2 * halo) // sb * (nd // sb) <= 256)))
+    if not ok:
+        raise NotImplementedError(
+            f"slowtime_detect kernel: {nr}x{nd} map with {cfar} and "
+            f"peak_group_radius={peak_group_radius} does not fit its tile "
+            f"({tile} rows + 2 x {halo} halo rows <= 128)")
+    return kernels.SlowtimeConfig(
+        batch=B, R=nr, ND=nd, T=tile, H=halo,
+        hr=cfar.halo_range, hd=cfar.halo_doppler, gr=cfar.guard_range,
+        gd=cfar.guard_doppler, n_ref=cfar.n_ref,
+        k=cfar.n_ref - cfar.rank_idx, scale_min=cfar.scale_min,
+        scale_nom=cfar.scale_nom, scale_max=cfar.scale_max,
+        block_mode=int(block), sb=sb, n_blk=n_blk,
+        k_blk=n_blk - min((n_blk * cfar.rank_pct) // 100, n_blk - 1),
+        so=int(scale_override), pgr=int(peak_group_radius),
+        exact_mag=int(bool(exact_mag)))
+
+
+def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
+                    scale_override=0, *, cfar: CfarParams,
+                    notch_mode: int = 2, transient: str = "zero",
+                    exact_mag: bool = False, peak_group_radius: int = 0,
+                    emit_mag: bool = False):
+    """Slow-time operator, magnitude, CFAR and peak grouping of range-major
+    planes (B, nr, nd).  Returns ``(det (B, nr, nd), mag | None,
+    row_max (B, nr), n_dets (B,) int32, nonfinite (B,) int32)``; ``mag`` only
+    with ``emit_mag``.  ``mti_bypass`` and ``scale_override`` are runtime
+    controls.  Launches the CUDA kernel for CUDA tensors; the plain twin for
+    CPU tensors."""
+    if re.dim() != 3 or re.shape != im.shape:
+        raise ValueError(f"expected re/im (B, nr, nd), got "
+                         f"{tuple(re.shape)} and {tuple(im.shape)}")
+    if _device_kind(re) == "cpu":
+        return slowtime_detect_plain(
+            re, im, mti_bypass, scale_override, cfar=cfar,
+            notch_mode=notch_mode, transient=transient, exact_mag=exact_mag,
+            peak_group_radius=peak_group_radius, emit_mag=emit_mag)
+    B, nr, nd = re.shape
+    cfg = _slowtime_config(B, nr, nd, cfar, scale_override,
+                           peak_group_radius, exact_mag)
+    dev = re.device
+    re = re.contiguous().to(torch.float32)
+    im = im.contiguous().to(torch.float32)
+    mats = _slowtime_matrices(nd, notch_mode, transient, str(dev))
+    mr, mi = mats[2:] if bool(mti_bypass) else mats[:2]
+    det = torch.empty((B, nr, nd), dtype=torch.float32, device=dev)
+    mag = torch.empty_like(det) if emit_mag else None
+    row_max = torch.empty((B, nr), dtype=torch.float32, device=dev)
+    n_dets = torch.zeros((B,), dtype=torch.int32, device=dev)
+    nonfinite = torch.zeros((B,), dtype=torch.int32, device=dev)
+    lib = kernels.load()
+    err = lib.fmcw_slowtime_detect(
+        re.data_ptr(), im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+        det.data_ptr(), mag.data_ptr() if mag is not None else None,
+        row_max.data_ptr(), n_dets.data_ptr(), nonfinite.data_ptr(),
+        ctypes.byref(cfg), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "slowtime_detect")
+    slowtime_detect.launches += 1
+    return det, mag, row_max, n_dets, nonfinite
+
+
+reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# The fused front-end
+# ---------------------------------------------------------------------------
+
+def rdm_frontend_detect(iq: torch.Tensor, mti_bypass=False, scale_override=0,
+                        *, cfar: CfarParams, notch_mode: int = 2,
+                        transient: str = "zero", exact_mag: bool = False,
+                        peak_group_radius: int = 0, emit_mag: bool = False,
+                        plain: bool = False):
+    """iq int16 (B, nd, nr, 2) -> ``(det (B, nr, nd), mag | None,
+    nonfinite (B,), row_max (B, nr), n_dets (B,))`` — the outputs of
+    ``fmcw_tpu/ops/frontend_pallas.rdm_frontend(detect=True)``, with the
+    det map in natural (range, Doppler) layout.  ``plain=True`` runs the
+    plain twins on whatever device ``iq`` is on (the reference the kernels
+    are held against on the card)."""
+    kw = dict(cfar=cfar, notch_mode=notch_mode, transient=transient,
+              exact_mag=exact_mag, peak_group_radius=peak_group_radius,
+              emit_mag=emit_mag)
+    if plain:
+        re, im = range_fft_plain(iq)
+        out = slowtime_detect_plain(re, im, mti_bypass, scale_override, **kw)
+    else:
+        re, im = range_fft(iq)
+        out = slowtime_detect(re, im, mti_bypass, scale_override, **kw)
+    det, mag, row_max, n_dets, nonfinite = out
+    return det, mag, nonfinite, row_max, n_dets

@@ -1,0 +1,108 @@
+"""Detection-set parity with decision margins.
+
+Two float implementations of the chain (the port's kernels, its plain
+twins, the JAX package's bf16x3 fused kernel and its HIGHEST-precision XLA
+chain) agree on the magnitude map to ~1e-5 of its peak, but not bit for bit,
+so a cell whose CFAR decision or grouping tie sits within that difference
+may land on one side only.  ``margin_gate`` accepts exactly those:
+
+1. detections on both sides agree in magnitude within ``tol``;
+2. a detection on one side only is accepted if, within its (2r+1)^2
+   neighbourhood (wrapped), some cell has |M - T| <= (1 + S) * tol (a
+   decision at the threshold) or some neighbour has |M_n - M_c| <= 2 * tol
+   (a grouping tie);
+3. at most 20% of the larger set differs;
+4. the golden targets are found (if given).
+
+With ``capacity`` (the top-K size), a one-sided entry of a full top-K list
+is also accepted when its magnitude is within ``tol`` of the smaller of the
+two lists' last entries: the cut between the K-th and the (K+1)-th
+detection moved.
+
+M, T and S are a reference's magnitude, threshold and scale maps and
+``tol = 1e-5 * max(M)``.  The gate takes numpy arrays; it is used by the
+tests against the JAX package and by ``chip_smoke.py`` on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def detection_set(out: dict, index=None) -> dict:
+    """{(range_bin, doppler_bin): mag} of the valid top-K entries of a
+    processor's output (``index`` picks a frame of a batched output)."""
+    def get(key):
+        v = out[key]
+        v = v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+        return v if index is None else v[index]
+    valid = get("valid")
+    return {(int(r), int(d)): float(m) for r, d, m, ok in zip(
+        get("range_bin"), get("doppler_bin"), get("mag"), valid) if ok}
+
+
+def map_set(det_map) -> dict:
+    """{(r, d): value} of the nonzero cells of a detection map."""
+    det_map = np.asarray(det_map)
+    r, d = np.nonzero(det_map)
+    return {(int(a), int(b)): float(det_map[a, b]) for a, b in zip(r, d)}
+
+
+def _golden_found(dets, targets, shape, dr: int = 2, dd: int = 1) -> bool:
+    """Every (range_bin, doppler_bins) target has a detection within
+    +-dr range bins and +-dd Doppler bins (Doppler wraps)."""
+    R, D = shape
+    for rbin, dopp, _ in targets:
+        db = int(round(dopp)) % D
+        if not any(abs(r - rbin) <= dr
+                   and min((d - db) % D, (db - d) % D) <= dd
+                   for r, d in dets):
+            return False
+    return True
+
+
+REL_TOL = 1e-5        # of the reference map's peak
+MAX_DIFF_FRAC = 0.2   # of the larger detection set
+
+
+def margin_gate(a: dict, b: dict, mag, threshold, scale, radius: int,
+                targets=None, capacity: int | None = None
+                ) -> tuple[bool, str]:
+    """Check detection sets ``a`` and ``b`` ({(r, d): mag}) against the
+    reference maps; returns (ok, report)."""
+    M = np.asarray(mag, np.float64)
+    T = np.asarray(threshold, np.float64)
+    S = np.asarray(scale, np.float64)
+    R, D = M.shape
+    tol = REL_TOL * float(np.max(M))
+    msgs = []
+    for key in sorted(a.keys() & b.keys()):
+        if abs(a[key] - b[key]) > tol:
+            msgs.append(f"common {key}: {a[key]} vs {b[key]} > tol {tol:.3g}")
+    r = radius
+    only = sorted(a.keys() ^ b.keys())
+    edge = -np.inf
+    if capacity is not None and capacity in (len(a), len(b)):
+        edge = max(min(s.values()) for s in (a, b) if s) + tol
+    for (rc, dc) in only:
+        if a.get((rc, dc), b.get((rc, dc))) <= edge:
+            continue
+        rows = [(rc + i) % R for i in range(-r, r + 1)]
+        cols = [(dc + j) % D for j in range(-r, r + 1)]
+        win = np.ix_(rows, cols)
+        at_threshold = np.any(np.abs(M[win] - T[win]) <= (1.0 + S[win]) * tol)
+        tie = np.sum(np.abs(M[win] - M[rc, dc]) <= 2.0 * tol) > 1
+        if not (at_threshold or tie):
+            msgs.append(f"one-sided {(rc, dc)}: no decision margin "
+                        f"(M={M[rc, dc]:.6g}, T={T[rc, dc]:.6g})")
+    n = max(len(a), len(b), 1)
+    if len(only) > MAX_DIFF_FRAC * n:
+        msgs.append(f"{len(only)} of {n} detections differ "
+                    f"(> {MAX_DIFF_FRAC:.0%})")
+    if targets is not None:
+        for name, dets in (("a", a), ("b", b)):
+            if not _golden_found(dets, targets, (R, D)):
+                msgs.append(f"set {name} misses a golden target")
+    report = (f"{len(a)} vs {len(b)} detections, {len(only)} one-sided, "
+              f"tol {tol:.3g}")
+    return not msgs, "; ".join([report] + msgs)

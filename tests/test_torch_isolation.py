@@ -1,0 +1,187 @@
+"""The port stands alone and never hides the device or the kernel.
+
+* Importing fmcw_tpu_torch and every submodule loads neither jax nor
+  fmcw_tpu; chip_smoke.py imports neither.
+* Entry points run on CUDA unless the caller asks for the CPU: without a
+  card, make_processor() raises instead of carrying on on the CPU.
+* A kernel wrapper takes its plain twin only for a CPU tensor; for a CUDA
+  tensor it launches the kernel (checked here with a stand-in library, as
+  there is no card) and raises when the launch fails — no fallback.
+"""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import fmcw_tpu_torch
+from fmcw_tpu_torch import kernels
+from fmcw_tpu_torch.models import pipeline as tpl
+from fmcw_tpu_torch.ops import frontend as F
+
+# Share the CPU with the other test workers (the suite runs 6 at once).
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _submodules():
+    names = ["fmcw_tpu_torch"]
+    for info in pkgutil.walk_packages(fmcw_tpu_torch.__path__,
+                                      "fmcw_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_import_loads_neither_jax_nor_fmcw_tpu():
+    names = _submodules()
+    assert "fmcw_tpu_torch.ops.frontend" in names
+    code = (
+        "import importlib, sys\n"
+        f"for n in {names!r}:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'fmcw_tpu'))\n"
+        "print(','.join(bad))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "fmcw_tpu_torch"])
+def test_sources_import_neither_jax_nor_fmcw_tpu(path):
+    files = ([ROOT / path] if path.endswith(".py")
+             else sorted((ROOT / path).rglob("*.py")))
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in ("jax", "jaxlib", "fmcw_tpu"), \
+                    f"{f.name} imports {m}"
+
+
+def test_processor_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpl.make_processor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpl.make_batch_processor(fmcw_tpu_torch.quick(), device="cuda")
+
+
+def test_chip_smoke_exits_nonzero_without_cuda():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def _iq(p, batch=1):
+    from fmcw_tpu_torch.golden import reference
+    frame = tpl.complex_to_iq(reference.two_target_frame(p))
+    return torch.as_tensor(np.stack([frame] * batch))
+
+
+def test_wrappers_take_plain_twin_on_cpu(monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU tensor must not build or launch")
+    monkeypatch.setattr(kernels, "load", no_build)
+    p = fmcw_tpu_torch.quick()
+    F.reset_launch_counts()
+    iq = _iq(p, 2)
+    re, im = F.range_fft(iq)
+    pre, pim = F.range_fft_plain(iq)
+    assert torch.equal(re, pre) and torch.equal(im, pim)
+    out = F.slowtime_detect(re, im, cfar=p.cfar, peak_group_radius=1)
+    plain = F.slowtime_detect_plain(re, im, cfar=p.cfar, peak_group_radius=1)
+    for a, b in zip(out, plain):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert F.range_fft.launches == 0 and F.slowtime_detect.launches == 0
+
+
+class _FakeLib:
+    """Stands in for the built library: records launches, returns ``err``."""
+
+    def __init__(self, err=0):
+        self.err = err
+        self.calls = []
+
+    def fmcw_range_fft(self, *args):
+        self.calls.append(("range_fft", args))
+        return self.err
+
+    def fmcw_slowtime_detect(self, *args):
+        self.calls.append(("slowtime_detect", args))
+        return self.err
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.fixture
+def as_if_cuda(monkeypatch):
+    """Route CPU tensors down the wrappers' CUDA branch with a stand-in
+    library; the plain twins must then not run."""
+    def forbidden(*a, **k):
+        raise AssertionError("plain twin called for a CUDA tensor")
+    monkeypatch.setattr(F, "_device_kind", lambda x: "cuda")
+    monkeypatch.setattr(F, "range_fft_plain", forbidden)
+    monkeypatch.setattr(F, "slowtime_detect_plain", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream())
+    lib = _FakeLib()
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    F.reset_launch_counts()
+    return lib
+
+
+def test_wrappers_launch_kernels_for_cuda_tensors(as_if_cuda):
+    p = fmcw_tpu_torch.RadarParams()
+    iq = _iq(fmcw_tpu_torch.RadarParams(), 2)
+    re, im = F.range_fft(iq)
+    assert tuple(re.shape) == (2, p.n_range, p.n_doppler)
+    det, mag, row_max, n_dets, nf = F.slowtime_detect(
+        re, im, False, 4, cfar=p.cfar, peak_group_radius=2, emit_mag=True)
+    assert [c[0] for c in as_if_cuda.calls] == ["range_fft",
+                                                "slowtime_detect"]
+    assert F.range_fft.launches == 1 and F.slowtime_detect.launches == 1
+    assert tuple(det.shape) == tuple(mag.shape) == (2, 1024, 128)
+    cfg = as_if_cuda.calls[1][1][9]._obj            # the byref'd config
+    assert (cfg.R, cfg.ND, cfg.T, cfg.H, cfg.so, cfg.pgr, cfg.block_mode) == \
+        (1024, 128, F.TILE_ROWS, 8, 4, 2, 0)
+    fast = fmcw_tpu_torch.fast()
+    F.slowtime_detect(re, im, cfar=fast.cfar, peak_group_radius=2)
+    cfg = as_if_cuda.calls[2][1][9]._obj
+    assert (cfg.H, cfg.block_mode, cfg.sb, cfg.n_blk, cfg.k_blk) == \
+        (24, 1, 8, 576, 144)
+
+
+def test_failed_launch_raises(as_if_cuda):
+    as_if_cuda.err = 1
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        F.range_fft(_iq(fmcw_tpu_torch.quick()))
+    assert F.range_fft.launches == 0
+
+
+def test_kernel_rejects_unported_configs(as_if_cuda):
+    p = fmcw_tpu_torch.quick()
+    re = torch.zeros((1, p.n_range, p.n_doppler))
+    ca = fmcw_tpu_torch.CfarParams(variant="ca")
+    with pytest.raises(NotImplementedError):
+        F.slowtime_detect(re, re, cfar=ca)
+    long_cpi = torch.zeros((1, 128, 256))
+    with pytest.raises(NotImplementedError):
+        F.slowtime_detect(long_cpi, long_cpi, cfar=p.cfar)
+    assert as_if_cuda.calls == []
