@@ -1,0 +1,303 @@
+// Shared device code of the CFAR decision: the 2D OS-CFAR decided by
+// counting (per-cell or block adaptive scale) and peak grouping, on a map
+// tile held in shared memory.  Used by slowtime_detect.cu (float32 maps),
+// slowtime_detect_fixed.cu (integer maps) and cfar_detect.cu (both).
+//
+// The counting form (fmcw_tpu/ops/cfar_pallas.py::_kernel_detect): for the
+// k-th largest training value est (k = n_ref - rank_idx),
+//     est >  T      <=>  count(refs >  T) >= k
+//     est <  T      <=>  count(refs >= T) <  k
+//     cut > est*s   <=>  count(refs >= q) <  k,
+// with q = ceil(cut / s) for integer maps (exact integer division) and, for
+// float maps, the smallest float whose rounded product with s reaches the
+// CUT (probed over the bit patterns just below cut / s).
+//
+// The decision is bit-identical to the plain twin (ops/cfar.py) on the same
+// map: every float operation is written with the _rn intrinsics (no
+// contraction into FMA, IEEE division), in the twin's order:
+//   * per-cell mean = (full box - guard box) / n_ref, each box an inner sum
+//     over rows ascending inside an outer sum over columns ascending;
+//   * block sums: rows of a block ascending, then its columns ascending;
+//     3x3-block neighbourhood Doppler-offset-major, range-offset-minor;
+//   * columns wrap modulo D; grouping ties go to the lower linear index.
+// Integer maps: floor mean, t_hi = mean + (mean >> 1), t_lo = mean >> 1
+// (fmcw_tpu/ops/cfar.py::cfar_2d, integer=True).
+//
+// A tile is E rows of D columns, row-major, whose rows are consecutive map
+// rows (the caller wraps rows modulo R when it fills the tile); a cell's
+// window must lie inside the tile's rows.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace fmcw {
+
+struct CfarGeom {
+    int hr, hd, gr, gd, n_ref, k;
+    int scale_min, scale_nom, scale_max;
+};
+
+__device__ __forceinline__ int wrap_col(int c, int D) {
+    return c < 0 ? c + D : (c >= D ? c - D : c);
+}
+
+__device__ __forceinline__ float vadd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ int vadd(int a, int b) { return a + b; }
+__device__ __forceinline__ float vsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ int vsub(int a, int b) { return a - b; }
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+    const int q = a / b;
+    return (q * b != a && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// Thresholds of the adaptive-scale classification from a sum over n cells.
+__device__ __forceinline__ void scale_thresholds(float sum, int n, float& t_hi,
+                                                 float& t_lo) {
+    const float mean = __fdiv_rn(sum, (float)n);
+    t_hi = __fmul_rn(1.5f, mean);
+    t_lo = __fmul_rn(0.5f, mean);
+}
+
+__device__ __forceinline__ void scale_thresholds(int sum, int n, int& t_hi,
+                                                 int& t_lo) {
+    const int mean = floor_div(sum, n);
+    t_hi = mean + (mean >> 1);
+    t_lo = mean >> 1;
+}
+
+__device__ __forceinline__ int classify(int hi, int lo, int k,
+                                        const CfarGeom& g) {
+    return hi >= k ? g.scale_max : (lo < k ? g.scale_min : g.scale_nom);
+}
+
+// Box sum over rows e-rr..e+rr and columns d-dd..d+dd (wrapped): inner sum
+// over rows ascending, outer over columns ascending.
+template <typename V>
+__device__ __forceinline__ V box_sum(const V* t, int D, int e, int d, int rr,
+                                     int dd) {
+    V acc = V(0);
+    for (int j = -dd; j <= dd; ++j) {
+        const V* col = t + wrap_col(d + j, D);
+        V cs = col[(e - rr) * D];
+        for (int i = -rr + 1; i <= rr; ++i) cs = vadd(cs, col[(e + i) * D]);
+        acc = (j == -dd) ? cs : vadd(acc, cs);
+    }
+    return acc;
+}
+
+// Per-cell adaptive scale of the cell at tile row e, column d
+// (os_cfar_2d.vhd:187-199, by counting).
+template <typename V>
+__device__ __forceinline__ int percell_scale(const V* t, int D, int e, int d,
+                                             const CfarGeom& g) {
+    const V full = box_sum(t, D, e, d, g.hr, g.hd);
+    const V guard = box_sum(t, D, e, d, g.gr, g.gd);
+    V t_hi, t_lo;
+    scale_thresholds(vsub(full, guard), g.n_ref, t_hi, t_lo);
+    int hi = 0, lo = 0;
+    for (int dd = -g.hd; dd <= g.hd; ++dd) {
+        const V* col = t + wrap_col(d + dd, D);
+        const bool gcol = dd >= -g.gd && dd <= g.gd;
+        for (int dr = -g.hr; dr <= g.hr; ++dr) {
+            if (gcol && dr >= -g.gr && dr <= g.gr) continue;
+            const V v = col[(e + dr) * D];
+            hi += v > t_hi;
+            lo += v >= t_lo;
+        }
+    }
+    return classify(hi, lo, g.k, g);
+}
+
+// q with (ref >= q  <=>  ref * sc >= cut): the smallest float whose rounded
+// product with sc reaches cut (within two ulps below RN(cut / sc)) ...
+__device__ __forceinline__ float detect_threshold(float cut, int sc) {
+    const float sf = (float)sc;
+    const unsigned ti = (unsigned)__float_as_int(__fdiv_rn(cut, sf));
+    float q = __int_as_float((int)(ti + 1u));
+    for (int delta = 0; delta >= -2; --delta) {
+        const float cand = __int_as_float((int)(ti + (unsigned)delta));
+        if (__fmul_rn(cand, sf) >= cut) q = cand;
+    }
+    return q;
+}
+
+// ... and ceil(cut / sc) for integers (sc > 0).
+__device__ __forceinline__ int detect_threshold(int cut, int sc) {
+    return floor_div(cut - 1, sc) + 1;
+}
+
+// The OS-CFAR decision cut > est * sc of the cell at tile row e, column d.
+template <typename V>
+__device__ __forceinline__ bool os_detect(const V* t, int D, int e, int d,
+                                          V cut, int sc, const CfarGeom& g) {
+    const V q = detect_threshold(cut, sc);
+    int cnt = 0;
+    for (int dd = -g.hd; dd <= g.hd; ++dd) {
+        const V* col = t + wrap_col(d + dd, D);
+        const bool gcol = dd >= -g.gd && dd <= g.gd;
+        for (int dr = -g.hr; dr <= g.hr; ++dr) {
+            if (gcol && dr >= -g.gr && dr <= g.gr) continue;
+            cnt += col[(e + dr) * D] >= q;
+        }
+    }
+    return cnt < g.k && cut > V(0);
+}
+
+// Block (clutter-map) scale of the block rows of an E x D tile whose
+// 3x3-block neighbourhood lies inside it (block rows 2 .. E/sb - 3).  The
+// tile's first row must start a block.  bsum/bnb hold E/sb * D/sb values,
+// bhi/blo/bscale as many ints; bscale[lb * (D/sb) + db] is the result.
+// All threads of the block call it.
+template <typename V>
+__device__ void block_scale_tile(const V* mag_s, int E, int D, int sb,
+                                 int n_blk, int k_blk, const CfarGeom& g,
+                                 V* bsum, V* bnb, int* bhi, int* blo,
+                                 int* bscale) {
+    const int nbd = D / sb;
+    const int nbr = E / sb;
+    const int nblk = nbr * nbd;
+    for (int idx = threadIdx.x; idx < nblk; idx += blockDim.x) {
+        const int lb = idx / nbd, db = idx % nbd;
+        V s = V(0);
+        for (int j = 0; j < sb; ++j) {
+            const V* col = mag_s + lb * sb * D + db * sb + j;
+            V rs = col[0];
+            for (int i = 1; i < sb; ++i) rs = vadd(rs, col[i * D]);
+            s = (j == 0) ? rs : vadd(s, rs);
+        }
+        bsum[idx] = s;
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nblk; idx += blockDim.x) {
+        const int lb = idx / nbd, db = idx % nbd;
+        if (lb < 1 || lb >= nbr - 1) continue;
+        V acc = V(0);
+        bool first = true;
+        for (int di = -1; di <= 1; ++di) {
+            const int dbn = (db + di + nbd) % nbd;
+            for (int dr = -1; dr <= 1; ++dr) {
+                const V v = bsum[(lb + dr) * nbd + dbn];
+                acc = first ? v : vadd(acc, v);
+                first = false;
+            }
+        }
+        bnb[idx] = acc;
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nblk; idx += blockDim.x) {
+        const int lb = idx / nbd, db = idx % nbd;
+        if (lb < 1 || lb >= nbr - 1) continue;
+        V t_hi, t_lo;
+        scale_thresholds(bnb[idx], n_blk, t_hi, t_lo);
+        int hi = 0, lo = 0;
+        for (int i = 0; i < sb; ++i) {
+            const V* row = mag_s + (lb * sb + i) * D + db * sb;
+            for (int j = 0; j < sb; ++j) {
+                hi += row[j] > t_hi;
+                lo += row[j] >= t_lo;
+            }
+        }
+        bhi[idx] = hi;
+        blo[idx] = lo;
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nblk; idx += blockDim.x) {
+        const int lb = idx / nbd, db = idx % nbd;
+        if (lb < 2 || lb >= nbr - 2) continue;
+        int hi = 0, lo = 0;
+        for (int di = -1; di <= 1; ++di) {
+            const int dbn = (db + di + nbd) % nbd;
+            for (int dr = -1; dr <= 1; ++dr) {
+                hi += bhi[(lb + dr) * nbd + dbn];
+                lo += blo[(lb + dr) * nbd + dbn];
+            }
+        }
+        bscale[idx] = classify(hi, lo, k_blk, g);
+    }
+    __syncthreads();
+}
+
+// CFAR decision of tile rows e0 .. e0 + rows - 1 into det_s (rows x D):
+// the CUT where it passes, else 0.  Block mode reads the scale of each
+// cell's block from bscale (block_scale_tile); so != 0 overrides the scale.
+template <typename V>
+__device__ void decide_rows(const V* mag_s, V* det_s, int e0, int rows, int D,
+                            const int* bscale, int sb, bool block_mode, int so,
+                            const CfarGeom& g) {
+    const int nbd = block_mode ? D / sb : 1;
+    for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
+        const int e = e0 + idx / D;
+        const int d = idx % D;
+        const V cut = mag_s[e * D + d];
+        int sc = block_mode ? bscale[(e / sb) * nbd + d / sb]
+                            : percell_scale(mag_s, D, e, d, g);
+        if (so != 0) sc = so;
+        det_s[idx] = os_detect(mag_s, D, e, d, cut, sc, g) ? cut : V(0);
+    }
+}
+
+// Peak grouping: is the detection m at det_s row er (map row r), column d
+// the strict maximum of its (2 pgr + 1)^2 wrapped neighbourhood, ties going
+// to the lower linear index?
+template <typename V>
+__device__ __forceinline__ bool group_keep(const V* det_s, int D, int er,
+                                           int r, int d, int R, int pgr,
+                                           V m) {
+    const int id = r * D + d;
+    for (int dr = -pgr; dr <= pgr; ++dr) {
+        const int nr = ((r + dr) % R + R) % R;
+        for (int dd = -pgr; dd <= pgr; ++dd) {
+            if (dr == 0 && dd == 0) continue;
+            const int ndc = wrap_col(d + dd, D);
+            const V v = det_s[(er + dr) * D + ndc];
+            if (v > m || (v == m && nr * D + ndc < id)) return false;
+        }
+    }
+    return true;
+}
+
+// Order-preserving int image of a non-negative value (for atomicMax).
+__device__ __forceinline__ int ordered(float v) { return __float_as_int(v); }
+__device__ __forceinline__ int ordered(int v) { return v; }
+__device__ __forceinline__ void from_ordered(int b, float* out) {
+    *out = __int_as_float(b);
+}
+__device__ __forceinline__ void from_ordered(int b, int* out) { *out = b; }
+__device__ __forceinline__ bool nonfinite(float v) { return !isfinite(v); }
+__device__ __forceinline__ bool nonfinite(int) { return false; }
+
+// Grouping and stores of a kernel tile's T rows (map rows r0 .. r0+T-1):
+// det_s holds the decisions of map rows r0-pgr .. r0+T+pgr-1, mag_s the
+// magnitudes with the tile's first row at mag_s row H.  Writes det (and
+// mag when non-null) at out0, the row maxima into rmax_s[T] (ordered ints,
+// zeroed by the caller) and adds the detection and non-finite counts into
+// counts[0] and counts[1].
+template <typename V>
+__device__ void group_store(const V* det_s, const V* mag_s, int T, int H,
+                            int pgr, int R, int D, int r0, size_t out0,
+                            V* det, V* mag, int* rmax_s, int* counts) {
+    int my_dets = 0, my_nf = 0;
+    for (int idx = threadIdx.x; idx < T * D; idx += blockDim.x) {
+        const int t = idx / D;
+        const int d = idx % D;
+        const int er = t + pgr;
+        const V m = det_s[er * D + d];
+        V out = m;
+        if (pgr > 0 && m > V(0) &&
+            !group_keep(det_s, D, er, r0 + t, d, R, pgr, m))
+            out = V(0);
+        det[out0 + idx] = out;
+        if (out > V(0)) {
+            ++my_dets;
+            atomicMax(&rmax_s[t], ordered(out));
+        }
+        const V mg = mag_s[(H + t) * D + d];
+        if (nonfinite(mg)) ++my_nf;
+        if (mag) mag[out0 + idx] = mg;
+    }
+    if (my_dets) atomicAdd(&counts[0], my_dets);
+    if (my_nf) atomicAdd(&counts[1], my_nf);
+}
+
+}  // namespace fmcw

@@ -20,7 +20,8 @@
 //  * the FFT runs in shared memory as a Stockham radix-4 (radix-2 for an odd
 //    power) autosort transform, in place: each stage reads its butterflies
 //    into registers, synchronises, and writes them back, so one buffer
-//    serves all stages and the output comes out in natural order;
+//    serves all stages and the output comes out in natural order
+//    (fft_stockham.cuh, shared with the fixed-point kernels);
 //  * twiddles W_n^m are a float32 table computed in float64 on the host
 //    (the way fmcw_tpu/ops/frontend_pallas.py::_ct_split builds its table);
 //  * the corner-turned store writes kChirps = 8 consecutive floats (one
@@ -32,102 +33,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fft_stockham.cuh"
+
 namespace {
 
 constexpr int kChirps = 8;      // chirps per block
 constexpr int kThreads = 256;
 constexpr int kPad = 4;         // row pad of the planar shared buffers
 constexpr int kMaxRange = 1024;
-
-template <int R>
-__device__ __forceinline__ void dft_small(float (&vr)[R], float (&vi)[R]);
-
-template <>
-__device__ __forceinline__ void dft_small<2>(float (&vr)[2], float (&vi)[2]) {
-    const float ar = vr[0], ai = vi[0];
-    vr[0] = ar + vr[1];
-    vi[0] = ai + vi[1];
-    vr[1] = ar - vr[1];
-    vi[1] = ai - vi[1];
-}
-
-template <>
-__device__ __forceinline__ void dft_small<4>(float (&vr)[4], float (&vi)[4]) {
-    // Forward 4-point DFT, W_4 = -i.
-    const float t0r = vr[0] + vr[2], t0i = vi[0] + vi[2];
-    const float t1r = vr[0] - vr[2], t1i = vi[0] - vi[2];
-    const float t2r = vr[1] + vr[3], t2i = vi[1] + vi[3];
-    const float t3r = vr[1] - vr[3], t3i = vi[1] - vi[3];
-    vr[0] = t0r + t2r;  vi[0] = t0i + t2i;
-    vr[2] = t0r - t2r;  vi[2] = t0i - t2i;
-    vr[1] = t1r + t3i;  vi[1] = t1i - t3r;   // t1 - i t3
-    vr[3] = t1r - t3i;  vi[3] = t1i + t3r;   // t1 + i t3
-}
-
-// One Stockham radix-R stage over the kChirps rows of the block, in place.
-// ns = product of the radices already applied.  Butterfly j of a row reads
-// x[j + r n/R], twiddles it by W_{ns R}^{r (j mod ns)}, and writes the R-point
-// DFT to x[(j - j mod ns) R + j mod ns + r ns].
-template <int R>
-__device__ __forceinline__ void stockham_stage(float* bre, float* bim,
-                                               const float2* tws, int log2n,
-                                               int log2ns) {
-    constexpr int kLog2R = R == 4 ? 2 : 1;
-    constexpr int kMax = kChirps * kMaxRange / R / kThreads;
-    const int n = 1 << log2n;
-    const int ns = 1 << log2ns;
-    const int log2nb = log2n - kLog2R;
-    const int nb = 1 << log2nb;
-    const int total = kChirps * nb;
-    const int stride = n + kPad;
-    const int tw_shift = log2n - log2ns - kLog2R;   // n / (ns R)
-    float vr[kMax][R], vi[kMax][R];
-#pragma unroll
-    for (int it = 0; it < kMax; ++it) {
-        const int idx = threadIdx.x + it * kThreads;
-        if (idx < total) {
-            const int g = idx >> log2nb;
-            const int j = idx & (nb - 1);
-            const int k = j & (ns - 1);
-            const float* pr = bre + g * stride;
-            const float* pi = bim + g * stride;
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-                float xr = pr[j + r * nb];
-                float xi = pi[j + r * nb];
-                if (r > 0) {
-                    const float2 w = tws[(r * k) << tw_shift];
-                    const float tr = xr * w.x - xi * w.y;
-                    const float ti = xr * w.y + xi * w.x;
-                    xr = tr;
-                    xi = ti;
-                }
-                vr[it][r] = xr;
-                vi[it][r] = xi;
-            }
-            dft_small<R>(vr[it], vi[it]);
-        }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int it = 0; it < kMax; ++it) {
-        const int idx = threadIdx.x + it * kThreads;
-        if (idx < total) {
-            const int g = idx >> log2nb;
-            const int j = idx & (nb - 1);
-            const int k = j & (ns - 1);
-            const int dst = (j - k) * R + k;
-            float* pr = bre + g * stride;
-            float* pi = bim + g * stride;
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-                pr[dst + r * ns] = vr[it][r];
-                pi[dst + r * ns] = vi[it][r];
-            }
-        }
-    }
-    __syncthreads();
-}
 
 __global__ void __launch_bounds__(kThreads)
 range_fft_kernel(const uint32_t* __restrict__ iq, const float* __restrict__ win,
@@ -155,12 +68,8 @@ range_fft_kernel(const uint32_t* __restrict__ iq, const float* __restrict__ win,
     }
     __syncthreads();
     // 2. Range FFT: radix-4 stages, one radix-2 stage for an odd power.
-    int log2ns = 0;
-    while (log2n - log2ns >= 2) {
-        stockham_stage<4>(bre, bim, tws, log2n, log2ns);
-        log2ns += 2;
-    }
-    if (log2n - log2ns == 1) stockham_stage<2>(bre, bim, tws, log2n, log2ns);
+    fmcw::stockham_fft<kChirps * kMaxRange, kThreads>(bre, bim, tws, kChirps,
+                                                      stride, log2n);
     // 3. Corner turn: range-major store, kChirps consecutive floats per row.
     float* dst_re = out_re + (size_t)b * n * nd + c0;
     float* dst_im = out_im + (size_t)b * n * nd + c0;

@@ -30,40 +30,22 @@
 // staged through shared memory 16 chirps at a time); the decision counts
 // straight from the shared magnitude tile.
 //
-// The decision must be bit-identical to the plain twin (ops/cfar.py) on the
-// same magnitudes: every float operation there is written here with the _rn
-// intrinsics (no contraction into FMA, IEEE division), in the twin's order:
-//   * per-cell mean = (full box - guard box) / n_ref, each box an inner sum
-//     over dr ascending inside an outer sum over dd ascending;
-//   * block sums: rows of a block ascending, then its columns ascending;
-//     3x3-block neighbourhood Doppler-offset-major, range-offset-minor;
-//   * q_min probes the bit patterns of cut/scale + 1, 0, -1, -2;
-//   * Doppler wraps modulo ND, range modulo R; grouping ties go to the lower
-//     linear index row * ND + col.
-// The product itself is held to the twin by tolerance (1e-5 of the peak).
+// The decision (cfar_common.cuh, shared with slowtime_detect_fixed.cu and
+// cfar_detect.cu) is bit-identical to the plain twin (ops/cfar.py) on the
+// same magnitudes; the product itself is held to the twin by tolerance
+// (1e-5 of the peak).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cfar_common.cuh"
+#include "slowtime_common.cuh"
+
 namespace {
 
+using fmcw::kMaxBlk;
 constexpr int kThreads = 512;
-constexpr int kMaxRows = 128;   // T + 2H
 constexpr int kKC = 16;         // chirps per GEMM step
-constexpr int kMaxBlk = 256;    // block-grid cells of a tile
-
-}  // namespace
-
-// Mirrors SlowtimeConfig in ops/frontend.py (ctypes.Structure, all int32).
-struct SlowtimeConfig {
-    int batch, R, ND, T, H;
-    int hr, hd, gr, gd, n_ref, k;
-    int scale_min, scale_nom, scale_max;
-    int block_mode, sb, n_blk, k_blk;
-    int so, pgr, exact_mag;
-};
-
-namespace {
 
 struct Params {
     const float* xr;
@@ -96,21 +78,6 @@ size_t smem_bytes(const SlowtimeConfig& c) {
            sizeof(float);
 }
 
-// Box sum over rows e-rr..e+rr and columns d-dd..d+dd (wrapped): inner sum
-// over rows ascending, outer over columns ascending.
-template <int ND>
-__device__ __forceinline__ float box_sum(const float* mag_s, int e, int d,
-                                         int rr, int dd) {
-    float acc = 0.f;
-    for (int j = -dd; j <= dd; ++j) {
-        const float* col = mag_s + ((d + j) & (ND - 1));
-        float cs = col[(e - rr) * ND];
-        for (int i = -rr + 1; i <= rr; ++i) cs = __fadd_rn(cs, col[(e + i) * ND]);
-        acc = (j == -dd) ? cs : __fadd_rn(acc, cs);
-    }
-    return acc;
-}
-
 template <int ND>
 __global__ void __launch_bounds__(kThreads, 1)
 slowtime_detect_kernel(const Params p) {
@@ -120,8 +87,8 @@ slowtime_detect_kernel(const Params p) {
     float* mag_s = smem;                          // E x ND magnitudes
     float* work = mag_s + E * ND;                 // GEMM staging, then det
     float* bsum = work + work_floats(c);          // block sums
-    float* bmean = bsum + kMaxBlk;                // block means
-    int* bhi = reinterpret_cast<int*>(bmean + kMaxBlk);
+    float* bnb = bsum + kMaxBlk;                  // 3x3-block sums
+    int* bhi = reinterpret_cast<int*>(bnb + kMaxBlk);
     int* blo = bhi + kMaxBlk;
     int* bscale = blo + kMaxBlk;
     int* rmax_s = bscale + kMaxBlk;               // T row maxima (float bits)
@@ -211,160 +178,22 @@ slowtime_detect_kernel(const Params p) {
     __syncthreads();
 
     // ---- 2a. Block (clutter-map) scale for the tile's block rows.
-    const int nbd = c.block_mode ? ND / c.sb : 1;
-    if (c.block_mode) {
-        const int sb = c.sb;
-        const int nbr = E / sb;
-        const int nblk = nbr * nbd;
-        for (int idx = tid; idx < nblk; idx += kThreads) {
-            const int lb = idx / nbd, db = idx % nbd;
-            float s = 0.f;
-            for (int j = 0; j < sb; ++j) {
-                const float* col = mag_s + lb * sb * ND + db * sb + j;
-                float rs = col[0];
-                for (int i = 1; i < sb; ++i) rs = __fadd_rn(rs, col[i * ND]);
-                s = (j == 0) ? rs : __fadd_rn(s, rs);
-            }
-            bsum[idx] = s;
-        }
-        __syncthreads();
-        for (int idx = tid; idx < nblk; idx += kThreads) {
-            const int lb = idx / nbd, db = idx % nbd;
-            if (lb < 1 || lb >= nbr - 1) continue;
-            float acc = 0.f;
-            bool first = true;
-            for (int di = -1; di <= 1; ++di) {
-                const int dbn = (db + di + nbd) % nbd;
-                for (int dr = -1; dr <= 1; ++dr) {
-                    const float v = bsum[(lb + dr) * nbd + dbn];
-                    acc = first ? v : __fadd_rn(acc, v);
-                    first = false;
-                }
-            }
-            bmean[idx] = __fdiv_rn(acc, (float)c.n_blk);
-        }
-        __syncthreads();
-        for (int idx = tid; idx < nblk; idx += kThreads) {
-            const int lb = idx / nbd, db = idx % nbd;
-            if (lb < 1 || lb >= nbr - 1) continue;
-            const float t_hi = __fmul_rn(1.5f, bmean[idx]);
-            const float t_lo = __fmul_rn(0.5f, bmean[idx]);
-            int hi = 0, lo = 0;
-            for (int i = 0; i < sb; ++i) {
-                const float* row = mag_s + (lb * sb + i) * ND + db * sb;
-                for (int j = 0; j < sb; ++j) {
-                    hi += row[j] > t_hi;
-                    lo += row[j] >= t_lo;
-                }
-            }
-            bhi[idx] = hi;
-            blo[idx] = lo;
-        }
-        __syncthreads();
-        for (int idx = tid; idx < nblk; idx += kThreads) {
-            const int lb = idx / nbd, db = idx % nbd;
-            if (lb < 2 || lb >= nbr - 2) continue;
-            int hi = 0, lo = 0;
-            for (int di = -1; di <= 1; ++di) {
-                const int dbn = (db + di + nbd) % nbd;
-                for (int dr = -1; dr <= 1; ++dr) {
-                    hi += bhi[(lb + dr) * nbd + dbn];
-                    lo += blo[(lb + dr) * nbd + dbn];
-                }
-            }
-            bscale[idx] = hi >= c.k_blk ? c.scale_max
-                                        : (lo < c.k_blk ? c.scale_min : c.scale_nom);
-        }
-        __syncthreads();
-    }
+    const fmcw::CfarGeom g{c.hr, c.hd, c.gr, c.gd, c.n_ref, c.k,
+                           c.scale_min, c.scale_nom, c.scale_max};
+    if (c.block_mode)
+        fmcw::block_scale_tile(mag_s, E, ND, c.sb, c.n_blk, c.k_blk, g, bsum,
+                               bnb, bhi, blo, bscale);
 
     // ---- 2b. CFAR decision for rows H-pgr .. H+T+pgr of the tile.
     float* det_s = work;
-    const int det_rows = c.T + 2 * c.pgr;
-    const int e0 = c.H - c.pgr;
-    for (int idx = tid; idx < det_rows * ND; idx += kThreads) {
-        const int e = e0 + idx / ND;
-        const int d = idx & (ND - 1);
-        const float cut = mag_s[e * ND + d];
-        int sc;
-        if (c.block_mode) {
-            sc = bscale[(e / c.sb) * nbd + d / c.sb];
-        } else {
-            const float full = box_sum<ND>(mag_s, e, d, c.hr, c.hd);
-            const float guard = box_sum<ND>(mag_s, e, d, c.gr, c.gd);
-            const float mean = __fdiv_rn(__fsub_rn(full, guard), (float)c.n_ref);
-            const float t_hi = __fmul_rn(1.5f, mean);
-            const float t_lo = __fmul_rn(0.5f, mean);
-            int hi = 0, lo = 0;
-            for (int dd = -c.hd; dd <= c.hd; ++dd) {
-                const float* col = mag_s + ((d + dd) & (ND - 1));
-                const bool gcol = dd >= -c.gd && dd <= c.gd;
-                for (int dr = -c.hr; dr <= c.hr; ++dr) {
-                    if (gcol && dr >= -c.gr && dr <= c.gr) continue;
-                    const float v = col[(e + dr) * ND];
-                    hi += v > t_hi;
-                    lo += v >= t_lo;
-                }
-            }
-            sc = hi >= c.k ? c.scale_max : (lo < c.k ? c.scale_min : c.scale_nom);
-        }
-        const float sf = (float)(c.so != 0 ? c.so : sc);
-        // Smallest float q with RN(q * sf) >= cut.
-        const unsigned ti = (unsigned)__float_as_int(__fdiv_rn(cut, sf));
-        float q = __int_as_float((int)(ti + 1u));
-        for (int delta = 0; delta >= -2; --delta) {
-            const float cand = __int_as_float((int)(ti + (unsigned)delta));
-            if (__fmul_rn(cand, sf) >= cut) q = cand;
-        }
-        int cnt = 0;
-        for (int dd = -c.hd; dd <= c.hd; ++dd) {
-            const float* col = mag_s + ((d + dd) & (ND - 1));
-            const bool gcol = dd >= -c.gd && dd <= c.gd;
-            for (int dr = -c.hr; dr <= c.hr; ++dr) {
-                if (gcol && dr >= -c.gr && dr <= c.gr) continue;
-                cnt += col[(e + dr) * ND] >= q;
-            }
-        }
-        det_s[idx] = (cnt < c.k && cut > 0.f) ? cut : 0.f;
-    }
+    fmcw::decide_rows(mag_s, det_s, c.H - c.pgr, c.T + 2 * c.pgr, ND, bscale,
+                      c.sb, c.block_mode != 0, c.so, g);
     __syncthreads();
 
     // ---- 3. Peak grouping, outputs, row maxima and counts for the T rows.
-    int my_dets = 0, my_nf = 0;
     const size_t out0 = ((size_t)b * c.R + r0) * ND;
-    for (int idx = tid; idx < c.T * ND; idx += kThreads) {
-        const int t = idx / ND;
-        const int d = idx & (ND - 1);
-        const int er = t + c.pgr;
-        const float m = det_s[er * ND + d];
-        float out = m;
-        if (c.pgr > 0 && m > 0.f) {
-            const int r = r0 + t;
-            const int id = r * ND + d;
-            for (int dr = -c.pgr; dr <= c.pgr && out > 0.f; ++dr) {
-                const int nr = ((r + dr) % c.R + c.R) % c.R;
-                for (int dd = -c.pgr; dd <= c.pgr; ++dd) {
-                    if (dr == 0 && dd == 0) continue;
-                    const int ndc = (d + dd) & (ND - 1);
-                    const float v = det_s[(er + dr) * ND + ndc];
-                    if (v > m || (v == m && nr * ND + ndc < id)) {
-                        out = 0.f;
-                        break;
-                    }
-                }
-            }
-        }
-        p.det[out0 + idx] = out;
-        if (out > 0.f) {
-            ++my_dets;
-            atomicMax(&rmax_s[t], __float_as_int(out));
-        }
-        const float mg = mag_s[(c.H + t) * ND + d];
-        if (!isfinite(mg)) ++my_nf;
-        if (p.mag) p.mag[out0 + idx] = mg;
-    }
-    if (my_dets) atomicAdd(&counts[0], my_dets);
-    if (my_nf) atomicAdd(&counts[1], my_nf);
+    fmcw::group_store(det_s, mag_s, c.T, c.H, c.pgr, c.R, ND, r0, out0, p.det,
+                      p.mag, rmax_s, counts);
     __syncthreads();
     for (int t = tid; t < c.T; t += kThreads)
         p.row_max[(size_t)b * c.R + r0 + t] = __int_as_float(rmax_s[t]);
@@ -386,20 +215,6 @@ int launch(const Params& p, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-bool config_ok(const SlowtimeConfig& c) {
-    const int E = c.T + 2 * c.H;
-    if (c.batch < 1 || c.batch > 65535 || c.T < 1 || c.R % c.T != 0 ||
-        E > kMaxRows || c.pgr < 0 || c.hr + c.pgr > c.H || c.hd >= c.ND ||
-        c.pgr >= c.ND)
-        return false;
-    if (c.block_mode) {
-        if (c.sb < 1 || c.T % c.sb || c.H % c.sb || c.ND % c.sb ||
-            c.H < 2 * c.sb + c.pgr || (E / c.sb) * (c.ND / c.sb) > kMaxBlk)
-            return false;
-    }
-    return true;
-}
-
 }  // namespace
 
 // xr/xi: float32 (batch, R, ND); mr/mi: float32 (ND, ND); det: float32
@@ -412,7 +227,7 @@ extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
                                     void* nonfinite, const SlowtimeConfig* cfg,
                                     void* stream) {
     const SlowtimeConfig c = *cfg;
-    if (!config_ok(c)) return (int)cudaErrorInvalidValue;
+    if (!fmcw::slowtime_config_ok(c)) return (int)cudaErrorInvalidValue;
     Params p{static_cast<const float*>(xr), static_cast<const float*>(xi),
              static_cast<const float*>(mr), static_cast<const float*>(mi),
              static_cast<float*>(det),       static_cast<float*>(mag),

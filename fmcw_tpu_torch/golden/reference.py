@@ -1,9 +1,11 @@
-"""Golden stimulus synthesis (pure numpy), copied from
+"""Golden stimulus and fixed-point chain (pure numpy), copied from
 ``fmcw_tpu/golden/reference.py``.
 
 ``two_target_frame``  <- rtl/old/tb_radar_core.vhd:37-44,101-141 — targets at
 range bin 100 (Doppler 5.0, amp 8000) and range bin 500 (Doppler -10.0, amp
 5000), uniform noise +-20.
+``process_frame_fixed`` — the fixed-point chain composed of the
+``fixed_point`` stages: the oracle of the port's ``mode="fixed"``.
 """
 
 from __future__ import annotations
@@ -53,3 +55,39 @@ def golden_targets(p: RadarParams):
     ``two_target_frame`` for the map shape of ``p``."""
     return [(100 * p.n_range // 1024, 5.0 * p.n_doppler / 128, 8000.0),
             (500 * p.n_range // 1024, -10.0 * p.n_doppler / 128, 5000.0)]
+
+
+def process_frame_fixed(frame_iq: np.ndarray, params: RadarParams | None = None,
+                        mti_bypass: bool = False, scale_override: int = 0,
+                        mti_transient: str = "zero",
+                        window_rounding: str = "unbiased"):
+    """Run the fixed-point chain on one (n_doppler, n_range) complex int frame.
+
+    With ``window_rounding="biased"`` and ``mti_transient="passthrough"`` every
+    stage is bit-faithful to the reference hardware; the defaults use the
+    framework's cleaned-up numerics.  The FFTs are the block-floating-point
+    ``bfp_fft`` (the stage-scaled variant is not ported; ROADMAP.md).
+    Returns (mag_map, det_map) int64 arrays of shape (n_range, n_doppler).
+    """
+    p = params or RadarParams()
+    z = np.asarray(frame_iq)
+    i_v, q_v = z.real.astype(np.int64), z.imag.astype(np.int64)
+
+    cr = fx.hamming_coeffs(p.n_range, p.coef_width)
+    i_v, q_v, _ = fx.window_apply(i_v, q_v, cr[None, :], p.coef_width,
+                                  rounding=window_rounding)
+    i_v, q_v = fx.bfp_fft(i_v, q_v, axis=1)
+
+    i_v, q_v = i_v.T, q_v.T  # corner turn -> (n_range, n_doppler)
+
+    i_v, q_v = fx.mti_notch(i_v, q_v, axis=1, mode=p.notch_mode,
+                            bypass=mti_bypass, transient=mti_transient)
+
+    cd = fx.hamming_coeffs(p.n_doppler, p.coef_width)
+    i_v, q_v, _ = fx.window_apply(i_v, q_v, cd[None, :], p.coef_width,
+                                  rounding=window_rounding)
+    i_v, q_v = fx.bfp_fft(i_v, q_v, axis=1)
+
+    mag = fx.magnitude(i_v, q_v)
+    det = fx.os_cfar_2d(mag, p.cfar, scale_override)
+    return mag, det

@@ -9,7 +9,10 @@ No ``--use_fast_math``: the CFAR decision relies on IEEE division and on
 denormals being kept.
 
 Nothing here runs at import time; ``load()`` is called by the kernel
-wrappers in ``ops/frontend.py`` when they are handed a CUDA tensor.
+wrappers (``ops/frontend.py``, ``ops/frontend_fixed.py``,
+``ops/cfar_detect.py``) when they are handed a CUDA tensor.  Each wrapper
+is registered with ``counted`` and carries ``launches``, the number of
+kernels it launched since ``reset_launch_counts()``.
 """
 
 from __future__ import annotations
@@ -23,19 +26,53 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("range_fft.cu", "slowtime_detect.cu")
+SOURCES = ("range_fft.cu", "slowtime_detect.cu", "range_fft_fixed.cu",
+           "slowtime_detect_fixed.cu", "cfar_detect.cu")
+HEADERS = ("fft_stockham.cuh", "cfar_common.cuh", "slowtime_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class SlowtimeConfig(ctypes.Structure):
-    """Mirror of ``struct SlowtimeConfig`` in csrc/slowtime_detect.cu."""
+    """Mirror of ``struct SlowtimeConfig`` in csrc/slowtime_common.cuh."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "batch", "R", "ND", "T", "H",
         "hr", "hd", "gr", "gd", "n_ref", "k",
         "scale_min", "scale_nom", "scale_max",
         "block_mode", "sb", "n_blk", "k_blk",
-        "so", "pgr", "exact_mag")]
+        "so", "pgr", "exact_mag",
+        "notch_mode", "transient_zero", "bypass", "rnd", "shift")]
+
+
+class CfarDetectConfig(ctypes.Structure):
+    """Mirror of ``struct CfarDetectConfig`` in csrc/cfar_detect.cu."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "batch", "R", "D", "T",
+        "hr", "hd", "gr", "gd", "n_ref", "k",
+        "scale_min", "scale_nom", "scale_max",
+        "block_mode", "so", "integer")]
+
+
+_counted = []
+
+
+def counted(fn):
+    """Register a kernel wrapper: ``fn.launches`` counts the kernels it has
+    launched (the wrapper adds one where it launches, nowhere else)."""
+    fn.launches = 0
+    _counted.append(fn)
+    return fn
+
+
+def reset_launch_counts() -> None:
+    """Set every registered wrapper's ``launches`` to 0."""
+    for fn in _counted:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """{wrapper name: launches} of every registered wrapper."""
+    return {fn.__name__: fn.launches for fn in _counted}
 
 
 class BuildInfo:
@@ -71,7 +108,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -90,7 +127,8 @@ def _build(out: Path) -> None:
             obj = out.parent / f"{Path(name).stem}_{out.stem}_{os.getpid()}.o"
             objs.append(obj)
             procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / name),
+                 "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         logs = []
         failed = []
@@ -136,6 +174,14 @@ def load() -> ctypes.CDLL:
     lib.fmcw_slowtime_detect.argtypes = [vp] * 9 + [
         ctypes.POINTER(SlowtimeConfig), vp]
     lib.fmcw_slowtime_detect.restype = ci
+    lib.fmcw_range_fft_fixed.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+    lib.fmcw_range_fft_fixed.restype = ci
+    lib.fmcw_slowtime_detect_fixed.argtypes = [vp] * 9 + [
+        ctypes.POINTER(SlowtimeConfig), vp]
+    lib.fmcw_slowtime_detect_fixed.restype = ci
+    lib.fmcw_cfar_detect.argtypes = [vp] * 4 + [
+        ctypes.POINTER(CfarDetectConfig), vp]
+    lib.fmcw_cfar_detect.restype = ci
     build_info.path = out
     _lib = lib
     return lib

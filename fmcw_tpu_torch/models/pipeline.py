@@ -1,22 +1,48 @@
 """Single-device radar pipeline — the port's "model".
 
-Port of ``fmcw_tpu/models/pipeline.py`` for the float32 main path:
+Port of ``fmcw_tpu/models/pipeline.py``, in its two numeric modes:
 
     window -> range FFT -> corner turn -> MTI -> window -> Doppler FFT
            -> magnitude -> 2D OS-CFAR -> peak group -> top-K detections
 
-On the card the chain up to the grouped detection map is two CUDA kernels
-(``ops/frontend.py``: ``range_fft`` then ``slowtime_detect``); the top-K
-selection is a stable PyTorch sort fed by the kernel's per-row maxima.  On
-the CPU the same wrappers take their plain PyTorch twins.
+* ``float32`` (production): windows and MTI folded into the transforms,
+  float magnitude and CFAR;
+* ``fixed`` (parity): the reference's 16-bit chain — integer Q15 windows
+  with saturation counts, per-transform block-floating-point quantization,
+  saturating MTI, integer magnitude and CFAR (``golden.reference.
+  process_frame_fixed`` is its oracle).
+
+and three routes (``frontend``):
+
+* ``"fused"`` — the front-end kernels: for float32 ``range_fft`` and
+  ``slowtime_detect`` (``ops/frontend.py``), for fixed ``range_fft_fixed``
+  and ``slowtime_detect_fixed`` (``ops/frontend_fixed.py``); the counterpart
+  of JAX's ``frontend="pallas"``;
+* ``"staged"`` — JAX's ``frontend="xla"`` chain: the stages as plain
+  PyTorch (dense DFTs, as XLA's matrix products: float32 for the float32
+  chain, float64 for the fixed chain, see ``ops/fft.py``) and the CFAR step
+  as the ``cfar_detect`` kernel (``ops/cfar_detect.py``);
+* ``"plain"`` — the kernels' plain twins on ``device`` (the reference the
+  kernels are held against, and the only route with CFAR debug taps).
+
+``"auto"`` takes "fused" for float32 and "staged" for fixed, as JAX's
+``auto`` keeps fixed mode on its XLA chain.  In the port both fixed routes
+transform in float64 and quantize to the golden model's values, so they
+give the same detections.  The fixed staged route's stages up to the
+magnitude are the same plain code the fused kernels' twins are made of
+(``ops/frontend_fixed.*_plain``): staged against fused repeats the
+kernel-against-twin check, and only ``golden.reference.
+process_frame_fixed`` is an independent witness.
+On a CPU tensor every kernel wrapper takes its plain twin.  The top-K
+selection is a stable PyTorch sort.
 
 Runtime controls (``mti_bypass``, ``scale_override``) are call arguments —
 the radar_core control ports (rtl/src/radar_core.vhd:48-49).
 
-Not yet ported (they raise ``NotImplementedError``): ``mode="fixed"``, the
-CA/GO/SO variants and reflect edges; on the kernels also long CPIs
-(n_doppler > 128).  The hw-compat streaming CFAR, the array model and
-sharding are not here yet (ROADMAP.md).
+Not yet ported (they raise ``NotImplementedError``, ROADMAP.md): the
+CA/GO/SO variants and reflect edges, ``fixed_fft="scaled"``,
+``cfar_geometry="hw_stream"``, and on the kernels long CPIs (n_doppler >
+128).  The array model and sharding are not here yet.
 """
 
 from __future__ import annotations
@@ -26,9 +52,18 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..params import RadarParams
 from ..ops import cfar as C, detect as DET
+from ..ops import frontend_fixed as FX
+from ..ops.cfar_detect import cfar_detect
+from ..ops.fft import dft_apply, doppler_apply
 from ..ops.frontend import rdm_frontend_detect
+from ..ops.magnitude import magnitude_float
+from ..ops.notch import check_notch
+from ..ops.window import window_rounding_constant
+
+FRONTENDS = ("auto", "staged", "fused", "plain")
 
 
 def complex_to_iq(frame: np.ndarray) -> np.ndarray:
@@ -38,26 +73,51 @@ def complex_to_iq(frame: np.ndarray) -> np.ndarray:
     return np.stack([z.real, z.imag], axis=-1).astype(np.int16)
 
 
-def _resolve_device(device=None) -> torch.device:
-    """The device a processor runs on: CUDA unless the caller names another.
-    Raises when CUDA is asked for (or implied) and there is none."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "fmcw_tpu_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' for the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+def resolve_frontend(mode: str, frontend: str) -> str:
+    """The route ``frontend`` names: "auto" is "fused" for float32 and
+    "staged" for fixed."""
+    if frontend not in FRONTENDS:
+        raise ValueError(f"frontend must be one of {FRONTENDS}, got "
+                         f"{frontend!r}")
+    if frontend == "auto":
+        return "fused" if mode == "float32" else "staged"
+    return frontend
+
+
+def _staged_float(iq, mti_bypass, p: RadarParams, transient: str,
+                  exact_mag: bool):
+    """JAX's float ``frontend="xla"`` transforms: the window folded into the
+    range DFT matrix, the slow-time chain as one matrix, the magnitude —
+    (B, nr, nd) float32."""
+    re, im = dft_apply(iq[..., 0].to(torch.float32),
+                       iq[..., 1].to(torch.float32), window=True)
+    yr, yi = doppler_apply(re.transpose(-1, -2), im.transpose(-1, -2),
+                           bool(mti_bypass), p.notch_mode, transient)
+    return magnitude_float(yr, yi, exact=exact_mag)
+
+
+def _staged_fixed(iq, mti_bypass, p: RadarParams, transient: str,
+                  rounding: str):
+    """JAX's fixed ``frontend="xla"`` transforms (``fixed_path``): the
+    fixed chain's stages up to the integer magnitude, the same plain PyTorch
+    stages the fused kernels' twins are made of — ((B, nr, nd) int32,
+    saturation count (B,))."""
+    re, im, sat_r = FX.range_fft_fixed_plain(iq, p.coef_width, rounding)
+    mag, sat_d = FX.slowtime_mag_fixed_plain(
+        re, im, mti_bypass, p.notch_mode, transient, p.coef_width, rounding)
+    return mag, sat_r + sat_d
 
 
 def make_batch_processor(params: RadarParams | None = None,
                          mode: str = "float32", frontend: str = "auto",
+                         window_rounding: str = "unbiased",
                          mti_transient: str = "zero",
                          peak_group_radius: int = 0,
                          magnitude_exact: bool = False,
                          include_maps: bool = True,
                          include_debug: bool = False,
+                         fixed_fft: str = "bfp",
+                         cfar_geometry: str = "named",
                          device=None) -> Callable:
     """Multi-frame processor: iq int16 (batch, n_doppler, n_range, 2)
     (numpy or tensor) -> dict of batched outputs.  The whole batch goes
@@ -67,34 +127,56 @@ def make_batch_processor(params: RadarParams | None = None,
     with, as ``fmcw_tpu.models.pipeline.make_processor``'s output and a
     leading batch axis on every entry:
 
-      range_bin/doppler_bin/mag/valid  top-K detection arrays (max_dets,)
+      range_bin/doppler_bin/mag/valid  top-K detection arrays (max_dets,);
+                        mag is float32, or int32 in fixed mode
       n_dets            total CFAR detection count
-      saturation_count  0 (float mode)
-      nonfinite_count   NaN/Inf cells in the magnitude map
+      saturation_count  the windows' saturated samples, I and Q counted
+                        separately (fixed mode; 0 in float32)
+      nonfinite_count   NaN/Inf cells in the magnitude map (0 in fixed)
       mag_map, det_map  (n_range, n_doppler)     [if include_maps]
       threshold_map, scale_map  CFAR debug taps  [if include_debug]
 
     ``device``: None means "cuda" (raises without one); pass "cpu" for the
-    plain path.  ``frontend``: "auto" runs the kernel wrappers (the CUDA
-    kernels on a CUDA device, their plain twins on the CPU); "plain" runs
-    the plain twins on ``device`` — the reference the kernels are held
-    against, and the only path with debug taps.
+    plain path.  ``frontend``: "auto", "staged", "fused" or "plain" (see the
+    module docstring).  ``window_rounding`` ("unbiased" or the reference's
+    "biased") applies to fixed mode, ``magnitude_exact`` to float32, as in
+    JAX.
     """
     p = params or RadarParams()
-    dev = _resolve_device(device)
-    if mode != "float32":
+    dev = resolve_device(device)
+    if mode not in ("float32", "fixed"):
+        raise ValueError(f"mode must be 'float32' or 'fixed', got {mode!r}")
+    if fixed_fft != "bfp":
+        if fixed_fft != "scaled":
+            raise ValueError(f"fixed_fft must be 'bfp' or 'scaled', got "
+                             f"{fixed_fft!r}")
         raise NotImplementedError(
-            f"mode={mode!r}: the port implements mode='float32' only so far "
-            f"(fixed mode is queued in ROADMAP.md)")
-    if frontend not in ("auto", "plain"):
-        raise ValueError(f"frontend must be 'auto' or 'plain', got "
-                         f"{frontend!r}")
+            "fixed_fft='scaled' (the stage-scaled XFFT arithmetic) is not "
+            "ported yet (ROADMAP.md)")
+    if cfar_geometry != "named":
+        if cfar_geometry != "hw_stream":
+            raise ValueError(f"cfar_geometry must be 'named' or 'hw_stream', "
+                             f"got {cfar_geometry!r}")
+        raise NotImplementedError(
+            "cfar_geometry='hw_stream' (the as-built streaming CFAR) is not "
+            "ported yet (ROADMAP.md)")
+    route = resolve_frontend(mode, frontend)
     C.check_supported(p.cfar)
-    if include_debug and frontend != "plain":
+    if include_debug and route != "plain":
         raise ValueError("include_debug (threshold/scale taps) needs "
                          "frontend='plain': the kernels decide by counting "
                          "and compute no threshold")
+    if mode == "fixed":
+        check_notch(p.notch_mode, mti_transient)
+        window_rounding_constant(p.coef_width, window_rounding)
+        if route == "fused" and not FX.fused_fixed_detect_supported(
+                p, peak_group_radius, include_debug):
+            raise ValueError(
+                "frontend='fused' with mode='fixed' runs the fused "
+                "fixed-point kernels, which need an OS wrap-edge CfarParams "
+                "fitting their tile (fused_fixed_detect_supported)")
     max_dets = p.tracker.max_dets
+    emit_mag = include_maps or include_debug
 
     def process(iq, mti_bypass=False, scale_override=0) -> dict:
         if tuple(iq.shape[1:]) != (p.n_doppler, p.n_range, 2):
@@ -102,22 +184,43 @@ def make_batch_processor(params: RadarParams | None = None,
                 f"expected iq batch of shape (batch, {p.n_doppler}, "
                 f"{p.n_range}, 2), got {tuple(iq.shape)}")
         iq = torch.as_tensor(iq).to(dev)
-        det, mag, nonfinite, row_max, n_dets = rdm_frontend_detect(
-            iq, bool(mti_bypass), int(scale_override), cfar=p.cfar,
-            notch_mode=p.notch_mode, transient=mti_transient,
-            exact_mag=magnitude_exact, peak_group_radius=peak_group_radius,
-            emit_mag=include_maps or include_debug,
-            plain=frontend == "plain")
+        bypass, so = bool(mti_bypass), int(scale_override)
+        row_max = n_dets = None
+        zeros = torch.zeros(iq.shape[0], dtype=torch.int32, device=dev)
+        sat = nonfinite = zeros
+        if route == "staged":
+            if mode == "fixed":
+                mag, sat = _staged_fixed(iq, bypass, p, mti_transient,
+                                         window_rounding)
+            else:
+                mag = _staged_float(iq, bypass, p, mti_transient,
+                                    magnitude_exact)
+                nonfinite = (~torch.isfinite(mag)).sum(
+                    dim=(-2, -1)).to(torch.int32)
+            det, _ = cfar_detect(mag, so, cfar=p.cfar)
+            det = C.peak_group(det, peak_group_radius)
+        elif mode == "fixed":
+            det, mag, sat, row_max, n_dets = FX.rdm_frontend_fixed_detect(
+                iq, bypass, so, cfar=p.cfar, notch_mode=p.notch_mode,
+                transient=mti_transient, coef_width=p.coef_width,
+                window_rounding=window_rounding,
+                peak_group_radius=peak_group_radius, emit_mag=emit_mag,
+                plain=route == "plain")
+        else:
+            det, mag, nonfinite, row_max, n_dets = rdm_frontend_detect(
+                iq, bypass, so, cfar=p.cfar, notch_mode=p.notch_mode,
+                transient=mti_transient, exact_mag=magnitude_exact,
+                peak_group_radius=peak_group_radius, emit_mag=emit_mag,
+                plain=route == "plain")
         out = DET.topk_detections(det, max_dets=max_dets, row_max=row_max,
                                   n_dets=n_dets)
-        out["saturation_count"] = torch.zeros_like(n_dets)
+        out["saturation_count"] = sat
         out["nonfinite_count"] = nonfinite
         if include_maps:
             out["mag_map"] = mag
             out["det_map"] = det
         if include_debug:
-            _, threshold, scale = C.cfar_2d(mag, int(scale_override), p.cfar,
-                                            need_debug=True)
+            _, threshold, scale = C.cfar_2d(mag, so, p.cfar, need_debug=True)
             out["threshold_map"] = threshold
             out["scale_map"] = scale
         return out

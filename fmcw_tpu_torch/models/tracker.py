@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..params import TrackerParams
 from ..golden.tracker import FREE, TENTATIVE, FIRM, COAST
 
@@ -41,7 +42,10 @@ def _wrapu(v, bits):
 
 
 def init_state(tp: TrackerParams | None = None, device=None) -> dict:
+    """An empty track file on ``device`` (None means CUDA; raises without
+    a card — pass device="cpu" for the CPU)."""
     tp = tp or TrackerParams()
+    device = resolve_device(device)
     z = torch.zeros(tp.max_tracks, dtype=torch.int32, device=device)
     st = {k: z.clone() for k in (
         "active", "status", "range_pos", "dopp_pos", "range_vel",
@@ -53,7 +57,9 @@ def init_state(tp: TrackerParams | None = None, device=None) -> dict:
 
 
 def state_from_numpy(state: dict, device=None) -> dict:
-    """A tracker state of numpy (or JAX) int arrays -> int32 tensors."""
+    """A tracker state of numpy (or JAX) int arrays -> int32 tensors on
+    ``device`` (None means CUDA, as ``init_state``)."""
+    device = resolve_device(device)
     return {k: torch.as_tensor(np.array(v), device=device).to(torch.int32)
             for k, v in state.items()}
 

@@ -24,6 +24,12 @@ and twin make bit-identical decisions on the same magnitudes:
   3x3-block neighborhood summed Doppler-offset-major, range-offset-minor
   (the term order of ``fmcw_tpu/ops/cfar.block_scale_map``).
 
+Integer maps (the fixed-point chain; any integer dtype) take the integer
+semantics of ``fmcw_tpu/ops/cfar.cfar_2d(integer=True)``: floor mean,
+t_hi = mean + (mean>>1), t_lo = mean>>1, and the exact decision
+cut > est*scale  <=>  count(refs >= ceil(cut/scale)) < k.  Float maps are
+float32.  The plain twin of ``csrc/cfar_detect.cu`` too (``ops/cfar_detect``).
+
 All functions take maps with any leading batch dimensions, ``(..., R, D)``,
 wrap edges (the torus of the reference's line buffers).
 """
@@ -82,10 +88,35 @@ def _q_min(cut: torch.Tensor, scale_f: torch.Tensor) -> torch.Tensor:
 
 
 def _div(a: torch.Tensor, n: int) -> torch.Tensor:
-    """IEEE a / n elementwise.  (A Python scalar divisor would let PyTorch's
-    CUDA path multiply by its reciprocal instead, which can differ by an
-    ulp from the kernel's division.)"""
+    """IEEE a / n elementwise for float maps (a Python scalar divisor would
+    let PyTorch's CUDA path multiply by its reciprocal instead, which can
+    differ by an ulp from the kernel's division); floor division for
+    integer maps."""
+    if not a.is_floating_point():
+        return torch.div(a, n, rounding_mode="floor")
     return a / torch.full_like(a, float(n))
+
+
+def _thresholds(mean: torch.Tensor):
+    """(t_hi, t_lo) of the adaptive-scale classification: 1.5x / 0.5x the
+    mean, or mean + (mean>>1) / mean>>1 for integer maps."""
+    if not mean.is_floating_point():
+        return mean + (mean >> 1), mean >> 1
+    return 1.5 * mean, 0.5 * mean
+
+
+def _as_map(mag: torch.Tensor) -> torch.Tensor:
+    """float32 for float maps, int32 for integer maps."""
+    return mag.to(torch.float32 if mag.is_floating_point() else torch.int32)
+
+
+def _fold_override(scale: torch.Tensor, scale_override: int) -> torch.Tensor:
+    if int(scale_override) < 0:
+        raise ValueError(f"scale_override must be >= 0 (0 = adaptive), got "
+                         f"{scale_override}")
+    if int(scale_override) != 0:
+        return torch.full_like(scale, int(scale_override))
+    return scale
 
 
 def _block_k(cfar: CfarParams):
@@ -132,16 +163,16 @@ def block_scale_map(mag: torch.Tensor, cfar: CfarParams) -> torch.Tensor:
     scale_max when >= k of its neighborhood's 9*B^2 cells exceed hi,
     scale_min when < k of them count lo, else scale_nom
     (k = 9*B^2 - rank_idx).  Semantics of fmcw_tpu/ops/cfar.block_scale_map
-    (float mode)."""
+    (integer mode for integer maps)."""
     b = cfar.scale_block
     R, D = mag.shape[-2:]
     if R % b or D % b:
         raise ValueError(f"scale_block={b} must divide map shape {(R, D)}")
     n, k = _block_k(cfar)
-    m = mag.to(torch.float32)
-    mean = _to_cells(_div(_nb9(_block_reduce(m, b)), n), b)
-    cnt_hi = _nb9(_block_reduce((m > 1.5 * mean).to(torch.int32), b))
-    cnt_lo = _nb9(_block_reduce((m >= 0.5 * mean).to(torch.int32), b))
+    m = _as_map(mag)
+    t_hi, t_lo = _thresholds(_to_cells(_div(_nb9(_block_reduce(m, b)), n), b))
+    cnt_hi = _nb9(_block_reduce((m > t_hi).to(torch.int32), b))
+    cnt_lo = _nb9(_block_reduce((m >= t_lo).to(torch.int32), b))
     scale_b = torch.where(cnt_hi >= k, cfar.scale_max,
                           torch.where(cnt_lo < k, cfar.scale_min,
                                       cfar.scale_nom))
@@ -149,17 +180,21 @@ def block_scale_map(mag: torch.Tensor, cfar: CfarParams) -> torch.Tensor:
 
 
 def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
-            cfar: CfarParams = CfarParams(), need_debug: bool = False):
-    """2D OS-CFAR over (..., R, D) float32 magnitude maps.
+            cfar: CfarParams = CfarParams(), need_debug: bool = False,
+            scale_map: torch.Tensor | None = None):
+    """2D OS-CFAR over (..., R, D) magnitude maps, float32 or integer.
 
     Returns ``(det, threshold, scale)``: the zero-suppressed detection map
-    (the CUT where it exceeds est*scale, else 0, os_cfar_2d.vhd:204-217),
-    the threshold est*scale (only with ``need_debug``, else None — it needs
-    the rank stack, (..., R, D, n_ref) floats) and the int32 scale map.
-    ``scale_override`` != 0 replaces the adaptive scale (the cfar_scale_ovr
-    control port, radar_core.vhd:49)."""
+    (the CUT where it exceeds est*scale, else 0, os_cfar_2d.vhd:204-217;
+    float32 or int32 like the map), the threshold est*scale (only with
+    ``need_debug``, else None — it needs the rank stack, (..., R, D, n_ref)
+    values) and the int32 scale map.  ``scale_override`` != 0 replaces the
+    adaptive scale (the cfar_scale_ovr control port, radar_core.vhd:49).
+    ``scale_map`` (block scale only): a precomputed int32 scale map, as
+    ``fmcw_tpu/ops/cfar.cfar_2d(scale_map=...)`` takes it."""
     check_supported(cfar)
-    m = mag.to(torch.float32)
+    m = _as_map(mag)
+    integer = not m.is_floating_point()
     R, D = m.shape[-2:]
     hr, hd = cfar.halo_range, cfar.halo_doppler
     k = cfar.n_ref - cfar.rank_idx
@@ -170,15 +205,16 @@ def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
         return p[..., hr + dr:hr + dr + R, hd + dd:hd + dd + D]
 
     if cfar.scale_mode == "block":
-        scale = block_scale_map(m, cfar)
+        scale = (block_scale_map(m, cfar) if scale_map is None
+                 else scale_map.to(torch.int32))
     else:
+        if scale_map is not None:
+            raise ValueError("scale_map applies to scale_mode='block'")
         gr, gd = cfar.guard_range, cfar.guard_doppler
         pg = p[..., hr - gr:hr + gr + R, hd - gd:hd + gd + D]
         sum_refs = (_box_sum(p, cfar.win_range, cfar.win_doppler)
                     - _box_sum(pg, 2 * gr + 1, 2 * gd + 1))
-        mean = _div(sum_refs, cfar.n_ref)
-        t_hi = 1.5 * mean
-        t_lo = 0.5 * mean
+        t_hi, t_lo = _thresholds(_div(sum_refs, cfar.n_ref))
         cnt_hi = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
         cnt_lo = torch.zeros_like(cnt_hi)
         for dr, dd in offsets:
@@ -188,10 +224,12 @@ def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
         scale = torch.where(cnt_hi >= k, cfar.scale_max,
                             torch.where(cnt_lo < k, cfar.scale_min,
                                         cfar.scale_nom)).to(torch.int32)
-    if int(scale_override) != 0:
-        scale = torch.full_like(scale, int(scale_override))
-    scale_f = scale.to(torch.float32)
-    q = _q_min(m, scale_f)
+    scale = _fold_override(scale, scale_override)
+    if integer:
+        # refs*scale >= cut  <=>  refs >= ceil(cut/scale), exactly.
+        q = torch.div(m - 1, scale, rounding_mode="floor") + 1
+    else:
+        q = _q_min(m, scale.to(torch.float32))
     cnt = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
     for dr, dd in offsets:
         cnt += ref(dr, dd) >= q
@@ -200,14 +238,15 @@ def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
     if need_debug:
         refs = torch.stack([ref(dr, dd) for dr, dd in offsets], dim=-1)
         est = torch.topk(refs, k, dim=-1).values[..., -1]
-        threshold = est * scale_f
+        threshold = est * (scale if integer else scale.to(torch.float32))
     return det, threshold, scale
 
 
 def peak_group(det: torch.Tensor, radius: int = 1) -> torch.Tensor:
     """Peak grouping: keep detections that are the strict local max of their
     (2r+1)^2 wrapped neighborhood, ties broken toward the lower linear index
-    (row * D + col) — the semantics of fmcw_tpu/ops/cfar.peak_group."""
+    (row * D + col) — the semantics of fmcw_tpu/ops/cfar.peak_group.  Float
+    or integer maps."""
     if radius <= 0:
         return det
     R, D = det.shape[-2:]
@@ -215,7 +254,9 @@ def peak_group(det: torch.Tensor, radius: int = 1) -> torch.Tensor:
     ids = (torch.arange(R, device=det.device, dtype=torch.int32)[:, None] * D
            + torch.arange(D, device=det.device, dtype=torch.int32)[None, :])
     pid = _wrap_pad(ids, radius, radius)
-    best = torch.full_like(det, float("-inf"))
+    lowest = (float("-inf") if det.is_floating_point()
+              else torch.iinfo(det.dtype).min)
+    best = torch.full_like(det, lowest)
     best_id = torch.zeros(det.shape, dtype=torch.int32, device=det.device)
     for dr in range(2 * radius + 1):
         for dd in range(2 * radius + 1):

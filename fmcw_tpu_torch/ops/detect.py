@@ -25,9 +25,10 @@ def topk_detections(det_map: torch.Tensor, max_dets: int = 64,
                     row_max: torch.Tensor | None = None,
                     n_dets: torch.Tensor | None = None) -> dict:
     """Extract the ``max_dets`` strongest nonzero cells of (..., R, D)
-    detection maps.  Returns a dict with range_bin, doppler_bin (int32),
-    mag (float32), valid (bool) — each (..., max_dets) — and n_dets (total
-    nonzero count per map, int32; it may exceed max_dets).
+    detection maps, float32 or int32 (the fixed chain's).  Returns a dict
+    with range_bin, doppler_bin (int32), mag (the map's dtype), valid
+    (bool) — each (..., max_dets) — and n_dets (total nonzero count per
+    map, int32; it may exceed max_dets).
 
     Large maps use the exact row-select reduction of the JAX package: the
     ``max_dets`` rows with the largest row maxima (``row_max``, (..., R),

@@ -1,15 +1,26 @@
-"""DFT and slow-time operator matrices (numpy) and their plain PyTorch
-application.
+"""DFT and slow-time operator matrices (numpy), their plain PyTorch
+application, and the block-floating-point quantizer of the fixed chain.
 
-The matrices are built exactly as ``fmcw_tpu/ops/fft.py`` builds them
-(float64, then float32), so the port's constants are bit-identical to the
-JAX package's.  ``dft_apply`` / ``doppler_apply`` are the plain versions of
-the transforms, used by the kernels' twins in ``ops/frontend.py``; the main
-path on the card runs them inside the CUDA kernels instead.
+The float32 chain's matrices are built exactly as ``fmcw_tpu/ops/fft.py``
+builds them (float64, then float32), so the port's constants are
+bit-identical to the JAX package's.  ``dft_apply`` / ``doppler_apply`` are the
+plain versions of its transforms: the kernels' twins use them, and so do the
+staged chains (``frontend="staged"``), which JAX too leaves to plain matrix
+products.  Every float32 product runs in true float32 whatever the caller's
+TF32 or ``set_float32_matmul_precision`` setting (``full_fp32``).
+
+The fixed chain transforms in float64 (``dft64_apply``): its range DFT
+reaches ~3e7, where a float32 ulp is 2, so float32 transforms move quantized
+values by 1 LSB wherever a value lies near a rounding boundary, and a noisy
+frame's detection set with them.  In float64, with the twiddles exact at the
+quarter turns (``twiddles64``), the quantized values equal the float64 golden
+model's (``golden.fixed_point.bfp_fft``), and the fused kernels, which use
+the same twiddle table, equal both.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -18,13 +29,37 @@ import torch
 from .window import hamming_float
 
 
+@contextlib.contextmanager
+def full_fp32():
+    """Run float32 matrix products in IEEE float32 inside the block (no TF32
+    on the card, no bf16 passes on the CPU), restoring the caller's
+    per-backend settings afterwards.  Reads and sets the per-backend
+    ``fp32_precision`` knobs only: the legacy global getter raises for some
+    mixes of the legacy setters."""
+    knobs = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    saved = [k.fp32_precision for k in knobs]
+    for k in knobs:
+        k.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        for k, v in zip(knobs, saved):
+            k.fp32_precision = v
+
+
 @functools.lru_cache(maxsize=16)
-def dft_matrices(n: int):
-    """(cos, -sin) DFT matrices C[s, k] = exp(-2j*pi*s*k/n)."""
+def dft_matrices(n: int, window: bool = False, coef_width: int = 16):
+    """(cos, -sin) DFT matrices C[s, k] = exp(-2j*pi*s*k/n), optionally
+    pre-multiplied (in float64) by the Q15 Hamming window along the sample
+    axis, as ``fmcw_tpu/ops/fft.dft_matrices`` folds it."""
     s = np.arange(n)[:, None].astype(np.float64)
     k = np.arange(n)[None, :].astype(np.float64)
     ang = -2.0 * np.pi * s * k / n
-    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+    cr, ci = np.cos(ang), np.sin(ang)
+    if window:
+        w = hamming_float(n, coef_width).astype(np.float64)[:, None]
+        cr, ci = cr * w, ci * w
+    return cr.astype(np.float32), ci.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=16)
@@ -70,13 +105,14 @@ def doppler_matrices(n: int, notch_mode: int = 2, transient: str = "zero",
 
 def _cmatmul(xr, xi, cr, ci):
     """(xr + i xi) @ (cr + i ci) as four real float32 matrix products."""
-    return xr @ cr - xi @ ci, xr @ ci + xi @ cr
+    with full_fp32():
+        return xr @ cr - xi @ ci, xr @ ci + xi @ cr
 
 
-def dft_apply(re: torch.Tensor, im: torch.Tensor):
+def dft_apply(re: torch.Tensor, im: torch.Tensor, window: bool = False):
     """Forward DFT along the LAST axis of a complex tensor given as a float32
-    (re, im) pair."""
-    cr, ci = dft_matrices(re.shape[-1])
+    (re, im) pair; ``window`` folds the Hamming window into the matrix."""
+    cr, ci = dft_matrices(re.shape[-1], window)
     cr = torch.as_tensor(cr, device=re.device)
     ci = torch.as_tensor(ci, device=re.device)
     return _cmatmul(re, im, cr, ci)
@@ -91,3 +127,72 @@ def doppler_apply(re: torch.Tensor, im: torch.Tensor, bypass: bool,
     mr, mi = (mr0, mi0) if bypass else (mr1, mi1)
     return _cmatmul(re, im, torch.as_tensor(mr, device=re.device),
                     torch.as_tensor(mi, device=re.device))
+
+
+def twiddles64(n: int) -> np.ndarray:
+    """tw[m] = exp(-2j*pi*m/n), float64 complex, exact (0, +-1) at the
+    quarter turns: the rounded cos/sin of a multiple of pi/2 would leave a
+    1e-16 residue that breaks the exact round-half ties of integer-valued
+    bins (DC, Nyquist) in float64."""
+    m = np.arange(n)
+    ang = -2.0 * np.pi * m / n
+    tw = np.cos(ang) + 1j * np.sin(ang)
+    quarter = (4 * m) % n == 0
+    tw[quarter] = np.round(tw[quarter].real) + 1j * np.round(tw[quarter].imag)
+    return tw
+
+
+@functools.lru_cache(maxsize=16)
+def dft64_matrices(n: int, device: str = "cpu"):
+    """float64 (cos, -sin) DFT matrices C[s, k] = tw[s*k mod n] on
+    ``device``."""
+    s = np.arange(n)[:, None]
+    k = np.arange(n)[None, :]
+    c = twiddles64(n)[(s * k) % n]
+    return (torch.as_tensor(np.ascontiguousarray(c.real), device=device),
+            torch.as_tensor(np.ascontiguousarray(c.imag), device=device))
+
+
+def dft64_apply(re: torch.Tensor, im: torch.Tensor):
+    """Forward DFT along the LAST axis in float64: the fixed chain's plain
+    transform (the inputs are integer-valued; float64 (re, im) out)."""
+    cr, ci = dft64_matrices(re.shape[-1], str(re.device))
+    re, im = re.to(torch.float64), im.to(torch.float64)
+    return re @ cr - im @ ci, re @ ci + im @ cr
+
+
+def bfp_exponent(peak: torch.Tensor) -> torch.Tensor:
+    """Block exponent s = max(0, ceil(log2(max(peak, 1) / 2^15))) of float32
+    or float64 peaks, read exactly from the float bits (as
+    ``fmcw_tpu/ops/frontend_pallas._bfp_scale``): for p >= 1, ceil(log2 p) =
+    unbiased exponent + (mantissa != 0).  int32 (float32) or int64."""
+    if peak.dtype == torch.float64:
+        bits = torch.clamp(peak, min=1.0).view(torch.int64)
+        cl2 = (bits >> 52) - 1023 + ((bits & ((1 << 52) - 1)) != 0).long()
+    else:
+        bits = torch.clamp(peak.to(torch.float32), min=1.0).view(torch.int32)
+        cl2 = (bits >> 23) - 127 + ((bits & 0x7FFFFF) != 0).to(torch.int32)
+    return torch.clamp(cl2 - 15, min=0)
+
+
+def bfp_quantize(re: torch.Tensor, im: torch.Tensor, dim: int = -1):
+    """Per-transform block-floating-point quantization to int16 range
+    (port of ``fmcw_tpu/ops/fft.bfp_quantize``; semantics of
+    ``golden.fixed_point.bfp_fft``): scale each slice along ``dim`` by 2^-s
+    so its peak |component| lands in the top octave of int16, round half to
+    even, clip to int16, discard the exponent.  float32 or float64 in;
+    tensors of that type holding integers out.  The exponent comes from the
+    float bits (``bfp_exponent``), not from a log2, which rounds peaks just
+    above a power of two down (jnp.log2 in JAX's float32 chain does for
+    2^(15+k)*(1+2^-23), k >= 3)."""
+    peak = torch.maximum(re.abs(), im.abs()).amax(dim=dim, keepdim=True)
+    s = bfp_exponent(peak)
+    if re.dtype == torch.float64:
+        scale = ((1023 - s) << 52).view(torch.float64)
+    else:
+        scale = ((127 - s) << 23).view(torch.float32)
+
+    def q(x):
+        return torch.round(x * scale).clamp(-32768.0, 32767.0)
+
+    return q(re), q(im)

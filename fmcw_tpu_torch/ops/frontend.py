@@ -16,7 +16,8 @@ Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch twin (``range_fft_plain``, ``slowtime_detect_plain``) only for a CPU
 tensor; any other device raises.  ``range_fft.launches`` and
 ``slowtime_detect.launches`` count kernel launches (reset with
-``reset_launch_counts``).
+``reset_launch_counts``, which resets every kernel wrapper of the port).
+The fixed-point counterparts are in ``ops/frontend_fixed.py``.
 """
 
 from __future__ import annotations
@@ -38,9 +39,7 @@ from .window import hamming_float
 TILE_ROWS = 64
 
 
-def reset_launch_counts() -> None:
-    range_fft.launches = 0
-    slowtime_detect.launches = 0
+reset_launch_counts = kernels.reset_launch_counts
 
 
 @functools.lru_cache(maxsize=32)
@@ -73,6 +72,15 @@ def _device_kind(x: torch.Tensor) -> str:
 # Kernel A: window + range FFT + corner turn
 # ---------------------------------------------------------------------------
 
+def check_range_geometry(nr: int, nd: int, name: str = "range_fft"):
+    """Raises NotImplementedError for a frame that the range kernels (kernel
+    A and the fixed-point one) do not take."""
+    if nr & (nr - 1) or not 16 <= nr <= 1024 or nd % 8:
+        raise NotImplementedError(
+            f"{name} kernel needs n_range a power of two in [16, 1024] "
+            f"and n_doppler a multiple of 8; got {nr}x{nd}")
+
+
 def range_fft_plain(iq: torch.Tensor):
     """Plain twin of kernel A: window times the dense DFT (four float32
     matrix products), transposed to range-major.  iq int16 (B, nd, nr, 2)
@@ -84,6 +92,7 @@ def range_fft_plain(iq: torch.Tensor):
             im.transpose(-1, -2).contiguous())
 
 
+@kernels.counted
 def range_fft(iq: torch.Tensor):
     """Window + range FFT + corner turn of int16 frames (B, nd, nr, 2):
     returns planar float32 (re, im), each (B, nr, nd).  Launches the CUDA
@@ -94,10 +103,7 @@ def range_fft(iq: torch.Tensor):
     if _device_kind(iq) == "cpu":
         return range_fft_plain(iq)
     B, nd, nr, _ = iq.shape
-    if nr & (nr - 1) or not 16 <= nr <= 1024 or nd % 8:
-        raise NotImplementedError(
-            f"range_fft kernel needs n_range a power of two in [16, 1024] "
-            f"and n_doppler a multiple of 8; got {nr}x{nd}")
+    check_range_geometry(nr, nd)
     iq = iq.contiguous()
     if iq.data_ptr() % 4:
         iq = iq.clone()
@@ -165,15 +171,19 @@ def _kernel_halo(cfar: CfarParams, peak_group_radius: int) -> int:
 
 
 def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
-                     exact_mag):
+                     exact_mag=False, name="slowtime_detect"):
+    """The kernel-B tile geometry (shared with the fixed-point kernel);
+    raises NotImplementedError for what the kernels do not take."""
     if cfar.variant != "os" or cfar.edge_mode != "wrap":
         raise NotImplementedError(
-            "slowtime_detect kernel: OS variant with wrap edges only "
-            "(CA/GO/SO are queued in ROADMAP.md)")
+            f"{name} kernel: OS variant with wrap edges only "
+            f"(CA/GO/SO are queued in ROADMAP.md)")
     if nd not in (16, 32, 64, 128):
         raise NotImplementedError(
-            f"slowtime_detect kernel: n_doppler in (16, 32, 64, 128), got "
+            f"{name} kernel: n_doppler in (16, 32, 64, 128), got "
             f"{nd} (long CPIs are queued in ROADMAP.md)")
+    if int(scale_override) < 0:
+        raise ValueError(f"scale_override must be >= 0, got {scale_override}")
     tile = min(TILE_ROWS, nr)
     halo = _kernel_halo(cfar, peak_group_radius)
     block = cfar.scale_mode == "block"
@@ -185,7 +195,7 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
                              and (tile + 2 * halo) // sb * (nd // sb) <= 256)))
     if not ok:
         raise NotImplementedError(
-            f"slowtime_detect kernel: {nr}x{nd} map with {cfar} and "
+            f"{name} kernel: {nr}x{nd} map with {cfar} and "
             f"peak_group_radius={peak_group_radius} does not fit its tile "
             f"({tile} rows + 2 x {halo} halo rows <= 128)")
     return kernels.SlowtimeConfig(
@@ -200,6 +210,7 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
         exact_mag=int(bool(exact_mag)))
 
 
+@kernels.counted
 def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
                     scale_override=0, *, cfar: CfarParams,
                     notch_mode: int = 2, transient: str = "zero",
@@ -241,9 +252,6 @@ def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
     kernels.check(err, "slowtime_detect")
     slowtime_detect.launches += 1
     return det, mag, row_max, n_dets, nonfinite
-
-
-reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------

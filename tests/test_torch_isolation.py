@@ -3,7 +3,8 @@
 * Importing fmcw_tpu_torch and every submodule loads neither jax nor
   fmcw_tpu; chip_smoke.py imports neither.
 * Entry points run on CUDA unless the caller asks for the CPU: without a
-  card, make_processor() raises instead of carrying on on the CPU.
+  card, make_processor() and the tracker's init_state() /
+  state_from_numpy() raise instead of carrying on on the CPU.
 * A kernel wrapper takes its plain twin only for a CPU tensor; for a CUDA
   tensor it launches the kernel (checked here with a stand-in library, as
   there is no card) and raises when the launch fails — no fallback.
@@ -22,8 +23,10 @@ import torch
 
 import fmcw_tpu_torch
 from fmcw_tpu_torch import kernels
-from fmcw_tpu_torch.models import pipeline as tpl
+from fmcw_tpu_torch.models import pipeline as tpl, tracker as ttrk
+from fmcw_tpu_torch.ops import cfar_detect as CD
 from fmcw_tpu_torch.ops import frontend as F
+from fmcw_tpu_torch.ops import frontend_fixed as FX
 
 # Share the CPU with the other test workers (the suite runs 6 at once).
 torch.set_num_threads(2)
@@ -41,7 +44,9 @@ def _submodules():
 
 def test_import_loads_neither_jax_nor_fmcw_tpu():
     names = _submodules()
-    assert "fmcw_tpu_torch.ops.frontend" in names
+    assert {"fmcw_tpu_torch.ops.frontend", "fmcw_tpu_torch.ops.frontend_fixed",
+            "fmcw_tpu_torch.ops.cfar_detect", "fmcw_tpu_torch.ops.notch",
+            "fmcw_tpu_torch.device"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -78,6 +83,18 @@ def test_processor_defaults_to_cuda_and_raises_without_it(monkeypatch):
         tpl.make_processor()
     with pytest.raises(RuntimeError, match="CUDA"):
         tpl.make_batch_processor(fmcw_tpu_torch.quick(), device="cuda")
+
+
+def test_tracker_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttrk.init_state()
+    state = ttrk.init_state(device="cpu")
+    assert all(v.device.type == "cpu" for v in state.values())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttrk.state_from_numpy(ttrk.state_to_numpy(state))
+    again = ttrk.state_from_numpy(ttrk.state_to_numpy(state), device="cpu")
+    assert all(torch.equal(again[k], state[k]) for k in state)
 
 
 def test_chip_smoke_exits_nonzero_without_cuda():
@@ -126,6 +143,18 @@ class _FakeLib:
         self.calls.append(("slowtime_detect", args))
         return self.err
 
+    def fmcw_range_fft_fixed(self, *args):
+        self.calls.append(("range_fft_fixed", args))
+        return self.err
+
+    def fmcw_slowtime_detect_fixed(self, *args):
+        self.calls.append(("slowtime_detect_fixed", args))
+        return self.err
+
+    def fmcw_cfar_detect(self, *args):
+        self.calls.append(("cfar_detect", args))
+        return self.err
+
 
 class _Stream:
     cuda_stream = 0
@@ -140,6 +169,9 @@ def as_if_cuda(monkeypatch):
     monkeypatch.setattr(F, "_device_kind", lambda x: "cuda")
     monkeypatch.setattr(F, "range_fft_plain", forbidden)
     monkeypatch.setattr(F, "slowtime_detect_plain", forbidden)
+    monkeypatch.setattr(FX, "range_fft_fixed_plain", forbidden)
+    monkeypatch.setattr(FX, "slowtime_detect_fixed_plain", forbidden)
+    monkeypatch.setattr(CD, "cfar_detect_plain", forbidden)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream())
     lib = _FakeLib()
     monkeypatch.setattr(kernels, "load", lambda: lib)
@@ -185,3 +217,70 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
     with pytest.raises(NotImplementedError):
         F.slowtime_detect(long_cpi, long_cpi, cfar=p.cfar)
     assert as_if_cuda.calls == []
+
+
+def test_fixed_wrappers_take_plain_twin_on_cpu(monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU tensor must not build or launch")
+    monkeypatch.setattr(kernels, "load", no_build)
+    p = fmcw_tpu_torch.quick()
+    kernels.reset_launch_counts()
+    iq = _iq(p, 2)
+    out = FX.range_fft_fixed(iq)
+    for a, b in zip(out, FX.range_fft_fixed_plain(iq)):
+        assert torch.equal(a, b)
+    re, im, _ = out
+    out = FX.slowtime_detect_fixed(re, im, cfar=p.cfar, peak_group_radius=1)
+    plain = FX.slowtime_detect_fixed_plain(re, im, cfar=p.cfar,
+                                           peak_group_radius=1)
+    for a, b in zip(out, plain):
+        assert (a is None and b is None) or torch.equal(a, b)
+    mag = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 3000, (2, p.n_range, p.n_doppler)), dtype=torch.int32)
+    for a, b in zip(CD.cfar_detect(mag, cfar=p.cfar),
+                    CD.cfar_detect_plain(mag, cfar=p.cfar)):
+        assert torch.equal(a, b)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_fixed_wrappers_launch_kernels_for_cuda_tensors(as_if_cuda):
+    p = fmcw_tpu_torch.RadarParams()
+    iq = _iq(p, 2)
+    re, im, sat = FX.range_fft_fixed(iq, rounding="biased")
+    assert re.dtype == im.dtype == torch.int16
+    assert tuple(re.shape) == (2, p.n_range, p.n_doppler)
+    args = as_if_cuda.calls[0][1]
+    assert args[6:11] == (2, p.n_doppler, p.n_range, 1 << 14, 14)
+    det, mag, row_max, n_dets, sat_d = FX.slowtime_detect_fixed(
+        re, im, True, 4, cfar=p.cfar, notch_mode=3, transient="passthrough",
+        peak_group_radius=2, emit_mag=True)
+    assert det.dtype == mag.dtype == torch.int32
+    cfg = as_if_cuda.calls[1][1][9]._obj
+    assert (cfg.R, cfg.ND, cfg.so, cfg.pgr, cfg.notch_mode,
+            cfg.transient_zero, cfg.bypass, cfg.rnd, cfg.shift) == \
+        (1024, 128, 4, 2, 3, 0, 1, 1 << 13, 14)
+    fast = fmcw_tpu_torch.fast()
+    for cfar, block in ((p.cfar, 0), (fast.cfar, 1)):
+        d, scale = CD.cfar_detect(det, 3, cfar=cfar)
+        assert d.dtype == torch.int32 and scale.dtype == torch.int32
+        cfg = as_if_cuda.calls[-1][1][4]._obj
+        assert (cfg.R, cfg.D, cfg.block_mode, cfg.so, cfg.integer) == \
+            (1024, 128, block, 3, 1)
+        assert (as_if_cuda.calls[-1][1][1] is not None) == bool(block)
+    CD.cfar_detect(det.float(), cfar=p.cfar)
+    assert as_if_cuda.calls[-1][1][4]._obj.integer == 0
+    assert [c[0] for c in as_if_cuda.calls] == [
+        "range_fft_fixed", "slowtime_detect_fixed"] + ["cfar_detect"] * 3
+    assert (FX.range_fft_fixed.launches, FX.slowtime_detect_fixed.launches,
+            CD.cfar_detect.launches) == (1, 1, 3)
+
+
+def test_fixed_failed_launch_raises(as_if_cuda):
+    as_if_cuda.err = 1
+    p = fmcw_tpu_torch.quick()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        FX.range_fft_fixed(_iq(p))
+    mag = torch.zeros((1, p.n_range, p.n_doppler), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        CD.cfar_detect(mag, cfar=p.cfar)
+    assert FX.range_fft_fixed.launches == 0 and CD.cfar_detect.launches == 0

@@ -116,7 +116,10 @@ def test_processor_rejects_wrong_shape_and_unported_modes():
     with pytest.raises(ValueError):
         proc(np.zeros((2, p.n_doppler, p.n_range, 2), np.int16))
     with pytest.raises(NotImplementedError):
-        tpl.make_processor(p, mode="fixed", device="cpu")
+        tpl.make_processor(p, mode="fixed", fixed_fft="scaled", device="cpu")
+    with pytest.raises(NotImplementedError):
+        tpl.make_processor(p, mode="fixed", cfar_geometry="hw_stream",
+                           device="cpu")
     ca = p.replace(cfar=dataclasses.replace(p.cfar, variant="ca"))
     with pytest.raises(NotImplementedError):
         tpl.make_processor(ca, device="cpu")
@@ -154,7 +157,8 @@ def test_tracker_bit_equal_to_jax(assoc):
     tp = fmcw_tpu_torch.TrackerParams(assoc=assoc)
     jtp = fmcw_tpu.TrackerParams(assoc=assoc)
     jstate = jtrk.init_state(jtp)
-    tstate = ttrk.state_from_numpy(jax.tree.map(np.asarray, jstate))
+    tstate = ttrk.state_from_numpy(jax.tree.map(np.asarray, jstate),
+                                   device="cpu")
     for r, d, m, v in _scan_stream(6, 80, seed=len(assoc)):
         jstate, jrep = jtrk.step(jstate, r, d, m, v, tp=jtp)
         tstate, trep = ttrk.step(tstate, r, d, m, v, tp=tp)
