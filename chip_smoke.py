@@ -16,10 +16,18 @@ fixed mode (the reference's 16-bit chain): its two kernels and the CFAR
 kernel against their twins, its main path on both routes (staged: plain
 stages and the CFAR kernel; fused: the two fixed-point kernels) at batch
 128, the golden frame's detections against the golden numpy model, and
-the kernels' timings.  It prints the card's name and power limit, one JSON
-line listing the kernels, and as its last line {"ok": true, "device":
-{...}}.  Any failed check raises, and the script then exits non-zero;
-without CUDA it exits non-zero at once.
+the kernels' timings.  Then the array-radar model (8 elements, 8 beams,
+1024x128, batches of 16 cubes = 128 beam maps): the float-input and
+magnitude-only entry points of the front-end kernels, the angle-extended
+3D CFAR kernel and the cross-beam grouping kernel against their twins, at
+full width and at small shapes; three configurations through
+make_batch_array_processor (per-cell and block scale with per-beam and
+cross-beam grouping; the 3D CFAR at ref_angle 1), each checked with the
+array gate against the plain path; stage and kernel timings.  It prints
+the card's name and power limit, one JSON line listing the kernels, and
+as its last line {"ok": true, "device": {...}}.  Any failed check raises,
+and the script then exits non-zero; without CUDA it exits non-zero at
+once.
 """
 
 from __future__ import annotations
@@ -89,15 +97,23 @@ def bound_range_fft(B: int, nd: int, nr: int):
     return _bound(nbytes, ops)
 
 
+def _slowtime_ops(B: int, nr: int, nd: int) -> float:
+    """FP32 operations of the float slow-time step and magnitude: the
+    slow-time operator is linear, so an FFT computes it, 5 nd log2 nd per
+    range row, plus MTI (8), window (2) and magnitude (4) per cell.  (The
+    kernels apply it as a dense nd x nd product, 8 nd per cell: that is
+    their design, not what the function needs.)"""
+    return B * nr * (5 * nd * math.log2(nd) + 14 * nd)
+
+
 def bound_slowtime(B: int, nr: int, nd: int, cfar):
-    """Least time for kernel B: re/im read once, the matrix once, det and
-    row maxima written once; 8 flops per complex MAC of the slow-time
-    product, the magnitude, and the CFAR's adds and compares per cell
-    (``_cfar_ops``).  Peak grouping (only on CFAR-passing cells) is left
-    out."""
+    """Least time for kernel B: re/im read once, det and row maxima written
+    once; the slow-time step (``_slowtime_ops``) and the CFAR's adds and
+    compares per cell (``_cfar_ops``).  Peak grouping (only on CFAR-passing
+    cells) is left out."""
     cells = B * nr * nd
-    nbytes = cells * 8 + nd * nd * 8 + cells * 4 + B * nr * 4 + B * 8
-    ops = cells * (8 * nd + 4 + _cfar_ops(cfar))
+    nbytes = cells * 8 + cells * 4 + B * nr * 4 + B * 8
+    ops = _slowtime_ops(B, nr, nd) + cells * _cfar_ops(cfar)
     return _bound(nbytes, ops)
 
 
@@ -523,6 +539,416 @@ def fixed_mode(card: str, dev):
                   "stages_ms": stages}
 
 
+# ---------------------------------------------------------------------------
+# The array-radar model
+# ---------------------------------------------------------------------------
+
+ARRAY_BATCH = 16                # cubes: 16 x 8 beams = 128 beam maps
+N_ELEMS = N_BEAMS = 8
+U0 = 0.3                        # the stimulus's steering sine
+
+
+def make_cubes(p, batch: int, seed: int = 0, n_elems: int = N_ELEMS):
+    """tools/array_bench.py's stimulus: on each element the golden
+    two-target frame times exp(2j pi 0.5 e 0.3), plus seeded +-8 noise per
+    cube, int16 (batch, n_elems, nd, nr, 2)."""
+    import numpy as np
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    rng = np.random.default_rng(seed)
+    z = np.asarray(reference.two_target_frame(p, seed=3))
+    elems = np.stack([pl.complex_to_iq(z * np.exp(2j * np.pi * 0.5 * e * U0))
+                      for e in range(n_elems)])
+    out = np.stack([elems] * batch)
+    return out + rng.integers(-8, 8, out.shape).astype(np.int16)
+
+
+def matched_beam(n_beams: int = N_BEAMS) -> int:
+    import numpy as np
+    u = np.linspace(-np.sin(np.deg2rad(60.0)), np.sin(np.deg2rad(60.0)),
+                    n_beams)
+    return int(np.argmin(np.abs(u - U0)))
+
+
+def beam_planes(iq, n_beams: int = N_BEAMS):
+    """Beamformed float32 planes of element-space cubes, each
+    (batch * n_beams, nd, nr), as the array processor makes them."""
+    import torch
+    from fmcw_tpu_torch.ops import beamform as BF
+    br, bi = BF.beamform(iq[..., 0].to(torch.float32),
+                         iq[..., 1].to(torch.float32), n_beams, elem_dim=1)
+    return br.flatten(0, 1), bi.flatten(0, 1)
+
+
+def bound_range_fft_float(B: int, nd: int, nr: int):
+    """Least time for kernel A on float planes: re/im read once (8 B per
+    sample), the range-major re/im written once; the FFT as for int16."""
+    nbytes = B * nd * nr * 8 + B * nr * nd * 8
+    ops = B * nd * (5 * nr * math.log2(nr) + 2 * nr)
+    return _bound(nbytes, ops)
+
+
+def bound_slowtime_mag(B: int, nr: int, nd: int):
+    """Least time for the magnitude-only kernel: re/im read once, the
+    magnitudes and counts written once; the slow-time step
+    (``_slowtime_ops``)."""
+    cells = B * nr * nd
+    return _bound(cells * 8 + cells * 4 + B * 4, _slowtime_ops(B, nr, nd))
+
+
+def _cfar3d_ops(cfar, n_ref: int, n_planes: int, n_guard_planes: int):
+    """The 3D CFAR's adds and compares per cell: separable running sums of
+    the window box on each plane and of the guard box on each guard plane
+    (4 adds each), the planes' sum, mean and thresholds (4), 3 compare-adds
+    per training cell, the classification (8)."""
+    return (4 * (n_planes + n_guard_planes) + n_planes + 4 + 6 * n_ref + 8)
+
+
+def bound_cfar3d(cells: int, cfar, ref_angle: int, guard_angle: int,
+                 integer: bool):
+    """Least time for cfar_3d_detect: the cube read once, det and scale
+    written once (12 B per cell); the CFAR's per-cell operations, INT32 for
+    integer cubes, FP32 for float cubes."""
+    from fmcw_tpu_torch.ops import cfar as C
+    n_ref = len(C._offsets_3d(cfar, ref_angle, guard_angle))
+    ops = cells * _cfar3d_ops(cfar, n_ref, 2 * (ref_angle + guard_angle) + 1,
+                              2 * guard_angle + 1)
+    return _bound(cells * 12, 0 if integer else ops, ops if integer else 0)
+
+
+def bound_beam_group(B: int, NB: int, R: int, D: int, radius: int):
+    """Least time for beam_group: the cube read once and written once, the
+    row maxima and counts written once; 2 radius + 2 compares per cell."""
+    cells = B * NB * R * D
+    return _bound(cells * 8 + B * NB * R * 4 + B * 4,
+                  cells * (2 * radius + 2))
+
+
+def array_kernel_checks(dev):
+    """Phase 12: the array model's kernels against their twins at full
+    width (16 cubes, 8 beams, 1024x128): range_fft_float and slowtime_mag
+    within TOL of the peak (non-finite counts equal); cfar3d_detect on the
+    kernel path's own magnitude cube bit-identical to the plain cfar_3d for
+    scale_override 0 and 4; beam_group bit-identical to the plain
+    peak_group_beams (det, row maxima, counts) for radius 1 and 2, on real
+    det cubes and on random sparse stacks with dense ties.  Returns
+    ({row: max_abs_err}, the planes, the magnitude cube)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import beam_group as BG, cfar3d_detect as C3
+    from fmcw_tpu_torch.ops import frontend as F
+    p = P.RadarParams()
+    nr, nd = p.n_range, p.n_doppler
+    errs = {}
+    iq = torch.as_tensor(make_cubes(p, ARRAY_BATCH, seed=1), device=dev)
+    br, bi = beam_planes(iq)
+    re, im = F.range_fft_float(br, bi)
+    pre, pim = F.range_fft_float_plain(br, bi)
+    torch.cuda.synchronize()
+    peak = float(torch.maximum(pre.abs().max(), pim.abs().max()))
+    err = float(torch.maximum((re - pre).abs().max(), (im - pim).abs().max()))
+    log(f"range_fft[float] vs plain: max abs err {err:.6g} = "
+        f"{err / peak:.3g} of peak {peak:.6g} (tol {TOL})")
+    if not err <= TOL * peak:
+        raise AssertionError("range_fft_float disagrees with its plain twin")
+    errs["range_fft[float]"] = err
+    worst = 0.0
+    for bypass in (True, False):        # the last, no bypass, is kept
+        mag, nf = F.slowtime_mag(re, im, bypass)
+        pmag = F.slowtime_mag_plain(re, im, bypass)
+        pnf = (~torch.isfinite(pmag)).sum(dim=(-2, -1)).to(torch.int32)
+        torch.cuda.synchronize()
+        mpeak = float(pmag.abs().max())
+        err = float((mag - pmag).abs().max())
+        worst = max(worst, err)
+        log(f"slowtime_mag bypass={bypass}: mag err {err / mpeak:.3g} of "
+            f"peak, non-finite counts "
+            f"{'equal' if torch.equal(nf, pnf) else 'DIFFER'}")
+        if not err <= TOL * mpeak or not torch.equal(nf, pnf):
+            raise AssertionError("slowtime_mag disagrees with its twin")
+    errs["slowtime_mag"] = worst
+    cube = mag.reshape(ARRAY_BATCH, N_BEAMS, nr, nd)
+    worst = 0.0
+    for so in (0, 4):
+        det, scale = C3.cfar3d_detect(cube, so, cfar=p.cfar, ref_angle=1)
+        d2, s2 = C3.cfar3d_detect_plain(cube, so, cfar=p.cfar, ref_angle=1)
+        torch.cuda.synchronize()
+        same = torch.equal(det, d2) and torch.equal(scale, s2)
+        worst = max(worst, float((det - d2).abs().max()),
+                    float((scale - s2).abs().max()))
+        log(f"cfar_3d_detect ref_angle=1 so={so}: det and scale "
+            f"{'bit-identical' if same else 'DIFFER'}, "
+            f"{int((det > 0).sum())} detections")
+        if not same:
+            raise AssertionError("cfar3d_detect disagrees with cfar_3d")
+    errs["cfar_3d_detect"] = worst
+    det2d = F.slowtime_detect(re, im, cfar=p.cfar, peak_group_radius=2)[0]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shape = (ARRAY_BATCH, N_BEAMS, nr, nd)
+    sparse = torch.where(
+        torch.rand(shape, generator=gen, device=dev) < 0.05,
+        torch.randint(1, 6, shape, generator=gen, device=dev).float(), 0.0)
+    worst = 0.0
+    for name, stack in (("real det cubes", det2d.reshape(shape)),
+                        ("sparse ties", sparse)):
+        for radius in (1, 2):
+            out = BG.beam_group(stack, radius)
+            want = BG.beam_group_plain(stack, radius)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(out, want))
+            worst = max(worst, float((out[0] - want[0]).abs().max()),
+                        float((out[1] - want[1]).abs().max()))
+            log(f"beam_group {name} radius={radius}: "
+                f"{'bit-identical' if same else 'DIFFERS'}, n_dets "
+                f"{int(out[2].min())}..{int(out[2].max())} per cube")
+            if not same:
+                raise AssertionError("beam_group disagrees with its twin")
+    errs["beam_group"] = worst
+    return errs, (br, bi, re, im), cube
+
+
+def array_small_checks(dev):
+    """Phase 13: the same kernels at small shapes — the quick CFAR at
+    128x32, ref_angle 2 with guard_angle 1 at 256x64, 4 and 16 beams, and
+    int32 cubes for the 3D CFAR."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import beam_group as BG, cfar3d_detect as C3
+    from fmcw_tpu_torch.ops import frontend as F
+    mid = P.RadarParams(n_range=256, n_doppler=64)
+    cases = ((P.quick(), 8, 1, 0), (mid, 8, 2, 1), (mid, 4, 1, 0),
+             (mid, 16, 1, 0), (mid, 16, 2, 1))
+    for p, n_beams, ra, ga in cases:
+        iq = torch.as_tensor(make_cubes(p, 4, seed=2), device=dev)
+        br, bi = beam_planes(iq, n_beams)
+        re, im = F.range_fft_float(br, bi)
+        pre, pim = F.range_fft_float_plain(br, bi)
+        mag, nf = F.slowtime_mag(re, im)
+        pmag = F.slowtime_mag_plain(re, im, False)
+        cube = mag.reshape(4, n_beams, p.n_range, p.n_doppler)
+        ok = True
+        for c in (cube, (cube * 16).to(torch.int32)):
+            for so in (0, 4):
+                a = C3.cfar3d_detect(c, so, cfar=p.cfar, ref_angle=ra,
+                                     guard_angle=ga)
+                b = C3.cfar3d_detect_plain(c, so, cfar=p.cfar, ref_angle=ra,
+                                           guard_angle=ga)
+                ok &= all(torch.equal(x, y) for x, y in zip(a, b))
+        det = C3.cfar3d_detect(cube, cfar=p.cfar, ref_angle=ra,
+                               guard_angle=ga)[0]
+        for radius in (1, 2):
+            ok &= all(torch.equal(x, y) for x, y in zip(
+                BG.beam_group(det, radius), BG.beam_group_plain(det, radius)))
+        torch.cuda.synchronize()
+        err_a = float(torch.maximum((re - pre).abs().max(),
+                                    (im - pim).abs().max()))
+        peak_a = float(torch.maximum(pre.abs().max(), pim.abs().max()))
+        err_b = float((mag - pmag).abs().max())
+        log(f"array kernels at {p.n_range}x{p.n_doppler}, {n_beams} beams, "
+            f"ref_angle={ra} guard_angle={ga}: A err {err_a / peak_a:.3g}, "
+            f"mag err {err_b / float(pmag.max()):.3g} of peak; 3D CFAR "
+            f"(float and int32, so 0/4) and grouping "
+            f"{'bit-identical' if ok else 'DIFFER'}; "
+            f"{int((det > 0).sum())} detections")
+        if (not ok or not err_a <= TOL * peak_a
+                or not err_b <= TOL * float(pmag.max())):
+            raise AssertionError(f"array kernels disagree at {p.n_range}x"
+                                 f"{p.n_doppler}, {n_beams} beams")
+
+
+ARRAY_CONFIGS = (
+    # name, params, processor keywords, the kernels the route runs
+    ("percell/grouped", "RadarParams",
+     dict(peak_group_radius=2, beam_group_radius=1),
+     ("range_fft_float", "slowtime_detect", "beam_group")),
+    ("block/grouped", "fast",
+     dict(peak_group_radius=2, beam_group_radius=1),
+     ("range_fft_float", "slowtime_detect", "beam_group")),
+    ("ref_angle1", "RadarParams", dict(ref_angle=1, guard_angle=0),
+     ("range_fft_float", "slowtime_mag", "cfar3d_detect")),
+)
+
+
+def array_main_path(card: str, dev):
+    """Phase 14: the three array configurations through
+    make_batch_array_processor(..., include_maps=False) at 16 cubes: the
+    kernels each launches, cube 0 against the plain path with the array
+    gate (taps from the plain cfar_3d / cfar_2d with need_debug), no
+    non-finite cells, the strongest detection at the matched beam, cubes/s.
+    Returns (launches, cubes/s)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C
+    launches, cubes_per_s = {}, {}
+    beam = matched_beam()
+    for name, preset, kw, need in ARRAY_CONFIGS:
+        p = getattr(P, preset)()
+        proc = pl.make_batch_array_processor(
+            p, n_elems=N_ELEMS, n_beams=N_BEAMS, include_maps=False,
+            device=dev, **kw)
+        batch = torch.as_tensor(make_cubes(p, ARRAY_BATCH), device=dev)
+        kernels.reset_launch_counts()
+        out = proc(batch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        log(f"array {name}: route {proc.route}, launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+        if proc.route != "fused" or any(counts[k] < 1 for k in need):
+            raise AssertionError(f"array {name} skipped a kernel")
+        for k in need:
+            launches[k] = launches.get(k, 0) + counts[k]
+        for key in ("range_bin", "doppler_bin", "mag", "valid", "beam_bin"):
+            if tuple(out[key].shape) != (ARRAY_BATCH, p.tracker.max_dets):
+                raise AssertionError(f"{key} shape {tuple(out[key].shape)}")
+        if not bool(torch.isfinite(out["mag"]).all()):
+            raise AssertionError("non-finite detection magnitudes")
+        if int(out["nonfinite_count"].sum()) != 0:
+            raise AssertionError("non-finite cells in the magnitude cubes")
+        if not bool((out["beam_bin"][:, 0] == beam).all()):
+            raise AssertionError(f"array {name}: strongest detection off "
+                                 f"the matched beam {beam}")
+        ref = pl.make_array_processor(p, n_elems=N_ELEMS, n_beams=N_BEAMS,
+                                      frontend="plain", device=dev,
+                                      **kw)(batch[0])
+        M = ref["mag_cube"]
+        _, T, S = C.cfar_3d(M, 0, p.cfar, kw.get("ref_angle", 0),
+                            kw.get("guard_angle", 0), need_debug=True)
+        ok, report = parity.array_gate(
+            parity.array_set(out, 0), parity.array_set(ref),
+            M.cpu().numpy(), T.cpu().numpy(), S.cpu().numpy(),
+            radius=kw.get("peak_group_radius", 0),
+            beam_radius=kw.get("beam_group_radius", 0),
+            targets=reference.golden_targets(p), target_beam=beam,
+            capacity=p.tracker.max_dets)
+        del T, S
+        log(f"array {name} cube 0 vs plain path: {report}")
+        if not ok:
+            raise AssertionError(f"array {name}: array gate failed")
+        cubes_per_s[name] = ARRAY_BATCH * 1e3 / cuda_ms(lambda: proc(batch),
+                                                        10)
+        log(f"array {name}: {cubes_per_s[name]:.1f} cubes/s = "
+            f"{cubes_per_s[name] * N_BEAMS:.1f} beam maps/s at "
+            f"{ARRAY_BATCH} cubes ({card})")
+    return launches, cubes_per_s
+
+
+def array_model(card: str, dev):
+    """Phases 12-15 (the array model); returns (kernel rows, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import beam_group as BG, cfar3d_detect as C3
+    from fmcw_tpu_torch.ops import detect as DET, frontend as F
+    from fmcw_tpu_torch.ops.window import hamming_float
+    errs, (br, bi, re, im), cube = array_kernel_checks(dev)
+    array_small_checks(dev)
+    launches, cubes_per_s = array_main_path(card, dev)
+
+    # 15. Kernel and stage timings per batch of 16 cubes (CUDA events).
+    p = P.RadarParams()
+    nr, nd = p.n_range, p.n_doppler
+    B = ARRAY_BATCH * N_BEAMS
+    src = "fmcw_tpu_torch/csrc/"
+    rows, t = [], {}
+    iq = torch.as_tensor(make_cubes(p, ARRAY_BATCH), device=dev)
+    t["beamform"] = cuda_ms(lambda: beam_planes(iq))
+    ms = cuda_ms(lambda: F.range_fft_float(br, bi))
+    plain = cuda_ms(lambda: F.range_fft_float_plain(br, bi), 5)
+    win = torch.as_tensor(hamming_float(nr), device=dev)
+    zw = torch.complex(br * win, bi * win)
+    lib = cuda_ms(lambda: torch.fft.fft(zw, dim=-1))
+    del zw
+    bound, by = bound_range_fft_float(B, nd, nr)
+    t["range_fft_float"] = ms
+    log(f"range_fft[float]: {ms:.4f} ms, plain {plain:.4f} ms, torch.fft.fft "
+        f"{lib:.4f} ms, bound {bound:.4f} ms ({by}) at {B} beam maps "
+        f"({card})")
+    rows.append(dict(name="range_fft[float]", route="cuda",
+                     source=src + "range_fft.cu",
+                     replaces="fmcw_tpu/ops/frontend_pallas.py:623",
+                     launches=launches["range_fft_float"],
+                     max_abs_err=errs["range_fft[float]"], ms=ms,
+                     plain_ms=plain, bound_ms=bound, bound_by=by,
+                     library_ms=lib))
+    ms = cuda_ms(lambda: F.slowtime_mag(re, im))
+    plain = cuda_ms(lambda: F.slowtime_mag_plain(re, im, False), 5)
+    bound, by = bound_slowtime_mag(B, nr, nd)
+    t["slowtime_mag"] = ms
+    log(f"slowtime_mag: {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}) at {B} beam maps ({card})")
+    rows.append(dict(name="slowtime_mag", route="cuda",
+                     source=src + "slowtime_detect.cu",
+                     replaces="fmcw_tpu/ops/frontend_pallas.py:623",
+                     launches=launches["slowtime_mag"],
+                     max_abs_err=errs["slowtime_mag"], ms=ms, plain_ms=plain,
+                     bound_ms=bound, bound_by=by, library_ms=None))
+    ms = cuda_ms(lambda: C3.cfar3d_detect(cube, cfar=p.cfar, ref_angle=1))
+    plain = cuda_ms(lambda: C3.cfar3d_detect_plain(cube, cfar=p.cfar,
+                                                   ref_angle=1), 2, 1)
+    bound, by = bound_cfar3d(cube.numel(), p.cfar, 1, 0, False)
+    t["cfar_3d_detect"] = ms
+    log(f"cfar_3d_detect: {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}) at {B} beam maps ({card})")
+    rows.append(dict(name="cfar_3d_detect", route="cuda",
+                     source=src + "cfar_3d_detect.cu",
+                     replaces="fmcw_tpu/ops/cfar_pallas.py:569",
+                     launches=launches["cfar3d_detect"],
+                     max_abs_err=errs["cfar_3d_detect"], ms=ms,
+                     plain_ms=plain, bound_ms=bound, bound_by=by,
+                     library_ms=None))
+    det3d = C3.cfar3d_detect(cube, cfar=p.cfar, ref_angle=1)[0]
+    t["topk_3d"] = cuda_ms(lambda: DET.topk_detections(
+        det3d.reshape(ARRAY_BATCH, N_BEAMS * nr, nd), p.tracker.max_dets))
+    shape = (ARRAY_BATCH, N_BEAMS, nr, nd)
+    dets = {}
+    for q in (p, P.fast()):
+        mode = q.cfar.scale_mode
+        t[f"slowtime_detect[{mode}]"] = cuda_ms(lambda: F.slowtime_detect(
+            re, im, cfar=q.cfar, peak_group_radius=2))
+        det = dets[mode] = F.slowtime_detect(
+            re, im, cfar=q.cfar, peak_group_radius=2)[0].reshape(shape)
+        t[f"beam_group[{mode}]"] = cuda_ms(lambda: BG.beam_group(det, 1))
+        g, rmax, ndet = BG.beam_group(det, 1)
+        t[f"topk[{mode}]"] = cuda_ms(lambda: DET.topk_detections(
+            g.reshape(ARRAY_BATCH, N_BEAMS * nr, nd), p.tracker.max_dets,
+            row_max=rmax, n_dets=ndet))
+    plain = cuda_ms(lambda: BG.beam_group_plain(dets["cell"], 1), 5)
+    bound, by = bound_beam_group(ARRAY_BATCH, N_BEAMS, nr, nd, 1)
+    ms = t["beam_group[cell]"]
+    log(f"beam_group: {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} "
+        f"ms ({by}) at {B} beam maps ({card})")
+    rows.append(dict(name="beam_group", route="cuda",
+                     source=src + "beam_group.cu",
+                     replaces="fmcw_tpu/ops/cfar_pallas.py:824",
+                     launches=launches["beam_group"],
+                     max_abs_err=errs["beam_group"], ms=ms, plain_ms=plain,
+                     bound_ms=bound, bound_by=by, library_ms=None))
+    stages = {}
+    for name, _, _, _ in ARRAY_CONFIGS:
+        st = {"beamform_ms": t["beamform"],
+              "range_fft_float_ms": t["range_fft_float"]}
+        if name == "ref_angle1":
+            st.update(slowtime_mag_ms=t["slowtime_mag"],
+                      cfar_3d_detect_ms=t["cfar_3d_detect"],
+                      topk_ms=t["topk_3d"])
+        else:
+            mode = "cell" if name.startswith("percell") else "block"
+            st.update(slowtime_detect_ms=t[f"slowtime_detect[{mode}]"],
+                      beam_group_ms=t[f"beam_group[{mode}]"],
+                      topk_ms=t[f"topk[{mode}]"])
+        st["path_ms"] = ARRAY_BATCH * 1e3 / cubes_per_s[name]
+        stages[name] = st
+        log(f"array {name} per batch of {ARRAY_BATCH} cubes: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in st.items()))
+    return rows, {"cubes_per_s": cubes_per_s,
+                  "beam_maps_per_s": {k: v * N_BEAMS
+                                      for k, v in cubes_per_s.items()},
+                  "stages_ms": stages, "cubes": ARRAY_BATCH,
+                  "beams": N_BEAMS}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -737,7 +1163,10 @@ def main() -> int:
     # 7-11. Fixed mode: kernels, main path, timings.
     fixed_rows, fixed_summary = fixed_mode(card, dev)
 
-    # 12. The kernels line.
+    # 12-15. The array model: kernels, main path, timings.
+    array_rows, array_summary = array_model(card, dev)
+
+    # 16. The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
                  source="fmcw_tpu_torch/csrc/range_fft.cu",
@@ -749,12 +1178,13 @@ def main() -> int:
                          source="fmcw_tpu_torch/csrc/slowtime_detect.cu",
                          replaces=replaces, launches=launches[mode][1],
                          **results[f"slowtime_detect[{mode}]"]))
-    rows += fixed_rows
+    rows += fixed_rows + array_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
                     "frames_per_s": frames_per_s, "stages_ms": stages,
-                    "fixed": fixed_summary, "batch": BATCH,
+                    "fixed": fixed_summary, "array": array_summary,
+                    "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

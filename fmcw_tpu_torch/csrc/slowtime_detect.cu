@@ -34,6 +34,13 @@
 // cfar_detect.cu) is bit-identical to the plain twin (ops/cfar.py) on the
 // same magnitudes; the product itself is held to the twin by tolerance
 // (1e-5 of the peak).
+//
+// A second entry point, fmcw_slowtime_mag (slowtime_mag_kernel), is the TPU
+// kernel's magnitude-only mode (rdm_frontend(detect=False)): the same
+// product and magnitude on T <= 128 rows per block with no halo, written
+// out with the non-finite count, for the array model's angle-extended CFAR
+// (cfar_3d_detect.cu), whose training set spans beams.  Bound: the product's
+// operations, as above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,6 +85,89 @@ size_t smem_bytes(const SlowtimeConfig& c) {
            sizeof(float);
 }
 
+// The slow-time product y = x M of E range rows g0 .. g0+E-1 (wrapped modulo
+// R) of one frame's planes and their magnitudes: each of 512 threads holds 4
+// rows x ND/16 columns of complex accumulators, operands staged through
+// shared memory (work, staging_floats(E, ND)) 16 chirps at a time.  Calls
+// sink(e, col, magnitude) once per cell.  All threads of the block call it.
+template <int ND, typename Sink>
+__device__ __forceinline__ void slowtime_product(
+        const float* xr_b, const float* xi_b, const float* mr, const float* mi,
+        float* work, int g0, int E, int R, bool exact_mag, Sink sink) {
+    constexpr int NC = ND / 16;
+    const int tid = threadIdx.x;
+    const int cg = tid & 15;
+    const int rg = tid >> 4;                      // 32 row groups
+    float acc_r[4][NC], acc_i[4][NC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NC; ++j) acc_r[i][j] = acc_i[i][j] = 0.f;
+    float* xs_r = work;
+    float* xs_i = xs_r + E * kKC;
+    float* ms_r = xs_i + E * kKC;
+    float* ms_i = ms_r + kKC * ND;
+    for (int c0 = 0; c0 < ND; c0 += kKC) {
+        for (int idx = tid; idx < E * kKC; idx += kThreads) {
+            const int e = idx / kKC;
+            const int cc = idx % kKC;
+            int g = (g0 + e) % R;
+            if (g < 0) g += R;
+            xs_r[idx] = xr_b[(size_t)g * ND + c0 + cc];
+            xs_i[idx] = xi_b[(size_t)g * ND + c0 + cc];
+        }
+        for (int idx = tid; idx < kKC * ND; idx += kThreads) {
+            ms_r[idx] = mr[c0 * ND + idx];
+            ms_i[idx] = mi[c0 * ND + idx];
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int cc = 0; cc < kKC; ++cc) {
+            float m_r[NC], m_i[NC];
+#pragma unroll
+            for (int j = 0; j < NC; ++j) {
+                m_r[j] = ms_r[cc * ND + cg + 16 * j];
+                m_i[j] = ms_i[cc * ND + cg + 16 * j];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int e = rg + 32 * i;
+                if (e < E) {
+                    const float a_r = xs_r[e * kKC + cc];
+                    const float a_i = xs_i[e * kKC + cc];
+#pragma unroll
+                    for (int j = 0; j < NC; ++j) {
+                        acc_r[i][j] = fmaf(a_r, m_r[j], acc_r[i][j]);
+                        acc_r[i][j] = fmaf(-a_i, m_i[j], acc_r[i][j]);
+                        acc_i[i][j] = fmaf(a_r, m_i[j], acc_i[i][j]);
+                        acc_i[i][j] = fmaf(a_i, m_r[j], acc_i[i][j]);
+                    }
+                }
+            }
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int e = rg + 32 * i;
+        if (e < E) {
+#pragma unroll
+            for (int j = 0; j < NC; ++j) {
+                const float yr = acc_r[i][j], yi = acc_i[i][j];
+                float m;
+                if (exact_mag) {
+                    m = hypotf(yr, yi);
+                } else {
+                    const float ar = fabsf(yr), ai = fabsf(yi);
+                    m = __fadd_rn(fmaxf(ar, ai),
+                                  __fmul_rn(0.375f, fminf(ar, ai)));
+                }
+                sink(e, cg + 16 * j, m);
+            }
+        }
+    }
+}
+
 template <int ND>
 __global__ void __launch_bounds__(kThreads, 1)
 slowtime_detect_kernel(const Params p) {
@@ -101,80 +191,12 @@ slowtime_detect_kernel(const Params p) {
     if (tid < 2) counts[tid] = 0;
 
     // ---- 1. Slow-time product y = x M and magnitude, rows r0-H .. r0+T+H.
-    {
-        constexpr int NC = ND / 16;
-        const int cg = tid & 15;
-        const int rg = tid >> 4;                  // 32 row groups
-        float acc_r[4][NC], acc_i[4][NC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < NC; ++j) acc_r[i][j] = acc_i[i][j] = 0.f;
-        float* xs_r = work;
-        float* xs_i = xs_r + E * kKC;
-        float* ms_r = xs_i + E * kKC;
-        float* ms_i = ms_r + kKC * ND;
-        const float* xr_b = p.xr + (size_t)b * c.R * ND;
-        const float* xi_b = p.xi + (size_t)b * c.R * ND;
-        for (int c0 = 0; c0 < ND; c0 += kKC) {
-            for (int idx = tid; idx < E * kKC; idx += kThreads) {
-                const int e = idx / kKC;
-                const int cc = idx % kKC;
-                int g = (r0 - c.H + e) % c.R;
-                if (g < 0) g += c.R;
-                xs_r[idx] = xr_b[(size_t)g * ND + c0 + cc];
-                xs_i[idx] = xi_b[(size_t)g * ND + c0 + cc];
-            }
-            for (int idx = tid; idx < kKC * ND; idx += kThreads) {
-                ms_r[idx] = p.mr[c0 * ND + idx];
-                ms_i[idx] = p.mi[c0 * ND + idx];
-            }
-            __syncthreads();
-#pragma unroll 4
-            for (int cc = 0; cc < kKC; ++cc) {
-                float m_r[NC], m_i[NC];
-#pragma unroll
-                for (int j = 0; j < NC; ++j) {
-                    m_r[j] = ms_r[cc * ND + cg + 16 * j];
-                    m_i[j] = ms_i[cc * ND + cg + 16 * j];
-                }
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const int e = rg + 32 * i;
-                    if (e < E) {
-                        const float a_r = xs_r[e * kKC + cc];
-                        const float a_i = xs_i[e * kKC + cc];
-#pragma unroll
-                        for (int j = 0; j < NC; ++j) {
-                            acc_r[i][j] = fmaf(a_r, m_r[j], acc_r[i][j]);
-                            acc_r[i][j] = fmaf(-a_i, m_i[j], acc_r[i][j]);
-                            acc_i[i][j] = fmaf(a_r, m_i[j], acc_i[i][j]);
-                            acc_i[i][j] = fmaf(a_i, m_r[j], acc_i[i][j]);
-                        }
-                    }
-                }
-            }
-            __syncthreads();
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int e = rg + 32 * i;
-            if (e < E) {
-#pragma unroll
-                for (int j = 0; j < NC; ++j) {
-                    const float yr = acc_r[i][j], yi = acc_i[i][j];
-                    float m;
-                    if (c.exact_mag) {
-                        m = hypotf(yr, yi);
-                    } else {
-                        const float ar = fabsf(yr), ai = fabsf(yi);
-                        m = __fadd_rn(fmaxf(ar, ai), __fmul_rn(0.375f, fminf(ar, ai)));
-                    }
-                    mag_s[e * ND + cg + 16 * j] = m;
-                }
-            }
-        }
-    }
+    const size_t in0 = (size_t)b * c.R * ND;
+    slowtime_product<ND>(p.xr + in0, p.xi + in0, p.mr, p.mi, work, r0 - c.H,
+                         E, c.R, c.exact_mag != 0,
+                         [&](int e, int col, float m) {
+                             mag_s[e * ND + col] = m;
+                         });
     __syncthreads();
 
     // ---- 2a. Block (clutter-map) scale for the tile's block rows.
@@ -203,6 +225,33 @@ slowtime_detect_kernel(const Params p) {
     }
 }
 
+// Magnitude only (rdm_frontend(detect=False) of the TPU kernel, the array
+// model's angle-extended path): the slow-time product and magnitude of T
+// rows per block, no halo, written to mag (B, R, ND) with the per-frame
+// non-finite count; no CFAR.
+template <int ND>
+__global__ void __launch_bounds__(kThreads, 1)
+slowtime_mag_kernel(const Params p) {
+    extern __shared__ float smem[];
+    __shared__ int nf_s;
+    const SlowtimeConfig& c = p.c;
+    const int b = blockIdx.y;
+    const int r0 = blockIdx.x * c.T;
+    if (threadIdx.x == 0) nf_s = 0;
+    float* out = p.mag + ((size_t)b * c.R + r0) * ND;
+    int my_nf = 0;
+    const size_t in0 = (size_t)b * c.R * ND;
+    slowtime_product<ND>(p.xr + in0, p.xi + in0, p.mr, p.mi, smem, r0, c.T,
+                         c.R, c.exact_mag != 0,
+                         [&](int e, int col, float m) {
+                             out[e * ND + col] = m;
+                             my_nf += !isfinite(m);
+                         });
+    if (my_nf) atomicAdd(&nf_s, my_nf);
+    __syncthreads();
+    if (threadIdx.x == 0 && nf_s) atomicAdd(&p.nonfinite[b], nf_s);
+}
+
 template <int ND>
 int launch(const Params& p, cudaStream_t stream) {
     const size_t smem = smem_bytes(p.c);
@@ -212,6 +261,18 @@ int launch(const Params& p, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(p.c.R / p.c.T, p.c.batch);
     slowtime_detect_kernel<ND><<<grid, kThreads, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+}
+
+template <int ND>
+int launch_mag(const Params& p, cudaStream_t stream) {
+    const size_t smem = staging_floats(p.c.T, ND) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        slowtime_mag_kernel<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(p.c.R / p.c.T, p.c.batch);
+    slowtime_mag_kernel<ND><<<grid, kThreads, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
@@ -239,6 +300,33 @@ extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
         case 32: return launch<32>(p, s);
         case 64: return launch<64>(p, s);
         case 128: return launch<128>(p, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Magnitude only: xr/xi float32 (batch, R, ND); mag float32 (batch, R, ND);
+// nonfinite int32 (batch,), zeroed by the caller.  Reads cfg's batch, R, ND,
+// T (rows per block, <= 128, dividing R) and exact_mag.  Returns the CUDA
+// error code of the launch (0 on success).
+extern "C" int fmcw_slowtime_mag(const void* xr, const void* xi,
+                                 const void* mr, const void* mi, void* mag,
+                                 void* nonfinite, const SlowtimeConfig* cfg,
+                                 void* stream) {
+    const SlowtimeConfig c = *cfg;
+    if (c.batch < 1 || c.batch > 65535 || c.T < 1 || c.T > fmcw::kMaxRows ||
+        c.R % c.T != 0)
+        return (int)cudaErrorInvalidValue;
+    Params p{static_cast<const float*>(xr), static_cast<const float*>(xi),
+             static_cast<const float*>(mr), static_cast<const float*>(mi),
+             nullptr,                        static_cast<float*>(mag),
+             nullptr,                        nullptr,
+             static_cast<int*>(nonfinite),   c};
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (c.ND) {
+        case 16: return launch_mag<16>(p, s);
+        case 32: return launch_mag<32>(p, s);
+        case 64: return launch_mag<64>(p, s);
+        case 128: return launch_mag<128>(p, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -10,9 +10,10 @@ denormals being kept.
 
 Nothing here runs at import time; ``load()`` is called by the kernel
 wrappers (``ops/frontend.py``, ``ops/frontend_fixed.py``,
-``ops/cfar_detect.py``) when they are handed a CUDA tensor.  Each wrapper
-is registered with ``counted`` and carries ``launches``, the number of
-kernels it launched since ``reset_launch_counts()``.
+``ops/cfar_detect.py``, ``ops/cfar3d_detect.py``, ``ops/beam_group.py``)
+when they are handed a CUDA tensor.  Each wrapper is registered with
+``counted`` and carries ``launches``, the number of kernels it launched
+since ``reset_launch_counts()``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("range_fft.cu", "slowtime_detect.cu", "range_fft_fixed.cu",
-           "slowtime_detect_fixed.cu", "cfar_detect.cu")
+           "slowtime_detect_fixed.cu", "cfar_detect.cu", "cfar_3d_detect.cu",
+           "beam_group.cu")
 HEADERS = ("fft_stockham.cuh", "cfar_common.cuh", "slowtime_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,6 +53,20 @@ class CfarDetectConfig(ctypes.Structure):
         "hr", "hd", "gr", "gd", "n_ref", "k",
         "scale_min", "scale_nom", "scale_max",
         "block_mode", "so", "integer")]
+
+
+class Cfar3dConfig(ctypes.Structure):
+    """Mirror of ``struct Cfar3dConfig`` in csrc/cfar_3d_detect.cu."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "batch", "A", "R", "D", "T", "ha", "ga",
+        "hr", "hd", "gr", "gd", "n_ref", "k",
+        "scale_min", "scale_nom", "scale_max", "so", "integer")]
+
+
+class BeamGroupConfig(ctypes.Structure):
+    """Mirror of ``struct BeamGroupConfig`` in csrc/beam_group.cu."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "batch", "NB", "R", "D", "radius")]
 
 
 _counted = []
@@ -171,9 +187,14 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fmcw_range_fft.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.fmcw_range_fft.restype = ci
+    lib.fmcw_range_fft_float.argtypes = [vp] * 6 + [ci] * 3 + [vp]
+    lib.fmcw_range_fft_float.restype = ci
     lib.fmcw_slowtime_detect.argtypes = [vp] * 9 + [
         ctypes.POINTER(SlowtimeConfig), vp]
     lib.fmcw_slowtime_detect.restype = ci
+    lib.fmcw_slowtime_mag.argtypes = [vp] * 6 + [
+        ctypes.POINTER(SlowtimeConfig), vp]
+    lib.fmcw_slowtime_mag.restype = ci
     lib.fmcw_range_fft_fixed.argtypes = [vp] * 6 + [ci] * 5 + [vp]
     lib.fmcw_range_fft_fixed.restype = ci
     lib.fmcw_slowtime_detect_fixed.argtypes = [vp] * 9 + [
@@ -182,6 +203,12 @@ def load() -> ctypes.CDLL:
     lib.fmcw_cfar_detect.argtypes = [vp] * 4 + [
         ctypes.POINTER(CfarDetectConfig), vp]
     lib.fmcw_cfar_detect.restype = ci
+    lib.fmcw_cfar_3d_detect.argtypes = [vp] * 3 + [
+        ctypes.POINTER(Cfar3dConfig), vp]
+    lib.fmcw_cfar_3d_detect.restype = ci
+    lib.fmcw_beam_group.argtypes = [vp] * 4 + [
+        ctypes.POINTER(BeamGroupConfig), vp]
+    lib.fmcw_beam_group.restype = ci
     build_info.path = out
     _lib = lib
     return lib

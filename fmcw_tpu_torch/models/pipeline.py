@@ -39,10 +39,25 @@ selection is a stable PyTorch sort.
 Runtime controls (``mti_bypass``, ``scale_override``) are call arguments —
 the radar_core control ports (rtl/src/radar_core.vhd:48-49).
 
+The array-radar model (``make_array_processor``,
+``make_batch_array_processor``; port of JAX's) runs element-space cubes
+through the ULA beamformer (``ops/beamform``, a plain float32 matrix
+product), the per-beam front end and either the per-beam 2D CFAR
+(``ref_angle == 0``) or the angle-extended 3D CFAR (``ref_angle > 0``),
+then per-beam and cross-beam peak grouping and a top-K over
+(beam, range, Doppler).  Its routes: "fused" — kernel A's float entry
+point, then kernel B (2D) or its magnitude-only entry point and the 3D CFAR
+kernel (``ops/cfar3d_detect``), then the cross-beam grouping kernel
+(``ops/beam_group``); "staged" — the plain float transforms per beam, the
+``cfar_detect`` or 3D CFAR kernel, plain per-beam grouping and the
+cross-beam grouping kernel; "plain" — the twins.  "auto" is "fused": a
+shape the kernels cannot take raises their ``NotImplementedError`` at the
+first call on the card and never falls back to the plain transforms.
+
 Not yet ported (they raise ``NotImplementedError``, ROADMAP.md): the
 CA/GO/SO variants and reflect edges, ``fixed_fft="scaled"``,
-``cfar_geometry="hw_stream"``, and on the kernels long CPIs (n_doppler >
-128).  The array model and sharding are not here yet.
+``cfar_geometry="hw_stream"``, on the kernels long CPIs (n_doppler > 128),
+and sharding.
 """
 
 from __future__ import annotations
@@ -54,8 +69,10 @@ import torch
 
 from ..device import resolve_device
 from ..params import RadarParams
-from ..ops import cfar as C, detect as DET
-from ..ops import frontend_fixed as FX
+from ..ops import beamform as BF, cfar as C, detect as DET
+from ..ops import frontend as F, frontend_fixed as FX
+from ..ops.beam_group import beam_group, beam_group_plain
+from ..ops.cfar3d_detect import cfar3d_detect, cfar3d_detect_plain
 from ..ops.cfar_detect import cfar_detect
 from ..ops.fft import dft_apply, doppler_apply
 from ..ops.frontend import rdm_frontend_detect
@@ -84,13 +101,12 @@ def resolve_frontend(mode: str, frontend: str) -> str:
     return frontend
 
 
-def _staged_float(iq, mti_bypass, p: RadarParams, transient: str,
+def _staged_float(re, im, mti_bypass, p: RadarParams, transient: str,
                   exact_mag: bool):
-    """JAX's float ``frontend="xla"`` transforms: the window folded into the
-    range DFT matrix, the slow-time chain as one matrix, the magnitude —
-    (B, nr, nd) float32."""
-    re, im = dft_apply(iq[..., 0].to(torch.float32),
-                       iq[..., 1].to(torch.float32), window=True)
+    """JAX's float ``frontend="xla"`` transforms of float32 (..., nd, nr)
+    planes: the window folded into the range DFT matrix, the slow-time
+    chain as one matrix, the magnitude — (..., nr, nd) float32."""
+    re, im = dft_apply(re, im, window=True)
     yr, yi = doppler_apply(re.transpose(-1, -2), im.transpose(-1, -2),
                            bool(mti_bypass), p.notch_mode, transient)
     return magnitude_float(yr, yi, exact=exact_mag)
@@ -193,8 +209,9 @@ def make_batch_processor(params: RadarParams | None = None,
                 mag, sat = _staged_fixed(iq, bypass, p, mti_transient,
                                          window_rounding)
             else:
-                mag = _staged_float(iq, bypass, p, mti_transient,
-                                    magnitude_exact)
+                mag = _staged_float(iq[..., 0].to(torch.float32),
+                                    iq[..., 1].to(torch.float32), bypass, p,
+                                    mti_transient, magnitude_exact)
                 nonfinite = (~torch.isfinite(mag)).sum(
                     dim=(-2, -1)).to(torch.int32)
             det, _ = cfar_detect(mag, so, cfar=p.cfar)
@@ -244,4 +261,156 @@ def make_processor(params: RadarParams | None = None, **kw) -> Callable:
         out = batched(iq[None], mti_bypass, scale_override)
         return {k: v[0] for k, v in out.items()}
 
+    return process
+
+
+# ---------------------------------------------------------------------------
+# The array-radar model
+# ---------------------------------------------------------------------------
+
+def resolve_array_frontend(frontend: str) -> str:
+    """The array model's route: "fused", "staged" or "plain"; "auto" is
+    "fused", whatever the configuration.  Unlike JAX's, which falls back to
+    its XLA chain, a shape the kernels cannot take is not routed around:
+    their wrappers raise ``NotImplementedError`` on the card."""
+    return resolve_frontend("float32", frontend)
+
+
+def make_batch_array_processor(params: RadarParams | None = None,
+                               n_elems: int = 8, n_beams: int = 8,
+                               mti_transient: str = "zero",
+                               magnitude_exact: bool = False,
+                               ref_angle: int = 0, guard_angle: int = 0,
+                               spacing_wl: float = 0.5,
+                               max_angle_deg: float = 60.0,
+                               taper: str | None = None,
+                               include_maps: bool = True,
+                               frontend: str = "auto",
+                               peak_group_radius: int = 0,
+                               beam_group_radius: int = 0,
+                               device=None) -> Callable:
+    """Array-radar model over a batch of element-space cubes: iq int16
+    (batch, n_elems, n_doppler, n_range, 2) -> ULA phase-shift beamformer
+    (``ops/beamform``) -> per-beam range-Doppler front end -> per-beam 2D
+    CFAR (``ref_angle == 0``) or the angle-extended 3D CFAR (``ref_angle >
+    0``, ``guard_angle`` guard planes, ``ops/cfar.cfar_3d``) -> per-beam
+    peak grouping (``peak_group_radius``) -> cross-beam grouping
+    (``beam_group_radius``, ``ops/cfar.peak_group_beams``) -> the top-K
+    (beam, range, Doppler) detections.  Port of
+    ``fmcw_tpu.models.pipeline.make_batch_array_processor``; every cube of
+    the batch goes through each kernel in one launch.
+
+    Returned callable: ``fn(iq, mti_bypass=False, scale_override=0) ->
+    dict`` with, for each cube, the detection arrays of
+    ``make_batch_processor`` (range_bin, doppler_bin, mag, valid, n_dets,
+    saturation_count = 0, nonfinite_count over the magnitude cube) plus
+    ``beam_bin``, and with ``include_maps`` the (n_beams, n_range,
+    n_doppler) ``mag_cube`` and ``det_cube``.
+
+    ``frontend``: "auto", "fused", "staged" or "plain" (module docstring,
+    ``resolve_array_frontend``).  ``device``: None means "cuda" (raises
+    without one); pass "cpu" for the plain path."""
+    p = params or RadarParams()
+    dev = resolve_device(device)
+    C.check_supported(p.cfar)
+    route = resolve_array_frontend(frontend)
+    BF.steering_matrix(n_elems, n_beams, spacing_wl, max_angle_deg, taper)
+    nr, nd, nb = p.n_range, p.n_doppler, n_beams
+    max_dets = p.tracker.max_dets
+    plain = route == "plain"
+    tf_kw = dict(notch_mode=p.notch_mode, transient=mti_transient,
+                 exact_mag=magnitude_exact)
+    range_fft = F.range_fft_float_plain if plain else F.range_fft_float
+    detect = F.slowtime_detect_plain if plain else F.slowtime_detect
+    cfar3d = cfar3d_detect_plain if plain else cfar3d_detect
+    group = beam_group_plain if plain else beam_group
+
+    def process(iq, mti_bypass=False, scale_override=0) -> dict:
+        if tuple(iq.shape[1:]) != (n_elems, nd, nr, 2):
+            raise ValueError(
+                f"expected element-space iq batch of shape (batch, "
+                f"{n_elems}, {nd}, {nr}, 2), got {tuple(iq.shape)}")
+        iq = torch.as_tensor(iq).to(dev)
+        bypass, so = bool(mti_bypass), int(scale_override)
+        batch = iq.shape[0]
+        br, bi = BF.beamform(iq[..., 0].to(torch.float32),
+                             iq[..., 1].to(torch.float32), nb,
+                             spacing_wl=spacing_wl,
+                             max_angle_deg=max_angle_deg, taper=taper,
+                             elem_dim=1)
+        br = br.reshape(batch * nb, nd, nr)
+        bi = bi.reshape(batch * nb, nd, nr)
+        row_max = n_dets = None
+        if route == "staged":
+            mag = _staged_float(br, bi, bypass, p, mti_transient,
+                                magnitude_exact).reshape(batch, nb, nr, nd)
+            nonfinite = (~torch.isfinite(mag)).sum(dim=(-2, -1))
+            if ref_angle == 0:
+                det, _ = cfar_detect(mag, so, cfar=p.cfar)
+            else:
+                det, _ = cfar3d_detect(mag, so, cfar=p.cfar,
+                                       ref_angle=ref_angle,
+                                       guard_angle=guard_angle)
+            det = C.peak_group(det, peak_group_radius)
+        elif ref_angle == 0:
+            # Per-beam 2D decision with in-kernel grouping.
+            det, mag, rmax, ndet, nonfinite = detect(
+                *range_fft(br, bi), bypass, so, cfar=p.cfar,
+                peak_group_radius=peak_group_radius, emit_mag=include_maps,
+                **tf_kw)
+            row_max = rmax.reshape(batch, nb * nr)
+            n_dets = ndet.reshape(batch, nb).sum(dim=1)
+        else:
+            # The front end alone, feeding the 3D CFAR.
+            re, im = range_fft(br, bi)
+            if plain:
+                mag = F.slowtime_mag_plain(re, im, bypass, **tf_kw)
+                nonfinite = (~torch.isfinite(mag)).sum(dim=(-2, -1))
+            else:
+                mag, nonfinite = F.slowtime_mag(re, im, bypass, **tf_kw)
+            det, _ = cfar3d(mag.reshape(batch, nb, nr, nd), so,
+                            cfar=p.cfar, ref_angle=ref_angle,
+                            guard_angle=guard_angle)
+            det = C.peak_group(det, peak_group_radius)
+        det = det.reshape(batch, nb, nr, nd)
+        if beam_group_radius > 0:
+            det, row_max, n_dets = group(det, beam_group_radius)
+        out = DET.topk_detections(det.reshape(batch, nb * nr, nd),
+                                  max_dets=max_dets, row_max=row_max,
+                                  n_dets=n_dets)
+        out["beam_bin"] = torch.div(out["range_bin"], nr,
+                                    rounding_mode="floor")
+        out["range_bin"] = out["range_bin"] % nr
+        out["saturation_count"] = torch.zeros(batch, dtype=torch.int32,
+                                              device=dev)
+        out["nonfinite_count"] = nonfinite.reshape(batch, nb).sum(
+            dim=1).to(torch.int32)
+        if include_maps:
+            out["mag_cube"] = mag.reshape(batch, nb, nr, nd)
+            out["det_cube"] = det
+        return out
+
+    process.route = route
+    return process
+
+
+def make_array_processor(params: RadarParams | None = None,
+                         **kw) -> Callable:
+    """Single-cube array processor: ``fn(iq, mti_bypass=False,
+    scale_override=0)`` with iq int16 (n_elems, n_doppler, n_range, 2); the
+    keywords and outputs of ``make_batch_array_processor`` without the
+    batch axis (``fmcw_tpu.models.pipeline.make_array_processor``)."""
+    p = params or RadarParams()
+    batched = make_batch_array_processor(p, **kw)
+    n_elems = kw.get("n_elems", 8)
+
+    def process(iq, mti_bypass=False, scale_override=0) -> dict:
+        if tuple(iq.shape) != (n_elems, p.n_doppler, p.n_range, 2):
+            raise ValueError(
+                f"expected element-space iq of shape ({n_elems}, "
+                f"{p.n_doppler}, {p.n_range}, 2), got {tuple(iq.shape)}")
+        out = batched(iq[None], mti_bypass, scale_override)
+        return {k: v[0] for k, v in out.items()}
+
+    process.route = batched.route
     return process

@@ -32,6 +32,11 @@ float32.  The plain twin of ``csrc/cfar_detect.cu`` too (``ops/cfar_detect``).
 
 All functions take maps with any leading batch dimensions, ``(..., R, D)``,
 wrap edges (the torus of the reference's line buffers).
+
+The array model's pieces: ``cfar_3d`` (the angle-extended CFAR over
+(..., A, R, D) beam cubes, the plain twin of ``csrc/cfar_3d_detect.cu``, its
+training-set sum in that kernel's order) and ``peak_group_beams`` (cross-beam
+grouping, the plain twin of ``csrc/beam_group.cu``).
 """
 
 from __future__ import annotations
@@ -242,6 +247,120 @@ def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
     return det, threshold, scale
 
 
+def _offsets_3d(cfar: CfarParams, ref_angle: int, guard_angle: int):
+    """Training offsets (da, dr, dd) of ``cfar_3d``'s box-minus-guard-box
+    neighbourhood, in the construction order of
+    ``fmcw_tpu/ops/cfar._offsets_3d``."""
+    offs = []
+    for da in range(-(ref_angle + guard_angle), ref_angle + guard_angle + 1):
+        for d in range(cfar.win_doppler):
+            for r in range(cfar.win_range):
+                if (abs(da) <= guard_angle
+                        and abs(d - cfar.halo_doppler) <= cfar.guard_doppler
+                        and abs(r - cfar.halo_range) <= cfar.guard_range):
+                    continue
+                offs.append((da, r - cfar.halo_range, d - cfar.halo_doppler))
+    return offs
+
+
+def _periodic_pad(m: torch.Tensor, dim: int, h: int) -> torch.Tensor:
+    """Pad axis ``dim`` of ``m`` periodically by ``h`` on each side (any
+    ``h``, also beyond the axis length, as numpy's "wrap" pad)."""
+    n = m.shape[dim]
+    idx = torch.arange(-h, n + h, device=m.device) % n
+    return m.index_select(dim, idx)
+
+
+def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
+            cfar: CfarParams = CfarParams(), ref_angle: int = 0,
+            guard_angle: int = 0, need_debug: bool = False,
+            prepadded_angle: bool = False):
+    """Angle-extended OS-CFAR over (..., A, R, D) magnitude cubes, one
+    (range, Doppler) map per beam, float32 or integer; the plain twin of
+    ``csrc/cfar_3d_detect.cu``.  Semantics of
+    ``fmcw_tpu/ops/cfar.cfar_3d`` (OS variant):
+
+    * ``ref_angle == 0``: ``cfar_2d`` on each beam's map;
+    * ``ref_angle > 0``: the training set is the 3D box of +-(ref_angle +
+      guard_angle) beam planes minus the guard box on the planes within
+      +-guard_angle (``_offsets_3d``), every axis wrapped (the beam axis
+      too: beam 0's da=-1 neighbour is beam A-1); the rank follows
+      ``cfar.rank_pct`` on the enlarged n_ref, and the adaptive scale is
+      always per cell (``cfar.scale_mode`` does not apply, as in JAX).
+
+    Returns ``(det, threshold, scale)`` like ``cfar_2d`` (``threshold`` only
+    with ``need_debug``: it stacks n_ref values per cell).  Decided by
+    counting, with the training-set sum taken in the order of JAX's
+    angle-extended kernel (``cfar_pallas._kernel_detect_3d``): planes da
+    ascending, in each the wrap-rolled column sums (dr ascending) added dd
+    ascending, then each guard cell of the |da| <= guard_angle planes
+    subtracted, dd outer and dr inner.  ``prepadded_angle`` (the sharded
+    beam-halo layout) is not ported yet."""
+    if prepadded_angle:
+        raise NotImplementedError(
+            "prepadded_angle (the sharded beam-halo layout) is not ported "
+            "yet (ROADMAP.md)")
+    if ref_angle < 0 or guard_angle < 0:
+        raise ValueError(f"ref_angle and guard_angle must be >= 0, got "
+                         f"{ref_angle}, {guard_angle}")
+    if ref_angle == 0:
+        return cfar_2d(cube, scale_override, cfar, need_debug)
+    check_supported(cfar)
+    m = _as_map(cube)
+    A, R, D = m.shape[-3:]
+    offs = _offsets_3d(cfar, ref_angle, guard_angle)
+    n_ref = len(offs)
+    k = n_ref - min((n_ref * cfar.rank_pct) // 100, n_ref - 1)
+    ha = ref_angle + guard_angle
+    hr, hd = cfar.halo_range, cfar.halo_doppler
+    p = _periodic_pad(_periodic_pad(_periodic_pad(m, -3, ha), -2, hr), -1, hd)
+
+    def view(da, dr, dd):
+        return p[..., ha + da:ha + da + A, hr + dr:hr + dr + R,
+                 hd + dd:hd + dd + D]
+
+    das = sorted({da for da, _, _ in offs})
+    acc = None
+    for da in das:
+        col = view(da, -hr, 0)
+        for dr in range(-hr + 1, hr + 1):
+            col = col + view(da, dr, 0)
+        for dd in range(-hd, hd + 1):
+            t = torch.roll(col, -dd, dims=-1)           # t[d] = col[d + dd]
+            acc = t if acc is None else acc + t
+    for da in das:
+        if abs(da) > guard_angle:
+            continue
+        for dd in range(-cfar.guard_doppler, cfar.guard_doppler + 1):
+            for dr in range(-cfar.guard_range, cfar.guard_range + 1):
+                acc = acc - view(da, dr, dd)
+    t_hi, t_lo = _thresholds(_div(acc, n_ref))
+    cnt_hi = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
+    cnt_lo = torch.zeros_like(cnt_hi)
+    for o in offs:
+        v = view(*o)
+        cnt_hi += v > t_hi
+        cnt_lo += v >= t_lo
+    scale = torch.where(cnt_hi >= k, cfar.scale_max,
+                        torch.where(cnt_lo < k, cfar.scale_min,
+                                    cfar.scale_nom)).to(torch.int32)
+    scale = _fold_override(scale, scale_override)
+    if m.is_floating_point():
+        q = _q_min(m, scale.to(torch.float32))
+    else:
+        q = torch.div(m - 1, scale, rounding_mode="floor") + 1
+    cnt = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
+    for o in offs:
+        cnt += view(*o) >= q
+    det = torch.where((cnt < k) & (m > 0), m, torch.zeros_like(m))
+    threshold = None
+    if need_debug:
+        refs = torch.stack([view(*o) for o in offs], dim=-1)
+        est = torch.topk(refs, k, dim=-1).values[..., -1]
+        threshold = est * (scale.to(m.dtype))
+    return det, threshold, scale
+
+
 def peak_group(det: torch.Tensor, radius: int = 1) -> torch.Tensor:
     """Peak grouping: keep detections that are the strict local max of their
     (2r+1)^2 wrapped neighborhood, ties broken toward the lower linear index
@@ -267,3 +386,41 @@ def peak_group(det: torch.Tensor, radius: int = 1) -> torch.Tensor:
             best_id = torch.where(take, nid, best_id)
     keep = (det > 0) & (best == det) & (best_id == ids)
     return torch.where(keep, det, torch.zeros_like(det))
+
+
+def peak_group_beams(det: torch.Tensor, radius: int = 1,
+                     beam_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Beam-axis peak grouping of (..., n_beams, R, D) detection cubes: keep
+    det[b, r, d] only if it is the maximum over beams b-radius..b+radius at
+    the SAME (r, d) cell, ties toward the lower beam.  The beam axis is not
+    periodic: a missing neighbour beyond an edge counts as 0, which never
+    beats a detection.  Semantics of ``fmcw_tpu/ops/cfar.peak_group_beams``;
+    the plain twin of ``csrc/beam_group.cu``.
+
+    ``beam_ids``: the global beam index of each plane (a halo-extended beam
+    shard), so that the strict-compare direction follows global beam
+    order; None is the contiguous case."""
+    m = det
+    B = m.shape[-3]
+    keep = m > 0
+    if beam_ids is None:
+        for o in range(1, radius + 1):
+            up = torch.zeros_like(m)                     # beam b + o
+            dn = torch.zeros_like(m)                     # beam b - o
+            if o < B:
+                up[..., :B - o, :, :] = m[..., o:, :, :]
+                dn[..., o:, :, :] = m[..., :B - o, :, :]
+            # Tie toward the lower beam: a lower-index neighbour wins equals.
+            keep &= (m >= up) & (m > dn)
+        return torch.where(keep, m, torch.zeros_like(m))
+    b_ids = torch.as_tensor(beam_ids, device=m.device).to(torch.int64)
+    for o in range(-radius, radius + 1):
+        if o == 0:
+            continue
+        nb = torch.roll(m, -o, dims=-3)
+        nid = torch.roll(b_ids, -o)
+        # Rolled-in wrap planes do not count: the beam axis has edges.
+        valid = ((nid - b_ids) == o)[:, None, None]
+        nb = torch.where(valid, nb, torch.zeros_like(nb))
+        keep &= (m > nb) if o < 0 else (m >= nb)
+    return torch.where(keep, m, torch.zeros_like(m))

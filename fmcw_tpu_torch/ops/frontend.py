@@ -6,17 +6,22 @@ turn, as ``fmcw_tpu/ops/split_frontend.py`` splits it across chips:
 
 * ``range_fft`` (kernel A, ``csrc/range_fft.cu``): Hamming window and range
   FFT per chirp, stored range-major — int16 (B, nd, nr, 2) -> planar float32
-  re/im (B, nr, nd);
+  re/im (B, nr, nd); ``range_fft_float``, the same kernel's entry point for
+  float32 planes (B, nd, nr) (the array model's beamformed data: the TPU
+  kernel takes int16 or float32);
 * ``slowtime_detect`` (kernel B, ``csrc/slowtime_detect.cu``): fused
   slow-time operator (MTI + Doppler window + Doppler DFT), magnitude, 2D
   OS-CFAR with per-cell or block scale, peak grouping, per-row maxima,
-  detection and non-finite counts.
+  detection and non-finite counts; ``slowtime_mag``, its magnitude-only
+  entry point (``rdm_frontend(detect=False)``: the magnitude and the
+  non-finite count, no CFAR).
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
-PyTorch twin (``range_fft_plain``, ``slowtime_detect_plain``) only for a CPU
-tensor; any other device raises.  ``range_fft.launches`` and
-``slowtime_detect.launches`` count kernel launches (reset with
-``reset_launch_counts``, which resets every kernel wrapper of the port).
+PyTorch twin (``range_fft_plain``, ``range_fft_float_plain``,
+``slowtime_detect_plain``, ``slowtime_mag_plain``) only for a CPU tensor;
+any other device raises.  Each wrapper's ``launches`` counts its kernel
+launches (reset with ``reset_launch_counts``, which resets every kernel
+wrapper of the port).
 The fixed-point counterparts are in ``ops/frontend_fixed.py``.
 """
 
@@ -118,6 +123,48 @@ def range_fft(iq: torch.Tensor):
     kernels.check(err, "range_fft")
     range_fft.launches += 1
     return re, im
+
+
+def range_fft_float_plain(re: torch.Tensor, im: torch.Tensor):
+    """Plain twin of kernel A on float32 planes (B, nd, nr): the window
+    times the dense DFT, transposed to range-major -> (re, im), each
+    float32 (B, nr, nd)."""
+    w = torch.as_tensor(hamming_float(re.shape[-1]), device=re.device)
+    yr, yi = dft_apply(re.to(torch.float32) * w, im.to(torch.float32) * w)
+    return (yr.transpose(-1, -2).contiguous(),
+            yi.transpose(-1, -2).contiguous())
+
+
+@kernels.counted
+def range_fft_float(re: torch.Tensor, im: torch.Tensor):
+    """Window + range FFT + corner turn of float32 planes re/im, each
+    (B, nd, nr) (the beamformer's output, no stacking copy): returns planar
+    float32 (re, im), each (B, nr, nd).  Launches kernel A's float entry
+    point for CUDA tensors; the plain twin for CPU tensors."""
+    if re.dim() != 3 or re.shape != im.shape:
+        raise ValueError(f"expected float re/im (B, nd, nr), got "
+                         f"{tuple(re.shape)} and {tuple(im.shape)}")
+    if re.dtype != torch.float32 or im.dtype != torch.float32:
+        raise ValueError(f"expected float32 planes, got {re.dtype}, "
+                         f"{im.dtype}")
+    if _device_kind(re) == "cpu":
+        return range_fft_float_plain(re, im)
+    B, nd, nr = re.shape
+    check_range_geometry(nr, nd, "range_fft_float")
+    # The kernel reads each plane as float32 words: contiguous and 4-byte
+    # aligned, which a float32 tensor always is.
+    re, im = re.contiguous(), im.contiguous()
+    win, tw = _tables(nr, str(re.device))
+    out_re = torch.empty((B, nr, nd), dtype=torch.float32, device=re.device)
+    out_im = torch.empty_like(out_re)
+    lib = kernels.load()
+    err = lib.fmcw_range_fft_float(
+        re.data_ptr(), im.data_ptr(), win.data_ptr(), tw.data_ptr(),
+        out_re.data_ptr(), out_im.data_ptr(), B, nd, nr,
+        torch.cuda.current_stream(re.device).cuda_stream)
+    kernels.check(err, "range_fft_float")
+    range_fft_float.launches += 1
+    return out_re, out_im
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +299,58 @@ def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
     kernels.check(err, "slowtime_detect")
     slowtime_detect.launches += 1
     return det, mag, row_max, n_dets, nonfinite
+
+
+# Rows per block of the magnitude-only kernel (no halo).
+MAG_TILE_ROWS = 128
+
+
+def check_mag_geometry(nr: int, nd: int) -> int:
+    """Rows per block of the magnitude-only kernel for an nr x nd map;
+    raises NotImplementedError for a map it does not take."""
+    tile = min(MAG_TILE_ROWS, nr)
+    if nd not in (16, 32, 64, 128) or nr % tile:
+        raise NotImplementedError(
+            f"slowtime_mag kernel: n_doppler in (16, 32, 64, 128) and "
+            f"n_range a multiple of {tile}, got {nr}x{nd} (long CPIs are "
+            f"queued in ROADMAP.md)")
+    return tile
+
+
+@kernels.counted
+def slowtime_mag(re: torch.Tensor, im: torch.Tensor, mti_bypass=False, *,
+                 notch_mode: int = 2, transient: str = "zero",
+                 exact_mag: bool = False):
+    """Slow-time operator and magnitude of range-major planes (B, nr, nd),
+    without CFAR: returns ``(mag (B, nr, nd), nonfinite (B,) int32)``.
+    Launches kernel B's magnitude-only entry point for CUDA tensors; the
+    plain twin (``slowtime_mag_plain``) for CPU tensors."""
+    if re.dim() != 3 or re.shape != im.shape:
+        raise ValueError(f"expected re/im (B, nr, nd), got "
+                         f"{tuple(re.shape)} and {tuple(im.shape)}")
+    if _device_kind(re) == "cpu":
+        mag = slowtime_mag_plain(re, im, mti_bypass, notch_mode, transient,
+                                 exact_mag)
+        return mag, (~torch.isfinite(mag)).sum(dim=(-2, -1)).to(torch.int32)
+    B, nr, nd = re.shape
+    tile = check_mag_geometry(nr, nd)
+    dev = re.device
+    re = re.contiguous().to(torch.float32)
+    im = im.contiguous().to(torch.float32)
+    mats = _slowtime_matrices(nd, notch_mode, transient, str(dev))
+    mr, mi = mats[2:] if bool(mti_bypass) else mats[:2]
+    mag = torch.empty((B, nr, nd), dtype=torch.float32, device=dev)
+    nonfinite = torch.zeros((B,), dtype=torch.int32, device=dev)
+    cfg = kernels.SlowtimeConfig(batch=B, R=nr, ND=nd, T=tile,
+                                 exact_mag=int(bool(exact_mag)))
+    lib = kernels.load()
+    err = lib.fmcw_slowtime_mag(
+        re.data_ptr(), im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+        mag.data_ptr(), nonfinite.data_ptr(), ctypes.byref(cfg),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "slowtime_mag")
+    slowtime_mag.launches += 1
+    return mag, nonfinite
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,13 @@ M, T and S are a reference's magnitude, threshold and scale maps and
 ``tol = 1e-5 * max(M)``.  The gate takes numpy arrays; it is used by the
 tests against the JAX package and by ``chip_smoke.py`` on the card.
 
+``array_gate`` carries the gate to the array model's (beam, range, Doppler)
+cubes: the near-threshold test looks in the cell's own beam's
+neighbourhood, a grouping tie may also be with the same cell of a beam
+within ``beam_radius`` (cross-beam grouping), the strongest detection must
+be the same on both sides, and the golden targets must be found at the
+matched beam.
+
 Fixed mode (``fixed_gate``) carries no float: two routes of the integer
 chain that compute the same quantized values give the same detections.  The
 port's fixed routes transform in float64 and match the golden model exactly;
@@ -38,16 +45,21 @@ from __future__ import annotations
 import numpy as np
 
 
-def detection_set(out: dict, index=None) -> dict:
-    """{(range_bin, doppler_bin): mag} of the valid top-K entries of a
-    processor's output (``index`` picks a frame of a batched output)."""
+def _entries(out: dict, keys, index=None):
+    """The top-K arrays ``keys`` and ``valid`` of a processor's output as
+    numpy (``index`` picks an entry of a batched output)."""
     def get(key):
         v = out[key]
         v = v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
         return v if index is None else v[index]
-    valid = get("valid")
-    return {(int(r), int(d)): float(m) for r, d, m, ok in zip(
-        get("range_bin"), get("doppler_bin"), get("mag"), valid) if ok}
+    return [get(k) for k in (*keys, "valid")]
+
+
+def detection_set(out: dict, index=None) -> dict:
+    """{(range_bin, doppler_bin): mag} of the valid top-K entries of a
+    processor's output (``index`` picks a frame of a batched output)."""
+    return {(int(r), int(d)): float(m) for r, d, m, ok in zip(*_entries(
+        out, ("range_bin", "doppler_bin", "mag"), index)) if ok}
 
 
 def map_set(det_map) -> dict:
@@ -74,16 +86,11 @@ REL_TOL = 1e-5        # of the reference map's peak
 MAX_DIFF_FRAC = 0.2   # of the larger detection set
 
 
-def margin_gate(a: dict, b: dict, mag, threshold, scale, radius: int,
-                targets=None, capacity: int | None = None
-                ) -> tuple[bool, str]:
-    """Check detection sets ``a`` and ``b`` ({(r, d): mag}) against the
-    reference maps; returns (ok, report)."""
-    M = np.asarray(mag, np.float64)
-    T = np.asarray(threshold, np.float64)
-    S = np.asarray(scale, np.float64)
-    R, D = M.shape
-    tol = REL_TOL * float(np.max(M))
+def _set_checks(a: dict, b: dict, M, T, S, radius: int, beam_radius: int,
+                capacity: int | None, tol: float) -> tuple[list, list]:
+    """Checks 1-3 on sets keyed (beam, r, d) against (A, R, D) cubes;
+    returns (messages, one-sided keys)."""
+    A, R, D = M.shape
     msgs = []
     for key in sorted(a.keys() & b.keys()):
         if abs(a[key] - b[key]) > tol:
@@ -93,27 +100,87 @@ def margin_gate(a: dict, b: dict, mag, threshold, scale, radius: int,
     edge = -np.inf
     if capacity is not None and capacity in (len(a), len(b)):
         edge = max(min(s.values()) for s in (a, b) if s) + tol
-    for (rc, dc) in only:
-        if a.get((rc, dc), b.get((rc, dc))) <= edge:
+    for key in only:
+        bc, rc, dc = key
+        if a.get(key, b.get(key)) <= edge:
             continue
         rows = [(rc + i) % R for i in range(-r, r + 1)]
         cols = [(dc + j) % D for j in range(-r, r + 1)]
         win = np.ix_(rows, cols)
-        at_threshold = np.any(np.abs(M[win] - T[win]) <= (1.0 + S[win]) * tol)
-        tie = np.sum(np.abs(M[win] - M[rc, dc]) <= 2.0 * tol) > 1
+        m, t, sc = M[bc][win], T[bc][win], S[bc][win]
+        mc = M[bc, rc, dc]
+        at_threshold = np.any(np.abs(m - t) <= (1.0 + sc) * tol)
+        beams = [bc + o for o in range(-beam_radius, beam_radius + 1)
+                 if o and 0 <= bc + o < A]
+        tie = (np.sum(np.abs(m - mc) <= 2.0 * tol) > 1
+               or any(abs(M[bn, rc, dc] - mc) <= 2.0 * tol for bn in beams))
         if not (at_threshold or tie):
-            msgs.append(f"one-sided {(rc, dc)}: no decision margin "
-                        f"(M={M[rc, dc]:.6g}, T={T[rc, dc]:.6g})")
+            where = key if A > 1 else key[1:]
+            msgs.append(f"one-sided {where}: no decision margin "
+                        f"(M={mc:.6g}, T={T[bc, rc, dc]:.6g})")
     n = max(len(a), len(b), 1)
     if len(only) > MAX_DIFF_FRAC * n:
         msgs.append(f"{len(only)} of {n} detections differ "
                     f"(> {MAX_DIFF_FRAC:.0%})")
+    return msgs, only
+
+
+def margin_gate(a: dict, b: dict, mag, threshold, scale, radius: int,
+                targets=None, capacity: int | None = None
+                ) -> tuple[bool, str]:
+    """Check detection sets ``a`` and ``b`` ({(r, d): mag}) against the
+    reference maps; returns (ok, report)."""
+    M = np.asarray(mag, np.float64)
+    R, D = M.shape
+    tol = REL_TOL * float(np.max(M))
+    msgs, only = _set_checks(
+        {(0, *k): v for k, v in a.items()}, {(0, *k): v for k, v in b.items()},
+        M[None], np.asarray(threshold, np.float64)[None],
+        np.asarray(scale, np.float64)[None], radius, 0, capacity, tol)
     if targets is not None:
         for name, dets in (("a", a), ("b", b)):
             if not _golden_found(dets, targets, (R, D)):
                 msgs.append(f"set {name} misses a golden target")
     report = (f"{len(a)} vs {len(b)} detections, {len(only)} one-sided, "
               f"tol {tol:.3g}")
+    return not msgs, "; ".join([report] + msgs)
+
+
+def array_set(out: dict, index=None) -> dict:
+    """{(beam_bin, range_bin, doppler_bin): mag} of the valid top-K entries
+    of an array processor's output (``index`` picks a cube of a batch)."""
+    return {(int(b), int(r), int(d)): float(m) for b, r, d, m, ok in zip(
+        *_entries(out, ("beam_bin", "range_bin", "doppler_bin", "mag"),
+                  index)) if ok}
+
+
+def array_gate(a: dict, b: dict, mag, threshold, scale, radius: int,
+               beam_radius: int = 0, targets=None, target_beam=None,
+               capacity: int | None = None) -> tuple[bool, str]:
+    """The margin gate on array-model detection sets ``a`` and ``b``
+    ({(beam, r, d): mag}) against the reference's (A, R, D) magnitude,
+    threshold and scale cubes: checks 1-3 of ``margin_gate`` with the
+    near-threshold test in the cell's own beam's (2r+1)^2 neighbourhood and
+    a tie also allowed with the same cell of a beam within ``beam_radius``;
+    the strongest detection is the same on both sides; each of ``targets``
+    is found at beam ``target_beam``.  Returns (ok, report)."""
+    M = np.asarray(mag, np.float64)
+    A, R, D = M.shape
+    tol = REL_TOL * float(np.max(M))
+    msgs, only = _set_checks(a, b, M, np.asarray(threshold, np.float64),
+                             np.asarray(scale, np.float64), radius,
+                             beam_radius, capacity, tol)
+    top = [max(s, key=s.get) if s else None for s in (a, b)]
+    if top[0] != top[1]:
+        msgs.append(f"strongest detections differ: {top[0]} vs {top[1]}")
+    if targets is not None:
+        for name, dets in (("a", a), ("b", b)):
+            at_beam = [(r, d) for bb, r, d in dets if bb == target_beam]
+            if not _golden_found(at_beam, targets, (R, D)):
+                msgs.append(f"set {name} misses a golden target at beam "
+                            f"{target_beam}")
+    report = (f"{len(a)} vs {len(b)} detections, {len(only)} one-sided, "
+              f"tol {tol:.3g}, strongest {top[1]}")
     return not msgs, "; ".join([report] + msgs)
 
 

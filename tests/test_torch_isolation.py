@@ -1,7 +1,7 @@
 """The port stands alone and never hides the device or the kernel.
 
 * Importing fmcw_tpu_torch and every submodule loads neither jax nor
-  fmcw_tpu; chip_smoke.py imports neither.
+  fmcw_tpu; chip_smoke.py and kernel_ab.py import neither.
 * Entry points run on CUDA unless the caller asks for the CPU: without a
   card, make_processor() and the tracker's init_state() /
   state_from_numpy() raise instead of carrying on on the CPU.
@@ -24,6 +24,7 @@ import torch
 import fmcw_tpu_torch
 from fmcw_tpu_torch import kernels
 from fmcw_tpu_torch.models import pipeline as tpl, tracker as ttrk
+from fmcw_tpu_torch.ops import beam_group as BG, cfar3d_detect as C3
 from fmcw_tpu_torch.ops import cfar_detect as CD
 from fmcw_tpu_torch.ops import frontend as F
 from fmcw_tpu_torch.ops import frontend_fixed as FX
@@ -46,7 +47,9 @@ def test_import_loads_neither_jax_nor_fmcw_tpu():
     names = _submodules()
     assert {"fmcw_tpu_torch.ops.frontend", "fmcw_tpu_torch.ops.frontend_fixed",
             "fmcw_tpu_torch.ops.cfar_detect", "fmcw_tpu_torch.ops.notch",
-            "fmcw_tpu_torch.device"} <= set(names)
+            "fmcw_tpu_torch.ops.beamform", "fmcw_tpu_torch.ops.cfar3d_detect",
+            "fmcw_tpu_torch.ops.beam_group", "fmcw_tpu_torch.device"
+            } <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -60,7 +63,8 @@ def test_import_loads_neither_jax_nor_fmcw_tpu():
     assert res.stdout.strip() == ""
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "fmcw_tpu_torch"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "kernel_ab.py",
+                                  "fmcw_tpu_torch"])
 def test_sources_import_neither_jax_nor_fmcw_tpu(path):
     files = ([ROOT / path] if path.endswith(".py")
              else sorted((ROOT / path).rglob("*.py")))
@@ -83,6 +87,12 @@ def test_processor_defaults_to_cuda_and_raises_without_it(monkeypatch):
         tpl.make_processor()
     with pytest.raises(RuntimeError, match="CUDA"):
         tpl.make_batch_processor(fmcw_tpu_torch.quick(), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpl.make_array_processor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpl.make_batch_array_processor(fmcw_tpu_torch.quick(), ref_angle=1)
+    proc = tpl.make_array_processor(fmcw_tpu_torch.quick(), device="cpu")
+    assert proc.route == "fused"
 
 
 def test_tracker_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -103,6 +113,15 @@ def test_chip_smoke_exits_nonzero_without_cuda():
                          capture_output=True, text=True, timeout=120, env=env)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_kernel_ab_exits_nonzero_without_cuda():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "kernel_ab.py", "--root", "."],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert res.returncode != 0
+    assert '"ms"' not in res.stdout
 
 
 def _iq(p, batch=1):
@@ -155,6 +174,22 @@ class _FakeLib:
         self.calls.append(("cfar_detect", args))
         return self.err
 
+    def fmcw_range_fft_float(self, *args):
+        self.calls.append(("range_fft_float", args))
+        return self.err
+
+    def fmcw_slowtime_mag(self, *args):
+        self.calls.append(("slowtime_mag", args))
+        return self.err
+
+    def fmcw_cfar_3d_detect(self, *args):
+        self.calls.append(("cfar_3d_detect", args))
+        return self.err
+
+    def fmcw_beam_group(self, *args):
+        self.calls.append(("beam_group", args))
+        return self.err
+
 
 class _Stream:
     cuda_stream = 0
@@ -172,6 +207,10 @@ def as_if_cuda(monkeypatch):
     monkeypatch.setattr(FX, "range_fft_fixed_plain", forbidden)
     monkeypatch.setattr(FX, "slowtime_detect_fixed_plain", forbidden)
     monkeypatch.setattr(CD, "cfar_detect_plain", forbidden)
+    monkeypatch.setattr(F, "range_fft_float_plain", forbidden)
+    monkeypatch.setattr(F, "slowtime_mag_plain", forbidden)
+    monkeypatch.setattr(C3, "cfar3d_detect_plain", forbidden)
+    monkeypatch.setattr(BG, "beam_group_plain", forbidden)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream())
     lib = _FakeLib()
     monkeypatch.setattr(kernels, "load", lambda: lib)
@@ -284,3 +323,119 @@ def test_fixed_failed_launch_raises(as_if_cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):
         CD.cfar_detect(mag, cfar=p.cfar)
     assert FX.range_fft_fixed.launches == 0 and CD.cfar_detect.launches == 0
+
+
+def _planes(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.normal(0, 100, shape).astype(np.float32)),
+            torch.as_tensor(rng.normal(0, 100, shape).astype(np.float32)))
+
+
+def test_array_wrappers_take_plain_twin_on_cpu(monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU tensor must not build or launch")
+    monkeypatch.setattr(kernels, "load", no_build)
+    p = fmcw_tpu_torch.quick()
+    kernels.reset_launch_counts()
+    br, bi = _planes((4, p.n_doppler, p.n_range))
+    re, im = F.range_fft_float(br, bi)
+    for a, b in zip((re, im), F.range_fft_float_plain(br, bi)):
+        assert torch.equal(a, b)
+    mag, nf = F.slowtime_mag(re, im, True)
+    assert torch.equal(mag, F.slowtime_mag_plain(re, im, True))
+    assert nf.tolist() == [0] * 4
+    cube = mag.reshape(1, 4, p.n_range, p.n_doppler)
+    for a, b in zip(C3.cfar3d_detect(cube, 4, cfar=p.cfar, ref_angle=1),
+                    C3.cfar3d_detect_plain(cube, 4, cfar=p.cfar,
+                                           ref_angle=1)):
+        assert torch.equal(a, b)
+    det = torch.where(mag > mag.mean(), mag, 0).reshape(cube.shape)
+    for a, b in zip(BG.beam_group(det, 2), BG.beam_group_plain(det, 2)):
+        assert torch.equal(a, b)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_array_wrappers_launch_kernels_for_cuda_tensors(as_if_cuda):
+    p = fmcw_tpu_torch.RadarParams()
+    br, bi = _planes((2, p.n_doppler, p.n_range))
+    re, im = F.range_fft_float(br, bi)
+    assert tuple(re.shape) == (2, p.n_range, p.n_doppler)
+    args = as_if_cuda.calls[0][1]
+    assert args[6:9] == (2, p.n_doppler, p.n_range)
+    mag, nf = F.slowtime_mag(re, im, True, exact_mag=True)
+    assert tuple(mag.shape) == (2, p.n_range, p.n_doppler)
+    cfg = as_if_cuda.calls[1][1][6]._obj
+    assert (cfg.batch, cfg.R, cfg.ND, cfg.T, cfg.exact_mag) == \
+        (2, 1024, 128, F.MAG_TILE_ROWS, 1)
+    cube = torch.zeros((2, 8, p.n_range, p.n_doppler))
+    det, scale = C3.cfar3d_detect(cube, 4, cfar=p.cfar, ref_angle=1)
+    assert det.dtype == torch.float32 and scale.dtype == torch.int32
+    cfg = as_if_cuda.calls[2][1][3]._obj
+    assert (cfg.batch, cfg.A, cfg.R, cfg.D, cfg.ha, cfg.ga, cfg.n_ref,
+            cfg.k, cfg.so, cfg.integer) == (2, 8, 1024, 128, 1, 0, 414,
+                                            104, 4, 0)
+    assert cfg.R % cfg.T == 0
+    C3.cfar3d_detect(cube.int(), cfar=fmcw_tpu_torch.quick().cfar,
+                     ref_angle=2, guard_angle=1)
+    cfg = as_if_cuda.calls[3][1][3]._obj
+    assert (cfg.ha, cfg.ga, cfg.integer) == (3, 1, 1)
+    g, rmax, n = BG.beam_group(cube, 2)
+    assert tuple(rmax.shape) == (2, 8 * p.n_range) and tuple(n.shape) == (2,)
+    cfg = as_if_cuda.calls[4][1][4]._obj
+    assert (cfg.batch, cfg.NB, cfg.R, cfg.D, cfg.radius) == \
+        (2, 8, 1024, 128, 2)
+    assert [c[0] for c in as_if_cuda.calls] == [
+        "range_fft_float", "slowtime_mag", "cfar_3d_detect",
+        "cfar_3d_detect", "beam_group"]
+    assert (F.range_fft_float.launches, F.slowtime_mag.launches,
+            C3.cfar3d_detect.launches, BG.beam_group.launches) == (1, 1, 2, 1)
+
+
+def test_array_failed_launch_raises(as_if_cuda):
+    as_if_cuda.err = 1
+    p = fmcw_tpu_torch.quick()
+    br, bi = _planes((1, p.n_doppler, p.n_range))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        F.range_fft_float(br, bi)
+    re = torch.zeros((1, p.n_range, p.n_doppler))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        F.slowtime_mag(re, re)
+    cube = torch.zeros((1, 4, p.n_range, p.n_doppler))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        C3.cfar3d_detect(cube, cfar=p.cfar, ref_angle=1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        BG.beam_group(cube, 1)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_array_kernels_reject_unported_configs(as_if_cuda):
+    p = fmcw_tpu_torch.quick()
+    br, bi = _planes((1, p.n_doppler, 48))
+    with pytest.raises(NotImplementedError):
+        F.range_fft_float(br, bi)                   # n_range not 2^k
+    long_cpi = torch.zeros((1, 128, 256))
+    with pytest.raises(NotImplementedError):
+        F.slowtime_mag(long_cpi, long_cpi)
+    cube = torch.zeros((1, 4, p.n_range, p.n_doppler))
+    ca = fmcw_tpu_torch.CfarParams(variant="ca")
+    with pytest.raises(NotImplementedError):
+        C3.cfar3d_detect(cube, cfar=ca, ref_angle=1)
+    with pytest.raises(ValueError):
+        C3.cfar3d_detect(cube, cfar=p.cfar, ref_angle=0)    # cfar_detect's
+    narrow = torch.zeros((1, 4, 64, 3))
+    with pytest.raises(NotImplementedError):
+        C3.cfar3d_detect(narrow, cfar=p.cfar, ref_angle=1)   # halo >= D
+    with pytest.raises(NotImplementedError):
+        BG.beam_group(cube.int(), 1)
+    assert as_if_cuda.calls == []
+    # The array processor's default route keeps to the kernels: on a long
+    # CPI kernel A runs, then kernel B (detect or magnitude-only) raises
+    # instead of falling back to the plain transforms.
+    long_cpi = p.replace(n_doppler=256)
+    iq = np.zeros((4, long_cpi.n_doppler, long_cpi.n_range, 2), np.int16)
+    for ref_angle in (0, 1):
+        proc = tpl.make_array_processor(long_cpi, n_elems=4, n_beams=4,
+                                        ref_angle=ref_angle, device="cpu")
+        with pytest.raises(NotImplementedError):
+            proc(iq)
+    assert [c[0] for c in as_if_cuda.calls] == ["range_fft_float"] * 2
