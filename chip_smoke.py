@@ -4,6 +4,7 @@
 Run from the repository root:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --nccl-only   # with 2+ GPUs: the NCCL mesh alone
 
 It builds the CUDA kernels from fmcw_tpu_torch/csrc/ (into build/), holds
 each kernel against its plain PyTorch twin on the card, drives the float32
@@ -23,9 +24,18 @@ magnitude-only entry points of the front-end kernels, the angle-extended
 full width and at small shapes; three configurations through
 make_batch_array_processor (per-cell and block scale with per-beam and
 cross-beam grouping; the 3D CFAR at ref_angle 1), each checked with the
-array gate against the plain path; stage and kernel timings.  It prints
-the card's name and power limit, one JSON line listing the kernels, and
-as its last line {"ok": true, "device": {...}}.  Any failed check raises,
+array gate against the plain path; stage and kernel timings.  Then the
+sharded frame processor (fmcw_tpu_torch/parallel/): the split entries of
+the front-end kernels (TPU rows 3-6: the range kernels on chirp shards,
+kernel B and its fixed twin on range shards with exchanged halo rows) at
+full width, sp 2 and 4, the shards of each frame one after another on
+this card, each bit-equal to the matching part of the whole-frame kernel
+and held against its plain twin; make_sharded_processor on a LocalMesh
+(collectives by slicing) equal to the single-card path bit for bit; the
+shards' kernel timings; and, with two or more GPUs, the NCCL mesh
+(torch.multiprocessing, one rank per GPU) equal to the single GPU.  It
+prints the card's name and power limit, one JSON line listing the
+kernels, and as its last line {"ok": true, "device": {...}}.  Any failed check raises,
 and the script then exits non-zero; without CUDA it exits non-zero at
 once.
 """
@@ -949,6 +959,500 @@ def array_model(card: str, dev):
                   "beams": N_BEAMS}
 
 
+# ---------------------------------------------------------------------------
+# The sharded frame processor
+# ---------------------------------------------------------------------------
+
+SPLIT_SPS = (2, 4)
+
+
+def seam_batch(p, batch: int):
+    """A saturating frame whose energy sits on the top range bin, the seam
+    of the range shards' ring (tests/test_split_frontend.py:98-118: a
+    near-full-scale tone whose Doppler ramp the MTI notch passes), plus
+    hot_batch's x40 golden frames: Doppler-window saturations in halo
+    rows."""
+    import numpy as np
+    from fmcw_tpu_torch.models import pipeline as pl
+    nr, nd = p.n_range, p.n_doppler
+    n = np.arange(nr)[None, :]
+    c = np.arange(nd)[:, None]
+    z = 32000.0 * np.exp(2j * np.pi * ((nr - 1) * n / nr + 0.23 * c))
+    tone = pl.complex_to_iq(z.astype(np.complex64))[None]
+    return np.concatenate([tone, hot_batch(p, batch - 1)])
+
+
+def bound_slowtime_split(B: int, nrl: int, nd: int, h: int, cfar):
+    """Least time for kernel B's split entry on a range shard: its rows and
+    the 2h halo rows read once, det and row maxima written once; the
+    slow-time step on all nrl + 2h rows (the halo rows' magnitudes feed the
+    CFAR windows) and the CFAR per cell of the shard."""
+    cells = B * nrl * nd
+    nbytes = B * (nrl + 2 * h) * nd * 8 + cells * 4 + B * nrl * 4 + B * 8
+    ops = _slowtime_ops(B, nrl + 2 * h, nd) + cells * _cfar_ops(cfar)
+    return _bound(nbytes, ops)
+
+
+def bound_slowtime_fixed_split(B: int, nrl: int, nd: int, h: int, cfar):
+    """Least time for the fixed split entry: int16 rows and halo rows read
+    once, det and row maxima written once; FFT and BFP (FP64) and MTI,
+    window and magnitude (INT32) on all nrl + 2h rows, the integer CFAR on
+    the shard's cells."""
+    rows = B * (nrl + 2 * h)
+    cells = B * nrl * nd
+    nbytes = rows * nd * 4 + cells * 4 + B * nrl * 4 + B * 8
+    fp64 = rows * (5 * nd * math.log2(nd) + 10 * nd)
+    return _bound(nbytes, 0, rows * nd * 24 + cells * _cfar_ops(cfar), fp64)
+
+
+def split_kernel_checks(dev, pgr: int):
+    """Phase 16: TPU rows 3-6 at full width (batch 128, 1024x128, sp 2 and
+    4), the sp shards of each frame one after another on this card.  Each
+    shard's range kernel (float and fixed) bit-equal to the matching
+    columns of the whole-frame launch, the shards' saturation counts summing
+    to the frame's; each shard's split kernel B (float and fixed, mti_bypass
+    off and on, scale_override 0 and 4), fed the neighbour halo rows sliced
+    from the frame, bit-equal to the matching rows of the whole-frame
+    kernel (det, mag, row maxima) with counts summing to the frame's; the
+    shards' top-K merged in shard order equal to the frame's top-K; each
+    entry against its plain twin (magnitudes within TOL / 2 LSB, the
+    decision bit for bit on the kernel's magnitudes).  The fixed checks
+    also run on seam_batch.  Returns ({row: max_abs_err}, the inputs)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import detect as DET, frontend as F
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    p = P.RadarParams()
+    nr, nd = p.n_range, p.n_doppler
+    K = p.tracker.max_dets
+    h = p.cfar.halo_range + pgr
+    errs = {"range_frontend": 0.0, "range_frontend_fixed": 0.0,
+            "slowtime_detect_split": 0.0, "slowtime_detect_fixed_split": 0.0}
+    iq = torch.as_tensor(make_batch(p, BATCH, seed=6), device=dev)
+    seam = torch.as_tensor(seam_batch(p, 8), device=dev)
+    for fixed, frames in ((False, iq), (True, iq), (True, seam)):
+        name = "fixed" if fixed else "float"
+        if fixed:
+            re, im, sat_r = FX.range_fft_fixed(frames)
+        else:
+            re, im = F.range_fft(frames)
+        for bypass, so in ((False, 0), (True, 4)):
+            kw = dict(cfar=p.cfar, peak_group_radius=pgr, emit_mag=True)
+            if fixed:
+                det, mag, rmax, ndet, stat = FX.slowtime_detect_fixed(
+                    re, im, bypass, so, **kw)
+                stat = stat + sat_r
+            else:
+                det, mag, rmax, ndet, stat = F.slowtime_detect(
+                    re, im, bypass, so, **kw)
+            whole = DET.topk_detections(det, K, row_max=rmax, n_dets=ndet)
+            if frames is seam and not bypass and int(stat.min()) <= 0:
+                raise AssertionError("the seam batch does not saturate")
+            for sp in SPLIT_SPS:
+                ndc, nrl = nd // sp, nr // sp
+                same, parts = True, []
+                stat_sum = ndet_sum = 0
+                for s in range(sp):
+                    # Row 3 / 4: the chirp shard against the frame's columns.
+                    cols = slice(s * ndc, (s + 1) * ndc)
+                    if fixed:
+                        a_re, a_im, a_sat = SF.range_frontend_fixed(
+                            frames[:, cols])
+                        stat_sum = stat_sum + a_sat
+                    else:
+                        a_re, a_im = SF.range_frontend(frames[:, cols])
+                    same &= (torch.equal(a_re, re[..., cols])
+                             and torch.equal(a_im, im[..., cols]))
+                    # Row 5 / 6: the range shard with neighbour halo rows.
+                    rows = slice(s * nrl, (s + 1) * nrl)
+                    ext = torch.arange(s * nrl - h, (s + 1) * nrl + h,
+                                       device=dev) % nr
+                    lo, hi = ext[:h], ext[h + nrl:]
+                    args = (re[:, rows], im[:, rows], (re[:, lo], im[:, lo]),
+                            (re[:, hi], im[:, hi]), bypass, so, s * nrl)
+                    skw = dict(cfar=p.cfar, n_range_total=nr,
+                               peak_group_radius=pgr, emit_mag=True)
+                    if fixed:
+                        out = SF.slowtime_detect_fixed_split(*args, **skw)
+                        twin = SF.slowtime_detect_fixed_split_plain(*args,
+                                                                    **skw)
+                    else:
+                        out = SF.slowtime_detect_split(*args, **skw)
+                        twin = SF.slowtime_detect_split_plain(*args, **skw)
+                    d_s, m_s, r_s, n_s, st_s = out
+                    same &= (torch.equal(d_s, det[:, rows])
+                             and torch.equal(m_s, mag[:, rows])
+                             and torch.equal(r_s, rmax[:, rows]))
+                    stat_sum = stat_sum + st_s
+                    ndet_sum = ndet_sum + n_s
+                    # The twin: magnitudes by tolerance, the decision bit for
+                    # bit on the kernel's own (whole-frame, equal) magnitudes.
+                    d2, r2, n2 = SF.detect_halo_plain(mag[:, ext], p.cfar,
+                                                      so, pgr, s * nrl, nr)
+                    torch.cuda.synchronize()
+                    twin_ok = (torch.equal(d_s, d2) and torch.equal(r_s, r2)
+                               and torch.equal(n_s, n2)
+                               and torch.equal(st_s, twin[4]))
+                    merr = float((m_s.double() - twin[1].double()).abs().max())
+                    mpeak = float(twin[1].abs().max())
+                    key = ("slowtime_detect_fixed_split" if fixed
+                           else "slowtime_detect_split")
+                    errs[key] = max(errs[key], merr)
+                    if not twin_ok or merr > (2 if fixed else TOL * mpeak):
+                        raise AssertionError(
+                            f"{key} sp={sp} shard {s} disagrees with its "
+                            f"plain twin (mag err {merr:g})")
+                    loc = DET.topk_detections(d_s, K, row_max=r_s, n_dets=n_s)
+                    loc["range_bin"] = loc["range_bin"] + s * nrl
+                    parts.append(loc)
+                vals, idx = DET.top_k(torch.cat([q["mag"] for q in parts],
+                                                dim=-1), K)
+                merged = {"mag": vals, "n_dets": ndet_sum,
+                          **{k: torch.gather(torch.cat(
+                              [q[k] for q in parts], dim=-1), -1, idx)
+                             for k in ("range_bin", "doppler_bin")}}
+                same_k = all(torch.equal(merged[k], whole[k]) for k in merged)
+                same_stat = torch.equal(stat_sum, stat)
+                torch.cuda.synchronize()
+                log(f"split {name} {'seam' if frames is seam else 'batch'} "
+                    f"sp={sp} bypass={bypass} so={so}: shards "
+                    f"{'bit-equal' if same else 'DIFFER'} to the whole-frame "
+                    f"kernels, merged top-K {'equal' if same_k else 'DIFFERS'}"
+                    f", {'saturation' if fixed else 'non-finite'} counts "
+                    f"{int(stat_sum.sum())} vs {int(stat.sum())}, n_dets "
+                    f"{int(ndet.min())}..{int(ndet.max())}")
+                if not (same and same_k and same_stat):
+                    raise AssertionError(f"split {name} sp={sp} differs from "
+                                         f"the whole-frame kernels")
+    # Rows 3 / 4 against their twins (the range kernels' columns equal the
+    # whole-frame launch's, checked above, which phase 2 / 7 hold against
+    # the same twins): the shard's own twin once more.
+    for s in range(2):
+        chirps = iq[:, s * nd // 2:(s + 1) * nd // 2]
+        a = SF.range_frontend(chirps)
+        b = F.range_fft_plain(chirps)
+        peak = float(torch.maximum(b[0].abs().max(), b[1].abs().max()))
+        err = float(torch.maximum((a[0] - b[0]).abs().max(),
+                                  (a[1] - b[1]).abs().max()))
+        errs["range_frontend"] = max(errs["range_frontend"], err)
+        fa = SF.range_frontend_fixed(chirps)
+        fb = FX.range_fft_fixed_plain(chirps)
+        ferr = int(torch.maximum((fa[0].int() - fb[0].int()).abs().max(),
+                                 (fa[1].int() - fb[1].int()).abs().max()))
+        errs["range_frontend_fixed"] = max(errs["range_frontend_fixed"], ferr)
+        torch.cuda.synchronize()
+        if err > TOL * peak or ferr > 1 or not torch.equal(fa[2], fb[2]):
+            raise AssertionError("range_frontend(_fixed) disagrees with its "
+                                 "plain twin")
+    log(f"split entries vs plain twins: {errs}")
+    return errs, iq
+
+
+def split_main_path(card: str, dev, pgr: int):
+    """Phase 17: make_sharded_processor on a LocalMesh (the sp shards of each
+    frame one after another on this card, the all-to-all and the halo
+    exchange done by slicing) at batch 128, for sp 2 and 4: float per-cell
+    (kernel A on chirp shards, kernel B's split entry), float block (kernel
+    A, the magnitude-only kernel, block_scale_map_sharded, cfar_detect on
+    prepadded shards), fixed (the fixed range kernel and the fixed split
+    kernel B); the kernels each launches, all detection outputs bit-equal
+    to the single-card fused processor, frames/s.  Returns (launches,
+    frames/s)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
+    configs = (
+        ("float/cell", P.RadarParams(), "float32",
+         ("range_frontend", "slowtime_detect_split")),
+        ("float/block", P.fast(), "float32",
+         ("range_frontend", "slowtime_mag", "cfar_detect")),
+        ("fixed/cell", P.RadarParams(), "fixed",
+         ("range_frontend_fixed", "slowtime_detect_fixed_split")))
+    launches, fps = {}, {}
+    for name, p, mode, need in configs:
+        batch = torch.as_tensor(make_batch(p, BATCH, seed=7), device=dev)
+        kw = dict(mode=mode, frontend="fused", peak_group_radius=pgr,
+                  include_maps=False)
+        ref = pl.make_batch_processor(p, device=dev, **kw)(batch)
+        for sp in SPLIT_SPS:
+            proc = SH.make_sharded_processor(M.LocalMesh(1, sp, dev), p, **kw)
+            kernels.reset_launch_counts()
+            out = proc(batch)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            log(f"split main path {name} sp={sp}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+            if any(counts[k] < 1 for k in need):
+                raise AssertionError(f"split {name} sp={sp} skipped a kernel")
+            for k in need:
+                key = f"{k}[prepadded]" if k == "cfar_detect" else k
+                launches[key] = launches.get(key, 0) + counts[k]
+            diff = [k for k in ref if not torch.equal(out[k], ref[k])]
+            if diff or out.keys() != ref.keys():
+                raise AssertionError(f"split {name} sp={sp} differs from the "
+                                     f"single-card path in {diff}")
+            fps[f"{name}/sp{sp}"] = BATCH * 1e3 / cuda_ms(lambda: proc(batch),
+                                                          5)
+            log(f"split main path {name} sp={sp}: all outputs bit-equal to "
+                f"the single-card fused path ({int(ref['n_dets'].sum())} "
+                f"detections), {fps[f'{name}/sp{sp}']:.1f} frames/s on one "
+                f"card ({card})")
+    return launches, fps
+
+
+def split_timings(card: str, dev, pgr: int, iq, errs, launches):
+    """Phase 18: per-shard kernel times at sp = 4 (a 256-row range shard of
+    128 frames; a 32-chirp shard), CUDA events, against their bounds and
+    plain twins; the prepadded cfar_detect entry on a block-scale shard.
+    Returns the kernel rows."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import cfar as C, cfar_detect as CD
+    from fmcw_tpu_torch.ops import frontend as F, frontend_fixed as FX
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    from fmcw_tpu_torch.ops.window import hamming_float, hamming_q15
+    from fmcw_tpu_torch.ops.window import window_apply_fixed
+    p = P.RadarParams()
+    nr, nd = p.n_range, p.n_doppler
+    sp = SPLIT_SPS[-1]
+    ndc, nrl = nd // sp, nr // sp
+    h = p.cfar.halo_range + pgr
+    src = "fmcw_tpu_torch/csrc/"
+    chirps = iq[:, ndc:2 * ndc].contiguous()            # shard 1
+    rows = []
+    ms = cuda_ms(lambda: SF.range_frontend(chirps))
+    plain = cuda_ms(lambda: F.range_fft_plain(chirps), 5)
+    win = torch.as_tensor(hamming_float(nr), device=dev)
+    zw = torch.complex(chirps[..., 0].float() * win,
+                       chirps[..., 1].float() * win)
+    lib = cuda_ms(lambda: torch.fft.fft(zw, dim=-1))
+    bound, by = bound_range_fft(BATCH, ndc, nr)
+    log(f"range_frontend (chirp shard {BATCH}x{ndc}x{nr}): {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, torch.fft.fft {lib:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}) ({card})")
+    rows.append(dict(name="range_frontend", route="cuda",
+                     source=src + "range_fft.cu",
+                     replaces="fmcw_tpu/ops/split_frontend.py:73",
+                     launches=launches["range_frontend"],
+                     max_abs_err=errs["range_frontend"], ms=ms,
+                     plain_ms=plain, bound_ms=bound, bound_by=by,
+                     library_ms=lib))
+    ms = cuda_ms(lambda: SF.range_frontend_fixed(chirps))
+    plain = cuda_ms(lambda: FX.range_fft_fixed_plain(chirps), 5)
+    wi, wq, _ = window_apply_fixed(chirps[..., 0], chirps[..., 1],
+                                   hamming_q15(nr)[None, :])
+    zw = torch.complex(wi.double(), wq.double())
+    lib = cuda_ms(lambda: torch.fft.fft(zw, dim=-1))
+    del zw
+    bound, by = bound_range_fft_fixed(BATCH, ndc, nr)
+    log(f"range_frontend_fixed (chirp shard): {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, torch.fft.fft {lib:.4f} ms, bound {bound:.4f} ms "
+        f"({by}) ({card})")
+    rows.append(dict(name="range_frontend_fixed", route="cuda",
+                     source=src + "range_fft_fixed.cu",
+                     replaces="fmcw_tpu/ops/split_frontend.py:111",
+                     launches=launches["range_frontend_fixed"],
+                     max_abs_err=errs["range_frontend_fixed"], ms=ms,
+                     plain_ms=plain, bound_ms=bound, bound_by=by,
+                     library_ms=lib))
+    s = 1
+    ext = torch.arange(s * nrl - h, (s + 1) * nrl + h, device=dev) % nr
+    lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+    skw = dict(cfar=p.cfar, n_range_total=nr, peak_group_radius=pgr)
+    for fixed in (False, True):
+        if fixed:
+            re, im, _ = FX.range_fft_fixed(iq)
+            kern, twin = (SF.slowtime_detect_fixed_split,
+                          SF.slowtime_detect_fixed_split_plain)
+            name = "slowtime_detect_fixed_split"
+            line = 625
+            bound, by = bound_slowtime_fixed_split(BATCH, nrl, nd, h, p.cfar)
+        else:
+            re, im = F.range_fft(iq)
+            kern, twin = SF.slowtime_detect_split, SF.slowtime_detect_split_plain
+            name = "slowtime_detect_split"
+            line = 518
+            bound, by = bound_slowtime_split(BATCH, nrl, nd, h, p.cfar)
+        args = (re[:, core].contiguous(), im[:, core].contiguous(),
+                (re[:, lo].contiguous(), im[:, lo].contiguous()),
+                (re[:, hi].contiguous(), im[:, hi].contiguous()), False, 0,
+                s * nrl)
+        ms = cuda_ms(lambda: kern(*args, **skw))
+        plain = cuda_ms(lambda: twin(*args, **skw), 2, 1)
+        log(f"{name} (range shard {BATCH}x{nrl}x{nd}, halo {h}): {ms:.4f} "
+            f"ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
+        rows.append(dict(name=name, route="cuda",
+                         source=src + ("slowtime_detect_fixed.cu" if fixed
+                                       else "slowtime_detect.cu"),
+                         replaces=f"fmcw_tpu/ops/split_frontend.py:{line}",
+                         launches=launches[name], max_abs_err=errs[name],
+                         ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                         library_ms=None))
+    # The prepadded cfar_detect entry (rows 7/8's kernel) on a block-scale
+    # range shard with its halo_range exchanged rows.
+    q = P.fast()
+    re, im = F.range_fft(iq)
+    mag, _ = F.slowtime_mag(re, im)
+    hr = q.cfar.halo_range
+    ext = torch.arange(s * nrl - hr, (s + 1) * nrl + hr, device=dev) % nr
+    m_h = mag[:, ext].contiguous()
+    smap = C.block_scale_map(mag, q.cfar)[:, s * nrl:(s + 1) * nrl]
+    det, scale = CD.cfar_detect(m_h, 0, cfar=q.cfar, scale_map=smap,
+                                prepadded_range=True)
+    d2, s2 = CD.cfar_detect_plain(m_h, 0, cfar=q.cfar, scale_map=smap,
+                                  prepadded_range=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(det, d2) and torch.equal(scale, s2)
+            and torch.equal(det, CD.cfar_detect(mag, 0, cfar=q.cfar)[0][
+                :, s * nrl:(s + 1) * nrl])):
+        raise AssertionError("prepadded cfar_detect disagrees with cfar_2d "
+                             "or with the whole map's decision")
+    ms = cuda_ms(lambda: CD.cfar_detect(m_h, 0, cfar=q.cfar, scale_map=smap,
+                                        prepadded_range=True))
+    plain = cuda_ms(lambda: CD.cfar_detect_plain(
+        m_h, 0, cfar=q.cfar, scale_map=smap, prepadded_range=True), 2, 1)
+    bound, by = bound_cfar_detect(BATCH, nrl, nd, q.cfar, False)
+    log(f"cfar_detect prepadded block (range shard {BATCH}x{nrl}+2x{hr}): "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}); "
+        f"bit-identical to cfar_2d and to the whole map's rows ({card})")
+    rows.append(dict(name="cfar_detect[prepadded]", route="cuda",
+                     source=src + "cfar_detect.cu",
+                     replaces="fmcw_tpu/ops/cfar_pallas.py:279",
+                     launches=launches["cfar_detect[prepadded]"],
+                     max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
+                     bound_by=by, library_ms=None))
+    return rows
+
+
+def _nccl_rank(rank: int, world: int, port: int, dp: int, sp: int,
+               out_dir: str, pgr: int) -> None:
+    """One rank of the NCCL phase: make_mesh(dp, sp) over the world, the
+    sharded processor for each configuration against the single-GPU fused
+    path on this rank's GPU, frames/s of the mesh, and the all-to-all and
+    halo-exchange times."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        import fmcw_tpu_torch as P
+        from fmcw_tpu_torch.models import pipeline as pl
+        from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
+        dev = torch.device("cuda", rank)
+        mesh = M.make_mesh(dp, sp)
+        res = {"configs": {}}
+        for name, p, mode in (("float/cell", P.RadarParams(), "float32"),
+                              ("float/block", P.fast(), "float32"),
+                              ("fixed/cell", P.RadarParams(), "fixed")):
+            batch = torch.as_tensor(make_batch(p, BATCH, seed=8), device=dev)
+            kw = dict(mode=mode, frontend="fused", peak_group_radius=pgr,
+                      include_maps=False)
+            proc = SH.make_sharded_processor(mesh, p, **kw)
+            out = proc(batch)
+            ref = pl.make_batch_processor(p, device=dev, **kw)(batch)
+            diff = [k for k in ref if not torch.equal(out[k], ref[k])]
+            for _ in range(2):
+                proc(batch)
+            n = 10
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                proc(batch)
+            torch.cuda.synchronize()
+            dist.barrier()
+            dt = (time.perf_counter() - t0) / n
+            res["configs"][name] = {"diff": diff, "frames_per_s": BATCH / dt,
+                                    "n_dets": int(ref["n_dets"].sum())}
+        if sp > 1:
+            ring = SH.sp_ring(mesh)
+            bl = BATCH // dp
+            p = P.RadarParams()
+            x = torch.randn(bl, p.n_range, p.n_doppler // sp, device=dev)
+            y = torch.randn(bl, p.n_range // sp, p.n_doppler, device=dev)
+            h = p.cfar.halo_range + pgr
+            res["all_to_all_ms"] = cuda_ms(lambda: ring.corner_turn([x]))
+            res["halo_ms"] = cuda_ms(lambda: ring.halo([y], h))
+            res["all_to_all_mib"] = x.numel() * 4 / 2 ** 20
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_phase(card: str, pgr: int, deadline_s: float = 420.0):
+    """Phase 19, with two or more GPUs: torch.multiprocessing spawns one rank
+    per GPU for (dp, sp) = (1, 2), (2, 1) and (1, N <= 4); on each,
+    make_sharded_processor at full width (batch 128, 1024x128; float
+    per-cell, float block, fixed) equals the single-GPU fused path bit for
+    bit; prints frames/s and the all-to-all and halo-exchange times.  Any
+    failure, or a rank still running at the deadline, fails the run.
+    Returns the summary, or None with one card."""
+    import socket
+    import tempfile
+    from pathlib import Path
+    import torch
+    import torch.multiprocessing as mp
+    n_gpu = torch.cuda.device_count()
+    if n_gpu < 2:
+        log(f"NCCL phase not run: {n_gpu} GPU visible, the NCCL mesh needs "
+            f"two or more (one card runs the split phases 16-18 instead)")
+        return None
+    shapes = []
+    for shape in ((1, 2), (2, 1), (1, min(n_gpu, 4))):
+        if shape not in shapes:
+            shapes.append(shape)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    summary = {"gpus": n_gpu}
+    for dp, sp in shapes:
+        world = dp * sp
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        out_dir = tempfile.mkdtemp(prefix="nccl_", dir=build)
+        ctx = mp.start_processes(_nccl_rank, args=(world, port, dp, sp,
+                                                   out_dir, pgr),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        t_end = time.monotonic() + deadline_s
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > t_end:
+                    raise AssertionError(f"NCCL mesh dp={dp} sp={sp}: ranks "
+                                         f"still running after {deadline_s} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+        for r, res in enumerate(ranks):
+            for name, c in res["configs"].items():
+                if c["diff"]:
+                    raise AssertionError(f"NCCL mesh dp={dp} sp={sp} rank {r} "
+                                         f"{name} differs from the single GPU "
+                                         f"in {c['diff']}")
+        res = ranks[0]
+        summary[f"dp{dp}_sp{sp}"] = res
+        log(f"NCCL mesh dp={dp} sp={sp} on {world} GPUs: every rank equals "
+            f"the single-GPU fused path bit for bit; frames/s "
+            + ", ".join(f"{k} {v['frames_per_s']:.1f}"
+                        for k, v in res["configs"].items())
+            + (f"; all-to-all {res['all_to_all_ms']:.4f} ms for "
+               f"{res['all_to_all_mib']:.1f} MiB per rank, halo exchange "
+               f"{res['halo_ms']:.4f} ms" if sp > 1 else "")
+            + f" ({card})")
+    return summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -987,6 +1491,14 @@ def main() -> int:
     block = P.fast()
     pgr = 2
     results = {}
+    if "--nccl-only" in sys.argv[1:]:
+        # Phase 19 alone, for a multi-GPU machine: the NCCL mesh against
+        # the single GPU, nothing else.
+        summary = nccl_phase(card, pgr)
+        if summary is None:
+            raise AssertionError("--nccl-only needs two or more GPUs")
+        log(json.dumps({"nccl": summary, "card": card}))
+        return 0
 
     # 2. Kernel A against its plain twin at the main path's shapes.
     iq = torch.as_tensor(make_batch(entry, BATCH, seed=1), device=dev)
@@ -1166,7 +1678,16 @@ def main() -> int:
     # 12-15. The array model: kernels, main path, timings.
     array_rows, array_summary = array_model(card, dev)
 
-    # 16. The kernels line.
+    # 16-19. The sharded frame processor: the split entries (TPU rows 3-6)
+    #        on one card, the processor on a LocalMesh, timings, and the
+    #        NCCL mesh when two or more GPUs are visible.
+    split_errs, split_iq = split_kernel_checks(dev, pgr)
+    split_launches, split_fps = split_main_path(card, dev, pgr)
+    split_rows = split_timings(card, dev, pgr, split_iq, split_errs,
+                               split_launches)
+    nccl = nccl_phase(card, pgr)
+
+    # 20. The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
                  source="fmcw_tpu_torch/csrc/range_fft.cu",
@@ -1178,12 +1699,15 @@ def main() -> int:
                          source="fmcw_tpu_torch/csrc/slowtime_detect.cu",
                          replaces=replaces, launches=launches[mode][1],
                          **results[f"slowtime_detect[{mode}]"]))
-    rows += fixed_rows + array_rows
+    rows += fixed_rows + array_rows + split_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
                     "frames_per_s": frames_per_s, "stages_ms": stages,
                     "fixed": fixed_summary, "array": array_summary,
+                    "split": {"frames_per_s": split_fps,
+                              "sp": list(SPLIT_SPS)},
+                    "nccl": nccl,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

@@ -8,8 +8,12 @@
 // cfar_2d_pallas_detect.  One kernel with a flag: block_mode reads the
 // scale map.
 //
-// In:  map (B, R, D) int32 or float32; scale_in int32 (B, R, D) when
-//      block_mode (else null).
+// In:  map (B, R, D) int32 or float32 — or, prepadded, (B, R + 2 hr, D):
+//      a range shard with the halo_range rows beyond each edge exchanged
+//      from its neighbours on a sequence-parallel mesh (the sharded CFAR of
+//      fmcw_tpu/parallel/sharded.py, cfar_2d_pallas_detect(prepadded_range=
+//      True)); the range axis then does not wrap.  scale_in int32 (B, R, D)
+//      when block_mode (else null).
 // Out: det (B, R, D) in the map's type — the CUT where CUT > est * scale,
 //      else 0 — and scale_out int32 (B, R, D), scale_override folded in.
 //
@@ -38,7 +42,7 @@ struct CfarDetectConfig {
     int batch, R, D, T;
     int hr, hd, gr, gd, n_ref, k;
     int scale_min, scale_nom, scale_max;
-    int block_mode, so, integer;
+    int block_mode, so, integer, prepadded;
 };
 
 namespace {
@@ -55,12 +59,18 @@ cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
     const int E = c.T + 2 * c.hr;
     const int b = blockIdx.y;
     const int r0 = blockIdx.x * c.T;
-    const V* src = map + (size_t)b * c.R * c.D;
+    const int rows_in = c.prepadded ? c.R + 2 * c.hr : c.R;
+    const V* src = map + (size_t)b * rows_in * c.D;
     for (int idx = threadIdx.x; idx < E * c.D; idx += kThreads) {
         const int e = idx / c.D;
         const int d = idx % c.D;
-        int row = (r0 - c.hr + e) % c.R;
-        if (row < 0) row += c.R;
+        int row;
+        if (c.prepadded) {
+            row = r0 + e;                   // the map's row r0 - hr + e
+        } else {
+            row = (r0 - c.hr + e) % c.R;
+            if (row < 0) row += c.R;
+        }
         tile[idx] = src[(size_t)row * c.D + d];
     }
     __syncthreads();
@@ -97,7 +107,8 @@ int launch(const void* map, const void* scale_in, void* det, void* scale_out,
 
 }  // namespace
 
-// map/det: int32 (integer != 0) or float32 (batch, R, D); scale_in: int32
+// map: int32 (integer != 0) or float32 (batch, R, D), or (batch, R + 2 hr,
+// D) with prepadded; det: the map's type (batch, R, D); scale_in: int32
 // (batch, R, D) with block_mode, else null; scale_out: int32 (batch, R, D).
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int fmcw_cfar_detect(const void* map, const void* scale_in,

@@ -5,7 +5,12 @@
 // (stage 5, the fused slow-time operator; stage 6, the magnitude; the
 // epilogues _block_scale, _detect_epilogue and _peak_group_epilogue; the
 // per-row maxima, n_dets and non-finite count) and its split counterpart
-// fmcw_tpu/ops/split_frontend.py::_kernel_slowtime.
+// fmcw_tpu/ops/split_frontend.py::_kernel_slowtime: the split entry point
+// fmcw_slowtime_detect_split takes a range shard of a frame and the H rows
+// beyond each of its edges, exchanged from the neighbouring shards, in place
+// of the rows wrapped within the frame (slowtime_common.cuh), and breaks
+// grouping ties by global row ids.  Row maxima and counts cover the shard's
+// own rows.
 //
 // In:  planar float32 re/im, range-major (B, R, ND), from kernel A; the
 //      ND x ND complex slow-time matrix M[c][k] (MTI + Doppler window +
@@ -57,6 +62,10 @@ constexpr int kKC = 16;         // chirps per GEMM step
 struct Params {
     const float* xr;
     const float* xi;
+    const float* lo_r;              // split entry: H exchanged rows below
+    const float* lo_i;              // and above the shard, (B, H, ND);
+    const float* hi_r;              // null: rows wrap within the frame
+    const float* hi_i;
     const float* mr;
     const float* mi;
     float* det;
@@ -86,14 +95,15 @@ size_t smem_bytes(const SlowtimeConfig& c) {
 }
 
 // The slow-time product y = x M of E range rows g0 .. g0+E-1 (wrapped modulo
-// R) of one frame's planes and their magnitudes: each of 512 threads holds 4
-// rows x ND/16 columns of complex accumulators, operands staged through
-// shared memory (work, staging_floats(E, ND)) 16 chirps at a time.  Calls
-// sink(e, col, magnitude) once per cell.  All threads of the block call it.
-template <int ND, typename Sink>
+// R, or from the exchanged halos: FrameRows) of one frame's planes and their
+// magnitudes: each of 512 threads holds 4 rows x ND/16 columns of complex
+// accumulators, operands staged through shared memory (work,
+// staging_floats(E, ND)) 16 chirps at a time.  Calls sink(e, col, magnitude)
+// once per cell.  All threads of the block call it.
+template <int ND, typename Rows, typename Sink>
 __device__ __forceinline__ void slowtime_product(
-        const float* xr_b, const float* xi_b, const float* mr, const float* mi,
-        float* work, int g0, int E, int R, bool exact_mag, Sink sink) {
+        const Rows& x, const float* mr, const float* mi, float* work, int g0,
+        int E, bool exact_mag, Sink sink) {
     constexpr int NC = ND / 16;
     const int tid = threadIdx.x;
     const int cg = tid & 15;
@@ -111,10 +121,11 @@ __device__ __forceinline__ void slowtime_product(
         for (int idx = tid; idx < E * kKC; idx += kThreads) {
             const int e = idx / kKC;
             const int cc = idx % kKC;
-            int g = (g0 + e) % R;
-            if (g < 0) g += R;
-            xs_r[idx] = xr_b[(size_t)g * ND + c0 + cc];
-            xs_i[idx] = xi_b[(size_t)g * ND + c0 + cc];
+            const float* rr;
+            const float* ri;
+            x.row(g0 + e, rr, ri);
+            xs_r[idx] = rr[c0 + cc];
+            xs_i[idx] = ri[c0 + cc];
         }
         for (int idx = tid; idx < kKC * ND; idx += kThreads) {
             ms_r[idx] = mr[c0 * ND + idx];
@@ -168,7 +179,7 @@ __device__ __forceinline__ void slowtime_product(
     }
 }
 
-template <int ND>
+template <int ND, bool kHalo>
 __global__ void __launch_bounds__(kThreads, 1)
 slowtime_detect_kernel(const Params p) {
     extern __shared__ float smem[];
@@ -191,9 +202,11 @@ slowtime_detect_kernel(const Params p) {
     if (tid < 2) counts[tid] = 0;
 
     // ---- 1. Slow-time product y = x M and magnitude, rows r0-H .. r0+T+H.
-    const size_t in0 = (size_t)b * c.R * ND;
-    slowtime_product<ND>(p.xr + in0, p.xi + in0, p.mr, p.mi, work, r0 - c.H,
-                         E, c.R, c.exact_mag != 0,
+    const auto rows = fmcw::frame_rows<kHalo>(p.xr, p.xi, p.lo_r, p.lo_i,
+                                              p.hi_r, p.hi_i, b, c.R, c.H,
+                                              ND);
+    slowtime_product<ND>(rows, p.mr, p.mi, work, r0 - c.H, E,
+                         c.exact_mag != 0,
                          [&](int e, int col, float m) {
                              mag_s[e * ND + col] = m;
                          });
@@ -212,10 +225,11 @@ slowtime_detect_kernel(const Params p) {
                       c.sb, c.block_mode != 0, c.so, g);
     __syncthreads();
 
-    // ---- 3. Peak grouping, outputs, row maxima and counts for the T rows.
+    // ---- 3. Peak grouping (global row ids), outputs, row maxima and
+    //         counts for the T rows.
     const size_t out0 = ((size_t)b * c.R + r0) * ND;
-    fmcw::group_store(det_s, mag_s, c.T, c.H, c.pgr, c.R, ND, r0, out0, p.det,
-                      p.mag, rmax_s, counts);
+    fmcw::group_store(det_s, mag_s, c.T, c.H, c.pgr, c.r_total, ND,
+                      c.row_off + r0, out0, p.det, p.mag, rmax_s, counts);
     __syncthreads();
     for (int t = tid; t < c.T; t += kThreads)
         p.row_max[(size_t)b * c.R + r0 + t] = __int_as_float(rmax_s[t]);
@@ -240,9 +254,9 @@ slowtime_mag_kernel(const Params p) {
     if (threadIdx.x == 0) nf_s = 0;
     float* out = p.mag + ((size_t)b * c.R + r0) * ND;
     int my_nf = 0;
-    const size_t in0 = (size_t)b * c.R * ND;
-    slowtime_product<ND>(p.xr + in0, p.xi + in0, p.mr, p.mi, smem, r0, c.T,
-                         c.R, c.exact_mag != 0,
+    const auto rows = fmcw::frame_rows<false>(p.xr, p.xi, p.lo_r, p.lo_i,
+                                              p.hi_r, p.hi_i, b, c.R, 0, ND);
+    slowtime_product<ND>(rows, p.mr, p.mi, smem, r0, c.T, c.exact_mag != 0,
                          [&](int e, int col, float m) {
                              out[e * ND + col] = m;
                              my_nf += !isfinite(m);
@@ -252,15 +266,15 @@ slowtime_mag_kernel(const Params p) {
     if (threadIdx.x == 0 && nf_s) atomicAdd(&p.nonfinite[b], nf_s);
 }
 
-template <int ND>
+template <int ND, bool kHalo>
 int launch(const Params& p, cudaStream_t stream) {
     const size_t smem = smem_bytes(p.c);
     cudaError_t err = cudaFuncSetAttribute(
-        slowtime_detect_kernel<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        slowtime_detect_kernel<ND, kHalo>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(p.c.R / p.c.T, p.c.batch);
-    slowtime_detect_kernel<ND><<<grid, kThreads, smem, stream>>>(p);
+    slowtime_detect_kernel<ND, kHalo><<<grid, kThreads, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
@@ -290,16 +304,17 @@ extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
     const SlowtimeConfig c = *cfg;
     if (!fmcw::slowtime_config_ok(c)) return (int)cudaErrorInvalidValue;
     Params p{static_cast<const float*>(xr), static_cast<const float*>(xi),
+             nullptr, nullptr, nullptr, nullptr,
              static_cast<const float*>(mr), static_cast<const float*>(mi),
              static_cast<float*>(det),       static_cast<float*>(mag),
              static_cast<float*>(row_max),   static_cast<int*>(n_dets),
              static_cast<int*>(nonfinite),   c};
     const cudaStream_t s = (cudaStream_t)stream;
     switch (c.ND) {
-        case 16: return launch<16>(p, s);
-        case 32: return launch<32>(p, s);
-        case 64: return launch<64>(p, s);
-        case 128: return launch<128>(p, s);
+        case 16: return launch<16, false>(p, s);
+        case 32: return launch<32, false>(p, s);
+        case 64: return launch<64, false>(p, s);
+        case 128: return launch<128, false>(p, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -317,6 +332,7 @@ extern "C" int fmcw_slowtime_mag(const void* xr, const void* xi,
         c.R % c.T != 0)
         return (int)cudaErrorInvalidValue;
     Params p{static_cast<const float*>(xr), static_cast<const float*>(xi),
+             nullptr, nullptr, nullptr, nullptr,
              static_cast<const float*>(mr), static_cast<const float*>(mi),
              nullptr,                        static_cast<float*>(mag),
              nullptr,                        nullptr,
@@ -327,6 +343,38 @@ extern "C" int fmcw_slowtime_mag(const void* xr, const void* xi,
         case 32: return launch_mag<32>(p, s);
         case 64: return launch_mag<64>(p, s);
         case 128: return launch_mag<128>(p, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// The split entry (a range shard on a sequence-parallel mesh): xr/xi float32
+// (batch, R, ND) are the shard's rows, lo_r/lo_i and hi_r/hi_i float32
+// (batch, H, ND) the H = halo_range + peak_group_radius rows just below and
+// above it, exchanged from the neighbouring shards; cfg's row_off is the
+// shard's first row in the frame and r_total the frame's rows (grouping
+// ties break by global row ids).  Per-cell scale only.  Outputs as
+// fmcw_slowtime_detect, for the shard's R rows.
+extern "C" int fmcw_slowtime_detect_split(
+        const void* xr, const void* xi, const void* lo_r, const void* lo_i,
+        const void* hi_r, const void* hi_i, const void* mr, const void* mi,
+        void* det, void* mag, void* row_max, void* n_dets, void* nonfinite,
+        const SlowtimeConfig* cfg, void* stream) {
+    const SlowtimeConfig c = *cfg;
+    if (!fmcw::split_config_ok(c) || !lo_r || !lo_i || !hi_r || !hi_i)
+        return (int)cudaErrorInvalidValue;
+    Params p{static_cast<const float*>(xr),   static_cast<const float*>(xi),
+             static_cast<const float*>(lo_r), static_cast<const float*>(lo_i),
+             static_cast<const float*>(hi_r), static_cast<const float*>(hi_i),
+             static_cast<const float*>(mr),   static_cast<const float*>(mi),
+             static_cast<float*>(det),        static_cast<float*>(mag),
+             static_cast<float*>(row_max),    static_cast<int*>(n_dets),
+             static_cast<int*>(nonfinite),    c};
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (c.ND) {
+        case 16: return launch<16, true>(p, s);
+        case 32: return launch<32, true>(p, s);
+        case 64: return launch<64, true>(p, s);
+        case 128: return launch<128, true>(p, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

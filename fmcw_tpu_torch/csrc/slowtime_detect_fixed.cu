@@ -9,7 +9,12 @@
 // alpha-max-beta-min magnitude, the integer CFAR epilogues _block_scale /
 // _detect_epilogue with integer=True, _peak_group_epilogue, row maxima,
 // n_dets and the saturation count) and its split counterpart
-// fmcw_tpu/ops/split_frontend.py::_kernel_slowtime_fixed.
+// fmcw_tpu/ops/split_frontend.py::_kernel_slowtime_fixed: the split entry
+// point fmcw_slowtime_detect_fixed_split takes a range shard of a frame and
+// the H rows beyond each of its edges, exchanged from the neighbouring
+// shards (slowtime_common.cuh), and breaks grouping ties by global row ids.
+// The Doppler window's saturations are counted on the shard's own rows
+// only: a halo row is counted by the shard that owns it.
 //
 // In:  int16 re/im planes, range-major (B, R, ND), from range_fft_fixed.cu;
 //      the int32 Q15 Doppler window (ND,); the float64 twiddles tw[m] =
@@ -54,6 +59,10 @@ constexpr int kChunk = 32;      // rows per FFT pass
 struct Params {
     const int16_t* xr;
     const int16_t* xi;
+    const int16_t* lo_r;            // split entry: H exchanged rows below
+    const int16_t* lo_i;            // and above the shard, (B, H, ND);
+    const int16_t* hi_r;            // null: rows wrap within the frame
+    const int16_t* hi_i;
     const int* win;
     const double2* tw;
     int* det;
@@ -75,7 +84,7 @@ size_t smem_bytes(const SlowtimeConfig& c) {
            (size_t)(E * c.ND + 5 * kMaxBlk + c.T + 3) * 4;
 }
 
-template <int ND>
+template <int ND, bool kHalo>
 __global__ void __launch_bounds__(kThreads, 1)
 slowtime_detect_fixed_kernel(const Params p) {
     static_assert(2 * kChunk * ND * sizeof(double) >=
@@ -100,8 +109,9 @@ slowtime_detect_fixed_kernel(const Params p) {
     const int warp = tid >> 5;
     const int b = blockIdx.y;
     const int r0 = blockIdx.x * c.T;
-    const int16_t* xr_b = p.xr + (size_t)b * c.R * ND;
-    const int16_t* xi_b = p.xi + (size_t)b * c.R * ND;
+    const auto frame = fmcw::frame_rows<kHalo>(p.xr, p.xi, p.lo_r, p.lo_i,
+                                               p.hi_r, p.hi_i, b, c.R, c.H,
+                                               ND);
     constexpr int kLog2 = ND == 16 ? 4 : ND == 32 ? 5 : ND == 64 ? 6 : 7;
 
     for (int i = tid; i < c.T; i += kThreads) rmax_s[i] = 0;
@@ -116,13 +126,14 @@ slowtime_detect_fixed_kernel(const Params p) {
         for (int idx = tid; idx < rows * ND; idx += kThreads) {
             const int e = e0 + idx / ND;
             const int ch = idx % ND;
-            int g = (r0 - c.H + e) % c.R;
-            if (g < 0) g += c.R;
+            const int16_t* row_r;
+            const int16_t* row_i;
+            frame.row(r0 - c.H + e, row_r, row_i);
             const bool own = e >= c.H && e < c.H + c.T;
             const int w = p.win[ch];
 #pragma unroll
             for (int part = 0; part < 2; ++part) {
-                const int16_t* row = (part ? xi_b : xr_b) + (size_t)g * ND;
+                const int16_t* row = part ? row_i : row_r;
                 const int x0 = row[ch];
                 int y = x0;
                 if (!c.bypass) {
@@ -182,8 +193,8 @@ slowtime_detect_fixed_kernel(const Params p) {
                       c.sb, c.block_mode != 0, c.so, g);
     __syncthreads();
     const size_t out0 = ((size_t)b * c.R + r0) * ND;
-    fmcw::group_store(det_s, mag_s, c.T, c.H, c.pgr, c.R, ND, r0, out0, p.det,
-                      p.mag, rmax_s, counts);
+    fmcw::group_store(det_s, mag_s, c.T, c.H, c.pgr, c.r_total, ND,
+                      c.row_off + r0, out0, p.det, p.mag, rmax_s, counts);
     __syncthreads();
     for (int t = tid; t < c.T; t += kThreads)
         p.row_max[(size_t)b * c.R + r0 + t] = rmax_s[t];
@@ -193,15 +204,16 @@ slowtime_detect_fixed_kernel(const Params p) {
     }
 }
 
-template <int ND>
+template <int ND, bool kHalo>
 int launch(const Params& p, cudaStream_t stream) {
     const size_t smem = smem_bytes(p.c);
     cudaError_t err = cudaFuncSetAttribute(
-        slowtime_detect_fixed_kernel<ND>,
+        slowtime_detect_fixed_kernel<ND, kHalo>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(p.c.R / p.c.T, p.c.batch);
-    slowtime_detect_fixed_kernel<ND><<<grid, kThreads, smem, stream>>>(p);
+    slowtime_detect_fixed_kernel<ND, kHalo>
+        <<<grid, kThreads, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
@@ -223,16 +235,50 @@ extern "C" int fmcw_slowtime_detect_fixed(const void* xr, const void* xi,
         c.shift > 30)
         return (int)cudaErrorInvalidValue;
     Params p{static_cast<const int16_t*>(xr), static_cast<const int16_t*>(xi),
+             nullptr, nullptr, nullptr, nullptr,
              static_cast<const int*>(win),    static_cast<const double2*>(tw),
              static_cast<int*>(det),          static_cast<int*>(mag),
              static_cast<int*>(row_max),      static_cast<int*>(n_dets),
              static_cast<int*>(sat),          c};
     const cudaStream_t s = (cudaStream_t)stream;
     switch (c.ND) {
-        case 16: return launch<16>(p, s);
-        case 32: return launch<32>(p, s);
-        case 64: return launch<64>(p, s);
-        case 128: return launch<128>(p, s);
+        case 16: return launch<16, false>(p, s);
+        case 32: return launch<32, false>(p, s);
+        case 64: return launch<64, false>(p, s);
+        case 128: return launch<128, false>(p, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// The split entry (a range shard on a sequence-parallel mesh): xr/xi int16
+// (batch, R, ND) are the shard's rows, lo_r/lo_i and hi_r/hi_i int16
+// (batch, H, ND) the H = halo_range + peak_group_radius rows just below and
+// above it, exchanged from the neighbouring shards; cfg's row_off and
+// r_total place the shard in the frame.  Per-cell scale only.  Outputs as
+// fmcw_slowtime_detect_fixed, for the shard's R rows; sat counts the
+// Doppler window's saturations of those rows only.
+extern "C" int fmcw_slowtime_detect_fixed_split(
+        const void* xr, const void* xi, const void* lo_r, const void* lo_i,
+        const void* hi_r, const void* hi_i, const void* win, const void* tw,
+        void* det, void* mag, void* row_max, void* n_dets, void* sat,
+        const SlowtimeConfig* cfg, void* stream) {
+    const SlowtimeConfig c = *cfg;
+    if (!fmcw::split_config_ok(c) || (c.notch_mode != 2 && c.notch_mode != 3) ||
+        c.shift < 1 || c.shift > 30 || !lo_r || !lo_i || !hi_r || !hi_i)
+        return (int)cudaErrorInvalidValue;
+    Params p{static_cast<const int16_t*>(xr),   static_cast<const int16_t*>(xi),
+             static_cast<const int16_t*>(lo_r), static_cast<const int16_t*>(lo_i),
+             static_cast<const int16_t*>(hi_r), static_cast<const int16_t*>(hi_i),
+             static_cast<const int*>(win),      static_cast<const double2*>(tw),
+             static_cast<int*>(det),            static_cast<int*>(mag),
+             static_cast<int*>(row_max),        static_cast<int*>(n_dets),
+             static_cast<int*>(sat),            c};
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (c.ND) {
+        case 16: return launch<16, true>(p, s);
+        case 32: return launch<32, true>(p, s);
+        case 64: return launch<64, true>(p, s);
+        case 128: return launch<128, true>(p, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -10,7 +10,8 @@ denormals being kept.
 
 Nothing here runs at import time; ``load()`` is called by the kernel
 wrappers (``ops/frontend.py``, ``ops/frontend_fixed.py``,
-``ops/cfar_detect.py``, ``ops/cfar3d_detect.py``, ``ops/beam_group.py``)
+``ops/cfar_detect.py``, ``ops/cfar3d_detect.py``, ``ops/beam_group.py``,
+``ops/split_frontend.py``)
 when they are handed a CUDA tensor.  Each wrapper is registered with
 ``counted`` and carries ``launches``, the number of kernels it launched
 since ``reset_launch_counts()``.
@@ -43,7 +44,8 @@ class SlowtimeConfig(ctypes.Structure):
         "scale_min", "scale_nom", "scale_max",
         "block_mode", "sb", "n_blk", "k_blk",
         "so", "pgr", "exact_mag",
-        "notch_mode", "transient_zero", "bypass", "rnd", "shift")]
+        "notch_mode", "transient_zero", "bypass", "rnd", "shift",
+        "row_off", "r_total")]
 
 
 class CfarDetectConfig(ctypes.Structure):
@@ -52,7 +54,7 @@ class CfarDetectConfig(ctypes.Structure):
         "batch", "R", "D", "T",
         "hr", "hd", "gr", "gd", "n_ref", "k",
         "scale_min", "scale_nom", "scale_max",
-        "block_mode", "so", "integer")]
+        "block_mode", "so", "integer", "prepadded")]
 
 
 class Cfar3dConfig(ctypes.Structure):
@@ -200,6 +202,10 @@ def load() -> ctypes.CDLL:
     lib.fmcw_slowtime_detect_fixed.argtypes = [vp] * 9 + [
         ctypes.POINTER(SlowtimeConfig), vp]
     lib.fmcw_slowtime_detect_fixed.restype = ci
+    for split in (lib.fmcw_slowtime_detect_split,
+                  lib.fmcw_slowtime_detect_fixed_split):
+        split.argtypes = [vp] * 13 + [ctypes.POINTER(SlowtimeConfig), vp]
+        split.restype = ci
     lib.fmcw_cfar_detect.argtypes = [vp] * 4 + [
         ctypes.POINTER(CfarDetectConfig), vp]
     lib.fmcw_cfar_detect.restype = ci

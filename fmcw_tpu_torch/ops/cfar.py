@@ -33,6 +33,13 @@ float32.  The plain twin of ``csrc/cfar_detect.cu`` too (``ops/cfar_detect``).
 All functions take maps with any leading batch dimensions, ``(..., R, D)``,
 wrap edges (the torus of the reference's line buffers).
 
+The sharded processor's pieces (``parallel/sharded.py``, after
+``fmcw_tpu/parallel/sharded.py``): ``cfar_2d(prepadded_range=True)`` on a
+range shard that carries ``halo_range`` exchanged rows on each side,
+``peak_group(row_ids=...)`` with global row ids on a halo-extended shard, and
+``block_scale_map_sharded``, the block scale of range shards from one
+exchanged block-grid row per side.
+
 The array model's pieces: ``cfar_3d`` (the angle-extended CFAR over
 (..., A, R, D) beam cubes, the plain twin of ``csrc/cfar_3d_detect.cu``, its
 training-set sum in that kernel's order) and ``peak_group_beams`` (cross-beam
@@ -184,9 +191,60 @@ def block_scale_map(mag: torch.Tensor, cfar: CfarParams) -> torch.Tensor:
     return _to_cells(scale_b, b).to(torch.int32)
 
 
+def block_scale_map_sharded(mags: list, cfar: CfarParams,
+                            exchange) -> list:
+    """``block_scale_map`` of a map cut into range shards: ``mags`` is the
+    list of shards (..., R_i, D) held here (every shard, in order, or one
+    rank's own), and ``exchange(xs, h)`` returns, for each tensor of the
+    list ``xs``, the pair (the previous shard's last ``h`` rows, the next
+    shard's first ``h`` rows) around the ring of shards
+    (``parallel/sharded.py``).  The 3x3-block neighbourhood needs one
+    block-grid row from each neighbour: block sums and the hi/lo counts
+    are exchanged, and the neighbourhood is summed in ``_nb9``'s term order,
+    so float maps too give ``block_scale_map``'s scales bit for bit.
+    Returns the int32 scale maps, one per shard.  Port of
+    ``fmcw_tpu/ops/cfar.block_scale_map_sharded`` (wrap edges)."""
+    b = cfar.scale_block
+    n, k = _block_k(cfar)
+    ms = [_as_map(m) for m in mags]
+    for m in ms:
+        if m.shape[-2] % b or m.shape[-1] % b:
+            raise ValueError(f"scale_block={b} must divide the shard shape "
+                             f"{tuple(m.shape[-2:])}")
+
+    def nb9(grids):
+        out = []
+        for g, (lo, hi) in zip(grids, exchange(grids, 1)):
+            e = torch.cat([lo, g, hi], dim=-2)
+            rb = g.shape[-2]
+            acc = None
+            for di in (-1, 0, 1):
+                for dr in (-1, 0, 1):
+                    t = torch.roll(e[..., 1 + dr:1 + dr + rb, :], -di, -1)
+                    acc = t if acc is None else acc + t
+            out.append(acc)
+        return out
+
+    means = nb9([_block_reduce(m, b) for m in ms])
+    counts = []
+    for m, mean in zip(ms, means):
+        t_hi, t_lo = _thresholds(_to_cells(_div(mean, n), b))
+        counts.append(torch.stack([
+            _block_reduce((m > t_hi).to(torch.int32), b),
+            _block_reduce((m >= t_lo).to(torch.int32), b)]))
+    out = []
+    for cnt_hi, cnt_lo in nb9(counts):
+        scale_b = torch.where(cnt_hi >= k, cfar.scale_max,
+                              torch.where(cnt_lo < k, cfar.scale_min,
+                                          cfar.scale_nom))
+        out.append(_to_cells(scale_b, b).to(torch.int32))
+    return out
+
+
 def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
             cfar: CfarParams = CfarParams(), need_debug: bool = False,
-            scale_map: torch.Tensor | None = None):
+            scale_map: torch.Tensor | None = None,
+            prepadded_range: bool = False):
     """2D OS-CFAR over (..., R, D) magnitude maps, float32 or integer.
 
     Returns ``(det, threshold, scale)``: the zero-suppressed detection map
@@ -196,20 +254,33 @@ def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
     values) and the int32 scale map.  ``scale_override`` != 0 replaces the
     adaptive scale (the cfar_scale_ovr control port, radar_core.vhd:49).
     ``scale_map`` (block scale only): a precomputed int32 scale map, as
-    ``fmcw_tpu/ops/cfar.cfar_2d(scale_map=...)`` takes it."""
+    ``fmcw_tpu/ops/cfar.cfar_2d(scale_map=...)`` takes it.
+
+    ``prepadded_range``: the map carries ``halo_range`` extra rows on each
+    side (a range shard with its neighbours' rows) and the range axis does
+    not wrap; the outputs have the unpadded rows.  Block scale then needs
+    ``scale_map`` (``block_scale_map_sharded``), as in JAX."""
     check_supported(cfar)
+    hr, hd = cfar.halo_range, cfar.halo_doppler
     m = _as_map(mag)
     integer = not m.is_floating_point()
+    if prepadded_range:
+        p = _wrap_pad(m, 0, hd)
+        m = m[..., hr:m.shape[-2] - hr, :]
+    else:
+        p = _wrap_pad(m, hr, hd)
     R, D = m.shape[-2:]
-    hr, hd = cfar.halo_range, cfar.halo_doppler
     k = cfar.n_ref - cfar.rank_idx
-    p = _wrap_pad(m, hr, hd)
     offsets = _window_offsets(cfar)
 
     def ref(dr, dd):
         return p[..., hr + dr:hr + dr + R, hd + dd:hd + dd + D]
 
     if cfar.scale_mode == "block":
+        if scale_map is None and prepadded_range:
+            raise ValueError(
+                "scale_mode='block' on a prepadded (sharded) map needs the "
+                "scale_map of block_scale_map_sharded")
         scale = (block_scale_map(m, cfar) if scale_map is None
                  else scale_map.to(torch.int32))
     else:
@@ -361,16 +432,25 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
     return det, threshold, scale
 
 
-def peak_group(det: torch.Tensor, radius: int = 1) -> torch.Tensor:
+def peak_group(det: torch.Tensor, radius: int = 1,
+               row_ids: torch.Tensor | None = None) -> torch.Tensor:
     """Peak grouping: keep detections that are the strict local max of their
     (2r+1)^2 wrapped neighborhood, ties broken toward the lower linear index
     (row * D + col) — the semantics of fmcw_tpu/ops/cfar.peak_group.  Float
-    or integer maps."""
+    or integer maps.
+
+    ``row_ids``: the global row index of each row (R,) — for a range shard
+    extended by ``radius`` halo rows on each side, so that ties break by
+    the same ids as on the whole map, also across its wrap seam; only the
+    rows at least ``radius`` from the shard's edges are then meaningful."""
     if radius <= 0:
         return det
     R, D = det.shape[-2:]
     p = _wrap_pad(det, radius, radius)
-    ids = (torch.arange(R, device=det.device, dtype=torch.int32)[:, None] * D
+    rows = (torch.arange(R, device=det.device, dtype=torch.int32)
+            if row_ids is None else
+            torch.as_tensor(row_ids, device=det.device).to(torch.int32))
+    ids = (rows[:, None] * D
            + torch.arange(D, device=det.device, dtype=torch.int32)[None, :])
     pid = _wrap_pad(ids, radius, radius)
     lowest = (float("-inf") if det.is_floating_point()

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 
-def _top(x: torch.Tensor, k: int):
+def top_k(x: torch.Tensor, k: int):
     """(values, indices) of the k largest entries along the last axis, equal
     values in ascending index order."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
@@ -38,15 +38,15 @@ def topk_detections(det_map: torch.Tensor, max_dets: int = 64,
     if R * D > 16384 and R >= max_dets:
         if row_max is None:
             row_max = det_map.amax(dim=-1)
-        rows = _top(row_max, max_dets)[1].sort(dim=-1).values
+        rows = top_k(row_max, max_dets)[1].sort(dim=-1).values
         sub = torch.gather(det_map, -2,
                            rows.unsqueeze(-1).expand(*lead, max_dets, D))
-        vals, i2 = _top(sub.reshape(*lead, max_dets * D), max_dets)
+        vals, i2 = top_k(sub.reshape(*lead, max_dets * D), max_dets)
         range_bin = torch.gather(rows, -1, torch.div(i2, D,
                                                      rounding_mode="floor"))
         doppler_bin = i2 % D
     else:
-        vals, idx = _top(det_map.reshape(*lead, R * D), max_dets)
+        vals, idx = top_k(det_map.reshape(*lead, R * D), max_dets)
         range_bin = torch.div(idx, D, rounding_mode="floor")
         doppler_bin = idx % D
     if n_dets is None:

@@ -97,16 +97,30 @@ def range_fft_plain(iq: torch.Tensor):
             im.transpose(-1, -2).contiguous())
 
 
+def check_iq(iq: torch.Tensor):
+    if iq.dim() != 4 or iq.shape[-1] != 2 or iq.dtype != torch.int16:
+        raise ValueError(f"expected int16 iq (B, nd, nr, 2), got "
+                         f"{tuple(iq.shape)} {iq.dtype}")
+
+
 @kernels.counted
 def range_fft(iq: torch.Tensor):
     """Window + range FFT + corner turn of int16 frames (B, nd, nr, 2):
     returns planar float32 (re, im), each (B, nr, nd).  Launches the CUDA
     kernel for a CUDA tensor; the plain twin for a CPU tensor."""
-    if iq.dim() != 4 or iq.shape[-1] != 2 or iq.dtype != torch.int16:
-        raise ValueError(f"expected int16 iq (B, nd, nr, 2), got "
-                         f"{tuple(iq.shape)} {iq.dtype}")
+    check_iq(iq)
     if _device_kind(iq) == "cpu":
         return range_fft_plain(iq)
+    out = launch_range_fft(iq)
+    range_fft.launches += 1
+    return out
+
+
+def launch_range_fft(iq: torch.Tensor):
+    """Launch kernel A on CUDA int16 frames (B, nd, nr, 2); the caller
+    counts the launch.  Each block transforms its own 8 chirps, so a chirp
+    shard (B, nd/sp, nr, 2) gives exactly the matching columns of the whole
+    frame's output."""
     B, nd, nr, _ = iq.shape
     check_range_geometry(nr, nd)
     iq = iq.contiguous()
@@ -121,7 +135,6 @@ def range_fft(iq: torch.Tensor):
         im.data_ptr(), B, nd, nr,
         torch.cuda.current_stream(iq.device).cuda_stream)
     kernels.check(err, "range_fft")
-    range_fft.launches += 1
     return re, im
 
 
@@ -218,9 +231,12 @@ def _kernel_halo(cfar: CfarParams, peak_group_radius: int) -> int:
 
 
 def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
-                     exact_mag=False, name="slowtime_detect"):
-    """The kernel-B tile geometry (shared with the fixed-point kernel);
-    raises NotImplementedError for what the kernels do not take."""
+                     exact_mag=False, name="slowtime_detect", row_off=0,
+                     r_total=None):
+    """The kernel-B tile geometry (shared with the fixed-point kernel and
+    the split entries, whose map is a range shard of ``r_total`` rows
+    starting at ``row_off``); raises NotImplementedError for what the
+    kernels do not take."""
     if cfar.variant != "os" or cfar.edge_mode != "wrap":
         raise NotImplementedError(
             f"{name} kernel: OS variant with wrap edges only "
@@ -254,7 +270,8 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
         block_mode=int(block), sb=sb, n_blk=n_blk,
         k_blk=n_blk - min((n_blk * cfar.rank_pct) // 100, n_blk - 1),
         so=int(scale_override), pgr=int(peak_group_radius),
-        exact_mag=int(bool(exact_mag)))
+        exact_mag=int(bool(exact_mag)), row_off=int(row_off),
+        r_total=nr if r_total is None else int(r_total))
 
 
 @kernels.counted

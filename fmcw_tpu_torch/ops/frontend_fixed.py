@@ -53,12 +53,6 @@ def _tables(n: int, coef_width: int, device: str):
             torch.as_tensor(tw, device=device))
 
 
-def _check_iq(iq: torch.Tensor):
-    if iq.dim() != 4 or iq.shape[-1] != 2 or iq.dtype != torch.int16:
-        raise ValueError(f"expected int16 iq (B, nd, nr, 2), got "
-                         f"{tuple(iq.shape)} {iq.dtype}")
-
-
 # ---------------------------------------------------------------------------
 # Range half
 # ---------------------------------------------------------------------------
@@ -68,7 +62,7 @@ def range_fft_fixed_plain(iq: torch.Tensor, coef_width: int = 16,
     """Plain twin of ``range_fft_fixed``: integer window, dense float64 DFT,
     BFP per chirp (``fmcw_tpu/models/pipeline.fixed_path``'s range stage),
     transposed to range-major."""
-    _check_iq(iq)
+    F.check_iq(iq)
     w = hamming_q15(iq.shape[-2], coef_width)
     i_v, q_v, sat = window_apply_fixed(iq[..., 0], iq[..., 1], w[None, :],
                                        coef_width, rounding)
@@ -84,9 +78,20 @@ def range_fft_fixed(iq: torch.Tensor, coef_width: int = 16,
     (B, nd, nr, 2): returns int16 (re, im), each (B, nr, nd), and the
     window's saturation count (B,) int32.  Launches the CUDA kernel for a
     CUDA tensor; the plain twin for a CPU tensor."""
-    _check_iq(iq)
+    F.check_iq(iq)
     if F._device_kind(iq) == "cpu":
         return range_fft_fixed_plain(iq, coef_width, rounding)
+    out = launch_range_fft_fixed(iq, coef_width, rounding)
+    range_fft_fixed.launches += 1
+    return out
+
+
+def launch_range_fft_fixed(iq: torch.Tensor, coef_width: int = 16,
+                           rounding: str = "unbiased"):
+    """Launch ``range_fft_fixed``'s kernel on CUDA int16 frames; the caller
+    counts the launch.  Window, FFT and BFP are per chirp, so a chirp shard
+    gives exactly the matching columns (and its share of the saturation
+    count) of the whole frame's output."""
     B, nd, nr, _ = iq.shape
     F.check_range_geometry(nr, nd, "range_fft_fixed")
     rnd = window_rounding_constant(coef_width, rounding)
@@ -103,7 +108,6 @@ def range_fft_fixed(iq: torch.Tensor, coef_width: int = 16,
         im.data_ptr(), sat.data_ptr(), B, nd, nr, rnd, coef_width - 2,
         torch.cuda.current_stream(iq.device).cuda_stream)
     kernels.check(err, "range_fft_fixed")
-    range_fft_fixed.launches += 1
     return re, im, sat
 
 

@@ -4,7 +4,9 @@
   fmcw_tpu; chip_smoke.py and kernel_ab.py import neither.
 * Entry points run on CUDA unless the caller asks for the CPU: without a
   card, make_processor() and the tracker's init_state() /
-  state_from_numpy() raise instead of carrying on on the CPU.
+  state_from_numpy() raise instead of carrying on on the CPU; so do the
+  sharded processor's make_mesh(), LocalMesh() and make_sharded_processor()
+  (NCCL on CUDA by default, never a quiet fall back to gloo).
 * A kernel wrapper takes its plain twin only for a CPU tensor; for a CUDA
   tensor it launches the kernel (checked here with a stand-in library, as
   there is no card) and raises when the launch fails — no fallback.
@@ -28,6 +30,8 @@ from fmcw_tpu_torch.ops import beam_group as BG, cfar3d_detect as C3
 from fmcw_tpu_torch.ops import cfar_detect as CD
 from fmcw_tpu_torch.ops import frontend as F
 from fmcw_tpu_torch.ops import frontend_fixed as FX
+from fmcw_tpu_torch.ops import split_frontend as SF
+from fmcw_tpu_torch.parallel import mesh as PM, sharded as PS
 
 # Share the CPU with the other test workers (the suite runs 6 at once).
 torch.set_num_threads(2)
@@ -48,7 +52,9 @@ def test_import_loads_neither_jax_nor_fmcw_tpu():
     assert {"fmcw_tpu_torch.ops.frontend", "fmcw_tpu_torch.ops.frontend_fixed",
             "fmcw_tpu_torch.ops.cfar_detect", "fmcw_tpu_torch.ops.notch",
             "fmcw_tpu_torch.ops.beamform", "fmcw_tpu_torch.ops.cfar3d_detect",
-            "fmcw_tpu_torch.ops.beam_group", "fmcw_tpu_torch.device"
+            "fmcw_tpu_torch.ops.beam_group", "fmcw_tpu_torch.device",
+            "fmcw_tpu_torch.ops.split_frontend",
+            "fmcw_tpu_torch.parallel.mesh", "fmcw_tpu_torch.parallel.sharded"
             } <= set(names)
     code = (
         "import importlib, sys\n"
@@ -93,6 +99,41 @@ def test_processor_defaults_to_cuda_and_raises_without_it(monkeypatch):
         tpl.make_batch_array_processor(fmcw_tpu_torch.quick(), ref_angle=1)
     proc = tpl.make_array_processor(fmcw_tpu_torch.quick(), device="cpu")
     assert proc.route == "fused"
+
+
+def test_sharded_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """No card: the mesh and the sharded processor raise for device=None
+    (before any process group is looked for), whatever the environment
+    says; the CPU has to be asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PM.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PS.make_sharded_processor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PS.make_sharded_processor(params=fmcw_tpu_torch.quick(),
+                                  device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PM.LocalMesh(1, 2)
+    assert not torch.distributed.is_initialized()
+    mesh = PM.LocalMesh(1, 2, "cpu")
+    assert mesh.device.type == "cpu"
+    proc = PS.make_sharded_processor(mesh, fmcw_tpu_torch.quick())
+    assert proc.route == "fused"
+
+
+def test_make_mesh_needs_a_process_group(monkeypatch):
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        PM.make_mesh(device="cpu")
+    assert PM.mesh_shape(8) == (1, 8)
+    assert PM.mesh_shape(8, dp=2) == (2, 4)
+    assert PM.mesh_shape(8, sp=2) == (4, 2)
+    with pytest.raises(ValueError):
+        PM.mesh_shape(8, 3, 2)
 
 
 def test_tracker_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -190,6 +231,14 @@ class _FakeLib:
         self.calls.append(("beam_group", args))
         return self.err
 
+    def fmcw_slowtime_detect_split(self, *args):
+        self.calls.append(("slowtime_detect_split", args))
+        return self.err
+
+    def fmcw_slowtime_detect_fixed_split(self, *args):
+        self.calls.append(("slowtime_detect_fixed_split", args))
+        return self.err
+
 
 class _Stream:
     cuda_stream = 0
@@ -211,6 +260,8 @@ def as_if_cuda(monkeypatch):
     monkeypatch.setattr(F, "slowtime_mag_plain", forbidden)
     monkeypatch.setattr(C3, "cfar3d_detect_plain", forbidden)
     monkeypatch.setattr(BG, "beam_group_plain", forbidden)
+    monkeypatch.setattr(SF, "slowtime_detect_split_plain", forbidden)
+    monkeypatch.setattr(SF, "slowtime_detect_fixed_split_plain", forbidden)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream())
     lib = _FakeLib()
     monkeypatch.setattr(kernels, "load", lambda: lib)
@@ -439,3 +490,66 @@ def test_array_kernels_reject_unported_configs(as_if_cuda):
         with pytest.raises(NotImplementedError):
             proc(iq)
     assert [c[0] for c in as_if_cuda.calls] == ["range_fft_float"] * 2
+
+
+def test_split_wrappers_launch_kernels_for_cuda_tensors(as_if_cuda):
+    """Rows 3-6: the range kernels on a chirp shard, kernel B's split entries
+    on a range shard with its halo rows, each counted by its own wrapper;
+    the shard's place in the frame reaches the kernel's config."""
+    p = fmcw_tpu_torch.RadarParams()
+    iq = _iq(p, 2)[:, 32:64]                         # chirp shard 1 of 4
+    re, im = SF.range_frontend(iq)
+    assert tuple(re.shape) == (2, p.n_range, 32)
+    assert as_if_cuda.calls[0][1][5:8] == (2, 32, p.n_range)
+    SF.range_frontend_fixed(iq)
+    nrl, h = 256, p.cfar.halo_range + 2
+    re = torch.zeros((2, nrl, p.n_doppler))
+    halo = (torch.zeros((2, h, p.n_doppler)),) * 2
+    det, mag, rmax, n, nf = SF.slowtime_detect_split(
+        re, re, halo, halo, False, 4, 512, cfar=p.cfar, n_range_total=1024,
+        peak_group_radius=2, emit_mag=True)
+    assert tuple(det.shape) == tuple(mag.shape) == (2, nrl, p.n_doppler)
+    cfg = as_if_cuda.calls[2][1][13]._obj
+    assert (cfg.R, cfg.H, cfg.pgr, cfg.so, cfg.row_off, cfg.r_total,
+            cfg.block_mode) == (nrl, h, 2, 4, 512, 1024, 0)
+    i16 = re.to(torch.int16)
+    SF.slowtime_detect_fixed_split(i16, i16, (i16[:, :h],) * 2,
+                                   (i16[:, :h],) * 2, True, 0, 768,
+                                   cfar=p.cfar, n_range_total=1024,
+                                   peak_group_radius=2)
+    cfg = as_if_cuda.calls[3][1][13]._obj
+    assert (cfg.row_off, cfg.r_total, cfg.bypass) == (768, 1024, 1)
+    assert [c[0] for c in as_if_cuda.calls] == [
+        "range_fft", "range_fft_fixed", "slowtime_detect_split",
+        "slowtime_detect_fixed_split"]
+    counts = kernels.launch_counts()
+    assert (counts["range_frontend"], counts["range_frontend_fixed"],
+            counts["slowtime_detect_split"],
+            counts["slowtime_detect_fixed_split"]) == (1, 1, 1, 1)
+    assert counts["range_fft"] == counts["slowtime_detect"] == 0
+    # The whole-frame kernel B sets the frame's own place: rows 0..R of R.
+    F.slowtime_detect(re, re, cfar=p.cfar, peak_group_radius=2)
+    cfg = as_if_cuda.calls[4][1][9]._obj
+    assert (cfg.row_off, cfg.r_total) == (0, nrl)
+    # The prepadded CFAR entry: R + 2 halo_range rows in, R rows out.
+    hr = p.cfar.halo_range
+    d, _ = CD.cfar_detect(torch.zeros((2, nrl + 2 * hr, p.n_doppler)),
+                          cfar=p.cfar, prepadded_range=True)
+    assert tuple(d.shape) == (2, nrl, p.n_doppler)
+    cfg = as_if_cuda.calls[5][1][4]._obj
+    assert (cfg.R, cfg.prepadded) == (nrl, 1)
+
+
+def test_split_kernels_reject_unported_configs(as_if_cuda):
+    p = fmcw_tpu_torch.RadarParams()
+    h = p.cfar.halo_range
+    re = torch.zeros((1, 256, p.n_doppler))
+    halo = (torch.zeros((1, h, p.n_doppler)),) * 2
+    block = fmcw_tpu_torch.fast().cfar
+    with pytest.raises(NotImplementedError, match="per-cell"):
+        SF.slowtime_detect_split(re, re, halo, halo, cfar=block,
+                                 n_range_total=1024)
+    with pytest.raises(ValueError, match="scale_map"):
+        CD.cfar_detect(torch.zeros((1, 256 + 2 * h, p.n_doppler)),
+                       cfar=block, prepadded_range=True)
+    assert as_if_cuda.calls == []
