@@ -33,9 +33,19 @@ this card, each bit-equal to the matching part of the whole-frame kernel
 and held against its plain twin; make_sharded_processor on a LocalMesh
 (collectives by slicing) equal to the single-card path bit for bit; the
 shards' kernel timings; and, with two or more GPUs, the NCCL mesh
-(torch.multiprocessing, one rank per GPU) equal to the single GPU.  It
-prints the card's name and power limit, one JSON line listing the
-kernels, and as its last line {"ok": true, "device": {...}}.  Any failed check raises,
+(torch.multiprocessing, one rank per GPU; the frame and the array
+processors) equal to the single GPU.  Then TPU kernel row 9, the rank-select
+CFAR behind the debug taps (csrc/cfar_rank.cu), bit-equal to its twin on 8
+frames (float 31 and 16 key bits, int32, override, a given block scale map,
+a prepadded range shard); the debug-tap processors at batch 128 (float
+per-cell and block on the fused and staged routes, fixed on auto) against
+the twin, the margin gate and the golden model; the sharded debug taps on a
+LocalMesh against the single card; row 9's timings; the sharded array
+model's kernel entries (the prepadded 3D CFAR, the global-ids beam grouping)
+against the whole-cube kernels, and make_sharded_array_processor on a
+LocalMesh (sp 2 and 4) equal to the single card, with cubes/s.  It prints
+the card's name and power limit, one JSON line listing the kernels, and as
+its last line {"ok": true, "device": {...}}.  Any failed check raises,
 and the script then exits non-zero; without CUDA it exits non-zero at
 once.
 """
@@ -1327,11 +1337,462 @@ def split_timings(card: str, dev, pgr: int, iq, errs, launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Row 9 (the debug taps' rank select), the debug routes, the sharded array
+# model
+# ---------------------------------------------------------------------------
+
+RANK_FRAMES = 8                 # frames the rank twin takes: 67 MB a frame
+
+
+def bound_cfar_rank(B: int, nr: int, nd: int, cfar, bits: int,
+                    integer: bool, block: bool):
+    """Least time for cfar_rank: the map read once (and the scale map with
+    the block scale), det, threshold and scale written once; per cell the
+    rank select's ``bits`` x n_ref compare-adds on int32 keys (INT32, 2 ops
+    each) and the threshold and decision (4), plus, for the per-cell scale,
+    the box sums, mean and classification (20, FP32 for float maps)."""
+    cells = B * nr * nd
+    nbytes = cells * (16 + (4 if block else 0))
+    scale_ops = 0 if block else 20
+    int_ops = cells * (2 * bits * cfar.n_ref + 4
+                       + (scale_ops if integer else 0))
+    return _bound(nbytes, 0 if integer else cells * scale_ops, int_ops)
+
+
+def _rank_stack(mag, cfar):
+    """The (..., R, D, n_ref) int32 training stack of float maps, keys as
+    bit patterns (what torch.topk would rank)."""
+    import torch
+    from fmcw_tpu_torch.golden.fixed_point import _window_offsets
+    from fmcw_tpu_torch.ops import cfar as C
+    hr, hd = cfar.halo_range, cfar.halo_doppler
+    R, D = mag.shape[-2:]
+    p = C._wrap_pad(mag.view(torch.int32), hr, hd)
+    return torch.stack([p[..., hr + dr:hr + dr + R, hd + dd:hd + dd + D]
+                        for dr, dd in _window_offsets(cfar)], dim=-1)
+
+
+def rank_kernel_checks(dev):
+    """Phase 20: cfar_rank (TPU row 9) against cfar_rank_plain on the card,
+    on 8 frames of the float main path's magnitudes (kernel A and kernel
+    B's magnitude-only entry) and of the fixed chain's int32 magnitudes:
+    float with 31 and 16 key bits, int32 with 16, scale_override 4, the
+    block scale with a given block_scale_map (float and int32), and a
+    prepadded 256-row range shard (equal too to the whole map's rows): det,
+    threshold and scale bit for bit.  Returns ({case: largest |kernel -
+    twin|}, the float and int32 magnitudes of 128 frames)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C, cfar_rank as RK
+    from fmcw_tpu_torch.ops import frontend as F
+    p, fast = P.RadarParams(), P.fast()
+    iq = torch.as_tensor(make_batch(p, BATCH, seed=3), device=dev)
+    fmag, _ = F.slowtime_mag(*F.range_fft(iq))
+    imag, _ = pl._staged_fixed(iq, False, p, "zero", "unbiased")
+    f8, i8 = fmag[:RANK_FRAMES], imag[:RANK_FRAMES]
+    nrl, hr = p.n_range // 4, p.cfar.halo_range
+    ext = torch.arange(nrl - hr, 2 * nrl + hr, device=dev) % p.n_range
+    cases = (
+        ("float/31", f8, p.cfar, None, 0, None, False),
+        ("float/16", f8, p.cfar, 16, 0, None, False),
+        ("float/16/so4", f8, p.cfar, 16, 4, None, False),
+        ("int32/16", i8, p.cfar, 16, 0, None, False),
+        ("float/block", f8, fast.cfar, None, 0,
+         C.block_scale_map(f8, fast.cfar), False),
+        ("int32/block", i8, fast.cfar, None, 0,
+         C.block_scale_map(i8, fast.cfar), False),
+        ("float/16/prepadded", f8[:, ext], p.cfar, 16, 0, None, True))
+    errs = {}
+    for name, mag, cfar, bits, so, smap, pre in cases:
+        kw = dict(cfar=cfar, bits=bits, scale_map=smap, prepadded_range=pre)
+        got = RK.cfar_rank(mag, so, **kw)
+        want = RK.cfar_rank_plain(mag, so, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        errs[name] = max(float((a.double() - b.double()).abs().max())
+                         for a, b in zip(got, want))
+        classes = torch.unique(got[2]).tolist()
+        log(f"cfar_rank {name}: det, threshold and scale "
+            f"{'bit-identical' if same else 'DIFFER'} to the twin on "
+            f"{RANK_FRAMES} frames; {int((got[0] > 0).sum())} detections, "
+            f"scale classes {classes}")
+        if not same or int((got[0] > 0).sum()) == 0:
+            raise AssertionError(f"cfar_rank {name} disagrees with its twin")
+        if pre:
+            whole = RK.cfar_rank(f8, so, cfar=cfar, bits=bits)
+            if not all(torch.equal(a, b[:, nrl:2 * nrl])
+                       for a, b in zip(got, whole)):
+                raise AssertionError("prepadded cfar_rank differs from the "
+                                     "whole map's rows")
+    return errs, fmag, imag
+
+
+def debug_main_path(card: str, dev, pgr: int):
+    """Phase 21: the debug-tap processors, make_batch_processor(...,
+    include_debug=True) at batch 128, 1024x128: float per-cell and block on
+    "fused" (kernel A, the magnitude-only kernel, cfar_rank) and "staged"
+    (plain transforms, cfar_rank), fixed per-cell on "auto" (plain stages,
+    cfar_rank on int32 maps); the kernels each launches; the taps and det
+    map of frames 0-7 bit-equal to cfar_rank_plain (and peak_group) on the
+    route's own magnitudes; float frame 0 through the margin gate against
+    the plain route (its 16-bit taps), fixed frame 0 bit for bit the golden
+    model's det map; frames/s.  Returns (launches, frames/s)."""
+    import numpy as np
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import fixed_point as fx, reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C, cfar_rank as RK
+    configs = (("float/cell", P.RadarParams(), "float32", ("fused", "staged")),
+               ("float/block", P.fast(), "float32", ("fused", "staged")),
+               ("fixed/cell", P.RadarParams(), "fixed", ("auto",)))
+    launches, fps = {}, {}
+    for name, p, mode, routes in configs:
+        fixed = mode == "fixed"
+        noisy = make_batch(p, BATCH, seed=4)
+        batch = torch.as_tensor(noisy, device=dev)
+        bits = RK.debug_bits(p.cfar, fixed, 16)
+        row = ("cfar_rank[int32,16 bits]" if fixed else
+               "cfar_rank[float,16 bits]" if bits == 16 else
+               "cfar_rank[float,exact,scale map]")
+        kw = dict(mode=mode, peak_group_radius=pgr, include_debug=True)
+        if fixed:
+            _, gdet = reference.process_frame_fixed(
+                noisy[0, ..., 0] + 1j * noisy[0, ..., 1].astype(float), p)
+            gdet = fx.peak_group(gdet, pgr)
+        else:
+            ref = pl.make_processor(p, frontend="plain", device=dev,
+                                    **kw)(batch[0])
+        for fe in routes:
+            proc = pl.make_batch_processor(p, frontend=fe, device=dev, **kw)
+            kernels.reset_launch_counts()
+            out = proc(batch)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            need = ("cfar_rank",) + (("range_fft", "slowtime_mag")
+                                     if fe == "fused" else ())
+            log(f"debug main path {name} {fe}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+            if any(counts[k] < 1 for k in need):
+                raise AssertionError(f"debug {name} {fe} skipped a kernel")
+            launches[row] = launches.get(row, 0) + counts["cfar_rank"]
+            mag8 = out["mag_map"][:RANK_FRAMES]
+            det, thr, scale = RK.cfar_rank_plain(mag8, cfar=p.cfar, bits=bits)
+            taps_ok = (torch.equal(out["threshold_map"][:RANK_FRAMES], thr)
+                       and torch.equal(out["scale_map"][:RANK_FRAMES], scale)
+                       and torch.equal(out["det_map"][:RANK_FRAMES],
+                                       C.peak_group(det, pgr)))
+            del det, thr, scale
+            if fixed:
+                ok = np.array_equal(out["det_map"][0].cpu().numpy(), gdet)
+                report = (f"frame 0 det map {'equal' if ok else 'DIFFERS'} "
+                          f"to the golden model's ({int((gdet > 0).sum())} "
+                          f"detections)")
+            else:
+                ok, report = parity.margin_gate(
+                    parity.detection_set(out, 0), parity.detection_set(ref),
+                    ref["mag_map"].cpu().numpy(),
+                    ref["threshold_map"].cpu().numpy(),
+                    ref["scale_map"].cpu().numpy(), radius=pgr,
+                    capacity=p.tracker.max_dets,
+                    targets=reference.golden_targets(p))
+            log(f"debug main path {name} {fe}: taps of frames 0-"
+                f"{RANK_FRAMES - 1} {'bit-equal' if taps_ok else 'DIFFER'} "
+                f"to the twin on the route's magnitudes; {report}")
+            if not (taps_ok and ok):
+                raise AssertionError(f"debug {name} {fe} failed its check")
+            if int(out["nonfinite_count"].sum()) != 0:
+                raise AssertionError("non-finite cells in the magnitude map")
+            del out
+            lean = pl.make_batch_processor(p, frontend=fe, include_maps=False,
+                                           device=dev, **kw)
+            fps[f"{name}/{fe}"] = BATCH * 1e3 / cuda_ms(lambda: lean(batch), 5)
+            log(f"debug main path {name} {fe}: {fps[f'{name}/{fe}']:.1f} "
+                f"frames/s at batch {BATCH} ({card})")
+    return launches, fps
+
+
+def sharded_debug_path(card: str, dev, pgr: int, launches):
+    """Phase 22: make_sharded_processor(include_debug=True) on a LocalMesh,
+    sp 2 and 4, batch 128: float per-cell and block on "fused" (kernel A on
+    chirp shards, the magnitude-only kernel, cfar_rank on prepadded range
+    shards), fixed per-cell on "auto"; the kernels each launches; every
+    output — taps, det and mag maps, detections — equal to the single card
+    bit for bit; frames/s.  Adds its cfar_rank launches to ``launches``;
+    returns frames/s."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
+    configs = (("float/cell", P.RadarParams(), "float32", "fused",
+                "cfar_rank[float,16 bits]"),
+               ("float/block", P.fast(), "float32", "fused",
+                "cfar_rank[float,exact,scale map]"),
+               ("fixed/cell", P.RadarParams(), "fixed", "auto",
+                "cfar_rank[int32,16 bits]"))
+    fps = {}
+    for name, p, mode, fe, row in configs:
+        batch = torch.as_tensor(make_batch(p, BATCH, seed=6), device=dev)
+        kw = dict(mode=mode, frontend=fe, peak_group_radius=pgr,
+                  include_debug=True)
+        ref = pl.make_batch_processor(p, include_maps=True, device=dev,
+                                      **kw)(batch)
+        need = ("cfar_rank",) + (("range_frontend", "slowtime_mag")
+                                 if fe == "fused" else ())
+        for sp in SPLIT_SPS:
+            proc = SH.make_sharded_processor(M.LocalMesh(1, sp, dev), p,
+                                             include_maps=True, **kw)
+            kernels.reset_launch_counts()
+            out = proc(batch)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            log(f"sharded debug {name} sp={sp}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+            if any(counts[k] < 1 for k in need):
+                raise AssertionError(f"sharded debug {name} sp={sp} skipped "
+                                     f"a kernel")
+            launches[row] = launches.get(row, 0) + counts["cfar_rank"]
+            diff = [k for k in ref if not torch.equal(out[k], ref[k])]
+            if diff or out.keys() != ref.keys():
+                raise AssertionError(f"sharded debug {name} sp={sp} differs "
+                                     f"from the single card in {diff}")
+            del out
+            lean = SH.make_sharded_processor(M.LocalMesh(1, sp, dev), p, **kw)
+            fps[f"{name}/sp{sp}"] = BATCH * 1e3 / cuda_ms(
+                lambda: lean(batch), 5)
+            log(f"sharded debug {name} sp={sp}: taps, maps and detections "
+                f"bit-equal to the single card ({int(ref['n_dets'].sum())} "
+                f"detections), {fps[f'{name}/sp{sp}']:.1f} frames/s on one "
+                f"card ({card})")
+    return fps
+
+
+def rank_timings(card: str, dev, fmag, imag, errs, launches):
+    """Phase 23: cfar_rank per launch at batch 128 (CUDA events) for float
+    16 key bits, float exact (per-cell and with a given block scale map)
+    and int32 16 bits, against bound_cfar_rank and the twin run over the
+    batch in 8-frame chunks; the yardstick torch.topk over a prebuilt
+    8-frame training stack against the kernel on the same 8 frames.
+    Returns (kernel rows, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import cfar as C, cfar_rank as RK
+    p, fast = P.RadarParams(), P.fast()
+    nr, nd = p.n_range, p.n_doppler
+    src = "fmcw_tpu_torch/csrc/cfar_rank.cu"
+    fsmap = C.block_scale_map(fmag, fast.cfar)
+    variants = (
+        ("cfar_rank[float,16 bits]", fmag, p.cfar, 16, None, "float/16"),
+        ("cfar_rank[float,exact]", fmag, p.cfar, None, None, "float/31"),
+        ("cfar_rank[float,exact,scale map]", fmag, fast.cfar, None, fsmap,
+         "float/block"),
+        ("cfar_rank[int32,16 bits]", imag, p.cfar, 16, None, "int32/16"))
+    rows, summary = [], {}
+    for name, mag, cfar, bits, smap, case in variants:
+        kw = dict(cfar=cfar, bits=bits)
+
+        def plain():
+            for i in range(0, BATCH, RANK_FRAMES):
+                RK.cfar_rank_plain(mag[i:i + RANK_FRAMES], scale_map=(
+                    None if smap is None else smap[i:i + RANK_FRAMES]), **kw)
+
+        ms = cuda_ms(lambda: RK.cfar_rank(mag, scale_map=smap, **kw), 5)
+        plain_ms = cuda_ms(plain, 1, 1)
+        bound, by = bound_cfar_rank(BATCH, nr, nd, cfar, bits or 31,
+                                    not mag.is_floating_point(),
+                                    smap is not None)
+        summary[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+        log(f"{name}: {ms:.4f} ms, plain (16 x {RANK_FRAMES} frames) "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}) at batch "
+            f"{BATCH} ({card})")
+        if name in launches:
+            rows.append(dict(name=name, route="cuda", source=src,
+                             replaces="fmcw_tpu/ops/cfar_pallas.py:58",
+                             launches=launches[name],
+                             max_abs_err=errs[case], ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=None))
+    # The yardstick: torch.topk over a prebuilt training stack computes the
+    # order statistic alone (no stack building, mean, scale or threshold).
+    f8 = fmag[:RANK_FRAMES]
+    stack = _rank_stack(f8, p.cfar)
+    k = p.cfar.n_ref - p.cfar.rank_idx
+    topk_ms = cuda_ms(lambda: torch.topk(stack, k, dim=-1), 5)
+    del stack
+    k8 = {b: cuda_ms(lambda: RK.cfar_rank(f8, cfar=p.cfar, bits=b), 5)
+          for b in (16, None)}
+    summary["topk_8_frames"] = {"topk_ms": topk_ms, "kernel_16_ms": k8[16],
+                                "kernel_exact_ms": k8[None]}
+    log(f"torch.topk over a prebuilt {RANK_FRAMES}-frame training stack "
+        f"(the order statistic only): {topk_ms:.4f} ms; cfar_rank on the same "
+        f"frames {k8[16]:.4f} ms (16 bits), {k8[None]:.4f} ms (exact) "
+        f"({card})")
+    return rows, summary
+
+
+def shard_entry_checks(card: str, dev):
+    """Phase 24: the sharded array model's kernel entries at full width
+    (16 cubes x 8 beams x 1024x128, phase 12's magnitude cube), sp 2 and
+    4: cfar3d_detect(
+    prepadded_angle=True) on each beam shard with its ring neighbours' planes
+    and beam_group(beam_offset=) (radius 1 and 2, global beam ids) on each
+    halo-extended shard, bit-equal to the whole-cube kernels' interior
+    planes (and their row maxima and counts) and to their twins on shard 0;
+    one sp=4 shard timed against its bound and twin.  Returns the kernel
+    rows (bit-equal, so max_abs_err 0; launches added by phase 25)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import beam_group as BG, cfar3d_detect as C3
+    from fmcw_tpu_torch.ops import frontend as F
+    p = P.RadarParams()
+    nr, nd = p.n_range, p.n_doppler
+    br, bi = beam_planes(torch.as_tensor(make_cubes(p, ARRAY_BATCH, seed=1),
+                                         device=dev))
+    cube = F.slowtime_mag(*F.range_fft_float(br, bi))[0].reshape(
+        ARRAY_BATCH, N_BEAMS, nr, nd)
+    del br, bi
+    whole = C3.cfar3d_detect(cube, cfar=p.cfar, ref_angle=1)
+    det = whole[0]
+
+    def ext(x, s, bl, h):
+        idx = torch.arange(s * bl - h, (s + 1) * bl + h, device=dev) % N_BEAMS
+        return x[:, idx].contiguous()
+
+    for sp in SPLIT_SPS:
+        bl = N_BEAMS // sp
+        for s in range(sp):
+            cut = slice(s * bl, (s + 1) * bl)
+            got = C3.cfar3d_detect(ext(cube, s, bl, 1), cfar=p.cfar,
+                                   ref_angle=1, prepadded_angle=True)
+            ok = all(torch.equal(a, b[:, cut]) for a, b in zip(got, whole))
+            if s == 0:
+                twin = C3.cfar3d_detect_plain(ext(cube[:2], s, bl, 1),
+                                              cfar=p.cfar, ref_angle=1,
+                                              prepadded_angle=True)
+                ok = ok and all(torch.equal(a[:2], b)
+                                for a, b in zip(got, twin))
+            if not ok:
+                raise AssertionError(f"prepadded cfar3d_detect sp={sp} "
+                                     f"shard {s} differs")
+            for r in (1, 2):
+                if r > bl:
+                    continue
+                g, rmax, n = BG.beam_group(det, r)
+                gs, rs, ns = BG.beam_group(ext(det, s, bl, r), r,
+                                           beam_offset=s * bl,
+                                           n_beams=N_BEAMS)
+                ok = (torch.equal(gs, g[:, cut])
+                      and torch.equal(rs, rmax.reshape(
+                          ARRAY_BATCH, N_BEAMS, nr)[:, cut].reshape(
+                              ARRAY_BATCH, -1))
+                      and torch.equal(ns, (gs > 0).sum(dim=(1, 2, 3)).int()))
+                twin = BG.beam_group_plain(ext(det, s, bl, r), r,
+                                           beam_offset=s * bl,
+                                           n_beams=N_BEAMS)
+                ok = ok and all(torch.equal(a, b) for a, b in
+                                zip((gs, rs, ns), twin))
+                if not ok:
+                    raise AssertionError(f"beam_group ids sp={sp} shard {s} "
+                                         f"radius {r} differs")
+        log(f"shard entries sp={sp}: prepadded cfar_3d_detect and the "
+            f"global-ids beam_group (radius 1, 2) bit-equal to the whole "
+            f"cube's interior planes on every shard and to their twins")
+    torch.cuda.synchronize()
+    # Timing: shard 1 of sp = 4.
+    sp, s = SPLIT_SPS[-1], 1
+    bl = N_BEAMS // sp
+    src = "fmcw_tpu_torch/csrc/"
+    rows = []
+    x = ext(cube, s, bl, 1)
+    ms = cuda_ms(lambda: C3.cfar3d_detect(x, cfar=p.cfar, ref_angle=1,
+                                          prepadded_angle=True))
+    plain = cuda_ms(lambda: C3.cfar3d_detect_plain(
+        x, cfar=p.cfar, ref_angle=1, prepadded_angle=True), 2, 1)
+    bound, by = bound_cfar3d(ARRAY_BATCH * bl * nr * nd, p.cfar, 1, 0, False)
+    log(f"cfar_3d_detect[prepadded] (beam shard {ARRAY_BATCH}x{bl}+2x1 "
+        f"planes): {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
+        f"({by}) ({card})")
+    rows.append(dict(name="cfar_3d_detect[prepadded]", route="cuda",
+                     source=src + "cfar_3d_detect.cu",
+                     replaces="fmcw_tpu/ops/cfar_pallas.py:569",
+                     max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
+                     bound_by=by, library_ms=None))
+    x = ext(det, s, bl, 1)
+    ms = cuda_ms(lambda: BG.beam_group(x, 1, beam_offset=s * bl,
+                                       n_beams=N_BEAMS))
+    plain = cuda_ms(lambda: BG.beam_group_plain(x, 1, beam_offset=s * bl,
+                                                n_beams=N_BEAMS), 5)
+    bound, by = bound_beam_group(ARRAY_BATCH, bl, nr, nd, 1)
+    log(f"beam_group[ids] (beam shard {ARRAY_BATCH}x{bl}+2x1 planes): "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}) "
+        f"({card})")
+    rows.append(dict(name="beam_group[ids]", route="cuda",
+                     source=src + "beam_group.cu",
+                     replaces="fmcw_tpu/ops/cfar_pallas.py:824",
+                     max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
+                     bound_by=by, library_ms=None))
+    return rows
+
+
+def sharded_array_main_path(card: str, dev):
+    """Phase 25: make_sharded_array_processor on a LocalMesh, dp 1, sp 2 and
+    4, the three array configurations at 16 cubes (tools/array_bench.py's
+    input): the kernels each launches (the prepadded 3D CFAR and the
+    global-ids beam grouping at sp > 1), every output — detections, counts,
+    magnitude and det cubes — equal to make_batch_array_processor on the
+    card bit for bit, cubes/s.  Returns (launches, cubes/s)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
+    launches, cps = {}, {}
+    for name, preset, kw, need in ARRAY_CONFIGS:
+        p = getattr(P, preset)()
+        batch = torch.as_tensor(make_cubes(p, ARRAY_BATCH, seed=2),
+                                device=dev)
+        akw = dict(kw, n_elems=N_ELEMS, n_beams=N_BEAMS)
+        ref = pl.make_batch_array_processor(p, include_maps=True, device=dev,
+                                            **akw)(batch)
+        for sp in SPLIT_SPS:
+            proc = SH.make_sharded_array_processor(
+                M.LocalMesh(1, sp, dev), p, include_maps=True, **akw)
+            kernels.reset_launch_counts()
+            out = proc(batch)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            log(f"sharded array {name} sp={sp}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+            if any(counts[k] < 1 for k in need):
+                raise AssertionError(f"sharded array {name} sp={sp} skipped "
+                                     f"a kernel")
+            for k, row in (("cfar3d_detect", "cfar_3d_detect[prepadded]"),
+                           ("beam_group", "beam_group[ids]")):
+                launches[row] = launches.get(row, 0) + counts[k]
+            diff = [k for k in ref if not torch.equal(out[k], ref[k])]
+            if diff or out.keys() != ref.keys():
+                raise AssertionError(f"sharded array {name} sp={sp} differs "
+                                     f"from the single card in {diff}")
+            del out
+            lean = SH.make_sharded_array_processor(M.LocalMesh(1, sp, dev),
+                                                   p, **akw)
+            cps[f"{name}/sp{sp}"] = ARRAY_BATCH * 1e3 / cuda_ms(
+                lambda: lean(batch), 5)
+            log(f"sharded array {name} sp={sp}: every output bit-equal to "
+                f"the single card ({int(ref['n_dets'].sum())} detections), "
+                f"{cps[f'{name}/sp{sp}']:.1f} cubes/s on one card ({card})")
+    return launches, cps
+
+
 def _nccl_rank(rank: int, world: int, port: int, dp: int, sp: int,
                out_dir: str, pgr: int) -> None:
     """One rank of the NCCL phase: make_mesh(dp, sp) over the world, the
     sharded processor for each configuration against the single-GPU fused
-    path on this rank's GPU, frames/s of the mesh, and the all-to-all and
+    path on this rank's GPU, frames/s of the mesh, the sharded array model
+    against the single-GPU one and its cubes/s, and the all-to-all and
     halo-exchange times."""
     import datetime
     import torch
@@ -1370,6 +1831,30 @@ def _nccl_rank(rank: int, world: int, port: int, dp: int, sp: int,
             dt = (time.perf_counter() - t0) / n
             res["configs"][name] = {"diff": diff, "frames_per_s": BATCH / dt,
                                     "n_dets": int(ref["n_dets"].sum())}
+        res["array"] = {}
+        for name, preset, kw, _ in ARRAY_CONFIGS:
+            p = getattr(P, preset)()
+            cubes = torch.as_tensor(make_cubes(p, ARRAY_BATCH, seed=8),
+                                    device=dev)
+            akw = dict(kw, n_elems=N_ELEMS, n_beams=N_BEAMS)
+            proc = SH.make_sharded_array_processor(mesh, p, **akw)
+            out = proc(cubes)
+            ref = pl.make_batch_array_processor(p, include_maps=False,
+                                                device=dev, **akw)(cubes)
+            diff = [k for k in ref if not torch.equal(out[k], ref[k])]
+            for _ in range(2):
+                proc(cubes)
+            n = 10
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                proc(cubes)
+            torch.cuda.synchronize()
+            dist.barrier()
+            dt = (time.perf_counter() - t0) / n
+            res["array"][name] = {"diff": diff,
+                                  "cubes_per_s": ARRAY_BATCH / dt}
         if sp > 1:
             ring = SH.sp_ring(mesh)
             bl = BATCH // dp
@@ -1391,7 +1876,9 @@ def nccl_phase(card: str, pgr: int, deadline_s: float = 420.0):
     per GPU for (dp, sp) = (1, 2), (2, 1) and (1, N <= 4); on each,
     make_sharded_processor at full width (batch 128, 1024x128; float
     per-cell, float block, fixed) equals the single-GPU fused path bit for
-    bit; prints frames/s and the all-to-all and halo-exchange times.  Any
+    bit, and make_sharded_array_processor (16 cubes, the three array
+    configurations) the single-GPU array model; prints frames/s, cubes/s
+    and the all-to-all and halo-exchange times.  Any
     failure, or a rank still running at the deadline, fails the run.
     Returns the summary, or None with one card."""
     import socket
@@ -1435,7 +1922,8 @@ def nccl_phase(card: str, pgr: int, deadline_s: float = 420.0):
         ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
                  for r in range(world)]
         for r, res in enumerate(ranks):
-            for name, c in res["configs"].items():
+            for name, c in (list(res["configs"].items())
+                            + list(res["array"].items())):
                 if c["diff"]:
                     raise AssertionError(f"NCCL mesh dp={dp} sp={sp} rank {r} "
                                          f"{name} differs from the single GPU "
@@ -1446,6 +1934,9 @@ def nccl_phase(card: str, pgr: int, deadline_s: float = 420.0):
             f"the single-GPU fused path bit for bit; frames/s "
             + ", ".join(f"{k} {v['frames_per_s']:.1f}"
                         for k, v in res["configs"].items())
+            + "; array cubes/s "
+            + ", ".join(f"{k} {v['cubes_per_s']:.1f}"
+                        for k, v in res["array"].items())
             + (f"; all-to-all {res['all_to_all_ms']:.4f} ms for "
                f"{res['all_to_all_mib']:.1f} MiB per rank, halo exchange "
                f"{res['halo_ms']:.4f} ms" if sp > 1 else "")
@@ -1596,8 +2087,11 @@ def main() -> int:
             raise AssertionError("non-finite detection magnitudes")
         if int(out["nonfinite_count"].sum()) != 0:
             raise AssertionError("non-finite cells in the magnitude map")
+        # The plain route's exact taps (cfar_rank_bits=None): the order
+        # statistic the counting kernels decide against.
         ref = pl.make_processor(p, peak_group_radius=pgr, frontend="plain",
-                                include_debug=True, device=dev)(batch[0])
+                                include_debug=True, cfar_rank_bits=None,
+                                device=dev)(batch[0])
         ok, report = parity.margin_gate(
             parity.detection_set(out, 0), parity.detection_set(ref),
             ref["mag_map"].cpu().numpy(), ref["threshold_map"].cpu().numpy(),
@@ -1687,7 +2181,22 @@ def main() -> int:
                                split_launches)
     nccl = nccl_phase(card, pgr)
 
-    # 20. The kernels line.
+    # 20-25. Row 9 (the debug taps' rank select) against its twin, the
+    #        debug-tap processors, the sharded debug taps, row 9's timings;
+    #        the sharded array model's kernel entries and the model on a
+    #        LocalMesh.
+    rank_errs, fmag, imag = rank_kernel_checks(dev)
+    rank_launches, debug_fps = debug_main_path(card, dev, pgr)
+    sharded_debug_fps = sharded_debug_path(card, dev, pgr, rank_launches)
+    rank_rows, rank_summary = rank_timings(card, dev, fmag, imag, rank_errs,
+                                           rank_launches)
+    del fmag, imag
+    entry_rows = shard_entry_checks(card, dev)
+    sa_launches, sa_cubes_per_s = sharded_array_main_path(card, dev)
+    for row in entry_rows:
+        row["launches"] = sa_launches[row["name"]]
+
+    # 26. The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
                  source="fmcw_tpu_torch/csrc/range_fft.cu",
@@ -1699,7 +2208,7 @@ def main() -> int:
                          source="fmcw_tpu_torch/csrc/slowtime_detect.cu",
                          replaces=replaces, launches=launches[mode][1],
                          **results[f"slowtime_detect[{mode}]"]))
-    rows += fixed_rows + array_rows + split_rows
+    rows += fixed_rows + array_rows + split_rows + rank_rows + entry_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
@@ -1707,6 +2216,12 @@ def main() -> int:
                     "fixed": fixed_summary, "array": array_summary,
                     "split": {"frames_per_s": split_fps,
                               "sp": list(SPLIT_SPS)},
+                    "debug": {"frames_per_s": debug_fps,
+                              "sharded_frames_per_s": sharded_debug_fps,
+                              "cfar_rank": rank_summary},
+                    "sharded_array": {"cubes_per_s": sa_cubes_per_s,
+                                      "cubes": ARRAY_BATCH,
+                                      "sp": list(SPLIT_SPS)},
                     "nccl": nccl,
                     "batch": BATCH,
                     "card": card}))

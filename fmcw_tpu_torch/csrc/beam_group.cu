@@ -10,9 +10,16 @@
 // detections per cube, which ops/detect.topk_detections takes so that it
 // never re-reads the grouped cube.
 //
-// In:  det float32 (B, NB, R, D).
-// Out: grouped det (B, NB, R, D), row_max float32 (B, NB * R), n_dets int32
-//      (B,) (zeroed by the caller; integer atomics, exact).
+// In:  det float32 (B, NB, R, D) — or, with halo = radius > 0, (B, NB + 2
+//      halo, R, D): a beam shard with its neighbours' planes on each side
+//      (the sharded array model, fmcw_tpu/parallel/sharded.py:604-616),
+//      plane i being global beam (id0 + i) mod n_total.  A neighbour counts
+//      only if its global id is the CUT's plus its offset, so the global
+//      beam edges stay edges; the contiguous case is halo 0, id0 0,
+//      n_total NB.
+// Out: grouped det (B, NB, R, D) — a shard's interior planes —, row_max
+//      float32 (B, NB * R), n_dets int32 (B,) (zeroed by the caller; integer
+//      atomics, exact).
 //
 // One warp per map row: its lanes stride over the row's D cells, compare
 // each with the same cell of the 2 * radius neighbouring beams, store the
@@ -28,7 +35,7 @@
 
 // Mirrors BeamGroupConfig in kernels.py (ctypes.Structure, all int32).
 struct BeamGroupConfig {
-    int batch, NB, R, D, radius;
+    int batch, NB, R, D, radius, halo, id0, n_total;
 };
 
 namespace {
@@ -36,6 +43,16 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 
+__device__ __forceinline__ int global_beam(int plane,
+                                           const BeamGroupConfig& c) {
+    const int g = (c.id0 + plane) % c.n_total;
+    return g < 0 ? g + c.n_total : g;
+}
+
+// kShard: the halo-extended shard with global beam ids (the neighbour
+// tests once per row, offsets up to 32); else the whole cube, where a
+// neighbour exists if its plane does.
+template <bool kShard>
 __global__ void __launch_bounds__(kThreads)
 beam_group_kernel(const float* __restrict__ det, float* __restrict__ out,
                   float* __restrict__ row_max, int* __restrict__ n_dets,
@@ -49,21 +66,35 @@ beam_group_kernel(const float* __restrict__ det, float* __restrict__ out,
     __syncthreads();
     int kept = 0;
     if (row < c.R) {
+        const int nb_in = kShard ? c.NB + 2 * c.halo : c.NB;
+        const int q = kShard ? beam + c.halo : beam;  // the CUT's plane
+        unsigned has_up = 0u, has_dn = 0u;             // bit o - 1: offset o
+        if (kShard) {
+            const int gq = global_beam(q, c);
+            for (int o = 1; o <= c.radius; ++o) {
+                if (q + o < nb_in && global_beam(q + o, c) - gq == o)
+                    has_up |= 1u << (o - 1);
+                if (q - o >= 0 && gq - global_beam(q - o, c) == o)
+                    has_dn |= 1u << (o - 1);
+            }
+        }
         const size_t plane = (size_t)c.R * c.D;
-        const size_t base = (((size_t)b * c.NB + beam) * c.R + row) * c.D;
+        const size_t base = (((size_t)b * nb_in + q) * c.R + row) * c.D;
+        const size_t obase = (((size_t)b * c.NB + beam) * c.R + row) * c.D;
         float mx = 0.f;
         for (int d = lane; d < c.D; d += 32) {
             const float m = det[base + d];
             bool keep = m > 0.f;
             for (int o = 1; o <= c.radius; ++o) {
-                const float up = beam + o < c.NB ? det[base + o * plane + d]
-                                                 : 0.f;
-                const float dn = beam - o >= 0 ? det[base - o * plane + d]
-                                               : 0.f;
+                const bool u = kShard ? (has_up >> (o - 1)) & 1u
+                                      : q + o < nb_in;
+                const bool w = kShard ? (has_dn >> (o - 1)) & 1u : q - o >= 0;
+                const float up = u ? det[base + o * plane + d] : 0.f;
+                const float dn = w ? det[base - o * plane + d] : 0.f;
                 keep = keep && m >= up && m > dn;
             }
-            const float g = keep ? m : 0.f;
-            out[base + d] = g;
+        const float g = keep ? m : 0.f;
+            out[obase + d] = g;
             mx = fmaxf(mx, g);
             kept += keep;
         }
@@ -82,7 +113,8 @@ beam_group_kernel(const float* __restrict__ det, float* __restrict__ out,
 
 }  // namespace
 
-// det/out: float32 (batch, NB, R, D); row_max: float32 (batch, NB * R);
+// det: float32 (batch, NB + 2 halo, R, D); out: float32 (batch, NB, R, D);
+// row_max: float32 (batch, NB * R);
 // n_dets: int32 (batch,), zeroed by the caller.  Returns the CUDA error
 // code of the launch (0 on success).
 extern "C" int fmcw_beam_group(const void* det, void* out, void* row_max,
@@ -91,10 +123,13 @@ extern "C" int fmcw_beam_group(const void* det, void* out, void* row_max,
     const BeamGroupConfig c = *cfg;
     const int row_blocks = (c.R + kWarps - 1) / kWarps;
     if (c.batch < 1 || c.batch > 65535 || c.NB < 1 || c.NB > 65535 ||
-        c.R < 1 || c.D < 1 || row_blocks > 65535 || c.radius < 0)
+        c.R < 1 || c.D < 1 || row_blocks > 65535 || c.radius < 0 ||
+        c.halo < 0 || c.n_total < 1 || (c.halo > 0 && c.radius > 32))
         return (int)cudaErrorInvalidValue;
     const dim3 grid(c.NB, row_blocks, c.batch);
-    beam_group_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    auto kernel = c.halo > 0 ? beam_group_kernel<true>
+                             : beam_group_kernel<false>;
+    kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         static_cast<const float*>(det), static_cast<float*>(out),
         static_cast<float*>(row_max), static_cast<int*>(n_dets), c);
     return (int)cudaGetLastError();

@@ -9,9 +9,14 @@
 // adaptive scale is per cell whatever the CfarParams' scale mode, as in
 // JAX's XLA body.
 //
-// In:  cube (B, A, R, D) int32 or float32; a scalar scale_override.
+// In:  cube (B, A, R, D) int32 or float32 — or, prepadded, (B, A + 2 ha, R,
+//      D): a beam shard with ha = ref_angle + guard_angle planes of its
+//      neighbours on each side (the sharded array model's beam-halo
+//      exchange, cfar_3d(prepadded_angle=True)); the beam axis then does not
+//      wrap.  A scalar scale_override.
 // Out: det (B, A, R, D) in the cube's type — the CUT where CUT > est * scale,
-//      else 0 — and scale (B, A, R, D) int32, scale_override folded in.
+//      else 0 — and scale (B, A, R, D) int32, scale_override folded in; for
+//      a prepadded shard, its A interior planes.
 //
 // One block per (cube, beam plane, tile of T range rows) loads the 2 ha + 1
 // beam planes' T + 2 hr rows its windows reach (wrapped) into shared memory
@@ -47,7 +52,7 @@ struct Cfar3dConfig {
     int ha, ga;
     int hr, hd, gr, gd, n_ref, k;
     int scale_min, scale_nom, scale_max;
-    int so, integer;
+    int so, integer, prepadded;
 };
 
 namespace {
@@ -107,15 +112,17 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
     const int a = blockIdx.y;
     const int b = blockIdx.z;
 
-    // 1. The 2 ha + 1 planes' rows r0 - hr .. r0 + T + hr - 1, wrapped.
+    // 1. The 2 ha + 1 planes' rows r0 - hr .. r0 + T + hr - 1, wrapped
+    //    (planes too, unless the shard carries them).
+    const int a_in = c.prepadded ? c.A + 2 * c.ha : c.A;
     for (int idx = threadIdx.x; idx < np * E * D; idx += kThreads) {
         const int p = idx / (E * D);
         const int rem = idx - p * E * D;
         const int e = rem / D;
         const int d = rem - e * D;
-        const int plane = wrap_mod(a - c.ha + p, c.A);
+        const int plane = c.prepadded ? a + p : wrap_mod(a - c.ha + p, c.A);
         const int row = wrap_mod(r0 - c.hr + e, c.R);
-        tile[idx] = cube[(((size_t)b * c.A + plane) * c.R + row) * D + d];
+        tile[idx] = cube[(((size_t)b * a_in + plane) * c.R + row) * D + d];
     }
     __syncthreads();
     // 2. Column sums over the window's rows, dr ascending.
@@ -196,8 +203,9 @@ int launch(const void* cube, void* det, void* scale_out,
 
 }  // namespace
 
-// cube/det: int32 (integer != 0) or float32 (batch, A, R, D); scale_out:
-// int32 (batch, A, R, D).  Returns the CUDA error code of the launch (0 on
+// cube/det: int32 (integer != 0) or float32 (batch, A, R, D) — the cube
+// (batch, A + 2 ha, R, D) with prepadded; scale_out: int32 (batch, A, R,
+// D).  Returns the CUDA error code of the launch (0 on
 // success).
 extern "C" int fmcw_cfar_3d_detect(const void* cube, void* det,
                                    void* scale_out, const Cfar3dConfig* cfg,

@@ -11,7 +11,7 @@ denormals being kept.
 Nothing here runs at import time; ``load()`` is called by the kernel
 wrappers (``ops/frontend.py``, ``ops/frontend_fixed.py``,
 ``ops/cfar_detect.py``, ``ops/cfar3d_detect.py``, ``ops/beam_group.py``,
-``ops/split_frontend.py``)
+``ops/split_frontend.py``, ``ops/cfar_rank.py``)
 when they are handed a CUDA tensor.  Each wrapper is registered with
 ``counted`` and carries ``launches``, the number of kernels it launched
 since ``reset_launch_counts()``.
@@ -30,7 +30,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("range_fft.cu", "slowtime_detect.cu", "range_fft_fixed.cu",
            "slowtime_detect_fixed.cu", "cfar_detect.cu", "cfar_3d_detect.cu",
-           "beam_group.cu")
+           "beam_group.cu", "cfar_rank.cu")
 HEADERS = ("fft_stockham.cuh", "cfar_common.cuh", "slowtime_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,18 +57,27 @@ class CfarDetectConfig(ctypes.Structure):
         "block_mode", "so", "integer", "prepadded")]
 
 
+class CfarRankConfig(ctypes.Structure):
+    """Mirror of ``struct CfarRankConfig`` in csrc/cfar_rank.cu."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "batch", "R", "D", "T",
+        "hr", "hd", "gr", "gd", "n_ref", "k",
+        "scale_min", "scale_nom", "scale_max",
+        "block_mode", "so", "integer", "prepadded", "bits")]
+
+
 class Cfar3dConfig(ctypes.Structure):
     """Mirror of ``struct Cfar3dConfig`` in csrc/cfar_3d_detect.cu."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "batch", "A", "R", "D", "T", "ha", "ga",
         "hr", "hd", "gr", "gd", "n_ref", "k",
-        "scale_min", "scale_nom", "scale_max", "so", "integer")]
+        "scale_min", "scale_nom", "scale_max", "so", "integer", "prepadded")]
 
 
 class BeamGroupConfig(ctypes.Structure):
     """Mirror of ``struct BeamGroupConfig`` in csrc/beam_group.cu."""
     _fields_ = [(name, ctypes.c_int) for name in (
-        "batch", "NB", "R", "D", "radius")]
+        "batch", "NB", "R", "D", "radius", "halo", "id0", "n_total")]
 
 
 _counted = []
@@ -215,6 +224,9 @@ def load() -> ctypes.CDLL:
     lib.fmcw_beam_group.argtypes = [vp] * 4 + [
         ctypes.POINTER(BeamGroupConfig), vp]
     lib.fmcw_beam_group.restype = ci
+    lib.fmcw_cfar_rank.argtypes = [vp] * 5 + [
+        ctypes.POINTER(CfarRankConfig), vp]
+    lib.fmcw_cfar_rank.restype = ci
     build_info.path = out
     _lib = lib
     return lib

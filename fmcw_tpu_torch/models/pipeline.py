@@ -23,7 +23,7 @@ and three routes (``frontend``):
   chain, float64 for the fixed chain, see ``ops/fft.py``) and the CFAR step
   as the ``cfar_detect`` kernel (``ops/cfar_detect.py``);
 * ``"plain"`` — the kernels' plain twins on ``device`` (the reference the
-  kernels are held against, and the only route with CFAR debug taps).
+  kernels are held against).
 
 ``"auto"`` takes "fused" for float32 and "staged" for fixed, as JAX's
 ``auto`` keeps fixed mode on its XLA chain.  In the port both fixed routes
@@ -35,6 +35,19 @@ kernel-against-twin check, and only ``golden.reference.
 process_frame_fixed`` is an independent witness.
 On a CPU tensor every kernel wrapper takes its plain twin.  The top-K
 selection is a stable PyTorch sort.
+
+The CFAR debug taps (``include_debug``: the threshold and scale maps, the
+``dbg_threshold`` / ``dbg_scale`` ports) need the order statistic itself,
+which the counting kernels never form: with them every route runs JAX's
+standalone-CFAR dataflow — the route's magnitudes (float32 "fused": kernel A
+and kernel B's magnitude-only entry; "staged" and fixed: the plain stages),
+then the rank-select CFAR ``ops/cfar_rank`` (TPU kernel row 9; its twin on
+"plain"), plain peak grouping and the top-K.  Float per-cell taps rank on
+``cfar_rank_bits`` key bits (16, JAX's default: the threshold is the order
+statistic truncated, under it by < 0.8%, and so is the decision; None is
+exact), integer maps on 16 bits (exact below 2^16), the block scale exactly
+with ``ops/cfar.block_scale_map``'s scale.  Fixed mode's "fused" route has
+no debug taps (it raises, as JAX's ``frontend="pallas"``).
 
 Runtime controls (``mti_bypass``, ``scale_override``) are call arguments —
 the radar_core control ports (rtl/src/radar_core.vhd:48-49).
@@ -56,8 +69,8 @@ first call on the card and never falls back to the plain transforms.
 
 Not yet ported (they raise ``NotImplementedError``, ROADMAP.md): the
 CA/GO/SO variants and reflect edges, ``fixed_fft="scaled"``,
-``cfar_geometry="hw_stream"``, on the kernels long CPIs (n_doppler > 128),
-and sharding.
+``cfar_geometry="hw_stream"``, on the kernels long CPIs (n_doppler > 128).
+The sharded processors are in ``parallel/sharded.py``.
 """
 
 from __future__ import annotations
@@ -74,6 +87,7 @@ from ..ops import frontend as F, frontend_fixed as FX
 from ..ops.beam_group import beam_group, beam_group_plain
 from ..ops.cfar3d_detect import cfar3d_detect, cfar3d_detect_plain
 from ..ops.cfar_detect import cfar_detect
+from ..ops.cfar_rank import cfar_rank, cfar_rank_plain, debug_bits
 from ..ops.fft import dft_apply, doppler_apply
 from ..ops.frontend import rdm_frontend_detect
 from ..ops.magnitude import magnitude_float
@@ -132,6 +146,7 @@ def make_batch_processor(params: RadarParams | None = None,
                          magnitude_exact: bool = False,
                          include_maps: bool = True,
                          include_debug: bool = False,
+                         cfar_rank_bits: int | None = 16,
                          fixed_fft: str = "bfp",
                          cfar_geometry: str = "named",
                          device=None) -> Callable:
@@ -154,9 +169,10 @@ def make_batch_processor(params: RadarParams | None = None,
 
     ``device``: None means "cuda" (raises without one); pass "cpu" for the
     plain path.  ``frontend``: "auto", "staged", "fused" or "plain" (see the
-    module docstring).  ``window_rounding`` ("unbiased" or the reference's
-    "biased") applies to fixed mode, ``magnitude_exact`` to float32, as in
-    JAX.
+    module docstring, also for the debug taps and ``cfar_rank_bits``, the
+    key bits their float per-cell rank select walks: 16 or None = exact).
+    ``window_rounding`` ("unbiased" or the reference's "biased") applies to
+    fixed mode, ``magnitude_exact`` to float32, as in JAX.
     """
     p = params or RadarParams()
     dev = resolve_device(device)
@@ -178,10 +194,6 @@ def make_batch_processor(params: RadarParams | None = None,
             "ported yet (ROADMAP.md)")
     route = resolve_frontend(mode, frontend)
     C.check_supported(p.cfar)
-    if include_debug and route != "plain":
-        raise ValueError("include_debug (threshold/scale taps) needs "
-                         "frontend='plain': the kernels decide by counting "
-                         "and compute no threshold")
     if mode == "fixed":
         check_notch(p.notch_mode, mti_transient)
         window_rounding_constant(p.coef_width, window_rounding)
@@ -190,9 +202,35 @@ def make_batch_processor(params: RadarParams | None = None,
             raise ValueError(
                 "frontend='fused' with mode='fixed' runs the fused "
                 "fixed-point kernels, which need an OS wrap-edge CfarParams "
-                "fitting their tile (fused_fixed_detect_supported)")
+                "fitting their tile and no debug taps "
+                "(fused_fixed_detect_supported)")
     max_dets = p.tracker.max_dets
-    emit_mag = include_maps or include_debug
+    rank = cfar_rank_plain if route == "plain" else cfar_rank
+    bits = debug_bits(p.cfar, mode == "fixed", cfar_rank_bits)
+
+    def magnitudes(iq, bypass):
+        """The route's magnitude maps for the standalone CFAR: (mag,
+        saturation count, non-finite count)."""
+        zeros = torch.zeros(iq.shape[0], dtype=torch.int32, device=dev)
+        if mode == "fixed":
+            mag, sat = _staged_fixed(iq, bypass, p, mti_transient,
+                                     window_rounding)
+            return mag, sat, zeros
+        tf_kw = dict(notch_mode=p.notch_mode, transient=mti_transient,
+                     exact_mag=magnitude_exact)
+        if route == "fused":
+            mag, nonfinite = F.slowtime_mag(*F.range_fft(iq), bypass,
+                                            **tf_kw)
+            return mag, zeros, nonfinite
+        if route == "staged":
+            mag = _staged_float(iq[..., 0].to(torch.float32),
+                                iq[..., 1].to(torch.float32), bypass, p,
+                                mti_transient, magnitude_exact)
+        else:
+            mag = F.slowtime_mag_plain(*F.range_fft_plain(iq), bypass,
+                                       **tf_kw)
+        return (mag, zeros,
+                (~torch.isfinite(mag)).sum(dim=(-2, -1)).to(torch.int32))
 
     def process(iq, mti_bypass=False, scale_override=0) -> dict:
         if tuple(iq.shape[1:]) != (p.n_doppler, p.n_range, 2):
@@ -202,33 +240,28 @@ def make_batch_processor(params: RadarParams | None = None,
         iq = torch.as_tensor(iq).to(dev)
         bypass, so = bool(mti_bypass), int(scale_override)
         row_max = n_dets = None
-        zeros = torch.zeros(iq.shape[0], dtype=torch.int32, device=dev)
-        sat = nonfinite = zeros
-        if route == "staged":
-            if mode == "fixed":
-                mag, sat = _staged_fixed(iq, bypass, p, mti_transient,
-                                         window_rounding)
+        if route == "staged" or include_debug:
+            mag, sat, nonfinite = magnitudes(iq, bypass)
+            if include_debug:
+                det, threshold, scale = rank(mag, so, cfar=p.cfar, bits=bits)
             else:
-                mag = _staged_float(iq[..., 0].to(torch.float32),
-                                    iq[..., 1].to(torch.float32), bypass, p,
-                                    mti_transient, magnitude_exact)
-                nonfinite = (~torch.isfinite(mag)).sum(
-                    dim=(-2, -1)).to(torch.int32)
-            det, _ = cfar_detect(mag, so, cfar=p.cfar)
+                det, _ = cfar_detect(mag, so, cfar=p.cfar)
             det = C.peak_group(det, peak_group_radius)
         elif mode == "fixed":
             det, mag, sat, row_max, n_dets = FX.rdm_frontend_fixed_detect(
                 iq, bypass, so, cfar=p.cfar, notch_mode=p.notch_mode,
                 transient=mti_transient, coef_width=p.coef_width,
                 window_rounding=window_rounding,
-                peak_group_radius=peak_group_radius, emit_mag=emit_mag,
+                peak_group_radius=peak_group_radius, emit_mag=include_maps,
                 plain=route == "plain")
+            nonfinite = torch.zeros_like(sat)
         else:
             det, mag, nonfinite, row_max, n_dets = rdm_frontend_detect(
                 iq, bypass, so, cfar=p.cfar, notch_mode=p.notch_mode,
                 transient=mti_transient, exact_mag=magnitude_exact,
-                peak_group_radius=peak_group_radius, emit_mag=emit_mag,
+                peak_group_radius=peak_group_radius, emit_mag=include_maps,
                 plain=route == "plain")
+            sat = torch.zeros_like(nonfinite)
         out = DET.topk_detections(det, max_dets=max_dets, row_max=row_max,
                                   n_dets=n_dets)
         out["saturation_count"] = sat
@@ -237,7 +270,6 @@ def make_batch_processor(params: RadarParams | None = None,
             out["mag_map"] = mag
             out["det_map"] = det
         if include_debug:
-            _, threshold, scale = C.cfar_2d(mag, so, p.cfar, need_debug=True)
             out["threshold_map"] = threshold
             out["scale_map"] = scale
         return out

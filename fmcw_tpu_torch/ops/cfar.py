@@ -241,6 +241,36 @@ def block_scale_map_sharded(mags: list, cfar: CfarParams,
     return out
 
 
+def block_scale(m: torch.Tensor, cfar: CfarParams,
+                scale_map: torch.Tensor | None, prepadded_range: bool):
+    """The int32 block scale of map ``m`` (``scale_map`` when given, else
+    ``block_scale_map``; a prepadded shard needs the given one), or None
+    for the per-cell scale, which takes no ``scale_map``."""
+    if cfar.scale_mode != "block":
+        if scale_map is not None:
+            raise ValueError("scale_map applies to scale_mode='block'")
+        return None
+    if scale_map is None and prepadded_range:
+        raise ValueError(
+            "scale_mode='block' on a prepadded (sharded) map needs the "
+            "scale_map of block_scale_map_sharded")
+    return (block_scale_map(m, cfar) if scale_map is None
+            else scale_map.to(torch.int32))
+
+
+def percell_thresholds(p: torch.Tensor, cfar: CfarParams):
+    """(t_hi, t_lo) of the per-cell adaptive scale of the map padded by the
+    halos in ``p``: the full-window minus guard-window box sums, their mean
+    over n_ref, 1.5x / 0.5x it (integer: mean + (mean >> 1), mean >> 1)."""
+    hr, hd = cfar.halo_range, cfar.halo_doppler
+    gr, gd = cfar.guard_range, cfar.guard_doppler
+    R, D = p.shape[-2] - 2 * hr, p.shape[-1] - 2 * hd
+    pg = p[..., hr - gr:hr + gr + R, hd - gd:hd + gd + D]
+    sum_refs = (_box_sum(p, cfar.win_range, cfar.win_doppler)
+                - _box_sum(pg, 2 * gr + 1, 2 * gd + 1))
+    return _thresholds(_div(sum_refs, cfar.n_ref))
+
+
 def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
             cfar: CfarParams = CfarParams(), need_debug: bool = False,
             scale_map: torch.Tensor | None = None,
@@ -276,21 +306,9 @@ def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
     def ref(dr, dd):
         return p[..., hr + dr:hr + dr + R, hd + dd:hd + dd + D]
 
-    if cfar.scale_mode == "block":
-        if scale_map is None and prepadded_range:
-            raise ValueError(
-                "scale_mode='block' on a prepadded (sharded) map needs the "
-                "scale_map of block_scale_map_sharded")
-        scale = (block_scale_map(m, cfar) if scale_map is None
-                 else scale_map.to(torch.int32))
-    else:
-        if scale_map is not None:
-            raise ValueError("scale_map applies to scale_mode='block'")
-        gr, gd = cfar.guard_range, cfar.guard_doppler
-        pg = p[..., hr - gr:hr + gr + R, hd - gd:hd + gd + D]
-        sum_refs = (_box_sum(p, cfar.win_range, cfar.win_doppler)
-                    - _box_sum(pg, 2 * gr + 1, 2 * gd + 1))
-        t_hi, t_lo = _thresholds(_div(sum_refs, cfar.n_ref))
+    scale = block_scale(m, cfar, scale_map, prepadded_range)
+    if scale is None:
+        t_hi, t_lo = percell_thresholds(p, cfar)
         cnt_hi = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
         cnt_lo = torch.zeros_like(cnt_hi)
         for dr, dd in offsets:
@@ -365,12 +383,15 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
     angle-extended kernel (``cfar_pallas._kernel_detect_3d``): planes da
     ascending, in each the wrap-rolled column sums (dr ascending) added dd
     ascending, then each guard cell of the |da| <= guard_angle planes
-    subtracted, dd outer and dr inner.  ``prepadded_angle`` (the sharded
-    beam-halo layout) is not ported yet."""
-    if prepadded_angle:
-        raise NotImplementedError(
-            "prepadded_angle (the sharded beam-halo layout) is not ported "
-            "yet (ROADMAP.md)")
+    subtracted, dd outer and dr inner.
+
+    ``prepadded_angle`` (``ref_angle > 0``): the cube is a beam shard that
+    carries ``ref_angle + guard_angle`` planes of its neighbours on each side
+    (the sharded array model's beam-halo exchange), (..., A + 2 ha, R, D);
+    the beam axis is not wrapped and the outputs cover the A interior
+    planes."""
+    if prepadded_angle and ref_angle == 0:
+        raise ValueError("prepadded_angle needs ref_angle > 0")
     if ref_angle < 0 or guard_angle < 0:
         raise ValueError(f"ref_angle and guard_angle must be >= 0, got "
                          f"{ref_angle}, {guard_angle}")
@@ -378,13 +399,18 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
         return cfar_2d(cube, scale_override, cfar, need_debug)
     check_supported(cfar)
     m = _as_map(cube)
-    A, R, D = m.shape[-3:]
     offs = _offsets_3d(cfar, ref_angle, guard_angle)
     n_ref = len(offs)
     k = n_ref - min((n_ref * cfar.rank_pct) // 100, n_ref - 1)
     ha = ref_angle + guard_angle
     hr, hd = cfar.halo_range, cfar.halo_doppler
-    p = _periodic_pad(_periodic_pad(_periodic_pad(m, -3, ha), -2, hr), -1, hd)
+    if prepadded_angle:
+        p = _periodic_pad(_periodic_pad(m, -2, hr), -1, hd)
+        m = m[..., ha:m.shape[-3] - ha, :, :]
+    else:
+        p = _periodic_pad(_periodic_pad(_periodic_pad(m, -3, ha), -2, hr),
+                          -1, hd)
+    A, R, D = m.shape[-3:]
 
     def view(da, dr, dd):
         return p[..., ha + da:ha + da + A, hr + dr:hr + dr + R,

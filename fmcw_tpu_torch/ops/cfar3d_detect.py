@@ -6,7 +6,10 @@ Port of ``fmcw_tpu/ops/cfar_pallas.cfar_3d_pallas_detect`` (kernel
 on (batch, A, R, D) beam cubes, float32 or int32, with a scalar
 ``scale_override``.  ``cfar3d_detect`` launches the kernel for a CUDA tensor
 and takes the plain ``cfar_3d`` for a CPU tensor; both return the same det
-and scale cubes bit for bit.  The adaptive scale is per cell whatever
+and scale cubes bit for bit.  ``prepadded_angle=True`` is the sharded array
+model's entry (JAX's ``cfar_3d(prepadded_angle=True)``): a beam shard with
+``ref_angle + guard_angle`` exchanged planes on each side, the beam axis not
+wrapped, its interior planes out.  The adaptive scale is per cell whatever
 ``cfar.scale_mode`` says (as JAX's XLA body computes it); JAX's kernel
 refuses block mode, this one serves it, since the function is the same.
 """
@@ -31,10 +34,10 @@ _MAX_BYTES = 227 * 1024
 
 def cfar3d_detect_plain(cube: torch.Tensor, scale_override: int = 0, *,
                         cfar: CfarParams, ref_angle: int,
-                        guard_angle: int = 0):
+                        guard_angle: int = 0, prepadded_angle: bool = False):
     """Plain twin: ``ops/cfar.cfar_3d`` -> (det, scale)."""
     det, _, scale = C.cfar_3d(cube, scale_override, cfar, ref_angle,
-                              guard_angle)
+                              guard_angle, prepadded_angle=prepadded_angle)
     return det, scale
 
 
@@ -62,9 +65,11 @@ def _check_angles(ref_angle: int, guard_angle: int) -> None:
 
 
 def cfar3d_config(shape, cfar: CfarParams, ref_angle: int, guard_angle: int,
-                  scale_override: int = 0, integer: bool = False):
-    """The kernel's config for a (batch, A, R, D) cube; raises
-    NotImplementedError for what the kernel does not take."""
+                  scale_override: int = 0, integer: bool = False,
+                  prepadded_angle: bool = False):
+    """The kernel's config for a (batch, A, R, D) cube (A + 2 ha planes
+    with ``prepadded_angle``); raises NotImplementedError for what the
+    kernel does not take."""
     C.check_supported(cfar)
     _check_angles(ref_angle, guard_angle)
     if int(scale_override) < 0:
@@ -74,6 +79,11 @@ def cfar3d_config(shape, cfar: CfarParams, ref_angle: int, guard_angle: int,
         raise NotImplementedError(
             f"cfar3d_detect kernel: Doppler halo {cfar.halo_doppler} >= {D}")
     ha = ref_angle + guard_angle
+    if prepadded_angle:
+        A -= 2 * ha
+        if A < 1:
+            raise ValueError(f"a prepadded cube needs more than 2 x {ha} "
+                             f"planes, got {shape[1]}")
     offs = C._offsets_3d(cfar, ref_angle, guard_angle)
     n_ref = len(offs)
     k = n_ref - min((n_ref * cfar.rank_pct) // 100, n_ref - 1)
@@ -83,18 +93,20 @@ def cfar3d_config(shape, cfar: CfarParams, ref_angle: int, guard_angle: int,
         gr=cfar.guard_range, gd=cfar.guard_doppler, n_ref=n_ref, k=k,
         scale_min=cfar.scale_min, scale_nom=cfar.scale_nom,
         scale_max=cfar.scale_max, so=int(scale_override),
-        integer=int(integer))
+        integer=int(integer), prepadded=int(prepadded_angle))
 
 
 @kernels.counted
 def cfar3d_detect(cube: torch.Tensor, scale_override: int = 0, *,
-                  cfar: CfarParams, ref_angle: int, guard_angle: int = 0):
+                  cfar: CfarParams, ref_angle: int, guard_angle: int = 0,
+                  prepadded_angle: bool = False):
     """Angle-extended OS-CFAR detection of (..., A, R, D) int32 or float32
-    beam cubes (``ref_angle >= 1``).  Returns ``(det, scale)``: the
-    zero-suppressed detection cube in the cube's type and the int32 scale
-    cube (``scale_override`` folded in), equal to ``ops/cfar.cfar_3d``'s.
-    Launches the CUDA kernel for a CUDA tensor; the plain twin for a CPU
-    tensor."""
+    beam cubes (``ref_angle >= 1``; with ``prepadded_angle``, beam shards
+    (..., A + 2 ha, R, D), see the module docstring).  Returns ``(det,
+    scale)``, each (..., A, R, D): the zero-suppressed detection cube in the
+    cube's type and the int32 scale cube (``scale_override`` folded in),
+    equal to ``ops/cfar.cfar_3d``'s.  Launches the CUDA kernel for a CUDA
+    tensor; the plain twin for a CPU tensor."""
     if cube.dim() < 3:
         raise ValueError(f"expected a (..., A, R, D) cube, got "
                          f"{tuple(cube.shape)}")
@@ -102,16 +114,19 @@ def cfar3d_detect(cube: torch.Tensor, scale_override: int = 0, *,
     if F._device_kind(cube) == "cpu":
         return cfar3d_detect_plain(cube, scale_override, cfar=cfar,
                                    ref_angle=ref_angle,
-                                   guard_angle=guard_angle)
+                                   guard_angle=guard_angle,
+                                   prepadded_angle=prepadded_angle)
     if cube.dtype not in (torch.int32, torch.float32):
         raise ValueError(f"cfar3d_detect kernel takes int32 or float32 "
                          f"cubes, got {cube.dtype}")
-    *lead, A, R, D = cube.shape
-    m = cube.reshape(-1, A, R, D).contiguous()
+    *lead, A_in, R, D = cube.shape
+    m = cube.reshape(-1, A_in, R, D).contiguous()
     cfg = cfar3d_config(tuple(m.shape), cfar, ref_angle, guard_angle,
-                        scale_override, m.dtype == torch.int32)
-    det = torch.empty_like(m)
-    scale = torch.empty(m.shape, dtype=torch.int32, device=m.device)
+                        scale_override, m.dtype == torch.int32,
+                        prepadded_angle)
+    A = cfg.A
+    det = torch.empty((m.shape[0], A, R, D), dtype=m.dtype, device=m.device)
+    scale = torch.empty(det.shape, dtype=torch.int32, device=m.device)
     lib = kernels.load()
     err = lib.fmcw_cfar_3d_detect(
         m.data_ptr(), det.data_ptr(), scale.data_ptr(), ctypes.byref(cfg),

@@ -49,15 +49,45 @@ def cfar_detect_plain(mag: torch.Tensor, scale_override: int = 0, *,
     return det, scale
 
 
-def _tile_rows(R: int, D: int, hr: int) -> int:
+def tile_rows(R: int, D: int, hr: int, name: str = "cfar_detect") -> int:
+    """Rows per block: a divisor of R whose tile fits ``_TILE_BYTES``."""
     t = math.gcd(R, TILE_ROWS)
     while t > 1 and (t + 2 * hr) * D * 4 > _TILE_BYTES:
         t //= 2
     if (t + 2 * hr) * D * 4 > _TILE_BYTES:
         raise NotImplementedError(
-            f"cfar_detect kernel: a {R}x{D} map with halo {hr} does not fit "
-            f"its shared-memory tile")
+            f"{name} kernel: a {R}x{D} map with halo {hr} does not fit its "
+            f"shared-memory tile")
     return t
+
+
+def kernel_inputs(mag: torch.Tensor, scale_override: int, cfar: CfarParams,
+                  scale_map: torch.Tensor | None, prepadded_range: bool,
+                  name: str):
+    """Validate a CFAR kernel's map and lay it out for the kernel (shared
+    with ``ops/cfar_rank``): returns ``(m (B, R_in, D) contiguous, lead
+    dims, R, D, block mode, the int32 (B, R, D) scale map or None)``; the
+    block scale map is computed here when none is given."""
+    C.check_supported(cfar)
+    if mag.dtype not in (torch.int32, torch.float32):
+        raise ValueError(f"{name} kernel takes int32 or float32 maps, got "
+                         f"{mag.dtype}")
+    if int(scale_override) < 0:
+        raise ValueError(f"scale_override must be >= 0, got {scale_override}")
+    *lead, R_in, D = mag.shape
+    pad = cfar.halo_range if prepadded_range else 0
+    R = R_in - 2 * pad
+    if cfar.halo_doppler >= D or R < 1:
+        raise NotImplementedError(
+            f"{name} kernel: a {R_in}x{D} map with halo "
+            f"({cfar.halo_range}, {cfar.halo_doppler})"
+            f"{' prepadded' if prepadded_range else ''}")
+    m = mag.reshape(-1, R_in, D).contiguous()
+    scale_in = C.block_scale(m, cfar, scale_map, prepadded_range)
+    block = scale_in is not None
+    if block:
+        scale_in = scale_in.reshape(m.shape[0], R, D).contiguous()
+    return m, lead, R, D, block, scale_in
 
 
 @kernels.counted
@@ -75,35 +105,11 @@ def cfar_detect(mag: torch.Tensor, scale_override: int = 0, *,
         return cfar_detect_plain(mag, scale_override, cfar=cfar,
                                  scale_map=scale_map,
                                  prepadded_range=prepadded_range)
-    C.check_supported(cfar)
-    if mag.dtype not in (torch.int32, torch.float32):
-        raise ValueError(f"cfar_detect kernel takes int32 or float32 maps, "
-                         f"got {mag.dtype}")
-    if int(scale_override) < 0:
-        raise ValueError(f"scale_override must be >= 0, got {scale_override}")
-    *lead, R_in, D = mag.shape
-    pad = cfar.halo_range if prepadded_range else 0
-    R = R_in - 2 * pad
-    if cfar.halo_doppler >= D or R < 1:
-        raise NotImplementedError(
-            f"cfar_detect kernel: a {R_in}x{D} map with halo "
-            f"({cfar.halo_range}, {cfar.halo_doppler})"
-            f"{' prepadded' if prepadded_range else ''}")
-    m = mag.reshape(-1, R_in, D).contiguous()
+    m, lead, R, D, block, scale_in = kernel_inputs(
+        mag, scale_override, cfar, scale_map, prepadded_range, "cfar_detect")
     B = m.shape[0]
-    block = cfar.scale_mode == "block"
-    if block:
-        if scale_map is None and prepadded_range:
-            raise ValueError(
-                "scale_mode='block' on a prepadded (sharded) map needs the "
-                "scale_map of block_scale_map_sharded")
-        if scale_map is None:
-            scale_map = C.block_scale_map(m, cfar)
-        scale_in = scale_map.reshape(B, R, D).to(torch.int32).contiguous()
-    elif scale_map is not None:
-        raise ValueError("scale_map applies to scale_mode='block'")
     cfg = kernels.CfarDetectConfig(
-        batch=B, R=R, D=D, T=_tile_rows(R, D, cfar.halo_range),
+        batch=B, R=R, D=D, T=tile_rows(R, D, cfar.halo_range),
         hr=cfar.halo_range, hd=cfar.halo_doppler, gr=cfar.guard_range,
         gd=cfar.guard_doppler, n_ref=cfar.n_ref,
         k=cfar.n_ref - cfar.rank_idx, scale_min=cfar.scale_min,

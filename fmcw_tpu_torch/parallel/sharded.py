@@ -33,13 +33,19 @@ make_batch_processor``):
   ``models/pipeline.py`` split at the corner turn -> the sharded CFAR tail
   with the ``cfar_detect`` kernel;
 * "plain": the same dataflow with the twins, the CFAR tail as plain
-  ``cfar_2d`` — the only route with ``include_debug``.
+  ``cfar_2d``.
 
 The sharded CFAR tail (JAX's ``sharded.py:396-422``): for the block scale
 ``ops/cfar.block_scale_map_sharded`` (one block-grid row exchanged per
 side), then ``halo_range`` exchanged magnitude rows and
 ``cfar_detect(prepadded_range=True)``, then ``peak_group_radius`` exchanged
-decision rows and ``peak_group`` with global row ids.
+decision rows and ``peak_group`` with global row ids.  With
+``include_debug`` (the threshold and scale taps) the tail's CFAR is the
+rank-select kernel ``ops/cfar_rank.cfar_rank(prepadded_range=True)`` (its
+twin on "plain"), and the float "fused" route feeds it from the
+magnitude-only kernel in place of kernel B's split detect (JAX's
+``use_split_detect = not include_debug``); fixed "fused" has no taps, as on
+one device.
 
 With ``sp == 1`` each group of ranks runs ``make_batch_processor`` on its
 frames.  Every route equals the single-device route of the same name bit
@@ -59,9 +65,11 @@ on every rank (an all-gather over dp); the maps (``include_maps``,
 ``include_debug``) are the rank's own (batch/dp, n_range/sp, n_doppler)
 shard — on a LocalMesh, which holds every shard, the whole maps.
 
-Not ported (raise ``NotImplementedError``, ``ROADMAP.md``):
-``make_sharded_array_processor``, reflect edges and CA/GO/SO (as on one
-device), long CPIs on the kernels (n_doppler > 128).
+``make_sharded_array_processor`` is the array model on the mesh: cubes over
+``dp``, beams over ``sp`` (see its docstring).
+
+Not ported (raise ``NotImplementedError``, ``ROADMAP.md``): reflect edges
+and CA/GO/SO (as on one device), long CPIs on the kernels (n_doppler > 128).
 """
 
 from __future__ import annotations
@@ -72,10 +80,13 @@ import torch
 import torch.distributed as dist
 
 from ..models import pipeline as PL
-from ..ops import cfar as C, detect as DET
+from ..ops import beamform as BF, cfar as C, detect as DET
 from ..ops import frontend as F, frontend_fixed as FX
 from ..ops import split_frontend as SF
+from ..ops.beam_group import beam_group, beam_group_plain
+from ..ops.cfar3d_detect import cfar3d_detect, cfar3d_detect_plain
 from ..ops.cfar_detect import cfar_detect
+from ..ops.cfar_rank import cfar_rank, cfar_rank_plain, debug_bits
 from ..ops.fft import dft_apply, doppler_apply
 from ..ops.magnitude import magnitude_float
 from ..ops.notch import check_notch
@@ -241,6 +252,33 @@ def split_detect_supported(p: RadarParams, sp: int,
 # The processor
 # ---------------------------------------------------------------------------
 
+def _mesh_info(mesh, device):
+    """(mesh, is local, dp, sp, device, dp rank, sp rank) of ``mesh``
+    (None: ``make_mesh(device=device)``); the ranks are None on a
+    LocalMesh, which holds every shard."""
+    if mesh is None:
+        mesh = make_mesh(device=device)
+    if isinstance(mesh, LocalMesh):
+        return mesh, True, mesh.dp, mesh.sp, mesh.device, None, None
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+    return (mesh, False, mesh["dp"].size(), mesh["sp"].size(), dev,
+            mesh.get_local_rank("dp"), mesh.get_local_rank("sp"))
+
+
+def _gather_dp(outs, mesh, local: bool, dp: int, keys) -> dict:
+    """The dp blocks' outputs as one batch: concatenated on a LocalMesh;
+    on a DeviceMesh the rank's own block, with ``keys`` gathered over dp."""
+    if local:
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    out = outs[0]
+    if dp > 1:
+        group = mesh.get_group("dp")
+        for k in keys:
+            out[k] = _gather_frames(out[k], group, dp)
+    return out
+
+
 def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                            mode: str = "float32", frontend: str = "auto",
                            window_rounding: str = "unbiased",
@@ -249,6 +287,7 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                            magnitude_exact: bool = False,
                            include_maps: bool = False,
                            include_debug: bool = False,
+                           cfar_rank_bits: int | None = 16,
                            device=None) -> Callable:
     """Build the sharded frame-batch processor on ``mesh`` (a DeviceMesh
     from ``make_mesh`` or a ``LocalMesh``; None: ``make_mesh(device=
@@ -260,18 +299,7 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
     (see the module docstring for where each lives).  The keywords are
     ``make_batch_processor``'s."""
     p = params or RadarParams()
-    if mesh is None:
-        mesh = make_mesh(device=device)
-    local = isinstance(mesh, LocalMesh)
-    if local:
-        dp, sp, dev = mesh.dp, mesh.sp, mesh.device
-        dp_rank = sp_rank = None
-    else:
-        dp, sp = mesh["dp"].size(), mesh["sp"].size()
-        dp_rank = mesh.get_local_rank("dp")
-        sp_rank = mesh.get_local_rank("sp")
-        dev = (torch.device("cuda", torch.cuda.current_device())
-               if mesh.device_type == "cuda" else torch.device("cpu"))
+    mesh, local, dp, sp, dev, dp_rank, sp_rank = _mesh_info(mesh, device)
     if mode not in ("float32", "fixed"):
         raise ValueError(f"mode must be 'float32' or 'fixed', got {mode!r}")
     if p.n_doppler % sp or p.n_range % sp:
@@ -279,12 +307,15 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                          f"must divide the sp axis ({sp})")
     C.check_supported(p.cfar)
     route = PL.resolve_frontend(mode, frontend)
-    if include_debug and route != "plain":
-        raise ValueError("include_debug (threshold/scale taps) needs "
-                         "frontend='plain'")
-    if mode == "fixed":
+    fixed = mode == "fixed"
+    if fixed:
         check_notch(p.notch_mode, mti_transient)
         window_rounding_constant(p.coef_width, window_rounding)
+        if include_debug and route == "fused":
+            raise ValueError(
+                "frontend='fused' with mode='fixed' runs the fused "
+                "fixed-point kernels, which compute no debug taps (as on "
+                "one device)")
     nrl = p.n_range // sp
     ndc = p.n_doppler // sp
     hr, pgr = p.cfar.halo_range, peak_group_radius
@@ -298,9 +329,10 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
         raise ValueError(
             f"scale_mode='block' needs the local range extent ({nrl} = "
             f"n_range/sp) divisible by scale_block={p.cfar.scale_block}")
-    split_detect = sp > 1 and route == "fused" and not block
+    split_detect = (sp > 1 and route == "fused" and not block
+                    and not include_debug)
     if sp > 1 and route == "fused":
-        if mode == "fixed" and block:
+        if fixed and block:
             raise ValueError(
                 "frontend='fused' with mode='fixed' on an sp-sharded mesh "
                 "runs the split fixed kernels, which take the per-cell "
@@ -315,14 +347,16 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                 f"split_frontend_supported); long CPIs are queued in "
                 f"ROADMAP.md")
     max_dets = p.tracker.max_dets
-    fixed = mode == "fixed"
     single = None
     if sp == 1:
         single = PL.make_batch_processor(
             p, mode=mode, frontend=frontend, window_rounding=window_rounding,
             mti_transient=mti_transient, peak_group_radius=pgr,
             magnitude_exact=magnitude_exact, include_maps=include_maps,
-            include_debug=include_debug, device=dev)
+            include_debug=include_debug, cfar_rank_bits=cfar_rank_bits,
+            device=dev)
+    rank = cfar_rank_plain if route == "plain" else cfar_rank
+    bits = debug_bits(p.cfar, fixed, cfar_rank_bits)
     ring = sp_ring(mesh) if sp > 1 else None
     my_shards = list(range(sp)) if local else [sp_rank]
     offsets = [s * nrl for s in my_shards]
@@ -370,11 +404,13 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
         out = []
         for m, (lo, hi), sm in zip(mags, ring.halo(mags, hr), scales):
             m_h = torch.cat([lo, m, hi], dim=-2)
-            if route == "plain":
-                det, thr, scale = C.cfar_2d(m_h, so, p.cfar,
-                                            need_debug=include_debug,
-                                            scale_map=sm,
-                                            prepadded_range=True)
+            if include_debug:
+                det, thr, scale = rank(m_h, so, cfar=p.cfar, bits=bits,
+                                       scale_map=sm, prepadded_range=True)
+            elif route == "plain":
+                det, _, scale = C.cfar_2d(m_h, so, p.cfar, scale_map=sm,
+                                          prepadded_range=True)
+                thr = None
             else:
                 det, scale = cfar_detect(m_h, so, cfar=p.cfar, scale_map=sm,
                                          prepadded_range=True)
@@ -468,22 +504,211 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                 outs.append(block_fn(
                     [frames[:, s * ndc:(s + 1) * ndc].to(dev)
                      for s in my_shards], bypass, so))
-        if local:
-            return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
-        out = outs[0]
-        if dp > 1:
-            group = mesh.get_group("dp")
-            for k in DETECTION_KEYS:
-                out[k] = _gather_frames(out[k], group, dp)
-        return out
+        return _gather_dp(outs, mesh, local, dp, DETECTION_KEYS)
 
     process.route = route
     return process
 
 
-def make_sharded_array_processor(*args, **kwargs):
-    """The sharded array model (``fmcw_tpu/parallel/sharded.py:509-791``)
-    is not ported yet (ROADMAP.md)."""
-    raise NotImplementedError(
-        "make_sharded_array_processor (the array model on a mesh) is not "
-        "ported yet (ROADMAP.md)")
+ARRAY_KEYS = DETECTION_KEYS + ("beam_bin",)
+
+
+def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
+                                 n_elems: int = 8, n_beams: int = 8,
+                                 mti_transient: str = "zero",
+                                 magnitude_exact: bool = False,
+                                 ref_angle: int = 0, guard_angle: int = 0,
+                                 spacing_wl: float = 0.5,
+                                 max_angle_deg: float = 60.0,
+                                 taper: str | None = None,
+                                 include_maps: bool = False,
+                                 frontend: str = "auto",
+                                 peak_group_radius: int = 0,
+                                 beam_group_radius: int = 0,
+                                 device=None) -> Callable:
+    """The array-radar model on ``mesh`` (as ``make_sharded_processor``
+    takes it): cubes over ``dp``, BEAMS over ``sp``.  Port of
+    ``fmcw_tpu/parallel/sharded.make_sharded_array_processor``.
+
+    Every sp shard gets the whole element-space cube (every beam needs
+    every element), runs the full beamformer (``ops/beamform.beamform``, the
+    same call as ``models/pipeline.make_batch_array_processor`` makes, so
+    the local beams' numbers are the single device's) and keeps its
+    ``n_beams/sp`` beams.  Per beam, as on one device (route ``frontend``:
+    "fused" — "auto" — "staged" or "plain"): the front end and the 2D CFAR
+    with per-beam grouping (``ref_angle == 0``), or the magnitudes and the
+    3D CFAR, whose training set spans neighbour beams: a **ring exchange of
+    ``ref_angle + guard_angle`` beam planes** feeds
+    ``cfar3d_detect(prepadded_angle=True)``, the beam axis wrapping as on
+    one device; then per-beam ``peak_group``.  Cross-beam grouping
+    (``beam_group_radius``) exchanges that many planes and groups by global
+    beam ids with the cube's non-periodic edges (``ops/beam_group``'s
+    ``beam_offset`` entry).  Detections: each shard's top-K with global beam
+    ids, gathered over sp in shard order, a stable global top-K;
+    ``n_dets`` and ``nonfinite_count`` summed over sp, ``saturation_count``
+    0.  Every output equals ``make_batch_array_processor``'s on the same
+    route bit for bit.
+
+    Returned callable: ``fn(iq, mti_bypass=False, scale_override=0) ->
+    dict`` with iq int16 (batch, n_elems, n_doppler, n_range, 2), batch
+    divisible by dp; the outputs of ``make_batch_array_processor``: the
+    detection arrays of the whole batch on every rank, and with
+    ``include_maps`` the rank's own (batch/dp, n_beams/sp, n_range,
+    n_doppler) ``mag_cube`` / ``det_cube`` shard (on a LocalMesh the whole
+    cubes).  The keywords are ``make_batch_array_processor``'s; the
+    exchanges reach one neighbour, so ``ref_angle + guard_angle`` (with
+    ``ref_angle > 0``) and ``beam_group_radius`` must not exceed
+    ``n_beams/sp``."""
+    p = params or RadarParams()
+    mesh, local, dp, sp, dev, dp_rank, sp_rank = _mesh_info(mesh, device)
+    if n_beams % sp:
+        raise ValueError(f"n_beams={n_beams} must divide the sp axis ({sp})")
+    bl = n_beams // sp
+    ha = ref_angle + guard_angle
+    if ref_angle > 0 and sp > 1 and ha > bl:
+        # Single-hop ring exchange: at most one neighbour shard's planes.
+        raise ValueError(
+            f"angle halo (ref_angle+guard_angle = {ha}) must not exceed "
+            f"the local beam extent (n_beams/sp = {bl})")
+    if sp > 1 and beam_group_radius > bl:
+        raise ValueError(
+            f"beam_group_radius ({beam_group_radius}) must not exceed the "
+            f"local beam extent (n_beams/sp = {bl})")
+    C.check_supported(p.cfar)
+    route = PL.resolve_array_frontend(frontend)
+    BF.steering_matrix(n_elems, n_beams, spacing_wl, max_angle_deg, taper)
+    nr, nd = p.n_range, p.n_doppler
+    max_dets = p.tracker.max_dets
+    plain = route == "plain"
+    tf_kw = dict(notch_mode=p.notch_mode, transient=mti_transient,
+                 exact_mag=magnitude_exact)
+    range_fft = F.range_fft_float_plain if plain else F.range_fft_float
+    detect = F.slowtime_detect_plain if plain else F.slowtime_detect
+    cfar3d = cfar3d_detect_plain if plain else cfar3d_detect
+    group = beam_group_plain if plain else beam_group
+    single = None
+    if sp == 1:
+        single = PL.make_batch_array_processor(
+            p, n_elems=n_elems, n_beams=n_beams, mti_transient=mti_transient,
+            magnitude_exact=magnitude_exact, ref_angle=ref_angle,
+            guard_angle=guard_angle, spacing_wl=spacing_wl,
+            max_angle_deg=max_angle_deg, taper=taper,
+            include_maps=include_maps, frontend=frontend,
+            peak_group_radius=peak_group_radius,
+            beam_group_radius=beam_group_radius, device=dev)
+    ring = sp_ring(mesh) if sp > 1 else None
+    my_shards = list(range(sp)) if local else [sp_rank]
+
+    def halo_planes(cubes, h):
+        """Each shard's (B, bl, R, D) cube extended by ``h`` planes of its
+        ring neighbours on each side: the ring's row halo on the (B, bl,
+        R*D) view."""
+        flat = [c.reshape(c.shape[0], bl, nr * nd) for c in cubes]
+        return [torch.cat([lo, f, hi], dim=-2).reshape(-1, bl + 2 * h, nr, nd)
+                for f, (lo, hi) in zip(flat, ring.halo(flat, h))]
+
+    def front(br, bi, bypass, so):
+        """One shard's beam planes (B, bl, nd, nr) -> (det (B, bl, nr, nd),
+        or None where the 3D CFAR still has to run; mag or None; row_max
+        (B, bl*nr) and n_dets (B,) when kernel B gave them; nonfinite (B,))
+        — ``make_batch_array_processor``'s per-beam steps."""
+        B = br.shape[0]
+        br = br.reshape(B * bl, nd, nr)
+        bi = bi.reshape(B * bl, nd, nr)
+        det = row_max = n_dets = None
+        if route == "staged":
+            mag = PL._staged_float(br, bi, bypass, p, mti_transient,
+                                   magnitude_exact).reshape(B, bl, nr, nd)
+            nonfinite = (~torch.isfinite(mag)).sum(dim=(-2, -1))
+            if ref_angle == 0:
+                det = C.peak_group(cfar_detect(mag, so, cfar=p.cfar)[0],
+                                   peak_group_radius)
+        elif ref_angle == 0:
+            det, mag, rmax, ndet, nonfinite = detect(
+                *range_fft(br, bi), bypass, so, cfar=p.cfar,
+                peak_group_radius=peak_group_radius, emit_mag=include_maps,
+                **tf_kw)
+            det = det.reshape(B, bl, nr, nd)
+            row_max = rmax.reshape(B, bl * nr)
+            n_dets = ndet.reshape(B, bl).sum(dim=1)
+        elif plain:
+            mag = F.slowtime_mag_plain(*range_fft(br, bi), bypass, **tf_kw)
+            nonfinite = (~torch.isfinite(mag)).sum(dim=(-2, -1))
+        else:
+            mag, nonfinite = F.slowtime_mag(*range_fft(br, bi), bypass,
+                                            **tf_kw)
+        if mag is not None:
+            mag = mag.reshape(B, bl, nr, nd)
+        return (det, mag, row_max, n_dets,
+                nonfinite.reshape(B, bl).sum(dim=1).to(torch.int32))
+
+    def cube_fn(iq, bypass, so) -> dict:
+        """One dp block of cubes on sp > 1 shards: the detection outputs
+        (replicated over sp) and the shards' cubes."""
+        br, bi = BF.beamform(iq[..., 0].to(torch.float32),
+                             iq[..., 1].to(torch.float32), n_beams,
+                             spacing_wl=spacing_wl,
+                             max_angle_deg=max_angle_deg, taper=taper,
+                             elem_dim=1)
+        dets, mags, row_max, n_dets, nonfinite = map(list, zip(*(
+            front(br[:, s * bl:(s + 1) * bl], bi[:, s * bl:(s + 1) * bl],
+                  bypass, so) for s in my_shards)))
+        if ref_angle > 0:
+            dets = [C.peak_group(cfar3d(c, so, cfar=p.cfar,
+                                        ref_angle=ref_angle,
+                                        guard_angle=guard_angle,
+                                        prepadded_angle=True)[0],
+                                 peak_group_radius)
+                    for c in halo_planes(mags, ha)]
+        if beam_group_radius > 0:
+            dets, row_max, n_dets = map(list, zip(*(
+                group(e, beam_group_radius, beam_offset=s * bl,
+                      n_beams=n_beams)
+                for e, s in zip(halo_planes(dets, beam_group_radius),
+                                my_shards))))
+        B = iq.shape[0]
+        locs = [DET.topk_detections(d.reshape(B, bl * nr, nd), max_dets,
+                                    row_max=rm, n_dets=n)
+                for d, rm, n in zip(dets, row_max, n_dets)]
+        # Global top-K: each shard's K strongest with global beam ids,
+        # gathered in shard order, then a stable descending sort.
+        vals = ring.gather([d["mag"] for d in locs])[0]
+        bbin = ring.gather([torch.div(d["range_bin"], nr,
+                                      rounding_mode="floor") + s * bl
+                            for d, s in zip(locs, my_shards)])[0]
+        rbin = ring.gather([d["range_bin"] % nr for d in locs])[0]
+        dbin = ring.gather([d["doppler_bin"] for d in locs])[0]
+        vals, idx = DET.top_k(vals, max_dets)
+        out = {"range_bin": torch.gather(rbin, -1, idx),
+               "doppler_bin": torch.gather(dbin, -1, idx),
+               "mag": vals, "valid": vals > 0,
+               "n_dets": ring.sum([d["n_dets"] for d in locs])[0],
+               "beam_bin": torch.gather(bbin, -1, idx),
+               "saturation_count": torch.zeros_like(locs[0]["n_dets"]),
+               "nonfinite_count": ring.sum(nonfinite)[0]}
+        if include_maps:
+            out["mag_cube"] = torch.cat(mags, dim=1)
+            out["det_cube"] = torch.cat(dets, dim=1)
+        return out
+
+    expected = (n_elems, nd, nr, 2)
+
+    def process(iq, mti_bypass=False, scale_override=0) -> dict:
+        if iq.ndim != 5 or tuple(iq.shape[1:]) != expected:
+            raise ValueError(
+                f"expected element-space iq batch of shape (batch, "
+                f"{n_elems}, {nd}, {nr}, 2), got {tuple(iq.shape)}")
+        if iq.shape[0] % dp:
+            raise ValueError(f"batch {iq.shape[0]} not divisible by dp={dp}")
+        iq = torch.as_tensor(iq)
+        b = iq.shape[0] // dp
+        bypass, so = bool(mti_bypass), int(scale_override)
+        outs = []
+        for d in (range(dp) if local else [dp_rank]):
+            cubes = iq[d * b:(d + 1) * b].to(dev)
+            outs.append(single(cubes, bypass, so) if sp == 1
+                        else cube_fn(cubes, bypass, so))
+        return _gather_dp(outs, mesh, local, dp, ARRAY_KEYS)
+
+    process.route = route
+    return process

@@ -156,8 +156,11 @@ def test_cfar_3d_ignores_block_scale_mode_and_wraps_beams():
     c[3, :, :] = 100.0
     det1 = TC.cfar_3d(c, 0, QUICK, 1, 0)[0]
     assert det0[0, 5, 5] == 10.0 and det1[0, 5, 5] == 0.0
-    with pytest.raises(NotImplementedError):
-        TC.cfar_3d(c, 0, QUICK, 1, 0, prepadded_angle=True)
+    # The prepadded layout (a beam shard with one exchanged plane per side)
+    # gives the whole cube's planes: the wrapped neighbour arrives as a halo.
+    ext = c[[3, 0, 1, 2, 3, 0]]
+    pre = TC.cfar_3d(ext, 0, QUICK, 1, 0, prepadded_angle=True)[0]
+    assert torch.equal(pre, det1) and pre[0, 5, 5] == 0.0
 
 
 def _sparse_stack(shape, seed, p=0.05):

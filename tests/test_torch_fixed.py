@@ -415,8 +415,12 @@ def test_fixed_mode_options_and_gates():
                dict(frontend="pallas")):
         with pytest.raises(ValueError):
             tpl.make_processor(p, mode="fixed", device="cpu", **kw)
-    with pytest.raises(ValueError):
-        tpl.make_processor(p, mode="fixed", frontend="staged",
+    # Debug taps: the staged route runs the rank-select CFAR; the fused
+    # fixed kernels compute none and raise, as JAX's frontend="pallas".
+    tpl.make_processor(p, mode="fixed", frontend="staged",
+                       include_debug=True, device="cpu")
+    with pytest.raises(ValueError, match="debug taps"):
+        tpl.make_processor(p, mode="fixed", frontend="fused",
                            include_debug=True, device="cpu")
     assert tpl.resolve_frontend("fixed", "auto") == "staged"
     assert tpl.resolve_frontend("float32", "auto") == "fused"

@@ -27,7 +27,7 @@ import fmcw_tpu_torch
 from fmcw_tpu_torch import kernels
 from fmcw_tpu_torch.models import pipeline as tpl, tracker as ttrk
 from fmcw_tpu_torch.ops import beam_group as BG, cfar3d_detect as C3
-from fmcw_tpu_torch.ops import cfar_detect as CD
+from fmcw_tpu_torch.ops import cfar_detect as CD, cfar_rank as RK
 from fmcw_tpu_torch.ops import frontend as F
 from fmcw_tpu_torch.ops import frontend_fixed as FX
 from fmcw_tpu_torch.ops import split_frontend as SF
@@ -54,6 +54,7 @@ def test_import_loads_neither_jax_nor_fmcw_tpu():
             "fmcw_tpu_torch.ops.beamform", "fmcw_tpu_torch.ops.cfar3d_detect",
             "fmcw_tpu_torch.ops.beam_group", "fmcw_tpu_torch.device",
             "fmcw_tpu_torch.ops.split_frontend",
+            "fmcw_tpu_torch.ops.cfar_rank",
             "fmcw_tpu_torch.parallel.mesh", "fmcw_tpu_torch.parallel.sharded"
             } <= set(names)
     code = (
@@ -117,10 +118,19 @@ def test_sharded_defaults_to_cuda_and_raises_without_it(monkeypatch):
                                   device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         PM.LocalMesh(1, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PS.make_sharded_array_processor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PS.make_sharded_array_processor(params=fmcw_tpu_torch.quick(),
+                                        ref_angle=1, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpl.make_batch_processor(fmcw_tpu_torch.quick(), include_debug=True)
     assert not torch.distributed.is_initialized()
     mesh = PM.LocalMesh(1, 2, "cpu")
     assert mesh.device.type == "cpu"
     proc = PS.make_sharded_processor(mesh, fmcw_tpu_torch.quick())
+    assert proc.route == "fused"
+    proc = PS.make_sharded_array_processor(mesh, fmcw_tpu_torch.quick())
     assert proc.route == "fused"
 
 
@@ -239,6 +249,10 @@ class _FakeLib:
         self.calls.append(("slowtime_detect_fixed_split", args))
         return self.err
 
+    def fmcw_cfar_rank(self, *args):
+        self.calls.append(("cfar_rank", args))
+        return self.err
+
 
 class _Stream:
     cuda_stream = 0
@@ -262,6 +276,7 @@ def as_if_cuda(monkeypatch):
     monkeypatch.setattr(BG, "beam_group_plain", forbidden)
     monkeypatch.setattr(SF, "slowtime_detect_split_plain", forbidden)
     monkeypatch.setattr(SF, "slowtime_detect_fixed_split_plain", forbidden)
+    monkeypatch.setattr(RK, "cfar_rank_plain", forbidden)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream())
     lib = _FakeLib()
     monkeypatch.setattr(kernels, "load", lambda: lib)
@@ -553,3 +568,87 @@ def test_split_kernels_reject_unported_configs(as_if_cuda):
         CD.cfar_detect(torch.zeros((1, 256 + 2 * h, p.n_doppler)),
                        cfar=block, prepadded_range=True)
     assert as_if_cuda.calls == []
+
+
+def test_rank_and_shard_entries_take_plain_twin_on_cpu(monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU tensor must not build or launch")
+    monkeypatch.setattr(kernels, "load", no_build)
+    p = fmcw_tpu_torch.quick()
+    kernels.reset_launch_counts()
+    mag = torch.as_tensor(np.random.default_rng(0).exponential(
+        100.0, (2, p.n_range, p.n_doppler)).astype(np.float32))
+    for bits in (16, None):
+        for a, b in zip(RK.cfar_rank(mag, 3, cfar=p.cfar, bits=bits),
+                        RK.cfar_rank_plain(mag, 3, cfar=p.cfar, bits=bits)):
+            assert torch.equal(a, b)
+    cube = mag.reshape(1, 2, p.n_range, p.n_doppler).repeat(1, 3, 1, 1)
+    for a, b in zip(C3.cfar3d_detect(cube, cfar=p.cfar, ref_angle=1,
+                                     prepadded_angle=True),
+                    C3.cfar3d_detect_plain(cube, cfar=p.cfar, ref_angle=1,
+                                           prepadded_angle=True)):
+        assert torch.equal(a, b) and a.shape[1] == 4
+    for a, b in zip(BG.beam_group(cube, 1, beam_offset=2, n_beams=8),
+                    BG.beam_group_plain(cube, 1, beam_offset=2, n_beams=8)):
+        assert torch.equal(a, b)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_rank_and_shard_entries_launch_kernels_for_cuda_tensors(as_if_cuda):
+    """Row 9 and the sharded array model's two entries: each launches its
+    kernel with the shard's geometry in the config; the debug-tap processor
+    runs kernel A, the magnitude-only kernel and the rank select."""
+    p = fmcw_tpu_torch.RadarParams()
+    mag = torch.zeros((2, p.n_range, p.n_doppler))
+    det, thr, scale = RK.cfar_rank(mag, 4, cfar=p.cfar, bits=16)
+    assert det.dtype == thr.dtype == torch.float32
+    assert scale.dtype == torch.int32
+    cfg = as_if_cuda.calls[-1][1][5]._obj
+    assert (cfg.batch, cfg.R, cfg.D, cfg.bits, cfg.so, cfg.integer,
+            cfg.block_mode, cfg.prepadded, cfg.n_ref, cfg.k) == \
+        (2, 1024, 128, 16, 4, 0, 0, 0, 128, 32)
+    assert cfg.R % cfg.T == 0 and as_if_cuda.calls[-1][1][1] is None
+    hr = p.cfar.halo_range
+    shard = torch.zeros((2, 256 + 2 * hr, p.n_doppler), dtype=torch.int32)
+    smap = torch.zeros((2, 256, p.n_doppler), dtype=torch.int32)
+    d, _, _ = RK.cfar_rank(shard, cfar=fmcw_tpu_torch.fast().cfar,
+                           scale_map=smap, prepadded_range=True)
+    assert tuple(d.shape) == (2, 256, p.n_doppler) and d.dtype == torch.int32
+    cfg = as_if_cuda.calls[-1][1][5]._obj
+    assert (cfg.R, cfg.bits, cfg.integer, cfg.block_mode, cfg.prepadded) == \
+        (256, 31, 1, 1, 1)
+    assert as_if_cuda.calls[-1][1][1] is not None
+    cube = torch.zeros((2, 4, p.n_range, p.n_doppler))
+    d, s = C3.cfar3d_detect(cube, cfar=p.cfar, ref_angle=1,
+                            prepadded_angle=True)
+    assert tuple(d.shape) == (2, 2, p.n_range, p.n_doppler)
+    cfg = as_if_cuda.calls[-1][1][3]._obj
+    assert (cfg.A, cfg.ha, cfg.prepadded) == (2, 1, 1)
+    g, rmax, n = BG.beam_group(cube, 1, beam_offset=6, n_beams=8)
+    assert tuple(g.shape) == (2, 2, p.n_range, p.n_doppler)
+    assert tuple(rmax.shape) == (2, 2 * p.n_range)
+    cfg = as_if_cuda.calls[-1][1][4]._obj
+    assert (cfg.NB, cfg.radius, cfg.halo, cfg.id0, cfg.n_total) == \
+        (2, 1, 1, 5, 8)
+    BG.beam_group(cube, 1)
+    cfg = as_if_cuda.calls[-1][1][4]._obj
+    assert (cfg.NB, cfg.halo, cfg.id0, cfg.n_total) == (4, 0, 0, 4)
+    assert [c[0] for c in as_if_cuda.calls] == [
+        "cfar_rank", "cfar_rank", "cfar_3d_detect", "beam_group",
+        "beam_group"]
+    counts = kernels.launch_counts()
+    assert (counts["cfar_rank"], counts["cfar3d_detect"],
+            counts["beam_group"]) == (2, 1, 2)
+    as_if_cuda.calls.clear()
+    q = fmcw_tpu_torch.quick()
+    tpl.make_batch_processor(q, include_debug=True, device="cpu")(_iq(q, 2))
+    assert [c[0] for c in as_if_cuda.calls] == [
+        "range_fft", "slowtime_mag", "cfar_rank"]
+
+
+def test_rank_failed_launch_raises(as_if_cuda):
+    as_if_cuda.err = 1
+    p = fmcw_tpu_torch.quick()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        RK.cfar_rank(torch.zeros((1, p.n_range, p.n_doppler)), cfar=p.cfar)
+    assert RK.cfar_rank.launches == 0

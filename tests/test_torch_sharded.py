@@ -10,6 +10,10 @@ one process per rank (torch.multiprocessing), for (dp, sp) = (1, 2) and
   ``scale_override``.  Frame 0 saturates the Doppler window on the seam of
   the shards' ring.
 * ``block_scale_map_sharded`` over the ring equals ``block_scale_map``.
+* The sharded array model (``make_sharded_array_processor``: cubes over dp,
+  beams over sp; the 3D CFAR on exchanged beam planes and cross-beam
+  grouping by global beam ids) equals ``make_batch_array_processor(
+  device="cpu")`` bit for bit, maps per (dp, beam) shard.
 * Fixed mode's detection set equals JAX's ``make_sharded_processor(
   frontend="xla")`` on the conftest's 8-device CPU mesh, computed here.
 
@@ -90,12 +94,36 @@ def clutter_map(nr, nd, seed=5):
     return m.astype(np.float32)
 
 
+# The array case: 8 elements x 8 beams, the 3D CFAR (quick window) and
+# cross-beam grouping, 2 cubes.
+ARRAY_KW = dict(n_elems=8, n_beams=8, ref_angle=1, beam_group_radius=1,
+                peak_group_radius=1, include_maps=True)
+
+
+def array_params(p):
+    return p.replace(cfar=fmcw_tpu_torch.quick().cfar)
+
+
+def cubes(p, n=2, seed=13):
+    """A point source at steering sine 0.4 over 8 elements, int16 (n, 8,
+    nd, nr, 2)."""
+    from fmcw_tpu_torch.golden import reference
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(n):
+        z = np.asarray(reference.two_target_frame(p, seed=seed + b))
+        out.append(np.stack([tpl.complex_to_iq(
+            z * np.exp(2j * np.pi * 0.5 * e * 0.4)
+            + rng.normal(0, 8, z.shape)) for e in range(8)]))
+    return np.stack(out)
+
+
 def run_rank(rank, world, init_method, dp, sp, cases, out_path):
     """Join the gloo group, build make_mesh(dp, sp, device="cpu") and run
     every case ``(name, params, kw, mti_bypass, scale_override)`` on the
     same full batch; also block_scale_map_sharded on this rank's shard of
-    clutter_map.  Saves {name: outputs} with torch.save to
-    ``out_path.format(rank)``."""
+    clutter_map, and the sharded array model on ``cubes``.  Saves {name:
+    outputs} with torch.save to ``out_path.format(rank)``."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init_method, rank=rank,
                             world_size=world,
@@ -118,6 +146,9 @@ def run_rank(rank, world, init_method, dp, sp, cases, out_path):
             results[f"block_scale_map_sharded/{integer}"] = \
                 TC.block_scale_map_sharded([shard], block,
                                            TSH.sp_ring(mesh).halo)[0]
+        pa = array_params(p)
+        results["array"] = TSH.make_sharded_array_processor(
+            mesh, pa, **ARRAY_KW)(cubes(pa))
         results["modules"] = sorted({m.split(".")[0] for m in sys.modules})
         torch.save(results, out_path.format(rank))
     finally:
@@ -218,6 +249,24 @@ def test_block_scale_map_sharded_equals_block_scale_map(ranks, world,
     assert len(torch.unique(want)) == 3
 
 
+@pytest.mark.parametrize("world", list(WORLDS), ids=lambda w: f"dp{w[0]}sp{w[1]}")
+def test_sharded_array_equals_single_device(ranks, world):
+    dp, sp = world
+    pa = array_params(WORLDS[world])
+    want = tpl.make_batch_array_processor(pa, device="cpu", **ARRAY_KW)(
+        cubes(pa))
+    bl, nbl = 2 // dp, 8 // sp
+    for rank, res in enumerate(ranks[world]):
+        got = res["array"]
+        assert got.keys() == want.keys()
+        d, s = divmod(rank, sp)
+        for key, v in want.items():
+            if key.endswith("_cube"):
+                v = v[d * bl:(d + 1) * bl, s * nbl:(s + 1) * nbl]
+            assert torch.equal(got[key], v), (rank, key)
+    assert int(want["n_dets"].min()) > 0
+
+
 def test_ranks_import_neither_jax_nor_fmcw_tpu(ranks):
     for world, results in ranks.items():
         for rank, res in enumerate(results):
@@ -278,13 +327,23 @@ def test_processor_validates_mesh_shape_and_input():
         TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
                                    _params(p, "block"), mode="fixed",
                                    frontend="fused")
-    with pytest.raises(ValueError, match="include_debug"):
+    # The debug taps run on the kernel routes (the rank-select CFAR tail),
+    # equal to the single device; fixed "fused" has none, as on one device.
+    kw = dict(include_debug=True, include_maps=True, peak_group_radius=2)
+    dbg = TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"), p, **kw)
+    want = tpl.make_batch_processor(p, device="cpu", **kw)(frames(p))
+    got = dbg(frames(p))
+    assert dbg.route == "fused" and got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    with pytest.raises(ValueError, match="debug taps"):
         TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"), p,
+                                   mode="fixed", frontend="fused",
                                    include_debug=True)
     with pytest.raises(NotImplementedError):
         TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
                                    p.replace(n_doppler=256))
-    with pytest.raises(NotImplementedError):
-        TSH.make_sharded_array_processor()
+    # The sharded array model is ported (tests/test_torch_sharded_array.py).
+    assert TSH.make_sharded_array_processor(
+        TM.LocalMesh(1, 2, "cpu"), p).route == "fused"
     with pytest.raises(ValueError):
         TM.LocalMesh(0, 2, "cpu")
