@@ -200,6 +200,8 @@ def load() -> ctypes.CDLL:
     lib.fmcw_range_fft.restype = ci
     lib.fmcw_range_fft_float.argtypes = [vp] * 6 + [ci] * 3 + [vp]
     lib.fmcw_range_fft_float.restype = ci
+    lib.fmcw_range_fft_blocks_per_sm.argtypes = [ci]
+    lib.fmcw_range_fft_blocks_per_sm.restype = ci
     lib.fmcw_slowtime_detect.argtypes = [vp] * 9 + [
         ctypes.POINTER(SlowtimeConfig), vp]
     lib.fmcw_slowtime_detect.restype = ci

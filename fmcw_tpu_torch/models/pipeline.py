@@ -165,7 +165,9 @@ def make_batch_processor(params: RadarParams | None = None,
                         separately (fixed mode; 0 in float32)
       nonfinite_count   NaN/Inf cells in the magnitude map (0 in fixed)
       mag_map, det_map  (n_range, n_doppler)     [if include_maps]
-      threshold_map, scale_map  CFAR debug taps  [if include_debug]
+      threshold_map, scale_map  CFAR debug taps, in the magnitude map's
+                        type (float32, or int32 in fixed mode)
+                        [if include_debug]
 
     ``device``: None means "cuda" (raises without one); pass "cpu" for the
     plain path.  ``frontend``: "auto", "staged", "fused" or "plain" (see the
@@ -271,7 +273,8 @@ def make_batch_processor(params: RadarParams | None = None,
             out["det_map"] = det
         if include_debug:
             out["threshold_map"] = threshold
-            out["scale_map"] = scale
+            # The map's type, as JAX's tap (float32 or fixed mode's int32).
+            out["scale_map"] = scale.to(mag.dtype)
         return out
 
     return process

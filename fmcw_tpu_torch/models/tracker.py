@@ -41,6 +41,15 @@ def _wrapu(v, bits):
     return v & ((1 << bits) - 1)
 
 
+def _to_int32_saturating(x: torch.Tensor) -> torch.Tensor:
+    """int32 as JAX's ``astype(jnp.int32)`` gives it: a float saturates to
+    [-2^31, 2^31 - 1] and NaN maps to 0 (clamped in float64, which holds
+    both ends exactly); an integer is cast as is."""
+    if x.is_floating_point():
+        x = x.double().nan_to_num(0.0).clamp(-2.0 ** 31, 2.0 ** 31 - 1)
+    return x.to(torch.int32)
+
+
 def init_state(tp: TrackerParams | None = None, device=None) -> dict:
     """An empty track file on ``device`` (None means CUDA; raises without
     a card — pass device="cpu" for the CPU)."""
@@ -80,7 +89,8 @@ def step(state: dict, det_range: torch.Tensor, det_doppler: torch.Tensor,
     n = tp.max_tracks
     dr = torch.as_tensor(det_range, device=dev)[: tp.max_dets].to(torch.int32)
     dd = torch.as_tensor(det_doppler, device=dev)[: tp.max_dets].to(torch.int32)
-    dm = torch.as_tensor(det_mag, device=dev)[: tp.max_dets].to(torch.int32)
+    dm = _to_int32_saturating(
+        torch.as_tensor(det_mag, device=dev)[: tp.max_dets])
     dv = torch.as_tensor(det_valid, device=dev)[: tp.max_dets].to(torch.bool)
     n_det = dv.shape[0]
     det_idx = torch.arange(n_det, device=dev)

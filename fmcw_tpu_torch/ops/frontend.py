@@ -47,11 +47,22 @@ TILE_ROWS = 64
 reset_launch_counts = kernels.reset_launch_counts
 
 
+def range_fft_plan(n: int) -> tuple[int, int]:
+    """Kernel A's factorisation n = N1 x N2 (``Plan`` in csrc/range_fft.cu):
+    N2 = 2^floor(log2(n) / 2) lanes per chirp, N1 = n / N2 points per
+    lane."""
+    n2 = 1 << (n.bit_length() - 1) // 2
+    return n // n2, n2
+
+
 @functools.lru_cache(maxsize=32)
 def _tables(n: int, device: str):
-    """Kernel A constants on ``device``: the float window and the twiddle
-    table tw[m] = exp(-2 pi i m / n), computed in float64 then float32."""
-    m = np.arange(n, dtype=np.float64)
+    """Kernel A constants on ``device``: the float window, and the twiddle
+    table between its two passes, tw[ka N2 + t] = exp(-2 pi i t ka / n)
+    for ka < N1, t < N2 (``range_fft_plan``), computed in float64 then
+    float32: a warp reads one ka's row coalesced."""
+    n1, n2 = range_fft_plan(n)
+    m = np.outer(np.arange(n1), np.arange(n2)).ravel().astype(np.float64)
     ang = -2.0 * np.pi * m / n
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
     return (torch.as_tensor(hamming_float(n), device=device),
@@ -97,6 +108,13 @@ def range_fft_plain(iq: torch.Tensor):
             im.transpose(-1, -2).contiguous())
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at a 16-byte aligned address, as kernel A's bulk
+    copies read it (a copy only for a view that starts elsewhere)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def check_iq(iq: torch.Tensor):
     if iq.dim() != 4 or iq.shape[-1] != 2 or iq.dtype != torch.int16:
         raise ValueError(f"expected int16 iq (B, nd, nr, 2), got "
@@ -118,14 +136,12 @@ def range_fft(iq: torch.Tensor):
 
 def launch_range_fft(iq: torch.Tensor):
     """Launch kernel A on CUDA int16 frames (B, nd, nr, 2); the caller
-    counts the launch.  Each block transforms its own 8 chirps, so a chirp
-    shard (B, nd/sp, nr, 2) gives exactly the matching columns of the whole
-    frame's output."""
+    counts the launch.  Each chirp's arithmetic depends on that chirp alone,
+    so a chirp shard (B, nd/sp, nr, 2) gives exactly the matching columns of
+    the whole frame's output."""
     B, nd, nr, _ = iq.shape
     check_range_geometry(nr, nd)
-    iq = iq.contiguous()
-    if iq.data_ptr() % 4:
-        iq = iq.clone()
+    iq = _aligned(iq)
     win, tw = _tables(nr, str(iq.device))
     re = torch.empty((B, nr, nd), dtype=torch.float32, device=iq.device)
     im = torch.empty_like(re)
@@ -164,9 +180,7 @@ def range_fft_float(re: torch.Tensor, im: torch.Tensor):
         return range_fft_float_plain(re, im)
     B, nd, nr = re.shape
     check_range_geometry(nr, nd, "range_fft_float")
-    # The kernel reads each plane as float32 words: contiguous and 4-byte
-    # aligned, which a float32 tensor always is.
-    re, im = re.contiguous(), im.contiguous()
+    re, im = _aligned(re), _aligned(im)
     win, tw = _tables(nr, str(re.device))
     out_re = torch.empty((B, nr, nd), dtype=torch.float32, device=re.device)
     out_im = torch.empty_like(out_re)

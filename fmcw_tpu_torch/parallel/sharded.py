@@ -407,6 +407,7 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
             if include_debug:
                 det, thr, scale = rank(m_h, so, cfar=p.cfar, bits=bits,
                                        scale_map=sm, prepadded_range=True)
+                scale = scale.to(m.dtype)       # the map's type, as JAX's tap
             elif route == "plain":
                 det, _, scale = C.cfar_2d(m_h, so, p.cfar, scale_map=sm,
                                           prepadded_range=True)

@@ -1,15 +1,31 @@
 #!/usr/bin/env python3
-"""Time the float front-end kernels of one checkout of fmcw_tpu_torch.
+"""Time the front-end kernels and the main path of one checkout of
+fmcw_tpu_torch.
 
     python3 kernel_ab.py --root DIR
 
 Imports fmcw_tpu_torch from DIR (which builds its kernels under DIR/build),
-then times kernel A (``range_fft``) and kernel B (``slowtime_detect``, per-cell
-and block scale, ``peak_group_radius=2``) with CUDA events at the main path's
-shapes: batch 128 of 1024x128 frames, chip_smoke.py's stimulus.  Prints the
-card's name and power limit and one JSON line.  To compare two commits on
-one card, unpack the other commit into a directory (``git archive``) and run
-this script on both in one session, alternating: A, B, B, A.
+then times with CUDA events, at the main path's shapes (chip_smoke.py's
+stimulus, 1024x128 frames):
+
+* kernel A's three entries — ``range_fft`` on a batch of 128 int16 frames,
+  ``range_fft_float`` on 128 float32 beam maps (the array model's 16 cubes
+  x 8 beams), and the row-3 chirp shard (``split_frontend.range_frontend``
+  on a 32-chirp slice, sp = 4) — each beside ``torch.fft.fft`` of the same
+  windowed chirps (complex64), as back-to-back calls and as one call
+  replayed from a CUDA graph (the device time, without the host's per-call
+  overhead); and the first two beside a memory-only PyTorch call that moves
+  the same bytes (an int16 -> float32 conversion; a copy of the two float32
+  planes);
+* kernel B (``slowtime_detect``, per-cell and block scale,
+  ``peak_group_radius=2``);
+* the fixed kernels (``range_fft_fixed``, ``slowtime_detect_fixed``);
+* main-path frames/s through ``make_batch_processor``, per-cell and block.
+
+Prints the card's name and power limit and one JSON line.  To compare two
+commits on one card, unpack the other commit into a directory (``git
+archive``) and run this script on both, one after the other on the same
+card, alternating: A, B, B, A.
 """
 
 from __future__ import annotations
@@ -21,6 +37,7 @@ import sys
 from pathlib import Path
 
 BATCH = 128
+SP = 4
 
 
 def main() -> int:
@@ -38,7 +55,9 @@ def main() -> int:
     from fmcw_tpu_torch import kernels
     from fmcw_tpu_torch.golden import reference
     from fmcw_tpu_torch.models import pipeline as pl
-    from fmcw_tpu_torch.ops import frontend as F
+    from fmcw_tpu_torch.ops import frontend as F, frontend_fixed as FX
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    from fmcw_tpu_torch.ops.window import hamming_float
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -60,20 +79,81 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    def graph_ms(fn, iters=50):
+        """fn() captured once in a CUDA graph and replayed: its device time
+        without the host's per-call overhead, which a launch of a few tens
+        of microseconds cannot hide."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return cuda_ms(graph.replay, iters)
+
+    def make_batch(p, seed=0):
+        rng = np.random.default_rng(seed)
+        frame = pl.complex_to_iq(reference.two_target_frame(p))
+        iq = np.stack([frame] * BATCH)
+        iq = iq + rng.integers(-8, 8, iq.shape).astype(np.int16)
+        return torch.as_tensor(iq, device="cuda")
+
     entry = P.RadarParams()
-    rng = np.random.default_rng(0)
-    frame = pl.complex_to_iq(reference.two_target_frame(entry))
-    iq = np.stack([frame] * BATCH)
-    iq = iq + rng.integers(-8, 8, iq.shape).astype(np.int16)
-    iq = torch.as_tensor(iq, device="cuda")
+    iq = make_batch(entry)
+    win = torch.as_tensor(hamming_float(entry.n_range), device="cuda")
+
+    # Kernel A's three entries, each beside torch.fft.fft of the same
+    # windowed chirps; each timed as back-to-back calls and as a replayed
+    # CUDA graph.
+    br, bi = iq[..., 0].float().contiguous(), iq[..., 1].float().contiguous()
+    shard = iq[:, entry.n_doppler // SP:2 * entry.n_doppler // SP].contiguous()
+    calls = {"range_fft": (lambda: F.range_fft(iq), iq[..., 0], iq[..., 1]),
+             "range_fft_float": (lambda: F.range_fft_float(br, bi), br, bi),
+             "range_frontend[sp4]": (lambda: SF.range_frontend(shard),
+                                     shard[..., 0], shard[..., 1])}
+    ms, fft, graph, fft_graph = {}, {}, {}, {}
+    for name, (call, re, im) in calls.items():
+        z = torch.complex(re.float() * win, im.float() * win)
+        ms[name] = cuda_ms(call)
+        fft[name] = cuda_ms(lambda: torch.fft.fft(z, dim=-1))
+        graph[name] = graph_ms(call)
+        fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+    # Memory-only yardsticks that move kernel A's bytes: an int16 -> float32
+    # conversion (64 MiB read, 128 MiB written, as range_fft) and a copy of
+    # the two float32 planes (128 + 128 MiB, as range_fft_float).
+    copy = {"range_fft": cuda_ms(lambda: iq.float()),
+            "range_fft_float": cuda_ms(lambda: (br.clone(), bi.clone()))}
+    del br, bi
+    # Kernel B and the fixed kernels.
     re, im = F.range_fft(iq)
-    ms = {"range_fft": cuda_ms(lambda: F.range_fft(iq))}
+    fre, fim, _ = FX.range_fft_fixed(iq)
+    ms["range_fft_fixed"] = cuda_ms(lambda: FX.range_fft_fixed(iq))
     for p in (entry, P.fast()):
         kw = dict(cfar=p.cfar, peak_group_radius=2)
-        ms[f"slowtime_detect[{p.cfar.scale_mode}]"] = cuda_ms(
+        mode = p.cfar.scale_mode
+        ms[f"slowtime_detect[{mode}]"] = cuda_ms(
             lambda: F.slowtime_detect(re, im, False, 0, **kw))
-    print(json.dumps({"root": str(args.root), "ms": ms,
-                      "batch": BATCH, "card": card}), flush=True)
+        if mode == "cell":
+            ms["slowtime_detect_fixed[cell]"] = cuda_ms(
+                lambda: FX.slowtime_detect_fixed(fre, fim, False, 0, **kw))
+    del re, im, fre, fim
+    # The main path, per-cell and block scale.
+    fps = {}
+    for p in (entry, P.fast()):
+        proc = pl.make_batch_processor(p, peak_group_radius=2,
+                                       include_maps=False, device="cuda")
+        batch = make_batch(p)
+        fps[p.cfar.scale_mode] = BATCH * 1e3 / cuda_ms(lambda: proc(batch),
+                                                       10, 2)
+    print(json.dumps({"root": str(args.root), "ms": ms, "fft_ms": fft,
+                      "graph_ms": graph, "fft_graph_ms": fft_graph,
+                      "copy_ms": copy, "frames_per_s": fps, "batch": BATCH,
+                      "card": card}),
+          flush=True)
     return 0
 
 

@@ -163,13 +163,15 @@ def test_float_debug_processor_vs_jax(scale, frontend):
     refs = jax.tree.map(np.asarray, jpl.make_batch_processor(
         _jparams(p), frontend="xla", include_debug=True,
         peak_group_radius=2)(iq))
+    # The scale tap in JAX's type (float32), the magnitude map's.
+    assert out["scale_map"].numpy().dtype == refs["scale_map"].dtype
+    assert out["scale_map"].dtype == out["mag_map"].dtype == torch.float32
     for b in range(iq.shape[0]):
         mag = out["mag_map"][b].numpy()
         jd, jt, js = JC.cfar_2d(jnp.asarray(mag), 0, cfar=_jcfar(p.cfar))
         jd = JC.peak_group(jd, radius=2)
         assert np.array_equal(out["threshold_map"][b].numpy(), np.asarray(jt))
-        assert np.array_equal(out["scale_map"][b].numpy(),
-                              np.asarray(js).astype(np.int32))
+        assert np.array_equal(out["scale_map"][b].numpy(), np.asarray(js))
         assert np.array_equal(out["det_map"][b].numpy(), np.asarray(jd))
         ref = {k: v[b] for k, v in refs.items()}
         ok, report = parity.margin_gate(
@@ -199,9 +201,12 @@ def test_fixed_debug_processor_vs_jax_and_golden(scale):
         jnp.asarray(gmag), 0, cfar=_jcfar(p.cfar), integer=True))
     assert np.array_equal(out["det_map"].numpy(), jd)
     assert np.array_equal(out["threshold_map"].numpy(), jt)
-    assert np.array_equal(out["scale_map"].numpy(), js.astype(np.int32))
+    assert np.array_equal(out["scale_map"].numpy(), js)
     ref = jax.tree.map(lambda v: np.asarray(v)[0], jpl.make_batch_processor(
         _jparams(p), mode="fixed", frontend="xla", include_debug=True)(iq))
+    # The scale tap in JAX's type (int32), the magnitude map's.
+    assert out["scale_map"].numpy().dtype == ref["scale_map"].dtype
+    assert out["scale_map"].dtype == out["mag_map"].dtype == torch.int32
     ok, report = parity.fixed_gate(parity.map_set(out["det_map"].numpy()),
                                    parity.map_set(ref["det_map"]))
     assert ok, report

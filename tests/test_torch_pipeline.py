@@ -171,3 +171,28 @@ def test_tracker_bit_equal_to_jax(assoc):
             assert np.array_equal(np.asarray(jrep[key]),
                                   trep[key].numpy()), key
     assert int(trep["report_mask"].sum()) >= 3       # targets went firm
+
+
+def test_tracker_saturates_float_magnitudes_as_jax():
+    """A float det_mag beyond int32 saturates (2^31 and up to 2^31 - 1,
+    -3e9 to -2^31) and NaN becomes 0, as JAX's astype(int32): on
+    initiation (scan 1) and on update (scan 2, the same detections)."""
+    tp, jtp = fmcw_tpu_torch.TrackerParams(), fmcw_tpu.TrackerParams()
+    r = np.array([100, 300, 500, 700, 900], np.int32)
+    d = np.array([10, 30, 50, 70, 90], np.int32)
+    m = np.array([9.93e9, 2.0 ** 31, -3e9, np.nan, 4096.0], np.float32)
+    v = np.ones(5, bool)
+    jstate = jtrk.init_state(jtp)
+    tstate = ttrk.state_from_numpy(jax.tree.map(np.asarray, jstate),
+                                   device="cpu")
+    for _ in range(2):
+        jstate, _ = jtrk.step(jstate, r, d, m, v, tp=jtp)
+        tstate, _ = ttrk.step(tstate, torch.as_tensor(r), torch.as_tensor(d),
+                              torch.as_tensor(m), torch.as_tensor(v), tp=tp)
+        jn = jax.tree.map(np.asarray, jstate)
+        tn = ttrk.state_to_numpy(tstate)
+        assert jn.keys() == tn.keys()
+        for key in jn:
+            assert np.array_equal(jn[key], tn[key]), key
+    assert sorted(tn["last_mag"][tn["active"] == 1].tolist()) == [
+        -2 ** 31, 0, 4096, 2 ** 31 - 1, 2 ** 31 - 1]

@@ -335,6 +335,9 @@ def test_processor_validates_mesh_shape_and_input():
     got = dbg(frames(p))
     assert dbg.route == "fused" and got.keys() == want.keys()
     assert all(torch.equal(got[k], want[k]) for k in want)
+    # The scale tap in the magnitude map's type, float32 as JAX's
+    # (tests/test_torch_split.py holds it against JAX's traced dtype).
+    assert got["scale_map"].dtype == want["scale_map"].dtype == torch.float32
     with pytest.raises(ValueError, match="debug taps"):
         TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"), p,
                                    mode="fixed", frontend="fused",

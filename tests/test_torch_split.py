@@ -159,6 +159,15 @@ ROUTES = [
 ]
 
 
+@functools.lru_cache(maxsize=4)
+def _jax_scale_tap_dtype(p, mode):
+    """The dtype of JAX's scale_map debug tap (traced, not run)."""
+    fn = jpl.make_batch_processor(_jparams(p), mode=mode, frontend="xla",
+                                  include_debug=True)
+    shape = jax.ShapeDtypeStruct((1, p.n_doppler, p.n_range, 2), np.int16)
+    return np.dtype(jax.eval_shape(fn, shape)["scale_map"].dtype)
+
+
 @pytest.mark.parametrize("dp,sp", [(1, 2), (1, 4)])
 @pytest.mark.parametrize("scale,mode,frontend", ROUTES)
 def test_local_mesh_equals_single_device(scale, mode, frontend, dp, sp):
@@ -176,6 +185,11 @@ def test_local_mesh_equals_single_device(scale, mode, frontend, dp, sp):
         for key in ref:
             assert torch.equal(out[key], ref[key]), key
         assert int(ref["n_dets"].min()) > 0
+        if kw["include_debug"]:
+            # The scale tap in JAX's type, the magnitude map's.
+            assert out["scale_map"].dtype == out["mag_map"].dtype
+            assert out["scale_map"].numpy().dtype == _jax_scale_tap_dtype(
+                p, mode)
 
 
 @pytest.mark.parametrize("sp", [2, 4])
