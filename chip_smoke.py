@@ -6,10 +6,11 @@ Run from the repository root:
     python3 chip_smoke.py
     python3 chip_smoke.py --nccl-only   # with 2+ GPUs: the NCCL mesh alone
 
-It builds the CUDA kernels from fmcw_tpu_torch/csrc/ (into build/; kernel A
-without spills), holds each kernel against its plain PyTorch twin on the
-card (kernel A also at every size it takes: n_range 16..1024 with 8, 40 and
-128 chirps, both entries), drives the float32 main path (int16 frames ->
+It builds the CUDA kernels from fmcw_tpu_torch/csrc/ (into build/; the two
+range kernels without spills), holds each kernel against its plain PyTorch
+twin on the card (kernel A and the fixed range kernel also at every size
+they take: n_range 16..1024 with 8, 40 and 128 chirps, both entries of
+each), drives the float32 main path (int16 frames ->
 detections, batch 128 at 1024x128, the reference-exact per-cell scale and
 the block scale of fast()) through the processor a user calls, checks its
 detections against the plain path with the margin gate of
@@ -103,8 +104,8 @@ def graph_ms(fn, iters: int = 20) -> float:
     """Device time of fn() in ms: one call captured in a CUDA graph and
     replayed ``iters`` times (CUDA events), so that the host's per-call
     overhead, which back-to-back calls of a kernel of a few tens of
-    microseconds cannot hide, is not counted.  Used for kernel A's entries
-    and their torch.fft.fft yardsticks."""
+    microseconds cannot hide, is not counted.  Used for the range kernels'
+    entries and their torch.fft.fft and copy yardsticks."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -171,24 +172,31 @@ def range_fft_size_checks(dev):
             f"worst err {rel:.3g} of peak (tol {TOL})")
 
 
+NO_SPILL_SOURCES = (" range_fft.cu", " range_fft_fixed.cu")
+
+
 def log_build(info) -> None:
     """The compiler's register and spill lines of every kernel, with the
-    entry names for range_fft.cu; fails if a kernel A instantiation
-    spills or keeps an array in local memory (a stack frame)."""
-    section, bad = "", []
+    entry names for the two range kernels (kernel A and the fixed one);
+    fails if an instantiation of either spills or keeps an array in local
+    memory (a stack frame)."""
+    section, entry, bad = "", "", []
     for line in info.log.splitlines():
         if line.startswith("---"):
             section = line
-        named = "range_fft.cu" in section and "Compiling entry" in line
-        if ("registers" in line or "spill" in line or named
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        checked = section.endswith(NO_SPILL_SOURCES)
+        if ("registers" in line or "spill" in line
+                or (checked and "Compiling entry" in line)
                 or line.startswith("---")):
             log(f"  {line.strip()}")
-        if (section.endswith(" range_fft.cu") and "spill" in line
+        if (checked and "spill" in line
                 and "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
                     "spill loads" not in line):
-            bad.append(line.strip())
+            bad.append(f"{section[4:]} {entry}: {line.strip()}")
     if bad:
-        raise AssertionError(f"range_fft kernel spills: {bad}")
+        raise AssertionError(f"range kernel spills: {bad}")
 
 
 def bound_range_fft(B: int, nd: int, nr: int):
@@ -286,13 +294,14 @@ def hot_batch(p, batch: int):
 
 def fixed_kernel_checks(dev, pgr: int):
     """Phase 7: range_fft_fixed and slowtime_detect_fixed against their
-    twins at batch 128, 1024x128: quantized values within 1 LSB (range) and
-    magnitudes within 2 LSB (the kernels' FP64 FFTs against the twins' dense
-    FP64 products; both quantize to the golden model's values, so the
+    twins at batch 128, 1024x128: quantized range values equal (0 differ)
+    and magnitudes within 2 LSB (the kernels' FP64 FFTs against the twins'
+    dense FP64 products; both quantize to the golden model's values, so the
     differences are expected to be 0, and are counted), saturation counts
     exact, the decision bit-identical to the plain integer CFAR and grouping
-    on the kernel's own magnitudes.  Returns ({row: max_abs_err}, the range
-    planes)."""
+    on the kernel's own magnitudes; range_fft_fixed also equal to the golden
+    numpy model on this batch and on seed 6's.  Returns ({row: max_abs_err},
+    the range planes)."""
     import torch
     import fmcw_tpu_torch as P
     from fmcw_tpu_torch.ops import frontend as F, frontend_fixed as FX
@@ -308,9 +317,28 @@ def fixed_kernel_checks(dev, pgr: int):
     log(f"range_fft_fixed vs plain: max {err} LSB ({n_off} of "
         f"{2 * re.numel()} values differ), saturation "
         f"{'exact' if torch.equal(sat, psat) else 'DIFFERS'}")
-    if err > 1 or not torch.equal(sat, psat):
+    if n_off or not torch.equal(sat, psat):
         raise AssertionError("range_fft_fixed disagrees with its plain twin")
     errs["range_fft_fixed"] = float(err)
+    # The golden numpy model itself, on this batch and on seed 6's, whose
+    # frame 90 holds a round-half tie at the eighth-turn bin 7n/8 (the
+    # sqrt(2)/2 terms of its sum cancel): the kernel computes those bins
+    # exactly, the twin's dense product need not.
+    for seed, frames in ((3, iq), (6, None)):
+        if frames is None:
+            frames = torch.as_tensor(make_batch(P.RadarParams(), BATCH,
+                                                seed=seed), device=dev)
+        got = FX.range_fft_fixed(frames)
+        twin = FX.range_fft_fixed_plain(frames)
+        want = golden_range(frames.cpu().numpy())
+        off = [int(sum((x[k].cpu().numpy() != want[k]).sum() for k in (0, 1)))
+               for x in (got, twin)]
+        log(f"range_fft_fixed batch seed {seed} vs the golden model: kernel "
+            f"{off[0]}, plain twin {off[1]} of {2 * got[0].numel()} values "
+            f"differ")
+        if off[0]:
+            raise AssertionError("range_fft_fixed differs from the golden "
+                                 "model")
     for p in (P.RadarParams(), P.fast()):
         name = f"slowtime_detect_fixed[{p.cfar.scale_mode}]"
         worst = 0
@@ -363,6 +391,18 @@ def fixed_kernel_checks(dev, pgr: int):
     return errs, (re, im)
 
 
+def golden_range(iq, rounding: str = "unbiased"):
+    """The golden numpy model's range stage of int16 frames (B, nd, n, 2):
+    Q15 window, bfp_fft along range, transposed to range-major int16."""
+    import numpy as np
+    from fmcw_tpu_torch.golden import fixed_point as gfx
+    coef = gfx.hamming_coeffs(iq.shape[-2])
+    i_w, q_w, _ = gfx.window_apply(iq[..., 0], iq[..., 1], coef, 16, rounding)
+    re, im = gfx.bfp_fft(i_w, q_w, axis=-1)
+    return (np.ascontiguousarray(re.transpose(0, 2, 1)).astype(np.int16),
+            np.ascontiguousarray(im.transpose(0, 2, 1)).astype(np.int16))
+
+
 def saturation_check(dev):
     """Phase 7b: the saturating stimulus through both fixed kernels, their
     twins and the staged route: equal, nonzero saturation counts."""
@@ -384,6 +424,48 @@ def saturation_check(dev):
         if (not torch.equal(sat, psat) or not torch.equal(sat, staged)
                 or int(sat.min()) <= 0):
             raise AssertionError("saturation counts differ or are zero")
+
+
+def range_fft_fixed_size_checks(dev):
+    """Phase 7c: the fixed range kernel at every size it takes — n_range
+    16..1024, nd 8, 40 and 128, batch 2, both window roundings — through
+    both entries (range_fft_fixed on the frames, the row 4 chirp-shard
+    entry on their first half where that is whole groups of 8), on seeded
+    full-scale noise and on the saturating x40 stimulus: the quantized
+    values equal the plain twin's (0 values differ) and the saturation
+    counts are exact."""
+    import numpy as np
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    rng = np.random.default_rng(8)
+    for n in RANGE_SIZES:
+        checked = 0
+        for nd in RANGE_CHIRPS:
+            hot = hot_batch(P.RadarParams(n_range=n, n_doppler=nd), 2)
+            for stim in (rng.integers(-32768, 32768, (2, nd, n, 2),
+                                      dtype=np.int16), hot):
+                iq = torch.as_tensor(stim, device=dev)
+                half = iq[:, :nd // 2] if nd // 2 % 8 == 0 else iq
+                for rounding in ("unbiased", "biased"):
+                    for entry, x in ((FX.range_fft_fixed, iq),
+                                     (SF.range_frontend_fixed, half)):
+                        got = entry(x, rounding=rounding)
+                        want = FX.range_fft_fixed_plain(x, rounding=rounding)
+                        torch.cuda.synchronize()
+                        n_off = int((got[0] != want[0]).sum()
+                                    + (got[1] != want[1]).sum())
+                        checked += 2 * got[0].numel()
+                        if n_off or not torch.equal(got[2], want[2]):
+                            raise AssertionError(
+                                f"{entry.__name__} at n={n} nd={nd} "
+                                f"{rounding}: {n_off} values differ, "
+                                f"saturation {got[2].tolist()} vs "
+                                f"{want[2].tolist()}")
+        log(f"range_fft_fixed n={n} nd {RANGE_CHIRPS} batch 2, both entries, "
+            f"noise and x40, both roundings: 0 of {checked} values differ, "
+            f"saturation exact")
 
 
 def cfar_kernel_checks(dev, planes):
@@ -540,6 +622,7 @@ def fixed_mode(card: str, dev):
     pgr = 2
     errs, planes = fixed_kernel_checks(dev, pgr)
     saturation_check(dev)
+    range_fft_fixed_size_checks(dev)
     cerrs, imag = cfar_kernel_checks(dev, planes)
     launches, fps, report = fixed_main_path(card, dev)
 
@@ -548,16 +631,24 @@ def fixed_mode(card: str, dev):
     nd, nr = entry.n_doppler, entry.n_range
     batch = torch.as_tensor(make_batch(entry, BATCH), device=dev)
     rows, times = [], {}
-    ms = cuda_ms(lambda: FX.range_fft_fixed(batch))
+    # Device times by CUDA-graph replay (kernel A's rows are timed so);
+    # the eager back-to-back time beside it.
+    ms = graph_ms(lambda: FX.range_fft_fixed(batch))
+    eager = cuda_ms(lambda: FX.range_fft_fixed(batch))
     plain = cuda_ms(lambda: FX.range_fft_fixed_plain(batch), 5)
     times.update({"range_fft_fixed": ms, "range_fft_fixed plain": plain})
     wi, wq, _ = window_apply_fixed(batch[..., 0], batch[..., 1],
                                    hamming_q15(nr)[None, :])
     zw = torch.complex(wi.double(), wq.double())     # the kernel's FP64
-    lib = cuda_ms(lambda: torch.fft.fft(zw, dim=-1))
+    lib = graph_ms(lambda: torch.fft.fft(zw, dim=-1))
+    del zw, wi, wq
+    # A memory-only yardstick that moves the kernel's bytes, itself a
+    # corner turn: 4 bytes a sample read and written.
+    turn = graph_ms(lambda: batch.transpose(1, 2).contiguous())
     bound, by = bound_range_fft_fixed(BATCH, nd, nr)
-    log(f"range_fft_fixed: {ms:.4f} ms, plain {plain:.4f} ms, torch.fft.fft "
-        f"{lib:.4f} ms, bound {bound:.4f} ms ({by}) at batch {BATCH} "
+    log(f"range_fft_fixed: {ms:.4f} ms (graph; eager {eager:.4f}), plain "
+        f"{plain:.4f} ms, torch.fft.fft complex128 {lib:.4f} ms, corner-turn "
+        f"copy {turn:.4f} ms, bound {bound:.4f} ms ({by}) at batch {BATCH} "
         f"({card})")
     src = "fmcw_tpu_torch/csrc/"
     rows.append(dict(name="range_fft_fixed", route="cuda",
@@ -638,7 +729,10 @@ def fixed_mode(card: str, dev):
             log(f"fixed {route} {mode} per batch of {BATCH}: "
                 + ", ".join(f"{key} {v:.4f}" for key, v in st.items()))
     return rows, {"frames_per_s": fps, "routes": report,
-                  "stages_ms": stages}
+                  "stages_ms": stages,
+                  "range_fft_fixed": {"graph_ms": times["range_fft_fixed"],
+                                      "eager_ms": eager,
+                                      "corner_turn_copy_ms": turn}}
 
 
 # ---------------------------------------------------------------------------
@@ -1332,16 +1426,19 @@ def split_timings(card: str, dev, pgr: int, iq, errs, launches):
                      max_abs_err=errs["range_frontend"], ms=ms,
                      plain_ms=plain, bound_ms=bound, bound_by=by,
                      library_ms=lib))
-    ms = cuda_ms(lambda: SF.range_frontend_fixed(chirps))
+    ms = graph_ms(lambda: SF.range_frontend_fixed(chirps))
+    eager = cuda_ms(lambda: SF.range_frontend_fixed(chirps))
     plain = cuda_ms(lambda: FX.range_fft_fixed_plain(chirps), 5)
     wi, wq, _ = window_apply_fixed(chirps[..., 0], chirps[..., 1],
                                    hamming_q15(nr)[None, :])
     zw = torch.complex(wi.double(), wq.double())
-    lib = cuda_ms(lambda: torch.fft.fft(zw, dim=-1))
+    lib = graph_ms(lambda: torch.fft.fft(zw, dim=-1))
     del zw
+    turn = graph_ms(lambda: chirps.transpose(1, 2).contiguous())
     bound, by = bound_range_fft_fixed(BATCH, ndc, nr)
-    log(f"range_frontend_fixed (chirp shard): {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, torch.fft.fft {lib:.4f} ms, bound {bound:.4f} ms "
+    log(f"range_frontend_fixed (chirp shard): {ms:.4f} ms (graph; eager "
+        f"{eager:.4f}), plain {plain:.4f} ms, torch.fft.fft complex128 "
+        f"{lib:.4f} ms, corner-turn copy {turn:.4f} ms, bound {bound:.4f} ms "
         f"({by}) ({card})")
     rows.append(dict(name="range_frontend_fixed", route="cuda",
                      source=src + "range_fft_fixed.cu",

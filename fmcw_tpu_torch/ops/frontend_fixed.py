@@ -53,6 +53,21 @@ def _tables(n: int, coef_width: int, device: str):
             torch.as_tensor(tw, device=device))
 
 
+@functools.lru_cache(maxsize=32)
+def _range_tables(n: int, coef_width: int, device: str):
+    """The range kernel's constants on ``device``: the int32 Q15 window, and
+    the float64 twiddles between its two passes, tw[ka N2 + t] =
+    exp(-2 pi i t ka / n) = ``twiddles64(n)[t ka]`` for ka < N1, t < N2
+    (``ops/frontend.range_fft_plan``), as (n, 2) re/im pairs: exact at the
+    quarter turns, and a warp reads one ka's row coalesced."""
+    n1, n2 = F.range_fft_plan(n)
+    tw = twiddles64(n)[np.outer(np.arange(n1), np.arange(n2)).ravel()]
+    tw = np.stack([tw.real, tw.imag], axis=-1)
+    return (torch.as_tensor(hamming_q15(n, coef_width).astype(np.int32),
+                            device=device),
+            torch.as_tensor(tw, device=device))
+
+
 # ---------------------------------------------------------------------------
 # Range half
 # ---------------------------------------------------------------------------
@@ -89,16 +104,23 @@ def range_fft_fixed(iq: torch.Tensor, coef_width: int = 16,
 def launch_range_fft_fixed(iq: torch.Tensor, coef_width: int = 16,
                            rounding: str = "unbiased"):
     """Launch ``range_fft_fixed``'s kernel on CUDA int16 frames; the caller
-    counts the launch.  Window, FFT and BFP are per chirp, so a chirp shard
-    gives exactly the matching columns (and its share of the saturation
-    count) of the whole frame's output."""
+    counts the launch.  The kernel (csrc/range_fft_fixed.cu) is kernel A's
+    two-pass register plan in FP64: each group of 8 chirps arrives by one
+    TMA bulk copy (so ``iq`` is passed 16-byte aligned), pass 1 windows in
+    integers and transforms N1 points a lane, one exchange through shared
+    memory, pass 2 transforms N2 points, the BFP exponent comes from a
+    shuffle and shared integer max.  Where nd is a multiple of 16, two
+    groups' quantized tiles are staged in shared memory and copied out as
+    whole 32-byte sectors; otherwise the corner turn is stored from
+    registers.  Its bound is the bytes (0.0401 ms at batch 128 of 1024x128
+    on an H100), with the FP64 pipe close behind.  Window, FFT and BFP are
+    per chirp, so a chirp shard gives exactly the matching columns (and its
+    share of the saturation count) of the whole frame's output."""
     B, nd, nr, _ = iq.shape
     F.check_range_geometry(nr, nd, "range_fft_fixed")
     rnd = window_rounding_constant(coef_width, rounding)
-    iq = iq.contiguous()
-    if iq.data_ptr() % 4:
-        iq = iq.clone()
-    win, tw = _tables(nr, coef_width, str(iq.device))
+    iq = F._aligned(iq)
+    win, tw = _range_tables(nr, coef_width, str(iq.device))
     re = torch.empty((B, nr, nd), dtype=torch.int16, device=iq.device)
     im = torch.empty_like(re)
     sat = torch.zeros((B,), dtype=torch.int32, device=iq.device)

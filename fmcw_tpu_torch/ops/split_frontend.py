@@ -92,7 +92,9 @@ def range_frontend_fixed(iq: torch.Tensor, coef_width: int = 16,
     """Q15 window + range FFT + BFP of a chirp shard: int16 (B, nd/sp, nr,
     2) -> int16 (re, im), each (B, nr, nd/sp), and the shard's window
     saturation count (B,).  Launches the fixed range kernel for a CUDA
-    tensor; the plain twin for a CPU tensor."""
+    tensor (at sp = 4 a batch of 128 is 256 pairs of groups, about two a
+    block: the kernel's persistent blocks keep the next copies in flight);
+    the plain twin for a CPU tensor."""
     F.check_iq(iq)
     if F._device_kind(iq) == "cpu":
         return FX.range_fft_fixed_plain(iq, coef_width, rounding)

@@ -19,8 +19,15 @@ stimulus, 1024x128 frames):
   planes);
 * kernel B (``slowtime_detect``, per-cell and block scale,
   ``peak_group_radius=2``);
-* the fixed kernels (``range_fft_fixed``, ``slowtime_detect_fixed``);
-* main-path frames/s through ``make_batch_processor``, per-cell and block.
+* the fixed kernels (``range_fft_fixed``, ``slowtime_detect_fixed``); the
+  fixed range kernel's two entries — ``range_fft_fixed`` at batch 128 and
+  the row-4 chirp shard (``split_frontend.range_frontend_fixed``, sp = 4)
+  — as back-to-back calls and by graph replay, each beside
+  ``torch.fft.fft`` (complex128) of the same windowed chirps and a
+  memory-only corner turn of its input (``iq.transpose(1, 2).contiguous()``,
+  4 bytes a sample read and written);
+* main-path frames/s through ``make_batch_processor``, per-cell and block,
+  float and fixed mode's fused route.
 
 Prints the card's name and power limit and one JSON line.  To compare two
 commits on one card, unpack the other commit into a directory (``git
@@ -128,10 +135,26 @@ def main() -> int:
     copy = {"range_fft": cuda_ms(lambda: iq.float()),
             "range_fft_float": cuda_ms(lambda: (br.clone(), bi.clone()))}
     del br, bi
-    # Kernel B and the fixed kernels.
+    # The fixed range kernel's two entries, each beside torch.fft.fft of the
+    # same Q15-windowed chirps in FP64 and a corner turn of its input.
+    from fmcw_tpu_torch.ops.window import hamming_q15, window_apply_fixed
+    fixed = {"range_fft_fixed": (lambda: FX.range_fft_fixed(iq), iq),
+             "range_frontend_fixed[sp4]": (
+                 lambda: SF.range_frontend_fixed(shard), shard)}
+    for name, (call, x) in fixed.items():
+        wi, wq, _ = window_apply_fixed(x[..., 0], x[..., 1],
+                                       hamming_q15(entry.n_range)[None, :])
+        z = torch.complex(wi.double(), wq.double())
+        del wi, wq
+        ms[name] = cuda_ms(call)
+        fft[name] = cuda_ms(lambda: torch.fft.fft(z, dim=-1))
+        graph[name] = graph_ms(call)
+        fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        copy[name] = graph_ms(lambda: x.transpose(1, 2).contiguous())
+        del z
+    # Kernel B and the fixed slow-time kernel.
     re, im = F.range_fft(iq)
     fre, fim, _ = FX.range_fft_fixed(iq)
-    ms["range_fft_fixed"] = cuda_ms(lambda: FX.range_fft_fixed(iq))
     for p in (entry, P.fast()):
         kw = dict(cfar=p.cfar, peak_group_radius=2)
         mode = p.cfar.scale_mode
@@ -141,14 +164,17 @@ def main() -> int:
             ms["slowtime_detect_fixed[cell]"] = cuda_ms(
                 lambda: FX.slowtime_detect_fixed(fre, fim, False, 0, **kw))
     del re, im, fre, fim
-    # The main path, per-cell and block scale.
+    # The main path, per-cell and block scale; fixed mode's fused route.
     fps = {}
     for p in (entry, P.fast()):
-        proc = pl.make_batch_processor(p, peak_group_radius=2,
-                                       include_maps=False, device="cuda")
         batch = make_batch(p)
-        fps[p.cfar.scale_mode] = BATCH * 1e3 / cuda_ms(lambda: proc(batch),
-                                                       10, 2)
+        for key, kw in ((p.cfar.scale_mode, {}),
+                        (f"fixed/{p.cfar.scale_mode}/fused",
+                         dict(mode="fixed", frontend="fused"))):
+            proc = pl.make_batch_processor(p, peak_group_radius=2,
+                                           include_maps=False,
+                                           device="cuda", **kw)
+            fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 10, 2)
     print(json.dumps({"root": str(args.root), "ms": ms, "fft_ms": fft,
                       "graph_ms": graph, "fft_graph_ms": fft_graph,
                       "copy_ms": copy, "frames_per_s": fps, "batch": BATCH,
