@@ -7,15 +7,19 @@ Run from the repository root:
     python3 chip_smoke.py --nccl-only   # with 2+ GPUs: the NCCL mesh alone
 
 It builds the CUDA kernels from fmcw_tpu_torch/csrc/ (into build/; the two
-range kernels without spills), holds each kernel against its plain PyTorch
+range kernels and kernel B without spills), holds each kernel against its plain PyTorch
 twin on the card (kernel A and the fixed range kernel also at every size
 they take: n_range 16..1024 with 8, 40 and 128 chirps, both entries of
-each), drives the float32 main path (int16 frames ->
+each; kernel B at n_doppler 16..128, both scale modes, notch 2 and 3,
+both transients, the bypass, the override and grouping radii 0..2, and on
+a tie-heavy stimulus whose training values equal their thresholds), drives
+the float32 main path (int16 frames ->
 detections, batch 128 at 1024x128, the reference-exact per-cell scale and
 the block scale of fast()) through the processor a user calls, checks its
 detections against the plain path with the margin gate of
 fmcw_tpu_torch/parity.py, runs the tracker over 6 scans, and times the
-kernels and the path with CUDA events.  Then the same for
+kernels and the path with CUDA events (kernel B's entries and the range
+kernels by CUDA-graph replay, eager beside them).  Then the same for
 fixed mode (the reference's 16-bit chain): its two kernels and the CFAR
 kernel against their twins, its main path on both routes (staged: plain
 stages and the CFAR kernel; fused: the two fixed-point kernels) at batch
@@ -55,6 +59,7 @@ once.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -172,14 +177,15 @@ def range_fft_size_checks(dev):
             f"worst err {rel:.3g} of peak (tol {TOL})")
 
 
-NO_SPILL_SOURCES = (" range_fft.cu", " range_fft_fixed.cu")
+NO_SPILL_SOURCES = (" range_fft.cu", " range_fft_fixed.cu",
+                    " slowtime_detect.cu")
 
 
 def log_build(info) -> None:
     """The compiler's register and spill lines of every kernel, with the
-    entry names for the two range kernels (kernel A and the fixed one);
-    fails if an instantiation of either spills or keeps an array in local
-    memory (a stack frame)."""
+    entry names for the two range kernels (kernel A and the fixed one) and
+    kernel B; fails if an instantiation of any of them spills or keeps an
+    array in local memory (a stack frame)."""
     section, entry, bad = "", "", []
     for line in info.log.splitlines():
         if line.startswith("---"):
@@ -196,7 +202,7 @@ def log_build(info) -> None:
                     "spill loads" not in line):
             bad.append(f"{section[4:]} {entry}: {line.strip()}")
     if bad:
-        raise AssertionError(f"range kernel spills: {bad}")
+        raise AssertionError(f"kernel spills: {bad}")
 
 
 def bound_range_fft(B: int, nd: int, nr: int):
@@ -208,11 +214,9 @@ def bound_range_fft(B: int, nd: int, nr: int):
 
 
 def _slowtime_ops(B: int, nr: int, nd: int) -> float:
-    """FP32 operations of the float slow-time step and magnitude: the
-    slow-time operator is linear, so an FFT computes it, 5 nd log2 nd per
-    range row, plus MTI (8), window (2) and magnitude (4) per cell.  (The
-    kernels apply it as a dense nd x nd product, 8 nd per cell: that is
-    their design, not what the function needs.)"""
+    """FP32 operations of the float slow-time step and magnitude: an FFT,
+    5 nd log2 nd per range row, plus MTI (8), window (2) and magnitude (4)
+    per cell."""
     return B * nr * (5 * nd * math.log2(nd) + 14 * nd)
 
 
@@ -1068,12 +1072,14 @@ def array_model(card: str, dev):
                      max_abs_err=errs["range_fft[float]"], ms=ms,
                      plain_ms=plain, bound_ms=bound, bound_by=by,
                      library_ms=lib))
-    ms = cuda_ms(lambda: F.slowtime_mag(re, im))
+    ms = graph_ms(lambda: F.slowtime_mag(re, im))
+    eager = cuda_ms(lambda: F.slowtime_mag(re, im))
     plain = cuda_ms(lambda: F.slowtime_mag_plain(re, im, False), 5)
     bound, by = bound_slowtime_mag(B, nr, nd)
     t["slowtime_mag"] = ms
-    log(f"slowtime_mag: {ms:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{bound:.4f} ms ({by}) at {B} beam maps ({card})")
+    log(f"slowtime_mag: {ms:.4f} ms (graph; eager {eager:.4f}), plain "
+        f"{plain:.4f} ms, bound {bound:.4f} ms ({by}) at {B} beam maps "
+        f"({card})")
     rows.append(dict(name="slowtime_mag", route="cuda",
                      source=src + "slowtime_detect.cu",
                      replaces="fmcw_tpu/ops/frontend_pallas.py:623",
@@ -1469,10 +1475,14 @@ def split_timings(card: str, dev, pgr: int, iq, errs, launches):
                 (re[:, lo].contiguous(), im[:, lo].contiguous()),
                 (re[:, hi].contiguous(), im[:, hi].contiguous()), False, 0,
                 s * nrl)
-        ms = cuda_ms(lambda: kern(*args, **skw))
+        # Kernel B's split entry by graph replay (eager beside it); the
+        # fixed one eagerly.
+        eager = cuda_ms(lambda: kern(*args, **skw))
+        ms = eager if fixed else graph_ms(lambda: kern(*args, **skw))
         plain = cuda_ms(lambda: twin(*args, **skw), 2, 1)
         log(f"{name} (range shard {BATCH}x{nrl}x{nd}, halo {h}): {ms:.4f} "
-            f"ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
+            f"ms{'' if fixed else f' (graph; eager {eager:.4f})'}, plain "
+            f"{plain:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
         rows.append(dict(name=name, route="cuda",
                          source=src + ("slowtime_detect_fixed.cu" if fixed
                                        else "slowtime_detect.cu"),
@@ -2126,6 +2136,88 @@ def nccl_phase(card: str, pgr: int, deadline_s: float = 420.0):
     return summary
 
 
+def tie_planes(batch: int, nr: int, nd: int, seed: int = 9):
+    """Phase 3's tie-heavy stimulus: float planes (batch, nr, nd) whose
+    range row r is an impulse A_r at chirp 0 (A_r from {0, 1, 2, 3, 4, 6,
+    8}, and 64 on 2% of the rows, which detect; imaginary part 0).  With the
+    MTI bypassed a row's magnitudes are all |A_r w[0]|, a multiple of 2^-15
+    (the window is Q15), so every window sum and threshold is exact and
+    many equal a training value: t_lo = 0.5 mean where the training
+    amplitudes sum to 256 A', t_hi = 1.5 mean where they sum to 256 A' / 3,
+    q = cut / 4 under scale 4; the detections of a row tie for the
+    grouping.  With the MTI on, rows still repeat exactly."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    amp = rng.choice(np.array([0, 1, 2, 3, 4, 6, 8], np.float32),
+                     size=(batch, nr))
+    amp[rng.random((batch, nr)) < 0.02] = 64
+    re = np.zeros((batch, nr, nd), np.float32)
+    re[..., 0] = amp
+    return re, np.zeros_like(re)
+
+
+def tie_counts(mag, cfar, so: int):
+    """Training values equal to their cell's t_hi, t_lo (per-cell scale) or
+    detection threshold q (scale ``so`` > 0), counted over the map."""
+    import torch
+    from fmcw_tpu_torch.golden.fixed_point import _window_offsets
+    from fmcw_tpu_torch.ops import cfar as C
+    hr, hd = cfar.halo_range, cfar.halo_doppler
+    pad = C._wrap_pad(mag, hr, hd)
+    t_hi, t_lo = C.percell_thresholds(pad, cfar)
+    q = C._q_min(mag, torch.full_like(mag, float(so))) if so else None
+    R, D = mag.shape[-2:]
+    n = [0, 0, 0]
+    for dr, dd in _window_offsets(cfar):
+        v = pad[..., hr + dr:hr + dr + R, hd + dd:hd + dd + D]
+        n[0] += int((v == t_hi).sum())
+        n[1] += int((v == t_lo).sum())
+        if q is not None:
+            n[2] += int((v == q).sum())
+    return n
+
+
+def tie_checks(dev, entry, block, pgr: int) -> None:
+    """Phase 3, ties: kernel B on the tie-heavy planes (``tie_planes``, 4
+    frames at 1024x128), both scale modes, MTI on and bypassed, override 0
+    and 4: the decision bit for bit against the plain CFAR on the kernel's
+    magnitudes, the magnitudes within TOL of the peak of the twin's; the
+    bypassed per-cell runs must meet ties at t_hi, t_lo and q."""
+    import torch
+    from fmcw_tpu_torch.ops import frontend as F
+    re, im = (torch.as_tensor(x, device=dev)
+              for x in tie_planes(4, entry.n_range, entry.n_doppler))
+    for p in (entry, block):
+        for bypass in (True, False):
+            for so in (0, 4):
+                det, mag, rmax, ndet, nf = F.slowtime_detect(
+                    re, im, bypass, so, cfar=p.cfar, peak_group_radius=pgr,
+                    emit_mag=True)
+                pmag = F.slowtime_mag_plain(re, im, bypass)
+                d2, r2, n2, f2 = F.detect_plain(mag, p.cfar, so, pgr)
+                torch.cuda.synchronize()
+                err = float((mag - pmag).abs().max())
+                peak = float(pmag.abs().max())
+                same = (torch.equal(det, d2) and torch.equal(rmax, r2)
+                        and torch.equal(ndet, n2) and torch.equal(nf, f2))
+                ties = tie_counts(mag, p.cfar, so)
+                log(f"kernel B ties {p.cfar.scale_mode} bypass={bypass} "
+                    f"so={so}: {len(torch.unique(mag))} distinct magnitudes, "
+                    f"training values equal to t_hi / t_lo / q: "
+                    f"{ties[0]} / {ties[1]} / {ties[2]}; mag err "
+                    f"{err / peak:.3g} of peak; decision "
+                    f"{'bit-identical' if same else 'DIFFERS'}, n_dets "
+                    f"{int(ndet.min())}..{int(ndet.max())}")
+                if not err <= TOL * peak:
+                    raise AssertionError("kernel B: tie magnitudes disagree")
+                if not same:
+                    raise AssertionError("kernel B: decision differs from "
+                                         "the plain CFAR on the tie stimulus")
+                need = ties[:2] + (ties[2:] if so else [])
+                if bypass and p.cfar.scale_mode == "cell" and min(need) == 0:
+                    raise AssertionError("tie stimulus met no tie")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2214,21 +2306,36 @@ def main() -> int:
                     raise AssertionError(f"{name}: decision differs from "
                                          f"the plain CFAR on its magnitudes")
         results[name] = {"max_abs_err": worst}
-    # The other map shapes the kernels take (n_doppler 32 and 64), and the
-    # 3-pulse MTI with the passthrough transient and the exact magnitude.
-    for p, radius, kw in (
-            (P.quick(), 1, {}),
-            (P.RadarParams(n_range=256, n_doppler=64), pgr, {}),
+    # The other map shapes the kernels take (n_doppler 16, 32 and 64), both
+    # scale modes, the 3-pulse MTI with the passthrough transient and the
+    # exact magnitude, the bypass and the override, grouping radii 0-2.
+    b16 = P.RadarParams(n_range=256, n_doppler=16)
+    for p, radius, kw, bypass, so in (
+            (P.quick(), 1, {}, False, 0),
+            (P.quick().replace(cfar=dataclasses.replace(
+                P.quick().cfar, scale_mode="block")), 0, {}, True, 4),
+            (P.RadarParams(n_range=256, n_doppler=64), pgr, {}, False, 0),
             (P.RadarParams(n_range=256, n_doppler=64, notch_mode=3), pgr,
-             dict(transient="passthrough", exact_mag=True))):
+             dict(transient="passthrough", exact_mag=True), False, 0),
+            (P.RadarParams(n_range=256, n_doppler=64, notch_mode=3), 1,
+             dict(transient="zero"), False, 4),
+            (b16, 0, {}, False, 0),
+            (b16.replace(cfar=dataclasses.replace(b16.cfar,
+                                                  scale_mode="block")),
+             pgr, {}, False, 0),
+            (b16, 1, dict(transient="passthrough"), True, 4),
+            # A window outside the unrolled walks (hr 4, gr 1).
+            (P.RadarParams(n_range=256, n_doppler=64, cfar=P.CfarParams(
+                ref_range=3, ref_doppler=2, guard_range=1,
+                guard_doppler=2)), pgr, {}, False, 0)):
         iq = torch.as_tensor(make_batch(p, 4, seed=2), device=dev)
         sre, sim = F.range_fft(iq)
         pre, pim = F.range_fft_plain(iq)
         det, mag, rmax, ndet, nf = F.slowtime_detect(
-            sre, sim, cfar=p.cfar, notch_mode=p.notch_mode,
+            sre, sim, bypass, so, cfar=p.cfar, notch_mode=p.notch_mode,
             peak_group_radius=radius, emit_mag=True, **kw)
-        pmag = F.slowtime_mag_plain(sre, sim, False, p.notch_mode, **kw)
-        d2, r2, n2, f2 = F.detect_plain(mag, p.cfar, 0, radius)
+        pmag = F.slowtime_mag_plain(sre, sim, bypass, p.notch_mode, **kw)
+        d2, r2, n2, f2 = F.detect_plain(mag, p.cfar, so, radius)
         torch.cuda.synchronize()
         err_a = float(torch.maximum((sre - pre).abs().max(),
                                     (sim - pim).abs().max()))
@@ -2236,6 +2343,7 @@ def main() -> int:
         same = (torch.equal(det, d2) and torch.equal(rmax, r2)
                 and torch.equal(ndet, n2) and torch.equal(nf, f2))
         log(f"kernels at {p.n_range}x{p.n_doppler} notch {p.notch_mode} "
+            f"{p.cfar.scale_mode} pgr={radius} bypass={bypass} so={so} "
             f"{kw}: A err {err_a / float(pre.abs().max()):.3g}, B mag err "
             f"{err_b / float(pmag.abs().max()):.3g} of peak, decision "
             f"{'bit-identical' if same else 'DIFFERS'}")
@@ -2244,6 +2352,7 @@ def main() -> int:
                 and err_b <= TOL * float(pmag.abs().max()) and same):
             raise AssertionError(f"kernels disagree at {p.n_range}x"
                                  f"{p.n_doppler} {kw}")
+    tie_checks(dev, entry, block, pgr)
 
     # 4. The main path: batch 128, both scale modes, through the processor.
     launches = {}
@@ -2328,14 +2437,16 @@ def main() -> int:
     for p in (entry, block):
         name = f"slowtime_detect[{p.cfar.scale_mode}]"
         kw = dict(cfar=p.cfar, peak_group_radius=pgr)
-        ms_b = cuda_ms(lambda: F.slowtime_detect(re, im, False, 0, **kw))
+        ms_b = graph_ms(lambda: F.slowtime_detect(re, im, False, 0, **kw))
+        eager_b = cuda_ms(lambda: F.slowtime_detect(re, im, False, 0, **kw))
         plain_b = cuda_ms(
             lambda: F.slowtime_detect_plain(re, im, False, 0, **kw), 2, 1)
         b_b, by_b = bound_slowtime(BATCH, nr, nd, p.cfar)
         results[name].update(ms=ms_b, plain_ms=plain_b, library_ms=None,
                              bound_ms=b_b, bound_by=by_b)
-        log(f"{name}: {ms_b:.4f} ms, plain {plain_b:.4f} ms, bound "
-            f"{b_b:.4f} ms ({by_b}) at batch {BATCH} ({card})")
+        log(f"{name}: {ms_b:.4f} ms (graph; eager {eager_b:.4f}), plain "
+            f"{plain_b:.4f} ms, bound {b_b:.4f} ms ({by_b}) at batch "
+            f"{BATCH} ({card})")
         det, _, row_max, n_dets, _ = F.slowtime_detect(re, im, False, 0, **kw)
         topk_ms = cuda_ms(lambda: DET.topk_detections(
             det, p.tracker.max_dets, row_max=row_max, n_dets=n_dets))

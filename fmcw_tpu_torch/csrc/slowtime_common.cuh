@@ -18,8 +18,8 @@ struct SlowtimeConfig {
     int scale_min, scale_nom, scale_max;
     int block_mode, sb, n_blk, k_blk;
     int so, pgr, exact_mag;
-    // fixed-point kernel only: MTI (2- or 3-pulse, transient zeroed or
-    // passed, runtime bypass) and the Q15 window's rounding constant and
+    // MTI (2- or 3-pulse, transient zeroed or passed, runtime bypass);
+    // fixed-point kernel only: the Q15 window's rounding constant and
     // extraction shift.
     int notch_mode, transient_zero, bypass, rnd, shift;
     // The map's first row in the whole frame and the frame's rows (a range

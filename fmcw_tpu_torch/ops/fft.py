@@ -153,12 +153,53 @@ def dft64_matrices(n: int, device: str = "cpu"):
             torch.as_tensor(np.ascontiguousarray(c.imag), device=device))
 
 
+def _w8(k: int):
+    """W_8^k / cos(pi/4) = a + i b for k odd."""
+    return (1 if k % 8 in (1, 7) else -1), (1 if k % 8 in (5, 7) else -1)
+
+
+def _eighth_turn_bins(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor,
+                      yi: torch.Tensor) -> None:
+    """Overwrite the eighth-turn bins X[m n/8], m odd, of the DFT (yr, yi)
+    of integer-valued float64 (re, im) with their exact form, in place.
+
+    With T_r the input summed over s = r (mod 8) and u_r = T_r - T_(r+4),
+    X[m n/8] = u_0 + (-i)^m u_2 + W_8^m u_1 + W_8^(3m) u_3; both W_8 terms
+    are cos(pi/4) (+-1 +-i), so X = E + cos(pi/4) P with E and P exact sums
+    of integers.  Where P = 0 the bin is the integer E, as in the golden
+    model (``np.fft.fft``), and a round-half tie there falls the same way;
+    the dense product's separately rounded sqrt(2)/2 terms need not cancel.
+    The range kernel (csrc/range_fft_fixed.cu, ``eighth_turn_bins``)
+    computes these bins the same way."""
+    n = re.shape[-1]
+    if n < 8 or n % 8:
+        return
+    tr = re.reshape(*re.shape[:-1], n // 8, 8).sum(-2)
+    ti = im.reshape(*im.shape[:-1], n // 8, 8).sum(-2)
+    c = float(twiddles64(8)[1].real)
+    u1r, u1i = tr[..., 1] - tr[..., 5], ti[..., 1] - ti[..., 5]
+    u3r, u3i = tr[..., 3] - tr[..., 7], ti[..., 3] - ti[..., 7]
+    for m in (1, 3, 5, 7):
+        (a1, b1), (a3, b3) = _w8(m), _w8(3 * m)
+        g = 1 if m % 4 == 1 else -1
+        pr = a1 * u1r - b1 * u1i + (a3 * u3r - b3 * u3i)
+        pi = a1 * u1i + b1 * u1r + (a3 * u3i + b3 * u3r)
+        er = (tr[..., 0] - tr[..., 4]) + g * (ti[..., 2] - ti[..., 6])
+        ei = (ti[..., 0] - ti[..., 4]) - g * (tr[..., 2] - tr[..., 6])
+        yr[..., m * n // 8] = er + c * pr
+        yi[..., m * n // 8] = ei + c * pi
+
+
 def dft64_apply(re: torch.Tensor, im: torch.Tensor):
     """Forward DFT along the LAST axis in float64: the fixed chain's plain
-    transform (the inputs are integer-valued; float64 (re, im) out)."""
+    transform (the inputs are integer-valued; float64 (re, im) out).  A
+    dense product, with the eighth-turn bins summed exactly
+    (``_eighth_turn_bins``)."""
     cr, ci = dft64_matrices(re.shape[-1], str(re.device))
     re, im = re.to(torch.float64), im.to(torch.float64)
-    return re @ cr - im @ ci, re @ ci + im @ cr
+    yr, yi = re @ cr - im @ ci, re @ ci + im @ cr
+    _eighth_turn_bins(re, im, yr, yi)
+    return yr, yi
 
 
 def bfp_exponent(peak: torch.Tensor) -> torch.Tensor:

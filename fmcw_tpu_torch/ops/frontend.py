@@ -9,12 +9,14 @@ turn, as ``fmcw_tpu/ops/split_frontend.py`` splits it across chips:
   re/im (B, nr, nd); ``range_fft_float``, the same kernel's entry point for
   float32 planes (B, nd, nr) (the array model's beamformed data: the TPU
   kernel takes int16 or float32);
-* ``slowtime_detect`` (kernel B, ``csrc/slowtime_detect.cu``): fused
-  slow-time operator (MTI + Doppler window + Doppler DFT), magnitude, 2D
-  OS-CFAR with per-cell or block scale, peak grouping, per-row maxima,
-  detection and non-finite counts; ``slowtime_mag``, its magnitude-only
-  entry point (``rdm_frontend(detect=False)``: the magnitude and the
-  non-finite count, no CFAR).
+* ``slowtime_detect`` (kernel B, ``csrc/slowtime_detect.cu``): the
+  slow-time chain (MTI, Doppler window, an FP32 Doppler FFT per range row),
+  magnitude, 2D OS-CFAR with per-cell or block scale (``csrc/cfar_tile.cuh``),
+  peak grouping, per-row maxima, detection and non-finite counts;
+  ``slowtime_mag``, its magnitude-only entry point
+  (``rdm_frontend(detect=False)``: the magnitude and the non-finite count,
+  no CFAR).  Its twin folds the slow-time chain into one float32 matrix
+  (``ops/fft.doppler_apply``); the two agree within 1e-5 of the peak.
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch twin (``range_fft_plain``, ``range_fft_float_plain``,
@@ -36,8 +38,9 @@ import torch
 from .. import kernels
 from ..params import CfarParams
 from . import cfar as C
-from .fft import dft_apply, doppler_apply, doppler_matrices
+from .fft import dft_apply, doppler_apply
 from .magnitude import magnitude_float
+from .notch import check_notch
 from .window import hamming_float
 
 # Range rows per kernel-B block.
@@ -70,12 +73,44 @@ def _tables(n: int, device: str):
 
 
 @functools.lru_cache(maxsize=32)
-def _slowtime_matrices(nd: int, notch_mode: int, transient: str,
-                       device: str):
-    """(Mr, Mi) for mti_bypass False and True, on ``device``."""
-    mr1, mi1, mr0, mi0 = doppler_matrices(nd, notch_mode, transient)
-    return tuple(torch.as_tensor(x, device=device)
-                 for x in (mr1, mi1, mr0, mi0))
+def _slowtime_tables(nd: int, device: str):
+    """Kernel B constants on ``device``: the float Doppler window
+    (``hamming_float``) and the twiddles tw[m] = exp(-2 pi i m / nd), m < nd,
+    computed in float64 then float32 (nd, 2) re/im pairs: the lanes of the
+    slow-time FFT read their stage twiddles W_2h^j = tw[j nd / 2h] and
+    W_nd^(p k1) = tw[p k1] from it."""
+    ang = -2.0 * np.pi * np.arange(nd, dtype=np.float64) / nd
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    return (torch.as_tensor(hamming_float(nd), device=device),
+            torch.as_tensor(tw, device=device))
+
+
+# Kernel B counts a float map's training cells in float, hi and lo packed
+# as hi * 4096 + lo (csrc/cfar_tile.cuh): exact up to this many.
+MAX_PACKED_REFS = 4094
+
+
+def _kernel_b_config(cfg, cfar: CfarParams, notch_mode: int, transient: str,
+                     mti_bypass, name: str):
+    """Kernel B's detection entries: the shared tile geometry ``cfg``
+    (``_slowtime_config``) with the MTI fields set; raises
+    NotImplementedError for a training set the packed count does not
+    hold."""
+    if cfar.n_ref > MAX_PACKED_REFS:
+        raise NotImplementedError(
+            f"{name} kernel: at most {MAX_PACKED_REFS} training cells, got "
+            f"{cfar.n_ref}")
+    return _pulse_canceller(cfg, notch_mode, transient, mti_bypass)
+
+
+def _pulse_canceller(cfg, notch_mode: int, transient: str, mti_bypass):
+    """Set the slow-time kernels' MTI fields of ``cfg`` (2- or 3-pulse,
+    transient zeroed or passed, runtime bypass)."""
+    check_notch(notch_mode, transient)
+    cfg.notch_mode = notch_mode
+    cfg.transient_zero = int(transient == "zero")
+    cfg.bypass = int(bool(mti_bypass))
+    return cfg
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -195,7 +230,7 @@ def range_fft_float(re: torch.Tensor, im: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# Kernel B: slow-time operator + magnitude + CFAR + peak grouping
+# Kernel B: slow-time chain + magnitude + CFAR + peak grouping
 # ---------------------------------------------------------------------------
 
 def slowtime_mag_plain(re: torch.Tensor, im: torch.Tensor, mti_bypass: bool,
@@ -309,13 +344,14 @@ def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
             notch_mode=notch_mode, transient=transient, exact_mag=exact_mag,
             peak_group_radius=peak_group_radius, emit_mag=emit_mag)
     B, nr, nd = re.shape
-    cfg = _slowtime_config(B, nr, nd, cfar, scale_override,
-                           peak_group_radius, exact_mag)
+    cfg = _kernel_b_config(
+        _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
+                         exact_mag), cfar, notch_mode, transient, mti_bypass,
+        "slowtime_detect")
     dev = re.device
-    re = re.contiguous().to(torch.float32)
-    im = im.contiguous().to(torch.float32)
-    mats = _slowtime_matrices(nd, notch_mode, transient, str(dev))
-    mr, mi = mats[2:] if bool(mti_bypass) else mats[:2]
+    re = _aligned(re.to(torch.float32))
+    im = _aligned(im.to(torch.float32))
+    win, tw = _slowtime_tables(nd, str(dev))
     det = torch.empty((B, nr, nd), dtype=torch.float32, device=dev)
     mag = torch.empty_like(det) if emit_mag else None
     row_max = torch.empty((B, nr), dtype=torch.float32, device=dev)
@@ -323,7 +359,7 @@ def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
     nonfinite = torch.zeros((B,), dtype=torch.int32, device=dev)
     lib = kernels.load()
     err = lib.fmcw_slowtime_detect(
-        re.data_ptr(), im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+        re.data_ptr(), im.data_ptr(), win.data_ptr(), tw.data_ptr(),
         det.data_ptr(), mag.data_ptr() if mag is not None else None,
         row_max.data_ptr(), n_dets.data_ptr(), nonfinite.data_ptr(),
         ctypes.byref(cfg), torch.cuda.current_stream(dev).cuda_stream)
@@ -332,20 +368,14 @@ def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
     return det, mag, row_max, n_dets, nonfinite
 
 
-# Rows per block of the magnitude-only kernel (no halo).
-MAG_TILE_ROWS = 128
-
-
-def check_mag_geometry(nr: int, nd: int) -> int:
-    """Rows per block of the magnitude-only kernel for an nr x nd map;
-    raises NotImplementedError for a map it does not take."""
-    tile = min(MAG_TILE_ROWS, nr)
-    if nd not in (16, 32, 64, 128) or nr % tile:
+def check_mag_geometry(nr: int, nd: int) -> None:
+    """Raises NotImplementedError for an nr x nd map that the
+    magnitude-only kernel (one range row per lane group, any number of
+    rows) does not take."""
+    if nd not in (16, 32, 64, 128):
         raise NotImplementedError(
-            f"slowtime_mag kernel: n_doppler in (16, 32, 64, 128) and "
-            f"n_range a multiple of {tile}, got {nr}x{nd} (long CPIs are "
-            f"queued in ROADMAP.md)")
-    return tile
+            f"slowtime_mag kernel: n_doppler in (16, 32, 64, 128), got "
+            f"{nr}x{nd} (long CPIs are queued in ROADMAP.md)")
 
 
 @kernels.counted
@@ -364,19 +394,20 @@ def slowtime_mag(re: torch.Tensor, im: torch.Tensor, mti_bypass=False, *,
                                  exact_mag)
         return mag, (~torch.isfinite(mag)).sum(dim=(-2, -1)).to(torch.int32)
     B, nr, nd = re.shape
-    tile = check_mag_geometry(nr, nd)
+    check_mag_geometry(nr, nd)
     dev = re.device
-    re = re.contiguous().to(torch.float32)
-    im = im.contiguous().to(torch.float32)
-    mats = _slowtime_matrices(nd, notch_mode, transient, str(dev))
-    mr, mi = mats[2:] if bool(mti_bypass) else mats[:2]
+    re = _aligned(re.to(torch.float32))
+    im = _aligned(im.to(torch.float32))
+    win, tw = _slowtime_tables(nd, str(dev))
     mag = torch.empty((B, nr, nd), dtype=torch.float32, device=dev)
     nonfinite = torch.zeros((B,), dtype=torch.int32, device=dev)
-    cfg = kernels.SlowtimeConfig(batch=B, R=nr, ND=nd, T=tile,
-                                 exact_mag=int(bool(exact_mag)))
+    cfg = _pulse_canceller(
+        kernels.SlowtimeConfig(batch=B, R=nr, ND=nd,
+                               exact_mag=int(bool(exact_mag))),
+        notch_mode, transient, mti_bypass)
     lib = kernels.load()
     err = lib.fmcw_slowtime_mag(
-        re.data_ptr(), im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+        re.data_ptr(), im.data_ptr(), win.data_ptr(), tw.data_ptr(),
         mag.data_ptr(), nonfinite.data_ptr(), ctypes.byref(cfg),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "slowtime_mag")

@@ -218,17 +218,17 @@ def slowtime_detect_split(re: torch.Tensor, im: torch.Tensor,
         return slowtime_detect_split_plain(re, im, halo_lo, halo_hi,
                                            mti_bypass, scale_override,
                                            row_offset, **kw)
-    cfg = _split_config(re, cfar, scale_override, peak_group_radius,
-                        exact_mag, row_offset, n_range_total,
-                        "slowtime_detect_split")
+    cfg = F._kernel_b_config(
+        _split_config(re, cfar, scale_override, peak_group_radius, exact_mag,
+                      row_offset, n_range_total, "slowtime_detect_split"),
+        cfar, notch_mode, transient, mti_bypass, "slowtime_detect_split")
     if re.dtype != torch.float32:
         raise ValueError(f"slowtime_detect_split kernel takes float32 "
                          f"planes, got {re.dtype}")
     B, nrl, nd = re.shape
     dev = re.device
-    planes = [x.contiguous() for x in (re, im, *halo_lo, *halo_hi)]
-    mats = F._slowtime_matrices(nd, notch_mode, transient, str(dev))
-    mr, mi = mats[2:] if bool(mti_bypass) else mats[:2]
+    planes = [F._aligned(x) for x in (re, im, *halo_lo, *halo_hi)]
+    win, tw = F._slowtime_tables(nd, str(dev))
     det = torch.empty((B, nrl, nd), dtype=torch.float32, device=dev)
     mag = torch.empty_like(det) if emit_mag else None
     row_max = torch.empty((B, nrl), dtype=torch.float32, device=dev)
@@ -236,7 +236,7 @@ def slowtime_detect_split(re: torch.Tensor, im: torch.Tensor,
     nonfinite = torch.zeros((B,), dtype=torch.int32, device=dev)
     lib = kernels.load()
     err = lib.fmcw_slowtime_detect_split(
-        *(x.data_ptr() for x in planes), mr.data_ptr(), mi.data_ptr(),
+        *(x.data_ptr() for x in planes), win.data_ptr(), tw.data_ptr(),
         det.data_ptr(), mag.data_ptr() if mag is not None else None,
         row_max.data_ptr(), n_dets.data_ptr(), nonfinite.data_ptr(),
         ctypes.byref(cfg), torch.cuda.current_stream(dev).cuda_stream)

@@ -17,8 +17,12 @@ stimulus, 1024x128 frames):
   overhead); and the first two beside a memory-only PyTorch call that moves
   the same bytes (an int16 -> float32 conversion; a copy of the two float32
   planes);
-* kernel B (``slowtime_detect``, per-cell and block scale,
-  ``peak_group_radius=2``);
+* kernel B's four entries — ``slowtime_detect`` per-cell and block scale
+  (``peak_group_radius=2``), ``slowtime_mag`` and the row-5 range shard
+  (``split_frontend.slowtime_detect_split`` on rows 256..512 with their
+  halo rows, sp = 4) — as back-to-back calls and by graph replay, each
+  beside ``torch.fft.fft(dim=-1)`` of the same complex64 planes (the
+  slow-time transform's share; no PyTorch call computes the whole entry);
 * the fixed kernels (``range_fft_fixed``, ``slowtime_detect_fixed``); the
   fixed range kernel's two entries — ``range_fft_fixed`` at batch 128 and
   the row-4 chirp shard (``split_frontend.range_frontend_fixed``, sp = 4)
@@ -152,18 +156,38 @@ def main() -> int:
         fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
         copy[name] = graph_ms(lambda: x.transpose(1, 2).contiguous())
         del z
-    # Kernel B and the fixed slow-time kernel.
+    # Kernel B's four entries, each beside torch.fft.fft of its planes; the
+    # fixed slow-time kernel.
     re, im = F.range_fft(iq)
     fre, fim, _ = FX.range_fft_fixed(iq)
+    nr, pgr = entry.n_range, 2
+    h, nrl = entry.cfar.halo_range + pgr, nr // SP
+    ext = torch.arange(nrl - h, 2 * nrl + h, device="cuda") % nr
+    lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+    shard = (re[:, core].contiguous(), im[:, core].contiguous(),
+             (re[:, lo].contiguous(), im[:, lo].contiguous()),
+             (re[:, hi].contiguous(), im[:, hi].contiguous()), False, 0, nrl)
+    entries = {"slowtime_mag": (lambda: F.slowtime_mag(re, im), re, im),
+               "slowtime_detect_split[sp4]": (
+                   lambda: SF.slowtime_detect_split(
+                       *shard, cfar=entry.cfar, n_range_total=nr,
+                       peak_group_radius=pgr), re[:, ext], im[:, ext])}
     for p in (entry, P.fast()):
-        kw = dict(cfar=p.cfar, peak_group_radius=2)
+        kw = dict(cfar=p.cfar, peak_group_radius=pgr)
         mode = p.cfar.scale_mode
-        ms[f"slowtime_detect[{mode}]"] = cuda_ms(
-            lambda: F.slowtime_detect(re, im, False, 0, **kw))
+        entries[f"slowtime_detect[{mode}]"] = (
+            lambda kw=kw: F.slowtime_detect(re, im, False, 0, **kw), re, im)
         if mode == "cell":
             ms["slowtime_detect_fixed[cell]"] = cuda_ms(
                 lambda: FX.slowtime_detect_fixed(fre, fim, False, 0, **kw))
-    del re, im, fre, fim
+    for name, (call, xr, xi) in entries.items():
+        z = torch.complex(xr, xi)
+        ms[name] = cuda_ms(call)
+        graph[name] = graph_ms(call)
+        fft[name] = cuda_ms(lambda: torch.fft.fft(z, dim=-1))
+        fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+    del re, im, fre, fim, shard
     # The main path, per-cell and block scale; fixed mode's fused route.
     fps = {}
     for p in (entry, P.fast()):

@@ -431,8 +431,8 @@ def test_array_wrappers_launch_kernels_for_cuda_tensors(as_if_cuda):
     mag, nf = F.slowtime_mag(re, im, True, exact_mag=True)
     assert tuple(mag.shape) == (2, p.n_range, p.n_doppler)
     cfg = as_if_cuda.calls[1][1][6]._obj
-    assert (cfg.batch, cfg.R, cfg.ND, cfg.T, cfg.exact_mag) == \
-        (2, 1024, 128, F.MAG_TILE_ROWS, 1)
+    assert (cfg.batch, cfg.R, cfg.ND, cfg.exact_mag, cfg.notch_mode,
+            cfg.transient_zero, cfg.bypass) == (2, 1024, 128, 1, 2, 1, 1)
     cube = torch.zeros((2, 8, p.n_range, p.n_doppler))
     det, scale = C3.cfar3d_detect(cube, 4, cfar=p.cfar, ref_angle=1)
     assert det.dtype == torch.float32 and scale.dtype == torch.int32
