@@ -7,7 +7,8 @@ Run from the repository root:
     python3 chip_smoke.py --nccl-only   # with 2+ GPUs: the NCCL mesh alone
 
 It builds the CUDA kernels from fmcw_tpu_torch/csrc/ (into build/; the two
-range kernels and kernel B without spills), holds each kernel against its plain PyTorch
+range kernels and both slow-time kernels without spills), holds each
+kernel against its plain PyTorch
 twin on the card (kernel A and the fixed range kernel also at every size
 they take: n_range 16..1024 with 8, 40 and 128 chirps, both entries of
 each; kernel B at n_doppler 16..128, both scale modes, notch 2 and 3,
@@ -21,7 +22,9 @@ fmcw_tpu_torch/parity.py, runs the tracker over 6 scans, and times the
 kernels and the path with CUDA events (kernel B's entries and the range
 kernels by CUDA-graph replay, eager beside them).  Then the same for
 fixed mode (the reference's 16-bit chain): its two kernels and the CFAR
-kernel against their twins, its main path on both routes (staged: plain
+kernel against their twins (0 values differing), the slow-time kernel and
+its split entry on exact round-half ties at eighth-turn Doppler bins
+against the golden numpy model, its main path on both routes (staged: plain
 stages and the CFAR kernel; fused: the two fixed-point kernels) at batch
 128, the golden frame's detections against the golden numpy model, and
 the kernels' timings.  Then the array-radar model (8 elements, 8 beams,
@@ -178,14 +181,15 @@ def range_fft_size_checks(dev):
 
 
 NO_SPILL_SOURCES = (" range_fft.cu", " range_fft_fixed.cu",
-                    " slowtime_detect.cu")
+                    " slowtime_detect.cu", " slowtime_detect_fixed.cu")
 
 
 def log_build(info) -> None:
     """The compiler's register and spill lines of every kernel, with the
-    entry names for the two range kernels (kernel A and the fixed one) and
-    kernel B; fails if an instantiation of any of them spills or keeps an
-    array in local memory (a stack frame)."""
+    entry names for the two range kernels (kernel A and the fixed one),
+    kernel B and the fixed slow-time kernel; fails if an instantiation of
+    any of them spills or keeps an array in local memory (a stack
+    frame)."""
     section, entry, bad = "", "", []
     for line in info.log.splitlines():
         if line.startswith("---"):
@@ -256,12 +260,13 @@ def bound_range_fft_fixed(B: int, nd: int, nr: int):
 def bound_slowtime_fixed(B: int, nr: int, nd: int, cfar):
     """Least time for slowtime_detect_fixed: int16 re/im read once, det and
     row maxima written once; FFT and BFP flops as above (FP64); MTI (8),
-    window (10), magnitude (6) and the CFAR's compare-adds per cell
-    (INT32).  Peak grouping is left out."""
+    window (10) and magnitude (6) per cell (INT32); the CFAR's compare-adds
+    per cell (FP32: the kernel counts the integer magnitudes in float, as
+    kernel B counts its map).  Peak grouping is left out."""
     cells = B * nr * nd
     nbytes = cells * 4 + cells * 4 + B * nr * 4 + B * 8
     fp64 = B * nr * (5 * nd * math.log2(nd) + 10 * nd)
-    return _bound(nbytes, 0, cells * (24 + _cfar_ops(cfar)), fp64)
+    return _bound(nbytes, cells * _cfar_ops(cfar), cells * 24, fp64)
 
 
 def bound_cfar_detect(B: int, nr: int, nd: int, cfar, integer: bool):
@@ -298,14 +303,16 @@ def hot_batch(p, batch: int):
 
 def fixed_kernel_checks(dev, pgr: int):
     """Phase 7: range_fft_fixed and slowtime_detect_fixed against their
-    twins at batch 128, 1024x128: quantized range values equal (0 differ)
-    and magnitudes within 2 LSB (the kernels' FP64 FFTs against the twins'
-    dense FP64 products; both quantize to the golden model's values, so the
-    differences are expected to be 0, and are counted), saturation counts
-    exact, the decision bit-identical to the plain integer CFAR and grouping
-    on the kernel's own magnitudes; range_fft_fixed also equal to the golden
-    numpy model on this batch and on seed 6's.  Returns ({row: max_abs_err},
-    the range planes)."""
+    twins at batch 128, 1024x128: quantized range values and magnitudes
+    equal (0 values differ: the kernels' FP64 FFTs and the twins' dense
+    FP64 products both quantize to the golden model's values, the
+    eighth-turn bins exact in both), saturation counts exact, the decision
+    bit-identical to the plain integer CFAR and grouping on the kernel's
+    own magnitudes; range_fft_fixed also equal to the golden numpy model
+    on this batch and on seed 6's; then at 256x64 the numeric options
+    (3-pulse MTI, passthrough, biased rounding) and a CFAR window outside
+    the unrolled walks on saturating frames.  Returns ({row:
+    max_abs_err}, the range planes)."""
     import torch
     import fmcw_tpu_torch as P
     from fmcw_tpu_torch.ops import frontend as F, frontend_fixed as FX
@@ -365,7 +372,7 @@ def fixed_kernel_checks(dev, pgr: int):
                     f"{'exact' if torch.equal(sat_d, psat_d) else 'DIFFERS'}"
                     f", decision {'bit-identical' if same else 'DIFFERS'}, "
                     f"n_dets {int(ndet.min())}..{int(ndet.max())}")
-                if err > 2 or not torch.equal(sat_d, psat_d) or not same:
+                if n_off or not torch.equal(sat_d, psat_d) or not same:
                     raise AssertionError(f"{name} disagrees with its twin")
         errs[name] = float(worst)
     # The numeric options at 256x64: 3-pulse MTI, passthrough transient,
@@ -384,14 +391,36 @@ def fixed_kernel_checks(dev, pgr: int):
     err_a = int(torch.maximum((sre.int() - pre.int()).abs().max(),
                               (sim.int() - pim.int()).abs().max()))
     err_b = int((mag - pmag).abs().max())
+    off_b = int((mag != pmag).sum())
     same = (torch.equal(det, d2) and torch.equal(rmax, r2)
             and torch.equal(ndet, n2) and torch.equal(s1, ps1)
             and torch.equal(s2, ps2))
     log(f"fixed kernels at 256x64 notch 3 {kw}: range {err_a} LSB, mag "
-        f"{err_b} LSB, saturation and decision "
+        f"{err_b} LSB ({off_b} differ), saturation and decision "
         f"{'exact' if same else 'DIFFER'}")
-    if err_a > 1 or err_b > 2 or not same:
+    if err_a > 1 or off_b or not same:
         raise AssertionError("fixed kernels disagree at 256x64 notch 3")
+    # A window outside the unrolled walks (13 x 23 cells), on the
+    # saturating stimulus: the slow-time kernel against its twin.
+    p = P.RadarParams(n_range=256, n_doppler=64, cfar=P.CfarParams(
+        ref_range=6, guard_range=2, ref_doppler=9, guard_doppler=2))
+    sre, sim, _ = FX.range_fft_fixed(torch.as_tensor(hot_batch(p, 8),
+                                                     device=dev))
+    det, mag, rmax, ndet, s2 = FX.slowtime_detect_fixed(
+        sre, sim, cfar=p.cfar, peak_group_radius=pgr, emit_mag=True)
+    pmag, ps2 = FX.slowtime_mag_fixed_plain(sre, sim)
+    d2, r2, n2, _ = F.detect_plain(mag, p.cfar, 0, pgr)
+    torch.cuda.synchronize()
+    off_b = int((mag != pmag).sum())
+    same = (torch.equal(det, d2) and torch.equal(rmax, r2)
+            and torch.equal(ndet, n2) and torch.equal(s2, ps2))
+    log(f"slowtime_detect_fixed at 256x64, 13x23 window, x40 frames: mag "
+        f"{off_b} differ, saturation {int(s2.sum())} and decision "
+        f"{'exact' if same else 'DIFFER'}, n_dets "
+        f"{int(ndet.min())}..{int(ndet.max())}")
+    if off_b or not same:
+        raise AssertionError("slowtime_detect_fixed disagrees with its twin "
+                             "on the wide window")
     return errs, (re, im)
 
 
@@ -470,6 +499,96 @@ def range_fft_fixed_size_checks(dev):
         log(f"range_fft_fixed n={n} nd {RANGE_CHIRPS} batch 2, both entries, "
             f"noise and x40, both roundings: 0 of {checked} values differ, "
             f"saturation exact")
+
+
+def eighth_ties(re, im, rounding: str = "unbiased"):
+    """``golden.reference.eighth_turn_ties`` of int16 planes (B, R, nd),
+    windowed with the MTI bypassed: boolean (B, R) arrays of the rows that
+    hold an eighth-turn tie, and of those whose sqrt(2)/2 terms are not 0
+    each."""
+    import numpy as np
+    from fmcw_tpu_torch.golden import fixed_point as gfx, reference
+    nd = re.shape[-1]
+    i_w, q_w, _ = gfx.window_apply(re.astype(np.int64), im.astype(np.int64),
+                                   gfx.hamming_coeffs(nd), 16, rounding)
+    return reference.eighth_turn_ties(i_w, q_w)
+
+
+def fixed_tie_checks(dev):
+    """Phase 7d: the fixed slow-time kernel and its split entry (sp 2 and 4,
+    neighbour halo rows sliced from the frame) on exact round-half ties at
+    eighth-turn Doppler bins, the MTI bypassed, against the port's golden
+    numpy model: magnitudes and detections equal (0 values differ), each
+    shard bit-equal to the whole-frame launch's rows.  Range-major planes
+    at 256x128 whose bin 16 ties in every row, its sqrt(2)/2 terms
+    cancelling without being 0 (golden.reference.doppler_eighth_tie_planes,
+    8 frames); the chirp-axis tie frames at 64x32 (doppler_eighth_tie_frames,
+    16 frames: the generator's chirp constants keep each range-bin-0 sum
+    below 2^15 only for short frames and few chirps) through the fixed range
+    kernel first.  Grouping radius 0, as the golden model."""
+    import numpy as np
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    p = P.RadarParams(n_range=256, n_doppler=128)
+    re, im = reference.doppler_eighth_tie_planes(11, 8, 256, 128)
+    gold = [reference.process_rows_fixed(a.astype(np.int64),
+                                         b.astype(np.int64), p,
+                                         mti_bypass=True)
+            for a, b in zip(re, im)]
+    cases = [("planes 256x128", p, torch.as_tensor(re, device=dev),
+              torch.as_tensor(im, device=dev), gold)]
+    q = P.RadarParams(n_range=64, n_doppler=32)
+    frames = reference.doppler_eighth_tie_frames(q, 16)
+    iq = torch.as_tensor(np.stack([pl.complex_to_iq(z) for z in frames]),
+                         device=dev)
+    fre, fim, _ = FX.range_fft_fixed(iq)
+    cases.append(("frames 64x32", q, fre, fim,
+                  [reference.process_frame_fixed(z, q, mti_bypass=True)
+                   for z in frames]))
+    for name, p, re, im, gold in cases:
+        tie, live = eighth_ties(re.cpu().numpy(), im.cpu().numpy())
+        # Every row of the planes ties with terms not 0 each; every frame
+        # has a tie row (its range bin 0).
+        tied = live.all() if name.startswith("planes") else \
+            tie.any(-1).all()
+        det, mag, _, ndet, _ = FX.slowtime_detect_fixed(
+            re, im, True, 0, cfar=p.cfar, emit_mag=True)
+        torch.cuda.synchronize()
+        off_m = int((mag.cpu().numpy() != np.stack([g[0] for g in gold]))
+                    .sum())
+        off_d = int((det.cpu().numpy() != np.stack([g[1] for g in gold]))
+                    .sum())
+        nr, h = p.n_range, p.cfar.halo_range
+        same = True
+        for sp in SPLIT_SPS:
+            nrl = nr // sp
+            for s in range(sp):
+                rows = slice(s * nrl, (s + 1) * nrl)
+                ext = torch.arange(s * nrl - h, (s + 1) * nrl + h,
+                                   device=dev) % nr
+                lo, hi = ext[:h], ext[h + nrl:]
+                d_s, m_s, _, _, _ = SF.slowtime_detect_fixed_split(
+                    re[:, rows], im[:, rows], (re[:, lo], im[:, lo]),
+                    (re[:, hi], im[:, hi]), True, 0, s * nrl, cfar=p.cfar,
+                    n_range_total=nr, emit_mag=True)
+                same &= (torch.equal(d_s, det[:, rows])
+                         and torch.equal(m_s, mag[:, rows]))
+        torch.cuda.synchronize()
+        log(f"eighth-turn ties, {name}: {int(tie.sum())} tie rows "
+            f"({int(live.sum())} with sqrt(2)/2 terms not 0 each) of "
+            f"{tie.size}; slowtime_detect_fixed vs the "
+            f"golden model: {off_m} magnitudes, {off_d} detections differ "
+            f"({int(ndet.sum())} detections); split sp {SPLIT_SPS} "
+            f"{'bit-equal' if same else 'DIFFER'}")
+        if off_m or off_d or not same or not tied:
+            raise AssertionError(f"slowtime_detect_fixed on the eighth-turn "
+                                 f"ties ({name}) differs from the golden "
+                                 f"model or its split entry, or the "
+                                 f"stimulus does not tie")
 
 
 def cfar_kernel_checks(dev, planes):
@@ -627,6 +746,7 @@ def fixed_mode(card: str, dev):
     errs, planes = fixed_kernel_checks(dev, pgr)
     saturation_check(dev)
     range_fft_fixed_size_checks(dev)
+    fixed_tie_checks(dev)
     cerrs, imag = cfar_kernel_checks(dev, planes)
     launches, fps, report = fixed_main_path(card, dev)
 
@@ -663,16 +783,26 @@ def fixed_mode(card: str, dev):
                      plain_ms=plain, bound_ms=bound, bound_by=by,
                      library_ms=lib))
     re, im = planes
+    # The slow-time transform's share: torch.fft.fft of the same planes in
+    # the kernel's FP64 (no PyTorch call computes the whole entry).
+    zf = torch.complex(re.double(), im.double())
+    fft_st = graph_ms(lambda: torch.fft.fft(zf, dim=-1))
+    del zf
+    st_eager = {}
     for p in (entry, P.fast()):
         mode = p.cfar.scale_mode
         name = f"slowtime_detect_fixed[{mode}]"
         kw = dict(cfar=p.cfar, peak_group_radius=pgr)
-        ms = cuda_ms(lambda: FX.slowtime_detect_fixed(re, im, False, 0, **kw))
+        ms = graph_ms(lambda: FX.slowtime_detect_fixed(re, im, False, 0, **kw))
+        st_eager[mode] = cuda_ms(
+            lambda: FX.slowtime_detect_fixed(re, im, False, 0, **kw))
         plain = cuda_ms(lambda: FX.slowtime_detect_fixed_plain(
             re, im, False, 0, **kw), 2, 1)
         bound, by = bound_slowtime_fixed(BATCH, nr, nd, p.cfar)
-        log(f"{name}: {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} "
-            f"ms ({by}) at batch {BATCH} ({card})")
+        log(f"{name}: {ms:.4f} ms (graph; eager {st_eager[mode]:.4f}), plain "
+            f"{plain:.4f} ms, torch.fft.fft complex128 of its planes "
+            f"{fft_st:.4f} ms, bound {bound:.4f} ms ({by}) at batch {BATCH} "
+            f"({card})")
         times[name] = ms
         rows.append(dict(name=name, route="cuda",
                          source=src + "slowtime_detect_fixed.cu",
@@ -736,7 +866,11 @@ def fixed_mode(card: str, dev):
                   "stages_ms": stages,
                   "range_fft_fixed": {"graph_ms": times["range_fft_fixed"],
                                       "eager_ms": eager,
-                                      "corner_turn_copy_ms": turn}}
+                                      "corner_turn_copy_ms": turn},
+                  "slowtime_detect_fixed": {
+                      "graph_ms": {m: times[f"slowtime_detect_fixed[{m}]"]
+                                   for m in st_eager},
+                      "eager_ms": st_eager, "fft_complex128_ms": fft_st}}
 
 
 # ---------------------------------------------------------------------------
@@ -1188,13 +1322,13 @@ def bound_slowtime_split(B: int, nrl: int, nd: int, h: int, cfar):
 def bound_slowtime_fixed_split(B: int, nrl: int, nd: int, h: int, cfar):
     """Least time for the fixed split entry: int16 rows and halo rows read
     once, det and row maxima written once; FFT and BFP (FP64) and MTI,
-    window and magnitude (INT32) on all nrl + 2h rows, the integer CFAR on
-    the shard's cells."""
+    window and magnitude (INT32) on all nrl + 2h rows, the CFAR on the
+    shard's cells (FP32, as ``bound_slowtime_fixed``)."""
     rows = B * (nrl + 2 * h)
     cells = B * nrl * nd
     nbytes = rows * nd * 4 + cells * 4 + B * nrl * 4 + B * 8
     fp64 = rows * (5 * nd * math.log2(nd) + 10 * nd)
-    return _bound(nbytes, 0, rows * nd * 24 + cells * _cfar_ops(cfar), fp64)
+    return _bound(nbytes, cells * _cfar_ops(cfar), rows * nd * 24, fp64)
 
 
 def split_kernel_checks(dev, pgr: int):
@@ -1207,8 +1341,8 @@ def split_kernel_checks(dev, pgr: int):
     from the frame, bit-equal to the matching rows of the whole-frame
     kernel (det, mag, row maxima) with counts summing to the frame's; the
     shards' top-K merged in shard order equal to the frame's top-K; each
-    entry against its plain twin (magnitudes within TOL / 2 LSB, the
-    decision bit for bit on the kernel's magnitudes).  The fixed checks
+    entry against its plain twin (magnitudes within TOL, fixed ones equal,
+    the decision bit for bit on the kernel's magnitudes).  The fixed checks
     also run on seam_batch.  Returns ({row: max_abs_err}, the inputs)."""
     import torch
     import fmcw_tpu_torch as P
@@ -1291,7 +1425,7 @@ def split_kernel_checks(dev, pgr: int):
                     key = ("slowtime_detect_fixed_split" if fixed
                            else "slowtime_detect_split")
                     errs[key] = max(errs[key], merr)
-                    if not twin_ok or merr > (2 if fixed else TOL * mpeak):
+                    if not twin_ok or merr > (0 if fixed else TOL * mpeak):
                         raise AssertionError(
                             f"{key} sp={sp} shard {s} disagrees with its "
                             f"plain twin (mag err {merr:g})")
@@ -1475,14 +1609,20 @@ def split_timings(card: str, dev, pgr: int, iq, errs, launches):
                 (re[:, lo].contiguous(), im[:, lo].contiguous()),
                 (re[:, hi].contiguous(), im[:, hi].contiguous()), False, 0,
                 s * nrl)
-        # Kernel B's split entry by graph replay (eager beside it); the
-        # fixed one eagerly.
+        # By graph replay, eager beside it; the fixed entry also beside
+        # torch.fft.fft (complex128) of its planes, the halo rows included.
         eager = cuda_ms(lambda: kern(*args, **skw))
-        ms = eager if fixed else graph_ms(lambda: kern(*args, **skw))
+        ms = graph_ms(lambda: kern(*args, **skw))
         plain = cuda_ms(lambda: twin(*args, **skw), 2, 1)
+        fft = ""
+        if fixed:
+            zf = torch.complex(re[:, ext].double(), im[:, ext].double())
+            fft = (f", torch.fft.fft complex128 of its planes "
+                   f"{graph_ms(lambda: torch.fft.fft(zf, dim=-1)):.4f} ms")
+            del zf
         log(f"{name} (range shard {BATCH}x{nrl}x{nd}, halo {h}): {ms:.4f} "
-            f"ms{'' if fixed else f' (graph; eager {eager:.4f})'}, plain "
-            f"{plain:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
+            f"ms (graph; eager {eager:.4f}), plain {plain:.4f} ms{fft}, "
+            f"bound {bound:.4f} ms ({by}) ({card})")
         rows.append(dict(name=name, route="cuda",
                          source=src + ("slowtime_detect_fixed.cu" if fixed
                                        else "slowtime_detect.cu"),

@@ -1,7 +1,8 @@
 // Shared device code of the CFAR decision: the 2D OS-CFAR decided by
 // counting (per-cell or block adaptive scale) and peak grouping, on a map
 // tile held in shared memory.  Used by slowtime_detect.cu (float32 maps),
-// slowtime_detect_fixed.cu (integer maps) and cfar_detect.cu (both).
+// slowtime_detect_fixed.cu (integer maps held in float) and cfar_detect.cu
+// (float32 and integer maps).
 //
 // The counting form (fmcw_tpu/ops/cfar_pallas.py::_kernel_detect): for the
 // k-th largest training value est (k = n_ref - rank_idx),
@@ -127,6 +128,39 @@ __device__ __forceinline__ int detect_threshold(int cut, int sc) {
     return floor_div(cut - 1, sc) + 1;
 }
 
+// How a tile's CFAR statistics are computed.  MapSem<V>: in the map's own
+// type (float maps: the _rn operations above; int maps: integer
+// arithmetic).  IntInFloat: an integer map held in float, so that its
+// compares count on the FMA pipe (cfar_tile.cuh).  Its values and column
+// sums must stay below 2^24 (exact in float); box and block sums
+// accumulate in int (Acc), and the thresholds are the integer semantics'
+// (floor mean, mean + (mean >> 1), mean >> 1, ceil(cut / sc)), converted
+// exactly: every compare is then the integer one.
+template <typename V>
+struct MapSem {
+    using Acc = V;
+    __device__ static V acc(V v) { return v; }
+    __device__ static void thresholds(V sum, int n, V& t_hi, V& t_lo) {
+        scale_thresholds(sum, n, t_hi, t_lo);
+    }
+    __device__ static V q(V cut, int sc) { return detect_threshold(cut, sc); }
+};
+
+struct IntInFloat {
+    using Acc = int;
+    __device__ static int acc(float v) { return __float2int_rn(v); }
+    __device__ static void thresholds(int sum, int n, float& t_hi,
+                                      float& t_lo) {
+        int hi, lo;
+        scale_thresholds(sum, n, hi, lo);
+        t_hi = __int2float_rn(hi);
+        t_lo = __int2float_rn(lo);
+    }
+    __device__ static float q(float cut, int sc) {
+        return __int2float_rn(detect_threshold(__float2int_rn(cut), sc));
+    }
+};
+
 // The OS-CFAR decision cut > est * sc of the cell at tile row e, column d.
 template <typename V>
 __device__ __forceinline__ bool os_detect(const V* t, int D, int e, int d,
@@ -146,24 +180,26 @@ __device__ __forceinline__ bool os_detect(const V* t, int D, int e, int d,
 
 // Block (clutter-map) scale of the block rows of an E x D tile whose
 // 3x3-block neighbourhood lies inside it (block rows 2 .. E/sb - 3).  The
-// tile's first row must start a block.  bsum/bnb hold E/sb * D/sb values,
-// bhi/blo/bscale as many ints; bscale[lb * (D/sb) + db] is the result.
-// All threads of the block call it.
-template <typename V>
+// tile's first row must start a block.  bsum/bnb hold E/sb * D/sb sums
+// (Sem::Acc), bhi/blo/bscale as many ints; bscale[lb * (D/sb) + db] is the
+// result.  All threads of the block call it.
+template <typename V, typename Sem = MapSem<V>>
 __device__ void block_scale_tile(const V* mag_s, int E, int D, int sb,
                                  int n_blk, int k_blk, const CfarGeom& g,
-                                 V* bsum, V* bnb, int* bhi, int* blo,
+                                 typename Sem::Acc* bsum,
+                                 typename Sem::Acc* bnb, int* bhi, int* blo,
                                  int* bscale) {
+    using A = typename Sem::Acc;
     const int nbd = D / sb;
     const int nbr = E / sb;
     const int nblk = nbr * nbd;
     for (int idx = threadIdx.x; idx < nblk; idx += blockDim.x) {
         const int lb = idx / nbd, db = idx % nbd;
-        V s = V(0);
+        A s = A(0);
         for (int j = 0; j < sb; ++j) {
             const V* col = mag_s + lb * sb * D + db * sb + j;
-            V rs = col[0];
-            for (int i = 1; i < sb; ++i) rs = vadd(rs, col[i * D]);
+            A rs = Sem::acc(col[0]);
+            for (int i = 1; i < sb; ++i) rs = vadd(rs, Sem::acc(col[i * D]));
             s = (j == 0) ? rs : vadd(s, rs);
         }
         bsum[idx] = s;
@@ -172,12 +208,12 @@ __device__ void block_scale_tile(const V* mag_s, int E, int D, int sb,
     for (int idx = threadIdx.x; idx < nblk; idx += blockDim.x) {
         const int lb = idx / nbd, db = idx % nbd;
         if (lb < 1 || lb >= nbr - 1) continue;
-        V acc = V(0);
+        A acc = A(0);
         bool first = true;
         for (int di = -1; di <= 1; ++di) {
             const int dbn = (db + di + nbd) % nbd;
             for (int dr = -1; dr <= 1; ++dr) {
-                const V v = bsum[(lb + dr) * nbd + dbn];
+                const A v = bsum[(lb + dr) * nbd + dbn];
                 acc = first ? v : vadd(acc, v);
                 first = false;
             }
@@ -188,14 +224,15 @@ __device__ void block_scale_tile(const V* mag_s, int E, int D, int sb,
     for (int idx = threadIdx.x; idx < nblk; idx += blockDim.x) {
         const int lb = idx / nbd, db = idx % nbd;
         if (lb < 1 || lb >= nbr - 1) continue;
-        V t_hi, t_lo;
+        A t_hi, t_lo;
         scale_thresholds(bnb[idx], n_blk, t_hi, t_lo);
         int hi = 0, lo = 0;
         for (int i = 0; i < sb; ++i) {
             const V* row = mag_s + (lb * sb + i) * D + db * sb;
             for (int j = 0; j < sb; ++j) {
-                hi += row[j] > t_hi;
-                lo += row[j] >= t_lo;
+                const A v = Sem::acc(row[j]);
+                hi += v > t_hi;
+                lo += v >= t_lo;
             }
         }
         bhi[idx] = hi;
@@ -216,25 +253,6 @@ __device__ void block_scale_tile(const V* mag_s, int E, int D, int sb,
         bscale[idx] = classify(hi, lo, k_blk, g);
     }
     __syncthreads();
-}
-
-// CFAR decision of tile rows e0 .. e0 + rows - 1 into det_s (rows x D):
-// the CUT where it passes, else 0.  Block mode reads the scale of each
-// cell's block from bscale (block_scale_tile); so != 0 overrides the scale.
-template <typename V>
-__device__ void decide_rows(const V* mag_s, V* det_s, int e0, int rows, int D,
-                            const int* bscale, int sb, bool block_mode, int so,
-                            const CfarGeom& g) {
-    const int nbd = block_mode ? D / sb : 1;
-    for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
-        const int e = e0 + idx / D;
-        const int d = idx % D;
-        const V cut = mag_s[e * D + d];
-        int sc = block_mode ? bscale[(e / sb) * nbd + d / sb]
-                            : percell_scale(mag_s, D, e, d, g);
-        if (so != 0) sc = so;
-        det_s[idx] = os_detect(mag_s, D, e, d, cut, sc, g) ? cut : V(0);
-    }
 }
 
 // Peak grouping: is the detection m at det_s row er (map row r), column d
@@ -270,13 +288,13 @@ __device__ __forceinline__ bool nonfinite(int) { return false; }
 // Grouping and stores of a kernel tile's T rows (map rows r0 .. r0+T-1):
 // det_s holds the decisions of map rows r0-pgr .. r0+T+pgr-1, mag_s the
 // magnitudes with the tile's first row at mag_s row H.  Writes det (and
-// mag when non-null) at out0, the row maxima into rmax_s[T] (ordered ints,
-// zeroed by the caller) and adds the detection and non-finite counts into
-// counts[0] and counts[1].
-template <typename V>
+// mag when non-null) at out0, converted to the output type O, the row
+// maxima into rmax_s[T] (ordered ints of V, zeroed by the caller) and adds
+// the detection and non-finite counts into counts[0] and counts[1].
+template <typename V, typename O>
 __device__ void group_store(const V* det_s, const V* mag_s, int T, int H,
                             int pgr, int R, int D, int r0, size_t out0,
-                            V* det, V* mag, int* rmax_s, int* counts) {
+                            O* det, O* mag, int* rmax_s, int* counts) {
     int my_dets = 0, my_nf = 0;
     for (int idx = threadIdx.x; idx < T * D; idx += blockDim.x) {
         const int t = idx / D;
@@ -287,14 +305,14 @@ __device__ void group_store(const V* det_s, const V* mag_s, int T, int H,
         if (pgr > 0 && m > V(0) &&
             !group_keep(det_s, D, er, r0 + t, d, R, pgr, m))
             out = V(0);
-        det[out0 + idx] = out;
+        det[out0 + idx] = static_cast<O>(out);
         if (out > V(0)) {
             ++my_dets;
             atomicMax(&rmax_s[t], ordered(out));
         }
         const V mg = mag_s[(H + t) * D + d];
         if (nonfinite(mg)) ++my_nf;
-        if (mag) mag[out0 + idx] = mg;
+        if (mag) mag[out0 + idx] = static_cast<O>(mg);
     }
     if (my_dets) atomicAdd(&counts[0], my_dets);
     if (my_nf) atomicAdd(&counts[1], my_nf);

@@ -23,8 +23,10 @@
 // the same for every cell of the strip (at compile time for the windows
 // walked unrolled, walk_training).
 //
-// Templated on the map type: float maps (every add __fadd_rn, as the
-// twin's) or int maps (the fixed chain's integer semantics).
+// Templated on the map type, float maps (every add __fadd_rn, as the
+// twin's) or int maps, and on how its thresholds are computed
+// (cfar_common.cuh: MapSem, the map type's own arithmetic; IntInFloat, the
+// fixed chain's integer semantics on an integer map held in float).
 #pragma once
 
 #include <stdint.h>
@@ -226,10 +228,11 @@ __device__ __forceinline__ void walk_training(const V* col0, int D, int d,
 
 // The decisions of one strip (cells at tile rows e0 .. e0 + kStrip - 1,
 // column d) as bits (bit s: the cell passes).  Per-cell scale (bscale
-// null): the thresholds from the column sums of decided rows i0 .. (tile
-// rows e0 ..); block scale: bscale[(e / sb) * (D / sb) + d / sb]; so != 0
-// overrides the scale (and skips the scale's pass).
-template <typename V>
+// null): the thresholds (Sem::thresholds) from the box sums (in Sem::Acc)
+// of the column sums of decided rows i0 .. (tile rows e0 ..); block scale:
+// bscale[(e / sb) * (D / sb) + d / sb]; so != 0 overrides the scale (and
+// skips the scale's pass).
+template <typename V, typename Sem>
 __device__ __forceinline__ unsigned strip_decide(
         const V* mag_s, int D, int e0, int i0, int d, const V* cs_full,
         const V* cs_guard, const int* bscale, int sb, int so,
@@ -246,17 +249,18 @@ __device__ __forceinline__ unsigned strip_decide(
         for (int s = 0; s < S; ++s)
             sc[s] = bscale[((e0 + s) / sb) * nbd + d / sb];
     } else {
+        using A = typename Sem::Acc;
         V t_hi[S], t_lo[S];
 #pragma unroll
         for (int s = 0; s < S; ++s) {
             const V* cf = cs_full + (i0 + s) * D;
             const V* cg = cs_guard + (i0 + s) * D;
-            V full = sum_identity<V>(), guard = sum_identity<V>();
+            A full = sum_identity<A>(), guard = sum_identity<A>();
             for (int j = -g.hd; j <= g.hd; ++j)
-                full = vadd(full, cf[wrap_col(d + j, D)]);
+                full = vadd(full, Sem::acc(cf[wrap_col(d + j, D)]));
             for (int j = -g.gd; j <= g.gd; ++j)
-                guard = vadd(guard, cg[wrap_col(d + j, D)]);
-            scale_thresholds(vsub(full, guard), g.n_ref, t_hi[s], t_lo[s]);
+                guard = vadd(guard, Sem::acc(cg[wrap_col(d + j, D)]));
+            Sem::thresholds(vsub(full, guard), g.n_ref, t_hi[s], t_lo[s]);
         }
         Count<V> hl[S];
 #pragma unroll
@@ -274,7 +278,7 @@ __device__ __forceinline__ unsigned strip_decide(
     V q[S];
 #pragma unroll
     for (int s = 0; s < S; ++s)
-        q[s] = detect_threshold(mag_s[(e0 + s) * D + d], sc[s]);
+        q[s] = Sem::q(mag_s[(e0 + s) * D + d], sc[s]);
     Count<V> cnt[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) cnt[s] = 0;
@@ -295,7 +299,7 @@ __device__ __forceinline__ unsigned strip_decide(
 // every thread has finished reading them before det_s is written);
 // block scale: bscale.  At most 64 / kStrip units a thread (the decisions
 // are held as bits across a barrier).  All threads of the block call it.
-template <typename V>
+template <typename V, typename Sem = MapSem<V>>
 __device__ void decide_tile(const V* mag_s, V* det_s, int e_first, int rows,
                             int D, const V* cs_full, const V* cs_guard,
                             const int* bscale, int sb, int so,
@@ -305,8 +309,9 @@ __device__ void decide_tile(const V* mag_s, V* det_s, int e_first, int rows,
     int sh = 0;
     for (int u = threadIdx.x; u < units; u += blockDim.x, sh += kStrip) {
         const int i0 = strip_row0(u, rows, D);
-        bits |= (uint64_t)strip_decide(mag_s, D, e_first + i0, i0, u % D,
-                                       cs_full, cs_guard, bscale, sb, so, g)
+        bits |= (uint64_t)strip_decide<V, Sem>(mag_s, D, e_first + i0, i0,
+                                               u % D, cs_full, cs_guard,
+                                               bscale, sb, so, g)
                 << sh;
     }
     __syncthreads();

@@ -97,7 +97,7 @@
 
 #include <utility>
 
-#include "fft_stockham.cuh"
+#include "fixed_point.cuh"
 
 namespace {
 
@@ -255,20 +255,9 @@ __device__ __forceinline__ void dft(double (&xr)[M], double (&xi)[M]) {
     dif<N, N / 2, kOff, M>(xr, xi);
 }
 
-// Loads the compiler may not hoist out of the group loop (a volatile asm):
-// the window and twiddles are read per group, not held in registers.
-__device__ __forceinline__ int ld_nc(const int* p) {
-    int v;
-    asm volatile("ld.global.nc.s32 %0, [%1];" : "=r"(v) : "l"(p));
-    return v;
-}
-
-__device__ __forceinline__ double2 ld_nc(const double2* p) {
-    double2 v;
-    asm volatile("ld.global.nc.v2.f64 {%0, %1}, [%2];"
-                 : "=d"(v.x), "=d"(v.y) : "l"(p));
-    return v;
-}
+// The window and twiddles are read per group (fmcw::ld_nc), not held in
+// registers.
+using fmcw::ld_nc;
 
 // An int of magnitude below 2^31 as a double, exactly: the bits of 2^52 +
 // 2^31 + v, minus 2^52 + 2^31 (one FP64 add; the conversion instruction

@@ -9,7 +9,13 @@
 // H rows just below and above it, exchanged from the neighbouring shards
 // (FrameRows), so no row wraps; grouping breaks ties by GLOBAL row ids
 // (row_off + r, modulo r_total).
+//
+// Both kernels run a row's slow-time FFT on the lanes of a warp (Row), keep
+// the tile in shared memory as TileLayout says, and set their shared-memory
+// limit once per process and device (prepare).
 #pragma once
+
+#include <cuda_runtime.h>
 
 // Mirrors SlowtimeConfig in kernels.py (ctypes.Structure, all int32).
 struct SlowtimeConfig {
@@ -31,6 +37,64 @@ namespace fmcw {
 
 constexpr int kMaxRows = 128;   // T + 2H
 constexpr int kMaxBlk = 256;    // block-grid cells of a tile
+constexpr int kMaxSmem = 232448;        // 227 KB, an H100 block's most
+constexpr int kMaxDevices = 64;
+
+// The lane plan of a row's slow-time FFT: L = min(32, ND) lanes a row, P =
+// ND / L chirps a lane (chirp s = l P + p), G = 32 / L rows a warp.
+template <int ND>
+struct Row {
+    static constexpr int L = ND < 32 ? ND : 32;     // lanes per row
+    static constexpr int P = ND / L;                // chirps per lane
+    static constexpr int G = 32 / L;                // rows per warp
+    static constexpr int kLog2L = L == 32 ? 5 : 4;
+};
+
+// A detection tile's shared memory, in 4-byte words: the E x ND magnitude
+// tile; the decided rows' det tile (rows = T + 2 pgr) with, per-cell (and
+// no override), the guard column sums after it (the full column sums
+// alias the det tile) or, block scale, the block statistics; the T row
+// maxima and n_counts counters.
+struct TileLayout {
+    int det, cs_guard, blk, rmax, counts, total;
+};
+
+__host__ __device__ inline TileLayout tile_layout(const SlowtimeConfig& c,
+                                                  int n_counts) {
+    const int E = c.T + 2 * c.H;
+    const int rows = c.T + 2 * c.pgr;
+    TileLayout s;
+    s.det = E * c.ND;
+    s.cs_guard = s.blk = s.det + rows * c.ND;
+    const int region = c.block_mode ? rows * c.ND + 5 * kMaxBlk
+                                    : (c.so ? 1 : 2) * rows * c.ND;
+    s.rmax = s.det + region;
+    s.counts = s.rmax + c.T;
+    s.total = s.counts + n_counts;
+    return s;
+}
+
+// The shared-memory limit and carve-out of a kernel, set once per process
+// and device (every configuration's layout fits kMaxSmem; two per-cell
+// tiles of 1024 x 128 fit an SM).
+template <typename K>
+cudaError_t prepare(K* kernel, bool (&ready)[kMaxDevices]) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (!ready[dev]) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                cudaSharedmemCarveoutMaxShared);
+        if (err != cudaSuccess) return err;
+        ready[dev] = true;
+    }
+    return cudaSuccess;
+}
 
 // One frame's re/im planes, row-major (R, ND): row g of a tile (r0 - H <=
 // g < r0 + T + H) wraps modulo R, or, with kHalo (a range shard), comes

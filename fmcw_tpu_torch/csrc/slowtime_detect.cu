@@ -71,12 +71,12 @@
 namespace {
 
 using fmcw::kMaxBlk;
+using fmcw::kMaxSmem;
+using fmcw::Row;
 constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMagWarps = 8;            // magnitude-only kernel
 constexpr int kMagRowsPerWarp = 4;
-constexpr int kMaxSmem = 232448;        // 227 KB, an H100 block's most
-constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
@@ -99,14 +99,6 @@ struct Params {
 // ---------------------------------------------------------------------------
 // The slow-time chain of one range row
 // ---------------------------------------------------------------------------
-
-template <int ND>
-struct Row {
-    static constexpr int L = ND < 32 ? ND : 32;     // lanes per row
-    static constexpr int P = ND / L;                // chirps per lane
-    static constexpr int G = 32 / L;                // rows per warp
-    static constexpr int kLog2L = L == 32 ? 5 : 4;
-};
 
 // A lane's constants: the DIF stage twiddles W_2h^(l mod h) (upper lanes),
 // W_ND^(p k1) for its output column k1 = bit_reverse(l), its window values.
@@ -274,26 +266,10 @@ __device__ __forceinline__ void slowtime_row(const float* rr, const float* ri,
 // Detection kernel
 // ---------------------------------------------------------------------------
 
-// Shared memory, in floats: the E x ND magnitude tile; the decided rows'
-// det tile (rows = T + 2 pgr) with, per-cell (and no override), the guard
-// column sums after it (the full column sums alias the det tile) or, block
-// scale, the block statistics; the T row maxima and two counts.
-struct Layout {
-    int det, cs_guard, blk, rmax, counts, total;
-};
-
-__host__ __device__ inline Layout layout(const SlowtimeConfig& c) {
-    const int E = c.T + 2 * c.H;
-    const int rows = c.T + 2 * c.pgr;
-    Layout s;
-    s.det = E * c.ND;
-    s.cs_guard = s.blk = s.det + rows * c.ND;
-    const int region = c.block_mode ? rows * c.ND + 5 * kMaxBlk
-                                    : (c.so ? 1 : 2) * rows * c.ND;
-    s.rmax = s.det + region;
-    s.counts = s.rmax + c.T;
-    s.total = s.counts + 2;
-    return s;
+// Shared memory, in floats (fmcw::TileLayout), with two counts: n_dets and
+// the non-finite cells.
+__host__ __device__ inline fmcw::TileLayout layout(const SlowtimeConfig& c) {
+    return fmcw::tile_layout(c, 2);
 }
 
 inline bool detect_config_ok(const SlowtimeConfig& c) {
@@ -313,7 +289,7 @@ slowtime_detect_kernel(const Params p) {
     const SlowtimeConfig& c = p.c;
     const int E = c.T + 2 * c.H;
     const int rows = c.T + 2 * c.pgr;
-    const Layout lay = layout(c);
+    const fmcw::TileLayout lay = layout(c);
     float* mag_s = smem;
     float* det_s = smem + lay.det;
     float* cs_guard = smem + lay.cs_guard;
@@ -431,33 +407,11 @@ slowtime_mag_kernel(const Params p) {
 // Launch
 // ---------------------------------------------------------------------------
 
-// The shared-memory limit and carve-out are set once per process and
-// device (every configuration's layout fits kMaxSmem; two per-cell tiles
-// of 1024 x 128 fit an SM).
-template <typename K>
-cudaError_t prepare(K* kernel, bool (&ready)[kMaxDevices]) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-    if (!ready[dev]) {
-        err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-        if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(
-                kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                cudaSharedmemCarveoutMaxShared);
-        if (err != cudaSuccess) return err;
-        ready[dev] = true;
-    }
-    return cudaSuccess;
-}
-
 template <int ND, bool kHalo>
 int launch(const Params& p, cudaStream_t stream) {
-    static bool ready[kMaxDevices] = {};
+    static bool ready[fmcw::kMaxDevices] = {};
     auto* kernel = slowtime_detect_kernel<ND, kHalo>;
-    const cudaError_t err = prepare(kernel, ready);
+    const cudaError_t err = fmcw::prepare(kernel, ready);
     if (err != cudaSuccess) return (int)err;
     const size_t smem = (size_t)layout(p.c).total * sizeof(float);
     const dim3 grid(p.c.R / p.c.T, p.c.batch);

@@ -6,6 +6,10 @@ range bin 100 (Doppler 5.0, amp 8000) and range bin 500 (Doppler -10.0, amp
 5000), uniform noise +-20.
 ``process_frame_fixed`` — the fixed-point chain composed of the
 ``fixed_point`` stages: the oracle of the port's ``mode="fixed"``.
+``doppler_eighth_tie_frames`` / ``doppler_eighth_tie_planes`` (the port's
+own) — frames, or range-major planes, that put exact round-half ties on
+eighth-turn Doppler bins: the stimuli that tell an exact Doppler transform
+from a rounded one; ``eighth_turn_ties`` finds those ties in windowed rows.
 """
 
 from __future__ import annotations
@@ -79,7 +83,20 @@ def process_frame_fixed(frame_iq: np.ndarray, params: RadarParams | None = None,
     i_v, q_v = fx.bfp_fft(i_v, q_v, axis=1)
 
     i_v, q_v = i_v.T, q_v.T  # corner turn -> (n_range, n_doppler)
+    return process_rows_fixed(i_v, q_v, p, mti_bypass, scale_override,
+                              mti_transient, window_rounding)
 
+
+def process_rows_fixed(i_v: np.ndarray, q_v: np.ndarray,
+                       params: RadarParams | None = None,
+                       mti_bypass: bool = False, scale_override: int = 0,
+                       mti_transient: str = "zero",
+                       window_rounding: str = "unbiased"):
+    """The slow-time half of ``process_frame_fixed`` on one range-major
+    (n_range, n_doppler) pair of integer planes (the range stage's output):
+    MTI, Doppler window, BFP FFT, magnitude, OS-CFAR.  Returns (mag_map,
+    det_map) int64."""
+    p = params or RadarParams()
     i_v, q_v = fx.mti_notch(i_v, q_v, axis=1, mode=p.notch_mode,
                             bypass=mti_bypass, transient=mti_transient)
 
@@ -91,3 +108,154 @@ def process_frame_fixed(frame_iq: np.ndarray, params: RadarParams | None = None,
     mag = fx.magnitude(i_v, q_v)
     det = fx.os_cfar_2d(mag, p.cfar, scale_override)
     return mag, det
+
+
+def doppler_eighth_tie_frames(p: RadarParams, n_frames: int, seed: int = 0):
+    """Frames (n_doppler, n_range) complex whose chirp s is a constant c_s
+    (I only) but for its first sample x_s: range bin 0 of chirp s is then the
+    integer D_s = sum of the windowed samples (below 2^15, so the range
+    stage's BFP leaves it as it is: n_range <= 256), and x_s sets it to any
+    integer near the constant's.  D_4, D_5 and D_7 are chosen so that, with
+    the MTI bypassed, the Doppler-windowed row 0 has class sums (over chirps
+    s = r mod 8) V_1 = V_5 and V_3 = V_7 (the sqrt(2)/2 terms of its
+    eighth-turn bins cancel) and bin n_doppler/8's real part V_0 - V_4 is an
+    exact half-LSB tie of the row's BFP scaling (exponent >= 1).  Unbiased
+    window rounding; n_doppler <= 64 (at 128 the edge chirps reach too
+    little: ``doppler_eighth_tie_planes``)."""
+    nd, nr, cw = p.n_doppler, p.n_range, p.coef_width
+    coef_r = fx.hamming_coeffs(nr, cw)
+    coef_d = fx.hamming_coeffs(nd, cw)
+    xs = np.arange(-32768, 32768)
+
+    def win(x, coef):
+        x = np.asarray(x, np.int64)
+        return fx.window_apply(x, np.zeros_like(x),
+                               np.broadcast_to(coef, x.shape), cw,
+                               "unbiased")[0]
+
+    def shift_of(w):
+        z = np.fft.fft(w.astype(float))
+        peak = np.maximum(np.abs(z.real), np.abs(z.imag)).max()
+        return int(np.ceil(np.log2(peak / 32768.0)))
+
+    first = win(xs, coef_r[0])                    # windowed first sample
+    rng = np.random.default_rng(seed)
+    frames = []
+    while len(frames) < n_frames:
+        cs = rng.integers(60, 200, nd)
+        base = np.array([win(np.full(nr - 1, c), coef_r[1:]).sum()
+                         for c in cs])
+        x0 = cs.copy()
+        ok = True
+
+        def row():
+            return base + first[x0 + 32768]
+
+        def set_v(s, want):
+            """x0[s] so that chirp s's windowed D_s is ``want``."""
+            hit = np.flatnonzero(win(base[s] + first, coef_d[s]) == want)
+            if hit.size:
+                x0[s] = xs[hit[np.abs(xs[hit] - x0[s]).argmin()]]
+            return hit.size > 0
+
+        for _ in range(3):
+            for src, dst in ((1, 5), (3, 7)):
+                w = win(row(), coef_d)
+                cls = w.reshape(-1, 8).sum(0)
+                ok &= set_v(dst, int(w[dst] + cls[src] - cls[dst]))
+            w = win(row(), coef_d)
+            cls = w.reshape(-1, 8).sum(0)
+            sh = max(1, shift_of(w))
+            ok &= set_v(4, int(w[4] + (int(cls[0] - cls[4])
+                                        - (1 << (sh - 1))) % (1 << sh)))
+        w = win(row(), coef_d)
+        cls = w.reshape(-1, 8).sum(0)
+        sh = shift_of(w)
+        if (ok and row().max() < 32768 and cls[1] == cls[5]
+                and cls[3] == cls[7] and sh > 0
+                and int(cls[0] - cls[4]) % (1 << sh) == 1 << (sh - 1)):
+            z = np.repeat(cs[:, None], nr, 1)
+            z[:, 0] = x0
+            frames.append(z.astype(np.complex128))
+    return frames
+
+
+def doppler_eighth_tie_planes(seed: int, batch: int, n_range: int,
+                              n_doppler: int, rounding: str = "unbiased",
+                              coef_width: int = 16):
+    """Range-major int16 planes (re, im), each (batch, n_range, n_doppler),
+    for the slow-time stage with the MTI bypassed: small noise on a DC
+    offset in I (DC is each row's Doppler peak), with the last chirps of
+    classes 4 and 7 (s = n_doppler - 8 + r, where the window is small
+    enough to reach every integer) chosen so that, with T_r the class sums
+    of the Doppler-windowed chirps s = r (mod 8) and u_r = T_r - T_(r+4),
+    u_3 = -i u_1: the sqrt(2)/2 terms of bin n_doppler/8 cancel although
+    each is not 0 (u_1 comes from the noise), and its real part u_0 +
+    Im u_2 is an exact half-LSB tie of the row's BFP scaling."""
+    nd = n_doppler
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-60, 60, (batch, n_range, nd, 2)) + np.array([8000, 0])
+    coef = fx.hamming_coeffs(nd, coef_width)
+    xs = np.arange(-32768, 32768)
+
+    def classes(v):
+        w = fx.window_apply(v, v, coef, coef_width, rounding)[0]
+        return w, w.reshape(-1, 8).sum(0)
+
+    at = {r: nd - 8 + r for r in (4, 7)}
+    reach = {r: fx.window_apply(xs, xs, np.full(xs.shape, coef[at[r]]),
+                                coef_width, rounding)[0] for r in at}
+
+    def set_class(v, r, want):
+        """Chirp at[r] of v so that class r sums to ``want``."""
+        w, t = classes(v)
+        ok = np.flatnonzero(reach[r] == want - (t[r] - w[at[r]]))
+        v[at[r]] = xs[ok[np.abs(xs[ok] - v[at[r]]).argmin()]]
+
+    for b in range(batch):
+        for r in range(n_range):
+            vi, vq = x[b, r, :, 0], x[b, r, :, 1]
+            (_, ti), (_, tq) = classes(vi), classes(vq)
+            set_class(vi, 7, ti[3] - (tq[1] - tq[5]))     # u3 = -i u1
+            set_class(vq, 7, tq[3] + (ti[1] - ti[5]))
+            for _ in range(3):
+                (wi, ti), (_, tq) = classes(vi), classes(vq)
+                er = int(ti[0] - ti[4] + tq[2] - tq[6])
+                s = max(1, int(wi.sum() - 1).bit_length() - 15)
+                set_class(vi, 4, int(ti[4]) + (er - (1 << (s - 1))) % (1 << s))
+    return x[..., 0].astype(np.int16), x[..., 1].astype(np.int16)
+
+
+def eighth_turn_ties(i_w: np.ndarray, q_w: np.ndarray):
+    """Which Doppler-windowed int rows (..., n_doppler) hold an eighth-turn
+    tie, from exact integer class sums: with T_r the sums of chirps s = r
+    (mod 8) and u_r = T_r - T_(r+4), bin k = m n_doppler/8 (m odd) is E +
+    cos(pi/4) P, E = u_0 + (-i)^m u_2 and P = u_1 W^m + u_3 W^3m (W = W_8 /
+    cos(pi/4)); a part of it ties where its P is 0 and its E is an exact
+    half-LSB tie of the row's BFP scaling (exponent >= 1).  Returns boolean
+    arrays (...,): ``tie``, and ``live`` (a tie whose sqrt(2)/2 terms are
+    not 0 each: u_1 != 0)."""
+    nd = i_w.shape[-1]
+    t = [np.asarray(v, np.int64).reshape(*v.shape[:-1], nd // 8, 8).sum(-2)
+         for v in (i_w, q_w)]
+    u = [(t[0][..., r] - t[0][..., r + 4], t[1][..., r] - t[1][..., r + 4])
+         for r in range(4)]
+    z = np.fft.fft(i_w + 1j * q_w, axis=-1)
+    peak = np.maximum(np.abs(z.real), np.abs(z.imag)).max(-1)
+    s = np.maximum(np.ceil(np.log2(np.maximum(peak, 1) / 32768)), 0)
+    s = s.astype(np.int64)
+    half = np.where(s > 0, 1 << np.maximum(s - 1, 0), -1)
+
+    def w8(k):
+        return (1 if k % 8 in (1, 7) else -1), (1 if k % 8 in (5, 7) else -1)
+
+    tie = np.zeros(s.shape, bool)
+    for m in (1, 3, 5, 7):
+        (a1, b1), (a3, b3) = w8(m), w8(3 * m)
+        g = 1 if m % 4 == 1 else -1
+        pr = a1 * u[1][0] - b1 * u[1][1] + a3 * u[3][0] - b3 * u[3][1]
+        pi = a1 * u[1][1] + b1 * u[1][0] + a3 * u[3][1] + b3 * u[3][0]
+        for e, pp in ((u[0][0] + g * u[2][1], pr),
+                      (u[0][1] - g * u[2][0], pi)):
+            tie |= (pp == 0) & (e % (1 << s) == half)
+    return tie, tie & ((u[1][0] != 0) | (u[1][1] != 0))

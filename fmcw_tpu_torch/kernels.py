@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("range_fft.cu", "slowtime_detect.cu", "range_fft_fixed.cu",
            "slowtime_detect_fixed.cu", "cfar_detect.cu", "cfar_3d_detect.cu",
            "beam_group.cu", "cfar_rank.cu")
-HEADERS = ("fft_stockham.cuh", "cfar_common.cuh", "cfar_tile.cuh",
+HEADERS = ("fixed_point.cuh", "cfar_common.cuh", "cfar_tile.cuh",
            "slowtime_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")

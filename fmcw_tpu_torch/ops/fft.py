@@ -169,8 +169,9 @@ def _eighth_turn_bins(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor,
     of integers.  Where P = 0 the bin is the integer E, as in the golden
     model (``np.fft.fft``), and a round-half tie there falls the same way;
     the dense product's separately rounded sqrt(2)/2 terms need not cancel.
-    The range kernel (csrc/range_fft_fixed.cu, ``eighth_turn_bins``)
-    computes these bins the same way."""
+    The fixed kernels compute these bins the same way
+    (csrc/range_fft_fixed.cu ``eighth_turn_bins``, csrc/slowtime_detect_
+    fixed.cu ``eighth_bin``)."""
     n = re.shape[-1]
     if n < 8 or n % 8:
         return

@@ -85,17 +85,18 @@ def _slowtime_tables(nd: int, device: str):
             torch.as_tensor(tw, device=device))
 
 
-# Kernel B counts a float map's training cells in float, hi and lo packed
-# as hi * 4096 + lo (csrc/cfar_tile.cuh): exact up to this many.
+# Kernel B and the fixed slow-time kernel count the training cells in
+# float, hi and lo packed as hi * 4096 + lo (csrc/cfar_tile.cuh): exact up
+# to this many.
 MAX_PACKED_REFS = 4094
 
 
-def _kernel_b_config(cfg, cfar: CfarParams, notch_mode: int, transient: str,
-                     mti_bypass, name: str):
-    """Kernel B's detection entries: the shared tile geometry ``cfg``
-    (``_slowtime_config``) with the MTI fields set; raises
-    NotImplementedError for a training set the packed count does not
-    hold."""
+def _detect_config(cfg, cfar: CfarParams, notch_mode: int, transient: str,
+                   mti_bypass, name: str):
+    """The slow-time detection entries (kernel B's and the fixed kernel's):
+    the shared tile geometry ``cfg`` (``_slowtime_config``) with the MTI
+    fields set; raises NotImplementedError for a training set the packed
+    count does not hold."""
     if cfar.n_ref > MAX_PACKED_REFS:
         raise NotImplementedError(
             f"{name} kernel: at most {MAX_PACKED_REFS} training cells, got "
@@ -344,7 +345,7 @@ def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
             notch_mode=notch_mode, transient=transient, exact_mag=exact_mag,
             peak_group_radius=peak_group_radius, emit_mag=emit_mag)
     B, nr, nd = re.shape
-    cfg = _kernel_b_config(
+    cfg = _detect_config(
         _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
                          exact_mag), cfar, notch_mode, transient, mti_bypass,
         "slowtime_detect")

@@ -18,8 +18,10 @@ The twins compose the stage ops of the staged chain (``ops/window``,
 ``ops/fft``, ``ops/notch``, ``ops/magnitude``, ``ops/cfar``), with the
 transforms as dense float64 matrix products.  The kernels transform with a
 float64 FFT over the same exact-quarter-turn twiddle table
-(``ops/fft.twiddles64``), so both quantize to the float64 golden model's
-values; integer decisions on the same magnitudes are bit-identical.
+(``ops/fft.twiddles64``), the eighth-turn bins summed exactly in both
+(``ops/fft._eighth_turn_bins``), so both quantize to the float64 golden
+model's values; integer decisions on the same magnitudes are
+bit-identical.
 
 Each wrapper launches its kernel for a CUDA tensor and takes its twin only
 for a CPU tensor; ``launches`` counts its kernel launches.
@@ -168,6 +170,19 @@ def slowtime_detect_fixed_plain(re, im, mti_bypass=False, scale_override=0,
     return det, (mag if emit_mag else None), row_max, n_dets, sat
 
 
+def fixed_config(cfg, cfar: CfarParams, notch_mode: int, transient: str,
+                 mti_bypass, coef_width: int, rounding: str, name: str):
+    """The fixed slow-time entries' kernel config: the tile geometry
+    ``cfg`` with the MTI and Q15 window fields set; raises
+    NotImplementedError for what the kernel does not take (a training set
+    over ``frontend.MAX_PACKED_REFS`` cells among it)."""
+    cfg = F._detect_config(cfg, cfar, notch_mode, transient, mti_bypass,
+                           name)
+    cfg.rnd = window_rounding_constant(coef_width, rounding)
+    cfg.shift = coef_width - 2
+    return cfg
+
+
 @kernels.counted
 def slowtime_detect_fixed(re: torch.Tensor, im: torch.Tensor,
                           mti_bypass=False, scale_override=0, *,
@@ -195,16 +210,13 @@ def slowtime_detect_fixed(re: torch.Tensor, im: torch.Tensor,
         raise ValueError(f"slowtime_detect_fixed kernel takes int16 planes, "
                          f"got {re.dtype}")
     B, nr, nd = re.shape
-    cfg = F._slowtime_config(B, nr, nd, cfar, scale_override,
-                             peak_group_radius, name="slowtime_detect_fixed")
-    cfg.notch_mode = notch_mode
-    cfg.transient_zero = int(transient == "zero")
-    cfg.bypass = int(bool(mti_bypass))
-    cfg.rnd = window_rounding_constant(coef_width, rounding)
-    cfg.shift = coef_width - 2
+    cfg = fixed_config(
+        F._slowtime_config(B, nr, nd, cfar, scale_override,
+                           peak_group_radius, name="slowtime_detect_fixed"),
+        cfar, notch_mode, transient, mti_bypass, coef_width, rounding,
+        "slowtime_detect_fixed")
     dev = re.device
-    re = re.contiguous()
-    im = im.contiguous()
+    re, im = F._aligned(re), F._aligned(im)
     win, tw = _tables(nd, coef_width, str(dev))
     det = torch.empty((B, nr, nd), dtype=torch.int32, device=dev)
     mag = torch.empty_like(det) if emit_mag else None
@@ -233,14 +245,16 @@ def fused_fixed_detect_supported(p: RadarParams, peak_group_radius: int = 0,
     fused_fixed_detect_supported``, asked of the kernels' own checks: no
     debug taps, and a frame and CFAR (OS, wrap edges) that both kernels
     take.  JAX's limit on the per-cell window (its sum below 2^24, for the
-    TPU's float32 sums) does not apply: these kernels sum in int32.  CA/GO/SO
-    are queued in ROADMAP.md."""
+    TPU's float32 sums) does not apply: these kernels sum in int32; their
+    float packed count takes at most ``frontend.MAX_PACKED_REFS`` training
+    cells.  CA/GO/SO are queued in ROADMAP.md."""
     if include_debug:
         return False
     try:
         F.check_range_geometry(p.n_range, p.n_doppler)
-        F._slowtime_config(1, p.n_range, p.n_doppler, p.cfar, 0,
-                           peak_group_radius)
+        F._detect_config(F._slowtime_config(1, p.n_range, p.n_doppler,
+                                            p.cfar, 0, peak_group_radius),
+                         p.cfar, p.notch_mode, "zero", False, "")
     except NotImplementedError:
         return False
     return True

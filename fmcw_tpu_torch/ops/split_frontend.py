@@ -65,7 +65,6 @@ from . import cfar as C
 from . import frontend as F
 from . import frontend_fixed as FX
 from .notch import check_notch
-from .window import window_rounding_constant
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +217,7 @@ def slowtime_detect_split(re: torch.Tensor, im: torch.Tensor,
         return slowtime_detect_split_plain(re, im, halo_lo, halo_hi,
                                            mti_bypass, scale_override,
                                            row_offset, **kw)
-    cfg = F._kernel_b_config(
+    cfg = F._detect_config(
         _split_config(re, cfar, scale_override, peak_group_radius, exact_mag,
                       row_offset, n_range_total, "slowtime_detect_split"),
         cfar, notch_mode, transient, mti_bypass, "slowtime_detect_split")
@@ -309,17 +308,15 @@ def slowtime_detect_fixed_split(re: torch.Tensor, im: torch.Tensor,
     if re.dtype != torch.int16:
         raise ValueError(f"slowtime_detect_fixed_split kernel takes int16 "
                          f"planes, got {re.dtype}")
-    cfg = _split_config(re, cfar, scale_override, peak_group_radius, False,
-                        row_offset, n_range_total,
-                        "slowtime_detect_fixed_split")
-    cfg.notch_mode = notch_mode
-    cfg.transient_zero = int(transient == "zero")
-    cfg.bypass = int(bool(mti_bypass))
-    cfg.rnd = window_rounding_constant(coef_width, rounding)
-    cfg.shift = coef_width - 2
+    cfg = FX.fixed_config(
+        _split_config(re, cfar, scale_override, peak_group_radius, False,
+                      row_offset, n_range_total,
+                      "slowtime_detect_fixed_split"),
+        cfar, notch_mode, transient, mti_bypass, coef_width, rounding,
+        "slowtime_detect_fixed_split")
     B, nrl, nd = re.shape
     dev = re.device
-    planes = [x.contiguous() for x in (re, im, *halo_lo, *halo_hi)]
+    planes = [F._aligned(x) for x in (re, im, *halo_lo, *halo_hi)]
     win, tw = FX._tables(nd, coef_width, str(dev))
     det = torch.empty((B, nrl, nd), dtype=torch.int32, device=dev)
     mag = torch.empty_like(det) if emit_mag else None

@@ -20,11 +20,14 @@ stimulus, 1024x128 frames):
 * kernel B's four entries — ``slowtime_detect`` per-cell and block scale
   (``peak_group_radius=2``), ``slowtime_mag`` and the row-5 range shard
   (``split_frontend.slowtime_detect_split`` on rows 256..512 with their
-  halo rows, sp = 4) — as back-to-back calls and by graph replay, each
-  beside ``torch.fft.fft(dim=-1)`` of the same complex64 planes (the
-  slow-time transform's share; no PyTorch call computes the whole entry);
-* the fixed kernels (``range_fft_fixed``, ``slowtime_detect_fixed``); the
-  fixed range kernel's two entries — ``range_fft_fixed`` at batch 128 and
+  halo rows, sp = 4) — and the fixed slow-time kernel's three —
+  ``slowtime_detect_fixed`` per-cell and block and the row-6 range shard
+  (``split_frontend.slowtime_detect_fixed_split``, the same rows) — as
+  back-to-back calls and by graph replay, each beside
+  ``torch.fft.fft(dim=-1)`` of the same planes (complex64; complex128 for
+  the fixed kernel's int16 planes), the slow-time transform's share: no
+  PyTorch call computes a whole entry;
+* the fixed range kernel's two entries — ``range_fft_fixed`` at batch 128 and
   the row-4 chirp shard (``split_frontend.range_frontend_fixed``, sp = 4)
   — as back-to-back calls and by graph replay, each beside
   ``torch.fft.fft`` (complex128) of the same windowed chirps and a
@@ -156,38 +159,47 @@ def main() -> int:
         fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
         copy[name] = graph_ms(lambda: x.transpose(1, 2).contiguous())
         del z
-    # Kernel B's four entries, each beside torch.fft.fft of its planes; the
-    # fixed slow-time kernel.
+    # Kernel B's four entries and the fixed slow-time kernel's three, each
+    # beside torch.fft.fft of its planes (complex64; complex128 for the
+    # fixed kernel's int16 planes, its FP64 transform).
     re, im = F.range_fft(iq)
     fre, fim, _ = FX.range_fft_fixed(iq)
     nr, pgr = entry.n_range, 2
     h, nrl = entry.cfar.halo_range + pgr, nr // SP
     ext = torch.arange(nrl - h, 2 * nrl + h, device="cuda") % nr
     lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
-    shard = (re[:, core].contiguous(), im[:, core].contiguous(),
-             (re[:, lo].contiguous(), im[:, lo].contiguous()),
-             (re[:, hi].contiguous(), im[:, hi].contiguous()), False, 0, nrl)
+
+    def shard_of(xr, xi):
+        return (xr[:, core].contiguous(), xi[:, core].contiguous(),
+                (xr[:, lo].contiguous(), xi[:, lo].contiguous()),
+                (xr[:, hi].contiguous(), xi[:, hi].contiguous()), False, 0,
+                nrl)
+    shard, fshard = shard_of(re, im), shard_of(fre, fim)
+    skw = dict(cfar=entry.cfar, n_range_total=nr, peak_group_radius=pgr)
     entries = {"slowtime_mag": (lambda: F.slowtime_mag(re, im), re, im),
                "slowtime_detect_split[sp4]": (
-                   lambda: SF.slowtime_detect_split(
-                       *shard, cfar=entry.cfar, n_range_total=nr,
-                       peak_group_radius=pgr), re[:, ext], im[:, ext])}
+                   lambda: SF.slowtime_detect_split(*shard, **skw),
+                   re[:, ext], im[:, ext]),
+               "slowtime_detect_fixed_split[sp4]": (
+                   lambda: SF.slowtime_detect_fixed_split(*fshard, **skw),
+                   fre[:, ext], fim[:, ext])}
     for p in (entry, P.fast()):
         kw = dict(cfar=p.cfar, peak_group_radius=pgr)
         mode = p.cfar.scale_mode
         entries[f"slowtime_detect[{mode}]"] = (
             lambda kw=kw: F.slowtime_detect(re, im, False, 0, **kw), re, im)
-        if mode == "cell":
-            ms["slowtime_detect_fixed[cell]"] = cuda_ms(
-                lambda: FX.slowtime_detect_fixed(fre, fim, False, 0, **kw))
+        entries[f"slowtime_detect_fixed[{mode}]"] = (
+            lambda kw=kw: FX.slowtime_detect_fixed(fre, fim, False, 0, **kw),
+            fre, fim)
     for name, (call, xr, xi) in entries.items():
-        z = torch.complex(xr, xi)
+        z = (torch.complex(xr.double(), xi.double())
+             if xr.dtype == torch.int16 else torch.complex(xr, xi))
         ms[name] = cuda_ms(call)
         graph[name] = graph_ms(call)
         fft[name] = cuda_ms(lambda: torch.fft.fft(z, dim=-1))
         fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
         del z
-    del re, im, fre, fim, shard
+    del re, im, fre, fim, shard, fshard
     # The main path, per-cell and block scale; fixed mode's fused route.
     fps = {}
     for p in (entry, P.fast()):

@@ -460,74 +460,6 @@ def test_fused_fixed_gate_vs_jax(scale_mode, cfar_kw, port, jax_):
         assert int(out["n_dets"]) == int((det > 0).sum()) > 0
 
 
-def _doppler_eighth_tie_frames(p, n_frames, seed=0):
-    """Frames (n_doppler, n_range) complex whose chirp s is a constant c_s
-    (I only) but for its first sample x_s: range bin 0 of chirp s is then
-    the integer D_s = sum of the windowed samples (below 2^15, so the golden
-    range stage's BFP leaves it as it is), and x_s sets it to any integer
-    near the constant's.  D_4, D_5 and D_7 are chosen so that, with the MTI
-    bypassed, the Doppler-windowed row 0 has class sums (over chirps s = r
-    mod 8) V_1 = V_5 and V_3 = V_7 (the sqrt(2)/2 terms of its eighth-turn
-    bins cancel) and bin n_doppler/8's real part V_0 - V_4 is an exact
-    half-LSB tie of the row's BFP scaling (exponent >= 1)."""
-    nd, nr, cw = p.n_doppler, p.n_range, p.coef_width
-    coef_r = jfx.hamming_coeffs(nr, cw)
-    coef_d = jfx.hamming_coeffs(nd, cw)
-    xs = np.arange(-32768, 32768)
-
-    def win(x, coef):
-        x = np.asarray(x, np.int64)
-        return jfx.window_apply(x, np.zeros_like(x),
-                                np.broadcast_to(coef, x.shape), cw,
-                                "unbiased")[0]
-
-    first = win(xs, coef_r[0])                    # windowed first sample
-    rng = np.random.default_rng(seed)
-    frames = []
-    while len(frames) < n_frames:
-        cs = rng.integers(60, 200, nd)
-        base = np.array([win(np.full(nr - 1, c), coef_r[1:]).sum()
-                         for c in cs])
-        x0 = cs.copy()
-        ok = True
-
-        def row():
-            return base + first[x0 + 32768]
-
-        def set_v(s, want):
-            """x0[s] so that chirp s's windowed D_s is ``want``."""
-            d = base[s] + first
-            hit = np.flatnonzero(win(d, coef_d[s]) == want)
-            if hit.size:
-                x0[s] = xs[hit[np.abs(xs[hit] - x0[s]).argmin()]]
-            return hit.size > 0
-
-        for _ in range(3):
-            for src, dst in ((1, 5), (3, 7)):
-                w = win(row(), coef_d)
-                cls = w.reshape(-1, 8).sum(0)
-                ok &= set_v(dst, int(w[dst] + cls[src] - cls[dst]))
-            w = win(row(), coef_d)
-            cls = w.reshape(-1, 8).sum(0)
-            z = np.fft.fft(w.astype(float))
-            peak = np.maximum(np.abs(z.real), np.abs(z.imag)).max()
-            sh = max(1, int(np.ceil(np.log2(peak / 32768.0))))
-            ok &= set_v(4, int(w[4] + (int(cls[0] - cls[4])
-                                        - (1 << (sh - 1))) % (1 << sh)))
-        w = win(row(), coef_d)
-        cls = w.reshape(-1, 8).sum(0)
-        z = np.fft.fft(w.astype(float))
-        peak = np.maximum(np.abs(z.real), np.abs(z.imag)).max()
-        sh = int(np.ceil(np.log2(peak / 32768.0)))
-        if (ok and row().max() < 32768 and cls[1] == cls[5]
-                and cls[3] == cls[7] and sh > 0
-                and int(cls[0] - cls[4]) % (1 << sh) == 1 << (sh - 1)):
-            z = np.repeat(cs[:, None], nr, 1)
-            z[:, 0] = x0
-            frames.append(z.astype(np.complex128))
-    return frames
-
-
 def test_fixed_twins_equal_golden_at_doppler_eighth_turn_ties():
     """A chirp-axis round-half tie at an eighth-turn Doppler bin: the fixed
     slow-time twin and the staged fixed route (CPU) equal the golden fixed
@@ -535,7 +467,7 @@ def test_fixed_twins_equal_golden_at_doppler_eighth_turn_ties():
     product alone rounds the tie away on some frame."""
     p = fmcw_tpu_torch.RadarParams(n_range=64, n_doppler=32)
     jp = _jparams(p)
-    frames = _doppler_eighth_tie_frames(p, 16)
+    frames = tref.doppler_eighth_tie_frames(p, 16)
     proc = tpl.make_processor(p, mode="fixed", frontend="staged",
                               device="cpu")
     missed = 0
