@@ -47,10 +47,15 @@ shards' kernel timings; and, with two or more GPUs, the NCCL mesh
 processors) equal to the single GPU.  Then TPU kernel row 9, the rank-select
 CFAR behind the debug taps (csrc/cfar_rank.cu), bit-equal to its twin on 8
 frames (float 31 and 16 key bits, int32, override, a given block scale map,
-a prepadded range shard); the debug-tap processors at batch 128 (float
-per-cell and block on the fused and staged routes, fixed on auto) against
-the twin, the margin gate and the golden model; the sharded debug taps on a
-LocalMesh against the single card; row 9's timings; the sharded array
+a prepadded range shard, four windows, adversarial maps of NaN, Inf, -0.0,
+negative, tied and out-of-range keys), and its grouping entry bit-equal to
+the twin's rank select, peak grouping, row maxima and counts; the debug-tap
+processors at batch 128 (float per-cell and block on the fused and staged
+routes, fixed on auto) through the grouping entry with no plain grouping,
+against the twin, the plain grouping's outputs, the margin gate and the
+golden model; the sharded debug taps on a LocalMesh against the single
+card; row 9's timings beside its bound and its earlier compare-add bound;
+the sharded array
 model's kernel entries (the prepadded 3D CFAR, the global-ids beam grouping)
 against the whole-cube kernels, and make_sharded_array_processor on a
 LocalMesh (sp 2 and 4) equal to the single card, with cubes/s.  It prints
@@ -181,15 +186,16 @@ def range_fft_size_checks(dev):
 
 
 NO_SPILL_SOURCES = (" range_fft.cu", " range_fft_fixed.cu",
-                    " slowtime_detect.cu", " slowtime_detect_fixed.cu")
+                    " slowtime_detect.cu", " slowtime_detect_fixed.cu",
+                    " cfar_rank.cu")
 
 
 def log_build(info) -> None:
     """The compiler's register and spill lines of every kernel, with the
     entry names for the two range kernels (kernel A and the fixed one),
-    kernel B and the fixed slow-time kernel; fails if an instantiation of
-    any of them spills or keeps an array in local memory (a stack
-    frame)."""
+    kernel B, the fixed slow-time kernel and the rank-select CFAR; fails if
+    an instantiation of any of them spills or keeps an array in local
+    memory (a stack frame)."""
     section, entry, bad = "", "", []
     for line in info.log.splitlines():
         if line.startswith("---"):
@@ -1672,15 +1678,47 @@ def split_timings(card: str, dev, pgr: int, iq, errs, launches):
 # ---------------------------------------------------------------------------
 
 RANK_FRAMES = 8                 # frames the rank twin takes: 67 MB a frame
+RANK_PGR = 2                    # the grouping radius of the debug routes
+# Population counts: 16 a clock an SM (the CUDA C++ Programming Guide's
+# arithmetic instruction throughput, compute capability 9.0) x 132 SMs x
+# 1.98 GHz.
+H100_POPC_PER_S = 16 * 132 * 1.98e9
 
 
 def bound_cfar_rank(B: int, nr: int, nd: int, cfar, bits: int,
-                    integer: bool, block: bool):
-    """Least time for cfar_rank: the map read once (and the scale map with
-    the block scale), det, threshold and scale written once; per cell the
-    rank select's ``bits`` x n_ref compare-adds on int32 keys (INT32, 2 ops
-    each) and the threshold and decision (4), plus, for the per-cell scale,
-    the box sums, mean and classification (20, FP32 for float maps)."""
+                    integer: bool, block: bool, group: bool = False):
+    """Least time for cfar_rank's design (bit planes counted with
+    population counts): the map read once (and the scale map with the block
+    scale), det, threshold and scale written once (with grouping row_max
+    and n_dets too); per cell and walked bit one population count per
+    window-row pair (ceil((2 hr + 1) / 2), the POPC pipe; one per row for
+    windows over 16 columns, which the kernel walks a row at a time), 2.5
+    integer ops beside each (the AND, the mask update and half an IADD3),
+    the threshold and decision (4), plus, for the per-cell scale, the box
+    sums, mean and classification (20, FP32 for float maps)."""
+    cells = B * nr * nd
+    nbytes = cells * (16 + (4 if block else 0)) + (
+        B * nr * 4 + B * 4 if group else 0)
+    rows = 2 * cfar.halo_range + 1
+    units = (rows + 1) // 2 if 2 * cfar.halo_doppler + 1 <= 16 else rows
+    popc = cells * bits * units
+    scale_ops = 0 if block else 20
+    int_ops = 2.5 * popc + cells * (4 + (scale_ops if integer else 0))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = max(popc / H100_POPC_PER_S,
+                int_ops / H100_INT32_OPS_PER_S,
+                (0 if integer else cells * scale_ops) / H100_FP32_OPS_PER_S
+                ) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_cfar_rank_compares(B: int, nr: int, nd: int, cfar, bits: int,
+                             integer: bool, block: bool):
+    """The bound cfar_rank was held to before its bit planes (kept beside
+    the new one): ``bits`` x n_ref compare-adds a cell on int32 keys
+    (INT32, 2 ops each), the threshold and decision (4) and the per-cell
+    scale (20, FP32 for float maps); 16 bytes a cell (20 with a scale
+    map)."""
     cells = B * nr * nd
     nbytes = cells * (16 + (4 if block else 0))
     scale_ops = 0 if block else 20
@@ -1707,12 +1745,21 @@ def rank_kernel_checks(dev):
     on 8 frames of the float main path's magnitudes (kernel A and kernel
     B's magnitude-only entry) and of the fixed chain's int32 magnitudes:
     float with 31 and 16 key bits, int32 with 16, scale_override 4, the
-    block scale with a given block_scale_map (float and int32), and a
-    prepadded 256-row range shard (equal too to the whole map's rows): det,
-    threshold and scale bit for bit.  Returns ({case: largest |kernel -
+    block scale with a given block_scale_map (float and int32), a prepadded
+    256-row range shard (equal too to the whole map's rows), the quick
+    window (hr 3), a window outside the unrolled walks (hr 4, gd 2) and
+    one of 19 Doppler columns (walked a row at a time);
+    then 8 adversarial frames (golden.reference.rank_adversarial_maps:
+    NaN, +-Inf, -0.0, negative floats, denormals, plateaus of ties at the
+    k-th value; int keys at and above 2^16 and below 0) float and int32 on
+    16 and 31 key bits and the block scale: det, threshold and scale bit for
+    bit.  The grouping entry (cfar_rank_group) against its twin on every
+    whole-map case at radius 2 (and 0 and 1 on two): det, threshold, scale,
+    row maxima and counts bit for bit.  Returns ({case: largest |kernel -
     twin|}, the float and int32 magnitudes of 128 frames)."""
     import torch
     import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.golden import reference
     from fmcw_tpu_torch.models import pipeline as pl
     from fmcw_tpu_torch.ops import cfar as C, cfar_rank as RK
     from fmcw_tpu_torch.ops import frontend as F
@@ -1723,6 +1770,13 @@ def rank_kernel_checks(dev):
     f8, i8 = fmag[:RANK_FRAMES], imag[:RANK_FRAMES]
     nrl, hr = p.n_range // 4, p.cfar.halo_range
     ext = torch.arange(nrl - hr, 2 * nrl + hr, device=dev) % p.n_range
+    shape = (RANK_FRAMES, p.n_range, p.n_doppler)
+    af = torch.as_tensor(reference.rank_adversarial_maps(shape, False, 11),
+                         device=dev)
+    ai = torch.as_tensor(reference.rank_adversarial_maps(shape, True, 12),
+                         device=dev)
+    wide = P.CfarParams(ref_range=3, ref_doppler=2, guard_range=1,
+                        guard_doppler=2)
     cases = (
         ("float/31", f8, p.cfar, None, 0, None, False),
         ("float/16", f8, p.cfar, 16, 0, None, False),
@@ -1732,12 +1786,22 @@ def rank_kernel_checks(dev):
          C.block_scale_map(f8, fast.cfar), False),
         ("int32/block", i8, fast.cfar, None, 0,
          C.block_scale_map(i8, fast.cfar), False),
-        ("float/16/prepadded", f8[:, ext], p.cfar, 16, 0, None, True))
+        ("float/16/prepadded", f8[:, ext], p.cfar, 16, 0, None, True),
+        ("float/16/quick-window", f8, P.quick().cfar, 16, 0, None, False),
+        ("int32/16/generic-window", i8, wide, 16, 0, None, False),
+        ("float/16/wide-window", f8, P.CfarParams(ref_doppler=8), 16, 0,
+         None, False),
+        ("float/31/adversarial", af, p.cfar, None, 0, None, False),
+        ("float/16/adversarial", af, p.cfar, 16, 0, None, False),
+        ("int32/16/adversarial", ai, p.cfar, 16, 0, None, False),
+        ("int32/31/adversarial/so4", ai, p.cfar, None, 4, None, False),
+        ("float/block/adversarial", af, fast.cfar, None, 0,
+         C.block_scale_map(af, fast.cfar), False))
     errs = {}
     for name, mag, cfar, bits, so, smap, pre in cases:
-        kw = dict(cfar=cfar, bits=bits, scale_map=smap, prepadded_range=pre)
-        got = RK.cfar_rank(mag, so, **kw)
-        want = RK.cfar_rank_plain(mag, so, **kw)
+        kw = dict(cfar=cfar, bits=bits, scale_map=smap)
+        got = RK.cfar_rank(mag, so, prepadded_range=pre, **kw)
+        want = RK.cfar_rank_plain(mag, so, prepadded_range=pre, **kw)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, want))
         errs[name] = max(float((a.double() - b.double()).abs().max())
@@ -1755,19 +1819,44 @@ def rank_kernel_checks(dev):
                        for a, b in zip(got, whole)):
                 raise AssertionError("prepadded cfar_rank differs from the "
                                      "whole map's rows")
+            continue
+        for pgr in ((0, 1, RANK_PGR) if name in ("float/16", "int32/16")
+                    else (RANK_PGR,)):
+            g = RK.cfar_rank_group(mag, so, peak_group_radius=pgr, **kw)
+            gw = RK.cfar_rank_group_plain(mag, so, peak_group_radius=pgr,
+                                          **kw)
+            torch.cuda.synchronize()
+            gsame = (all(torch.equal(a, b) for a, b in zip(g, gw))
+                     and all(torch.equal(a, b) for a, b in zip(g[1:3],
+                                                                got[1:3])))
+            errs[f"group/{name}"] = max(
+                errs.get(f"group/{name}", 0.0),
+                max(float((a.double() - b.double()).abs().max())
+                    for a, b in zip(g, gw)))
+            log(f"cfar_rank_group {name} pgr={pgr}: det, threshold, scale, "
+                f"row maxima and counts "
+                f"{'bit-identical' if gsame else 'DIFFER'} to the twin; "
+                f"{int(g[4].sum())} grouped detections")
+            if not gsame or int(g[4].sum()) == 0:
+                raise AssertionError(f"cfar_rank_group {name} pgr={pgr} "
+                                     f"disagrees with its twin")
     return errs, fmag, imag
 
 
 def debug_main_path(card: str, dev, pgr: int):
     """Phase 21: the debug-tap processors, make_batch_processor(...,
     include_debug=True) at batch 128, 1024x128: float per-cell and block on
-    "fused" (kernel A, the magnitude-only kernel, cfar_rank) and "staged"
-    (plain transforms, cfar_rank), fixed per-cell on "auto" (plain stages,
-    cfar_rank on int32 maps); the kernels each launches; the taps and det
-    map of frames 0-7 bit-equal to cfar_rank_plain (and peak_group) on the
-    route's own magnitudes; float frame 0 through the margin gate against
-    the plain route (its 16-bit taps), fixed frame 0 bit for bit the golden
-    model's det map; frames/s.  Returns (launches, frames/s)."""
+    "fused" (kernel A, the magnitude-only kernel, cfar_rank_group) and
+    "staged" (plain transforms, cfar_rank_group), fixed per-cell on "auto"
+    (plain stages, cfar_rank_group on int32 maps); the kernels each
+    launches, and no plain ops/cfar.peak_group call (the grouping is the
+    kernel's epilogue); the taps and det map of frames 0-7 bit-equal to
+    cfar_rank_plain and peak_group on the route's own magnitudes, every
+    output of the batch (detections, counts, maps) bit-equal to the plain
+    route's grouping on the same magnitudes; float frame 0 through the
+    margin gate against the plain route (its 16-bit taps), fixed frame 0
+    bit for bit the golden model's det map; frames/s.  Returns (launches,
+    frames/s)."""
     import numpy as np
     import torch
     import fmcw_tpu_torch as P
@@ -1775,6 +1864,8 @@ def debug_main_path(card: str, dev, pgr: int):
     from fmcw_tpu_torch.golden import fixed_point as fx, reference
     from fmcw_tpu_torch.models import pipeline as pl
     from fmcw_tpu_torch.ops import cfar as C, cfar_rank as RK
+    from fmcw_tpu_torch.ops import detect as DET
+    peak_group = C.peak_group
     configs = (("float/cell", P.RadarParams(), "float32", ("fused", "staged")),
                ("float/block", P.fast(), "float32", ("fused", "staged")),
                ("fixed/cell", P.RadarParams(), "fixed", ("auto",)))
@@ -1784,9 +1875,9 @@ def debug_main_path(card: str, dev, pgr: int):
         noisy = make_batch(p, BATCH, seed=4)
         batch = torch.as_tensor(noisy, device=dev)
         bits = RK.debug_bits(p.cfar, fixed, 16)
-        row = ("cfar_rank[int32,16 bits]" if fixed else
-               "cfar_rank[float,16 bits]" if bits == 16 else
-               "cfar_rank[float,exact,scale map]")
+        row = ("cfar_rank_group[int32,16 bits]" if fixed else
+               "cfar_rank_group[float,16 bits]" if bits == 16 else
+               "cfar_rank_group[float,exact,scale map]")
         kw = dict(mode=mode, peak_group_radius=pgr, include_debug=True)
         if fixed:
             _, gdet = reference.process_frame_fixed(
@@ -1797,17 +1888,42 @@ def debug_main_path(card: str, dev, pgr: int):
                                     **kw)(batch[0])
         for fe in routes:
             proc = pl.make_batch_processor(p, frontend=fe, device=dev, **kw)
-            kernels.reset_launch_counts()
-            out = proc(batch)
-            torch.cuda.synchronize()
-            counts = kernels.launch_counts()
-            need = ("cfar_rank",) + (("range_fft", "slowtime_mag")
-                                     if fe == "fused" else ())
+            plain_groups = []
+            C.peak_group = lambda *a, **k: (plain_groups.append(1),
+                                            peak_group(*a, **k))[1]
+            try:
+                kernels.reset_launch_counts()
+                out = proc(batch)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+            finally:
+                C.peak_group = peak_group
+            need = ("cfar_rank_group",) + (("range_fft", "slowtime_mag")
+                                           if fe == "fused" else ())
             log(f"debug main path {name} {fe}: launches "
-                + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+                + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+                + f"; plain peak_group calls {len(plain_groups)}")
             if any(counts[k] < 1 for k in need):
                 raise AssertionError(f"debug {name} {fe} skipped a kernel")
-            launches[row] = launches.get(row, 0) + counts["cfar_rank"]
+            if plain_groups or counts["cfar_rank"]:
+                raise AssertionError(f"debug {name} {fe} grouped outside "
+                                     f"the kernel")
+            launches[row] = launches.get(row, 0) + counts["cfar_rank_group"]
+            # Every output against the dataflow before the grouping entry
+            # on the route's own magnitudes: cfar_rank_plain, plain
+            # peak_group, top-K (in chunks of RANK_FRAMES frames).
+            outs_ok = True
+            for i in range(0, BATCH, RANK_FRAMES):
+                dp, tp, sp = RK.cfar_rank_plain(
+                    out["mag_map"][i:i + RANK_FRAMES], cfar=p.cfar,
+                    bits=bits)
+                dp = peak_group(dp, pgr)
+                want = DET.topk_detections(dp, p.tracker.max_dets)
+                want.update(det_map=dp, threshold_map=tp,
+                            scale_map=sp.to(dp.dtype))
+                outs_ok &= all(torch.equal(out[k][i:i + RANK_FRAMES], v)
+                               for k, v in want.items())
+                del dp, tp, sp, want
             mag8 = out["mag_map"][:RANK_FRAMES]
             det, thr, scale = RK.cfar_rank_plain(mag8, cfar=p.cfar, bits=bits)
             # The scale tap comes in the magnitude map's type, as JAX's.
@@ -1833,8 +1949,10 @@ def debug_main_path(card: str, dev, pgr: int):
                     targets=reference.golden_targets(p))
             log(f"debug main path {name} {fe}: taps of frames 0-"
                 f"{RANK_FRAMES - 1} {'bit-equal' if taps_ok else 'DIFFER'} "
-                f"to the twin on the route's magnitudes; {report}")
-            if not (taps_ok and ok):
+                f"to the twin on the route's magnitudes; every output "
+                f"{'bit-equal' if outs_ok else 'DIFFERS'} to the plain "
+                f"grouping's; {report}")
+            if not (taps_ok and outs_ok and ok):
                 raise AssertionError(f"debug {name} {fe} failed its check")
             if int(out["nonfinite_count"].sum()) != 0:
                 raise AssertionError("non-finite cells in the magnitude map")
@@ -1906,10 +2024,12 @@ def sharded_debug_path(card: str, dev, pgr: int, launches):
 def rank_timings(card: str, dev, fmag, imag, errs, launches):
     """Phase 23: cfar_rank per launch at batch 128 (CUDA events) for float
     16 key bits, float exact (per-cell and with a given block scale map)
-    and int32 16 bits, against bound_cfar_rank and the twin run over the
-    batch in 8-frame chunks; the yardstick torch.topk over a prebuilt
-    8-frame training stack against the kernel on the same 8 frames.
-    Returns (kernel rows, summary)."""
+    and int32 16 bits, and the grouping entry cfar_rank_group (radius 2) on
+    the three the debug routes launch, each against bound_cfar_rank (and
+    the compare-add bound it was held to before, bound_cfar_rank_compares)
+    and its twin run over the batch in 8-frame chunks; the yardstick
+    torch.topk over a prebuilt 8-frame training stack against the kernel on
+    the same 8 frames.  Returns (kernel rows, summary)."""
     import torch
     import fmcw_tpu_torch as P
     from fmcw_tpu_torch.ops import cfar as C, cfar_rank as RK
@@ -1918,35 +2038,52 @@ def rank_timings(card: str, dev, fmag, imag, errs, launches):
     src = "fmcw_tpu_torch/csrc/cfar_rank.cu"
     fsmap = C.block_scale_map(fmag, fast.cfar)
     variants = (
-        ("cfar_rank[float,16 bits]", fmag, p.cfar, 16, None, "float/16"),
-        ("cfar_rank[float,exact]", fmag, p.cfar, None, None, "float/31"),
-        ("cfar_rank[float,exact,scale map]", fmag, fast.cfar, None, fsmap,
+        ("float,16 bits", fmag, p.cfar, 16, None, "float/16"),
+        ("float,exact", fmag, p.cfar, None, None, "float/31"),
+        ("float,exact,scale map", fmag, fast.cfar, None, fsmap,
          "float/block"),
-        ("cfar_rank[int32,16 bits]", imag, p.cfar, 16, None, "int32/16"))
+        ("int32,16 bits", imag, p.cfar, 16, None, "int32/16"))
     rows, summary = [], {}
-    for name, mag, cfar, bits, smap, case in variants:
-        kw = dict(cfar=cfar, bits=bits)
+    for entry in ("cfar_rank", "cfar_rank_group"):
+        for what, mag, cfar, bits, smap, case in variants:
+            name = f"{entry}[{what}]"
+            group = entry == "cfar_rank_group"
+            if group and name not in launches:
+                continue
+            kw = dict(cfar=cfar, bits=bits)
+            if group:
+                kw["peak_group_radius"] = RANK_PGR
+            kernel = RK.cfar_rank_group if group else RK.cfar_rank
+            twin = RK.cfar_rank_group_plain if group else RK.cfar_rank_plain
 
-        def plain():
-            for i in range(0, BATCH, RANK_FRAMES):
-                RK.cfar_rank_plain(mag[i:i + RANK_FRAMES], scale_map=(
-                    None if smap is None else smap[i:i + RANK_FRAMES]), **kw)
+            def plain():
+                for i in range(0, BATCH, RANK_FRAMES):
+                    twin(mag[i:i + RANK_FRAMES], scale_map=(
+                        None if smap is None else smap[i:i + RANK_FRAMES]),
+                        **kw)
 
-        ms = cuda_ms(lambda: RK.cfar_rank(mag, scale_map=smap, **kw), 5)
-        plain_ms = cuda_ms(plain, 1, 1)
-        bound, by = bound_cfar_rank(BATCH, nr, nd, cfar, bits or 31,
-                                    not mag.is_floating_point(),
-                                    smap is not None)
-        summary[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
-        log(f"{name}: {ms:.4f} ms, plain (16 x {RANK_FRAMES} frames) "
-            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}) at batch "
-            f"{BATCH} ({card})")
-        if name in launches:
-            rows.append(dict(name=name, route="cuda", source=src,
-                             replaces="fmcw_tpu/ops/cfar_pallas.py:58",
-                             launches=launches[name],
-                             max_abs_err=errs[case], ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound, bound_by=by, library_ms=None))
+            ms = cuda_ms(lambda: kernel(mag, scale_map=smap, **kw), 5)
+            plain_ms = cuda_ms(plain, 1, 1)
+            args = (BATCH, nr, nd, cfar, bits or 31,
+                    not mag.is_floating_point(), smap is not None)
+            bound, by = bound_cfar_rank(*args, group=group)
+            old, old_by = bound_cfar_rank_compares(*args)
+            summary[name] = {"ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "compare_bound_ms": old}
+            log(f"{name}: {ms:.4f} ms, plain (16 x {RANK_FRAMES} frames) "
+                f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; the "
+                f"compare-add bound {old:.4f} ms, {old_by}) at batch "
+                f"{BATCH} ({card})")
+            if ms < bound:
+                raise AssertionError(f"{name} reads under its bound")
+            if name in launches:
+                rows.append(dict(
+                    name=name, route="cuda", source=src,
+                    replaces="fmcw_tpu/ops/cfar_pallas.py:58",
+                    launches=launches[name],
+                    max_abs_err=errs[f"group/{case}" if group else case],
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                    library_ms=None))
     # The yardstick: torch.topk over a prebuilt training stack computes the
     # order statistic alone (no stack building, mean, scale or threshold).
     f8 = fmag[:RANK_FRAMES]

@@ -10,6 +10,8 @@ range bin 100 (Doppler 5.0, amp 8000) and range bin 500 (Doppler -10.0, amp
 own) — frames, or range-major planes, that put exact round-half ties on
 eighth-turn Doppler bins: the stimuli that tell an exact Doppler transform
 from a rounded one; ``eighth_turn_ties`` finds those ties in windowed rows.
+``rank_adversarial_maps`` (the port's own) — magnitude maps of tied,
+non-finite, negative and out-of-range keys for the rank-select CFAR.
 """
 
 from __future__ import annotations
@@ -259,3 +261,40 @@ def eighth_turn_ties(i_w: np.ndarray, q_w: np.ndarray):
                       (u[0][1] - g * u[2][0], pi)):
             tie |= (pp == 0) & (e % (1 << s) == half)
     return tie, tie & ((u[1][0] != 0) | (u[1][1] != 0))
+
+
+def rank_adversarial_maps(shape, integer: bool, seed: int = 0) -> np.ndarray:
+    """Magnitude maps (float32, or int32 with ``integer``) of the given
+    (..., R, D) shape whose keys stress a rank select's compares: seeded
+    exponential noise, then plateaus of one value (every training value of
+    a window tied, and two-valued plateaus: ties at the k-th value), and
+    scattered special keys — floats: NaN (both signs), +-Inf, -0.0,
+    negative values, denormals and the largest finite value; integers:
+    values at and above 2^16 (up to 2^31 - 1), negative ones (down to
+    -2^31) and zeros."""
+    rng = np.random.default_rng(seed)
+    *lead, R, D = shape
+    m = rng.exponential(1000.0, shape)
+    flat = m.reshape(-1, R, D)
+    hr, hd = min(16, R), min(16, D)
+    for f in flat:
+        # A plateau of one value, and one of two values half and half.
+        r0, d0 = rng.integers(0, R - hr + 1), rng.integers(0, D - hd + 1)
+        f[r0:r0 + hr, d0:d0 + hd] = 2500.0
+        r1, d1 = rng.integers(0, R - hr + 1), rng.integers(0, D - hd + 1)
+        f[r1:r1 + hr, d1:d1 + hd] = np.where(
+            rng.random((hr, hd)) < 0.5, 3000.0, 3001.0)
+    if integer:
+        out = np.round(m).astype(np.int64)
+        specials = np.array([65535, 65536, 70000, 2 ** 20, 2 ** 31 - 1, -1,
+                             -70000, -2 ** 31, 0], dtype=np.int64)
+        pick = rng.random(shape) < 0.08
+        out[pick] = rng.choice(specials, int(pick.sum()))
+        return out.astype(np.int32)
+    out = m.astype(np.float32)
+    bits = np.array([0x7FC00000, 0xFFC00000, 0x7F800000, 0xFF800000,
+                     0x80000000, 0xC47A0000, 0x00000400, 0x007FFFFF,
+                     0x7F7FFFFF], dtype=np.uint32)
+    pick = rng.random(shape) < 0.08
+    out[pick] = rng.choice(bits, int(pick.sum())).view(np.float32)
+    return out

@@ -64,7 +64,7 @@ class CfarRankConfig(ctypes.Structure):
         "batch", "R", "D", "T",
         "hr", "hd", "gr", "gd", "n_ref", "k",
         "scale_min", "scale_nom", "scale_max",
-        "block_mode", "so", "integer", "prepadded", "bits")]
+        "block_mode", "so", "integer", "prepadded", "bits", "pgr")]
 
 
 class Cfar3dConfig(ctypes.Structure):
@@ -227,9 +227,11 @@ def load() -> ctypes.CDLL:
     lib.fmcw_beam_group.argtypes = [vp] * 4 + [
         ctypes.POINTER(BeamGroupConfig), vp]
     lib.fmcw_beam_group.restype = ci
-    lib.fmcw_cfar_rank.argtypes = [vp] * 5 + [
+    lib.fmcw_cfar_rank.argtypes = [vp] * 7 + [
         ctypes.POINTER(CfarRankConfig), vp]
     lib.fmcw_cfar_rank.restype = ci
+    lib.fmcw_cfar_rank_smem.argtypes = [ctypes.POINTER(CfarRankConfig)]
+    lib.fmcw_cfar_rank_smem.restype = ci
     build_info.path = out
     _lib = lib
     return lib

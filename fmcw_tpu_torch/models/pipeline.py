@@ -41,13 +41,16 @@ The CFAR debug taps (``include_debug``: the threshold and scale maps, the
 which the counting kernels never form: with them every route runs JAX's
 standalone-CFAR dataflow — the route's magnitudes (float32 "fused": kernel A
 and kernel B's magnitude-only entry; "staged" and fixed: the plain stages),
-then the rank-select CFAR ``ops/cfar_rank`` (TPU kernel row 9; its twin on
-"plain"), plain peak grouping and the top-K.  Float per-cell taps rank on
-``cfar_rank_bits`` key bits (16, JAX's default: the threshold is the order
-statistic truncated, under it by < 0.8%, and so is the decision; None is
-exact), integer maps on 16 bits (exact below 2^16), the block scale exactly
-with ``ops/cfar.block_scale_map``'s scale.  Fixed mode's "fused" route has
-no debug taps (it raises, as JAX's ``frontend="pallas"``).
+then the rank-select CFAR ``ops/cfar_rank`` (TPU kernel row 9) with the
+peak grouping in its epilogue (``cfar_rank_group``, which also hands the
+row maxima and counts to the top-K; on "plain" its twin ``cfar_rank_plain``
+and the plain ``ops/cfar.peak_group``), then the top-K.  Float per-cell
+taps rank on ``cfar_rank_bits`` key bits (16, JAX's default: the threshold
+is the order statistic truncated, under it by < 0.8%, and so is the
+decision; None is exact), integer maps on 16 bits (exact below 2^16), the
+block scale exactly with ``ops/cfar.block_scale_map``'s scale.  Fixed
+mode's "fused" route has no debug taps (it raises, as JAX's
+``frontend="pallas"``).
 
 Runtime controls (``mti_bypass``, ``scale_override``) are call arguments —
 the radar_core control ports (rtl/src/radar_core.vhd:48-49).
@@ -87,7 +90,7 @@ from ..ops import frontend as F, frontend_fixed as FX
 from ..ops.beam_group import beam_group, beam_group_plain
 from ..ops.cfar3d_detect import cfar3d_detect, cfar3d_detect_plain
 from ..ops.cfar_detect import cfar_detect
-from ..ops.cfar_rank import cfar_rank, cfar_rank_plain, debug_bits
+from ..ops.cfar_rank import cfar_rank_group, cfar_rank_plain, debug_bits
 from ..ops.fft import dft_apply, doppler_apply
 from ..ops.frontend import rdm_frontend_detect
 from ..ops.magnitude import magnitude_float
@@ -207,7 +210,6 @@ def make_batch_processor(params: RadarParams | None = None,
                 "fitting their tile and no debug taps "
                 "(fused_fixed_detect_supported)")
     max_dets = p.tracker.max_dets
-    rank = cfar_rank_plain if route == "plain" else cfar_rank
     bits = debug_bits(p.cfar, mode == "fixed", cfar_rank_bits)
 
     def magnitudes(iq, bypass):
@@ -244,11 +246,17 @@ def make_batch_processor(params: RadarParams | None = None,
         row_max = n_dets = None
         if route == "staged" or include_debug:
             mag, sat, nonfinite = magnitudes(iq, bypass)
-            if include_debug:
-                det, threshold, scale = rank(mag, so, cfar=p.cfar, bits=bits)
+            if include_debug and route != "plain":
+                det, threshold, scale, row_max, n_dets = cfar_rank_group(
+                    mag, so, cfar=p.cfar, bits=bits,
+                    peak_group_radius=peak_group_radius)
             else:
-                det, _ = cfar_detect(mag, so, cfar=p.cfar)
-            det = C.peak_group(det, peak_group_radius)
+                if include_debug:
+                    det, threshold, scale = cfar_rank_plain(
+                        mag, so, cfar=p.cfar, bits=bits)
+                else:
+                    det, _ = cfar_detect(mag, so, cfar=p.cfar)
+                det = C.peak_group(det, peak_group_radius)
         elif mode == "fixed":
             det, mag, sat, row_max, n_dets = FX.rdm_frontend_fixed_detect(
                 iq, bypass, so, cfar=p.cfar, notch_mode=p.notch_mode,

@@ -29,12 +29,20 @@ CUDA tensor and takes ``cfar_rank_plain`` for a CPU tensor; both give the
 same three maps bit for bit.  The twin ranks by an exact top-k over the
 (..., R, D, n_ref) training stack and then clears the key bits the walk
 does not reach, so it needs n_ref values per cell of memory; the kernel
-never builds the stack.
+never builds the stack: it cuts the keys into bit planes and counts them
+with population counts (``csrc/cfar_rank.cu``).
+
+``cfar_rank_group`` is the kernel's grouping entry, the single-device debug
+routes' CFAR step: the same maps with the det map peak-grouped
+(``ops/cfar.peak_group``) in the kernel's epilogue, and the row maxima and
+detection counts ``ops/detect.topk_detections`` takes; its twin is
+``cfar_rank_group_plain``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -109,6 +117,77 @@ def cfar_rank_plain(mag: torch.Tensor, scale_override: int = 0, *,
     return det, threshold, scale
 
 
+def cfar_rank_group_plain(mag: torch.Tensor, scale_override: int = 0, *,
+                          cfar: CfarParams, bits: int | None = None,
+                          scale_map: torch.Tensor | None = None,
+                          peak_group_radius: int = 0):
+    """Plain twin of ``cfar_rank_group``: ``cfar_rank_plain``, then
+    ``ops/cfar.peak_group`` of its det map, the row maxima of the grouped
+    map's positive cells (0 where a row has none) and its detection
+    count: ``(det, threshold, scale, row_max, n_dets)``."""
+    det, threshold, scale = cfar_rank_plain(mag, scale_override, cfar=cfar,
+                                            bits=bits, scale_map=scale_map)
+    det = C.peak_group(det, peak_group_radius)
+    row_max = det.clamp(min=0).amax(dim=-1)
+    n_dets = (det > 0).sum(dim=(-2, -1)).to(torch.int32)
+    return det, threshold, scale, row_max, n_dets
+
+
+# Rows per block at most, and the shared memory a block may take so that
+# two blocks share an SM.
+TILE_ROWS = 32
+_TILE_BYTES = 112 * 1024
+
+
+def _launch(mag, scale_override, cfar, bits, scale_map, prepadded_range,
+            pgr, name):
+    """Launch csrc/cfar_rank.cu on a CUDA map: (det, threshold, scale,
+    row_max, n_dets), the last two None without grouping (pgr = -1)."""
+    b = check_bits(bits)
+    hr, hd = cfar.halo_range, cfar.halo_doppler
+    if 2 * hd + 1 > 32 or 2 * hr + 1 > 31:
+        raise NotImplementedError(
+            f"{name} kernel: a window of {2 * hr + 1} x {2 * hd + 1} cells "
+            f"(at most 31 rows and 32 columns)")
+    m, lead, R, D, block, scale_in = CD.kernel_inputs(
+        mag, scale_override, cfar, scale_map, prepadded_range, name)
+    B = m.shape[0]
+    lib = kernels.load()
+    cfg = kernels.CfarRankConfig(
+        batch=B, R=R, D=D, T=math.gcd(R, TILE_ROWS), hr=hr, hd=hd,
+        gr=cfar.guard_range, gd=cfar.guard_doppler, n_ref=cfar.n_ref,
+        k=cfar.n_ref - cfar.rank_idx, scale_min=cfar.scale_min,
+        scale_nom=cfar.scale_nom, scale_max=cfar.scale_max,
+        block_mode=int(block), so=int(scale_override),
+        integer=int(m.dtype == torch.int32), prepadded=int(prepadded_range),
+        bits=b, pgr=pgr)
+    while cfg.T > 1 and lib.fmcw_cfar_rank_smem(ctypes.byref(cfg)) > \
+            _TILE_BYTES:
+        cfg.T //= 2
+    if lib.fmcw_cfar_rank_smem(ctypes.byref(cfg)) > _TILE_BYTES:
+        raise NotImplementedError(
+            f"{name} kernel: a {R}x{D} map with halo {hr} does not fit its "
+            f"shared-memory tile")
+    det = torch.empty((B, R, D), dtype=m.dtype, device=m.device)
+    thr = torch.empty_like(det)
+    scale = torch.empty((B, R, D), dtype=torch.int32, device=m.device)
+    row_max = n_dets = None
+    if pgr >= 0:
+        row_max = torch.empty((B, R), dtype=m.dtype, device=m.device)
+        n_dets = torch.zeros(B, dtype=torch.int32, device=m.device)
+    err = lib.fmcw_cfar_rank(
+        m.data_ptr(), scale_in.data_ptr() if block else None, det.data_ptr(),
+        thr.data_ptr(), scale.data_ptr(),
+        None if row_max is None else row_max.data_ptr(),
+        None if n_dets is None else n_dets.data_ptr(), ctypes.byref(cfg),
+        torch.cuda.current_stream(m.device).cuda_stream)
+    kernels.check(err, name)
+    maps = tuple(x.reshape(*lead, R, D) for x in (det, thr, scale))
+    if pgr < 0:
+        return maps
+    return maps + (row_max.reshape(*lead, R), n_dets.reshape(*lead))
+
+
 @kernels.counted
 def cfar_rank(mag: torch.Tensor, scale_override: int = 0, *,
               cfar: CfarParams, bits: int | None = None,
@@ -126,28 +205,32 @@ def cfar_rank(mag: torch.Tensor, scale_override: int = 0, *,
         return cfar_rank_plain(mag, scale_override, cfar=cfar, bits=bits,
                                scale_map=scale_map,
                                prepadded_range=prepadded_range)
-    b = check_bits(bits)
-    m, lead, R, D, block, scale_in = CD.kernel_inputs(
-        mag, scale_override, cfar, scale_map, prepadded_range, "cfar_rank")
-    B = m.shape[0]
-    cfg = kernels.CfarRankConfig(
-        batch=B, R=R, D=D, T=CD.tile_rows(R, D, cfar.halo_range, "cfar_rank"),
-        hr=cfar.halo_range, hd=cfar.halo_doppler, gr=cfar.guard_range,
-        gd=cfar.guard_doppler, n_ref=cfar.n_ref,
-        k=cfar.n_ref - cfar.rank_idx, scale_min=cfar.scale_min,
-        scale_nom=cfar.scale_nom, scale_max=cfar.scale_max,
-        block_mode=int(block), so=int(scale_override),
-        integer=int(m.dtype == torch.int32), prepadded=int(prepadded_range),
-        bits=b)
-    det = torch.empty((B, R, D), dtype=m.dtype, device=m.device)
-    thr = torch.empty_like(det)
-    scale = torch.empty((B, R, D), dtype=torch.int32, device=m.device)
-    lib = kernels.load()
-    err = lib.fmcw_cfar_rank(
-        m.data_ptr(), scale_in.data_ptr() if block else None, det.data_ptr(),
-        thr.data_ptr(), scale.data_ptr(), ctypes.byref(cfg),
-        torch.cuda.current_stream(m.device).cuda_stream)
-    kernels.check(err, "cfar_rank")
+    out = _launch(mag, scale_override, cfar, bits, scale_map,
+                  prepadded_range, -1, "cfar_rank")
     cfar_rank.launches += 1
-    return (det.reshape(*lead, R, D), thr.reshape(*lead, R, D),
-            scale.reshape(*lead, R, D))
+    return out
+
+
+@kernels.counted
+def cfar_rank_group(mag: torch.Tensor, scale_override: int = 0, *,
+                    cfar: CfarParams, bits: int | None = None,
+                    scale_map: torch.Tensor | None = None,
+                    peak_group_radius: int = 0):
+    """``cfar_rank`` with the peak grouping of the processors' debug routes
+    in the kernel's epilogue: ``(det, threshold, scale, row_max, n_dets)``
+    with det grouped as ``ops/cfar.peak_group(det, peak_group_radius)``,
+    row_max (..., R) in the map's type and n_dets (...,) int32 for
+    ``ops/detect.topk_detections``.  Whole maps only (no prepadded shard).
+    Launches the CUDA kernel's grouping entry for a CUDA tensor; the plain
+    twin for a CPU tensor."""
+    if int(peak_group_radius) < 0:
+        raise ValueError(f"peak_group_radius must be >= 0, got "
+                         f"{peak_group_radius}")
+    if F._device_kind(mag) == "cpu":
+        return cfar_rank_group_plain(mag, scale_override, cfar=cfar,
+                                     bits=bits, scale_map=scale_map,
+                                     peak_group_radius=peak_group_radius)
+    out = _launch(mag, scale_override, cfar, bits, scale_map, False,
+                  int(peak_group_radius), "cfar_rank_group")
+    cfar_rank_group.launches += 1
+    return out

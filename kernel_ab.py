@@ -33,8 +33,17 @@ stimulus, 1024x128 frames):
   ``torch.fft.fft`` (complex128) of the same windowed chirps and a
   memory-only corner turn of its input (``iq.transpose(1, 2).contiguous()``,
   4 bytes a sample read and written);
+* the rank-select CFAR behind the debug taps (``csrc/cfar_rank.cu``,
+  ``ops/cfar_rank.cfar_rank``) at batch 128 on the float main path's
+  magnitudes and the fixed chain's int32 magnitudes: float 16 key bits,
+  float exact, float exact with a given block scale map, int32 16 bits —
+  and, where the checkout has it, the grouping entry ``cfar_rank_group``
+  (radius 2) on the three the debug routes launch — as back-to-back calls
+  and by graph replay;
 * main-path frames/s through ``make_batch_processor``, per-cell and block,
-  float and fixed mode's fused route.
+  float and fixed mode's fused route; and the debug-tap routes
+  (``include_debug=True``): float per-cell and block on "fused", fixed
+  per-cell on "auto".
 
 Prints the card's name and power limit and one JSON line.  To compare two
 commits on one card, unpack the other commit into a directory (``git
@@ -200,6 +209,28 @@ def main() -> int:
         fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
         del z
     del re, im, fre, fim, shard, fshard
+    # The rank-select CFAR's four variants and, where the checkout has it,
+    # its grouping entry on the three the debug routes launch.
+    from fmcw_tpu_torch.ops import cfar as C, cfar_rank as RK
+    fast = P.fast()
+    fmag, _ = F.slowtime_mag(*F.range_fft(iq))
+    imag, _ = pl._staged_fixed(iq, False, entry, "zero", "unbiased")
+    fsmap = C.block_scale_map(fmag, fast.cfar)
+    rank = {"float,16 bits": (fmag, entry.cfar, 16, None),
+            "float,exact": (fmag, entry.cfar, None, None),
+            "float,exact,scale map": (fmag, fast.cfar, None, fsmap),
+            "int32,16 bits": (imag, entry.cfar, 16, None)}
+    for what, (mag, cfar, bits, smap) in rank.items():
+        kw = dict(cfar=cfar, bits=bits, scale_map=smap)
+        calls = {f"cfar_rank[{what}]": lambda kw=kw: RK.cfar_rank(mag, **kw)}
+        if hasattr(RK, "cfar_rank_group") and what != "float,exact":
+            calls[f"cfar_rank_group[{what}]"] = (
+                lambda kw=kw: RK.cfar_rank_group(mag, peak_group_radius=2,
+                                                 **kw))
+        for name, call in calls.items():
+            ms[name] = cuda_ms(call, 10, 2)
+            graph[name] = graph_ms(call, 10)
+    del fmag, imag, fsmap
     # The main path, per-cell and block scale; fixed mode's fused route.
     fps = {}
     for p in (entry, P.fast()):
@@ -211,6 +242,16 @@ def main() -> int:
                                            include_maps=False,
                                            device="cuda", **kw)
             fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 10, 2)
+    # The debug-tap routes.
+    for key, p, kw in (("debug/float/cell/fused", entry, {}),
+                       ("debug/float/block/fused", P.fast(), {}),
+                       ("debug/fixed/cell/auto", entry,
+                        dict(mode="fixed", frontend="auto"))):
+        batch = make_batch(p, seed=4)
+        proc = pl.make_batch_processor(p, peak_group_radius=2,
+                                       include_maps=False, include_debug=True,
+                                       device="cuda", **kw)
+        fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 5, 2)
     print(json.dumps({"root": str(args.root), "ms": ms, "fft_ms": fft,
                       "graph_ms": graph, "fft_graph_ms": fft_graph,
                       "copy_ms": copy, "frames_per_s": fps, "batch": BATCH,

@@ -253,6 +253,9 @@ class _FakeLib:
         self.calls.append(("cfar_rank", args))
         return self.err
 
+    def fmcw_cfar_rank_smem(self, cfg):
+        return 0
+
 
 class _Stream:
     cuda_stream = 0
@@ -603,18 +606,19 @@ def test_rank_and_shard_entries_launch_kernels_for_cuda_tensors(as_if_cuda):
     det, thr, scale = RK.cfar_rank(mag, 4, cfar=p.cfar, bits=16)
     assert det.dtype == thr.dtype == torch.float32
     assert scale.dtype == torch.int32
-    cfg = as_if_cuda.calls[-1][1][5]._obj
+    cfg = as_if_cuda.calls[-1][1][7]._obj
     assert (cfg.batch, cfg.R, cfg.D, cfg.bits, cfg.so, cfg.integer,
-            cfg.block_mode, cfg.prepadded, cfg.n_ref, cfg.k) == \
-        (2, 1024, 128, 16, 4, 0, 0, 0, 128, 32)
+            cfg.block_mode, cfg.prepadded, cfg.n_ref, cfg.k, cfg.pgr) == \
+        (2, 1024, 128, 16, 4, 0, 0, 0, 128, 32, -1)
     assert cfg.R % cfg.T == 0 and as_if_cuda.calls[-1][1][1] is None
+    assert as_if_cuda.calls[-1][1][5:7] == (None, None)
     hr = p.cfar.halo_range
     shard = torch.zeros((2, 256 + 2 * hr, p.n_doppler), dtype=torch.int32)
     smap = torch.zeros((2, 256, p.n_doppler), dtype=torch.int32)
     d, _, _ = RK.cfar_rank(shard, cfar=fmcw_tpu_torch.fast().cfar,
                            scale_map=smap, prepadded_range=True)
     assert tuple(d.shape) == (2, 256, p.n_doppler) and d.dtype == torch.int32
-    cfg = as_if_cuda.calls[-1][1][5]._obj
+    cfg = as_if_cuda.calls[-1][1][7]._obj
     assert (cfg.R, cfg.bits, cfg.integer, cfg.block_mode, cfg.prepadded) == \
         (256, 31, 1, 1, 1)
     assert as_if_cuda.calls[-1][1][1] is not None
@@ -641,9 +645,18 @@ def test_rank_and_shard_entries_launch_kernels_for_cuda_tensors(as_if_cuda):
             counts["beam_group"]) == (2, 1, 2)
     as_if_cuda.calls.clear()
     q = fmcw_tpu_torch.quick()
-    tpl.make_batch_processor(q, include_debug=True, device="cpu")(_iq(q, 2))
+    kernels.reset_launch_counts()
+    tpl.make_batch_processor(q, include_debug=True, peak_group_radius=2,
+                             device="cpu")(_iq(q, 2))
     assert [c[0] for c in as_if_cuda.calls] == [
         "range_fft", "slowtime_mag", "cfar_rank"]
+    # The debug route groups in the kernel: its grouping entry, with the
+    # row maxima and counts handed to the top-K.
+    args = as_if_cuda.calls[-1][1]
+    assert args[5] is not None and args[6] is not None
+    assert args[7]._obj.pgr == 2 and args[7]._obj.prepadded == 0
+    counts = kernels.launch_counts()
+    assert (counts["cfar_rank"], counts["cfar_rank_group"]) == (0, 1)
 
 
 def test_rank_failed_launch_raises(as_if_cuda):
