@@ -7,7 +7,8 @@ Run from the repository root:
     python3 chip_smoke.py --nccl-only   # with 2+ GPUs: the NCCL mesh alone
 
 It builds the CUDA kernels from fmcw_tpu_torch/csrc/ (into build/; the two
-range kernels and both slow-time kernels without spills), holds each
+range kernels, both slow-time kernels, the rank-select CFAR and the 3D
+CFAR's variants of the repository's windows without spills), holds each
 kernel against its plain PyTorch
 twin on the card (kernel A and the fixed range kernel also at every size
 they take: n_range 16..1024 with 8, 40 and 128 chirps, both entries of
@@ -30,8 +31,10 @@ stages and the CFAR kernel; fused: the two fixed-point kernels) at batch
 the kernels' timings.  Then the array-radar model (8 elements, 8 beams,
 1024x128, batches of 16 cubes = 128 beam maps): the float-input and
 magnitude-only entry points of the front-end kernels, the angle-extended
-3D CFAR kernel and the cross-beam grouping kernel against their twins, at
-full width and at small shapes; three configurations through
+3D CFAR kernel (TPU row 10; float32 and int32 cubes, adversarial cubes of
+NaN, Inf, -0.0, ties and out-of-range keys, training sets over 4094 cells,
+every tile geometry) and the cross-beam grouping kernel against their
+twins, at full width and at small shapes; three configurations through
 make_batch_array_processor (per-cell and block scale with per-beam and
 cross-beam grouping; the 3D CFAR at ref_angle 1), each checked with the
 array gate against the plain path; stage and kernel timings.  Then the
@@ -188,24 +191,29 @@ def range_fft_size_checks(dev):
 NO_SPILL_SOURCES = (" range_fft.cu", " range_fft_fixed.cu",
                     " slowtime_detect.cu", " slowtime_detect_fixed.cu",
                     " cfar_rank.cu")
+# cfar_3d_detect.cu's variants of the repository's windows (strips of 8,
+# the (6, 2) and (3, 1) walks unrolled, hi and lo packed; float, int32).
+NO_SPILL_ENTRIES = tuple(f"cfar3d_detect_kernelI{v}Li8ELi{hr}ELi{gr}ELb1E"
+                         for v in "fi" for hr, gr in ((6, 2), (3, 1)))
 
 
 def log_build(info) -> None:
     """The compiler's register and spill lines of every kernel, with the
-    entry names for the two range kernels (kernel A and the fixed one),
-    kernel B, the fixed slow-time kernel and the rank-select CFAR; fails if
-    an instantiation of any of them spills or keeps an array in local
-    memory (a stack frame)."""
+    entry names; fails if an instantiation of the two range kernels
+    (kernel A and the fixed one), kernel B, the fixed slow-time kernel or
+    the rank-select CFAR, or a variant of the 3D CFAR that the
+    repository's windows run, spills or keeps an array in local memory (a
+    stack frame)."""
     section, entry, bad = "", "", []
     for line in info.log.splitlines():
         if line.startswith("---"):
-            section = line
+            section, entry = line, ""
         if "Compiling entry" in line:
             entry = line.split("'")[1] if "'" in line else line
-        checked = section.endswith(NO_SPILL_SOURCES)
+        checked = (section.endswith(NO_SPILL_SOURCES)
+                   or any(e in entry for e in NO_SPILL_ENTRIES))
         if ("registers" in line or "spill" in line
-                or (checked and "Compiling entry" in line)
-                or line.startswith("---")):
+                or "Compiling entry" in line or line.startswith("---")):
             log(f"  {line.strip()}")
         if (checked and "spill" in line
                 and "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
@@ -968,8 +976,9 @@ def array_kernel_checks(dev):
     """Phase 12: the array model's kernels against their twins at full
     width (16 cubes, 8 beams, 1024x128): range_fft_float and slowtime_mag
     within TOL of the peak (non-finite counts equal); cfar3d_detect on the
-    kernel path's own magnitude cube bit-identical to the plain cfar_3d for
-    scale_override 0 and 4; beam_group bit-identical to the plain
+    kernel path's own magnitude cube, and on that cube * 16 as int32,
+    bit-identical to the plain cfar_3d for scale_override 0 and 4;
+    beam_group bit-identical to the plain
     peak_group_beams (det, row maxima, counts) for radius 1 and 2, on real
     det cubes and on random sparse stacks with dense ties.  Returns
     ({row: max_abs_err}, the planes, the magnitude cube)."""
@@ -1021,6 +1030,21 @@ def array_kernel_checks(dev):
             f"{int((det > 0).sum())} detections")
         if not same:
             raise AssertionError("cfar3d_detect disagrees with cfar_3d")
+    # The int32 cube at full width (phase 13's cube * 16: values up to the
+    # int32 range, integer counts in the kernel).
+    icube = (cube * 16).to(torch.int32)
+    for so in (0, 4):
+        det, scale = C3.cfar3d_detect(icube, so, cfar=p.cfar, ref_angle=1)
+        d2, s2 = C3.cfar3d_detect_plain(icube, so, cfar=p.cfar, ref_angle=1)
+        torch.cuda.synchronize()
+        same = torch.equal(det, d2) and torch.equal(scale, s2)
+        log(f"cfar_3d_detect int32 cube ref_angle=1 so={so}: det and scale "
+            f"{'bit-identical' if same else 'DIFFER'}, "
+            f"{int((det > 0).sum())} detections")
+        if not same:
+            raise AssertionError("cfar3d_detect disagrees with cfar_3d on "
+                                 "an int32 cube")
+    del icube, det, scale, d2, s2
     errs["cfar_3d_detect"] = worst
     det2d = F.slowtime_detect(re, im, cfar=p.cfar, peak_group_radius=2)[0]
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1050,7 +1074,8 @@ def array_kernel_checks(dev):
 def array_small_checks(dev):
     """Phase 13: the same kernels at small shapes — the quick CFAR at
     128x32, ref_angle 2 with guard_angle 1 at 256x64, 4 and 16 beams, and
-    int32 cubes for the 3D CFAR."""
+    int32 cubes for the 3D CFAR; then the 3D CFAR's own cases
+    (``cfar3d_cases``)."""
     import torch
     import fmcw_tpu_torch as P
     from fmcw_tpu_torch.ops import beam_group as BG, cfar3d_detect as C3
@@ -1094,6 +1119,89 @@ def array_small_checks(dev):
                 or not err_b <= TOL * float(pmag.max())):
             raise AssertionError(f"array kernels disagree at {p.n_range}x"
                                  f"{p.n_doppler}, {n_beams} beams")
+    cfar3d_cases(dev)
+
+
+def noise_cube(shape, integer: bool, seed: int, flat: bool = False):
+    """A seeded (B, A, R, D) cube: exponential noise with a band of bright
+    cells, a plateau and strong cells; or (flat) values within 0.1% of one
+    level with a few strong cells (every training value >= half the mean,
+    lo = n_ref)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if flat:
+        m = 1000.0 + rng.random(shape)
+    else:
+        m = rng.exponential(500.0, shape)
+        m[..., 5:9, :] *= np.where(rng.random(m[..., 5:9, :].shape) < 0.3,
+                                   30.0, 1.0)
+        m[..., 20:26, 2:9] = 700.0
+    for f in m.reshape(-1, *shape[-2:]):
+        f[rng.integers(0, shape[-2]), rng.integers(0, shape[-1])] = 3e4
+    return np.round(m).astype(np.int32) if integer else m.astype(np.float32)
+
+
+def cfar3d_cases(dev):
+    """Phase 13, the 3D CFAR kernel's own cases, each float32 and int32,
+    scale_override 0 and 4, det and scale bit for bit against the twin:
+    adversarial cubes at full width (golden.reference.rank_adversarial_maps:
+    NaN, +-Inf, -0.0, negative values, denormals, ties at the k-th value,
+    int keys beyond 2^16 and down to -2^31) at ref_angle 1 and 2 / guard 1;
+    training sets over 4094 cells (ref_angle 14 on 4 beams: n_ref 4132,
+    hi and lo counted apart for float cubes); and the tile geometries —
+    37 rows (one block, an overlapping last strip), 6 rows (a block past
+    R), 100 rows (a last block past R), strips of one cell (ref_angle 8 at
+    128 Doppler bins: 8 rows of 17 planes do not fit), a window walked at
+    run time (hr 4, gr 1)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.golden.reference import rank_adversarial_maps
+    from fmcw_tpu_torch.ops import cfar3d_detect as C3
+    full = P.RadarParams().cfar
+    quick = P.quick().cfar
+    odd = P.CfarParams(ref_range=3, ref_doppler=2, guard_range=1,
+                       guard_doppler=2)
+    cases = []
+    for integer in (False, True):
+        adv = rank_adversarial_maps((4, N_BEAMS, 1024, 128), integer, 11)
+        cases += [("adversarial 4x8x1024x128", adv, full, 1, 0),
+                  ("adversarial 4x8x1024x128", adv, full, 2, 1)]
+        for shape in ((2, 4, 32, 16), (2, 4, 256, 64)):
+            for flat in (False, True):
+                cases.append((f"n_ref>4094 {'flat' if flat else 'noise'} "
+                              f"{'x'.join(map(str, shape))}",
+                              noise_cube(shape, integer, 12, flat), full,
+                              14, 0))
+        cases += [("37 rows", noise_cube((2, 8, 37, 16), integer, 13),
+                   full, 1, 0),
+                  ("6 rows", noise_cube((2, 8, 6, 16), integer, 14),
+                   quick, 1, 0),
+                  ("100 rows", noise_cube((2, 8, 100, 128), integer, 15),
+                   full, 1, 0),
+                  ("strips of one cell", noise_cube((1, 8, 64, 128),
+                                                    integer, 16), full, 8, 0),
+                  ("window hr 4 gr 1", noise_cube((2, 8, 256, 64), integer,
+                                                  17), odd, 2, 1)]
+    for name, cube, cfar, ra, ga in cases:
+        x = torch.as_tensor(cube, device=dev)
+        cfg = C3.cfar3d_config(tuple(x.shape), cfar, ra, ga,
+                               integer=x.dtype == torch.int32)
+        ok, dets = True, 0
+        for so in (0, 4):
+            a = C3.cfar3d_detect(x, so, cfar=cfar, ref_angle=ra,
+                                 guard_angle=ga)
+            b = C3.cfar3d_detect_plain(x, so, cfar=cfar, ref_angle=ra,
+                                       guard_angle=ga)
+            ok &= all(torch.equal(u, v) for u, v in zip(a, b))
+            dets += int((a[0] > 0).sum()) if so == 0 else 0
+        torch.cuda.synchronize()
+        log(f"cfar_3d_detect {name} {x.dtype} ref_angle={ra} "
+            f"guard_angle={ga} (n_ref {cfg.n_ref}, T {cfg.T}, strip "
+            f"{cfg.strip}, packed {cfg.packed}): so 0/4 "
+            f"{'bit-identical' if ok else 'DIFFER'}, {dets} detections")
+        if not ok:
+            raise AssertionError(f"cfar3d_detect disagrees with cfar_3d: "
+                                 f"{name} {x.dtype}")
 
 
 ARRAY_CONFIGS = (
@@ -1226,12 +1334,18 @@ def array_model(card: str, dev):
                      launches=launches["slowtime_mag"],
                      max_abs_err=errs["slowtime_mag"], ms=ms, plain_ms=plain,
                      bound_ms=bound, bound_by=by, library_ms=None))
-    ms = cuda_ms(lambda: C3.cfar3d_detect(cube, cfar=p.cfar, ref_angle=1))
+    ms = graph_ms(lambda: C3.cfar3d_detect(cube, cfar=p.cfar, ref_angle=1))
+    eager = cuda_ms(lambda: C3.cfar3d_detect(cube, cfar=p.cfar, ref_angle=1))
     plain = cuda_ms(lambda: C3.cfar3d_detect_plain(cube, cfar=p.cfar,
                                                    ref_angle=1), 2, 1)
     bound, by = bound_cfar3d(cube.numel(), p.cfar, 1, 0, False)
     t["cfar_3d_detect"] = ms
-    log(f"cfar_3d_detect: {ms:.4f} ms, plain {plain:.4f} ms, bound "
+    icube = (cube * 16).to(torch.int32)
+    t["cfar_3d_detect_int32"] = graph_ms(
+        lambda: C3.cfar3d_detect(icube, cfar=p.cfar, ref_angle=1))
+    del icube
+    log(f"cfar_3d_detect: {ms:.4f} ms (graph; eager {eager:.4f}; int32 cube "
+        f"{t['cfar_3d_detect_int32']:.4f}), plain {plain:.4f} ms, bound "
         f"{bound:.4f} ms ({by}) at {B} beam maps ({card})")
     rows.append(dict(name="cfar_3d_detect", route="cuda",
                      source=src + "cfar_3d_detect.cu",
@@ -1287,7 +1401,9 @@ def array_model(card: str, dev):
     return rows, {"cubes_per_s": cubes_per_s,
                   "beam_maps_per_s": {k: v * N_BEAMS
                                       for k, v in cubes_per_s.items()},
-                  "stages_ms": stages, "cubes": ARRAY_BATCH,
+                  "stages_ms": stages,
+                  "cfar_3d_detect_int32_ms": t["cfar_3d_detect_int32"],
+                  "cubes": ARRAY_BATCH,
                   "beams": N_BEAMS}
 
 
@@ -2110,7 +2226,8 @@ def shard_entry_checks(card: str, dev):
     and beam_group(beam_offset=) (radius 1 and 2, global beam ids) on each
     halo-extended shard, bit-equal to the whole-cube kernels' interior
     planes (and their row maxima and counts) and to their twins on shard 0;
-    one sp=4 shard timed against its bound and twin.  Returns the kernel
+    one sp=4 shard timed against its bound and twin (the 3D CFAR by graph
+    replay, eager beside it).  Returns the kernel
     rows (bit-equal, so max_abs_err 0; launches added by phase 25)."""
     import torch
     import fmcw_tpu_torch as P
@@ -2176,14 +2293,16 @@ def shard_entry_checks(card: str, dev):
     src = "fmcw_tpu_torch/csrc/"
     rows = []
     x = ext(cube, s, bl, 1)
-    ms = cuda_ms(lambda: C3.cfar3d_detect(x, cfar=p.cfar, ref_angle=1,
-                                          prepadded_angle=True))
+    ms = graph_ms(lambda: C3.cfar3d_detect(x, cfar=p.cfar, ref_angle=1,
+                                           prepadded_angle=True))
+    eager = cuda_ms(lambda: C3.cfar3d_detect(x, cfar=p.cfar, ref_angle=1,
+                                             prepadded_angle=True))
     plain = cuda_ms(lambda: C3.cfar3d_detect_plain(
         x, cfar=p.cfar, ref_angle=1, prepadded_angle=True), 2, 1)
     bound, by = bound_cfar3d(ARRAY_BATCH * bl * nr * nd, p.cfar, 1, 0, False)
     log(f"cfar_3d_detect[prepadded] (beam shard {ARRAY_BATCH}x{bl}+2x1 "
-        f"planes): {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
-        f"({by}) ({card})")
+        f"planes): {ms:.4f} ms (graph; eager {eager:.4f}), plain "
+        f"{plain:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
     rows.append(dict(name="cfar_3d_detect[prepadded]", route="cuda",
                      source=src + "cfar_3d_detect.cu",
                      replaces="fmcw_tpu/ops/cfar_pallas.py:569",

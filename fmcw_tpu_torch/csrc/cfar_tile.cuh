@@ -200,6 +200,39 @@ __device__ __forceinline__ void walk_training_fixed(const V* row0, int D,
     }
 }
 
+// walk_training_fixed with the guard box optional: with guard false every
+// row of every window column is walked (the beam planes of a 3D window
+// outside its guard planes, cfar_3d_detect.cu).  row0: the window's first
+// row, column 0.
+template <int S, int HR, int GR, typename V, typename Visit>
+__device__ __forceinline__ void walk_window_fixed(const V* row0, int D, int d,
+                                                  const CfarGeom& g,
+                                                  bool guard, Visit visit) {
+    for (int dd = -g.hd; dd <= g.hd; ++dd) {
+        const V* col = row0 + wrap_col(d + dd, D);
+        if (guard && dd >= -g.gd && dd <= g.gd)
+            walk_rows_fixed<S, HR, GR, true>(col, D, visit);
+        else
+            walk_rows_fixed<S, HR, GR, false>(col, D, visit);
+    }
+}
+
+// The same for a window whose rows are known at run time only.
+template <int S, typename V, typename Visit>
+__device__ __forceinline__ void walk_window(const V* row0, int D, int d,
+                                            const CfarGeom& g, bool guard,
+                                            Visit visit) {
+    for (int dd = -g.hd; dd <= g.hd; ++dd) {
+        const bool gcol = guard && dd >= -g.gd && dd <= g.gd;
+        walk_rows<S>(row0 + wrap_col(d + dd, D), D, 2 * g.hr + 1,
+                     [&](int dr) {
+                         return !(gcol && dr >= g.hr - g.gr &&
+                                  dr <= g.hr + g.gr);
+                     },
+                     visit);
+    }
+}
+
 // Counts over the training cells of a strip's windows: for each window
 // column (ascending) a walk of its 2 hr + 1 rows, the guard rows of the
 // guard columns skipped.  col0: the strip's column d at the window's first

@@ -72,7 +72,8 @@ class Cfar3dConfig(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "batch", "A", "R", "D", "T", "ha", "ga",
         "hr", "hd", "gr", "gd", "n_ref", "k",
-        "scale_min", "scale_nom", "scale_max", "so", "integer", "prepadded")]
+        "scale_min", "scale_nom", "scale_max", "so", "integer", "prepadded",
+        "strip", "packed")]
 
 
 class BeamGroupConfig(ctypes.Structure):

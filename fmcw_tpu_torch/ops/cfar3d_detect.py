@@ -25,11 +25,19 @@ from ..params import CfarParams
 from . import cfar as C
 from . import frontend as F
 
-# Rows per block are the largest power of two dividing R, at most 64, whose
-# tile (2 ha + 1 planes of T + 2 hr rows, and their column sums) fits this
-# many bytes of shared memory — three blocks per SM at the default window.
+# Rows per block (T) are chosen so that the tile (2 ha + 1 planes of T + 2
+# hr rows, and their column sums) fits this many bytes of shared memory —
+# three blocks per SM at the default window (T = 16: 67.6 KB) — with the
+# least strip work over the map's rows; the kernel's thread takes a strip
+# of STRIP rows of one column (csrc/cfar_tile.cuh's kStrip).  A tile whose
+# 8 rows do not fit in _MAX_BYTES takes strips of one cell.
 _TILE_BYTES = 72 * 1024
 _MAX_BYTES = 227 * 1024
+STRIP = 8
+# The largest training set whose hi and lo counts the kernel packs in one
+# count: float hi * 4096 + lo (cfar_tile.cuh's kMaxPackedRef<float>), int
+# hi * 65536 + lo below 2^31.
+MAX_PACKED_REF = {False: 4094, True: 32767}
 
 
 def cfar3d_detect_plain(cube: torch.Tensor, scale_override: int = 0, *,
@@ -46,15 +54,29 @@ def _tile_bytes(T: int, D: int, ha: int, hr: int) -> int:
     return np_ * ((T + 2 * hr) * D + T * D) * 4
 
 
-def _tile_rows(R: int, D: int, ha: int, hr: int) -> int:
-    t = 64
-    while t > 1 and (R % t or _tile_bytes(t, D, ha, hr) > _TILE_BYTES):
-        t //= 2
-    if _tile_bytes(t, D, ha, hr) > _MAX_BYTES:
-        raise NotImplementedError(
-            f"cfar3d_detect kernel: a {R}x{D} map with {2 * ha + 1} beam "
-            f"planes and range halo {hr} does not fit its shared-memory tile")
-    return t
+def tile_plan(R: int, D: int, ha: int, hr: int) -> tuple[int, int]:
+    """(T, strip) of the kernel's blocks for an R x D map with 2 ha + 1
+    beam planes and range halo hr.  Strips of STRIP rows: T from STRIP to
+    min(64, max(R, STRIP)) within _TILE_BYTES, the least strip rows over the
+    map (ceil(R / T) blocks of ceil(T / STRIP) strips), ties to the larger T;
+    a last block past R decides wrapped rows and stores none of them.  When
+    no such T fits, T = STRIP within _MAX_BYTES; then strips of one cell, T
+    < STRIP; else NotImplementedError."""
+    def strip_rows(t):
+        return (R + t - 1) // t * ((t + STRIP - 1) // STRIP)
+
+    fits = [t for t in range(STRIP, min(64, max(R, STRIP)) + 1)
+            if _tile_bytes(t, D, ha, hr) <= _TILE_BYTES]
+    if fits:
+        return min(fits, key=lambda t: (strip_rows(t), -t)), STRIP
+    if _tile_bytes(STRIP, D, ha, hr) <= _MAX_BYTES:
+        return STRIP, STRIP
+    for t in range(STRIP - 1, 0, -1):
+        if _tile_bytes(t, D, ha, hr) <= _MAX_BYTES:
+            return t, 1
+    raise NotImplementedError(
+        f"cfar3d_detect kernel: a {R}x{D} map with {2 * ha + 1} beam "
+        f"planes and range halo {hr} does not fit its shared-memory tile")
 
 
 def _check_angles(ref_angle: int, guard_angle: int) -> None:
@@ -87,13 +109,16 @@ def cfar3d_config(shape, cfar: CfarParams, ref_angle: int, guard_angle: int,
     offs = C._offsets_3d(cfar, ref_angle, guard_angle)
     n_ref = len(offs)
     k = n_ref - min((n_ref * cfar.rank_pct) // 100, n_ref - 1)
+    T, strip = tile_plan(R, D, ha, cfar.halo_range)
     return kernels.Cfar3dConfig(
-        batch=B, A=A, R=R, D=D, T=_tile_rows(R, D, ha, cfar.halo_range),
+        batch=B, A=A, R=R, D=D, T=T,
         ha=ha, ga=guard_angle, hr=cfar.halo_range, hd=cfar.halo_doppler,
         gr=cfar.guard_range, gd=cfar.guard_doppler, n_ref=n_ref, k=k,
         scale_min=cfar.scale_min, scale_nom=cfar.scale_nom,
         scale_max=cfar.scale_max, so=int(scale_override),
-        integer=int(integer), prepadded=int(prepadded_angle))
+        integer=int(integer), prepadded=int(prepadded_angle), strip=strip,
+        packed=int(strip == STRIP
+                   and n_ref <= MAX_PACKED_REF[bool(integer)]))
 
 
 @kernels.counted

@@ -40,12 +40,23 @@ stimulus, 1024x128 frames):
   and, where the checkout has it, the grouping entry ``cfar_rank_group``
   (radius 2) on the three the debug routes launch — as back-to-back calls
   and by graph replay;
+* the 3D CFAR (TPU row 10, ``csrc/cfar_3d_detect.cu``,
+  ``ops/cfar3d_detect.cfar3d_detect``) at the 3D array route's shapes:
+  ``ref_angle=1`` on the magnitude cubes of 16 cubes x 8 beams
+  (chip_smoke.py's array stimulus: the golden two-target frame on 8
+  elements at steering sine 0.3, beamformed, ``range_fft_float``,
+  ``slowtime_mag``), and its prepadded entry on the sp = 4 beam shard (2
+  beams and one neighbour plane on each side), as back-to-back calls and by
+  graph replay;
 * main-path frames/s through ``make_batch_processor``, per-cell and block,
-  float and fixed mode's fused route; and the debug-tap routes
+  float and fixed mode's fused route; the debug-tap routes
   (``include_debug=True``): float per-cell and block on "fused", fixed
-  per-cell on "auto".
+  per-cell on "auto"; and the 3D array route's cubes/s
+  (``make_batch_array_processor(ref_angle=1)``, 16 cubes).
 
-Prints the card's name and power limit and one JSON line.  To compare two
+With ``--cfar3d-only`` it times the 3D CFAR's two entries and the 3D array
+route alone (a design step's A/B).  Prints the card's name and power limit
+and one JSON line.  To compare two
 commits on one card, unpack the other commit into a directory (``git
 archive``) and run this script on both, one after the other on the same
 card, alternating: A, B, B, A.
@@ -67,6 +78,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--root", required=True, type=Path,
                     help="checkout whose fmcw_tpu_torch is timed")
+    ap.add_argument("--cfar3d-only", action="store_true",
+                    help="time the 3D CFAR and the 3D array route alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -125,137 +138,181 @@ def main() -> int:
         return torch.as_tensor(iq, device="cuda")
 
     entry = P.RadarParams()
-    iq = make_batch(entry)
-    win = torch.as_tensor(hamming_float(entry.n_range), device="cuda")
+    ms, fft, graph, fft_graph, copy, fps = {}, {}, {}, {}, {}, {}
+    if not args.cfar3d_only:
+        iq = make_batch(entry)
+        win = torch.as_tensor(hamming_float(entry.n_range), device="cuda")
 
-    # Kernel A's three entries, each beside torch.fft.fft of the same
-    # windowed chirps; each timed as back-to-back calls and as a replayed
-    # CUDA graph.
-    br, bi = iq[..., 0].float().contiguous(), iq[..., 1].float().contiguous()
-    shard = iq[:, entry.n_doppler // SP:2 * entry.n_doppler // SP].contiguous()
-    calls = {"range_fft": (lambda: F.range_fft(iq), iq[..., 0], iq[..., 1]),
-             "range_fft_float": (lambda: F.range_fft_float(br, bi), br, bi),
-             "range_frontend[sp4]": (lambda: SF.range_frontend(shard),
-                                     shard[..., 0], shard[..., 1])}
-    ms, fft, graph, fft_graph = {}, {}, {}, {}
-    for name, (call, re, im) in calls.items():
-        z = torch.complex(re.float() * win, im.float() * win)
-        ms[name] = cuda_ms(call)
-        fft[name] = cuda_ms(lambda: torch.fft.fft(z, dim=-1))
-        graph[name] = graph_ms(call)
-        fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
-        del z
-    # Memory-only yardsticks that move kernel A's bytes: an int16 -> float32
-    # conversion (64 MiB read, 128 MiB written, as range_fft) and a copy of
-    # the two float32 planes (128 + 128 MiB, as range_fft_float).
-    copy = {"range_fft": cuda_ms(lambda: iq.float()),
-            "range_fft_float": cuda_ms(lambda: (br.clone(), bi.clone()))}
+        # Kernel A's three entries, each beside torch.fft.fft of the same
+        # windowed chirps; each timed as back-to-back calls and as a replayed
+        # CUDA graph.
+        br = iq[..., 0].float().contiguous()
+        bi = iq[..., 1].float().contiguous()
+        nd4 = entry.n_doppler // SP
+        shard = iq[:, nd4:2 * nd4].contiguous()
+        calls = {"range_fft": (lambda: F.range_fft(iq), iq[..., 0],
+                               iq[..., 1]),
+                 "range_fft_float": (lambda: F.range_fft_float(br, bi), br,
+                                     bi),
+                 "range_frontend[sp4]": (lambda: SF.range_frontend(shard),
+                                         shard[..., 0], shard[..., 1])}
+        for name, (call, re, im) in calls.items():
+            z = torch.complex(re.float() * win, im.float() * win)
+            ms[name] = cuda_ms(call)
+            fft[name] = cuda_ms(lambda: torch.fft.fft(z, dim=-1))
+            graph[name] = graph_ms(call)
+            fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+            del z
+        # Memory-only yardsticks that move kernel A's bytes: an int16 ->
+        # float32 conversion (64 MiB read, 128 MiB written, as range_fft)
+        # and a copy of the two float32 planes (128 + 128 MiB, as
+        # range_fft_float).
+        copy.update({"range_fft": cuda_ms(lambda: iq.float()),
+                     "range_fft_float": cuda_ms(
+                         lambda: (br.clone(), bi.clone()))})
+        del br, bi
+        # The fixed range kernel's two entries, each beside torch.fft.fft of
+        # the same Q15-windowed chirps in FP64 and a corner turn of its
+        # input.
+        from fmcw_tpu_torch.ops.window import hamming_q15, window_apply_fixed
+        fixed = {"range_fft_fixed": (lambda: FX.range_fft_fixed(iq), iq),
+                 "range_frontend_fixed[sp4]": (
+                     lambda: SF.range_frontend_fixed(shard), shard)}
+        for name, (call, x) in fixed.items():
+            wi, wq, _ = window_apply_fixed(x[..., 0], x[..., 1],
+                                           hamming_q15(entry.n_range)[None, :])
+            z = torch.complex(wi.double(), wq.double())
+            del wi, wq
+            ms[name] = cuda_ms(call)
+            fft[name] = cuda_ms(lambda: torch.fft.fft(z, dim=-1))
+            graph[name] = graph_ms(call)
+            fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+            copy[name] = graph_ms(lambda: x.transpose(1, 2).contiguous())
+            del z
+        # Kernel B's four entries and the fixed slow-time kernel's three, each
+        # beside torch.fft.fft of its planes (complex64; complex128 for the
+        # fixed kernel's int16 planes, its FP64 transform).
+        re, im = F.range_fft(iq)
+        fre, fim, _ = FX.range_fft_fixed(iq)
+        nr, pgr = entry.n_range, 2
+        h, nrl = entry.cfar.halo_range + pgr, nr // SP
+        ext = torch.arange(nrl - h, 2 * nrl + h, device="cuda") % nr
+        lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+
+        def shard_of(xr, xi):
+            return (xr[:, core].contiguous(), xi[:, core].contiguous(),
+                    (xr[:, lo].contiguous(), xi[:, lo].contiguous()),
+                    (xr[:, hi].contiguous(), xi[:, hi].contiguous()), False, 0,
+                    nrl)
+        shard, fshard = shard_of(re, im), shard_of(fre, fim)
+        skw = dict(cfar=entry.cfar, n_range_total=nr, peak_group_radius=pgr)
+        entries = {"slowtime_mag": (lambda: F.slowtime_mag(re, im), re, im),
+                   "slowtime_detect_split[sp4]": (
+                       lambda: SF.slowtime_detect_split(*shard, **skw),
+                       re[:, ext], im[:, ext]),
+                   "slowtime_detect_fixed_split[sp4]": (
+                       lambda: SF.slowtime_detect_fixed_split(*fshard, **skw),
+                       fre[:, ext], fim[:, ext])}
+        for p in (entry, P.fast()):
+            kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+            mode = p.cfar.scale_mode
+            entries[f"slowtime_detect[{mode}]"] = (
+                lambda kw=kw: F.slowtime_detect(re, im, False, 0, **kw), re,
+                im)
+            entries[f"slowtime_detect_fixed[{mode}]"] = (
+                lambda kw=kw: FX.slowtime_detect_fixed(fre, fim, False, 0,
+                                                       **kw),
+                fre, fim)
+        for name, (call, xr, xi) in entries.items():
+            z = (torch.complex(xr.double(), xi.double())
+                 if xr.dtype == torch.int16 else torch.complex(xr, xi))
+            ms[name] = cuda_ms(call)
+            graph[name] = graph_ms(call)
+            fft[name] = cuda_ms(lambda: torch.fft.fft(z, dim=-1))
+            fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+            del z
+        del re, im, fre, fim, shard, fshard
+        # The rank-select CFAR's four variants and, where the checkout has it,
+        # its grouping entry on the three the debug routes launch.
+        from fmcw_tpu_torch.ops import cfar as C, cfar_rank as RK
+        fast = P.fast()
+        fmag, _ = F.slowtime_mag(*F.range_fft(iq))
+        imag, _ = pl._staged_fixed(iq, False, entry, "zero", "unbiased")
+        fsmap = C.block_scale_map(fmag, fast.cfar)
+        rank = {"float,16 bits": (fmag, entry.cfar, 16, None),
+                "float,exact": (fmag, entry.cfar, None, None),
+                "float,exact,scale map": (fmag, fast.cfar, None, fsmap),
+                "int32,16 bits": (imag, entry.cfar, 16, None)}
+        for what, (mag, cfar, bits, smap) in rank.items():
+            kw = dict(cfar=cfar, bits=bits, scale_map=smap)
+            calls = {f"cfar_rank[{what}]":
+                     lambda kw=kw: RK.cfar_rank(mag, **kw)}
+            if hasattr(RK, "cfar_rank_group") and what != "float,exact":
+                calls[f"cfar_rank_group[{what}]"] = (
+                    lambda kw=kw: RK.cfar_rank_group(mag, peak_group_radius=2,
+                                                     **kw))
+            for name, call in calls.items():
+                ms[name] = cuda_ms(call, 10, 2)
+                graph[name] = graph_ms(call, 10)
+        del fmag, imag, fsmap
+    # The 3D CFAR's two entries at the 3D route's shapes.
+    from fmcw_tpu_torch.ops import beamform as BF, cfar3d_detect as C3
+    n_beams, n_cubes = 8, 16
+    z = np.asarray(reference.two_target_frame(entry, seed=3))
+    elems = np.stack([pl.complex_to_iq(z * np.exp(2j * np.pi * 0.5 * e * 0.3))
+                      for e in range(n_beams)])
+    cubes = np.stack([elems] * n_cubes)
+    cubes = torch.as_tensor(cubes + np.random.default_rng(0).integers(
+        -8, 8, cubes.shape).astype(np.int16), device="cuda")
+    br, bi = BF.beamform(cubes[..., 0].float(), cubes[..., 1].float(),
+                         n_beams, elem_dim=1)
+    cube = F.slowtime_mag(*F.range_fft_float(br.flatten(0, 1),
+                                             bi.flatten(0, 1)))[0]
+    cube = cube.reshape(n_cubes, n_beams, entry.n_range, entry.n_doppler)
     del br, bi
-    # The fixed range kernel's two entries, each beside torch.fft.fft of the
-    # same Q15-windowed chirps in FP64 and a corner turn of its input.
-    from fmcw_tpu_torch.ops.window import hamming_q15, window_apply_fixed
-    fixed = {"range_fft_fixed": (lambda: FX.range_fft_fixed(iq), iq),
-             "range_frontend_fixed[sp4]": (
-                 lambda: SF.range_frontend_fixed(shard), shard)}
-    for name, (call, x) in fixed.items():
-        wi, wq, _ = window_apply_fixed(x[..., 0], x[..., 1],
-                                       hamming_q15(entry.n_range)[None, :])
-        z = torch.complex(wi.double(), wq.double())
-        del wi, wq
-        ms[name] = cuda_ms(call)
-        fft[name] = cuda_ms(lambda: torch.fft.fft(z, dim=-1))
-        graph[name] = graph_ms(call)
-        fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
-        copy[name] = graph_ms(lambda: x.transpose(1, 2).contiguous())
-        del z
-    # Kernel B's four entries and the fixed slow-time kernel's three, each
-    # beside torch.fft.fft of its planes (complex64; complex128 for the
-    # fixed kernel's int16 planes, its FP64 transform).
-    re, im = F.range_fft(iq)
-    fre, fim, _ = FX.range_fft_fixed(iq)
-    nr, pgr = entry.n_range, 2
-    h, nrl = entry.cfar.halo_range + pgr, nr // SP
-    ext = torch.arange(nrl - h, 2 * nrl + h, device="cuda") % nr
-    lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
-
-    def shard_of(xr, xi):
-        return (xr[:, core].contiguous(), xi[:, core].contiguous(),
-                (xr[:, lo].contiguous(), xi[:, lo].contiguous()),
-                (xr[:, hi].contiguous(), xi[:, hi].contiguous()), False, 0,
-                nrl)
-    shard, fshard = shard_of(re, im), shard_of(fre, fim)
-    skw = dict(cfar=entry.cfar, n_range_total=nr, peak_group_radius=pgr)
-    entries = {"slowtime_mag": (lambda: F.slowtime_mag(re, im), re, im),
-               "slowtime_detect_split[sp4]": (
-                   lambda: SF.slowtime_detect_split(*shard, **skw),
-                   re[:, ext], im[:, ext]),
-               "slowtime_detect_fixed_split[sp4]": (
-                   lambda: SF.slowtime_detect_fixed_split(*fshard, **skw),
-                   fre[:, ext], fim[:, ext])}
-    for p in (entry, P.fast()):
-        kw = dict(cfar=p.cfar, peak_group_radius=pgr)
-        mode = p.cfar.scale_mode
-        entries[f"slowtime_detect[{mode}]"] = (
-            lambda kw=kw: F.slowtime_detect(re, im, False, 0, **kw), re, im)
-        entries[f"slowtime_detect_fixed[{mode}]"] = (
-            lambda kw=kw: FX.slowtime_detect_fixed(fre, fim, False, 0, **kw),
-            fre, fim)
-    for name, (call, xr, xi) in entries.items():
-        z = (torch.complex(xr.double(), xi.double())
-             if xr.dtype == torch.int16 else torch.complex(xr, xi))
-        ms[name] = cuda_ms(call)
-        graph[name] = graph_ms(call)
-        fft[name] = cuda_ms(lambda: torch.fft.fft(z, dim=-1))
-        fft_graph[name] = graph_ms(lambda: torch.fft.fft(z, dim=-1))
-        del z
-    del re, im, fre, fim, shard, fshard
-    # The rank-select CFAR's four variants and, where the checkout has it,
-    # its grouping entry on the three the debug routes launch.
-    from fmcw_tpu_torch.ops import cfar as C, cfar_rank as RK
-    fast = P.fast()
-    fmag, _ = F.slowtime_mag(*F.range_fft(iq))
-    imag, _ = pl._staged_fixed(iq, False, entry, "zero", "unbiased")
-    fsmap = C.block_scale_map(fmag, fast.cfar)
-    rank = {"float,16 bits": (fmag, entry.cfar, 16, None),
-            "float,exact": (fmag, entry.cfar, None, None),
-            "float,exact,scale map": (fmag, fast.cfar, None, fsmap),
-            "int32,16 bits": (imag, entry.cfar, 16, None)}
-    for what, (mag, cfar, bits, smap) in rank.items():
-        kw = dict(cfar=cfar, bits=bits, scale_map=smap)
-        calls = {f"cfar_rank[{what}]": lambda kw=kw: RK.cfar_rank(mag, **kw)}
-        if hasattr(RK, "cfar_rank_group") and what != "float,exact":
-            calls[f"cfar_rank_group[{what}]"] = (
-                lambda kw=kw: RK.cfar_rank_group(mag, peak_group_radius=2,
-                                                 **kw))
-        for name, call in calls.items():
-            ms[name] = cuda_ms(call, 10, 2)
-            graph[name] = graph_ms(call, 10)
-    del fmag, imag, fsmap
-    # The main path, per-cell and block scale; fixed mode's fused route.
-    fps = {}
-    for p in (entry, P.fast()):
-        batch = make_batch(p)
-        for key, kw in ((p.cfar.scale_mode, {}),
-                        (f"fixed/{p.cfar.scale_mode}/fused",
-                         dict(mode="fixed", frontend="fused"))):
+    bl = n_beams // SP
+    shard = cube[:, torch.arange(bl - 1, 2 * bl + 1, device="cuda")
+                 % n_beams].contiguous()
+    for name, call in (
+            ("cfar3d_detect", lambda: C3.cfar3d_detect(
+                cube, cfar=entry.cfar, ref_angle=1)),
+            ("cfar3d_detect[prepadded,sp4]", lambda: C3.cfar3d_detect(
+                shard, cfar=entry.cfar, ref_angle=1, prepadded_angle=True))):
+        ms[name] = cuda_ms(call, 20, 3)
+        graph[name] = graph_ms(call, 20)
+    del cube, shard
+    if not args.cfar3d_only:
+        # The main path, per-cell and block scale; fixed mode's fused route.
+        for p in (entry, P.fast()):
+            batch = make_batch(p)
+            for key, kw in ((p.cfar.scale_mode, {}),
+                            (f"fixed/{p.cfar.scale_mode}/fused",
+                             dict(mode="fixed", frontend="fused"))):
+                proc = pl.make_batch_processor(p, peak_group_radius=2,
+                                               include_maps=False,
+                                               device="cuda", **kw)
+                fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 10, 2)
+        # The debug-tap routes.
+        for key, p, kw in (("debug/float/cell/fused", entry, {}),
+                           ("debug/float/block/fused", P.fast(), {}),
+                           ("debug/fixed/cell/auto", entry,
+                            dict(mode="fixed", frontend="auto"))):
+            batch = make_batch(p, seed=4)
             proc = pl.make_batch_processor(p, peak_group_radius=2,
                                            include_maps=False,
+                                           include_debug=True,
                                            device="cuda", **kw)
-            fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 10, 2)
-    # The debug-tap routes.
-    for key, p, kw in (("debug/float/cell/fused", entry, {}),
-                       ("debug/float/block/fused", P.fast(), {}),
-                       ("debug/fixed/cell/auto", entry,
-                        dict(mode="fixed", frontend="auto"))):
-        batch = make_batch(p, seed=4)
-        proc = pl.make_batch_processor(p, peak_group_radius=2,
-                                       include_maps=False, include_debug=True,
-                                       device="cuda", **kw)
-        fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 5, 2)
+            fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 5, 2)
+    # The 3D array route, cubes/s at 16 cubes.
+    proc = pl.make_batch_array_processor(entry, n_elems=n_beams,
+                                         n_beams=n_beams, ref_angle=1,
+                                         include_maps=False, device="cuda")
+    cps = {"3d/ref_angle1": n_cubes * 1e3 / cuda_ms(lambda: proc(cubes),
+                                                      10, 2)}
     print(json.dumps({"root": str(args.root), "ms": ms, "fft_ms": fft,
                       "graph_ms": graph, "fft_graph_ms": fft_graph,
-                      "copy_ms": copy, "frames_per_s": fps, "batch": BATCH,
-                      "card": card}),
+                      "copy_ms": copy, "frames_per_s": fps,
+                      "cubes_per_s": cps, "batch": BATCH, "card": card}),
           flush=True)
     return 0
 
