@@ -22,13 +22,17 @@ detections against the plain path with the margin gate of
 fmcw_tpu_torch/parity.py, runs the tracker over 6 scans, and times the
 kernels and the path with CUDA events (kernel B's entries and the range
 kernels by CUDA-graph replay, eager beside them).  Then the same for
-fixed mode (the reference's 16-bit chain): its two kernels and the CFAR
-kernel against their twins (0 values differing), the slow-time kernel and
-its split entry on exact round-half ties at eighth-turn Doppler bins
-against the golden numpy model, its main path on both routes (staged: plain
-stages and the CFAR kernel; fused: the two fixed-point kernels) at batch
-128, the golden frame's detections against the golden numpy model, and
-the kernels' timings.  Then the array-radar model (8 elements, 8 beams,
+fixed mode (the reference's 16-bit chain): its two kernels against their
+twins (0 values differing), the standalone CFAR kernel (TPU rows 7 and 8)
+and its grouping entry against their twins bit for bit (int32 and float32
+maps, adversarial maps, int32 values beyond 2^24, a prepadded shard, odd
+map heights, training sets over 4094 cells, a run-time window, strips of
+one cell), the slow-time kernel and its split entry on exact round-half
+ties at eighth-turn Doppler bins against the golden numpy model, its main
+path on both routes (staged: plain stages and the CFAR kernel's grouping
+entry; fused: the two fixed-point kernels) at batch 128, the golden
+frame's detections against the golden numpy model, the float staged route
+against its twin, and the kernels' timings.  Then the array-radar model (8 elements, 8 beams,
 1024x128, batches of 16 cubes = 128 beam maps): the float-input and
 magnitude-only entry points of the front-end kernels, the angle-extended
 3D CFAR kernel (TPU row 10; float32 and int32 cubes, adversarial cubes of
@@ -195,15 +199,18 @@ NO_SPILL_SOURCES = (" range_fft.cu", " range_fft_fixed.cu",
 # the (6, 2) and (3, 1) walks unrolled, hi and lo packed; float, int32).
 NO_SPILL_ENTRIES = tuple(f"cfar3d_detect_kernelI{v}Li8ELi{hr}ELi{gr}ELb1E"
                          for v in "fi" for hr, gr in ((6, 2), (3, 1)))
+# cfar_detect.cu's variants of the repository's windows, likewise.
+NO_SPILL_ENTRIES += tuple(f"cfar_detect_kernelI{v}Li8ELi{hr}ELi{gr}ELb1E"
+                          for v in "fi" for hr, gr in ((6, 2), (3, 1)))
 
 
 def log_build(info) -> None:
     """The compiler's register and spill lines of every kernel, with the
     entry names; fails if an instantiation of the two range kernels
     (kernel A and the fixed one), kernel B, the fixed slow-time kernel or
-    the rank-select CFAR, or a variant of the 3D CFAR that the
-    repository's windows run, spills or keeps an array in local memory (a
-    stack frame)."""
+    the rank-select CFAR, or a variant of the 3D CFAR or of the standalone
+    CFAR that the repository's windows run, spills or keeps an array in
+    local memory (a stack frame)."""
     section, entry, bad = "", "", []
     for line in info.log.splitlines():
         if line.startswith("---"):
@@ -283,14 +290,29 @@ def bound_slowtime_fixed(B: int, nr: int, nd: int, cfar):
     return _bound(nbytes, cells * _cfar_ops(cfar), cells * 24, fp64)
 
 
-def bound_cfar_detect(B: int, nr: int, nd: int, cfar, integer: bool):
+def bound_cfar_detect(B: int, nr: int, nd: int, cfar, in_float: bool,
+                      group: bool = False):
     """Least time for cfar_detect: the map read once (and the scale map in
-    block mode), det and scale written once; the CFAR's compare-adds per
-    cell, INT32 for integer maps, FP32 for float maps."""
+    block mode), det and scale written once (the grouping entry: and its
+    row maxima and counts); the CFAR's compare-adds per cell at the FP32
+    rate where the kernel counts in float (float maps, and int32 maps
+    within ops/cfar_detect.float_max, as this run's data decides), else at
+    the INT32 rate.  Peak grouping is left out."""
     cells = B * nr * nd
     nbytes = cells * (12 + (4 if cfar.scale_mode == "block" else 0))
+    if group:
+        nbytes += B * nr * 4 + B * 4
     ops = cells * _cfar_ops(cfar)
-    return _bound(nbytes, 0 if integer else ops, ops if integer else 0)
+    return _bound(nbytes, ops if in_float else 0, 0 if in_float else ops)
+
+
+def fset_floor_cfar_detect(B: int, nr: int, nd: int, cfar) -> float:
+    """The floor of cfar_detect.cu's design in ms: one FSET (or integer
+    compare) on the integer pipe per training value and cell for each
+    compare — 3 with the per-cell scale (hi, lo, the decision), 1 with a
+    scale map — at the INT32 rate."""
+    per = 3 if cfar.scale_mode == "cell" else 1
+    return B * nr * nd * per * cfar.n_ref / H100_INT32_OPS_PER_S * 1e3
 
 
 def _bound(nbytes: float, ops: float, int_ops: float = 0,
@@ -605,46 +627,154 @@ def fixed_tie_checks(dev):
                                  f"stimulus does not tie")
 
 
+def bits_equal(a, b) -> bool:
+    """Bit-identical tensors (float32 by their bit patterns)."""
+    import torch
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def detect_case(what: str, mag, so: int, cfar, scale_map=None,
+                pgrs=(2,), prepadded: bool = False) -> float:
+    """cfar_detect on one batch of maps against its twin (det and scale),
+    and its grouping entry for each radius of ``pgrs`` against the twin's
+    grouping (det, scale, row maxima, counts): bit for bit, or raises.
+    Returns the largest |difference| (0)."""
+    import torch
+    from fmcw_tpu_torch.ops import cfar_detect as CD
+    kw = dict(cfar=cfar, scale_map=scale_map)
+    pairs = [(CD.cfar_detect(mag, so, prepadded_range=prepadded, **kw),
+              CD.cfar_detect_plain(mag, so, prepadded_range=prepadded,
+                                   **kw))]
+    for pgr in () if prepadded else pgrs:
+        pairs.append((CD.cfar_detect_group(mag, so, peak_group_radius=pgr,
+                                           **kw),
+                      CD.cfar_detect_group_plain(mag, so,
+                                                 peak_group_radius=pgr,
+                                                 **kw)))
+    torch.cuda.synchronize()
+    same = all(bits_equal(a, b) for got, want in pairs
+               for a, b in zip(got, want))
+    err = max(float((a.double() - b.double()).nan_to_num().abs().max())
+              for got, want in pairs for a, b in zip(got, want))
+    ndet = int((pairs[0][0][0] > 0).sum())
+    log(f"cfar_detect {what} {tuple(mag.shape)} {mag.dtype} "
+        f"{cfar.scale_mode} so={so}{' prepadded' if prepadded else ''}, "
+        f"grouping radius {list(pgrs) if not prepadded else '-'}: "
+        f"{'bit-identical' if same else 'DIFFERS'} ({ndet} detections)")
+    if not same:
+        raise AssertionError(f"cfar_detect ({what}) disagrees with its twin")
+    return err
+
+
 def cfar_kernel_checks(dev, planes):
-    """Phase 8: cfar_detect against ops/cfar.cfar_2d on int32 maps (the
-    fixed chain's) and float32 maps (the float staged chain's), both scale
-    modes, scale_override 0 and 4: det and scale bit-identical.  Returns
-    ({row: largest |det - det_plain| or |scale - scale_plain|}, the int32
+    """Phase 8: cfar_detect (TPU rows 7 and 8) and its grouping entry
+    against their twins (ops/cfar.cfar_2d; then peak_group, the row maxima
+    and counts): det, scale, row_max and n_dets bit-identical, both scale
+    modes, scale_override 0 and 4, on int32 maps (the fixed chain's, which
+    count in float) and float32 maps (the float staged chain's) at batch
+    128; adversarial maps (golden.reference.rank_adversarial_maps: NaN,
+    Inf, -0.0, ties, int32 keys up to +-2^31), int32 maps with values
+    beyond 2^24 in some tiles (those count in int), a prepadded range
+    shard (also against the whole map's rows), 37, 6 and 100 rows (a last
+    block past R), a training set over 4094 cells, a window outside the
+    unrolled walks (hr 4, gr 1) and a map too wide for strips of 8.
+    Returns ({row: largest |difference|}, the int32 and float32
     magnitudes)."""
+    import dataclasses
+    import numpy as np
     import torch
     import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.golden.reference import rank_adversarial_maps
     from fmcw_tpu_torch.models import pipeline as pl
     from fmcw_tpu_torch.ops import cfar as C, cfar_detect as CD
     from fmcw_tpu_torch.ops import frontend_fixed as FX
     imag, _ = FX.slowtime_mag_fixed_plain(*planes)
     iq = torch.as_tensor(make_batch(P.RadarParams(), BATCH, seed=5),
                          device=dev)
-    fmag = pl.make_batch_processor(frontend="staged", device=dev)(
-        iq)["mag_map"]
+    fmag = pl.make_batch_processor(frontend="staged", include_maps=True,
+                                   device=dev)(iq)["mag_map"]
     errs = {}
-    for mag in (imag, fmag):
+    for mag, tag in ((imag, ""), (fmag, ",float32")):
         for p in (P.RadarParams(), P.fast()):
-            name = f"cfar_detect[{p.cfar.scale_mode}]"
+            mode = p.cfar.scale_mode
             for so in (0, 4):
-                det, scale = CD.cfar_detect(mag, so, cfar=p.cfar)
-                d2, _, s2 = C.cfar_2d(mag, so, p.cfar)
-                torch.cuda.synchronize()
-                same = torch.equal(det, d2) and torch.equal(scale, s2)
-                err = max(float((det.double() - d2.double()).abs().max()),
-                          float((scale - s2).abs().max()))
-                errs[name] = max(errs.get(name, 0.0), err)
-                log(f"cfar_detect {mag.dtype} {p.cfar.scale_mode} so={so}: "
-                    f"det and scale {'bit-identical' if same else 'DIFFER'},"
-                    f" {int((det > 0).sum())} detections")
-                if not same:
-                    raise AssertionError("cfar_detect disagrees with cfar_2d")
-    return errs, imag
+                err = detect_case("main-path maps", mag, so, p.cfar,
+                                  pgrs=(0, 1, 2) if so == 0 else (2,))
+                for name in (f"cfar_detect[{mode}{tag}]",
+                             f"cfar_detect_group[{mode}{tag}]"):
+                    errs[name] = max(errs.get(name, 0.0), err)
+    gen = np.random.default_rng(8)
+
+    def noise(shape, integer):
+        m = gen.exponential(500.0, shape)
+        m[..., 3:5, 7:9] = 4e4
+        return torch.as_tensor(m.astype(np.int32 if integer else np.float32),
+                               device=dev)
+
+    def smap_of(shape, cfar):
+        return torch.as_tensor(gen.choice(
+            [cfar.scale_min, cfar.scale_nom, cfar.scale_max], shape).astype(
+                np.int32), device=dev)
+
+    full = P.RadarParams().cfar
+    # n_ref = 65 x 65 - 9 = 4216 > 4094: hi and lo in two counts.
+    large = P.CfarParams(ref_range=31, ref_doppler=31, guard_range=1,
+                         guard_doppler=1)
+    runtime = P.CfarParams(ref_range=3, ref_doppler=2, guard_range=1,
+                           guard_doppler=2)
+    big = imag[:8].clone()                  # rows 500..503 beyond 2^24
+    big[:, 500:504] = big[:, 500:504] * 1000 + (1 << 25)
+    for integer in (False, True):
+        adv = torch.as_tensor(rank_adversarial_maps((8, 1024, 128), integer,
+                                                    13), device=dev)
+        cases = [("adversarial", adv, full)]
+        if integer:
+            cases.append(("int32 beyond 2^24", big, full))
+        for R in (37, 6, 100):
+            cases.append((f"{R} rows", noise((8, R, 128), integer), full))
+        cases += [("n_ref 4216", noise((4, 64, 64), integer), large),
+                  ("hr 4 gr 1", noise((8, 256, 64), integer), runtime)]
+        # 2048 columns: 8 rows do not fit (the grouping entry takes
+        # radius 0 there; radius 2's tile does not fit at all).
+        wide = ("strips of one cell", noise((2, 64, 2048), integer), full)
+        for what, mag, cfar in cases + [wide]:
+            for mode in ("cell", "block"):
+                c = dataclasses.replace(cfar, scale_mode=mode)
+                smap = smap_of(mag.shape, c) if mode == "block" else None
+                for so in (0, 4):
+                    detect_case(what, mag, so, c, smap,
+                                pgrs=(0,) if mag.shape[-1] == 2048 else (2,))
+    # A prepadded sp 4 range shard (rows 256..511 and their halo rows),
+    # per-cell and with the block scale map's rows, against the twin and
+    # the whole map's rows.
+    hr = full.halo_range
+    ext = torch.arange(256 - hr, 512 + hr, device=dev) % 1024
+    for mag in (imag, fmag):
+        shard = mag[:, ext].contiguous()
+        for p in (P.RadarParams(), P.fast()):
+            smap = (C.block_scale_map(mag, p.cfar)[:, 256:512].contiguous()
+                    if p.cfar.scale_mode == "block" else None)
+            for so in (0, 4):
+                detect_case("sp 4 shard", shard, so, p.cfar, smap,
+                            prepadded=True)
+                whole = CD.cfar_detect(mag, so, cfar=p.cfar)
+                part = CD.cfar_detect(shard, so, cfar=p.cfar, scale_map=smap,
+                                      prepadded_range=True)
+                if not all(bits_equal(a[:, 256:512], b)
+                           for a, b in zip(whole, part)):
+                    raise AssertionError("prepadded cfar_detect differs from "
+                                         "the whole map's rows")
+    return errs, imag, fmag
 
 
 def fixed_main_path(card: str, dev):
     """Phase 9: make_batch_processor(p, mode="fixed") for RadarParams() and
-    fast(), peak_group_radius 0 and 2, frontend "auto" (staged) and "fused",
-    at batch 128: the kernels each route launches, the detections of the
+    fast(), peak_group_radius 0 and 2, frontend "auto" (staged: the plain
+    stages and cfar_detect's grouping entry, no plain peak_group) and
+    "fused", at batch 128: the kernels each route launches, the detections
+    of the
     golden frame and of the noisy batch's frame 0 against the golden numpy
     model, the two routes against each other on the whole noisy batch,
     frames/s.  The staged route runs the same plain stage code the fused
@@ -678,7 +808,7 @@ def fixed_main_path(card: str, dev):
                 out = proc(batch)
                 torch.cuda.synchronize()
                 counts = kernels.launch_counts()
-                need = (("cfar_detect",) if fe == "auto"
+                need = (("cfar_detect_group",) if fe == "auto"
                         else ("range_fft_fixed", "slowtime_detect_fixed"))
                 log(f"fixed main path {mode} r={pgr} {fe}: launches "
                     + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
@@ -749,8 +879,59 @@ def fixed_main_path(card: str, dev):
     return launches, fps, report
 
 
+def staged_float_path(card: str, dev, pgr: int):
+    """Phase 9b: the float staged route, make_batch_processor(p,
+    frontend="staged") for RadarParams() and fast() at batch 128 with
+    peak_group_radius 2: the plain float transforms, then cfar_detect's
+    grouping entry (no plain peak_group); its det map and detections
+    against the twin's CFAR, grouping and top-K on the route's own
+    magnitudes, bit for bit; frames/s.  Returns (launches, frames/s)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar_detect as CD, detect as DET
+    launches, fps = {}, {}
+    for p in (P.RadarParams(), P.fast()):
+        mode = p.cfar.scale_mode
+        batch = torch.as_tensor(make_batch(p, BATCH, seed=6), device=dev)
+        proc = pl.make_batch_processor(p, frontend="staged",
+                                       peak_group_radius=pgr, device=dev)
+        kernels.reset_launch_counts()
+        out = proc(batch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        log(f"float staged {mode}: launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+        if counts["cfar_detect_group"] < 1 or counts["cfar_detect"]:
+            raise AssertionError("float staged route: not through the "
+                                 "grouping entry")
+        launches[f"cfar_detect_group[{mode},float32]"] = counts[
+            "cfar_detect_group"]
+        det, _, rmax, ndet = CD.cfar_detect_group_plain(
+            out["mag_map"], cfar=p.cfar, peak_group_radius=pgr)
+        want = DET.topk_detections(det, p.tracker.max_dets, row_max=rmax,
+                                   n_dets=ndet)
+        same = bits_equal(out["det_map"], det) and all(
+            bits_equal(out[k], want[k]) for k in want)
+        log(f"float staged {mode}: det map and detections "
+            f"{'bit-identical' if same else 'DIFFER'} to the twin's CFAR, "
+            f"grouping and top-K on the route's magnitudes "
+            f"({int(ndet.sum())} detections)")
+        if not same:
+            raise AssertionError(f"float staged {mode} differs from its twin")
+        lean = pl.make_batch_processor(p, frontend="staged",
+                                       peak_group_radius=pgr,
+                                       include_maps=False, device=dev)
+        fps[mode] = BATCH * 1e3 / cuda_ms(lambda: lean(batch), 10)
+        log(f"float staged {mode}: {fps[mode]:.1f} frames/s at batch "
+            f"{BATCH} ({card})")
+    return launches, fps
+
+
 def fixed_mode(card: str, dev):
-    """Phases 7-11 (fixed mode); returns (kernel rows, summary)."""
+    """Phases 7-11 (fixed mode; 9b the float staged route); returns (kernel
+    rows, summary)."""
     import torch
     import fmcw_tpu_torch as P
     from fmcw_tpu_torch.ops import cfar as C, cfar_detect as CD
@@ -761,8 +942,10 @@ def fixed_mode(card: str, dev):
     saturation_check(dev)
     range_fft_fixed_size_checks(dev)
     fixed_tie_checks(dev)
-    cerrs, imag = cfar_kernel_checks(dev, planes)
+    cerrs, imag, fmag = cfar_kernel_checks(dev, planes)
     launches, fps, report = fixed_main_path(card, dev)
+    staged_launches, staged_fps = staged_float_path(card, dev, pgr)
+    launches.update(staged_launches)
 
     # 10. Timings at batch 128 (CUDA events), with bounds.
     entry = P.RadarParams()
@@ -824,27 +1007,55 @@ def fixed_mode(card: str, dev):
                          launches=launches[name], max_abs_err=errs[name],
                          ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                          library_ms=None))
+    # Rows 7 and 8 (cfar_detect) by graph replay, eager beside: int32 maps
+    # (the fixed chain's: within float_max, so counted in float) and
+    # float32 maps (the float staged chain's); the plain entry and the
+    # grouping entry (radius 2, as the staged routes launch it).  Block
+    # scale: the kernel alone, on a scale map computed beforehand (the
+    # wrapper computes it with plain PyTorch passes when none is given;
+    # timed separately below).
+    cd_eager = {}
     for p, line in ((entry, 155), (P.fast(), 279)):
         mode = p.cfar.scale_mode
-        name = f"cfar_detect[{mode}]"
-        # Block scale: the kernel alone, on a scale map computed beforehand
-        # (the wrapper computes it with plain PyTorch passes when none is
-        # given; timed separately below).
-        smap = C.block_scale_map(imag, p.cfar) if mode == "block" else None
-        ms = cuda_ms(lambda: CD.cfar_detect(imag, 0, cfar=p.cfar,
-                                            scale_map=smap))
-        plain = cuda_ms(lambda: CD.cfar_detect_plain(
-            imag, 0, cfar=p.cfar, scale_map=smap), 2, 1)
-        bound, by = bound_cfar_detect(BATCH, nr, nd, p.cfar, True)
-        log(f"{name} (int32 maps): {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bound:.4f} ms ({by}) at batch {BATCH} ({card})")
-        times[name] = ms
-        rows.append(dict(name=name, route="cuda",
-                         source=src + "cfar_detect.cu",
-                         replaces=f"fmcw_tpu/ops/cfar_pallas.py:{line}",
-                         launches=launches[name], max_abs_err=cerrs[name],
-                         ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                         library_ms=None))
+        for mag, tag in ((imag, ""), (fmag, ",float32")):
+            smap = (C.block_scale_map(mag, p.cfar) if mode == "block"
+                    else None)
+            in_float = (mag.is_floating_point() or int(mag.abs().max())
+                        <= CD.float_max(p.cfar))
+            kw = dict(cfar=p.cfar, scale_map=smap)
+            gkw = dict(kw, peak_group_radius=pgr)
+            for entry_name, call, plain_call, group in (
+                    ("cfar_detect",
+                     lambda: CD.cfar_detect(mag, 0, **kw),
+                     lambda: CD.cfar_detect_plain(mag, 0, **kw), False),
+                    ("cfar_detect_group",
+                     lambda: CD.cfar_detect_group(mag, 0, **gkw),
+                     lambda: CD.cfar_detect_group_plain(mag, 0, **gkw),
+                     True)):
+                name = f"{entry_name}[{mode}{tag}]"
+                ms = graph_ms(call)
+                cd_eager[name] = cuda_ms(call)
+                plain = cuda_ms(plain_call, 2, 1)
+                bound, by = bound_cfar_detect(BATCH, nr, nd, p.cfar, in_float,
+                                              group)
+                int_bound, _ = bound_cfar_detect(BATCH, nr, nd, p.cfar, False,
+                                                 group)
+                floor = fset_floor_cfar_detect(BATCH, nr, nd, p.cfar)
+                log(f"{name} ({mag.dtype} maps, counted in "
+                    f"{'float' if in_float else 'int'}): {ms:.4f} ms "
+                    f"(graph; eager {cd_eager[name]:.4f}), plain "
+                    f"{plain:.4f} ms, bound {bound:.4f} ms ({by}; at the "
+                    f"INT32 rate {int_bound:.4f}; the design's FSET floor "
+                    f"{floor:.4f}) at batch {BATCH} ({card})")
+                times[name] = ms
+                rows.append(dict(name=name, route="cuda",
+                                 source=src + "cfar_detect.cu",
+                                 replaces=("fmcw_tpu/ops/cfar_pallas.py:"
+                                           f"{line}"),
+                                 launches=launches.get(name, 0),
+                                 max_abs_err=cerrs[name], ms=ms,
+                                 plain_ms=plain, bound_ms=bound, bound_by=by,
+                                 library_ms=None))
 
     # 11. Where the time goes on each fixed route, per batch of 128, each
     #     stage timed alone.
@@ -854,7 +1065,8 @@ def fixed_mode(card: str, dev):
         k = p.tracker.max_dets
         det, _, rmax, ndet, _ = FX.slowtime_detect_fixed(
             re, im, cfar=p.cfar, peak_group_radius=pgr)
-        sdet, _ = CD.cfar_detect(imag, 0, cfar=p.cfar)
+        sdet, _, srmax, sndet = CD.cfar_detect_group(
+            imag, 0, cfar=p.cfar, peak_group_radius=pgr)
         stages[mode] = {
             "fused": {
                 "range_fft_fixed_ms": times["range_fft_fixed"],
@@ -869,15 +1081,19 @@ def fixed_mode(card: str, dev):
                     lambda: FX.slowtime_mag_fixed_plain(re, im), 5),
                 "block_scale_map_ms": (cuda_ms(lambda: C.block_scale_map(
                     imag, p.cfar)) if mode == "block" else 0.0),
-                "cfar_detect_ms": times[f"cfar_detect[{mode}]"],
-                "group_topk_ms": cuda_ms(lambda: DET.topk_detections(
-                    C.peak_group(sdet, pgr), k)),
+                "cfar_detect_group_ms": times[f"cfar_detect_group[{mode}]"],
+                "topk_ms": cuda_ms(lambda: DET.topk_detections(
+                    sdet, k, row_max=srmax, n_dets=sndet)),
                 "path_ms": BATCH * 1e3 / fps[f"{mode}/auto"]}}
         for route, st in stages[mode].items():
             log(f"fixed {route} {mode} per batch of {BATCH}: "
                 + ", ".join(f"{key} {v:.4f}" for key, v in st.items()))
     return rows, {"frames_per_s": fps, "routes": report,
+                  "float_staged_frames_per_s": staged_fps,
                   "stages_ms": stages,
+                  "cfar_detect": {"graph_ms": {k: v for k, v in times.items()
+                                               if k.startswith("cfar_detect")},
+                                  "eager_ms": cd_eager},
                   "range_fft_fixed": {"graph_ms": times["range_fft_fixed"],
                                       "eager_ms": eager,
                                       "corner_turn_copy_ms": turn},
@@ -1771,14 +1987,18 @@ def split_timings(card: str, dev, pgr: int, iq, errs, launches):
                 :, s * nrl:(s + 1) * nrl])):
         raise AssertionError("prepadded cfar_detect disagrees with cfar_2d "
                              "or with the whole map's decision")
-    ms = cuda_ms(lambda: CD.cfar_detect(m_h, 0, cfar=q.cfar, scale_map=smap,
-                                        prepadded_range=True))
+    def call():
+        return CD.cfar_detect(m_h, 0, cfar=q.cfar, scale_map=smap,
+                              prepadded_range=True)
+    ms = graph_ms(call)
+    eager = cuda_ms(call)
     plain = cuda_ms(lambda: CD.cfar_detect_plain(
         m_h, 0, cfar=q.cfar, scale_map=smap, prepadded_range=True), 2, 1)
-    bound, by = bound_cfar_detect(BATCH, nrl, nd, q.cfar, False)
+    bound, by = bound_cfar_detect(BATCH, nrl, nd, q.cfar, True)
     log(f"cfar_detect prepadded block (range shard {BATCH}x{nrl}+2x{hr}): "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}); "
-        f"bit-identical to cfar_2d and to the whole map's rows ({card})")
+        f"{ms:.4f} ms (graph; eager {eager:.4f}), plain {plain:.4f} ms, "
+        f"bound {bound:.4f} ms ({by}); bit-identical to cfar_2d and to the "
+        f"whole map's rows ({card})")
     rows.append(dict(name="cfar_detect[prepadded]", route="cuda",
                      source=src + "cfar_detect.cu",
                      replaces="fmcw_tpu/ops/cfar_pallas.py:279",

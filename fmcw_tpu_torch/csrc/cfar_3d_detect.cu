@@ -91,36 +91,6 @@ __host__ __device__ inline size_t smem_elems(const Cfar3dConfig& c) {
     return (size_t)np * (c.T + 2 * c.hr) * c.D + (size_t)np * c.T * c.D;
 }
 
-__device__ __forceinline__ int wrap_mod(int i, int n) {
-    const int r = i % n;
-    return r < 0 ? r + n : r;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-                 :: "r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-                 :: "r"(s), "l"(src) : "memory");
-}
-
-// The training values of a strip's windows on one beam plane, rows from
-// row0 (the window's first row, column 0): the guard box left out when
-// guard.  HR > 0: the (HR, GR) window unrolled.
-template <int S, int HR, int GR, typename V, typename Visit>
-__device__ __forceinline__ void walk_plane(const V* row0, int D, int d,
-                                           const fmcw::CfarGeom& g,
-                                           bool guard, Visit visit) {
-    if constexpr (HR > 0)
-        fmcw::walk_window_fixed<S, HR, GR>(row0, D, d, g, guard, visit);
-    else
-        fmcw::walk_window<S>(row0, D, d, g, guard, visit);
-}
-
 template <typename V, int S, int HR, int GR, bool kPacked, int kD>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
@@ -148,15 +118,16 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
             const int p = row / E;
             const int e = row - p * E;
             const int plane =
-                c.prepadded ? a + p : wrap_mod(a - c.ha + p, c.A);
+                c.prepadded ? a + p : fmcw::wrap_mod(a - c.ha + p, c.A);
             const V* src = cube + (((size_t)b * a_in + plane) * c.R +
-                                   wrap_mod(r0 - c.hr + e, c.R)) * D;
+                                   fmcw::wrap_mod(r0 - c.hr + e, c.R)) * D;
             V* dst = tile + (size_t)row * D;
             if (vec) {
                 for (int i = 4 * lane; i < D; i += 128)
-                    cp_async16(dst + i, src + i);
+                    fmcw::cp_async16(dst + i, src + i);
             } else {
-                for (int i = lane; i < D; i += 32) cp_async4(dst + i, src + i);
+                for (int i = lane; i < D; i += 32)
+                    fmcw::cp_async4(dst + i, src + i);
             }
         }
         asm volatile("cp.async.wait_all;" ::: "memory");
@@ -235,7 +206,7 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
 #pragma unroll
                 for (int s = 0; s < S; ++s) hl[s] = 0;
                 for (int p = 0; p < np; ++p)
-                    walk_plane<S, HR, GR>(
+                    fmcw::walk_window_t<S, HR, GR>(
                         tile + ((size_t)p * E + i0) * D, D, d, g,
                         p >= g_lo && p <= g_hi, [&](int, int s, V v) {
                             hl[s] = fmcw::count_hi_lo(hl[s], v, t_hi[s],
@@ -252,7 +223,7 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
 #pragma unroll
                 for (int s = 0; s < S; ++s) hi[s] = lo[s] = 0;
                 for (int p = 0; p < np; ++p)
-                    walk_plane<S, HR, GR>(
+                    fmcw::walk_window_t<S, HR, GR>(
                         tile + ((size_t)p * E + i0) * D, D, d, g,
                         p >= g_lo && p <= g_hi, [&](int, int s, V v) {
                             hi[s] = fmcw::count_add(
@@ -276,7 +247,7 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
             cnt[s] = 0;
         }
         for (int p = 0; p < np; ++p)
-            walk_plane<S, HR, GR>(
+            fmcw::walk_window_t<S, HR, GR>(
                 tile + ((size_t)p * E + i0) * D, D, d, g,
                 p >= g_lo && p <= g_hi, [&](int, int s, V v) {
                     cnt[s] = fmcw::count_add(cnt[s], fmcw::is_ge(v, q[s]));

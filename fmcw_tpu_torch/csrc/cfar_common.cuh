@@ -1,8 +1,11 @@
 // Shared device code of the CFAR decision: the 2D OS-CFAR decided by
 // counting (per-cell or block adaptive scale) and peak grouping, on a map
-// tile held in shared memory.  Used by slowtime_detect.cu (float32 maps),
-// slowtime_detect_fixed.cu (integer maps held in float) and cfar_detect.cu
-// (float32 and integer maps).
+// tile held in shared memory: the thresholds, scale classes and q of the
+// decision (cfar_tile.cuh counts with them), the block scale and the
+// grouping epilogue.  Used by slowtime_detect.cu (float32 maps),
+// slowtime_detect_fixed.cu (integer maps held in float), cfar_detect.cu and
+// cfar_3d_detect.cu (float32 and int32 maps) and cfar_rank.cu (its scale
+// thresholds and grouping).
 //
 // The counting form (fmcw_tpu/ops/cfar_pallas.py::_kernel_detect): for the
 // k-th largest training value est (k = n_ref - rank_idx),
@@ -72,44 +75,6 @@ __device__ __forceinline__ int classify(int hi, int lo, int k,
     return hi >= k ? g.scale_max : (lo < k ? g.scale_min : g.scale_nom);
 }
 
-// Box sum over rows e-rr..e+rr and columns d-dd..d+dd (wrapped): inner sum
-// over rows ascending, outer over columns ascending.
-template <typename V>
-__device__ __forceinline__ V box_sum(const V* t, int D, int e, int d, int rr,
-                                     int dd) {
-    V acc = V(0);
-    for (int j = -dd; j <= dd; ++j) {
-        const V* col = t + wrap_col(d + j, D);
-        V cs = col[(e - rr) * D];
-        for (int i = -rr + 1; i <= rr; ++i) cs = vadd(cs, col[(e + i) * D]);
-        acc = (j == -dd) ? cs : vadd(acc, cs);
-    }
-    return acc;
-}
-
-// Per-cell adaptive scale of the cell at tile row e, column d
-// (os_cfar_2d.vhd:187-199, by counting).
-template <typename V>
-__device__ __forceinline__ int percell_scale(const V* t, int D, int e, int d,
-                                             const CfarGeom& g) {
-    const V full = box_sum(t, D, e, d, g.hr, g.hd);
-    const V guard = box_sum(t, D, e, d, g.gr, g.gd);
-    V t_hi, t_lo;
-    scale_thresholds(vsub(full, guard), g.n_ref, t_hi, t_lo);
-    int hi = 0, lo = 0;
-    for (int dd = -g.hd; dd <= g.hd; ++dd) {
-        const V* col = t + wrap_col(d + dd, D);
-        const bool gcol = dd >= -g.gd && dd <= g.gd;
-        for (int dr = -g.hr; dr <= g.hr; ++dr) {
-            if (gcol && dr >= -g.gr && dr <= g.gr) continue;
-            const V v = col[(e + dr) * D];
-            hi += v > t_hi;
-            lo += v >= t_lo;
-        }
-    }
-    return classify(hi, lo, g.k, g);
-}
-
 // q with (ref >= q  <=>  ref * sc >= cut): the smallest float whose rounded
 // product with sc reaches cut (within two ulps below RN(cut / sc)) ...
 __device__ __forceinline__ float detect_threshold(float cut, int sc) {
@@ -160,23 +125,6 @@ struct IntInFloat {
         return __int2float_rn(detect_threshold(__float2int_rn(cut), sc));
     }
 };
-
-// The OS-CFAR decision cut > est * sc of the cell at tile row e, column d.
-template <typename V>
-__device__ __forceinline__ bool os_detect(const V* t, int D, int e, int d,
-                                          V cut, int sc, const CfarGeom& g) {
-    const V q = detect_threshold(cut, sc);
-    int cnt = 0;
-    for (int dd = -g.hd; dd <= g.hd; ++dd) {
-        const V* col = t + wrap_col(d + dd, D);
-        const bool gcol = dd >= -g.gd && dd <= g.gd;
-        for (int dr = -g.hr; dr <= g.hr; ++dr) {
-            if (gcol && dr >= -g.gr && dr <= g.gr) continue;
-            cnt += col[(e + dr) * D] >= q;
-        }
-    }
-    return cnt < g.k && cut > V(0);
-}
 
 // Block (clutter-map) scale of the block rows of an E x D tile whose
 // 3x3-block neighbourhood lies inside it (block rows 2 .. E/sb - 3).  The

@@ -12,10 +12,10 @@
 //     decided rows are computed once per tile (tile_colsums: each a sum
 //     over rows ascending, from -0, which adds exactly as taking the first
 //     term), each cell's box sum adds 2 hd + 1 of them ascending, so the
-//     mean is the twin's bit for bit (ops/cfar._box_sum, box_sum in
-//     cfar_common.cuh); then one pass counts hi and lo packed in one
-//     count (count_hi_lo), which keeps every compare as it is (> t_hi,
-//     >= t_lo; a NaN value or threshold counts in neither);
+//     mean is the twin's bit for bit (ops/cfar._box_sum); then one pass
+//     counts hi and lo packed in one count (count_hi_lo), which keeps every
+//     compare as it is (> t_hi, >= t_lo; a NaN value or threshold counts in
+//     neither);
 //   * block scale: the cell's block's scale (block_scale_tile);
 //   * then a second pass counts refs >= q for the scale's detect_threshold
 //     q, and the cell passes when that count is below k and cut > 0.
@@ -36,6 +36,25 @@
 namespace fmcw {
 
 constexpr int kStrip = 8;       // cells per thread, one Doppler column
+
+// Tile copies: a row index wrapped modulo n, and cp.async copies of 16 and
+// 4 bytes from global into shared memory (cp.async.wait_all ends them).
+__device__ __forceinline__ int wrap_mod(int i, int n) {
+    const int r = i % n;
+    return r < 0 ? r + n : r;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(s), "l"(src) : "memory");
+}
 
 // Compare-and-count.  A float map's compare gives 1.0f / 0.0f (one FSET on
 // the integer pipe: an ordered compare, false with a NaN operand) and the
@@ -231,6 +250,19 @@ __device__ __forceinline__ void walk_window(const V* row0, int D, int d,
                      },
                      visit);
     }
+}
+
+// walk_window_fixed where the window's rows are template constants (HR >
+// 0), else walk_window: the kernels' variants pick the walk at compile
+// time.
+template <int S, int HR, int GR, typename V, typename Visit>
+__device__ __forceinline__ void walk_window_t(const V* row0, int D, int d,
+                                              const CfarGeom& g, bool guard,
+                                              Visit visit) {
+    if constexpr (HR > 0)
+        walk_window_fixed<S, HR, GR>(row0, D, d, g, guard, visit);
+    else
+        walk_window<S>(row0, D, d, g, guard, visit);
 }
 
 // Counts over the training cells of a strip's windows: for each window

@@ -55,7 +55,8 @@ class CfarDetectConfig(ctypes.Structure):
         "batch", "R", "D", "T",
         "hr", "hd", "gr", "gd", "n_ref", "k",
         "scale_min", "scale_nom", "scale_max",
-        "block_mode", "so", "integer", "prepadded")]
+        "block_mode", "so", "integer", "prepadded",
+        "strip", "packed", "pgr", "float_max")]
 
 
 class CfarRankConfig(ctypes.Structure):
@@ -222,6 +223,9 @@ def load() -> ctypes.CDLL:
     lib.fmcw_cfar_detect.argtypes = [vp] * 4 + [
         ctypes.POINTER(CfarDetectConfig), vp]
     lib.fmcw_cfar_detect.restype = ci
+    lib.fmcw_cfar_detect_group.argtypes = [vp] * 6 + [
+        ctypes.POINTER(CfarDetectConfig), vp]
+    lib.fmcw_cfar_detect_group.restype = ci
     lib.fmcw_cfar_3d_detect.argtypes = [vp] * 3 + [
         ctypes.POINTER(Cfar3dConfig), vp]
     lib.fmcw_cfar_3d_detect.restype = ci

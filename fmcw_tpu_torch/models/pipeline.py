@@ -21,7 +21,9 @@ and three routes (``frontend``):
 * ``"staged"`` — JAX's ``frontend="xla"`` chain: the stages as plain
   PyTorch (dense DFTs, as XLA's matrix products: float32 for the float32
   chain, float64 for the fixed chain, see ``ops/fft.py``) and the CFAR step
-  as the ``cfar_detect`` kernel (``ops/cfar_detect.py``);
+  and peak grouping as the ``cfar_detect`` kernel's grouping entry
+  (``ops/cfar_detect.cfar_detect_group``, which also hands the row maxima
+  and counts to the top-K);
 * ``"plain"`` — the kernels' plain twins on ``device`` (the reference the
   kernels are held against).
 
@@ -65,8 +67,9 @@ then per-beam and cross-beam peak grouping and a top-K over
 point, then kernel B (2D) or its magnitude-only entry point and the 3D CFAR
 kernel (``ops/cfar3d_detect``), then the cross-beam grouping kernel
 (``ops/beam_group``); "staged" — the plain float transforms per beam, the
-``cfar_detect`` or 3D CFAR kernel, plain per-beam grouping and the
-cross-beam grouping kernel; "plain" — the twins.  "auto" is "fused": a
+``cfar_detect`` kernel's grouping entry (2D) or the 3D CFAR kernel and
+plain per-beam grouping, then the cross-beam grouping kernel; "plain" — the
+twins.  "auto" is "fused": a
 shape the kernels cannot take raises their ``NotImplementedError`` at the
 first call on the card and never falls back to the plain transforms.
 
@@ -89,7 +92,7 @@ from ..ops import beamform as BF, cfar as C, detect as DET
 from ..ops import frontend as F, frontend_fixed as FX
 from ..ops.beam_group import beam_group, beam_group_plain
 from ..ops.cfar3d_detect import cfar3d_detect, cfar3d_detect_plain
-from ..ops.cfar_detect import cfar_detect
+from ..ops.cfar_detect import cfar_detect_group
 from ..ops.cfar_rank import cfar_rank_group, cfar_rank_plain, debug_bits
 from ..ops.fft import dft_apply, doppler_apply
 from ..ops.frontend import rdm_frontend_detect
@@ -250,13 +253,13 @@ def make_batch_processor(params: RadarParams | None = None,
                 det, threshold, scale, row_max, n_dets = cfar_rank_group(
                     mag, so, cfar=p.cfar, bits=bits,
                     peak_group_radius=peak_group_radius)
-            else:
-                if include_debug:
-                    det, threshold, scale = cfar_rank_plain(
-                        mag, so, cfar=p.cfar, bits=bits)
-                else:
-                    det, _ = cfar_detect(mag, so, cfar=p.cfar)
+            elif include_debug:
+                det, threshold, scale = cfar_rank_plain(mag, so, cfar=p.cfar,
+                                                        bits=bits)
                 det = C.peak_group(det, peak_group_radius)
+            else:
+                det, _, row_max, n_dets = cfar_detect_group(
+                    mag, so, cfar=p.cfar, peak_group_radius=peak_group_radius)
         elif mode == "fixed":
             det, mag, sat, row_max, n_dets = FX.rdm_frontend_fixed_detect(
                 iq, bypass, so, cfar=p.cfar, notch_mode=p.notch_mode,
@@ -389,12 +392,15 @@ def make_batch_array_processor(params: RadarParams | None = None,
                                 magnitude_exact).reshape(batch, nb, nr, nd)
             nonfinite = (~torch.isfinite(mag)).sum(dim=(-2, -1))
             if ref_angle == 0:
-                det, _ = cfar_detect(mag, so, cfar=p.cfar)
+                det, _, rmax, ndet = cfar_detect_group(
+                    mag, so, cfar=p.cfar, peak_group_radius=peak_group_radius)
+                row_max = rmax.reshape(batch, nb * nr)
+                n_dets = ndet.sum(dim=1)
             else:
                 det, _ = cfar3d_detect(mag, so, cfar=p.cfar,
                                        ref_angle=ref_angle,
                                        guard_angle=guard_angle)
-            det = C.peak_group(det, peak_group_radius)
+                det = C.peak_group(det, peak_group_radius)
         elif ref_angle == 0:
             # Per-beam 2D decision with in-kernel grouping.
             det, mag, rmax, ndet, nonfinite = detect(

@@ -85,7 +85,7 @@ from ..ops import frontend as F, frontend_fixed as FX
 from ..ops import split_frontend as SF
 from ..ops.beam_group import beam_group, beam_group_plain
 from ..ops.cfar3d_detect import cfar3d_detect, cfar3d_detect_plain
-from ..ops.cfar_detect import cfar_detect
+from ..ops.cfar_detect import cfar_detect, cfar_detect_group
 from ..ops.cfar_rank import cfar_rank, cfar_rank_plain, debug_bits
 from ..ops.fft import dft_apply, doppler_apply
 from ..ops.magnitude import magnitude_float
@@ -622,8 +622,10 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
                                    magnitude_exact).reshape(B, bl, nr, nd)
             nonfinite = (~torch.isfinite(mag)).sum(dim=(-2, -1))
             if ref_angle == 0:
-                det = C.peak_group(cfar_detect(mag, so, cfar=p.cfar)[0],
-                                   peak_group_radius)
+                det, _, rmax, ndet = cfar_detect_group(
+                    mag, so, cfar=p.cfar, peak_group_radius=peak_group_radius)
+                row_max = rmax.reshape(B, bl * nr)
+                n_dets = ndet.sum(dim=1)
         elif ref_angle == 0:
             det, mag, rmax, ndet, nonfinite = detect(
                 *range_fft(br, bi), bypass, so, cfar=p.cfar,

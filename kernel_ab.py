@@ -54,8 +54,20 @@ stimulus, 1024x128 frames):
   per-cell on "auto"; and the 3D array route's cubes/s
   (``make_batch_array_processor(ref_angle=1)``, 16 cubes).
 
+* the standalone CFAR (TPU rows 7 and 8, ``csrc/cfar_detect.cu``,
+  ``ops/cfar_detect.cfar_detect``) at batch 128: per-cell and with a given
+  block scale map, on the fixed chain's int32 magnitudes and the float
+  staged chain's float32 magnitudes, and, where the checkout has it, its
+  grouping entry ``cfar_detect_group`` (radius 2) on the same four; its
+  prepadded entry on the sp = 4 range shard of a block-scale map (rows
+  256..512 and their halo rows); as back-to-back calls and by graph replay;
+  and the staged routes' frames/s: fixed ``auto`` and float ``staged``,
+  per-cell and block, radius 2.
+
 With ``--cfar3d-only`` it times the 3D CFAR's two entries and the 3D array
-route alone (a design step's A/B).  Prints the card's name and power limit
+route alone, with ``--cfar-detect-only`` the standalone CFAR's entries and
+the staged routes alone (a design step's A/B).  Prints the card's name and
+power limit
 and one JSON line.  To compare two
 commits on one card, unpack the other commit into a directory (``git
 archive``) and run this script on both, one after the other on the same
@@ -80,7 +92,11 @@ def main() -> int:
                     help="checkout whose fmcw_tpu_torch is timed")
     ap.add_argument("--cfar3d-only", action="store_true",
                     help="time the 3D CFAR and the 3D array route alone")
+    ap.add_argument("--cfar-detect-only", action="store_true",
+                    help="time the standalone CFAR and the staged routes "
+                         "alone")
     args = ap.parse_args()
+    everything = not (args.cfar3d_only or args.cfar_detect_only)
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
@@ -139,7 +155,7 @@ def main() -> int:
 
     entry = P.RadarParams()
     ms, fft, graph, fft_graph, copy, fps = {}, {}, {}, {}, {}, {}
-    if not args.cfar3d_only:
+    if everything:
         iq = make_batch(entry)
         win = torch.as_tensor(hamming_float(entry.n_range), device="cuda")
 
@@ -255,6 +271,60 @@ def main() -> int:
                 ms[name] = cuda_ms(call, 10, 2)
                 graph[name] = graph_ms(call, 10)
         del fmag, imag, fsmap
+    if everything or args.cfar_detect_only:
+        # The standalone CFAR's entries on the fixed chain's int32 and the
+        # float staged chain's float32 magnitudes, its prepadded entry on
+        # an sp = 4 block-scale shard; the staged routes' frames/s.
+        from fmcw_tpu_torch.ops import cfar as C, cfar_detect as CD
+        fast = P.fast()
+        iq = make_batch(entry)
+        imag, _ = pl._staged_fixed(iq, False, entry, "zero", "unbiased")
+        fmag = pl.make_batch_processor(entry, frontend="staged",
+                                       device="cuda")(iq)["mag_map"]
+        grouping = hasattr(CD, "cfar_detect_group")
+        for tag, mag in (("int32", imag), ("float32", fmag)):
+            for p in (entry, fast):
+                mode = p.cfar.scale_mode
+                smap = (C.block_scale_map(mag, p.cfar) if mode == "block"
+                        else None)
+                kw = dict(cfar=p.cfar, scale_map=smap)
+                calls = {f"cfar_detect[{mode},{tag}]":
+                         lambda kw=kw, mag=mag: CD.cfar_detect(mag, 0, **kw)}
+                if grouping:
+                    calls[f"cfar_detect_group[{mode},{tag}]"] = (
+                        lambda kw=kw, mag=mag: CD.cfar_detect_group(
+                            mag, 0, peak_group_radius=2, **kw))
+                for name, call in calls.items():
+                    ms[name] = cuda_ms(call, 20, 3)
+                    graph[name] = graph_ms(call, 20)
+        nrl, hr = entry.n_range // SP, entry.cfar.halo_range
+        smag, _ = F.slowtime_mag(*F.range_fft(iq))
+        ext = torch.arange(nrl - hr, 2 * nrl + hr, device="cuda") % \
+            entry.n_range
+        shard = smag[:, ext].contiguous()
+        smap = C.block_scale_map(smag, fast.cfar)[:, nrl:2 * nrl].contiguous()
+
+        def call():
+            return CD.cfar_detect(shard, 0, cfar=fast.cfar, scale_map=smap,
+                                  prepadded_range=True)
+        ms["cfar_detect[prepadded,sp4]"] = cuda_ms(call, 20, 3)
+        graph["cfar_detect[prepadded,sp4]"] = graph_ms(call, 20)
+        del imag, fmag, smag, shard, smap
+        for p in (entry, fast):
+            batch = make_batch(p)
+            for key, kw in ((f"fixed/{p.cfar.scale_mode}/auto",
+                             dict(mode="fixed", frontend="auto")),
+                            (f"float/{p.cfar.scale_mode}/staged",
+                             dict(frontend="staged"))):
+                proc = pl.make_batch_processor(p, peak_group_radius=2,
+                                               include_maps=False,
+                                               device="cuda", **kw)
+                fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 5, 2)
+    if args.cfar_detect_only:
+        print(json.dumps({"root": str(args.root), "ms": ms,
+                          "graph_ms": graph, "frames_per_s": fps,
+                          "batch": BATCH, "card": card}), flush=True)
+        return 0
     # The 3D CFAR's two entries at the 3D route's shapes.
     from fmcw_tpu_torch.ops import beamform as BF, cfar3d_detect as C3
     n_beams, n_cubes = 8, 16
@@ -281,7 +351,7 @@ def main() -> int:
         ms[name] = cuda_ms(call, 20, 3)
         graph[name] = graph_ms(call, 20)
     del cube, shard
-    if not args.cfar3d_only:
+    if everything:
         # The main path, per-cell and block scale; fixed mode's fused route.
         for p in (entry, P.fast()):
             batch = make_batch(p)

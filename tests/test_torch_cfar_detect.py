@@ -172,3 +172,40 @@ def test_topk_int32_ties_vs_jax(shape, with_row_max):
     assert got["mag"].dtype == torch.int32
     for key in ("range_bin", "doppler_bin", "mag", "valid", "n_dets"):
         assert np.array_equal(got[key].numpy(), np.asarray(want[key])), key
+
+
+def _float_map(shape, seed):
+    """float32 noise with plateaus of equal values and bright tied peaks."""
+    rng = np.random.default_rng(seed)
+    m = rng.exponential(100.0, shape)
+    q = rng.random(shape) < 0.3
+    m[q] = np.floor(m[q] / 50) * 50 + 50
+    r, d = shape
+    for _ in range(6):
+        i, j = rng.integers(0, r), rng.integers(0, d)
+        m[i, j] = m[(i + 1) % r, j] = 3e4
+        m[i, (j + 2) % d] = 4.5e4
+    return m.astype(np.float32)
+
+
+@pytest.mark.parametrize("radius", [0, 1, 2])
+@pytest.mark.parametrize("scale_mode", ["cell", "block"])
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("shape", [(64, 32), (256, 64)])
+def test_detect_group_vs_jax(shape, integer, scale_mode, radius):
+    """cfar_detect_group (CPU: its twin) == JAX cfar_2d then peak_group:
+    the grouped det map and the scale map bit for bit, the row maxima of
+    the grouped map and its detection count."""
+    seed = shape[0] + radius
+    m = _int_map(shape, seed) if integer else _float_map(shape, seed)
+    cfar = _cfar(scale_mode)
+    det, scale, row_max, n_dets = CD.cfar_detect_group(
+        torch.as_tensor(m), cfar=cfar, peak_group_radius=radius)
+    jdet, _, jscale = JC.cfar_2d(jnp.asarray(m), 0, _jcfar(cfar),
+                                 integer=integer)
+    want = np.asarray(JC.peak_group(jdet, radius) if radius else jdet)
+    assert det.dtype == torch.as_tensor(m).dtype
+    assert np.array_equal(det.numpy().view(np.int32), want.view(np.int32))
+    assert np.array_equal(scale.numpy(), np.asarray(jscale).astype(np.int32))
+    assert np.array_equal(row_max.numpy(), np.maximum(want, 0).max(axis=-1))
+    assert int(n_dets) == int((want > 0).sum()) > 0

@@ -196,6 +196,14 @@ def test_wrappers_take_plain_twin_on_cpu(monkeypatch):
     for a, b in zip(out, plain):
         assert (a is None and b is None) or torch.equal(a, b)
     assert F.range_fft.launches == 0 and F.slowtime_detect.launches == 0
+    mag = torch.as_tensor(np.random.default_rng(1).integers(
+        0, 3000, (2, p.n_range, p.n_doppler)), dtype=torch.int32)
+    for a, b in zip(CD.cfar_detect_group(mag, 3, cfar=p.cfar,
+                                         peak_group_radius=2),
+                    CD.cfar_detect_group_plain(mag, 3, cfar=p.cfar,
+                                               peak_group_radius=2)):
+        assert torch.equal(a, b)
+    assert CD.cfar_detect_group.launches == 0
 
 
 class _FakeLib:
@@ -223,6 +231,10 @@ class _FakeLib:
 
     def fmcw_cfar_detect(self, *args):
         self.calls.append(("cfar_detect", args))
+        return self.err
+
+    def fmcw_cfar_detect_group(self, *args):
+        self.calls.append(("cfar_detect_group", args))
         return self.err
 
     def fmcw_range_fft_float(self, *args):
@@ -273,6 +285,7 @@ def as_if_cuda(monkeypatch):
     monkeypatch.setattr(FX, "range_fft_fixed_plain", forbidden)
     monkeypatch.setattr(FX, "slowtime_detect_fixed_plain", forbidden)
     monkeypatch.setattr(CD, "cfar_detect_plain", forbidden)
+    monkeypatch.setattr(CD, "cfar_detect_group_plain", forbidden)
     monkeypatch.setattr(F, "range_fft_float_plain", forbidden)
     monkeypatch.setattr(F, "slowtime_mag_plain", forbidden)
     monkeypatch.setattr(C3, "cfar3d_detect_plain", forbidden)
@@ -306,6 +319,22 @@ def test_wrappers_launch_kernels_for_cuda_tensors(as_if_cuda):
     cfg = as_if_cuda.calls[2][1][9]._obj
     assert (cfg.H, cfg.block_mode, cfg.sb, cfg.n_blk, cfg.k_blk) == \
         (24, 1, 8, 576, 144)
+    # The staged routes' CFAR step: the grouping entry, with the row maxima
+    # and counts for the top-K; an int32 map within float_max counts in
+    # float.
+    mag = torch.zeros((2, p.n_range, p.n_doppler), dtype=torch.int32)
+    det, scale, row_max, n_dets = CD.cfar_detect_group(
+        mag, 4, cfar=p.cfar, peak_group_radius=2)
+    assert as_if_cuda.calls[-1][0] == "cfar_detect_group"
+    args = as_if_cuda.calls[-1][1]
+    assert args[1] is None and args[4] is not None and args[5] is not None
+    cfg = args[6]._obj
+    assert (cfg.R, cfg.D, cfg.T, cfg.strip, cfg.packed, cfg.pgr, cfg.so,
+            cfg.integer, cfg.prepadded, cfg.float_max) == \
+        (1024, 128, 28, 8, 1, 2, 4, 1, 0, (1 << 24) // 13)
+    assert det.dtype == row_max.dtype == torch.int32
+    assert tuple(row_max.shape) == (2, 1024) and tuple(n_dets.shape) == (2,)
+    assert CD.cfar_detect_group.launches == 1 and CD.cfar_detect.launches == 0
 
 
 def test_failed_launch_raises(as_if_cuda):
