@@ -65,7 +65,17 @@ card; row 9's timings beside its bound and its earlier compare-add bound;
 the sharded array
 model's kernel entries (the prepadded 3D CFAR, the global-ids beam grouping)
 against the whole-cube kernels, and make_sharded_array_processor on a
-LocalMesh (sp 2 and 4) equal to the single card, with cubes/s.  It prints
+LocalMesh (sp 2 and 4) equal to the single card, with cubes/s; the
+cross-beam grouping kernel (TPU row 11, csrc/beam_group.cu) on its edge
+cases bit for bit against its twin (radius 0-3 and 5, 1, 3 and 8 beams, D
+128, 130 and 6, an unaligned cube, 37 rows, ties and non-finite values;
+shards at sp 2 and 4 and one across the cube's end), both its entries timed by graph replay.  Then the
+surveillance runtime (fmcw_tpu_torch/runtime/) at 1024x128 on 48 scenario
+scans, 16 a batch: fixed mode's kernel route with logs byte-identical to
+its plain route, the float main path holding the targets in firm tracks,
+a run resumed from a checkpoint with logs byte-identical to the unbroken
+one, the array model, stream and stream_batched (block and drop) against a
+plain loop, and scans/s with the frame-batch / tracker split.  It prints
 the card's name and power limit, one JSON line listing the kernels, and as
 its last line {"ok": true, "device": {...}}.  Any failed check raises,
 and the script then exits non-zero; without CUDA it exits non-zero at
@@ -1180,12 +1190,15 @@ def bound_cfar3d(cells: int, cfar, ref_angle: int, guard_angle: int,
     return _bound(cells * 12, 0 if integer else ops, ops if integer else 0)
 
 
-def bound_beam_group(B: int, NB: int, R: int, D: int, radius: int):
-    """Least time for beam_group: the cube read once and written once, the
-    row maxima and counts written once; 2 radius + 2 compares per cell."""
+def bound_beam_group(B: int, NB: int, R: int, D: int, radius: int,
+                     halo: int = 0):
+    """Least time for beam_group: every input plane read once (a shard's NB
+    own planes and its 2 halo halo planes), the grouped planes written
+    once, the row maxima and counts written once; 2 radius + 2 compares per
+    cell."""
     cells = B * NB * R * D
-    return _bound(cells * 8 + B * NB * R * 4 + B * 4,
-                  cells * (2 * radius + 2))
+    return _bound(B * (NB + 2 * halo) * R * D * 4 + cells * 4
+                  + B * NB * R * 4 + B * 4, cells * (2 * radius + 2))
 
 
 def array_kernel_checks(dev):
@@ -1284,7 +1297,68 @@ def array_kernel_checks(dev):
             if not same:
                 raise AssertionError("beam_group disagrees with its twin")
     errs["beam_group"] = worst
+    beam_group_cases(dev)
     return errs, (br, bi, re, im), cube
+
+
+def group_stimulus(shape, seed: int, kind: str):
+    """Sparse float32 detection cubes (numpy): small integers, dense ties
+    across beams; real magnitudes; or adversarial values (NaN, +-inf,
+    -0.0, negatives) among ties."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = np.where(rng.random(shape) < 0.3, rng.integers(1, 4, shape),
+                 0).astype(np.float32)
+    if kind == "real":
+        x = np.where(x > 0, rng.random(shape) * 1e4, 0).astype(np.float32)
+    elif kind == "adversarial":
+        bad = np.array([np.nan, np.inf, -np.inf, -0.0, -2.0, 3.0],
+                       np.float32)
+        pick = rng.random(shape) < 0.08
+        x[pick] = bad[rng.integers(0, len(bad), int(pick.sum()))]
+    return x
+
+
+def group_bits_equal(got, want) -> bool:
+    """beam_group's three outputs equal bit for bit (floats as int32)."""
+    import torch
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               if a.dtype == torch.float32 else torch.equal(a, b)
+               for a, b in zip(got, want))
+
+
+def beam_group_cases(dev):
+    """Phase 12b: csrc/beam_group.cu's shapes and edges against its twin,
+    bit for bit: radius 0-3
+    (the register window) and 5 (neighbours read directly); NB 1, 3 and 8;
+    D 128 (float4), 130 and 6 (a cell a lane), an unaligned cube; R 37
+    (not a multiple of the 8 rows a block takes); ties across beams; NaN,
+    +-inf, -0.0 and negatives; batch 3."""
+    import torch
+    from fmcw_tpu_torch.ops import beam_group as BG
+    cases = [(nb, d, r, kind) for nb, d, r, kind in (
+        (8, 128, 0, "ties"), (8, 128, 1, "ties"), (8, 128, 2, "ties"),
+        (8, 128, 3, "ties"), (8, 128, 5, "adversarial"),
+        (8, 128, 2, "adversarial"), (8, 128, 1, "real"), (3, 128, 1, "ties"),
+        (3, 130, 2, "ties"), (3, 6, 3, "adversarial"), (1, 128, 1, "ties"),
+        (1, 6, 2, "ties"), (8, 130, 1, "real"), (8, 6, 2, "ties"))]
+    n = 0
+    for i, (nb, d, r, kind) in enumerate(cases):
+        x = torch.as_tensor(group_stimulus((3, nb, 37, d), 100 + i, kind),
+                            device=dev)
+        for t in (x, torch.cat([x.new_zeros(1), x.flatten()])[1:]
+                  .view(x.shape)):                # aligned, then not
+            ok = group_bits_equal(BG.beam_group(t, r),
+                                  BG.beam_group_plain(t, r))
+            n += 1
+            if not ok:
+                raise AssertionError(
+                    f"beam_group differs: NB {nb} D {d} radius {r} {kind} "
+                    f"aligned={t.data_ptr() % 16 == 0}")
+    torch.cuda.synchronize()
+    log(f"beam_group cases: {n} cubes (radius 0-3 and 5, NB 1/3/8, D "
+        f"128/130/6, R 37, ties and adversarial values, unaligned) "
+        f"bit-identical to the twin")
 
 
 def array_small_checks(dev):
@@ -1581,7 +1655,9 @@ def array_model(card: str, dev):
             re, im, cfar=q.cfar, peak_group_radius=2))
         det = dets[mode] = F.slowtime_detect(
             re, im, cfar=q.cfar, peak_group_radius=2)[0].reshape(shape)
-        t[f"beam_group[{mode}]"] = cuda_ms(lambda: BG.beam_group(det, 1))
+        t[f"beam_group[{mode}]"] = graph_ms(lambda: BG.beam_group(det, 1))
+        t[f"beam_group_eager[{mode}]"] = cuda_ms(
+            lambda: BG.beam_group(det, 1))
         g, rmax, ndet = BG.beam_group(det, 1)
         t[f"topk[{mode}]"] = cuda_ms(lambda: DET.topk_detections(
             g.reshape(ARRAY_BATCH, N_BEAMS * nr, nd), p.tracker.max_dets,
@@ -1589,8 +1665,9 @@ def array_model(card: str, dev):
     plain = cuda_ms(lambda: BG.beam_group_plain(dets["cell"], 1), 5)
     bound, by = bound_beam_group(ARRAY_BATCH, N_BEAMS, nr, nd, 1)
     ms = t["beam_group[cell]"]
-    log(f"beam_group: {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} "
-        f"ms ({by}) at {B} beam maps ({card})")
+    log(f"beam_group: {ms:.4f} ms (graph; eager "
+        f"{t['beam_group_eager[cell]']:.4f}), plain {plain:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}) at {B} beam maps ({card})")
     rows.append(dict(name="beam_group", route="cuda",
                      source=src + "beam_group.cu",
                      replaces="fmcw_tpu/ops/cfar_pallas.py:824",
@@ -2506,6 +2583,7 @@ def shard_entry_checks(card: str, dev):
         log(f"shard entries sp={sp}: prepadded cfar_3d_detect and the "
             f"global-ids beam_group (radius 1, 2) bit-equal to the whole "
             f"cube's interior planes on every shard and to their twins")
+    shard_group_cases(dev)
     torch.cuda.synchronize()
     # Timing: shard 1 of sp = 4.
     sp, s = SPLIT_SPS[-1], 1
@@ -2529,20 +2607,71 @@ def shard_entry_checks(card: str, dev):
                      max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
                      bound_by=by, library_ms=None))
     x = ext(det, s, bl, 1)
-    ms = cuda_ms(lambda: BG.beam_group(x, 1, beam_offset=s * bl,
-                                       n_beams=N_BEAMS))
+    ms = graph_ms(lambda: BG.beam_group(x, 1, beam_offset=s * bl,
+                                        n_beams=N_BEAMS))
+    eager = cuda_ms(lambda: BG.beam_group(x, 1, beam_offset=s * bl,
+                                          n_beams=N_BEAMS))
     plain = cuda_ms(lambda: BG.beam_group_plain(x, 1, beam_offset=s * bl,
                                                 n_beams=N_BEAMS), 5)
-    bound, by = bound_beam_group(ARRAY_BATCH, bl, nr, nd, 1)
+    bound, by = bound_beam_group(ARRAY_BATCH, bl, nr, nd, 1, halo=1)
     log(f"beam_group[ids] (beam shard {ARRAY_BATCH}x{bl}+2x1 planes): "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}) "
-        f"({card})")
+        f"{ms:.4f} ms (graph; eager {eager:.4f}), plain {plain:.4f} ms, "
+        f"bound {bound:.4f} ms ({by}; the 2 halo planes read) ({card})")
     rows.append(dict(name="beam_group[ids]", route="cuda",
                      source=src + "beam_group.cu",
                      replaces="fmcw_tpu/ops/cfar_pallas.py:824",
                      max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
                      bound_by=by, library_ms=None))
     return rows
+
+
+def shard_group_cases(dev):
+    """Phase 24b: the shard entry of beam_group (global beam ids) on
+    small cubes of 8 beams, bit for bit against the twin and the whole
+    cube's interior planes: sp 2 and 4 with radius 1 and 2 at D 128, 130
+    and 6, R 37, ties and adversarial values, and a shard whose own planes
+    run across the cube's end (beams 6, 7, 0, 1; radius 1, 2 and 4)."""
+    import torch
+    from fmcw_tpu_torch.ops import beam_group as BG
+    n = 0
+    for i, (d, kind) in enumerate(((128, "ties"), (130, "adversarial"),
+                                   (6, "ties"))):
+        cube = torch.as_tensor(group_stimulus((2, 8, 37, d), 200 + i, kind),
+                               device=dev)
+        for sp in (2, 4):
+            bl = 8 // sp
+            for r in (1, 2):
+                whole = BG.beam_group(cube, r)
+                for s in range(sp):
+                    idx = torch.arange(s * bl - r, (s + 1) * bl + r,
+                                       device=dev) % 8
+                    x = cube[:, idx].contiguous()
+                    got = BG.beam_group(x, r, beam_offset=s * bl, n_beams=8)
+                    ok = group_bits_equal(got, BG.beam_group_plain(
+                        x, r, beam_offset=s * bl, n_beams=8))
+                    cut = slice(s * bl, (s + 1) * bl)
+                    ok = ok and torch.equal(got[0], whole[0][:, cut])
+                    n += 1
+                    if not ok:
+                        raise AssertionError(f"beam_group shard differs: D "
+                                             f"{d} sp {sp} shard {s} radius "
+                                             f"{r} {kind}")
+        for r in (1, 2, 4):
+            idx = torch.arange(6 - r, 10 + r, device=dev) % 8
+            x = cube[:, idx].contiguous()
+            got = BG.beam_group(x, r, beam_offset=6, n_beams=8)
+            ok = group_bits_equal(got, BG.beam_group_plain(
+                x, r, beam_offset=6, n_beams=8))
+            ok = ok and torch.equal(got[0],
+                                    BG.beam_group(cube, r)[0][:, [6, 7, 0, 1]])
+            n += 1
+            if not ok:
+                raise AssertionError(f"beam_group wrapped shard differs: D "
+                                     f"{d} radius {r}")
+    torch.cuda.synchronize()
+    log(f"beam_group shard cases: {n} shards (sp 2/4, radius 1/2, D "
+        f"128/130/6, R 37, ties and adversarial values; beams 6, 7, 0, 1 "
+        f"at radius 1/2/4) bit-identical to the twin and the whole cube")
 
 
 def sharded_array_main_path(card: str, dev):
@@ -2834,6 +2963,316 @@ def tie_checks(dev, entry, block, pgr: int) -> None:
                     raise AssertionError("tie stimulus met no tie")
 
 
+# ---------------------------------------------------------------------------
+# The surveillance runtime
+# ---------------------------------------------------------------------------
+
+SURV_SCANS = 48
+SURV_BATCH = 16
+ARRAY_SURV_SCANS = 16
+DROP_SLEEP_CYCLES = 40_000_000   # about 24 ms of device time a frame
+DROP_PACE_S = 0.0005             # a frame every 0.5 ms from the source
+
+
+def firm_ranges(state) -> list:
+    """Range bins of the firm active tracks of a (numpy) tracker state:
+    range_pos is a 12-bit Q2 register, so unwrapped modulo 1024 bins."""
+    from fmcw_tpu_torch.golden.tracker import FIRM
+    firm = (state["status"] == FIRM) & (state["active"] == 1)
+    return sorted(int(r) for r in (state["range_pos"][firm] & 4095) >> 2)
+
+
+def surveillance_phase(card: str, dev):
+    """Phase 26: the surveillance runtime on the card at 1024x128
+    (RadarParams()), TacticalScenario frames (seed 42, point targets: the
+    reference-faithful 5-sample burst smears a target over ~200 range bins
+    at this width, and the 64-detection buffer then fills with clutter), 48
+    scans, 16 a batch:
+    * fixed mode, run_surveillance through the kernel route (frontend
+      "auto") and the plain route: byte-identical detection and track logs,
+      equal final tracker states;
+    * the float main path (peak_group_radius 2): kernel A and kernel B
+      launched, the tracker on the card (run_scans: one CUDA-graph replay a
+      scan), both target groups held by firm tracks at the end;
+    * resume: a checkpoint after scan 24, then the rest from it: logs
+      byte-identical to the unbroken run, the final state equal;
+    * the array model (make_batch_array_processor, 8 elements x 8 beams,
+      beam_group_radius 1), 16 element-space scans;
+    * stream (single frames) and stream_batched (16 a batch), policies
+      block and drop, on the main path: results in order, each equal to a
+      plain loop over the processor, drop counts adding up; the drop run
+      overloads its window (a frame every 0.5 ms, about 24 ms of device
+      time each, several times the host's time a frame) and must drop
+      frames;
+    * timings: scans/s of the loop, the frame batch (dispatch and readback)
+      and the tracker (graph replays; an eager loop of step beside it, its
+      final state and every scan's report equal to the graph's) per
+      batch.  Returns the summary."""
+    import numpy as np
+    import torch
+    from pathlib import Path
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl, scenario as sc
+    from fmcw_tpu_torch.models import tracker as trk
+    from fmcw_tpu_torch.runtime import stream as rs, surveillance as sv
+    from fmcw_tpu_torch.utils import checkpoint as ck
+    p = P.RadarParams()
+    t0 = time.perf_counter()
+    scen = sc.TacticalScenario(p, sc.ScenarioConfig(num_scans=SURV_SCANS,
+                                                    burst_synthesis=False))
+    data = [(pl.complex_to_iq(f), truth) for _, f, truth in scen.run()]
+    frames = [f for f, _ in data]
+    log(f"surveillance: {SURV_SCANS} scenario frames made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out_dir = Path(__file__).resolve().parent / "build" / "surveillance"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def run(proc, tag, fr, **kw):
+        d, t = out_dir / f"{tag}_det.txt", out_dir / f"{tag}_trk.txt"
+        kw.setdefault("det_log", str(d))
+        kw.setdefault("trk_log", str(t))
+        res = list(sv.run_surveillance(proc, fr, p, batch_scans=SURV_BATCH,
+                                       device=dev, **kw))
+        return res, d, t
+
+    def counted(tag, fn, need=()):
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        log(f"surveillance {tag}: launches "
+            + (", ".join(f"{k}={v}" for k, v in counts.items()) or "none"))
+        missing = [k for k in need if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"surveillance {tag} skipped {missing}")
+        return out
+
+    # Fixed mode: the kernel route against the plain route.
+    fixed = {}
+    for fe in ("auto", "plain"):
+        proc = pl.make_batch_processor(p, mode="fixed", frontend=fe,
+                                       peak_group_radius=2,
+                                       include_maps=False, device=dev)
+        need = ("cfar_detect_group",) if fe == "auto" else ()
+        fixed[fe] = counted(f"fixed {fe}", lambda: run(proc, f"fixed_{fe}",
+                                                       frames), need)
+    (ra, da, ta), (rp, dp_, tp_) = fixed["auto"], fixed["plain"]
+    same_logs = (da.read_bytes() == dp_.read_bytes()
+                 and ta.read_bytes() == tp_.read_bytes())
+    sa, sp_ = ra[-1].tracker_state, rp[-1].tracker_state
+    same_state = all(np.array_equal(sa[k], sp_[k]) for k in sa)
+    n_fixed = sum(r.n_dets for r in ra)
+    log(f"surveillance fixed: kernel route vs plain route over {len(ra)} "
+        f"scans: logs {'byte-identical' if same_logs else 'DIFFER'} "
+        f"({da.stat().st_size} + {ta.stat().st_size} bytes), final state "
+        f"{'equal' if same_state else 'DIFFERS'}, {n_fixed} detections, "
+        f"{ra[-1].active_tracks} active tracks")
+    if not (same_logs and same_state and len(ra) == SURV_SCANS):
+        raise AssertionError("surveillance fixed: the kernel route differs "
+                             "from the plain route")
+
+    # The float main path, timed, with the batches' health lines.
+    proc = pl.make_batch_processor(p, peak_group_radius=2,
+                                   include_maps=False, device=dev)
+    run(proc, "warm", frames[:SURV_BATCH])             # capture, warm up
+    health = []
+    t0 = time.perf_counter()
+    res, d_full, t_full = counted(
+        "float", lambda: run(proc, "float", frames, health=health.append),
+        ("range_fft", "slowtime_detect"))
+    loop_s = time.perf_counter() - t0
+    final = res[-1].tracker_state
+    held = firm_ranges(final)
+    truth = sorted({tr for tr, _, _ in data[-1][1]})
+    log(f"surveillance float: {len(res)} scans, "
+        f"{sum(r.n_dets for r in res)} detections, {res[-1].active_tracks} "
+        f"active tracks; firm tracks at range bins {held}; targets at "
+        f"{truth}")
+    for tr in truth:
+        if not any(abs(h - tr) <= 3 for h in held):
+            raise AssertionError(f"surveillance float: no firm track near "
+                                 f"the target at range bin {tr}")
+    for line in health:
+        log(f"  {line}")
+
+    # Resume from a checkpoint after scan 24.
+    half = SURV_SCANS // 2
+    d_r, t_r = out_dir / "resumed_det.txt", out_dir / "resumed_trk.txt"
+    first, _, _ = run(proc, "resumed", frames[:half])
+    ck_path = str(out_dir / "checkpoint.npz")
+    ck.save(ck_path, first[-1].tracker_state, scan_index=first[-1].scan,
+            runtime_state=ck.log_positions(str(d_r), str(t_r)))
+    with open(d_r, "a") as fh:                 # a crashed batch's tail
+        fh.write("0 0 0\n")
+    state, scan, _, rt = ck.load(ck_path)
+    ck.restore_logs(rt, str(d_r), str(t_r))
+    rest, _, _ = run(proc, "resumed", frames[scan:], tracker_state=state,
+                     start_scan=scan)
+    same_logs = (d_r.read_bytes() == d_full.read_bytes()
+                 and t_r.read_bytes() == t_full.read_bytes())
+    fr = rest[-1].tracker_state
+    same_state = all(np.array_equal(fr[k], final[k]) for k in final)
+    log(f"surveillance resume after scan {scan}: logs "
+        f"{'byte-identical' if same_logs else 'DIFFER'} to the unbroken "
+        f"run, final state {'equal' if same_state else 'DIFFERS'}")
+    if not (same_logs and same_state and rest[-1].scan == SURV_SCANS):
+        raise AssertionError("surveillance: the resumed run differs")
+
+    # The array model.
+    scen = sc.TacticalScenario(p, sc.ScenarioConfig(
+        num_scans=ARRAY_SURV_SCANS, burst_synthesis=False))
+    cubes = [pl.complex_to_iq(f)
+             for _, f, _ in scen.run_elements(n_elems=N_ELEMS)]
+    aproc = pl.make_batch_array_processor(
+        p, n_elems=N_ELEMS, n_beams=N_BEAMS, peak_group_radius=2,
+        beam_group_radius=1, include_maps=False, device=dev)
+    ares, _, _ = counted("array", lambda: run(aproc, "array", cubes),
+                         ("range_fft_float", "slowtime_detect",
+                          "beam_group"))
+    log(f"surveillance array: {len(ares)} scans, "
+        f"{sum(r.n_dets for r in ares)} detections, "
+        f"{ares[-1].active_tracks} active tracks")
+    if not (len(ares) == ARRAY_SURV_SCANS and ares[-1].active_tracks > 0
+            and all(r.n_dets > 0 for r in ares)):
+        raise AssertionError("surveillance array: no detections or tracks")
+
+    # Streaming on the main path against a plain loop.
+    one = pl.make_processor(p, peak_group_radius=2, include_maps=False,
+                            device=dev)
+    sub = frames[:SURV_SCANS // 2]
+    plain = [one(torch.as_tensor(f, device=dev)) for f in sub]
+
+    def same(a, b):
+        return a.keys() >= b.keys() and all(torch.equal(a[k], b[k])
+                                            for k in b)
+
+    def slow(x, **kw):
+        """The processor on a card slower than the source: each frame's
+        work is followed by DROP_SLEEP_CYCLES of device time."""
+        out = one(x, **kw)
+        torch.cuda._sleep(DROP_SLEEP_CYCLES)
+        return out
+
+    def paced(fs):
+        for f in fs:                        # a frame every DROP_PACE_S
+            time.sleep(DROP_PACE_S)
+            yield f
+
+    stream_stats = {}
+    for policy in ("block", "drop"):
+        stats = rs.StreamStats()
+        # "drop" overloads the window, so that the Event.query readiness
+        # test and the drop branch run on the card.
+        fn, src = (one, sub) if policy == "block" else (slow, paced(sub))
+        t0 = time.perf_counter()
+        outs = counted(f"stream {policy}", lambda: list(rs.stream(
+            fn, src, depth=2, policy=policy, stats=stats, device=dev)),
+            ("range_fft", "slowtime_detect"))
+        frame_ms = (time.perf_counter() - t0) * 1e3 / len(sub)
+        j = 0                       # the outputs, in order, among the plain
+        for o in outs:
+            while j < len(plain) and not same(o, plain[j]):
+                j += 1
+            if j == len(plain):
+                raise AssertionError(f"stream {policy}: an output out of "
+                                     f"order or unequal to the plain loop")
+            j += 1
+        ok = (stats.frames_in == len(sub)
+              and stats.frames_processed == len(outs)
+              and stats.frames_processed + stats.frames_dropped == len(sub)
+              and (len(outs) == len(sub) if policy == "block"
+                   else 0 < stats.frames_dropped < len(sub)))
+        stream_stats[policy] = dict(vars(stats), ms_per_frame=frame_ms)
+        log(f"stream {policy}: {vars(stats)}, {frame_ms:.4f} ms a frame "
+            f"(host clock), outputs in order and equal to the plain loop")
+        if not ok:
+            raise AssertionError(f"stream {policy}: accounting is off")
+    stats = rs.StreamStats()
+    n_in = 2 * SURV_BATCH + SURV_BATCH // 2     # a padded last batch
+    sub = frames[:n_in]
+    bouts = counted("stream_batched", lambda: list(rs.stream_batched(
+        proc, sub, SURV_BATCH, depth=2, stats=stats, device=dev)),
+        ("range_fft", "slowtime_detect"))
+    for i, o in enumerate(bouts):
+        chunk = sub[i * SURV_BATCH:(i + 1) * SURV_BATCH]
+        chunk = chunk + [np.zeros_like(chunk[0])] * (SURV_BATCH - len(chunk))
+        if not same(o, proc(torch.as_tensor(np.stack(chunk), device=dev))):
+            raise AssertionError("stream_batched: a batch differs")
+    if ([o["batch_valid"] for o in bouts]
+            != [SURV_BATCH, SURV_BATCH, SURV_BATCH // 2]
+            or stats.frames_processed != n_in or stats.frames_in != n_in):
+        raise AssertionError("stream_batched: padding or accounting is off")
+    stream_stats["batched"] = vars(stats)
+    log(f"stream_batched: {vars(stats)}, batch_valid "
+        f"{[o['batch_valid'] for o in bouts]}, equal to the processor")
+
+    # Timings: the frame batch (dispatch + readback, host clock) and the
+    # tracker per batch of 16 scans (graph replays; an eager loop beside).
+    batch = np.stack(frames[:SURV_BATCH])
+
+    def frame_batch():
+        out = proc(batch)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def host_ms(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / n
+
+    frame_ms = host_ms(frame_batch, 10)
+    frame_event_ms = cuda_ms(
+        lambda: proc(torch.as_tensor(batch, device=dev)), 10)
+    out = frame_batch()
+    dets = (out["range_bin"], out["doppler_bin"],
+            out["mag"].astype(np.int32), out["valid"])
+    st0 = trk.state_from_numpy(final, dev)
+    tracker_ms = host_ms(lambda: trk.run_scans(*dets, tp=p.tracker,
+                                               state=st0), 5)
+
+    def eager():
+        s, reps = st0, []
+        for i in range(SURV_BATCH):
+            s, r = trk.step(s, *(torch.as_tensor(x[i], device=dev)
+                                 for x in dets), tp=p.tracker)
+            reps.append(r)
+        return s, reps
+
+    eager_ms = host_ms(eager, 2)
+    g, g_reps = trk.run_scans(*dets, tp=p.tracker, state=st0)
+    e, e_reps = eager()
+    e_reps = {k: torch.stack([r[k] for r in e_reps]) for k in e_reps[0]}
+    if not (all(torch.equal(g[k], e[k]) for k in g)
+            and g_reps.keys() == e_reps.keys()
+            and all(torch.equal(g_reps[k], e_reps[k]) for k in e_reps)):
+        raise AssertionError("tracker: the CUDA graph's state or reports "
+                             "differ from step's")
+    log(f"tracker: the CUDA graph's final state and {SURV_BATCH} scans' "
+        f"reports equal an eager loop of step")
+    batch_s = [float(h.split("batch_s=")[1].split()[0]) for h in health]
+    summary = {
+        "scans": SURV_SCANS, "batch_scans": SURV_BATCH,
+        "scans_per_s": SURV_SCANS / loop_s,
+        "frame_batch_ms": frame_ms, "frame_batch_event_ms": frame_event_ms,
+        "tracker_ms_per_batch": tracker_ms,
+        "tracker_ms_per_scan": tracker_ms / SURV_BATCH,
+        "tracker_eager_ms_per_batch": eager_ms,
+        "health_batch_s": batch_s,
+        "stream": stream_stats, "card": card}
+    log(f"surveillance loop: {summary['scans_per_s']:.1f} scans/s over "
+        f"{SURV_SCANS} scans ({loop_s * 1e3:.1f} ms, logs included); per "
+        f"batch of {SURV_BATCH}: frame batch {frame_ms:.4f} ms (copy in, "
+        f"dispatch and readback, host clock; {frame_event_ms:.4f} ms by CUDA "
+        f"events, the copy in included), tracker "
+        f"{tracker_ms:.4f} ms ({tracker_ms / SURV_BATCH:.4f} ms a scan, "
+        f"graph replays; eager step loop {eager_ms:.4f} ms) ({card})")
+    return summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3104,7 +3543,10 @@ def main() -> int:
     for row in entry_rows:
         row["launches"] = sa_launches[row["name"]]
 
-    # 26. The kernels line.
+    # 26. The surveillance runtime on the card.
+    surveillance = surveillance_phase(card, dev)
+
+    # 27. The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
                  source="fmcw_tpu_torch/csrc/range_fft.cu",
@@ -3131,6 +3573,7 @@ def main() -> int:
                                       "cubes": ARRAY_BATCH,
                                       "sp": list(SPLIT_SPS)},
                     "nccl": nccl,
+                    "surveillance": surveillance,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

@@ -17,9 +17,18 @@ The TPU side has no kernel here either: the tracker runs at scan rate.
 The state is a dict of int32 tensors; ``state_from_numpy`` /
 ``state_to_numpy`` carry a state across from (and back to) the JAX
 package's numpy arrays.
+
+``run_scans`` steps a batch of scans, as JAX's ``lax.scan`` over ``step``:
+on the CPU a plain loop; on CUDA one ``step`` captured in a CUDA graph over
+static buffers (``StepGraph``) and replayed once a scan, since ``step`` is
+some thousands of small operations whose launches would otherwise lead the
+surveillance loop.
 """
 
 from __future__ import annotations
+
+import functools
+import threading
 
 import numpy as np
 import torch
@@ -105,7 +114,9 @@ def step(state: dict, det_range: torch.Tensor, det_doppler: torch.Tensor,
                                 s["dopp_pos"])
     s["age"] = torch.where(act, _wrapu(s["age"] + 1, 8), s["age"])
 
-    # ASSOCIATE + UPDATE, sequential over track index.
+    # ASSOCIATE + UPDATE, sequential over track index.  The chosen
+    # detection is read with torch.take: indexing with a 0-d tensor would
+    # bring the index to the host, which a CUDA graph cannot capture.
     claimed = torch.zeros_like(dv)
     for ti in range(n):
         active = s["active"][ti] == 1
@@ -121,16 +132,16 @@ def step(state: dict, det_range: torch.Tensor, det_doppler: torch.Tensor,
             qual = in_gate & (dist < s["assoc_best"][0])
             any_q = qual.any()
             best_i = torch.where(qual, det_idx, -1).max().clamp(min=0)
-            best_d = torch.where(any_q, dist[best_i], _NO_DIST)
+            best_d = torch.where(any_q, torch.take(dist, best_i), _NO_DIST)
             found = active & any_q
             s["assoc_best"] = torch.where(active, best_d.reshape(1),
                                           s["assoc_best"])
         else:
             best_i = torch.argmin(dist)        # first minimum wins ties
-            found = active & (dist[best_i] < _NO_DIST)
+            found = active & (torch.take(dist, best_i) < _NO_DIST)
 
-        innov_r = _wrap(meas_r[best_i] - s["range_pos"][ti], 12)
-        innov_d = _wrap(meas_d[best_i] - s["dopp_pos"][ti], 9)
+        innov_r = _wrap(torch.take(meas_r, best_i) - s["range_pos"][ti], 12)
+        innov_d = _wrap(torch.take(meas_d, best_i) - s["dopp_pos"][ti], 9)
         old_hits = s["hit_count"][ti]
         old_miss = s["miss_count"][ti]
         status = s["status"][ti]
@@ -154,7 +165,7 @@ def step(state: dict, det_range: torch.Tensor, det_doppler: torch.Tensor,
                          s["dopp_vel"][ti]),
             "hit_count": (_wrapu(old_hits + 1, 4), old_hits),
             "miss_count": (torch.zeros_like(old_miss), _wrapu(old_miss + 1, 4)),
-            "last_mag": (dm[best_i], s["last_mag"][ti]),
+            "last_mag": (torch.take(dm, best_i), s["last_mag"][ti]),
             "status": (hit_status, miss_status),
             "active": (s["active"][ti],
                        torch.where(old_miss >= tp.coast_max, 0,
@@ -198,3 +209,95 @@ def step(state: dict, det_range: torch.Tensor, det_doppler: torch.Tensor,
               "report_mask": report_mask,
               "active_tracks": (s["active"] == 1).sum().to(torch.int32)}
     return s, report
+
+
+class StepGraph:
+    """One ``step`` captured in a CUDA graph: static input buffers (the
+    state and one scan's K detections), the step, then its new state copied
+    back into the input state inside the graph, so that a replay advances
+    the carried state in place.  ``__call__`` copies one scan's detections
+    in, replays, and returns the report's static tensors (overwritten by
+    the next replay).  Its buffers are shared by every caller: hold
+    ``lock`` from ``load`` until the results are cloned."""
+
+    def __init__(self, tp: TrackerParams, device: torch.device, k: int,
+                 mag_dtype: torch.dtype):
+        self.lock = threading.Lock()
+        self.state = init_state(tp, device)
+        self.det = (torch.zeros(k, dtype=torch.int32, device=device),
+                    torch.zeros(k, dtype=torch.int32, device=device),
+                    torch.zeros(k, dtype=mag_dtype, device=device),
+                    torch.zeros(k, dtype=torch.bool, device=device))
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(2):       # warm the allocator and the sort
+                step(self.state, *self.det, tp=tp)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            new, self.report = step(self.state, *self.det, tp=tp)
+            for key, val in new.items():
+                self.state[key].copy_(val)
+
+    def load(self, state: dict) -> None:
+        for key, val in state.items():
+            self.state[key].copy_(val)
+
+    def __call__(self, dr, dd, dm, dv) -> dict:
+        for buf, x in zip(self.det, (dr, dd, dm, dv)):
+            buf.copy_(x)
+        self.graph.replay()
+        return self.report
+
+
+@functools.lru_cache(maxsize=8)
+def step_graph(tp: TrackerParams, device: torch.device, k: int,
+               mag_dtype: torch.dtype) -> StepGraph:
+    """The StepGraph of (tp, device, K, magnitude type), captured once and
+    reused, as JAX's jitted scan is compiled once for its static ``tp``."""
+    return StepGraph(tp, device, k, mag_dtype)
+
+
+def run_scans(det_range, det_doppler, det_mag, det_valid,
+              tp: TrackerParams | None = None, state: dict | None = None,
+              device=None):
+    """Step a batch of scans: inputs are (n_scans, K) arrays (numpy or
+    tensors); returns (final_state, stacked reports), each report entry
+    with a leading scan axis — ``fmcw_tpu.models.tracker.run_scans``.  The
+    state's device is the tracker's; with no state, an empty one on
+    ``device`` (None means CUDA, as ``init_state``).  On CUDA each scan is
+    one replay of ``step_graph``; elsewhere a loop of ``step``.
+
+    The graph's state and report buffers are shared between callers with
+    the same (tp, device, K, magnitude type), so a call holds the graph's
+    lock from loading the state until its results are cloned: threads may
+    call at once, and are served one after another.  The first call for a
+    key captures the graph, and no other thread may launch work on the card
+    while it does (a dispatch that the watchdog gave up on still may)."""
+    tp = tp or TrackerParams()
+    if state is None:
+        state = init_state(tp, device)
+    dev = state["active"].device
+    dets = [torch.as_tensor(x, device=dev)
+            for x in (det_range, det_doppler, det_mag, det_valid)]
+    n_scans = dets[0].shape[0]
+    if n_scans == 0:
+        raise ValueError("run_scans needs at least one scan")
+    reports = []
+    if dev.type == "cuda":
+        # The graph takes K <= max_dets, as step truncates; copy_ casts.
+        dets = [x[:, :tp.max_dets] for x in dets]
+        graph = step_graph(tp, dev, dets[0].shape[1], dets[2].dtype)
+        with graph.lock:
+            graph.load(state)
+            for i in range(n_scans):
+                rep = graph(*(x[i] for x in dets))
+                reports.append({key: v.clone() for key, v in rep.items()})
+            state = {key: v.clone() for key, v in graph.state.items()}
+    else:
+        for i in range(n_scans):
+            state, rep = step(state, *(x[i] for x in dets), tp=tp)
+            reports.append(rep)
+    return state, {key: torch.stack([r[key] for r in reports])
+                   for key in reports[0]}

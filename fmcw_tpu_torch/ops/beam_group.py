@@ -83,7 +83,7 @@ def beam_group(det: torch.Tensor, radius: int = 1,
     m = det.contiguous()
     out = torch.empty((B, NB, R, D), dtype=torch.float32, device=m.device)
     row_max = torch.empty((B, NB * R), dtype=torch.float32, device=m.device)
-    n_dets = torch.zeros((B,), dtype=torch.int32, device=m.device)
+    n_dets = torch.empty((B,), dtype=torch.int32, device=m.device)
     cfg = kernels.BeamGroupConfig(
         batch=B, NB=NB, R=R, D=D, radius=int(radius), halo=halo,
         id0=(int(beam_offset) - halo) if halo else 0,

@@ -66,7 +66,12 @@ stimulus, 1024x128 frames):
 
 With ``--cfar3d-only`` it times the 3D CFAR's two entries and the 3D array
 route alone, with ``--cfar-detect-only`` the standalone CFAR's entries and
-the staged routes alone (a design step's A/B).  Prints the card's name and
+the staged routes alone, with ``--beam-group-only`` the cross-beam
+grouping (TPU row 11, ``csrc/beam_group.cu``) alone: its whole-cube entry
+(radius 1 on kernel B's per-cell det cubes of 16 cubes x 8 beams) and its
+sp = 4 shard entry (2 beams and one halo plane on each side, global beam
+ids), eager and by graph replay, and the array route it ends, per-cell
+grouped, in cubes/s (a design step's A/B).  Prints the card's name and
 power limit
 and one JSON line.  To compare two
 commits on one card, unpack the other commit into a directory (``git
@@ -95,8 +100,12 @@ def main() -> int:
     ap.add_argument("--cfar-detect-only", action="store_true",
                     help="time the standalone CFAR and the staged routes "
                          "alone")
+    ap.add_argument("--beam-group-only", action="store_true",
+                    help="time the cross-beam grouping and the array route "
+                         "it ends alone")
     args = ap.parse_args()
-    everything = not (args.cfar3d_only or args.cfar_detect_only)
+    everything = not (args.cfar3d_only or args.cfar_detect_only
+                      or args.beam_group_only)
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
@@ -320,6 +329,41 @@ def main() -> int:
                                                include_maps=False,
                                                device="cuda", **kw)
                 fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 5, 2)
+    if args.beam_group_only:
+        from fmcw_tpu_torch.ops import beam_group as BG
+        from fmcw_tpu_torch.ops import beamform as BF
+        n_beams, n_cubes = 8, 16
+        z = np.asarray(reference.two_target_frame(entry, seed=3))
+        elems = np.stack([pl.complex_to_iq(
+            z * np.exp(2j * np.pi * 0.5 * e * 0.3)) for e in range(n_beams)])
+        cubes = np.stack([elems] * n_cubes)
+        cubes = torch.as_tensor(cubes + np.random.default_rng(0).integers(
+            -8, 8, cubes.shape).astype(np.int16), device="cuda")
+        br, bi = BF.beamform(cubes[..., 0].float(), cubes[..., 1].float(),
+                             n_beams, elem_dim=1)
+        det = F.slowtime_detect(*F.range_fft_float(br.flatten(0, 1),
+                                                   bi.flatten(0, 1)),
+                                cfar=entry.cfar, peak_group_radius=2)[0]
+        det = det.reshape(n_cubes, n_beams, entry.n_range, entry.n_doppler)
+        del br, bi
+        bl = n_beams // SP
+        shard = det[:, torch.arange(bl - 1, 2 * bl + 1, device="cuda")
+                    % n_beams].contiguous()
+        for name, call in (
+                ("beam_group", lambda: BG.beam_group(det, 1)),
+                ("beam_group[ids,sp4]", lambda: BG.beam_group(
+                    shard, 1, beam_offset=bl, n_beams=n_beams))):
+            ms[name] = cuda_ms(call, 50, 5)
+            graph[name] = graph_ms(call, 50)
+        proc = pl.make_batch_array_processor(
+            entry, n_elems=n_beams, n_beams=n_beams, peak_group_radius=2,
+            beam_group_radius=1, include_maps=False, device="cuda")
+        cps = {"percell_grouped": n_cubes * 1e3 / cuda_ms(
+            lambda: proc(cubes), 10, 2)}
+        print(json.dumps({"root": str(args.root), "ms": ms,
+                          "graph_ms": graph, "cubes_per_s": cps,
+                          "card": card}), flush=True)
+        return 0
     if args.cfar_detect_only:
         print(json.dumps({"root": str(args.root), "ms": ms,
                           "graph_ms": graph, "frames_per_s": fps,

@@ -55,8 +55,11 @@ def test_import_loads_neither_jax_nor_fmcw_tpu():
             "fmcw_tpu_torch.ops.beam_group", "fmcw_tpu_torch.device",
             "fmcw_tpu_torch.ops.split_frontend",
             "fmcw_tpu_torch.ops.cfar_rank",
-            "fmcw_tpu_torch.parallel.mesh", "fmcw_tpu_torch.parallel.sharded"
-            } <= set(names)
+            "fmcw_tpu_torch.parallel.mesh", "fmcw_tpu_torch.parallel.sharded",
+            "fmcw_tpu_torch.models.scenario", "fmcw_tpu_torch.utils.io",
+            "fmcw_tpu_torch.utils.checkpoint",
+            "fmcw_tpu_torch.runtime.surveillance",
+            "fmcw_tpu_torch.runtime.stream"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -156,6 +159,27 @@ def test_tracker_defaults_to_cuda_and_raises_without_it(monkeypatch):
         ttrk.state_from_numpy(ttrk.state_to_numpy(state))
     again = ttrk.state_from_numpy(ttrk.state_to_numpy(state), device="cpu")
     assert all(torch.equal(again[k], state[k]) for k in state)
+
+
+def test_runtime_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """run_scans with no state, the streams and run_surveillance put their
+    work on CUDA unless asked for the CPU."""
+    from fmcw_tpu_torch.runtime import stream as RS, surveillance as SV
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dets = (np.zeros((2, 4), np.int32),) * 3 + (np.zeros((2, 4), bool),)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttrk.run_scans(*dets)
+    state, _ = ttrk.run_scans(*dets, device="cpu")
+    assert state["active"].device.type == "cpu"
+    frames = [np.zeros((2, 2), np.int16)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(RS.stream(lambda x: {}, frames))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(RS.stream_batched(lambda x: {}, frames, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(SV.run_surveillance(lambda x, **k: {}, frames,
+                                 fmcw_tpu_torch.quick()))
+    assert len(list(RS.stream(lambda x: {}, frames, device="cpu"))) == 1
 
 
 def test_chip_smoke_exits_nonzero_without_cuda():
