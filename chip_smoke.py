@@ -75,7 +75,17 @@ scans, 16 a batch: fixed mode's kernel route with logs byte-identical to
 its plain route, the float main path holding the targets in firm tracks,
 a run resumed from a checkpoint with logs byte-identical to the unbroken
 one, the array model, stream and stream_batched (block and drop) against a
-plain loop, and scans/s with the frame-batch / tracker split.  It prints
+plain loop, and scans/s with the frame-batch / tracker split.  Then the
+hw-compat streaming CFAR (cfar_geometry="hw_stream", phase 27): the
+flat-stream entry of csrc/cfar_detect.cu (TPU row 7 with
+prepadded_range="both") against its twin bit for bit (int32 and float32
+maps, the one-shot, first-frame and carried framings, the full, QUICK and
+zero-halo windows, override 0 and 3, adversarial, zero and end-spike
+maps), make_batch_processor(cfar_geometry="hw_stream") at batch 128 (fixed
+"auto" against the golden model frame by frame, float "fused" against the
+twin), run_surveillance_stream over 48 fixed-mode CPIs read through the
+port's FileFrameStreamer (kernel and plain routes and a resumed run
+logging byte-identically, firm tracks), and timings.  It prints
 the card's name and power limit, one JSON line listing the kernels, and as
 its last line {"ok": true, "device": {...}}.  Any failed check raises,
 and the script then exits non-zero; without CUDA it exits non-zero at
@@ -209,9 +219,10 @@ NO_SPILL_SOURCES = (" range_fft.cu", " range_fft_fixed.cu",
 # the (6, 2) and (3, 1) walks unrolled, hi and lo packed; float, int32).
 NO_SPILL_ENTRIES = tuple(f"cfar3d_detect_kernelI{v}Li8ELi{hr}ELi{gr}ELb1E"
                          for v in "fi" for hr, gr in ((6, 2), (3, 1)))
-# cfar_detect.cu's variants of the repository's windows, likewise.
+# cfar_detect.cu's variants of the repository's windows, likewise, and the
+# flat-stream entry's crossed default window (5, 1).
 NO_SPILL_ENTRIES += tuple(f"cfar_detect_kernelI{v}Li8ELi{hr}ELi{gr}ELb1E"
-                          for v in "fi" for hr, gr in ((6, 2), (3, 1)))
+                          for v in "fi" for hr, gr in ((6, 2), (3, 1), (5, 1)))
 
 
 def log_build(info) -> None:
@@ -3273,6 +3284,407 @@ def surveillance_phase(card: str, dev):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# The hw-compat streaming CFAR (cfar_geometry="hw_stream")
+# ---------------------------------------------------------------------------
+
+HW_CASE_BATCH = 16              # frames of each kernel-against-twin case
+HW_SCANS = 48
+
+
+def hw_geometries():
+    """(name, CfarParams) of the flat-stream cases: the default window
+    (crossed: 5 rows x 6 lanes, lag 774 at 1024x128), the QUICK window
+    (tests/test_hw_compat.py's) and one with a zero lane halo."""
+    import fmcw_tpu_torch as P
+    return (("full", P.CfarParams()),
+            ("quick", P.quick().cfar),
+            ("zero halo", P.CfarParams(ref_range=0, ref_doppler=2,
+                                       guard_range=0, guard_doppler=1)))
+
+
+def recorded(fn, calls: list):
+    """A decision function for ops/cfar.cfar_2d_hw_stream that records each
+    call's arguments and results in ``calls``."""
+    def decide(ext, start0, R, D, so, **kw):
+        out = fn(ext, start0, R, D, so, **kw)
+        calls.append(((ext, start0, R, D, so), kw, out))
+        return out
+    return decide
+
+
+def hw_stream_case(what: str, mag, so: int, cfar) -> float:
+    """The flat-stream entry against its twin on a batch of maps in the
+    three framings (one-shot, the stream's first frame, carried: each
+    frame's history the previous frame's tail, the first's the last's):
+    the raw decisions (det and scale of every cell, decision order) and
+    the framed outputs (det at label coordinates, scale, new_hist) bit for
+    bit, or raises.  Returns the largest |difference| (0)."""
+    import torch
+    from fmcw_tpu_torch.golden.fixed_point import hw_stream_lag
+    from fmcw_tpu_torch.ops import cfar as C, cfar_detect as CD
+    integer = not mag.is_floating_point()
+    B, R, D = mag.shape
+    lag = hw_stream_lag(cfar, D)
+    hist = torch.roll(mag.reshape(B, -1)[:, -2 * lag:], 1, 0).contiguous()
+    err, ndet = 0.0, 0
+    for framing, kw in (("one-shot", {}), ("first", dict(streaming=True)),
+                        ("carried", dict(streaming=True, hist=hist))):
+        calls = {"kernel": [], "twin": []}
+        outs = {name: C.cfar_2d_hw_stream(
+            mag, so, cfar=cfar, integer=integer,
+            decide=recorded(fn, calls[name]), **kw)
+            for name, fn in (("kernel", CD.cfar_detect_hw_stream),
+                             ("twin", C.hw_stream_decide_plain))}
+        torch.cuda.synchronize()
+        pairs = [(a, b) for a, b in zip(calls["kernel"][0][2],
+                                        calls["twin"][0][2])]
+        pairs += [(a, b) for a, b in zip(outs["kernel"], outs["twin"])
+                  if a is not None]
+        same = all(bits_equal(a, b) for a, b in pairs)
+        err = max([err] + [float((a.double() - b.double()).nan_to_num()
+                                 .abs().max()) for a, b in pairs])
+        ndet = int((outs["kernel"][0] != 0).sum())
+        if not same:
+            raise AssertionError(f"cfar_detect_hw_stream ({what}, {framing}, "
+                                 f"so={so}) disagrees with its twin")
+    log(f"cfar_detect_hw_stream {what} {tuple(mag.shape)} {mag.dtype} so={so}"
+        f" (crossed hr {cfar.halo_doppler} hd {cfar.halo_range}), one-shot /"
+        f" first / carried: bit-identical ({ndet} detections carried)")
+    return err
+
+
+def hw_stream_cases(dev):
+    """Phase 27a: the flat-stream entry of csrc/cfar_detect.cu (TPU row 7,
+    prepadded_range="both") against its twin: int32 maps (the fixed
+    chain's) and float32 maps (the float fused route's) at 1024x128, 16
+    frames, the full, QUICK and zero-halo windows, override 0 and 3, the
+    three framings; adversarial maps (NaN, Inf, -0.0, ties, int32 keys up
+    to +-2^31), a zero map and spikes at each frame's first and last 3
+    cells (the startup skip and the tail); and each of the entry's other
+    variants: a window walked at run time, n_ref 4216, 4096 columns.  Returns ({row: largest
+    |difference|}, the int32 and float32 maps)."""
+    import numpy as np
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.golden.reference import rank_adversarial_maps
+    from fmcw_tpu_torch.models import pipeline as pl
+    p = P.RadarParams()
+    iq = torch.as_tensor(make_batch(p, HW_CASE_BATCH, seed=6), device=dev)
+    imag = pl.make_batch_processor(p, mode="fixed", device=dev)(iq)["mag_map"]
+    fmag = pl.make_batch_processor(p, device=dev)(iq)["mag_map"]
+    errs = {}
+    full = p.cfar
+    gen = np.random.default_rng(27)
+    for mag in (imag, fmag):
+        name = f"cfar_detect_hw_stream[{str(mag.dtype)[6:]}]"
+        integer = not mag.is_floating_point()
+        spikes = gen.exponential(500.0, (4, p.n_range, p.n_doppler))
+        flat = spikes.reshape(4, -1)
+        flat[:, :3] = flat[:, -3:] = 4e4
+        cases = [(g, mag, cfar, so) for g, cfar in hw_geometries()
+                 for so in (0, 3)]
+        cases += [("adversarial", torch.as_tensor(rank_adversarial_maps(
+                      (4, p.n_range, p.n_doppler), integer, 17), device=dev),
+                   full, 0),
+                  ("zero map", torch.zeros_like(mag[:2]), full, 3),
+                  ("spikes at the ends", torch.as_tensor(spikes.astype(
+                      np.int32 if integer else np.float32), device=dev),
+                   full, 0)]
+        # The variants the windows above do not reach: a crossed window
+        # of 4 rows with guard 2 (its rows walked at run time), n_ref 4216
+        # (hi and lo counted apart) and 4096 columns (strips of one cell).
+        noise = gen.exponential(500.0, (2, 128, 4096))
+        noise[..., 3:5, 7:9] = 4e4
+        dt = np.int32 if integer else np.float32
+        cases += [("hr 4 gr 2", mag[:4], P.CfarParams(
+                      ref_range=3, ref_doppler=2, guard_range=1,
+                      guard_doppler=2), 0),
+                  ("n_ref 4216", mag[:2, :256], P.CfarParams(
+                      ref_range=31, ref_doppler=31, guard_range=1,
+                      guard_doppler=1), 3),
+                  ("4096 columns", torch.as_tensor(noise.astype(dt),
+                                                   device=dev), full, 0)]
+        for what, m, cfar, so in cases:
+            errs[name] = max(errs.get(name, 0.0),
+                             hw_stream_case(what, m, so, cfar))
+    return errs, imag, fmag
+
+
+def golden_hw_labels(job):
+    """The golden hw-stream CFAR's label-coordinate detections of one map
+    (a worker process's job: (map, CfarParams))."""
+    from fmcw_tpu_torch.golden.fixed_point import os_cfar_2d_hw_stream
+    mag, cfar = job
+    return sorted(zip(*(a.tolist() for a in os_cfar_2d_hw_stream(mag,
+                                                                 cfar))))
+
+
+def hw_stream_main_path(card: str, dev):
+    """Phase 27b: make_batch_processor(cfar_geometry="hw_stream") at batch
+    128: fixed "auto" (the FP64 stages, then the flat-stream entry), its
+    label-coordinate detection sets and n_dets equal to the golden
+    os_cfar_2d_hw_stream on the same magnitudes frame by frame (the golden
+    model in worker processes); float "fused" (kernel A, the magnitude-only
+    entry of kernel B, the flat-stream entry), its det maps equal to the
+    twin's on the route's own magnitudes.  Returns the launches."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C
+    p = P.RadarParams()
+    iq = torch.as_tensor(make_batch(p, BATCH, seed=7), device=dev)
+    launches = {}
+    for mode, need in (("fixed", ("cfar_detect_hw_stream",)),
+                       ("float32", ("range_fft", "slowtime_mag",
+                                    "cfar_detect_hw_stream"))):
+        proc = pl.make_batch_processor(p, mode=mode,
+                                       cfar_geometry="hw_stream", device=dev)
+        kernels.reset_launch_counts()
+        out = proc(iq)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        launches[mode] = counts
+        log(f"hw_stream {mode} main path: launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items()))
+        missing = [k for k in need if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"hw_stream {mode} skipped {missing}")
+        mag = out["mag_map"]
+        if mode == "fixed":
+            t0 = time.perf_counter()
+            ctx = mp.get_context("spawn")
+            with cf.ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                                        mp_context=ctx) as pool:
+                want = list(pool.map(golden_hw_labels,
+                                     [(m, p.cfar) for m in
+                                      mag.cpu().numpy()]))
+            det = out["det_map"].cpu().numpy()
+            n = out["n_dets"].cpu().numpy()
+            bad = []
+            for b, w in enumerate(want):
+                r, d = det[b].nonzero()
+                got = sorted(zip(r.tolist(), d.tolist(),
+                                 det[b][r, d].tolist()))
+                if got != w or int(n[b]) != len(w):
+                    bad.append(b)
+            log(f"hw_stream fixed auto, batch {BATCH}: detection sets and "
+                f"n_dets vs the golden hw-stream CFAR: "
+                f"{'equal' if not bad else f'DIFFER in frames {bad[:8]}'} "
+                f"on every frame ({sum(map(len, want))} detections; golden "
+                f"{time.perf_counter() - t0:.1f} s)")
+            if bad:
+                raise AssertionError("hw_stream fixed auto differs from the "
+                                     "golden model")
+        else:
+            det, _, _ = C.cfar_2d_hw_stream(mag, cfar=p.cfar, integer=False)
+            same = bits_equal(det, out["det_map"])
+            log(f"hw_stream float fused, batch {BATCH}: det maps vs the twin "
+                f"on the route's magnitudes: "
+                f"{'bit-identical' if same else 'DIFFER'} "
+                f"({int((det != 0).sum())} detections)")
+            if not same:
+                raise AssertionError("hw_stream float fused differs from the "
+                                     "twin")
+    return launches
+
+
+def hw_stream_runner(card: str, dev):
+    """Phase 27c: run_surveillance_stream over 48 consecutive fixed-mode
+    CPIs of TacticalScenario at 1024x128 (peak_group_radius 2), read back
+    through the port's FileFrameStreamer from raw int16 files in a
+    temporary directory: the kernel route ("auto") and the plain route
+    byte-identical logs; a run checkpointed after scan 24 (tracker state,
+    scan counter, stream_hist in runtime_state) and resumed logs
+    byte-identical to the unbroken run; both target groups end in firm
+    tracks.  Returns (scans/s of the kernel route's unbroken run, the
+    launches of that run)."""
+    import tempfile
+    from pathlib import Path
+    import numpy as np
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl, scenario as sc
+    from fmcw_tpu_torch.runtime import native, surveillance as sv
+    from fmcw_tpu_torch.utils import checkpoint as ck
+    p = P.RadarParams()
+    scen = sc.TacticalScenario(p, sc.ScenarioConfig(num_scans=HW_SCANS,
+                                                    burst_synthesis=False))
+    data = [(pl.complex_to_iq(f), truth) for _, f, truth in scen.run()]
+    frames = np.stack([f for f, _ in data])
+    half = HW_SCANS // 2
+    shape = frames.shape[1:]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, part in (("all", frames), ("head", frames[:half]),
+                           ("tail", frames[half:])):
+            part.tofile(tmp / f"{name}.bin")
+
+        def streamed(name):
+            s = native.FileFrameStreamer(str(tmp / f"{name}.bin"), shape)
+            try:
+                yield from s.frames()
+            finally:
+                s.close()
+
+        def run(frontend, name, tag, **kw):
+            proc = pl.make_processor(p, mode="fixed", frontend=frontend,
+                                     cfar_geometry="hw_stream",
+                                     peak_group_radius=2, include_maps=False,
+                                     device=dev)
+            d, t = tmp / f"{tag}_det.txt", tmp / f"{tag}_trk.txt"
+            res = list(sv.run_surveillance_stream(
+                proc, streamed(name), p, det_log=str(d), trk_log=str(t),
+                device=dev, **kw))
+            return res, d, t
+
+        run("auto", "head", "warm")                 # capture, warm up
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        full, d_full, t_full = run("auto", "all", "auto")
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        log(f"hw_stream runner: launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items()))
+        if counts.get("cfar_detect_hw_stream", 0) < HW_SCANS:
+            raise AssertionError("hw_stream runner skipped the flat-stream "
+                                 "entry")
+        plain, d_p, t_p = run("plain", "all", "plain")
+        same_plain = (d_full.read_bytes() == d_p.read_bytes()
+                      and t_full.read_bytes() == t_p.read_bytes())
+        first, d_r, t_r = run("auto", "head", "resumed")
+        ck_path = str(tmp / "checkpoint.npz")
+        ck.save(ck_path, first[-1].tracker_state, scan_index=first[-1].scan,
+                runtime_state={"stream_hist": first[-1].stream_hist,
+                               **ck.log_positions(str(d_r), str(t_r))})
+        with open(d_r, "a") as fh:                 # a crashed scan's tail
+            fh.write("0 0 0\n")
+        state, scan, _, rt = ck.load(ck_path)
+        ck.restore_logs(rt, str(d_r), str(t_r))
+        rest, _, _ = run("auto", "tail", "resumed", tracker_state=state,
+                         stream_hist=rt["stream_hist"], start_scan=scan)
+        same_resume = (d_r.read_bytes() == d_full.read_bytes()
+                       and t_r.read_bytes() == t_full.read_bytes())
+        n_bytes = d_full.stat().st_size + t_full.stat().st_size
+    final = full[-1].tracker_state
+    held = firm_ranges(final)
+    truth = sorted({tr for tr, _, _ in data[-1][1]})
+    ok_tracks = all(any(abs(h - tr) <= 3 for h in held) for tr in truth)
+    same_state = all(np.array_equal(rest[-1].tracker_state[k], final[k])
+                     for k in final)
+    log(f"hw_stream runner: {len(full)} scans from FileFrameStreamer, "
+        f"{sum(r.n_dets for r in full)} detections, {full[-1].active_tracks} "
+        f"active tracks, firm tracks at range bins {held} (targets {truth}); "
+        f"kernel vs plain route logs "
+        f"{'byte-identical' if same_plain else 'DIFFER'} ({n_bytes} bytes); "
+        f"resumed after scan {scan} with stream_hist: logs "
+        f"{'byte-identical' if same_resume else 'DIFFER'}, final state "
+        f"{'equal' if same_state else 'DIFFERS'}")
+    if not (same_plain and same_resume and same_state and ok_tracks
+            and len(full) == len(plain) == HW_SCANS
+            and rest[-1].scan == HW_SCANS):
+        raise AssertionError("hw_stream runner: logs, resume or tracks off")
+    return HW_SCANS / loop_s, counts
+
+
+def hw_stream_phase(card: str, dev):
+    """Phase 27: the hw-compat streaming CFAR on the card (27a-c above),
+    then 27d, timings at batch 128: the flat-stream entry by graph replay
+    and eager beside its bound (bound_cfar_detect with the crossed window)
+    and its twin; the hw-stream batch route's frames/s (fixed "auto" and
+    float "fused", peak_group_radius 2) with the plain grouping's share;
+    process.stream's ms a CPI; the runner's scans/s.  Returns (kernel
+    rows, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C, cfar_detect as CD
+    t0 = time.perf_counter()
+    errs, _, _ = hw_stream_cases(dev)
+    t1 = time.perf_counter()
+    launches = hw_stream_main_path(card, dev)
+    t2 = time.perf_counter()
+    scans_per_s, runner_launches = hw_stream_runner(card, dev)
+    t3 = time.perf_counter()
+    log(f"hw_stream phase: 27a {t1 - t0:.1f} s, 27b {t2 - t1:.1f} s, 27c "
+        f"{t3 - t2:.1f} s")
+    p = P.RadarParams()
+    nd, nr = p.n_doppler, p.n_range
+    iq = torch.as_tensor(make_batch(p, BATCH, seed=7), device=dev)
+    rows, fps, group_ms, entry = [], {}, {}, {}
+    for mode, route in (("fixed", "auto"), ("float32", "fused")):
+        proc = pl.make_batch_processor(p, mode=mode, frontend=route,
+                                       cfar_geometry="hw_stream",
+                                       peak_group_radius=2,
+                                       include_maps=True, device=dev)
+        out = proc(iq)
+        mag = out["mag_map"]
+        integer = mode == "fixed"
+        calls = []
+        det, _, _ = C.cfar_2d_hw_stream(
+            mag, cfar=p.cfar, integer=integer, label_roll=False,
+            decide=recorded(CD.cfar_detect_hw_stream, calls))
+        (ext, start0, R, D, _), _, _ = calls[0]
+        kw = dict(cfar=p.cfar, integer=integer)
+        ms = graph_ms(lambda: CD.cfar_detect_hw_stream(ext, start0, R, D, 0,
+                                                       **kw))
+        eager = cuda_ms(lambda: CD.cfar_detect_hw_stream(ext, start0, R, D, 0,
+                                                         **kw))
+        plain = cuda_ms(lambda: C.hw_stream_decide_plain(ext, start0, R, D,
+                                                         0, **kw), 2, 1)
+        in_float = not integer or int(mag.abs().max()) <= CD.float_max(
+            C.hw_stream_params(p.cfar))
+        bound, by = bound_cfar_detect(BATCH, nr, nd,
+                                      C.hw_stream_params(p.cfar), in_float)
+        name = f"cfar_detect_hw_stream[{str(mag.dtype)[6:]}]"
+        log(f"{name} ({mag.dtype} maps, counted in "
+            f"{'float' if in_float else 'int'}; ext streams of "
+            f"{ext.shape[-1]} cells): {ms:.4f} ms (graph; eager "
+            f"{eager:.4f}), plain {plain:.4f} ms, bound {bound:.4f} ms ({by}) "
+            f"at batch {BATCH} ({card})")
+        rows.append(dict(name=name, route="cuda",
+                         source="fmcw_tpu_torch/csrc/cfar_detect.cu",
+                         replaces="fmcw_tpu/ops/cfar_pallas.py:155",
+                         launches=launches[mode].get("cfar_detect_hw_stream",
+                                                     0),
+                         max_abs_err=errs[name], ms=ms, plain_ms=plain,
+                         bound_ms=bound, bound_by=by, library_ms=None))
+        entry[name] = {"graph_ms": ms, "eager_ms": eager}
+        path = pl.make_batch_processor(p, mode=mode, frontend=route,
+                                       cfar_geometry="hw_stream",
+                                       peak_group_radius=2,
+                                       include_maps=False, device=dev)
+        path_ms = cuda_ms(lambda: path(iq), 5)
+        fps[f"{mode}/{route}"] = BATCH * 1e3 / path_ms
+        shift = C.hw_stream_label_shift(p.cfar, nd, False)
+        group_ms[f"{mode}/{route}"] = cuda_ms(lambda: torch.roll(
+            C.peak_group(det, 2).reshape(BATCH, -1), -shift, dims=-1))
+        log(f"hw_stream {mode} {route} route, peak_group_radius 2: "
+            f"{fps[f'{mode}/{route}']:.1f} frames/s at batch {BATCH} "
+            f"({path_ms:.4f} ms a batch; the plain grouping and roll "
+            f"{group_ms[f'{mode}/{route}']:.4f} ms, "
+            f"{100 * group_ms[f'{mode}/{route}'] / path_ms:.0f}%) ({card})")
+    one = pl.make_processor(p, mode="fixed", cfar_geometry="hw_stream",
+                            peak_group_radius=2, include_maps=False,
+                            device=dev)
+    frame = iq[0]
+    _, hist = one.stream(frame)
+    stream_ms = cuda_ms(lambda: one.stream(frame, hist=hist), 10)
+    log(f"hw_stream process.stream (fixed auto): {stream_ms:.4f} ms a CPI; "
+        f"run_surveillance_stream {scans_per_s:.1f} scans/s ({card}); 27d "
+        f"{time.perf_counter() - t3:.1f} s")
+    return rows, {"frames_per_s": fps, "grouping_ms": group_ms,
+                  "entry": entry, "stream_ms_per_cpi": stream_ms,
+                  "runner_scans_per_s": scans_per_s,
+                  "launches": launches, "runner_launches": runner_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3546,7 +3958,12 @@ def main() -> int:
     # 26. The surveillance runtime on the card.
     surveillance = surveillance_phase(card, dev)
 
-    # 27. The kernels line.
+    # 27. The hw-compat streaming CFAR: the flat-stream entry against its
+    #     twin, the hw-stream routes and the streaming runner, timings.
+    log(f"phases 1-26: {time.perf_counter() - t_start:.1f} s")
+    hw_rows, hw_summary = hw_stream_phase(card, dev)
+
+    # 28. The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
                  source="fmcw_tpu_torch/csrc/range_fft.cu",
@@ -3558,7 +3975,8 @@ def main() -> int:
                          source="fmcw_tpu_torch/csrc/slowtime_detect.cu",
                          replaces=replaces, launches=launches[mode][1],
                          **results[f"slowtime_detect[{mode}]"]))
-    rows += fixed_rows + array_rows + split_rows + rank_rows + entry_rows
+    rows += (fixed_rows + array_rows + split_rows + rank_rows + entry_rows
+             + hw_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
@@ -3574,6 +3992,7 @@ def main() -> int:
                                       "sp": list(SPLIT_SPS)},
                     "nccl": nccl,
                     "surveillance": surveillance,
+                    "hw_stream": hw_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

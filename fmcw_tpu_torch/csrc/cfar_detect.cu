@@ -71,6 +71,27 @@
 // takes S = 1, a cell a thread.  Decisions and scales are bit-identical to
 // ops/cfar.cfar_2d on the same map; tests/test_torch_cfar_detect_plan.py
 // holds a numpy model of this plan against it.
+//
+// The flat-stream entry (fmcw_cfar_detect_flat) is _kernel_detect with
+// prepadded_range="both" (cfar_pallas.py:365-375), which only the hw-compat
+// streaming CFAR reaches (fmcw_tpu/ops/cfar.py::_hw_stream_decide_pallas):
+// the as-built detector's decisions on the stream's row-carry-baked padded
+// buffer, the CfarParams axes swapped (rows: the range axis under the
+// Doppler generics; lanes: the stream's Doppler axis under the range
+// generics).  It never materializes that buffer (74 MB at batch 128):
+// padded row e of frame b is the run of D + 2 hd stream cells from start0
+// + (e - hr) D - hd of the batch of ext streams (stride cells a frame), and
+// step 1 copies those overlapping runs straight into the tile, 16 bytes at
+// a time where the block's rows align, else 4 (the one-shot framing's rows
+// start 2 cells off a 16-byte boundary at the default window).  The tile's
+// rows then carry their column halo: pitch D + 2 hd (140 at 1024x128, a
+// compile-time constant for the default window), columns read unwrapped
+// (cfar_tile.cuh's walks with kWrap false), column sums taken over every
+// column of the decided rows.  Steps 2-4 are the whole-map entry's, so the
+// decisions are bit-identical to ops/cfar.hw_stream_decide_plain (the
+// twin's cfar_2d(prepadded_range="both")).  No block scale, no grouping:
+// the emission window, label roll and peak grouping stay outside, as they
+// are outside JAX's kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,6 +110,10 @@ struct CfarDetectConfig {
     int strip, packed;
     int pgr;            // grouping radius; -1: no grouping (det as decided)
     int float_max;      // int32 tiles within +-float_max count in float
+    // The flat-stream entry (flat = 1): the map is a batch of ext streams,
+    // frame b's at map + b * stride; padded row e of the tile is the
+    // stream cells [start0 + (e - hr) D - hd, ... + D + 2 hd).
+    int flat, start0, stride;
 };
 
 namespace {
@@ -102,13 +127,20 @@ struct Layout {
     int cs_full, cs_guard, det_s, rmax, counts, total;
 };
 
+// The tile's row pitch: D, or D + 2 hd for the flat-stream entry, whose
+// rows carry their column halo.
+__host__ __device__ inline int pitch(const CfarDetectConfig& c) {
+    return c.flat ? c.D + 2 * c.hd : c.D;
+}
+
 __host__ __device__ inline Layout layout(const CfarDetectConfig& c) {
     const int pg = c.pgr > 0 ? c.pgr : 0;
     const int rows = c.T + 2 * pg;              // decided rows
-    const int cs = (!c.block_mode && c.hr > 0) ? rows * c.D : 0;
+    const int P = pitch(c);
+    const int cs = (!c.block_mode && c.hr > 0) ? rows * P : 0;
     const bool group = c.pgr >= 0;
     Layout l;
-    l.cs_full = (c.T + 2 * (c.hr + pg)) * c.D;  // after the tile
+    l.cs_full = (c.T + 2 * (c.hr + pg)) * P;    // after the tile
     l.cs_guard = l.cs_full + cs;
     l.det_s = l.cs_guard + cs;
     l.rmax = l.det_s + (group ? rows * c.D : 0);
@@ -125,8 +157,10 @@ __device__ __forceinline__ int to_map(float v, int*) {
 
 // Steps 3-5 on a tile of type V (the map's, or float for an int32 tile
 // counted in float) with thresholds by Sem, storing in the map's type O.
+// kD: the tile's row pitch at compile time (0: at run time); kFlat: the
+// flat-stream entry (rows of D + 2 hd cells, columns unwrapped).
 template <typename V, typename Sem, typename O, int S, int HR, int GR,
-          bool kPacked, int kD>
+          bool kPacked, int kD, bool kFlat>
 __device__ __forceinline__ void decide_block(
         const V* tile, int* smem, const int* __restrict__ scale_in,
         O* __restrict__ det, int* __restrict__ scale_out,
@@ -135,7 +169,14 @@ __device__ __forceinline__ void decide_block(
     using A = typename Sem::Acc;
     using Cnt = fmcw::Count<V>;
     const Layout lay = layout(c);
-    const int D = kD > 0 ? kD : c.D;            // the tile's row pitch
+    const int P = kD > 0 ? kD : pitch(c);       // the tile's row pitch
+    const int D = kFlat ? c.D : P;              // the columns decided
+    const int off = kFlat ? c.hd : 0;           // tile column of column 0
+    // Tile column of window column d + j: unwrapped where the rows carry
+    // their halo, else modulo D.
+    auto wcol = [&](int d, int j) {
+        return kFlat ? off + d + j : fmcw::wrap_col(d + j, D);
+    };
     const int hr = HR > 0 ? HR : c.hr;
     const int gr = HR > 0 ? GR : c.gr;
     const bool group = c.pgr >= 0;
@@ -148,15 +189,17 @@ __device__ __forceinline__ void decide_block(
     const int units = (rows + S - 1) / S * D;   // strips x columns
 
     // 3. Column sums of the decided rows (decided row i: tile row hr + i;
-    //    its window's first row: tile row i).
-    const V* cs_full = tile + hr * D;
+    //    its window's first row: tile row i), over every column of the
+    //    tile's rows.
+    const V* cs_full = tile + hr * P;
     const V* cs_guard = cs_full;
     if (!c.block_mode && c.so == 0 && hr > 0) {
         V* f_s = reinterpret_cast<V*>(smem + lay.cs_full);
         V* g_s = reinterpret_cast<V*>(smem + lay.cs_guard);
-        for (int u = tid; u < units; u += kThreads) {
-            const int st = u / D;
-            const int d = u - st * D;
+        const int cs_units = (rows + S - 1) / S * P;
+        for (int u = tid; u < cs_units; u += kThreads) {
+            const int st = u / P;
+            const int d = u - st * P;
             const int i0 = min(st * S, rows - S);
             V f[S], gs[S];
 #pragma unroll
@@ -166,16 +209,16 @@ __device__ __forceinline__ void decide_block(
                 if (dr >= hr - gr && dr <= hr + gr)
                     gs[s] = fmcw::vadd(gs[s], v);
             };
-            const V* col = tile + i0 * D + d;
+            const V* col = tile + i0 * P + d;
             if constexpr (HR > 0)
-                fmcw::walk_rows_fixed<S, HR, GR, false>(col, D, add);
+                fmcw::walk_rows_fixed<S, HR, GR, false>(col, P, add);
             else
-                fmcw::walk_rows<S>(col, D, 2 * hr + 1,
+                fmcw::walk_rows<S>(col, P, 2 * hr + 1,
                                    [](int) { return true; }, add);
 #pragma unroll
             for (int s = 0; s < S; ++s) {
-                f_s[(i0 + s) * D + d] = f[s];
-                g_s[(i0 + s) * D + d] = gs[s];
+                f_s[(i0 + s) * P + d] = f[s];
+                g_s[(i0 + s) * P + d] = gs[s];
             }
         }
         cs_full = f_s;
@@ -191,7 +234,7 @@ __device__ __forceinline__ void decide_block(
         const int st = u / D;
         const int d = u - st * D;
         const int i0 = min(st * S, rows - S);
-        const V* row0 = tile + i0 * D;          // cell 0's window, column 0
+        const V* row0 = tile + i0 * P + off;    // cell 0's window, column 0
         int sc[S];
         if (c.so != 0) {
 #pragma unroll
@@ -215,27 +258,25 @@ __device__ __forceinline__ void decide_block(
             if constexpr (std::is_same_v<A, float>) {
 #pragma unroll
                 for (int s = 0; s < S; ++s) {
-                    const V* cf = cs_full + (i0 + s) * D;
-                    const V* cg = cs_guard + (i0 + s) * D;
+                    const V* cf = cs_full + (i0 + s) * P;
+                    const V* cg = cs_guard + (i0 + s) * P;
                     for (int j = -c.hd; j <= c.hd; ++j)
-                        full[s] = fmcw::vadd(full[s],
-                                             cf[fmcw::wrap_col(d + j, D)]);
+                        full[s] = fmcw::vadd(full[s], cf[wcol(d, j)]);
                     for (int j = -c.gd; j <= c.gd; ++j)
-                        guard[s] = fmcw::vadd(guard[s],
-                                              cg[fmcw::wrap_col(d + j, D)]);
+                        guard[s] = fmcw::vadd(guard[s], cg[wcol(d, j)]);
                 }
             } else {
                 for (int j = -c.hd; j <= c.hd; ++j) {
-                    const V* cf = cs_full + i0 * D + fmcw::wrap_col(d + j, D);
+                    const V* cf = cs_full + i0 * P + wcol(d, j);
 #pragma unroll
                     for (int s = 0; s < S; ++s)
-                        full[s] = fmcw::vadd(full[s], Sem::acc(cf[s * D]));
+                        full[s] = fmcw::vadd(full[s], Sem::acc(cf[s * P]));
                 }
                 for (int j = -c.gd; j <= c.gd; ++j) {
-                    const V* cg = cs_guard + i0 * D + fmcw::wrap_col(d + j, D);
+                    const V* cg = cs_guard + i0 * P + wcol(d, j);
 #pragma unroll
                     for (int s = 0; s < S; ++s)
-                        guard[s] = fmcw::vadd(guard[s], Sem::acc(cg[s * D]));
+                        guard[s] = fmcw::vadd(guard[s], Sem::acc(cg[s * P]));
                 }
             }
             V t_hi[S], t_lo[S];
@@ -247,8 +288,8 @@ __device__ __forceinline__ void decide_block(
                 Cnt hl[S];
 #pragma unroll
                 for (int s = 0; s < S; ++s) hl[s] = 0;
-                fmcw::walk_window_t<S, HR, GR>(
-                    row0, D, d, g, true, [&](int, int s, V v) {
+                fmcw::walk_window_t<S, HR, GR, !kFlat>(
+                    row0, P, d, g, true, [&](int, int s, V v) {
                         hl[s] = fmcw::count_hi_lo(hl[s], v, t_hi[s], t_lo[s]);
                     });
 #pragma unroll
@@ -261,8 +302,8 @@ __device__ __forceinline__ void decide_block(
                 Cnt hi[S], lo[S];
 #pragma unroll
                 for (int s = 0; s < S; ++s) hi[s] = lo[s] = 0;
-                fmcw::walk_window_t<S, HR, GR>(
-                    row0, D, d, g, true, [&](int, int s, V v) {
+                fmcw::walk_window_t<S, HR, GR, !kFlat>(
+                    row0, P, d, g, true, [&](int, int s, V v) {
                         hi[s] = fmcw::count_add(hi[s],
                                                 fmcw::is_gt(v, t_hi[s]));
                         lo[s] = fmcw::count_add(lo[s],
@@ -279,12 +320,12 @@ __device__ __forceinline__ void decide_block(
         Cnt cnt[S];
 #pragma unroll
         for (int s = 0; s < S; ++s) {
-            cut[s] = tile[(hr + i0 + s) * D + d];
+            cut[s] = tile[(hr + i0 + s) * P + off + d];
             q[s] = Sem::q(cut[s], sc[s]);
             cnt[s] = 0;
         }
-        fmcw::walk_window_t<S, HR, GR>(
-            row0, D, d, g, true, [&](int, int s, V v) {
+        fmcw::walk_window_t<S, HR, GR, !kFlat>(
+            row0, P, d, g, true, [&](int, int s, V v) {
                 cnt[s] = fmcw::count_add(cnt[s], fmcw::is_ge(v, q[s]));
             });
 #pragma unroll
@@ -300,7 +341,7 @@ __device__ __forceinline__ void decide_block(
             }
         }
     }
-    if (!group) return;
+    if (kFlat || !group) return;
     __syncthreads();
 
     // 5. Peak grouping of the stored rows, row maxima and the count (the
@@ -316,7 +357,8 @@ __device__ __forceinline__ void decide_block(
     if (tid == 0 && counts[0]) atomicAdd(&n_dets[b], counts[0]);
 }
 
-template <typename V, int S, int HR, int GR, bool kPacked, int kD>
+template <typename V, int S, int HR, int GR, bool kPacked, int kD,
+          bool kFlat>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
                    V* __restrict__ det, int* __restrict__ scale_out,
@@ -325,7 +367,7 @@ cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
     extern __shared__ int4 smem_v4[];
     int* smem = reinterpret_cast<int*>(smem_v4);
     V* tile = reinterpret_cast<V*>(smem);
-    const int D = kD > 0 ? kD : c.D;
+    const int D = kD > 0 ? kD : pitch(c);       // the tile's row pitch
     const int pg = c.pgr > 0 ? c.pgr : 0;
     const int H = c.hr + pg;                    // tile row of map row r0
     const int E = c.T + 2 * H;
@@ -333,7 +375,31 @@ cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
     const int tid = threadIdx.x;
 
     // 1. Map rows r0 - H .. r0 + T + H - 1, a warp a row.
-    {
+    if constexpr (kFlat) {
+        // Padded row r0 + e of frame b: D + 2 hd stream cells from
+        // start0 + (r0 + e - hr) c.D - hd.  Rows past the last padded row
+        // (R + 2 hr) are only read by decided rows past R: zeros.
+        const V* src0 = map + (size_t)blockIdx.y * c.stride +
+                        (c.start0 - c.hr * c.D - c.hd);
+        const int rows_in = c.R + 2 * c.hr;
+        const bool vec = (c.D & 3) == 0 && (D & 3) == 0 &&
+                         ((uintptr_t)src0 & 15) == 0;
+        const int lane = tid & 31;
+        for (int e = tid >> 5; e < E; e += kThreads / 32) {
+            V* dst = tile + (size_t)e * D;
+            const V* src = src0 + (size_t)(r0 + e) * c.D;
+            if (r0 + e >= rows_in) {
+                for (int i = lane; i < D; i += 32) dst[i] = V(0);
+            } else if (vec) {
+                for (int i = 4 * lane; i < D; i += 128)
+                    fmcw::cp_async16(dst + i, src + i);
+            } else {
+                for (int i = lane; i < D; i += 32)
+                    fmcw::cp_async4(dst + i, src + i);
+            }
+        }
+        asm volatile("cp.async.wait_all;" ::: "memory");
+    } else {
         const int rows_in = c.prepadded ? c.R + 2 * c.hr : c.R;
         const V* src0 = map + (size_t)blockIdx.y * rows_in * D;
         const bool vec = (D & 3) == 0 && ((uintptr_t)map & 15) == 0;
@@ -374,21 +440,23 @@ cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
             for (int i = tid; i < E * D; i += kThreads)
                 ft[i] = __int2float_rn(tile[i]);
             __syncthreads();
-            decide_block<float, fmcw::IntInFloat, V, S, HR, GR, kPacked, kD>(
-                ft, smem, scale_in, det, scale_out, row_max, n_dets, c);
+            decide_block<float, fmcw::IntInFloat, V, S, HR, GR, kPacked, kD,
+                         kFlat>(ft, smem, scale_in, det, scale_out, row_max,
+                                n_dets, c);
             return;
         }
     }
-    decide_block<V, fmcw::MapSem<V>, V, S, HR, GR, kPacked, kD>(
+    decide_block<V, fmcw::MapSem<V>, V, S, HR, GR, kPacked, kD, kFlat>(
         tile, smem, scale_in, det, scale_out, row_max, n_dets, c);
 }
 
-template <typename V, int S, int HR, int GR, bool kPacked, int kD = 0>
+template <typename V, int S, int HR, int GR, bool kPacked, int kD = 0,
+          bool kFlat = false>
 int launch_variant(const void* map, const void* scale_in, void* det,
                    void* scale_out, void* row_max, void* n_dets,
                    const CfarDetectConfig& c, cudaStream_t stream) {
     const size_t smem = (size_t)layout(c).total * 4;
-    auto* kernel = cfar_detect_kernel<V, S, HR, GR, kPacked, kD>;
+    auto* kernel = cfar_detect_kernel<V, S, HR, GR, kPacked, kD, kFlat>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -439,19 +507,59 @@ int launch(const void* map, const void* scale_in, void* det, void* scale_out,
                                             row_max, n_dets, c, s);
 }
 
+// The flat-stream entry's variants: the same choice, with only the
+// default hw-compat window (crossed: 5 rows, guard 1, 6 lanes) unrolled,
+// its pitch of 128 + 12 columns at compile time; every other window walks
+// its rows at run time (each unrolled variant costs build time).
+template <typename V>
+int launch_flat(const void* ext, void* det, void* scale_out,
+                const CfarDetectConfig& c, cudaStream_t s) {
+    constexpr int S = fmcw::kStrip;
+    if (c.strip == 1)
+        return launch_variant<V, 1, 0, 0, false, 0, true>(
+            ext, nullptr, det, scale_out, nullptr, nullptr, c, s);
+    if (!c.packed)
+        return launch_variant<V, S, 0, 0, false, 0, true>(
+            ext, nullptr, det, scale_out, nullptr, nullptr, c, s);
+    if (c.hr == 5 && c.gr == 1 && pitch(c) == 140)
+        return launch_variant<V, S, 5, 1, true, 140, true>(
+            ext, nullptr, det, scale_out, nullptr, nullptr, c, s);
+    return launch_variant<V, S, 0, 0, true, 0, true>(
+        ext, nullptr, det, scale_out, nullptr, nullptr, c, s);
+}
+
+// The checks both kinds of entry share.
+bool config_ok(const CfarDetectConfig& c) {
+    return c.batch >= 1 && c.batch <= 65535 && c.R >= 1 && c.D >= 1 &&
+           c.T >= 1 && c.hr >= c.gr && c.hd >= c.gd && c.gr >= 0 &&
+           c.gd >= 0 && c.so >= 0 && c.k >= 1 && c.k <= c.n_ref &&
+           c.float_max >= 0 && c.float_max < (1 << 23) &&
+           (c.strip == 1 || (c.strip == fmcw::kStrip && c.T >= c.strip)) &&
+           !(c.packed && (c.strip == 1 ||
+                          c.n_ref > fmcw::kMaxPackedRef<float>)) &&
+           (size_t)layout(c).total * 4 <= 227 * 1024;
+}
+
+int run_flat(const void* ext, void* det, void* scale_out,
+             const CfarDetectConfig& c, void* stream) {
+    // Every padded row lies inside its frame's ext stream.
+    const long lo = (long)c.start0 - (long)c.hr * c.D - c.hd;
+    const long hi = (long)c.start0 + (long)(c.R + c.hr) * c.D + c.hd;
+    if (!config_ok(c) || c.flat != 1 || c.block_mode || c.prepadded ||
+        c.pgr != -1 || lo < 0 || hi > c.stride)
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = (cudaStream_t)stream;
+    return c.integer ? launch_flat<int>(ext, det, scale_out, c, s)
+                     : launch_flat<float>(ext, det, scale_out, c, s);
+}
+
 int run(const void* map, const void* scale_in, void* det, void* scale_out,
         void* row_max, void* n_dets, const CfarDetectConfig& c,
         void* stream) {
     const bool group = c.pgr >= 0;
-    if (c.batch < 1 || c.batch > 65535 || c.R < 1 || c.D < 1 || c.T < 1 ||
-        c.hd >= c.D || c.hr < c.gr || c.hd < c.gd || c.gr < 0 || c.gd < 0 ||
-        c.so < 0 || c.k < 1 || c.k > c.n_ref || c.float_max < 0 ||
-        c.float_max >= (1 << 23) ||
-        !(c.strip == 1 || (c.strip == fmcw::kStrip && c.T >= c.strip)) ||
-        (c.packed && (c.strip == 1 || c.n_ref > fmcw::kMaxPackedRef<float>)) ||
-        c.pgr < -1 || (group && (c.prepadded || row_max == nullptr ||
-                                 n_dets == nullptr)) ||
-        (size_t)layout(c).total * 4 > 227 * 1024 ||
+    if (!config_ok(c) || c.flat != 0 || c.hd >= c.D || c.pgr < -1 ||
+        (group && (c.prepadded || row_max == nullptr ||
+                   n_dets == nullptr)) ||
         (c.block_mode && scale_in == nullptr))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
@@ -486,4 +594,19 @@ extern "C" int fmcw_cfar_detect_group(const void* map, const void* scale_in,
                                       void* stream) {
     if (cfg->pgr < 0) return (int)cudaErrorInvalidValue;
     return run(map, scale_in, det, scale_out, row_max, n_dets, *cfg, stream);
+}
+
+// The flat-stream entry (the hw-compat streaming CFAR, flat = 1): ext
+// int32 (integer != 0) or float32, batch streams of stride cells, frame b's
+// at ext + b * stride; decides the R x D stream cells from start0 (decision
+// order) with the crossed window as named-axis hr/hd/gr/gd (rows: the
+// range axis; lanes: the stream's Doppler axis), no wrap on either axis:
+// every window reads its halo from the stream, row carry included.  det:
+// the stream's type (batch, R, D); scale_out: int32 (batch, R, D).  No
+// block scale, no grouping, not prepadded.
+extern "C" int fmcw_cfar_detect_flat(const void* ext, void* det,
+                                     void* scale_out,
+                                     const CfarDetectConfig* cfg,
+                                     void* stream) {
+    return run_flat(ext, det, scale_out, *cfg, stream);
 }

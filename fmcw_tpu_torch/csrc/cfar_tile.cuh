@@ -222,13 +222,16 @@ __device__ __forceinline__ void walk_training_fixed(const V* row0, int D,
 // walk_training_fixed with the guard box optional: with guard false every
 // row of every window column is walked (the beam planes of a 3D window
 // outside its guard planes, cfar_3d_detect.cu).  row0: the window's first
-// row, column 0.
-template <int S, int HR, int GR, typename V, typename Visit>
+// row, column 0.  kWrap false: the tile's rows carry the column halo (the
+// flat-stream entry of cfar_detect.cu), D is only their pitch and column
+// d + dd is read at row0 + d + dd, unwrapped.
+template <int S, int HR, int GR, bool kWrap = true, typename V,
+          typename Visit>
 __device__ __forceinline__ void walk_window_fixed(const V* row0, int D, int d,
                                                   const CfarGeom& g,
                                                   bool guard, Visit visit) {
     for (int dd = -g.hd; dd <= g.hd; ++dd) {
-        const V* col = row0 + wrap_col(d + dd, D);
+        const V* col = row0 + (kWrap ? wrap_col(d + dd, D) : d + dd);
         if (guard && dd >= -g.gd && dd <= g.gd)
             walk_rows_fixed<S, HR, GR, true>(col, D, visit);
         else
@@ -237,13 +240,14 @@ __device__ __forceinline__ void walk_window_fixed(const V* row0, int D, int d,
 }
 
 // The same for a window whose rows are known at run time only.
-template <int S, typename V, typename Visit>
+template <int S, bool kWrap = true, typename V, typename Visit>
 __device__ __forceinline__ void walk_window(const V* row0, int D, int d,
                                             const CfarGeom& g, bool guard,
                                             Visit visit) {
     for (int dd = -g.hd; dd <= g.hd; ++dd) {
         const bool gcol = guard && dd >= -g.gd && dd <= g.gd;
-        walk_rows<S>(row0 + wrap_col(d + dd, D), D, 2 * g.hr + 1,
+        walk_rows<S>(row0 + (kWrap ? wrap_col(d + dd, D) : d + dd), D,
+                     2 * g.hr + 1,
                      [&](int dr) {
                          return !(gcol && dr >= g.hr - g.gr &&
                                   dr <= g.hr + g.gr);
@@ -255,14 +259,15 @@ __device__ __forceinline__ void walk_window(const V* row0, int D, int d,
 // walk_window_fixed where the window's rows are template constants (HR >
 // 0), else walk_window: the kernels' variants pick the walk at compile
 // time.
-template <int S, int HR, int GR, typename V, typename Visit>
+template <int S, int HR, int GR, bool kWrap = true, typename V,
+          typename Visit>
 __device__ __forceinline__ void walk_window_t(const V* row0, int D, int d,
                                               const CfarGeom& g, bool guard,
                                               Visit visit) {
     if constexpr (HR > 0)
-        walk_window_fixed<S, HR, GR>(row0, D, d, g, guard, visit);
+        walk_window_fixed<S, HR, GR, kWrap>(row0, D, d, g, guard, visit);
     else
-        walk_window<S>(row0, D, d, g, guard, visit);
+        walk_window<S, kWrap>(row0, D, d, g, guard, visit);
 }
 
 // Counts over the training cells of a strip's windows: for each window

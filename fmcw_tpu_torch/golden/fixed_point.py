@@ -19,6 +19,10 @@ the corresponding VHDL component of the reference design:
   ``block_scale_map`` (the clutter-map scale, no VHDL counterpart)
 * ``peak_group`` / ``extract_detections`` - grouping and stream-order list
 * ``_window_offsets``                   <- rtl/src/os_cfar_2d.vhd:155-167
+* ``os_cfar_2d_hw_stream``              <- rtl/src/os_cfar_2d.vhd +
+  rtl/src/radar_core.vhd:396-418 (the AS-BUILT streaming CFAR: crossed-axis
+  window over the flat stream, startup skip, label offset, line buffer
+  carried across frames), with ``_hw_stream_offsets`` and ``hw_stream_lag``
 """
 
 from __future__ import annotations
@@ -332,6 +336,133 @@ def os_cfar_2d(mag_map: np.ndarray, cfar: CfarParams, scale_override: int = 0,
     if return_debug:
         return out, threshold, scale
     return out
+
+
+def _hw_stream_offsets(cfar: CfarParams):
+    """Flat-stream training-cell offsets of the AS-BUILT streaming CFAR.
+
+    The reference's streaming implementation has a crossed-axis geometry
+    (SURVEY.md §2a): the stream into the CFAR is range-major (one Doppler row
+    per tlast, rtl/src/radar_core.vhd:396-411), its line buffer steps one
+    *range row* per wrap of WIN_DOPPLER rows, and its along-stream shift
+    register spans the *Doppler* axis — so window(d, r) holds the cell at
+    flat-stream offset (d - CUT_D)*N_DOPPLER + (CUT_R - r) from the CUT
+    (rtl/src/os_cfar_2d.vhd:50-57,118-147).  Net: the REF_DOPPLER/
+    GUARD_DOPPLER generics govern the range axis and REF_RANGE/GUARD_RANGE
+    the along-stream (Doppler) axis, and the Doppler-axis neighborhood runs
+    across row boundaries as a flat stream (cell (r, 0)'s left neighbor is
+    (r-1, D-1), not (r, D-1)).
+
+    Returns (row_delta, stream_delta) pairs in the hardware gather order
+    (os_cfar_2d.vhd:155-167): row_delta steps the range axis in units of
+    one Doppler row, stream_delta steps along the flat stream.
+    """
+    offs = []
+    for d in range(cfar.win_doppler):       # line-buffer rows == RANGE axis
+        for r in range(cfar.win_range):     # along-stream   == DOPPLER axis
+            if (abs(d - cfar.halo_doppler) <= cfar.guard_doppler
+                    and abs(r - cfar.halo_range) <= cfar.guard_range):
+                continue
+            offs.append((d - cfar.halo_doppler, cfar.halo_range - r))
+    assert len(offs) == cfar.n_ref
+    return offs
+
+
+def hw_stream_lag(cfar: CfarParams, n_doppler: int) -> int:
+    """How far the streaming CFAR's CUT trails the input sample, in flat
+    stream cells: (CUT_D + 1)*N_DOPPLER + CUT_R.  The window holds rows
+    R-WIN_DOPPLER..R-1 (the current sample never enters its own cycle's
+    window — VHDL signal semantics: the line-buffer write at os_cfar_2d.vhd:120
+    commits after the read at :145), so the CUT sits CUT_D + 1 rows behind.
+    The startup skip STARTUP_DELAY = lag + 2 (os_cfar_2d.vhd:66-68) and the
+    2-deep valid/data pipelines (:207-227) then place the first emitted
+    output at flat cell index 3 for *every* geometry."""
+    return (cfar.halo_doppler + 1) * n_doppler + cfar.halo_range
+
+
+def os_cfar_2d_hw_stream(frames: np.ndarray, cfar: CfarParams,
+                         scale_override: int = 0, return_debug: bool = False):
+    """Bit-exact model of the AS-BUILT streaming 2D CFAR + detection labeler
+    (rtl/src/os_cfar_2d.vhd + rtl/src/radar_core.vhd:396-418) — the opt-in
+    hw-compat mode (docs/design_notes.md §4).  Differences from the named-axis
+    ``os_cfar_2d``:
+
+    * crossed-axis window geometry over the flat range-major stream
+      (``_hw_stream_offsets``), with the Doppler-axis window running across
+      row boundaries instead of wrapping within the row;
+    * cells before the stream start read as 0 (the zero-initialized line
+      buffer), and consecutive frames bleed into each other's windows (the
+      line buffer persists across frames);
+    * the startup skip drops the first 3 cells and the final ``lag`` cells
+      of the stream are never emitted (they would be emitted while the
+      *next* frame streams in);
+    * detection coordinates carry the as-built label offset: the hardware's
+      doppler-fast output counter starts at the first *emitted* cell, so
+      label_flat = (true_flat - 3) mod frame_size — true positions sit 3
+      Doppler bins (with carry into the next range row) above their labels.
+
+    ``frames``: one (R, D) map or a (n_frames, R, D) stack processed as one
+    continuous multi-frame stream (the steady-state hardware behavior: each
+    frame's head cells re-label the previous frame's tail).
+
+    Returns (label_range, label_doppler, mag) detection arrays in emission
+    order; with ``return_debug`` a dict adding the emitted CUT flat positions
+    (``cells``), per-output threshold/scale/mean/est and the zero-suppressed
+    output stream (``out``) for bit-level stream comparison.
+    """
+    f = np.asarray(frames, dtype=np.int64)
+    if f.ndim == 2:
+        f = f[None]
+    n_frames, R, D = f.shape
+    if cfar.scale_mode != "cell":
+        raise ValueError("hw-compat streaming CFAR is per-cell by definition")
+    stream = f.reshape(-1)
+    S = stream.size
+    lag = hw_stream_lag(cfar, D)
+    frame_size = R * D
+    cs = np.arange(3, S - lag)          # emitted CUT flat positions
+    offs = np.array([dr * D + dc for dr, dc in _hw_stream_offsets(cfar)],
+                    dtype=np.int64)
+
+    n = len(cs)
+    thr = np.empty(n, dtype=np.int64)
+    scl = np.empty(n, dtype=np.int64)
+    est_a = np.empty(n, dtype=np.int64)
+    mean_a = np.empty(n, dtype=np.int64)
+    # Chunked over the stream to bound the (chunk, n_ref) gather.
+    chunk = max(1, (1 << 22) // max(1, cfar.n_ref))
+    for lo in range(0, n, chunk):
+        c = cs[lo: lo + chunk]
+        idx = c[:, None] + offs[None, :]
+        vals = np.where(idx >= 0, stream[np.maximum(idx, 0)], 0)
+        s = vals.sum(axis=1)
+        ranked = np.partition(vals, cfar.rank_idx, axis=1)[:, cfar.rank_idx]
+        mean = s // cfar.n_ref          # truncating (os_cfar_2d.vhd:189)
+        if scale_override != 0:
+            sc = np.full(len(c), int(scale_override), dtype=np.int64)
+        else:
+            hi = ranked > mean + (mean >> 1)
+            lo_ = ranked < (mean >> 1)
+            sc = np.where(hi, cfar.scale_max,
+                          np.where(lo_, cfar.scale_min, cfar.scale_nom))
+        sl = slice(lo, lo + len(c))
+        thr[sl] = ranked * sc
+        scl[sl] = sc
+        est_a[sl] = ranked
+        mean_a[sl] = mean
+
+    mag = stream[cs]
+    det = mag > thr
+    labels = (cs - 3) % frame_size
+    if return_debug:
+        return {
+            "cells": cs, "labels": labels, "mag": mag,
+            "threshold": thr, "scale": scl, "est": est_a, "mean": mean_a,
+            "det": det, "out": np.where(det, mag, 0),
+            "label_range": labels // D, "label_doppler": labels % D,
+        }
+    lr, ld = labels[det] // D, labels[det] % D
+    return lr, ld, mag[det]
 
 
 def peak_group(det_map: np.ndarray, radius: int = 1) -> np.ndarray:

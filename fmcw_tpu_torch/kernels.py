@@ -56,7 +56,7 @@ class CfarDetectConfig(ctypes.Structure):
         "hr", "hd", "gr", "gd", "n_ref", "k",
         "scale_min", "scale_nom", "scale_max",
         "block_mode", "so", "integer", "prepadded",
-        "strip", "packed", "pgr", "float_max")]
+        "strip", "packed", "pgr", "float_max", "flat", "start0", "stride")]
 
 
 class CfarRankConfig(ctypes.Structure):
@@ -226,6 +226,9 @@ def load() -> ctypes.CDLL:
     lib.fmcw_cfar_detect_group.argtypes = [vp] * 6 + [
         ctypes.POINTER(CfarDetectConfig), vp]
     lib.fmcw_cfar_detect_group.restype = ci
+    lib.fmcw_cfar_detect_flat.argtypes = [vp] * 3 + [
+        ctypes.POINTER(CfarDetectConfig), vp]
+    lib.fmcw_cfar_detect_flat.restype = ci
     lib.fmcw_cfar_3d_detect.argtypes = [vp] * 3 + [
         ctypes.POINTER(Cfar3dConfig), vp]
     lib.fmcw_cfar_3d_detect.restype = ci

@@ -73,10 +73,25 @@ twins.  "auto" is "fused": a
 shape the kernels cannot take raises their ``NotImplementedError`` at the
 first call on the card and never falls back to the plain transforms.
 
+``cfar_geometry="hw_stream"`` reproduces the reference's as-built streaming
+CFAR (crossed-axis window over the flat range-major stream, startup skip,
+the -3-cell label offset, the line buffer carried across frames; golden
+``os_cfar_2d_hw_stream`` is its oracle): the route's magnitudes (float32
+"fused": kernel A and kernel B's magnitude-only entry; "staged" and fixed:
+the plain stages), then the flat-stream entry of ``csrc/cfar_detect.cu``
+(``ops/cfar_detect.cfar_detect_hw_stream``; on "plain" its twin) framed by
+``ops/cfar.cfar_2d_hw_stream``, the plain ``peak_group`` in decision order,
+the roll into label space and the top-K, in JAX's order.  Each frame of a
+batch is its own one-shot stream; ``process.stream`` carries the line
+buffer (``hist``) from one CPI to the next.  Its debug taps are the
+decisions' scale and the plain order statistic over the flat-stream views
+(as JAX's XLA method), not the rank-select kernel.  Per-cell OS only, and no
+fused fixed route (``ValueError``, as JAX).
+
 Not yet ported (they raise ``NotImplementedError``, ROADMAP.md): the
-CA/GO/SO variants and reflect edges, ``fixed_fft="scaled"``,
-``cfar_geometry="hw_stream"``, on the kernels long CPIs (n_doppler > 128).
-The sharded processors are in ``parallel/sharded.py``.
+CA/GO/SO variants and reflect edges, ``fixed_fft="scaled"``, on the
+kernels long CPIs (n_doppler > 128).  The sharded processors are in
+``parallel/sharded.py``.
 """
 
 from __future__ import annotations
@@ -92,7 +107,8 @@ from ..ops import beamform as BF, cfar as C, detect as DET
 from ..ops import frontend as F, frontend_fixed as FX
 from ..ops.beam_group import beam_group, beam_group_plain
 from ..ops.cfar3d_detect import cfar3d_detect, cfar3d_detect_plain
-from ..ops.cfar_detect import cfar_detect_group
+from ..golden.fixed_point import hw_stream_lag
+from ..ops.cfar_detect import cfar_detect_group, cfar_detect_hw_stream
 from ..ops.cfar_rank import cfar_rank_group, cfar_rank_plain, debug_bits
 from ..ops.fft import dft_apply, doppler_apply
 from ..ops.frontend import rdm_frontend_detect
@@ -181,6 +197,10 @@ def make_batch_processor(params: RadarParams | None = None,
     key bits their float per-cell rank select walks: 16 or None = exact).
     ``window_rounding`` ("unbiased" or the reference's "biased") applies to
     fixed mode, ``magnitude_exact`` to float32, as in JAX.
+    ``cfar_geometry``: "named" or "hw_stream" (the module docstring; the
+    detections and det_map at the hardware's label coordinates), which also
+    gives the callable ``stream(iq, mti_bypass=False, scale_override=0,
+    hist=None) -> (out, hist)`` for a batch of continuous streams.
     """
     p = params or RadarParams()
     dev = resolve_device(device)
@@ -193,15 +213,19 @@ def make_batch_processor(params: RadarParams | None = None,
         raise NotImplementedError(
             "fixed_fft='scaled' (the stage-scaled XFFT arithmetic) is not "
             "ported yet (ROADMAP.md)")
-    if cfar_geometry != "named":
-        if cfar_geometry != "hw_stream":
-            raise ValueError(f"cfar_geometry must be 'named' or 'hw_stream', "
-                             f"got {cfar_geometry!r}")
-        raise NotImplementedError(
-            "cfar_geometry='hw_stream' (the as-built streaming CFAR) is not "
-            "ported yet (ROADMAP.md)")
+    if cfar_geometry not in ("named", "hw_stream"):
+        raise ValueError(f"cfar_geometry must be 'named' or 'hw_stream', got "
+                         f"{cfar_geometry!r}")
+    hw = cfar_geometry == "hw_stream"
     route = resolve_frontend(mode, frontend)
-    C.check_supported(p.cfar)
+    if hw:
+        C.check_hw_stream(p.cfar)
+        if mode == "fixed" and route == "fused":
+            raise ValueError("cfar_geometry='hw_stream' has no fused fixed "
+                             "kernel; use frontend='auto' or 'staged' with "
+                             "mode='fixed'")
+    else:
+        C.check_supported(p.cfar)
     if mode == "fixed":
         check_notch(p.notch_mode, mti_transient)
         window_rounding_constant(p.coef_width, window_rounding)
@@ -214,6 +238,9 @@ def make_batch_processor(params: RadarParams | None = None,
                 "(fused_fixed_detect_supported)")
     max_dets = p.tracker.max_dets
     bits = debug_bits(p.cfar, mode == "fixed", cfar_rank_bits)
+    hlen = 2 * hw_stream_lag(p.cfar, p.n_doppler)
+    decide = (C.hw_stream_decide_plain if route == "plain"
+              else cfar_detect_hw_stream)
 
     def magnitudes(iq, bypass):
         """The route's magnitude maps for the standalone CFAR: (mag,
@@ -239,7 +266,23 @@ def make_batch_processor(params: RadarParams | None = None,
         return (mag, zeros,
                 (~torch.isfinite(mag)).sum(dim=(-2, -1)).to(torch.int32))
 
-    def process(iq, mti_bypass=False, scale_override=0) -> dict:
+    def hw_stream(iq, bypass, so, hist, streaming):
+        """The hw-compat streaming CFAR on the route's magnitudes: the
+        decisions (the kernel's flat-stream entry, or its twin on
+        "plain"), the plain grouping in decision order, then the roll
+        into label space (JAX's order)."""
+        mag, sat, nonfinite = magnitudes(iq, bypass)
+        det, threshold, scale, *carry = C.cfar_2d_hw_stream(
+            mag, so, cfar=p.cfar, integer=mode == "fixed", hist=hist,
+            streaming=streaming, need_debug=include_debug, label_roll=False,
+            decide=decide)
+        det = C.peak_group(det, peak_group_radius)
+        shift = C.hw_stream_label_shift(p.cfar, p.n_doppler, streaming)
+        det = torch.roll(det.reshape(det.shape[0], -1), -shift,
+                         dims=-1).reshape(det.shape)
+        return det, mag, sat, nonfinite, threshold, scale, carry
+
+    def run(iq, mti_bypass, scale_override, hist=None, streaming=False):
         if tuple(iq.shape[1:]) != (p.n_doppler, p.n_range, 2):
             raise ValueError(
                 f"expected iq batch of shape (batch, {p.n_doppler}, "
@@ -247,7 +290,11 @@ def make_batch_processor(params: RadarParams | None = None,
         iq = torch.as_tensor(iq).to(dev)
         bypass, so = bool(mti_bypass), int(scale_override)
         row_max = n_dets = None
-        if route == "staged" or include_debug:
+        carry = []
+        if hw:
+            det, mag, sat, nonfinite, threshold, scale, carry = hw_stream(
+                iq, bypass, so, hist, streaming)
+        elif route == "staged" or include_debug:
             mag, sat, nonfinite = magnitudes(iq, bypass)
             if include_debug and route != "plain":
                 det, threshold, scale, row_max, n_dets = cfar_rank_group(
@@ -286,27 +333,67 @@ def make_batch_processor(params: RadarParams | None = None,
             out["threshold_map"] = threshold
             # The map's type, as JAX's tap (float32 or fixed mode's int32).
             out["scale_map"] = scale.to(mag.dtype)
-        return out
+        return out, carry
 
+    def process(iq, mti_bypass=False, scale_override=0) -> dict:
+        return run(iq, mti_bypass, scale_override)[0]
+
+    if hw:
+        def stream(iq, mti_bypass=False, scale_override=0, hist=None):
+            """One CPI of each of a batch of continuous hw-compat streams:
+            ``hist`` (batch, 2 lag) is the previous call's carry (None:
+            each stream's first frame, a zero line buffer and the startup
+            skip).  Returns (out, hist): out covers the hardware's outputs
+            for this frame's input window (the previous frame's tail,
+            re-labelled, and this frame's head), det_map at label
+            coordinates; hist in the map's type, on the device."""
+            if hist is not None:
+                hist = torch.as_tensor(hist, device=dev)
+                if tuple(hist.shape) != (iq.shape[0], hlen):
+                    raise ValueError(f"expected hist of shape "
+                                     f"({iq.shape[0]}, {hlen}), got "
+                                     f"{tuple(hist.shape)}")
+            out, carry = run(iq, mti_bypass, scale_override, hist, True)
+            return out, carry[0]
+
+        process.stream = stream
     return process
 
 
 def make_processor(params: RadarParams | None = None, **kw) -> Callable:
     """Single-frame processor: ``fn(iq, mti_bypass=False, scale_override=0)``
     with iq int16 (n_doppler, n_range, 2); the keywords and outputs of
-    ``make_batch_processor`` without the batch axis."""
+    ``make_batch_processor`` without the batch axis.  With
+    ``cfar_geometry="hw_stream"`` also ``fn.stream(iq, mti_bypass=False,
+    scale_override=0, hist=None) -> (out, hist)``, the continuous-stream
+    call (``fmcw_tpu.models.pipeline.make_processor``'s
+    ``process.stream``): ``hist`` the previous call's carry (2 lag cells),
+    None for the stream's first frame."""
     p = params or RadarParams()
     batched = make_batch_processor(p, **kw)
 
-    def process(iq, mti_bypass=False, scale_override=0) -> dict:
+    def check(iq):
         # Strict single-frame shape: a batch would pass a trailing-dims check.
         if tuple(iq.shape) != (p.n_doppler, p.n_range, 2):
             raise ValueError(
                 f"expected iq frame of shape (n_doppler={p.n_doppler}, "
                 f"n_range={p.n_range}, 2), got {tuple(iq.shape)}")
+
+    def process(iq, mti_bypass=False, scale_override=0) -> dict:
+        check(iq)
         out = batched(iq[None], mti_bypass, scale_override)
         return {k: v[0] for k, v in out.items()}
 
+    if hasattr(batched, "stream"):
+        def stream(iq, mti_bypass=False, scale_override=0, hist=None):
+            check(iq)
+            if hist is not None:
+                hist = torch.as_tensor(hist).reshape(1, -1)
+            out, hist = batched.stream(iq[None], mti_bypass, scale_override,
+                                       hist)
+            return {k: v[0] for k, v in out.items()}, hist[0]
+
+        process.stream = stream
     return process
 
 

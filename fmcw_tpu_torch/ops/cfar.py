@@ -44,14 +44,26 @@ The array model's pieces: ``cfar_3d`` (the angle-extended CFAR over
 (..., A, R, D) beam cubes, the plain twin of ``csrc/cfar_3d_detect.cu``, its
 training-set sum in that kernel's order) and ``peak_group_beams`` (cross-beam
 grouping, the plain twin of ``csrc/beam_group.cu``).
+
+The hw-compat streaming CFAR (``cfar_geometry="hw_stream"``, port of
+``fmcw_tpu/ops/cfar.cfar_2d_hw_stream``): ``cfar_2d_hw_stream`` frames one
+map or a batch of maps as flat streams (``[hist or zeros, frame, zeros]``),
+decides every cell on the stream's row-carry-baked padded buffer with the
+axes swapped (``hw_stream_decide_plain``: ``cfar_2d(prepadded_range=
+"both")``, the plain twin of ``csrc/cfar_detect.cu``'s flat-stream entry),
+then applies the emission window, the label roll and the line-buffer
+carry.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..params import CfarParams
-from ..golden.fixed_point import _window_offsets
+from ..golden.fixed_point import (_hw_stream_offsets, _window_offsets,
+                                  hw_stream_lag)
 
 
 def _wrap_pad(m: torch.Tensor, hr: int, hd: int) -> torch.Tensor:
@@ -274,7 +286,7 @@ def percell_thresholds(p: torch.Tensor, cfar: CfarParams):
 def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
             cfar: CfarParams = CfarParams(), need_debug: bool = False,
             scale_map: torch.Tensor | None = None,
-            prepadded_range: bool = False):
+            prepadded_range: bool | str = False):
     """2D OS-CFAR over (..., R, D) magnitude maps, float32 or integer.
 
     Returns ``(det, threshold, scale)``: the zero-suppressed detection map
@@ -289,12 +301,20 @@ def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
     ``prepadded_range``: the map carries ``halo_range`` extra rows on each
     side (a range shard with its neighbours' rows) and the range axis does
     not wrap; the outputs have the unpadded rows.  Block scale then needs
-    ``scale_map`` (``block_scale_map_sharded``), as in JAX."""
+    ``scale_map`` (``block_scale_map_sharded``), as in JAX.  ``"both"``:
+    the map carries the halos of both axes, (..., R + 2 halo_range, D + 2
+    halo_doppler), and neither axis wraps (per-cell scale only; the
+    hw-compat streaming CFAR's padded buffer, ``hw_stream_decide_plain``)."""
     check_supported(cfar)
     hr, hd = cfar.halo_range, cfar.halo_doppler
     m = _as_map(mag)
     integer = not m.is_floating_point()
-    if prepadded_range:
+    if prepadded_range == "both":
+        if cfar.scale_mode != "cell":
+            raise ValueError("prepadded_range='both' takes the per-cell scale")
+        p = m
+        m = m[..., hr:m.shape[-2] - hr, hd:m.shape[-1] - hd]
+    elif prepadded_range:
         p = _wrap_pad(m, 0, hd)
         m = m[..., hr:m.shape[-2] - hr, :]
     else:
@@ -530,3 +550,161 @@ def peak_group_beams(det: torch.Tensor, radius: int = 1,
         nb = torch.where(valid, nb, torch.zeros_like(nb))
         keep &= (m > nb) if o < 0 else (m >= nb)
     return torch.where(keep, m, torch.zeros_like(m))
+
+
+# ---------------------------------------------------------------------------
+# The hw-compat streaming CFAR (the as-built os_cfar_2d.vhd)
+# ---------------------------------------------------------------------------
+
+def check_hw_stream(cfar: CfarParams) -> None:
+    if cfar.variant != "os" or cfar.scale_mode != "cell":
+        raise ValueError(
+            "the hw-compat streaming CFAR reproduces the as-built hardware "
+            "detector: per-cell OS variant only (os_cfar_2d.vhd has no "
+            "CA/GO/SO or block-scale counterpart)")
+
+
+def hw_stream_params(cfar: CfarParams) -> CfarParams:
+    """The crossed geometry as named-axis CfarParams over the padded
+    buffer's rows (the range axis, governed by the Doppler generics) and
+    lanes (the stream's Doppler axis, governed by the range generics)."""
+    return dataclasses.replace(cfar, ref_range=cfar.ref_doppler,
+                               ref_doppler=cfar.ref_range,
+                               guard_range=cfar.guard_doppler,
+                               guard_doppler=cfar.guard_range)
+
+
+def hw_stream_padded(ext: torch.Tensor, start0: int, R: int, D: int,
+                     cfar: CfarParams) -> torch.Tensor:
+    """The row-carry-baked padded buffer of ``fmcw_tpu/ops/cfar.
+    _hw_stream_decide_pallas`` as a view of the ext streams (..., L):
+    (..., R + 2 Hr, D + 2 Hd), row e the stream cells [base + e D - Hd,
+    base + e D + D + Hd), base = start0 - Hr D, with Hr = halo_doppler
+    rows and Hd = halo_range lanes (the crossed axes).  A padded lane j < 0
+    of row r is lane D + j of row r - 1: the flat stream's row carry."""
+    hr, hd = cfar.halo_doppler, cfar.halo_range
+    lo = start0 - hr * D - hd
+    if lo < 0 or start0 + (R + hr) * D + hd > ext.shape[-1]:
+        raise ValueError(f"ext streams of {ext.shape[-1]} cells do not hold "
+                         f"the windows of {R}x{D} cells from {start0}")
+    return ext[..., lo:].unfold(-1, D + 2 * hd, D)[..., :R + 2 * hr, :]
+
+
+def check_hw_stream_ext(ext: torch.Tensor, integer: bool) -> None:
+    want = torch.int32 if integer else torch.float32
+    if ext.dtype != want:
+        raise ValueError(f"integer={integer} takes {want} ext streams, got "
+                         f"{ext.dtype}")
+
+
+def hw_stream_decide_plain(ext: torch.Tensor, start0: int, R: int, D: int,
+                           scale_override: int = 0, *, cfar: CfarParams,
+                           integer: bool):
+    """Plain twin of ``csrc/cfar_detect.cu``'s flat-stream entry: the
+    per-cell decisions of R x D stream cells from ``start0`` of the ext
+    streams (..., L) (int32 for ``integer``, else float32), by counting on
+    ``hw_stream_padded`` with ``hw_stream_params`` — ``cfar_2d``'s mean (box
+    sums of column sums) and counts.  Returns ``(det, scale)``, each (...,
+    R, D) in decision (true-cell) order: det in the stream's type, scale
+    int32 (``scale_override`` folded in)."""
+    check_hw_stream(cfar)
+    check_hw_stream_ext(ext, integer)
+    det, _, scale = cfar_2d(hw_stream_padded(ext, start0, R, D, cfar),
+                            scale_override, hw_stream_params(cfar),
+                            prepadded_range="both")
+    return det, scale
+
+
+def _hw_stream_est(ext: torch.Tensor, start0: int, S: int, D: int,
+                   cfar: CfarParams) -> torch.Tensor:
+    """The order statistic over the n_ref flat-stream views (the
+    dbg_threshold tap's est, ``_hw_stream_decide_xla``), a frame at a time:
+    a full-size frame stacks S x n_ref values (64 MiB at 1024x128)."""
+    offs = [dr * D + dc for dr, dc in _hw_stream_offsets(cfar)]
+    k = cfar.n_ref - cfar.rank_idx
+    *lead, L = ext.shape
+    flat = ext.reshape(-1, L)
+    out = torch.empty((flat.shape[0], S), dtype=ext.dtype, device=ext.device)
+    for b in range(flat.shape[0]):
+        refs = torch.stack([flat[b, start0 + o:start0 + o + S] for o in offs],
+                           dim=-1)
+        out[b] = torch.topk(refs, k, dim=-1).values[..., -1]
+    return out.reshape(*lead, S)
+
+
+def cfar_2d_hw_stream(mag: torch.Tensor, scale_override: int = 0, *,
+                      cfar: CfarParams = CfarParams(), integer: bool = True,
+                      hist: torch.Tensor | None = None,
+                      streaming: bool = False, first: bool = False,
+                      need_debug: bool = False, label_roll: bool = True,
+                      decide=None):
+    """As-built streaming-CFAR geometry over (..., R, D) maps, each its own
+    stream; port of ``fmcw_tpu/ops/cfar.cfar_2d_hw_stream`` (its framings,
+    emission window, label roll and carry; golden ``os_cfar_2d_hw_stream``
+    is the bit-exact oracle).  ``integer``: integer maps (any integer dtype,
+    decided in int32) or float32 maps.
+
+    * ``streaming=False``: the frame is the whole stream (one-shot / first
+      frame); the final ``lag`` cells are never emitted.
+    * ``streaming=True`` with ``hist`` (..., 2 lag), the previous frame's
+      last 2 lag cells: decides stream positions [-lag, S - lag) and also
+      returns ``new_hist``.  Without ``hist`` it is the stream's first
+      frame (zero history and the startup skip).
+
+    Returns ``(det, threshold, scale[, new_hist])``: det (..., R, D) at
+    the hardware's label coordinates (``label_roll=False``: in decision
+    order; apply ``hw_stream_label_shift`` after grouping) in the map's
+    dtype; threshold (decision order, int32 or float32) only with
+    ``need_debug``, else None; scale int32 in decision order; new_hist in
+    the map's dtype.  ``decide``: the decision function,
+    ``hw_stream_decide_plain`` (default) or the kernel wrapper
+    ``ops/cfar_detect.cfar_detect_hw_stream``, with its signature."""
+    check_hw_stream(cfar)
+    if integer == mag.is_floating_point():
+        raise ValueError(f"integer={integer} does not fit a {mag.dtype} map")
+    *lead, R, D = mag.shape
+    S = R * D
+    lag = hw_stream_lag(cfar, D)
+    work = torch.int32 if integer else torch.float32
+    flat = mag.reshape(*lead, S).to(work)
+    zeros = flat.new_zeros((*lead, 2 * lag))
+    if streaming and hist is None:
+        first = True            # no history IS the stream's first frame
+    h = (torch.as_tensor(hist, device=flat.device).to(work).reshape(
+        *lead, 2 * lag) if streaming and hist is not None else zeros)
+    ext = torch.cat([h, flat, zeros[..., :lag]], dim=-1)
+    base = -lag if streaming else 0
+    start0 = 2 * lag + base
+    det, scale = (decide or hw_stream_decide_plain)(
+        ext, start0, R, D, scale_override, cfar=cfar, integer=integer)
+    det = det.reshape(*lead, S)
+    scale = scale.reshape(*lead, S)
+    threshold = None
+    if need_debug:
+        est = _hw_stream_est(ext, start0, S, D, cfar)
+        threshold = (est * scale.to(work)).reshape(*lead, R, D)
+    pos = torch.arange(S, device=flat.device) + base     # stream positions
+    if streaming:
+        emitted = pos >= 3 if first else None
+        shift = lag + 3
+    else:
+        emitted = (pos >= 3) & (pos < S - lag)
+        shift = 3
+    if emitted is not None:
+        det = torch.where(emitted, det, torch.zeros_like(det))
+    if label_roll:
+        det = torch.roll(det, -shift, dims=-1)
+    out = (det.reshape(*lead, R, D).to(mag.dtype), threshold,
+           scale.reshape(*lead, R, D))
+    if streaming:
+        return out + (flat[..., -2 * lag:].to(mag.dtype),)
+    return out
+
+
+def hw_stream_label_shift(cfar: CfarParams, n_doppler: int,
+                          streaming: bool) -> int:
+    """Flat-cell shift from decision order to the hardware's label
+    coordinates for ``cfar_2d_hw_stream(label_roll=False)``: roll each
+    map's flat cells by -shift after peak grouping, which runs in decision
+    order (physical adjacency)."""
+    return (hw_stream_lag(cfar, n_doppler) + 3) if streaming else 3

@@ -27,6 +27,15 @@ staged routes' CFAR step: the same maps with the det map peak-grouped
 detection counts ``ops/detect.topk_detections`` takes; its twin is
 ``cfar_detect_group_plain``.
 
+``cfar_detect_hw_stream`` is the kernel's flat-stream entry, the decision
+of the hw-compat streaming CFAR (``cfar_geometry="hw_stream"``; JAX's
+``_kernel_detect`` with ``prepadded_range="both"`` behind
+``fmcw_tpu/ops/cfar._hw_stream_decide_pallas``): the per-cell decisions of
+R x D cells of a batch of flat ext streams with the crossed window, read
+straight from the streams (no padded copy); its twin is
+``ops/cfar.hw_stream_decide_plain``, and ``ops/cfar.cfar_2d_hw_stream``
+frames the streams around either.
+
 The kernel's blocks (``tile_plan``): T range rows a block, strips of
 ``STRIP`` cells of one column a thread, the tile within ``_TILE_BYTES`` of
 shared memory so that three blocks share an SM; an int32 tile whose values
@@ -82,23 +91,26 @@ def cfar_detect_group_plain(mag: torch.Tensor, scale_override: int = 0, *,
 
 
 def tile_bytes(T: int, D: int, hr: int, pgr: int = -1,
-               block: bool = False) -> int:
+               block: bool = False, pitch: int | None = None) -> int:
     """Shared memory of a block of T rows (``csrc/cfar_detect.cu``'s
-    layout): the tile's T + 2 (hr + pgr) rows; per-cell scale with hr > 0,
-    the full and guard column sums of the T + 2 pgr decided rows; grouping
-    (pgr >= 0), their decisions, T row maxima and 2 counts."""
+    layout): the tile's T + 2 (hr + pgr) rows of ``pitch`` cells (D; the
+    flat-stream entry's D + 2 hd); per-cell scale with hr > 0, the full and
+    guard column sums of the T + 2 pgr decided rows; grouping (pgr >= 0),
+    their decisions, T row maxima and 2 counts."""
     pg = max(pgr, 0)
+    P = pitch or D
     rows = T + 2 * pg
-    words = (T + 2 * (hr + pg)) * D
+    words = (T + 2 * (hr + pg)) * P
     if not block and hr > 0:
-        words += 2 * rows * D
+        words += 2 * rows * P
     if pgr >= 0:
         words += rows * D + T + 2
     return 4 * words
 
 
 def tile_plan(R: int, D: int, hr: int, pgr: int = -1,
-              block: bool = False) -> tuple[int, int]:
+              block: bool = False,
+              pitch: int | None = None) -> tuple[int, int]:
     """(T, strip) of the kernel's blocks for an R x D map with range halo
     hr and grouping radius pgr (-1: none).  Strips of STRIP rows: T from
     STRIP to min(64, max(R, STRIP)) within _TILE_BYTES, the fewest strip
@@ -115,7 +127,7 @@ def tile_plan(R: int, D: int, hr: int, pgr: int = -1,
         return -(-R // t) * -(-units // THREADS)
 
     def fits(t, limit):
-        return tile_bytes(t, D, hr, pgr, block) <= limit
+        return tile_bytes(t, D, hr, pgr, block, pitch) <= limit
 
     cands = [t for t in range(STRIP, min(64, max(R, STRIP)) + 1)
              if fits(t, _TILE_BYTES)]
@@ -263,3 +275,63 @@ def cfar_detect_group(mag: torch.Tensor, scale_override: int = 0, *,
                   int(peak_group_radius), "cfar_detect_group")
     cfar_detect_group.launches += 1
     return out
+
+
+def flat_config(B: int, R: int, D: int, start0: int, stride: int,
+                cfar: CfarParams, scale_override: int = 0,
+                integer: bool = False):
+    """The flat-stream entry's config for B ext streams of ``stride`` cells
+    (R x D cells decided from ``start0``), the window ``cfar`` crossed
+    (``ops/cfar.hw_stream_params``); raises ValueError where a window would
+    read beyond a stream and NotImplementedError for a tile that does not
+    fit."""
+    sw = C.hw_stream_params(cfar)
+    hr, hd = sw.halo_range, sw.halo_doppler
+    if start0 - hr * D - hd < 0 or start0 + (R + hr) * D + hd > stride:
+        raise ValueError(f"ext streams of {stride} cells do not hold the "
+                         f"windows of {R}x{D} cells from {start0}")
+    T, strip = tile_plan(R, D, hr, pitch=D + 2 * hd)
+    return kernels.CfarDetectConfig(
+        batch=B, R=R, D=D, T=T, hr=hr, hd=hd, gr=sw.guard_range,
+        gd=sw.guard_doppler, n_ref=sw.n_ref, k=sw.n_ref - sw.rank_idx,
+        scale_min=sw.scale_min, scale_nom=sw.scale_nom,
+        scale_max=sw.scale_max, block_mode=0, so=int(scale_override),
+        integer=int(integer), prepadded=0, strip=strip,
+        packed=int(strip == STRIP and sw.n_ref <= MAX_PACKED_REF), pgr=-1,
+        float_max=float_max(sw), flat=1, start0=start0, stride=stride)
+
+
+@kernels.counted
+def cfar_detect_hw_stream(ext: torch.Tensor, start0: int, R: int, D: int,
+                          scale_override: int = 0, *, cfar: CfarParams,
+                          integer: bool):
+    """The hw-compat streaming CFAR's decisions: R x D cells from
+    ``start0`` of each of the ext streams (..., L) (int32 for ``integer``,
+    else float32; ``ops/cfar.cfar_2d_hw_stream`` builds them), decided
+    with the crossed window by counting.  Returns ``(det, scale)``, each
+    (..., R, D) in decision order: det in the stream's type, scale int32
+    (``scale_override`` folded in), equal to
+    ``ops/cfar.hw_stream_decide_plain``'s.  Launches the kernel's
+    flat-stream entry for a CUDA tensor; the plain twin for a CPU
+    tensor."""
+    if F._device_kind(ext) == "cpu":
+        return C.hw_stream_decide_plain(ext, start0, R, D, scale_override,
+                                        cfar=cfar, integer=integer)
+    C.check_hw_stream(cfar)
+    C.check_hw_stream_ext(ext, integer)
+    if int(scale_override) < 0:
+        raise ValueError(f"scale_override must be >= 0, got {scale_override}")
+    *lead, L = ext.shape
+    e = ext.reshape(-1, L).contiguous()
+    B = e.shape[0]
+    cfg = flat_config(B, R, D, start0, L, cfar, scale_override, integer)
+    det = torch.empty((B, R, D), dtype=e.dtype, device=e.device)
+    scale = torch.empty((B, R, D), dtype=torch.int32, device=e.device)
+    lib = kernels.load()
+    stream = torch.cuda.current_stream(e.device).cuda_stream
+    err = lib.fmcw_cfar_detect_flat(e.data_ptr(), det.data_ptr(),
+                                    scale.data_ptr(), ctypes.byref(cfg),
+                                    stream)
+    kernels.check(err, "cfar_detect_hw_stream")
+    cfar_detect_hw_stream.launches += 1
+    return det.reshape(*lead, R, D), scale.reshape(*lead, R, D)

@@ -1,3 +1,4 @@
 """The surveillance runtime: scan batching with the tracker, logs and
-checkpoints (``surveillance``); streamed ingest on CUDA streams
-(``stream``)."""
+checkpoints, and the hw-compat streaming runner (``surveillance``); streamed
+ingest on CUDA streams (``stream``); the native file streamer and parsers
+(``native``)."""

@@ -20,7 +20,10 @@ detections come back to the host inside the watchdog's dispatch, and the
 magnitudes are converted to int32 there with numpy, as JAX does
 (``.astype(np.int32)``: INT_MIN for a float beyond int32), before the
 tracker (``models/tracker.run_scans``, on ``device``) steps the batch's
-scans.  The hw-compat streaming runner is not ported yet.
+scans.  ``run_surveillance_stream`` is the hw-compat streaming runner: one
+CPI at a time through a ``cfar_geometry="hw_stream"`` processor's
+``stream``, the CFAR's line-buffer carry (``stream_hist``) kept between
+scans and checkpointable beside the tracker state.
 """
 
 from __future__ import annotations
@@ -120,6 +123,9 @@ class ScanResult:
     report: dict
     tracker_state: dict | None  # populated on each batch's final scan (the
     # checkpoint boundary — utils.checkpoint); None on intermediate scans
+    stream_hist: np.ndarray | None = None  # hw-compat streaming CFAR carry
+    # (run_surveillance_stream only): part of the checkpointable runtime
+    # state — resuming without it replays the startup-skip transient
 
 
 def run_surveillance(proc: Callable, frames: Iterable[np.ndarray],
@@ -233,11 +239,60 @@ def run_surveillance(proc: Callable, frames: Iterable[np.ndarray],
 
 
 def run_surveillance_stream(proc, frames: Iterable[np.ndarray],
-                            params: RadarParams, **kw) -> Iterator[ScanResult]:
-    """The hw-compat STREAMING runner of ``fmcw_tpu/runtime/surveillance.py``
-    (one CPI at a time through ``proc.stream`` with the as-built streaming
-    CFAR's inter-frame carry).  Not ported yet: the port has no hw-compat
-    streaming CFAR (``cfar_geometry="hw_stream"``; ROADMAP.md)."""
-    raise NotImplementedError(
-        "run_surveillance_stream needs the hw-compat streaming CFAR "
-        "(cfar_geometry='hw_stream'), which is not ported yet (ROADMAP.md)")
+                            params: RadarParams,
+                            det_log: str | None = None,
+                            trk_log: str | None = None,
+                            mti_bypass: bool = False,
+                            scale_override: int = 0,
+                            tracker_state: dict | None = None,
+                            stream_hist: np.ndarray | None = None,
+                            start_scan: int = 0,
+                            device=None) -> Iterator[ScanResult]:
+    """Hw-compat STREAMING surveillance: one CPI at a time through
+    ``proc.stream`` (``make_processor(cfar_geometry="hw_stream")``, the
+    continuous-stream behaviour of the hardware's free-running CFAR,
+    os_cfar_2d.vhd:66-68/130-135), the tracker stepped once a scan
+    (``models/tracker.run_scans``, on ``device``: None means CUDA, raising
+    without a card; "cpu" for the CPU), logs in the reference text formats
+    through ``_write_scan_logs``.  Port of ``fmcw_tpu/runtime/surveillance.
+    run_surveillance_stream``.
+
+    The run's state between scans is (tracker_state, scan counter,
+    ``stream_hist``, the CFAR's inter-frame line-buffer tail): each
+    ScanResult carries the tracker state and ``stream_hist`` as numpy, so
+    ``utils.checkpoint.save(..., runtime_state={"stream_hist": ...,
+    **checkpoint.log_positions(...)})`` saves all three (a checkpoint of
+    this package or of the JAX package), and a run resumed from them
+    continues the stream exactly: the same detections, byte-identical
+    logs."""
+    tp = params.tracker
+    dev = resolve_device(device)
+    state = (_state_on(tracker_state, dev) if tracker_state is not None
+             else jt.init_state(tp, dev))
+    hist = None if stream_hist is None else np.asarray(stream_hist)
+    # Any carried state means "resuming" (run_surveillance's convention):
+    # the existing logs are appended to, not truncated.
+    resuming = (tracker_state is not None or stream_hist is not None
+                or start_scan > 0)
+    if not resuming:
+        if det_log:
+            open(det_log, "w").close()
+        if trk_log:
+            open(trk_log, "w").close()
+    scan = start_scan
+    for f in frames:
+        out, hist = proc.stream(f, mti_bypass=mti_bypass,
+                                scale_override=scale_override, hist=hist)
+        out = {k: _to_host(v) for k, v in out.items()}
+        scan += 1
+        v = out["valid"]
+        state, reps = jt.run_scans(
+            out["range_bin"][None], out["doppler_bin"][None],
+            out["mag"][None].astype(np.int32), v[None], tp=tp, state=state)
+        rep = {k: _to_host(val)[0] for k, val in reps.items()}
+        _write_scan_logs(det_log, trk_log, out["range_bin"],
+                         out["doppler_bin"], out["mag"], v, rep)
+        yield ScanResult(scan=scan, n_dets=int(np.sum(v)),
+                         active_tracks=int(rep["active_tracks"]),
+                         report=rep, tracker_state=jt.state_to_numpy(state),
+                         stream_hist=_to_host(hist))

@@ -62,7 +62,12 @@ stimulus, 1024x128 frames):
   prepadded entry on the sp = 4 range shard of a block-scale map (rows
   256..512 and their halo rows); as back-to-back calls and by graph replay;
   and the staged routes' frames/s: fixed ``auto`` and float ``staged``,
-  per-cell and block, radius 2.
+  per-cell and block, radius 2; where the checkout has it, the
+  flat-stream entry ``cfar_detect_hw_stream`` (TPU row 7 with
+  ``prepadded_range="both"``, the hw-compat streaming CFAR) on the
+  one-shot ext streams of the same int32 and float32 maps, and the
+  hw-compat routes' frames/s (``cfar_geometry="hw_stream"``, fixed
+  ``auto`` and float ``fused``, radius 2).
 
 With ``--cfar3d-only`` it times the 3D CFAR's two entries and the 3D array
 route alone, with ``--cfar-detect-only`` the standalone CFAR's entries and
@@ -318,6 +323,27 @@ def main() -> int:
                                   prepadded_range=True)
         ms["cfar_detect[prepadded,sp4]"] = cuda_ms(call, 20, 3)
         graph["cfar_detect[prepadded,sp4]"] = graph_ms(call, 20)
+        hw_stream = hasattr(CD, "cfar_detect_hw_stream")
+        if hw_stream:
+            # The flat-stream entry on the one-shot framing's ext streams,
+            # recorded from ops/cfar.cfar_2d_hw_stream's call.
+            for tag, mag in (("int32", imag), ("float32", fmag)):
+                seen = []
+
+                def record(ext, start0, R, D, so, **kw):
+                    seen.append((ext, start0, R, D, kw))
+                    return CD.cfar_detect_hw_stream(ext, start0, R, D, so,
+                                                    **kw)
+                C.cfar_2d_hw_stream(mag, cfar=entry.cfar,
+                                    integer=tag == "int32", decide=record)
+                ext, start0, R, D, kw = seen[0]
+
+                def call(ext=ext, start0=start0, R=R, D=D, kw=kw):
+                    return CD.cfar_detect_hw_stream(ext, start0, R, D, 0,
+                                                    **kw)
+                name = f"cfar_detect_hw_stream[{tag}]"
+                ms[name] = cuda_ms(call, 20, 3)
+                graph[name] = graph_ms(call, 20)
         del imag, fmag, smag, shard, smap
         for p in (entry, fast):
             batch = make_batch(p)
@@ -326,6 +352,17 @@ def main() -> int:
                             (f"float/{p.cfar.scale_mode}/staged",
                              dict(frontend="staged"))):
                 proc = pl.make_batch_processor(p, peak_group_radius=2,
+                                               include_maps=False,
+                                               device="cuda", **kw)
+                fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 5, 2)
+        if hw_stream:
+            batch = make_batch(entry)
+            for key, kw in (("hw_stream/fixed/auto",
+                             dict(mode="fixed", frontend="auto")),
+                            ("hw_stream/float/fused",
+                             dict(frontend="fused"))):
+                proc = pl.make_batch_processor(entry, peak_group_radius=2,
+                                               cfar_geometry="hw_stream",
                                                include_maps=False,
                                                device="cuda", **kw)
                 fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 5, 2)

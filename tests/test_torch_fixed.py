@@ -405,9 +405,17 @@ def test_results_do_not_depend_on_matmul_precision_flags():
 
 def test_fixed_mode_options_and_gates():
     p = fmcw_tpu_torch.quick()
-    for kw in (dict(fixed_fft="scaled"), dict(cfar_geometry="hw_stream")):
-        with pytest.raises(NotImplementedError):
-            tpl.make_processor(p, mode="fixed", device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        tpl.make_processor(p, mode="fixed", device="cpu", fixed_fft="scaled")
+    # The hw-compat streaming CFAR runs on the staged and plain routes (and
+    # has its continuous-stream call); it has no fused fixed kernel.
+    for fe in ("auto", "staged", "plain"):
+        assert hasattr(tpl.make_processor(p, mode="fixed", frontend=fe,
+                                          cfar_geometry="hw_stream",
+                                          device="cpu"), "stream")
+    with pytest.raises(ValueError):
+        tpl.make_processor(p, mode="fixed", frontend="fused",
+                           cfar_geometry="hw_stream", device="cpu")
     for variant in ("ca", "go", "so"):
         bad = p.replace(cfar=dataclasses.replace(p.cfar, variant=variant))
         with pytest.raises(NotImplementedError):

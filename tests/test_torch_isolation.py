@@ -59,7 +59,8 @@ def test_import_loads_neither_jax_nor_fmcw_tpu():
             "fmcw_tpu_torch.models.scenario", "fmcw_tpu_torch.utils.io",
             "fmcw_tpu_torch.utils.checkpoint",
             "fmcw_tpu_torch.runtime.surveillance",
-            "fmcw_tpu_torch.runtime.stream"} <= set(names)
+            "fmcw_tpu_torch.runtime.stream",
+            "fmcw_tpu_torch.runtime.native"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -261,6 +262,10 @@ class _FakeLib:
         self.calls.append(("cfar_detect_group", args))
         return self.err
 
+    def fmcw_cfar_detect_flat(self, *args):
+        self.calls.append(("cfar_detect_flat", args))
+        return self.err
+
     def fmcw_range_fft_float(self, *args):
         self.calls.append(("range_fft_float", args))
         return self.err
@@ -310,6 +315,7 @@ def as_if_cuda(monkeypatch):
     monkeypatch.setattr(FX, "slowtime_detect_fixed_plain", forbidden)
     monkeypatch.setattr(CD, "cfar_detect_plain", forbidden)
     monkeypatch.setattr(CD, "cfar_detect_group_plain", forbidden)
+    monkeypatch.setattr(CD.C, "hw_stream_decide_plain", forbidden)
     monkeypatch.setattr(F, "range_fft_float_plain", forbidden)
     monkeypatch.setattr(F, "slowtime_mag_plain", forbidden)
     monkeypatch.setattr(C3, "cfar3d_detect_plain", forbidden)
@@ -718,3 +724,72 @@ def test_rank_failed_launch_raises(as_if_cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):
         RK.cfar_rank(torch.zeros((1, p.n_range, p.n_doppler)), cfar=p.cfar)
     assert RK.cfar_rank.launches == 0
+
+
+def test_hw_stream_wrapper_takes_plain_twin_on_cpu(monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU tensor must not build or launch")
+    monkeypatch.setattr(kernels, "load", no_build)
+    p = fmcw_tpu_torch.quick()
+    kernels.reset_launch_counts()
+    mag = torch.as_tensor(np.random.default_rng(2).integers(
+        0, 3000, (2, p.n_range, p.n_doppler)), dtype=torch.int32)
+    from fmcw_tpu_torch.ops import cfar as C
+    for a, b in zip(C.cfar_2d_hw_stream(mag, 3, cfar=p.cfar,
+                                        decide=CD.cfar_detect_hw_stream),
+                    C.cfar_2d_hw_stream(mag, 3, cfar=p.cfar)):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_hw_stream_wrapper_launches_kernel_for_cuda_tensors(as_if_cuda):
+    """The flat-stream entry gets the batch of ext streams as they are
+    (stride S + 3 lag a frame), the crossed window and the framing's start;
+    the float hw-stream processors launch it (fused: after kernel A and the
+    magnitude-only kernel); a failed launch raises."""
+    p = fmcw_tpu_torch.RadarParams()
+    from fmcw_tpu_torch.ops import cfar as C
+    S, lag = p.n_range * p.n_doppler, 6 * 128 + 6
+    mag = torch.zeros((2, p.n_range, p.n_doppler), dtype=torch.int32)
+    det, thr, scale = C.cfar_2d_hw_stream(mag, 3, cfar=p.cfar,
+                                          decide=CD.cfar_detect_hw_stream)
+    assert thr is None and det.dtype == torch.int32
+    assert tuple(scale.shape) == (2, p.n_range, p.n_doppler)
+    name, args = as_if_cuda.calls[-1]
+    cfg = args[3]._obj
+    assert name == "cfar_detect_flat"
+    assert (cfg.batch, cfg.R, cfg.D, cfg.hr, cfg.hd, cfg.gr, cfg.gd,
+            cfg.n_ref, cfg.k, cfg.so, cfg.integer, cfg.flat, cfg.start0,
+            cfg.stride, cfg.T, cfg.strip, cfg.packed, cfg.pgr,
+            cfg.block_mode, cfg.prepadded) == \
+        (2, 1024, 128, 5, 6, 1, 2, 128, 32, 3, 1, 1, 2 * lag, S + 3 * lag,
+         32, 8, 1, -1, 0, 0)
+    C.cfar_2d_hw_stream(mag[0].float(), cfar=p.cfar, integer=False,
+                        streaming=True, decide=CD.cfar_detect_hw_stream)
+    cfg = as_if_cuda.calls[-1][1][3]._obj
+    assert (cfg.batch, cfg.integer, cfg.start0) == (1, 0, lag)
+    assert CD.cfar_detect_hw_stream.launches == 2
+    q = fmcw_tpu_torch.quick()
+    iq = _iq(q, 2)
+    # (The fixed routes' stages are the plain stage code this fixture
+    # forbids; their CFAR step is the call above.)
+    for mode, route, want in (
+            ("float32", "fused", ["range_fft", "slowtime_mag",
+                                  "cfar_detect_flat"]),
+            ("float32", "staged", ["cfar_detect_flat"])):
+        as_if_cuda.calls.clear()
+        proc = tpl.make_batch_processor(q, mode=mode, frontend=route,
+                                        cfar_geometry="hw_stream",
+                                        device="cpu")
+        proc(iq)
+        _, hist = proc.stream(iq)
+        assert tuple(hist.shape) == (2, 2 * (4 * q.n_doppler + 3))
+        assert [c[0] for c in as_if_cuda.calls] == want * 2
+    with pytest.raises(ValueError, match="hold the windows"):
+        CD.cfar_detect_hw_stream(torch.zeros((2, 100), dtype=torch.int32),
+                                 1548, 1024, 128, cfar=p.cfar, integer=True)
+    as_if_cuda.err = 1
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        C.cfar_2d_hw_stream(mag, cfar=p.cfar,
+                            decide=CD.cfar_detect_hw_stream)
+    assert CD.cfar_detect_hw_stream.launches == 6

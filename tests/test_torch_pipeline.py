@@ -117,8 +117,14 @@ def test_processor_rejects_wrong_shape_and_unported_modes():
         proc(np.zeros((2, p.n_doppler, p.n_range, 2), np.int16))
     with pytest.raises(NotImplementedError):
         tpl.make_processor(p, mode="fixed", fixed_fft="scaled", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tpl.make_processor(p, mode="fixed", cfar_geometry="hw_stream",
+    # The hw-compat streaming CFAR is ported: a valid mode; an unknown
+    # geometry and one it cannot take (block scale) raise ValueError.
+    tpl.make_processor(p, mode="fixed", cfar_geometry="hw_stream",
+                       device="cpu")
+    with pytest.raises(ValueError):
+        tpl.make_processor(p, cfar_geometry="flat", device="cpu")
+    with pytest.raises(ValueError):
+        tpl.make_processor(fmcw_tpu_torch.fast(), cfar_geometry="hw_stream",
                            device="cpu")
     ca = p.replace(cfar=dataclasses.replace(p.cfar, variant="ca"))
     with pytest.raises(NotImplementedError):

@@ -8,8 +8,16 @@
 * checkpoints crossing both ways (``utils/checkpoint``);
 * ``runtime/stream``: ``stream`` / ``stream_batched`` / ``FrameAssembler``
   against JAX's: order, padding, ``batch_valid``, drop accounting under one
-  readiness pattern, and chunking (hypothesis).
+  readiness pattern, and chunking (hypothesis);
+* ``runtime/native``: ``FrameRing`` and ``FileFrameStreamer`` against
+  JAX's on temporary files, with the committed library and with the
+  pure-Python fallback (frames, a partial frame dropped, a missing file,
+  an early cancel), the parsers and writer, and ``close()`` in a
+  ``finally`` keeping the exception in flight while ``join()`` raises the
+  producer's error.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,11 +27,11 @@ from hypothesis import given, settings, strategies as st
 import fmcw_tpu
 import fmcw_tpu_torch
 from fmcw_tpu.models import tracker as jtrk
-from fmcw_tpu.runtime import stream as jrs
+from fmcw_tpu.runtime import native as jnative, stream as jrs
 from fmcw_tpu.utils import checkpoint as jck, io as jio
 from fmcw_tpu_torch.golden import reference
 from fmcw_tpu_torch.models import pipeline as tpl, tracker as ttrk
-from fmcw_tpu_torch.runtime import stream as trs
+from fmcw_tpu_torch.runtime import native as tnative, stream as trs
 from fmcw_tpu_torch.utils import checkpoint as tck, io as tio
 
 torch.set_num_threads(2)
@@ -303,3 +311,121 @@ def test_frame_assembler_chunking_matches_jax(cuts):
         assert np.array_equal(
             g, samples[k * nd * nr:(k + 1) * nd * nr].reshape(nd, nr, 2))
     assert port.pending_samples == 17
+
+
+@pytest.fixture(params=["native", "fallback"])
+def native_mods(request, monkeypatch):
+    """The port's and JAX's native modules, with their libraries where they
+    load, or both on the pure-Python fallback."""
+    if request.param == "fallback":
+        monkeypatch.setattr(tnative, "_load", lambda: None)
+        monkeypatch.setattr(jnative, "_load", lambda: None)
+    return tnative, jnative
+
+
+def test_native_library_never_writes_under_native(monkeypatch):
+    """The loader opens the committed native/fmcwio.so as it is, or builds
+    native/fmcwio.cpp under build/; native/ is left untouched either way."""
+    native_dir = tnative._SO.parent
+    before = {f.name: f.stat().st_mtime_ns for f in native_dir.iterdir()}
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_tried", False)
+    lib = tnative._load()
+    assert {f.name: f.stat().st_mtime_ns
+            for f in native_dir.iterdir()} == before
+    if lib is not None:
+        path = Path(lib._name)
+        assert path == tnative._SO or \
+            path.parent == tnative._ROOT / "build" / "fmcw_tpu_torch"
+
+
+def test_file_frame_streamer_matches_jax(tmp_path, native_mods):
+    rng = np.random.default_rng(0)
+    shape = (8, 16, 2)
+    frames = rng.integers(-1000, 1000, (5,) + shape).astype(np.int16)
+    path = str(tmp_path / "frames.bin")
+    frames.tofile(path)
+    # A trailing partial frame is dropped.
+    with open(path, "ab") as fh:
+        fh.write(np.arange(7, dtype=np.int16).tobytes())
+    got = {}
+    for mod in native_mods:
+        s = mod.FileFrameStreamer(path, shape, capacity=2, loops=3)
+        got[mod] = list(s.frames())
+        assert s.join() == 15 and s.join() == 15
+    port, ref = got.values()
+    assert len(port) == len(ref) == 15
+    for i, (a, b) in enumerate(zip(port, ref)):
+        assert np.array_equal(a, b) and np.array_equal(a, frames[i % 5])
+
+
+def test_file_frame_streamer_missing_file_and_cancel(tmp_path, native_mods):
+    for mod in native_mods:
+        with pytest.raises(FileNotFoundError):
+            s = mod.FileFrameStreamer(str(tmp_path / "nope.bin"), (4, 4, 2))
+            s.join()
+    shape = (2, 2, 2)
+    path = str(tmp_path / "g.bin")
+    np.arange(2 * 8, dtype=np.int16).tofile(path)
+    for mod in native_mods:
+        # An early consumer-side cancel unblocks the producer.
+        s = mod.FileFrameStreamer(path, shape, capacity=1, loops=100000)
+        assert next(iter(s.frames())) is not None
+        s.close()
+        s.close()                                   # idempotent
+
+
+def test_frame_ring_matches_jax(native_mods):
+    for mod in native_mods:
+        ring = mod.FrameRing((2, 2, 2), capacity=2)
+        f = np.zeros((2, 2, 2), np.int16)
+        assert ring.try_push(f) and ring.try_push(f)
+        assert not ring.try_push(f)                 # full: the drop
+        assert ring.pop() is not None and ring.try_push(f + 1)
+        ring.close()
+        assert ring.push(f) is False and ring.try_push(f) is False
+        assert ring.pop() is not None and ring.pop()[0, 0, 0] == 1
+        assert ring.pop() is None
+        with pytest.raises(ValueError):
+            mod.FrameRing((4,), capacity=1).push(np.zeros(3, np.int16))
+
+
+def test_native_parsers_match_jax(tmp_path, native_mods):
+    m = np.arange(64 * 8, dtype=np.int64).reshape(64, 8) * 37 - 500
+    paths = {}
+    for mod, tag in zip(native_mods, ("port", "jax")):
+        paths[tag] = str(tmp_path / f"{tag}.txt")
+        mod.write_rdm_map(paths[tag], m)
+    assert open(paths["port"], "rb").read() == open(paths["jax"], "rb").read()
+    tmod, jmod = native_mods
+    assert np.array_equal(tmod.read_rdm_map(paths["port"], 64, 8), m)
+    iq = str(tmp_path / "iq.txt")
+    with open(iq, "w") as fh:
+        fh.write("".join(f"{i} {-2 * i}\n" for i in range(-5, 40)))
+    assert np.array_equal(tmod.read_iq_pairs(iq), jmod.read_iq_pairs(iq))
+    assert np.array_equal(tmod.parse_ints(iq, 1000),
+                          jmod.parse_ints(iq, 1000))
+
+
+def test_close_in_finally_keeps_the_exception(tmp_path, monkeypatch):
+    """The producer fails (a directory where the file should be): the
+    port's close() in a finally leaves the exception in flight, and join()
+    raises the producer's error on every call; JAX's close() re-raises the
+    producer's error over it (fault 3 of ROADMAP.md)."""
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+    monkeypatch.setattr(jnative, "_load", lambda: None)
+    s = tnative.FileFrameStreamer(str(tmp_path), (2, 2, 2))
+    with pytest.raises(KeyError, match="in flight"):
+        try:
+            raise KeyError("in flight")
+        finally:
+            s.close()
+    for _ in range(2):
+        with pytest.raises(IsADirectoryError):
+            s.join()
+    j = jnative.FileFrameStreamer(str(tmp_path), (2, 2, 2))
+    with pytest.raises(IsADirectoryError):
+        try:
+            raise KeyError("in flight")
+        finally:
+            j.close()

@@ -17,6 +17,12 @@ against the JAX package's, on the CPU.
 * The port's numpy ``TacticalScenario``, which makes the stimuli here and
   in ``chip_smoke.py``, against JAX's: the same frames and truth, bit for
   bit.
+* The hw-compat streaming runner (``run_surveillance_stream``) with the
+  real ``cfar_geometry="hw_stream"`` processors on JAX's own stream test
+  stimulus (a target whose skirt rides the inter-frame carry): logs
+  byte-identical to JAX's runner, and a JAX checkpoint (tracker state,
+  scan counter, ``stream_hist``) resumed by the port logs byte-identically
+  to JAX's unbroken run.
 """
 
 import numpy as np
@@ -27,7 +33,7 @@ import fmcw_tpu
 import fmcw_tpu_torch
 from fmcw_tpu.models import pipeline as jpl
 from fmcw_tpu.runtime import surveillance as jsv
-from fmcw_tpu.utils import viz
+from fmcw_tpu.utils import checkpoint as jck, viz
 from fmcw_tpu_torch.golden import reference
 from fmcw_tpu_torch.models import pipeline as tpl, scenario as tsc
 from fmcw_tpu_torch.runtime import surveillance as tsv
@@ -315,6 +321,100 @@ def test_health_lines_match_jax(golden_dets):
         assert "scan_rate=" in a and a.endswith("/s")
 
 
+def _stream_frames(n: int):
+    """JAX's test_surveillance_stream_checkpoint_resume stimulus: a target
+    at range bin 124 of 128, whose skirt rides the inter-frame line-buffer
+    carry, and one at 60."""
+    return [tpl.complex_to_iq(reference.two_target_frame(
+        Q, seed=s % 3, targets=((124, 10 + s % 3, 14000), (60, 20, 12000))))
+        for s in range(n)]
+
+
+@pytest.fixture(scope="module")
+def stream_procs():
+    kw = dict(mode="fixed", include_maps=False, cfar_geometry="hw_stream")
+    return (tpl.make_processor(Q, device="cpu", **kw),
+            jpl.make_processor(JQ, **kw))
+
+
 def test_stream_runner_not_ported():
-    with pytest.raises(NotImplementedError, match="hw_stream"):
-        tsv.run_surveillance_stream(None, [], Q)
+    """The hw-compat streaming runner, which raised NotImplementedError
+    before the streaming CFAR was ported, runs: on CUDA unless asked for
+    the CPU, with a processor that has ``stream``."""
+    proc = tpl.make_processor(Q, mode="fixed", cfar_geometry="hw_stream",
+                              include_maps=False, device="cpu")
+    frames = _stream_frames(2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            next(tsv.run_surveillance_stream(proc, frames, Q))
+    res = list(tsv.run_surveillance_stream(proc, frames, Q, device="cpu"))
+    assert [r.scan for r in res] == [1, 2]
+    assert res[-1].stream_hist.shape == (2 * (4 * Q.n_doppler + 3),)
+    with pytest.raises(AttributeError):
+        next(tsv.run_surveillance_stream(
+            tpl.make_processor(Q, device="cpu"), frames, Q, device="cpu"))
+
+
+def test_stream_runner_byte_identical_to_jax(tmp_path, stream_procs):
+    frames = _stream_frames(6)
+    res, logs = {}, {}
+    for name, mod, proc, p, extra in (
+            ("port", tsv, stream_procs[0], Q, dict(device="cpu")),
+            ("jax", jsv, stream_procs[1], JQ, {})):
+        d, t = str(tmp_path / f"{name}_d.txt"), str(tmp_path / f"{name}_t.txt")
+        res[name] = list(mod.run_surveillance_stream(
+            proc, frames, p, det_log=d, trk_log=t, **extra))
+        logs[name] = (open(d, "rb").read(), open(t, "rb").read())
+    assert logs["port"] == logs["jax"]
+    assert all(r.n_dets for r in res["port"])
+    for a, b in zip(res["port"], res["jax"]):
+        assert (a.scan, a.n_dets, a.active_tracks) == \
+            (b.scan, b.n_dets, b.active_tracks)
+        assert all(np.array_equal(a.tracker_state[k], b.tracker_state[k])
+                   for k in b.tracker_state)
+        # The carry: the frame's last 2 lag golden magnitudes (JAX's FP32
+        # chain's are within a few LSB of them).
+        assert a.stream_hist.dtype == np.int32
+        assert a.stream_hist.shape == b.stream_hist.shape
+        assert np.abs(a.stream_hist - b.stream_hist).max() <= 8
+
+
+def test_stream_resume_from_jax_checkpoint(tmp_path, stream_procs):
+    """JAX runs 3 scans and checkpoints the whole runtime state (tracker,
+    scan counter, stream_hist, log positions); a crash appends a line; the
+    port restores the logs and resumes from JAX's checkpoint: the logs and
+    the final tracker state equal JAX's unbroken run."""
+    port, jproc = stream_procs
+    frames = _stream_frames(6)
+    d0, t0 = str(tmp_path / "d0.txt"), str(tmp_path / "t0.txt")
+    full = list(jsv.run_surveillance_stream(jproc, frames, JQ, det_log=d0,
+                                            trk_log=t0))
+    d1, t1 = str(tmp_path / "d1.txt"), str(tmp_path / "t1.txt")
+    first = list(jsv.run_surveillance_stream(jproc, frames[:3], JQ,
+                                             det_log=d1, trk_log=t1))
+    path = str(tmp_path / "ck.npz")
+    jck.save(path, first[-1].tracker_state, scan_index=first[-1].scan,
+             runtime_state={"stream_hist": first[-1].stream_hist,
+                            **jck.log_positions(d1, t1)})
+    with open(d1, "a") as fh:
+        fh.write("999 999 12345\n")
+    state, scan, _, rt = tck.load(path)
+    assert scan == 3
+    tck.restore_logs(rt, det_log=d1, trk_log=t1)
+    rest = list(tsv.run_surveillance_stream(
+        port, frames[3:], Q, det_log=d1, trk_log=t1, tracker_state=state,
+        stream_hist=rt["stream_hist"], start_scan=scan, device="cpu"))
+    assert [r.scan for r in rest] == [4, 5, 6]
+    assert open(d1, "rb").read() == open(d0, "rb").read()
+    assert open(t1, "rb").read() == open(t0, "rb").read()
+    for k in full[-1].tracker_state:
+        assert np.array_equal(rest[-1].tracker_state[k],
+                              full[-1].tracker_state[k]), k
+    # Without the carry the resumed run replays the startup skip and logs
+    # other detections.
+    d2 = str(tmp_path / "d2.txt")
+    list(tsv.run_surveillance_stream(port, frames[3:], Q, det_log=d2,
+                                     tracker_state=state, start_scan=scan,
+                                     device="cpu"))
+    assert open(d2, "rb").read() != \
+        open(d0, "rb").read()[int(rt["det_log_pos"]):]
