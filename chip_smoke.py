@@ -85,7 +85,18 @@ maps), make_batch_processor(cfar_geometry="hw_stream") at batch 128 (fixed
 "auto" against the golden model frame by frame, float "fused" against the
 twin), run_surveillance_stream over 48 fixed-mode CPIs read through the
 port's FileFrameStreamer (kernel and plain routes and a resumed run
-logging byte-identically, firm tracks), and timings.  It prints
+logging byte-identically, firm tracks), and timings.  Then the CA/GO/SO
+CFAR variants (phase 28): kernel B's mean epilogue against its twin bit
+for bit on the kernel's magnitudes (batch 128 of 1024x128, two-target and
+noise batches, per-cell and block, override, MTI bypass, grouping radius
+0 and 2; the small shapes of phase 3; NaN and Inf planes) and its split
+entry at sp 2 and 4 against the whole-frame entry; every route of each
+variant at batch 128 (float auto, staged, debug taps against the margin
+gate; fixed auto against the golden model on all 128 frames, in worker
+processes), the array model (2D, 3D at ref_angle 1) against the array
+gate, a LocalMesh at sp 2 against the single card; the Pd/Pfa sweep of
+the four variants (utils/eval.pd_pfa, 16 trials a SNR, kernel and plain
+routes; pd_pfa_3d); timings.  It prints
 the card's name and power limit, one JSON line listing the kernels, and as
 its last line {"ok": true, "device": {...}}.  Any failed check raises,
 and the script then exits non-zero; without CUDA it exits non-zero at
@@ -278,14 +289,26 @@ def bound_slowtime(B: int, nr: int, nd: int, cfar):
 
 
 def _cfar_ops(cfar) -> int:
-    """The CFAR's adds and compares per cell that the function needs:
+    """The CFAR's adds and compares per cell that the function needs.  OS:
     per-cell scale, the full and guard box sums as separable running sums
     (4 adds per cell per box), mean and hi/lo thresholds (4), 2 hi/lo and 1
     detection compare-add per training cell, the classification (8); block
-    scale, the detection compare-adds and the block statistics."""
-    if cfar.scale_mode == "cell":
-        return 2 * 4 + 4 + 6 * cfar.n_ref + 8
-    return 2 * cfar.n_ref + 16
+    scale, the detection compare-adds and the block statistics (16).
+    CA/GO/SO count nothing: the box sums (8, and the subtraction) for CA
+    or the per-cell scale; for GO/SO the row sums across the window (2, a
+    running sum) and the lead and lag sums down it (4), two divisions and
+    the max or min (3); CA one division; est * scale and the decision (2);
+    the per-cell mean, thresholds and classification (8) or the block
+    statistics (16)."""
+    if cfar.variant == "os":
+        if cfar.scale_mode == "cell":
+            return 2 * 4 + 4 + 6 * cfar.n_ref + 8
+        return 2 * cfar.n_ref + 16
+    ops = 2 + (8 if cfar.scale_mode == "cell" else 16)
+    if cfar.variant == "ca" or cfar.scale_mode == "cell":
+        ops += 2 * 4 + 1
+    ops += 1 if cfar.variant == "ca" else 2 + 4 + 3
+    return ops
 
 
 def bound_range_fft_fixed(B: int, nd: int, nr: int):
@@ -3685,6 +3708,544 @@ def hw_stream_phase(card: str, dev):
                   "launches": launches, "runner_launches": runner_launches}
 
 
+# ---------------------------------------------------------------------------
+# The CA/GO/SO CFAR variants (kernel B's mean epilogue, the routes, Pd/Pfa)
+# ---------------------------------------------------------------------------
+
+MEAN_VARIANTS = ("ca", "go", "so")
+
+
+def variant_params(p, variant: str, scale_mode: str | None = None):
+    """``p`` with the CFAR variant (and scale mode) replaced."""
+    kw = dict(variant=variant)
+    if scale_mode is not None:
+        kw["scale_mode"] = scale_mode
+    return p.replace(cfar=dataclasses.replace(p.cfar, **kw))
+
+
+def noise_batch(p, batch: int, seed: int = 11):
+    """Receiver noise alone: complex Gaussian, sigma 64 per component, int16
+    (batch, nd, nr, 2), the Pd/Pfa harness's noise frames."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    z = rng.normal(0.0, 64.0, (batch, p.n_doppler, p.n_range, 2))
+    return np.clip(np.round(z), -32768, 32767).astype(np.int16)
+
+
+def golden_variant_check(job):
+    """A worker process's job: (magnitude maps, det maps, CfarParams,
+    grouping radius) of fixed mode; True where the golden os_cfar_2d and
+    peak_group give every det map exactly, and the detection count."""
+    import numpy as np
+    from fmcw_tpu_torch.golden.fixed_point import os_cfar_2d, peak_group
+    mags, dets, cfar, radius = job
+    ok, n = True, 0
+    for m, d in zip(mags, dets):
+        want = peak_group(os_cfar_2d(m, cfar), radius)
+        ok &= bool(np.array_equal(want, d))
+        n += int((want > 0).sum())
+    return ok, n
+
+
+def _b_case(what, re, im, p, bypass, so, pgr, kw=None):
+    """Kernel B on planes (re, im) against its twin: magnitudes within TOL
+    of the peak, the decision (det, row maxima, n_dets, non-finite count)
+    bit for bit on the kernel's magnitudes.  Returns the largest absolute
+    magnitude error."""
+    import torch
+    from fmcw_tpu_torch.ops import frontend as F
+    kw = kw or {}
+    det, mag, rmax, ndet, nf = F.slowtime_detect(
+        re, im, bypass, so, cfar=p.cfar, notch_mode=p.notch_mode,
+        peak_group_radius=pgr, emit_mag=True, **kw)
+    pmag = F.slowtime_mag_plain(re, im, bypass, p.notch_mode, **kw)
+    d2, r2, n2, f2 = F.detect_plain(mag, p.cfar, so, pgr)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(pmag)
+    peak = float(pmag[fin].abs().max())
+    err = float((mag - pmag)[fin].abs().max())
+    same = (bits_equal(det, d2) and bits_equal(rmax, r2)
+            and torch.equal(ndet, n2) and torch.equal(nf, f2)
+            and torch.equal(fin, torch.isfinite(mag)))
+    log(f"kernel B {p.cfar.variant} {what} {p.n_range}x{p.n_doppler} "
+        f"{p.cfar.scale_mode} bypass={bypass} so={so} pgr={pgr} {kw}: mag "
+        f"err {err / peak:.3g} of peak, decision "
+        f"{'bit-identical' if same else 'DIFFERS'}, n_dets "
+        f"{int(ndet.min())}..{int(ndet.max())}, non-finite "
+        f"{int(nf.sum())}")
+    if not err <= TOL * peak:
+        raise AssertionError(f"kernel B {p.cfar.variant}: magnitudes "
+                             f"disagree")
+    if not same:
+        raise AssertionError(f"kernel B {p.cfar.variant} {what}: decision "
+                             f"differs from the twin on its magnitudes")
+    return err
+
+
+def variant_kernel_checks(dev, pgr: int):
+    """Phase 28a: kernel B's CA/GO/SO epilogue against its twin on the
+    kernel's own magnitudes, at full width (batch 128 of 1024x128, the
+    two-target batch and a noise batch): each variant, per-cell and block
+    scale, override 0 and 6, the MTI on and bypassed, grouping radius 0
+    and 2; then the small shapes phase 3 walks (n_doppler 16, 32, 64, a
+    window outside the unrolled walks) and planes holding NaN and Inf.
+    Returns {variant: largest absolute magnitude error at full width}."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend as F
+    entry = P.RadarParams()
+    errs = {}
+    batches = {"two-target": make_batch(entry, BATCH, seed=21),
+               "noise": noise_batch(entry, BATCH)}
+    planes = {k: F.range_fft(torch.as_tensor(v, device=dev))
+              for k, v in batches.items()}
+    for variant in MEAN_VARIANTS:
+        worst = 0.0
+        for mode in ("cell", "block"):
+            p = variant_params(entry, variant, mode)
+            for what, (re, im) in planes.items():
+                for bypass, so, radius in ((False, 0, pgr), (True, 6, 0)):
+                    if what == "noise" and so:
+                        continue
+                    worst = max(worst, _b_case(what, re, im, p, bypass, so,
+                                               radius))
+        errs[variant] = worst
+    b16 = P.RadarParams(n_range=256, n_doppler=16)
+    for variant in MEAN_VARIANTS:
+        for base, radius, kw, bypass, so, mode in (
+                (P.quick(), 1, {}, False, 0, "cell"),
+                (P.quick(), 0, {}, True, 4, "block"),
+                (P.RadarParams(n_range=256, n_doppler=64), pgr, {}, False, 0,
+                 "cell"),
+                (P.RadarParams(n_range=256, n_doppler=64, notch_mode=3), 1,
+                 dict(transient="passthrough", exact_mag=True), False, 0,
+                 "block"),
+                (b16, 0, {}, False, 0, "cell"),
+                (b16, pgr, {}, False, 0, "block"),
+                (P.RadarParams(n_range=256, n_doppler=64, cfar=P.CfarParams(
+                    ref_range=3, ref_doppler=2, guard_range=1,
+                    guard_doppler=2)), pgr, {}, False, 0, "cell")):
+            p = variant_params(base, variant, mode)
+            re, im = F.range_fft(torch.as_tensor(make_batch(p, 4, seed=2),
+                                                 device=dev))
+            _b_case("small", re, im, p, bypass, so, radius, kw)
+        # Non-finite planes: NaN and Inf samples make whole rows of NaN /
+        # Inf magnitudes, in windows, in halves and at cuts.
+        p = variant_params(entry, variant)
+        re, im = (x.clone() for x in planes["two-target"])
+        re[:2, 100, 3] = float("nan")
+        re[:2, 300, 7] = float("inf")
+        im[1, 512, 0] = float("-inf")
+        for mode in ("cell", "block"):
+            _b_case("nan/inf", re[:4], im[:4], variant_params(p, variant,
+                                                              mode),
+                    False, 0, pgr)
+    return errs
+
+
+def variant_split_checks(dev, pgr: int):
+    """Phase 28b: kernel B's split entry with the CA/GO/SO epilogue (per-cell
+    scale, as JAX's split body) at sp 2 and 4, the shards of 128 frames
+    fed their neighbours' halo rows: det, magnitudes and row maxima
+    bit-equal to the whole-frame entry's rows, counts summing to its; each
+    shard's decision bit for bit against the twin on its magnitudes, and
+    its magnitudes within TOL of the peak of the twin's.  Returns the
+    planes, for the timings, and {variant: largest absolute magnitude
+    error of the shards against the twin}."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend as F
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    entry = P.RadarParams()
+    nr = entry.n_range
+    h = entry.cfar.halo_range + pgr
+    re, im = F.range_fft(torch.as_tensor(make_batch(entry, BATCH, seed=22),
+                                         device=dev))
+    pmag = F.slowtime_mag_plain(re, im, False)
+    peak = float(pmag.abs().max())
+    errs = {}
+    for variant in MEAN_VARIANTS:
+        errs[variant] = 0.0
+        p = variant_params(entry, variant)
+        kw = dict(cfar=p.cfar, peak_group_radius=pgr, emit_mag=True)
+        det, mag, rmax, ndet, _ = F.slowtime_detect(re, im, False, 0, **kw)
+        for sp in SPLIT_SPS:
+            nrl = nr // sp
+            same, total = True, 0
+            for s in range(sp):
+                rows = slice(s * nrl, (s + 1) * nrl)
+                ext = torch.arange(s * nrl - h, (s + 1) * nrl + h,
+                                   device=dev) % nr
+                lo, hi = ext[:h], ext[h + nrl:]
+                d_s, m_s, r_s, n_s, _ = SF.slowtime_detect_split(
+                    re[:, rows], im[:, rows], (re[:, lo], im[:, lo]),
+                    (re[:, hi], im[:, hi]), False, 0, s * nrl,
+                    n_range_total=nr, **kw)
+                d2, r2, n2 = SF.detect_halo_plain(mag[:, ext], p.cfar, 0,
+                                                  pgr, s * nrl, nr)
+                torch.cuda.synchronize()
+                errs[variant] = max(errs[variant], float(
+                    (m_s - pmag[:, rows]).abs().max()))
+                same &= (bits_equal(d_s, det[:, rows])
+                         and bits_equal(m_s, mag[:, rows])
+                         and bits_equal(r_s, rmax[:, rows])
+                         and bits_equal(d_s, d2) and bits_equal(r_s, r2)
+                         and torch.equal(n_s, n2))
+                total = total + n_s
+            same &= (torch.equal(total, ndet)
+                     and errs[variant] <= TOL * peak)
+            log(f"split {variant} sp={sp}: shards "
+                f"{'bit-equal' if same else 'DIFFER'} to the whole-frame "
+                f"entry and its twin ({int(ndet.sum())} detections)")
+            if not same:
+                raise AssertionError(f"slowtime_detect_split {variant} "
+                                     f"sp={sp} differs")
+    return re, im, errs
+
+
+STANDALONE_KERNELS = ("cfar_detect", "cfar_detect_group", "cfar_rank",
+                      "cfar_rank_group", "cfar3d_detect")
+
+
+def variant_fixed_routes(card: str, dev, pgr: int, pool):
+    """Phase 28c, fixed mode (run first, so that the golden model works in
+    the worker processes meanwhile): make_batch_processor(mode="fixed")
+    "auto" (the FP64 stages, the plain integer cfar_2d; no kernel) at batch
+    128, each variant, per-cell and block; its det maps are held to the
+    golden os_cfar_2d and peak_group on all 128 frames by the workers
+    (collected by the caller).  Timed with CUDA events.  Returns
+    (launches, frames/s, golden futures)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    launches, fps, golden = {}, {}, []
+    for variant in MEAN_VARIANTS:
+        for mode in ("cell", "block"):
+            key = f"{variant}/{mode}/fixed/auto"
+            p = variant_params(P.RadarParams(), variant, mode)
+            batch = torch.as_tensor(make_batch(p, BATCH, seed=23),
+                                    device=dev)
+            proc = pl.make_batch_processor(p, mode="fixed",
+                                           peak_group_radius=pgr, device=dev)
+            kernels.reset_launch_counts()
+            out = proc(batch)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            launches[key] = counts
+            if counts:
+                raise AssertionError(f"route {key}: launches {counts}")
+            golden.append((key, pool.submit(
+                golden_variant_check, (out["mag_map"].cpu().numpy(),
+                                       out["det_map"].cpu().numpy(),
+                                       p.cfar, pgr))))
+            proc = pl.make_batch_processor(p, mode="fixed",
+                                           peak_group_radius=pgr,
+                                           include_maps=False, device=dev)
+            fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 5, 1)
+            log(f"route {key}: no kernel launched; {fps[key]:.1f} frames/s "
+                f"at batch {BATCH} ({int(out['n_dets'].sum())} detections) "
+                f"({card})")
+    return launches, fps, golden
+
+
+def variant_routes(card: str, dev, pgr: int):
+    """Phase 28c, float: the routes of every variant at full width.
+    make_batch_processor at batch 128, per-cell and block: float "auto"
+    (kernel A and kernel B's mean epilogue), "staged" (the plain stages and
+    the plain cfar_2d on the card) and include_debug=True (kernel A, the
+    magnitude-only entry, the plain cfar_2d's taps), frame 0 of each held to
+    the margin gate against the twin route's exact taps.  The array model
+    at 16 cubes (2D per-beam grouped; 3D ref_angle 1, the plain cfar_3d)
+    held to the array gate against the plain path; make_sharded_processor
+    on a LocalMesh at sp 2 (per-cell: the split entry; block: the
+    magnitude-only entry and the plain tail) equal to the single card.
+    Each route timed with CUDA events.  Returns (launches, frames/s,
+    cubes/s)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C
+    from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
+    routes = (("float/auto", dict(), ("range_fft", "slowtime_detect")),
+              ("float/staged", dict(frontend="staged"), ()),
+              ("float/debug", dict(include_debug=True),
+               ("range_fft", "slowtime_mag")))
+    launches, fps, cps = {}, {}, {}
+    for variant in MEAN_VARIANTS:
+        for mode in ("cell", "block"):
+            p = variant_params(P.RadarParams(), variant, mode)
+            batch = torch.as_tensor(make_batch(p, BATCH, seed=23),
+                                    device=dev)
+            ref = pl.make_processor(p, peak_group_radius=pgr,
+                                    frontend="plain", include_debug=True,
+                                    cfar_rank_bits=None, device=dev)(batch[0])
+            single = None
+            for name, kw, need in routes:
+                key = f"{variant}/{mode}/{name}"
+                proc = pl.make_batch_processor(
+                    p, peak_group_radius=pgr, include_maps=False,
+                    device=dev, **kw)
+                kernels.reset_launch_counts()
+                out = proc(batch)
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in kernels.launch_counts().items()
+                          if v}
+                launches[key] = counts
+                missing = [k for k in need if not counts.get(k)]
+                wrong = [k for k in STANDALONE_KERNELS if counts.get(k)]
+                if missing or wrong:
+                    raise AssertionError(f"route {key}: launches {counts}")
+                if name == "float/auto":
+                    single = out
+                ok, report = parity.margin_gate(
+                    parity.detection_set(out, 0), parity.detection_set(ref),
+                    ref["mag_map"].cpu().numpy(),
+                    ref["threshold_map"].cpu().numpy(),
+                    ref["scale_map"].cpu().numpy(), radius=pgr,
+                    capacity=p.tracker.max_dets,
+                    targets=reference.golden_targets(p))
+                if not ok:
+                    raise AssertionError(f"route {key}: margin gate failed: "
+                                         f"{report}")
+                if not bool(torch.isfinite(out["mag"]).all()):
+                    raise AssertionError(f"route {key}: non-finite "
+                                         f"detections")
+                fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 5, 1)
+                log(f"route {key}: launches "
+                    + ", ".join(f"{k}={v}" for k, v in counts.items())
+                    + f"; {fps[key]:.1f} frames/s at batch {BATCH} "
+                    f"({int(out['n_dets'].sum())} detections) ({card})")
+            # The sharded processor on a LocalMesh at sp 2.
+            sproc = SH.make_sharded_processor(
+                M.LocalMesh(1, 2, dev), p, frontend="fused",
+                peak_group_radius=pgr, include_maps=False)
+            kernels.reset_launch_counts()
+            out = sproc(batch)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            key = f"{variant}/{mode}/sharded-sp2"
+            launches[key] = counts
+            need = ("slowtime_detect_split" if mode == "cell"
+                    else "slowtime_mag")
+            diff = [k for k in single if not torch.equal(out[k], single[k])]
+            if diff or not counts.get(need):
+                raise AssertionError(f"{key}: differs from the single card "
+                                     f"in {diff} (launches {counts})")
+            fps[key] = BATCH * 1e3 / cuda_ms(lambda: sproc(batch), 5, 1)
+            log(f"{key}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items())
+                + f"; all outputs bit-equal to the single card; "
+                f"{fps[key]:.1f} frames/s on one card ({card})")
+        # The array model: per-beam 2D grouped (kernel B's epilogue) and 3D
+        # at ref_angle 1 (the plain cfar_3d; no kernel takes CA/GO/SO).
+        beam = matched_beam()
+        p = variant_params(P.RadarParams(), variant)
+        cubes = torch.as_tensor(make_cubes(p, ARRAY_BATCH, seed=24),
+                                device=dev)
+        for name, kw, need in (
+                ("2d", dict(peak_group_radius=pgr, beam_group_radius=1),
+                 ("range_fft_float", "slowtime_detect", "beam_group")),
+                ("3d", dict(ref_angle=1, peak_group_radius=pgr),
+                 ("range_fft_float", "slowtime_mag"))):
+            key = f"{variant}/array-{name}"
+            proc = pl.make_batch_array_processor(
+                p, n_elems=N_ELEMS, n_beams=N_BEAMS, include_maps=False,
+                device=dev, **kw)
+            kernels.reset_launch_counts()
+            out = proc(cubes)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            launches[key] = counts
+            if any(not counts.get(k) for k in need) or counts.get(
+                    "cfar3d_detect"):
+                raise AssertionError(f"{key}: launches {counts}")
+            ref = pl.make_array_processor(p, n_elems=N_ELEMS,
+                                          n_beams=N_BEAMS, frontend="plain",
+                                          device=dev, **kw)(cubes[0])
+            mc = ref["mag_cube"]
+            _, T, S = C.cfar_3d(mc, 0, p.cfar, kw.get("ref_angle", 0),
+                                need_debug=True)
+            ok, report = parity.array_gate(
+                parity.array_set(out, 0), parity.array_set(ref),
+                mc.cpu().numpy(), T.cpu().numpy(), S.cpu().numpy(),
+                radius=pgr, beam_radius=kw.get("beam_group_radius", 0),
+                targets=reference.golden_targets(p), target_beam=beam,
+                capacity=p.tracker.max_dets)
+            del T, S
+            if not ok:
+                raise AssertionError(f"{key}: array gate failed: {report}")
+            cps[key] = ARRAY_BATCH * 1e3 / cuda_ms(lambda: proc(cubes), 5, 1)
+            log(f"{key}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items())
+                + f"; cube 0 vs plain path: {report}; {cps[key]:.1f} "
+                f"cubes/s at {ARRAY_BATCH} cubes ({card})")
+    return launches, fps, cps
+
+
+# Pd/Pfa sweeps on the card: trials cut from the harness's default (32 a
+# SNR, 16 noise frames) to keep the script's time; the 3D sweep to 3 SNRs.
+PD_TRIALS, PD_NOISE = 16, 8
+PD3_TRIALS, PD3_NOISE, PD3_SNRS = 8, 4, (-36, -30, -24)
+
+
+def variant_pd_pfa(card: str, dev):
+    """Phase 28d: utils/eval.pd_pfa at RadarParams() (1024x128) over the
+    four variants through the kernel route, its table, the envelope per
+    variant (Pfa <= 1e-3, Pd non-decreasing in SNR, Pd >= 0.9 at the
+    highest SNR), the same sweep through frontend="plain" on the card
+    (Pd within one trial per SNR, Pfa within 20% or 2 detections), and
+    pd_pfa_3d at 8 x 8.  Returns the results and seconds."""
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.utils import eval as ev
+    p = P.RadarParams()
+    kw = dict(trials=PD_TRIALS, noise_trials=PD_NOISE, device=dev)
+    t0 = time.perf_counter()
+    res = ev.pd_pfa(p, **kw)
+    t1 = time.perf_counter()
+    plain = ev.pd_pfa(p, processor_kw=dict(frontend="plain"), **kw)
+    t2 = time.perf_counter()
+    res3 = ev.pd_pfa_3d(p, trials=PD3_TRIALS, noise_trials=PD3_NOISE,
+                        snr_dbs=PD3_SNRS, device=dev)
+    t3 = time.perf_counter()
+    log(f"Pd/Pfa, 1024x128, {PD_TRIALS} trials a SNR, {PD_NOISE} noise "
+        f"frames, kernel route ({t1 - t0:.1f} s; plain route {t2 - t1:.1f} "
+        f"s) ({card}):")
+    for line in ev.format_table(res).splitlines():
+        log("  " + line)
+    log(f"Pd/Pfa 3D (ref_angle 1, 8 elements x 8 beams), {PD3_TRIALS} "
+        f"trials, {PD3_NOISE} noise cubes ({t3 - t2:.1f} s):")
+    for line in ev.format_table(res3).splitlines():
+        log("  " + line)
+    cells = p.n_range * p.n_doppler * PD_NOISE
+    for v, r in res.items():
+        pd = [r["pd"][s] for s in sorted(r["pd"])]
+        if not (r["pfa"] <= 1e-3 and pd[-1] >= 0.9
+                and all(a <= b for a, b in zip(pd, pd[1:]))):
+            raise AssertionError(f"Pd/Pfa {v} outside its envelope: {r}")
+        q = plain[v]
+        n_k, n_p = r["pfa"] * cells, q["pfa"] * cells
+        if not (all(abs(r["pd"][s] - q["pd"][s]) <= 1 / PD_TRIALS
+                    for s in r["pd"])
+                and abs(n_k - n_p) <= max(2, 0.2 * n_p)):
+            raise AssertionError(f"Pd/Pfa {v}: kernel route {r} vs plain "
+                                 f"route {q}")
+    log("Pd/Pfa: every variant inside the envelope; the plain route within "
+        "one trial per SNR and its Pfa within 20% or 2 detections")
+    return ({"pd_pfa": res, "pd_pfa_plain": plain, "pd_pfa_3d": res3,
+             "trials": PD_TRIALS, "noise_trials": PD_NOISE},
+            {"kernel_s": t1 - t0, "plain_s": t2 - t1, "3d_s": t3 - t2})
+
+
+def variant_timings(card: str, dev, pgr: int, re, im, errs, split_errs,
+                    launches):
+    """Phase 28e: kernel B's CA/GO/SO entries at batch 128 (per-cell and
+    block) and its split entry at sp 4 (a 256-row shard), by CUDA-graph
+    replay and eager, beside their bounds and twins.  Returns the kernel
+    rows."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend as F
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    entry = P.RadarParams()
+    nr, nd = entry.n_range, entry.n_doppler
+    src = "fmcw_tpu_torch/csrc/slowtime_detect.cu"
+    rows = []
+    for variant in MEAN_VARIANTS:
+        for mode in ("cell", "block"):
+            p = variant_params(entry, variant, mode)
+            kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+            ms = graph_ms(lambda: F.slowtime_detect(re, im, False, 0, **kw))
+            eager = cuda_ms(lambda: F.slowtime_detect(re, im, False, 0, **kw))
+            plain = cuda_ms(lambda: F.slowtime_detect_plain(re, im, False, 0,
+                                                            **kw), 2, 1)
+            bound, by = bound_slowtime(BATCH, nr, nd, p.cfar)
+            name = f"slowtime_detect[{variant}, {mode}]"
+            log(f"{name}: {ms:.4f} ms (graph; eager {eager:.4f}), plain "
+                f"{plain:.4f} ms, bound {bound:.4f} ms ({by}) at batch "
+                f"{BATCH} ({card})")
+            rows.append(dict(
+                name=name, route="cuda", source=src,
+                replaces="fmcw_tpu/ops/frontend_pallas.py:623",
+                launches=launches[f"{variant}/{mode}/float/auto"].get(
+                    "slowtime_detect", 0),
+                max_abs_err=errs[variant], ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None))
+    sp = SPLIT_SPS[-1]
+    nrl = nr // sp
+    h = entry.cfar.halo_range + pgr
+    rows_s = slice(nrl, 2 * nrl)                          # shard 1
+    ext = torch.arange(nrl - h, 2 * nrl + h, device=dev) % nr
+    args = (re[:, rows_s].contiguous(), im[:, rows_s].contiguous(),
+            (re[:, ext[:h]].contiguous(), im[:, ext[:h]].contiguous()),
+            (re[:, ext[h + nrl:]].contiguous(),
+             im[:, ext[h + nrl:]].contiguous()), False, 0, nrl)
+    for variant in MEAN_VARIANTS:
+        p = variant_params(entry, variant)
+        kw = dict(cfar=p.cfar, n_range_total=nr, peak_group_radius=pgr)
+        ms = graph_ms(lambda: SF.slowtime_detect_split(*args, **kw))
+        plain = cuda_ms(lambda: SF.slowtime_detect_split_plain(*args, **kw),
+                        2, 1)
+        bound, by = bound_slowtime_split(BATCH, nrl, nd, h, p.cfar)
+        name = f"slowtime_detect_split[{variant}]"
+        log(f"{name} (sp {sp} shard {BATCH}x{nrl}x{nd}): {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
+        rows.append(dict(
+            name=name, route="cuda", source=src,
+            replaces="fmcw_tpu/ops/split_frontend.py:518",
+            launches=launches[f"{variant}/cell/sharded-sp2"].get(
+                "slowtime_detect_split", 0),
+            max_abs_err=split_errs[variant], ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=None))
+    return rows
+
+
+def variant_phase(card: str, dev, pgr: int):
+    """Phase 28: the CA/GO/SO variants (28a-28e above); fixed "auto" first,
+    whose golden checks run in worker processes during the rest.  Returns
+    (kernel rows, summary)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    with cf.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        launches, fps, golden = variant_fixed_routes(card, dev, pgr, pool)
+        t_fixed = time.perf_counter()
+        errs = variant_kernel_checks(dev, pgr)
+        t1 = time.perf_counter()
+        re, im, split_errs = variant_split_checks(dev, pgr)
+        t2 = time.perf_counter()
+        more = variant_routes(card, dev, pgr)
+        launches.update(more[0])
+        fps.update(more[1])
+        cps = more[2]
+        t3 = time.perf_counter()
+        pd, pd_s = variant_pd_pfa(card, dev)
+        t4 = time.perf_counter()
+        rows = variant_timings(card, dev, pgr, re, im, errs, split_errs,
+                               launches)
+        t5 = time.perf_counter()
+        for key, fut in golden:
+            ok, n = fut.result()
+            log(f"route {key}: det maps vs the golden os_cfar_2d on all "
+                f"{BATCH} frames: {'equal' if ok else 'DIFFER'} ({n} "
+                f"detections)")
+            if not ok:
+                raise AssertionError(f"route {key} differs from the golden "
+                                     f"model")
+    t6 = time.perf_counter()
+    log(f"variants phase: 28c fixed {t_fixed - t0:.1f} s, 28a "
+        f"{t1 - t_fixed:.1f} s, 28b {t2 - t1:.1f} s, 28c float "
+        f"{t3 - t2:.1f} s, 28d {t4 - t3:.1f} s, 28e {t5 - t4:.1f} s, golden "
+        f"wait {t6 - t5:.1f} s")
+    return rows, {"frames_per_s": fps, "cubes_per_s": cps,
+                  "launches": launches, "pd": pd, "pd_seconds": pd_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3963,7 +4524,12 @@ def main() -> int:
     log(f"phases 1-26: {time.perf_counter() - t_start:.1f} s")
     hw_rows, hw_summary = hw_stream_phase(card, dev)
 
-    # 28. The kernels line.
+    # 28. The CA/GO/SO variants: kernel B's mean epilogue and its split
+    #     entry against the twins, the routes, Pd/Pfa on the card, timings.
+    log(f"phases 1-27: {time.perf_counter() - t_start:.1f} s")
+    variant_rows, variant_summary = variant_phase(card, dev, pgr)
+
+    # 29. The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
                  source="fmcw_tpu_torch/csrc/range_fft.cu",
@@ -3976,7 +4542,7 @@ def main() -> int:
                          replaces=replaces, launches=launches[mode][1],
                          **results[f"slowtime_detect[{mode}]"]))
     rows += (fixed_rows + array_rows + split_rows + rank_rows + entry_rows
-             + hw_rows)
+             + hw_rows + variant_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
@@ -3993,6 +4559,7 @@ def main() -> int:
                     "nccl": nccl,
                     "surveillance": surveillance,
                     "hw_stream": hw_summary,
+                    "variants": variant_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

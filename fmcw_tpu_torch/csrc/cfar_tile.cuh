@@ -1,6 +1,8 @@
 // Register-blocked 2D OS-CFAR decision on a map tile in shared memory:
 // the counting form of cfar_common.cuh, organised so that each value of the
-// tile is loaded once per strip of cells rather than once per cell.
+// tile is loaded once per strip of cells rather than once per cell; and,
+// a separate compile-time path of decide_tile (kMean, kernel B), the
+// CA/GO/SO variants' window-mean decision on the same strips.
 //
 // A thread owns a strip of kStrip cells of one Doppler column (consecutive
 // rows; the threads of a warp own neighbouring columns, so every shared
@@ -161,8 +163,10 @@ __device__ __forceinline__ int strip_row0(int u, int rows, int D) {
 
 // Per-cell scale, step 1: the full (rows e - hr .. e + hr) and guard (e -
 // gr .. e + gr) column sums of every decided cell, rows ascending, into
-// cs_full / cs_guard (rows x D).  All threads of the block call it.
-template <typename V>
+// cs_full / cs_guard (rows x D); kGuard false: the full ones only (the
+// CA/GO/SO epilogue, which sums its guard boxes itself).  All threads of
+// the block call it.
+template <typename V, bool kGuard = true>
 __device__ void tile_colsums(const V* mag_s, int D, int e_first, int rows,
                              const CfarGeom& g, V* cs_full, V* cs_guard) {
     constexpr int S = kStrip;
@@ -177,13 +181,13 @@ __device__ void tile_colsums(const V* mag_s, int D, int e_first, int rows,
                      [](int) { return true; },
                      [&](int dr, int s, V v) {
                          f[s] = vadd(f[s], v);
-                         if (dr >= g.hr - g.gr && dr <= g.hr + g.gr)
+                         if (kGuard && dr >= g.hr - g.gr && dr <= g.hr + g.gr)
                              gs[s] = vadd(gs[s], v);
                      });
 #pragma unroll
         for (int s = 0; s < S; ++s) {
             cs_full[(i0 + s) * D + d] = f[s];
-            cs_guard[(i0 + s) * D + d] = gs[s];
+            if constexpr (kGuard) cs_guard[(i0 + s) * D + d] = gs[s];
         }
     }
 }
@@ -363,26 +367,228 @@ __device__ __forceinline__ unsigned strip_decide(
     return bits;
 }
 
+// ---------------------------------------------------------------------------
+// CA / GO / SO: the estimate a training-window mean, decided directly
+// (cut > est * scale, no counting), float maps.  The semantics and the
+// association orders of fmcw_tpu/ops/cfar.py::cfar_2d's non-OS branch and
+// its _ref_sums (the twin: ops/cfar.py's cfar_2d), so the decisions
+// are the twin's bit for bit:
+//   * sum_refs = full box - guard box, each box its columns' sums (rows
+//     ascending) added columns ascending (_box2d_sum; strip_ref_sums: the
+//     full columns' sums from tile_colsums<float, false>, the guard box
+//     walked by the strip, as cheap as a third of a column walk);
+//   * GO / SO halves: each row's 2 hd + 1 columns ascending first, then
+//     those row sums, rows ascending (_ref_sums' lead / lag;
+//     strip_half_sums, unrolled for the repository's windows), over
+//     n_half = ref_range x win_doppler cells;
+//   * every add __fadd_rn from -0, IEEE __fdiv_rn by the counts; GO / SO
+//     take the greater / smaller mean, NaN propagating (jnp.maximum);
+//   * per-cell scale: est against 1.5x / 0.5x the training mean.
+// ---------------------------------------------------------------------------
+
+enum MeanVariant { kCA = 1, kGO = 2, kSO = 3 };     // SlowtimeConfig.variant
+
+// sum_refs of the strip's cells (tile rows e0 .. e0 + S - 1, decided rows
+// i0 .., column d): each full box the 2 hd + 1 column sums cs_full of its
+// row (tile_colsums) added ascending, as strip_decide adds them; each
+// guard box its 2 gd + 1 guard columns walked here (2 gr + 1 rows
+// ascending from -0, tile_colsums' guard sums), added ascending.
+template <int S>
+__device__ __forceinline__ void strip_ref_sums(const float* mag_s,
+                                               const float* cs_full, int D,
+                                               int e0, int i0, int d,
+                                               const CfarGeom& g,
+                                               float (&sum_refs)[S]) {
+    float guard[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) guard[s] = -0.0f;
+    const float* row0 = mag_s + (e0 - g.gr) * D;
+    for (int dd = -g.gd; dd <= g.gd; ++dd) {
+        float gs[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) gs[s] = -0.0f;
+        walk_rows<S>(row0 + wrap_col(d + dd, D), D, 2 * g.gr + 1,
+                     [](int) { return true; },
+                     [&](int, int s, float v) {
+                         gs[s] = __fadd_rn(gs[s], v);
+                     });
+#pragma unroll
+        for (int s = 0; s < S; ++s) guard[s] = __fadd_rn(guard[s], gs[s]);
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        const float* cf = cs_full + (i0 + s) * D;
+        float full = -0.0f;
+        for (int j = -g.hd; j <= g.hd; ++j)
+            full = __fadd_rn(full, cf[wrap_col(d + j, D)]);
+        sum_refs[s] = __fsub_rn(full, guard[s]);
+    }
+}
+
+// The lead (window rows 0 .. hr - gr - 1) and lag (hr + gr + 1 .. 2 hr)
+// sums of the strip's cells: each tile row's sum across the window's
+// columns once, added into every cell whose half holds that row.
+template <int S>
+__device__ __forceinline__ void strip_half_sums(const float* mag_s, int D,
+                                                int e0, int d,
+                                                const CfarGeom& g,
+                                                float (&lead)[S],
+                                                float (&lag)[S]) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) lead[s] = lag[s] = -0.0f;
+    const int W = 2 * g.hr + 1;
+    const int lead_end = g.hr - g.gr, lag_begin = g.hr + g.gr + 1;
+    for (int w = 0; w < S - 1 + W; ++w) {
+        const float* row = mag_s + (e0 - g.hr + w) * D;
+        float rs = -0.0f;
+        for (int dd = -g.hd; dd <= g.hd; ++dd)
+            rs = __fadd_rn(rs, row[wrap_col(d + dd, D)]);
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+            const int dr = w - s;               // the row in cell s's window
+            if (dr >= 0 && dr < lead_end)
+                lead[s] = __fadd_rn(lead[s], rs);
+            else if (dr >= lag_begin && dr < W)
+                lag[s] = __fadd_rn(lag[s], rs);
+        }
+    }
+}
+
+// strip_half_sums with the window's rows known at compile time (HR, GR;
+// the repository's windows): the column loop outside, each of the S - 1 +
+// 2 HR + 1 row sums a register that adds its columns ascending (the same
+// sequence of adds per row, column wraps once per column), then each
+// cell's halves from those registers, all indices compile-time.
+template <int S, int HR, int GR>
+__device__ __forceinline__ void strip_half_sums_fixed(const float* mag_s,
+                                                      int D, int e0, int d,
+                                                      const CfarGeom& g,
+                                                      float (&lead)[S],
+                                                      float (&lag)[S]) {
+    constexpr int NR = S - 1 + 2 * HR + 1;
+    float rs[NR];
+#pragma unroll
+    for (int w = 0; w < NR; ++w) rs[w] = -0.0f;
+    const float* row0 = mag_s + (e0 - HR) * D;
+    for (int dd = -g.hd; dd <= g.hd; ++dd) {
+        const float* col = row0 + wrap_col(d + dd, D);
+#pragma unroll
+        for (int w = 0; w < NR; ++w) rs[w] = __fadd_rn(rs[w], col[w * D]);
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        float a = -0.0f, b = -0.0f;
+#pragma unroll
+        for (int r = 0; r < HR - GR; ++r) a = __fadd_rn(a, rs[s + r]);
+#pragma unroll
+        for (int r = HR + GR + 1; r <= 2 * HR; ++r)
+            b = __fadd_rn(b, rs[s + r]);
+        lead[s] = a;
+        lag[s] = b;
+    }
+}
+
+// max / min that return NaN when either operand is NaN (fmaxf / fminf
+// return the other operand).
+__device__ __forceinline__ float max_nan(float a, float b) {
+    return (isnan(a) || isnan(b)) ? __fadd_rn(a, b) : fmaxf(a, b);
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+    return (isnan(a) || isnan(b)) ? __fadd_rn(a, b) : fminf(a, b);
+}
+
+// Does the CA/GO/SO epilogue need sum_refs (and so tile_colsums' full
+// column sums): for CA's estimate, or for the per-cell scale.  GO / SO
+// with a block scale or the override skip it (as JAX's fused epilogue).
+__device__ __forceinline__ bool mean_needs_sums(int variant, bool block,
+                                                int so) {
+    return variant == kCA || (!block && so == 0);
+}
+
+// The CA/GO/SO decisions of one strip as bits (as strip_decide): the scale
+// is the override (so != 0), the block scale (bscale) or, per cell, est
+// against the training mean.  cs_full: tile_colsums' full column sums of
+// the decided rows, where mean_needs_sums.
+__device__ __forceinline__ unsigned strip_decide_mean(
+        const float* mag_s, const float* cs_full, int D, int e0, int i0,
+        int d, const int* bscale, int sb, int so, int variant,
+        const CfarGeom& g) {
+    constexpr int S = kStrip;
+    float sum_refs[S];
+    if (mean_needs_sums(variant, bscale != nullptr, so)) {
+        strip_ref_sums<S>(mag_s, cs_full, D, e0, i0, d, g, sum_refs);
+    } else {
+#pragma unroll
+        for (int s = 0; s < S; ++s) sum_refs[s] = 0.0f;
+    }
+    float est[S];
+    if (variant == kCA) {
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+            est[s] = __fdiv_rn(sum_refs[s], (float)g.n_ref);
+    } else {
+        float lead[S], lag[S];
+        if (g.hr == 6 && g.gr == 2)
+            strip_half_sums_fixed<S, 6, 2>(mag_s, D, e0, d, g, lead, lag);
+        else if (g.hr == 3 && g.gr == 1)
+            strip_half_sums_fixed<S, 3, 1>(mag_s, D, e0, d, g, lead, lag);
+        else
+            strip_half_sums<S>(mag_s, D, e0, d, g, lead, lag);
+        const float n_half = (float)((g.hr - g.gr) * (2 * g.hd + 1));
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+            const float ml = __fdiv_rn(lead[s], n_half);
+            const float mg = __fdiv_rn(lag[s], n_half);
+            est[s] = variant == kGO ? max_nan(ml, mg) : min_nan(ml, mg);
+        }
+    }
+    unsigned bits = 0;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        int sc;
+        if (so != 0) {
+            sc = so;
+        } else if (bscale) {
+            sc = bscale[((e0 + s) / sb) * (D / sb) + d / sb];
+        } else {
+            float t_hi, t_lo;
+            scale_thresholds(sum_refs[s], g.n_ref, t_hi, t_lo);
+            sc = est[s] > t_hi ? g.scale_max
+                               : (est[s] < t_lo ? g.scale_min : g.scale_nom);
+        }
+        if (mag_s[(e0 + s) * D + d] > __fmul_rn(est[s], (float)sc))
+            bits |= 1u << s;
+    }
+    return bits;
+}
+
 // The CFAR decision of the decided rows i = 0 .. rows-1 (tile rows
 // e_first + i) into det_s (rows x D): the CUT where it passes, else 0.
-// Per-cell scale: cs_full / cs_guard from tile_colsums (may alias det_s:
-// every thread has finished reading them before det_s is written);
-// block scale: bscale.  At most 64 / kStrip units a thread (the decisions
-// are held as bits across a barrier).  All threads of the block call it.
-template <typename V, typename Sem = MapSem<V>>
+// OS (kMean false): per-cell scale from cs_full / cs_guard of
+// tile_colsums (may alias det_s: every thread has finished reading them
+// before det_s is written), block scale from bscale.  kMean (float maps):
+// the CA/GO/SO epilogue of ``variant`` (strip_decide_mean), with cs_full
+// the full column sums of tile_colsums<float, false> where
+// mean_needs_sums.  At most 64 / kStrip units a thread (the decisions are
+// held as bits across a barrier).  All threads of the block call it.
+template <typename V, typename Sem = MapSem<V>, bool kMean = false>
 __device__ void decide_tile(const V* mag_s, V* det_s, int e_first, int rows,
                             int D, const V* cs_full, const V* cs_guard,
                             const int* bscale, int sb, int so,
-                            const CfarGeom& g) {
+                            const CfarGeom& g, int variant = 0) {
     const int units = strip_units(rows, D);
     uint64_t bits = 0;
     int sh = 0;
     for (int u = threadIdx.x; u < units; u += blockDim.x, sh += kStrip) {
         const int i0 = strip_row0(u, rows, D);
-        bits |= (uint64_t)strip_decide<V, Sem>(mag_s, D, e_first + i0, i0,
-                                               u % D, cs_full, cs_guard,
-                                               bscale, sb, so, g)
-                << sh;
+        unsigned b;
+        if constexpr (kMean)
+            b = strip_decide_mean(mag_s, cs_full, D, e_first + i0, i0,
+                                  u % D, bscale, sb, so, variant, g);
+        else
+            b = strip_decide<V, Sem>(mag_s, D, e_first + i0, i0, u % D,
+                                     cs_full, cs_guard, bscale, sb, so, g);
+        bits |= (uint64_t)b << sh;
     }
     __syncthreads();
     sh = 0;

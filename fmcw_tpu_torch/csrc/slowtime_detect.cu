@@ -1,6 +1,6 @@
 // Kernel B of the radar front-end on Hopper: slow-time chain (MTI, Doppler
-// window, Doppler FFT), magnitude, 2D OS-CFAR decision and peak grouping on
-// a tile of range rows.
+// window, Doppler FFT), magnitude, 2D CFAR decision (OS, or CA / GO / SO)
+// and peak grouping on a tile of range rows.
 //
 // Replaces the second half of fmcw_tpu/ops/frontend_pallas.py::_kernel
 // (stage 5, the fused slow-time operator; stage 6, the magnitude; the
@@ -44,7 +44,11 @@
 // in float so that each compare's add runs on the FMA pipe, the common
 // windows walked unrolled) and group and store the T rows
 // (cfar_common.cuh).  While one block counts, the other's loads and
-// transforms proceed.
+// transforms proceed.  The CA/GO/SO variants (the fused body's non-OS
+// detect epilogue, frontend_pallas.py:470-507 and split_frontend.py:
+// 350-370) are a second instantiation of the kernel (kMean): the same
+// tile, with cfar_tile.cuh's window-mean decision in place of the counting
+// walks; no compare passes, so no packed-count limit on n_ref.
 //
 // Bound on an H100: operations.  Per 1024x128 frame the CFAR's compares
 // (per-cell: 3 x 128 a cell over 131,072 cells) outweigh the slow-time FFT
@@ -275,14 +279,15 @@ __host__ __device__ inline fmcw::TileLayout layout(const SlowtimeConfig& c) {
 inline bool detect_config_ok(const SlowtimeConfig& c) {
     const int rows = c.T + 2 * c.pgr;
     return fmcw::slowtime_config_ok(c) && rows >= fmcw::kStrip &&
-           c.n_ref <= fmcw::kMaxPackedRef<float> &&
+           c.variant >= 0 && c.variant <= fmcw::kSO &&
+           (c.variant != 0 || c.n_ref <= fmcw::kMaxPackedRef<float>) &&
            (c.notch_mode == 2 || c.notch_mode == 3) &&
            (fmcw::strip_units(rows, c.ND) + kThreads - 1) / kThreads *
                    fmcw::kStrip <= 64 &&
            (size_t)layout(c).total * sizeof(float) <= (size_t)kMaxSmem;
 }
 
-template <int ND, bool kHalo>
+template <int ND, bool kHalo, bool kMean>
 __global__ void __launch_bounds__(kThreads, 2)
 slowtime_detect_kernel(const Params p) {
     extern __shared__ float smem[];
@@ -333,7 +338,8 @@ slowtime_detect_kernel(const Params p) {
     __syncthreads();
 
     // ---- 2. The scale's statistics, then the decision of tile rows
-    //         H-pgr .. H+T+pgr.
+    //         H-pgr .. H+T+pgr: OS by counting, or (kMean) the CA/GO/SO
+    //         window means.
     const fmcw::CfarGeom g{c.hr, c.hd, c.gr, c.gd, c.n_ref, c.k,
                            c.scale_min, c.scale_nom, c.scale_max};
     const int e_first = c.H - c.pgr;
@@ -344,12 +350,23 @@ slowtime_detect_kernel(const Params p) {
                                    bsum, bnb, bhi, blo, bscale);
             scale_blk = bscale;
         }
-    } else if (c.so == 0) {
+    } else if (!kMean && c.so == 0) {
         fmcw::tile_colsums(mag_s, ND, e_first, rows, g, det_s, cs_guard);
         __syncthreads();
     }
-    fmcw::decide_tile(mag_s, det_s, e_first, rows, ND, det_s, cs_guard,
-                      scale_blk, c.sb, c.so, g);
+    if constexpr (kMean) {
+        // The full-window column sums, into det_s, where the training sum
+        // is needed (CA, or the per-cell scale); the strips sum their
+        // guard boxes and the GO/SO halves themselves.
+        if (fmcw::mean_needs_sums(c.variant, c.block_mode, c.so)) {
+            fmcw::tile_colsums<float, false>(mag_s, ND, e_first, rows, g,
+                                             det_s, nullptr);
+            __syncthreads();
+        }
+    }
+    fmcw::decide_tile<float, fmcw::MapSem<float>, kMean>(
+        mag_s, det_s, e_first, rows, ND, det_s, cs_guard, scale_blk, c.sb,
+        c.so, g, c.variant);
 
     // ---- 3. Peak grouping (global row ids), outputs, row maxima and
     //         counts for the T rows.
@@ -407,16 +424,23 @@ slowtime_mag_kernel(const Params p) {
 // Launch
 // ---------------------------------------------------------------------------
 
-template <int ND, bool kHalo>
-int launch(const Params& p, cudaStream_t stream) {
+template <int ND, bool kHalo, bool kMean>
+int launch_decision(const Params& p, cudaStream_t stream) {
     static bool ready[fmcw::kMaxDevices] = {};
-    auto* kernel = slowtime_detect_kernel<ND, kHalo>;
+    auto* kernel = slowtime_detect_kernel<ND, kHalo, kMean>;
     const cudaError_t err = fmcw::prepare(kernel, ready);
     if (err != cudaSuccess) return (int)err;
     const size_t smem = (size_t)layout(p.c).total * sizeof(float);
     const dim3 grid(p.c.R / p.c.T, p.c.batch);
     kernel<<<grid, kThreads, smem, stream>>>(p);
     return (int)cudaGetLastError();
+}
+
+// The OS counting epilogue (variant 0) or the CA/GO/SO one.
+template <int ND, bool kHalo>
+int launch(const Params& p, cudaStream_t stream) {
+    return p.c.variant ? launch_decision<ND, kHalo, true>(p, stream)
+                       : launch_decision<ND, kHalo, false>(p, stream);
 }
 
 template <int ND>
@@ -436,8 +460,9 @@ int launch_mag(const Params& p, cudaStream_t stream) {
 // window; tw: float32 (ND, 2) twiddles exp(-2 pi i m / ND); det: float32
 // (batch, R, ND); mag: same or null; row_max: float32 (batch, R);
 // n_dets/nonfinite: int32 (batch,), zeroed by the caller.  cfg's notch_mode
-// (2 or 3), transient_zero and bypass select the pulse canceller.  Returns
-// the CUDA error code of the launch (0 on success).
+// (2 or 3), transient_zero and bypass select the pulse canceller, its
+// variant the CFAR (0 OS, 1 CA, 2 GO, 3 SO).  Returns the CUDA error code
+// of the launch (0 on success).
 extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
                                     const void* win, const void* tw,
                                     void* det, void* mag, void* row_max,
@@ -497,7 +522,8 @@ extern "C" int fmcw_slowtime_mag(const void* xr, const void* xi,
 // above it, exchanged from the neighbouring shards, all 16-byte aligned;
 // cfg's row_off is the shard's first row in the frame and r_total the
 // frame's rows (grouping ties break by global row ids).  Per-cell scale
-// only.  Outputs as fmcw_slowtime_detect, for the shard's R rows.
+// only, any variant.  Outputs as fmcw_slowtime_detect, for the shard's R
+// rows.
 extern "C" int fmcw_slowtime_detect_split(
         const void* xr, const void* xi, const void* lo_r, const void* lo_i,
         const void* hi_r, const void* hi_i, const void* win, const void* tw,

@@ -23,6 +23,8 @@ the corresponding VHDL component of the reference design:
   rtl/src/radar_core.vhd:396-418 (the AS-BUILT streaming CFAR: crossed-axis
   window over the flat stream, startup skip, label offset, line buffer
   carried across frames), with ``_hw_stream_offsets`` and ``hw_stream_lag``
+* ``os_cfar_1d``                        <- rtl/old/os_cfar.vhd (the 1D
+  lineage detector)
 """
 
 from __future__ import annotations
@@ -463,6 +465,27 @@ def os_cfar_2d_hw_stream(frames: np.ndarray, cfar: CfarParams,
         }
     lr, ld = labels[det] // D, labels[det] % D
     return lr, ld, mag[det]
+
+
+def os_cfar_1d(x: np.ndarray, ref_cells: int = 8, guard_cells: int = 2,
+               rank_idx: int = 12, scaling_mult: int = 4,
+               scaling_div: int = 1, edge_mode: str = "wrap") -> np.ndarray:
+    """1D OS-CFAR (rtl/old/os_cfar.vhd, the lineage detector kept as the DUT
+    of rtl/src/tb_os_cfar.vhd): sliding 2*(ref+guard)+1 window, ascending
+    rank over the 2*ref_cells training cells, fixed threshold
+    ranked * scaling_mult / scaling_div, zero-suppressed output."""
+    x = np.asarray(x, dtype=np.int64)
+    offs = ([-(guard_cells + i) - 1 for i in range(ref_cells)]
+            + [guard_cells + i + 1 for i in range(ref_cells)])
+    if edge_mode == "wrap":
+        refs = np.stack([np.roll(x, -o) for o in offs])
+    else:
+        h = ref_cells + guard_cells
+        xp = np.pad(x, (h, h), mode="reflect")
+        refs = np.stack([xp[h + o: h + o + len(x)] for o in offs])
+    ranked = np.sort(refs, axis=0)[rank_idx]
+    threshold = (ranked * scaling_mult) // scaling_div
+    return np.where(x > threshold, x, 0)
 
 
 def peak_group(det_map: np.ndarray, radius: int = 1) -> np.ndarray:

@@ -46,7 +46,7 @@ class SlowtimeConfig(ctypes.Structure):
         "block_mode", "sb", "n_blk", "k_blk",
         "so", "pgr", "exact_mag",
         "notch_mode", "transient_zero", "bypass", "rnd", "shift",
-        "row_off", "r_total")]
+        "row_off", "r_total", "variant")]
 
 
 class CfarDetectConfig(ctypes.Structure):

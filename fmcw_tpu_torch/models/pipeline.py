@@ -88,10 +88,21 @@ decisions' scale and the plain order statistic over the flat-stream views
 (as JAX's XLA method), not the rank-select kernel.  Per-cell OS only, and no
 fused fixed route (``ValueError``, as JAX).
 
-Not yet ported (they raise ``NotImplementedError``, ROADMAP.md): the
-CA/GO/SO variants and reflect edges, ``fixed_fft="scaled"``, on the
-kernels long CPIs (n_doppler > 128).  The sharded processors are in
-``parallel/sharded.py``.
+The CFAR variants (``CfarParams.variant``: "os", "ca", "go", "so") take
+JAX's dispatch.  Kernel B decides every variant (its CA/GO/SO epilogue,
+``csrc/cfar_tile.cuh``): the float "fused" route and the array model's
+per-beam 2D route.  No standalone kernel takes CA/GO/SO (JAX's
+``cfar_2d_auto`` sends them to its XLA formulation, and its standalone
+Pallas kernels are OS only), so the staged routes, the debug taps and the
+3D CFAR decide them in the plain ``ops/cfar.cfar_2d`` / ``cfar_3d`` on the
+device (``cfar_group_route``, ``cfar3d_route``), then the plain grouping;
+the OS variant keeps its kernels.  The fused fixed route is OS only until
+the fixed slow-time kernel has the epilogue (``ValueError``, as for any
+configuration it does not take); fixed ``auto`` is the staged route.
+
+Not yet ported (they raise ``NotImplementedError``, ROADMAP.md): reflect
+edges, ``fixed_fft="scaled"``, on the kernels long CPIs (n_doppler > 128).
+The sharded processors are in ``parallel/sharded.py``.
 """
 
 from __future__ import annotations
@@ -158,6 +169,30 @@ def _staged_fixed(iq, mti_bypass, p: RadarParams, transient: str,
     mag, sat_d = FX.slowtime_mag_fixed_plain(
         re, im, mti_bypass, p.notch_mode, transient, p.coef_width, rounding)
     return mag, sat_r + sat_d
+
+
+def cfar_group_route(cfar) -> Callable:
+    """The staged routes' CFAR and grouping: the standalone kernel's
+    grouping entry (``cfar_detect_group``) for OS, the plain
+    ``ops/cfar.cfar_2d_group`` for CA/GO/SO."""
+    return cfar_detect_group if cfar.variant == "os" else C.cfar_2d_group
+
+
+def _plain_cfar3d(cube, scale_override=0, *, cfar, ref_angle,
+                  guard_angle=0, prepadded_angle=False):
+    det, _, scale = C.cfar_3d(cube, scale_override, cfar, ref_angle,
+                              guard_angle, prepadded_angle=prepadded_angle)
+    return det, scale
+
+
+def cfar3d_route(cfar, plain: bool) -> Callable:
+    """The angle-extended CFAR's decision, ``cfar3d_detect``'s signature:
+    the 3D CFAR kernel (its twin on "plain") for OS, the plain
+    ``ops/cfar.cfar_3d`` for CA/GO/SO (JAX's ``cfar_3d`` sends them to its
+    XLA body)."""
+    if cfar.variant != "os":
+        return _plain_cfar3d
+    return cfar3d_detect_plain if plain else cfar3d_detect
 
 
 def make_batch_processor(params: RadarParams | None = None,
@@ -296,7 +331,11 @@ def make_batch_processor(params: RadarParams | None = None,
                 iq, bypass, so, hist, streaming)
         elif route == "staged" or include_debug:
             mag, sat, nonfinite = magnitudes(iq, bypass)
-            if include_debug and route != "plain":
+            if include_debug and p.cfar.variant != "os":
+                det, threshold, scale = C.cfar_2d(mag, so, p.cfar,
+                                                  need_debug=True)
+                det = C.peak_group(det, peak_group_radius)
+            elif include_debug and route != "plain":
                 det, threshold, scale, row_max, n_dets = cfar_rank_group(
                     mag, so, cfar=p.cfar, bits=bits,
                     peak_group_radius=peak_group_radius)
@@ -305,7 +344,7 @@ def make_batch_processor(params: RadarParams | None = None,
                                                         bits=bits)
                 det = C.peak_group(det, peak_group_radius)
             else:
-                det, _, row_max, n_dets = cfar_detect_group(
+                det, _, row_max, n_dets = cfar_group_route(p.cfar)(
                     mag, so, cfar=p.cfar, peak_group_radius=peak_group_radius)
         elif mode == "fixed":
             det, mag, sat, row_max, n_dets = FX.rdm_frontend_fixed_detect(
@@ -455,7 +494,7 @@ def make_batch_array_processor(params: RadarParams | None = None,
                  exact_mag=magnitude_exact)
     range_fft = F.range_fft_float_plain if plain else F.range_fft_float
     detect = F.slowtime_detect_plain if plain else F.slowtime_detect
-    cfar3d = cfar3d_detect_plain if plain else cfar3d_detect
+    cfar3d = cfar3d_route(p.cfar, plain)
     group = beam_group_plain if plain else beam_group
 
     def process(iq, mti_bypass=False, scale_override=0) -> dict:
@@ -479,14 +518,13 @@ def make_batch_array_processor(params: RadarParams | None = None,
                                 magnitude_exact).reshape(batch, nb, nr, nd)
             nonfinite = (~torch.isfinite(mag)).sum(dim=(-2, -1))
             if ref_angle == 0:
-                det, _, rmax, ndet = cfar_detect_group(
+                det, _, rmax, ndet = cfar_group_route(p.cfar)(
                     mag, so, cfar=p.cfar, peak_group_radius=peak_group_radius)
                 row_max = rmax.reshape(batch, nb * nr)
                 n_dets = ndet.sum(dim=1)
             else:
-                det, _ = cfar3d_detect(mag, so, cfar=p.cfar,
-                                       ref_angle=ref_angle,
-                                       guard_angle=guard_angle)
+                det, _ = cfar3d(mag, so, cfar=p.cfar, ref_angle=ref_angle,
+                                guard_angle=guard_angle)
                 det = C.peak_group(det, peak_group_radius)
         elif ref_angle == 0:
             # Per-beam 2D decision with in-kernel grouping.

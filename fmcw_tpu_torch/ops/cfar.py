@@ -90,14 +90,33 @@ def _box_sum(p: torch.Tensor, win_r: int, win_d: int) -> torch.Tensor:
     return acc
 
 
+VARIANTS = ("os", "ca", "go", "so")
+
+
 def check_supported(cfar: CfarParams):
-    if cfar.variant != "os":
-        raise NotImplementedError(
-            f"CFAR variant {cfar.variant!r}: the port implements 'os' only "
-            f"so far (CA/GO/SO are queued in ROADMAP.md)")
+    """The plain CFAR functions take every variant (OS, CA, GO, SO) with
+    wrap edges."""
+    if cfar.variant not in VARIANTS:
+        raise ValueError(f"CFAR variant must be one of {VARIANTS}, got "
+                         f"{cfar.variant!r}")
     if cfar.edge_mode != "wrap":
         raise NotImplementedError(
-            f"edge_mode {cfar.edge_mode!r}: the port implements 'wrap' only")
+            f"edge_mode {cfar.edge_mode!r}: the port implements 'wrap' only "
+            f"(reflect edges are queued in ROADMAP.md)")
+
+
+def check_os_supported(cfar: CfarParams):
+    """The standalone CFAR kernels (``csrc/cfar_detect.cu``,
+    ``csrc/cfar_rank.cu``, ``csrc/cfar_3d_detect.cu``) and their twins
+    decide the OS variant only, as JAX's standalone Pallas kernels
+    (``fmcw_tpu/ops/cfar_pallas.py``); CA/GO/SO decide in kernel B or in
+    the plain ``cfar_2d`` / ``cfar_3d``."""
+    check_supported(cfar)
+    if cfar.variant != "os":
+        raise NotImplementedError(
+            f"CFAR variant {cfar.variant!r}: the standalone CFAR kernels "
+            f"decide the OS variant only (CA/GO/SO run in kernel B or the "
+            f"plain ops/cfar.cfar_2d / cfar_3d)")
 
 
 def _q_min(cut: torch.Tensor, scale_f: torch.Tensor) -> torch.Tensor:
@@ -270,31 +289,96 @@ def block_scale(m: torch.Tensor, cfar: CfarParams,
             else scale_map.to(torch.int32))
 
 
-def percell_thresholds(p: torch.Tensor, cfar: CfarParams):
-    """(t_hi, t_lo) of the per-cell adaptive scale of the map padded by the
-    halos in ``p``: the full-window minus guard-window box sums, their mean
-    over n_ref, 1.5x / 0.5x it (integer: mean + (mean >> 1), mean >> 1)."""
+def _sum_refs(p: torch.Tensor, cfar: CfarParams) -> torch.Tensor:
+    """The training-cell sums of the map padded by the halos in ``p``: the
+    full-window minus the guard-window box sum (``_box_sum``'s order, that
+    of ``fmcw_tpu/ops/cfar._box2d_sum``)."""
     hr, hd = cfar.halo_range, cfar.halo_doppler
     gr, gd = cfar.guard_range, cfar.guard_doppler
     R, D = p.shape[-2] - 2 * hr, p.shape[-1] - 2 * hd
     pg = p[..., hr - gr:hr + gr + R, hd - gd:hd + gd + D]
-    sum_refs = (_box_sum(p, cfar.win_range, cfar.win_doppler)
-                - _box_sum(pg, 2 * gr + 1, 2 * gd + 1))
-    return _thresholds(_div(sum_refs, cfar.n_ref))
+    return (_box_sum(p, cfar.win_range, cfar.win_doppler)
+            - _box_sum(pg, 2 * gr + 1, 2 * gd + 1))
+
+
+def percell_thresholds(p: torch.Tensor, cfar: CfarParams):
+    """(t_hi, t_lo) of the per-cell adaptive scale of the map padded by the
+    halos in ``p``: the mean of ``_sum_refs`` over n_ref, 1.5x / 0.5x it
+    (integer: mean + (mean >> 1), mean >> 1)."""
+    return _thresholds(_div(_sum_refs(p, cfar), cfar.n_ref))
+
+
+def _half_sums(p: torch.Tensor, cfar: CfarParams):
+    """(lead, lag, n_half) of the GO/SO estimates: the sums over the
+    ref_range training rows below (lead: dr in [-hr, -gr-1]) and above
+    (lag: dr in [gr+1, hr]) the CUT across the whole window width,
+    ``n_half = ref_range * win_doppler`` cells each.  The association
+    order of ``fmcw_tpu/ops/cfar._ref_sums``: each row's 2 hd + 1 columns
+    ascending first, then those row sums, rows ascending."""
+    hr, hd, gr = cfar.halo_range, cfar.halo_doppler, cfar.guard_range
+    R, D = p.shape[-2] - 2 * hr, p.shape[-1] - 2 * hd
+    rows = p[..., 0:D]
+    for j in range(1, cfar.win_doppler):
+        rows = rows + p[..., j:j + D]
+
+    def half(r0):
+        acc = rows[..., r0:r0 + R, :]
+        for i in range(1, cfar.ref_range):
+            acc = acc + rows[..., r0 + i:r0 + i + R, :]
+        return acc
+
+    return half(0), half(hr + gr + 1), cfar.ref_range * cfar.win_doppler
+
+
+def _window_estimate(p: torch.Tensor, cfar: CfarParams, need_sum: bool):
+    """(est, sum_refs) of the CA/GO/SO variants on the map padded by the
+    halos in ``p`` (``fmcw_tpu/ops/cfar.cfar_2d``): CA the training mean;
+    GO / SO the greater / smaller of the lead and lag means (NaN
+    propagating, as ``jnp.maximum``).  Integer maps divide by floor.
+    ``sum_refs`` (``_sum_refs``) only for CA or ``need_sum`` (the per-cell
+    scale), else None."""
+    sum_refs = (_sum_refs(p, cfar) if cfar.variant == "ca" or need_sum
+                else None)
+    if cfar.variant == "ca":
+        return _div(sum_refs, cfar.n_ref), sum_refs
+    lead, lag, n_half = _half_sums(p, cfar)
+    ml, mg = _div(lead, n_half), _div(lag, n_half)
+    pick = torch.maximum if cfar.variant == "go" else torch.minimum
+    return pick(ml, mg), sum_refs
+
+
+def _classify(est, t_hi, t_lo, cfar: CfarParams) -> torch.Tensor:
+    return torch.where(est > t_hi, cfar.scale_max,
+                       torch.where(est < t_lo, cfar.scale_min,
+                                   cfar.scale_nom)).to(torch.int32)
+
+
+def _decide_direct(m, est, scale, scale_override: int, need_debug: bool):
+    """The CA/GO/SO decision of the map (or cube) ``m``: the override folded
+    into ``scale``, then cut > est * scale directly (no counting).  Returns
+    ``(det, threshold | None, scale)``."""
+    scale = _fold_override(scale, scale_override)
+    threshold = est * scale.to(m.dtype)
+    det = torch.where(m > threshold, m, torch.zeros_like(m))
+    return det, (threshold if need_debug else None), scale
 
 
 def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
             cfar: CfarParams = CfarParams(), need_debug: bool = False,
             scale_map: torch.Tensor | None = None,
             prepadded_range: bool | str = False):
-    """2D OS-CFAR over (..., R, D) magnitude maps, float32 or integer.
+    """2D CFAR over (..., R, D) magnitude maps, float32 or integer, of
+    ``cfar.variant``: OS (decided by counting) or CA / GO / SO (the
+    estimate a training-window mean, ``_window_estimate``, and cut > est
+    * scale decided directly, as ``fmcw_tpu/ops/cfar.cfar_2d``).
 
     Returns ``(det, threshold, scale)``: the zero-suppressed detection map
     (the CUT where it exceeds est*scale, else 0, os_cfar_2d.vhd:204-217;
     float32 or int32 like the map), the threshold est*scale (only with
-    ``need_debug``, else None — it needs the rank stack, (..., R, D, n_ref)
-    values) and the int32 scale map.  ``scale_override`` != 0 replaces the
-    adaptive scale (the cfar_scale_ovr control port, radar_core.vhd:49).
+    ``need_debug``, else None — for OS it needs the rank stack, (..., R, D,
+    n_ref) values) and the int32 scale map.  ``scale_override`` != 0
+    replaces the adaptive scale (the cfar_scale_ovr control port,
+    radar_core.vhd:49).
     ``scale_map`` (block scale only): a precomputed int32 scale map, as
     ``fmcw_tpu/ops/cfar.cfar_2d(scale_map=...)`` takes it.
 
@@ -303,15 +387,17 @@ def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
     not wrap; the outputs have the unpadded rows.  Block scale then needs
     ``scale_map`` (``block_scale_map_sharded``), as in JAX.  ``"both"``:
     the map carries the halos of both axes, (..., R + 2 halo_range, D + 2
-    halo_doppler), and neither axis wraps (per-cell scale only; the
-    hw-compat streaming CFAR's padded buffer, ``hw_stream_decide_plain``)."""
+    halo_doppler), and neither axis wraps (OS with the per-cell scale only;
+    the hw-compat streaming CFAR's padded buffer,
+    ``hw_stream_decide_plain``)."""
     check_supported(cfar)
     hr, hd = cfar.halo_range, cfar.halo_doppler
     m = _as_map(mag)
     integer = not m.is_floating_point()
     if prepadded_range == "both":
-        if cfar.scale_mode != "cell":
-            raise ValueError("prepadded_range='both' takes the per-cell scale")
+        if cfar.scale_mode != "cell" or cfar.variant != "os":
+            raise ValueError("prepadded_range='both' takes the OS variant "
+                             "with the per-cell scale")
         p = m
         m = m[..., hr:m.shape[-2] - hr, hd:m.shape[-1] - hd]
     elif prepadded_range:
@@ -327,6 +413,12 @@ def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
         return p[..., hr + dr:hr + dr + R, hd + dd:hd + dd + D]
 
     scale = block_scale(m, cfar, scale_map, prepadded_range)
+    if cfar.variant != "os":
+        est, sum_refs = _window_estimate(p, cfar, scale is None)
+        if scale is None:
+            scale = _classify(est, *_thresholds(_div(sum_refs, cfar.n_ref)),
+                              cfar)
+        return _decide_direct(m, est, scale, scale_override, need_debug)
     if scale is None:
         t_hi, t_lo = percell_thresholds(p, cfar)
         cnt_hi = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
@@ -384,10 +476,10 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
             cfar: CfarParams = CfarParams(), ref_angle: int = 0,
             guard_angle: int = 0, need_debug: bool = False,
             prepadded_angle: bool = False):
-    """Angle-extended OS-CFAR over (..., A, R, D) magnitude cubes, one
-    (range, Doppler) map per beam, float32 or integer; the plain twin of
-    ``csrc/cfar_3d_detect.cu``.  Semantics of
-    ``fmcw_tpu/ops/cfar.cfar_3d`` (OS variant):
+    """Angle-extended CFAR over (..., A, R, D) magnitude cubes, one
+    (range, Doppler) map per beam, float32 or integer; for the OS variant
+    the plain twin of ``csrc/cfar_3d_detect.cu``.  Semantics of
+    ``fmcw_tpu/ops/cfar.cfar_3d``:
 
     * ``ref_angle == 0``: ``cfar_2d`` on each beam's map;
     * ``ref_angle > 0``: the training set is the 3D box of +-(ref_angle +
@@ -397,9 +489,15 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
       ``cfar.rank_pct`` on the enlarged n_ref, and the adaptive scale is
       always per cell (``cfar.scale_mode`` does not apply, as in JAX).
 
+    CA / GO / SO (``ref_angle > 0``, no kernel; JAX's XLA body): CA the
+    training mean; GO / SO the greater / smaller of the means of the lead
+    and lag sets, the training offsets with dr < -guard_range and dr >
+    guard_range on every plane, each summed in offset order; then cut >
+    est * scale directly.
+
     Returns ``(det, threshold, scale)`` like ``cfar_2d`` (``threshold`` only
-    with ``need_debug``: it stacks n_ref values per cell).  Decided by
-    counting, with the training-set sum taken in the order of JAX's
+    with ``need_debug``: for OS it stacks n_ref values per cell).  OS is
+    decided by counting.  The training-set sum is taken in the order of JAX's
     angle-extended kernel (``cfar_pallas._kernel_detect_3d``): planes da
     ascending, in each the wrap-rolled column sums (dr ascending) added dd
     ascending, then each guard cell of the |da| <= guard_angle planes
@@ -452,6 +550,23 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
             for dr in range(-cfar.guard_range, cfar.guard_range + 1):
                 acc = acc - view(da, dr, dd)
     t_hi, t_lo = _thresholds(_div(acc, n_ref))
+    if cfar.variant != "os":
+        if cfar.variant == "ca":
+            est = _div(acc, n_ref)
+        else:
+            gr = cfar.guard_range
+            lead = [o for o in offs if o[1] < -gr]
+            lag = [o for o in offs if o[1] > gr]
+            means = []
+            for half in (lead, lag):
+                s = view(*half[0])
+                for o in half[1:]:
+                    s = s + view(*o)
+                means.append(_div(s, len(half)))
+            pick = torch.maximum if cfar.variant == "go" else torch.minimum
+            est = pick(*means)
+        return _decide_direct(m, est, _classify(est, t_hi, t_lo, cfar),
+                              scale_override, need_debug)
     cnt_hi = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
     cnt_lo = torch.zeros_like(cnt_hi)
     for o in offs:
@@ -476,6 +591,61 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
         est = torch.topk(refs, k, dim=-1).values[..., -1]
         threshold = est * (scale.to(m.dtype))
     return det, threshold, scale
+
+
+def cfar_1d(x: torch.Tensor, ref_cells: int = 8, guard_cells: int = 2,
+            rank_idx: int = 12, scaling_mult: int = 4, scaling_div: int = 1,
+            axis: int = -1, edge_mode: str = "wrap") -> torch.Tensor:
+    """1D OS-CFAR along ``axis`` (rtl/old/os_cfar.vhd: the rank_idx-th
+    ascending value of the 2 ref_cells training cells beyond guard_cells
+    on each side, a fixed threshold est * scaling_mult / scaling_div), the
+    CUT kept where it exceeds the threshold, else 0.  Port of
+    ``fmcw_tpu/ops/cfar.cfar_1d``: integer inputs floor-divide the
+    threshold (in int32 or wider, so that est * scaling_mult cannot wrap),
+    float inputs multiply by scaling_mult / scaling_div.  ``edge_mode``
+    "wrap" or "reflect" (numpy's: the edge cell not repeated)."""
+    x = x.movedim(axis, -1)
+    n = x.shape[-1]
+    offs = ([-(guard_cells + i) - 1 for i in range(ref_cells)]
+            + [guard_cells + i + 1 for i in range(ref_cells)])
+    pos = torch.arange(n, device=x.device)
+    if edge_mode == "wrap":
+        idx = [(pos + o) % n for o in offs]
+    elif edge_mode == "reflect":
+        if ref_cells + guard_cells >= n:
+            raise ValueError(f"reflect edges need more than "
+                             f"{ref_cells + guard_cells} cells, got {n}")
+        idx = []
+        for o in offs:
+            i = (pos + o).abs()
+            idx.append(torch.where(i >= n, 2 * (n - 1) - i, i))
+    else:
+        raise ValueError(f"edge_mode must be 'wrap' or 'reflect', got "
+                         f"{edge_mode!r}")
+    refs = torch.stack([x[..., i] for i in idx], dim=-1)
+    est = torch.sort(refs, dim=-1).values[..., rank_idx]
+    if x.is_floating_point():
+        threshold = est * (scaling_mult / scaling_div)
+    else:
+        wide = torch.promote_types(x.dtype, torch.int32)
+        threshold = torch.div(est.to(wide) * scaling_mult, scaling_div,
+                              rounding_mode="floor")
+    out = torch.where(x > threshold, x, torch.zeros_like(x))
+    return out.movedim(-1, axis)
+
+
+def cfar_2d_group(mag: torch.Tensor, scale_override: int = 0, *,
+                  cfar: CfarParams, scale_map: torch.Tensor | None = None,
+                  peak_group_radius: int = 0):
+    """The staged routes' CFAR step in plain PyTorch: ``cfar_2d``, then
+    ``peak_group`` of its det map, the row maxima of the grouped map's
+    positive cells (0 where a row has none) and its detection count:
+    ``(det, scale, row_max, n_dets)``, the outputs of
+    ``ops/cfar_detect.cfar_detect_group``."""
+    det, _, scale = cfar_2d(mag, scale_override, cfar, scale_map=scale_map)
+    det = peak_group(det, peak_group_radius)
+    return (det, scale, det.clamp(min=0).amax(dim=-1),
+            (det > 0).sum(dim=(-2, -1)).to(torch.int32))
 
 
 def peak_group(det: torch.Tensor, radius: int = 1,

@@ -43,7 +43,9 @@ MAX_PACKED_REF = {False: 4094, True: 32767}
 def cfar3d_detect_plain(cube: torch.Tensor, scale_override: int = 0, *,
                         cfar: CfarParams, ref_angle: int,
                         guard_angle: int = 0, prepadded_angle: bool = False):
-    """Plain twin: ``ops/cfar.cfar_3d`` -> (det, scale)."""
+    """Plain twin: ``ops/cfar.cfar_3d`` -> (det, scale); OS only, as the
+    kernel (``ops/cfar.check_os_supported``)."""
+    C.check_os_supported(cfar)
     det, _, scale = C.cfar_3d(cube, scale_override, cfar, ref_angle,
                               guard_angle, prepadded_angle=prepadded_angle)
     return det, scale
@@ -92,7 +94,7 @@ def cfar3d_config(shape, cfar: CfarParams, ref_angle: int, guard_angle: int,
     """The kernel's config for a (batch, A, R, D) cube (A + 2 ha planes
     with ``prepadded_angle``); raises NotImplementedError for what the
     kernel does not take."""
-    C.check_supported(cfar)
+    C.check_os_supported(cfar)
     _check_angles(ref_angle, guard_angle)
     if int(scale_override) < 0:
         raise ValueError(f"scale_override must be >= 0, got {scale_override}")

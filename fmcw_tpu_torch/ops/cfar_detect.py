@@ -68,7 +68,9 @@ def cfar_detect_plain(mag: torch.Tensor, scale_override: int = 0, *,
                       cfar: CfarParams,
                       scale_map: torch.Tensor | None = None,
                       prepadded_range: bool = False):
-    """Plain twin: ``ops/cfar.cfar_2d`` -> (det, scale)."""
+    """Plain twin: ``ops/cfar.cfar_2d`` -> (det, scale); OS only, as the
+    kernel (``ops/cfar.check_os_supported``)."""
+    C.check_os_supported(cfar)
     det, _, scale = C.cfar_2d(mag, scale_override, cfar, scale_map=scale_map,
                               prepadded_range=prepadded_range)
     return det, scale
@@ -78,16 +80,13 @@ def cfar_detect_group_plain(mag: torch.Tensor, scale_override: int = 0, *,
                             cfar: CfarParams,
                             scale_map: torch.Tensor | None = None,
                             peak_group_radius: int = 0):
-    """Plain twin of ``cfar_detect_group``: ``cfar_detect_plain``, then
-    ``ops/cfar.peak_group`` of its det map, the row maxima of the grouped
-    map's positive cells (0 where a row has none) and its detection
-    count: ``(det, scale, row_max, n_dets)``."""
-    det, scale = cfar_detect_plain(mag, scale_override, cfar=cfar,
-                                   scale_map=scale_map)
-    det = C.peak_group(det, peak_group_radius)
-    row_max = det.clamp(min=0).amax(dim=-1)
-    n_dets = (det > 0).sum(dim=(-2, -1)).to(torch.int32)
-    return det, scale, row_max, n_dets
+    """Plain twin of ``cfar_detect_group``: ``ops/cfar.cfar_2d_group``
+    (``cfar_2d``, ``peak_group``, the row maxima and the detection count),
+    ``(det, scale, row_max, n_dets)``; OS only, as the kernel."""
+    C.check_os_supported(cfar)
+    return C.cfar_2d_group(mag, scale_override, cfar=cfar,
+                           scale_map=scale_map,
+                           peak_group_radius=peak_group_radius)
 
 
 def tile_bytes(T: int, D: int, hr: int, pgr: int = -1,
@@ -161,7 +160,7 @@ def kernel_inputs(mag: torch.Tensor, scale_override: int, cfar: CfarParams,
     with ``ops/cfar_rank``): returns ``(m (B, R_in, D) contiguous, lead
     dims, R, D, block mode, the int32 (B, R, D) scale map or None)``; the
     block scale map is computed here when none is given."""
-    C.check_supported(cfar)
+    C.check_os_supported(cfar)
     if mag.dtype not in (torch.int32, torch.float32):
         raise ValueError(f"{name} kernel takes int32 or float32 maps, got "
                          f"{mag.dtype}")

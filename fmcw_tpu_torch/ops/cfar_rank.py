@@ -82,7 +82,7 @@ def cfar_rank_plain(mag: torch.Tensor, scale_override: int = 0, *,
                     prepadded_range: bool = False):
     """Plain twin of ``cfar_rank``: ``(det, threshold, scale)`` of (..., R,
     D) maps (see the module docstring)."""
-    C.check_supported(cfar)
+    C.check_os_supported(cfar)
     b = check_bits(bits)
     hr, hd = cfar.halo_range, cfar.halo_doppler
     m = C._as_map(mag)

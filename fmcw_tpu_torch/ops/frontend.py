@@ -11,8 +11,9 @@ turn, as ``fmcw_tpu/ops/split_frontend.py`` splits it across chips:
   kernel takes int16 or float32);
 * ``slowtime_detect`` (kernel B, ``csrc/slowtime_detect.cu``): the
   slow-time chain (MTI, Doppler window, an FP32 Doppler FFT per range row),
-  magnitude, 2D OS-CFAR with per-cell or block scale (``csrc/cfar_tile.cuh``),
-  peak grouping, per-row maxima, detection and non-finite counts;
+  magnitude, 2D CFAR with per-cell or block scale (``csrc/cfar_tile.cuh``:
+  OS by counting, CA/GO/SO from the training-window means), peak
+  grouping, per-row maxima, detection and non-finite counts;
   ``slowtime_mag``, its magnitude-only entry point
   (``rdm_frontend(detect=False)``: the magnitude and the non-finite count,
   no CFAR).  Its twin folds the slow-time chain into one float32 matrix
@@ -85,19 +86,23 @@ def _slowtime_tables(nd: int, device: str):
             torch.as_tensor(tw, device=device))
 
 
-# Kernel B and the fixed slow-time kernel count the training cells in
-# float, hi and lo packed as hi * 4096 + lo (csrc/cfar_tile.cuh): exact up
-# to this many.
+# Kernel B and the fixed slow-time kernel count the OS variant's training
+# cells in float, hi and lo packed as hi * 4096 + lo (csrc/cfar_tile.cuh):
+# exact up to this many.  The CA/GO/SO epilogue counts nothing.
 MAX_PACKED_REFS = 4094
+
+# SlowtimeConfig.variant: kernel B's decision epilogue (csrc/cfar_tile.cuh:
+# the OS counting walks, or the CA/GO/SO window means).
+VARIANT_CODES = {"os": 0, "ca": 1, "go": 2, "so": 3}
 
 
 def _detect_config(cfg, cfar: CfarParams, notch_mode: int, transient: str,
                    mti_bypass, name: str):
     """The slow-time detection entries (kernel B's and the fixed kernel's):
     the shared tile geometry ``cfg`` (``_slowtime_config``) with the MTI
-    fields set; raises NotImplementedError for a training set the packed
-    count does not hold."""
-    if cfar.n_ref > MAX_PACKED_REFS:
+    fields set; raises NotImplementedError for an OS training set the
+    packed count does not hold."""
+    if cfar.variant == "os" and cfar.n_ref > MAX_PACKED_REFS:
         raise NotImplementedError(
             f"{name} kernel: at most {MAX_PACKED_REFS} training cells, got "
             f"{cfar.n_ref}")
@@ -285,12 +290,10 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
                      r_total=None):
     """The kernel-B tile geometry (shared with the fixed-point kernel and
     the split entries, whose map is a range shard of ``r_total`` rows
-    starting at ``row_off``); raises NotImplementedError for what the
-    kernels do not take."""
-    if cfar.variant != "os" or cfar.edge_mode != "wrap":
-        raise NotImplementedError(
-            f"{name} kernel: OS variant with wrap edges only "
-            f"(CA/GO/SO are queued in ROADMAP.md)")
+    starting at ``row_off``), with the CFAR variant (``VARIANT_CODES``; the
+    fixed kernel takes OS only, ``ops/frontend_fixed.check_variant``);
+    raises NotImplementedError for what the kernels do not take."""
+    C.check_supported(cfar)
     if nd not in (16, 32, 64, 128):
         raise NotImplementedError(
             f"{name} kernel: n_doppler in (16, 32, 64, 128), got "
@@ -321,7 +324,8 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
         k_blk=n_blk - min((n_blk * cfar.rank_pct) // 100, n_blk - 1),
         so=int(scale_override), pgr=int(peak_group_radius),
         exact_mag=int(bool(exact_mag)), row_off=int(row_off),
-        r_total=nr if r_total is None else int(r_total))
+        r_total=nr if r_total is None else int(r_total),
+        variant=VARIANT_CODES[cfar.variant])
 
 
 @kernels.counted

@@ -170,6 +170,18 @@ def slowtime_detect_fixed_plain(re, im, mti_bypass=False, scale_override=0,
     return det, (mag if emit_mag else None), row_max, n_dets, sat
 
 
+def check_variant(cfar: CfarParams, name: str) -> None:
+    """The fixed slow-time kernel (``csrc/slowtime_detect_fixed.cu``)
+    decides the OS variant only; its CA/GO/SO epilogue is queued in
+    ROADMAP.md.  Its wrappers raise for the others on any device, and fixed
+    ``auto`` (the staged route) decides them in the plain ``cfar_2d``."""
+    if cfar.variant != "os":
+        raise NotImplementedError(
+            f"{name} kernel: CFAR variant {cfar.variant!r} is not ported to "
+            f"the fixed slow-time kernel yet (queued in ROADMAP.md); "
+            f"mode='fixed' with frontend='auto' runs it")
+
+
 def fixed_config(cfg, cfar: CfarParams, notch_mode: int, transient: str,
                  mti_bypass, coef_width: int, rounding: str, name: str):
     """The fixed slow-time entries' kernel config: the tile geometry
@@ -200,6 +212,7 @@ def slowtime_detect_fixed(re: torch.Tensor, im: torch.Tensor,
         raise ValueError(f"expected re/im (B, nr, nd), got "
                          f"{tuple(re.shape)} and {tuple(im.shape)}")
     check_notch(notch_mode, transient)
+    check_variant(cfar, "slowtime_detect_fixed")
     if F._device_kind(re) == "cpu":
         return slowtime_detect_fixed_plain(
             re, im, mti_bypass, scale_override, cfar=cfar,
@@ -247,8 +260,8 @@ def fused_fixed_detect_supported(p: RadarParams, peak_group_radius: int = 0,
     take.  JAX's limit on the per-cell window (its sum below 2^24, for the
     TPU's float32 sums) does not apply: these kernels sum in int32; their
     float packed count takes at most ``frontend.MAX_PACKED_REFS`` training
-    cells.  CA/GO/SO are queued in ROADMAP.md."""
-    if include_debug:
+    cells.  CA/GO/SO are queued in ROADMAP.md (``check_variant``)."""
+    if include_debug or p.cfar.variant != "os":
         return False
     try:
         F.check_range_geometry(p.n_range, p.n_doppler)

@@ -29,10 +29,12 @@ these entry points:
   within the frame; grouping ties break by GLOBAL row ids (``row_offset``,
   ``n_range_total``).  Row maxima, counts and the fixed kernel's
   Doppler-window saturations cover the shard's own rows: a halo row is
-  counted by the shard that owns it.  Per-cell scale only, as JAX's; the
-  block scale runs the magnitude-only kernel (``detect=False``,
-  ``ops/frontend.slowtime_mag``), ``ops/cfar.block_scale_map_sharded`` and
-  ``ops/cfar_detect.cfar_detect(prepadded_range=True)``
+  counted by the shard that owns it.  Per-cell scale only, as JAX's (every
+  variant on kernel B's entry, OS on the fixed one); the block scale runs
+  the magnitude-only kernel (``detect=False``, ``ops/frontend.
+  slowtime_mag``), ``ops/cfar.block_scale_map_sharded`` and
+  ``ops/cfar_detect.cfar_detect(prepadded_range=True)`` (OS) or the plain
+  ``ops/cfar.cfar_2d(prepadded_range=True)`` (CA/GO/SO)
   (``parallel/sharded.py``).
 * ``split_frontend_frame``: the ``sp == 1`` composition with a self-halo.
 
@@ -171,6 +173,9 @@ def slowtime_detect_split_plain(re, im, halo_lo, halo_hi, mti_bypass=False,
 
 def _split_config(re, cfar, scale_override, peak_group_radius, exact_mag,
                   row_offset, n_range_total, name):
+    """The split entries' tile geometry: per-cell scale only, as JAX's split
+    body (every variant: OS, and CA/GO/SO in kernel B's mean epilogue; the
+    fixed entry checks its variant itself)."""
     if cfar.scale_mode != "cell":
         raise NotImplementedError(
             f"{name} kernel: per-cell scale only (the block scale runs the "
@@ -296,6 +301,7 @@ def slowtime_detect_fixed_split(re: torch.Tensor, im: torch.Tensor,
     if cfar is None:
         raise ValueError("slowtime_detect_fixed_split needs cfar")
     check_notch(notch_mode, transient)
+    FX.check_variant(cfar, "slowtime_detect_fixed_split")
     h = cfar.halo_range + peak_group_radius
     _check_shard(re, im, halo_lo, halo_hi, h, row_offset, n_range_total,
                  "slowtime_detect_fixed_split")

@@ -68,8 +68,14 @@ shard — on a LocalMesh, which holds every shard, the whole maps.
 ``make_sharded_array_processor`` is the array model on the mesh: cubes over
 ``dp``, beams over ``sp`` (see its docstring).
 
+The CFAR variants as on one device: CA/GO/SO per-cell on the float
+"fused" route decide in kernel B's split entry; the block scale, the
+staged and plain tails and the debug taps decide them in the plain
+``ops/cfar.cfar_2d(prepadded_range=True)`` (JAX's ``sharded.py:98-103``:
+its standalone kernel is OS only); the fused fixed route is OS only.
+
 Not ported (raise ``NotImplementedError``, ``ROADMAP.md``): reflect edges
-and CA/GO/SO (as on one device), long CPIs on the kernels (n_doppler > 128).
+(as on one device), long CPIs on the kernels (n_doppler > 128).
 """
 
 from __future__ import annotations
@@ -84,8 +90,7 @@ from ..ops import beamform as BF, cfar as C, detect as DET
 from ..ops import frontend as F, frontend_fixed as FX
 from ..ops import split_frontend as SF
 from ..ops.beam_group import beam_group, beam_group_plain
-from ..ops.cfar3d_detect import cfar3d_detect, cfar3d_detect_plain
-from ..ops.cfar_detect import cfar_detect, cfar_detect_group
+from ..ops.cfar_detect import cfar_detect
 from ..ops.cfar_rank import cfar_rank, cfar_rank_plain, debug_bits
 from ..ops.fft import dft_apply, doppler_apply
 from ..ops.magnitude import magnitude_float
@@ -230,15 +235,18 @@ def split_frontend_supported(p: RadarParams, sp: int) -> bool:
 
 
 def split_detect_supported(p: RadarParams, sp: int,
-                           peak_group_radius: int = 0) -> bool:
-    """Can kernel B's split entry (float32 or fixed) decide on the range
-    shards: ``split_frontend_supported``, the OS variant with wrap edges and
-    per-cell scale, its tile (64 rows + 2 (halo_range + peak_group_radius)
-    halo rows <= 128, ``ops/frontend._slowtime_config``), and a halo that
-    one neighbour holds?"""
+                           peak_group_radius: int = 0,
+                           fixed: bool = False) -> bool:
+    """Can kernel B's split entry (float32, or ``fixed``) decide on the
+    range shards: ``split_frontend_supported``, wrap edges and per-cell
+    scale (any variant for float32, OS for fixed), its tile (64 rows + 2
+    (halo_range + peak_group_radius) halo rows <= 128,
+    ``ops/frontend._slowtime_config``), and a halo that one neighbour
+    holds?"""
     h = p.cfar.halo_range + peak_group_radius
     if (not split_frontend_supported(p, sp) or p.cfar.scale_mode != "cell"
-            or h > p.n_range // sp):
+            or h > p.n_range // sp
+            or (fixed and p.cfar.variant != "os")):
         return False
     try:
         F._slowtime_config(1, p.n_range // sp, p.n_doppler, p.cfar, 0,
@@ -337,7 +345,7 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                 "frontend='fused' with mode='fixed' on an sp-sharded mesh "
                 "runs the split fixed kernels, which take the per-cell "
                 "scale only (as JAX's)")
-        ok = (split_detect_supported(p, sp, pgr) if split_detect
+        ok = (split_detect_supported(p, sp, pgr, fixed) if split_detect
               else split_frontend_supported(p, sp))
         if not ok:
             raise NotImplementedError(
@@ -356,6 +364,7 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
             include_debug=include_debug, cfar_rank_bits=cfar_rank_bits,
             device=dev)
     rank = cfar_rank_plain if route == "plain" else cfar_rank
+    plain_tail = route == "plain" or p.cfar.variant != "os"
     bits = debug_bits(p.cfar, fixed, cfar_rank_bits)
     ring = sp_ring(mesh) if sp > 1 else None
     my_shards = list(range(sp)) if local else [sp_rank]
@@ -405,10 +414,16 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
         for m, (lo, hi), sm in zip(mags, ring.halo(mags, hr), scales):
             m_h = torch.cat([lo, m, hi], dim=-2)
             if include_debug:
-                det, thr, scale = rank(m_h, so, cfar=p.cfar, bits=bits,
-                                       scale_map=sm, prepadded_range=True)
+                if p.cfar.variant == "os":
+                    det, thr, scale = rank(m_h, so, cfar=p.cfar, bits=bits,
+                                           scale_map=sm,
+                                           prepadded_range=True)
+                else:
+                    det, thr, scale = C.cfar_2d(
+                        m_h, so, p.cfar, need_debug=True, scale_map=sm,
+                        prepadded_range=True)
                 scale = scale.to(m.dtype)       # the map's type, as JAX's tap
-            elif route == "plain":
+            elif plain_tail:
                 det, _, scale = C.cfar_2d(m_h, so, p.cfar, scale_map=sm,
                                           prepadded_range=True)
                 thr = None
@@ -585,7 +600,7 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
                  exact_mag=magnitude_exact)
     range_fft = F.range_fft_float_plain if plain else F.range_fft_float
     detect = F.slowtime_detect_plain if plain else F.slowtime_detect
-    cfar3d = cfar3d_detect_plain if plain else cfar3d_detect
+    cfar3d = PL.cfar3d_route(p.cfar, plain)
     group = beam_group_plain if plain else beam_group
     single = None
     if sp == 1:
@@ -622,7 +637,7 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
                                    magnitude_exact).reshape(B, bl, nr, nd)
             nonfinite = (~torch.isfinite(mag)).sum(dim=(-2, -1))
             if ref_angle == 0:
-                det, _, rmax, ndet = cfar_detect_group(
+                det, _, rmax, ndet = PL.cfar_group_route(p.cfar)(
                     mag, so, cfar=p.cfar, peak_group_radius=peak_group_radius)
                 row_max = rmax.reshape(B, bl * nr)
                 n_dets = ndet.sum(dim=1)

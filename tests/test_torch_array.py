@@ -222,6 +222,11 @@ def test_array_processor_routes_and_rejections():
     proc = tpl.make_array_processor(p, device="cpu")
     with pytest.raises(ValueError):
         proc(np.zeros((4, p.n_doppler, p.n_range, 2), np.int16))
+    # CA is ported: kernel B's twin per beam, the plain cfar_3d for the 3D
+    # CFAR (no kernel takes CA); both build and run.
     ca = p.replace(cfar=dataclasses.replace(p.cfar, variant="ca"))
-    with pytest.raises(NotImplementedError):
-        tpl.make_array_processor(ca, device="cpu")
+    cube = np.zeros((8, p.n_doppler, p.n_range, 2), np.int16)
+    for ref_angle in (0, 1):
+        out = tpl.make_array_processor(ca, ref_angle=ref_angle,
+                                       device="cpu")(cube)
+        assert int(out["n_dets"]) == 0

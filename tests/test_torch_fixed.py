@@ -416,10 +416,18 @@ def test_fixed_mode_options_and_gates():
     with pytest.raises(ValueError):
         tpl.make_processor(p, mode="fixed", frontend="fused",
                            cfar_geometry="hw_stream", device="cpu")
+    # CA/GO/SO run on fixed "auto" (the staged route, the plain integer
+    # cfar_2d); the fused fixed kernel decides OS only so far.
     for variant in ("ca", "go", "so"):
-        bad = p.replace(cfar=dataclasses.replace(p.cfar, variant=variant))
-        with pytest.raises(NotImplementedError):
-            tpl.make_processor(bad, mode="fixed", device="cpu")
+        pv = p.replace(cfar=dataclasses.replace(p.cfar, variant=variant))
+        z = tref.two_target_frame(p)
+        out = tpl.make_processor(pv, mode="fixed", device="cpu")(
+            tpl.complex_to_iq(z))
+        _, det = tref.process_frame_fixed(z, pv)
+        assert np.array_equal(out["det_map"].numpy(), det), variant
+        with pytest.raises(ValueError):
+            tpl.make_processor(pv, mode="fixed", frontend="fused",
+                               device="cpu")
     for kw in (dict(window_rounding="nearest"), dict(mti_transient="hold"),
                dict(frontend="pallas")):
         with pytest.raises(ValueError):

@@ -60,7 +60,8 @@ def test_import_loads_neither_jax_nor_fmcw_tpu():
             "fmcw_tpu_torch.utils.checkpoint",
             "fmcw_tpu_torch.runtime.surveillance",
             "fmcw_tpu_torch.runtime.stream",
-            "fmcw_tpu_torch.runtime.native"} <= set(names)
+            "fmcw_tpu_torch.runtime.native",
+            "fmcw_tpu_torch.utils.eval"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -98,6 +99,11 @@ def test_processor_defaults_to_cuda_and_raises_without_it(monkeypatch):
         tpl.make_processor()
     with pytest.raises(RuntimeError, match="CUDA"):
         tpl.make_batch_processor(fmcw_tpu_torch.quick(), device="cuda")
+    # The Pd/Pfa harness runs its processors on the card by default too.
+    from fmcw_tpu_torch.utils import eval as tev
+    for fn in (tev.pd_pfa, tev.pd_pfa_3d):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(fmcw_tpu_torch.quick(), trials=1, noise_trials=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpl.make_array_processor()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -378,8 +384,17 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
     p = fmcw_tpu_torch.quick()
     re = torch.zeros((1, p.n_range, p.n_doppler))
     ca = fmcw_tpu_torch.CfarParams(variant="ca")
-    with pytest.raises(NotImplementedError):
-        F.slowtime_detect(re, re, cfar=ca)
+    # Kernel B decides CA/GO/SO (its mean epilogue, variant code in the
+    # config, no packed-count limit); the fixed slow-time kernel does not
+    # yet, and its wrapper raises before any launch.
+    F.slowtime_detect(re, re, cfar=ca)
+    assert as_if_cuda.calls[-1][0] == "slowtime_detect"
+    assert as_if_cuda.calls[-1][1][9]._obj.variant == 1
+    as_if_cuda.calls.clear()
+    F.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FX.slowtime_detect_fixed(re.to(torch.int16), re.to(torch.int16),
+                                 cfar=ca)
     long_cpi = torch.zeros((1, 128, 256))
     with pytest.raises(NotImplementedError):
         F.slowtime_detect(long_cpi, long_cpi, cfar=p.cfar)

@@ -126,9 +126,12 @@ def test_processor_rejects_wrong_shape_and_unported_modes():
     with pytest.raises(ValueError):
         tpl.make_processor(fmcw_tpu_torch.fast(), cfar_geometry="hw_stream",
                            device="cpu")
-    ca = p.replace(cfar=dataclasses.replace(p.cfar, variant="ca"))
-    with pytest.raises(NotImplementedError):
-        tpl.make_processor(ca, device="cpu")
+    # The CA/GO/SO variants are ported: a processor builds and detects.
+    for variant in ("ca", "go", "so"):
+        pv = p.replace(cfar=dataclasses.replace(p.cfar, variant=variant))
+        out = tpl.make_processor(pv, device="cpu")(
+            tpl.complex_to_iq(tref.two_target_frame(p)))
+        assert int(out["n_dets"]) > 0, variant
     with pytest.raises(ValueError):
         tpl.make_processor(p, frontend="pallas", device="cpu")
 
