@@ -96,7 +96,14 @@ gate; fixed auto against the golden model on all 128 frames, in worker
 processes), the array model (2D, 3D at ref_angle 1) against the array
 gate, a LocalMesh at sp 2 against the single card; the Pd/Pfa sweep of
 the four variants (utils/eval.pd_pfa, 16 trials a SNR, kernel and plain
-routes; pd_pfa_3d); timings.  It prints
+routes; pd_pfa_3d); then the fixed slow-time kernel's CA/GO/SO
+instantiation (28f) against its twin bit for bit (full width per-cell and
+block, overrides 0, 6 and 2^20, the MTI bypassed, grouping radii 0-2, the
+saturating batch, n_doppler 16-64, the 3-pulse MTI, a 17x23 window; its
+split entry at sp 2 and 4) and the fused fixed route of each variant
+(28g: bit-equal to fixed auto, its det maps equal to the golden model on
+all 128 frames, no plain stage; a LocalMesh at sp 2 and 4 equal to the
+single card); timings.  It prints
 the card's name and power limit, one JSON line listing the kernels, and as
 its last line {"ok": true, "device": {...}}.  Any failed check raises,
 and the script then exits non-zero; without CUDA it exits non-zero at
@@ -322,16 +329,37 @@ def bound_range_fft_fixed(B: int, nd: int, nr: int):
     return _bound(nbytes, 0, B * nd * nr * 10, fp64)
 
 
+def _fixed_cfar_ops(cells: int, cfar):
+    """(FP32, INT32) operations of the fixed kernels' CFAR on ``cells``
+    cells (``_cfar_ops`` a cell), each at the rate of the unit that does
+    it: OS's compare-adds at FP32 (the kernel counts the integer
+    magnitudes in float, as kernel B counts its map).  The CA/GO/SO mean
+    epilogue adds its partial sums in float: the box sums' sums down a
+    column (2 of each box's 4 adds, where the box sums are needed) and
+    GO/SO's row sums across the window (2), at FP32; the sums across
+    those partial sums, the floor divisions, the classification and the
+    decision are integer, at INT32."""
+    ops = cells * _cfar_ops(cfar)
+    if cfar.variant == "os":
+        return ops, 0
+    f32 = 0
+    if cfar.variant == "ca" or cfar.scale_mode == "cell":
+        f32 += 2 * 2
+    if cfar.variant != "ca":
+        f32 += 2
+    return cells * f32, ops - cells * f32
+
+
 def bound_slowtime_fixed(B: int, nr: int, nd: int, cfar):
     """Least time for slowtime_detect_fixed: int16 re/im read once, det and
     row maxima written once; FFT and BFP flops as above (FP64); MTI (8),
-    window (10) and magnitude (6) per cell (INT32); the CFAR's compare-adds
-    per cell (FP32: the kernel counts the integer magnitudes in float, as
-    kernel B counts its map).  Peak grouping is left out."""
+    window (10) and magnitude (6) per cell (INT32); the CFAR per cell
+    (``_fixed_cfar_ops``).  Peak grouping is left out."""
     cells = B * nr * nd
     nbytes = cells * 4 + cells * 4 + B * nr * 4 + B * 8
     fp64 = B * nr * (5 * nd * math.log2(nd) + 10 * nd)
-    return _bound(nbytes, cells * _cfar_ops(cfar), cells * 24, fp64)
+    f32, i32 = _fixed_cfar_ops(cells, cfar)
+    return _bound(nbytes, f32, cells * 24 + i32, fp64)
 
 
 def bound_cfar_detect(B: int, nr: int, nd: int, cfar, in_float: bool,
@@ -1772,12 +1800,13 @@ def bound_slowtime_fixed_split(B: int, nrl: int, nd: int, h: int, cfar):
     """Least time for the fixed split entry: int16 rows and halo rows read
     once, det and row maxima written once; FFT and BFP (FP64) and MTI,
     window and magnitude (INT32) on all nrl + 2h rows, the CFAR on the
-    shard's cells (FP32, as ``bound_slowtime_fixed``)."""
+    shard's cells (``_fixed_cfar_ops``, as ``bound_slowtime_fixed``)."""
     rows = B * (nrl + 2 * h)
     cells = B * nrl * nd
     nbytes = rows * nd * 4 + cells * 4 + B * nrl * 4 + B * 8
     fp64 = rows * (5 * nd * math.log2(nd) + 10 * nd)
-    return _bound(nbytes, cells * _cfar_ops(cfar), rows * nd * 24, fp64)
+    f32, i32 = _fixed_cfar_ops(cells, cfar)
+    return _bound(nbytes, f32, rows * nd * 24 + i32, fp64)
 
 
 def split_kernel_checks(dev, pgr: int):
@@ -3903,17 +3932,245 @@ def variant_split_checks(dev, pgr: int):
     return re, im, errs
 
 
+# A scale_override whose product est * scale passes 2^24 (the float32
+# carrier of JAX's fused kernels) and 2^31 (an int32 product).
+LARGE_SO = 1 << 20
+
+
+def _fx_case(what, re, im, p, bypass, so, pgr, kw=None):
+    """The fixed slow-time kernel on int16 planes (re, im) against its twin:
+    magnitudes and the Doppler window's saturations equal, the decision
+    (det, row maxima, n_dets) bit for bit on the kernel's magnitudes.
+    Returns the largest absolute magnitude difference (0)."""
+    import torch
+    from fmcw_tpu_torch.ops import frontend as F, frontend_fixed as FX
+    kw = kw or {}
+    det, mag, rmax, ndet, sat = FX.slowtime_detect_fixed(
+        re, im, bypass, so, cfar=p.cfar, notch_mode=p.notch_mode,
+        peak_group_radius=pgr, emit_mag=True, **kw)
+    pmag, psat = FX.slowtime_mag_fixed_plain(re, im, bypass, p.notch_mode,
+                                             **kw)
+    d2, r2, n2, _ = F.detect_plain(mag, p.cfar, so, pgr)
+    torch.cuda.synchronize()
+    err = int((mag - pmag).abs().max())
+    same = (err == 0 and torch.equal(sat, psat) and torch.equal(det, d2)
+            and torch.equal(rmax, r2) and torch.equal(ndet, n2))
+    log(f"slowtime_detect_fixed {p.cfar.variant} {what} {p.n_range}x"
+        f"{p.n_doppler} {p.cfar.scale_mode} bypass={bypass} so={so} "
+        f"pgr={pgr} {kw}: mag {err} LSB, saturation {int(sat.sum())}, "
+        f"decision {'bit-identical' if same else 'DIFFERS'}, n_dets "
+        f"{int(ndet.min())}..{int(ndet.max())}")
+    if not same:
+        raise AssertionError(f"slowtime_detect_fixed {p.cfar.variant} "
+                             f"{what}: differs from its twin")
+    return float(err)
+
+
+def fixed_variant_kernel_checks(dev, pgr: int):
+    """Phase 28f: the fixed slow-time kernel's CA/GO/SO instantiation
+    (kMean) against its twin, bit for bit (det, mag, row maxima, n_dets,
+    saturations): at full width (batch 128 of 1024x128) each variant,
+    per-cell and block, override 0, 6 and LARGE_SO, the MTI on and
+    bypassed, grouping radius 0, 1 and 2; the saturating hot_batch (16
+    frames); n_doppler 16, 32 and 64 at 256 rows; the 3-pulse MTI with
+    the passthrough transient and biased rounding; the WIDE 17x23 window
+    (over JAX's 372-cell limit).  Then the split entry at sp 2 and 4, the
+    shards of 128 frames fed their neighbours' halo rows: det, magnitudes
+    and row maxima bit-equal to the whole-frame entry's rows, n_dets and
+    saturations summing to its, each shard's magnitudes equal to the
+    twin's on its rows and its decision bit for bit against the twin's on
+    the twin's halo-extended magnitudes.  Returns ({variant: largest
+    magnitude difference} of the whole-frame entry, the same of the split
+    entry, the full-width planes)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    entry = P.RadarParams()
+    iq = torch.as_tensor(make_batch(entry, BATCH, seed=31), device=dev)
+    re, im, _ = FX.range_fft_fixed(iq)
+    hre, him, _ = FX.range_fft_fixed(torch.as_tensor(hot_batch(entry, 16),
+                                                     device=dev))
+    errs = {}
+    for variant in MEAN_VARIANTS:
+        worst = 0.0
+        for mode in ("cell", "block"):
+            p = variant_params(entry, variant, mode)
+            for bypass, so, radius in ((False, 0, pgr), (True, 6, 0),
+                                       (False, LARGE_SO, 1)):
+                worst = max(worst, _fx_case("batch", re, im, p, bypass, so,
+                                            radius))
+            worst = max(worst, _fx_case("hot", hre, him, p, False, 0, pgr))
+        errs[variant] = worst
+        wide = P.CfarParams(variant=variant, ref_range=6, guard_range=2,
+                            ref_doppler=9, guard_doppler=2)
+        for base, radius, kw, bypass, so, mode, cfar in (
+                (P.RadarParams(n_range=256, n_doppler=16), 0, {}, False, 0,
+                 "cell", None),
+                (P.RadarParams(n_range=256, n_doppler=16), pgr, {}, True, 6,
+                 "block", None),
+                (P.RadarParams(n_range=256, n_doppler=32), 1, {}, False, 0,
+                 "cell", None),
+                (P.RadarParams(n_range=256, n_doppler=32), pgr, {}, False,
+                 LARGE_SO, "block", None),
+                (P.RadarParams(n_range=256, n_doppler=64, notch_mode=3), 1,
+                 dict(transient="passthrough", rounding="biased"), False, 0,
+                 "cell", None),
+                (P.RadarParams(n_range=256, n_doppler=64), pgr, {}, False, 0,
+                 "block", None),
+                (P.RadarParams(n_range=256, n_doppler=64), pgr, {}, False, 0,
+                 "cell", wide)):
+            p = variant_params(base, variant, mode)
+            if cfar is not None:
+                p = p.replace(cfar=cfar)
+            batch = hot_batch(p, 4) if cfar is not None else make_batch(
+                p, 4, seed=2)
+            sre, sim, _ = FX.range_fft_fixed(
+                torch.as_tensor(batch, device=dev),
+                rounding=kw.get("rounding", "unbiased"))
+            _fx_case("small" if cfar is None else "wide 17x23", sre, sim, p,
+                     bypass, so, radius, kw)
+    # The split entry (row 6) at sp 2 and 4; the twin's magnitudes of each
+    # MTI setting (a row's depend on that row alone).
+    nr = entry.n_range
+    h = entry.cfar.halo_range + pgr
+    cases = ((False, 0), (True, LARGE_SO))
+    twin_mag = {bypass: FX.slowtime_mag_fixed_plain(re, im, bypass,
+                                                    entry.notch_mode)[0]
+                for bypass, _ in cases}
+    split_errs = {}
+    for variant in MEAN_VARIANTS:
+        p = variant_params(entry, variant)
+        kw = dict(cfar=p.cfar, peak_group_radius=pgr, emit_mag=True)
+        worst = 0
+        for bypass, so in cases:
+            det, mag, rmax, ndet, sat = FX.slowtime_detect_fixed(
+                re, im, bypass, so, **kw)
+            pmag = twin_mag[bypass]
+            for sp in SPLIT_SPS:
+                nrl = nr // sp
+                same, n_sum, s_sum = True, 0, 0
+                for s in range(sp):
+                    rows = slice(s * nrl, (s + 1) * nrl)
+                    ext = torch.arange(s * nrl - h, (s + 1) * nrl + h,
+                                       device=dev) % nr
+                    lo, hi = ext[:h], ext[h + nrl:]
+                    d_s, m_s, r_s, n_s, st = SF.slowtime_detect_fixed_split(
+                        re[:, rows], im[:, rows], (re[:, lo], im[:, lo]),
+                        (re[:, hi], im[:, hi]), bypass, so, s * nrl,
+                        n_range_total=nr, **kw)
+                    d2, r2, n2 = SF.detect_halo_plain(pmag[:, ext], p.cfar,
+                                                      so, pgr, s * nrl, nr)
+                    torch.cuda.synchronize()
+                    err = int((m_s - pmag[:, rows]).abs().max())
+                    worst = max(worst, err)
+                    same &= (err == 0 and torch.equal(d_s, det[:, rows])
+                             and torch.equal(m_s, mag[:, rows])
+                             and torch.equal(r_s, rmax[:, rows])
+                             and torch.equal(d_s, d2)
+                             and torch.equal(r_s, r2)
+                             and torch.equal(n_s, n2))
+                    n_sum, s_sum = n_sum + n_s, s_sum + st
+                same &= torch.equal(n_sum, ndet) and torch.equal(s_sum, sat)
+                log(f"fixed split {variant} sp={sp} bypass={bypass} so={so}: "
+                    f"shards {'bit-equal' if same else 'DIFFER'} to the "
+                    f"whole-frame entry and the twin (mag {worst} LSB, "
+                    f"{int(ndet.sum())} detections)")
+                if not same:
+                    raise AssertionError(f"slowtime_detect_fixed_split "
+                                         f"{variant} sp={sp} differs")
+        split_errs[variant] = float(worst)
+    return errs, split_errs, (re, im)
+
+
+class PlainStages:
+    """Counts the calls of the plain stages and twins a kernel route must
+    not run (the fixed twins, the plain CFAR and grouping), by wrapping
+    them in their modules while the context is open."""
+
+    def __init__(self):
+        from fmcw_tpu_torch.ops import cfar as C, frontend as F
+        from fmcw_tpu_torch.ops import frontend_fixed as FX
+        from fmcw_tpu_torch.ops import split_frontend as SF
+        self.targets = [
+            (FX, "range_fft_fixed_plain"), (FX, "slowtime_mag_fixed_plain"),
+            (FX, "slowtime_detect_fixed_plain"), (F, "detect_plain"),
+            (SF, "slowtime_detect_fixed_split_plain"), (C, "cfar_2d"),
+            (C, "cfar_2d_group"), (C, "peak_group")]
+        self.calls = {}
+
+    def __enter__(self):
+        self.saved = [getattr(m, n) for m, n in self.targets]
+        for (m, n), fn in zip(self.targets, self.saved):
+            def counted(*a, _fn=fn, _n=n, **k):
+                self.calls[_n] = self.calls.get(_n, 0) + 1
+                return _fn(*a, **k)
+            setattr(m, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.targets, self.saved):
+            setattr(m, n, fn)
+        return False
+
+
+def fixed_variant_sharded(card: str, dev, pgr: int):
+    """Phase 28g, sharded: make_sharded_processor(mode="fixed",
+    frontend="fused") on a LocalMesh at sp 2 and 4, each variant per-cell,
+    batch 128: the fixed range kernel's chirp-shard entry and the fixed
+    split entry (kMean) launched, no plain stage, every output bit-equal to
+    the single card's fused route; frames/s on one card.  Returns
+    (launches, frames/s)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
+    launches, fps = {}, {}
+    kw = dict(mode="fixed", frontend="fused", peak_group_radius=pgr,
+              include_maps=False)
+    for variant in MEAN_VARIANTS:
+        p = variant_params(P.RadarParams(), variant)
+        batch = torch.as_tensor(make_batch(p, BATCH, seed=23), device=dev)
+        single = pl.make_batch_processor(p, device=dev, **kw)(batch)
+        for sp in SPLIT_SPS:
+            sproc = SH.make_sharded_processor(M.LocalMesh(1, sp, dev), p,
+                                              **kw)
+            kernels.reset_launch_counts()
+            with PlainStages() as plain:
+                out = sproc(batch)
+                torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            key = f"{variant}/cell/fixed-sharded-sp{sp}"
+            launches[key] = counts
+            need = ("range_frontend_fixed", "slowtime_detect_fixed_split")
+            diff = [k for k in single if not torch.equal(out[k], single[k])]
+            if diff or plain.calls or any(not counts.get(k) for k in need):
+                raise AssertionError(f"{key}: differs from the single card "
+                                     f"in {diff} (launches {counts}, plain "
+                                     f"stages {plain.calls})")
+            fps[key] = BATCH * 1e3 / cuda_ms(lambda: sproc(batch), 5, 1)
+            log(f"{key}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items())
+                + f", no plain stage; all outputs bit-equal to the single "
+                f"card; {fps[key]:.1f} frames/s on one card ({card})")
+    return launches, fps
+
+
 STANDALONE_KERNELS = ("cfar_detect", "cfar_detect_group", "cfar_rank",
                       "cfar_rank_group", "cfar3d_detect")
 
 
 def variant_fixed_routes(card: str, dev, pgr: int, pool):
-    """Phase 28c, fixed mode (run first, so that the golden model works in
-    the worker processes meanwhile): make_batch_processor(mode="fixed")
-    "auto" (the FP64 stages, the plain integer cfar_2d; no kernel) at batch
-    128, each variant, per-cell and block; its det maps are held to the
-    golden os_cfar_2d and peak_group on all 128 frames by the workers
-    (collected by the caller).  Timed with CUDA events.  Returns
+    """Phases 28c and 28g, fixed mode on one card (run first, so that the
+    golden model works in the worker processes meanwhile):
+    make_batch_processor(mode="fixed") at batch 128, each variant,
+    per-cell and block.  "auto" (28c: the FP64 stages, the plain integer
+    cfar_2d; no kernel) and "fused" (28g: range_fft_fixed and
+    slowtime_detect_fixed's CA/GO/SO instantiation, no plain stage); every
+    output of the two routes bit-equal, and the fused route's det maps
+    held to the golden os_cfar_2d and peak_group on all 128 frames by the
+    workers (collected by the caller).  Timed with CUDA events.  Returns
     (launches, frames/s, golden futures)."""
     import torch
     import fmcw_tpu_torch as P
@@ -3922,30 +4179,52 @@ def variant_fixed_routes(card: str, dev, pgr: int, pool):
     launches, fps, golden = {}, {}, []
     for variant in MEAN_VARIANTS:
         for mode in ("cell", "block"):
-            key = f"{variant}/{mode}/fixed/auto"
             p = variant_params(P.RadarParams(), variant, mode)
             batch = torch.as_tensor(make_batch(p, BATCH, seed=23),
                                     device=dev)
-            proc = pl.make_batch_processor(p, mode="fixed",
-                                           peak_group_radius=pgr, device=dev)
-            kernels.reset_launch_counts()
-            out = proc(batch)
-            torch.cuda.synchronize()
-            counts = {k: v for k, v in kernels.launch_counts().items() if v}
-            launches[key] = counts
-            if counts:
-                raise AssertionError(f"route {key}: launches {counts}")
+            outs = {}
+            for fe in ("auto", "fused"):
+                key = f"{variant}/{mode}/fixed/{fe}"
+                proc = pl.make_batch_processor(p, mode="fixed", frontend=fe,
+                                               peak_group_radius=pgr,
+                                               device=dev)
+                kernels.reset_launch_counts()
+                with PlainStages() as plain:
+                    out = proc(batch)
+                    torch.cuda.synchronize()
+                counts = {k: v for k, v in kernels.launch_counts().items()
+                          if v}
+                launches[key] = counts
+                if fe == "auto" and counts:
+                    raise AssertionError(f"route {key}: launches {counts}")
+                if fe == "fused" and (
+                        plain.calls or set(counts) != {
+                            "range_fft_fixed", "slowtime_detect_fixed"}):
+                    raise AssertionError(f"route {key}: launches {counts}, "
+                                         f"plain stages {plain.calls}")
+                outs[fe] = out
+                lean = pl.make_batch_processor(p, mode="fixed", frontend=fe,
+                                               peak_group_radius=pgr,
+                                               include_maps=False, device=dev)
+                fps[key] = BATCH * 1e3 / cuda_ms(lambda: lean(batch), 5, 1)
+                log(f"route {key}: launches "
+                    + (", ".join(f"{k}={v}" for k, v in counts.items())
+                       or "none")
+                    + f"; {fps[key]:.1f} frames/s at batch {BATCH} "
+                    f"({int(out['n_dets'].sum())} detections) ({card})")
+            diff = [k for k in outs["auto"]
+                    if not torch.equal(outs["auto"][k], outs["fused"][k])]
+            if diff:
+                raise AssertionError(f"fixed {variant}/{mode}: fused and "
+                                     f"auto differ in {diff}")
+            log(f"fixed {variant}/{mode}: fused route bit-equal to auto in "
+                f"every output")
+            key = f"{variant}/{mode}/fixed/fused"
             golden.append((key, pool.submit(
-                golden_variant_check, (out["mag_map"].cpu().numpy(),
-                                       out["det_map"].cpu().numpy(),
-                                       p.cfar, pgr))))
-            proc = pl.make_batch_processor(p, mode="fixed",
-                                           peak_group_radius=pgr,
-                                           include_maps=False, device=dev)
-            fps[key] = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 5, 1)
-            log(f"route {key}: no kernel launched; {fps[key]:.1f} frames/s "
-                f"at batch {BATCH} ({int(out['n_dets'].sum())} detections) "
-                f"({card})")
+                golden_variant_check,
+                (outs["fused"]["mag_map"].cpu().numpy(),
+                 outs["fused"]["det_map"].cpu().numpy(), p.cfar, pgr))))
+            del outs
     return launches, fps, golden
 
 
@@ -4140,11 +4419,12 @@ def variant_pd_pfa(card: str, dev):
 
 
 def variant_timings(card: str, dev, pgr: int, re, im, errs, split_errs,
-                    launches):
+                    launches, fixed_planes, fixed_errs, fixed_split_errs):
     """Phase 28e: kernel B's CA/GO/SO entries at batch 128 (per-cell and
-    block) and its split entry at sp 4 (a 256-row shard), by CUDA-graph
-    replay and eager, beside their bounds and twins.  Returns the kernel
-    rows."""
+    block) and its split entry at sp 4 (a 256-row shard), then the fixed
+    slow-time kernel's (kMean, TPU rows 2 and 6) the same way, by
+    CUDA-graph replay and eager, beside their bounds and twins.  Returns
+    the kernel rows."""
     import torch
     import fmcw_tpu_torch as P
     from fmcw_tpu_torch.ops import frontend as F
@@ -4199,13 +4479,60 @@ def variant_timings(card: str, dev, pgr: int, re, im, errs, split_errs,
                 "slowtime_detect_split", 0),
             max_abs_err=split_errs[variant], ms=ms, plain_ms=plain,
             bound_ms=bound, bound_by=by, library_ms=None))
+    # The fixed slow-time kernel's CA/GO/SO instantiation (rows 2 and 6).
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    fre, fim = fixed_planes
+    src = "fmcw_tpu_torch/csrc/slowtime_detect_fixed.cu"
+    for variant in MEAN_VARIANTS:
+        for mode in ("cell", "block"):
+            p = variant_params(entry, variant, mode)
+            kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+            ms = graph_ms(lambda: FX.slowtime_detect_fixed(fre, fim, False, 0,
+                                                           **kw))
+            eager = cuda_ms(lambda: FX.slowtime_detect_fixed(fre, fim, False,
+                                                             0, **kw))
+            plain = cuda_ms(lambda: FX.slowtime_detect_fixed_plain(
+                fre, fim, False, 0, **kw), 2, 1)
+            bound, by = bound_slowtime_fixed(BATCH, nr, nd, p.cfar)
+            name = f"slowtime_detect_fixed[{variant}, {mode}]"
+            log(f"{name}: {ms:.4f} ms (graph; eager {eager:.4f}), plain "
+                f"{plain:.4f} ms, bound {bound:.4f} ms ({by}) at batch "
+                f"{BATCH} ({card})")
+            rows.append(dict(
+                name=name, route="cuda", source=src,
+                replaces="fmcw_tpu/ops/frontend_pallas.py:813",
+                launches=launches[f"{variant}/{mode}/fixed/fused"].get(
+                    "slowtime_detect_fixed", 0),
+                max_abs_err=fixed_errs[variant], ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None))
+    fargs = (fre[:, rows_s].contiguous(), fim[:, rows_s].contiguous(),
+             (fre[:, ext[:h]].contiguous(), fim[:, ext[:h]].contiguous()),
+             (fre[:, ext[h + nrl:]].contiguous(),
+              fim[:, ext[h + nrl:]].contiguous()), False, 0, nrl)
+    for variant in MEAN_VARIANTS:
+        p = variant_params(entry, variant)
+        kw = dict(cfar=p.cfar, n_range_total=nr, peak_group_radius=pgr)
+        ms = graph_ms(lambda: SF.slowtime_detect_fixed_split(*fargs, **kw))
+        plain = cuda_ms(lambda: SF.slowtime_detect_fixed_split_plain(
+            *fargs, **kw), 2, 1)
+        bound, by = bound_slowtime_fixed_split(BATCH, nrl, nd, h, p.cfar)
+        name = f"slowtime_detect_fixed_split[{variant}]"
+        log(f"{name} (sp {sp} shard {BATCH}x{nrl}x{nd}): {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
+        rows.append(dict(
+            name=name, route="cuda", source=src,
+            replaces="fmcw_tpu/ops/split_frontend.py:625",
+            launches=launches[f"{variant}/cell/fixed-sharded-sp2"].get(
+                "slowtime_detect_fixed_split", 0),
+            max_abs_err=fixed_split_errs[variant], ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=None))
     return rows
 
 
 def variant_phase(card: str, dev, pgr: int):
-    """Phase 28: the CA/GO/SO variants (28a-28e above); fixed "auto" first,
-    whose golden checks run in worker processes during the rest.  Returns
-    (kernel rows, summary)."""
+    """Phase 28: the CA/GO/SO variants (28a-28g above); the fixed routes
+    first, whose golden checks run in worker processes during the rest.
+    Returns (kernel rows, summary)."""
     import concurrent.futures as cf
     import multiprocessing as mp
     import os
@@ -4215,6 +4542,9 @@ def variant_phase(card: str, dev, pgr: int):
     with cf.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
         launches, fps, golden = variant_fixed_routes(card, dev, pgr, pool)
         t_fixed = time.perf_counter()
+        fixed_errs, fixed_split_errs, fixed_planes = (
+            fixed_variant_kernel_checks(dev, pgr))
+        t_28f = time.perf_counter()
         errs = variant_kernel_checks(dev, pgr)
         t1 = time.perf_counter()
         re, im, split_errs = variant_split_checks(dev, pgr)
@@ -4223,11 +4553,15 @@ def variant_phase(card: str, dev, pgr: int):
         launches.update(more[0])
         fps.update(more[1])
         cps = more[2]
+        more = fixed_variant_sharded(card, dev, pgr)
+        launches.update(more[0])
+        fps.update(more[1])
         t3 = time.perf_counter()
         pd, pd_s = variant_pd_pfa(card, dev)
         t4 = time.perf_counter()
         rows = variant_timings(card, dev, pgr, re, im, errs, split_errs,
-                               launches)
+                               launches, fixed_planes, fixed_errs,
+                               fixed_split_errs)
         t5 = time.perf_counter()
         for key, fut in golden:
             ok, n = fut.result()
@@ -4238,10 +4572,11 @@ def variant_phase(card: str, dev, pgr: int):
                 raise AssertionError(f"route {key} differs from the golden "
                                      f"model")
     t6 = time.perf_counter()
-    log(f"variants phase: 28c fixed {t_fixed - t0:.1f} s, 28a "
-        f"{t1 - t_fixed:.1f} s, 28b {t2 - t1:.1f} s, 28c float "
-        f"{t3 - t2:.1f} s, 28d {t4 - t3:.1f} s, 28e {t5 - t4:.1f} s, golden "
-        f"wait {t6 - t5:.1f} s")
+    log(f"variants phase: 28c/28g fixed {t_fixed - t0:.1f} s, 28f "
+        f"{t_28f - t_fixed:.1f} s, 28a {t1 - t_28f:.1f} s, 28b "
+        f"{t2 - t1:.1f} s, 28c float and 28g sharded {t3 - t2:.1f} s, 28d "
+        f"{t4 - t3:.1f} s, 28e {t5 - t4:.1f} s, golden wait "
+        f"{t6 - t5:.1f} s")
     return rows, {"frames_per_s": fps, "cubes_per_s": cps,
                   "launches": launches, "pd": pd, "pd_seconds": pd_s}
 

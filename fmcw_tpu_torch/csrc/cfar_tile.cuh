@@ -1,8 +1,9 @@
 // Register-blocked 2D OS-CFAR decision on a map tile in shared memory:
 // the counting form of cfar_common.cuh, organised so that each value of the
 // tile is loaded once per strip of cells rather than once per cell; and,
-// a separate compile-time path of decide_tile (kMean, kernel B), the
-// CA/GO/SO variants' window-mean decision on the same strips.
+// a separate compile-time path of decide_tile (kMean: kernel B and the
+// fixed slow-time kernel), the CA/GO/SO variants' window-mean decision on
+// the same strips.
 //
 // A thread owns a strip of kStrip cells of one Doppler column (consecutive
 // rows; the threads of a warp own neighbouring columns, so every shared
@@ -369,10 +370,13 @@ __device__ __forceinline__ unsigned strip_decide(
 
 // ---------------------------------------------------------------------------
 // CA / GO / SO: the estimate a training-window mean, decided directly
-// (cut > est * scale, no counting), float maps.  The semantics and the
-// association orders of fmcw_tpu/ops/cfar.py::cfar_2d's non-OS branch and
-// its _ref_sums (the twin: ops/cfar.py's cfar_2d), so the decisions
-// are the twin's bit for bit:
+// (cut > est * scale, no counting), templated on the semantics (Sem) as
+// strip_decide is.
+//
+// Float maps (MapSem<float>, kernel B): the semantics and the association
+// orders of fmcw_tpu/ops/cfar.py::cfar_2d's non-OS branch and its _ref_sums
+// (the twin: ops/cfar.py's cfar_2d), so the decisions are the twin's bit
+// for bit:
 //   * sum_refs = full box - guard box, each box its columns' sums (rows
 //     ascending) added columns ascending (_box2d_sum; strip_ref_sums: the
 //     full columns' sums from tile_colsums<float, false>, the guard box
@@ -384,6 +388,16 @@ __device__ __forceinline__ unsigned strip_decide(
 //   * every add __fadd_rn from -0, IEEE __fdiv_rn by the counts; GO / SO
 //     take the greater / smaller mean, NaN propagating (jnp.maximum);
 //   * per-cell scale: est against 1.5x / 0.5x the training mean.
+// Integer maps held in float (IntInFloat, the fixed slow-time kernel;
+// fmcw_tpu/ops/frontend_pallas.py::_detect_epilogue with integer=True):
+//   * a column's or a row's partial sum (at most 2 hr + 1 or 2 hd + 1
+//     magnitudes, below 2^24) stays in float, exact; every sum across
+//     partial sums (the boxes, the halves) accumulates in int (Sem::Acc),
+//     so every sum is exact in any order and any window size;
+//   * floor means (integer division of sums >= 0), t_hi = mean + (mean >>
+//     1), t_lo = mean >> 1;
+//   * the decision est < ceil(cut / sc) (Sem::q's integer), never est * sc
+//     in float (which passes 2^24 under a large override).
 // ---------------------------------------------------------------------------
 
 enum MeanVariant { kCA = 1, kGO = 2, kSO = 3 };     // SlowtimeConfig.variant
@@ -392,16 +406,16 @@ enum MeanVariant { kCA = 1, kGO = 2, kSO = 3 };     // SlowtimeConfig.variant
 // i0 .., column d): each full box the 2 hd + 1 column sums cs_full of its
 // row (tile_colsums) added ascending, as strip_decide adds them; each
 // guard box its 2 gd + 1 guard columns walked here (2 gr + 1 rows
-// ascending from -0, tile_colsums' guard sums), added ascending.
-template <int S>
-__device__ __forceinline__ void strip_ref_sums(const float* mag_s,
-                                               const float* cs_full, int D,
-                                               int e0, int i0, int d,
-                                               const CfarGeom& g,
-                                               float (&sum_refs)[S]) {
-    float guard[S];
+// ascending from -0, tile_colsums' guard sums), added ascending; the adds
+// across columns in Sem::Acc.
+template <int S, typename Sem>
+__device__ __forceinline__ void strip_ref_sums(
+        const float* mag_s, const float* cs_full, int D, int e0, int i0,
+        int d, const CfarGeom& g, typename Sem::Acc (&sum_refs)[S]) {
+    using A = typename Sem::Acc;
+    A guard[S];
 #pragma unroll
-    for (int s = 0; s < S; ++s) guard[s] = -0.0f;
+    for (int s = 0; s < S; ++s) guard[s] = sum_identity<A>();
     const float* row0 = mag_s + (e0 - g.gr) * D;
     for (int dd = -g.gd; dd <= g.gd; ++dd) {
         float gs[S];
@@ -413,29 +427,30 @@ __device__ __forceinline__ void strip_ref_sums(const float* mag_s,
                          gs[s] = __fadd_rn(gs[s], v);
                      });
 #pragma unroll
-        for (int s = 0; s < S; ++s) guard[s] = __fadd_rn(guard[s], gs[s]);
+        for (int s = 0; s < S; ++s)
+            guard[s] = vadd(guard[s], Sem::acc(gs[s]));
     }
 #pragma unroll
     for (int s = 0; s < S; ++s) {
         const float* cf = cs_full + (i0 + s) * D;
-        float full = -0.0f;
+        A full = sum_identity<A>();
         for (int j = -g.hd; j <= g.hd; ++j)
-            full = __fadd_rn(full, cf[wrap_col(d + j, D)]);
-        sum_refs[s] = __fsub_rn(full, guard[s]);
+            full = vadd(full, Sem::acc(cf[wrap_col(d + j, D)]));
+        sum_refs[s] = vsub(full, guard[s]);
     }
 }
 
 // The lead (window rows 0 .. hr - gr - 1) and lag (hr + gr + 1 .. 2 hr)
 // sums of the strip's cells: each tile row's sum across the window's
-// columns once, added into every cell whose half holds that row.
-template <int S>
-__device__ __forceinline__ void strip_half_sums(const float* mag_s, int D,
-                                                int e0, int d,
-                                                const CfarGeom& g,
-                                                float (&lead)[S],
-                                                float (&lag)[S]) {
+// columns once (in float), added into every cell whose half holds that row
+// (in Sem::Acc).
+template <int S, typename Sem>
+__device__ __forceinline__ void strip_half_sums(
+        const float* mag_s, int D, int e0, int d, const CfarGeom& g,
+        typename Sem::Acc (&lead)[S], typename Sem::Acc (&lag)[S]) {
+    using A = typename Sem::Acc;
 #pragma unroll
-    for (int s = 0; s < S; ++s) lead[s] = lag[s] = -0.0f;
+    for (int s = 0; s < S; ++s) lead[s] = lag[s] = sum_identity<A>();
     const int W = 2 * g.hr + 1;
     const int lead_end = g.hr - g.gr, lag_begin = g.hr + g.gr + 1;
     for (int w = 0; w < S - 1 + W; ++w) {
@@ -443,13 +458,14 @@ __device__ __forceinline__ void strip_half_sums(const float* mag_s, int D,
         float rs = -0.0f;
         for (int dd = -g.hd; dd <= g.hd; ++dd)
             rs = __fadd_rn(rs, row[wrap_col(d + dd, D)]);
+        const A ra = Sem::acc(rs);
 #pragma unroll
         for (int s = 0; s < S; ++s) {
             const int dr = w - s;               // the row in cell s's window
             if (dr >= 0 && dr < lead_end)
-                lead[s] = __fadd_rn(lead[s], rs);
+                lead[s] = vadd(lead[s], ra);
             else if (dr >= lag_begin && dr < W)
-                lag[s] = __fadd_rn(lag[s], rs);
+                lag[s] = vadd(lag[s], ra);
         }
     }
 }
@@ -459,12 +475,11 @@ __device__ __forceinline__ void strip_half_sums(const float* mag_s, int D,
 // 2 HR + 1 row sums a register that adds its columns ascending (the same
 // sequence of adds per row, column wraps once per column), then each
 // cell's halves from those registers, all indices compile-time.
-template <int S, int HR, int GR>
-__device__ __forceinline__ void strip_half_sums_fixed(const float* mag_s,
-                                                      int D, int e0, int d,
-                                                      const CfarGeom& g,
-                                                      float (&lead)[S],
-                                                      float (&lag)[S]) {
+template <int S, int HR, int GR, typename Sem>
+__device__ __forceinline__ void strip_half_sums_fixed(
+        const float* mag_s, int D, int e0, int d, const CfarGeom& g,
+        typename Sem::Acc (&lead)[S], typename Sem::Acc (&lag)[S]) {
+    using A = typename Sem::Acc;
     constexpr int NR = S - 1 + 2 * HR + 1;
     float rs[NR];
 #pragma unroll
@@ -477,24 +492,43 @@ __device__ __forceinline__ void strip_half_sums_fixed(const float* mag_s,
     }
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-        float a = -0.0f, b = -0.0f;
+        A a = sum_identity<A>(), b = sum_identity<A>();
 #pragma unroll
-        for (int r = 0; r < HR - GR; ++r) a = __fadd_rn(a, rs[s + r]);
+        for (int r = 0; r < HR - GR; ++r) a = vadd(a, Sem::acc(rs[s + r]));
 #pragma unroll
         for (int r = HR + GR + 1; r <= 2 * HR; ++r)
-            b = __fadd_rn(b, rs[s + r]);
+            b = vadd(b, Sem::acc(rs[s + r]));
         lead[s] = a;
         lag[s] = b;
     }
 }
 
 // max / min that return NaN when either operand is NaN (fmaxf / fminf
-// return the other operand).
+// return the other operand); integers have none.
 __device__ __forceinline__ float max_nan(float a, float b) {
     return (isnan(a) || isnan(b)) ? __fadd_rn(a, b) : fmaxf(a, b);
 }
 __device__ __forceinline__ float min_nan(float a, float b) {
     return (isnan(a) || isnan(b)) ? __fadd_rn(a, b) : fminf(a, b);
+}
+__device__ __forceinline__ int max_nan(int a, int b) { return max(a, b); }
+__device__ __forceinline__ int min_nan(int a, int b) { return min(a, b); }
+
+// A window mean: IEEE division for floats, the floor for integer sums.
+__device__ __forceinline__ float window_mean(float sum, int n) {
+    return __fdiv_rn(sum, (float)n);
+}
+__device__ __forceinline__ int window_mean(int sum, int n) {
+    return floor_div(sum, n);
+}
+
+// cut > est * sc: the rounded float product, or for integers est < ceil(cut
+// / sc) (sc > 0; sc = 0 leaves cut > 0).
+__device__ __forceinline__ bool mean_passes(float cut, float est, int sc) {
+    return cut > __fmul_rn(est, (float)sc);
+}
+__device__ __forceinline__ bool mean_passes(int cut, int est, int sc) {
+    return sc > 0 ? est < detect_threshold(cut, sc) : cut > 0;
 }
 
 // Does the CA/GO/SO epilogue need sum_refs (and so tile_colsums' full
@@ -509,36 +543,39 @@ __device__ __forceinline__ bool mean_needs_sums(int variant, bool block,
 // is the override (so != 0), the block scale (bscale) or, per cell, est
 // against the training mean.  cs_full: tile_colsums' full column sums of
 // the decided rows, where mean_needs_sums.
+template <typename Sem>
 __device__ __forceinline__ unsigned strip_decide_mean(
         const float* mag_s, const float* cs_full, int D, int e0, int i0,
         int d, const int* bscale, int sb, int so, int variant,
         const CfarGeom& g) {
+    using A = typename Sem::Acc;
     constexpr int S = kStrip;
-    float sum_refs[S];
+    A sum_refs[S];
     if (mean_needs_sums(variant, bscale != nullptr, so)) {
-        strip_ref_sums<S>(mag_s, cs_full, D, e0, i0, d, g, sum_refs);
+        strip_ref_sums<S, Sem>(mag_s, cs_full, D, e0, i0, d, g, sum_refs);
     } else {
 #pragma unroll
-        for (int s = 0; s < S; ++s) sum_refs[s] = 0.0f;
+        for (int s = 0; s < S; ++s) sum_refs[s] = A(0);
     }
-    float est[S];
+    A est[S];
     if (variant == kCA) {
 #pragma unroll
-        for (int s = 0; s < S; ++s)
-            est[s] = __fdiv_rn(sum_refs[s], (float)g.n_ref);
+        for (int s = 0; s < S; ++s) est[s] = window_mean(sum_refs[s], g.n_ref);
     } else {
-        float lead[S], lag[S];
+        A lead[S], lag[S];
         if (g.hr == 6 && g.gr == 2)
-            strip_half_sums_fixed<S, 6, 2>(mag_s, D, e0, d, g, lead, lag);
+            strip_half_sums_fixed<S, 6, 2, Sem>(mag_s, D, e0, d, g, lead,
+                                                lag);
         else if (g.hr == 3 && g.gr == 1)
-            strip_half_sums_fixed<S, 3, 1>(mag_s, D, e0, d, g, lead, lag);
+            strip_half_sums_fixed<S, 3, 1, Sem>(mag_s, D, e0, d, g, lead,
+                                                lag);
         else
-            strip_half_sums<S>(mag_s, D, e0, d, g, lead, lag);
-        const float n_half = (float)((g.hr - g.gr) * (2 * g.hd + 1));
+            strip_half_sums<S, Sem>(mag_s, D, e0, d, g, lead, lag);
+        const int n_half = (g.hr - g.gr) * (2 * g.hd + 1);
 #pragma unroll
         for (int s = 0; s < S; ++s) {
-            const float ml = __fdiv_rn(lead[s], n_half);
-            const float mg = __fdiv_rn(lag[s], n_half);
+            const A ml = window_mean(lead[s], n_half);
+            const A mg = window_mean(lag[s], n_half);
             est[s] = variant == kGO ? max_nan(ml, mg) : min_nan(ml, mg);
         }
     }
@@ -551,12 +588,12 @@ __device__ __forceinline__ unsigned strip_decide_mean(
         } else if (bscale) {
             sc = bscale[((e0 + s) / sb) * (D / sb) + d / sb];
         } else {
-            float t_hi, t_lo;
+            A t_hi, t_lo;
             scale_thresholds(sum_refs[s], g.n_ref, t_hi, t_lo);
             sc = est[s] > t_hi ? g.scale_max
                                : (est[s] < t_lo ? g.scale_min : g.scale_nom);
         }
-        if (mag_s[(e0 + s) * D + d] > __fmul_rn(est[s], (float)sc))
+        if (mean_passes(Sem::acc(mag_s[(e0 + s) * D + d]), est[s], sc))
             bits |= 1u << s;
     }
     return bits;
@@ -566,11 +603,12 @@ __device__ __forceinline__ unsigned strip_decide_mean(
 // e_first + i) into det_s (rows x D): the CUT where it passes, else 0.
 // OS (kMean false): per-cell scale from cs_full / cs_guard of
 // tile_colsums (may alias det_s: every thread has finished reading them
-// before det_s is written), block scale from bscale.  kMean (float maps):
-// the CA/GO/SO epilogue of ``variant`` (strip_decide_mean), with cs_full
-// the full column sums of tile_colsums<float, false> where
-// mean_needs_sums.  At most 64 / kStrip units a thread (the decisions are
-// held as bits across a barrier).  All threads of the block call it.
+// before det_s is written), block scale from bscale.  kMean (float tiles:
+// float maps, or IntInFloat): the CA/GO/SO epilogue of ``variant``
+// (strip_decide_mean<Sem>), with cs_full the full column sums of
+// tile_colsums<float, false> where mean_needs_sums.  At most 64 / kStrip
+// units a thread (the decisions are held as bits across a barrier).  All
+// threads of the block call it.
 template <typename V, typename Sem = MapSem<V>, bool kMean = false>
 __device__ void decide_tile(const V* mag_s, V* det_s, int e_first, int rows,
                             int D, const V* cs_full, const V* cs_guard,
@@ -583,8 +621,9 @@ __device__ void decide_tile(const V* mag_s, V* det_s, int e_first, int rows,
         const int i0 = strip_row0(u, rows, D);
         unsigned b;
         if constexpr (kMean)
-            b = strip_decide_mean(mag_s, cs_full, D, e_first + i0, i0,
-                                  u % D, bscale, sb, so, variant, g);
+            b = strip_decide_mean<Sem>(mag_s, cs_full, D, e_first + i0,
+                                       i0, u % D, bscale, sb, so, variant,
+                                       g);
         else
             b = strip_decide<V, Sem>(mag_s, D, e_first + i0, i0, u % D,
                                      cs_full, cs_guard, bscale, sb, so, g);

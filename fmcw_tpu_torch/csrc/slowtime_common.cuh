@@ -31,8 +31,8 @@ struct SlowtimeConfig {
     // The map's first row in the whole frame and the frame's rows (a range
     // shard's place; 0 and R for a whole frame).
     int row_off, r_total;
-    // The CFAR variant, float kernel only: 0 OS (counting), 1 CA, 2 GO,
-    // 3 SO (cfar_tile.cuh's window means).  The fixed kernel takes 0.
+    // The CFAR variant: 0 OS (counting), 1 CA, 2 GO, 3 SO (cfar_tile.cuh's
+    // window means), in both kernels.
     int variant;
 };
 

@@ -1,7 +1,7 @@
 // Fixed-point slow-time half of the radar front-end on Hopper: saturating
 // MTI, Q15 Doppler window with saturation count, Doppler FFT, block-
 // floating-point quantization per range bin, integer magnitude, integer 2D
-// OS-CFAR and peak grouping on a tile of range rows.
+// CFAR (OS, or CA / GO / SO) and peak grouping on a tile of range rows.
 //
 // Replaces the slow-time half of fmcw_tpu/ops/frontend_pallas.py::
 // _kernel_fixed (steps 6-10: quantized range rows through the saturating
@@ -91,6 +91,15 @@
 // kernel B counts, where integer counts would take the integer pipe
 // twice.  Bit-identical to the plain integer CFAR and grouping
 // (ops/cfar.py) on the same magnitudes.
+//
+// The CA/GO/SO variants (_detect_epilogue with integer=True,
+// frontend_pallas.py:466-507, and split_frontend.py:283-375) are a second
+// instantiation (kMean), as kernel B's: cfar_tile.cuh's window-mean
+// epilogue on the same tile with IntInFloat, column and row sums in float
+// (exact), the boxes and halves summed in int, floor means and the
+// decision est < ceil(cut / sc).  It counts nothing, so no packed-count
+// limit on n_ref, and its int sums are exact for every window (JAX's
+// fused kernel carries them in float32, below 2^24 only).
 //
 // Bound on an H100: operations (the CFAR's compares, then the FP64 FFT);
 // the bytes are 0.5 MiB in and 0.5 MiB out per 1024x128 frame.
@@ -376,7 +385,8 @@ __host__ __device__ inline fmcw::TileLayout layout(const SlowtimeConfig& c) {
 inline bool detect_config_ok(const SlowtimeConfig& c) {
     const int rows = c.T + 2 * c.pgr;
     return fmcw::slowtime_config_ok(c) && rows >= fmcw::kStrip &&
-           c.n_ref <= fmcw::kMaxPackedRef<Mag> &&
+           c.variant >= 0 && c.variant <= fmcw::kSO &&
+           (c.variant != 0 || c.n_ref <= fmcw::kMaxPackedRef<Mag>) &&
            (c.notch_mode == 2 || c.notch_mode == 3) && c.shift >= 1 &&
            c.shift <= 30 &&
            (fmcw::strip_units(rows, c.ND) + kThreads - 1) / kThreads *
@@ -384,7 +394,7 @@ inline bool detect_config_ok(const SlowtimeConfig& c) {
            (size_t)layout(c).total * sizeof(int) <= (size_t)kMaxSmem;
 }
 
-template <int ND, bool kHalo>
+template <int ND, bool kHalo, bool kMean>
 __global__ void __launch_bounds__(kThreads, 2)
 slowtime_detect_fixed_kernel(const Params p) {
     extern __shared__ int smem[];
@@ -439,7 +449,8 @@ slowtime_detect_fixed_kernel(const Params p) {
     __syncthreads();
 
     // ---- 2. The scale's statistics, then the decision of tile rows
-    //         H-pgr .. H+T+pgr.
+    //         H-pgr .. H+T+pgr: OS by counting, or (kMean) the CA/GO/SO
+    //         window means.
     const fmcw::CfarGeom g{c.hr, c.hd, c.gr, c.gd, c.n_ref, c.k,
                            c.scale_min, c.scale_nom, c.scale_max};
     const int e_first = c.H - c.pgr;
@@ -451,12 +462,22 @@ slowtime_detect_fixed_kernel(const Params p) {
                                              bscale);
             scale_blk = bscale;
         }
-    } else if (c.so == 0) {
+    } else if (!kMean && c.so == 0) {
         fmcw::tile_colsums(mag_s, ND, e_first, rows, g, det_s, cs_guard);
         __syncthreads();
     }
-    fmcw::decide_tile<Mag, Sem>(mag_s, det_s, e_first, rows, ND, det_s,
-                                cs_guard, scale_blk, c.sb, c.so, g);
+    if constexpr (kMean) {
+        // The full-window column sums, into det_s, where the training sum
+        // is needed (CA, or the per-cell scale).
+        if (fmcw::mean_needs_sums(c.variant, c.block_mode, c.so)) {
+            fmcw::tile_colsums<Mag, false>(mag_s, ND, e_first, rows, g,
+                                           det_s, nullptr);
+            __syncthreads();
+        }
+    }
+    fmcw::decide_tile<Mag, Sem, kMean>(mag_s, det_s, e_first, rows, ND,
+                                       det_s, cs_guard, scale_blk, c.sb,
+                                       c.so, g, c.variant);
 
     // ---- 3. Peak grouping (global row ids), outputs, row maxima and
     //         counts for the T rows.
@@ -472,16 +493,23 @@ slowtime_detect_fixed_kernel(const Params p) {
     }
 }
 
-template <int ND, bool kHalo>
-int launch(const Params& p, cudaStream_t stream) {
+template <int ND, bool kHalo, bool kMean>
+int launch_decision(const Params& p, cudaStream_t stream) {
     static bool ready[fmcw::kMaxDevices] = {};
-    auto* kernel = slowtime_detect_fixed_kernel<ND, kHalo>;
+    auto* kernel = slowtime_detect_fixed_kernel<ND, kHalo, kMean>;
     const cudaError_t err = fmcw::prepare(kernel, ready);
     if (err != cudaSuccess) return (int)err;
     const size_t smem = (size_t)layout(p.c).total * sizeof(int);
     const dim3 grid(p.c.R / p.c.T, p.c.batch);
     kernel<<<grid, kThreads, smem, stream>>>(p);
     return (int)cudaGetLastError();
+}
+
+// The OS counting epilogue (variant 0) or the CA/GO/SO one.
+template <int ND, bool kHalo>
+int launch(const Params& p, cudaStream_t stream) {
+    return p.c.variant ? launch_decision<ND, kHalo, true>(p, stream)
+                       : launch_decision<ND, kHalo, false>(p, stream);
 }
 
 template <bool kHalo>
@@ -501,7 +529,8 @@ int launch_nd(const Params& p, cudaStream_t stream) {
 // complex float64 (ND,) with tw[m] = exp(-2 pi i m / ND), exact at the
 // quarter turns; det: int32 (batch, R, ND); mag: same or null; row_max:
 // int32 (batch, R); n_dets/sat: int32 (batch,), zeroed by the caller.
-// Returns the CUDA error code of the launch (0 on success).
+// cfg's variant selects the CFAR (0 OS, 1 CA, 2 GO, 3 SO).  Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int fmcw_slowtime_detect_fixed(const void* xr, const void* xi,
                                           const void* win, const void* tw,
                                           void* det, void* mag, void* row_max,
@@ -525,7 +554,7 @@ extern "C" int fmcw_slowtime_detect_fixed(const void* xr, const void* xi,
 // (batch, H, ND) the H = halo_range + peak_group_radius rows just below and
 // above it, exchanged from the neighbouring shards, all 8-byte aligned;
 // cfg's row_off and r_total place the shard in the frame.  Per-cell scale
-// only.  Outputs as fmcw_slowtime_detect_fixed, for the shard's R rows; sat
+// only, any variant.  Outputs as fmcw_slowtime_detect_fixed, for the shard's R rows; sat
 // counts the Doppler window's saturations of those rows only.
 extern "C" int fmcw_slowtime_detect_fixed_split(
         const void* xr, const void* xi, const void* lo_r, const void* lo_i,

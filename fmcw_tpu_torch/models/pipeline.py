@@ -27,13 +27,17 @@ and three routes (``frontend``):
 * ``"plain"`` — the kernels' plain twins on ``device`` (the reference the
   kernels are held against).
 
-``"auto"`` takes "fused" for float32 and "staged" for fixed, as JAX's
-``auto`` keeps fixed mode on its XLA chain.  In the port both fixed routes
-transform in float64 and quantize to the golden model's values, so they
-give the same detections.  The fixed staged route's stages up to the
-magnitude are the same plain code the fused kernels' twins are made of
-(``ops/frontend_fixed.*_plain``): staged against fused repeats the
-kernel-against-twin check, and only ``golden.reference.
+``"auto"`` takes "fused" for float32 where the front-end kernels take the
+configuration (``ops/frontend.fused_detect_supported``: kernel A's frame,
+kernel B's tile), else "staged", as JAX's ``auto`` falls back to its XLA
+chain; and "staged" for fixed, as JAX's ``auto`` keeps fixed mode on its
+XLA chain.  The decision is made when the processor is built, before any
+launch; a kernel that fails to build or launch raises.  In the port both
+fixed routes transform in float64 and quantize to the golden model's
+values, so they give the same detections.  The fixed staged route's
+stages up to the magnitude are the same plain code the fused kernels'
+twins are made of (``ops/frontend_fixed.*_plain``): staged against fused
+repeats the kernel-against-twin check, and only ``golden.reference.
 process_frame_fixed`` is an independent witness.
 On a CPU tensor every kernel wrapper takes its plain twin.  The top-K
 selection is a stable PyTorch sort.
@@ -69,9 +73,9 @@ kernel (``ops/cfar3d_detect``), then the cross-beam grouping kernel
 (``ops/beam_group``); "staged" — the plain float transforms per beam, the
 ``cfar_detect`` kernel's grouping entry (2D) or the 3D CFAR kernel and
 plain per-beam grouping, then the cross-beam grouping kernel; "plain" — the
-twins.  "auto" is "fused": a
-shape the kernels cannot take raises their ``NotImplementedError`` at the
-first call on the card and never falls back to the plain transforms.
+twins.  "auto" is "fused" where kernel A and kernel B (or its
+magnitude-only entry, with the 3D CFAR) take the configuration, else
+"staged" (``resolve_array_frontend``).
 
 ``cfar_geometry="hw_stream"`` reproduces the reference's as-built streaming
 CFAR (crossed-axis window over the flat range-major stream, startup skip,
@@ -96,9 +100,10 @@ per-beam 2D route.  No standalone kernel takes CA/GO/SO (JAX's
 Pallas kernels are OS only), so the staged routes, the debug taps and the
 3D CFAR decide them in the plain ``ops/cfar.cfar_2d`` / ``cfar_3d`` on the
 device (``cfar_group_route``, ``cfar3d_route``), then the plain grouping;
-the OS variant keeps its kernels.  The fused fixed route is OS only until
-the fixed slow-time kernel has the epilogue (``ValueError``, as for any
-configuration it does not take); fixed ``auto`` is the staged route.
+the OS variant keeps its kernels.  The fused fixed route decides every
+variant in the fixed slow-time kernel (its integer window-mean epilogue,
+as JAX's ``_kernel_fixed``); fixed ``auto`` is the staged route, as in
+JAX.
 
 Not yet ported (they raise ``NotImplementedError``, ROADMAP.md): reflect
 edges, ``fixed_fft="scaled"``, on the kernels long CPIs (n_doppler > 128).
@@ -137,15 +142,27 @@ def complex_to_iq(frame: np.ndarray) -> np.ndarray:
     return np.stack([z.real, z.imag], axis=-1).astype(np.int16)
 
 
-def resolve_frontend(mode: str, frontend: str) -> str:
-    """The route ``frontend`` names: "auto" is "fused" for float32 and
-    "staged" for fixed."""
+def resolve_frontend(mode: str, frontend: str,
+                     p: RadarParams | None = None,
+                     peak_group_radius: int = 0,
+                     mag_only: bool = False) -> str:
+    """The route ``frontend`` names.  "auto" is "staged" for fixed; for
+    float32 it is "fused" where the front-end kernels take ``p``
+    (``ops/frontend.fused_detect_supported``, with ``peak_group_radius``
+    and ``mag_only`` as there; decided here, before any launch), else
+    "staged", as JAX's "auto" falls back to its XLA chain.  Without ``p``
+    the float32 "auto" is "fused"."""
     if frontend not in FRONTENDS:
         raise ValueError(f"frontend must be one of {FRONTENDS}, got "
                          f"{frontend!r}")
-    if frontend == "auto":
-        return "fused" if mode == "float32" else "staged"
-    return frontend
+    if frontend != "auto":
+        return frontend
+    if mode != "float32":
+        return "staged"
+    if p is None or F.fused_detect_supported(p, peak_group_radius,
+                                             mag_only):
+        return "fused"
+    return "staged"
 
 
 def _staged_float(re, im, mti_bypass, p: RadarParams, transient: str,
@@ -252,7 +269,8 @@ def make_batch_processor(params: RadarParams | None = None,
         raise ValueError(f"cfar_geometry must be 'named' or 'hw_stream', got "
                          f"{cfar_geometry!r}")
     hw = cfar_geometry == "hw_stream"
-    route = resolve_frontend(mode, frontend)
+    route = resolve_frontend(mode, frontend, p, peak_group_radius,
+                             mag_only=hw or include_debug)
     if hw:
         C.check_hw_stream(p.cfar)
         if mode == "fixed" and route == "fused":
@@ -268,7 +286,7 @@ def make_batch_processor(params: RadarParams | None = None,
                 p, peak_group_radius, include_debug):
             raise ValueError(
                 "frontend='fused' with mode='fixed' runs the fused "
-                "fixed-point kernels, which need an OS wrap-edge CfarParams "
+                "fixed-point kernels, which need a wrap-edge CfarParams "
                 "fitting their tile and no debug taps "
                 "(fused_fixed_detect_supported)")
     max_dets = p.tracker.max_dets
@@ -396,6 +414,7 @@ def make_batch_processor(params: RadarParams | None = None,
             return out, carry[0]
 
         process.stream = stream
+    process.route = route
     return process
 
 
@@ -440,12 +459,15 @@ def make_processor(params: RadarParams | None = None, **kw) -> Callable:
 # The array-radar model
 # ---------------------------------------------------------------------------
 
-def resolve_array_frontend(frontend: str) -> str:
+def resolve_array_frontend(frontend: str, p: RadarParams | None = None,
+                           ref_angle: int = 0,
+                           peak_group_radius: int = 0) -> str:
     """The array model's route: "fused", "staged" or "plain"; "auto" is
-    "fused", whatever the configuration.  Unlike JAX's, which falls back to
-    its XLA chain, a shape the kernels cannot take is not routed around:
-    their wrappers raise ``NotImplementedError`` on the card."""
-    return resolve_frontend("float32", frontend)
+    "fused" where kernel A and kernel B (``ref_angle == 0``) or its
+    magnitude-only entry (``ref_angle > 0``) take ``p``, else "staged"
+    (``resolve_frontend``), as JAX's falls back to its XLA chain."""
+    return resolve_frontend("float32", frontend, p, peak_group_radius,
+                            mag_only=ref_angle > 0)
 
 
 def make_batch_array_processor(params: RadarParams | None = None,
@@ -485,7 +507,7 @@ def make_batch_array_processor(params: RadarParams | None = None,
     p = params or RadarParams()
     dev = resolve_device(device)
     C.check_supported(p.cfar)
-    route = resolve_array_frontend(frontend)
+    route = resolve_array_frontend(frontend, p, ref_angle, peak_group_radius)
     BF.steering_matrix(n_elems, n_beams, spacing_wl, max_angle_deg, taper)
     nr, nd, nb = p.n_range, p.n_doppler, n_beams
     max_dets = p.tracker.max_dets

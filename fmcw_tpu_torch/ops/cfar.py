@@ -356,10 +356,16 @@ def _classify(est, t_hi, t_lo, cfar: CfarParams) -> torch.Tensor:
 def _decide_direct(m, est, scale, scale_override: int, need_debug: bool):
     """The CA/GO/SO decision of the map (or cube) ``m``: the override folded
     into ``scale``, then cut > est * scale directly (no counting).  Returns
-    ``(det, threshold | None, scale)``."""
+    ``(det, threshold | None, scale)``.  Integer maps compare in int64, as
+    the golden model does: est * scale wraps int32 once a large override
+    passes 2^31 / est."""
     scale = _fold_override(scale, scale_override)
     threshold = est * scale.to(m.dtype)
-    det = torch.where(m > threshold, m, torch.zeros_like(m))
+    if m.is_floating_point():
+        keep = m > threshold
+    else:
+        keep = m.to(torch.int64) > est.to(torch.int64) * scale.to(torch.int64)
+    det = torch.where(keep, m, torch.zeros_like(m))
     return det, (threshold if need_debug else None), scale
 
 

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..params import CfarParams
+from ..params import CfarParams, RadarParams
 from . import cfar as C
 from .fft import dft_apply, doppler_apply
 from .magnitude import magnitude_float
@@ -290,9 +290,9 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
                      r_total=None):
     """The kernel-B tile geometry (shared with the fixed-point kernel and
     the split entries, whose map is a range shard of ``r_total`` rows
-    starting at ``row_off``), with the CFAR variant (``VARIANT_CODES``; the
-    fixed kernel takes OS only, ``ops/frontend_fixed.check_variant``);
-    raises NotImplementedError for what the kernels do not take."""
+    starting at ``row_off``), with the CFAR variant (``VARIANT_CODES``,
+    taken by both kernels); raises NotImplementedError for what the
+    kernels do not take."""
     C.check_supported(cfar)
     if nd not in (16, 32, 64, 128):
         raise NotImplementedError(
@@ -423,6 +423,28 @@ def slowtime_mag(re: torch.Tensor, im: torch.Tensor, mti_bypass=False, *,
 # ---------------------------------------------------------------------------
 # The fused front-end
 # ---------------------------------------------------------------------------
+
+def fused_detect_supported(p: RadarParams, peak_group_radius: int = 0,
+                           mag_only: bool = False) -> bool:
+    """Do the front-end kernels take ``p``'s frame and CFAR: kernel A's
+    frame, and kernel B's tile (``mag_only``: its magnitude-only entry,
+    which the debug taps and the hw-compat CFAR run)?  Asked of the
+    kernels' own checks, before any launch; the counterpart of
+    ``fmcw_tpu/models/pipeline.frontend_kernel_supported``.  The fixed
+    kernels share these checks (``frontend_fixed.
+    fused_fixed_detect_supported``)."""
+    try:
+        check_range_geometry(p.n_range, p.n_doppler)
+        if mag_only:
+            check_mag_geometry(p.n_range, p.n_doppler)
+        else:
+            _detect_config(_slowtime_config(1, p.n_range, p.n_doppler,
+                                            p.cfar, 0, peak_group_radius),
+                           p.cfar, p.notch_mode, "zero", False, "")
+    except NotImplementedError:
+        return False
+    return True
+
 
 def rdm_frontend_detect(iq: torch.Tensor, mti_bypass=False, scale_override=0,
                         *, cfar: CfarParams, notch_mode: int = 2,

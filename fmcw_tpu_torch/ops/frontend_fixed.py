@@ -11,8 +11,9 @@ path, split at the corner turn like the float kernels of ``ops/frontend.py``:
   the window's saturation count (B,);
 * ``slowtime_detect_fixed`` (``csrc/slowtime_detect_fixed.cu``): saturating
   MTI, Q15 Doppler window with saturation count, Doppler FFT, BFP per range
-  bin, integer magnitude, integer 2D OS-CFAR (per-cell or block scale),
-  peak grouping, row maxima and counts.
+  bin, integer magnitude, integer 2D CFAR (OS by counting, or the CA / GO
+  / SO window means; per-cell or block scale), peak grouping, row maxima
+  and counts.
 
 The twins compose the stage ops of the staged chain (``ops/window``,
 ``ops/fft``, ``ops/notch``, ``ops/magnitude``, ``ops/cfar``), with the
@@ -170,24 +171,13 @@ def slowtime_detect_fixed_plain(re, im, mti_bypass=False, scale_override=0,
     return det, (mag if emit_mag else None), row_max, n_dets, sat
 
 
-def check_variant(cfar: CfarParams, name: str) -> None:
-    """The fixed slow-time kernel (``csrc/slowtime_detect_fixed.cu``)
-    decides the OS variant only; its CA/GO/SO epilogue is queued in
-    ROADMAP.md.  Its wrappers raise for the others on any device, and fixed
-    ``auto`` (the staged route) decides them in the plain ``cfar_2d``."""
-    if cfar.variant != "os":
-        raise NotImplementedError(
-            f"{name} kernel: CFAR variant {cfar.variant!r} is not ported to "
-            f"the fixed slow-time kernel yet (queued in ROADMAP.md); "
-            f"mode='fixed' with frontend='auto' runs it")
-
-
 def fixed_config(cfg, cfar: CfarParams, notch_mode: int, transient: str,
                  mti_bypass, coef_width: int, rounding: str, name: str):
     """The fixed slow-time entries' kernel config: the tile geometry
-    ``cfg`` with the MTI and Q15 window fields set; raises
-    NotImplementedError for what the kernel does not take (a training set
-    over ``frontend.MAX_PACKED_REFS`` cells among it)."""
+    ``cfg`` (with the CFAR variant's code) with the MTI and Q15 window
+    fields set; raises NotImplementedError for what the kernel does not
+    take (an OS training set over ``frontend.MAX_PACKED_REFS`` cells among
+    it)."""
     cfg = F._detect_config(cfg, cfar, notch_mode, transient, mti_bypass,
                            name)
     cfg.rnd = window_rounding_constant(coef_width, rounding)
@@ -206,13 +196,14 @@ def slowtime_detect_fixed(re: torch.Tensor, im: torch.Tensor,
     int16 planes (B, nr, nd).  Returns ``(det int32 (B, nr, nd), mag | None,
     row_max int32 (B, nr), n_dets (B,) int32, sat (B,) int32)`` with ``sat``
     the Doppler window's saturation count.  ``mti_bypass`` and
-    ``scale_override`` are runtime controls.  Launches the CUDA kernel for
-    CUDA tensors; the plain twin for CPU tensors."""
+    ``scale_override`` are runtime controls.  Every CFAR variant: OS by
+    counting, CA / GO / SO by the kernel's integer window-mean epilogue
+    (its ``kMean`` instantiation).  Launches the CUDA kernel for CUDA
+    tensors; the plain twin for CPU tensors."""
     if re.dim() != 3 or re.shape != im.shape:
         raise ValueError(f"expected re/im (B, nr, nd), got "
                          f"{tuple(re.shape)} and {tuple(im.shape)}")
     check_notch(notch_mode, transient)
-    check_variant(cfar, "slowtime_detect_fixed")
     if F._device_kind(re) == "cpu":
         return slowtime_detect_fixed_plain(
             re, im, mti_bypass, scale_override, cfar=cfar,
@@ -256,21 +247,13 @@ def fused_fixed_detect_supported(p: RadarParams, peak_group_radius: int = 0,
     """Can ``mode="fixed"`` run as the two fixed-point kernels
     (``frontend="fused"``)?  The counterpart of ``fmcw_tpu/models/pipeline.
     fused_fixed_detect_supported``, asked of the kernels' own checks: no
-    debug taps, and a frame and CFAR (OS, wrap edges) that both kernels
-    take.  JAX's limit on the per-cell window (its sum below 2^24, for the
-    TPU's float32 sums) does not apply: these kernels sum in int32; their
-    float packed count takes at most ``frontend.MAX_PACKED_REFS`` training
-    cells.  CA/GO/SO are queued in ROADMAP.md (``check_variant``)."""
-    if include_debug or p.cfar.variant != "os":
-        return False
-    try:
-        F.check_range_geometry(p.n_range, p.n_doppler)
-        F._detect_config(F._slowtime_config(1, p.n_range, p.n_doppler,
-                                            p.cfar, 0, peak_group_radius),
-                         p.cfar, p.notch_mode, "zero", False, "")
-    except NotImplementedError:
-        return False
-    return True
+    debug taps, and a frame and CFAR (any variant, wrap edges) that both
+    kernels take.  JAX's limit on the window (its sums below 2^24, for the
+    TPU's float32 sums) does not apply: these kernels sum in int32; the OS
+    variant's float packed count takes at most ``frontend.MAX_PACKED_REFS``
+    training cells, the CA/GO/SO epilogue counts nothing."""
+    return not include_debug and F.fused_detect_supported(p,
+                                                           peak_group_radius)
 
 
 def rdm_frontend_fixed_detect(iq: torch.Tensor, mti_bypass=False,

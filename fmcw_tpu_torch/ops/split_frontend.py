@@ -30,7 +30,7 @@ these entry points:
   ``n_range_total``).  Row maxima, counts and the fixed kernel's
   Doppler-window saturations cover the shard's own rows: a halo row is
   counted by the shard that owns it.  Per-cell scale only, as JAX's (every
-  variant on kernel B's entry, OS on the fixed one); the block scale runs
+  variant on both entries); the block scale runs
   the magnitude-only kernel (``detect=False``, ``ops/frontend.
   slowtime_mag``), ``ops/cfar.block_scale_map_sharded`` and
   ``ops/cfar_detect.cfar_detect(prepadded_range=True)`` (OS) or the plain
@@ -174,8 +174,8 @@ def slowtime_detect_split_plain(re, im, halo_lo, halo_hi, mti_bypass=False,
 def _split_config(re, cfar, scale_override, peak_group_radius, exact_mag,
                   row_offset, n_range_total, name):
     """The split entries' tile geometry: per-cell scale only, as JAX's split
-    body (every variant: OS, and CA/GO/SO in kernel B's mean epilogue; the
-    fixed entry checks its variant itself)."""
+    body (every variant: OS, and CA/GO/SO in the kernels' mean
+    epilogues)."""
     if cfar.scale_mode != "cell":
         raise NotImplementedError(
             f"{name} kernel: per-cell scale only (the block scale runs the "
@@ -290,9 +290,10 @@ def slowtime_detect_fixed_split(re: torch.Tensor, im: torch.Tensor,
     Returns
     ``(det int32 (B, nrl, nd), mag | None, row_max int32 (B, nrl), n_dets
     (B,), sat (B,))``, ``sat`` the Doppler window's saturations of the
-    shard's own rows.  ``detect=False`` (a fixed magnitude-only kernel)
-    does not exist, as in JAX's split path: it raises.  Launches the split
-    kernel for CUDA tensors; the plain twin for CPU tensors."""
+    shard's own rows; every CFAR variant, as the whole-frame entry.
+    ``detect=False`` (a fixed magnitude-only kernel) does not exist, as in
+    JAX's split path: it raises.  Launches the split kernel for CUDA
+    tensors; the plain twin for CPU tensors."""
     if not detect:
         raise NotImplementedError(
             "slowtime_detect_fixed_split(detect=False): the fixed split path "
@@ -301,7 +302,6 @@ def slowtime_detect_fixed_split(re: torch.Tensor, im: torch.Tensor,
     if cfar is None:
         raise ValueError("slowtime_detect_fixed_split needs cfar")
     check_notch(notch_mode, transient)
-    FX.check_variant(cfar, "slowtime_detect_fixed_split")
     h = cfar.halo_range + peak_group_radius
     _check_shard(re, im, halo_lo, halo_hi, h, row_offset, n_range_total,
                  "slowtime_detect_fixed_split")

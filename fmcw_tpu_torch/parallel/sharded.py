@@ -69,10 +69,11 @@ shard — on a LocalMesh, which holds every shard, the whole maps.
 ``dp``, beams over ``sp`` (see its docstring).
 
 The CFAR variants as on one device: CA/GO/SO per-cell on the float
-"fused" route decide in kernel B's split entry; the block scale, the
-staged and plain tails and the debug taps decide them in the plain
+"fused" route decide in kernel B's split entry, on the fixed "fused"
+route in the fixed kernel's split entry; the block scale, the staged and
+plain tails and the debug taps decide them in the plain
 ``ops/cfar.cfar_2d(prepadded_range=True)`` (JAX's ``sharded.py:98-103``:
-its standalone kernel is OS only); the fused fixed route is OS only.
+its standalone kernel is OS only).
 
 Not ported (raise ``NotImplementedError``, ``ROADMAP.md``): reflect edges
 (as on one device), long CPIs on the kernels (n_doppler > 128).
@@ -237,16 +238,15 @@ def split_frontend_supported(p: RadarParams, sp: int) -> bool:
 def split_detect_supported(p: RadarParams, sp: int,
                            peak_group_radius: int = 0,
                            fixed: bool = False) -> bool:
-    """Can kernel B's split entry (float32, or ``fixed``) decide on the
-    range shards: ``split_frontend_supported``, wrap edges and per-cell
-    scale (any variant for float32, OS for fixed), its tile (64 rows + 2
-    (halo_range + peak_group_radius) halo rows <= 128,
-    ``ops/frontend._slowtime_config``), and a halo that one neighbour
-    holds?"""
+    """Can the split entry (kernel B's, float32, or the fixed kernel's,
+    ``fixed``: both take the same shards) decide on the range shards:
+    ``split_frontend_supported``, wrap edges and per-cell scale (any
+    variant), its tile (64 rows + 2 (halo_range + peak_group_radius) halo
+    rows <= 128, ``ops/frontend._slowtime_config``), and a halo that one
+    neighbour holds?"""
     h = p.cfar.halo_range + peak_group_radius
     if (not split_frontend_supported(p, sp) or p.cfar.scale_mode != "cell"
-            or h > p.n_range // sp
-            or (fixed and p.cfar.variant != "os")):
+            or h > p.n_range // sp):
         return False
     try:
         F._slowtime_config(1, p.n_range // sp, p.n_doppler, p.cfar, 0,

@@ -1,0 +1,2 @@
+"""Command-line tools of the port, run as ``python -m
+fmcw_tpu_torch.tools.<name>``: ``detection_eval`` (the Pd/Pfa sweep)."""

@@ -73,7 +73,8 @@ def pd_pfa(p: RadarParams, *, snr_dbs=(-35, -30, -27, -24, -21, -18),
            range_hi_margin: int = 0, device=None) -> dict:
     """Monte-Carlo Pd(SNR) curves and noise-only Pfa per CFAR variant,
     through ``models/pipeline.make_batch_processor`` (``processor_kw``; its
-    default float route is kernel B, which decides every variant).
+    default float route is kernel B, which decides every variant, where
+    kernel B's tile takes the configuration, else the staged route).
 
     Targets are injected at random fractional bins away from the Doppler
     notch (``mti_bypass=True`` by default so that zero-Doppler placement is

@@ -22,7 +22,9 @@ stimulus, 1024x128 frames):
   (``split_frontend.slowtime_detect_split`` on rows 256..512 with their
   halo rows, sp = 4) — and the fixed slow-time kernel's three —
   ``slowtime_detect_fixed`` per-cell and block and the row-6 range shard
-  (``split_frontend.slowtime_detect_fixed_split``, the same rows) — as
+  (``split_frontend.slowtime_detect_fixed_split``, the same rows), and,
+  where the checkout's fixed kernel takes them, its CA / GO / SO
+  instantiation on the same three — as
   back-to-back calls and by graph replay, each beside
   ``torch.fft.fft(dim=-1)`` of the same planes (complex64; complex128 for
   the fixed kernel's int16 planes), the slow-time transform's share: no
@@ -87,6 +89,7 @@ card, alternating: A, B, B, A.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -253,6 +256,22 @@ def main() -> int:
                 lambda kw=kw: FX.slowtime_detect_fixed(fre, fim, False, 0,
                                                        **kw),
                 fre, fim)
+            # The fixed kernel's CA/GO/SO instantiation beside OS, where the
+            # checkout's fused fixed route takes the variants.
+            for variant in ("ca", "go", "so"):
+                pv = p.replace(cfar=dataclasses.replace(p.cfar,
+                                                        variant=variant))
+                if not FX.fused_fixed_detect_supported(pv, pgr):
+                    continue
+                vkw = dict(cfar=pv.cfar, peak_group_radius=pgr)
+                entries[f"slowtime_detect_fixed[{variant}, {mode}]"] = (
+                    lambda vkw=vkw: FX.slowtime_detect_fixed(
+                        fre, fim, False, 0, **vkw), fre, fim)
+                if mode == "cell":
+                    entries[f"slowtime_detect_fixed_split[{variant}, sp4]"] = (
+                        lambda vkw=vkw: SF.slowtime_detect_fixed_split(
+                            *fshard, **dict(skw, cfar=vkw["cfar"])),
+                        fre[:, ext], fim[:, ext])
         for name, (call, xr, xi) in entries.items():
             z = (torch.complex(xr.double(), xi.double())
                  if xr.dtype == torch.int16 else torch.complex(xr, xi))

@@ -417,17 +417,16 @@ def test_fixed_mode_options_and_gates():
         tpl.make_processor(p, mode="fixed", frontend="fused",
                            cfar_geometry="hw_stream", device="cpu")
     # CA/GO/SO run on fixed "auto" (the staged route, the plain integer
-    # cfar_2d); the fused fixed kernel decides OS only so far.
+    # cfar_2d) and on the fused fixed route (the fixed kernels' twins on
+    # the CPU), both equal to the golden model.
     for variant in ("ca", "go", "so"):
         pv = p.replace(cfar=dataclasses.replace(p.cfar, variant=variant))
         z = tref.two_target_frame(p)
-        out = tpl.make_processor(pv, mode="fixed", device="cpu")(
-            tpl.complex_to_iq(z))
         _, det = tref.process_frame_fixed(z, pv)
-        assert np.array_equal(out["det_map"].numpy(), det), variant
-        with pytest.raises(ValueError):
-            tpl.make_processor(pv, mode="fixed", frontend="fused",
-                               device="cpu")
+        for fe in ("auto", "fused"):
+            out = tpl.make_processor(pv, mode="fixed", frontend=fe,
+                                     device="cpu")(tpl.complex_to_iq(z))
+            assert np.array_equal(out["det_map"].numpy(), det), (variant, fe)
     for kw in (dict(window_rounding="nearest"), dict(mti_transient="hold"),
                dict(frontend="pallas")):
         with pytest.raises(ValueError):
@@ -453,14 +452,14 @@ WIDE = dict(ref_range=6, guard_range=2, ref_doppler=9, guard_doppler=2)
     ("cell", WIDE, True, False),
     ("block", WIDE, True, True),
     ("cell", dict(edge_mode="reflect"), False, False),
-    ("cell", dict(variant="ca"), False, True),
+    ("cell", dict(variant="ca"), True, True),
 ], ids=["cell", "block", "wide-cell", "wide-block", "reflect", "ca"])
 def test_fused_fixed_gate_vs_jax(scale_mode, cfar_kw, port, jax_):
-    """The fused fixed route's gate against JAX's at 1024x128.  Two answers
-    differ on purpose: JAX's per-cell window limit (its sum below 2^24) is
-    for the TPU's float32 sums and the port's kernels sum in int32; CA/GO/SO
-    are not ported yet.  A wide per-cell window that the port takes gives
-    the golden model's detections exactly on the CPU (at 256x64)."""
+    """The fused fixed route's gate against JAX's at 1024x128.  One answer
+    differs on purpose: JAX's per-cell window limit (its sum below 2^24) is
+    for the TPU's float32 sums and the port's kernels sum in int32.  A wide
+    per-cell window that the port takes gives the golden model's
+    detections exactly on the CPU (at 256x64)."""
     p = fmcw_tpu_torch.RadarParams(cfar=fmcw_tpu_torch.CfarParams(
         scale_mode=scale_mode, **cfar_kw))
     assert FX.fused_fixed_detect_supported(p) is port

@@ -384,17 +384,26 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
     p = fmcw_tpu_torch.quick()
     re = torch.zeros((1, p.n_range, p.n_doppler))
     ca = fmcw_tpu_torch.CfarParams(variant="ca")
-    # Kernel B decides CA/GO/SO (its mean epilogue, variant code in the
-    # config, no packed-count limit); the fixed slow-time kernel does not
-    # yet, and its wrapper raises before any launch.
+    # Kernel B and the fixed slow-time kernel decide CA/GO/SO (their mean
+    # epilogues, the variant's code in the config, no packed-count limit),
+    # whole-frame and split.
     F.slowtime_detect(re, re, cfar=ca)
     assert as_if_cuda.calls[-1][0] == "slowtime_detect"
     assert as_if_cuda.calls[-1][1][9]._obj.variant == 1
+    i16 = re.to(torch.int16)
+    FX.slowtime_detect_fixed(i16, i16, cfar=ca)
+    assert as_if_cuda.calls[-1][0] == "slowtime_detect_fixed"
+    assert as_if_cuda.calls[-1][1][9]._obj.variant == 1
+    h = ca.halo_range
+    halo = (i16[:, :h],) * 2
+    SF.slowtime_detect_fixed_split(i16, i16, halo, halo, cfar=ca,
+                                   n_range_total=4 * p.n_range)
+    assert as_if_cuda.calls[-1][0] == "slowtime_detect_fixed_split"
+    assert as_if_cuda.calls[-1][1][13]._obj.variant == 1
+    assert (FX.slowtime_detect_fixed.launches,
+            SF.slowtime_detect_fixed_split.launches) == (1, 1)
     as_if_cuda.calls.clear()
     F.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FX.slowtime_detect_fixed(re.to(torch.int16), re.to(torch.int16),
-                                 cfar=ca)
     long_cpi = torch.zeros((1, 128, 256))
     with pytest.raises(NotImplementedError):
         F.slowtime_detect(long_cpi, long_cpi, cfar=p.cfar)
@@ -571,14 +580,16 @@ def test_array_kernels_reject_unported_configs(as_if_cuda):
     with pytest.raises(NotImplementedError):
         BG.beam_group(cube.int(), 1)
     assert as_if_cuda.calls == []
-    # The array processor's default route keeps to the kernels: on a long
+    # The array processor's fused route keeps to the kernels: on a long
     # CPI kernel A runs, then kernel B (detect or magnitude-only) raises
-    # instead of falling back to the plain transforms.
+    # instead of falling back to the plain transforms; "auto" takes the
+    # staged chain there, decided before any launch.
     long_cpi = p.replace(n_doppler=256)
     iq = np.zeros((4, long_cpi.n_doppler, long_cpi.n_range, 2), np.int16)
     for ref_angle in (0, 1):
-        proc = tpl.make_array_processor(long_cpi, n_elems=4, n_beams=4,
-                                        ref_angle=ref_angle, device="cpu")
+        kw = dict(n_elems=4, n_beams=4, ref_angle=ref_angle, device="cpu")
+        assert tpl.make_array_processor(long_cpi, **kw).route == "staged"
+        proc = tpl.make_array_processor(long_cpi, frontend="fused", **kw)
         with pytest.raises(NotImplementedError):
             proc(iq)
     assert [c[0] for c in as_if_cuda.calls] == ["range_fft_float"] * 2
