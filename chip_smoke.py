@@ -103,7 +103,19 @@ saturating batch, n_doppler 16-64, the 3-pulse MTI, a 17x23 window; its
 split entry at sp 2 and 4) and the fused fixed route of each variant
 (28g: bit-equal to fixed auto, its det maps equal to the golden model on
 all 128 frames, no plain stage; a LocalMesh at sp 2 and 4 equal to the
-single card); timings.  It prints
+single card); timings.  Then reflect edges (phase 29,
+CfarParams.edge_mode="reflect"): the reflect entry of csrc/cfar_detect.cu
+(TPU rows 7 and 8: mirrored rows carrying their mirrored column halo)
+against its twin bit for bit (int32 and float32 maps of the reflect
+routes at batch 128, per-cell and a given scale map, override 0 and 4,
+adversarial maps, targets in the edge rows and columns, 37 rows, hr = R -
+1, hd = D - 1, a run-time window, 4216 training cells, strips of one cell,
+the sp 4 range shards with mirrored and exchanged halos), the float and
+fixed "auto" reflect routes at batch 128 (kernel A, the magnitude-only
+entry and the reflect entry, then the plain grouping; frame 0 through the
+margin gate; fixed against the golden model on all 128 frames) and a
+LocalMesh at sp 2 and 4 against the single card; the reflect entry's
+times beside the wrap entry's and the plain grouping's.  It prints
 the card's name and power limit, one JSON line listing the kernels, and as
 its last line {"ok": true, "device": {...}}.  Any failed check raises,
 and the script then exits non-zero; without CUDA it exits non-zero at
@@ -4581,6 +4593,382 @@ def variant_phase(card: str, dev, pgr: int):
                   "launches": launches, "pd": pd, "pd_seconds": pd_s}
 
 
+# ---------------------------------------------------------------------------
+# Reflect edges (CfarParams.edge_mode="reflect": the reflect entry of
+# csrc/cfar_detect.cu, TPU rows 7 and 8)
+# ---------------------------------------------------------------------------
+
+def reflect_params(p, scale_mode: str | None = None):
+    """``p`` with reflect edges (and the scale mode replaced)."""
+    kw = dict(edge_mode="reflect")
+    if scale_mode is not None:
+        kw["scale_mode"] = scale_mode
+    return p.replace(cfar=dataclasses.replace(p.cfar, **kw))
+
+
+def edge_batch(p, batch: int, seed: int = 0):
+    """bench.py's stimulus with two more targets, on the first and last
+    range bins but one, whose windows reach across the map's edges: int16
+    (batch, nd, nr, 2).  Amplitude 2000: stronger ones raise the fixed
+    chain's block-floating-point noise floor into hundreds of detections a
+    frame (the golden model's too)."""
+    import numpy as np
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    rng = np.random.default_rng(seed)
+    targets = reference.golden_targets(p) + [(1, 3.0, 2000.0),
+                                             (p.n_range - 2, -5.0, 2000.0)]
+    frame = pl.complex_to_iq(reference.two_target_frame(p, targets=targets))
+    out = np.stack([frame] * batch)
+    return out + rng.integers(-8, 8, out.shape).astype(np.int16)
+
+
+def reflect_case(what: str, mag, so: int, cfar, scale_map=None,
+                 prepadded: bool = False, pgr: int = 2) -> float:
+    """cfar_detect's reflect entry on one batch of maps against its twin
+    (det and scale) bit for bit; on whole maps also the reflect routes'
+    CFAR step (the entry, then the plain peak_group, its row maxima and
+    counts: cfar_detect_then_group) against the twin's.  Returns the
+    largest |difference| (0), or raises."""
+    import torch
+    from fmcw_tpu_torch.ops import cfar_detect as CD
+    kw = dict(cfar=cfar, scale_map=scale_map)
+    pairs = [(CD.cfar_detect(mag, so, prepadded_range=prepadded, **kw),
+              CD.cfar_detect_plain(mag, so, prepadded_range=prepadded,
+                                   **kw))]
+    if not prepadded:
+        gkw = dict(kw, peak_group_radius=pgr)
+        pairs.append((CD.cfar_detect_then_group(mag, so, **gkw),
+                      CD.cfar_detect_group_plain(mag, so, **gkw)))
+    torch.cuda.synchronize()
+    same = all(bits_equal(a, b) for got, want in pairs
+               for a, b in zip(got, want))
+    err = max(float((a.double() - b.double()).nan_to_num().abs().max())
+              for got, want in pairs for a, b in zip(got, want))
+    ndet = int((pairs[0][0][0] > 0).sum())
+    log(f"cfar_detect reflect {what} {tuple(mag.shape)} {mag.dtype} "
+        f"{cfar.scale_mode} so={so}{' prepadded' if prepadded else ''}: "
+        f"{'bit-identical' if same else 'DIFFERS'} ({ndet} detections)")
+    if not same:
+        raise AssertionError(f"cfar_detect reflect ({what}) disagrees with "
+                             f"its twin")
+    return err
+
+
+def reflect_kernel_checks(dev):
+    """Phase 29a: the reflect entry of cfar_detect (TPU rows 7 and 8)
+    against its twin bit for bit: the reflect routes' own int32 (the fixed
+    chain's) and float32 (kernel A and the magnitude-only entry) maps of
+    ``edge_batch`` at batch 128, per-cell and block, override 0 and 4;
+    adversarial maps (NaN, Inf, -0.0, ties, int keys to 2^31); maps with
+    targets in the first and last hr rows and hd columns; 37 rows (a last
+    block past R), hr = R - 1 (7 rows) and hd = D - 1 (6 columns), a
+    run-time window, 4216 training cells, strips of one cell; the sp 4
+    range shards 0 and 1 with their mirrored (edge) and exchanged halos,
+    also against the whole map's rows.  Returns ({row: largest
+    |difference|}, the int32 and float32 maps)."""
+    import numpy as np
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.golden.reference import rank_adversarial_maps
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C, cfar_detect as CD
+    from fmcw_tpu_torch.ops import frontend as F
+    entry = reflect_params(P.RadarParams())
+    iq = torch.as_tensor(edge_batch(entry, BATCH, seed=29), device=dev)
+    imag, _ = pl._staged_fixed(iq, False, entry, "zero", "unbiased")
+    fmag, _ = F.slowtime_mag(*F.range_fft(iq))
+    errs = {}
+    for mag, tag in ((imag, ""), (fmag, ",float32")):
+        for p in (entry, reflect_params(P.fast())):
+            mode = p.cfar.scale_mode
+            name = f"cfar_detect_reflect[{mode}{tag}]"
+            for so in (0, 4):
+                errs[name] = max(errs.get(name, 0.0), reflect_case(
+                    "main-path maps", mag, so, p.cfar))
+    gen = np.random.default_rng(29)
+
+    def noise(shape, integer):
+        m = gen.exponential(500.0, shape)
+        for i, j in ((0, 0), (1, -1), (-1, 2), (-2, -3), (3, 4)):
+            m[..., i, j] = 4e4                 # within hr rows / hd columns
+        return torch.as_tensor(m.astype(np.int32 if integer else np.float32),
+                               device=dev)
+
+    full = entry.cfar
+    large = dataclasses.replace(P.CfarParams(
+        ref_range=31, ref_doppler=31, guard_range=1, guard_doppler=1),
+        edge_mode="reflect")
+    runtime = dataclasses.replace(P.CfarParams(
+        ref_range=3, ref_doppler=2, guard_range=1, guard_doppler=2),
+        edge_mode="reflect")
+    for integer in (False, True):
+        adv = torch.as_tensor(rank_adversarial_maps((8, 1024, 128), integer,
+                                                    29), device=dev)
+        cases = [("adversarial", adv, full),
+                 ("edge targets", noise((8, 1024, 128), integer), full),
+                 ("37 rows", noise((8, 37, 128), integer), full),
+                 ("hr = R - 1", noise((8, 7, 128), integer), full),
+                 ("hd = D - 1", noise((8, 64, 6), integer), full),
+                 ("n_ref 4216", noise((4, 64, 64), integer), large),
+                 ("hr 4 gr 1", noise((8, 256, 64), integer), runtime),
+                 ("strips of one cell", noise((2, 64, 2048), integer),
+                  full)]
+        for what, mag, cfar in cases:
+            for mode in ("cell", "block"):
+                c = dataclasses.replace(cfar, scale_mode=mode)
+                smap = None
+                if mode == "block":
+                    smap = torch.as_tensor(gen.choice(
+                        [c.scale_min, c.scale_nom, c.scale_max],
+                        tuple(mag.shape)).astype(np.int32), device=dev)
+                for so in (0, 4):
+                    reflect_case(what, mag, so, c, smap)
+    # The sp 4 range shards 0 (the global edge: its lower halo mirrored)
+    # and 1, per-cell and with the block scale map's rows.
+    hr, nrl = full.halo_range, 256
+    for mag, tag in ((imag, ""), (fmag, ",float32")):
+        for p in (entry, reflect_params(P.fast())):
+            for s in (0, 1):
+                ext = C.reflect_index(torch.arange(s * nrl - hr,
+                                                   (s + 1) * nrl + hr,
+                                                   device=dev), 1024)
+                shard = mag[:, ext].contiguous()
+                rows = slice(s * nrl, (s + 1) * nrl)
+                smap = (C.block_scale_map(mag, p.cfar)[:, rows].contiguous()
+                        if p.cfar.scale_mode == "block" else None)
+                err = reflect_case(f"sp 4 shard {s}", shard, 0, p.cfar, smap,
+                                   prepadded=True)
+                name = f"cfar_detect_reflect[prepadded{tag}]"
+                errs[name] = max(errs.get(name, 0.0), err)
+                whole = CD.cfar_detect(mag, 0, cfar=p.cfar)
+                part = CD.cfar_detect(shard, 0, cfar=p.cfar, scale_map=smap,
+                                      prepadded_range=True)
+                if not all(bits_equal(a[:, rows], b)
+                           for a, b in zip(whole, part)):
+                    raise AssertionError("prepadded reflect cfar_detect "
+                                         "differs from the whole map's rows")
+    return errs, imag, fmag
+
+
+def reflect_main_path(card: str, dev, pgr: int, pool):
+    """Phase 29b: the reflect processors at batch 128 of ``edge_batch``,
+    per-cell and block: float "auto" (kernel A, the magnitude-only entry,
+    the reflect entry, the plain grouping; kernel B's detect entry never
+    launched), frame 0 through the margin gate against the plain route
+    (its order statistic from the plain cfar_2d); fixed "auto" (the FP64
+    stages, the reflect entry), its det maps held to the golden os_cfar_2d
+    and peak_group on all 128 frames by the worker ``pool`` (collected by
+    the caller); a LocalMesh at sp 2 and 4 equal to the single card in
+    every output.  Returns (launches, frames/s, golden futures)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C
+    from fmcw_tpu_torch.parallel import LocalMesh, sharded
+    launches, fps, golden = {}, {}, []
+    for p in (reflect_params(P.RadarParams()), reflect_params(P.fast())):
+        mode = p.cfar.scale_mode
+        batch = torch.as_tensor(edge_batch(p, BATCH, seed=31), device=dev)
+        for fm, need in (("fixed", {"cfar_detect"}),
+                         ("float32", {"range_fft", "slowtime_mag",
+                                      "cfar_detect"})):
+            key = f"{mode}/{fm}/auto"
+            proc = pl.make_batch_processor(p, mode=fm, peak_group_radius=pgr,
+                                           device=dev)
+            kernels.reset_launch_counts()
+            out = proc(batch)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            launches[key] = counts
+            if set(counts) != need:
+                raise AssertionError(f"reflect route {key}: launches "
+                                     f"{counts}, want {sorted(need)}")
+            if fm == "fixed":
+                mags = out["mag_map"].cpu().numpy()
+                dets = out["det_map"].cpu().numpy()
+                for i in range(0, BATCH, 16):       # 16 frames a job
+                    golden.append((key, pool.submit(
+                        golden_variant_check,
+                        (mags[i:i + 16], dets[i:i + 16], p.cfar, pgr))))
+            else:
+                if not bool(torch.isfinite(out["mag"]).all()):
+                    raise AssertionError("non-finite detection magnitudes")
+                ref = pl.make_processor(p, frontend="plain",
+                                        peak_group_radius=pgr,
+                                        device=dev)(batch[0])
+                _, thr, sc = C.cfar_2d(ref["mag_map"], 0, p.cfar,
+                                       need_debug=True)
+                ok, report = parity.margin_gate(
+                    parity.detection_set(out, 0), parity.detection_set(ref),
+                    ref["mag_map"].cpu().numpy(), thr.cpu().numpy(),
+                    sc.cpu().numpy(), radius=pgr,
+                    capacity=p.tracker.max_dets,
+                    targets=reference.golden_targets(p))
+                log(f"reflect route {key} frame 0 vs plain path: {report}")
+                if not ok:
+                    raise AssertionError(f"reflect route {key}: margin gate "
+                                         f"failed")
+            lean = pl.make_batch_processor(p, mode=fm, peak_group_radius=pgr,
+                                           include_maps=False, device=dev)
+            fps[key] = BATCH * 1e3 / cuda_ms(lambda: lean(batch), 5, 1)
+            log(f"reflect route {key}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items())
+                + f"; {fps[key]:.1f} frames/s at batch {BATCH} "
+                f"({int(out['n_dets'].sum())} detections) ({card})")
+            single = {k: v for k, v in out.items()}
+            for sp in SPLIT_SPS if not (fm == "fixed" and mode == "block") \
+                    else ():
+                skey = f"{key}/sp{sp}"
+                sproc = sharded.make_sharded_processor(
+                    LocalMesh(1, sp, dev), p, mode=fm, peak_group_radius=pgr,
+                    include_maps=True)
+                kernels.reset_launch_counts()
+                sout = sproc(batch)
+                torch.cuda.synchronize()
+                launches[skey] = {k: v for k, v in
+                                  kernels.launch_counts().items() if v}
+                diff = [k for k in single if not torch.equal(sout[k],
+                                                             single[k])]
+                if diff or not launches[skey].get("cfar_detect"):
+                    raise AssertionError(f"reflect LocalMesh {skey}: "
+                                         f"differs in {diff}, launches "
+                                         f"{launches[skey]}")
+                lean_s = sharded.make_sharded_processor(
+                    LocalMesh(1, sp, dev), p, mode=fm, peak_group_radius=pgr)
+                fps[skey] = BATCH * 1e3 / cuda_ms(lambda: lean_s(batch), 3, 1)
+                log(f"reflect LocalMesh {skey}: equal to the single card in "
+                    f"every output; launches "
+                    + ", ".join(f"{k}={v}"
+                                for k, v in launches[skey].items())
+                    + f"; {fps[skey]:.1f} frames/s ({card})")
+    return launches, fps, golden
+
+
+def reflect_timings(card: str, dev, pgr: int, imag, fmag, errs, launches):
+    """Phase 29c: the reflect entry by graph replay (eager beside it) next
+    to the wrap entry on the same maps (rows 7 and 8, batch 128 of
+    1024x128, the block scale map given), its bound (bound_cfar_detect,
+    the wrap entry's operations), its twin; the sp 4 edge shard (float32,
+    block); the plain grouping that follows the entry on the reflect
+    routes, beside the wrap grouping entry.  Returns the kernel rows."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import cfar as C, cfar_detect as CD
+    src = "fmcw_tpu_torch/csrc/"
+    nr, nd = 1024, 128
+    rows, summary = [], {}
+    for p, line in ((P.RadarParams(), 155), (P.fast(), 279)):
+        mode = p.cfar.scale_mode
+        rc = reflect_params(p).cfar
+        for mag, tag, fm in ((imag, "", "fixed"),
+                             (fmag, ",float32", "float32")):
+            smap = C.block_scale_map(mag, rc) if mode == "block" else None
+            wmap = (C.block_scale_map(mag, p.cfar) if mode == "block"
+                    else None)
+            in_float = (mag.is_floating_point() or int(mag.abs().max())
+                        <= CD.float_max(rc))
+            name = f"cfar_detect_reflect[{mode}{tag}]"
+            ms = graph_ms(lambda: CD.cfar_detect(mag, 0, cfar=rc,
+                                                 scale_map=smap))
+            eager = cuda_ms(lambda: CD.cfar_detect(mag, 0, cfar=rc,
+                                                   scale_map=smap))
+            wrap = graph_ms(lambda: CD.cfar_detect(mag, 0, cfar=p.cfar,
+                                                   scale_map=wmap))
+            plain = cuda_ms(lambda: CD.cfar_detect_plain(
+                mag, 0, cfar=rc, scale_map=smap), 2, 1)
+            bound, by = bound_cfar_detect(BATCH, nr, nd, rc, in_float)
+            det, _ = CD.cfar_detect(mag, 0, cfar=rc, scale_map=smap)
+            group = cuda_ms(lambda: C.peak_group(det, pgr))
+            wrap_group = graph_ms(lambda: CD.cfar_detect_group(
+                mag, 0, cfar=p.cfar, scale_map=wmap, peak_group_radius=pgr))
+            log(f"{name} ({mag.dtype} maps, counted in "
+                f"{'float' if in_float else 'int'}): {ms:.4f} ms (graph; "
+                f"eager {eager:.4f}), the wrap entry {wrap:.4f} ms in the "
+                f"same run ({ms / wrap:.3f}x), plain {plain:.4f} ms, bound "
+                f"{bound:.4f} ms ({by}); then the plain peak_group "
+                f"{group:.4f} ms (the wrap grouping entry, CFAR and "
+                f"grouping: {wrap_group:.4f} ms) at batch {BATCH} ({card})")
+            summary[name] = {"graph_ms": ms, "eager_ms": eager,
+                             "wrap_graph_ms": wrap,
+                             "plain_peak_group_ms": group,
+                             "wrap_group_entry_ms": wrap_group}
+            rows.append(dict(name=name, route="cuda",
+                             source=src + "cfar_detect.cu",
+                             replaces=f"fmcw_tpu/ops/cfar_pallas.py:{line}",
+                             launches=launches[f"{mode}/{fm}/auto"].get(
+                                 "cfar_detect", 0),
+                             max_abs_err=errs[name], ms=ms, plain_ms=plain,
+                             bound_ms=bound, bound_by=by, library_ms=None))
+    # The sp 4 edge shard (shard 0: its lower halo mirrored), float32,
+    # block scale given, as the sharded block route launches it.
+    q = reflect_params(P.fast())
+    hr, nrl = q.cfar.halo_range, nr // 4
+    ext = C.reflect_index(torch.arange(-hr, nrl + hr, device=dev), nr)
+    m_h = fmag[:, ext].contiguous()
+    smap = C.block_scale_map(fmag, q.cfar)[:, :nrl].contiguous()
+    wq = P.fast()
+    w_h = fmag[:, torch.arange(-hr, nrl + hr, device=dev) % nr].contiguous()
+    wmap = C.block_scale_map(fmag, wq.cfar)[:, :nrl].contiguous()
+    kw = dict(cfar=q.cfar, scale_map=smap, prepadded_range=True)
+    ms = graph_ms(lambda: CD.cfar_detect(m_h, 0, **kw))
+    eager = cuda_ms(lambda: CD.cfar_detect(m_h, 0, **kw))
+    wrap = graph_ms(lambda: CD.cfar_detect(w_h, 0, cfar=wq.cfar,
+                                           scale_map=wmap,
+                                           prepadded_range=True))
+    plain = cuda_ms(lambda: CD.cfar_detect_plain(m_h, 0, **kw), 2, 1)
+    bound, by = bound_cfar_detect(BATCH, nrl, nd, q.cfar, True)
+    name = "cfar_detect_reflect[prepadded,float32]"
+    log(f"{name} (sp 4 edge shard {BATCH}x{nrl}+2x{hr}, block): {ms:.4f} ms "
+        f"(graph; eager {eager:.4f}), the wrap entry {wrap:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
+    summary[name] = {"graph_ms": ms, "eager_ms": eager, "wrap_graph_ms": wrap}
+    rows.append(dict(name=name, route="cuda", source=src + "cfar_detect.cu",
+                     replaces="fmcw_tpu/ops/cfar_pallas.py:279",
+                     launches=launches["block/float32/auto/sp4"].get(
+                         "cfar_detect", 0),
+                     max_abs_err=errs[name], ms=ms, plain_ms=plain,
+                     bound_ms=bound, bound_by=by, library_ms=None))
+    return rows, summary
+
+
+def reflect_phase(card: str, dev, pgr: int):
+    """Phase 29: reflect edges on the card (29a-c above), the fixed routes'
+    golden checks in worker processes meanwhile.  Returns (kernel rows,
+    summary)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    with cf.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        launches, fps, golden = reflect_main_path(card, dev, pgr, pool)
+        t1 = time.perf_counter()
+        errs, imag, fmag = reflect_kernel_checks(dev)
+        t2 = time.perf_counter()
+        rows, entry = reflect_timings(card, dev, pgr, imag, fmag, errs,
+                                      launches)
+        t3 = time.perf_counter()
+        verdict = {}
+        for key, fut in golden:
+            ok, n = fut.result()
+            was = verdict.get(key, (True, 0))
+            verdict[key] = (was[0] and ok, was[1] + n)
+        for key, (ok, n) in verdict.items():
+            log(f"reflect route {key}: det maps vs the golden os_cfar_2d "
+                f"and peak_group on all {BATCH} frames: "
+                f"{'equal' if ok else 'DIFFER'} ({n} detections)")
+            if not ok:
+                raise AssertionError(f"reflect route {key} differs from the "
+                                     f"golden model")
+    log(f"reflect phase: 29b {t1 - t0:.1f} s, 29a {t2 - t1:.1f} s, 29c "
+        f"{t3 - t2:.1f} s, golden wait {time.perf_counter() - t3:.1f} s")
+    return rows, {"frames_per_s": fps, "launches": launches, "entry": entry}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4864,7 +5252,12 @@ def main() -> int:
     log(f"phases 1-27: {time.perf_counter() - t_start:.1f} s")
     variant_rows, variant_summary = variant_phase(card, dev, pgr)
 
-    # 29. The kernels line.
+    # 29. Reflect edges: the reflect entry of cfar_detect against its twin,
+    #     the reflect routes and a LocalMesh, timings.
+    log(f"phases 1-28: {time.perf_counter() - t_start:.1f} s")
+    reflect_rows, reflect_summary = reflect_phase(card, dev, pgr)
+
+    # 30. The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
                  source="fmcw_tpu_torch/csrc/range_fft.cu",
@@ -4877,7 +5270,7 @@ def main() -> int:
                          replaces=replaces, launches=launches[mode][1],
                          **results[f"slowtime_detect[{mode}]"]))
     rows += (fixed_rows + array_rows + split_rows + rank_rows + entry_rows
-             + hw_rows + variant_rows)
+             + hw_rows + variant_rows + reflect_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
@@ -4895,6 +5288,7 @@ def main() -> int:
                     "surveillance": surveillance,
                     "hw_stream": hw_summary,
                     "variants": variant_summary,
+                    "reflect": reflect_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

@@ -92,6 +92,28 @@
 // twin's cfar_2d(prepadded_range="both")).  No block scale, no grouping:
 // the emission window, label roll and peak grouping stay outside, as they
 // are outside JAX's kernel.
+//
+// The reflect entry (reflect = 1, CfarParams.edge_mode="reflect") is
+// _kernel_detect and _kernel_detect_scaled on the map that JAX's wrapper
+// pads with numpy's "reflect" (cfar_pallas.py:378, :382): the edge cell not
+// repeated, row -1 reads row 1 and row R reads row R - 2, likewise the
+// columns.  The padded map is never materialized: step 1 copies map row
+// reflect(r0 - hr + e) (a prepadded shard's row r0 + e, its range halo
+// mirrored by the halo exchange) into tile row e with its hd mirrored
+// columns on each side, tile column j holding map column reflect(j - hd).
+// The tile's rows then carry their column halo at the flat-stream entry's
+// pitch, D + 2 hd (138 at the default window, a compile-time constant
+// there), and steps 2-4 run as for that entry (kHalo: columns read
+// unwrapped, column sums over every column), so decisions and scales are
+// bit-identical to ops/cfar.cfar_2d on ops/cfar._reflect_pad's map.  The
+// wrapped column reads of cfar_tile.cuh (walk_training, strip_decide, the
+// ref and half sums: kernel B's, the fixed slow-time kernel's and the 3D
+// CFAR's) are not reached from here.  The operations are the wrap
+// entry's; the copy adds 2 hd columns a row.  A
+// single mirror: hr < R (whole maps) and hd < D, which the wrapper checks.
+// No grouping: peak grouping wraps whatever the edges, and a seam tile's
+// grouping rows would need windows mirrored at the far edge (the plain
+// ops/cfar.peak_group follows, as XLA's grouping follows JAX's kernel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,6 +136,9 @@ struct CfarDetectConfig {
     // frame b's at map + b * stride; padded row e of the tile is the
     // stream cells [start0 + (e - hr) D - hd, ... + D + 2 hd).
     int flat, start0, stride;
+    // The reflect entry (reflect = 1): numpy's "reflect" edges on both axes
+    // (on the Doppler axis alone for a prepadded shard).
+    int reflect;
 };
 
 namespace {
@@ -121,16 +146,29 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSM = 3;
 
+// Where step 1 takes the tile's rows from: a whole map or prepadded shard
+// with wrapped rows and columns; the flat-stream entry's ext streams; the
+// reflect entry's mirrored rows and columns.
+constexpr int kMapSrc = 0, kFlatSrc = 1, kReflectSrc = 2;
+
 // Shared memory layout, in 4-byte words (the C entry checks its total;
 // ops/cfar_detect.tile_bytes mirrors it).
 struct Layout {
     int cs_full, cs_guard, det_s, rmax, counts, total;
 };
 
-// The tile's row pitch: D, or D + 2 hd for the flat-stream entry, whose
-// rows carry their column halo.
+// The tile's row pitch: D, or D + 2 hd for the flat-stream and reflect
+// entries, whose rows carry their column halo.
 __host__ __device__ inline int pitch(const CfarDetectConfig& c) {
-    return c.flat ? c.D + 2 * c.hd : c.D;
+    return (c.flat || c.reflect) ? c.D + 2 * c.hd : c.D;
+}
+
+// numpy's "reflect" of index i into [0, n): periodic with period 2 (n - 1)
+// beyond one mirror (rows that only a last block's discarded rows read).
+__device__ __forceinline__ int reflect_mod(int i, int n) {
+    if (n == 1) return 0;
+    const int j = fmcw::wrap_mod(i, 2 * (n - 1));
+    return j < n ? j : 2 * (n - 1) - j;
 }
 
 __host__ __device__ inline Layout layout(const CfarDetectConfig& c) {
@@ -157,10 +195,11 @@ __device__ __forceinline__ int to_map(float v, int*) {
 
 // Steps 3-5 on a tile of type V (the map's, or float for an int32 tile
 // counted in float) with thresholds by Sem, storing in the map's type O.
-// kD: the tile's row pitch at compile time (0: at run time); kFlat: the
-// flat-stream entry (rows of D + 2 hd cells, columns unwrapped).
+// kD: the tile's row pitch at compile time (0: at run time); kHalo: the
+// flat-stream and reflect entries (rows of D + 2 hd cells that carry their
+// column halo, columns unwrapped; no grouping).
 template <typename V, typename Sem, typename O, int S, int HR, int GR,
-          bool kPacked, int kD, bool kFlat>
+          bool kPacked, int kD, bool kHalo>
 __device__ __forceinline__ void decide_block(
         const V* tile, int* smem, const int* __restrict__ scale_in,
         O* __restrict__ det, int* __restrict__ scale_out,
@@ -170,12 +209,12 @@ __device__ __forceinline__ void decide_block(
     using Cnt = fmcw::Count<V>;
     const Layout lay = layout(c);
     const int P = kD > 0 ? kD : pitch(c);       // the tile's row pitch
-    const int D = kFlat ? c.D : P;              // the columns decided
-    const int off = kFlat ? c.hd : 0;           // tile column of column 0
+    const int D = kHalo ? c.D : P;              // the columns decided
+    const int off = kHalo ? c.hd : 0;           // tile column of column 0
     // Tile column of window column d + j: unwrapped where the rows carry
     // their halo, else modulo D.
     auto wcol = [&](int d, int j) {
-        return kFlat ? off + d + j : fmcw::wrap_col(d + j, D);
+        return kHalo ? off + d + j : fmcw::wrap_col(d + j, D);
     };
     const int hr = HR > 0 ? HR : c.hr;
     const int gr = HR > 0 ? GR : c.gr;
@@ -288,7 +327,7 @@ __device__ __forceinline__ void decide_block(
                 Cnt hl[S];
 #pragma unroll
                 for (int s = 0; s < S; ++s) hl[s] = 0;
-                fmcw::walk_window_t<S, HR, GR, !kFlat>(
+                fmcw::walk_window_t<S, HR, GR, !kHalo>(
                     row0, P, d, g, true, [&](int, int s, V v) {
                         hl[s] = fmcw::count_hi_lo(hl[s], v, t_hi[s], t_lo[s]);
                     });
@@ -302,7 +341,7 @@ __device__ __forceinline__ void decide_block(
                 Cnt hi[S], lo[S];
 #pragma unroll
                 for (int s = 0; s < S; ++s) hi[s] = lo[s] = 0;
-                fmcw::walk_window_t<S, HR, GR, !kFlat>(
+                fmcw::walk_window_t<S, HR, GR, !kHalo>(
                     row0, P, d, g, true, [&](int, int s, V v) {
                         hi[s] = fmcw::count_add(hi[s],
                                                 fmcw::is_gt(v, t_hi[s]));
@@ -324,7 +363,7 @@ __device__ __forceinline__ void decide_block(
             q[s] = Sem::q(cut[s], sc[s]);
             cnt[s] = 0;
         }
-        fmcw::walk_window_t<S, HR, GR, !kFlat>(
+        fmcw::walk_window_t<S, HR, GR, !kHalo>(
             row0, P, d, g, true, [&](int, int s, V v) {
                 cnt[s] = fmcw::count_add(cnt[s], fmcw::is_ge(v, q[s]));
             });
@@ -341,7 +380,7 @@ __device__ __forceinline__ void decide_block(
             }
         }
     }
-    if (kFlat || !group) return;
+    if (kHalo || !group) return;
     __syncthreads();
 
     // 5. Peak grouping of the stored rows, row maxima and the count (the
@@ -358,7 +397,7 @@ __device__ __forceinline__ void decide_block(
 }
 
 template <typename V, int S, int HR, int GR, bool kPacked, int kD,
-          bool kFlat>
+          int kSrc>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
                    V* __restrict__ det, int* __restrict__ scale_out,
@@ -375,7 +414,7 @@ cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
     const int tid = threadIdx.x;
 
     // 1. Map rows r0 - H .. r0 + T + H - 1, a warp a row.
-    if constexpr (kFlat) {
+    if constexpr (kSrc == kFlatSrc) {
         // Padded row r0 + e of frame b: D + 2 hd stream cells from
         // start0 + (r0 + e - hr) c.D - hd.  Rows past the last padded row
         // (R + 2 hr) are only read by decided rows past R: zeros.
@@ -396,6 +435,28 @@ cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
             } else {
                 for (int i = lane; i < D; i += 32)
                     fmcw::cp_async4(dst + i, src + i);
+            }
+        }
+        asm volatile("cp.async.wait_all;" ::: "memory");
+    } else if constexpr (kSrc == kReflectSrc) {
+        // Map row reflect(r0 - hr + e) (a prepadded shard's row r0 + e),
+        // its D cells at tile columns hd .. hd + D - 1 and hd mirrored ones
+        // on each side: tile column j holds map column reflect(j - hd), a
+        // single mirror (hd < D).  4-byte copies: rows of D + 2 hd cells
+        // put the map's columns off a 16-byte boundary.
+        const int rows_in = c.prepadded ? c.R + 2 * c.hr : c.R;
+        const V* src0 = map + (size_t)blockIdx.y * rows_in * c.D;
+        const int lane = tid & 31;
+        for (int e = tid >> 5; e < E; e += kThreads / 32) {
+            const int row = c.prepadded ? fmcw::wrap_mod(r0 + e, rows_in)
+                                        : reflect_mod(r0 - H + e, c.R);
+            const V* src = src0 + (size_t)row * c.D;
+            V* dst = tile + (size_t)e * D;
+            for (int j = lane; j < D; j += 32) {
+                const int m = j - c.hd;
+                const int col = m < 0 ? -m : (m >= c.D ? 2 * (c.D - 1) - m
+                                                         : m);
+                fmcw::cp_async4(dst + j, src + col);
             }
         }
         asm volatile("cp.async.wait_all;" ::: "memory");
@@ -441,22 +502,23 @@ cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
                 ft[i] = __int2float_rn(tile[i]);
             __syncthreads();
             decide_block<float, fmcw::IntInFloat, V, S, HR, GR, kPacked, kD,
-                         kFlat>(ft, smem, scale_in, det, scale_out, row_max,
-                                n_dets, c);
+                         kSrc != kMapSrc>(ft, smem, scale_in, det, scale_out,
+                                          row_max, n_dets, c);
             return;
         }
     }
-    decide_block<V, fmcw::MapSem<V>, V, S, HR, GR, kPacked, kD, kFlat>(
-        tile, smem, scale_in, det, scale_out, row_max, n_dets, c);
+    decide_block<V, fmcw::MapSem<V>, V, S, HR, GR, kPacked, kD,
+                 kSrc != kMapSrc>(tile, smem, scale_in, det, scale_out,
+                                  row_max, n_dets, c);
 }
 
 template <typename V, int S, int HR, int GR, bool kPacked, int kD = 0,
-          bool kFlat = false>
+          int kSrc = kMapSrc>
 int launch_variant(const void* map, const void* scale_in, void* det,
                    void* scale_out, void* row_max, void* n_dets,
                    const CfarDetectConfig& c, cudaStream_t stream) {
     const size_t smem = (size_t)layout(c).total * 4;
-    auto* kernel = cfar_detect_kernel<V, S, HR, GR, kPacked, kD, kFlat>;
+    auto* kernel = cfar_detect_kernel<V, S, HR, GR, kPacked, kD, kSrc>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -516,16 +578,36 @@ int launch_flat(const void* ext, void* det, void* scale_out,
                 const CfarDetectConfig& c, cudaStream_t s) {
     constexpr int S = fmcw::kStrip;
     if (c.strip == 1)
-        return launch_variant<V, 1, 0, 0, false, 0, true>(
+        return launch_variant<V, 1, 0, 0, false, 0, kFlatSrc>(
             ext, nullptr, det, scale_out, nullptr, nullptr, c, s);
     if (!c.packed)
-        return launch_variant<V, S, 0, 0, false, 0, true>(
+        return launch_variant<V, S, 0, 0, false, 0, kFlatSrc>(
             ext, nullptr, det, scale_out, nullptr, nullptr, c, s);
     if (c.hr == 5 && c.gr == 1 && pitch(c) == 140)
-        return launch_variant<V, S, 5, 1, true, 140, true>(
+        return launch_variant<V, S, 5, 1, true, 140, kFlatSrc>(
             ext, nullptr, det, scale_out, nullptr, nullptr, c, s);
-    return launch_variant<V, S, 0, 0, true, 0, true>(
+    return launch_variant<V, S, 0, 0, true, 0, kFlatSrc>(
         ext, nullptr, det, scale_out, nullptr, nullptr, c, s);
+}
+
+// The reflect entry's variants: the same choice, with only the default
+// window (6, 2) unrolled at its pitch of 128 + 10 columns.
+template <typename V>
+int launch_reflect(const void* map, const void* scale_in, void* det,
+                   void* scale_out, const CfarDetectConfig& c,
+                   cudaStream_t s) {
+    constexpr int S = fmcw::kStrip;
+    if (c.strip == 1)
+        return launch_variant<V, 1, 0, 0, false, 0, kReflectSrc>(
+            map, scale_in, det, scale_out, nullptr, nullptr, c, s);
+    if (!c.packed)
+        return launch_variant<V, S, 0, 0, false, 0, kReflectSrc>(
+            map, scale_in, det, scale_out, nullptr, nullptr, c, s);
+    if (c.hr == 6 && c.gr == 2 && pitch(c) == 138)
+        return launch_variant<V, S, 6, 2, true, 138, kReflectSrc>(
+            map, scale_in, det, scale_out, nullptr, nullptr, c, s);
+    return launch_variant<V, S, 0, 0, true, 0, kReflectSrc>(
+        map, scale_in, det, scale_out, nullptr, nullptr, c, s);
 }
 
 // The checks both kinds of entry share.
@@ -535,6 +617,7 @@ bool config_ok(const CfarDetectConfig& c) {
            c.gd >= 0 && c.so >= 0 && c.k >= 1 && c.k <= c.n_ref &&
            c.float_max >= 0 && c.float_max < (1 << 23) &&
            (c.strip == 1 || (c.strip == fmcw::kStrip && c.T >= c.strip)) &&
+           (c.reflect == 0 || c.reflect == 1) &&
            !(c.packed && (c.strip == 1 ||
                           c.n_ref > fmcw::kMaxPackedRef<float>)) &&
            (size_t)layout(c).total * 4 <= 227 * 1024;
@@ -546,7 +629,7 @@ int run_flat(const void* ext, void* det, void* scale_out,
     const long lo = (long)c.start0 - (long)c.hr * c.D - c.hd;
     const long hi = (long)c.start0 + (long)(c.R + c.hr) * c.D + c.hd;
     if (!config_ok(c) || c.flat != 1 || c.block_mode || c.prepadded ||
-        c.pgr != -1 || lo < 0 || hi > c.stride)
+        c.reflect || c.pgr != -1 || lo < 0 || hi > c.stride)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     return c.integer ? launch_flat<int>(ext, det, scale_out, c, s)
@@ -558,11 +641,17 @@ int run(const void* map, const void* scale_in, void* det, void* scale_out,
         void* stream) {
     const bool group = c.pgr >= 0;
     if (!config_ok(c) || c.flat != 0 || c.hd >= c.D || c.pgr < -1 ||
-        (group && (c.prepadded || row_max == nullptr ||
+        (group && (c.prepadded || c.reflect || row_max == nullptr ||
                    n_dets == nullptr)) ||
+        (c.reflect && !c.prepadded && c.hr >= c.R) ||
         (c.block_mode && scale_in == nullptr))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
+    if (c.reflect)
+        return c.integer
+                   ? launch_reflect<int>(map, scale_in, det, scale_out, c, s)
+                   : launch_reflect<float>(map, scale_in, det, scale_out, c,
+                                           s);
     return c.integer ? launch<int>(map, scale_in, det, scale_out, row_max,
                                    n_dets, c, s)
                      : launch<float>(map, scale_in, det, scale_out, row_max,
@@ -575,8 +664,9 @@ int run(const void* map, const void* scale_in, void* det, void* scale_out,
 // D) with prepadded; det: the map's type (batch, R, D); scale_in: int32
 // (batch, R, D) with block_mode, else null; scale_out: int32 (batch, R,
 // D).  strip: 8 (fmcw::kStrip, T >= 8) or 1; packed: hi and lo in one count
-// (n_ref <= 4094); pgr -1.  Returns the CUDA error code of the launch (0 on
-// success).
+// (n_ref <= 4094); pgr -1; reflect: numpy's mirror in place of the wrap
+// (hr < R unless prepadded, hd < D).  Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int fmcw_cfar_detect(const void* map, const void* scale_in,
                                 void* det, void* scale_out,
                                 const CfarDetectConfig* cfg, void* stream) {
@@ -584,8 +674,8 @@ extern "C" int fmcw_cfar_detect(const void* map, const void* scale_in,
     return run(map, scale_in, det, scale_out, nullptr, nullptr, *cfg, stream);
 }
 
-// The grouping entry: as fmcw_cfar_detect on a whole map (not prepadded)
-// with pgr >= 0; row_max: the map's type (batch, R); n_dets: int32
+// The grouping entry: as fmcw_cfar_detect on a whole map (not prepadded,
+// wrap edges) with pgr >= 0; row_max: the map's type (batch, R); n_dets: int32
 // (batch,), zeroed by the caller.
 extern "C" int fmcw_cfar_detect_group(const void* map, const void* scale_in,
                                       void* det, void* scale_out,

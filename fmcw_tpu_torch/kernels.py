@@ -56,7 +56,8 @@ class CfarDetectConfig(ctypes.Structure):
         "hr", "hd", "gr", "gd", "n_ref", "k",
         "scale_min", "scale_nom", "scale_max",
         "block_mode", "so", "integer", "prepadded",
-        "strip", "packed", "pgr", "float_max", "flat", "start0", "stride")]
+        "strip", "packed", "pgr", "float_max", "flat", "start0", "stride",
+        "reflect")]
 
 
 class CfarRankConfig(ctypes.Structure):

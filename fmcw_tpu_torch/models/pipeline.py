@@ -105,9 +105,23 @@ variant in the fixed slow-time kernel (its integer window-mean epilogue,
 as JAX's ``_kernel_fixed``); fixed ``auto`` is the staged route, as in
 JAX.
 
-Not yet ported (they raise ``NotImplementedError``, ROADMAP.md): reflect
-edges, ``fixed_fft="scaled"``, on the kernels long CPIs (n_doppler > 128).
-The sharded processors are in ``parallel/sharded.py``.
+Reflect edges (``CfarParams.edge_mode="reflect"``, numpy's mirror on both
+axes; the block scale clips its neighbourhood; peak grouping still wraps)
+take JAX's standalone-CFAR dataflow, since the front-end kernels' detect
+epilogues wrap only: the route's magnitudes (float32 "auto" / "fused":
+kernel A and kernel B's magnitude-only entry, ``resolve_frontend`` asks
+for that entry; "staged" and fixed: the plain stages), then the reflect
+entry of ``csrc/cfar_detect.cu`` (``ops/cfar_detect.cfar_detect``; on
+"plain" its twin) and the plain ``peak_group``
+(``cfar_detect_then_group``), then the top-K; CA/GO/SO decide in the plain
+``cfar_2d_group``.  Fixed "fused" raises ValueError, as JAX's; the OS debug
+taps (the rank-select kernel) and the array model raise
+``NotImplementedError`` (their reflect entries are queued in ROADMAP.md).
+``cfar_geometry="hw_stream"`` ignores the edge mode, as JAX's.
+
+Not yet ported (they raise ``NotImplementedError``, ROADMAP.md):
+``fixed_fft="scaled"``, on the kernels long CPIs (n_doppler > 128).  The
+sharded processors are in ``parallel/sharded.py``.
 """
 
 from __future__ import annotations
@@ -124,7 +138,8 @@ from ..ops import frontend as F, frontend_fixed as FX
 from ..ops.beam_group import beam_group, beam_group_plain
 from ..ops.cfar3d_detect import cfar3d_detect, cfar3d_detect_plain
 from ..golden.fixed_point import hw_stream_lag
-from ..ops.cfar_detect import cfar_detect_group, cfar_detect_hw_stream
+from ..ops.cfar_detect import (cfar_detect_group, cfar_detect_group_plain,
+                               cfar_detect_hw_stream, cfar_detect_then_group)
 from ..ops.cfar_rank import cfar_rank_group, cfar_rank_plain, debug_bits
 from ..ops.fft import dft_apply, doppler_apply
 from ..ops.frontend import rdm_frontend_detect
@@ -149,9 +164,10 @@ def resolve_frontend(mode: str, frontend: str,
     """The route ``frontend`` names.  "auto" is "staged" for fixed; for
     float32 it is "fused" where the front-end kernels take ``p``
     (``ops/frontend.fused_detect_supported``, with ``peak_group_radius``
-    and ``mag_only`` as there; decided here, before any launch), else
-    "staged", as JAX's "auto" falls back to its XLA chain.  Without ``p``
-    the float32 "auto" is "fused"."""
+    and ``mag_only`` as there, and the magnitude-only entry for edges other
+    than wrap; decided here, before any launch), else "staged", as JAX's
+    "auto" falls back to its XLA chain.  Without ``p`` the float32 "auto"
+    is "fused"."""
     if frontend not in FRONTENDS:
         raise ValueError(f"frontend must be one of {FRONTENDS}, got "
                          f"{frontend!r}")
@@ -159,8 +175,8 @@ def resolve_frontend(mode: str, frontend: str,
         return frontend
     if mode != "float32":
         return "staged"
-    if p is None or F.fused_detect_supported(p, peak_group_radius,
-                                             mag_only):
+    if p is None or F.fused_detect_supported(
+            p, peak_group_radius, mag_only or p.cfar.edge_mode != "wrap"):
         return "fused"
     return "staged"
 
@@ -188,11 +204,19 @@ def _staged_fixed(iq, mti_bypass, p: RadarParams, transient: str,
     return mag, sat_r + sat_d
 
 
-def cfar_group_route(cfar) -> Callable:
-    """The staged routes' CFAR and grouping: the standalone kernel's
-    grouping entry (``cfar_detect_group``) for OS, the plain
-    ``ops/cfar.cfar_2d_group`` for CA/GO/SO."""
-    return cfar_detect_group if cfar.variant == "os" else C.cfar_2d_group
+def cfar_group_route(cfar, plain: bool = False) -> Callable:
+    """The CFAR and grouping of a route that decides on its magnitude maps
+    (the staged routes, and every route under reflect edges), with
+    ``cfar_detect_group``'s signature and outputs: for OS its grouping
+    entry with wrap edges, the reflect entry then the plain grouping
+    (``cfar_detect_then_group``) with reflect edges, the twins on "plain"
+    (``plain``); the plain ``ops/cfar.cfar_2d_group`` for CA/GO/SO."""
+    if cfar.variant != "os":
+        return C.cfar_2d_group
+    if plain:
+        return cfar_detect_group_plain
+    return (cfar_detect_group if cfar.edge_mode == "wrap"
+            else cfar_detect_then_group)
 
 
 def _plain_cfar3d(cube, scale_override=0, *, cfar, ref_angle,
@@ -269,6 +293,8 @@ def make_batch_processor(params: RadarParams | None = None,
         raise ValueError(f"cfar_geometry must be 'named' or 'hw_stream', got "
                          f"{cfar_geometry!r}")
     hw = cfar_geometry == "hw_stream"
+    # Reflect maps decide in the standalone CFAR (module docstring).
+    standalone = not hw and p.cfar.edge_mode != "wrap"
     route = resolve_frontend(mode, frontend, p, peak_group_radius,
                              mag_only=hw or include_debug)
     if hw:
@@ -279,6 +305,9 @@ def make_batch_processor(params: RadarParams | None = None,
                              "mode='fixed'")
     else:
         C.check_supported(p.cfar)
+        if standalone and include_debug and p.cfar.variant == "os":
+            C.check_wrap(p.cfar, "the debug taps' rank-select CFAR "
+                                 "(csrc/cfar_rank.cu)")
     if mode == "fixed":
         check_notch(p.notch_mode, mti_transient)
         window_rounding_constant(p.coef_width, window_rounding)
@@ -347,7 +376,7 @@ def make_batch_processor(params: RadarParams | None = None,
         if hw:
             det, mag, sat, nonfinite, threshold, scale, carry = hw_stream(
                 iq, bypass, so, hist, streaming)
-        elif route == "staged" or include_debug:
+        elif route == "staged" or include_debug or standalone:
             mag, sat, nonfinite = magnitudes(iq, bypass)
             if include_debug and p.cfar.variant != "os":
                 det, threshold, scale = C.cfar_2d(mag, so, p.cfar,
@@ -362,7 +391,8 @@ def make_batch_processor(params: RadarParams | None = None,
                                                         bits=bits)
                 det = C.peak_group(det, peak_group_radius)
             else:
-                det, _, row_max, n_dets = cfar_group_route(p.cfar)(
+                det, _, row_max, n_dets = cfar_group_route(
+                    p.cfar, route == "plain")(
                     mag, so, cfar=p.cfar, peak_group_radius=peak_group_radius)
         elif mode == "fixed":
             det, mag, sat, row_max, n_dets = FX.rdm_frontend_fixed_detect(
@@ -503,10 +533,13 @@ def make_batch_array_processor(params: RadarParams | None = None,
 
     ``frontend``: "auto", "fused", "staged" or "plain" (module docstring,
     ``resolve_array_frontend``).  ``device``: None means "cuda" (raises
-    without one); pass "cpu" for the plain path."""
+    without one); pass "cpu" for the plain path.  Wrap edges only (kernel
+    B's detect entry and the 3D CFAR wrap; reflect raises
+    NotImplementedError, queued in ROADMAP.md)."""
     p = params or RadarParams()
     dev = resolve_device(device)
-    C.check_supported(p.cfar)
+    C.check_wrap(p.cfar, "the array model (kernel B's detect entry, "
+                         "csrc/cfar_3d_detect.cu)")
     route = resolve_array_frontend(frontend, p, ref_angle, peak_group_radius)
     BF.steering_matrix(n_elems, n_beams, spacing_wl, max_angle_deg, taper)
     nr, nd, nb = p.n_range, p.n_doppler, n_beams

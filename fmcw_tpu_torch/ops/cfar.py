@@ -31,7 +31,11 @@ cut > est*scale  <=>  count(refs >= ceil(cut/scale)) < k.  Float maps are
 float32.  The plain twin of ``csrc/cfar_detect.cu`` too (``ops/cfar_detect``).
 
 All functions take maps with any leading batch dimensions, ``(..., R, D)``,
-wrap edges (the torus of the reference's line buffers).
+and ``CfarParams.edge_mode``'s edges: "wrap" (the torus of the reference's
+line buffers) or "reflect" (numpy's: the edge cell not repeated, row -1
+reads row 1; ``_reflect_pad``, JAX's ``_pad2d``).  The block scale clips
+its 3x3-block neighbourhood at the edges under any edge mode other than
+wrap (JAX's ``block_scale_map``), and peak grouping always wraps, as JAX's.
 
 The sharded processor's pieces (``parallel/sharded.py``, after
 ``fmcw_tpu/parallel/sharded.py``): ``cfar_2d(prepadded_range=True)`` on a
@@ -76,6 +80,33 @@ def _wrap_pad(m: torch.Tensor, hr: int, hd: int) -> torch.Tensor:
     return m
 
 
+def reflect_index(i: torch.Tensor, n: int) -> torch.Tensor:
+    """numpy's "reflect" of indices ``i`` into [0, n): the edge not
+    repeated (-1 -> 1, n -> n - 2), periodic with period 2 (n - 1) beyond
+    one mirror, as ``np.pad(mode="reflect")`` pads any width."""
+    if n == 1:
+        return torch.zeros_like(i)
+    j = i % (2 * (n - 1))
+    return torch.where(j < n, j, 2 * (n - 1) - j)
+
+
+def _reflect_pad(m: torch.Tensor, hr: int, hd: int) -> torch.Tensor:
+    """Pad the last two axes of ``m`` by reflection (``np.pad(mode=
+    "reflect")``) by ``hr`` rows and ``hd`` columns on each side."""
+    for dim, h in ((-2, hr), (-1, hd)):
+        if h:
+            n = m.shape[dim]
+            idx = reflect_index(torch.arange(-h, n + h, device=m.device), n)
+            m = m.index_select(dim, idx)
+    return m
+
+
+def _pad(m: torch.Tensor, hr: int, hd: int, cfar: CfarParams) -> torch.Tensor:
+    """The map padded by the window's halos with ``cfar.edge_mode``."""
+    return (_reflect_pad if cfar.edge_mode == "reflect" else _wrap_pad)(
+        m, hr, hd)
+
+
 def _box_sum(p: torch.Tensor, win_r: int, win_d: int) -> torch.Tensor:
     """Sum over a win_r x win_d window of a map padded by the half-windows:
     inner sum over rows ascending, outer over columns ascending."""
@@ -91,18 +122,34 @@ def _box_sum(p: torch.Tensor, win_r: int, win_d: int) -> torch.Tensor:
 
 
 VARIANTS = ("os", "ca", "go", "so")
+EDGE_MODES = ("wrap", "reflect")
 
 
 def check_supported(cfar: CfarParams):
     """The plain CFAR functions take every variant (OS, CA, GO, SO) with
-    wrap edges."""
+    wrap or reflect edges."""
     if cfar.variant not in VARIANTS:
         raise ValueError(f"CFAR variant must be one of {VARIANTS}, got "
                          f"{cfar.variant!r}")
+    if cfar.edge_mode not in EDGE_MODES:
+        raise ValueError(f"edge_mode must be one of {EDGE_MODES}, got "
+                         f"{cfar.edge_mode!r}")
+
+
+def check_wrap(cfar: CfarParams, name: str):
+    """The kernels that take wrap edges only (kernel B's and the fixed
+    slow-time kernel's detect and split entries, the rank-select and 3D
+    CFARs, and their twins) raise NotImplementedError for any other: a
+    reflect map never reaches a wrap-only kernel.  Reflect edges run
+    ``csrc/cfar_detect.cu``; the rank-select and 3D kernels' reflect
+    entries are queued in ROADMAP.md."""
+    check_supported(cfar)
     if cfar.edge_mode != "wrap":
         raise NotImplementedError(
-            f"edge_mode {cfar.edge_mode!r}: the port implements 'wrap' only "
-            f"(reflect edges are queued in ROADMAP.md)")
+            f"{name}: edge_mode {cfar.edge_mode!r}: this kernel takes wrap "
+            f"edges only (reflect runs the magnitude-only kernel and "
+            f"csrc/cfar_detect.cu; the rank-select and 3D CFARs' reflect "
+            f"entries are queued in ROADMAP.md)")
 
 
 def check_os_supported(cfar: CfarParams):
@@ -110,7 +157,8 @@ def check_os_supported(cfar: CfarParams):
     ``csrc/cfar_rank.cu``, ``csrc/cfar_3d_detect.cu``) and their twins
     decide the OS variant only, as JAX's standalone Pallas kernels
     (``fmcw_tpu/ops/cfar_pallas.py``); CA/GO/SO decide in kernel B or in
-    the plain ``cfar_2d`` / ``cfar_3d``."""
+    the plain ``cfar_2d`` / ``cfar_3d``.  Edges: ``check_wrap`` where a
+    kernel wraps only."""
     check_supported(cfar)
     if cfar.variant != "os":
         raise NotImplementedError(
@@ -167,13 +215,26 @@ def _block_k(cfar: CfarParams):
     return n, n - min((n * cfar.rank_pct) // 100, n - 1)
 
 
-def _nb9(a: torch.Tensor) -> torch.Tensor:
-    """Sum of the 3x3 wrapped neighborhood on a (..., Rb, Db) block grid,
-    Doppler-block offset outer, range-block offset inner."""
+def _clipped(a: torch.Tensor, dim: int, off: int) -> torch.Tensor:
+    """a[b] <- a[b + off] along ``dim``, the index clipped to the axis: the
+    edge block stands in for a missing neighbour."""
+    n = a.shape[dim]
+    idx = (torch.arange(n, device=a.device) + off).clamp(0, n - 1)
+    return a.index_select(dim, idx)
+
+
+def _nb9(a: torch.Tensor, clip: bool = False) -> torch.Tensor:
+    """Sum of the 3x3 neighborhood on a (..., Rb, Db) block grid,
+    Doppler-block offset outer, range-block offset inner: wrapped, or
+    ``clip``ped at the edges (JAX's ``block_scale_map`` for any edge mode
+    but wrap)."""
     acc = None
     for di in (-1, 0, 1):
         for dr in (-1, 0, 1):
-            t = torch.roll(a, shifts=(-dr, -di), dims=(-2, -1))
+            if clip:
+                t = _clipped(_clipped(a, -2, dr), -1, di)
+            else:
+                t = torch.roll(a, shifts=(-dr, -di), dims=(-2, -1))
             acc = t if acc is None else acc + t
     return acc
 
@@ -205,17 +266,20 @@ def block_scale_map(mag: torch.Tensor, cfar: CfarParams) -> torch.Tensor:
     mean and counts-lo iff v >= 0.5 x its own block's mean; the tile takes
     scale_max when >= k of its neighborhood's 9*B^2 cells exceed hi,
     scale_min when < k of them count lo, else scale_nom
-    (k = 9*B^2 - rank_idx).  Semantics of fmcw_tpu/ops/cfar.block_scale_map
-    (integer mode for integer maps)."""
+    (k = 9*B^2 - rank_idx).  The neighbourhood wraps with wrap edges and
+    clips at the map's edges otherwise.  Semantics of
+    fmcw_tpu/ops/cfar.block_scale_map (integer mode for integer maps)."""
     b = cfar.scale_block
     R, D = mag.shape[-2:]
     if R % b or D % b:
         raise ValueError(f"scale_block={b} must divide map shape {(R, D)}")
     n, k = _block_k(cfar)
+    clip = cfar.edge_mode != "wrap"
     m = _as_map(mag)
-    t_hi, t_lo = _thresholds(_to_cells(_div(_nb9(_block_reduce(m, b)), n), b))
-    cnt_hi = _nb9(_block_reduce((m > t_hi).to(torch.int32), b))
-    cnt_lo = _nb9(_block_reduce((m >= t_lo).to(torch.int32), b))
+    t_hi, t_lo = _thresholds(_to_cells(_div(_nb9(_block_reduce(m, b), clip),
+                                            n), b))
+    cnt_hi = _nb9(_block_reduce((m > t_hi).to(torch.int32), b), clip)
+    cnt_lo = _nb9(_block_reduce((m >= t_lo).to(torch.int32), b), clip)
     scale_b = torch.where(cnt_hi >= k, cfar.scale_max,
                           torch.where(cnt_lo < k, cfar.scale_min,
                                       cfar.scale_nom))
@@ -229,14 +293,18 @@ def block_scale_map_sharded(mags: list, cfar: CfarParams,
     rank's own), and ``exchange(xs, h)`` returns, for each tensor of the
     list ``xs``, the pair (the previous shard's last ``h`` rows, the next
     shard's first ``h`` rows) around the ring of shards
-    (``parallel/sharded.py``).  The 3x3-block neighbourhood needs one
-    block-grid row from each neighbour: block sums and the hi/lo counts
-    are exchanged, and the neighbourhood is summed in ``_nb9``'s term order,
-    so float maps too give ``block_scale_map``'s scales bit for bit.
+    (``parallel/sharded.py``), with ``exchange(xs, h, "clip")`` the global
+    edge shards' own edge rows in place of the missing ones.  The 3x3-block
+    neighbourhood needs one block-grid row from each neighbour: block sums
+    and the hi/lo counts are exchanged, and the neighbourhood is summed in
+    ``_nb9``'s term order, so float maps too give ``block_scale_map``'s
+    scales bit for bit.  With edges other than wrap the range-block axis
+    clips through the exchange and the Doppler-block axis clips locally.
     Returns the int32 scale maps, one per shard.  Port of
-    ``fmcw_tpu/ops/cfar.block_scale_map_sharded`` (wrap edges)."""
+    ``fmcw_tpu/ops/cfar.block_scale_map_sharded``."""
     b = cfar.scale_block
     n, k = _block_k(cfar)
+    clip = cfar.edge_mode != "wrap"
     ms = [_as_map(m) for m in mags]
     for m in ms:
         if m.shape[-2] % b or m.shape[-1] % b:
@@ -245,13 +313,15 @@ def block_scale_map_sharded(mags: list, cfar: CfarParams,
 
     def nb9(grids):
         out = []
-        for g, (lo, hi) in zip(grids, exchange(grids, 1)):
+        for g, (lo, hi) in zip(grids, exchange(grids, 1,
+                                               "clip" if clip else "wrap")):
             e = torch.cat([lo, g, hi], dim=-2)
             rb = g.shape[-2]
             acc = None
             for di in (-1, 0, 1):
                 for dr in (-1, 0, 1):
-                    t = torch.roll(e[..., 1 + dr:1 + dr + rb, :], -di, -1)
+                    t = e[..., 1 + dr:1 + dr + rb, :]
+                    t = _clipped(t, -1, di) if clip else torch.roll(t, -di, -1)
                     acc = t if acc is None else acc + t
             out.append(acc)
         return out
@@ -388,14 +458,18 @@ def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
     ``scale_map`` (block scale only): a precomputed int32 scale map, as
     ``fmcw_tpu/ops/cfar.cfar_2d(scale_map=...)`` takes it.
 
+    ``cfar.edge_mode``: "wrap" or "reflect" pads the map (``_pad``), and
+    every sum runs in the same order on the padded map.
+
     ``prepadded_range``: the map carries ``halo_range`` extra rows on each
-    side (a range shard with its neighbours' rows) and the range axis does
-    not wrap; the outputs have the unpadded rows.  Block scale then needs
+    side (a range shard with its neighbours' rows, mirrored at the global
+    edges under reflect) and only the Doppler axis is padded; the outputs
+    have the unpadded rows.  Block scale then needs
     ``scale_map`` (``block_scale_map_sharded``), as in JAX.  ``"both"``:
     the map carries the halos of both axes, (..., R + 2 halo_range, D + 2
     halo_doppler), and neither axis wraps (OS with the per-cell scale only;
     the hw-compat streaming CFAR's padded buffer,
-    ``hw_stream_decide_plain``)."""
+    ``hw_stream_decide_plain``; the edge mode does not apply)."""
     check_supported(cfar)
     hr, hd = cfar.halo_range, cfar.halo_doppler
     m = _as_map(mag)
@@ -407,10 +481,10 @@ def cfar_2d(mag: torch.Tensor, scale_override: int = 0,
         p = m
         m = m[..., hr:m.shape[-2] - hr, hd:m.shape[-1] - hd]
     elif prepadded_range:
-        p = _wrap_pad(m, 0, hd)
+        p = _pad(m, 0, hd, cfar)
         m = m[..., hr:m.shape[-2] - hr, :]
     else:
-        p = _wrap_pad(m, hr, hd)
+        p = _pad(m, hr, hd, cfar)
     R, D = m.shape[-2:]
     k = cfar.n_ref - cfar.rank_idx
     offsets = _window_offsets(cfar)
@@ -493,7 +567,8 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
       +-guard_angle (``_offsets_3d``), every axis wrapped (the beam axis
       too: beam 0's da=-1 neighbour is beam A-1); the rank follows
       ``cfar.rank_pct`` on the enlarged n_ref, and the adaptive scale is
-      always per cell (``cfar.scale_mode`` does not apply, as in JAX).
+      always per cell (``cfar.scale_mode`` does not apply, as in JAX);
+      wrap edges only for now (``check_wrap``).
 
     CA / GO / SO (``ref_angle > 0``, no kernel; JAX's XLA body): CA the
     training mean; GO / SO the greater / smaller of the means of the lead
@@ -521,7 +596,8 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
                          f"{ref_angle}, {guard_angle}")
     if ref_angle == 0:
         return cfar_2d(cube, scale_override, cfar, need_debug)
-    check_supported(cfar)
+    # JAX reflects the 3D window too (queued with the 3D kernel's entry).
+    check_wrap(cfar, "cfar_3d")
     m = _as_map(cube)
     offs = _offsets_3d(cfar, ref_angle, guard_angle)
     n_ref = len(offs)
@@ -649,7 +725,14 @@ def cfar_2d_group(mag: torch.Tensor, scale_override: int = 0, *,
     ``(det, scale, row_max, n_dets)``, the outputs of
     ``ops/cfar_detect.cfar_detect_group``."""
     det, _, scale = cfar_2d(mag, scale_override, cfar, scale_map=scale_map)
-    det = peak_group(det, peak_group_radius)
+    return group_and_count(det, scale, peak_group_radius)
+
+
+def group_and_count(det: torch.Tensor, scale: torch.Tensor, radius: int):
+    """``(peak_group(det, radius), scale, row maxima of the grouped map's
+    positive cells (0 where a row has none), its detection count)``: the
+    outputs of a grouping CFAR step."""
+    det = peak_group(det, radius)
     return (det, scale, det.clamp(min=0).amax(dim=-1),
             (det > 0).sum(dim=(-2, -1)).to(torch.int32))
 

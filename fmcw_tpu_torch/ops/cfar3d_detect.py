@@ -44,8 +44,9 @@ def cfar3d_detect_plain(cube: torch.Tensor, scale_override: int = 0, *,
                         cfar: CfarParams, ref_angle: int,
                         guard_angle: int = 0, prepadded_angle: bool = False):
     """Plain twin: ``ops/cfar.cfar_3d`` -> (det, scale); OS only, as the
-    kernel (``ops/cfar.check_os_supported``)."""
+    kernel (``ops/cfar.check_os_supported``), wrap edges only."""
     C.check_os_supported(cfar)
+    C.check_wrap(cfar, "cfar3d_detect")
     det, _, scale = C.cfar_3d(cube, scale_override, cfar, ref_angle,
                               guard_angle, prepadded_angle=prepadded_angle)
     return det, scale
@@ -93,8 +94,9 @@ def cfar3d_config(shape, cfar: CfarParams, ref_angle: int, guard_angle: int,
                   prepadded_angle: bool = False):
     """The kernel's config for a (batch, A, R, D) cube (A + 2 ha planes
     with ``prepadded_angle``); raises NotImplementedError for what the
-    kernel does not take."""
+    kernel does not take (reflect edges among it)."""
     C.check_os_supported(cfar)
+    C.check_wrap(cfar, "cfar3d_detect")
     _check_angles(ref_angle, guard_angle)
     if int(scale_override) < 0:
         raise ValueError(f"scale_override must be >= 0, got {scale_override}")

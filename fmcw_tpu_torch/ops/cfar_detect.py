@@ -21,11 +21,24 @@ side, (..., R + 2 halo_range, D); the range axis does not wrap and the
 outputs have the shard's R rows.  Block scale then takes the shard's
 ``scale_map`` (``ops/cfar.block_scale_map_sharded``).
 
+Reflect edges (``CfarParams.edge_mode="reflect"``, numpy's mirror) are
+the kernel's reflect entry: the same counting on tile rows that carry
+their mirrored column halo (the flat-stream entry's row pitch, D + 2
+halo_doppler), the rows of a whole map mirrored at its first and last row
+(a prepadded shard's rows arrive mirrored from the halo exchange).  It
+takes a single mirror, halo_range < R and halo_doppler < D; the twin
+(``ops/cfar.cfar_2d`` on ``ops/cfar._reflect_pad``) takes numpy's
+semantics beyond that too.
+
 ``cfar_detect_group`` is the kernel's grouping entry, the single-device
 staged routes' CFAR step: the same maps with the det map peak-grouped
 (``ops/cfar.peak_group``) in the kernel's epilogue, and the row maxima and
 detection counts ``ops/detect.topk_detections`` takes; its twin is
-``cfar_detect_group_plain``.
+``cfar_detect_group_plain``.  It wraps only: grouping wraps whatever the
+edges, so a reflect tile at the seam would need the windows of both edges
+in one contiguous row window.  Reflect maps take ``cfar_detect_then_group``
+(the reflect entry, then the plain ``peak_group``, as JAX groups in XLA
+after its standalone kernel).
 
 ``cfar_detect_hw_stream`` is the kernel's flat-stream entry, the decision
 of the hw-compat streaming CFAR (``cfar_geometry="hw_stream"``; JAX's
@@ -82,7 +95,8 @@ def cfar_detect_group_plain(mag: torch.Tensor, scale_override: int = 0, *,
                             peak_group_radius: int = 0):
     """Plain twin of ``cfar_detect_group``: ``ops/cfar.cfar_2d_group``
     (``cfar_2d``, ``peak_group``, the row maxima and the detection count),
-    ``(det, scale, row_max, n_dets)``; OS only, as the kernel."""
+    ``(det, scale, row_max, n_dets)``; OS only, as the kernel.  It also
+    takes reflect edges: the twin of ``cfar_detect_then_group``."""
     C.check_os_supported(cfar)
     return C.cfar_2d_group(mag, scale_override, cfar=cfar,
                            scale_map=scale_map,
@@ -93,7 +107,7 @@ def tile_bytes(T: int, D: int, hr: int, pgr: int = -1,
                block: bool = False, pitch: int | None = None) -> int:
     """Shared memory of a block of T rows (``csrc/cfar_detect.cu``'s
     layout): the tile's T + 2 (hr + pgr) rows of ``pitch`` cells (D; the
-    flat-stream entry's D + 2 hd); per-cell scale with hr > 0, the full and
+    flat-stream and reflect entries' D + 2 hd); per-cell scale with hr > 0, the full and
     guard column sums of the T + 2 pgr decided rows; grouping (pgr >= 0),
     their decisions, T row maxima and 2 counts."""
     pg = max(pgr, 0)
@@ -157,9 +171,11 @@ def kernel_inputs(mag: torch.Tensor, scale_override: int, cfar: CfarParams,
                   scale_map: torch.Tensor | None, prepadded_range: bool,
                   name: str):
     """Validate a CFAR kernel's map and lay it out for the kernel (shared
-    with ``ops/cfar_rank``): returns ``(m (B, R_in, D) contiguous, lead
-    dims, R, D, block mode, the int32 (B, R, D) scale map or None)``; the
-    block scale map is computed here when none is given."""
+    with ``ops/cfar_rank``, which refuses reflect edges itself): returns
+    ``(m (B, R_in, D) contiguous, lead dims, R, D, block mode, the int32
+    (B, R, D) scale map or None)``; the block scale map is computed here
+    when none is given.  Reflect edges take a single mirror: halo_range <
+    R (a whole map) and halo_doppler < D."""
     C.check_os_supported(cfar)
     if mag.dtype not in (torch.int32, torch.float32):
         raise ValueError(f"{name} kernel takes int32 or float32 maps, got "
@@ -169,7 +185,9 @@ def kernel_inputs(mag: torch.Tensor, scale_override: int, cfar: CfarParams,
     *lead, R_in, D = mag.shape
     pad = cfar.halo_range if prepadded_range else 0
     R = R_in - 2 * pad
-    if cfar.halo_doppler >= D or R < 1:
+    if (cfar.halo_doppler >= D or R < 1
+            or (cfar.edge_mode == "reflect" and not prepadded_range
+                and cfar.halo_range >= R)):
         raise NotImplementedError(
             f"{name} kernel: a {R_in}x{D} map with halo "
             f"({cfar.halo_range}, {cfar.halo_doppler})"
@@ -187,9 +205,15 @@ def detect_config(B: int, R: int, D: int, cfar: CfarParams,
                   prepadded: bool = False, block: bool = False,
                   pgr: int = -1):
     """The kernel's config for B maps of R x D (``block``: a scale map is
-    given; ``pgr`` >= 0: the grouping entry); raises NotImplementedError
-    for a tile that does not fit."""
-    T, strip = tile_plan(R, D, cfar.halo_range, pgr, block)
+    given; ``pgr`` >= 0: the grouping entry, wrap edges only;
+    ``cfar.edge_mode == "reflect"``: the reflect entry, its rows carrying
+    the mirrored column halo); raises NotImplementedError for a tile that
+    does not fit."""
+    reflect = cfar.edge_mode == "reflect"
+    if reflect and pgr >= 0:
+        C.check_wrap(cfar, "cfar_detect_group")
+    pitch = D + 2 * cfar.halo_doppler if reflect else None
+    T, strip = tile_plan(R, D, cfar.halo_range, pgr, block, pitch)
     return kernels.CfarDetectConfig(
         batch=B, R=R, D=D, T=T, hr=cfar.halo_range, hd=cfar.halo_doppler,
         gr=cfar.guard_range, gd=cfar.guard_doppler, n_ref=cfar.n_ref,
@@ -198,7 +222,7 @@ def detect_config(B: int, R: int, D: int, cfar: CfarParams,
         block_mode=int(block), so=int(scale_override), integer=int(integer),
         prepadded=int(prepadded), strip=strip,
         packed=int(strip == STRIP and cfar.n_ref <= MAX_PACKED_REF),
-        pgr=pgr, float_max=float_max(cfar))
+        pgr=pgr, float_max=float_max(cfar), reflect=int(reflect))
 
 
 def _launch(mag, scale_override, cfar, scale_map, prepadded_range, pgr,
@@ -239,8 +263,9 @@ def cfar_detect(mag: torch.Tensor, scale_override: int = 0, *,
     the module docstring).  Returns ``(det, scale)``: the zero-suppressed
     detection map in the map's type and the int32 scale map
     (``scale_override`` folded in), each (..., R, D), equal to
-    ``ops/cfar.cfar_2d``'s.  Launches the CUDA kernel for a CUDA tensor;
-    the plain twin for a CPU tensor."""
+    ``ops/cfar.cfar_2d``'s, with ``cfar.edge_mode``'s edges (wrap or
+    reflect).  Launches the CUDA kernel for a CUDA tensor; the plain twin
+    for a CPU tensor."""
     if F._device_kind(mag) == "cpu":
         return cfar_detect_plain(mag, scale_override, cfar=cfar,
                                  scale_map=scale_map,
@@ -260,12 +285,14 @@ def cfar_detect_group(mag: torch.Tensor, scale_override: int = 0, *,
     kernel's epilogue: ``(det, scale, row_max, n_dets)`` with det grouped
     as ``ops/cfar.peak_group(det, peak_group_radius)``, row_max (..., R) in
     the map's type and n_dets (...,) int32 for
-    ``ops/detect.topk_detections``.  Whole maps only (no prepadded shard).
-    Launches the CUDA kernel's grouping entry for a CUDA tensor; the plain
-    twin for a CPU tensor."""
+    ``ops/detect.topk_detections``.  Whole maps only (no prepadded shard),
+    wrap edges only (``cfar_detect_then_group`` takes reflect).  Launches
+    the CUDA kernel's grouping entry for a CUDA tensor; the plain twin for
+    a CPU tensor."""
     if int(peak_group_radius) < 0:
         raise ValueError(f"peak_group_radius must be >= 0, got "
                          f"{peak_group_radius}")
+    C.check_wrap(cfar, "cfar_detect_group")
     if F._device_kind(mag) == "cpu":
         return cfar_detect_group_plain(mag, scale_override, cfar=cfar,
                                        scale_map=scale_map,
@@ -274,6 +301,20 @@ def cfar_detect_group(mag: torch.Tensor, scale_override: int = 0, *,
                   int(peak_group_radius), "cfar_detect_group")
     cfar_detect_group.launches += 1
     return out
+
+
+def cfar_detect_then_group(mag: torch.Tensor, scale_override: int = 0, *,
+                           cfar: CfarParams,
+                           scale_map: torch.Tensor | None = None,
+                           peak_group_radius: int = 0):
+    """The reflect maps' CFAR step, with ``cfar_detect_group``'s outputs
+    ``(det, scale, row_max, n_dets)``: ``cfar_detect`` (the kernel's
+    reflect entry), then the plain ``ops/cfar.peak_group``, the row maxima
+    and the detection count (``ops/cfar.group_and_count``).  Its twin is
+    ``cfar_detect_group_plain``."""
+    det, scale = cfar_detect(mag, scale_override, cfar=cfar,
+                             scale_map=scale_map)
+    return C.group_and_count(det, scale, peak_group_radius)
 
 
 def flat_config(B: int, R: int, D: int, start0: int, stride: int,

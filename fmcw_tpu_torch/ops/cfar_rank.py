@@ -81,8 +81,9 @@ def cfar_rank_plain(mag: torch.Tensor, scale_override: int = 0, *,
                     scale_map: torch.Tensor | None = None,
                     prepadded_range: bool = False):
     """Plain twin of ``cfar_rank``: ``(det, threshold, scale)`` of (..., R,
-    D) maps (see the module docstring)."""
+    D) maps (see the module docstring); wrap edges only."""
     C.check_os_supported(cfar)
+    C.check_wrap(cfar, "cfar_rank")
     b = check_bits(bits)
     hr, hd = cfar.halo_range, cfar.halo_doppler
     m = C._as_map(mag)
@@ -144,6 +145,7 @@ def _launch(mag, scale_override, cfar, bits, scale_map, prepadded_range,
     """Launch csrc/cfar_rank.cu on a CUDA map: (det, threshold, scale,
     row_max, n_dets), the last two None without grouping (pgr = -1)."""
     b = check_bits(bits)
+    C.check_wrap(cfar, name)
     hr, hd = cfar.halo_range, cfar.halo_doppler
     if 2 * hd + 1 > 32 or 2 * hr + 1 > 31:
         raise NotImplementedError(

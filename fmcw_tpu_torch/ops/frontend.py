@@ -292,8 +292,10 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
     the split entries, whose map is a range shard of ``r_total`` rows
     starting at ``row_off``), with the CFAR variant (``VARIANT_CODES``,
     taken by both kernels); raises NotImplementedError for what the
-    kernels do not take."""
-    C.check_supported(cfar)
+    kernels do not take, reflect edges among it (``ops/cfar.check_wrap``:
+    their detect epilogues wrap, as JAX's fused kernels; the
+    magnitude-only entry takes any edges)."""
+    C.check_wrap(cfar, name)
     if nd not in (16, 32, 64, 128):
         raise NotImplementedError(
             f"{name} kernel: n_doppler in (16, 32, 64, 128), got "
@@ -338,11 +340,13 @@ def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
     planes (B, nr, nd).  Returns ``(det (B, nr, nd), mag | None,
     row_max (B, nr), n_dets (B,) int32, nonfinite (B,) int32)``; ``mag`` only
     with ``emit_mag``.  ``mti_bypass`` and ``scale_override`` are runtime
-    controls.  Launches the CUDA kernel for CUDA tensors; the plain twin for
+    controls.  Wrap edges only (``ops/cfar.check_wrap``, on either
+    device).  Launches the CUDA kernel for CUDA tensors; the plain twin for
     CPU tensors."""
     if re.dim() != 3 or re.shape != im.shape:
         raise ValueError(f"expected re/im (B, nr, nd), got "
                          f"{tuple(re.shape)} and {tuple(im.shape)}")
+    C.check_wrap(cfar, "slowtime_detect")
     if _device_kind(re) == "cpu":
         return slowtime_detect_plain(
             re, im, mti_bypass, scale_override, cfar=cfar,

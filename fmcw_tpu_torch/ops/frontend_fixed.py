@@ -38,6 +38,7 @@ import torch
 
 from .. import kernels
 from ..params import CfarParams, RadarParams
+from . import cfar as C
 from . import frontend as F
 from .fft import bfp_quantize, dft64_apply, twiddles64
 from .magnitude import magnitude_fixed
@@ -204,6 +205,7 @@ def slowtime_detect_fixed(re: torch.Tensor, im: torch.Tensor,
         raise ValueError(f"expected re/im (B, nr, nd), got "
                          f"{tuple(re.shape)} and {tuple(im.shape)}")
     check_notch(notch_mode, transient)
+    C.check_wrap(cfar, "slowtime_detect_fixed")
     if F._device_kind(re) == "cpu":
         return slowtime_detect_fixed_plain(
             re, im, mti_bypass, scale_override, cfar=cfar,
@@ -247,8 +249,9 @@ def fused_fixed_detect_supported(p: RadarParams, peak_group_radius: int = 0,
     """Can ``mode="fixed"`` run as the two fixed-point kernels
     (``frontend="fused"``)?  The counterpart of ``fmcw_tpu/models/pipeline.
     fused_fixed_detect_supported``, asked of the kernels' own checks: no
-    debug taps, and a frame and CFAR (any variant, wrap edges) that both
-    kernels take.  JAX's limit on the window (its sums below 2^24, for the
+    debug taps, and a frame and CFAR (any variant, wrap edges: reflect
+    gives False, and ``frontend="fused"`` then raises ValueError, as JAX's)
+    that both kernels take.  JAX's limit on the window (its sums below 2^24, for the
     TPU's float32 sums) does not apply: these kernels sum in int32; the OS
     variant's float packed count takes at most ``frontend.MAX_PACKED_REFS``
     training cells, the CA/GO/SO epilogue counts nothing."""

@@ -212,6 +212,7 @@ def slowtime_detect_split(re: torch.Tensor, im: torch.Tensor,
                               transient=transient, exact_mag=exact_mag)
     if cfar is None:
         raise ValueError("slowtime_detect_split(detect=True) needs cfar")
+    C.check_wrap(cfar, "slowtime_detect_split")
     h = cfar.halo_range + peak_group_radius
     _check_shard(re, im, halo_lo, halo_hi, h, row_offset, n_range_total,
                  "slowtime_detect_split")
@@ -301,6 +302,7 @@ def slowtime_detect_fixed_split(re: torch.Tensor, im: torch.Tensor,
             "kernel)")
     if cfar is None:
         raise ValueError("slowtime_detect_fixed_split needs cfar")
+    C.check_wrap(cfar, "slowtime_detect_fixed_split")
     check_notch(notch_mode, transient)
     h = cfar.halo_range + peak_group_radius
     _check_shard(re, im, halo_lo, halo_hi, h, row_offset, n_range_total,

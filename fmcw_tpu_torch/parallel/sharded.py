@@ -75,8 +75,21 @@ plain tails and the debug taps decide them in the plain
 ``ops/cfar.cfar_2d(prepadded_range=True)`` (JAX's ``sharded.py:98-103``:
 its standalone kernel is OS only).
 
-Not ported (raise ``NotImplementedError``, ``ROADMAP.md``): reflect edges
-(as on one device), long CPIs on the kernels (n_doppler > 128).
+Reflect edges (``CfarParams.edge_mode="reflect"``, JAX's ``sharded.py:57-75,
+170-173, 402-406``): the CFAR tail's halo rows come from the neighbours at
+interior shard boundaries and mirror locally on the global edge shards
+(shard 0's lower halo is its rows 1..hr flipped, the last shard's upper
+halo its rows before the last, flipped), which needs ``halo_range + 1 <=
+n_range / sp`` (else ValueError); the block scale's exchanged block-grid
+row clips at the global edges; the grouping halo stays the ring, since
+grouping wraps.  The float "fused" route then feeds the tail from the
+magnitude-only kernel, not kernel B's split detect entry (which wraps
+only), as JAX's; fixed "fused" raises (the fixed kernels wrap only); the OS
+debug taps (the rank-select kernel) and the sharded array model raise
+``NotImplementedError`` (queued in ``ROADMAP.md``).
+
+Not ported (raise ``NotImplementedError``, ``ROADMAP.md``): long CPIs on
+the kernels (n_doppler > 128).
 """
 
 from __future__ import annotations
@@ -113,6 +126,31 @@ def _wire(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.uint8)
 
 
+EDGES = ("wrap", "reflect", "clip")
+
+
+def _global_edges(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                  h: int, edge: str, first: bool, last: bool):
+    """Shard ``x``'s ring halos (lo, hi) with the global edges of ``edge``:
+    "wrap" keeps the ring's rows; on the first shard's lower and the last
+    shard's upper side "reflect" mirrors the shard's own rows (numpy's: the
+    row before row 0 is row 1; the shard holds h + 1 rows or more) and
+    "clip" repeats its edge row."""
+    if edge not in EDGES:
+        raise ValueError(f"edge must be one of {EDGES}, got {edge!r}")
+    if edge == "wrap" or h == 0:
+        return lo, hi
+    R = x.shape[-2]
+    rows = (*x.shape[:-2], h, x.shape[-1])
+    if first:
+        lo = (x[..., 1:h + 1, :].flip(-2) if edge == "reflect"
+              else x[..., :1, :].expand(rows))
+    if last:
+        hi = (x[..., R - h - 1:R - 1, :].flip(-2) if edge == "reflect"
+              else x[..., R - 1:, :].expand(rows))
+    return lo, hi
+
+
 class LocalRing:
     """The sp ring with every shard in this process: each method takes the
     shards' tensors in shard order and returns one result per shard."""
@@ -128,12 +166,15 @@ class LocalRing:
         return [torch.cat([x[..., j * nrl:(j + 1) * nrl, :] for x in xs],
                           dim=-1) for j in range(self.n)]
 
-    def halo(self, xs, h: int):
+    def halo(self, xs, h: int, edge: str = "wrap"):
         """(the previous shard's last h rows, the next shard's first h rows)
-        for each shard, around the ring."""
+        for each shard, around the ring; ``edge`` at the global edges
+        (``_global_edges``)."""
         n = self.n
-        return [(xs[(j - 1) % n][..., xs[j].shape[-2] - h:, :],
-                 xs[(j + 1) % n][..., :h, :]) for j in range(n)]
+        return [_global_edges(
+            xs[j], xs[(j - 1) % n][..., xs[j].shape[-2] - h:, :],
+            xs[(j + 1) % n][..., :h, :], h, edge, j == 0, j == n - 1)
+            for j in range(n)]
 
     def gather(self, xs):
         """(B, k) per shard -> (B, n*k), the shards' entries in shard
@@ -156,7 +197,7 @@ class DistRing:
     def __init__(self, group):
         self.group = group
         self.n = dist.get_world_size(group)
-        r = dist.get_rank(group)
+        self.rank = r = dist.get_rank(group)      # the rank's shard
         self.prev = dist.get_global_rank(group, (r - 1) % self.n)
         self.next = dist.get_global_rank(group, (r + 1) % self.n)
 
@@ -169,7 +210,7 @@ class DistRing:
         dist.all_to_all_single(_wire(dst), _wire(src), group=self.group)
         return [dst.permute(1, 2, 0, 3).reshape(B, nrl, self.n * ndc)]
 
-    def halo(self, xs, h: int):
+    def halo(self, xs, h: int, edge: str = "wrap"):
         (x,) = xs
         if h == 0:
             return [(x[..., :0, :], x[..., :0, :])]
@@ -184,7 +225,8 @@ class DistRing:
                dist.P2POp(dist.irecv, _wire(hi), self.next, self.group, 1)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-        return [(lo, hi)]
+        return [_global_edges(x, lo, hi, h, edge, self.rank == 0,
+                              self.rank == self.n - 1)]
 
     def gather(self, xs):
         (x,) = xs
@@ -240,8 +282,8 @@ def split_detect_supported(p: RadarParams, sp: int,
                            fixed: bool = False) -> bool:
     """Can the split entry (kernel B's, float32, or the fixed kernel's,
     ``fixed``: both take the same shards) decide on the range shards:
-    ``split_frontend_supported``, wrap edges and per-cell scale (any
-    variant), its tile (64 rows + 2 (halo_range + peak_group_radius) halo
+    ``split_frontend_supported``, wrap edges (``ops/frontend.
+    _slowtime_config``) and per-cell scale (any variant), its tile (64 rows + 2 (halo_range + peak_group_radius) halo
     rows <= 128, ``ops/frontend._slowtime_config``), and a halo that one
     neighbour holds?"""
     h = p.cfar.halo_range + peak_group_radius
@@ -314,6 +356,10 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
         raise ValueError(f"n_doppler={p.n_doppler} and n_range={p.n_range} "
                          f"must divide the sp axis ({sp})")
     C.check_supported(p.cfar)
+    reflect = p.cfar.edge_mode == "reflect"
+    if reflect and include_debug and p.cfar.variant == "os":
+        C.check_wrap(p.cfar, "the sharded debug taps' rank-select CFAR "
+                             "(csrc/cfar_rank.cu)")
     route = PL.resolve_frontend(mode, frontend)
     fixed = mode == "fixed"
     if fixed:
@@ -333,18 +379,22 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
         raise ValueError(
             f"CFAR halo_range ({hr}) and peak_group_radius ({pgr}) must not "
             f"exceed the local range extent (n_range/sp = {nrl})")
+    if sp > 1 and reflect and hr + 1 > nrl:
+        raise ValueError(
+            f"edge_mode='reflect' needs halo_range + 1 <= n_range/sp "
+            f"({hr + 1} > {nrl}) for the edge shards' local mirror")
     if sp > 1 and block and nrl % p.cfar.scale_block:
         raise ValueError(
             f"scale_mode='block' needs the local range extent ({nrl} = "
             f"n_range/sp) divisible by scale_block={p.cfar.scale_block}")
     split_detect = (sp > 1 and route == "fused" and not block
-                    and not include_debug)
+                    and not include_debug and not reflect)
     if sp > 1 and route == "fused":
-        if fixed and block:
+        if fixed and (block or reflect):
             raise ValueError(
                 "frontend='fused' with mode='fixed' on an sp-sharded mesh "
                 "runs the split fixed kernels, which take the per-cell "
-                "scale only (as JAX's)")
+                "scale and wrap edges only (as JAX's)")
         ok = (split_detect_supported(p, sp, pgr, fixed) if split_detect
               else split_frontend_supported(p, sp))
         if not ok:
@@ -407,11 +457,13 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
 
     def cfar_tail(mags, so):
         """The sharded CFAR and grouping of the range shards' magnitudes:
-        [(det, debug maps)] per shard."""
+        [(det, debug maps)] per shard.  The CFAR halo mirrors at the global
+        edges under reflect; the grouping halo is the ring's."""
         scales = (C.block_scale_map_sharded(mags, p.cfar, ring.halo)
                   if block else [None] * len(mags))
         out = []
-        for m, (lo, hi), sm in zip(mags, ring.halo(mags, hr), scales):
+        for m, (lo, hi), sm in zip(mags, ring.halo(mags, hr,
+                                                   p.cfar.edge_mode), scales):
             m_h = torch.cat([lo, m, hi], dim=-2)
             if include_debug:
                 if p.cfar.variant == "os":
@@ -590,7 +642,8 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
         raise ValueError(
             f"beam_group_radius ({beam_group_radius}) must not exceed the "
             f"local beam extent (n_beams/sp = {bl})")
-    C.check_supported(p.cfar)
+    C.check_wrap(p.cfar, "the sharded array model (kernel B's detect "
+                         "entry, csrc/cfar_3d_detect.cu)")
     route = PL.resolve_array_frontend(frontend)
     BF.steering_matrix(n_elems, n_beams, spacing_wl, max_angle_deg, taper)
     nr, nd = p.n_range, p.n_doppler
