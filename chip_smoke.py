@@ -115,7 +115,21 @@ fixed "auto" reflect routes at batch 128 (kernel A, the magnitude-only
 entry and the reflect entry, then the plain grouping; frame 0 through the
 margin gate; fixed against the golden model on all 128 frames) and a
 LocalMesh at sp 2 and 4 against the single card; the reflect entry's
-times beside the wrap entry's and the plain grouping's.  It prints
+times beside the wrap entry's and the plain grouping's.  Then reflect
+edges in the rank-select CFAR (phase 30: the reflect entry of
+csrc/cfar_rank.cu, TPU row 9, against its twin bit for bit on the debug
+routes' float32 and int32 maps, 16 key bits and exact, a given scale map,
+adversarial and edge-target maps, 37 / 7 rows, 6 columns, the quick, a
+run-time and a 19-column window, the sp 4 range shards; the debug routes
+under reflect at batch 128 — float fused / staged through the margin gate,
+fixed auto's taps equal to the golden model on all 128 frames — and a
+LocalMesh at sp 2 and 4; the entry beside the wrap entry and the plain
+grouping) and in the 3D CFAR (phase 31: the reflect entry of
+csrc/cfar_3d_detect.cu, TPU row 10, against its twin bit for bit on the
+array route's cube, its int32 copy, adversarial and small cubes, the sp 4
+beam shards; the array model under reflect at full width, ref_angle 0 and
+1, through the array gate, and a LocalMesh at sp 2 and 4; the entry beside
+the wrap entry).  It prints
 the card's name and power limit, one JSON line listing the kernels, and as
 its last line {"ok": true, "device": {...}}.  Any failed check raises,
 and the script then exits non-zero; without CUDA it exits non-zero at
@@ -4969,6 +4983,742 @@ def reflect_phase(card: str, dev, pgr: int):
     return rows, {"frames_per_s": fps, "launches": launches, "entry": entry}
 
 
+# ---------------------------------------------------------------------------
+# Reflect edges in the rank-select and 3D CFARs (the reflect entries of
+# csrc/cfar_rank.cu, TPU row 9, and csrc/cfar_3d_detect.cu, TPU row 10):
+# the debug taps and the array model under edge_mode="reflect"
+# ---------------------------------------------------------------------------
+
+def golden_taps_check(job):
+    """A worker process's job: (magnitude, det, threshold and scale maps,
+    CfarParams, grouping radius) of the fixed debug route; True where the
+    golden os_cfar_2d with its debug taps and peak_group give every map
+    exactly, and the detection count."""
+    import numpy as np
+    from fmcw_tpu_torch.golden.fixed_point import os_cfar_2d, peak_group
+    mags, dets, thrs, scales, cfar, radius = job
+    ok, n = True, 0
+    for m, d, t, s in zip(mags, dets, thrs, scales):
+        gd, gt, gs = os_cfar_2d(m, cfar, return_debug=True)
+        want = peak_group(gd, radius)
+        ok &= bool(np.array_equal(want, d) and np.array_equal(gt, t)
+                   and np.array_equal(gs, s))
+        n += int((want > 0).sum())
+    return ok, n
+
+
+def rank_reflect_case(what: str, mag, so: int, cfar, bits, scale_map=None,
+                      prepadded: bool = False, pgr: int = RANK_PGR) -> float:
+    """cfar_rank's reflect entry on one batch of maps against its twin
+    (det, threshold and scale) bit for bit; on whole maps also the reflect
+    debug routes' CFAR step (the entry, then the plain peak_group, its row
+    maxima and counts: cfar_rank_then_group) against the twin's.  Returns
+    the largest |difference| (0), or raises."""
+    import torch
+    from fmcw_tpu_torch.ops import cfar_rank as RK
+    kw = dict(cfar=cfar, bits=bits, scale_map=scale_map)
+    pairs = [(RK.cfar_rank(mag, so, prepadded_range=prepadded, **kw),
+              RK.cfar_rank_plain(mag, so, prepadded_range=prepadded, **kw))]
+    if not prepadded:
+        gkw = dict(kw, peak_group_radius=pgr)
+        pairs.append((RK.cfar_rank_then_group(mag, so, **gkw),
+                      RK.cfar_rank_group_plain(mag, so, **gkw)))
+    torch.cuda.synchronize()
+    same = all(bits_equal(a, b) for got, want in pairs
+               for a, b in zip(got, want))
+    err = max(float((a.double() - b.double()).nan_to_num().abs().max())
+              for got, want in pairs for a, b in zip(got, want))
+    ndet = int((pairs[0][0][0] > 0).sum())
+    log(f"cfar_rank reflect {what} {tuple(mag.shape)} {mag.dtype} "
+        f"{cfar.scale_mode} bits={bits} so={so}"
+        f"{' prepadded' if prepadded else ''}: det, threshold and scale "
+        f"{'bit-identical' if same else 'DIFFER'} ({ndet} detections)")
+    if not same:
+        raise AssertionError(f"cfar_rank reflect ({what}) disagrees with "
+                             f"its twin")
+    return err
+
+
+def _reflect_rows(mag, s: int, nrl: int, hr: int):
+    """Range shard s (nrl rows) of (B, R, D) maps with hr halo rows on each
+    side mirrored at the map's edges, as the sharded tail exchanges them."""
+    import torch
+    from fmcw_tpu_torch.ops import cfar as C
+    R = mag.shape[-2]
+    idx = C.reflect_index(torch.arange(s * nrl - hr, (s + 1) * nrl + hr,
+                                       device=mag.device), R)
+    return mag[:, idx].contiguous()
+
+
+def rank_reflect_checks(dev):
+    """Phase 30a: the reflect entry of cfar_rank (TPU row 9) against its
+    twin bit for bit (det, threshold and scale): the debug routes' own
+    float32 (kernel A and the magnitude-only entry) and int32 (the fixed
+    chain's) maps of ``edge_batch``, 16 key bits and exact, per-cell and a
+    given block scale map, override 0 and 4; adversarial maps (NaN, Inf,
+    -0.0, ties, int keys to 2^31), targets in the edge rows and columns, 37
+    rows, hr = R - 1, hd = D - 1, the quick window (7 rows unrolled), a
+    window walked at run time (hr 4), one of 19 columns (a row at a time);
+    the sp 4 range shards 0 and 3 (the global edges, their halos mirrored)
+    and 1 (exchanged), also against the whole map's rows.  On whole maps
+    also cfar_rank_then_group against its twin.  Returns {row: largest
+    |difference|}."""
+    import numpy as np
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.golden.reference import rank_adversarial_maps
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C, cfar_rank as RK
+    from fmcw_tpu_torch.ops import frontend as F
+    entry, fast = reflect_params(P.RadarParams()), reflect_params(P.fast())
+    iq = torch.as_tensor(edge_batch(entry, RANK_FRAMES, seed=30), device=dev)
+    imag, _ = pl._staged_fixed(iq, False, entry, "zero", "unbiased")
+    fmag, _ = F.slowtime_mag(*F.range_fft(iq))
+    errs = {}
+    main = (("float,16 bits", fmag, entry.cfar, 16),
+            ("float,exact", fmag, entry.cfar, None),
+            ("float,exact,scale map", fmag, fast.cfar, None),
+            ("int32,16 bits", imag, entry.cfar, 16),
+            ("int32,exact,scale map", imag, fast.cfar, None))
+    for what, mag, cfar, bits in main:
+        smap = (C.block_scale_map(mag, cfar) if cfar.scale_mode == "block"
+                else None)
+        name = f"cfar_rank_reflect[{what}]"
+        for so in (0, 4):
+            errs[name] = max(errs.get(name, 0.0), rank_reflect_case(
+                "route maps", mag, so, cfar, bits, smap))
+        # The sp 4 range shards 0, 1 and 3 (edge, interior, edge).
+        nrl, hr = mag.shape[-2] // 4, cfar.halo_range
+        whole = RK.cfar_rank(mag, 0, cfar=cfar, bits=bits, scale_map=smap)
+        for s in (0, 1, 3):
+            rows = slice(s * nrl, (s + 1) * nrl)
+            shard = _reflect_rows(mag, s, nrl, hr)
+            ssmap = None if smap is None else smap[:, rows].contiguous()
+            err = rank_reflect_case(f"sp 4 shard {s}", shard, 0, cfar, bits,
+                                    ssmap, prepadded=True)
+            pname = f"cfar_rank_reflect[prepadded,{what}]"
+            errs[pname] = max(errs.get(pname, 0.0), err)
+            part = RK.cfar_rank(shard, 0, cfar=cfar, bits=bits,
+                                scale_map=ssmap, prepadded_range=True)
+            if not all(bits_equal(a[:, rows], b) for a, b in zip(whole, part)):
+                raise AssertionError("prepadded reflect cfar_rank differs "
+                                     "from the whole map's rows")
+    gen = np.random.default_rng(30)
+
+    def noise(shape, integer):
+        m = gen.exponential(500.0, shape)
+        for i, j in ((0, 0), (1, -1), (-1, 2), (-2, -3), (3, 4)):
+            m[..., i, j] = 4e4                 # within hr rows / hd columns
+        return torch.as_tensor(m.astype(np.int32 if integer else np.float32),
+                               device=dev)
+
+    full = entry.cfar
+    quick = reflect_params(P.quick()).cfar
+    runtime = dataclasses.replace(P.CfarParams(
+        ref_range=3, ref_doppler=2, guard_range=1, guard_doppler=2),
+        edge_mode="reflect")
+    wide = dataclasses.replace(P.CfarParams(ref_doppler=8),
+                               edge_mode="reflect")
+    for integer in (False, True):
+        adv = torch.as_tensor(rank_adversarial_maps(
+            (RANK_FRAMES, 1024, 128), integer, 30), device=dev)
+        cases = [("adversarial", adv, full),
+                 ("edge targets", noise((RANK_FRAMES, 1024, 128), integer),
+                  full),
+                 ("37 rows", noise((8, 37, 128), integer), full),
+                 ("hr = R - 1", noise((8, 7, 128), integer), full),
+                 ("hd = D - 1", noise((8, 64, 6), integer), full),
+                 ("quick window", noise((8, 256, 64), integer), quick),
+                 ("hr 4 gd 2", noise((8, 256, 64), integer), runtime),
+                 ("19 columns", noise((8, 256, 64), integer), wide)]
+        for what, mag, cfar in cases:
+            for bits in (16, None):
+                rank_reflect_case(what, mag, 4 if bits else 0, cfar, bits)
+            c = dataclasses.replace(cfar, scale_mode="block")
+            smap = torch.as_tensor(gen.choice(
+                [c.scale_min, c.scale_nom, c.scale_max],
+                tuple(mag.shape)).astype(np.int32), device=dev)
+            rank_reflect_case(what, mag, 0, c, None, smap)
+    return errs
+
+
+def rank_reflect_routes(card: str, dev, pgr: int, pool):
+    """Phases 30b and 30c: the debug-tap processors under reflect at batch
+    128 of ``edge_batch``: float per-cell and block on "fused" (kernel A,
+    the magnitude-only entry, cfar_rank's reflect entry) and "staged" (the
+    plain transforms, the reflect entry), fixed per-cell on "auto" (the
+    FP64 stages, the reflect entry), each then the plain grouping (no
+    grouping entry and no kernel B detect entry launched); every output of
+    the batch bit-equal to cfar_rank_plain, peak_group and the top-K on the
+    route's own magnitudes; float frame 0 through the margin gate against
+    the plain route; fixed det, threshold and scale maps of all 128 frames
+    against the golden os_cfar_2d by the worker ``pool`` (collected by the
+    caller); frames/s.  30c: make_sharded_processor(include_debug=True) on
+    a LocalMesh at sp 2 and 4 (cfar_rank's reflect entry on prepadded
+    shards with mirrored edge halos) equal to the single card in every
+    output.  Returns (launches by kernel row, frames/s, golden futures)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C, cfar_rank as RK
+    from fmcw_tpu_torch.ops import detect as DET
+    from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
+    configs = (("float/cell", reflect_params(P.RadarParams()), "float32",
+                ("fused", "staged"), "float,16 bits"),
+               ("float/block", reflect_params(P.fast()), "float32",
+                ("fused", "staged"), "float,exact,scale map"),
+               ("fixed/cell", reflect_params(P.RadarParams()), "fixed",
+                ("auto",), "int32,16 bits"))
+    launches, fps, golden = {}, {}, []
+    for name, p, mode, routes, row in configs:
+        fixed = mode == "fixed"
+        batch = torch.as_tensor(edge_batch(p, BATCH, seed=32), device=dev)
+        bits = RK.debug_bits(p.cfar, fixed, 16)
+        kw = dict(mode=mode, peak_group_radius=pgr, include_debug=True)
+        if not fixed:
+            ref = pl.make_processor(p, frontend="plain", device=dev,
+                                    **kw)(batch[0])
+        for fe in routes:
+            key = f"{name}/{fe}"
+            proc = pl.make_batch_processor(p, frontend=fe, device=dev, **kw)
+            kernels.reset_launch_counts()
+            out = proc(batch)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            need = {"cfar_rank"} | ({"range_fft", "slowtime_mag"}
+                                    if fe == "fused" else set())
+            log(f"reflect debug {key}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items()))
+            if set(counts) != need:
+                raise AssertionError(f"reflect debug {key}: launches "
+                                     f"{counts}, want {sorted(need)}")
+            rname = f"cfar_rank_reflect[{row}]"
+            launches[rname] = launches.get(rname, 0) + counts["cfar_rank"]
+            outs_ok = True
+            for i in range(0, BATCH, RANK_FRAMES):
+                dp, tp, sp = RK.cfar_rank_plain(
+                    out["mag_map"][i:i + RANK_FRAMES], cfar=p.cfar,
+                    bits=bits)
+                dp = C.peak_group(dp, pgr)
+                want = DET.topk_detections(dp, p.tracker.max_dets)
+                want.update(det_map=dp, threshold_map=tp,
+                            scale_map=sp.to(dp.dtype))
+                outs_ok &= all(torch.equal(out[k][i:i + RANK_FRAMES], v)
+                               for k, v in want.items())
+                del dp, tp, sp, want
+            if fixed:
+                ok, report = True, (f"taps of {BATCH} frames to the golden "
+                                    f"model")
+                arrays = [out[k].cpu().numpy() for k in (
+                    "mag_map", "det_map", "threshold_map", "scale_map")]
+                for i in range(0, BATCH, 16):       # 16 frames a job
+                    golden.append((key, pool.submit(golden_taps_check, (
+                        *(a[i:i + 16] for a in arrays), p.cfar, pgr))))
+            else:
+                ok, report = parity.margin_gate(
+                    parity.detection_set(out, 0), parity.detection_set(ref),
+                    ref["mag_map"].cpu().numpy(),
+                    ref["threshold_map"].cpu().numpy(),
+                    ref["scale_map"].cpu().numpy(), radius=pgr,
+                    capacity=p.tracker.max_dets,
+                    targets=reference.golden_targets(p))
+            log(f"reflect debug {key}: every output "
+                f"{'bit-equal' if outs_ok else 'DIFFERS'} to cfar_rank_plain,"
+                f" peak_group and the top-K on the route's magnitudes; "
+                f"frame 0: {report}")
+            if not (outs_ok and ok):
+                raise AssertionError(f"reflect debug {key} failed its check")
+            if int(out["nonfinite_count"].sum()) != 0:
+                raise AssertionError("non-finite cells in the magnitude map")
+            lean = pl.make_batch_processor(p, frontend=fe, include_maps=False,
+                                           device=dev, **kw)
+            fps[key] = BATCH * 1e3 / cuda_ms(lambda: lean(batch), 5, 1)
+            log(f"reflect debug {key}: {fps[key]:.1f} frames/s at batch "
+                f"{BATCH} ({int(out['n_dets'].sum())} detections) ({card})")
+            if fe != routes[0]:
+                del out
+                continue
+            # 30c: the sharded debug taps on a LocalMesh.
+            sfe = "fused" if not fixed else "auto"
+            for sp in SPLIT_SPS:
+                skey = f"{name}/sp{sp}"
+                sproc = SH.make_sharded_processor(
+                    M.LocalMesh(1, sp, dev), p, frontend=sfe,
+                    include_maps=True, **kw)
+                kernels.reset_launch_counts()
+                sout = sproc(batch)
+                torch.cuda.synchronize()
+                scounts = {k: v for k, v in kernels.launch_counts().items()
+                           if v}
+                diff = [k for k in out if not torch.equal(sout[k], out[k])]
+                if diff or sout.keys() != out.keys() or \
+                        not scounts.get("cfar_rank") or \
+                        scounts.get("cfar_rank_group"):
+                    raise AssertionError(f"reflect sharded debug {skey}: "
+                                         f"differs in {diff}, launches "
+                                         f"{scounts}")
+                pname = f"cfar_rank_reflect[prepadded,{row}]"
+                launches[pname] = launches.get(pname, 0) + scounts["cfar_rank"]
+                lean_s = SH.make_sharded_processor(
+                    M.LocalMesh(1, sp, dev), p, frontend=sfe, **kw)
+                fps[skey] = BATCH * 1e3 / cuda_ms(lambda: lean_s(batch), 3, 1)
+                log(f"reflect sharded debug {skey}: taps, maps and "
+                    f"detections bit-equal to the single card; launches "
+                    + ", ".join(f"{k}={v}" for k, v in scounts.items())
+                    + f"; {fps[skey]:.1f} frames/s on one card ({card})")
+                del sout
+            del out
+    return launches, fps, golden
+
+
+def rank_reflect_timings(card: str, dev, pgr: int, errs, launches):
+    """Phase 30d: the reflect entry of cfar_rank by graph replay beside the
+    wrap entry on the same maps (batch 128 of ``edge_batch``'s float32 and
+    int32 magnitudes, 1024x128): float 16 key bits, float exact (per-cell
+    and a given block scale map), int32 16 bits; its bound (bound_cfar_rank,
+    the wrap entry's) and its twin in 8-frame chunks; the plain grouping
+    that follows it on the reflect debug routes, beside the wrap grouping
+    entry (CFAR and grouping); the sp 4 edge shard (float32, 16 bits) beside
+    the wrap shard.  Returns (kernel rows, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C, cfar_rank as RK
+    from fmcw_tpu_torch.ops import frontend as F
+    p, fast = P.RadarParams(), P.fast()
+    rp, rfast = reflect_params(p), reflect_params(fast)
+    nr, nd = p.n_range, p.n_doppler
+    iq = torch.as_tensor(edge_batch(rp, BATCH, seed=34), device=dev)
+    fmag, _ = F.slowtime_mag(*F.range_fft(iq))
+    imag, _ = pl._staged_fixed(iq, False, rp, "zero", "unbiased")
+    del iq
+    src = "fmcw_tpu_torch/csrc/cfar_rank.cu"
+    variants = (("float,16 bits", fmag, rp.cfar, p.cfar, 16),
+                ("float,exact", fmag, rp.cfar, p.cfar, None),
+                ("float,exact,scale map", fmag, rfast.cfar, fast.cfar, None),
+                ("int32,16 bits", imag, rp.cfar, p.cfar, 16))
+    rows, summary = [], {}
+    for what, mag, rc, wc, bits in variants:
+        block = rc.scale_mode == "block"
+        smap = C.block_scale_map(mag, rc) if block else None
+        wmap = C.block_scale_map(mag, wc) if block else None
+        name = f"cfar_rank_reflect[{what}]"
+        ms = graph_ms(lambda: RK.cfar_rank(mag, cfar=rc, bits=bits,
+                                           scale_map=smap))
+        wrap = graph_ms(lambda: RK.cfar_rank(mag, cfar=wc, bits=bits,
+                                             scale_map=wmap))
+
+        def plain():
+            for i in range(0, BATCH, RANK_FRAMES):
+                RK.cfar_rank_plain(mag[i:i + RANK_FRAMES], cfar=rc, bits=bits,
+                                   scale_map=None if smap is None
+                                   else smap[i:i + RANK_FRAMES])
+
+        plain_ms = cuda_ms(plain, 1, 1)
+        bound, by = bound_cfar_rank(BATCH, nr, nd, rc, bits or 31,
+                                    not mag.is_floating_point(), block)
+        det = RK.cfar_rank(mag, cfar=rc, bits=bits, scale_map=smap)[0]
+        group = cuda_ms(lambda: C.peak_group(det, pgr), 5)
+        del det
+        wrap_group = graph_ms(lambda: RK.cfar_rank_group(
+            mag, cfar=wc, bits=bits, scale_map=wmap, peak_group_radius=pgr))
+        log(f"{name}: {ms:.4f} ms (graph), the wrap entry {wrap:.4f} ms in "
+            f"the same run ({ms / wrap:.3f}x), plain (16 x {RANK_FRAMES} "
+            f"frames) {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); then "
+            f"the plain peak_group {group:.4f} ms (the wrap grouping entry, "
+            f"CFAR and grouping: {wrap_group:.4f} ms) at batch {BATCH} "
+            f"({card})")
+        if ms < bound:
+            raise AssertionError(f"{name} reads under its bound")
+        summary[name] = {"graph_ms": ms, "wrap_graph_ms": wrap,
+                         "plain_peak_group_ms": group,
+                         "wrap_group_entry_ms": wrap_group}
+        rows.append(dict(name=name, route="cuda", source=src,
+                         replaces="fmcw_tpu/ops/cfar_pallas.py:58",
+                         launches=launches.get(name, 0),
+                         max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, library_ms=None))
+    # The sp 4 edge shard 0 (its lower halo mirrored), float32, 16 bits, as
+    # the sharded debug tail launches it, beside the wrap shard.
+    hr, nrl = rp.cfar.halo_range, nr // 4
+    m_h = _reflect_rows(fmag, 0, nrl, hr)
+    w_h = fmag[:, torch.arange(-hr, nrl + hr, device=dev) % nr].contiguous()
+    ms = graph_ms(lambda: RK.cfar_rank(m_h, cfar=rp.cfar, bits=16,
+                                       prepadded_range=True))
+    wrap = graph_ms(lambda: RK.cfar_rank(w_h, cfar=p.cfar, bits=16,
+                                         prepadded_range=True))
+    plain_ms = cuda_ms(lambda: [RK.cfar_rank_plain(
+        m_h[i:i + RANK_FRAMES], cfar=rp.cfar, bits=16, prepadded_range=True)
+        for i in range(0, BATCH, RANK_FRAMES)], 1, 1)
+    bound, by = bound_cfar_rank(BATCH, nrl, nd, rp.cfar, 16, False, False)
+    name = "cfar_rank_reflect[prepadded,float,16 bits]"
+    log(f"{name} (sp 4 edge shard {BATCH}x{nrl}+2x{hr}): {ms:.4f} ms "
+        f"(graph), the wrap shard {wrap:.4f} ms ({ms / wrap:.3f}x), plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
+    summary[name] = {"graph_ms": ms, "wrap_graph_ms": wrap}
+    rows.append(dict(name=name, route="cuda", source=src,
+                     replaces="fmcw_tpu/ops/cfar_pallas.py:58",
+                     launches=launches.get(name, 0), max_abs_err=errs[name],
+                     ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                     library_ms=None))
+    return rows, summary
+
+
+def rank_reflect_phase(card: str, dev, pgr: int):
+    """Phase 30: reflect edges in the rank-select CFAR (30a-d above), the
+    fixed route's golden checks in worker processes meanwhile.  Returns
+    (kernel rows, summary)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    t0 = time.perf_counter()
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    with cf.ProcessPoolExecutor(workers,
+                                mp_context=mp.get_context("spawn")) as pool:
+        launches, fps, golden = rank_reflect_routes(card, dev, pgr, pool)
+        t1 = time.perf_counter()
+        errs = rank_reflect_checks(dev)
+        t2 = time.perf_counter()
+        rows, entry = rank_reflect_timings(card, dev, pgr, errs, launches)
+        t3 = time.perf_counter()
+        ok, n = True, 0
+        for key, fut in golden:
+            good, cnt = fut.result()
+            ok, n = ok and good, n + cnt
+        log(f"reflect debug fixed/cell/auto: det, threshold and scale maps "
+            f"vs the golden os_cfar_2d and peak_group on all {BATCH} frames: "
+            f"{'equal' if ok else 'DIFFER'} ({n} detections)")
+        if not ok:
+            raise AssertionError("the fixed reflect debug route differs from "
+                                 "the golden model")
+    log(f"rank reflect phase: 30b/c {t1 - t0:.1f} s, 30a {t2 - t1:.1f} s, "
+        f"30d {t3 - t2:.1f} s, golden wait {time.perf_counter() - t3:.1f} s")
+    return rows, {"frames_per_s": fps, "launches": launches, "entry": entry}
+
+
+def edge_cubes(p, batch: int, seed: int = 0):
+    """``make_cubes``'s stimulus with ``edge_batch``'s two edge targets (on
+    the first and last range bins but one) on every element: int16 (batch,
+    N_ELEMS, nd, nr, 2)."""
+    import numpy as np
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    rng = np.random.default_rng(seed)
+    targets = reference.golden_targets(p) + [(1, 3.0, 2000.0),
+                                             (p.n_range - 2, -5.0, 2000.0)]
+    z = np.asarray(reference.two_target_frame(p, seed=3, targets=targets))
+    elems = np.stack([pl.complex_to_iq(z * np.exp(2j * np.pi * 0.5 * e * U0))
+                      for e in range(N_ELEMS)])
+    out = np.stack([elems] * batch)
+    return out + rng.integers(-8, 8, out.shape).astype(np.int16)
+
+
+def cfar3d_reflect_case(what: str, cube, so: int, cfar, ra: int, ga: int,
+                        prepadded: bool = False) -> float:
+    """cfar3d_detect's reflect entry on one batch of cubes against its twin
+    (det and scale) bit for bit.  Returns the largest |difference| (0), or
+    raises."""
+    import torch
+    from fmcw_tpu_torch.ops import cfar3d_detect as C3
+    kw = dict(cfar=cfar, ref_angle=ra, guard_angle=ga,
+              prepadded_angle=prepadded)
+    got = C3.cfar3d_detect(cube, so, **kw)
+    want = C3.cfar3d_detect_plain(cube, so, **kw)
+    torch.cuda.synchronize()
+    same = all(bits_equal(a, b) for a, b in zip(got, want))
+    err = max(float((a.double() - b.double()).nan_to_num().abs().max())
+              for a, b in zip(got, want))
+    cfg = C3.cfar3d_config(tuple(cube.shape), cfar, ra, ga, so,
+                           cube.dtype == torch.int32, prepadded)
+    log(f"cfar_3d_detect reflect {what} {tuple(cube.shape)} {cube.dtype} "
+        f"ref_angle={ra} guard_angle={ga} so={so}"
+        f"{' prepadded' if prepadded else ''} (n_ref {cfg.n_ref}, T {cfg.T}, "
+        f"strip {cfg.strip}, packed {cfg.packed}): det and scale "
+        f"{'bit-identical' if same else 'DIFFER'} "
+        f"({int((got[0] > 0).sum())} detections)")
+    if not same:
+        raise AssertionError(f"cfar3d_detect reflect ({what}) disagrees with "
+                             f"its twin")
+    return err
+
+
+def _beam_shard(cube, s: int, bl: int, h: int, edge: str):
+    """Beam shard s (bl planes) of (B, A, R, D) cubes with h halo planes on
+    each side: mirrored at the cube's edges ("reflect", as the sharded
+    array model exchanges them) or wrapped."""
+    import torch
+    from fmcw_tpu_torch.ops import cfar as C
+    A = cube.shape[1]
+    idx = torch.arange(s * bl - h, (s + 1) * bl + h, device=cube.device)
+    idx = C.reflect_index(idx, A) if edge == "reflect" else idx % A
+    return cube[:, idx].contiguous()
+
+
+def cfar3d_reflect_checks(dev):
+    """Phase 31a: the reflect entry of cfar3d_detect (TPU row 10) against
+    its twin bit for bit (det and scale): the array route's own magnitude
+    cube of ``edge_cubes`` (16 cubes x 8 beams x 1024x128, kernel A's float
+    entry and the magnitude-only entry) and that cube * 16 as int32,
+    override 0 and 4, ref_angle 1 and (2, guard 1); adversarial cubes;
+    small cubes at a single mirror (2 beams, 7 rows, 6 columns), 37 rows,
+    6 rows with the quick window, a window walked at run time (hr 4), a
+    training set over 4094 cells (ref_angle 14 on 32 beams), strips of one
+    cell (ref_angle 8); the sp 4 beam shards 0 and 3 (the cube's edges,
+    their halo planes mirrored) and 1, also against the whole cube's
+    interior planes.  Returns ({row: largest |difference|}, the float
+    cube)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.golden.reference import rank_adversarial_maps
+    from fmcw_tpu_torch.ops import cfar3d_detect as C3
+    from fmcw_tpu_torch.ops import frontend as F
+    p = reflect_params(P.RadarParams())
+    nr, nd = p.n_range, p.n_doppler
+    br, bi = beam_planes(torch.as_tensor(edge_cubes(p, ARRAY_BATCH, seed=31),
+                                         device=dev))
+    cube = F.slowtime_mag(*F.range_fft_float(br, bi))[0].reshape(
+        ARRAY_BATCH, N_BEAMS, nr, nd)
+    del br, bi
+    errs = {"cfar_3d_detect_reflect": 0.0}
+    icube = (cube * 16).to(torch.int32)
+    for x in (cube, icube):
+        for so in (0, 4):
+            errs["cfar_3d_detect_reflect"] = max(
+                errs["cfar_3d_detect_reflect"],
+                cfar3d_reflect_case("array cube", x, so, p.cfar, 1, 0))
+        cfar3d_reflect_case("array cube", x, 0, p.cfar, 2, 1)
+    del icube
+    full = p.cfar
+    quick = reflect_params(P.quick()).cfar
+    odd = dataclasses.replace(P.CfarParams(
+        ref_range=3, ref_doppler=2, guard_range=1, guard_doppler=2),
+        edge_mode="reflect")
+    for integer in (False, True):
+        adv = torch.as_tensor(rank_adversarial_maps(
+            (2, N_BEAMS, 1024, 128), integer, 31), device=dev)
+        cases = [("adversarial", adv, full, 1, 0),
+                 ("adversarial", adv, full, 2, 1),
+                 ("single mirror", noise_cube((2, 2, 7, 6), integer, 32),
+                  full, 1, 0),
+                 ("37 rows", noise_cube((2, 8, 37, 16), integer, 33),
+                  full, 1, 0),
+                 ("6 rows", noise_cube((2, 8, 6, 16), integer, 34), quick,
+                  1, 0),
+                 ("window hr 4 gr 1", noise_cube((2, 8, 256, 64), integer,
+                                                 35), odd, 2, 1),
+                 ("n_ref>4094", noise_cube((1, 32, 32, 16), integer, 36),
+                  full, 14, 0),
+                 ("strips of one cell", noise_cube((1, 16, 64, 128),
+                                                   integer, 37), full, 8, 0)]
+        for what, x, cfar, ra, ga in cases:
+            x = torch.as_tensor(x, device=dev)
+            for so in (0, 4):
+                cfar3d_reflect_case(what, x, so, cfar, ra, ga)
+    # The sp 4 beam shards 0, 1 and 3, ref_angle 1, and the 2-plane halo of
+    # (2, 1) on shard 0 of sp 2.
+    whole = C3.cfar3d_detect(cube, cfar=full, ref_angle=1)
+    errs["cfar_3d_detect_reflect[prepadded]"] = 0.0
+    for sp, s, ra, ga in ((4, 0, 1, 0), (4, 1, 1, 0), (4, 3, 1, 0),
+                          (2, 0, 2, 1)):
+        bl = N_BEAMS // sp
+        x = _beam_shard(cube, s, bl, ra + ga, "reflect")
+        err = cfar3d_reflect_case(f"sp {sp} beam shard {s}", x, 0, full, ra,
+                                  ga, prepadded=True)
+        errs["cfar_3d_detect_reflect[prepadded]"] = max(
+            errs["cfar_3d_detect_reflect[prepadded]"], err)
+        w = (whole if (ra, ga) == (1, 0) else
+             C3.cfar3d_detect(cube, cfar=full, ref_angle=ra, guard_angle=ga))
+        got = C3.cfar3d_detect(x, cfar=full, ref_angle=ra, guard_angle=ga,
+                               prepadded_angle=True)
+        cut = slice(s * bl, (s + 1) * bl)
+        if not all(bits_equal(a[:, cut].contiguous(), b)
+                   for a, b in zip(w, got)):
+            raise AssertionError(f"prepadded reflect cfar3d_detect sp={sp} "
+                                 f"shard {s} differs from the whole cube")
+    return errs, cube
+
+
+def cfar3d_reflect_routes(card: str, dev, pgr: int):
+    """Phases 31b and 31c: the array model under reflect at full width
+    (``edge_cubes``: 16 cubes of 8 elements x 8 beams x 1024x128, radius 2,
+    beam radius 1) at ref_angle 0 (kernel A's float entry, the
+    magnitude-only entry, cfar_detect's reflect entry per beam, the plain
+    grouping, beam_group) and ref_angle 1 (the 3D CFAR's reflect entry, the
+    plain per-beam grouping, beam_group): the kernels each launches (no
+    kernel B detect entry), cube 0 through the array gate against the plain
+    path (taps from the plain cfar_3d with need_debug), the strongest
+    detection at the matched beam, cubes/s and the plain grouping's time.
+    31c: make_sharded_array_processor on a LocalMesh at sp 2 and 4 (the
+    beam halo mirrored at the cube's edges) equal to the single card in
+    every output.  Returns (launches by kernel row, cubes/s, stages)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C
+    from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
+    p = reflect_params(P.RadarParams())
+    beam = matched_beam()
+    batch = torch.as_tensor(edge_cubes(p, ARRAY_BATCH, seed=35), device=dev)
+    launches, cps, stages = {}, {}, {}
+    common = {"range_fft_float", "slowtime_mag", "beam_group"}
+    for ra, cfar_kernel in ((0, "cfar_detect"), (1, "cfar3d_detect")):
+        name = f"percell/grouped/ref_angle{ra}"
+        kw = dict(n_elems=N_ELEMS, n_beams=N_BEAMS, ref_angle=ra,
+                  peak_group_radius=pgr, beam_group_radius=1)
+        proc = pl.make_batch_array_processor(p, include_maps=True,
+                                             device=dev, **kw)
+        kernels.reset_launch_counts()
+        out = proc(batch)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        log(f"reflect array {name}: route {proc.route}, launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items()))
+        if proc.route != "fused" or set(counts) != common | {cfar_kernel}:
+            raise AssertionError(f"reflect array {name}: launches {counts}")
+        if ra:
+            launches["cfar_3d_detect_reflect"] = counts["cfar3d_detect"]
+        for key in ("range_bin", "doppler_bin", "mag", "valid", "beam_bin"):
+            if tuple(out[key].shape) != (ARRAY_BATCH, p.tracker.max_dets):
+                raise AssertionError(f"{key} shape {tuple(out[key].shape)}")
+        if not bool(torch.isfinite(out["mag"]).all()) or \
+                int(out["nonfinite_count"].sum()) != 0:
+            raise AssertionError("non-finite magnitudes in the array model")
+        if not bool((out["beam_bin"][:, 0] == beam).all()):
+            raise AssertionError(f"reflect array {name}: strongest detection "
+                                 f"off the matched beam {beam}")
+        ref = pl.make_array_processor(p, frontend="plain", device=dev,
+                                      **kw)(batch[0])
+        Mc = ref["mag_cube"]
+        _, T, S = C.cfar_3d(Mc, 0, p.cfar, ra, 0, need_debug=True)
+        ok, report = parity.array_gate(
+            parity.array_set(out, 0), parity.array_set(ref),
+            Mc.cpu().numpy(), T.cpu().numpy(), S.cpu().numpy(), radius=pgr,
+            beam_radius=1, targets=reference.golden_targets(p),
+            target_beam=beam, capacity=p.tracker.max_dets)
+        del T, S
+        log(f"reflect array {name} cube 0 vs plain path: {report}")
+        if not ok:
+            raise AssertionError(f"reflect array {name}: array gate failed")
+        lean = pl.make_batch_array_processor(p, include_maps=False,
+                                             device=dev, **kw)
+        cps[name] = ARRAY_BATCH * 1e3 / cuda_ms(lambda: lean(batch), 5, 1)
+        group_ms = cuda_ms(lambda: C.peak_group(out["det_cube"], pgr), 5)
+        stages[name] = {"path_ms": ARRAY_BATCH * 1e3 / cps[name],
+                        "plain_peak_group_ms": group_ms}
+        log(f"reflect array {name}: {cps[name]:.1f} cubes/s at "
+            f"{ARRAY_BATCH} cubes ({int(out['n_dets'].sum())} detections), "
+            f"the plain per-beam peak_group {group_ms:.4f} ms of "
+            f"{stages[name]['path_ms']:.4f} ms a batch ({card})")
+        for sp in SPLIT_SPS:
+            skey = f"{name}/sp{sp}"
+            sproc = SH.make_sharded_array_processor(
+                M.LocalMesh(1, sp, dev), p, include_maps=True, **kw)
+            kernels.reset_launch_counts()
+            sout = sproc(batch)
+            torch.cuda.synchronize()
+            scounts = {k: v for k, v in kernels.launch_counts().items() if v}
+            diff = [k for k in out if not torch.equal(sout[k], out[k])]
+            if diff or sout.keys() != out.keys() or \
+                    not scounts.get(cfar_kernel):
+                raise AssertionError(f"reflect sharded array {skey}: differs "
+                                     f"in {diff}, launches {scounts}")
+            if ra:
+                launches["cfar_3d_detect_reflect[prepadded]"] = (
+                    launches.get("cfar_3d_detect_reflect[prepadded]", 0)
+                    + scounts["cfar3d_detect"])
+            lean_s = SH.make_sharded_array_processor(M.LocalMesh(1, sp, dev),
+                                                     p, **kw)
+            cps[skey] = ARRAY_BATCH * 1e3 / cuda_ms(lambda: lean_s(batch), 3,
+                                                    1)
+            log(f"reflect sharded array {skey}: every output bit-equal to "
+                f"the single card; launches "
+                + ", ".join(f"{k}={v}" for k, v in scounts.items())
+                + f"; {cps[skey]:.1f} cubes/s on one card ({card})")
+            del sout
+        del out
+    return launches, cps, stages
+
+
+def cfar3d_reflect_timings(card: str, dev, cube, errs, launches):
+    """Phase 31d: the reflect entry of cfar3d_detect by graph replay beside
+    the wrap entry on the same cubes (16 cubes x 8 beams x 1024x128, float32
+    and int32, ref_angle 1), its bound (bound_cfar3d, the wrap entry's) and
+    its twin; the sp 4 edge beam shard (shard 0, its lower halo plane
+    mirrored) beside the wrap shard.  Returns (kernel rows, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import cfar3d_detect as C3
+    src = "fmcw_tpu_torch/csrc/cfar_3d_detect.cu"
+    wc = P.RadarParams().cfar
+    rc = reflect_params(P.RadarParams()).cfar
+    rows, summary = [], {}
+    icube = (cube * 16).to(torch.int32)
+    for x, tag in ((cube, ""), (icube, "int32")):
+        ms = graph_ms(lambda: C3.cfar3d_detect(x, cfar=rc, ref_angle=1))
+        wrap = graph_ms(lambda: C3.cfar3d_detect(x, cfar=wc, ref_angle=1))
+        summary[f"cfar_3d_detect_reflect{tag}"] = {"graph_ms": ms,
+                                                   "wrap_graph_ms": wrap}
+        log(f"cfar_3d_detect_reflect {x.dtype} cube: {ms:.4f} ms (graph), "
+            f"the wrap entry {wrap:.4f} ms in the same run "
+            f"({ms / wrap:.3f}x) ({card})")
+        if tag:
+            continue
+        plain = cuda_ms(lambda: C3.cfar3d_detect_plain(x, cfar=rc,
+                                                       ref_angle=1), 2, 1)
+        bound, by = bound_cfar3d(x.numel(), rc, 1, 0, False)
+        log(f"cfar_3d_detect_reflect: plain {plain:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}) at {ARRAY_BATCH * N_BEAMS} beam maps "
+            f"({card})")
+        rows.append(dict(name="cfar_3d_detect_reflect", route="cuda",
+                         source=src,
+                         replaces="fmcw_tpu/ops/cfar_pallas.py:569",
+                         launches=launches.get("cfar_3d_detect_reflect", 0),
+                         max_abs_err=errs["cfar_3d_detect_reflect"], ms=ms,
+                         plain_ms=plain, bound_ms=bound, bound_by=by,
+                         library_ms=None))
+    del icube
+    bl = N_BEAMS // 4
+    x = _beam_shard(cube, 0, bl, 1, "reflect")
+    w = _beam_shard(cube, 0, bl, 1, "wrap")
+    kw = dict(ref_angle=1, prepadded_angle=True)
+    ms = graph_ms(lambda: C3.cfar3d_detect(x, cfar=rc, **kw))
+    wrap = graph_ms(lambda: C3.cfar3d_detect(w, cfar=wc, **kw))
+    plain = cuda_ms(lambda: C3.cfar3d_detect_plain(x, cfar=rc, **kw), 2, 1)
+    bound, by = bound_cfar3d(ARRAY_BATCH * bl * cube.shape[-2]
+                             * cube.shape[-1], rc, 1, 0, False)
+    name = "cfar_3d_detect_reflect[prepadded]"
+    log(f"{name} (sp 4 edge beam shard {ARRAY_BATCH}x{bl}+2x1 planes): "
+        f"{ms:.4f} ms (graph), the wrap shard {wrap:.4f} ms "
+        f"({ms / wrap:.3f}x), plain {plain:.4f} ms, bound {bound:.4f} ms "
+        f"({by}) ({card})")
+    summary[name] = {"graph_ms": ms, "wrap_graph_ms": wrap}
+    rows.append(dict(name=name, route="cuda", source=src,
+                     replaces="fmcw_tpu/ops/cfar_pallas.py:569",
+                     launches=launches.get(name, 0), max_abs_err=errs[name],
+                     ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                     library_ms=None))
+    return rows, summary
+
+
+def cfar3d_reflect_phase(card: str, dev, pgr: int):
+    """Phase 31: reflect edges in the 3D CFAR and the array model (31a-d
+    above).  Returns (kernel rows, summary)."""
+    t0 = time.perf_counter()
+    launches, cps, stages = cfar3d_reflect_routes(card, dev, pgr)
+    t1 = time.perf_counter()
+    errs, cube = cfar3d_reflect_checks(dev)
+    t2 = time.perf_counter()
+    rows, entry = cfar3d_reflect_timings(card, dev, cube, errs, launches)
+    log(f"3D reflect phase: 31b/c {t1 - t0:.1f} s, 31a {t2 - t1:.1f} s, "
+        f"31d {time.perf_counter() - t2:.1f} s")
+    return rows, {"cubes_per_s": cps, "stages_ms": stages,
+                  "launches": launches, "entry": entry}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5257,7 +6007,19 @@ def main() -> int:
     log(f"phases 1-28: {time.perf_counter() - t_start:.1f} s")
     reflect_rows, reflect_summary = reflect_phase(card, dev, pgr)
 
-    # 30. The kernels line.
+    # 30. Reflect edges in the rank-select CFAR (TPU row 9): its reflect
+    #     entry against its twin, the debug routes, a LocalMesh, timings.
+    log(f"phases 1-29: {time.perf_counter() - t_start:.1f} s")
+    rank_reflect_rows, rank_reflect_summary = rank_reflect_phase(card, dev,
+                                                                 pgr)
+
+    # 31. Reflect edges in the 3D CFAR (TPU row 10): its reflect entry
+    #     against its twin, the array model, a LocalMesh, timings.
+    log(f"phases 1-30: {time.perf_counter() - t_start:.1f} s")
+    cfar3d_reflect_rows, cfar3d_reflect_summary = cfar3d_reflect_phase(
+        card, dev, pgr)
+
+    # 32. The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
                  source="fmcw_tpu_torch/csrc/range_fft.cu",
@@ -5270,7 +6032,8 @@ def main() -> int:
                          replaces=replaces, launches=launches[mode][1],
                          **results[f"slowtime_detect[{mode}]"]))
     rows += (fixed_rows + array_rows + split_rows + rank_rows + entry_rows
-             + hw_rows + variant_rows + reflect_rows)
+             + hw_rows + variant_rows + reflect_rows + rank_reflect_rows
+             + cfar3d_reflect_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
@@ -5289,6 +6052,8 @@ def main() -> int:
                     "hw_stream": hw_summary,
                     "variants": variant_summary,
                     "reflect": reflect_summary,
+                    "rank_reflect": rank_reflect_summary,
+                    "cfar3d_reflect": cfar3d_reflect_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

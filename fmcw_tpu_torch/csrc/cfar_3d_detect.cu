@@ -61,6 +61,23 @@
 // S = 1, a cell a thread.  Decisions and scales are bit-identical to
 // ops/cfar.cfar_3d on the same cube; tests/test_torch_cfar3d_plan.py holds a
 // numpy model of this plan against it.
+//
+// The reflect entry (reflect = 1, CfarParams.edge_mode="reflect") is
+// _kernel_detect_3d on the cube that JAX's wrapper pads with numpy's
+// "reflect" on all three axes (cfar_pallas.py:739-744; the beam axis not,
+// for a prepadded shard, whose halo planes the exchange mirrored).  Only
+// step 1 changes: it copies beam plane reflect(a - ha + p) (a prepadded
+// shard's plane a + p), its rows reflect(r0 - hr + e), each with its hd
+// mirrored columns on each side, tile column j holding cube column
+// reflect(j - hd): rows of pitch D + 2 hd (138 at the default window, a
+// compile-time constant there).  Steps 2-3 then read the tile without a
+// column wrap (column sums over every column of the pitch; cfar_tile.cuh's
+// walks with kWrap false), in the same order, so the decisions and scales
+// are bit-identical to ops/cfar.cfar_3d on the mirrored cube.  JAX's kernel
+// sums a reflect window in offset order (its direct loop, :624-627); the
+// port keeps its separable order on the mirrored cube, so float means may
+// differ from JAX's in their last bits (integer sums are exact).  A single
+// mirror: ha < A (whole cubes) and hr < R, hd < D.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +93,8 @@ struct Cfar3dConfig {
     int scale_min, scale_nom, scale_max;
     int so, integer, prepadded;
     int strip, packed;
+    int reflect;    // numpy's "reflect" edges (the beam axis too unless
+                    // prepadded)
 };
 
 namespace {
@@ -86,12 +105,23 @@ constexpr int kThreads = 256;
 constexpr int kBlocksPerSM = 3;
 constexpr int kMaxPackedInt = 32767;   // hi * 65536 + lo stays below 2^31
 
-__host__ __device__ inline size_t smem_elems(const Cfar3dConfig& c) {
-    const int np = 2 * c.ha + 1;
-    return (size_t)np * (c.T + 2 * c.hr) * c.D + (size_t)np * c.T * c.D;
+// The tile's row pitch: D, or D + 2 hd for the reflect entry, whose rows
+// carry their mirrored column halo.
+__host__ __device__ inline int pitch(const Cfar3dConfig& c) {
+    return c.reflect ? c.D + 2 * c.hd : c.D;
 }
 
-template <typename V, int S, int HR, int GR, bool kPacked, int kD>
+__host__ __device__ inline size_t smem_elems(const Cfar3dConfig& c) {
+    const int np = 2 * c.ha + 1;
+    const int P = pitch(c);
+    return (size_t)np * (c.T + 2 * c.hr) * P + (size_t)np * c.T * P;
+}
+
+// kD: the tile's row pitch at compile time (0: at run time); kReflect: the
+// reflect entry (mirrored planes, rows and column halo; columns read
+// unwrapped).
+template <typename V, int S, int HR, int GR, bool kPacked, int kD,
+          bool kReflect>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
                      int* __restrict__ scale_out, const Cfar3dConfig c) {
@@ -100,29 +130,48 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
     extern __shared__ int4 smem_v4[];
     const int np = 2 * c.ha + 1;
     const int T = c.T;
-    const int D = kD > 0 ? kD : c.D;      // the tile's row pitch
+    const int P = kD > 0 ? kD : pitch(c);  // the tile's row pitch
+    const int D = kReflect ? c.D : P;      // the columns decided
+    const int off = kReflect ? c.hd : 0;   // tile column of column 0
+    // Tile column of window column d + dd: unwrapped where the rows carry
+    // their halo, else modulo D.
+    auto wcol = [&](int d, int dd) {
+        return kReflect ? off + d + dd : fmcw::wrap_col(d + dd, D);
+    };
     const int E = T + 2 * c.hr;
-    V* tile = reinterpret_cast<V*>(smem_v4);      // np planes x E rows x D
-    V* cs = tile + (size_t)np * E * D;            // np planes x T rows x D
+    V* tile = reinterpret_cast<V*>(smem_v4);      // np planes x E rows x P
+    V* cs = tile + (size_t)np * E * P;            // np planes x T rows x P
     const int r0 = blockIdx.x * T;
     const int a = blockIdx.y;
     const int b = blockIdx.z;
 
-    // 1. The planes' rows r0 - hr .. r0 + T + hr - 1, a warp a row.
+    // 1. The planes' rows r0 - hr .. r0 + T + hr - 1, a warp a row (the
+    //    reflect entry: mirrored, each with its mirrored column halo, by
+    //    4-byte copies, as rows of D + 2 hd cells put the cube's columns
+    //    off a 16-byte boundary).
     {
         const int a_in = c.prepadded ? c.A + 2 * c.ha : c.A;
-        const bool vec = (D & 3) == 0 && ((uintptr_t)cube & 15) == 0;
+        const bool vec = !kReflect && (D & 3) == 0 &&
+                         ((uintptr_t)cube & 15) == 0;
         const int lane = threadIdx.x & 31;
         for (int row = threadIdx.x >> 5; row < np * E;
              row += kThreads / 32) {
             const int p = row / E;
             const int e = row - p * E;
             const int plane =
-                c.prepadded ? a + p : fmcw::wrap_mod(a - c.ha + p, c.A);
-            const V* src = cube + (((size_t)b * a_in + plane) * c.R +
-                                   fmcw::wrap_mod(r0 - c.hr + e, c.R)) * D;
-            V* dst = tile + (size_t)row * D;
-            if (vec) {
+                c.prepadded ? a + p
+                            : (kReflect ? fmcw::reflect_mod(a - c.ha + p, c.A)
+                                        : fmcw::wrap_mod(a - c.ha + p, c.A));
+            const int mrow = kReflect ? fmcw::reflect_mod(r0 - c.hr + e, c.R)
+                                      : fmcw::wrap_mod(r0 - c.hr + e, c.R);
+            const V* src =
+                cube + (((size_t)b * a_in + plane) * c.R + mrow) * D;
+            V* dst = tile + (size_t)row * P;
+            if constexpr (kReflect) {
+                for (int j = lane; j < P; j += 32)
+                    fmcw::cp_async4(dst + j,
+                                    src + fmcw::mirror_col(j - c.hd, c.D));
+            } else if (vec) {
                 for (int i = 4 * lane; i < D; i += 128)
                     fmcw::cp_async16(dst + i, src + i);
             } else {
@@ -136,25 +185,27 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
 
     const int units = (T + S - 1) / S * D;       // strips x columns
     // 2. Column sums over the window's rows, rows ascending (from -0, which
-    //    adds as taking the first value), a strip at a time.
-    for (int u = threadIdx.x; u < np * units; u += kThreads) {
-        const int p = u / units;
-        const int st = (u - p * units) / D;
-        const int d = u - p * units - st * D;
+    //    adds as taking the first value), a strip at a time, over every
+    //    column of the tile's rows.
+    const int cs_units = (T + S - 1) / S * P;
+    for (int u = threadIdx.x; u < np * cs_units; u += kThreads) {
+        const int p = u / cs_units;
+        const int st = (u - p * cs_units) / P;
+        const int d = u - p * cs_units - st * P;
         const int i0 = min(st * S, T - S);
         V f[S];
 #pragma unroll
         for (int s = 0; s < S; ++s) f[s] = fmcw::sum_identity<V>();
-        const V* col = tile + ((size_t)p * E + i0) * D + d;
+        const V* col = tile + ((size_t)p * E + i0) * P + d;
         auto add = [&](int, int s, V v) { f[s] = fmcw::vadd(f[s], v); };
         if constexpr (HR > 0)
-            fmcw::walk_rows_fixed<S, HR, GR, false>(col, D, add);
+            fmcw::walk_rows_fixed<S, HR, GR, false>(col, P, add);
         else
-            fmcw::walk_rows<S>(col, D, 2 * c.hr + 1,
+            fmcw::walk_rows<S>(col, P, 2 * c.hr + 1,
                                [](int) { return true; }, add);
 #pragma unroll
         for (int s = 0; s < S; ++s)
-            cs[((size_t)p * T + i0 + s) * D + d] = f[s];
+            cs[((size_t)p * T + i0 + s) * P + d] = f[s];
     }
     __syncthreads();
 
@@ -178,22 +229,22 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
 #pragma unroll
             for (int s = 0; s < S; ++s) sum[s] = fmcw::sum_identity<V>();
             for (int p = 0; p < np; ++p) {
-                const V* row = cs + ((size_t)p * T + i0) * D;
+                const V* row = cs + ((size_t)p * T + i0) * P;
                 for (int dd = -c.hd; dd <= c.hd; ++dd) {
-                    const V* col = row + fmcw::wrap_col(d + dd, D);
+                    const V* col = row + wcol(d, dd);
 #pragma unroll
                     for (int s = 0; s < S; ++s)
-                        sum[s] = fmcw::vadd(sum[s], col[s * D]);
+                        sum[s] = fmcw::vadd(sum[s], col[s * P]);
                 }
             }
             for (int p = g_lo; p <= g_hi; ++p) {
-                const V* row = tile + ((size_t)p * E + i0 + c.hr) * D;
+                const V* row = tile + ((size_t)p * E + i0 + c.hr) * P;
                 for (int dd = -c.gd; dd <= c.gd; ++dd) {
-                    const V* col = row + fmcw::wrap_col(d + dd, D);
+                    const V* col = row + wcol(d, dd);
                     for (int dr = -c.gr; dr <= c.gr; ++dr) {
 #pragma unroll
                         for (int s = 0; s < S; ++s)
-                            sum[s] = fmcw::vsub(sum[s], col[(s + dr) * D]);
+                            sum[s] = fmcw::vsub(sum[s], col[(s + dr) * P]);
                     }
                 }
             }
@@ -206,8 +257,8 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
 #pragma unroll
                 for (int s = 0; s < S; ++s) hl[s] = 0;
                 for (int p = 0; p < np; ++p)
-                    fmcw::walk_window_t<S, HR, GR>(
-                        tile + ((size_t)p * E + i0) * D, D, d, g,
+                    fmcw::walk_window_t<S, HR, GR, !kReflect>(
+                        tile + ((size_t)p * E + i0) * P + off, P, d, g,
                         p >= g_lo && p <= g_hi, [&](int, int s, V v) {
                             hl[s] = fmcw::count_hi_lo(hl[s], v, t_hi[s],
                                                       t_lo[s]);
@@ -223,8 +274,8 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
 #pragma unroll
                 for (int s = 0; s < S; ++s) hi[s] = lo[s] = 0;
                 for (int p = 0; p < np; ++p)
-                    fmcw::walk_window_t<S, HR, GR>(
-                        tile + ((size_t)p * E + i0) * D, D, d, g,
+                    fmcw::walk_window_t<S, HR, GR, !kReflect>(
+                        tile + ((size_t)p * E + i0) * P + off, P, d, g,
                         p >= g_lo && p <= g_hi, [&](int, int s, V v) {
                             hi[s] = fmcw::count_add(
                                 hi[s], fmcw::is_gt(v, t_hi[s]));
@@ -242,13 +293,13 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
         Cnt cnt[S];
 #pragma unroll
         for (int s = 0; s < S; ++s) {
-            cut[s] = tile[((size_t)c.ha * E + i0 + s + c.hr) * D + d];
+            cut[s] = tile[((size_t)c.ha * E + i0 + s + c.hr) * P + off + d];
             q[s] = Sem::q(cut[s], sc[s]);
             cnt[s] = 0;
         }
         for (int p = 0; p < np; ++p)
-            fmcw::walk_window_t<S, HR, GR>(
-                tile + ((size_t)p * E + i0) * D, D, d, g,
+            fmcw::walk_window_t<S, HR, GR, !kReflect>(
+                tile + ((size_t)p * E + i0) * P + off, P, d, g,
                 p >= g_lo && p <= g_hi, [&](int, int s, V v) {
                     cnt[s] = fmcw::count_add(cnt[s], fmcw::is_ge(v, q[s]));
                 });
@@ -265,17 +316,17 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
     }
 }
 
-template <typename V, int S, int HR, int GR, bool kPacked, int kD = 0>
+template <typename V, int S, int HR, int GR, bool kPacked, int kD = 0,
+          bool kReflect = false>
 int launch_variant(const void* cube, void* det, void* scale_out,
                    const Cfar3dConfig& c, cudaStream_t stream) {
     const size_t smem = smem_elems(c) * sizeof(V);
+    auto* kernel = cfar3d_detect_kernel<V, S, HR, GR, kPacked, kD, kReflect>;
     cudaError_t err = cudaFuncSetAttribute(
-        cfar3d_detect_kernel<V, S, HR, GR, kPacked, kD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((c.R + c.T - 1) / c.T, c.A, c.batch);
-    cfar3d_detect_kernel<V, S, HR, GR, kPacked, kD><<<grid, kThreads, smem,
-                                                      stream>>>(
+    kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const V*>(cube), static_cast<V*>(det),
         static_cast<int*>(scale_out), c);
     return (int)cudaGetLastError();
@@ -293,12 +344,33 @@ int launch_window(const void* cube, void* det, void* scale_out,
     return launch_variant<V, S, HR, GR, true>(cube, det, scale_out, c, s);
 }
 
+// The reflect entry's variants: the same choice, with only the default
+// window (6, 2) unrolled at its pitch of 128 + 10 columns (each unrolled
+// variant costs build time).
+template <typename V>
+int launch_reflect(const void* cube, void* det, void* scale_out,
+                   const Cfar3dConfig& c, cudaStream_t s) {
+    constexpr int S = fmcw::kStrip;
+    if (c.strip == 1)
+        return launch_variant<V, 1, 0, 0, false, 0, true>(cube, det,
+                                                          scale_out, c, s);
+    if (!c.packed)
+        return launch_variant<V, S, 0, 0, false, 0, true>(cube, det,
+                                                          scale_out, c, s);
+    if (c.hr == 6 && c.gr == 2 && pitch(c) == 138)
+        return launch_variant<V, S, 6, 2, true, 138, true>(cube, det,
+                                                           scale_out, c, s);
+    return launch_variant<V, S, 0, 0, true, 0, true>(cube, det, scale_out, c,
+                                                     s);
+}
+
 // The strip length, the count's packing, the window and the row pitch pick
 // the variant; only packed strips of 8 unroll the repository's windows.
 template <typename V>
 int launch(const void* cube, void* det, void* scale_out,
            const Cfar3dConfig& c, cudaStream_t s) {
     constexpr int S = fmcw::kStrip;
+    if (c.reflect) return launch_reflect<V>(cube, det, scale_out, c, s);
     if (c.strip == 1)
         return launch_variant<V, 1, 0, 0, false>(cube, det, scale_out, c, s);
     if (!c.packed)
@@ -315,8 +387,10 @@ int launch(const void* cube, void* det, void* scale_out,
 // cube/det: int32 (integer != 0) or float32 (batch, A, R, D) — the cube
 // (batch, A + 2 ha, R, D) with prepadded; scale_out: int32 (batch, A, R,
 // D).  strip: 8 (fmcw::kStrip, T >= 8) or 1; packed: hi and lo in one count
-// (n_ref <= 4094 for float, 32767 for int32 cubes).  Returns the CUDA error
-// code of the launch (0 on success).
+// (n_ref <= 4094 for float, 32767 for int32 cubes); reflect: numpy's mirror
+// in place of the wrap on every axis (the beam axis not, prepadded; a
+// single mirror: ha < A unless prepadded, hr < R, hd < D).  Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int fmcw_cfar_3d_detect(const void* cube, void* det,
                                    void* scale_out, const Cfar3dConfig* cfg,
                                    void* stream) {
@@ -328,6 +402,8 @@ extern "C" int fmcw_cfar_3d_detect(const void* cube, void* det,
         c.hd < c.gd || c.ha < 1 || c.ga < 0 || c.ga >= c.ha || c.so < 0 ||
         !(c.strip == 1 || (c.strip == fmcw::kStrip && c.T >= c.strip)) ||
         (c.packed && (c.strip == 1 || c.n_ref > max_packed)) ||
+        (c.reflect != 0 && c.reflect != 1) ||
+        (c.reflect && (c.hr >= c.R || (!c.prepadded && c.ha >= c.A))) ||
         smem_elems(c) * 4 > 227 * 1024)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;

@@ -23,7 +23,8 @@
 //     over rows ascending inside an outer sum over columns ascending;
 //   * block sums: rows of a block ascending, then its columns ascending;
 //     3x3-block neighbourhood Doppler-offset-major, range-offset-minor;
-//   * columns wrap modulo D; grouping ties go to the lower linear index.
+//   * columns wrap modulo D (or, in the reflect entries, mirror); grouping
+//     ties go to the lower linear index.
 // Integer maps: floor mean, t_hi = mean + (mean >> 1), t_lo = mean >> 1
 // (fmcw_tpu/ops/cfar.py::cfar_2d, integer=True).
 //
@@ -43,6 +44,29 @@ struct CfarGeom {
 
 __device__ __forceinline__ int wrap_col(int c, int D) {
     return c < 0 ? c + D : (c >= D ? c - D : c);
+}
+
+// An index wrapped modulo n (any i), and numpy's "reflect" of index i into
+// [0, n): the edge not repeated (-1 -> 1, n -> n - 2), periodic with period
+// 2 (n - 1) beyond one mirror (indices that only a last block's discarded
+// rows, or a bit plane's padding columns, reach).  The reflect entries of
+// cfar_detect.cu, cfar_rank.cu and cfar_3d_detect.cu load their tiles
+// through it.
+__device__ __forceinline__ int wrap_mod(int i, int n) {
+    const int r = i % n;
+    return r < 0 ? r + n : r;
+}
+
+__device__ __forceinline__ int reflect_mod(int i, int n) {
+    if (n == 1) return 0;
+    const int j = wrap_mod(i, 2 * (n - 1));
+    return j < n ? j : 2 * (n - 1) - j;
+}
+
+// reflect_mod within a single mirror (-n < c < 2 n - 1), without the
+// division: a window column d + j with hd < D.
+__device__ __forceinline__ int mirror_col(int c, int n) {
+    return c < 0 ? -c : (c >= n ? 2 * (n - 1) - c : c);
 }
 
 __device__ __forceinline__ float vadd(float a, float b) { return __fadd_rn(a, b); }

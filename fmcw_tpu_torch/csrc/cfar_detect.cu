@@ -163,14 +163,6 @@ __host__ __device__ inline int pitch(const CfarDetectConfig& c) {
     return (c.flat || c.reflect) ? c.D + 2 * c.hd : c.D;
 }
 
-// numpy's "reflect" of index i into [0, n): periodic with period 2 (n - 1)
-// beyond one mirror (rows that only a last block's discarded rows read).
-__device__ __forceinline__ int reflect_mod(int i, int n) {
-    if (n == 1) return 0;
-    const int j = fmcw::wrap_mod(i, 2 * (n - 1));
-    return j < n ? j : 2 * (n - 1) - j;
-}
-
 __host__ __device__ inline Layout layout(const CfarDetectConfig& c) {
     const int pg = c.pgr > 0 ? c.pgr : 0;
     const int rows = c.T + 2 * pg;              // decided rows
@@ -449,15 +441,12 @@ cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
         const int lane = tid & 31;
         for (int e = tid >> 5; e < E; e += kThreads / 32) {
             const int row = c.prepadded ? fmcw::wrap_mod(r0 + e, rows_in)
-                                        : reflect_mod(r0 - H + e, c.R);
+                                        : fmcw::reflect_mod(r0 - H + e, c.R);
             const V* src = src0 + (size_t)row * c.D;
             V* dst = tile + (size_t)e * D;
-            for (int j = lane; j < D; j += 32) {
-                const int m = j - c.hd;
-                const int col = m < 0 ? -m : (m >= c.D ? 2 * (c.D - 1) - m
-                                                         : m);
-                fmcw::cp_async4(dst + j, src + col);
-            }
+            for (int j = lane; j < D; j += 32)
+                fmcw::cp_async4(dst + j,
+                                src + fmcw::mirror_col(j - c.hd, c.D));
         }
         asm volatile("cp.async.wait_all;" ::: "memory");
     } else {

@@ -60,6 +60,20 @@
 // time.  The per-cell scale's box sums come from column sums computed once
 // per tile (rows ascending, cfar_tile.cuh's order).
 //
+// The reflect entry (reflect = 1, CfarParams.edge_mode="reflect") is
+// _kernel on the map that JAX's wrapper pads with numpy's "reflect"
+// (cfar_pallas.py:378, :382): the edge cell not repeated, row -1 reads row
+// 1 and row R reads row R - 2, likewise the columns.  Only the tile's load
+// changes: tile row e holds map row reflect(r0 - hr + e) (a prepadded
+// shard's row r0 + e, its range halo mirrored by the halo exchange), the
+// bit planes' extended column x holds map column reflect(x - hd) in place
+// of x - hd mod D, and the per-cell scale's box sums add the column sums of
+// the mirrored columns, in the same order.  So est, the scale, threshold
+// and det are bit-identical to ops/cfar_rank.cfar_rank_plain on
+// ops/cfar._reflect_pad's map.  A single mirror: hr < R (whole maps) and
+// hd < D.  No grouping: peak grouping wraps whatever the edges (the plain
+// ops/cfar.peak_group follows, ops/cfar_rank.cfar_rank_then_group).
+//
 // Bound on an H100: the POPC pipe — per cell bits x ceil((2 hr + 1) / 2)
 // population counts (16 a clock an SM), ~2.5 integer ops beside each (64
 // a clock) — against 16 bytes in and out per cell (20 with a scale map).
@@ -76,6 +90,7 @@ struct CfarRankConfig {
     int scale_min, scale_nom, scale_max;
     int block_mode, so, integer, prepadded, bits;
     int pgr;    // grouping radius; -1: no grouping (det as decided)
+    int reflect;    // numpy's "reflect" edges (rows too unless prepadded)
 };
 
 namespace {
@@ -262,7 +277,9 @@ __device__ __forceinline__ void walk_cells(const uint2* planes, int E,
     }
 }
 
-template <typename V, int NR>
+// kReflect: the reflect entry (mirrored rows, plane columns and box-sum
+// columns); the wrap instantiations keep their code.
+template <typename V, int NR, bool kReflect>
 __global__ void __launch_bounds__(kThreads, 2)
 cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
                  V* __restrict__ det, V* __restrict__ thr,
@@ -294,8 +311,8 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
     //         prepadded shard's rows), 16 bytes a load where rows allow.
     auto map_row = [&](int e) {
         if (c.prepadded) return r0 + e;     // the map's row r0 - hr + e
-        const int row = (r0 - H + e) % c.R;
-        return row < 0 ? row + c.R : row;
+        return kReflect ? fmcw::reflect_mod(r0 - H + e, c.R)
+                        : fmcw::wrap_mod(r0 - H + e, c.R);
     };
     if ((D & 3) == 0 && ((uintptr_t)src & 15) == 0) {
         const int D4 = D >> 2;
@@ -320,7 +337,8 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
     // ---- 2. Bit planes of the clamped keys: for tile row e and word w
     //         (extended columns 32 w .. 32 w + 31), lane i keeps plane i's
     //         ballot and stores it as word w of pair w and word w - 1 ... of
-    //         pair w - 1.  Planes are [bit][pair][tile row].
+    //         pair w - 1.  Planes are [bit][pair][tile row].  Extended
+    //         column x holds column x - hd mod D, or reflect(x - hd).
     const int top = c.integer ? c.bits - 1 : 30;
     const int kmax = (int)((2u << top) - 1u);
     {
@@ -329,8 +347,9 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
         for (int u = tid >> 5; u < E * nw; u += kThreads / 32) {
             const int e = u / nw;
             const int w = u % nw;
-            int col = (32 * w + lane - c.hd) % D;
-            if (col < 0) col += D;
+            const int x = 32 * w + lane - c.hd;
+            const int col = kReflect ? fmcw::reflect_mod(x, D)
+                                     : fmcw::wrap_mod(x, D);
             const int key = key_of(tile[e * D + col]);
             const int kc = key < 0 ? 0 : (key > kmax ? kmax : key);
             unsigned mine = 0;
@@ -372,6 +391,10 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
                                 << (c.hd - c.gd);
     const int bit_stride = npair * E;
     const size_t out0 = ((size_t)b * c.R + r0) * D;
+    // The column of window column d + j: wrapped, or mirrored (hd < D).
+    auto wcol = [&](int j) {
+        return kReflect ? fmcw::mirror_col(j, D) : fmcw::wrap_col(j, D);
+    };
     auto decide = [&](int t, int d, int prefix) {
         const V est = from_key(prefix, (V*)nullptr);
         const int mrow = r0 - pg + t;           // map row of the cell
@@ -385,12 +408,12 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
         } else {
             const V* cf = cs_full + t * D;
             const V* cg = cs_guard + t * D;
-            V full = cf[fmcw::wrap_col(d - c.hd, D)];
+            V full = cf[wcol(d - c.hd)];
             for (int j = -c.hd + 1; j <= c.hd; ++j)
-                full = fmcw::vadd(full, cf[fmcw::wrap_col(d + j, D)]);
-            V guard = cg[fmcw::wrap_col(d - c.gd, D)];
+                full = fmcw::vadd(full, cf[wcol(d + j)]);
+            V guard = cg[wcol(d - c.gd)];
             for (int j = -c.gd + 1; j <= c.gd; ++j)
-                guard = fmcw::vadd(guard, cg[fmcw::wrap_col(d + j, D)]);
+                guard = fmcw::vadd(guard, cg[wcol(d + j)]);
             V t_hi, t_lo;
             fmcw::scale_thresholds(fmcw::vsub(full, guard), c.n_ref, t_hi,
                                    t_lo);
@@ -439,12 +462,12 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
     if (tid == 0 && counts[0]) atomicAdd(&n_dets[b], counts[0]);
 }
 
-template <typename V, int NR>
+template <typename V, int NR, bool kReflect = false>
 int launch_nr(const void* map, const void* scale_in, void* det, void* thr,
               void* scale_out, void* row_max, void* n_dets,
               const CfarRankConfig& c, cudaStream_t stream) {
     const size_t smem = (size_t)layout(c).total * 4;
-    auto* kernel = cfar_rank_kernel<V, NR>;
+    auto* kernel = cfar_rank_kernel<V, NR, kReflect>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -457,11 +480,19 @@ int launch_nr(const void* map, const void* scale_in, void* det, void* thr,
     return (int)cudaGetLastError();
 }
 
-// The repository's windows (hr 6: 13 rows; hr 3: 7 rows) walk unrolled.
+// The repository's windows (hr 6: 13 rows; hr 3: 7 rows) walk unrolled;
+// the reflect entry unrolls only the default window (each unrolled variant
+// costs build time).
 template <typename V>
 int launch(const void* map, const void* scale_in, void* det, void* thr,
            void* scale_out, void* row_max, void* n_dets,
            const CfarRankConfig& c, cudaStream_t s) {
+    if (c.reflect)
+        return c.hr == 6
+                   ? launch_nr<V, 13, true>(map, scale_in, det, thr,
+                                            scale_out, row_max, n_dets, c, s)
+                   : launch_nr<V, 0, true>(map, scale_in, det, thr,
+                                           scale_out, row_max, n_dets, c, s);
     if (c.hr == 6)
         return launch_nr<V, 13>(map, scale_in, det, thr, scale_out, row_max,
                                 n_dets, c, s);
@@ -484,7 +515,9 @@ extern "C" int fmcw_cfar_rank_smem(const CfarRankConfig* cfg) {
 // (batch, R, D) with block_mode, else null; scale_out: int32 (batch, R, D);
 // with pgr >= 0 (grouping; not prepadded) row_max: the map's type (batch,
 // R) and n_dets: int32 (batch,), zeroed by the caller, else null.
-// Returns the CUDA error code of the launch (0 on success).
+// reflect: numpy's mirror in place of the wrap (hr < R unless prepadded,
+// hd < D; no grouping).  Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int fmcw_cfar_rank(const void* map, const void* scale_in,
                               void* det, void* thr, void* scale_out,
                               void* row_max, void* n_dets,
@@ -495,8 +528,10 @@ extern "C" int fmcw_cfar_rank(const void* map, const void* scale_in,
         c.hd >= c.D || 2 * c.hd + 1 > 32 || c.hr < c.gr || c.hd < c.gd ||
         c.gr < 0 || c.gd < 0 || 2 * c.hr + 1 > kMaxRows || c.so < 0 ||
         c.k < 1 || c.k > c.n_ref || c.bits < 1 || c.bits > 31 ||
-        c.pgr < -1 || (group && (c.prepadded || row_max == nullptr ||
-                                 n_dets == nullptr)) ||
+        c.pgr < -1 || (group && (c.prepadded || c.reflect ||
+                                 row_max == nullptr || n_dets == nullptr)) ||
+        (c.reflect != 0 && c.reflect != 1) ||
+        (c.reflect && !c.prepadded && c.hr >= c.R) ||
         (size_t)layout(c).total * 4 > 227 * 1024 ||
         (c.block_mode && scale_in == nullptr))
         return (int)cudaErrorInvalidValue;

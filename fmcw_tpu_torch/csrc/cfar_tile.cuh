@@ -40,13 +40,9 @@ namespace fmcw {
 
 constexpr int kStrip = 8;       // cells per thread, one Doppler column
 
-// Tile copies: a row index wrapped modulo n, and cp.async copies of 16 and
-// 4 bytes from global into shared memory (cp.async.wait_all ends them).
-__device__ __forceinline__ int wrap_mod(int i, int n) {
-    const int r = i % n;
-    return r < 0 ? r + n : r;
-}
-
+// Tile copies: cp.async copies of 16 and 4 bytes from global into shared
+// memory (cp.async.wait_all ends them); rows are wrapped by
+// cfar_common.cuh's wrap_mod.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"

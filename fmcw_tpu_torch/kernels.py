@@ -66,7 +66,8 @@ class CfarRankConfig(ctypes.Structure):
         "batch", "R", "D", "T",
         "hr", "hd", "gr", "gd", "n_ref", "k",
         "scale_min", "scale_nom", "scale_max",
-        "block_mode", "so", "integer", "prepadded", "bits", "pgr")]
+        "block_mode", "so", "integer", "prepadded", "bits", "pgr",
+        "reflect")]
 
 
 class Cfar3dConfig(ctypes.Structure):
@@ -75,7 +76,7 @@ class Cfar3dConfig(ctypes.Structure):
         "batch", "A", "R", "D", "T", "ha", "ga",
         "hr", "hd", "gr", "gd", "n_ref", "k",
         "scale_min", "scale_nom", "scale_max", "so", "integer", "prepadded",
-        "strip", "packed")]
+        "strip", "packed", "reflect")]
 
 
 class BeamGroupConfig(ctypes.Structure):

@@ -114,10 +114,19 @@ for that entry; "staged" and fixed: the plain stages), then the reflect
 entry of ``csrc/cfar_detect.cu`` (``ops/cfar_detect.cfar_detect``; on
 "plain" its twin) and the plain ``peak_group``
 (``cfar_detect_then_group``), then the top-K; CA/GO/SO decide in the plain
-``cfar_2d_group``.  Fixed "fused" raises ValueError, as JAX's; the OS debug
-taps (the rank-select kernel) and the array model raise
-``NotImplementedError`` (their reflect entries are queued in ROADMAP.md).
-``cfar_geometry="hw_stream"`` ignores the edge mode, as JAX's.
+``cfar_2d_group``.  The OS debug taps run the reflect entry of
+``csrc/cfar_rank.cu`` on the same magnitudes, then the plain grouping
+(``cfar_rank_then_group``; on "plain" ``cfar_rank_plain``).  The array
+model takes reflect on every route: at ``ref_angle == 0`` the per-beam
+magnitudes (kernel A's float entry and kernel B's magnitude-only entry,
+or the plain stages), then ``cfar_group_route`` per beam (an explicit
+"fused" raises ValueError there, as JAX's "pallas": kernel B's detect
+entry wraps only); at ``ref_angle > 0`` the reflect entry of
+``csrc/cfar_3d_detect.cu`` (``cfar3d_route``; CA/GO/SO the plain
+``cfar_3d``), the beam axis mirrored too.  The grouping entries stay wrap
+only, so the reflect routes group in plain PyTorch.  Fixed "fused" raises
+ValueError, as JAX's.  ``cfar_geometry="hw_stream"`` ignores the edge
+mode, as JAX's.
 
 Not yet ported (they raise ``NotImplementedError``, ROADMAP.md):
 ``fixed_fft="scaled"``, on the kernels long CPIs (n_doppler > 128).  The
@@ -140,7 +149,8 @@ from ..ops.cfar3d_detect import cfar3d_detect, cfar3d_detect_plain
 from ..golden.fixed_point import hw_stream_lag
 from ..ops.cfar_detect import (cfar_detect_group, cfar_detect_group_plain,
                                cfar_detect_hw_stream, cfar_detect_then_group)
-from ..ops.cfar_rank import cfar_rank_group, cfar_rank_plain, debug_bits
+from ..ops.cfar_rank import (cfar_rank_group, cfar_rank_plain,
+                             cfar_rank_then_group, debug_bits)
 from ..ops.fft import dft_apply, doppler_apply
 from ..ops.frontend import rdm_frontend_detect
 from ..ops.magnitude import magnitude_float
@@ -305,9 +315,6 @@ def make_batch_processor(params: RadarParams | None = None,
                              "mode='fixed'")
     else:
         C.check_supported(p.cfar)
-        if standalone and include_debug and p.cfar.variant == "os":
-            C.check_wrap(p.cfar, "the debug taps' rank-select CFAR "
-                                 "(csrc/cfar_rank.cu)")
     if mode == "fixed":
         check_notch(p.notch_mode, mti_transient)
         window_rounding_constant(p.coef_width, window_rounding)
@@ -320,6 +327,9 @@ def make_batch_processor(params: RadarParams | None = None,
                 "(fused_fixed_detect_supported)")
     max_dets = p.tracker.max_dets
     bits = debug_bits(p.cfar, mode == "fixed", cfar_rank_bits)
+    # The debug taps' rank select: its grouping entry, or under reflect
+    # the reflect entry then the plain grouping.
+    rank_step = cfar_rank_then_group if standalone else cfar_rank_group
     hlen = 2 * hw_stream_lag(p.cfar, p.n_doppler)
     decide = (C.hw_stream_decide_plain if route == "plain"
               else cfar_detect_hw_stream)
@@ -383,7 +393,7 @@ def make_batch_processor(params: RadarParams | None = None,
                                                   need_debug=True)
                 det = C.peak_group(det, peak_group_radius)
             elif include_debug and route != "plain":
-                det, threshold, scale, row_max, n_dets = cfar_rank_group(
+                det, threshold, scale, row_max, n_dets = rank_step(
                     mag, so, cfar=p.cfar, bits=bits,
                     peak_group_radius=peak_group_radius)
             elif include_debug:
@@ -494,8 +504,18 @@ def resolve_array_frontend(frontend: str, p: RadarParams | None = None,
                            peak_group_radius: int = 0) -> str:
     """The array model's route: "fused", "staged" or "plain"; "auto" is
     "fused" where kernel A and kernel B (``ref_angle == 0``) or its
-    magnitude-only entry (``ref_angle > 0``) take ``p``, else "staged"
-    (``resolve_frontend``), as JAX's falls back to its XLA chain."""
+    magnitude-only entry (``ref_angle > 0``, or edges other than wrap) take
+    ``p``, else "staged" (``resolve_frontend``), as JAX's falls back to its
+    XLA chain.  An explicit "fused" at ``ref_angle == 0`` with reflect edges
+    raises ValueError, as JAX's "pallas" (kernel B's detect entry wraps
+    only; "auto" takes the magnitude-only entry there)."""
+    if (frontend == "fused" and ref_angle == 0 and p is not None
+            and p.cfar.edge_mode != "wrap"):
+        raise ValueError(
+            "frontend='fused' on the array model at ref_angle == 0 runs "
+            "kernel B's detect entry, which takes wrap edges only; use "
+            "frontend='auto' (the magnitude-only entry, then the standalone "
+            "CFAR's reflect entry) or 'staged'")
     return resolve_frontend("float32", frontend, p, peak_group_radius,
                             mag_only=ref_angle > 0)
 
@@ -533,13 +553,14 @@ def make_batch_array_processor(params: RadarParams | None = None,
 
     ``frontend``: "auto", "fused", "staged" or "plain" (module docstring,
     ``resolve_array_frontend``).  ``device``: None means "cuda" (raises
-    without one); pass "cpu" for the plain path.  Wrap edges only (kernel
-    B's detect entry and the 3D CFAR wrap; reflect raises
-    NotImplementedError, queued in ROADMAP.md)."""
+    without one); pass "cpu" for the plain path.  ``p.cfar.edge_mode``:
+    wrap, or reflect (the module docstring: the per-beam magnitudes, then
+    the standalone CFAR's reflect entry per beam, or the 3D CFAR's with the
+    beam axis mirrored too)."""
     p = params or RadarParams()
     dev = resolve_device(device)
-    C.check_wrap(p.cfar, "the array model (kernel B's detect entry, "
-                         "csrc/cfar_3d_detect.cu)")
+    C.check_supported(p.cfar)
+    reflect = p.cfar.edge_mode != "wrap"
     route = resolve_array_frontend(frontend, p, ref_angle, peak_group_radius)
     BF.steering_matrix(n_elems, n_beams, spacing_wl, max_angle_deg, taper)
     nr, nd, nb = p.n_range, p.n_doppler, n_beams
@@ -550,6 +571,7 @@ def make_batch_array_processor(params: RadarParams | None = None,
     range_fft = F.range_fft_float_plain if plain else F.range_fft_float
     detect = F.slowtime_detect_plain if plain else F.slowtime_detect
     cfar3d = cfar3d_route(p.cfar, plain)
+    cfar2d = cfar_group_route(p.cfar, plain)
     group = beam_group_plain if plain else beam_group
 
     def process(iq, mti_bypass=False, scale_override=0) -> dict:
@@ -568,20 +590,7 @@ def make_batch_array_processor(params: RadarParams | None = None,
         br = br.reshape(batch * nb, nd, nr)
         bi = bi.reshape(batch * nb, nd, nr)
         row_max = n_dets = None
-        if route == "staged":
-            mag = _staged_float(br, bi, bypass, p, mti_transient,
-                                magnitude_exact).reshape(batch, nb, nr, nd)
-            nonfinite = (~torch.isfinite(mag)).sum(dim=(-2, -1))
-            if ref_angle == 0:
-                det, _, rmax, ndet = cfar_group_route(p.cfar)(
-                    mag, so, cfar=p.cfar, peak_group_radius=peak_group_radius)
-                row_max = rmax.reshape(batch, nb * nr)
-                n_dets = ndet.sum(dim=1)
-            else:
-                det, _ = cfar3d(mag, so, cfar=p.cfar, ref_angle=ref_angle,
-                                guard_angle=guard_angle)
-                det = C.peak_group(det, peak_group_radius)
-        elif ref_angle == 0:
+        if route != "staged" and ref_angle == 0 and not reflect:
             # Per-beam 2D decision with in-kernel grouping.
             det, mag, rmax, ndet, nonfinite = detect(
                 *range_fft(br, bi), bypass, so, cfar=p.cfar,
@@ -590,17 +599,30 @@ def make_batch_array_processor(params: RadarParams | None = None,
             row_max = rmax.reshape(batch, nb * nr)
             n_dets = ndet.reshape(batch, nb).sum(dim=1)
         else:
-            # The front end alone, feeding the 3D CFAR.
-            re, im = range_fft(br, bi)
-            if plain:
-                mag = F.slowtime_mag_plain(re, im, bypass, **tf_kw)
+            # The magnitudes alone, then the standalone CFAR per beam (its
+            # grouping entry, or under reflect its reflect entry and the
+            # plain grouping) or the 3D CFAR.
+            if route == "staged":
+                mag = _staged_float(br, bi, bypass, p, mti_transient,
+                                    magnitude_exact)
+                nonfinite = (~torch.isfinite(mag)).sum(dim=(-2, -1))
+            elif plain:
+                mag = F.slowtime_mag_plain(*range_fft(br, bi), bypass,
+                                           **tf_kw)
                 nonfinite = (~torch.isfinite(mag)).sum(dim=(-2, -1))
             else:
-                mag, nonfinite = F.slowtime_mag(re, im, bypass, **tf_kw)
-            det, _ = cfar3d(mag.reshape(batch, nb, nr, nd), so,
-                            cfar=p.cfar, ref_angle=ref_angle,
-                            guard_angle=guard_angle)
-            det = C.peak_group(det, peak_group_radius)
+                mag, nonfinite = F.slowtime_mag(*range_fft(br, bi), bypass,
+                                                **tf_kw)
+            mag = mag.reshape(batch, nb, nr, nd)
+            if ref_angle == 0:
+                det, _, rmax, ndet = cfar2d(
+                    mag, so, cfar=p.cfar, peak_group_radius=peak_group_radius)
+                row_max = rmax.reshape(batch, nb * nr)
+                n_dets = ndet.sum(dim=1)
+            else:
+                det, _ = cfar3d(mag, so, cfar=p.cfar, ref_angle=ref_angle,
+                                guard_angle=guard_angle)
+                det = C.peak_group(det, peak_group_radius)
         det = det.reshape(batch, nb, nr, nd)
         if beam_group_radius > 0:
             det, row_max, n_dets = group(det, beam_group_radius)

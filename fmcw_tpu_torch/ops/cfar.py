@@ -137,19 +137,21 @@ def check_supported(cfar: CfarParams):
 
 
 def check_wrap(cfar: CfarParams, name: str):
-    """The kernels that take wrap edges only (kernel B's and the fixed
-    slow-time kernel's detect and split entries, the rank-select and 3D
-    CFARs, and their twins) raise NotImplementedError for any other: a
-    reflect map never reaches a wrap-only kernel.  Reflect edges run
-    ``csrc/cfar_detect.cu``; the rank-select and 3D kernels' reflect
-    entries are queued in ROADMAP.md."""
+    """The kernels that wrap in JAX too raise NotImplementedError for any
+    other edge mode: kernel B's and the fixed slow-time kernel's detect and
+    split entries (JAX's front-end detect epilogues wrap only), and every
+    grouping entry (``cfar_detect_group``, ``cfar_rank_group``: peak
+    grouping wraps whatever the edges).  A reflect map never reaches them:
+    the routes run the magnitude-only entry or the plain stages, then the
+    reflect entries of ``csrc/cfar_detect.cu``, ``csrc/cfar_rank.cu`` or
+    ``csrc/cfar_3d_detect.cu``, then the plain grouping."""
     check_supported(cfar)
     if cfar.edge_mode != "wrap":
         raise NotImplementedError(
             f"{name}: edge_mode {cfar.edge_mode!r}: this kernel takes wrap "
-            f"edges only (reflect runs the magnitude-only kernel and "
-            f"csrc/cfar_detect.cu; the rank-select and 3D CFARs' reflect "
-            f"entries are queued in ROADMAP.md)")
+            f"edges only, as JAX's (reflect maps take the magnitude-only "
+            f"entry or the plain stages, then the standalone, rank-select "
+            f"or 3D CFAR's reflect entry and the plain grouping)")
 
 
 def check_os_supported(cfar: CfarParams):
@@ -157,8 +159,8 @@ def check_os_supported(cfar: CfarParams):
     ``csrc/cfar_rank.cu``, ``csrc/cfar_3d_detect.cu``) and their twins
     decide the OS variant only, as JAX's standalone Pallas kernels
     (``fmcw_tpu/ops/cfar_pallas.py``); CA/GO/SO decide in kernel B or in
-    the plain ``cfar_2d`` / ``cfar_3d``.  Edges: ``check_wrap`` where a
-    kernel wraps only."""
+    the plain ``cfar_2d`` / ``cfar_3d``.  Edges: wrap or reflect
+    (``check_wrap`` guards the grouping entries, which wrap only)."""
     check_supported(cfar)
     if cfar.variant != "os":
         raise NotImplementedError(
@@ -544,11 +546,14 @@ def _offsets_3d(cfar: CfarParams, ref_angle: int, guard_angle: int):
     return offs
 
 
-def _periodic_pad(m: torch.Tensor, dim: int, h: int) -> torch.Tensor:
-    """Pad axis ``dim`` of ``m`` periodically by ``h`` on each side (any
-    ``h``, also beyond the axis length, as numpy's "wrap" pad)."""
+def _axis_pad(m: torch.Tensor, dim: int, h: int,
+              edge_mode: str) -> torch.Tensor:
+    """Pad axis ``dim`` of ``m`` by ``h`` on each side, periodically
+    ("wrap") or by reflection ("reflect"), for any ``h``, also beyond the
+    axis length, as numpy's ``np.pad``."""
     n = m.shape[dim]
-    idx = torch.arange(-h, n + h, device=m.device) % n
+    idx = torch.arange(-h, n + h, device=m.device)
+    idx = reflect_index(idx, n) if edge_mode == "reflect" else idx % n
     return m.index_select(dim, idx)
 
 
@@ -564,11 +569,11 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
     * ``ref_angle == 0``: ``cfar_2d`` on each beam's map;
     * ``ref_angle > 0``: the training set is the 3D box of +-(ref_angle +
       guard_angle) beam planes minus the guard box on the planes within
-      +-guard_angle (``_offsets_3d``), every axis wrapped (the beam axis
-      too: beam 0's da=-1 neighbour is beam A-1); the rank follows
+      +-guard_angle (``_offsets_3d``), every axis padded with
+      ``cfar.edge_mode`` (the beam axis too: with wrap edges beam 0's da=-1
+      neighbour is beam A-1, with reflect beam 1); the rank follows
       ``cfar.rank_pct`` on the enlarged n_ref, and the adaptive scale is
-      always per cell (``cfar.scale_mode`` does not apply, as in JAX);
-      wrap edges only for now (``check_wrap``).
+      always per cell (``cfar.scale_mode`` does not apply, as in JAX).
 
     CA / GO / SO (``ref_angle > 0``, no kernel; JAX's XLA body): CA the
     training mean; GO / SO the greater / smaller of the means of the lead
@@ -579,15 +584,22 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
     Returns ``(det, threshold, scale)`` like ``cfar_2d`` (``threshold`` only
     with ``need_debug``: for OS it stacks n_ref values per cell).  OS is
     decided by counting.  The training-set sum is taken in the order of JAX's
-    angle-extended kernel (``cfar_pallas._kernel_detect_3d``): planes da
-    ascending, in each the wrap-rolled column sums (dr ascending) added dd
+    angle-extended kernel with wrap edges (``cfar_pallas._kernel_detect_3d``)
+    on the padded cube, under either edge mode: planes da ascending, in each
+    the column sums (dr ascending) of the padded columns d + dd added dd
     ascending, then each guard cell of the |da| <= guard_angle planes
-    subtracted, dd outer and dr inner.
+    subtracted, dd outer and dr inner.  Under reflect JAX sums the training
+    offsets in ``_offsets_3d`` order instead (its kernel's direct loop, its
+    XLA body's ``jnp.sum``): integer sums are the same, but a float mean
+    may differ from JAX's in its last bits, and with it a float scale at
+    an exact class boundary.  ``csrc/cfar_3d_detect.cu``'s reflect entry
+    keeps this function's order, bit for bit.
 
     ``prepadded_angle`` (``ref_angle > 0``): the cube is a beam shard that
     carries ``ref_angle + guard_angle`` planes of its neighbours on each side
     (the sharded array model's beam-halo exchange), (..., A + 2 ha, R, D);
-    the beam axis is not wrapped and the outputs cover the A interior
+    the beam axis is not padded (a reflect shard's halo planes arrive
+    mirrored at the global edges) and the outputs cover the A interior
     planes."""
     if prepadded_angle and ref_angle == 0:
         raise ValueError("prepadded_angle needs ref_angle > 0")
@@ -596,20 +608,19 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
                          f"{ref_angle}, {guard_angle}")
     if ref_angle == 0:
         return cfar_2d(cube, scale_override, cfar, need_debug)
-    # JAX reflects the 3D window too (queued with the 3D kernel's entry).
-    check_wrap(cfar, "cfar_3d")
+    check_supported(cfar)
     m = _as_map(cube)
     offs = _offsets_3d(cfar, ref_angle, guard_angle)
     n_ref = len(offs)
     k = n_ref - min((n_ref * cfar.rank_pct) // 100, n_ref - 1)
     ha = ref_angle + guard_angle
     hr, hd = cfar.halo_range, cfar.halo_doppler
+    edge = cfar.edge_mode
+    p = _axis_pad(_axis_pad(m, -2, hr, edge), -1, hd, edge)
     if prepadded_angle:
-        p = _periodic_pad(_periodic_pad(m, -2, hr), -1, hd)
         m = m[..., ha:m.shape[-3] - ha, :, :]
     else:
-        p = _periodic_pad(_periodic_pad(_periodic_pad(m, -3, ha), -2, hr),
-                          -1, hd)
+        p = _axis_pad(p, -3, ha, edge)
     A, R, D = m.shape[-3:]
 
     def view(da, dr, dd):
@@ -619,11 +630,12 @@ def cfar_3d(cube: torch.Tensor, scale_override: int = 0,
     das = sorted({da for da, _, _ in offs})
     acc = None
     for da in das:
-        col = view(da, -hr, 0)
+        # Column sums of every padded column; t[d] = col[hd + d + dd].
+        col = p[..., ha + da:ha + da + A, 0:R, :]
         for dr in range(-hr + 1, hr + 1):
-            col = col + view(da, dr, 0)
+            col = col + p[..., ha + da:ha + da + A, hr + dr:hr + dr + R, :]
         for dd in range(-hd, hd + 1):
-            t = torch.roll(col, -dd, dims=-1)           # t[d] = col[d + dd]
+            t = col[..., hd + dd:hd + dd + D]
             acc = t if acc is None else acc + t
     for da in das:
         if abs(da) > guard_angle:

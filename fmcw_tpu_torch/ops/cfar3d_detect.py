@@ -12,6 +12,16 @@ model's entry (JAX's ``cfar_3d(prepadded_angle=True)``): a beam shard with
 wrapped, its interior planes out.  The adaptive scale is per cell whatever
 ``cfar.scale_mode`` says (as JAX's XLA body computes it); JAX's kernel
 refuses block mode, this one serves it, since the function is the same.
+
+Reflect edges (``CfarParams.edge_mode="reflect"``, numpy's mirror on all
+three axes, the beam axis not for a prepadded shard) are the kernel's
+reflect entry: the same counting on tile rows that carry their mirrored
+column halo (pitch D + 2 halo_doppler), the beam planes and rows mirrored
+at the cube's edges.  It takes a single mirror: ref_angle + guard_angle <
+A (a whole cube), halo_range < R and halo_doppler < D; the twin
+(``ops/cfar.cfar_3d`` on the mirrored cube) takes numpy's semantics beyond
+that too.  Both sum the training set in the wrap kernel's separable order
+on the mirrored cube (``ops/cfar.cfar_3d``'s docstring).
 """
 
 from __future__ import annotations
@@ -44,38 +54,41 @@ def cfar3d_detect_plain(cube: torch.Tensor, scale_override: int = 0, *,
                         cfar: CfarParams, ref_angle: int,
                         guard_angle: int = 0, prepadded_angle: bool = False):
     """Plain twin: ``ops/cfar.cfar_3d`` -> (det, scale); OS only, as the
-    kernel (``ops/cfar.check_os_supported``), wrap edges only."""
+    kernel (``ops/cfar.check_os_supported``), wrap or reflect edges."""
     C.check_os_supported(cfar)
-    C.check_wrap(cfar, "cfar3d_detect")
     det, _, scale = C.cfar_3d(cube, scale_override, cfar, ref_angle,
                               guard_angle, prepadded_angle=prepadded_angle)
     return det, scale
 
 
-def _tile_bytes(T: int, D: int, ha: int, hr: int) -> int:
+def _tile_bytes(T: int, P: int, ha: int, hr: int) -> int:
     np_ = 2 * ha + 1
-    return np_ * ((T + 2 * hr) * D + T * D) * 4
+    return np_ * ((T + 2 * hr) * P + T * P) * 4
 
 
-def tile_plan(R: int, D: int, ha: int, hr: int) -> tuple[int, int]:
+def tile_plan(R: int, D: int, ha: int, hr: int,
+              pitch: int | None = None) -> tuple[int, int]:
     """(T, strip) of the kernel's blocks for an R x D map with 2 ha + 1
-    beam planes and range halo hr.  Strips of STRIP rows: T from STRIP to
+    beam planes and range halo hr, the tile's rows ``pitch`` cells apart
+    (D; the reflect entry's D + 2 hd).  Strips of STRIP rows: T from STRIP to
     min(64, max(R, STRIP)) within _TILE_BYTES, the least strip rows over the
     map (ceil(R / T) blocks of ceil(T / STRIP) strips), ties to the larger T;
     a last block past R decides wrapped rows and stores none of them.  When
     no such T fits, T = STRIP within _MAX_BYTES; then strips of one cell, T
     < STRIP; else NotImplementedError."""
+    P = pitch or D
+
     def strip_rows(t):
         return (R + t - 1) // t * ((t + STRIP - 1) // STRIP)
 
     fits = [t for t in range(STRIP, min(64, max(R, STRIP)) + 1)
-            if _tile_bytes(t, D, ha, hr) <= _TILE_BYTES]
+            if _tile_bytes(t, P, ha, hr) <= _TILE_BYTES]
     if fits:
         return min(fits, key=lambda t: (strip_rows(t), -t)), STRIP
-    if _tile_bytes(STRIP, D, ha, hr) <= _MAX_BYTES:
+    if _tile_bytes(STRIP, P, ha, hr) <= _MAX_BYTES:
         return STRIP, STRIP
     for t in range(STRIP - 1, 0, -1):
-        if _tile_bytes(t, D, ha, hr) <= _MAX_BYTES:
+        if _tile_bytes(t, P, ha, hr) <= _MAX_BYTES:
             return t, 1
     raise NotImplementedError(
         f"cfar3d_detect kernel: a {R}x{D} map with {2 * ha + 1} beam "
@@ -94,9 +107,8 @@ def cfar3d_config(shape, cfar: CfarParams, ref_angle: int, guard_angle: int,
                   prepadded_angle: bool = False):
     """The kernel's config for a (batch, A, R, D) cube (A + 2 ha planes
     with ``prepadded_angle``); raises NotImplementedError for what the
-    kernel does not take (reflect edges among it)."""
+    kernel does not take (under reflect, more than a single mirror)."""
     C.check_os_supported(cfar)
-    C.check_wrap(cfar, "cfar3d_detect")
     _check_angles(ref_angle, guard_angle)
     if int(scale_override) < 0:
         raise ValueError(f"scale_override must be >= 0, got {scale_override}")
@@ -110,10 +122,18 @@ def cfar3d_config(shape, cfar: CfarParams, ref_angle: int, guard_angle: int,
         if A < 1:
             raise ValueError(f"a prepadded cube needs more than 2 x {ha} "
                              f"planes, got {shape[1]}")
+    reflect = cfar.edge_mode == "reflect"
+    if reflect and (cfar.halo_range >= R or (not prepadded_angle
+                                              and ha >= A)):
+        raise NotImplementedError(
+            f"cfar3d_detect kernel: reflect edges take a single mirror: "
+            f"halo_range {cfar.halo_range} < {R} rows and ref_angle + "
+            f"guard_angle {ha} < {A} beams")
     offs = C._offsets_3d(cfar, ref_angle, guard_angle)
     n_ref = len(offs)
     k = n_ref - min((n_ref * cfar.rank_pct) // 100, n_ref - 1)
-    T, strip = tile_plan(R, D, ha, cfar.halo_range)
+    T, strip = tile_plan(R, D, ha, cfar.halo_range,
+                         D + 2 * cfar.halo_doppler if reflect else None)
     return kernels.Cfar3dConfig(
         batch=B, A=A, R=R, D=D, T=T,
         ha=ha, ga=guard_angle, hr=cfar.halo_range, hd=cfar.halo_doppler,
@@ -122,7 +142,8 @@ def cfar3d_config(shape, cfar: CfarParams, ref_angle: int, guard_angle: int,
         scale_max=cfar.scale_max, so=int(scale_override),
         integer=int(integer), prepadded=int(prepadded_angle), strip=strip,
         packed=int(strip == STRIP
-                   and n_ref <= MAX_PACKED_REF[bool(integer)]))
+                   and n_ref <= MAX_PACKED_REF[bool(integer)]),
+        reflect=int(reflect))
 
 
 @kernels.counted

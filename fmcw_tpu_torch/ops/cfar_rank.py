@@ -32,11 +32,21 @@ does not reach, so it needs n_ref values per cell of memory; the kernel
 never builds the stack: it cuts the keys into bit planes and counts them
 with population counts (``csrc/cfar_rank.cu``).
 
+Reflect edges (``CfarParams.edge_mode="reflect"``, numpy's mirror) are
+the kernel's reflect entry: the same walk on tile rows mirrored at the
+map's first and last rows (a prepadded shard's rows arrive mirrored from
+the halo exchange), bit planes whose extended columns mirror at the
+map's first and last columns, and box sums over the mirrored columns.  It
+takes a single mirror, halo_range < R and halo_doppler < D; the twin
+(``ops/cfar._reflect_pad``) takes numpy's semantics beyond that too.
+
 ``cfar_rank_group`` is the kernel's grouping entry, the single-device debug
 routes' CFAR step: the same maps with the det map peak-grouped
 (``ops/cfar.peak_group``) in the kernel's epilogue, and the row maxima and
 detection counts ``ops/detect.topk_detections`` takes; its twin is
-``cfar_rank_group_plain``.
+``cfar_rank_group_plain``.  It wraps only (peak grouping wraps whatever the
+edges, as ``ops/cfar_detect.cfar_detect_group``): reflect maps take
+``cfar_rank_then_group``, the reflect entry then the plain grouping.
 """
 
 from __future__ import annotations
@@ -81,18 +91,18 @@ def cfar_rank_plain(mag: torch.Tensor, scale_override: int = 0, *,
                     scale_map: torch.Tensor | None = None,
                     prepadded_range: bool = False):
     """Plain twin of ``cfar_rank``: ``(det, threshold, scale)`` of (..., R,
-    D) maps (see the module docstring); wrap edges only."""
+    D) maps (see the module docstring), padded with ``cfar.edge_mode``
+    (``ops/cfar._pad``: the Doppler axis only for a prepadded shard)."""
     C.check_os_supported(cfar)
-    C.check_wrap(cfar, "cfar_rank")
     b = check_bits(bits)
     hr, hd = cfar.halo_range, cfar.halo_doppler
     m = C._as_map(mag)
     integer = not m.is_floating_point()
     if prepadded_range:
-        p = C._wrap_pad(m, 0, hd)
+        p = C._pad(m, 0, hd, cfar)
         m = m[..., hr:m.shape[-2] - hr, :]
     else:
-        p = C._wrap_pad(m, hr, hd)
+        p = C._pad(m, hr, hd, cfar)
     R, D = m.shape[-2:]
     k = cfar.n_ref - cfar.rank_idx
     keys = p if integer else p.view(torch.int32)
@@ -143,9 +153,11 @@ _TILE_BYTES = 112 * 1024
 def _launch(mag, scale_override, cfar, bits, scale_map, prepadded_range,
             pgr, name):
     """Launch csrc/cfar_rank.cu on a CUDA map: (det, threshold, scale,
-    row_max, n_dets), the last two None without grouping (pgr = -1)."""
+    row_max, n_dets), the last two None without grouping (pgr = -1); the
+    reflect entry for ``cfar.edge_mode == "reflect"`` (no grouping)."""
     b = check_bits(bits)
-    C.check_wrap(cfar, name)
+    if pgr >= 0:
+        C.check_wrap(cfar, name)
     hr, hd = cfar.halo_range, cfar.halo_doppler
     if 2 * hd + 1 > 32 or 2 * hr + 1 > 31:
         raise NotImplementedError(
@@ -162,7 +174,7 @@ def _launch(mag, scale_override, cfar, bits, scale_map, prepadded_range,
         scale_nom=cfar.scale_nom, scale_max=cfar.scale_max,
         block_mode=int(block), so=int(scale_override),
         integer=int(m.dtype == torch.int32), prepadded=int(prepadded_range),
-        bits=b, pgr=pgr)
+        bits=b, pgr=pgr, reflect=int(cfar.edge_mode == "reflect"))
     while cfg.T > 1 and lib.fmcw_cfar_rank_smem(ctypes.byref(cfg)) > \
             _TILE_BYTES:
         cfg.T //= 2
@@ -201,7 +213,8 @@ def cfar_rank(mag: torch.Tensor, scale_override: int = 0, *,
     in the map's type, scale int32 (``scale_override`` folded in).  ``bits``:
     the key bits ranked (module docstring), None = exact.  Block scale
     takes ``scale_map``, or computes ``ops/cfar.block_scale_map`` (not on a
-    prepadded shard).  Launches the CUDA kernel for a CUDA tensor; the plain
+    prepadded shard).  ``cfar.edge_mode``: wrap or reflect (the kernel's
+    reflect entry).  Launches the CUDA kernel for a CUDA tensor; the plain
     twin for a CPU tensor."""
     if F._device_kind(mag) == "cpu":
         return cfar_rank_plain(mag, scale_override, cfar=cfar, bits=bits,
@@ -222,12 +235,14 @@ def cfar_rank_group(mag: torch.Tensor, scale_override: int = 0, *,
     in the kernel's epilogue: ``(det, threshold, scale, row_max, n_dets)``
     with det grouped as ``ops/cfar.peak_group(det, peak_group_radius)``,
     row_max (..., R) in the map's type and n_dets (...,) int32 for
-    ``ops/detect.topk_detections``.  Whole maps only (no prepadded shard).
-    Launches the CUDA kernel's grouping entry for a CUDA tensor; the plain
-    twin for a CPU tensor."""
+    ``ops/detect.topk_detections``.  Whole maps only (no prepadded shard),
+    wrap edges only (``cfar_rank_then_group`` takes reflect).  Launches the
+    CUDA kernel's grouping entry for a CUDA tensor; the plain twin for a
+    CPU tensor."""
     if int(peak_group_radius) < 0:
         raise ValueError(f"peak_group_radius must be >= 0, got "
                          f"{peak_group_radius}")
+    C.check_wrap(cfar, "cfar_rank_group")
     if F._device_kind(mag) == "cpu":
         return cfar_rank_group_plain(mag, scale_override, cfar=cfar,
                                      bits=bits, scale_map=scale_map,
@@ -236,3 +251,20 @@ def cfar_rank_group(mag: torch.Tensor, scale_override: int = 0, *,
                   int(peak_group_radius), "cfar_rank_group")
     cfar_rank_group.launches += 1
     return out
+
+
+def cfar_rank_then_group(mag: torch.Tensor, scale_override: int = 0, *,
+                         cfar: CfarParams, bits: int | None = None,
+                         scale_map: torch.Tensor | None = None,
+                         peak_group_radius: int = 0):
+    """The reflect maps' debug-tap CFAR step, with ``cfar_rank_group``'s
+    outputs ``(det, threshold, scale, row_max, n_dets)``: ``cfar_rank``
+    (the kernel's reflect entry), then the plain ``ops/cfar.peak_group``,
+    the row maxima and the detection count (``ops/cfar.group_and_count``),
+    as ``ops/cfar_detect.cfar_detect_then_group``.  Its twin is
+    ``cfar_rank_group_plain``."""
+    det, threshold, scale = cfar_rank(mag, scale_override, cfar=cfar,
+                                      bits=bits, scale_map=scale_map)
+    det, scale, row_max, n_dets = C.group_and_count(det, scale,
+                                                    peak_group_radius)
+    return det, threshold, scale, row_max, n_dets

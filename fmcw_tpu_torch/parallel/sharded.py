@@ -84,9 +84,15 @@ n_range / sp`` (else ValueError); the block scale's exchanged block-grid
 row clips at the global edges; the grouping halo stays the ring, since
 grouping wraps.  The float "fused" route then feeds the tail from the
 magnitude-only kernel, not kernel B's split detect entry (which wraps
-only), as JAX's; fixed "fused" raises (the fixed kernels wrap only); the OS
-debug taps (the rank-select kernel) and the sharded array model raise
-``NotImplementedError`` (queued in ``ROADMAP.md``).
+only), as JAX's; fixed "fused" raises (the fixed kernels wrap only).  The
+debug taps' tail runs the reflect entry of the rank-select kernel on the
+mirrored range halo (``cfar_rank(prepadded_range=True)``), then the plain
+grouping.  The sharded array model mirrors its exchanged beam planes at the
+global edges for the 3D CFAR's reflect entry (shard 0's lower halo is its
+planes 1..ha flipped), which needs ``ref_angle + guard_angle + 1 <=
+n_beams / sp`` (else ValueError); at ``ref_angle == 0`` each beam's map
+takes the magnitude-only entry and the standalone CFAR's reflect entry, as
+on one device.
 
 Not ported (raise ``NotImplementedError``, ``ROADMAP.md``): long CPIs on
 the kernels (n_doppler > 128).
@@ -357,9 +363,6 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                          f"must divide the sp axis ({sp})")
     C.check_supported(p.cfar)
     reflect = p.cfar.edge_mode == "reflect"
-    if reflect and include_debug and p.cfar.variant == "os":
-        C.check_wrap(p.cfar, "the sharded debug taps' rank-select CFAR "
-                             "(csrc/cfar_rank.cu)")
     route = PL.resolve_frontend(mode, frontend)
     fixed = mode == "fixed"
     if fixed:
@@ -608,13 +611,14 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
     3D CFAR, whose training set spans neighbour beams: a **ring exchange of
     ``ref_angle + guard_angle`` beam planes** feeds
     ``cfar3d_detect(prepadded_angle=True)``, the beam axis wrapping as on
-    one device; then per-beam ``peak_group``.  Cross-beam grouping
-    (``beam_group_radius``) exchanges that many planes and groups by global
-    beam ids with the cube's non-periodic edges (``ops/beam_group``'s
-    ``beam_offset`` entry).  Detections: each shard's top-K with global beam
-    ids, gathered over sp in shard order, a stable global top-K;
-    ``n_dets`` and ``nonfinite_count`` summed over sp, ``saturation_count``
-    0.  Every output equals ``make_batch_array_processor``'s on the same
+    one device (under reflect edges mirrored at the global edges: the edge
+    shards' own planes, flipped); then per-beam ``peak_group``.
+    Cross-beam grouping (``beam_group_radius``) exchanges that many planes
+    and groups by global beam ids with the cube's non-periodic edges
+    (``ops/beam_group``'s ``beam_offset`` entry).  Detections: each shard's
+    top-K with global beam ids, gathered over sp in shard order, a stable
+    global top-K; ``n_dets`` and ``nonfinite_count`` summed over sp,
+    ``saturation_count`` 0.  Every output equals ``make_batch_array_processor``'s on the same
     route bit for bit.
 
     Returned callable: ``fn(iq, mti_bypass=False, scale_override=0) ->
@@ -625,8 +629,8 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
     n_doppler) ``mag_cube`` / ``det_cube`` shard (on a LocalMesh the whole
     cubes).  The keywords are ``make_batch_array_processor``'s; the
     exchanges reach one neighbour, so ``ref_angle + guard_angle`` (with
-    ``ref_angle > 0``) and ``beam_group_radius`` must not exceed
-    ``n_beams/sp``."""
+    ``ref_angle > 0``, plus one under reflect edges) and
+    ``beam_group_radius`` must not exceed ``n_beams/sp``."""
     p = params or RadarParams()
     mesh, local, dp, sp, dev, dp_rank, sp_rank = _mesh_info(mesh, device)
     if n_beams % sp:
@@ -638,13 +642,18 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
         raise ValueError(
             f"angle halo (ref_angle+guard_angle = {ha}) must not exceed "
             f"the local beam extent (n_beams/sp = {bl})")
+    C.check_supported(p.cfar)
+    reflect = p.cfar.edge_mode != "wrap"
+    if ref_angle > 0 and sp > 1 and reflect and ha + 1 > bl:
+        raise ValueError(
+            f"edge_mode='reflect' needs ref_angle+guard_angle+1 <= "
+            f"n_beams/sp ({ha + 1} > {bl}) for the edge shards' mirror")
     if sp > 1 and beam_group_radius > bl:
         raise ValueError(
             f"beam_group_radius ({beam_group_radius}) must not exceed the "
             f"local beam extent (n_beams/sp = {bl})")
-    C.check_wrap(p.cfar, "the sharded array model (kernel B's detect "
-                         "entry, csrc/cfar_3d_detect.cu)")
-    route = PL.resolve_array_frontend(frontend)
+    route = PL.resolve_array_frontend(frontend, p, ref_angle,
+                                      peak_group_radius)
     BF.steering_matrix(n_elems, n_beams, spacing_wl, max_angle_deg, taper)
     nr, nd = p.n_range, p.n_doppler
     max_dets = p.tracker.max_dets
@@ -654,6 +663,7 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
     range_fft = F.range_fft_float_plain if plain else F.range_fft_float
     detect = F.slowtime_detect_plain if plain else F.slowtime_detect
     cfar3d = PL.cfar3d_route(p.cfar, plain)
+    cfar2d = PL.cfar_group_route(p.cfar, plain)
     group = beam_group_plain if plain else beam_group
     single = None
     if sp == 1:
@@ -668,18 +678,18 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
     ring = sp_ring(mesh) if sp > 1 else None
     my_shards = list(range(sp)) if local else [sp_rank]
 
-    def halo_planes(cubes, h):
+    def halo_planes(cubes, h, edge="wrap"):
         """Each shard's (B, bl, R, D) cube extended by ``h`` planes of its
         ring neighbours on each side: the ring's row halo on the (B, bl,
-        R*D) view."""
+        R*D) view, ``edge`` at the global edges (``_global_edges``)."""
         flat = [c.reshape(c.shape[0], bl, nr * nd) for c in cubes]
         return [torch.cat([lo, f, hi], dim=-2).reshape(-1, bl + 2 * h, nr, nd)
-                for f, (lo, hi) in zip(flat, ring.halo(flat, h))]
+                for f, (lo, hi) in zip(flat, ring.halo(flat, h, edge))]
 
     def front(br, bi, bypass, so):
         """One shard's beam planes (B, bl, nd, nr) -> (det (B, bl, nr, nd),
         or None where the 3D CFAR still has to run; mag or None; row_max
-        (B, bl*nr) and n_dets (B,) when kernel B gave them; nonfinite (B,))
+        (B, bl*nr) and n_dets (B,) from the 2D CFAR; nonfinite (B,))
         — ``make_batch_array_processor``'s per-beam steps."""
         B = br.shape[0]
         br = br.reshape(B * bl, nd, nr)
@@ -689,12 +699,7 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
             mag = PL._staged_float(br, bi, bypass, p, mti_transient,
                                    magnitude_exact).reshape(B, bl, nr, nd)
             nonfinite = (~torch.isfinite(mag)).sum(dim=(-2, -1))
-            if ref_angle == 0:
-                det, _, rmax, ndet = PL.cfar_group_route(p.cfar)(
-                    mag, so, cfar=p.cfar, peak_group_radius=peak_group_radius)
-                row_max = rmax.reshape(B, bl * nr)
-                n_dets = ndet.sum(dim=1)
-        elif ref_angle == 0:
+        elif ref_angle == 0 and not reflect:
             det, mag, rmax, ndet, nonfinite = detect(
                 *range_fft(br, bi), bypass, so, cfar=p.cfar,
                 peak_group_radius=peak_group_radius, emit_mag=include_maps,
@@ -710,6 +715,13 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
                                             **tf_kw)
         if mag is not None:
             mag = mag.reshape(B, bl, nr, nd)
+        if det is None and ref_angle == 0:
+            # The staged route, or reflect edges: the standalone CFAR per
+            # beam (its reflect entry under reflect).
+            det, _, rmax, ndet = cfar2d(
+                mag, so, cfar=p.cfar, peak_group_radius=peak_group_radius)
+            row_max = rmax.reshape(B, bl * nr)
+            n_dets = ndet.sum(dim=1)
         return (det, mag, row_max, n_dets,
                 nonfinite.reshape(B, bl).sum(dim=1).to(torch.int32))
 
@@ -730,7 +742,7 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
                                         guard_angle=guard_angle,
                                         prepadded_angle=True)[0],
                                  peak_group_radius)
-                    for c in halo_planes(mags, ha)]
+                    for c in halo_planes(mags, ha, p.cfar.edge_mode)]
         if beam_group_radius > 0:
             dets, row_max, n_dets = map(list, zip(*(
                 group(e, beam_group_radius, beam_offset=s * bl,

@@ -51,6 +51,7 @@ import torch
 import fmcw_tpu_torch as P
 from fmcw_tpu_torch.golden.reference import rank_adversarial_maps
 from fmcw_tpu_torch.ops import cfar as C, cfar3d_detect as C3
+from test_torch_rank_plan import reflect_idx
 
 torch.set_num_threads(2)
 
@@ -66,12 +67,21 @@ def _wrap32(x: np.ndarray) -> np.ndarray:
 def model_cfar3d(cube: np.ndarray, so: int, cfar, ra: int, ga: int,
                  prepadded: bool = False, *, T: int | None = None,
                  strip: int | None = None, packed: bool | None = None,
-                 guard_everywhere: bool = False):
+                 guard_everywhere: bool = False,
+                 wrap_columns: bool = False):
     """(det, scale) of the kernel's plan on a (B, A, R, D) numpy cube
     (A + 2 ha planes with ``prepadded``).  T / strip / packed default to
-    the wrapper's config; ``guard_everywhere`` is a mutation."""
+    the wrapper's config; ``guard_everywhere`` is a mutation.  With
+    ``cfar.edge_mode == "reflect"`` the reflect entry's plan: planes
+    reflect(a - ha + p) (a prepadded shard's a + p), rows reflect(r0 - hr
+    + e), each tile row carrying its mirrored column halo (tile column j =
+    column reflect(j - hd), pitch D + 2 hd), column sums over every column
+    and the window columns read unwrapped; ``wrap_columns`` is its
+    mutation, a wrapped column halo."""
     integer = cube.dtype != np.float32
+    reflect = cfar.edge_mode == "reflect"
     cfg = C3.cfar3d_config(cube.shape, cfar, ra, ga, so, integer, prepadded)
+    assert cfg.reflect == int(reflect)
     T = cfg.T if T is None else T
     S = cfg.strip if strip is None else strip
     packed = bool(cfg.packed) if packed is None else packed
@@ -85,12 +95,19 @@ def model_cfar3d(cube: np.ndarray, so: int, cfar, ra: int, ga: int,
     nblk = -(-R // T)
     zero = np.int32(0) if integer else np.float32(-0.0)
 
-    # 1. The tiles: (B, A, block, plane, tile row, D).
-    rows = (np.arange(nblk)[:, None] * T - hr + np.arange(E)) % R
+    # 1. The tiles: (B, A, block, plane, tile row, P).
+    fold = ((lambda i, n: reflect_idx(i, n)) if reflect
+            else (lambda i, n: np.asarray(i) % n))
+    rows = fold(np.arange(nblk)[:, None] * T - hr + np.arange(E), R)
     planes = np.arange(A)[:, None] + np.arange(npl)
     if not prepadded:
-        planes = (planes - ha) % A
+        planes = fold(planes - ha, A)
     tile = cube[:, planes[:, None, :, None], rows[None, :, None, :], :]
+    off = 0
+    if reflect:
+        cols = np.arange(-hd, D + hd)
+        tile = tile[..., cols % D if wrap_columns else reflect_idx(cols, D)]
+        off = hd
     # 2. Column sums, rows ascending.
     cs = np.full(tile[..., :T, :].shape, zero)
     with np.errstate(invalid="ignore", over="ignore"):
@@ -101,8 +118,11 @@ def model_cfar3d(cube: np.ndarray, so: int, cfar, ra: int, ga: int,
     t_idx = np.minimum(np.arange(nst) * S, T - S)[:, None] + np.arange(S)
 
     def at(x, p, r_idx, dd):
-        """x[..., p, r_idx, d + dd]: (B, A, block, nst, S, D)."""
-        return x[:, :, :, p][:, :, :, r_idx][..., (np.arange(D) + dd) % D]
+        """x[..., p, r_idx, d + dd]: (B, A, block, nst, S, D); the tile
+        columns of a reflect tile unwrapped."""
+        c = np.arange(D) + dd
+        return x[:, :, :, p][:, :, :, r_idx][..., off + c if reflect
+                                              else c % D]
 
     def gplane(p):
         return guard_everywhere or ha - ga <= p <= ha + ga

@@ -333,7 +333,10 @@ def as_if_cuda(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(kernels, "load", lambda: lib)
     F.reset_launch_counts()
-    return lib
+    yield lib
+    # The stand-in's launches stay with this test: a later test in the same
+    # worker reads the counts of its own calls.
+    F.reset_launch_counts()
 
 
 def test_wrappers_launch_kernels_for_cuda_tensors(as_if_cuda):

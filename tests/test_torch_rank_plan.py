@@ -65,12 +65,30 @@ def _keys(m: np.ndarray) -> np.ndarray:
     return m.view(np.int32) if m.dtype == np.float32 else m.astype(np.int32)
 
 
-def _planes(kc: np.ndarray, bits: int, top: int, hd: int) -> np.ndarray:
-    """(..., rows, npair, bits, 2) uint32 word pairs of the bit planes."""
+def reflect_idx(i, n: int) -> np.ndarray:
+    """numpy's "reflect" of indices ``i`` into [0, n), periodic beyond one
+    mirror (cfar_common.cuh's reflect_mod)."""
+    i = np.asarray(i)
+    if n == 1:
+        return np.zeros_like(i)
+    j = i % (2 * (n - 1))
+    return np.where(j < n, j, 2 * (n - 1) - j)
+
+
+def _fold(reflect: bool):
+    """The kernel's index map of rows and extended columns: the wrap, or
+    the reflect entry's mirror."""
+    return reflect_idx if reflect else (lambda i, n: np.asarray(i) % n)
+
+
+def _planes(kc: np.ndarray, bits: int, top: int, hd: int,
+            reflect: bool = False) -> np.ndarray:
+    """(..., rows, npair, bits, 2) uint32 word pairs of the bit planes:
+    extended column x holds column x - hd mod D, or reflect(x - hd)."""
     D = kc.shape[-1]
     npair = (D + 31) // 32
     nw = npair + 1
-    ext = kc[..., (np.arange(32 * nw) - hd) % D]          # (..., rows, 32nw)
+    ext = kc[..., _fold(reflect)(np.arange(32 * nw) - hd, D)]
     ext = ext.reshape(*ext.shape[:-1], nw, 32).astype(np.int64)
     lane = np.arange(32, dtype=np.uint64)
     words = np.stack([(((ext >> (top - i)) & 1).astype(np.uint64) << lane)
@@ -79,8 +97,15 @@ def _planes(kc: np.ndarray, bits: int, top: int, hd: int) -> np.ndarray:
 
 
 def model_rank(m: np.ndarray, cfar, bits: int, prepadded: bool = False, *,
-               clamp: bool = True, guard: bool = True) -> np.ndarray:
-    """est keys (..., R, D) of the kernel's walk."""
+               clamp: bool = True, guard: bool = True,
+               reflect_planes: bool | None = None) -> np.ndarray:
+    """est keys (..., R, D) of the kernel's walk; with ``cfar.edge_mode ==
+    "reflect"`` the reflect entry's (window rows reflect(r - hr + i) of a
+    whole map, bit-plane columns reflect(x - hd)); ``reflect_planes=False``
+    is its mutation, the planes' columns wrapped."""
+    reflect = cfar.edge_mode == "reflect"
+    if reflect_planes is None:
+        reflect_planes = reflect
     integer = m.dtype != np.float32
     hr, hd, gr, gd = (cfar.halo_range, cfar.halo_doppler, cfar.guard_range,
                       cfar.guard_doppler)
@@ -90,9 +115,9 @@ def model_rank(m: np.ndarray, cfar, bits: int, prepadded: bool = False, *,
     kc = np.clip(keys, 0, (2 << top) - 1) if clamp else keys & 0xFFFFFFFF
     R_in, D = m.shape[-2:]
     R = R_in - 2 * hr if prepadded else R_in
-    rows = (np.arange(R)[:, None] + np.arange(2 * hr + 1)[None, :]
-            + (0 if prepadded else R - hr)) % R_in            # (R, 2hr+1)
-    pl = _planes(kc, bits, top, hd)[..., rows, :, :, :]
+    rows = np.arange(R)[:, None] + np.arange(2 * hr + 1)[None, :]
+    rows = rows % R_in if prepadded else _fold(reflect)(rows - hr, R)
+    pl = _planes(kc, bits, top, hd, reflect_planes)[..., rows, :, :, :]
     # (..., R, 2hr+1, npair, bits, 2) -> per cell: its pair d // 32.
     d = np.arange(D)
     pl = pl[..., d // 32, :, :]                  # (..., R, W_r, D, bits, 2)
@@ -151,14 +176,14 @@ def model_cfar_rank(m: np.ndarray, so: int, cfar, bits: int | None, *,
 
 def _model_taps(m, so, cfar, est_k, scale_map, prepadded):
     integer = m.dtype != np.float32
+    fold = _fold(cfar.edge_mode == "reflect")
     hr, hd, gr, gd = (cfar.halo_range, cfar.halo_doppler, cfar.guard_range,
                       cfar.guard_doppler)
     est = est_k if integer else est_k.view(np.float32)
     R_in, D = m.shape[-2:]
     R = R_in - 2 * hr if prepadded else R_in
     # Tile rows of each cell's window: rows t .. t + 2 hr around row t + hr.
-    ext = m if prepadded else np.concatenate(
-        [m[..., R - hr:, :], m, m[..., :hr, :]], axis=-2)
+    ext = m if prepadded else m[..., fold(np.arange(-hr, R + hr), R), :]
     cut = ext[..., hr:hr + R, :]
     if scale_map is not None:
         sc = scale_map.astype(np.int64)
@@ -167,7 +192,7 @@ def _model_taps(m, so, cfar, est_k, scale_map, prepadded):
                        axis=-3)                          # (..., R, 2hr+1, D)
         cs_full = _colsum(win, 0, 2 * hr + 1)
         cs_guard = _colsum(win, hr - gr, 2 * gr + 1)
-        cols = lambda cs, h: [cs[..., (np.arange(D) + j) % D]
+        cols = lambda cs, h: [cs[..., fold(np.arange(D) + j, D)]
                               for j in range(-h, h + 1)]
         full = cols(cs_full, hd)
         gsum = cols(cs_guard, gd)

@@ -33,12 +33,16 @@ path, against the JAX package and the golden model, on the CPU.
   2 and 4) and on gloo ranks (sp 4, ``DistRing``) equal to one device;
   ``ValueError`` where ``halo_range + 1 > n_range / sp``; the surveillance
   runtime and ``pd_pfa``.
-* Refusals: fixed ``fused`` (ValueError, as JAX's); the wrap-only kernels
-  and their callers (kernel B's detect and split entries, the fixed
-  slow-time kernel, the standalone kernel's grouping entry, the
-  rank-select and 3D CFARs, the OS debug taps, the array model) raise
-  NotImplementedError; no reflect route reaches kernel B's detect entry;
-  ``cfar_geometry="hw_stream"`` ignores the edge mode.
+* Refusals: fixed ``fused`` (ValueError, as JAX's), the array model's
+  "fused" at ref_angle 0 (ValueError, as JAX's "pallas"), the sharded
+  array model's beam halo beyond ``n_beams / sp - 1`` (ValueError); the
+  kernels that wrap in JAX too (kernel B's detect and split entries, the
+  fixed slow-time kernel, the standalone and rank-select kernels' grouping
+  entries) raise NotImplementedError; the rank-select and 3D CFARs, the
+  OS debug taps and the array model run reflect (tests/
+  test_torch_reflect_taps_array.py holds them against JAX); no reflect
+  route reaches kernel B's detect entry; ``cfar_geometry="hw_stream"``
+  ignores the edge mode.
 """
 
 import dataclasses
@@ -617,35 +621,59 @@ def test_surveillance_and_pd_pfa():
 # ---------------------------------------------------------------------------
 
 def test_refusals():
-    """What still wraps only refuses reflect, on the CPU as on the card."""
+    """What wraps in JAX too refuses reflect, on the CPU as on the card;
+    the rank-select and 3D CFARs, the OS debug taps and the array model
+    (single device and sharded) run it."""
     p = _rp(QUICK)
     with pytest.raises(ValueError, match="wrap"):
         tpl.make_processor(p, mode="fixed", frontend="fused", device="cpu")
     assert not FX.fused_fixed_detect_supported(p)
     assert jpl.fused_fixed_detect_supported(_jparams(p)) is False
-    with pytest.raises(NotImplementedError):
-        tpl.make_processor(p, include_debug=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sharded.make_sharded_processor(LocalMesh(1, 2, "cpu"), p,
-                                       include_debug=True)
+    iq = tpl.complex_to_iq(_edge_frame(p))
+    for mode in ("float32", "fixed"):
+        out = tpl.make_processor(p, mode=mode, include_debug=True,
+                                 device="cpu")(iq)
+        assert int(out["n_dets"]) > 0
+    out = sharded.make_sharded_processor(LocalMesh(1, 2, "cpu"), p,
+                                         include_debug=True)(iq[None])
+    assert int(out["n_dets"][0]) > 0
     with pytest.raises(ValueError):
         sharded.make_sharded_processor(LocalMesh(1, 2, "cpu"), p,
                                        mode="fixed", frontend="fused")
+    cubes = np.stack([iq] * 4)[None]
     for make in (tpl.make_batch_array_processor,
                  lambda q, **k: sharded.make_sharded_array_processor(
                      LocalMesh(1, 2, "cpu"), q, **k)):
-        with pytest.raises(NotImplementedError):
-            make(p, device="cpu")
+        for ra in (0, 1):
+            out = make(p, n_elems=4, n_beams=4, ref_angle=ra,
+                       device="cpu")(cubes)
+            assert int(out["n_dets"][0]) > 0
+        with pytest.raises(ValueError, match="wrap"):
+            make(p, n_elems=4, n_beams=4, frontend="fused", device="cpu")
+    # The sharded array model mirrors its beam halo on the edge shards:
+    # ref_angle + guard_angle + 1 <= n_beams / sp, as JAX's.
+    with pytest.raises(ValueError, match="reflect"):
+        sharded.make_sharded_array_processor(
+            LocalMesh(1, 4, "cpu"), p, n_elems=4, n_beams=8, ref_angle=2,
+            device="cpu")
+    sharded.make_sharded_array_processor(
+        LocalMesh(1, 4, "cpu"), QUICK, n_elems=4, n_beams=8, ref_angle=2,
+        device="cpu")
     assert not sharded.split_detect_supported(p, 2, 2)
     mag = torch.as_tensor(_edge_map((2, 64, 32), 0, False))
     planes = torch.zeros((2, 64, 32)), torch.zeros((2, 64, 32))
-    refusals = [
+    runs = [
         lambda: CR.cfar_rank(mag, cfar=p.cfar),
-        lambda: CR.cfar_rank_group(mag, cfar=p.cfar, peak_group_radius=2),
         lambda: CR.cfar_rank_plain(mag, cfar=p.cfar),
+        lambda: CR.cfar_rank_then_group(mag, cfar=p.cfar,
+                                        peak_group_radius=2),
         lambda: C3.cfar3d_detect(mag[None], cfar=p.cfar, ref_angle=1),
         lambda: C3.cfar3d_detect_plain(mag[None], cfar=p.cfar, ref_angle=1),
-        lambda: TC.cfar_3d(mag[None], cfar=p.cfar, ref_angle=1),
+        lambda: TC.cfar_3d(mag[None], cfar=p.cfar, ref_angle=1)]
+    for fn in runs:
+        assert int((fn()[0] > 0).sum()) > 0
+    refusals = [
+        lambda: CR.cfar_rank_group(mag, cfar=p.cfar, peak_group_radius=2),
         lambda: CD.cfar_detect_group(mag, cfar=p.cfar),
         lambda: F.slowtime_detect(*planes, cfar=p.cfar),
         lambda: FX.slowtime_detect_fixed(*(x.to(torch.int16)
