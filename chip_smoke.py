@@ -129,11 +129,22 @@ csrc/cfar_3d_detect.cu, TPU row 10, against its twin bit for bit on the
 array route's cube, its int32 copy, adversarial and small cubes, the sp 4
 beam shards; the array model under reflect at full width, ref_angle 0 and
 1, through the array gate, and a LocalMesh at sp 2 and 4; the entry beside
-the wrap entry).  It prints
-the card's name and power limit, one JSON line listing the kernels, and as
-its last line {"ok": true, "device": {...}}.  Any failed check raises,
-and the script then exits non-zero; without CUDA it exits non-zero at
-once.
+the wrap entry).  Then long CPIs (phase 32, n_doppler = n2d x 128: kernel
+B's split transform and decide kernel): its entries against their twins
+at n_doppler 256, 384, 512, 1024 and 2048 (magnitudes within TOL of the
+peak, decisions, row maxima and counts bit for bit on the kernel's own
+magnitudes; OS, CA, GO, SO, per-cell and block, override, bypass, the
+3-pulse MTI, radius 0 and 2; the magnitude-only entry bit-equal to the
+detect entry's magnitudes; the split entry at sp 2 and 4 bit-equal to
+the whole frame), the main path at BASELINE config 2 (1024x256, batch 128:
+float auto now fused, per-cell, block and GO through the margin gate,
+frames/s and samples/s beside the staged route), the debug taps, reflect,
+the hw-compat float route and the array model (ref_angle 0 and 1) at
+1024x256, a LocalMesh at sp 2 and 4, and the entries' times at 1024x256
+and 1024x2048.  It prints the card's name and power limit, one JSON line
+listing the kernels, and as its last line {"ok": true, "device": {...}}.
+Any failed check raises, and the script then exits non-zero; without CUDA
+it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -5719,6 +5730,503 @@ def cfar3d_reflect_phase(card: str, dev, pgr: int):
                   "launches": launches, "entry": entry}
 
 
+# ---------------------------------------------------------------------------
+# Long CPIs: kernel B at n_doppler = n2d x 128 (phase 32)
+# ---------------------------------------------------------------------------
+
+LONG_NDS = (256, 384, 512, 1024, 2048)
+LONG_NR = 1024                  # BASELINE config 2: 256 chirps x 1024
+LONG_ND = 256
+LONG_SRC = "fmcw_tpu_torch/csrc/slowtime_detect.cu"
+# Kernel B's entries at each long n_doppler (32a): (variant, scale mode,
+# bypass, scale override, grouping radius, notch mode, transform keywords).
+LONG_CASES = {
+    256: (("os", "cell", False, 0, 2, 2, {}),
+          ("os", "cell", True, 4, 0, 2, {}),
+          ("os", "block", False, 0, 2, 2, {}),
+          ("os", "cell", False, 0, 2, 3,
+           dict(transient="passthrough", exact_mag=True)),
+          ("os", "block", True, 0, 0, 3, dict(transient="zero")),
+          ("ca", "cell", False, 0, 2, 2, {}),
+          ("go", "block", False, 0, 0, 2, {}),
+          ("so", "cell", False, 6, 2, 2, {})),
+    384: (("os", "cell", False, 0, 2, 2, {}),
+          ("os", "block", False, 0, 2, 2, {}),
+          ("go", "cell", False, 0, 2, 2, {})),
+    512: (("os", "cell", False, 0, 2, 2, {}),
+          ("os", "block", False, 4, 2, 2, {}),
+          ("so", "block", False, 0, 2, 2, {})),
+    1024: (("os", "cell", False, 0, 0, 2, {}),
+           ("os", "block", False, 0, 2, 2, {}),
+           ("ca", "block", False, 0, 2, 2, {})),
+    2048: (("os", "cell", False, 0, 2, 2, {}),
+           ("os", "block", False, 0, 2, 2, {}),
+           ("ca", "cell", True, 0, 2, 2, {})),
+}
+LONG_SPLIT_NDS = (256, 2048)
+
+
+def long_params(nd: int, variant: str = "os", scale_mode: str = "cell",
+                notch_mode: int = 2):
+    import fmcw_tpu_torch as P
+    return P.RadarParams(n_range=LONG_NR, n_doppler=nd, notch_mode=notch_mode,
+                         cfar=P.CfarParams(variant=variant,
+                                           scale_mode=scale_mode))
+
+
+def long_kernel_checks(dev, pgr: int):
+    """Phase 32a: kernel B's long-CPI entries against their twins at
+    n_range 1024 and n_doppler 256, 384, 512, 1024, 2048 (batch 16 at 256,
+    8 above), on kernel A's planes of bench.py's stimulus: kernel A within
+    TOL; each case of LONG_CASES (_b_case: magnitudes within TOL of the
+    peak, the decision, row maxima and counts bit for bit against
+    detect_plain on the kernel's own magnitudes; at 256 also planes
+    holding NaN and Inf); the magnitude-only entry
+    within TOL and bit-equal to the detect entry's emitted magnitudes; at
+    256 and 2048 the split entry at sp 2 and 4 (OS and CA, per-cell) bit-
+    equal to the whole-frame launch's rows and to the twin's decision on
+    them.  Returns {entry: largest absolute magnitude error}."""
+    import torch
+    from fmcw_tpu_torch.ops import frontend as F
+    errs = {"detect": 0.0, "mag": 0.0, "split": 0.0}
+    for nd in LONG_NDS:
+        batch = 16 if nd == 256 else 8
+        iq = torch.as_tensor(make_batch(long_params(nd), batch, seed=31),
+                             device=dev)
+        re, im = F.range_fft(iq)
+        pre, pim = F.range_fft_plain(iq)
+        torch.cuda.synchronize()
+        peak = float(torch.maximum(pre.abs().max(), pim.abs().max()))
+        err_a = float(torch.maximum((re - pre).abs().max(),
+                                    (im - pim).abs().max()))
+        if not err_a <= TOL * peak:
+            raise AssertionError(f"range_fft disagrees at {nd} chirps")
+        del pre, pim
+        for variant, mode, bypass, so, radius, notch, kw in LONG_CASES[nd]:
+            p = long_params(nd, variant, mode, notch)
+            errs["detect"] = max(errs["detect"], _b_case(
+                "long", re, im, p, bypass, so, radius, kw))
+        if nd == LONG_ND:
+            # NaN and Inf samples: whole rows of non-finite magnitudes, in
+            # windows and at a chunk's edge columns.
+            nre, nim = re[:4].clone(), im[:4].clone()
+            nr = re.shape[1]
+            nre[:2, nr // 10, 3] = float("nan")
+            nre[:2, 3 * nr // 10, 127] = float("inf")
+            nim[1, nr // 2, 0] = float("-inf")
+            for variant, mode in (("os", "cell"), ("go", "block")):
+                _b_case("nan/inf", nre, nim, long_params(nd, variant, mode),
+                        False, 0, pgr)
+        det, emitted, _, _, nf = F.slowtime_detect(
+            re, im, cfar=long_params(nd).cfar, peak_group_radius=pgr,
+            emit_mag=True)
+        mag, nf2 = F.slowtime_mag(re, im)
+        pmag = F.slowtime_mag_plain(re, im, False)
+        torch.cuda.synchronize()
+        err = float((mag - pmag).abs().max())
+        peak = float(pmag.abs().max())
+        errs["mag"] = max(errs["mag"], err)
+        same = bits_equal(mag, emitted) and torch.equal(nf, nf2)
+        log(f"slowtime_mag {LONG_NR}x{nd} batch {batch}: err "
+            f"{err / peak:.3g} of peak, "
+            f"{'bit-equal' if same else 'DIFFERS'} to the detect entry's "
+            f"magnitudes")
+        if not (err <= TOL * peak and same):
+            raise AssertionError(f"slowtime_mag disagrees at {nd}")
+        del mag, pmag, emitted
+        if nd in LONG_SPLIT_NDS:
+            errs["split"] = max(errs["split"], long_split_case(
+                dev, re, im, nd, pgr))
+        del re, im
+    return errs
+
+
+def long_split_case(dev, re, im, nd: int, pgr: int) -> float:
+    """The split entry on the sp 2 and 4 shards of (re, im), their
+    neighbours' rows as halos, against the whole-frame launch (det,
+    magnitudes, row maxima bit-equal, counts summing) and the twin's
+    decision on the whole frame's magnitudes.  Returns the largest
+    absolute magnitude error against the twin."""
+    import torch
+    from fmcw_tpu_torch.ops import frontend as F
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    nr = re.shape[1]
+    h = long_params(nd).cfar.halo_range + pgr
+    pmag = F.slowtime_mag_plain(re, im, False)
+    peak = float(pmag.abs().max())
+    worst = 0.0
+    for variant in ("os", "ca"):
+        p = long_params(nd, variant)
+        kw = dict(cfar=p.cfar, peak_group_radius=pgr, emit_mag=True)
+        det, mag, rmax, ndet, nf = F.slowtime_detect(re, im, False, 0, **kw)
+        for sp in SPLIT_SPS:
+            nrl = nr // sp
+            same, total, total_nf = True, 0, 0
+            for s in range(sp):
+                rows = slice(s * nrl, (s + 1) * nrl)
+                ext = torch.arange(s * nrl - h, (s + 1) * nrl + h,
+                                   device=dev) % nr
+                lo, hi = ext[:h], ext[h + nrl:]
+                d_s, m_s, r_s, n_s, f_s = SF.slowtime_detect_split(
+                    re[:, rows], im[:, rows], (re[:, lo], im[:, lo]),
+                    (re[:, hi], im[:, hi]), False, 0, s * nrl,
+                    n_range_total=nr, **kw)
+                d2, r2, n2 = SF.detect_halo_plain(mag[:, ext], p.cfar, 0,
+                                                  pgr, s * nrl, nr)
+                torch.cuda.synchronize()
+                worst = max(worst, float((m_s - pmag[:, rows]).abs().max()))
+                same &= (bits_equal(d_s, det[:, rows])
+                         and bits_equal(m_s, mag[:, rows])
+                         and bits_equal(r_s, rmax[:, rows])
+                         and bits_equal(d_s, d2) and bits_equal(r_s, r2)
+                         and torch.equal(n_s, n2))
+                total = total + n_s
+                total_nf = total_nf + f_s
+            same &= (torch.equal(total, ndet) and torch.equal(total_nf, nf)
+                     and worst <= TOL * peak)
+            log(f"split long {variant} {nr}x{nd} sp={sp}: shards "
+                f"{'bit-equal' if same else 'DIFFER'} to the whole-frame "
+                f"entry and its twin ({int(ndet.sum())} detections)")
+            if not same:
+                raise AssertionError(f"slowtime_detect_split {variant} at "
+                                     f"{nd} sp={sp} differs")
+    return worst
+
+
+def long_main_path(card: str, dev, pgr: int):
+    """Phase 32b: BASELINE config 2 (1024x256) at batch 128 of bench.py's
+    stimulus through make_batch_processor(include_maps=False): the entry
+    config (per-cell), fast() (block) and GO per-cell.  Float "auto" is now
+    the fused route; the kernels it launches; frame 0 through the margin
+    gate against the plain route's exact taps; frames/s and samples/s beside
+    the staged route (the route long CPIs took before), timed in the same
+    run.  Returns ({row: launches}, summary)."""
+    import torch
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    launches, summary = {}, {}
+    for name, p in (("cell", long_params(LONG_ND)),
+                    ("block", long_params(LONG_ND, scale_mode="block")),
+                    ("go", long_params(LONG_ND, "go"))):
+        proc = pl.make_batch_processor(p, peak_group_radius=pgr,
+                                       include_maps=False, device=dev)
+        if proc.route != "fused":
+            raise AssertionError(f"long CPI auto is {proc.route}, not fused")
+        batch = torch.as_tensor(make_batch(p, BATCH), device=dev)
+        kernels.reset_launch_counts()
+        out = proc(batch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        log(f"long main path {name}: launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+        if counts["range_fft"] < 1 or counts["slowtime_detect"] < 1:
+            raise AssertionError(f"long main path {name} skipped a kernel")
+        launches[name] = counts["slowtime_detect"]
+        launches["range_fft"] = launches.get("range_fft", 0) + \
+            counts["range_fft"]
+        if not bool(torch.isfinite(out["mag"]).all()) or int(
+                out["nonfinite_count"].sum()) != 0:
+            raise AssertionError("non-finite magnitudes")
+        ref = pl.make_processor(p, peak_group_radius=pgr, frontend="plain",
+                                include_debug=True, cfar_rank_bits=None,
+                                device=dev)(batch[0])
+        ok, report = parity.margin_gate(
+            parity.detection_set(out, 0), parity.detection_set(ref),
+            ref["mag_map"].cpu().numpy(), ref["threshold_map"].cpu().numpy(),
+            ref["scale_map"].cpu().numpy(), radius=pgr,
+            capacity=p.tracker.max_dets,
+            targets=reference.golden_targets(p))
+        log(f"long main path {name} frame 0 vs plain path: {report}")
+        if not ok:
+            raise AssertionError(f"long main path {name}: margin gate failed")
+        del ref, out
+        staged = pl.make_batch_processor(p, frontend="staged",
+                                         peak_group_radius=pgr,
+                                         include_maps=False, device=dev)
+        fps = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 10)
+        fps_staged = BATCH * 1e3 / cuda_ms(lambda: staged(batch), 3)
+        cells = p.n_range * p.n_doppler
+        summary[name] = {"frames_per_s": fps, "samples_per_s": fps * cells,
+                         "staged_frames_per_s": fps_staged,
+                         "staged_samples_per_s": fps_staged * cells}
+        log(f"long main path {name} {LONG_NR}x{LONG_ND}: {fps:.1f} frames/s "
+            f"= {fps * cells:.4g} samples/s (fused), staged route "
+            f"{fps_staged:.1f} frames/s = {fps_staged * cells:.4g} samples/s "
+            f"at batch {BATCH} ({card})")
+    return launches, summary
+
+
+def long_other_routes(card: str, dev, pgr: int):
+    """Phase 32c: at 1024x256 and batch 16 the float debug taps on the
+    fused route (kernel A, kernel B's magnitude-only entry, the rank-select
+    CFAR's grouping entry) and float "auto" under reflect edges (the
+    magnitude-only entry, the standalone CFAR's reflect entry), frame 0
+    through the margin gate against the plain route's; the hw-compat float
+    route (the magnitude-only entry, the flat-stream entry), its det maps
+    bit for bit the twin's on its magnitudes; the array model (8 elements x
+    8 beams, 16 cubes) at
+    ref_angle 0 (kernel B's detect entry per beam, cross-beam grouping) and
+    1 (the magnitude-only entry, the 3D CFAR), cube 0 through the array
+    gate against the plain route.  Returns {kernel: launches} of one path:
+    the magnitude-only entry's in the debug taps' run."""
+    import torch
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C
+    launches = {}
+    p = long_params(LONG_ND)
+    batch = torch.as_tensor(make_batch(p, ARRAY_BATCH, seed=4), device=dev)
+    kw = dict(peak_group_radius=pgr, include_debug=True)
+    proc = pl.make_batch_processor(p, device=dev, **kw)
+    kernels.reset_launch_counts()
+    out = proc(batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"long debug taps: route {proc.route}, launches "
+        + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+    if proc.route != "fused" or min(counts["range_fft"],
+                                    counts["slowtime_mag"],
+                                    counts["cfar_rank_group"]) < 1:
+        raise AssertionError("long debug taps skipped a kernel")
+    launches["slowtime_mag"] = counts["slowtime_mag"]
+    ref = pl.make_processor(p, frontend="plain", device=dev, **kw)(batch[0])
+    ok, report = parity.margin_gate(
+        parity.detection_set(out, 0), parity.detection_set(ref),
+        ref["mag_map"].cpu().numpy(), ref["threshold_map"].cpu().numpy(),
+        ref["scale_map"].cpu().numpy(), radius=pgr,
+        capacity=p.tracker.max_dets, targets=reference.golden_targets(p))
+    log(f"long debug taps frame 0 vs plain path: {report}")
+    if not ok:
+        raise AssertionError("long debug taps: margin gate failed")
+    del out, ref
+    # Reflect edges (the magnitude-only entry, then the standalone CFAR's
+    # reflect entry and the plain grouping) through the margin gate, and
+    # the hw-compat float route (the magnitude-only entry, then the
+    # flat-stream entry) bit for bit against the twin on its magnitudes.
+    r = p.replace(cfar=dataclasses.replace(p.cfar, edge_mode="reflect"))
+    proc = pl.make_batch_processor(r, peak_group_radius=pgr, device=dev)
+    kernels.reset_launch_counts()
+    out = proc(batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if proc.route != "fused" or min(counts["slowtime_mag"],
+                                    counts["cfar_detect"]) < 1:
+        raise AssertionError("long reflect route skipped a kernel")
+    ref = pl.make_processor(r, frontend="plain", device=dev, **kw)(batch[0])
+    ok, report = parity.margin_gate(
+        parity.detection_set(out, 0), parity.detection_set(ref),
+        ref["mag_map"].cpu().numpy(), ref["threshold_map"].cpu().numpy(),
+        ref["scale_map"].cpu().numpy(), radius=pgr,
+        capacity=p.tracker.max_dets, targets=reference.golden_targets(p))
+    log(f"long reflect auto: launches "
+        + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+        + f"; frame 0 vs plain path: {report}")
+    if not ok:
+        raise AssertionError("long reflect: margin gate failed")
+    del out, ref
+    proc = pl.make_batch_processor(p, cfar_geometry="hw_stream", device=dev)
+    kernels.reset_launch_counts()
+    out = proc(batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    det, _, _ = C.cfar_2d_hw_stream(out["mag_map"], cfar=p.cfar,
+                                    integer=False)
+    same = bits_equal(det, out["det_map"])
+    log(f"long hw_stream float fused: launches "
+        + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+        + f"; det maps {'bit-identical' if same else 'DIFFER'} to the twin "
+        f"on the route's magnitudes ({int((det != 0).sum())} detections)")
+    if (proc.route != "fused" or not same
+            or min(counts["slowtime_mag"], counts["cfar_detect_hw_stream"])
+            < 1):
+        raise AssertionError("long hw_stream route failed its check")
+    del out, det
+    beam = matched_beam()
+    cubes = torch.as_tensor(make_cubes(p, ARRAY_BATCH), device=dev)
+    for name, akw, need in (
+            ("percell/grouped", dict(peak_group_radius=2, beam_group_radius=1),
+             ("range_fft_float", "slowtime_detect", "beam_group")),
+            ("ref_angle1", dict(ref_angle=1, guard_angle=0),
+             ("range_fft_float", "slowtime_mag", "cfar3d_detect"))):
+        aproc = pl.make_batch_array_processor(
+            p, n_elems=N_ELEMS, n_beams=N_BEAMS, include_maps=False,
+            device=dev, **akw)
+        kernels.reset_launch_counts()
+        out = aproc(cubes)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        log(f"long array {name}: route {aproc.route}, launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+        if aproc.route != "fused" or any(counts[k] < 1 for k in need):
+            raise AssertionError(f"long array {name} skipped a kernel")
+        if not bool((out["beam_bin"][:, 0] == beam).all()) or int(
+                out["nonfinite_count"].sum()) != 0:
+            raise AssertionError(f"long array {name}: strongest detection "
+                                 f"off beam {beam} or non-finite cells")
+        ref = pl.make_array_processor(p, n_elems=N_ELEMS, n_beams=N_BEAMS,
+                                      frontend="plain", device=dev,
+                                      **akw)(cubes[0])
+        M = ref["mag_cube"]
+        _, T, S = C.cfar_3d(M, 0, p.cfar, akw.get("ref_angle", 0),
+                            akw.get("guard_angle", 0), need_debug=True)
+        ok, report = parity.array_gate(
+            parity.array_set(out, 0), parity.array_set(ref),
+            M.cpu().numpy(), T.cpu().numpy(), S.cpu().numpy(),
+            radius=akw.get("peak_group_radius", 0),
+            beam_radius=akw.get("beam_group_radius", 0),
+            targets=reference.golden_targets(p), target_beam=beam,
+            capacity=p.tracker.max_dets)
+        del T, S, M, ref, out
+        log(f"long array {name} cube 0 vs plain path: {report} ({card})")
+        if not ok:
+            raise AssertionError(f"long array {name}: array gate failed")
+    return launches
+
+
+def long_local_mesh(card: str, dev, pgr: int):
+    """Phase 32d: make_sharded_processor on a LocalMesh at sp 2 and 4 at
+    1024x256 (batch 16): per-cell (kernel B's split entry), block (the
+    magnitude-only entry, the sharded block tail) and the debug taps, every
+    output bit-equal to the single card's.  Returns {kernel: launches} of
+    one path: the split entry's in the per-cell run at sp 4."""
+    import torch
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
+    launches = {}
+    for name, p, kw, need in (
+            ("cell", long_params(LONG_ND), {}, "slowtime_detect_split"),
+            ("block", long_params(LONG_ND, scale_mode="block"), {},
+             "slowtime_mag"),
+            ("debug", long_params(LONG_ND), dict(include_debug=True),
+             "slowtime_mag")):
+        batch = torch.as_tensor(make_batch(p, ARRAY_BATCH, seed=7),
+                                device=dev)
+        kw = dict(peak_group_radius=pgr, include_maps=True, **kw)
+        ref = pl.make_batch_processor(p, device=dev, **kw)(batch)
+        for sp in SPLIT_SPS:
+            proc = SH.make_sharded_processor(M.LocalMesh(1, sp, dev), p, **kw)
+            kernels.reset_launch_counts()
+            out = proc(batch)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            diff = [k for k in ref if not torch.equal(out[k], ref[k])]
+            log(f"long LocalMesh {name} sp={sp}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+                + f"; {'all outputs bit-equal' if not diff else diff} to "
+                f"the single card")
+            if diff or out.keys() != ref.keys() or counts[need] < 1:
+                raise AssertionError(f"long LocalMesh {name} sp={sp} "
+                                     f"differs or skipped {need}")
+            if name == "cell" and sp == SPLIT_SPS[-1]:
+                launches[need] = counts[need]
+    return launches
+
+
+def long_timings(card: str, dev, pgr: int, errs, launches):
+    """Phase 32e: graph-replay times of the long-CPI entries at 1024x256,
+    batch 128 (the kernels line) and 1024x2048, batch 16 (the summary),
+    each beside its bound (bound_slowtime, bound_slowtime_mag,
+    bound_slowtime_split: the function's least work, an nd-point FFT per
+    row, whatever transform the kernel runs), its plain twin and
+    torch.fft.fft of its complex planes (the summary).  Returns (rows,
+    summary)."""
+    import torch
+    from fmcw_tpu_torch.ops import frontend as F
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    rows, summary = [], {}
+    for nd, batch in ((LONG_ND, BATCH), (2048, 16)):
+        iq = torch.as_tensor(make_batch(long_params(nd), batch, seed=33),
+                             device=dev)
+        re, im = F.range_fft(iq)
+        del iq
+        z = torch.complex(re, im)
+        fft = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        entries = []
+        for name, p in (("cell", long_params(nd)),
+                        ("block", long_params(nd, scale_mode="block")),
+                        ("go", long_params(nd, "go"))):
+            kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+            entries.append((
+                f"slowtime_detect[long,{name}]",
+                lambda kw=kw: F.slowtime_detect(re, im, False, 0, **kw),
+                lambda kw=kw: F.slowtime_detect_plain(re, im, False, 0,
+                                                      **kw),
+                bound_slowtime(batch, LONG_NR, nd, p.cfar),
+                launches.get(name, 0), errs["detect"],
+                "fmcw_tpu/ops/frontend_pallas.py:719"))
+        entries.append((
+            "slowtime_mag[long]", lambda: F.slowtime_mag(re, im),
+            lambda: F.slowtime_mag_plain(re, im, False),
+            bound_slowtime_mag(batch, LONG_NR, nd),
+            launches.get("slowtime_mag", 0), errs["mag"],
+            "fmcw_tpu/ops/frontend_pallas.py:633"))
+        cfar = long_params(nd).cfar
+        sp, s = 4, 1
+        nrl, h = LONG_NR // sp, cfar.halo_range + pgr
+        ext = torch.arange(s * nrl - h, (s + 1) * nrl + h, device=dev) % LONG_NR
+        lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+        args = (re[:, core].contiguous(), im[:, core].contiguous(),
+                (re[:, lo].contiguous(), im[:, lo].contiguous()),
+                (re[:, hi].contiguous(), im[:, hi].contiguous()), False, 0,
+                s * nrl)
+        skw = dict(cfar=cfar, n_range_total=LONG_NR, peak_group_radius=pgr)
+        z = torch.complex(re[:, ext], im[:, ext])
+        fft_shard = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        entries.append((
+            "slowtime_detect_split[long]",
+            lambda: SF.slowtime_detect_split(*args, **skw),
+            lambda: SF.slowtime_detect_split_plain(*args, **skw),
+            bound_slowtime_split(batch, nrl, nd, h, cfar),
+            launches.get("slowtime_detect_split", 0), errs["split"],
+            "fmcw_tpu/ops/split_frontend.py:518"))
+        for name, call, plain, (bound, by), n, err, line in entries:
+            ms = graph_ms(call)
+            plain_ms = cuda_ms(plain, 2, 1)
+            lib = fft_shard if "split" in name else fft
+            log(f"{name} {LONG_NR}x{nd} batch {batch}: {ms:.4f} ms (graph), "
+                f"plain {plain_ms:.4f} ms, torch.fft.fft of its planes "
+                f"{lib:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
+            summary[f"{name}@{nd}x{batch}"] = {
+                "ms": ms, "plain_ms": plain_ms, "fft_ms": lib,
+                "bound_ms": bound, "bound_by": by}
+            if nd == LONG_ND:
+                # No PyTorch call computes an entry: torch.fft.fft is only
+                # its transform's share (the summary's fft_ms).
+                rows.append(dict(name=name, route="cuda", source=LONG_SRC,
+                                 replaces=line, launches=n, max_abs_err=err,
+                                 ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=by, library_ms=None))
+        del re, im, args
+    return rows, summary
+
+
+def long_cpi_phase(card: str, dev, pgr: int):
+    """Phase 32: kernel B's long-CPI split (32a-e above).  Returns (kernel
+    rows, summary)."""
+    import torch
+    t0 = time.perf_counter()
+    errs = long_kernel_checks(dev, pgr)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    launches, summary = long_main_path(card, dev, pgr)
+    t2 = time.perf_counter()
+    launches.update(long_other_routes(card, dev, pgr))
+    t3 = time.perf_counter()
+    launches.update(long_local_mesh(card, dev, pgr))
+    t4 = time.perf_counter()
+    rows, timings = long_timings(card, dev, pgr, errs, launches)
+    log(f"long-CPI phase: 32a {t1 - t0:.1f} s, 32b {t2 - t1:.1f} s, 32c "
+        f"{t3 - t2:.1f} s, 32d {t4 - t3:.1f} s, 32e "
+        f"{time.perf_counter() - t4:.1f} s")
+    return rows, {"main_path": summary, "timings": timings,
+                  "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6019,7 +6527,13 @@ def main() -> int:
     cfar3d_reflect_rows, cfar3d_reflect_summary = cfar3d_reflect_phase(
         card, dev, pgr)
 
-    # 32. The kernels line.
+    # 32. Long CPIs: kernel B's split transform and decide kernel against
+    #     the twins, the main path at 1024x256, the other routes, a
+    #     LocalMesh, timings.
+    log(f"phases 1-31: {time.perf_counter() - t_start:.1f} s")
+    long_rows, long_summary = long_cpi_phase(card, dev, pgr)
+
+    # The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
                  source="fmcw_tpu_torch/csrc/range_fft.cu",
@@ -6033,7 +6547,7 @@ def main() -> int:
                          **results[f"slowtime_detect[{mode}]"]))
     rows += (fixed_rows + array_rows + split_rows + rank_rows + entry_rows
              + hw_rows + variant_rows + reflect_rows + rank_reflect_rows
-             + cfar3d_reflect_rows)
+             + cfar3d_reflect_rows + long_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
@@ -6054,6 +6568,7 @@ def main() -> int:
                     "reflect": reflect_summary,
                     "rank_reflect": rank_reflect_summary,
                     "cfar3d_reflect": cfar3d_reflect_summary,
+                    "long_cpi": long_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

@@ -603,33 +603,38 @@ __device__ __forceinline__ unsigned strip_decide_mean(
 // float maps, or IntInFloat): the CA/GO/SO epilogue of ``variant``
 // (strip_decide_mean<Sem>), with cs_full the full column sums of
 // tile_colsums<float, false> where mean_needs_sums.  At most 64 / kStrip
-// units a thread (the decisions are held as bits across a barrier).  All
-// threads of the block call it.
+// units a thread (the decisions are held as bits across a barrier).  n_cols
+// > 0 decides columns d0 .. d0 + n_cols - 1 only (a tile that is a column
+// window of its map, every decided cell's window inside it: kernel B's
+// long-CPI chunks); 0, every column.  All threads of the block call it.
 template <typename V, typename Sem = MapSem<V>, bool kMean = false>
 __device__ void decide_tile(const V* mag_s, V* det_s, int e_first, int rows,
                             int D, const V* cs_full, const V* cs_guard,
                             const int* bscale, int sb, int so,
-                            const CfarGeom& g, int variant = 0) {
-    const int units = strip_units(rows, D);
+                            const CfarGeom& g, int variant = 0, int d0 = 0,
+                            int n_cols = 0) {
+    const int nc = n_cols > 0 ? n_cols : D;
+    const int units = strip_units(rows, nc);
     uint64_t bits = 0;
     int sh = 0;
     for (int u = threadIdx.x; u < units; u += blockDim.x, sh += kStrip) {
-        const int i0 = strip_row0(u, rows, D);
+        const int i0 = strip_row0(u, rows, nc);
         unsigned b;
         if constexpr (kMean)
             b = strip_decide_mean<Sem>(mag_s, cs_full, D, e_first + i0,
-                                       i0, u % D, bscale, sb, so, variant,
-                                       g);
+                                       i0, d0 + u % nc, bscale, sb, so,
+                                       variant, g);
         else
-            b = strip_decide<V, Sem>(mag_s, D, e_first + i0, i0, u % D,
-                                     cs_full, cs_guard, bscale, sb, so, g);
+            b = strip_decide<V, Sem>(mag_s, D, e_first + i0, i0,
+                                     d0 + u % nc, cs_full, cs_guard, bscale,
+                                     sb, so, g);
         bits |= (uint64_t)b << sh;
     }
     __syncthreads();
     sh = 0;
     for (int u = threadIdx.x; u < units; u += blockDim.x, sh += kStrip) {
-        const int d = u % D;
-        const int i0 = strip_row0(u, rows, D);
+        const int d = d0 + u % nc;
+        const int i0 = strip_row0(u, rows, nc);
 #pragma unroll
         for (int s = 0; s < kStrip; ++s)
             det_s[(i0 + s) * D + d] = ((bits >> (sh + s)) & 1)

@@ -34,6 +34,9 @@ struct SlowtimeConfig {
     // The CFAR variant: 0 OS (counting), 1 CA, 2 GO, 3 SO (cfar_tile.cuh's
     // window means), in both kernels.
     int variant;
+    // Long CPIs (kernel B at ND = n2d x 128): the decision's column chunk
+    // W and its column halo HC (slowtime_detect.cu's decide kernel).
+    int W, HC;
 };
 
 namespace fmcw {

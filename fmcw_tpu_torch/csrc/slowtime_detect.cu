@@ -64,6 +64,29 @@
 // slow-time chain of each row, written out with the non-finite count, for
 // the array model's angle-extended CFAR (cfar_3d_detect.cu), whose training
 // set spans beams.  Bound: bytes.
+//
+// Long CPIs (n_doppler ND = n2d x 128, 2 <= n2d <= 16): the long-CPI
+// Doppler split of the TPU kernel (frontend_pallas.py _ct_split_rows and
+// the n2d > 1 branches of _kernel, :633-654 and :719-773, and of
+// split_frontend.py _kernel_slowtime, :518-570).  A row's chain
+// (long_row) is the split: chirp s = 128 j2 + j1; the pulse canceller and
+// the window over the whole row first, into the warp's shared buffers
+// (the history crossing block edges by shuffles); then for each k2d the
+// outer DFT_n2d over the blocks (direct sums), the twiddle W_ND^(j1 k2d)
+// and the 128-point lane transform of the short rows (lane_fft<128>),
+// whose bin q is Doppler bin n2d q + k2d, stored in natural order (the
+// TPU's parity planes are its layout, not the map's).  A tile of whole
+// rows no longer fits a block (at ND = 2048 one row is 8 KB of
+// magnitudes), so every entry runs two launches there: the magnitude-only
+// kernel at long CPIs (slowtime_mag_long_kernel) writes the map, then the
+// decide kernel (slowtime_decide_kernel) reads it in tiles of T rows x a
+// chunk of W columns, with H halo rows and HC halo columns that wrap on
+// both axes (or, in the split entry, the rows of the halo-extended slab),
+// and runs the same cfar_tile.cuh / cfar_common.cuh decision on them:
+// the decisions are the plain twin's bit for bit on the same magnitudes.
+// Row maxima combine across chunks by atomicMax on the float bits (det is
+// never negative or NaN).  The extra map write and read (8 B a cell) is
+// the cost of the design; the TPU kernel keeps the frame in VMEM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,7 +104,17 @@ constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMagWarps = 8;            // magnitude-only kernel
 constexpr int kMagRowsPerWarp = 4;
+constexpr int kDecideThreads = 256;     // long-CPI decide kernel
+constexpr int kLongWarps = 4;           // long-CPI magnitude kernel
+constexpr int kLongBlocks = 8192;       // its grid (rows striding)
+constexpr int kInner = 128;             // a long row's inner transform
+constexpr int kMaxSplit = 16;           // n2d, as JAX's split
 constexpr unsigned kFull = 0xffffffffu;
+
+// ND = n2d x 128, 2 <= n2d <= 16: the long-CPI split.
+inline bool long_cpi(int nd) {
+    return nd > kInner && nd % kInner == 0 && nd / kInner <= kMaxSplit;
+}
 
 struct Params {
     const float* xr;
@@ -161,6 +194,63 @@ __device__ __forceinline__ void load_points(const float* row, int l,
     }
 }
 
+// The transform of a windowed row held P values a lane (chirp s = l P + p)
+// and its magnitude: calls sink(k, magnitude) for the lane's P Doppler
+// bins k = k1 + L k2, k1 = bit_reverse(l).
+template <int ND, typename Sink>
+__device__ __forceinline__ void lane_fft(float (&xr)[Row<ND>::P],
+                                         float (&xi)[Row<ND>::P],
+                                         const LaneTables<ND>& t, int l,
+                                         bool exact, Sink sink) {
+    using R = Row<ND>;
+    constexpr int P = R::P, L = R::L;
+    // L-point DIF across the lanes, one transform per p: the lower lane of
+    // each pair takes a + b, the upper (b - a) W; lane l ends with bin
+    // bit_reverse(l).
+#pragma unroll
+    for (int st = 0; st < R::kLog2L; ++st) {
+        const int h = L >> (st + 1);
+        const bool upper = (l & h) != 0;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            const float br = __shfl_xor_sync(kFull, xr[p], h, L);
+            const float bi = __shfl_xor_sync(kFull, xi[p], h, L);
+            if (upper) {
+                xr[p] = __fsub_rn(br, xr[p]);
+                xi[p] = __fsub_rn(bi, xi[p]);
+                cmul(xr[p], xi[p], t.stw[st]);
+            } else {
+                xr[p] = __fadd_rn(xr[p], br);
+                xi[p] = __fadd_rn(xi[p], bi);
+            }
+        }
+    }
+    // X[k1 + L k2] = sum_p Y_p[k1] W_ND^(p k1) W_P^(p k2).
+#pragma unroll
+    for (int p = 1; p < P; ++p) cmul(xr[p], xi[p], t.ptw[p]);
+    const int k1 = (int)(__brev((unsigned)l) >> (32 - R::kLog2L));
+    if constexpr (P == 1) {
+        sink(k1, magnitude(xr[0], xi[0], exact));
+    } else if constexpr (P == 2) {
+        sink(k1, magnitude(__fadd_rn(xr[0], xr[1]), __fadd_rn(xi[0], xi[1]),
+                           exact));
+        sink(k1 + L, magnitude(__fsub_rn(xr[0], xr[1]),
+                               __fsub_rn(xi[0], xi[1]), exact));
+    } else {
+        const float s0r = __fadd_rn(xr[0], xr[2]), s0i = __fadd_rn(xi[0], xi[2]);
+        const float d0r = __fsub_rn(xr[0], xr[2]), d0i = __fsub_rn(xi[0], xi[2]);
+        const float s1r = __fadd_rn(xr[1], xr[3]), s1i = __fadd_rn(xi[1], xi[3]);
+        const float d1r = __fsub_rn(xr[1], xr[3]), d1i = __fsub_rn(xi[1], xi[3]);
+        sink(k1, magnitude(__fadd_rn(s0r, s1r), __fadd_rn(s0i, s1i), exact));
+        sink(k1 + L, magnitude(__fadd_rn(d0r, d1i), __fsub_rn(d0i, d1r),
+                               exact));
+        sink(k1 + 2 * L, magnitude(__fsub_rn(s0r, s1r), __fsub_rn(s0i, s1i),
+                                   exact));
+        sink(k1 + 3 * L, magnitude(__fsub_rn(d0r, d1i), __fadd_rn(d0i, d1r),
+                                   exact));
+    }
+}
+
 // The slow-time chain of the row (rr, ri) on the L lanes l = 0 .. L-1 of a
 // lane group (all 32 lanes of the warp call it together): lane l holds
 // chirps s = l P + p.  Calls sink(k, magnitude) for its P Doppler bins k =
@@ -218,52 +308,135 @@ __device__ __forceinline__ void slowtime_row(const float* rr, const float* ri,
         xr[p] = __fmul_rn(xr[p], t.w[p]);
         xi[p] = __fmul_rn(xi[p], t.w[p]);
     }
-    // L-point DIF across the lanes, one transform per p: the lower lane of
-    // each pair takes a + b, the upper (b - a) W; lane l ends with bin
-    // bit_reverse(l).
+    lane_fft<ND>(xr, xi, t, l, c.exact_mag != 0, sink);
+}
+
+// ---------------------------------------------------------------------------
+// The slow-time chain of a long row (ND = n2d x 128)
+// ---------------------------------------------------------------------------
+
+// A long row's lane constants for its 128-point inner transforms, read from
+// the ND-point table tw[m] = exp(-2 pi i m / ND): the stage twiddles W_2h^j
+// = tw[j (128 / 2h) n2d] and W_128^(p k1) = tw[p k1 n2d].  The window runs
+// over the whole row first (long_row), so w is unused.
+__device__ __forceinline__ LaneTables<kInner> long_lane_tables(
+        const float2* tw, int l, int n2d) {
+    using R = Row<kInner>;
+    LaneTables<kInner> t;
 #pragma unroll
     for (int st = 0; st < R::kLog2L; ++st) {
-        const int h = L >> (st + 1);
-        const bool upper = (l & h) != 0;
+        const int h = R::L >> (st + 1);
+        t.stw[st] = tw[(l & (h - 1)) * (kInner / (2 * h)) * n2d];
+    }
+    const int k1 = (int)(__brev((unsigned)l) >> (32 - R::kLog2L));
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-            const float br = __shfl_xor_sync(kFull, xr[p], h, L);
-            const float bi = __shfl_xor_sync(kFull, xi[p], h, L);
-            if (upper) {
-                xr[p] = __fsub_rn(br, xr[p]);
-                xi[p] = __fsub_rn(bi, xi[p]);
-                cmul(xr[p], xi[p], t.stw[st]);
-            } else {
-                xr[p] = __fadd_rn(xr[p], br);
-                xi[p] = __fadd_rn(xi[p], bi);
+    for (int p = 0; p < R::P; ++p) {
+        t.ptw[p] = tw[p * k1 * n2d];
+        t.w[p] = 1.f;
+    }
+    return t;
+}
+
+// acc += z w in the order (z.re w.re - z.im w.im) as two fmas each.
+__device__ __forceinline__ void cmac(float& ar, float& ai, float zr, float zi,
+                                     float2 w) {
+    ar = __fmaf_rn(zr, w.x, __fmaf_rn(-zi, w.y, ar));
+    ai = __fmaf_rn(zr, w.y, __fmaf_rn(zi, w.x, ai));
+}
+
+// The slow-time chain and magnitude of a long row (rr, ri) on the 32 lanes
+// of a warp, JAX's long-CPI split (chirp s = 128 j2 + j1):
+//   1. the pulse canceller and the window over the whole row into the
+//      warp's buffers zr / zi (ND floats each): lane l takes chirps s =
+//      128 i + 4 l + q, the history before its first chirp from the lane
+//      below, and lane 0's from lane 31 of the block before;
+//   2. for k2d = 0 .. n2d-1: lane l's points j1 = 4 l + p of the outer
+//      DFT_n2d over the blocks, sum_j2 z[128 j2 + j1] W_n2d^(j2 k2d)
+//      (j2 ascending, W_n2d^m = tw[128 m]), the twiddle W_ND^(j1 k2d), and
+//      the 128-point lane transform (lane_fft<128>), whose bin q is the
+//      row's Doppler bin n2d q + k2d: its magnitude goes to out[n2d q +
+//      k2d], natural order.
+// Every float operation an _rn intrinsic (slowtime_row's), so a row is the
+// same instruction sequence in every entry.  All 32 lanes call it.
+__device__ __forceinline__ void long_row(
+        const float* rr, const float* ri, const float* win, const float2* tw,
+        const LaneTables<kInner>& t, int l, const SlowtimeConfig& c,
+        float* zr, float* zi, float* out) {
+    const int n2d = c.ND / kInner;
+    float h1r = 0.f, h1i = 0.f, h2r = 0.f, h2i = 0.f;
+    for (int i = 0; i < n2d; ++i) {
+        const int s0 = i * kInner + 4 * l;
+        float xr[4], xi[4], w[4];
+        load_points<4>(rr + i * kInner, l, xr);
+        load_points<4>(ri + i * kInner, l, xi);
+        load_points<4>(win + i * kInner, l, w);
+        if (!c.bypass) {
+            float p1r = __shfl_up_sync(kFull, xr[3], 1);
+            float p1i = __shfl_up_sync(kFull, xi[3], 1);
+            float p2r = __shfl_up_sync(kFull, xr[2], 1);
+            float p2i = __shfl_up_sync(kFull, xi[2], 1);
+            if (l == 0) {
+                p1r = h1r; p1i = h1i; p2r = h2r; p2i = h2i;
+            }
+            h1r = __shfl_sync(kFull, xr[3], 31);
+            h1i = __shfl_sync(kFull, xi[3], 31);
+            h2r = __shfl_sync(kFull, xr[2], 31);
+            h2i = __shfl_sync(kFull, xi[2], 31);
+#pragma unroll
+            for (int q = 3; q >= 0; --q) {
+                const int i1 = q >= 1 ? q - 1 : 0, i2 = q >= 2 ? q - 2 : 0;
+                const float a1r = q >= 1 ? xr[i1] : p1r;
+                const float a1i = q >= 1 ? xi[i1] : p1i;
+                const float a2r = q >= 2 ? xr[i2] : (q == 1 ? p1r : p2r);
+                const float a2i = q >= 2 ? xi[i2] : (q == 1 ? p1i : p2i);
+                float yr, yi;
+                if (c.notch_mode == 2) {
+                    yr = __fsub_rn(xr[q], a1r);
+                    yi = __fsub_rn(xi[q], a1i);
+                } else {
+                    yr = __fadd_rn(__fmaf_rn(-2.f, a1r, xr[q]), a2r);
+                    yi = __fadd_rn(__fmaf_rn(-2.f, a1i, xi[q]), a2i);
+                }
+                if (c.transient_zero && s0 + q < c.notch_mode - 1)
+                    yr = yi = 0.f;
+                xr[q] = yr;
+                xi[q] = yi;
             }
         }
+        *reinterpret_cast<float4*>(zr + s0) = make_float4(
+            __fmul_rn(xr[0], w[0]), __fmul_rn(xr[1], w[1]),
+            __fmul_rn(xr[2], w[2]), __fmul_rn(xr[3], w[3]));
+        *reinterpret_cast<float4*>(zi + s0) = make_float4(
+            __fmul_rn(xi[0], w[0]), __fmul_rn(xi[1], w[1]),
+            __fmul_rn(xi[2], w[2]), __fmul_rn(xi[3], w[3]));
     }
-    // X[k1 + L k2] = sum_p Y_p[k1] W_ND^(p k1) W_P^(p k2).
-#pragma unroll
-    for (int p = 1; p < P; ++p) cmul(xr[p], xi[p], t.ptw[p]);
-    const int k1 = (int)(__brev((unsigned)l) >> (32 - R::kLog2L));
+    __syncwarp();
     const bool exact = c.exact_mag != 0;
-    if constexpr (P == 1) {
-        sink(k1, magnitude(xr[0], xi[0], exact));
-    } else if constexpr (P == 2) {
-        sink(k1, magnitude(__fadd_rn(xr[0], xr[1]), __fadd_rn(xi[0], xi[1]),
-                           exact));
-        sink(k1 + L, magnitude(__fsub_rn(xr[0], xr[1]),
-                               __fsub_rn(xi[0], xi[1]), exact));
-    } else {
-        const float s0r = __fadd_rn(xr[0], xr[2]), s0i = __fadd_rn(xi[0], xi[2]);
-        const float d0r = __fsub_rn(xr[0], xr[2]), d0i = __fsub_rn(xi[0], xi[2]);
-        const float s1r = __fadd_rn(xr[1], xr[3]), s1i = __fadd_rn(xi[1], xi[3]);
-        const float d1r = __fsub_rn(xr[1], xr[3]), d1i = __fsub_rn(xi[1], xi[3]);
-        sink(k1, magnitude(__fadd_rn(s0r, s1r), __fadd_rn(s0i, s1i), exact));
-        sink(k1 + L, magnitude(__fadd_rn(d0r, d1i), __fsub_rn(d0i, d1r),
-                               exact));
-        sink(k1 + 2 * L, magnitude(__fsub_rn(s0r, s1r), __fsub_rn(s0i, s1i),
-                                   exact));
-        sink(k1 + 3 * L, magnitude(__fsub_rn(d0r, d1i), __fadd_rn(d0i, d1r),
-                                   exact));
+    for (int k2d = 0; k2d < n2d; ++k2d) {
+        float xr[4], xi[4];
+        load_points<4>(zr, l, xr);
+        load_points<4>(zi, l, xi);
+        int m = 0;
+        for (int j2 = 1; j2 < n2d; ++j2) {
+            m += k2d;
+            if (m >= n2d) m -= n2d;
+            const float2 w = tw[m * kInner];
+            float br[4], bi[4];
+            load_points<4>(zr + j2 * kInner, l, br);
+            load_points<4>(zi + j2 * kInner, l, bi);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) cmac(xr[q], xi[q], br[q], bi[q], w);
+        }
+        if (k2d > 0) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                cmul(xr[q], xi[q], tw[(4 * l + q) * k2d]);
+        }
+        lane_fft<kInner>(xr, xi, t, l, exact, [&](int k, float v) {
+            out[k * n2d + k2d] = v;
+        });
     }
+    __syncwarp();
 }
 
 // ---------------------------------------------------------------------------
@@ -421,6 +594,214 @@ slowtime_mag_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// Long CPIs: the map, then the decision in chunks
+// ---------------------------------------------------------------------------
+
+// The magnitude map of a long-CPI batch: warp w of a block takes rows
+// blockIdx.x kLongWarps + w, striding by the grid; each row's chain
+// (long_row) in the warp's 3 ND floats of shared memory, the magnitudes
+// stored row-major (16-byte stores) with the frame's non-finite count.
+// kHalo (the split entry): the map is the shard's halo-extended slab (B, R
+// + 2H, ND), slab row e from FrameRows row e - H; only the shard's own rows
+// are counted.
+template <bool kHalo>
+__global__ void __launch_bounds__(kLongWarps * 32)
+slowtime_mag_long_kernel(const Params p) {
+    extern __shared__ float smem[];
+    const SlowtimeConfig& c = p.c;
+    const int ND = c.ND;
+    const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+    float* zr = smem + warp * 3 * ND;
+    float* zi = zr + ND;
+    float* out = zi + ND;
+    const LaneTables<kInner> tabs = long_lane_tables(p.tw, l, ND / kInner);
+    const int map_rows = kHalo ? c.R + 2 * c.H : c.R;
+    const long long total = (long long)c.batch * map_rows;
+    for (long long row = (long long)blockIdx.x * kLongWarps + warp;
+         row < total; row += (long long)gridDim.x * kLongWarps) {
+        const int b = (int)(row / map_rows), e = (int)(row % map_rows);
+        const float* rr;
+        const float* ri;
+        fmcw::frame_rows<kHalo>(p.xr, p.xi, p.lo_r, p.lo_i, p.hi_r, p.hi_i,
+                                b, c.R, c.H, ND)
+            .row(kHalo ? e - c.H : e, rr, ri);
+        long_row(rr, ri, p.win, p.tw, tabs, l, c, zr, zi, out);
+        float* dst = p.mag + row * ND;
+        int nf = 0;
+        for (int s = 4 * l; s < ND; s += 128) {
+            const float4 v = *reinterpret_cast<const float4*>(out + s);
+            *reinterpret_cast<float4*>(dst + s) = v;
+            nf += !isfinite(v.x) + !isfinite(v.y) + !isfinite(v.z) +
+                  !isfinite(v.w);
+        }
+        nf = __reduce_add_sync(kFull, nf);
+        const bool own = !kHalo || (e >= c.H && e < c.H + c.R);
+        if (l == 0 && nf && own) atomicAdd(&p.nonfinite[b], nf);
+        __syncwarp();
+    }
+}
+
+// The decision tile of a long-CPI map: T + 2H rows of W + 2HC columns, laid
+// out as a short map's tile of that width (fmcw::TileLayout), one count.
+__host__ __device__ inline fmcw::TileLayout chunk_layout(
+        const SlowtimeConfig& c) {
+    SlowtimeConfig t = c;
+    t.ND = c.W + 2 * c.HC;
+    return fmcw::tile_layout(t, 1);
+}
+
+inline bool long_config_ok(const SlowtimeConfig& c) {
+    const int E = c.T + 2 * c.H, WC = c.W + 2 * c.HC;
+    const int rows = c.T + 2 * c.pgr;
+    if (!long_cpi(c.ND) || c.batch < 1 || c.batch > 65535 || c.T < 1 ||
+        c.R % c.T || c.W < 1 || c.ND % c.W || c.pgr < 0 ||
+        c.hr + c.pgr > c.H || c.hd + c.pgr > c.HC || c.hd >= c.ND ||
+        c.pgr >= c.ND || c.row_off < 0 || c.r_total < c.R + c.row_off ||
+        rows < fmcw::kStrip || c.variant < 0 || c.variant > fmcw::kSO ||
+        (c.variant == 0 && c.n_ref > fmcw::kMaxPackedRef<float>) ||
+        (c.notch_mode != 2 && c.notch_mode != 3))
+        return false;
+    if (c.block_mode &&
+        (c.sb < 1 || c.T % c.sb || c.H % c.sb || c.W % c.sb ||
+         c.HC % c.sb || c.ND % c.sb || c.H < 2 * c.sb + c.pgr ||
+         c.HC < 2 * c.sb + c.pgr || (E / c.sb) * (WC / c.sb) > kMaxBlk))
+        return false;
+    return (long long)(c.R / c.T) * (c.ND / c.W) <= 0x7fffffffLL &&
+           (fmcw::strip_units(rows, c.W + 2 * c.pgr) + kDecideThreads - 1) /
+                   kDecideThreads * fmcw::kStrip <= 64 &&
+           (size_t)chunk_layout(c).total * sizeof(float) <=
+               (size_t)kMaxSmem;
+}
+
+// Peak grouping and stores of a chunk's T x W cells (map rows r0 .., map
+// columns c0 ..; tile columns HC ..): det_s (rows x WC) holds the
+// decisions of rows r0 - pgr .. and of tile columns HC - pgr .. HC + W +
+// pgr - 1.  As fmcw::group_store (a strict maximum of the (2 pgr + 1)^2
+// neighbourhood, ties to the lower linear index), with the global ids
+// (row_id modulo r_total) ND + (column modulo ND); row maxima into rmax_s,
+// the detection count into counts[0].
+__device__ __forceinline__ void group_store_chunk(
+        const float* det_s, int T, int W, int WC, int HC, int pgr,
+        int r_total, int ND, int row_id0, int c0, float* det_out,
+        int* rmax_s, int* counts) {
+    int my_dets = 0;
+    for (int idx = threadIdx.x; idx < T * W; idx += blockDim.x) {
+        const int t = idx / W, j = idx % W;
+        const int er = t + pgr, d = HC + j;
+        const float m = det_s[er * WC + d];
+        float out = m;
+        if (pgr > 0 && m > 0.f) {
+            const int id = (row_id0 + t) * ND + c0 + j;
+            for (int dr = -pgr; dr <= pgr && out > 0.f; ++dr) {
+                const int nr = fmcw::wrap_mod(row_id0 + t + dr, r_total);
+                for (int dd = -pgr; dd <= pgr; ++dd) {
+                    if (dr == 0 && dd == 0) continue;
+                    const float v = det_s[(er + dr) * WC + d + dd];
+                    const int nid = nr * ND + fmcw::wrap_mod(c0 + j + dd, ND);
+                    if (v > m || (v == m && nid < id)) {
+                        out = 0.f;
+                        break;
+                    }
+                }
+            }
+        }
+        det_out[(size_t)t * ND + c0 + j] = out;
+        if (out > 0.f) {
+            ++my_dets;
+            atomicMax(&rmax_s[t], __float_as_int(out));
+        }
+    }
+    if (my_dets) atomicAdd(&counts[0], my_dets);
+}
+
+// The decision of a long-CPI map (p.mag, (B, R, ND), or with kHalo the
+// split entry's slab (B, R + 2H, ND)): one block of kDecideThreads per
+// (frame, tile of T rows x chunk of W columns) loads the magnitudes of its
+// T + 2H rows (wrapped modulo R, or the slab's) and W + 2HC columns
+// (wrapped modulo ND), so that the windows, block-scale neighbourhoods and
+// grouping radius of its cells lie in the tile with no column wrap;
+// decides the T + 2 pgr rows and W + 2 pgr columns the grouping reads,
+// with the calls of slowtime_detect_kernel's step 2 on a map of WC
+// columns; groups and stores its T x W cells (group_store_chunk) and adds
+// its row maxima (atomicMax of the float bits: det is never negative or
+// NaN; row_max zeroed by the caller) and detection count.
+template <bool kHalo, bool kMean>
+__global__ void __launch_bounds__(kDecideThreads, 2)
+slowtime_decide_kernel(const Params p) {
+    extern __shared__ float smem[];
+    const SlowtimeConfig& c = p.c;
+    const int ND = c.ND, WC = c.W + 2 * c.HC;
+    const int E = c.T + 2 * c.H;
+    const int rows = c.T + 2 * c.pgr;
+    const fmcw::TileLayout lay = chunk_layout(c);
+    float* mag_s = smem;
+    float* det_s = smem + lay.det;
+    float* cs_guard = smem + lay.cs_guard;
+    float* bsum = smem + lay.blk;
+    float* bnb = bsum + kMaxBlk;
+    int* bhi = reinterpret_cast<int*>(bnb + kMaxBlk);
+    int* blo = bhi + kMaxBlk;
+    int* bscale = blo + kMaxBlk;
+    int* rmax_s = reinterpret_cast<int*>(smem + lay.rmax);
+    int* counts = reinterpret_cast<int*>(smem + lay.counts);
+    const int tid = threadIdx.x;
+    const int b = blockIdx.y;
+    const int n_chunks = ND / c.W;
+    const int r0 = (int)(blockIdx.x / n_chunks) * c.T;
+    const int c0 = (int)(blockIdx.x % n_chunks) * c.W;
+
+    for (int i = tid; i < c.T; i += kDecideThreads) rmax_s[i] = 0;
+    if (tid == 0) counts[0] = 0;
+
+    // ---- 1. The tile's magnitudes.
+    const int map_rows = kHalo ? c.R + 2 * c.H : c.R;
+    const float* map = p.mag + (size_t)b * map_rows * ND;
+    for (int i = tid; i < E * WC; i += kDecideThreads) {
+        const int e = i / WC, j = i - e * WC;
+        const int g = kHalo ? r0 + e : fmcw::wrap_mod(r0 - c.H + e, c.R);
+        mag_s[i] = map[(size_t)g * ND + fmcw::wrap_mod(c0 - c.HC + j, ND)];
+    }
+    __syncthreads();
+
+    // ---- 2. The scale's statistics and the decision, as the short
+    //         kernel's, of decided rows H-pgr .. and tile columns HC-pgr ..
+    const fmcw::CfarGeom g{c.hr, c.hd, c.gr, c.gd, c.n_ref, c.k,
+                           c.scale_min, c.scale_nom, c.scale_max};
+    const int e_first = c.H - c.pgr;
+    const int* scale_blk = nullptr;
+    if (c.block_mode) {
+        if (c.so == 0) {
+            fmcw::block_scale_tile(mag_s, E, WC, c.sb, c.n_blk, c.k_blk, g,
+                                   bsum, bnb, bhi, blo, bscale);
+            scale_blk = bscale;
+        }
+    } else if (!kMean && c.so == 0) {
+        fmcw::tile_colsums(mag_s, WC, e_first, rows, g, det_s, cs_guard);
+        __syncthreads();
+    }
+    if constexpr (kMean) {
+        if (fmcw::mean_needs_sums(c.variant, c.block_mode, c.so)) {
+            fmcw::tile_colsums<float, false>(mag_s, WC, e_first, rows, g,
+                                             det_s, nullptr);
+            __syncthreads();
+        }
+    }
+    fmcw::decide_tile<float, fmcw::MapSem<float>, kMean>(
+        mag_s, det_s, e_first, rows, WC, det_s, cs_guard, scale_blk, c.sb,
+        c.so, g, c.variant, c.HC - c.pgr, c.W + 2 * c.pgr);
+
+    // ---- 3. Grouping, stores, row maxima and the count.
+    group_store_chunk(det_s, c.T, c.W, WC, c.HC, c.pgr, c.r_total, ND,
+                      c.row_off + r0, c0,
+                      p.det + ((size_t)b * c.R + r0) * ND, rmax_s, counts);
+    __syncthreads();
+    int* row_max = reinterpret_cast<int*>(p.row_max) + (size_t)b * c.R + r0;
+    for (int t = tid; t < c.T; t += kDecideThreads)
+        if (rmax_s[t]) atomicMax(row_max + t, rmax_s[t]);
+    if (tid == 0 && counts[0]) atomicAdd(&p.n_dets[b], counts[0]);
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -454,6 +835,42 @@ int launch_mag(const Params& p, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
+template <bool kHalo>
+int launch_mag_long(const Params& p, cudaStream_t stream) {
+    static bool ready[fmcw::kMaxDevices] = {};
+    auto* kernel = slowtime_mag_long_kernel<kHalo>;
+    const cudaError_t err = fmcw::prepare(kernel, ready);
+    if (err != cudaSuccess) return (int)err;
+    const long long rows =
+        (long long)p.c.batch * (p.c.R + (kHalo ? 2 * p.c.H : 0));
+    long long blocks = (rows + kLongWarps - 1) / kLongWarps;
+    if (blocks > kLongBlocks) blocks = kLongBlocks;
+    const size_t smem = (size_t)kLongWarps * 3 * p.c.ND * sizeof(float);
+    kernel<<<(unsigned)blocks, kLongWarps * 32, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+}
+
+template <bool kHalo, bool kMean>
+int launch_decide(const Params& p, cudaStream_t stream) {
+    static bool ready[fmcw::kMaxDevices] = {};
+    auto* kernel = slowtime_decide_kernel<kHalo, kMean>;
+    const cudaError_t err = fmcw::prepare(kernel, ready);
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = (size_t)chunk_layout(p.c).total * sizeof(float);
+    const dim3 grid((p.c.R / p.c.T) * (p.c.ND / p.c.W), p.c.batch);
+    kernel<<<grid, kDecideThreads, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+}
+
+// A long CPI's detection: the map (p.mag), then its decision.
+template <bool kHalo>
+int launch_long(const Params& p, cudaStream_t stream) {
+    const int err = launch_mag_long<kHalo>(p, stream);
+    if (err) return err;
+    return p.c.variant ? launch_decide<kHalo, true>(p, stream)
+                       : launch_decide<kHalo, false>(p, stream);
+}
+
 }  // namespace
 
 // xr/xi: float32 (batch, R, ND), 16-byte aligned; win: float32 (ND,) Doppler
@@ -461,15 +878,19 @@ int launch_mag(const Params& p, cudaStream_t stream) {
 // (batch, R, ND); mag: same or null; row_max: float32 (batch, R);
 // n_dets/nonfinite: int32 (batch,), zeroed by the caller.  cfg's notch_mode
 // (2 or 3), transient_zero and bypass select the pulse canceller, its
-// variant the CFAR (0 OS, 1 CA, 2 GO, 3 SO).  Returns the CUDA error code
-// of the launch (0 on success).
+// variant the CFAR (0 OS, 1 CA, 2 GO, 3 SO).  A long CPI (ND = n2d x 128,
+// n2d 2 .. 16) takes cfg's chunk W and column halo HC, needs mag (the map
+// the decision reads) and row_max zeroed by the caller, and runs two
+// launches.  Returns the CUDA error code of the launches (0 on success).
 extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
                                     const void* win, const void* tw,
                                     void* det, void* mag, void* row_max,
                                     void* n_dets, void* nonfinite,
                                     const SlowtimeConfig* cfg, void* stream) {
     const SlowtimeConfig c = *cfg;
-    if (!detect_config_ok(c) || !win || !tw)
+    const bool lng = long_cpi(c.ND);
+    if (!(lng ? long_config_ok(c) && mag : detect_config_ok(c)) || !win ||
+        !tw)
         return (int)cudaErrorInvalidValue;
     Params p{static_cast<const float*>(xr), static_cast<const float*>(xi),
              nullptr, nullptr, nullptr, nullptr,
@@ -478,6 +899,7 @@ extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
              static_cast<float*>(row_max),   static_cast<int*>(n_dets),
              static_cast<int*>(nonfinite),   c};
     const cudaStream_t s = (cudaStream_t)stream;
+    if (lng) return launch_long<false>(p, s);
     switch (c.ND) {
         case 16: return launch<16, false>(p, s);
         case 32: return launch<32, false>(p, s);
@@ -490,8 +912,9 @@ extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
 // Magnitude only: xr/xi float32 (batch, R, ND), 16-byte aligned; win/tw as
 // fmcw_slowtime_detect; mag float32 (batch, R, ND); nonfinite int32
 // (batch,), zeroed by the caller.  Reads cfg's batch, R, ND, exact_mag,
-// notch_mode, transient_zero and bypass.  Returns the CUDA error code of
-// the launch (0 on success).
+// notch_mode, transient_zero and bypass; ND 16, 32, 64, 128 or n2d x 128
+// (n2d 2 .. 16).  Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int fmcw_slowtime_mag(const void* xr, const void* xi,
                                  const void* win, const void* tw, void* mag,
                                  void* nonfinite, const SlowtimeConfig* cfg,
@@ -507,6 +930,7 @@ extern "C" int fmcw_slowtime_mag(const void* xr, const void* xi,
              nullptr,                        nullptr,
              static_cast<int*>(nonfinite),   c};
     const cudaStream_t s = (cudaStream_t)stream;
+    if (long_cpi(c.ND)) return launch_mag_long<false>(p, s);
     switch (c.ND) {
         case 16: return launch_mag<16>(p, s);
         case 32: return launch_mag<32>(p, s);
@@ -523,15 +947,20 @@ extern "C" int fmcw_slowtime_mag(const void* xr, const void* xi,
 // cfg's row_off is the shard's first row in the frame and r_total the
 // frame's rows (grouping ties break by global row ids).  Per-cell scale
 // only, any variant.  Outputs as fmcw_slowtime_detect, for the shard's R
-// rows.
+// rows; at a long CPI mag is the halo-extended slab (batch, R + 2H, ND)
+// whose rows H .. H + R - 1 are the shard's magnitudes (the map the
+// decision reads) and row_max is zeroed by the caller.
 extern "C" int fmcw_slowtime_detect_split(
         const void* xr, const void* xi, const void* lo_r, const void* lo_i,
         const void* hi_r, const void* hi_i, const void* win, const void* tw,
         void* det, void* mag, void* row_max, void* n_dets, void* nonfinite,
         const SlowtimeConfig* cfg, void* stream) {
     const SlowtimeConfig c = *cfg;
-    if (!fmcw::split_config_ok(c) || !detect_config_ok(c) || !lo_r ||
-        !lo_i || !hi_r || !hi_i || !win || !tw)
+    const bool lng = long_cpi(c.ND);
+    const bool ok = lng ? long_config_ok(c) && !c.block_mode &&
+                              c.H == c.hr + c.pgr && mag
+                        : fmcw::split_config_ok(c) && detect_config_ok(c);
+    if (!ok || !lo_r || !lo_i || !hi_r || !hi_i || !win || !tw)
         return (int)cudaErrorInvalidValue;
     Params p{static_cast<const float*>(xr),   static_cast<const float*>(xi),
              static_cast<const float*>(lo_r), static_cast<const float*>(lo_i),
@@ -541,6 +970,7 @@ extern "C" int fmcw_slowtime_detect_split(
              static_cast<float*>(row_max),    static_cast<int*>(n_dets),
              static_cast<int*>(nonfinite),    c};
     const cudaStream_t s = (cudaStream_t)stream;
+    if (lng) return launch_long<true>(p, s);
     switch (c.ND) {
         case 16: return launch<16, true>(p, s);
         case 32: return launch<32, true>(p, s);

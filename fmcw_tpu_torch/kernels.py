@@ -46,7 +46,20 @@ class SlowtimeConfig(ctypes.Structure):
         "block_mode", "sb", "n_blk", "k_blk",
         "so", "pgr", "exact_mag",
         "notch_mode", "transient_zero", "bypass", "rnd", "shift",
-        "row_off", "r_total", "variant")]
+        "row_off", "r_total", "variant", "W", "HC")]
+
+
+# Constants of the kernel-B sources that the host picks its tile geometry
+# with (ops/frontend._slowtime_config), before any launch; each mirrors the
+# constexpr named beside it, and tests/test_torch_longcpi.py reads the
+# sources to hold them equal.
+MAX_ROWS = 128              # slowtime_common.cuh kMaxRows: T + 2H
+MAX_BLK = 256               # slowtime_common.cuh kMaxBlk: a tile's blocks
+MAX_SMEM = 232448           # slowtime_common.cuh kMaxSmem: 227 KB
+STRIP = 8                   # cfar_tile.cuh kStrip: cells a thread decides
+DECIDE_THREADS = 256        # slowtime_detect.cu kDecideThreads
+LONG_CPI_INNER = 128        # slowtime_detect.cu kInner
+LONG_CPI_MAX_SPLIT = 16     # slowtime_detect.cu kMaxSplit
 
 
 class CfarDetectConfig(ctypes.Structure):

@@ -128,9 +128,21 @@ only, so the reflect routes group in plain PyTorch.  Fixed "fused" raises
 ValueError, as JAX's.  ``cfar_geometry="hw_stream"`` ignores the edge
 mode, as JAX's.
 
-Not yet ported (they raise ``NotImplementedError``, ROADMAP.md):
-``fixed_fft="scaled"``, on the kernels long CPIs (n_doppler > 128).  The
-sharded processors are in ``parallel/sharded.py``.
+Long CPIs (n_doppler = n2d x 128, n2d 2..16, JAX's long-CPI Doppler
+split): kernel B takes them on every float route that reaches it (the
+split transform into the magnitude map, then its decide kernel over tiles
+of rows x chunks of Doppler columns, ``ops/frontend.py``), so float
+"auto" is "fused" there, as JAX's "auto" takes its kernel; the debug taps,
+reflect edges and the array model (``ref_angle`` 0 and > 0) run its
+entries as at short CPIs.  Other n_doppler above 128 (192, or n2d > 16)
+take the staged route under "auto", and "fused" raises.  The fixed
+slow-time kernel takes short CPIs only (its long CPIs are the next slice,
+ROADMAP.md): fixed "fused" raises NotImplementedError there, fixed "auto"
+is the staged route.
+
+Not yet ported (it raises ``NotImplementedError``, ROADMAP.md):
+``fixed_fft="scaled"``.  The sharded processors are in
+``parallel/sharded.py``.
 """
 
 from __future__ import annotations
@@ -318,6 +330,12 @@ def make_batch_processor(params: RadarParams | None = None,
     if mode == "fixed":
         check_notch(p.notch_mode, mti_transient)
         window_rounding_constant(p.coef_width, window_rounding)
+        if route == "fused" and F.long_cpi(p.n_doppler):
+            raise NotImplementedError(
+                f"frontend='fused' with mode='fixed' at n_doppler "
+                f"{p.n_doppler}: the fixed slow-time kernel's long CPIs are "
+                f"the next slice of ROADMAP.md (mode='fixed' "
+                f"frontend='auto' runs the staged route)")
         if route == "fused" and not FX.fused_fixed_detect_supported(
                 p, peak_group_radius, include_debug):
             raise ValueError(

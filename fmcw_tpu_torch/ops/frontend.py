@@ -18,6 +18,11 @@ turn, as ``fmcw_tpu/ops/split_frontend.py`` splits it across chips:
   (``rdm_frontend(detect=False)``: the magnitude and the non-finite count,
   no CFAR).  Its twin folds the slow-time chain into one float32 matrix
   (``ops/fft.doppler_apply``); the two agree within 1e-5 of the peak.
+  n_doppler 16, 32, 64 and 128, and the long CPIs n2d x 128 (n2d 2 .. 16,
+  JAX's long-CPI Doppler split, ``long_cpi``): there every entry runs the
+  split transform into the magnitude map, then a decide kernel over tiles
+  of rows x chunks of Doppler columns (``_slowtime_config``), two launches
+  that ``launches`` both counts.
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch twin (``range_fft_plain``, ``range_fft_float_plain``,
@@ -46,6 +51,12 @@ from .window import hamming_float
 
 # Range rows per kernel-B block.
 TILE_ROWS = 64
+
+# Kernel B's Doppler lengths: the short rows one warp transforms, and the
+# long CPIs n2d x kernels.LONG_CPI_INNER with 2 <= n2d <=
+# kernels.LONG_CPI_MAX_SPLIT (JAX's long-CPI split,
+# fmcw_tpu/models/pipeline.py _doppler_split, and its cap).
+SHORT_CPIS = (16, 32, 64, 128)
 
 
 reset_launch_counts = kernels.reset_launch_counts
@@ -272,12 +283,35 @@ def slowtime_detect_plain(re, im, mti_bypass=False, scale_override=0, *,
     return det, (mag if emit_mag else None), row_max, n_dets, nonfinite
 
 
-def _kernel_halo(cfar: CfarParams, peak_group_radius: int) -> int:
+def long_cpi(nd: int) -> bool:
+    """Is ``nd`` a long CPI of kernel B: n2d x 128 chirps, 2 <= n2d <=
+    16?"""
+    inner = kernels.LONG_CPI_INNER
+    return (nd > inner and nd % inner == 0
+            and nd // inner <= kernels.LONG_CPI_MAX_SPLIT)
+
+
+def check_doppler(nd: int, name: str, long_ok: bool = True) -> None:
+    """Raises NotImplementedError for an n_doppler that the kernel ``name``
+    does not take: kernel B takes ``SHORT_CPIS`` and the long CPIs
+    (``long_ok``); the fixed slow-time kernel the short ones only."""
+    if nd in SHORT_CPIS or (long_ok and long_cpi(nd)):
+        return
+    what = ("16, 32, 64, 128 or n2d x 128 with n2d in 2..16" if long_ok
+            else "16, 32, 64 or 128 (its long CPIs are the next slice of "
+                 "ROADMAP.md)")
+    raise NotImplementedError(f"{name} kernel: n_doppler {what}, got {nd}")
+
+
+def _kernel_halo(cfar: CfarParams, peak_group_radius: int,
+                 halo: int | None = None) -> int:
     """Rows beyond its tile whose magnitudes a kernel-B block computes: the
     CFAR window plus the grouping radius (per-cell scale), or two blocks for
     the 3x3-block scale neighbourhood plus the blocks the grouping radius
-    reaches (block scale)."""
-    h = cfar.halo_range + peak_group_radius
+    reaches (block scale).  ``halo`` (default the window's range halo): the
+    same for the Doppler columns of a long-CPI chunk, with the Doppler
+    halo."""
+    h = (cfar.halo_range if halo is None else halo) + peak_group_radius
     if cfar.scale_mode == "block":
         sb = cfar.scale_block
         h = max(h, (-(-peak_group_radius // sb) + 2) * sb)
@@ -285,39 +319,89 @@ def _kernel_halo(cfar: CfarParams, peak_group_radius: int) -> int:
     return h
 
 
+def _chunk_words(t: int, w: int, h: int, hc: int, pgr: int, block: bool,
+                 so: int) -> int:
+    """The long-CPI decide kernel's shared memory in 4-byte words
+    (csrc/slowtime_detect.cu ``chunk_layout``: a short tile's
+    ``tile_layout`` of W + 2 HC columns, one count)."""
+    wc, rows = w + 2 * hc, t + 2 * pgr
+    region = (rows * wc + 5 * kernels.MAX_BLK if block
+              else (1 if so else 2) * rows * wc)
+    return (t + 2 * h) * wc + region + t + 1
+
+
+def _long_geometry(nr, nd, cfar, scale_override, pgr, name):
+    """The long-CPI decide kernel's tile: (T rows, W columns, H halo rows,
+    HC halo columns).  The largest T, then W, of a block whose shared
+    memory lets two blocks share an SM, else one; within the strips a
+    thread holds (64 cells) and, block scale, whole blocks and the block
+    grid a tile holds; the kernel's own arithmetic (``long_config_ok``)."""
+    block = cfar.scale_mode == "block"
+    sb = cfar.scale_block
+    h = _kernel_halo(cfar, pgr)
+    hc = _kernel_halo(cfar, pgr, cfar.halo_doppler)
+
+    def fits(t, w, limit):
+        rows, wc = t + 2 * pgr, w + 2 * hc
+        units = -(-rows // kernels.STRIP) * (w + 2 * pgr)
+        return (nr % t == 0 and nd % w == 0 and rows >= kernels.STRIP
+                and -(-units // kernels.DECIDE_THREADS) * kernels.STRIP <= 64
+                and (not block or (t % sb == 0 and w % sb == 0
+                                   and (t + 2 * h) // sb * (wc // sb)
+                                   <= kernels.MAX_BLK))
+                and 4 * _chunk_words(t, w, h, hc, pgr, block,
+                                     int(scale_override)) <= limit)
+
+    if cfar.halo_doppler < nd and pgr < nd:
+        for limit in (kernels.MAX_SMEM // 2, kernels.MAX_SMEM):
+            for t in (64, 32, 16, 8):
+                for w in (128, 64, 32, 16, 8):
+                    if fits(t, w, limit):
+                        return t, w, h, hc
+    raise NotImplementedError(
+        f"{name} kernel: no decide tile of a {nr}x{nd} map with {cfar} and "
+        f"peak_group_radius={pgr} fits a block")
+
+
 def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
                      exact_mag=False, name="slowtime_detect", row_off=0,
-                     r_total=None):
+                     r_total=None, long_ok=False):
     """The kernel-B tile geometry (shared with the fixed-point kernel and
     the split entries, whose map is a range shard of ``r_total`` rows
     starting at ``row_off``), with the CFAR variant (``VARIANT_CODES``,
     taken by both kernels); raises NotImplementedError for what the
     kernels do not take, reflect edges among it (``ops/cfar.check_wrap``:
     their detect epilogues wrap, as JAX's fused kernels; the
-    magnitude-only entry takes any edges)."""
+    magnitude-only entry takes any edges).  ``long_ok`` (kernel B): a long
+    CPI takes the decide kernel's tile of rows x a chunk of columns
+    (``_long_geometry``)."""
     C.check_wrap(cfar, name)
-    if nd not in (16, 32, 64, 128):
-        raise NotImplementedError(
-            f"{name} kernel: n_doppler in (16, 32, 64, 128), got "
-            f"{nd} (long CPIs are queued in ROADMAP.md)")
+    check_doppler(nd, name, long_ok)
     if int(scale_override) < 0:
         raise ValueError(f"scale_override must be >= 0, got {scale_override}")
-    tile = min(TILE_ROWS, nr)
-    halo = _kernel_halo(cfar, peak_group_radius)
     block = cfar.scale_mode == "block"
     sb = cfar.scale_block
     n_blk = 9 * sb * sb
-    ok = (nr % tile == 0 and tile + 2 * halo <= 128
-          and cfar.halo_doppler < nd and peak_group_radius < nd
-          and (not block or (tile % sb == 0 and nd % sb == 0
-                             and (tile + 2 * halo) // sb * (nd // sb) <= 256)))
-    if not ok:
-        raise NotImplementedError(
-            f"{name} kernel: {nr}x{nd} map with {cfar} and "
-            f"peak_group_radius={peak_group_radius} does not fit its tile "
-            f"({tile} rows + 2 x {halo} halo rows <= 128)")
+    chunk = halo_cols = 0
+    if long_cpi(nd):
+        tile, chunk, halo, halo_cols = _long_geometry(
+            nr, nd, cfar, scale_override, peak_group_radius, name)
+    else:
+        tile = min(TILE_ROWS, nr)
+        halo = _kernel_halo(cfar, peak_group_radius)
+        ok = (nr % tile == 0 and tile + 2 * halo <= kernels.MAX_ROWS
+              and cfar.halo_doppler < nd and peak_group_radius < nd
+              and (not block
+                   or (tile % sb == 0 and nd % sb == 0
+                       and (tile + 2 * halo) // sb * (nd // sb)
+                       <= kernels.MAX_BLK)))
+        if not ok:
+            raise NotImplementedError(
+                f"{name} kernel: {nr}x{nd} map with {cfar} and "
+                f"peak_group_radius={peak_group_radius} does not fit its "
+                f"tile ({tile} rows + 2 x {halo} halo rows <= 128)")
     return kernels.SlowtimeConfig(
-        batch=B, R=nr, ND=nd, T=tile, H=halo,
+        batch=B, R=nr, ND=nd, T=tile, H=halo, W=chunk, HC=halo_cols,
         hr=cfar.halo_range, hd=cfar.halo_doppler, gr=cfar.guard_range,
         gd=cfar.guard_doppler, n_ref=cfar.n_ref,
         k=cfar.n_ref - cfar.rank_idx, scale_min=cfar.scale_min,
@@ -355,15 +439,19 @@ def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
     B, nr, nd = re.shape
     cfg = _detect_config(
         _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
-                         exact_mag), cfar, notch_mode, transient, mti_bypass,
-        "slowtime_detect")
+                         exact_mag, long_ok=True), cfar, notch_mode,
+        transient, mti_bypass, "slowtime_detect")
+    # A long CPI decides on its magnitude map (always written) and combines
+    # its chunks' row maxima into zeros.
+    lng = long_cpi(nd)
     dev = re.device
     re = _aligned(re.to(torch.float32))
     im = _aligned(im.to(torch.float32))
     win, tw = _slowtime_tables(nd, str(dev))
     det = torch.empty((B, nr, nd), dtype=torch.float32, device=dev)
-    mag = torch.empty_like(det) if emit_mag else None
-    row_max = torch.empty((B, nr), dtype=torch.float32, device=dev)
+    mag = torch.empty_like(det) if emit_mag or lng else None
+    row_max = (torch.zeros if lng else torch.empty)(
+        (B, nr), dtype=torch.float32, device=dev)
     n_dets = torch.zeros((B,), dtype=torch.int32, device=dev)
     nonfinite = torch.zeros((B,), dtype=torch.int32, device=dev)
     lib = kernels.load()
@@ -373,18 +461,15 @@ def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
         row_max.data_ptr(), n_dets.data_ptr(), nonfinite.data_ptr(),
         ctypes.byref(cfg), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "slowtime_detect")
-    slowtime_detect.launches += 1
-    return det, mag, row_max, n_dets, nonfinite
+    slowtime_detect.launches += 2 if lng else 1
+    return det, (mag if emit_mag else None), row_max, n_dets, nonfinite
 
 
 def check_mag_geometry(nr: int, nd: int) -> None:
     """Raises NotImplementedError for an nr x nd map that the
-    magnitude-only kernel (one range row per lane group, any number of
-    rows) does not take."""
-    if nd not in (16, 32, 64, 128):
-        raise NotImplementedError(
-            f"slowtime_mag kernel: n_doppler in (16, 32, 64, 128), got "
-            f"{nr}x{nd} (long CPIs are queued in ROADMAP.md)")
+    magnitude-only kernel (one range row per lane group, or per warp at a
+    long CPI; any number of rows) does not take."""
+    check_doppler(nd, "slowtime_mag")
 
 
 @kernels.counted
@@ -429,21 +514,23 @@ def slowtime_mag(re: torch.Tensor, im: torch.Tensor, mti_bypass=False, *,
 # ---------------------------------------------------------------------------
 
 def fused_detect_supported(p: RadarParams, peak_group_radius: int = 0,
-                           mag_only: bool = False) -> bool:
+                           mag_only: bool = False,
+                           fixed: bool = False) -> bool:
     """Do the front-end kernels take ``p``'s frame and CFAR: kernel A's
     frame, and kernel B's tile (``mag_only``: its magnitude-only entry,
-    which the debug taps and the hw-compat CFAR run)?  Asked of the
-    kernels' own checks, before any launch; the counterpart of
+    which the debug taps and the hw-compat CFAR run), long CPIs included?
+    Asked of the kernels' own checks, before any launch; the counterpart of
     ``fmcw_tpu/models/pipeline.frontend_kernel_supported``.  The fixed
-    kernels share these checks (``frontend_fixed.
-    fused_fixed_detect_supported``)."""
+    kernels (``fixed``) share these checks, short CPIs only
+    (``frontend_fixed.fused_fixed_detect_supported``)."""
     try:
         check_range_geometry(p.n_range, p.n_doppler)
         if mag_only:
             check_mag_geometry(p.n_range, p.n_doppler)
         else:
             _detect_config(_slowtime_config(1, p.n_range, p.n_doppler,
-                                            p.cfar, 0, peak_group_radius),
+                                            p.cfar, 0, peak_group_radius,
+                                            long_ok=not fixed),
                            p.cfar, p.notch_mode, "zero", False, "")
     except NotImplementedError:
         return False

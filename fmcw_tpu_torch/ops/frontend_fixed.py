@@ -254,9 +254,10 @@ def fused_fixed_detect_supported(p: RadarParams, peak_group_radius: int = 0,
     that both kernels take.  JAX's limit on the window (its sums below 2^24, for the
     TPU's float32 sums) does not apply: these kernels sum in int32; the OS
     variant's float packed count takes at most ``frontend.MAX_PACKED_REFS``
-    training cells, the CA/GO/SO epilogue counts nothing."""
-    return not include_debug and F.fused_detect_supported(p,
-                                                           peak_group_radius)
+    training cells, the CA/GO/SO epilogue counts nothing.  Short CPIs
+    only: the fixed slow-time kernel's long CPIs are the next slice."""
+    return not include_debug and F.fused_detect_supported(
+        p, peak_group_radius, fixed=True)
 
 
 def rdm_frontend_fixed_detect(iq: torch.Tensor, mti_bypass=False,

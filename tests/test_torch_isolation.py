@@ -407,10 +407,29 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
             SF.slowtime_detect_fixed_split.launches) == (1, 1)
     as_if_cuda.calls.clear()
     F.reset_launch_counts()
+    # Long CPIs (n_doppler = n2d x 128, n2d 2..16): kernel B runs its
+    # split transform and decide kernel, two launches, with the decide
+    # tile in the config, the map always handed over and the row maxima
+    # zeroed for the chunks' atomicMax.
     long_cpi = torch.zeros((1, 128, 256))
-    with pytest.raises(NotImplementedError):
-        F.slowtime_detect(long_cpi, long_cpi, cfar=p.cfar)
-    assert as_if_cuda.calls == []
+    det, mag, rmax, _, _ = F.slowtime_detect(long_cpi, long_cpi, cfar=p.cfar,
+                                             peak_group_radius=1)
+    name, args = as_if_cuda.calls[-1]
+    cfg = args[9]._obj
+    assert name == "slowtime_detect" and mag is None
+    assert (cfg.ND, cfg.T, cfg.W, cfg.H, cfg.HC) == (256, 64, 128, 4, 4)
+    assert args[5] is not None and not rmax.any()
+    assert F.slowtime_detect.launches == 2
+    # The fixed slow-time kernel keeps short CPIs (its long CPIs are the
+    # next slice); n2d above 16 and other lengths above 128 stay refused.
+    i16 = long_cpi.to(torch.int16)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        FX.slowtime_detect_fixed(i16, i16, cfar=p.cfar)
+    for nd in (4096, 192):
+        x = torch.zeros((1, 128, nd))
+        with pytest.raises(NotImplementedError):
+            F.slowtime_detect(x, x, cfar=p.cfar)
+    assert len(as_if_cuda.calls) == 1
 
 
 def test_fixed_wrappers_take_plain_twin_on_cpu(monkeypatch):
@@ -568,9 +587,10 @@ def test_array_kernels_reject_unported_configs(as_if_cuda):
     br, bi = _planes((1, p.n_doppler, 48))
     with pytest.raises(NotImplementedError):
         F.range_fft_float(br, bi)                   # n_range not 2^k
-    long_cpi = torch.zeros((1, 128, 256))
-    with pytest.raises(NotImplementedError):
-        F.slowtime_mag(long_cpi, long_cpi)
+    for nd in (4096, 192):
+        x = torch.zeros((1, 128, nd))
+        with pytest.raises(NotImplementedError):
+            F.slowtime_mag(x, x)
     cube = torch.zeros((1, 4, p.n_range, p.n_doppler))
     ca = fmcw_tpu_torch.CfarParams(variant="ca")
     with pytest.raises(NotImplementedError):
@@ -584,18 +604,34 @@ def test_array_kernels_reject_unported_configs(as_if_cuda):
         BG.beam_group(cube.int(), 1)
     assert as_if_cuda.calls == []
     # The array processor's fused route keeps to the kernels: on a long
-    # CPI kernel A runs, then kernel B (detect or magnitude-only) raises
-    # instead of falling back to the plain transforms; "auto" takes the
-    # staged chain there, decided before any launch.
+    # CPI kernel A runs, then kernel B (its detect entry at ref_angle 0,
+    # its magnitude-only entry at ref_angle 1, then the 3D CFAR); "auto" is
+    # that route, decided before any launch.  Where kernel B refuses
+    # (n2d 32, or 192 chirps) kernel A runs and kernel B raises instead of
+    # falling back to the plain transforms; "auto" takes the staged chain.
     long_cpi = p.replace(n_doppler=256)
     iq = np.zeros((4, long_cpi.n_doppler, long_cpi.n_range, 2), np.int16)
-    for ref_angle in (0, 1):
+    for ref_angle, launched in ((0, "slowtime_detect"),
+                                (1, "slowtime_mag")):
         kw = dict(n_elems=4, n_beams=4, ref_angle=ref_angle, device="cpu")
-        assert tpl.make_array_processor(long_cpi, **kw).route == "staged"
-        proc = tpl.make_array_processor(long_cpi, frontend="fused", **kw)
-        with pytest.raises(NotImplementedError):
-            proc(iq)
-    assert [c[0] for c in as_if_cuda.calls] == ["range_fft_float"] * 2
+        assert tpl.make_array_processor(long_cpi, **kw).route == "fused"
+        as_if_cuda.calls.clear()
+        tpl.make_array_processor(long_cpi, frontend="fused", **kw)(iq)
+        assert [c[0] for c in as_if_cuda.calls][:2] == ["range_fft_float",
+                                                        launched]
+    for nd in (192, 4096):
+        refused = p.replace(n_doppler=nd)
+        iq = np.zeros((1, 4, nd, p.n_range, 2), np.int16)
+        for ref_angle in (0, 1):
+            kw = dict(n_elems=4, n_beams=4, ref_angle=ref_angle,
+                      device="cpu")
+            assert tpl.make_array_processor(refused, **kw).route == "staged"
+            proc = tpl.make_batch_array_processor(refused, frontend="fused",
+                                                  **kw)
+            as_if_cuda.calls.clear()
+            with pytest.raises(NotImplementedError):
+                proc(iq)
+            assert [c[0] for c in as_if_cuda.calls] == ["range_fft_float"]
 
 
 def test_split_wrappers_launch_kernels_for_cuda_tensors(as_if_cuda):
@@ -644,6 +680,35 @@ def test_split_wrappers_launch_kernels_for_cuda_tensors(as_if_cuda):
     assert tuple(d.shape) == (2, nrl, p.n_doppler)
     cfg = as_if_cuda.calls[5][1][4]._obj
     assert (cfg.R, cfg.prepadded) == (nrl, 1)
+
+
+def test_long_cpi_split_entry_takes_the_slab(as_if_cuda):
+    """At a long CPI kernel B's split entry writes the magnitudes of the
+    halo-extended slab (B, nrl + 2h, nd), which its decision reads: the
+    wrapper hands the slab (and zeroed row maxima) over, returns the
+    shard's rows of it as ``mag``, and counts two launches; the fixed split
+    entry keeps short CPIs."""
+    p = fmcw_tpu_torch.RadarParams(n_doppler=512)
+    nrl, h = 256, p.cfar.halo_range + 2
+    re = torch.zeros((2, nrl, 512))
+    halo = (torch.zeros((2, h, 512)),) * 2
+    det, mag, rmax, _, _ = SF.slowtime_detect_split(
+        re, re, halo, halo, False, 0, 256, cfar=p.cfar, n_range_total=1024,
+        peak_group_radius=2, emit_mag=True)
+    name, args = as_if_cuda.calls[-1]
+    cfg = args[13]._obj
+    assert name == "slowtime_detect_split"
+    assert (cfg.ND, cfg.H, cfg.HC, cfg.row_off) == (512, h, 7, 256)
+    assert tuple(mag.shape) == (2, nrl, 512) and not rmax.any()
+    assert mag.data_ptr() == args[9] + h * 512 * 4
+    assert SF.slowtime_detect_split.launches == 2
+    i16 = re.to(torch.int16)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        SF.slowtime_detect_fixed_split(i16, i16, (i16[:, :h],) * 2,
+                                       (i16[:, :h],) * 2, cfar=p.cfar,
+                                       n_range_total=1024,
+                                       peak_group_radius=2)
+    assert len(as_if_cuda.calls) == 1
 
 
 def test_split_kernels_reject_unported_configs(as_if_cuda):

@@ -342,9 +342,20 @@ def test_processor_validates_mesh_shape_and_input():
         TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"), p,
                                    mode="fixed", frontend="fused",
                                    include_debug=True)
-    with pytest.raises(NotImplementedError):
-        TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
-                                   p.replace(n_doppler=256))
+    # Long CPIs: the float routes take them (kernel B's split entry on the
+    # range shards, tests/test_torch_longcpi.py); fixed "fused" does not
+    # yet (the fixed slow-time kernel's long CPIs are the next slice), nor
+    # does any route at n2d 32 or 192 chirps.
+    long_cpi = p.replace(n_doppler=256)
+    assert TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
+                                      long_cpi).route == "fused"
+    with pytest.raises(NotImplementedError, match="next slice"):
+        TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"), long_cpi,
+                                   mode="fixed", frontend="fused")
+    for nd in (192, 4096):
+        with pytest.raises(NotImplementedError):
+            TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
+                                       p.replace(n_doppler=nd))
     # The sharded array model is ported (tests/test_torch_sharded_array.py).
     assert TSH.make_sharded_array_processor(
         TM.LocalMesh(1, 2, "cpu"), p).route == "fused"

@@ -83,11 +83,16 @@ def kernel_slowtime(re, im, notch=2, transient="zero", bypass=False):
     """The kernel's slow-time chain of every row of (..., nd) float32 planes
     with its host tables: the complex spectrum (Xr, Xi), natural bin
     order."""
+    win, tw = (x.numpy() for x in F._slowtime_tables(re.shape[-1], "cpu"))
+    xr, xi = mti_window(re, im, win, notch, transient, bypass)
+    return lane_fft(xr, xi, tw)
+
+
+def mti_window(re, im, win, notch=2, transient="zero", bypass=False):
+    """The pulse canceller over each whole row in float32 (x[s] - x[s-1],
+    or fma(-2, x[s-1], x[s]) + x[s-2], missing history 0, the first notch -
+    1 outputs zeroed for transient "zero"), then the window."""
     nd = re.shape[-1]
-    win, tw = (x.numpy() for x in F._slowtime_tables(nd, "cpu"))
-    L = min(32, nd)
-    P = nd // L
-    lg = L.bit_length() - 1
     xr, xi = re.astype(F32), im.astype(F32)
     if not bypass:
         def shift(x, n):
@@ -102,23 +107,37 @@ def kernel_slowtime(re, im, notch=2, transient="zero", bypass=False):
         if transient == "zero":
             xr[..., :notch - 1] = 0
             xi[..., :notch - 1] = 0
-    xr, xi = xr * win, xi * win
-    xr = xr.reshape(*xr.shape[:-1], L, P)
-    xi = xi.reshape(*xi.shape[:-1], L, P)
+    return xr * win, xi * win
+
+
+def lane_fft(xr, xi, tw, stride=1):
+    """The kernel's lane transform (``lane_fft``) of windowed rows (...,
+    n): L = min(32, n) lanes of P = n / L points (s = l P + p), the twiddles
+    of an n-point transform read from the table ``tw`` at ``stride`` x
+    their index (a long row's inner transforms use the whole row's table);
+    the spectrum in natural bin order."""
+    n = xr.shape[-1]
+    L = min(32, n)
+    P = n // L
+    lg = L.bit_length() - 1
+    shape = xr.shape
+    xr = xr.reshape(*shape[:-1], L, P)
+    xi = xi.reshape(*shape[:-1], L, P)
     lane = np.arange(L)
     for st in range(lg):
         h = L >> (st + 1)
         partner = lane ^ h
         br, bi = xr[..., partner, :], xi[..., partner, :]
         upper = ((lane & h) != 0)[:, None]
-        j = (lane & (h - 1)) * (nd // (2 * h))
+        j = (lane & (h - 1)) * (n // (2 * h)) * stride
         ur, ui = _cmul(br - xr, bi - xi, tw[j, 0][:, None], tw[j, 1][:, None])
         xr = np.where(upper, ur, xr + br)
         xi = np.where(upper, ui, xi + bi)
     k1 = _brev(lane, lg)
     for p in range(1, P):
+        j = p * k1 * stride
         xr[..., p], xi[..., p] = _cmul(xr[..., p], xi[..., p],
-                                       tw[p * k1, 0], tw[p * k1, 1])
+                                       tw[j, 0], tw[j, 1])
     x = [(xr[..., p], xi[..., p]) for p in range(P)]
     if P == 1:
         bins = x
@@ -134,8 +153,8 @@ def kernel_slowtime(re, im, notch=2, transient="zero", bypass=False):
                 (d0[0] + d1[1], d0[1] - d1[0]),
                 (s0[0] - s1[0], s0[1] - s1[1]),
                 (d0[0] - d1[1], d0[1] + d1[0])]
-    out_r = np.zeros(re.shape, F32)
-    out_i = np.zeros(re.shape, F32)
+    out_r = np.zeros(shape, F32)
+    out_i = np.zeros(shape, F32)
     for k2, (br, bi) in enumerate(bins):
         out_r[..., k1 + L * k2] = br
         out_i[..., k1 + L * k2] = bi
