@@ -141,8 +141,22 @@ float auto now fused, per-cell, block and GO through the margin gate,
 frames/s and samples/s beside the staged route), the debug taps, reflect,
 the hw-compat float route and the array model (ref_angle 0 and 1) at
 1024x256, a LocalMesh at sp 2 and 4, and the entries' times at 1024x256
-and 1024x2048.  It prints the card's name and power limit, one JSON line
-listing the kernels, and as its last line {"ok": true, "device": {...}}.
+and 1024x2048.  Then long CPIs in fixed mode (phase 33: the fixed
+slow-time kernel's long-CPI split and its int32 map's decision by kernel
+B's decide kernel): its entries against their twins at n_doppler 256,
+384, 512, 1024 and 2048, bit for bit (values, magnitudes, decisions, row
+maxima, counts, saturations; OS, CA, GO, SO, per-cell and block,
+overrides, the bypass, the 3-pulse MTI, both transients and roundings,
+radius 0-2, the saturating batch), eighth- and quarter-turn tie planes
+against the golden numpy model, the split entry at sp 2 and 4 bit-equal
+to the whole frame; the fused fixed route at 1024x256, batch 128
+(per-cell, fast() block, CA): no plain stage, bit-equal to fixed auto,
+equal to the golden process_frame_fixed on every frame of the per-cell
+run and 32 of each other (worker processes),
+frames/s beside the staged route; a LocalMesh at sp 2 and 4; the
+entries' times at 1024x256 and 1024x2048.  It prints the card's name and
+power limit, one JSON line listing the kernels, and as its last line
+{"ok": true, "device": {...}}.
 Any failed check raises, and the script then exits non-zero; without CUDA
 it exits non-zero at once.
 """
@@ -6227,6 +6241,442 @@ def long_cpi_phase(card: str, dev, pgr: int):
                   "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Long CPIs in fixed mode: the fixed slow-time kernel at n_doppler = n2d x
+# 128 (phase 33)
+# ---------------------------------------------------------------------------
+
+FIXED_LONG_SRC = "fmcw_tpu_torch/csrc/slowtime_detect_fixed.cu"
+# The fixed slow-time kernel's long-CPI cases (33a): (variant, scale mode,
+# bypass, scale override, grouping radius, notch mode, chain keywords).
+FIXED_LONG_CASES = (
+    ("os", "cell", False, 0, 2, 2, {}),
+    ("os", "block", False, 0, 2, 2, {}),
+    ("ca", "cell", True, 0, 0, 2, {}),
+    ("go", "block", False, 4, 2, 2, {}),
+    ("so", "cell", False, LARGE_SO, 1, 2, {}),
+    ("os", "cell", False, 0, 1, 3,
+     dict(transient="passthrough", rounding="biased")),
+    ("os", "block", False, 0, 0, 3, dict(transient="zero")))
+
+
+def fixed_long_tie_checks(dev, nd: int) -> int:
+    """The fixed slow-time kernel on exact round-half ties at a long CPI,
+    MTI bypassed, radius 0, against the golden numpy model: eighth-turn
+    tie planes (bin nd/8, golden.reference.doppler_eighth_tie_planes) and
+    quarter-turn tie planes (bin 0, doppler_quarter_tie_planes), 64 rows
+    each;
+    the kernel bit-equal to its twin.  Where nd is not a power of two the
+    golden model's np.fft.fft (mixed radix) need not give the exact bins
+    (quarter, eighth and, where 12 divides nd, sixth and twelfth turns)
+    exactly, and may round their exact ties the other way: there values
+    may differ at bins k with 24 k / nd whole only, and are counted.
+    Returns those values."""
+    import numpy as np
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    p = P.RadarParams(n_range=64, n_doppler=nd)
+    for seed in range(nd, nd + 8):
+        try:
+            eighth = reference.doppler_eighth_tie_planes(seed, 1, 64, nd)
+            break
+        except ValueError:          # a row the last chirps cannot reach
+            continue
+    tw_bins = 0
+    for name, (re, im) in (("eighth", eighth),
+                           ("quarter", reference.doppler_quarter_tie_planes(
+                               nd, 1, 64, nd))):
+        gold = [reference.process_rows_fixed(a.astype(np.int64),
+                                             b.astype(np.int64), p,
+                                             mti_bypass=True)
+                for a, b in zip(re, im)]
+        det, mag, _, ndet, _ = FX.slowtime_detect_fixed(
+            torch.as_tensor(re, device=dev), torch.as_tensor(im, device=dev),
+            True, 0, cfar=p.cfar, emit_mag=True)
+        tmag, _ = FX.slowtime_mag_fixed_plain(torch.as_tensor(re),
+                                              torch.as_tensor(im), True)
+        mag = mag.cpu().numpy()
+        off = np.argwhere(mag != np.stack([g[0] for g in gold]))[:, -1]
+        exact_bins = nd & (nd - 1) and bool((off * 24 % nd == 0).all())
+        off_d = int((det.cpu().numpy() != np.stack([g[1] for g in gold]))
+                    .sum())
+        same_twin = np.array_equal(mag, tmag.numpy())
+        log(f"fixed long {name}-turn ties at 64x{nd}: "
+            f"{off.size} magnitudes, {off_d} detections differ from the "
+            f"golden model ({int(ndet.sum())} detections), twin "
+            f"{'bit-equal' if same_twin else 'DIFFERS'}")
+        if not same_twin or (off.size or off_d) and not exact_bins:
+            raise AssertionError(f"fixed long {name}-turn ties at {nd} "
+                                 f"differ")
+        tw_bins += off.size
+    return tw_bins
+
+
+def fixed_long_kernel_checks(dev, pgr: int):
+    """Phase 33a: the fixed slow-time kernel's long CPIs against its twin,
+    bit for bit (values, magnitudes, decisions, row maxima, counts,
+    saturations), at n_range 1024 and n_doppler 256, 384, 512, 1024, 2048
+    (batch 8 at 256, 4 above): the fixed range kernel's planes of
+    bench.py's stimulus (the range kernel equal to its twin there) through
+    FIXED_LONG_CASES (OS, CA, GO, SO; per-cell and block; overrides 0, 4
+    and 2^20; the bypass; notch 2 and 3, both transients and roundings;
+    radius 0-2), the saturating x40 batch with the MTI on and bypassed;
+    the tie planes (fixed_long_tie_checks); then the split entry at sp 2
+    and 4 at 256 and 2048 (OS and CA, the MTI on and bypassed): shards
+    bit-equal to the whole-frame launch's rows, counts and saturations
+    summing, the decision equal to the twin's on the twin's halo-extended
+    magnitudes.  Returns ({entry: largest magnitude difference}, the
+    golden model's differences at exact bins of nd 384)."""
+    import torch
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    errs = {"detect": 0.0, "split": 0.0}
+    tw_bins = 0
+    for nd in LONG_NDS:
+        batch = 8 if nd == LONG_ND else 4
+        iq = torch.as_tensor(make_batch(long_params(nd), batch, seed=41),
+                             device=dev)
+        re, im, sat_r = FX.range_fft_fixed(iq)
+        pre, pim, psat = FX.range_fft_fixed_plain(iq)
+        torch.cuda.synchronize()
+        if not (torch.equal(re, pre) and torch.equal(im, pim)
+                and torch.equal(sat_r, psat)):
+            raise AssertionError(f"range_fft_fixed differs at {nd} chirps")
+        log(f"range_fft_fixed {LONG_NR}x{nd} batch {batch}: values and "
+            f"saturations equal to the twin")
+        del pre, pim
+        cases = FIXED_LONG_CASES if nd in (LONG_ND, 2048) else \
+            FIXED_LONG_CASES[:4]
+        for variant, mode, bypass, so, radius, notch, kw in cases:
+            p = long_params(nd, variant, mode, notch)
+            if kw.get("rounding"):
+                pr, pi, _ = FX.range_fft_fixed(iq, rounding=kw["rounding"])
+            else:
+                pr, pi = re, im
+            errs["detect"] = max(errs["detect"], _fx_case(
+                "long", pr, pi, p, bypass, so, radius, kw))
+        hot = torch.as_tensor(hot_batch(long_params(nd), 2), device=dev)
+        hre, him, _ = FX.range_fft_fixed(hot)
+        for bypass in (False, True):
+            _fx_case("long x40", hre, him, long_params(nd), bypass, 0, pgr)
+        tw_bins += fixed_long_tie_checks(dev, nd)
+        if nd in LONG_SPLIT_NDS:
+            errs["split"] = max(errs["split"], fixed_long_split_case(
+                dev, re, im, nd, pgr))
+        del re, im, hre, him
+    return errs, tw_bins
+
+
+def fixed_long_split_case(dev, re, im, nd: int, pgr: int) -> float:
+    """The fixed split entry on the sp 2 and 4 shards of (re, im), their
+    neighbours' rows as halos, against the whole-frame launch and the
+    twin (fixed_variant_kernel_checks' comparison).  Returns the largest
+    magnitude difference against the twin (0)."""
+    import torch
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    nr = re.shape[1]
+    h = long_params(nd).cfar.halo_range + pgr
+    worst = 0
+    for bypass in (False, True):
+        pmag = FX.slowtime_mag_fixed_plain(re, im, bypass)[0]
+        for variant in ("os", "ca"):
+            p = long_params(nd, variant)
+            kw = dict(cfar=p.cfar, peak_group_radius=pgr, emit_mag=True)
+            det, mag, rmax, ndet, sat = FX.slowtime_detect_fixed(
+                re, im, bypass, 0, **kw)
+            for sp in SPLIT_SPS:
+                nrl = nr // sp
+                same, n_sum, s_sum = True, 0, 0
+                for s in range(sp):
+                    rows = slice(s * nrl, (s + 1) * nrl)
+                    ext = torch.arange(s * nrl - h, (s + 1) * nrl + h,
+                                       device=dev) % nr
+                    lo, hi = ext[:h], ext[h + nrl:]
+                    d_s, m_s, r_s, n_s, st = SF.slowtime_detect_fixed_split(
+                        re[:, rows], im[:, rows], (re[:, lo], im[:, lo]),
+                        (re[:, hi], im[:, hi]), bypass, 0, s * nrl,
+                        n_range_total=nr, **kw)
+                    d2, r2, n2 = SF.detect_halo_plain(pmag[:, ext], p.cfar,
+                                                      0, pgr, s * nrl, nr)
+                    torch.cuda.synchronize()
+                    err = int((m_s - pmag[:, rows]).abs().max())
+                    worst = max(worst, err)
+                    same &= (err == 0 and torch.equal(d_s, det[:, rows])
+                             and torch.equal(m_s, mag[:, rows])
+                             and torch.equal(r_s, rmax[:, rows])
+                             and torch.equal(d_s, d2)
+                             and torch.equal(r_s, r2)
+                             and torch.equal(n_s, n2))
+                    n_sum, s_sum = n_sum + n_s, s_sum + st
+                same &= torch.equal(n_sum, ndet) and torch.equal(s_sum, sat)
+                log(f"fixed split long {variant} {nr}x{nd} sp={sp} "
+                    f"bypass={bypass}: shards "
+                    f"{'bit-equal' if same else 'DIFFER'} to the whole-frame "
+                    f"entry and the twin ({int(ndet.sum())} detections, "
+                    f"saturation {int(sat.sum())})")
+                if not same:
+                    raise AssertionError(f"slowtime_detect_fixed_split long "
+                                         f"{variant} at {nd} sp={sp} differs")
+    return float(worst)
+
+
+def golden_frames_check(job):
+    """A worker process's job: (int16 frames (B, nd, nr, 2), the route's
+    mag and det maps, RadarParams, grouping radius); True where the golden
+    process_frame_fixed (and peak_group) gives every map exactly, and the
+    detection count."""
+    import numpy as np
+    from fmcw_tpu_torch.golden import fixed_point as gfx, reference
+    frames, mags, dets, p, radius = job
+    ok, n = True, 0
+    for f, m, d in zip(frames, mags, dets):
+        gmag, gdet = reference.process_frame_fixed(
+            f[..., 0] + 1j * f[..., 1].astype(np.float64), p)
+        if radius:
+            gdet = gfx.peak_group(gdet, radius)
+        ok &= bool(np.array_equal(gmag, m) and np.array_equal(gdet, d))
+        n += int((gdet > 0).sum())
+    return ok, n
+
+
+def fixed_long_main_path(card: str, dev, pgr: int, pool):
+    """Phase 33b: BASELINE config 2 (1024x256, batch 128 of bench.py's
+    stimulus) through make_batch_processor(mode="fixed", frontend="fused")
+    for the entry config (per-cell), fast() (block) and CA per-cell: only
+    range_fft_fixed and slowtime_detect_fixed launch, no plain stage
+    (PlainStages); every output bit-equal to fixed "auto" (the staged
+    route); the mag and det maps of every frame (the entry config; the
+    first 32 of the others) held to the golden process_frame_fixed by
+    worker processes (collected by the caller); frames/s beside the staged
+    route's, both without the maps.  Returns ({config:
+    slowtime_detect_fixed launches}, summary, golden futures)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    launches, summary, golden = {}, {}, []
+    for name, p in (("cell", long_params(LONG_ND)),
+                    ("block", P.fast().replace(n_doppler=LONG_ND)),
+                    ("ca", long_params(LONG_ND, "ca"))):
+        frames = make_batch(p, BATCH, seed=43)
+        batch = torch.as_tensor(frames, device=dev)
+        outs = {}
+        for fe in ("fused", "auto"):
+            proc = pl.make_batch_processor(p, mode="fixed", frontend=fe,
+                                           peak_group_radius=pgr, device=dev)
+            kernels.reset_launch_counts()
+            with PlainStages() as plain:
+                out = proc(batch)
+                torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            log(f"fixed long main path {name} {fe} ({proc.route}): launches "
+                + (", ".join(f"{k}={v}" for k, v in counts.items())
+                   or "none") + f"; plain stages {plain.calls or 'none'}")
+            if fe == "fused" and (
+                    proc.route != "fused" or plain.calls or set(counts) != {
+                        "range_fft_fixed", "slowtime_detect_fixed"}):
+                raise AssertionError(f"fixed long {name}: the fused route "
+                                     f"ran {counts}, {plain.calls}")
+            if fe == "fused":
+                launches[name] = counts["slowtime_detect_fixed"]
+                launches["range_fft_fixed"] = (
+                    launches.get("range_fft_fixed", 0)
+                    + counts["range_fft_fixed"])
+            outs[fe] = out
+        diff = [k for k in outs["auto"]
+                if not torch.equal(outs["auto"][k], outs["fused"][k])]
+        if diff or int(outs["fused"]["n_dets"].min()) <= 0:
+            raise AssertionError(f"fixed long {name}: fused and auto differ "
+                                 f"in {diff}")
+        # Every frame of the entry config; the first 32 of the others (the
+        # golden model takes ~1.8 s a frame at 1024x256 on one core).
+        n_gold = BATCH if name == "cell" else 32
+        mags = outs["fused"]["mag_map"][:n_gold].cpu().numpy()
+        dets = outs["fused"]["det_map"][:n_gold].cpu().numpy()
+        for i in range(0, n_gold, 16):
+            golden.append((name, pool.submit(
+                golden_frames_check, (frames[i:i + 16], mags[i:i + 16],
+                                      dets[i:i + 16], p, pgr))))
+        del outs, mags, dets
+        lean = {fe: pl.make_batch_processor(
+            p, mode="fixed", frontend=fe, peak_group_radius=pgr,
+            include_maps=False, device=dev) for fe in ("fused", "auto")}
+        fps = BATCH * 1e3 / cuda_ms(lambda: lean["fused"](batch), 10)
+        fps_staged = BATCH * 1e3 / cuda_ms(lambda: lean["auto"](batch), 3, 1)
+        cells = p.n_range * p.n_doppler
+        summary[name] = {"frames_per_s": fps, "samples_per_s": fps * cells,
+                         "staged_frames_per_s": fps_staged}
+        log(f"fixed long main path {name} {LONG_NR}x{LONG_ND}: fused route "
+            f"bit-equal to auto in every output; {fps:.1f} frames/s = "
+            f"{fps * cells:.4g} samples/s (fused), staged {fps_staged:.1f} "
+            f"frames/s ({fps / fps_staged:.2f}x) at batch {BATCH} ({card})")
+    return launches, summary, golden
+
+
+def fixed_long_local_mesh(card: str, dev, pgr: int):
+    """Phase 33c: make_sharded_processor(mode="fixed", frontend="fused") on
+    a LocalMesh at sp 2 and 4 at 1024x256 (batch 16), OS and CA per-cell:
+    the fixed range kernel's chirp shards and the fixed split entry, no
+    plain stage, every output bit-equal to the single card's fused route.
+    Returns the split entry's launches in the OS run at sp 4."""
+    import torch
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
+    launches = 0
+    kw = dict(mode="fixed", frontend="fused", peak_group_radius=pgr,
+              include_maps=True)
+    for variant in ("os", "ca"):
+        p = long_params(LONG_ND, variant)
+        batch = torch.as_tensor(make_batch(p, ARRAY_BATCH, seed=45),
+                                device=dev)
+        ref = pl.make_batch_processor(p, device=dev, **kw)(batch)
+        for sp in SPLIT_SPS:
+            proc = SH.make_sharded_processor(M.LocalMesh(1, sp, dev), p, **kw)
+            kernels.reset_launch_counts()
+            with PlainStages() as plain:
+                out = proc(batch)
+                torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            diff = [k for k in ref if not torch.equal(out[k], ref[k])]
+            log(f"fixed long LocalMesh {variant} sp={sp}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items())
+                + f"; {'all outputs bit-equal' if not diff else diff} to the "
+                f"single card")
+            if (diff or plain.calls or not counts.get("range_frontend_fixed")
+                    or not counts.get("slowtime_detect_fixed_split")):
+                raise AssertionError(f"fixed long LocalMesh {variant} "
+                                     f"sp={sp}: {diff}, {counts}, "
+                                     f"{plain.calls}")
+            if variant == "os" and sp == SPLIT_SPS[-1]:
+                launches = counts["slowtime_detect_fixed_split"]
+    return launches
+
+
+def fixed_long_timings(card: str, dev, pgr: int, errs, launches):
+    """Phase 33d: graph-replay times of the fixed slow-time kernel's
+    long-CPI entries at 1024x256, batch 128 (the kernels line) and
+    1024x2048, batch 16 (the summary): per-cell, block, CA, and the split
+    entry on an sp 4 shard; each beside its bound (bound_slowtime_fixed,
+    bound_slowtime_fixed_split: the function's least work, an nd-point
+    FP64 FFT a row), its plain twin and torch.fft.fft (complex128) of its
+    planes.  Returns (rows, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    rows, summary = [], {}
+    for nd, batch in ((LONG_ND, BATCH), (2048, 16)):
+        iq = torch.as_tensor(make_batch(long_params(nd), batch, seed=47),
+                             device=dev)
+        re, im, _ = FX.range_fft_fixed(iq)
+        del iq
+        z = torch.complex(re.double(), im.double())
+        fft = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        entries = []
+        for name, p in (("cell", long_params(nd)),
+                        ("block", P.fast().replace(n_doppler=nd)),
+                        ("ca", long_params(nd, "ca"))):
+            kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+            entries.append((
+                f"slowtime_detect_fixed[long,{name}]",
+                lambda kw=kw: FX.slowtime_detect_fixed(re, im, False, 0,
+                                                       **kw),
+                lambda kw=kw: FX.slowtime_detect_fixed_plain(re, im, False,
+                                                             0, **kw),
+                bound_slowtime_fixed(batch, LONG_NR, nd, p.cfar),
+                launches.get(name, 0), errs["detect"],
+                "fmcw_tpu/ops/frontend_pallas.py:971"))
+        cfar = long_params(nd).cfar
+        sp, s = 4, 1
+        nrl, h = LONG_NR // sp, cfar.halo_range + pgr
+        ext = torch.arange(s * nrl - h, (s + 1) * nrl + h, device=dev) % LONG_NR
+        lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+        args = (re[:, core].contiguous(), im[:, core].contiguous(),
+                (re[:, lo].contiguous(), im[:, lo].contiguous()),
+                (re[:, hi].contiguous(), im[:, hi].contiguous()), False, 0,
+                s * nrl)
+        skw = dict(cfar=cfar, n_range_total=LONG_NR, peak_group_radius=pgr)
+        z = torch.complex(re[:, ext].double(), im[:, ext].double())
+        fft_shard = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        entries.append((
+            "slowtime_detect_fixed_split[long]",
+            lambda: SF.slowtime_detect_fixed_split(*args, **skw),
+            lambda: SF.slowtime_detect_fixed_split_plain(*args, **skw),
+            bound_slowtime_fixed_split(batch, nrl, nd, h, cfar),
+            launches.get("split", 0), errs["split"],
+            "fmcw_tpu/ops/split_frontend.py:709"))
+        for name, call, plain, (bound, by), n, err, line in entries:
+            ms = graph_ms(call)
+            plain_ms = cuda_ms(plain, 2, 1)
+            lib = fft_shard if "split" in name else fft
+            log(f"{name} {LONG_NR}x{nd} batch {batch}: {ms:.4f} ms (graph), "
+                f"plain {plain_ms:.4f} ms, torch.fft.fft complex128 of its "
+                f"planes {lib:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
+            summary[f"{name}@{nd}x{batch}"] = {
+                "ms": ms, "plain_ms": plain_ms, "fft_ms": lib,
+                "bound_ms": bound, "bound_by": by}
+            if nd == LONG_ND:
+                # No PyTorch call computes an entry: torch.fft.fft is only
+                # its transform's share (the summary's fft_ms).
+                rows.append(dict(name=name, route="cuda",
+                                 source=FIXED_LONG_SRC, replaces=line,
+                                 launches=n, max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=by, library_ms=None))
+        del re, im, args
+    return rows, summary
+
+
+def fixed_long_phase(card: str, dev, pgr: int):
+    """Phase 33: the fixed slow-time kernel's long CPIs (33a-d above); the
+    main path first, whose golden checks run in worker processes during
+    the rest.  Returns (kernel rows, summary)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    import torch
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    with cf.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        launches, summary, golden = fixed_long_main_path(card, dev, pgr,
+                                                         pool)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        errs, tw_bins = fixed_long_kernel_checks(dev, pgr)
+        t2 = time.perf_counter()
+        launches["split"] = fixed_long_local_mesh(card, dev, pgr)
+        t3 = time.perf_counter()
+        rows, timings = fixed_long_timings(card, dev, pgr, errs, launches)
+        t4 = time.perf_counter()
+        done = {}
+        for name, fut in golden:
+            ok, n = fut.result()
+            okn = done.setdefault(name, [True, 0])
+            okn[0] &= ok
+            okn[1] += n
+        for name, (ok, n) in done.items():
+            log(f"fixed long main path {name}: mag and det maps vs the "
+                f"golden process_frame_fixed on "
+                f"{BATCH if name == 'cell' else 32} frames: "
+                f"{'equal' if ok else 'DIFFER'} ({n} detections)")
+            if not ok:
+                raise AssertionError(f"fixed long {name} differs from the "
+                                     f"golden model")
+    t5 = time.perf_counter()
+    log(f"fixed long-CPI phase: 33b {t1 - t0:.1f} s, 33a {t2 - t1:.1f} s, "
+        f"33c {t3 - t2:.1f} s, 33d {t4 - t3:.1f} s, golden wait "
+        f"{t5 - t4:.1f} s")
+    return rows, {"main_path": summary, "timings": timings,
+                  "launches": launches,
+                  "golden_exact_bin_differences": tw_bins}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6533,6 +6983,12 @@ def main() -> int:
     log(f"phases 1-31: {time.perf_counter() - t_start:.1f} s")
     long_rows, long_summary = long_cpi_phase(card, dev, pgr)
 
+    # 33. Long CPIs in fixed mode: the fixed slow-time kernel's long-CPI
+    #     entries against the twin and the golden model, the fused fixed
+    #     route at 1024x256, a LocalMesh, timings.
+    log(f"phases 1-32: {time.perf_counter() - t_start:.1f} s")
+    fixed_long_rows, fixed_long_summary = fixed_long_phase(card, dev, pgr)
+
     # The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
@@ -6547,7 +7003,7 @@ def main() -> int:
                          **results[f"slowtime_detect[{mode}]"]))
     rows += (fixed_rows + array_rows + split_rows + rank_rows + entry_rows
              + hw_rows + variant_rows + reflect_rows + rank_reflect_rows
-             + cfar3d_reflect_rows + long_rows)
+             + cfar3d_reflect_rows + long_rows + fixed_long_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
@@ -6569,6 +7025,7 @@ def main() -> int:
                     "rank_reflect": rank_reflect_summary,
                     "cfar3d_reflect": cfar3d_reflect_summary,
                     "long_cpi": long_summary,
+                    "fixed_long_cpi": fixed_long_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

@@ -79,14 +79,14 @@
 // rows no longer fits a block (at ND = 2048 one row is 8 KB of
 // magnitudes), so every entry runs two launches there: the magnitude-only
 // kernel at long CPIs (slowtime_mag_long_kernel) writes the map, then the
-// decide kernel (slowtime_decide_kernel) reads it in tiles of T rows x a
-// chunk of W columns, with H halo rows and HC halo columns that wrap on
-// both axes (or, in the split entry, the rows of the halo-extended slab),
-// and runs the same cfar_tile.cuh / cfar_common.cuh decision on them:
-// the decisions are the plain twin's bit for bit on the same magnitudes.
-// Row maxima combine across chunks by atomicMax on the float bits (det is
-// never negative or NaN).  The extra map write and read (8 B a cell) is
-// the cost of the design; the TPU kernel keeps the frame in VMEM.
+// decide kernel (slowtime_long.cuh's slowtime_decide_kernel, shared with
+// the fixed kernel) reads it in tiles of T rows x a chunk of W columns,
+// with H halo rows and HC halo columns that wrap on both axes (or, in the
+// split entry, the rows of the halo-extended slab), and runs the same
+// cfar_tile.cuh / cfar_common.cuh decision on them: the decisions are the
+// plain twin's bit for bit on the same magnitudes.  The extra map write
+// and read (8 B a cell) is the cost of the design; the TPU kernel keeps
+// the frame in VMEM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,27 +94,22 @@
 #include "cfar_common.cuh"
 #include "cfar_tile.cuh"
 #include "slowtime_common.cuh"
+#include "slowtime_long.cuh"
 
 namespace {
 
+using fmcw::kInner;
 using fmcw::kMaxBlk;
 using fmcw::kMaxSmem;
+using fmcw::long_cpi;
 using fmcw::Row;
 constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMagWarps = 8;            // magnitude-only kernel
 constexpr int kMagRowsPerWarp = 4;
-constexpr int kDecideThreads = 256;     // long-CPI decide kernel
 constexpr int kLongWarps = 4;           // long-CPI magnitude kernel
 constexpr int kLongBlocks = 8192;       // its grid (rows striding)
-constexpr int kInner = 128;             // a long row's inner transform
-constexpr int kMaxSplit = 16;           // n2d, as JAX's split
 constexpr unsigned kFull = 0xffffffffu;
-
-// ND = n2d x 128, 2 <= n2d <= 16: the long-CPI split.
-inline bool long_cpi(int nd) {
-    return nd > kInner && nd % kInner == 0 && nd / kInner <= kMaxSplit;
-}
 
 struct Params {
     const float* xr;
@@ -641,166 +636,6 @@ slowtime_mag_long_kernel(const Params p) {
     }
 }
 
-// The decision tile of a long-CPI map: T + 2H rows of W + 2HC columns, laid
-// out as a short map's tile of that width (fmcw::TileLayout), one count.
-__host__ __device__ inline fmcw::TileLayout chunk_layout(
-        const SlowtimeConfig& c) {
-    SlowtimeConfig t = c;
-    t.ND = c.W + 2 * c.HC;
-    return fmcw::tile_layout(t, 1);
-}
-
-inline bool long_config_ok(const SlowtimeConfig& c) {
-    const int E = c.T + 2 * c.H, WC = c.W + 2 * c.HC;
-    const int rows = c.T + 2 * c.pgr;
-    if (!long_cpi(c.ND) || c.batch < 1 || c.batch > 65535 || c.T < 1 ||
-        c.R % c.T || c.W < 1 || c.ND % c.W || c.pgr < 0 ||
-        c.hr + c.pgr > c.H || c.hd + c.pgr > c.HC || c.hd >= c.ND ||
-        c.pgr >= c.ND || c.row_off < 0 || c.r_total < c.R + c.row_off ||
-        rows < fmcw::kStrip || c.variant < 0 || c.variant > fmcw::kSO ||
-        (c.variant == 0 && c.n_ref > fmcw::kMaxPackedRef<float>) ||
-        (c.notch_mode != 2 && c.notch_mode != 3))
-        return false;
-    if (c.block_mode &&
-        (c.sb < 1 || c.T % c.sb || c.H % c.sb || c.W % c.sb ||
-         c.HC % c.sb || c.ND % c.sb || c.H < 2 * c.sb + c.pgr ||
-         c.HC < 2 * c.sb + c.pgr || (E / c.sb) * (WC / c.sb) > kMaxBlk))
-        return false;
-    return (long long)(c.R / c.T) * (c.ND / c.W) <= 0x7fffffffLL &&
-           (fmcw::strip_units(rows, c.W + 2 * c.pgr) + kDecideThreads - 1) /
-                   kDecideThreads * fmcw::kStrip <= 64 &&
-           (size_t)chunk_layout(c).total * sizeof(float) <=
-               (size_t)kMaxSmem;
-}
-
-// Peak grouping and stores of a chunk's T x W cells (map rows r0 .., map
-// columns c0 ..; tile columns HC ..): det_s (rows x WC) holds the
-// decisions of rows r0 - pgr .. and of tile columns HC - pgr .. HC + W +
-// pgr - 1.  As fmcw::group_store (a strict maximum of the (2 pgr + 1)^2
-// neighbourhood, ties to the lower linear index), with the global ids
-// (row_id modulo r_total) ND + (column modulo ND); row maxima into rmax_s,
-// the detection count into counts[0].
-__device__ __forceinline__ void group_store_chunk(
-        const float* det_s, int T, int W, int WC, int HC, int pgr,
-        int r_total, int ND, int row_id0, int c0, float* det_out,
-        int* rmax_s, int* counts) {
-    int my_dets = 0;
-    for (int idx = threadIdx.x; idx < T * W; idx += blockDim.x) {
-        const int t = idx / W, j = idx % W;
-        const int er = t + pgr, d = HC + j;
-        const float m = det_s[er * WC + d];
-        float out = m;
-        if (pgr > 0 && m > 0.f) {
-            const int id = (row_id0 + t) * ND + c0 + j;
-            for (int dr = -pgr; dr <= pgr && out > 0.f; ++dr) {
-                const int nr = fmcw::wrap_mod(row_id0 + t + dr, r_total);
-                for (int dd = -pgr; dd <= pgr; ++dd) {
-                    if (dr == 0 && dd == 0) continue;
-                    const float v = det_s[(er + dr) * WC + d + dd];
-                    const int nid = nr * ND + fmcw::wrap_mod(c0 + j + dd, ND);
-                    if (v > m || (v == m && nid < id)) {
-                        out = 0.f;
-                        break;
-                    }
-                }
-            }
-        }
-        det_out[(size_t)t * ND + c0 + j] = out;
-        if (out > 0.f) {
-            ++my_dets;
-            atomicMax(&rmax_s[t], __float_as_int(out));
-        }
-    }
-    if (my_dets) atomicAdd(&counts[0], my_dets);
-}
-
-// The decision of a long-CPI map (p.mag, (B, R, ND), or with kHalo the
-// split entry's slab (B, R + 2H, ND)): one block of kDecideThreads per
-// (frame, tile of T rows x chunk of W columns) loads the magnitudes of its
-// T + 2H rows (wrapped modulo R, or the slab's) and W + 2HC columns
-// (wrapped modulo ND), so that the windows, block-scale neighbourhoods and
-// grouping radius of its cells lie in the tile with no column wrap;
-// decides the T + 2 pgr rows and W + 2 pgr columns the grouping reads,
-// with the calls of slowtime_detect_kernel's step 2 on a map of WC
-// columns; groups and stores its T x W cells (group_store_chunk) and adds
-// its row maxima (atomicMax of the float bits: det is never negative or
-// NaN; row_max zeroed by the caller) and detection count.
-template <bool kHalo, bool kMean>
-__global__ void __launch_bounds__(kDecideThreads, 2)
-slowtime_decide_kernel(const Params p) {
-    extern __shared__ float smem[];
-    const SlowtimeConfig& c = p.c;
-    const int ND = c.ND, WC = c.W + 2 * c.HC;
-    const int E = c.T + 2 * c.H;
-    const int rows = c.T + 2 * c.pgr;
-    const fmcw::TileLayout lay = chunk_layout(c);
-    float* mag_s = smem;
-    float* det_s = smem + lay.det;
-    float* cs_guard = smem + lay.cs_guard;
-    float* bsum = smem + lay.blk;
-    float* bnb = bsum + kMaxBlk;
-    int* bhi = reinterpret_cast<int*>(bnb + kMaxBlk);
-    int* blo = bhi + kMaxBlk;
-    int* bscale = blo + kMaxBlk;
-    int* rmax_s = reinterpret_cast<int*>(smem + lay.rmax);
-    int* counts = reinterpret_cast<int*>(smem + lay.counts);
-    const int tid = threadIdx.x;
-    const int b = blockIdx.y;
-    const int n_chunks = ND / c.W;
-    const int r0 = (int)(blockIdx.x / n_chunks) * c.T;
-    const int c0 = (int)(blockIdx.x % n_chunks) * c.W;
-
-    for (int i = tid; i < c.T; i += kDecideThreads) rmax_s[i] = 0;
-    if (tid == 0) counts[0] = 0;
-
-    // ---- 1. The tile's magnitudes.
-    const int map_rows = kHalo ? c.R + 2 * c.H : c.R;
-    const float* map = p.mag + (size_t)b * map_rows * ND;
-    for (int i = tid; i < E * WC; i += kDecideThreads) {
-        const int e = i / WC, j = i - e * WC;
-        const int g = kHalo ? r0 + e : fmcw::wrap_mod(r0 - c.H + e, c.R);
-        mag_s[i] = map[(size_t)g * ND + fmcw::wrap_mod(c0 - c.HC + j, ND)];
-    }
-    __syncthreads();
-
-    // ---- 2. The scale's statistics and the decision, as the short
-    //         kernel's, of decided rows H-pgr .. and tile columns HC-pgr ..
-    const fmcw::CfarGeom g{c.hr, c.hd, c.gr, c.gd, c.n_ref, c.k,
-                           c.scale_min, c.scale_nom, c.scale_max};
-    const int e_first = c.H - c.pgr;
-    const int* scale_blk = nullptr;
-    if (c.block_mode) {
-        if (c.so == 0) {
-            fmcw::block_scale_tile(mag_s, E, WC, c.sb, c.n_blk, c.k_blk, g,
-                                   bsum, bnb, bhi, blo, bscale);
-            scale_blk = bscale;
-        }
-    } else if (!kMean && c.so == 0) {
-        fmcw::tile_colsums(mag_s, WC, e_first, rows, g, det_s, cs_guard);
-        __syncthreads();
-    }
-    if constexpr (kMean) {
-        if (fmcw::mean_needs_sums(c.variant, c.block_mode, c.so)) {
-            fmcw::tile_colsums<float, false>(mag_s, WC, e_first, rows, g,
-                                             det_s, nullptr);
-            __syncthreads();
-        }
-    }
-    fmcw::decide_tile<float, fmcw::MapSem<float>, kMean>(
-        mag_s, det_s, e_first, rows, WC, det_s, cs_guard, scale_blk, c.sb,
-        c.so, g, c.variant, c.HC - c.pgr, c.W + 2 * c.pgr);
-
-    // ---- 3. Grouping, stores, row maxima and the count.
-    group_store_chunk(det_s, c.T, c.W, WC, c.HC, c.pgr, c.r_total, ND,
-                      c.row_off + r0, c0,
-                      p.det + ((size_t)b * c.R + r0) * ND, rmax_s, counts);
-    __syncthreads();
-    int* row_max = reinterpret_cast<int*>(p.row_max) + (size_t)b * c.R + r0;
-    for (int t = tid; t < c.T; t += kDecideThreads)
-        if (rmax_s[t]) atomicMax(row_max + t, rmax_s[t]);
-    if (tid == 0 && counts[0]) atomicAdd(&p.n_dets[b], counts[0]);
-}
-
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
@@ -850,25 +685,13 @@ int launch_mag_long(const Params& p, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-template <bool kHalo, bool kMean>
-int launch_decide(const Params& p, cudaStream_t stream) {
-    static bool ready[fmcw::kMaxDevices] = {};
-    auto* kernel = slowtime_decide_kernel<kHalo, kMean>;
-    const cudaError_t err = fmcw::prepare(kernel, ready);
-    if (err != cudaSuccess) return (int)err;
-    const size_t smem = (size_t)chunk_layout(p.c).total * sizeof(float);
-    const dim3 grid((p.c.R / p.c.T) * (p.c.ND / p.c.W), p.c.batch);
-    kernel<<<grid, kDecideThreads, smem, stream>>>(p);
-    return (int)cudaGetLastError();
-}
-
 // A long CPI's detection: the map (p.mag), then its decision.
 template <bool kHalo>
 int launch_long(const Params& p, cudaStream_t stream) {
     const int err = launch_mag_long<kHalo>(p, stream);
     if (err) return err;
-    return p.c.variant ? launch_decide<kHalo, true>(p, stream)
-                       : launch_decide<kHalo, false>(p, stream);
+    return fmcw::launch_decide<float, fmcw::MapSem<float>, float, kHalo>(
+        {p.mag, p.det, p.row_max, p.n_dets, p.c}, stream);
 }
 
 }  // namespace
@@ -889,8 +712,8 @@ extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
                                     const SlowtimeConfig* cfg, void* stream) {
     const SlowtimeConfig c = *cfg;
     const bool lng = long_cpi(c.ND);
-    if (!(lng ? long_config_ok(c) && mag : detect_config_ok(c)) || !win ||
-        !tw)
+    if (!(lng ? fmcw::long_config_ok(c) && mag : detect_config_ok(c)) ||
+        !win || !tw)
         return (int)cudaErrorInvalidValue;
     Params p{static_cast<const float*>(xr), static_cast<const float*>(xi),
              nullptr, nullptr, nullptr, nullptr,
@@ -957,8 +780,7 @@ extern "C" int fmcw_slowtime_detect_split(
         const SlowtimeConfig* cfg, void* stream) {
     const SlowtimeConfig c = *cfg;
     const bool lng = long_cpi(c.ND);
-    const bool ok = lng ? long_config_ok(c) && !c.block_mode &&
-                              c.H == c.hr + c.pgr && mag
+    const bool ok = lng ? fmcw::long_split_config_ok(c) && mag
                         : fmcw::split_config_ok(c) && detect_config_ok(c);
     if (!ok || !lo_r || !lo_i || !hi_r || !hi_i || !win || !tw)
         return (int)cudaErrorInvalidValue;

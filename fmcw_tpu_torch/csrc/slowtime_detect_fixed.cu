@@ -103,6 +103,25 @@
 //
 // Bound on an H100: operations (the CFAR's compares, then the FP64 FFT);
 // the bytes are 0.5 MiB in and 0.5 MiB out per 1024x128 frame.
+//
+// Long CPIs (ND = n2d x 128, 2 <= n2d <= 16): the long-CPI Doppler split of
+// the TPU kernels (frontend_pallas.py _kernel_fixed :835-840 and its n2d >
+// 1 branch :971-1006, split_frontend.py _kernel_slowtime_fixed :640-642
+// and :709-733).  Every entry runs two launches there, as kernel B's:
+// slowtime_mag_long_kernel writes the int32 magnitude map, one warp a row
+// (long_row: the MTI and window over the whole row, then per plane k2d
+// the outer DFT_n2d, the twiddle W_ND^(j1 k2d) and the short rows' 128-
+// point lane transform, the spectrum plane-major in shared memory; the
+// BFP exponent from the whole row's peak; natural-order stores), then
+// slowtime_long.cuh's decide kernel decides it on IntInFloat tiles of T
+// rows x a chunk of W columns.  The exact quarter- and eighth-turn bins
+// all lie on plane 0, whose outer DFT is a sum of integers (long_row);
+// where 3 divides n2d, the sixth- and twelfth-turn bins (cos and sin
+// half-integers or multiples of sqrt(3)/2) are recomputed exactly from
+// class sums (twelfth_bins), in the kernel and its twin alike.
+// Sixteenth-turn bins (k = m ND/16, m odd, at n2d >= 2) and the n2d-th
+// turns of n2d = 5, 7, ... are not treated as exact, as the short rows'
+// sixteenth turns are not.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,19 +130,26 @@
 #include "cfar_tile.cuh"
 #include "fixed_point.cuh"
 #include "slowtime_common.cuh"
+#include "slowtime_long.cuh"
 
 namespace {
 
+using fmcw::kInner;
 using fmcw::kMaxBlk;
 using fmcw::kMaxSmem;
+using fmcw::long_cpi;
 using fmcw::Row;
 using Mag = float;                      // the tile: integers held in float
 using Sem = fmcw::IntInFloat;
 constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
+constexpr int kLongWarps = 4;           // long-CPI magnitude kernel
+constexpr int kLongBlocks = 8192;       // its grid (rows striding)
 constexpr unsigned kFull = 0xffffffffu;
 // cos(pi/4) = ops/fft.twiddles64(8)[1].real.
 constexpr double kC8 = 0x1.6a09e667f3bcdp-1;
+// sqrt(3)/2 rounded to nearest = ops/fft.C3.
+constexpr double kC3 = 0x1.bb67ae8584caap-1;
 
 struct Params {
     const int16_t* xr;
@@ -197,6 +223,105 @@ __device__ __forceinline__ void eighth_bin(const int (&u)[8], int m,
     xi = __dadd_rn((double)ei, __dmul_rn(kC8, (double)pi));
 }
 
+// The lane transform of an N-point row held P = N / L points a lane (point
+// s = l P + p, L = min(32, N); all 32 lanes of the warp call it together),
+// in FP64: the L-point radix-2 DIF across the lanes, the twiddles W_N^(p
+// k1) (k1 = bit_reverse(l)) and the P-point transform.  tw[stride m] =
+// W_N^m (the whole row's table: stride 1, or n2d for a long row's inner
+// transform).  Lane l ends with X[k1 + L k2], k2 < P, in (xo, yo).  With
+// exact_bins, the eighth-turn bins k = m N/8 (m odd) are recomputed
+// exactly (eighth_bin) from u: the class sums given at P = 1, the lane's
+// own DIF outputs at P >= 2 (exact integers for integer inputs: k1 is a
+// multiple of L/4, on the quarter-turn path).
+template <int N>
+__device__ __forceinline__ void lane_dft(double (&yr)[Row<N>::P],
+                                         double (&yi)[Row<N>::P],
+                                         const double2* tw, int stride,
+                                         int l, bool exact_bins, int (&u)[8],
+                                         double (&xo)[Row<N>::P],
+                                         double (&yo)[Row<N>::P]) {
+    using R = Row<N>;
+    constexpr int P = R::P, L = R::L;
+    const int k1 = (int)(__brev((unsigned)l) >> (32 - R::kLog2L));
+    const bool eighth = exact_bins && (k1 & (N / 4 - 1)) == N / 8;
+    // The L-point DIF across the lanes, one transform per p: lane l ends
+    // with bin k1 of each.
+#pragma unroll
+    for (int st = 0; st < R::kLog2L; ++st) {
+        const int h = L >> (st + 1);
+        const bool upper = (l & h) != 0;
+        const double2 w = ld_nc(tw + (l & (h - 1)) * (N / (2 * h)) * stride);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            const double br = __shfl_xor_sync(kFull, yr[p], h, L);
+            const double bi = __shfl_xor_sync(kFull, yi[p], h, L);
+            if (upper) {
+                yr[p] = __dsub_rn(br, yr[p]);
+                yi[p] = __dsub_rn(bi, yi[p]);
+                cmul(yr[p], yi[p], w);
+            } else {
+                yr[p] = __dadd_rn(yr[p], br);
+                yi[p] = __dadd_rn(yi[p], bi);
+            }
+        }
+    }
+    // At P >= 2 an eighth-turn lane's Y_p[k1] are exact integers: X[k1 + L
+    // k2] = sum_p Y_p W_8^(p m), so u_p = Y_p (P = 4) or u = {Y_0, Y_1, 0,
+    // 0} (P = 2).
+    if constexpr (P >= 2) {
+        if (eighth) {
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+                u[2 * p] = __double2int_rn(yr[p]);
+                u[2 * p + 1] = __double2int_rn(yi[p]);
+            }
+        }
+    }
+    //    X[k1 + L k2] = sum_p Y_p[k1] W_N^(p k1) W_P^(p k2).
+#pragma unroll
+    for (int p = 1; p < P; ++p)
+        cmul(yr[p], yi[p], ld_nc(tw + p * k1 * stride));
+    if constexpr (P == 1) {
+        xo[0] = yr[0];
+        yo[0] = yi[0];
+    } else if constexpr (P == 2) {
+        xo[0] = __dadd_rn(yr[0], yr[1]);
+        yo[0] = __dadd_rn(yi[0], yi[1]);
+        xo[1] = __dsub_rn(yr[0], yr[1]);
+        yo[1] = __dsub_rn(yi[0], yi[1]);
+    } else {
+        const double s0r = __dadd_rn(yr[0], yr[2]), s0i = __dadd_rn(yi[0], yi[2]);
+        const double d0r = __dsub_rn(yr[0], yr[2]), d0i = __dsub_rn(yi[0], yi[2]);
+        const double s1r = __dadd_rn(yr[1], yr[3]), s1i = __dadd_rn(yi[1], yi[3]);
+        const double d1r = __dsub_rn(yr[1], yr[3]), d1i = __dsub_rn(yi[1], yi[3]);
+        xo[0] = __dadd_rn(s0r, s1r);
+        yo[0] = __dadd_rn(s0i, s1i);
+        xo[1] = __dadd_rn(d0r, d1i);
+        yo[1] = __dsub_rn(d0i, d1r);
+        xo[2] = __dsub_rn(s0r, s1r);
+        yo[2] = __dsub_rn(s0i, s1i);
+        xo[3] = __dsub_rn(d0r, d1i);
+        yo[3] = __dadd_rn(d0i, d1r);
+    }
+    // The eighth-turn bins, exactly: bin k1 + L k2 = m N / 8.
+    if (eighth) {
+#pragma unroll
+        for (int k2 = 0; k2 < P; ++k2)
+            eighth_bin(u, (k1 + L * k2) / (N / 8), xo[k2], yo[k2]);
+    }
+}
+
+// The magnitude max + (min >> 2) + (min >> 3) of a bin quantized with the
+// BFP scale sc (magnitude_calc.vhd:70-88).
+__device__ __forceinline__ int int_magnitude(double xr, double xi,
+                                             double sc) {
+    const int ar = abs(fmcw::bfp_quantize(xr, sc));
+    const int ai = abs(fmcw::bfp_quantize(xi, sc));
+    const int mx = ar > ai ? ar : ai;
+    const int mn = ar > ai ? ai : ar;
+    return mx + (mn >> 2) + (mn >> 3);
+}
+
 // The fixed slow-time chain of the row (rr, ri) on the L lanes l = 0 .. L-1
 // of a lane group (all 32 lanes of the warp call it together): lane l holds
 // chirps s = l P + p.  Calls sink(k, magnitude) for its P Doppler bins k =
@@ -262,8 +387,6 @@ __device__ __forceinline__ int slowtime_row(const int16_t* rr,
         xi[p] = fmcw::window_q15(xi[p], w, c.rnd, c.shift, &s);
         sat += s;
     }
-    const int k1 = (int)(__brev((unsigned)l) >> (32 - R::kLog2L));
-    const bool eighth = (k1 & (ND / 4 - 1)) == ND / 8;
     // u: the exact parts of the lane's eighth-turn bins (eighth_bin).  At
     // P = 1 the class sums T_r (r = l mod 8) over the lane group, u_r =
     // T_r - T_(r+4) on lanes r < 4, gathered from them.
@@ -283,92 +406,254 @@ __device__ __forceinline__ int slowtime_row(const int16_t* rr,
             u[2 * j + 1] = __shfl_sync(kFull, ui, j, L);
         }
     }
-    // 2. FP64 (exact), the L-point DIF across the lanes, one transform per
-    //    p: lane l ends with bin k1 of each.
-    double yr[P], yi[P];
+    // 2-3. FP64 (exact), the lane transform, the exact eighth-turn bins.
+    double yr[P], yi[P], xo[P], yo[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
         yr[p] = (double)xr[p];
         yi[p] = (double)xi[p];
     }
-#pragma unroll
-    for (int st = 0; st < R::kLog2L; ++st) {
-        const int h = L >> (st + 1);
-        const bool upper = (l & h) != 0;
-        const double2 w = ld_nc(tw + (l & (h - 1)) * (ND / (2 * h)));
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-            const double br = __shfl_xor_sync(kFull, yr[p], h, L);
-            const double bi = __shfl_xor_sync(kFull, yi[p], h, L);
-            if (upper) {
-                yr[p] = __dsub_rn(br, yr[p]);
-                yi[p] = __dsub_rn(bi, yi[p]);
-                cmul(yr[p], yi[p], w);
-            } else {
-                yr[p] = __dadd_rn(yr[p], br);
-                yi[p] = __dadd_rn(yi[p], bi);
-            }
-        }
-    }
-    // At P >= 2 an eighth-turn lane's Y_p[k1] are exact integers: X[k1 + L
-    // k2] = sum_p Y_p W_8^(p m), so u_p = Y_p (P = 4) or u = {Y_0, Y_1, 0,
-    // 0} (P = 2).
-    if constexpr (P >= 2) {
-        if (eighth) {
-#pragma unroll
-            for (int p = 0; p < P; ++p) {
-                u[2 * p] = __double2int_rn(yr[p]);
-                u[2 * p + 1] = __double2int_rn(yi[p]);
-            }
-        }
-    }
-    //    X[k1 + L k2] = sum_p Y_p[k1] W_ND^(p k1) W_P^(p k2).
-#pragma unroll
-    for (int p = 1; p < P; ++p) cmul(yr[p], yi[p], ld_nc(tw + p * k1));
-    double xo[P], yo[P];                    // X[k1 + L k2], k2 = 0 .. P-1
-    if constexpr (P == 1) {
-        xo[0] = yr[0];
-        yo[0] = yi[0];
-    } else if constexpr (P == 2) {
-        xo[0] = __dadd_rn(yr[0], yr[1]);
-        yo[0] = __dadd_rn(yi[0], yi[1]);
-        xo[1] = __dsub_rn(yr[0], yr[1]);
-        yo[1] = __dsub_rn(yi[0], yi[1]);
-    } else {
-        const double s0r = __dadd_rn(yr[0], yr[2]), s0i = __dadd_rn(yi[0], yi[2]);
-        const double d0r = __dsub_rn(yr[0], yr[2]), d0i = __dsub_rn(yi[0], yi[2]);
-        const double s1r = __dadd_rn(yr[1], yr[3]), s1i = __dadd_rn(yi[1], yi[3]);
-        const double d1r = __dsub_rn(yr[1], yr[3]), d1i = __dsub_rn(yi[1], yi[3]);
-        xo[0] = __dadd_rn(s0r, s1r);
-        yo[0] = __dadd_rn(s0i, s1i);
-        xo[1] = __dadd_rn(d0r, d1i);
-        yo[1] = __dsub_rn(d0i, d1r);
-        xo[2] = __dsub_rn(s0r, s1r);
-        yo[2] = __dsub_rn(s0i, s1i);
-        xo[3] = __dsub_rn(d0r, d1i);
-        yo[3] = __dadd_rn(d0i, d1r);
-    }
-    // 3. The eighth-turn bins, exactly: bin k1 + L k2 = m ND / 8.
-    if (eighth) {
-#pragma unroll
-        for (int k2 = 0; k2 < P; ++k2)
-            eighth_bin(u, (k1 + L * k2) / (ND / 8), xo[k2], yo[k2]);
-    }
-    // 4. BFP over the row, quantize, integer magnitude
-    //    (magnitude_calc.vhd:70-88).
+    lane_dft<ND>(yr, yi, tw, 1, l, true, u, xo, yo);
+    // 4. BFP over the row, quantize, integer magnitude.
     double pk = 0.0;
 #pragma unroll
     for (int k2 = 0; k2 < P; ++k2)
         pk = fmax(pk, fmax(fabs(xo[k2]), fabs(yo[k2])));
     const double sc = fmcw::bfp_scale(fmcw::warp_max<L>(pk));
+    const int k1 = (int)(__brev((unsigned)l) >> (32 - R::kLog2L));
 #pragma unroll
-    for (int k2 = 0; k2 < P; ++k2) {
-        const int ar = abs(fmcw::bfp_quantize(xo[k2], sc));
-        const int ai = abs(fmcw::bfp_quantize(yo[k2], sc));
-        const int mx = ar > ai ? ar : ai;
-        const int mn = ar > ai ? ai : ar;
-        sink(k1 + L * k2, mx + (mn >> 2) + (mn >> 3));
+    for (int k2 = 0; k2 < P; ++k2)
+        sink(k1 + L * k2, int_magnitude(xo[k2], yo[k2], sc));
+    return sat;
+}
+
+// ---------------------------------------------------------------------------
+// The fixed slow-time chain of a long row (ND = n2d x 128)
+// ---------------------------------------------------------------------------
+
+// The pitch, in complex values, of a plane of a long row's spectrum in
+// shared memory: 128 bins and a pad, so that the eight lanes of a
+// quarter-warp that read eight consecutive natural bins (planes k mod n2d,
+// bins k / n2d) reach eight different 16-byte bank groups at n2d = 2, 3,
+// 4, 8 and 16.
+__host__ __device__ inline int plane_pitch(int n2d) {
+    return kInner + (8 + n2d - 1) / n2d;
+}
+
+// A warp's shared memory at a long CPI: the spectrum (n2d planes of
+// double2) and the windowed chirps (int16 I and Q).
+__host__ __device__ inline size_t long_warp_bytes(int nd) {
+    const int n2d = nd / kInner;
+    return (size_t)n2d * plane_pitch(n2d) * sizeof(double2) +
+           2 * (size_t)nd * sizeof(int16_t);
+}
+
+// W_12^j = cos(pi j / 6) - i sin(pi j / 6), its cos and sin each written
+// c2 / 2 + c3 sqrt(3)/2: {c2 of the cos, c3 of the cos, c2 of the sin, c3
+// of the sin} (ops/fft.W12_PARTS).
+__constant__ int4 kW12[12] = {
+    {2, 0, 0, 0},  {0, 1, 1, 0},   {1, 0, 0, 1},   {0, 0, 2, 0},
+    {-1, 0, 0, 1}, {0, -1, 1, 0},  {-2, 0, 0, 0},  {0, -1, -1, 0},
+    {-1, 0, 0, -1}, {0, 0, -2, 0}, {1, 0, 0, -1},  {0, 1, -1, 0}};
+
+// The twelve bins k = m ND/12 (m = lane < 12) of a long row that 12
+// divides (n2d a multiple of 3), exactly, over the transform's values in
+// the spectrum spec (ops/fft._twelfth_turn_bins): with T_r the windowed
+// chirps (zr, zi) summed over s = r (mod 12), X = sum_r T_r W_12^(r m) =
+// E / 2 + (sqrt(3)/2) B, E and B sums of integers (below 2^28 at ND =
+// 1920), then E / 2 + RN(kC3 B) in FP64, the twin's operations.  Where B
+// is 0 the part is the half-integer E / 2, a round-half tie of the BFP
+// scaling that the transform's rounded twiddles need not give exactly.
+// All 32 lanes call it.
+__device__ __forceinline__ void twelfth_bins(const int16_t* zr,
+                                             const int16_t* zi, int nd,
+                                             int l, int n2d, int pitch,
+                                             double2* spec) {
+    int tr = 0, ti = 0;
+    if (l < 12) {
+        for (int s = l; s < nd; s += 12) {
+            tr += zr[s];
+            ti += zi[s];
+        }
     }
+    int er = 0, ei = 0, br = 0, bi = 0;
+    for (int r = 0; r < 12; ++r) {
+        const int a = __shfl_sync(kFull, tr, r);
+        const int b = __shfl_sync(kFull, ti, r);
+        const int4 w = kW12[(r * l) % 12];
+        er += w.x * a + w.z * b;
+        ei += w.x * b - w.z * a;
+        br += w.y * a + w.w * b;
+        bi += w.y * b - w.w * a;
+    }
+    if (l < 12) {
+        const double xr = __dadd_rn(0.5 * (double)er,
+                                    __dmul_rn(kC3, (double)br));
+        const double xi = __dadd_rn(0.5 * (double)ei,
+                                    __dmul_rn(kC3, (double)bi));
+        const int k = l * (nd / 12);
+        spec[(k % n2d) * pitch + k / n2d] = make_double2(xr, xi);
+    }
+}
+
+// acc += z w in the order (z.re w.re - z.im w.im) as two fmas each, as
+// slowtime_detect.cu's long row.
+__device__ __forceinline__ void cmac(double& ar, double& ai, double zr,
+                                     double zi, double2 w) {
+    ar = __fma_rn(zr, w.x, __fma_rn(-zi, w.y, ar));
+    ai = __fma_rn(zr, w.y, __fma_rn(zi, w.x, ai));
+}
+
+// Chirps 4 l .. 4 l + 3 of an int16 row as doubles.
+__device__ __forceinline__ void load_points64(const int16_t* row, int l,
+                                              double (&x)[4]) {
+    int v[4];
+    load_points<4>(row, l, v);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x[q] = (double)v[q];
+}
+
+// The fixed slow-time chain of a long row (rr, ri) on the 32 lanes of a
+// warp, JAX's long-CPI split (chirp s = 128 j2 + j1), into the int32
+// magnitudes out[ND] (natural order); returns the lane's Doppler-window
+// saturations:
+//   1. the saturating MTI in int32 over the whole row (lane l takes chirps
+//      s = 128 i + 4 l + q, the history before its first chirp from the
+//      lane below, lane 0's from lane 31 of the block before), the Q15
+//      window (fmcw::window_q15) into the warp's int16 buffers zr / zi;
+//   2. for k2d = 0 .. n2d-1, in FP64: lane l's points j1 = 4 l + q of the
+//      outer DFT_n2d over the blocks, sum_j2 z[128 j2 + j1] W_n2d^(j2 k2d)
+//      (j2 ascending, W_n2d^m = tw[128 m]), the twiddle W_ND^(j1 k2d)
+//      (none at k2d = 0) and the 128-point lane transform (lane_dft<128>,
+//      stride n2d), whose bin q is the row's Doppler bin n2d q + k2d,
+//      stored plane-major in spec (pitch plane_pitch(n2d)).  The
+//      quarter- and eighth-turn bins k = m ND/8 are multiples of n2d: they
+//      lie on plane 0, whose outer DFT is a sum of integers (W = tw[0] =
+//      1, exact) with no twiddle, so the short rows' exact-bin argument
+//      and eighth_bin hold there (on plane 0 only: the other planes'
+//      inputs are not integers).  Plane 0's sums reach 16 x 32768 and its
+//      eighth-turn E and P 2^26, inside int32;
+//   3. where n2d is a multiple of 3, the twelve bins m ND/12 recomputed
+//      exactly over the transform's (twelfth_bins);
+//   4. the BFP exponent from the peak of the whole row, every plane (JAX's
+//      per-row peak across its parity planes), then quantization and the
+//      integer magnitude of each natural bin k, read from plane k mod n2d
+//      (two passes over the spectrum).
+// Every FP64 operation an _rn intrinsic, so a row is the same instruction
+// sequence in every entry.  All 32 lanes call it.
+__device__ __forceinline__ int long_row(const int16_t* rr, const int16_t* ri,
+                                        const int* win, const double2* tw,
+                                        int l, const SlowtimeConfig& c,
+                                        double2* spec, int16_t* zr,
+                                        int16_t* zi, int* out) {
+    const int n2d = c.ND / kInner;
+    const int pitch = plane_pitch(n2d);
+    int h1r = 0, h1i = 0, h2r = 0, h2i = 0;
+    int sat = 0;
+#pragma unroll 1
+    for (int i = 0; i < n2d; ++i) {
+        const int s0 = i * kInner + 4 * l;
+        int xr[4], xi[4];
+        load_points<4>(rr + i * kInner, l, xr);
+        load_points<4>(ri + i * kInner, l, xi);
+        if (!c.bypass) {
+            int p1r = __shfl_up_sync(kFull, xr[3], 1);
+            int p1i = __shfl_up_sync(kFull, xi[3], 1);
+            int p2r = __shfl_up_sync(kFull, xr[2], 1);
+            int p2i = __shfl_up_sync(kFull, xi[2], 1);
+            if (l == 0) {
+                p1r = h1r; p1i = h1i; p2r = h2r; p2i = h2i;
+            }
+            h1r = __shfl_sync(kFull, xr[3], 31);
+            h1i = __shfl_sync(kFull, xi[3], 31);
+            h2r = __shfl_sync(kFull, xr[2], 31);
+            h2i = __shfl_sync(kFull, xi[2], 31);
+#pragma unroll
+            for (int q = 3; q >= 0; --q) {
+                const int i1 = q >= 1 ? q - 1 : 0, i2 = q >= 2 ? q - 2 : 0;
+                const int a1r = q >= 1 ? xr[i1] : p1r;
+                const int a1i = q >= 1 ? xi[i1] : p1i;
+                const int a2r = q >= 2 ? xr[i2] : (q == 1 ? p1r : p2r);
+                const int a2i = q >= 2 ? xi[i2] : (q == 1 ? p1i : p2i);
+                int yr, yi;
+                if (c.notch_mode == 2) {
+                    yr = xr[q] - a1r;
+                    yi = xi[q] - a1i;
+                } else {
+                    yr = xr[q] - 2 * a1r + a2r;
+                    yi = xi[q] - 2 * a1i + a2i;
+                }
+                yr = min(max(yr, -32768), 32767);
+                yi = min(max(yi, -32768), 32767);
+                if (c.transient_zero && s0 + q < c.notch_mode - 1)
+                    yr = yi = 0;
+                xr[q] = yr;
+                xi[q] = yi;
+            }
+        }
+        unsigned pr[2], pi[2];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int w = ld_nc(win + s0 + q);
+            int s;
+            xr[q] = fmcw::window_q15(xr[q], w, c.rnd, c.shift, &s);
+            sat += s;
+            xi[q] = fmcw::window_q15(xi[q], w, c.rnd, c.shift, &s);
+            sat += s;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            pr[h] = (xr[2 * h] & 0xffffu) | ((unsigned)xr[2 * h + 1] << 16);
+            pi[h] = (xi[2 * h] & 0xffffu) | ((unsigned)xi[2 * h + 1] << 16);
+        }
+        *reinterpret_cast<uint2*>(zr + s0) = make_uint2(pr[0], pr[1]);
+        *reinterpret_cast<uint2*>(zi + s0) = make_uint2(pi[0], pi[1]);
+    }
+    __syncwarp();
+    const int k1 = (int)(__brev((unsigned)l) >> 27);
+#pragma unroll 1
+    for (int k2d = 0; k2d < n2d; ++k2d) {
+        double yr[4], yi[4];
+        load_points64(zr, l, yr);
+        load_points64(zi, l, yi);
+        int m = 0;
+#pragma unroll 2
+        for (int j2 = 1; j2 < n2d; ++j2) {
+            m += k2d;
+            if (m >= n2d) m -= n2d;
+            const double2 w = ld_nc(tw + m * kInner);
+            double br[4], bi[4];
+            load_points64(zr + j2 * kInner, l, br);
+            load_points64(zi + j2 * kInner, l, bi);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) cmac(yr[q], yi[q], br[q], bi[q], w);
+        }
+        if (k2d > 0) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                cmul(yr[q], yi[q], ld_nc(tw + (4 * l + q) * k2d));
+        }
+        int u[8] = {};
+        double xo[4], yo[4];
+        lane_dft<kInner>(yr, yi, tw, n2d, l, k2d == 0, u, xo, yo);
+        double2* plane = spec + k2d * pitch;
+#pragma unroll
+        for (int k2 = 0; k2 < 4; ++k2)
+            plane[k1 + 32 * k2] = make_double2(xo[k2], yo[k2]);
+    }
+    if (n2d % 3 == 0) twelfth_bins(zr, zi, c.ND, l, n2d, pitch, spec);
+    __syncwarp();
+    double pk = 0.0;
+    for (int k = l; k < c.ND; k += 32) {
+        const double2 v = spec[(k % n2d) * pitch + k / n2d];
+        pk = fmax(pk, fmax(fabs(v.x), fabs(v.y)));
+    }
+    const double sc = fmcw::bfp_scale(fmcw::warp_max<32>(pk));
+    for (int k = l; k < c.ND; k += 32) {
+        const double2 v = spec[(k % n2d) * pitch + k / n2d];
+        out[k] = int_magnitude(v.x, v.y, sc);
+    }
+    __syncwarp();
     return sat;
 }
 
@@ -493,6 +778,45 @@ slowtime_detect_fixed_kernel(const Params p) {
     }
 }
 
+// ---------------------------------------------------------------------------
+// Long CPIs: the map, then the decision in chunks (slowtime_long.cuh)
+// ---------------------------------------------------------------------------
+
+// The int32 magnitude map of a long-CPI batch: warp w of a block takes rows
+// blockIdx.x kLongWarps + w, striding by the grid, each row's chain
+// (long_row) in the warp's long_warp_bytes of shared memory, with the
+// frame's Doppler-window saturations.  kHalo (the split entry): the map is
+// the shard's halo-extended slab (B, R + 2H, ND), slab row e from
+// FrameRows row e - H; only the shard's own rows are counted.
+template <bool kHalo>
+__global__ void __launch_bounds__(kLongWarps * 32)
+slowtime_mag_long_kernel(const Params p) {
+    extern __shared__ double2 lsm[];
+    const SlowtimeConfig& c = p.c;
+    const int ND = c.ND;
+    const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+    double2* spec = lsm + warp * (long_warp_bytes(ND) / sizeof(double2));
+    int16_t* zr = reinterpret_cast<int16_t*>(
+        spec + (ND / kInner) * plane_pitch(ND / kInner));
+    int16_t* zi = zr + ND;
+    const int map_rows = kHalo ? c.R + 2 * c.H : c.R;
+    const long long total = (long long)c.batch * map_rows;
+    for (long long row = (long long)blockIdx.x * kLongWarps + warp;
+         row < total; row += (long long)gridDim.x * kLongWarps) {
+        const int b = (int)(row / map_rows), e = (int)(row % map_rows);
+        const int16_t* rr;
+        const int16_t* ri;
+        fmcw::frame_rows<kHalo>(p.xr, p.xi, p.lo_r, p.lo_i, p.hi_r, p.hi_i,
+                                b, c.R, c.H, ND)
+            .row(kHalo ? e - c.H : e, rr, ri);
+        int sat = long_row(rr, ri, p.win, p.tw, l, c, spec, zr, zi,
+                           p.mag + row * ND);
+        sat = fmcw::warp_sum(sat);
+        const bool own = !kHalo || (e >= c.H && e < c.H + c.R);
+        if (l == 0 && sat && own) atomicAdd(&p.sat[b], sat);
+    }
+}
+
 template <int ND, bool kHalo, bool kMean>
 int launch_decision(const Params& p, cudaStream_t stream) {
     static bool ready[fmcw::kMaxDevices] = {};
@@ -523,14 +847,52 @@ int launch_nd(const Params& p, cudaStream_t stream) {
     }
 }
 
+template <bool kHalo>
+int launch_mag_long(const Params& p, cudaStream_t stream) {
+    static bool ready[fmcw::kMaxDevices] = {};
+    auto* kernel = slowtime_mag_long_kernel<kHalo>;
+    const cudaError_t err = fmcw::prepare(kernel, ready);
+    if (err != cudaSuccess) return (int)err;
+    const long long rows =
+        (long long)p.c.batch * (p.c.R + (kHalo ? 2 * p.c.H : 0));
+    long long blocks = (rows + kLongWarps - 1) / kLongWarps;
+    if (blocks > kLongBlocks) blocks = kLongBlocks;
+    const size_t smem = kLongWarps * long_warp_bytes(p.c.ND);
+    kernel<<<(unsigned)blocks, kLongWarps * 32, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+}
+
+// A long CPI's detection: the int32 map (p.mag), then its decision on
+// IntInFloat tiles.
+template <bool kHalo>
+int launch_long(const Params& p, cudaStream_t stream) {
+    const int err = launch_mag_long<kHalo>(p, stream);
+    if (err) return err;
+    return fmcw::launch_decide<int, Sem, int, kHalo>(
+        {p.mag, p.det, p.row_max, p.n_dets, p.c}, stream);
+}
+
+// The fixed entries' long CPIs: the decide kernel's tile (long_config_ok),
+// the Q15 window's shift, and E = T + 2H <= kMaxRows rows, so that an
+// IntInFloat column sum (at most E magnitudes of 45,056: 5.8e6) stays
+// below 2^24, exact in float.
+inline bool long_fixed_config_ok(const SlowtimeConfig& c) {
+    return fmcw::long_config_ok(c) && c.T + 2 * c.H <= fmcw::kMaxRows &&
+           c.shift >= 1 && c.shift <= 30 &&
+           kLongWarps * long_warp_bytes(c.ND) <= (size_t)kMaxSmem;
+}
+
 }  // namespace
 
 // xr/xi: int16 (batch, R, ND), 8-byte aligned; win: int32 (ND,); tw:
 // complex float64 (ND,) with tw[m] = exp(-2 pi i m / ND), exact at the
 // quarter turns; det: int32 (batch, R, ND); mag: same or null; row_max:
 // int32 (batch, R); n_dets/sat: int32 (batch,), zeroed by the caller.
-// cfg's variant selects the CFAR (0 OS, 1 CA, 2 GO, 3 SO).  Returns the
-// CUDA error code of the launch (0 on success).
+// cfg's variant selects the CFAR (0 OS, 1 CA, 2 GO, 3 SO).  A long CPI
+// (ND = n2d x 128, n2d 2 .. 16) takes cfg's chunk W and column halo HC,
+// needs mag (the map the decision reads) and row_max zeroed by the
+// caller, and runs two launches.  Returns the CUDA error code of the
+// launches (0 on success).
 extern "C" int fmcw_slowtime_detect_fixed(const void* xr, const void* xi,
                                           const void* win, const void* tw,
                                           void* det, void* mag, void* row_max,
@@ -538,7 +900,9 @@ extern "C" int fmcw_slowtime_detect_fixed(const void* xr, const void* xi,
                                           const SlowtimeConfig* cfg,
                                           void* stream) {
     const SlowtimeConfig c = *cfg;
-    if (!detect_config_ok(c) || !win || !tw)
+    const bool lng = long_cpi(c.ND);
+    if (!(lng ? long_fixed_config_ok(c) && mag : detect_config_ok(c)) ||
+        !win || !tw)
         return (int)cudaErrorInvalidValue;
     Params p{static_cast<const int16_t*>(xr), static_cast<const int16_t*>(xi),
              nullptr, nullptr, nullptr, nullptr,
@@ -546,6 +910,7 @@ extern "C" int fmcw_slowtime_detect_fixed(const void* xr, const void* xi,
              static_cast<int*>(det),          static_cast<int*>(mag),
              static_cast<int*>(row_max),      static_cast<int*>(n_dets),
              static_cast<int*>(sat),          c};
+    if (lng) return launch_long<false>(p, (cudaStream_t)stream);
     return launch_nd<false>(p, (cudaStream_t)stream);
 }
 
@@ -554,16 +919,22 @@ extern "C" int fmcw_slowtime_detect_fixed(const void* xr, const void* xi,
 // (batch, H, ND) the H = halo_range + peak_group_radius rows just below and
 // above it, exchanged from the neighbouring shards, all 8-byte aligned;
 // cfg's row_off and r_total place the shard in the frame.  Per-cell scale
-// only, any variant.  Outputs as fmcw_slowtime_detect_fixed, for the shard's R rows; sat
-// counts the Doppler window's saturations of those rows only.
+// only, any variant.  Outputs as fmcw_slowtime_detect_fixed, for the
+// shard's R rows; sat counts the Doppler window's saturations of those
+// rows only.  At a long CPI mag is the halo-extended slab (batch, R + 2H,
+// ND) whose rows H .. H + R - 1 are the shard's magnitudes (the map the
+// decision reads) and row_max is zeroed by the caller.
 extern "C" int fmcw_slowtime_detect_fixed_split(
         const void* xr, const void* xi, const void* lo_r, const void* lo_i,
         const void* hi_r, const void* hi_i, const void* win, const void* tw,
         void* det, void* mag, void* row_max, void* n_dets, void* sat,
         const SlowtimeConfig* cfg, void* stream) {
     const SlowtimeConfig c = *cfg;
-    if (!fmcw::split_config_ok(c) || !detect_config_ok(c) || !lo_r ||
-        !lo_i || !hi_r || !hi_i || !win || !tw)
+    const bool lng = long_cpi(c.ND);
+    const bool ok = lng ? fmcw::long_split_config_ok(c) &&
+                              long_fixed_config_ok(c) && mag
+                        : fmcw::split_config_ok(c) && detect_config_ok(c);
+    if (!ok || !lo_r || !lo_i || !hi_r || !hi_i || !win || !tw)
         return (int)cudaErrorInvalidValue;
     Params p{static_cast<const int16_t*>(xr),   static_cast<const int16_t*>(xi),
              static_cast<const int16_t*>(lo_r), static_cast<const int16_t*>(lo_i),
@@ -572,5 +943,6 @@ extern "C" int fmcw_slowtime_detect_fixed_split(
              static_cast<int*>(det),            static_cast<int*>(mag),
              static_cast<int*>(row_max),        static_cast<int*>(n_dets),
              static_cast<int*>(sat),            c};
+    if (lng) return launch_long<true>(p, (cudaStream_t)stream);
     return launch_nd<true>(p, (cudaStream_t)stream);
 }

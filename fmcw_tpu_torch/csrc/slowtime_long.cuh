@@ -1,0 +1,242 @@
+// The long-CPI decision shared by the two slow-time kernels, slowtime_
+// detect.cu (float32 maps) and slowtime_detect_fixed.cu (int32 maps held
+// in float, fmcw::IntInFloat): at n_doppler ND = n2d x 128 (2 <= n2d <= 16,
+// the long-CPI Doppler split of the TPU kernels) a tile of whole rows no
+// longer fits a block (at ND = 2048 one row is 8 KB of magnitudes), so each
+// entry runs two launches: its own magnitude kernel writes the map, then
+// the decide kernel here (slowtime_decide_kernel) reads it in tiles of T
+// rows x a chunk of W columns, with H halo rows and HC halo columns that
+// wrap on both axes (or, in the split entries, the rows of the shard's
+// halo-extended slab), and runs the short tiles' cfar_tile.cuh /
+// cfar_common.cuh decision on them: the decisions are the plain twin's bit
+// for bit on the same magnitudes.  Row maxima combine across chunks by
+// atomicMax (float maps: on the float bits; det is never negative or NaN).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "cfar_common.cuh"
+#include "cfar_tile.cuh"
+#include "slowtime_common.cuh"
+
+namespace fmcw {
+
+constexpr int kDecideThreads = 256;     // the decide kernel's block
+constexpr int kInner = 128;             // a long row's inner transform
+constexpr int kMaxSplit = 16;           // n2d, as JAX's split
+
+// ND = n2d x 128, 2 <= n2d <= 16: the long-CPI split.
+inline bool long_cpi(int nd) {
+    return nd > kInner && nd % kInner == 0 && nd / kInner <= kMaxSplit;
+}
+
+// The decision tile of a long-CPI map: T + 2H rows of W + 2HC columns, laid
+// out as a short map's tile of that width (TileLayout), one count.
+__host__ __device__ inline TileLayout chunk_layout(const SlowtimeConfig& c) {
+    SlowtimeConfig t = c;
+    t.ND = c.W + 2 * c.HC;
+    return tile_layout(t, 1);
+}
+
+inline bool long_config_ok(const SlowtimeConfig& c) {
+    const int E = c.T + 2 * c.H, WC = c.W + 2 * c.HC;
+    const int rows = c.T + 2 * c.pgr;
+    if (!long_cpi(c.ND) || c.batch < 1 || c.batch > 65535 || c.T < 1 ||
+        c.R % c.T || c.W < 1 || c.ND % c.W || c.pgr < 0 ||
+        c.hr + c.pgr > c.H || c.hd + c.pgr > c.HC || c.hd >= c.ND ||
+        c.pgr >= c.ND || c.row_off < 0 || c.r_total < c.R + c.row_off ||
+        rows < kStrip || c.variant < 0 || c.variant > kSO ||
+        (c.variant == 0 && c.n_ref > kMaxPackedRef<float>) ||
+        (c.notch_mode != 2 && c.notch_mode != 3))
+        return false;
+    if (c.block_mode &&
+        (c.sb < 1 || c.T % c.sb || c.H % c.sb || c.W % c.sb ||
+         c.HC % c.sb || c.ND % c.sb || c.H < 2 * c.sb + c.pgr ||
+         c.HC < 2 * c.sb + c.pgr || (E / c.sb) * (WC / c.sb) > kMaxBlk))
+        return false;
+    return (long long)(c.R / c.T) * (c.ND / c.W) <= 0x7fffffffLL &&
+           (strip_units(rows, c.W + 2 * c.pgr) + kDecideThreads - 1) /
+                   kDecideThreads * kStrip <= 64 &&
+           (size_t)chunk_layout(c).total * sizeof(float) <= (size_t)kMaxSmem;
+}
+
+// The split entries decide with the per-cell scale only, on exactly the
+// exchanged halo rows.
+inline bool long_split_config_ok(const SlowtimeConfig& c) {
+    return long_config_ok(c) && !c.block_mode && c.H == c.hr + c.pgr;
+}
+
+// A map value in the tile: float maps as they are, int32 maps (at most
+// 45,056, the fixed chain's largest magnitude) converted exactly.
+__device__ __forceinline__ float tile_value(float v) { return v; }
+__device__ __forceinline__ float tile_value(int v) { return __int2float_rn(v); }
+
+// A chunk's row maximum (the float bits of a non-negative tile value) into
+// the row's output: float bits for a float map, the integer for an int32
+// one.
+__device__ __forceinline__ void combine_max(float* row_max, int bits) {
+    atomicMax(reinterpret_cast<int*>(row_max), bits);
+}
+__device__ __forceinline__ void combine_max(int* row_max, int bits) {
+    atomicMax(row_max, (int)__int_as_float(bits));
+}
+
+// Peak grouping and stores of a chunk's T x W cells (map rows r0 .., map
+// columns c0 ..; tile columns HC ..): det_s (rows x WC) holds the
+// decisions of rows r0 - pgr .. and of tile columns HC - pgr .. HC + W +
+// pgr - 1.  As group_store (a strict maximum of the (2 pgr + 1)^2
+// neighbourhood, ties to the lower linear index), with the global ids
+// (row_id modulo r_total) ND + (column modulo ND); row maxima into rmax_s,
+// the detection count into counts[0].
+template <typename O>
+__device__ __forceinline__ void group_store_chunk(
+        const float* det_s, int T, int W, int WC, int HC, int pgr,
+        int r_total, int ND, int row_id0, int c0, O* det_out, int* rmax_s,
+        int* counts) {
+    int my_dets = 0;
+    for (int idx = threadIdx.x; idx < T * W; idx += blockDim.x) {
+        const int t = idx / W, j = idx % W;
+        const int er = t + pgr, d = HC + j;
+        const float m = det_s[er * WC + d];
+        float out = m;
+        if (pgr > 0 && m > 0.f) {
+            const int id = (row_id0 + t) * ND + c0 + j;
+            for (int dr = -pgr; dr <= pgr && out > 0.f; ++dr) {
+                const int nr = wrap_mod(row_id0 + t + dr, r_total);
+                for (int dd = -pgr; dd <= pgr; ++dd) {
+                    if (dr == 0 && dd == 0) continue;
+                    const float v = det_s[(er + dr) * WC + d + dd];
+                    const int nid = nr * ND + wrap_mod(c0 + j + dd, ND);
+                    if (v > m || (v == m && nid < id)) {
+                        out = 0.f;
+                        break;
+                    }
+                }
+            }
+        }
+        det_out[(size_t)t * ND + c0 + j] = static_cast<O>(out);
+        if (out > 0.f) {
+            ++my_dets;
+            atomicMax(&rmax_s[t], __float_as_int(out));
+        }
+    }
+    if (my_dets) atomicAdd(&counts[0], my_dets);
+}
+
+// The decide kernel's operands: the map M (B, R, ND), or with kHalo the
+// split entry's slab (B, R + 2H, ND); det (B, R, ND) and row_max (B, R)
+// of the output type O (row_max zeroed by the caller); n_dets (B,).
+template <typename M, typename O>
+struct DecideArgs {
+    const M* map;
+    O* det;
+    O* row_max;
+    int* n_dets;
+    SlowtimeConfig c;
+};
+
+// The decision of a long-CPI map: one block of kDecideThreads per (frame,
+// tile of T rows x chunk of W columns) loads the magnitudes of its T + 2H
+// rows (wrapped modulo R, or the slab's) and W + 2HC columns (wrapped
+// modulo ND) into a float tile (Sem: MapSem<float>, or IntInFloat for an
+// int32 map), so that the windows, block-scale neighbourhoods and grouping
+// radius of its cells lie in the tile with no column wrap; decides the T +
+// 2 pgr rows and W + 2 pgr columns the grouping reads, with the short
+// kernels' calls on a map of WC columns; groups and stores its T x W cells
+// (group_store_chunk) and adds its row maxima (combine_max) and detection
+// count.
+template <typename M, typename Sem, typename O, bool kHalo, bool kMean>
+__global__ void __launch_bounds__(kDecideThreads, 2)
+slowtime_decide_kernel(const DecideArgs<M, O> p) {
+    using A = typename Sem::Acc;
+    extern __shared__ float dsm[];
+    const SlowtimeConfig& c = p.c;
+    const int ND = c.ND, WC = c.W + 2 * c.HC;
+    const int E = c.T + 2 * c.H;
+    const int rows = c.T + 2 * c.pgr;
+    const TileLayout lay = chunk_layout(c);
+    float* mag_s = dsm;
+    float* det_s = dsm + lay.det;
+    float* cs_guard = dsm + lay.cs_guard;
+    A* bsum = reinterpret_cast<A*>(dsm + lay.blk);
+    A* bnb = bsum + kMaxBlk;
+    int* bhi = reinterpret_cast<int*>(bnb + kMaxBlk);
+    int* blo = bhi + kMaxBlk;
+    int* bscale = blo + kMaxBlk;
+    int* rmax_s = reinterpret_cast<int*>(dsm + lay.rmax);
+    int* counts = reinterpret_cast<int*>(dsm + lay.counts);
+    const int tid = threadIdx.x;
+    const int b = blockIdx.y;
+    const int n_chunks = ND / c.W;
+    const int r0 = (int)(blockIdx.x / n_chunks) * c.T;
+    const int c0 = (int)(blockIdx.x % n_chunks) * c.W;
+
+    for (int i = tid; i < c.T; i += kDecideThreads) rmax_s[i] = 0;
+    if (tid == 0) counts[0] = 0;
+
+    // ---- 1. The tile's magnitudes.
+    const int map_rows = kHalo ? c.R + 2 * c.H : c.R;
+    const M* map = p.map + (size_t)b * map_rows * ND;
+    for (int i = tid; i < E * WC; i += kDecideThreads) {
+        const int e = i / WC, j = i - e * WC;
+        const int g = kHalo ? r0 + e : wrap_mod(r0 - c.H + e, c.R);
+        mag_s[i] = tile_value(map[(size_t)g * ND + wrap_mod(c0 - c.HC + j, ND)]);
+    }
+    __syncthreads();
+
+    // ---- 2. The scale's statistics and the decision, as the short
+    //         kernels', of decided rows H-pgr .. and tile columns HC-pgr ..
+    const CfarGeom g{c.hr, c.hd, c.gr, c.gd, c.n_ref, c.k,
+                     c.scale_min, c.scale_nom, c.scale_max};
+    const int e_first = c.H - c.pgr;
+    const int* scale_blk = nullptr;
+    if (c.block_mode) {
+        if (c.so == 0) {
+            block_scale_tile<float, Sem>(mag_s, E, WC, c.sb, c.n_blk,
+                                         c.k_blk, g, bsum, bnb, bhi, blo,
+                                         bscale);
+            scale_blk = bscale;
+        }
+    } else if (!kMean && c.so == 0) {
+        tile_colsums(mag_s, WC, e_first, rows, g, det_s, cs_guard);
+        __syncthreads();
+    }
+    if constexpr (kMean) {
+        if (mean_needs_sums(c.variant, c.block_mode, c.so)) {
+            tile_colsums<float, false>(mag_s, WC, e_first, rows, g, det_s,
+                                       nullptr);
+            __syncthreads();
+        }
+    }
+    decide_tile<float, Sem, kMean>(mag_s, det_s, e_first, rows, WC, det_s,
+                                   cs_guard, scale_blk, c.sb, c.so, g,
+                                   c.variant, c.HC - c.pgr, c.W + 2 * c.pgr);
+
+    // ---- 3. Grouping, stores, row maxima and the count.
+    group_store_chunk(det_s, c.T, c.W, WC, c.HC, c.pgr, c.r_total, ND,
+                      c.row_off + r0, c0,
+                      p.det + ((size_t)b * c.R + r0) * ND, rmax_s, counts);
+    __syncthreads();
+    O* row_max = p.row_max + (size_t)b * c.R + r0;
+    for (int t = tid; t < c.T; t += kDecideThreads)
+        if (rmax_s[t]) combine_max(row_max + t, rmax_s[t]);
+    if (tid == 0 && counts[0]) atomicAdd(&p.n_dets[b], counts[0]);
+}
+
+// Launch the decide kernel of the CFAR variant (0: OS by counting, else the
+// CA/GO/SO window means).  Returns the CUDA error code.
+template <typename M, typename Sem, typename O, bool kHalo>
+int launch_decide(const DecideArgs<M, O>& p, cudaStream_t stream) {
+    static bool ready[2][kMaxDevices] = {};
+    const bool mean = p.c.variant != 0;
+    auto* kernel = mean ? slowtime_decide_kernel<M, Sem, O, kHalo, true>
+                        : slowtime_decide_kernel<M, Sem, O, kHalo, false>;
+    const cudaError_t err = prepare(kernel, ready[mean]);
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = (size_t)chunk_layout(p.c).total * sizeof(float);
+    const dim3 grid((p.c.R / p.c.T) * (p.c.ND / p.c.W), p.c.batch);
+    kernel<<<grid, kDecideThreads, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace fmcw

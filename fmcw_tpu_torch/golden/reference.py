@@ -228,6 +228,34 @@ def doppler_eighth_tie_planes(seed: int, batch: int, n_range: int,
     return x[..., 0].astype(np.int16), x[..., 1].astype(np.int16)
 
 
+def doppler_quarter_tie_planes(seed: int, batch: int, n_range: int,
+                               n_doppler: int, rounding: str = "unbiased",
+                               coef_width: int = 16):
+    """Range-major int16 planes (re, im), each (batch, n_range, n_doppler),
+    for the slow-time stage with the MTI bypassed: a DC offset in I with
+    +-60 noise, the last chirp of each row (where the window is small
+    enough to reach every integer) chosen so that the real part of bin 0,
+    the row's peak (the windowed I summed), is an exact half-LSB tie of
+    the row's BFP scaling."""
+    nd = n_doppler
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-60, 60, (batch, n_range, nd, 2)) + np.array([8000, 0])
+    coef = fx.hamming_coeffs(nd, coef_width)
+    xs = np.arange(-32768, 32768)
+    reach = fx.window_apply(xs, xs, np.full(xs.shape, coef[-1]), coef_width,
+                            rounding)[0]
+    for row in x.reshape(-1, nd, 2):
+        for _ in range(3):
+            w = fx.window_apply(row[:, 0], row[:, 0], coef, coef_width,
+                                rounding)[0]
+            total = int(w.sum())
+            s = max(1, (total - 1).bit_length() - 15)
+            want = w[-1] + (((1 << (s - 1)) - total) % (1 << s))
+            ok = np.flatnonzero(reach == want)
+            row[-1, 0] = xs[ok[np.abs(xs[ok] - row[-1, 0]).argmin()]]
+    return x[..., 0].astype(np.int16), x[..., 1].astype(np.int16)
+
+
 def eighth_turn_ties(i_w: np.ndarray, q_w: np.ndarray):
     """Which Doppler-windowed int rows (..., n_doppler) hold an eighth-turn
     tie, from exact integer class sums: with T_r the sums of chirps s = r

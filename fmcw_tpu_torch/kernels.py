@@ -32,7 +32,7 @@ SOURCES = ("range_fft.cu", "slowtime_detect.cu", "range_fft_fixed.cu",
            "slowtime_detect_fixed.cu", "cfar_detect.cu", "cfar_3d_detect.cu",
            "beam_group.cu", "cfar_rank.cu")
 HEADERS = ("fixed_point.cuh", "cfar_common.cuh", "cfar_tile.cuh",
-           "slowtime_common.cuh")
+           "slowtime_common.cuh", "slowtime_long.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,7 +49,7 @@ class SlowtimeConfig(ctypes.Structure):
         "row_off", "r_total", "variant", "W", "HC")]
 
 
-# Constants of the kernel-B sources that the host picks its tile geometry
+# Constants of the slow-time sources that the host picks its tile geometry
 # with (ops/frontend._slowtime_config), before any launch; each mirrors the
 # constexpr named beside it, and tests/test_torch_longcpi.py reads the
 # sources to hold them equal.
@@ -57,9 +57,9 @@ MAX_ROWS = 128              # slowtime_common.cuh kMaxRows: T + 2H
 MAX_BLK = 256               # slowtime_common.cuh kMaxBlk: a tile's blocks
 MAX_SMEM = 232448           # slowtime_common.cuh kMaxSmem: 227 KB
 STRIP = 8                   # cfar_tile.cuh kStrip: cells a thread decides
-DECIDE_THREADS = 256        # slowtime_detect.cu kDecideThreads
-LONG_CPI_INNER = 128        # slowtime_detect.cu kInner
-LONG_CPI_MAX_SPLIT = 16     # slowtime_detect.cu kMaxSplit
+DECIDE_THREADS = 256        # slowtime_long.cuh kDecideThreads
+LONG_CPI_INNER = 128        # slowtime_long.cuh kInner
+LONG_CPI_MAX_SPLIT = 16     # slowtime_long.cuh kMaxSplit
 
 
 class CfarDetectConfig(ctypes.Structure):

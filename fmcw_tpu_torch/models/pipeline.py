@@ -136,9 +136,11 @@ of rows x chunks of Doppler columns, ``ops/frontend.py``), so float
 reflect edges and the array model (``ref_angle`` 0 and > 0) run its
 entries as at short CPIs.  Other n_doppler above 128 (192, or n2d > 16)
 take the staged route under "auto", and "fused" raises.  The fixed
-slow-time kernel takes short CPIs only (its long CPIs are the next slice,
-ROADMAP.md): fixed "fused" raises NotImplementedError there, fixed "auto"
-is the staged route.
+slow-time kernel takes them too (the same split in FP64, the BFP exponent
+from the whole row, its int32 map decided by kernel B's decide kernel):
+fixed "fused" runs ``range_fft_fixed`` and ``slowtime_detect_fixed``
+there, per-cell and block, every variant; fixed "auto" stays the staged
+route, as JAX's "auto" stays on its XLA chain.
 
 Not yet ported (it raises ``NotImplementedError``, ROADMAP.md):
 ``fixed_fft="scaled"``.  The sharded processors are in
@@ -330,14 +332,11 @@ def make_batch_processor(params: RadarParams | None = None,
     if mode == "fixed":
         check_notch(p.notch_mode, mti_transient)
         window_rounding_constant(p.coef_width, window_rounding)
-        if route == "fused" and F.long_cpi(p.n_doppler):
-            raise NotImplementedError(
-                f"frontend='fused' with mode='fixed' at n_doppler "
-                f"{p.n_doppler}: the fixed slow-time kernel's long CPIs are "
-                f"the next slice of ROADMAP.md (mode='fixed' "
-                f"frontend='auto' runs the staged route)")
         if route == "fused" and not FX.fused_fixed_detect_supported(
                 p, peak_group_radius, include_debug):
+            # A Doppler length the kernels do not take (192, n2d > 16)
+            # raises NotImplementedError, as their wrappers and the mesh.
+            F.check_doppler(p.n_doppler, "slowtime_detect_fixed")
             raise ValueError(
                 "frontend='fused' with mode='fixed' runs the fused "
                 "fixed-point kernels, which need a wrap-edge CfarParams "

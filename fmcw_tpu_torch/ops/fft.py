@@ -191,15 +191,60 @@ def _eighth_turn_bins(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor,
         yi[..., m * n // 8] = ei + c * pi
 
 
+# sqrt(3)/2 rounded to nearest (np.cos(pi / 6) is one ulp above it).
+C3 = float.fromhex("0x1.bb67ae8584caap-1")
+
+# W_12^j = cos(pi j / 6) - i sin(pi j / 6), its cos and sin each written
+# c2 / 2 + c3 sqrt(3)/2: (c2, c3) of the cos, then of the sin, j = 0 .. 11.
+W12_PARTS = ((2, 0, 0, 0), (0, 1, 1, 0), (1, 0, 0, 1), (0, 0, 2, 0),
+             (-1, 0, 0, 1), (0, -1, 1, 0), (-2, 0, 0, 0), (0, -1, -1, 0),
+             (-1, 0, 0, -1), (0, 0, -2, 0), (1, 0, 0, -1), (0, 1, -1, 0))
+
+
+def _twelfth_turn_bins(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor,
+                       yi: torch.Tensor) -> None:
+    """Overwrite the bins X[m n/12] (m not a multiple of 3: the sixth- and
+    twelfth-turn bins of an n that 12 divides) of the DFT (yr, yi) of
+    integer-valued float64 (re, im) with their exact form, in place.
+
+    With T_r the input summed over s = r (mod 12), X[m n/12] = sum_r T_r
+    W_12^(r m), and each W_12^j is a half-integer plus a multiple of
+    sqrt(3)/2 in each part (``W12_PARTS``): X = E / 2 + (sqrt(3)/2) B with
+    E and B exact sums of integers.  Where B is 0 the part is the
+    half-integer E / 2, which the dense product (and np.fft.fft at such n)
+    need not give exactly, and a round-half tie there falls the exact way.
+    The fixed slow-time kernel computes these bins the same way
+    (csrc/slowtime_detect_fixed.cu ``twelfth_bins``)."""
+    n = re.shape[-1]
+    if n % 12:
+        return
+    tr = re.reshape(*re.shape[:-1], n // 12, 12).sum(-2)
+    ti = im.reshape(*im.shape[:-1], n // 12, 12).sum(-2)
+    for m in range(12):
+        if m % 3 == 0:
+            continue                    # quarter turns: exact already
+        er = ei = br = bi = 0
+        for r in range(12):
+            c2, c3, s2, s3 = W12_PARTS[r * m % 12]
+            er = er + (c2 * tr[..., r] + s2 * ti[..., r])
+            ei = ei + (c2 * ti[..., r] - s2 * tr[..., r])
+            br = br + (c3 * tr[..., r] + s3 * ti[..., r])
+            bi = bi + (c3 * ti[..., r] - s3 * tr[..., r])
+        yr[..., m * n // 12] = 0.5 * er + C3 * br
+        yi[..., m * n // 12] = 0.5 * ei + C3 * bi
+
+
 def dft64_apply(re: torch.Tensor, im: torch.Tensor):
     """Forward DFT along the LAST axis in float64: the fixed chain's plain
     transform (the inputs are integer-valued; float64 (re, im) out).  A
-    dense product, with the eighth-turn bins summed exactly
-    (``_eighth_turn_bins``)."""
+    dense product, with the eighth-turn bins and, where 12 divides the
+    length, the sixth- and twelfth-turn bins summed exactly
+    (``_eighth_turn_bins``, ``_twelfth_turn_bins``)."""
     cr, ci = dft64_matrices(re.shape[-1], str(re.device))
     re, im = re.to(torch.float64), im.to(torch.float64)
     yr, yi = re @ cr - im @ ci, re @ ci + im @ cr
     _eighth_turn_bins(re, im, yr, yi)
+    _twelfth_turn_bins(re, im, yr, yi)
     return yr, yi
 
 

@@ -21,8 +21,9 @@ turn, as ``fmcw_tpu/ops/split_frontend.py`` splits it across chips:
   n_doppler 16, 32, 64 and 128, and the long CPIs n2d x 128 (n2d 2 .. 16,
   JAX's long-CPI Doppler split, ``long_cpi``): there every entry runs the
   split transform into the magnitude map, then a decide kernel over tiles
-  of rows x chunks of Doppler columns (``_slowtime_config``), two launches
-  that ``launches`` both counts.
+  of rows x chunks of Doppler columns (``_slowtime_config``;
+  csrc/slowtime_long.cuh, shared with the fixed kernel), two launches that
+  ``launches`` both counts.
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch twin (``range_fft_plain``, ``range_fft_float_plain``,
@@ -291,16 +292,14 @@ def long_cpi(nd: int) -> bool:
             and nd // inner <= kernels.LONG_CPI_MAX_SPLIT)
 
 
-def check_doppler(nd: int, name: str, long_ok: bool = True) -> None:
-    """Raises NotImplementedError for an n_doppler that the kernel ``name``
-    does not take: kernel B takes ``SHORT_CPIS`` and the long CPIs
-    (``long_ok``); the fixed slow-time kernel the short ones only."""
-    if nd in SHORT_CPIS or (long_ok and long_cpi(nd)):
+def check_doppler(nd: int, name: str) -> None:
+    """Raises NotImplementedError for an n_doppler that the slow-time
+    kernel ``name`` (kernel B or the fixed one) does not take: they take
+    ``SHORT_CPIS`` and the long CPIs."""
+    if nd in SHORT_CPIS or long_cpi(nd):
         return
-    what = ("16, 32, 64, 128 or n2d x 128 with n2d in 2..16" if long_ok
-            else "16, 32, 64 or 128 (its long CPIs are the next slice of "
-                 "ROADMAP.md)")
-    raise NotImplementedError(f"{name} kernel: n_doppler {what}, got {nd}")
+    raise NotImplementedError(f"{name} kernel: n_doppler 16, 32, 64, 128 or "
+                              f"n2d x 128 with n2d in 2..16, got {nd}")
 
 
 def _kernel_halo(cfar: CfarParams, peak_group_radius: int,
@@ -365,18 +364,17 @@ def _long_geometry(nr, nd, cfar, scale_override, pgr, name):
 
 def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
                      exact_mag=False, name="slowtime_detect", row_off=0,
-                     r_total=None, long_ok=False):
+                     r_total=None):
     """The kernel-B tile geometry (shared with the fixed-point kernel and
     the split entries, whose map is a range shard of ``r_total`` rows
     starting at ``row_off``), with the CFAR variant (``VARIANT_CODES``,
     taken by both kernels); raises NotImplementedError for what the
     kernels do not take, reflect edges among it (``ops/cfar.check_wrap``:
     their detect epilogues wrap, as JAX's fused kernels; the
-    magnitude-only entry takes any edges).  ``long_ok`` (kernel B): a long
-    CPI takes the decide kernel's tile of rows x a chunk of columns
-    (``_long_geometry``)."""
+    magnitude-only entry takes any edges).  A long CPI takes the decide
+    kernel's tile of rows x a chunk of columns (``_long_geometry``)."""
     C.check_wrap(cfar, name)
-    check_doppler(nd, name, long_ok)
+    check_doppler(nd, name)
     if int(scale_override) < 0:
         raise ValueError(f"scale_override must be >= 0, got {scale_override}")
     block = cfar.scale_mode == "block"
@@ -439,8 +437,8 @@ def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
     B, nr, nd = re.shape
     cfg = _detect_config(
         _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
-                         exact_mag, long_ok=True), cfar, notch_mode,
-        transient, mti_bypass, "slowtime_detect")
+                         exact_mag), cfar, notch_mode, transient, mti_bypass,
+        "slowtime_detect")
     # A long CPI decides on its magnitude map (always written) and combines
     # its chunks' row maxima into zeros.
     lng = long_cpi(nd)
@@ -514,14 +512,13 @@ def slowtime_mag(re: torch.Tensor, im: torch.Tensor, mti_bypass=False, *,
 # ---------------------------------------------------------------------------
 
 def fused_detect_supported(p: RadarParams, peak_group_radius: int = 0,
-                           mag_only: bool = False,
-                           fixed: bool = False) -> bool:
+                           mag_only: bool = False) -> bool:
     """Do the front-end kernels take ``p``'s frame and CFAR: kernel A's
     frame, and kernel B's tile (``mag_only``: its magnitude-only entry,
     which the debug taps and the hw-compat CFAR run), long CPIs included?
     Asked of the kernels' own checks, before any launch; the counterpart of
     ``fmcw_tpu/models/pipeline.frontend_kernel_supported``.  The fixed
-    kernels (``fixed``) share these checks, short CPIs only
+    kernels share these checks
     (``frontend_fixed.fused_fixed_detect_supported``)."""
     try:
         check_range_geometry(p.n_range, p.n_doppler)
@@ -529,8 +526,7 @@ def fused_detect_supported(p: RadarParams, peak_group_radius: int = 0,
             check_mag_geometry(p.n_range, p.n_doppler)
         else:
             _detect_config(_slowtime_config(1, p.n_range, p.n_doppler,
-                                            p.cfar, 0, peak_group_radius,
-                                            long_ok=not fixed),
+                                            p.cfar, 0, peak_group_radius),
                            p.cfar, p.notch_mode, "zero", False, "")
     except NotImplementedError:
         return False

@@ -13,7 +13,11 @@ path, split at the corner turn like the float kernels of ``ops/frontend.py``:
   MTI, Q15 Doppler window with saturation count, Doppler FFT, BFP per range
   bin, integer magnitude, integer 2D CFAR (OS by counting, or the CA / GO
   / SO window means; per-cell or block scale), peak grouping, row maxima
-  and counts.
+  and counts.  n_doppler 16 .. 128, and the long CPIs n2d x 128 (n2d 2 ..
+  16, JAX's long-CPI split): there the kernel writes the int32 magnitude
+  map, then kernel B's decide kernel (csrc/slowtime_long.cuh) decides it
+  in tiles of rows x chunks of Doppler columns, two launches that
+  ``launches`` both counts.
 
 The twins compose the stage ops of the staged chain (``ops/window``,
 ``ops/fft``, ``ops/notch``, ``ops/magnitude``, ``ops/cfar``), with the
@@ -177,10 +181,16 @@ def fixed_config(cfg, cfar: CfarParams, notch_mode: int, transient: str,
     """The fixed slow-time entries' kernel config: the tile geometry
     ``cfg`` (with the CFAR variant's code) with the MTI and Q15 window
     fields set; raises NotImplementedError for what the kernel does not
-    take (an OS training set over ``frontend.MAX_PACKED_REFS`` cells among
+    take (an OS training set over ``frontend.MAX_PACKED_REFS`` cells, or
+    at a long CPI a decide tile of more than ``kernels.MAX_ROWS`` rows,
+    whose integer column sums would leave float's exact range, among
     it)."""
     cfg = F._detect_config(cfg, cfar, notch_mode, transient, mti_bypass,
                            name)
+    if F.long_cpi(cfg.ND) and cfg.T + 2 * cfg.H > kernels.MAX_ROWS:
+        raise NotImplementedError(
+            f"{name} kernel: a long-CPI decide tile of {cfg.T} + 2 x "
+            f"{cfg.H} rows, more than {kernels.MAX_ROWS}")
     cfg.rnd = window_rounding_constant(coef_width, rounding)
     cfg.shift = coef_width - 2
     return cfg
@@ -199,8 +209,9 @@ def slowtime_detect_fixed(re: torch.Tensor, im: torch.Tensor,
     the Doppler window's saturation count.  ``mti_bypass`` and
     ``scale_override`` are runtime controls.  Every CFAR variant: OS by
     counting, CA / GO / SO by the kernel's integer window-mean epilogue
-    (its ``kMean`` instantiation).  Launches the CUDA kernel for CUDA
-    tensors; the plain twin for CPU tensors."""
+    (its ``kMean`` instantiation).  At a long CPI the kernel writes the
+    magnitude map, which its decision reads (two launches).  Launches the
+    CUDA kernel for CUDA tensors; the plain twin for CPU tensors."""
     if re.dim() != 3 or re.shape != im.shape:
         raise ValueError(f"expected re/im (B, nr, nd), got "
                          f"{tuple(re.shape)} and {tuple(im.shape)}")
@@ -221,12 +232,16 @@ def slowtime_detect_fixed(re: torch.Tensor, im: torch.Tensor,
                            peak_group_radius, name="slowtime_detect_fixed"),
         cfar, notch_mode, transient, mti_bypass, coef_width, rounding,
         "slowtime_detect_fixed")
+    # A long CPI decides on its magnitude map (always written) and combines
+    # its chunks' row maxima into zeros.
+    lng = F.long_cpi(nd)
     dev = re.device
     re, im = F._aligned(re), F._aligned(im)
     win, tw = _tables(nd, coef_width, str(dev))
     det = torch.empty((B, nr, nd), dtype=torch.int32, device=dev)
-    mag = torch.empty_like(det) if emit_mag else None
-    row_max = torch.empty((B, nr), dtype=torch.int32, device=dev)
+    mag = torch.empty_like(det) if emit_mag or lng else None
+    row_max = (torch.zeros if lng else torch.empty)(
+        (B, nr), dtype=torch.int32, device=dev)
     n_dets = torch.zeros((B,), dtype=torch.int32, device=dev)
     sat = torch.zeros((B,), dtype=torch.int32, device=dev)
     lib = kernels.load()
@@ -236,8 +251,8 @@ def slowtime_detect_fixed(re: torch.Tensor, im: torch.Tensor,
         row_max.data_ptr(), n_dets.data_ptr(), sat.data_ptr(),
         ctypes.byref(cfg), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "slowtime_detect_fixed")
-    slowtime_detect_fixed.launches += 1
-    return det, mag, row_max, n_dets, sat
+    slowtime_detect_fixed.launches += 2 if lng else 1
+    return det, (mag if emit_mag else None), row_max, n_dets, sat
 
 
 # ---------------------------------------------------------------------------
@@ -251,13 +266,22 @@ def fused_fixed_detect_supported(p: RadarParams, peak_group_radius: int = 0,
     fused_fixed_detect_supported``, asked of the kernels' own checks: no
     debug taps, and a frame and CFAR (any variant, wrap edges: reflect
     gives False, and ``frontend="fused"`` then raises ValueError, as JAX's)
-    that both kernels take.  JAX's limit on the window (its sums below 2^24, for the
-    TPU's float32 sums) does not apply: these kernels sum in int32; the OS
-    variant's float packed count takes at most ``frontend.MAX_PACKED_REFS``
-    training cells, the CA/GO/SO epilogue counts nothing.  Short CPIs
-    only: the fixed slow-time kernel's long CPIs are the next slice."""
-    return not include_debug and F.fused_detect_supported(
-        p, peak_group_radius, fixed=True)
+    that both kernels take, long CPIs included.  JAX's limit on the window
+    (its sums below 2^24, for the TPU's float32 sums) does not apply:
+    these kernels sum in int32; the OS variant's float packed count takes
+    at most ``frontend.MAX_PACKED_REFS`` training cells, the CA/GO/SO
+    epilogue counts nothing."""
+    if include_debug:
+        return False
+    try:
+        F.check_range_geometry(p.n_range, p.n_doppler)
+        fixed_config(F._slowtime_config(1, p.n_range, p.n_doppler, p.cfar,
+                                        0, peak_group_radius),
+                     p.cfar, p.notch_mode, "zero", False, p.coef_width,
+                     "unbiased", "")
+    except NotImplementedError:
+        return False
+    return True
 
 
 def rdm_frontend_fixed_detect(iq: torch.Tensor, mti_bypass=False,

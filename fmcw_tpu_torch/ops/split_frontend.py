@@ -172,10 +172,10 @@ def slowtime_detect_split_plain(re, im, halo_lo, halo_hi, mti_bypass=False,
 
 
 def _split_config(re, cfar, scale_override, peak_group_radius, exact_mag,
-                  row_offset, n_range_total, name, long_ok=False):
+                  row_offset, n_range_total, name):
     """The split entries' tile geometry: per-cell scale only, as JAX's split
     body (every variant: OS, and CA/GO/SO in the kernels' mean
-    epilogues); long CPIs with ``long_ok`` (kernel B's entry)."""
+    epilogues), long CPIs included."""
     if cfar.scale_mode != "cell":
         raise NotImplementedError(
             f"{name} kernel: per-cell scale only (the block scale runs the "
@@ -183,8 +183,7 @@ def _split_config(re, cfar, scale_override, peak_group_radius, exact_mag,
     B, nrl, nd = re.shape
     return F._slowtime_config(B, nrl, nd, cfar, scale_override,
                               peak_group_radius, exact_mag, name=name,
-                              row_off=row_offset, r_total=n_range_total,
-                              long_ok=long_ok)
+                              row_off=row_offset, r_total=n_range_total)
 
 
 @kernels.counted
@@ -229,8 +228,7 @@ def slowtime_detect_split(re: torch.Tensor, im: torch.Tensor,
                                            row_offset, **kw)
     cfg = F._detect_config(
         _split_config(re, cfar, scale_override, peak_group_radius, exact_mag,
-                      row_offset, n_range_total, "slowtime_detect_split",
-                      long_ok=True),
+                      row_offset, n_range_total, "slowtime_detect_split"),
         cfar, notch_mode, transient, mti_bypass, "slowtime_detect_split")
     if re.dtype != torch.float32:
         raise ValueError(f"slowtime_detect_split kernel takes float32 "
@@ -303,7 +301,10 @@ def slowtime_detect_fixed_split(re: torch.Tensor, im: torch.Tensor,
     Returns
     ``(det int32 (B, nrl, nd), mag | None, row_max int32 (B, nrl), n_dets
     (B,), sat (B,))``, ``sat`` the Doppler window's saturations of the
-    shard's own rows; every CFAR variant, as the whole-frame entry.
+    shard's own rows; every CFAR variant, as the whole-frame entry.  At a
+    long CPI the kernel writes the magnitudes of the halo-extended slab
+    (B, nrl + 2h, nd), which its decision reads (two launches), and
+    ``mag`` is the shard's rows of it (a view).
     ``detect=False`` (a fixed magnitude-only kernel) does not exist, as in
     JAX's split path: it raises.  Launches the split kernel for CUDA
     tensors; the plain twin for CPU tensors."""
@@ -335,22 +336,29 @@ def slowtime_detect_fixed_split(re: torch.Tensor, im: torch.Tensor,
         cfar, notch_mode, transient, mti_bypass, coef_width, rounding,
         "slowtime_detect_fixed_split")
     B, nrl, nd = re.shape
+    lng = F.long_cpi(nd)
     dev = re.device
     planes = [F._aligned(x) for x in (re, im, *halo_lo, *halo_hi)]
     win, tw = FX._tables(nd, coef_width, str(dev))
     det = torch.empty((B, nrl, nd), dtype=torch.int32, device=dev)
-    mag = torch.empty_like(det) if emit_mag else None
-    row_max = torch.empty((B, nrl), dtype=torch.int32, device=dev)
+    if lng:
+        slab = torch.empty((B, nrl + 2 * h, nd), dtype=torch.int32,
+                           device=dev)
+        mag = slab[:, h:h + nrl] if emit_mag else None
+    else:
+        slab = mag = torch.empty_like(det) if emit_mag else None
+    row_max = (torch.zeros if lng else torch.empty)(
+        (B, nrl), dtype=torch.int32, device=dev)
     n_dets = torch.zeros((B,), dtype=torch.int32, device=dev)
     sat = torch.zeros((B,), dtype=torch.int32, device=dev)
     lib = kernels.load()
     err = lib.fmcw_slowtime_detect_fixed_split(
         *(x.data_ptr() for x in planes), win.data_ptr(), tw.data_ptr(),
-        det.data_ptr(), mag.data_ptr() if mag is not None else None,
+        det.data_ptr(), slab.data_ptr() if slab is not None else None,
         row_max.data_ptr(), n_dets.data_ptr(), sat.data_ptr(),
         ctypes.byref(cfg), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "slowtime_detect_fixed_split")
-    slowtime_detect_fixed_split.launches += 1
+    slowtime_detect_fixed_split.launches += 2 if lng else 1
     return det, mag, row_max, n_dets, sat
 
 

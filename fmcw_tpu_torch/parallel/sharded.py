@@ -97,9 +97,8 @@ on one device.
 Long CPIs (n_doppler = n2d x 128, n2d 2..16): the float routes take them
 as on one device (kernel B's split entry decides on its halo-extended
 slab, the magnitude-only entry feeds the block, reflect and debug tails;
-JAX's ``sharded.py:78-91``); fixed ``"fused"`` raises
-``NotImplementedError``, since the fixed slow-time kernel's long CPIs are
-the next slice (``ROADMAP.md``).
+JAX's ``sharded.py:78-91``), and so does fixed ``"fused"`` (the fixed
+split entry on its int32 slab, per-cell scale only, as JAX's).
 """
 
 from __future__ import annotations
@@ -288,22 +287,20 @@ def split_frontend_supported(p: RadarParams, sp: int) -> bool:
 
 
 def split_detect_supported(p: RadarParams, sp: int,
-                           peak_group_radius: int = 0,
-                           fixed: bool = False) -> bool:
-    """Can the split entry (kernel B's, float32, or the fixed kernel's,
-    ``fixed``: both take the same shards) decide on the range shards:
+                           peak_group_radius: int = 0) -> bool:
+    """Can the split entry (kernel B's, float32, or the fixed kernel's:
+    both take the same shards) decide on the range shards:
     ``split_frontend_supported``, wrap edges and per-cell scale (any
     variant), its tile (``ops/frontend._slowtime_config``: 64 rows + 2
-    (halo_range + peak_group_radius) halo rows <= 128, or at a long CPI,
-    kernel B only, the decide kernel's tile), and a halo that one
-    neighbour holds?"""
+    (halo_range + peak_group_radius) halo rows <= 128, or at a long CPI the
+    decide kernel's tile), and a halo that one neighbour holds?"""
     h = p.cfar.halo_range + peak_group_radius
     if (not split_frontend_supported(p, sp) or p.cfar.scale_mode != "cell"
             or h > p.n_range // sp):
         return False
     try:
         F._slowtime_config(1, p.n_range // sp, p.n_doppler, p.cfar, 0,
-                           peak_group_radius, long_ok=not fixed)
+                           peak_group_radius)
     except NotImplementedError:
         return False
     return True
@@ -403,17 +400,14 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                 "frontend='fused' with mode='fixed' on an sp-sharded mesh "
                 "runs the split fixed kernels, which take the per-cell "
                 "scale and wrap edges only (as JAX's)")
-        ok = (split_detect_supported(p, sp, pgr, fixed) if split_detect
+        ok = (split_detect_supported(p, sp, pgr) if split_detect
               else split_frontend_supported(p, sp))
         if not ok:
-            later = (" (the fixed slow-time kernel's long CPIs are the next "
-                     "slice of ROADMAP.md)"
-                     if fixed and F.long_cpi(p.n_doppler) else "")
             raise NotImplementedError(
                 f"the split front-end kernels do not take a "
                 f"{p.n_range}x{p.n_doppler} frame at sp={sp} with {p.cfar} "
                 f"and peak_group_radius={pgr} (split_detect_supported / "
-                f"split_frontend_supported){later}")
+                f"split_frontend_supported)")
     max_dets = p.tracker.max_dets
     single = None
     if sp == 1:

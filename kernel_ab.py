@@ -71,7 +71,13 @@ stimulus, 1024x128 frames):
   hw-compat routes' frames/s (``cfar_geometry="hw_stream"``, fixed
   ``auto`` and float ``fused``, radius 2).
 
-With ``--cfar3d-only`` it times the 3D CFAR's two entries and the 3D array
+With ``--slowtime-only`` it times the two slow-time kernels' entries alone
+by graph replay: at 1024x128 kernel B per-cell and block, the fixed kernel
+per-cell, block and CA and its row-6 shard; at the long CPI 1024x256
+kernel B per-cell, block and GO and, where the checkout's fixed kernel
+takes long CPIs, the fixed kernel per-cell, block and CA, with the fused
+fixed route's frames/s there.  With ``--cfar3d-only`` it times the 3D
+CFAR's two entries and the 3D array
 route alone, with ``--cfar-detect-only`` the standalone CFAR's entries and
 the staged routes alone, with ``--beam-group-only`` the cross-beam
 grouping (TPU row 11, ``csrc/beam_group.cu``) alone: its whole-cube entry
@@ -111,6 +117,9 @@ def main() -> int:
     ap.add_argument("--beam-group-only", action="store_true",
                     help="time the cross-beam grouping and the array route "
                          "it ends alone")
+    ap.add_argument("--slowtime-only", action="store_true",
+                    help="time the slow-time kernels' entries alone, short "
+                         "and long CPIs")
     args = ap.parse_args()
     everything = not (args.cfar3d_only or args.cfar_detect_only
                       or args.beam_group_only)
@@ -172,6 +181,58 @@ def main() -> int:
 
     entry = P.RadarParams()
     ms, fft, graph, fft_graph, copy, fps = {}, {}, {}, {}, {}, {}
+    if args.slowtime_only:
+        pgr = 2
+        for nd in (entry.n_doppler, 256):
+            lng = nd > 128
+            ep = entry.replace(n_doppler=nd)
+            iq = make_batch(ep)
+            re, im = F.range_fft(iq)
+            fre, fim, _ = FX.range_fft_fixed(iq)
+            calls = {}
+            for p in (ep, P.fast().replace(n_doppler=nd),
+                      ep.replace(cfar=dataclasses.replace(
+                          ep.cfar, variant="go" if lng else "ca"))):
+                tag = f"{p.cfar.variant},{p.cfar.scale_mode},{nd}"
+                kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+                if not lng or p.cfar.variant != "ca":
+                    calls[f"slowtime_detect[{tag}]"] = (
+                        lambda kw=kw: F.slowtime_detect(re, im, False, 0,
+                                                        **kw))
+                pf = p.replace(cfar=dataclasses.replace(
+                    p.cfar, variant="ca")) if p.cfar.variant == "go" else p
+                if FX.fused_fixed_detect_supported(pf, pgr):
+                    fkw = dict(cfar=pf.cfar, peak_group_radius=pgr)
+                    ftag = f"{pf.cfar.variant},{pf.cfar.scale_mode},{nd}"
+                    calls[f"slowtime_detect_fixed[{ftag}]"] = (
+                        lambda fkw=fkw: FX.slowtime_detect_fixed(
+                            fre, fim, False, 0, **fkw))
+            if not lng:
+                nr = ep.n_range
+                h, nrl = ep.cfar.halo_range + pgr, nr // SP
+                ext = torch.arange(nrl - h, 2 * nrl + h, device="cuda") % nr
+                lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+                fshard = (fre[:, core].contiguous(), fim[:, core].contiguous(),
+                          (fre[:, lo].contiguous(), fim[:, lo].contiguous()),
+                          (fre[:, hi].contiguous(), fim[:, hi].contiguous()),
+                          False, 0, nrl)
+                skw = dict(cfar=ep.cfar, n_range_total=nr,
+                           peak_group_radius=pgr)
+                calls["slowtime_detect_fixed_split[sp4]"] = (
+                    lambda: SF.slowtime_detect_fixed_split(*fshard, **skw))
+            for name, call in calls.items():
+                graph[name] = graph_ms(call)
+            if lng and FX.fused_fixed_detect_supported(ep, pgr):
+                proc = pl.make_batch_processor(
+                    ep, mode="fixed", frontend="fused", peak_group_radius=pgr,
+                    include_maps=False, device="cuda")
+                fps[f"fixed/cell/fused,{nd}"] = BATCH * 1e3 / cuda_ms(
+                    lambda: proc(iq), 10, 2)
+            del iq, re, im, fre, fim
+        print(json.dumps({"root": str(args.root), "graph_ms": graph,
+                          "frames_per_s": fps, "batch": BATCH,
+                          "card": card}), flush=True)
+        return 0
     if everything:
         iq = make_batch(entry)
         win = torch.as_tensor(hamming_float(entry.n_range), device="cuda")

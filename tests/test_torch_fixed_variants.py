@@ -218,8 +218,8 @@ def test_local_mesh_fixed_fused_equals_single_device(variant):
     device bit for bit; the gate admits it at sp 2 and 4."""
     p = _variant(P256, variant)
     pgr = 2
-    assert sharded.split_detect_supported(p, 2, pgr, fixed=True)
-    assert sharded.split_detect_supported(p, 4, pgr, fixed=True)
+    assert sharded.split_detect_supported(p, 2, pgr)
+    assert sharded.split_detect_supported(p, 4, pgr)
     iq = np.stack([_noisy(p, s) for s in range(2)])
     kw = dict(mode="fixed", frontend="fused", peak_group_radius=pgr,
               include_maps=True)

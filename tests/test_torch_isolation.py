@@ -420,16 +420,30 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
     assert (cfg.ND, cfg.T, cfg.W, cfg.H, cfg.HC) == (256, 64, 128, 4, 4)
     assert args[5] is not None and not rmax.any()
     assert F.slowtime_detect.launches == 2
-    # The fixed slow-time kernel keeps short CPIs (its long CPIs are the
-    # next slice); n2d above 16 and other lengths above 128 stay refused.
+    # The fixed slow-time kernel takes them too: its long row into the
+    # int32 map, then the decide kernel, two launches, the same decide
+    # tile, the map handed over though no magnitudes are asked for and the
+    # row maxima zeroed; no plain twin.  n2d above 16 and other lengths
+    # above 128 stay refused by both.
     i16 = long_cpi.to(torch.int16)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        FX.slowtime_detect_fixed(i16, i16, cfar=p.cfar)
+    det, mag, rmax, _, _ = FX.slowtime_detect_fixed(i16, i16, cfar=p.cfar,
+                                                    peak_group_radius=1)
+    name, args = as_if_cuda.calls[-1]
+    cfg = args[9]._obj
+    assert name == "slowtime_detect_fixed" and mag is None
+    assert (cfg.ND, cfg.T, cfg.W, cfg.H, cfg.HC) == (256, 64, 128, 4, 4)
+    assert (cfg.rnd, cfg.shift) == (1 << 13, 14)
+    assert args[5] is not None and not rmax.any()
+    assert det.dtype == rmax.dtype == torch.int32
+    assert FX.slowtime_detect_fixed.launches == 2
     for nd in (4096, 192):
         x = torch.zeros((1, 128, nd))
         with pytest.raises(NotImplementedError):
             F.slowtime_detect(x, x, cfar=p.cfar)
-    assert len(as_if_cuda.calls) == 1
+        with pytest.raises(NotImplementedError):
+            FX.slowtime_detect_fixed(x.to(torch.int16), x.to(torch.int16),
+                                     cfar=p.cfar)
+    assert len(as_if_cuda.calls) == 2
 
 
 def test_fixed_wrappers_take_plain_twin_on_cpu(monkeypatch):
@@ -683,11 +697,11 @@ def test_split_wrappers_launch_kernels_for_cuda_tensors(as_if_cuda):
 
 
 def test_long_cpi_split_entry_takes_the_slab(as_if_cuda):
-    """At a long CPI kernel B's split entry writes the magnitudes of the
-    halo-extended slab (B, nrl + 2h, nd), which its decision reads: the
-    wrapper hands the slab (and zeroed row maxima) over, returns the
-    shard's rows of it as ``mag``, and counts two launches; the fixed split
-    entry keeps short CPIs."""
+    """At a long CPI the split entries (kernel B's and the fixed kernel's)
+    write the magnitudes of the halo-extended slab (B, nrl + 2h, nd), which
+    their decision reads: each wrapper hands the slab (and zeroed row
+    maxima) over, returns the shard's rows of it as ``mag``, and counts two
+    launches."""
     p = fmcw_tpu_torch.RadarParams(n_doppler=512)
     nrl, h = 256, p.cfar.halo_range + 2
     re = torch.zeros((2, nrl, 512))
@@ -703,12 +717,19 @@ def test_long_cpi_split_entry_takes_the_slab(as_if_cuda):
     assert mag.data_ptr() == args[9] + h * 512 * 4
     assert SF.slowtime_detect_split.launches == 2
     i16 = re.to(torch.int16)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        SF.slowtime_detect_fixed_split(i16, i16, (i16[:, :h],) * 2,
-                                       (i16[:, :h],) * 2, cfar=p.cfar,
-                                       n_range_total=1024,
-                                       peak_group_radius=2)
-    assert len(as_if_cuda.calls) == 1
+    det, mag, rmax, _, _ = SF.slowtime_detect_fixed_split(
+        i16, i16, (i16[:, :h],) * 2, (i16[:, :h],) * 2, False, 0, 256,
+        cfar=p.cfar, n_range_total=1024, peak_group_radius=2, emit_mag=True)
+    name, args = as_if_cuda.calls[-1]
+    cfg = args[13]._obj
+    assert name == "slowtime_detect_fixed_split"
+    assert (cfg.ND, cfg.H, cfg.HC, cfg.row_off, cfg.shift) == (512, h, 7,
+                                                               256, 14)
+    assert tuple(mag.shape) == (2, nrl, 512) and not rmax.any()
+    assert mag.dtype == det.dtype == rmax.dtype == torch.int32
+    assert mag.data_ptr() == args[9] + h * 512 * 4
+    assert SF.slowtime_detect_fixed_split.launches == 2
+    assert len(as_if_cuda.calls) == 2
 
 
 def test_split_kernels_reject_unported_configs(as_if_cuda):

@@ -49,6 +49,7 @@ from fmcw_tpu_torch.models import pipeline as tpl
 from fmcw_tpu_torch.ops import cfar as C
 from fmcw_tpu_torch.ops import fft as TF
 from fmcw_tpu_torch.ops import frontend as F
+from fmcw_tpu_torch.ops import frontend_fixed as FX
 from fmcw_tpu_torch.parallel import LocalMesh, make_sharded_processor
 
 from test_torch_slowtime_plan import (F32, STRIP, _cmul, _fma, _planes,
@@ -222,7 +223,7 @@ def kernel_decide_long(mag, cfar, so, pgr, hc=None):
     row_max, n_dets)."""
     with np.errstate(invalid="ignore", over="ignore"):
         B, R, D = mag.shape
-        cfg = F._slowtime_config(B, R, D, cfar, so, pgr, long_ok=True)
+        cfg = F._slowtime_config(B, R, D, cfar, so, pgr)
         T, W, H = cfg.T, cfg.W, cfg.H
         HC = cfg.HC if hc is None else hc
         E, WC, rows = T + 2 * H, W + 2 * HC, T + 2 * pgr
@@ -354,7 +355,7 @@ def test_decide_model_needs_its_column_halo():
     differs.  With quick()'s window at 128x384 (three chunks) the model
     agrees on a tie-heavy map."""
     cfar = fmcw_tpu_torch.CfarParams()
-    cfg = F._slowtime_config(1, 128, 256, cfar, 0, 0, long_ok=True)
+    cfg = F._slowtime_config(1, 128, 256, cfar, 0, 0)
     mag = np.ones((1, 128, 256), F32)
     mag[0, :, cfg.W - cfar.halo_doppler] = 1000
     mag[0, 40, cfg.W] = 3
@@ -382,8 +383,7 @@ def test_decide_geometry_fits_the_kernel():
                      fmcw_tpu_torch.CfarParams(scale_mode="block"),
                      fmcw_tpu_torch.quick().cfar):
             for pgr in (0, 2, 8):
-                c = F._slowtime_config(1, 1024, nd, cfar, 0, pgr,
-                                       long_ok=True)
+                c = F._slowtime_config(1, 1024, nd, cfar, 0, pgr)
                 block = cfar.scale_mode == "block"
                 words = F._chunk_words(c.T, c.W, c.H, c.HC, pgr, block, 0)
                 assert nd % c.W == 0 and 1024 % c.T == 0
@@ -397,7 +397,7 @@ def test_decide_geometry_fits_the_kernel():
     for nd in (4096, 192):
         with pytest.raises(NotImplementedError):
             F._slowtime_config(1, 1024, nd, fmcw_tpu_torch.CfarParams(), 0,
-                               2, long_ok=True)
+                               2)
 
 
 @pytest.mark.parametrize("variant", ["os", "ca", "go", "so"])
@@ -524,19 +524,25 @@ def test_local_mesh_equals_single_device(kw):
 
 
 def test_fixed_fused_long_cpi_names_the_next_slice():
-    """Fixed "fused" at a long CPI is refused the same way on one device
-    and on a mesh: NotImplementedError naming the next slice, before any
-    launch; fixed "auto" there is the staged route."""
+    """Fixed "fused" at a long CPI (the fixed slow-time kernel's long-CPI
+    split, tests/test_torch_fixed_longcpi.py) is the route on one device
+    and on a mesh, sp 1 and 2; fixed "auto" there stays the staged route,
+    as JAX's; 192 chirps and n2d 32 stay refused, before any launch."""
     p = fmcw_tpu_torch.RadarParams(n_range=128, n_doppler=256)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tpl.make_batch_processor(p, mode="fixed", frontend="fused",
-                                 device="cpu")
+    kw = dict(mode="fixed", frontend="fused")
+    assert tpl.make_batch_processor(p, device="cpu", **kw).route == "fused"
     for sp in (1, 2):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            make_sharded_processor(LocalMesh(1, sp, "cpu"), p, mode="fixed",
-                                   frontend="fused")
+        assert make_sharded_processor(LocalMesh(1, sp, "cpu"), p,
+                                      **kw).route == "fused"
     assert tpl.make_batch_processor(p, mode="fixed",
                                     device="cpu").route == "staged"
+    for nd in (192, 4096):
+        q = p.replace(n_doppler=nd)
+        assert not FX.fused_fixed_detect_supported(q)
+        with pytest.raises(NotImplementedError):
+            tpl.make_batch_processor(q, device="cpu", **kw)
+        with pytest.raises(NotImplementedError):
+            make_sharded_processor(LocalMesh(1, 2, "cpu"), q, **kw)
 
 
 # The host's copies of the kernel sources' constants (fmcw_tpu_torch/
@@ -546,9 +552,9 @@ MIRRORED = {
     "MAX_BLK": ("slowtime_common.cuh", "kMaxBlk"),
     "MAX_SMEM": ("slowtime_common.cuh", "kMaxSmem"),
     "STRIP": ("cfar_tile.cuh", "kStrip"),
-    "DECIDE_THREADS": ("slowtime_detect.cu", "kDecideThreads"),
-    "LONG_CPI_INNER": ("slowtime_detect.cu", "kInner"),
-    "LONG_CPI_MAX_SPLIT": ("slowtime_detect.cu", "kMaxSplit"),
+    "DECIDE_THREADS": ("slowtime_long.cuh", "kDecideThreads"),
+    "LONG_CPI_INNER": ("slowtime_long.cuh", "kInner"),
+    "LONG_CPI_MAX_SPLIT": ("slowtime_long.cuh", "kMaxSplit"),
 }
 
 

@@ -343,15 +343,15 @@ def test_processor_validates_mesh_shape_and_input():
                                    mode="fixed", frontend="fused",
                                    include_debug=True)
     # Long CPIs: the float routes take them (kernel B's split entry on the
-    # range shards, tests/test_torch_longcpi.py); fixed "fused" does not
-    # yet (the fixed slow-time kernel's long CPIs are the next slice), nor
-    # does any route at n2d 32 or 192 chirps.
+    # range shards, tests/test_torch_longcpi.py) and so does fixed "fused"
+    # (the fixed split entry, tests/test_torch_fixed_longcpi.py); no route
+    # takes n2d 32 or 192 chirps.
     long_cpi = p.replace(n_doppler=256)
     assert TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
                                       long_cpi).route == "fused"
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"), long_cpi,
-                                   mode="fixed", frontend="fused")
+    assert TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"), long_cpi,
+                                      mode="fixed",
+                                      frontend="fused").route == "fused"
     for nd in (192, 4096):
         with pytest.raises(NotImplementedError):
             TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),

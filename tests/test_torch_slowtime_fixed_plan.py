@@ -199,33 +199,29 @@ def _windowed(re, im, notch, transient, bypass, rounding):
     return x, sat
 
 
-def kernel_rows(re, im, notch=2, transient="zero", bypass=False,
-                rounding="unbiased", exact=True):
-    """The kernel's chain on every row of int16 planes (..., nd): (mag
-    int64 (..., nd), Doppler-window saturations per row, the spectrum
-    (xr, xi) before quantization).  ``exact=False``: without the exact
-    eighth-turn bins (the mutation check)."""
-    nd = re.shape[-1]
-    L, P, lg = _plan(nd)
-    tw = FX._tables(nd, CW, "cpu")[1].numpy()
-    x, sat = _windowed(re, im, notch, transient, bypass, rounding)
+def lane_dft(xr, xi, tw, stride=1, exact=True, u1=None):
+    """The kernel's lane transform (``lane_dft``) of float64 rows (..., n)
+    held P = n / L points a lane (point s = l P + p), with the table tw[m
+    stride] = W_n^m: the L-point DIF across the lanes, the twiddles W_n^(p
+    k1) and the P-point transform; with ``exact``, the eighth-turn bins
+    recomputed from exact integers (u1: the class sums at P = 1, else the
+    eighth-turn lanes' DIF outputs, asserted integer-valued).  Returns the
+    spectrum (xr, xi), natural bin order."""
+    n = xr.shape[-1]
+    L, P, lg = _plan(n)
     lane = np.arange(L)
     k1 = _brev(lane, lg)
-    eighth = np.flatnonzero(k1 % (nd // 4) == nd // 8)
-    if P == 1:
-        # Class sums T_r (r = l mod 8) over the lane group; u_r = T_r -
-        # T_(r+4), gathered from lanes 0..3.
-        t = [v.reshape(*v.shape[:-1], nd // 8, 8).sum(-2) for v in x]
-        u1 = [t[j][..., r] - t[j][..., r + 4] for r in range(4)
-              for j in (0, 1)]
-    xr = x[0].astype(np.float64).reshape(*re.shape[:-1], L, P)
-    xi = x[1].astype(np.float64).reshape(*re.shape[:-1], L, P)
+    eighth = (np.flatnonzero(k1 % (n // 4) == n // 8) if exact
+              else np.zeros(0, int))
+    lead = xr.shape[:-1]
+    xr = xr.reshape(*lead, L, P)
+    xi = xi.reshape(*lead, L, P)
     for st in range(lg):
         h = L >> (st + 1)
         partner = lane ^ h
         br, bi = xr[..., partner, :], xi[..., partner, :]
         upper = ((lane & h) != 0)[:, None]
-        j = (lane & (h - 1)) * (nd // (2 * h))
+        j = (lane & (h - 1)) * (n // (2 * h)) * stride
         ur, ui = _cmul(br - xr, bi - xi, tw[j, 0][:, None], tw[j, 1][:, None])
         xr = np.where(upper, ur, xr + br)
         xi = np.where(upper, ui, xi + bi)
@@ -233,9 +229,11 @@ def kernel_rows(re, im, notch=2, transient="zero", bypass=False,
         y = np.stack([xr[..., eighth, :], xi[..., eighth, :]])
         assert np.array_equal(y, np.round(y)), "eighth-turn lanes inexact"
         y = y.astype(np.int64)
+    xr, xi = xr.copy(), xi.copy()
     for p in range(1, P):
         xr[..., p], xi[..., p] = _cmul(xr[..., p], xi[..., p],
-                                       tw[p * k1, 0], tw[p * k1, 1])
+                                       tw[p * k1 * stride, 0],
+                                       tw[p * k1 * stride, 1])
     v = [(xr[..., p], xi[..., p]) for p in range(P)]
     if P == 1:
         bins = v
@@ -251,28 +249,55 @@ def kernel_rows(re, im, notch=2, transient="zero", bypass=False,
                 (d0[0] + d1[1], d0[1] - d1[0]),
                 (s0[0] - s1[0], s0[1] - s1[1]),
                 (d0[0] - d1[1], d0[1] + d1[0])]
-    out_r = np.zeros(re.shape, np.float64)
-    out_i = np.zeros(re.shape, np.float64)
+    out_r = np.zeros((*lead, n), np.float64)
+    out_i = np.zeros((*lead, n), np.float64)
     for k2, (b_r, b_i) in enumerate(bins):
         out_r[..., k1 + L * k2] = b_r
         out_i[..., k1 + L * k2] = b_i
-    if exact:
-        zero = np.zeros(re.shape[:-1], np.int64)
-        for n, l in enumerate(eighth):
-            if P == 1:
-                u = u1
-            else:
-                u = [y[j, ..., n, p] for p in range(P) for j in (0, 1)]
-                u += [zero] * (8 - len(u))
-            for k2 in range(P):
-                k = k1[l] + L * k2
-                out_r[..., k], out_i[..., k] = _eighth_bin(u, k // (nd // 8))
+    zero = np.zeros(lead, np.int64)
+    for idx, l in enumerate(eighth):
+        if P == 1:
+            u = u1
+        else:
+            u = [y[j, ..., idx, p] for p in range(P) for j in (0, 1)]
+            u += [zero] * (8 - len(u))
+        for k2 in range(P):
+            k = k1[l] + L * k2
+            out_r[..., k], out_i[..., k] = _eighth_bin(u, k // (n // 8))
+    return out_r, out_i
+
+
+def bfp_magnitude(out_r, out_i):
+    """The BFP exponent from the bits of the row's peak, round half to even
+    and clip, the magnitude max + (min >> 2) + (min >> 3)."""
     peak = np.maximum(np.abs(out_r), np.abs(out_i)).max(-1, keepdims=True)
     scale = _bfp_scale(peak)
     qr = np.abs(np.clip(np.rint(out_r * scale), -32768, 32767)).astype(int)
     qi = np.abs(np.clip(np.rint(out_i * scale), -32768, 32767)).astype(int)
     mx, mn = np.maximum(qr, qi), np.minimum(qr, qi)
-    return mx + (mn >> 2) + (mn >> 3), sat, (out_r, out_i), x
+    return mx + (mn >> 2) + (mn >> 3)
+
+
+def kernel_rows(re, im, notch=2, transient="zero", bypass=False,
+                rounding="unbiased", exact=True):
+    """The kernel's chain on every row of int16 planes (..., nd): (mag
+    int64 (..., nd), Doppler-window saturations per row, the spectrum
+    (xr, xi) before quantization).  ``exact=False``: without the exact
+    eighth-turn bins (the mutation check)."""
+    nd = re.shape[-1]
+    L, P, lg = _plan(nd)
+    tw = FX._tables(nd, CW, "cpu")[1].numpy()
+    x, sat = _windowed(re, im, notch, transient, bypass, rounding)
+    u1 = None
+    if P == 1:
+        # Class sums T_r (r = l mod 8) over the lane group; u_r = T_r -
+        # T_(r+4), gathered from lanes 0..3.
+        t = [v.reshape(*v.shape[:-1], nd // 8, 8).sum(-2) for v in x]
+        u1 = [t[j][..., r] - t[j][..., r + 4] for r in range(4)
+              for j in (0, 1)]
+    out_r, out_i = lane_dft(x[0].astype(np.float64), x[1].astype(np.float64),
+                            tw, 1, exact, u1)
+    return bfp_magnitude(out_r, out_i), sat, (out_r, out_i), x
 
 
 def _exact_quarter_bins(x):
