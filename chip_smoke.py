@@ -154,7 +154,23 @@ to the whole frame; the fused fixed route at 1024x256, batch 128
 equal to the golden process_frame_fixed on every frame of the per-cell
 run and 32 of each other (worker processes),
 frames/s beside the staged route; a LocalMesh at sp 2 and 4; the
-entries' times at 1024x256 and 1024x2048.  It prints the card's name and
+entries' times at 1024x256 and 1024x2048.  Then fixed_fft="scaled"
+(phase 34, the stage-scaled XFFT arithmetic): ops/fft.scaled_fft_apply
+on the card bit-equal to the golden scaled_fft at n 8..1024 (wraps
+included); the scaled routes at 1024x128, batch 128 (fixed auto
+per-cell, fast() block, hw-compat batch and process.stream, the debug
+taps, a zeros schedule): their CFAR kernels launched and no fused kernel,
+every output bit-equal to frontend="plain" on the card, the maps of 8
+frames each equal to the golden process_frame_fixed(fft="scaled");
+frames/s, the plain scaled stages' ms, the CFAR entries on the scaled
+maps.  Then the quick stimulus and the demo (phase 35): the faithful
+quick run (golden/adr_quick) through process.stream equal to the golden
+hw-stream model; the demo's run function (tools/visualize.run_demo) at
+--full for 16 scans in float, fixed, hw-compat fixed, --array 8 and
+--sharded 4 (a LocalMesh): each mode's kernels launched, the fixed logs
+byte-identical to the same scans on the CPU, the sharded logs to the
+single card's, scans/s; the demo's kernels at its shapes against their
+twins, timed.  It prints the card's name and
 power limit, one JSON line listing the kernels, and as its last line
 {"ok": true, "device": {...}}.
 Any failed check raises, and the script then exits non-zero; without CUDA
@@ -6677,6 +6693,614 @@ def fixed_long_phase(card: str, dev, pgr: int):
                   "golden_exact_bin_differences": tw_bins}
 
 
+# ---------------------------------------------------------------------------
+# fixed_fft="scaled": the stage-scaled XFFT arithmetic (phase 34)
+# ---------------------------------------------------------------------------
+
+SCALED_SIZES = tuple(1 << k for k in range(3, 11))  # n 8 .. 1024
+SCALED_GOLDEN = 8               # frames of each scaled route held to golden
+FUSED_WRAPPERS = ("range_fft", "slowtime_detect", "slowtime_mag",
+                  "range_fft_fixed", "slowtime_detect_fixed")
+
+
+def scaled_fft_checks(dev) -> int:
+    """Phase 34a: ops/fft.scaled_fft_apply on CUDA int64 tensors against
+    the golden scaled_fft at n = 8 .. 1024: 64 rows of full-scale int16
+    values (the zero and mixed schedules wrap), schedules None (no
+    scaling), [1]*m, a mixed one and zeros, both output orders; bit for
+    bit, or raises.  Returns the number of values compared."""
+    import numpy as np
+    import torch
+    from fmcw_tpu_torch.golden import fixed_point as gfx
+    from fmcw_tpu_torch.ops import fft as FT
+    rng = np.random.default_rng(34)
+    n_values, wraps = 0, 0
+    for n in SCALED_SIZES:
+        m = n.bit_length() - 1
+        i = rng.integers(-32768, 32768, (64, n))
+        q = rng.integers(-32768, 32768, (64, n))
+        ti, tq = torch.as_tensor(i, device=dev), torch.as_tensor(q, device=dev)
+        for sch in (None, [1] * m, list(rng.integers(0, 3, m)), [0] * m):
+            for order in ("natural", "bit_reversed"):
+                gi, gq = gfx.scaled_fft(i, q, scale_sch=sch,
+                                        output_order=order)
+                ci, cq = FT.scaled_fft_apply(ti, tq, -1, scale_sch=sch,
+                                             output_order=order)
+                if not (np.array_equal(ci.cpu().numpy(), gi)
+                        and np.array_equal(cq.cpu().numpy(), gq)):
+                    raise AssertionError(f"scaled_fft_apply on the card "
+                                         f"differs from the golden model (n "
+                                         f"{n}, schedule {sch}, {order})")
+                n_values += 2 * gi.size
+        full = np.fft.fft(i + 1j * q, axis=-1)
+        wraps += int((np.abs(full.real) > 32767).sum())
+    log(f"scaled_fft_apply (CUDA, int64) vs the golden scaled_fft at n "
+        f"{SCALED_SIZES[0]}..{SCALED_SIZES[-1]}, 4 schedules, both orders: "
+        f"bit-identical ({n_values} values; {wraps} unscaled bins beyond "
+        f"int16, wrapped under the zero schedule)")
+    return n_values
+
+
+def golden_scaled_check(job):
+    """A worker process's job: (int16 frames, the route's maps, RadarParams,
+    grouping radius, the schedule pair or None, hw-stream, debug taps);
+    True where the golden process_frame_fixed(fft="scaled") gives every
+    magnitude map exactly, and (named geometry) every grouped det map and
+    the debug taps; with the golden detection count."""
+    import numpy as np
+    from fmcw_tpu_torch.golden import fixed_point as gfx, reference
+    frames, mags, dets, taps, p, radius, sch, hw = job
+    ok, n = True, 0
+    for k, f in enumerate(frames):
+        gmag, gdet = reference.process_frame_fixed(
+            f[..., 0] + 1j * f[..., 1].astype(np.float64), p, fft="scaled",
+            fft_scale_sch=sch)
+        ok &= bool(np.array_equal(gmag, mags[k]))
+        n += int((gdet > 0).sum())
+        if hw:
+            continue
+        ok &= bool(np.array_equal(gfx.peak_group(gdet, radius), dets[k]))
+        if taps is not None:
+            _, thr, scale = gfx.os_cfar_2d(gmag, p.cfar, return_debug=True)
+            ok &= bool(np.array_equal(thr, taps[0][k])
+                       and np.array_equal(scale, taps[1][k]))
+    return ok, n
+
+
+def scaled_configs():
+    """(name, RadarParams, processor keywords, kernels the route needs)."""
+    import fmcw_tpu_torch as P
+    zeros = ([0] * 10, [0] * 7)
+    return (("cell", P.RadarParams(), {}, ("cfar_detect_group",)),
+            ("block", P.fast(), {}, ("cfar_detect_group",)),
+            ("hw_stream", P.RadarParams(), dict(cfar_geometry="hw_stream"),
+             ("cfar_detect_hw_stream",)),
+            ("debug", P.RadarParams(), dict(include_debug=True),
+             ("cfar_rank_group",)),
+            ("zeros", P.RadarParams(), dict(fixed_fft_scale_sch=zeros),
+             ("cfar_detect_group",)))
+
+
+def scaled_routes(card: str, dev, pgr: int, pool):
+    """Phase 34b: make_batch_processor(mode="fixed", fixed_fft="scaled") at
+    batch 128 of bench.py's stimulus (1024x128): fixed "auto" per-cell,
+    fast() block, hw-compat (the batch call and process.stream over two
+    CPIs, carries compared), the debug taps and a zeros schedule (no
+    scaling: the transforms wrap), grouping radius 2.  Each launches its
+    CFAR kernel (the grouping entry, the flat-stream entry, the rank
+    select) and no fused kernel; every output, stream carries included,
+    bit-equal to frontend="plain" on the card (the same plain stages, then
+    the kernels' twins: decisions, groupings, row maxima and counts); the
+    maps of SCALED_GOLDEN frames each against the golden process_frame_
+    fixed(fft="scaled") in worker processes.  Returns (launches per config,
+    golden futures, the routes' magnitude maps)."""
+    import torch
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    launches, golden, mags = {}, [], {}
+    for name, p, kw, need in scaled_configs():
+        batch = make_batch(p, BATCH, seed=34)
+        iq = torch.as_tensor(batch, device=dev)
+        kw = dict(kw, mode="fixed", fixed_fft="scaled", peak_group_radius=pgr)
+        proc = pl.make_batch_processor(p, device=dev, **kw)
+        plain = pl.make_batch_processor(p, frontend="plain", device=dev, **kw)
+        calls = [("batch", lambda f: (f(iq), None))]
+        if name == "hw_stream":
+            calls += [("stream", lambda f: f.stream(iq)),
+                      ("carried", lambda f: f.stream(
+                          torch.roll(iq, 1, 0),
+                          hist=f.stream(iq)[1]))]
+        outs = {}
+        for call, run in calls:
+            kernels.reset_launch_counts()
+            out, hist = run(proc)
+            outs[call] = out
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            want, whist = run(plain)
+            log(f"scaled {name} {call}: route {proc.route}, launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items()))
+            if (proc.route != "staged" or any(not counts.get(k) for k in need)
+                    or any(counts.get(k) for k in FUSED_WRAPPERS)):
+                raise AssertionError(f"scaled {name} {call}: wrong kernels")
+            for k, v in counts.items():
+                launches.setdefault(name, {})
+                launches[name][k] = launches[name].get(k, 0) + v
+            diff = [k for k in want if not bits_equal(out[k], want[k])]
+            if hist is not None and not bits_equal(hist, whist):
+                diff.append("hist")
+            if diff or out.keys() != want.keys():
+                raise AssertionError(f"scaled {name} {call} differs from "
+                                     f"the plain route in {diff}")
+            log(f"scaled {name} {call}: every output bit-equal to the plain "
+                f"route on the card ({int(out['n_dets'].sum())} detections, "
+                f"saturations {int(out['saturation_count'].sum())})")
+        g, out = slice(0, SCALED_GOLDEN), outs["batch"]
+        taps = ((out["threshold_map"][g].cpu().numpy(),
+                 out["scale_map"][g].cpu().numpy())
+                if name == "debug" else None)
+        golden.append((name, pool.submit(golden_scaled_check, (
+            batch[g], out["mag_map"][g].cpu().numpy(),
+            out["det_map"][g].cpu().numpy(), taps, p, pgr,
+            kw.get("fixed_fft_scale_sch"), name == "hw_stream"))))
+        mags[name] = out["mag_map"]
+    return launches, golden, mags
+
+
+def scaled_timings(card: str, dev, pgr: int, mags, launches):
+    """Phase 34c: at batch 128, frames/s of each scaled route (no maps) and
+    its plain scaled stages (the range and slow-time halves, beside the BFP
+    stages of fixed "auto" in the same run); the CFAR kernels the routes
+    launch, on the routes' own scaled magnitude maps, against their twins
+    bit for bit and timed (graph replay; the rank select eagerly, its twin
+    in 8-frame chunks) beside their bounds; the per-cell grouping entry on
+    the zeros schedule's maps (under [1]*m the noise rounds to 0).
+    Returns (kernel rows, summary)."""
+    import torch
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C, cfar_detect as CD
+    from fmcw_tpu_torch.ops import cfar_rank as RK
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    fps = {}
+    iq = None
+    for name, p, kw, _ in scaled_configs():
+        iq = torch.as_tensor(make_batch(p, BATCH, seed=34), device=dev)
+        proc = pl.make_batch_processor(p, mode="fixed", fixed_fft="scaled",
+                                       peak_group_radius=pgr,
+                                       include_maps=False, device=dev, **kw)
+        fps[name] = BATCH * 1e3 / cuda_ms(lambda: proc(iq), 5, 2)
+        log(f"scaled {name} route: {fps[name]:.1f} frames/s at batch "
+            f"{BATCH} ({card})")
+    p = scaled_configs()[0][1]
+    nr, nd = p.n_range, p.n_doppler
+    sch = pl.scaled_schedules(p, "scaled", "fixed", "auto")
+    re, im, _ = FX.range_fft_fixed_plain(iq, scale_sch=sch[0])
+    stages = {
+        "scaled_range_ms": cuda_ms(
+            lambda: FX.range_fft_fixed_plain(iq, scale_sch=sch[0]), 5, 2),
+        "scaled_slowtime_ms": cuda_ms(
+            lambda: FX.slowtime_mag_fixed_plain(re, im, scale_sch=sch[1]),
+            5, 2),
+        "bfp_range_ms": cuda_ms(lambda: FX.range_fft_fixed_plain(iq), 5, 2),
+        "bfp_slowtime_ms": cuda_ms(
+            lambda: FX.slowtime_mag_fixed_plain(re, im), 5, 2)}
+    del re, im
+    log(f"scaled plain stages per batch of {BATCH}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()) + f" ({card})")
+    src = "fmcw_tpu_torch/csrc/"
+    rows, entry_ms = [], {}
+    for name, p, kw, need in scaled_configs()[:4]:
+        # The per-cell entry on the zeros schedule's maps: under [1]*m the
+        # 1/N scaling rounds the noise to 0, and the map is sparse.
+        mag = mags["zeros" if name == "cell" else name]
+        kernel = need[0]
+        in_float = int(mag.abs().max()) <= CD.float_max(
+            C.hw_stream_params(p.cfar) if name == "hw_stream" else p.cfar)
+        if kernel == "cfar_detect_group":
+            smap = (C.block_scale_map(mag, p.cfar)
+                    if p.cfar.scale_mode == "block" else None)
+            gkw = dict(cfar=p.cfar, scale_map=smap, peak_group_radius=pgr)
+            call = lambda: CD.cfar_detect_group(mag, 0, **gkw)
+            twin = lambda: CD.cfar_detect_group_plain(mag, 0, **gkw)
+            bound, by = bound_cfar_detect(BATCH, nr, nd, p.cfar, in_float,
+                                          True)
+            line, file, timer = (155 if smap is None else 279,
+                                 "cfar_detect.cu", graph_ms)
+        elif kernel == "cfar_detect_hw_stream":
+            rec = []
+            C.cfar_2d_hw_stream(mag, cfar=p.cfar, integer=True,
+                                label_roll=False,
+                                decide=recorded(CD.cfar_detect_hw_stream,
+                                                rec))
+            (ext, start0, R, D, _), _, _ = rec[0]
+            hkw = dict(cfar=p.cfar, integer=True)
+            call = lambda: CD.cfar_detect_hw_stream(ext, start0, R, D, 0,
+                                                    **hkw)
+            twin = lambda: C.hw_stream_decide_plain(ext, start0, R, D, 0,
+                                                    **hkw)
+            bound, by = bound_cfar_detect(BATCH, nr, nd,
+                                          C.hw_stream_params(p.cfar),
+                                          in_float)
+            line, file, timer = 155, "cfar_detect.cu", graph_ms
+        else:
+            rkw = dict(cfar=p.cfar, bits=16, peak_group_radius=RANK_PGR)
+            call = lambda: RK.cfar_rank_group(mag, 0, **rkw)
+            twin = lambda: [RK.cfar_rank_group_plain(
+                mag[i:i + RANK_FRAMES], 0, **rkw)
+                for i in range(0, BATCH, RANK_FRAMES)]
+            bound, by = bound_cfar_rank(BATCH, nr, nd, p.cfar, 16, True,
+                                        False, group=True)
+            line, file = 58, "cfar_rank.cu"
+            timer = lambda f: cuda_ms(f, 5)
+        got, want = call(), twin()
+        if kernel == "cfar_rank_group":
+            want = [torch.cat(parts) for parts in zip(*want)]
+        torch.cuda.synchronize()
+        if not all(bits_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{kernel} on the scaled {name} maps "
+                                 f"differs from its twin")
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+        ms = timer(call)
+        plain_ms = cuda_ms(twin, 1, 1)
+        row = {"cell": "cfar_detect_group[cell,scaled]",
+               "block": "cfar_detect_group[block,scaled]",
+               "hw_stream": "cfar_detect_hw_stream[int32,scaled]",
+               "debug": "cfar_rank_group[int32,16 bits,scaled]"}[name]
+        n = sum(v.get(kernel, 0) for k, v in launches.items()
+                if k == name or (name == "cell" and k == "zeros"))
+        entry_ms[row] = ms
+        log(f"{row} (the scaled route's maps, counted in "
+            f"{'float' if in_float else 'int'}): {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); bit-identical "
+            f"to its twin; {n} launches on the scaled routes ({card})")
+        rows.append(dict(name=row, route="cuda", source=src + file,
+                         replaces=f"fmcw_tpu/ops/cfar_pallas.py:{line}",
+                         launches=n, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         library_ms=None))
+    return rows, {"frames_per_s": fps, "stages_ms": stages,
+                  "entry_ms": entry_ms}
+
+
+def scaled_phase(card: str, dev, pgr: int):
+    """Phase 34 (34a-c above); the golden checks run in worker processes
+    during the timings.  Returns (kernel rows, summary)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    t0 = time.perf_counter()
+    n_values = scaled_fft_checks(dev)
+    t1 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    workers = max(1, min(5, (os.cpu_count() or 2) - 1))
+    with cf.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        launches, golden, mags = scaled_routes(card, dev, pgr, pool)
+        t2 = time.perf_counter()
+        rows, summary = scaled_timings(card, dev, pgr, mags, launches)
+        del mags
+        t3 = time.perf_counter()
+        for name, fut in golden:
+            ok, n = fut.result()
+            log(f"scaled {name}: maps vs the golden process_frame_fixed("
+                f"fft='scaled') on {SCALED_GOLDEN} frames: "
+                f"{'equal' if ok else 'DIFFER'} ({n} golden detections)")
+            if not ok:
+                raise AssertionError(f"scaled {name} differs from the "
+                                     f"golden model")
+    log(f"scaled phase: 34a {t1 - t0:.1f} s, 34b {t2 - t1:.1f} s, 34c "
+        f"{t3 - t2:.1f} s, golden wait {time.perf_counter() - t3:.1f} s")
+    return rows, dict(summary, launches=launches, fft_values=n_values)
+
+
+# ---------------------------------------------------------------------------
+# The quick-validation stimulus and the demo (phase 35)
+# ---------------------------------------------------------------------------
+
+DEMO_SCANS = 16
+DEMO_MODES = (
+    ("float", {}, ("range_fft", "slowtime_detect")),
+    ("fixed", dict(mode="fixed"), ("cfar_detect_group",)),
+    ("hw-compat fixed", dict(mode="fixed", hw_compat=True),
+     ("cfar_detect_hw_stream",)),
+    ("array 8", dict(array=8), ("range_fft_float", "slowtime_detect",
+                                "beam_group")),
+    ("sharded 4", dict(sharded=4), ("range_frontend",
+                                    "slowtime_detect_split")))
+
+
+def quick_run_check(card: str, dev) -> int:
+    """Phase 35a: the faithful quick run (golden/adr_quick.quick_frames:
+    the reference's quick-testbench I/Q, 5 CPIs of 128x32) through
+    make_processor(quick(), mode="fixed", cfar_geometry="hw_stream",
+    window_rounding="biased", mti_transient="passthrough") on the card,
+    frame after frame through process.stream: the flat-stream entry
+    launched every CPI, the magnitudes equal to the golden chain's, the
+    detections over the run equal to the golden os_cfar_2d_hw_stream over
+    the 5-frame stream (less the last frame's tail).  Returns the
+    detections."""
+    import numpy as np
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.golden import adr_quick, fixed_point as gfx
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    kw = dict(window_rounding="biased", mti_transient="passthrough")
+    frames, _ = adr_quick.quick_frames()
+    p = P.quick()
+    mags = np.stack([reference.process_frame_fixed(f, p, **kw)[0]
+                     for f in frames])
+    proc = pl.make_processor(p, mode="fixed", cfar_geometry="hw_stream",
+                             device=dev, **kw)
+    kernels.reset_launch_counts()
+    got, hist = [], None
+    for k, f in enumerate(frames):
+        out, hist = proc.stream(pl.complex_to_iq(f), hist=hist)
+        if not np.array_equal(out["mag_map"].cpu().numpy(), mags[k]):
+            raise AssertionError("quick run: magnitudes differ from the "
+                                 "golden chain")
+        m = out["det_map"].cpu().numpy()
+        r, d = np.nonzero(m)
+        got += list(zip(r.tolist(), d.tolist(), m[r, d].tolist()))
+    torch.cuda.synchronize()
+    n = kernels.launch_counts()["cfar_detect_hw_stream"]
+    lag = gfx.hw_stream_lag(p.cfar, p.n_doppler)
+    dbg = gfx.os_cfar_2d_hw_stream(mags, p.cfar, return_debug=True)
+    keep = dbg["cells"][dbg["det"]] < len(frames) * p.n_range * p.n_doppler \
+        - lag
+    want = [(int(a), int(b), int(c)) for a, b, c, k in zip(
+        *gfx.os_cfar_2d_hw_stream(mags, p.cfar), keep) if k]
+    same = sorted(got) == sorted(want)
+    log(f"quick run (adr_quick, 5 CPIs, faithful hw-compat stream): "
+        f"cfar_detect_hw_stream launches {n}; {len(got)} detections "
+        f"{'equal to' if same else 'DIFFER from'} the golden stream model's "
+        f"{len(want)} ({card})")
+    if n < len(frames) or not same:
+        raise AssertionError("quick run differs from the golden model")
+    return len(got)
+
+
+def demo_runs(card: str, dev, tmp):
+    """Phase 35b: the demo's run function (fmcw_tpu_torch.tools.visualize.
+    run_demo) at --full (1024x128, the full tactical scenario) for
+    DEMO_SCANS scans in each DEMO_MODES mode on the card, the launch counts
+    set to 0 just before each run and read just after (each mode's kernels
+    launched); the fixed and hw-compat logs byte-identical to the same
+    scans with device="cpu" (the plain path), the sharded (LocalMesh sp 4)
+    logs to the single card's float logs; every run's logs parse, with
+    firm tracks.  Returns (launches per mode, scans/s per mode)."""
+    from pathlib import Path
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.tools import visualize as V
+    from fmcw_tpu_torch.utils import viz
+    launches, sps, logs = {}, {}, {}
+    quiet = dict(quick=False, scans=DEMO_SCANS, echo=lambda *_: None)
+    for name, kw, need in DEMO_MODES:
+        out = Path(tmp) / name.replace(" ", "_")
+        kernels.reset_launch_counts()
+        res = V.run_demo(out=str(out), device=dev, **quiet, **kw)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        launches[name], sps[name] = counts, res["scans_per_s"]
+        logs[name] = [Path(res[k]).read_bytes()
+                      for k in ("det_log", "trk_log")]
+        tracks, actives = viz.load_tracks(res["trk_log"])
+        n_dets = len(viz.load_detections(res["det_log"]))
+        log(f"demo {name}: {res['scans']} scans, {sps[name]:.1f} scans/s "
+            f"({res['seconds']:.2f} s, the first scan's set-up included), "
+            f"{n_dets} detections, active tracks {actives[-1]}, "
+            f"{len(res['velocity_lines'])} unfolded velocities; launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items()) + f" ({card})")
+        if (any(counts.get(k, 0) < DEMO_SCANS for k in need)
+                or res["scans"] != DEMO_SCANS or len(actives) != DEMO_SCANS
+                or not tracks or n_dets == 0):
+            raise AssertionError(f"demo {name}: kernels, scans or logs off")
+        if kw.get("mode") == "fixed":
+            res = V.run_demo(out=str(out) + "_cpu", device="cpu", **quiet,
+                             **kw)
+            same = logs[name] == [Path(res[k]).read_bytes()
+                                  for k in ("det_log", "trk_log")]
+            log(f"demo {name}: logs {'byte-identical to' if same else 'DIFFER from'}"
+                f" the CPU run's ({sum(map(len, logs[name]))} bytes; CPU "
+                f"{res['scans_per_s']:.1f} scans/s)")
+            if not same:
+                raise AssertionError(f"demo {name}: card and CPU logs differ")
+    same = logs["sharded 4"] == logs["float"]
+    log(f"demo sharded 4: logs {'byte-identical to' if same else 'DIFFER from'}"
+        f" the single card's")
+    if not same:
+        raise AssertionError("demo sharded 4: logs differ from one card")
+    return launches, sps
+
+
+def _within_tol(pairs, what: str) -> float:
+    """Transform outputs against their twin's: within TOL of the twin's
+    peak, or raises.  Returns the largest |difference|."""
+    peak = max(float(b.double().abs().max()) for _, b in pairs)
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+    if not err <= TOL * peak:
+        raise AssertionError(f"{what}: {err:g} off its twin (peak {peak:g})")
+    return err
+
+
+def _identical(pairs, what: str) -> float:
+    if not all(bits_equal(a, b) for a, b in pairs):
+        raise AssertionError(f"{what} disagrees with its twin")
+    return 0.0
+
+
+def demo_kernel_rows(card: str, dev, launches):
+    """Phase 35c: the kernels the demo launches, at the demo's shapes (one
+    1024x128 frame of the full scenario a scan; the array mode's 8 beams of
+    one cube; the sp 4 shards): each against its twin (transforms within
+    TOL of the peak; decisions, groupings, row maxima and counts bit for
+    bit, the detect entries' on their own magnitudes; the split entry's
+    rows bit-equal to the whole frame's) and timed (graph replay) beside
+    its bound and twin.  ``launches`` are the demo runs' (phase 35b).
+    Returns the kernel rows."""
+    import torch
+    from fmcw_tpu_torch.models import pipeline as pl, scenario as sc
+    from fmcw_tpu_torch.ops import cfar as C, cfar_detect as CD
+    from fmcw_tpu_torch.ops import frontend as F, frontend_fixed as FX
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    from fmcw_tpu_torch.ops.beam_group import beam_group, beam_group_plain
+    from fmcw_tpu_torch.tools.visualize import demo_params
+    p = demo_params(quick=False)
+    nr, nd, cfar, pgr = p.n_range, p.n_doppler, p.cfar, 2
+    cfg = sc.ScenarioConfig(num_scans=1)
+    _, frame, _ = next(sc.TacticalScenario(p, cfg).run())
+    iq = torch.as_tensor(pl.complex_to_iq(frame)[None], device=dev)
+    _, cube, _ = next(sc.TacticalScenario(p, cfg).run_elements(8))
+    br, bi = beam_planes(torch.as_tensor(pl.complex_to_iq(cube)[None],
+                                         device=dev), 8)
+    re, im = F.range_fft(iq)
+    fre, fim = F.range_fft_float(br, bi)
+    imag, _ = FX.slowtime_mag_fixed_plain(*FX.range_fft_fixed_plain(iq)[:2])
+    rec = []
+    C.cfar_2d_hw_stream(imag, cfar=cfar, integer=True, streaming=True,
+                        label_roll=False,
+                        decide=recorded(CD.cfar_detect_hw_stream, rec))
+    (ext, start0, R, D, _), hkw, _ = rec[0]
+    dkw = dict(cfar=cfar, peak_group_radius=pgr)
+    bdet = F.slowtime_detect(fre, fim, False, 0, **dkw)[0].reshape(
+        1, 8, nr, nd)
+    sp, s = 4, 1
+    ndc, nrl, h = nd // sp, nr // sp, cfar.halo_range + pgr
+    chirps = iq[:, s * ndc:(s + 1) * ndc].contiguous()
+    ext_r = torch.arange(s * nrl - h, (s + 1) * nrl + h, device=dev) % nr
+    lo, hi, core = ext_r[:h], ext_r[h + nrl:], ext_r[h:h + nrl]
+    sargs = (re[:, core].contiguous(), im[:, core].contiguous(),
+             (re[:, lo].contiguous(), im[:, lo].contiguous()),
+             (re[:, hi].contiguous(), im[:, hi].contiguous()), False, 0,
+             s * nrl)
+    skw = dict(cfar=cfar, n_range_total=nr, peak_group_radius=pgr)
+    in_float = int(imag.abs().max()) <= CD.float_max(cfar)
+    hw_float = int(imag.abs().max()) <= CD.float_max(
+        C.hw_stream_params(cfar))
+
+    def detect_check(re, im, what):
+        det, mag, rmax, ndet, nf = F.slowtime_detect(re, im, False, 0,
+                                                     emit_mag=True, **dkw)
+        err = _within_tol([(mag, F.slowtime_mag_plain(re, im, False))], what)
+        _identical(zip((det, rmax, ndet, nf),
+                       F.detect_plain(mag, cfar, 0, pgr)), what)
+        return err
+
+    def split_check():
+        d_s, m_s, r_s, _, _ = SF.slowtime_detect_split(*sargs, emit_mag=True,
+                                                       **skw)
+        det, mag, rmax, _, _ = F.slowtime_detect(re, im, False, 0,
+                                                 emit_mag=True, **dkw)
+        rows = slice(s * nrl, (s + 1) * nrl)
+        _identical([(d_s, det[:, rows]), (m_s, mag[:, rows]),
+                    (r_s, rmax[:, rows])], "slowtime_detect_split (demo)")
+        return _within_tol(
+            [(m_s, F.slowtime_mag_plain(re, im, False)[:, rows])],
+            "slowtime_detect_split (demo)")
+
+    # (row, demo mode, wrapper, timed call, twin, check, bound, source,
+    #  TPU kernel)
+    cases = (
+        ("range_fft[demo]", "float", "range_fft", lambda: F.range_fft(iq),
+         lambda: F.range_fft_plain(iq),
+         lambda: _within_tol(list(zip(F.range_fft(iq),
+                                      F.range_fft_plain(iq))), "range_fft"),
+         bound_range_fft(1, nd, nr), "range_fft.cu", "frontend_pallas.py:623"),
+        ("slowtime_detect[cell,demo]", "float", "slowtime_detect",
+         lambda: F.slowtime_detect(re, im, False, 0, **dkw),
+         lambda: F.slowtime_detect_plain(re, im, False, 0, **dkw),
+         lambda: detect_check(re, im, "slowtime_detect (demo)"),
+         bound_slowtime(1, nr, nd, cfar), "slowtime_detect.cu",
+         "frontend_pallas.py:623"),
+        ("cfar_detect_group[cell,int32,demo]", "fixed", "cfar_detect_group",
+         lambda: CD.cfar_detect_group(imag, 0, **dkw),
+         lambda: CD.cfar_detect_group_plain(imag, 0, **dkw),
+         lambda: _identical(zip(CD.cfar_detect_group(imag, 0, **dkw),
+                                CD.cfar_detect_group_plain(imag, 0, **dkw)),
+                            "cfar_detect_group (demo)"),
+         bound_cfar_detect(1, nr, nd, cfar, in_float, True),
+         "cfar_detect.cu", "cfar_pallas.py:155"),
+        ("cfar_detect_hw_stream[int32,demo]", "hw-compat fixed",
+         "cfar_detect_hw_stream",
+         lambda: CD.cfar_detect_hw_stream(ext, start0, R, D, 0, **hkw),
+         lambda: C.hw_stream_decide_plain(ext, start0, R, D, 0, **hkw),
+         lambda: _identical(zip(
+             CD.cfar_detect_hw_stream(ext, start0, R, D, 0, **hkw),
+             C.hw_stream_decide_plain(ext, start0, R, D, 0, **hkw)),
+             "cfar_detect_hw_stream (demo)"),
+         bound_cfar_detect(1, nr, nd, C.hw_stream_params(cfar), hw_float),
+         "cfar_detect.cu", "cfar_pallas.py:155"),
+        ("range_fft_float[demo array 8]", "array 8", "range_fft_float",
+         lambda: F.range_fft_float(br, bi),
+         lambda: F.range_fft_float_plain(br, bi),
+         lambda: _within_tol(list(zip(F.range_fft_float(br, bi),
+                                      F.range_fft_float_plain(br, bi))),
+                             "range_fft_float (demo)"),
+         bound_range_fft_float(8, nd, nr), "range_fft.cu",
+         "frontend_pallas.py:623"),
+        ("slowtime_detect[cell,demo array 8]", "array 8", "slowtime_detect",
+         lambda: F.slowtime_detect(fre, fim, False, 0, **dkw),
+         lambda: F.slowtime_detect_plain(fre, fim, False, 0, **dkw),
+         lambda: detect_check(fre, fim, "slowtime_detect (demo array)"),
+         bound_slowtime(8, nr, nd, cfar), "slowtime_detect.cu",
+         "frontend_pallas.py:623"),
+        ("beam_group[demo array 8]", "array 8", "beam_group",
+         lambda: beam_group(bdet, 1), lambda: beam_group_plain(bdet, 1),
+         lambda: _identical(zip(beam_group(bdet, 1),
+                                beam_group_plain(bdet, 1)),
+                            "beam_group (demo)"),
+         bound_beam_group(1, 8, nr, nd, 1), "beam_group.cu",
+         "cfar_pallas.py:824"),
+        ("range_frontend[demo sp 4]", "sharded 4", "range_frontend",
+         lambda: SF.range_frontend(chirps),
+         lambda: F.range_fft_plain(chirps),
+         lambda: _within_tol(list(zip(SF.range_frontend(chirps),
+                                      F.range_fft_plain(chirps))),
+                             "range_frontend (demo)"),
+         bound_range_fft(1, ndc, nr), "range_fft.cu",
+         "split_frontend.py:73"),
+        ("slowtime_detect_split[demo sp 4]", "sharded 4",
+         "slowtime_detect_split",
+         lambda: SF.slowtime_detect_split(*sargs, **skw),
+         lambda: SF.slowtime_detect_split_plain(*sargs, **skw), split_check,
+         bound_slowtime_split(1, nrl, nd, h, cfar), "slowtime_detect.cu",
+         "split_frontend.py:518"))
+    rows = []
+    for (row, mode, wrapper, call, twin, check, (bound, by), src,
+         tpu) in cases:
+        err = check()
+        torch.cuda.synchronize()
+        ms = graph_ms(call)
+        plain_ms = cuda_ms(twin, 2, 1)
+        n = launches[mode].get(wrapper, 0)
+        rows.append(dict(name=row, route="cuda",
+                         source="fmcw_tpu_torch/csrc/" + src,
+                         replaces="fmcw_tpu/ops/" + tpu, launches=n,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, library_ms=None))
+        log(f"{row}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}); against its twin: max abs err "
+            f"{err:.3g}; {n} launches in the demo's {mode} run ({card})")
+    return rows
+
+
+def demo_phase(card: str, dev):
+    """Phase 35 (35a-c above).  Returns (kernel rows, summary)."""
+    import tempfile
+    t0 = time.perf_counter()
+    n_quick = quick_run_check(card, dev)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, sps = demo_runs(card, dev, tmp)
+    t2 = time.perf_counter()
+    rows = demo_kernel_rows(card, dev, launches)
+    t3 = time.perf_counter()
+    log(f"demo phase: 35a {t1 - t0:.1f} s, 35b {t2 - t1:.1f} s, 35c "
+        f"{t3 - t2:.1f} s")
+    return rows, {"quick_run_detections": n_quick, "scans_per_s": sps,
+                  "scans": DEMO_SCANS, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6989,6 +7613,18 @@ def main() -> int:
     log(f"phases 1-32: {time.perf_counter() - t_start:.1f} s")
     fixed_long_rows, fixed_long_summary = fixed_long_phase(card, dev, pgr)
 
+    # 34. fixed_fft="scaled": the stage-scaled transform on the card
+    #     against the golden model, the scaled routes against the plain
+    #     route and the golden model, timings.
+    log(f"phases 1-33: {time.perf_counter() - t_start:.1f} s")
+    scaled_rows, scaled_summary = scaled_phase(card, dev, pgr)
+
+    # 35. The quick-validation stimulus and the demo: the faithful quick
+    #     run, the demo's run function in five modes, its kernels at its
+    #     shapes.
+    log(f"phases 1-34: {time.perf_counter() - t_start:.1f} s")
+    demo_rows, demo_summary = demo_phase(card, dev)
+
     # The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
@@ -7003,7 +7639,8 @@ def main() -> int:
                          **results[f"slowtime_detect[{mode}]"]))
     rows += (fixed_rows + array_rows + split_rows + rank_rows + entry_rows
              + hw_rows + variant_rows + reflect_rows + rank_reflect_rows
-             + cfar3d_reflect_rows + long_rows + fixed_long_rows)
+             + cfar3d_reflect_rows + long_rows + fixed_long_rows
+             + scaled_rows + demo_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
@@ -7026,6 +7663,8 @@ def main() -> int:
                     "cfar3d_reflect": cfar3d_reflect_summary,
                     "long_cpi": long_summary,
                     "fixed_long_cpi": fixed_long_summary,
+                    "scaled": scaled_summary,
+                    "demo": demo_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

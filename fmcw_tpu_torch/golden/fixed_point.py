@@ -12,6 +12,9 @@ the corresponding VHDL component of the reference design:
 * ``bfp_fft``                           - the framework's block-floating-point
   FFT semantics (unscaled float64 DFT, one per-transform exponent putting the
   peak in the top octave of int16, round half to even, exponent discarded)
+* ``scaled_fft`` / ``bit_reverse_permutation`` - the stage-scaled FFT of
+  the QUICK-mode XFFT variants (radix-2 DIF, Q15 twiddles, convergent
+  rounding, per-stage shifts, int16 wrap)
 * ``mti_notch``                         <- rtl/src/doppler_notch.vhd:52-112
 * ``magnitude``                         <- rtl/src/magnitude_calc.vhd:45-88
 * ``os_cfar_2d``                        <- rtl/src/os_cfar_2d.vhd:150-217
@@ -132,6 +135,113 @@ def bfp_fft(i: np.ndarray, q: np.ndarray, axis: int = -1):
     i_out = np.clip(_round_half_even_to_int(zf.real), INT16_MIN, INT16_MAX)
     q_out = np.clip(_round_half_even_to_int(zf.imag), INT16_MIN, INT16_MAX)
     return i_out, q_out
+
+
+def bit_reverse_permutation(n: int) -> np.ndarray:
+    """Index permutation ``perm`` with perm[k] = bit-reverse of k (log2 n
+    bits).  Self-inverse."""
+    m = n.bit_length() - 1
+    perm = np.zeros(n, dtype=np.int64)
+    for k in range(n):
+        r = 0
+        for b in range(m):
+            if k >> b & 1:
+                r |= 1 << (m - 1 - b)
+        perm[k] = r
+    return perm
+
+
+def q15_twiddles(L: int):
+    """The Q15 phase factors of a length-L DIF stage: int64 (wr, wi) of
+    ``rint(32768 e^(-2 pi i k / L))`` clipped to int16, k < L / 2, built in
+    float64 on the host."""
+    ang = -2.0 * np.pi * np.arange(L >> 1) / L
+    wr = np.clip(np.rint(32768.0 * np.cos(ang)), -32768, 32767)
+    wi = np.clip(np.rint(32768.0 * np.sin(ang)), -32768, 32767)
+    return wr.astype(np.int64), wi.astype(np.int64)
+
+
+def rhe_shift(x, sh: int):
+    """Convergent (round-half-even) arithmetic right shift of integers by
+    ``sh``: numpy arrays or torch tensors."""
+    if sh == 0:
+        return x
+    half = 1 << (sh - 1)
+    fl = x >> sh
+    rem = x - (fl << sh)
+    return fl + (rem > half) + ((rem == half) & ((fl & 1) == 1))
+
+
+def wrap16(x):
+    """Two's-complement wrap of integers to int16's range."""
+    return ((x + 32768) & 65535) - 32768
+
+
+def scaled_fft(i: np.ndarray, q: np.ndarray, axis: int = -1,
+               scale_sch=None, output_order: str = "natural"):
+    """Stage-scaled fixed-point FFT: the arithmetic family of the
+    QUICK-mode XFFT variants (xfft_128.xci / xfft_32.xci:
+    scaling_options="scaled", convergent rounding, 16-bit phase factors;
+    xfft_128 emits bit_reversed_order), the alternative to the production
+    instances' block-floating-point ``bfp_fft``.
+
+    The pinned semantics (a radix-2 DIF network in the XFFT's parameter
+    space; the closed IP's internal pipeline is not observable):
+
+    * radix-2 decimation-in-frequency stages, natural-order input;
+    * butterfly sums exact; the twiddle leg multiplies by Q15 phase factors
+      (``q15_twiddles``), the trivial k = 0 twiddle bypassed (no multiply),
+      and the product convergent-rounded back by 2^-15;
+    * after each stage both legs shift right by ``scale_sch[stage]``
+      (convergent rounding) and WRAP to int16 (no saturation);
+    * ``scale_sch``: one shift per stage, stage 0 the largest-block stage.
+      None = all zeros, what the reference's config word x"0001" programs
+      (rtl/src/radar_core.vhd:247: no scaling, wraps); [1]*log2(n) is the
+      conventional 1/N scaling;
+    * ``output_order``: "bit_reversed" (the DIF network's native order) or
+      "natural".
+
+    Returns (i_out, q_out) int64 arrays of int16-ranged values.
+    """
+    ir = np.moveaxis(np.asarray(i, dtype=np.int64), axis, -1).copy()
+    qr = np.moveaxis(np.asarray(q, dtype=np.int64), axis, -1).copy()
+    n = ir.shape[-1]
+    m = n.bit_length() - 1
+    if 1 << m != n:
+        raise ValueError(f"scaled_fft needs a power-of-two length, got {n}")
+    if scale_sch is None:
+        scale_sch = [0] * m
+    if len(scale_sch) != m:
+        raise ValueError(f"scale_sch needs {m} entries, got {len(scale_sch)}")
+    if output_order not in ("natural", "bit_reversed"):
+        raise ValueError(output_order)
+
+    for s in range(m):
+        L = n >> s
+        h = L >> 1
+        sh = ir.shape[:-1] + (n // L, L)
+        ar, br = ir.reshape(sh)[..., :h], ir.reshape(sh)[..., h:]
+        ai, bi = qr.reshape(sh)[..., :h], qr.reshape(sh)[..., h:]
+        ur, ui = ar + br, ai + bi
+        vr, vi = ar - br, ai - bi
+        wr, wi = q15_twiddles(L)
+        tr = rhe_shift(vr * wr - vi * wi, 15)
+        ti = rhe_shift(vr * wi + vi * wr, 15)
+        # k = 0 twiddle bypass: W^0 = 1 exactly (no Q15 product).
+        tr[..., 0] = vr[..., 0]
+        ti[..., 0] = vi[..., 0]
+        ssh = int(scale_sch[s])
+        out_r = np.concatenate([rhe_shift(ur, ssh), rhe_shift(tr, ssh)],
+                               axis=-1)
+        out_i = np.concatenate([rhe_shift(ui, ssh), rhe_shift(ti, ssh)],
+                               axis=-1)
+        ir = wrap16(out_r).reshape(ir.shape)
+        qr = wrap16(out_i).reshape(qr.shape)
+
+    if output_order == "natural":
+        perm = bit_reverse_permutation(n)
+        ir, qr = ir[..., perm], qr[..., perm]
+    return np.moveaxis(ir, -1, axis), np.moveaxis(qr, -1, axis)
 
 
 # ---------------------------------------------------------------------------

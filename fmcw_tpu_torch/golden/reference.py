@@ -5,7 +5,8 @@
 range bin 100 (Doppler 5.0, amp 8000) and range bin 500 (Doppler -10.0, amp
 5000), uniform noise +-20.
 ``process_frame_fixed`` — the fixed-point chain composed of the
-``fixed_point`` stages: the oracle of the port's ``mode="fixed"``.
+``fixed_point`` stages (block-floating-point or stage-scaled FFTs): the
+oracle of the port's ``mode="fixed"``.
 ``doppler_eighth_tie_frames`` / ``doppler_eighth_tie_planes`` (the port's
 own) — frames, or range-major planes, that put exact round-half ties on
 eighth-turn Doppler bins: the stimuli that tell an exact Doppler transform
@@ -63,49 +64,73 @@ def golden_targets(p: RadarParams):
             (500 * p.n_range // 1024, -10.0 * p.n_doppler / 128, 5000.0)]
 
 
+def fixed_ffts(p: RadarParams, fft: str = "bfp", fft_scale_sch=None):
+    """The fixed chain's (range, Doppler) transforms along axis 1: the
+    block-floating-point ``bfp_fft`` ("bfp"), or the stage-scaled
+    ``scaled_fft`` ("scaled") with ``fft_scale_sch`` = (range_sch,
+    doppler_sch), None meaning the conventional [1]*log2(n) per
+    transform."""
+    if fft == "bfp":
+        return (lambda i, q: fx.bfp_fft(i, q, axis=1),) * 2
+    if fft != "scaled":
+        raise ValueError(fft)
+    sch = fft_scale_sch or ([1] * (p.n_range.bit_length() - 1),
+                            [1] * (p.n_doppler.bit_length() - 1))
+    return tuple(
+        (lambda i, q, s=s: fx.scaled_fft(i, q, axis=1, scale_sch=s))
+        for s in sch)
+
+
 def process_frame_fixed(frame_iq: np.ndarray, params: RadarParams | None = None,
                         mti_bypass: bool = False, scale_override: int = 0,
                         mti_transient: str = "zero",
-                        window_rounding: str = "unbiased"):
+                        window_rounding: str = "unbiased",
+                        fft: str = "bfp", fft_scale_sch=None):
     """Run the fixed-point chain on one (n_doppler, n_range) complex int frame.
 
     With ``window_rounding="biased"`` and ``mti_transient="passthrough"`` every
     stage is bit-faithful to the reference hardware; the defaults use the
-    framework's cleaned-up numerics.  The FFTs are the block-floating-point
-    ``bfp_fft`` (the stage-scaled variant is not ported; ROADMAP.md).
+    framework's cleaned-up numerics.  ``fft``: "bfp" (the production XFFT
+    block-floating-point) or "scaled" (the QUICK-mode XFFT variants'
+    stage-scaled arithmetic, ``fixed_point.scaled_fft``, natural output
+    order in the chain); ``fft_scale_sch``: an optional (range_sch,
+    doppler_sch) pair, None with "scaled" meaning [1]*log2(n) per
+    transform (``fixed_ffts``).
     Returns (mag_map, det_map) int64 arrays of shape (n_range, n_doppler).
     """
     p = params or RadarParams()
+    fft_r, fft_d = fixed_ffts(p, fft, fft_scale_sch)
     z = np.asarray(frame_iq)
     i_v, q_v = z.real.astype(np.int64), z.imag.astype(np.int64)
 
     cr = fx.hamming_coeffs(p.n_range, p.coef_width)
     i_v, q_v, _ = fx.window_apply(i_v, q_v, cr[None, :], p.coef_width,
                                   rounding=window_rounding)
-    i_v, q_v = fx.bfp_fft(i_v, q_v, axis=1)
+    i_v, q_v = fft_r(i_v, q_v)
 
     i_v, q_v = i_v.T, q_v.T  # corner turn -> (n_range, n_doppler)
     return process_rows_fixed(i_v, q_v, p, mti_bypass, scale_override,
-                              mti_transient, window_rounding)
+                              mti_transient, window_rounding, fft_d)
 
 
 def process_rows_fixed(i_v: np.ndarray, q_v: np.ndarray,
                        params: RadarParams | None = None,
                        mti_bypass: bool = False, scale_override: int = 0,
                        mti_transient: str = "zero",
-                       window_rounding: str = "unbiased"):
+                       window_rounding: str = "unbiased", fft_d=None):
     """The slow-time half of ``process_frame_fixed`` on one range-major
     (n_range, n_doppler) pair of integer planes (the range stage's output):
-    MTI, Doppler window, BFP FFT, magnitude, OS-CFAR.  Returns (mag_map,
-    det_map) int64."""
+    MTI, Doppler window, FFT (``fft_d``, of ``fixed_ffts``; None: BFP),
+    magnitude, OS-CFAR.  Returns (mag_map, det_map) int64."""
     p = params or RadarParams()
+    fft_d = fft_d or fixed_ffts(p)[1]
     i_v, q_v = fx.mti_notch(i_v, q_v, axis=1, mode=p.notch_mode,
                             bypass=mti_bypass, transient=mti_transient)
 
     cd = fx.hamming_coeffs(p.n_doppler, p.coef_width)
     i_v, q_v, _ = fx.window_apply(i_v, q_v, cd[None, :], p.coef_width,
                                   rounding=window_rounding)
-    i_v, q_v = fx.bfp_fft(i_v, q_v, axis=1)
+    i_v, q_v = fft_d(i_v, q_v)
 
     mag = fx.magnitude(i_v, q_v)
     det = fx.os_cfar_2d(mag, p.cfar, scale_override)

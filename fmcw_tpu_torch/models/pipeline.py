@@ -142,9 +142,18 @@ fixed "fused" runs ``range_fft_fixed`` and ``slowtime_detect_fixed``
 there, per-cell and block, every variant; fixed "auto" stays the staged
 route, as JAX's "auto" stays on its XLA chain.
 
-Not yet ported (it raises ``NotImplementedError``, ROADMAP.md):
-``fixed_fft="scaled"``.  The sharded processors are in
-``parallel/sharded.py``.
+``fixed_fft="scaled"`` (fixed mode) swaps the fixed chain's transforms for
+the QUICK-mode XFFT variants' stage-scaled integer arithmetic
+(``ops/fft.scaled_fft_apply``; ``fixed_fft_scale_sch`` = (range_sch,
+doppler_sch), None meaning [1]*log2(n) per transform).  It has no fused
+kernel, as in JAX: "auto" and "staged" run the staged route with the
+scaled transforms in place of the float64 DFT and BFP, then the route's
+CFAR kernels as above (the grouping entry, the flat-stream entry, the
+rank-select CFAR for the debug taps, the reflect entries); "plain" runs
+their twins; "fused" raises ValueError.
+
+The sharded processors are in ``parallel/sharded.py`` (they take no
+``fixed_fft``, as JAX's).
 """
 
 from __future__ import annotations
@@ -217,15 +226,43 @@ def _staged_float(re, im, mti_bypass, p: RadarParams, transient: str,
 
 
 def _staged_fixed(iq, mti_bypass, p: RadarParams, transient: str,
-                  rounding: str):
+                  rounding: str, sch=(None, None)):
     """JAX's fixed ``frontend="xla"`` transforms (``fixed_path``): the
     fixed chain's stages up to the integer magnitude, the same plain PyTorch
-    stages the fused kernels' twins are made of — ((B, nr, nd) int32,
-    saturation count (B,))."""
-    re, im, sat_r = FX.range_fft_fixed_plain(iq, p.coef_width, rounding)
+    stages the fused kernels' twins are made of, with the stage-scaled
+    transforms where ``sch`` holds (range_sch, doppler_sch) — ((B, nr, nd)
+    int32, saturation count (B,))."""
+    re, im, sat_r = FX.range_fft_fixed_plain(iq, p.coef_width, rounding,
+                                             sch[0])
     mag, sat_d = FX.slowtime_mag_fixed_plain(
-        re, im, mti_bypass, p.notch_mode, transient, p.coef_width, rounding)
+        re, im, mti_bypass, p.notch_mode, transient, p.coef_width, rounding,
+        sch[1])
     return mag, sat_r + sat_d
+
+
+def scaled_schedules(p: RadarParams, fixed_fft: str, mode: str,
+                     frontend: str, fixed_fft_scale_sch=None):
+    """Check ``fixed_fft`` as JAX's ``make_processor`` does and return the
+    fixed chain's (range_sch, doppler_sch): (None, None) for "bfp"; for
+    "scaled" the given pair, or [1]*log2(n) per transform."""
+    if fixed_fft not in ("bfp", "scaled"):
+        raise ValueError(f"fixed_fft must be 'bfp' or 'scaled', got "
+                         f"{fixed_fft!r}")
+    if fixed_fft == "bfp":
+        return None, None
+    if mode != "fixed":
+        raise ValueError("fixed_fft='scaled' applies to mode='fixed'")
+    if frontend == "fused":
+        raise ValueError("fixed_fft='scaled' has no fused kernel; use "
+                         "frontend='auto', 'staged' or 'plain'")
+    sch = tuple(tuple(int(v) for v in s) for s in (fixed_fft_scale_sch or (
+        [1] * (p.n_range.bit_length() - 1),
+        [1] * (p.n_doppler.bit_length() - 1))))
+    for s, n in zip(sch, (p.n_range, p.n_doppler)):
+        if len(s) != n.bit_length() - 1:
+            raise ValueError(f"fixed_fft_scale_sch: {len(s)} shifts for a "
+                             f"{n}-point transform")
+    return sch
 
 
 def cfar_group_route(cfar, plain: bool = False) -> Callable:
@@ -270,6 +307,7 @@ def make_batch_processor(params: RadarParams | None = None,
                          include_debug: bool = False,
                          cfar_rank_bits: int | None = 16,
                          fixed_fft: str = "bfp",
+                         fixed_fft_scale_sch=None,
                          cfar_geometry: str = "named",
                          device=None) -> Callable:
     """Multi-frame processor: iq int16 (batch, n_doppler, n_range, 2)
@@ -297,6 +335,8 @@ def make_batch_processor(params: RadarParams | None = None,
     key bits their float per-cell rank select walks: 16 or None = exact).
     ``window_rounding`` ("unbiased" or the reference's "biased") applies to
     fixed mode, ``magnitude_exact`` to float32, as in JAX.
+    ``fixed_fft``: "bfp" or "scaled", with ``fixed_fft_scale_sch`` (the
+    module docstring; ValueError for float32, "fused" or another name).
     ``cfar_geometry``: "named" or "hw_stream" (the module docstring; the
     detections and det_map at the hardware's label coordinates), which also
     gives the callable ``stream(iq, mti_bypass=False, scale_override=0,
@@ -306,16 +346,12 @@ def make_batch_processor(params: RadarParams | None = None,
     dev = resolve_device(device)
     if mode not in ("float32", "fixed"):
         raise ValueError(f"mode must be 'float32' or 'fixed', got {mode!r}")
-    if fixed_fft != "bfp":
-        if fixed_fft != "scaled":
-            raise ValueError(f"fixed_fft must be 'bfp' or 'scaled', got "
-                             f"{fixed_fft!r}")
-        raise NotImplementedError(
-            "fixed_fft='scaled' (the stage-scaled XFFT arithmetic) is not "
-            "ported yet (ROADMAP.md)")
     if cfar_geometry not in ("named", "hw_stream"):
         raise ValueError(f"cfar_geometry must be 'named' or 'hw_stream', got "
                          f"{cfar_geometry!r}")
+    sch = scaled_schedules(p, fixed_fft, mode, frontend, fixed_fft_scale_sch)
+    # The stage-scaled transforms run on the staged route's dataflow.
+    scaled = sch[0] is not None
     hw = cfar_geometry == "hw_stream"
     # Reflect maps decide in the standalone CFAR (module docstring).
     standalone = not hw and p.cfar.edge_mode != "wrap"
@@ -357,7 +393,7 @@ def make_batch_processor(params: RadarParams | None = None,
         zeros = torch.zeros(iq.shape[0], dtype=torch.int32, device=dev)
         if mode == "fixed":
             mag, sat = _staged_fixed(iq, bypass, p, mti_transient,
-                                     window_rounding)
+                                     window_rounding, sch)
             return mag, sat, zeros
         tf_kw = dict(notch_mode=p.notch_mode, transient=mti_transient,
                      exact_mag=magnitude_exact)
@@ -403,7 +439,7 @@ def make_batch_processor(params: RadarParams | None = None,
         if hw:
             det, mag, sat, nonfinite, threshold, scale, carry = hw_stream(
                 iq, bypass, so, hist, streaming)
-        elif route == "staged" or include_debug or standalone:
+        elif route == "staged" or include_debug or standalone or scaled:
             mag, sat, nonfinite = magnitudes(iq, bypass)
             if include_debug and p.cfar.variant != "os":
                 det, threshold, scale = C.cfar_2d(mag, so, p.cfar,

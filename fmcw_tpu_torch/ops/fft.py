@@ -16,6 +16,11 @@ frame's detection set with them.  In float64, with the twiddles exact at the
 quarter turns (``twiddles64``), the quantized values equal the float64 golden
 model's (``golden.fixed_point.bfp_fft``), and the fused kernels, which use
 the same twiddle table, equal both.
+
+``scaled_fft_apply`` is the fixed chain's other transform, the QUICK-mode
+XFFT variants' stage-scaled integer arithmetic (``models/pipeline``'s
+``fixed_fft="scaled"``): plain int64 PyTorch, bit-exact against
+``golden.fixed_point.scaled_fft``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import functools
 import numpy as np
 import torch
 
+from ..golden.fixed_point import (bit_reverse_permutation, q15_twiddles,
+                                  rhe_shift, wrap16)
 from .window import hamming_float
 
 
@@ -283,3 +290,64 @@ def bfp_quantize(re: torch.Tensor, im: torch.Tensor, dim: int = -1):
         return torch.round(x * scale).clamp(-32768.0, 32767.0)
 
     return q(re), q(im)
+
+
+@functools.lru_cache(maxsize=64)
+def _scaled_tables(n: int, device: str):
+    """Per DIF stage of a length-n transform, the Q15 twiddles (int64 (wr,
+    wi), built in float64 on the host as the golden model builds them),
+    and the bit-reverse permutation, on ``device``."""
+    stages = [tuple(torch.as_tensor(w, device=device)
+                    for w in q15_twiddles(n >> s))
+              for s in range(n.bit_length() - 1)]
+    return stages, torch.as_tensor(bit_reverse_permutation(n), device=device)
+
+
+def scaled_fft_apply(re: torch.Tensor, im: torch.Tensor, dim: int = -1,
+                     scale_sch=None, output_order: str = "natural"):
+    """Stage-scaled fixed-point FFT along ``dim``: the plain PyTorch twin of
+    ``golden.fixed_point.scaled_fft`` (port of ``fmcw_tpu/ops/fft.
+    scaled_fft_apply``; radix-2 DIF, Q15 twiddles with the k = 0 bypass,
+    convergent rounding, per-stage ``scale_sch`` shifts, int16 WRAP on
+    overflow), bit-exact against it, wraps included.  ``scale_sch`` None is
+    all zeros (no scaling), as there.
+
+    Integer-valued inputs of any dtype; int64 out, int16-ranged.  The
+    twiddle products (at most 33 bits) are formed in int64, exact on the
+    CPU and on CUDA.
+    """
+    ir = torch.movedim(torch.as_tensor(re), dim, -1).to(torch.int64)
+    qr = torch.movedim(torch.as_tensor(im), dim, -1).to(torch.int64)
+    n = ir.shape[-1]
+    m = n.bit_length() - 1
+    if 1 << m != n:
+        raise ValueError(f"scaled_fft_apply needs a power-of-two length, "
+                         f"got {n}")
+    if scale_sch is None:
+        scale_sch = [0] * m
+    if len(scale_sch) != m:
+        raise ValueError(f"scale_sch needs {m} entries, got {len(scale_sch)}")
+    if output_order not in ("natural", "bit_reversed"):
+        raise ValueError(output_order)
+    stages, perm = _scaled_tables(n, str(ir.device))
+    shape = ir.shape
+    for s, (wr, wi) in enumerate(stages):
+        L = n >> s
+        h = L >> 1
+        i2 = ir.reshape(shape[:-1] + (n // L, L))
+        q2 = qr.reshape(shape[:-1] + (n // L, L))
+        ar, br, ai, bi = i2[..., :h], i2[..., h:], q2[..., :h], q2[..., h:]
+        vr, vi = ar - br, ai - bi
+        tr = rhe_shift(vr * wr - vi * wi, 15)
+        ti = rhe_shift(vr * wi + vi * wr, 15)
+        # k = 0 twiddle bypass: W^0 = 1 exactly (no Q15 product).
+        tr[..., 0] = vr[..., 0]
+        ti[..., 0] = vi[..., 0]
+        ssh = int(scale_sch[s])
+        ir = wrap16(torch.cat([rhe_shift(ar + br, ssh), rhe_shift(tr, ssh)],
+                              dim=-1)).reshape(shape)
+        qr = wrap16(torch.cat([rhe_shift(ai + bi, ssh), rhe_shift(ti, ssh)],
+                              dim=-1)).reshape(shape)
+    if output_order == "natural":
+        ir, qr = ir[..., perm], qr[..., perm]
+    return torch.movedim(ir, -1, dim), torch.movedim(qr, -1, dim)

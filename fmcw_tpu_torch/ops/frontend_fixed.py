@@ -44,7 +44,7 @@ from .. import kernels
 from ..params import CfarParams, RadarParams
 from . import cfar as C
 from . import frontend as F
-from .fft import bfp_quantize, dft64_apply, twiddles64
+from .fft import bfp_quantize, dft64_apply, scaled_fft_apply, twiddles64
 from .magnitude import magnitude_fixed
 from .notch import check_notch, mti_notch_fixed
 from .window import hamming_q15, window_apply_fixed, window_rounding_constant
@@ -80,16 +80,27 @@ def _range_tables(n: int, coef_width: int, device: str):
 # Range half
 # ---------------------------------------------------------------------------
 
+def fixed_transform(i_v: torch.Tensor, q_v: torch.Tensor, scale_sch=None):
+    """The fixed chain's transform along the last axis: with ``scale_sch``
+    None the dense float64 DFT, then BFP per transform; with a per-stage
+    shift schedule the stage-scaled ``ops/fft.scaled_fft_apply``
+    (``fixed_fft="scaled"``), natural order.  Integer-valued (re, im)."""
+    if scale_sch is None:
+        return bfp_quantize(*dft64_apply(i_v, q_v))
+    return scaled_fft_apply(i_v, q_v, -1, scale_sch)
+
+
 def range_fft_fixed_plain(iq: torch.Tensor, coef_width: int = 16,
-                          rounding: str = "unbiased"):
+                          rounding: str = "unbiased", scale_sch=None):
     """Plain twin of ``range_fft_fixed``: integer window, dense float64 DFT,
     BFP per chirp (``fmcw_tpu/models/pipeline.fixed_path``'s range stage),
-    transposed to range-major."""
+    transposed to range-major.  With ``scale_sch`` the stage-scaled
+    transform in place of DFT and BFP (``fixed_transform``)."""
     F.check_iq(iq)
     w = hamming_q15(iq.shape[-2], coef_width)
     i_v, q_v, sat = window_apply_fixed(iq[..., 0], iq[..., 1], w[None, :],
                                        coef_width, rounding)
-    re, im = bfp_quantize(*dft64_apply(i_v, q_v))
+    re, im = fixed_transform(i_v, q_v, scale_sch)
     return (re.to(torch.int16).transpose(-1, -2).contiguous(),
             im.to(torch.int16).transpose(-1, -2).contiguous(), sat)
 
@@ -148,17 +159,18 @@ def launch_range_fft_fixed(iq: torch.Tensor, coef_width: int = 16,
 def slowtime_mag_fixed_plain(re: torch.Tensor, im: torch.Tensor,
                              mti_bypass: bool = False, notch_mode: int = 2,
                              transient: str = "zero", coef_width: int = 16,
-                             rounding: str = "unbiased"):
+                             rounding: str = "unbiased", scale_sch=None):
     """Plain twin of the kernel's first half on range-major integer planes
     (B, nr, nd): saturating MTI, integer Doppler window, dense float64 DFT,
     BFP per range bin, integer magnitude.  Returns (mag int32 (B, nr, nd),
-    Doppler-window saturation count (B,) int32)."""
+    Doppler-window saturation count (B,) int32).  With ``scale_sch`` the
+    stage-scaled transform in place of DFT and BFP (``fixed_transform``)."""
     i_v, q_v = mti_notch_fixed(re, im, notch_mode, bool(mti_bypass),
                                transient)
     w = hamming_q15(re.shape[-1], coef_width)
     i_v, q_v, sat = window_apply_fixed(i_v, q_v, w[None, :], coef_width,
                                        rounding)
-    yr, yi = bfp_quantize(*dft64_apply(i_v, q_v))
+    yr, yi = fixed_transform(i_v, q_v, scale_sch)
     return magnitude_fixed(yr, yi), sat
 
 

@@ -405,8 +405,13 @@ def test_results_do_not_depend_on_matmul_precision_flags():
 
 def test_fixed_mode_options_and_gates():
     p = fmcw_tpu_torch.quick()
-    with pytest.raises(NotImplementedError):
-        tpl.make_processor(p, mode="fixed", device="cpu", fixed_fft="scaled")
+    # fixed_fft="scaled" is ported: it has no fused kernel (ValueError, as
+    # JAX's "pallas") and applies to fixed mode only.
+    with pytest.raises(ValueError, match="fused"):
+        tpl.make_processor(p, mode="fixed", device="cpu", fixed_fft="scaled",
+                           frontend="fused")
+    with pytest.raises(ValueError, match="mode='fixed'"):
+        tpl.make_processor(p, device="cpu", fixed_fft="scaled")
     # The hw-compat streaming CFAR runs on the staged and plain routes (and
     # has its continuous-stream call); it has no fused fixed kernel.
     for fe in ("auto", "staged", "plain"):

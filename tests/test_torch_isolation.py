@@ -61,7 +61,10 @@ def test_import_loads_neither_jax_nor_fmcw_tpu():
             "fmcw_tpu_torch.runtime.surveillance",
             "fmcw_tpu_torch.runtime.stream",
             "fmcw_tpu_torch.runtime.native",
-            "fmcw_tpu_torch.utils.eval"} <= set(names)
+            "fmcw_tpu_torch.utils.eval",
+            "fmcw_tpu_torch.golden.adr_quick",
+            "fmcw_tpu_torch.utils.ambiguity", "fmcw_tpu_torch.utils.viz",
+            "fmcw_tpu_torch.tools.visualize"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -187,6 +190,28 @@ def test_runtime_defaults_to_cuda_and_raises_without_it(monkeypatch):
         next(SV.run_surveillance(lambda x, **k: {}, frames,
                                  fmcw_tpu_torch.quick()))
     assert len(list(RS.stream(lambda x: {}, frames, device="cpu"))) == 1
+
+
+def test_demo_cli_defaults_to_cuda_and_raises_without_it(monkeypatch,
+                                                        tmp_path):
+    """The demo CLI and its run function work on the card unless asked for
+    the CPU (--cpu / device="cpu"): without one they raise before any
+    work, and write no log."""
+    from fmcw_tpu_torch.tools import visualize as V
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "demo"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        V.main(["--quick", "--scans", "1", "--out", str(out)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        V.run_demo(scans=1, out=str(out))
+    assert not out.exists()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-m",
+                          "fmcw_tpu_torch.tools.visualize", "--scans", "1",
+                          "--out", str(out)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert res.returncode != 0 and "CUDA" in res.stderr
+    assert not out.exists()
 
 
 def test_chip_smoke_exits_nonzero_without_cuda():

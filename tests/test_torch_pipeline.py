@@ -115,8 +115,13 @@ def test_processor_rejects_wrong_shape_and_unported_modes():
     proc = tpl.make_processor(p, device="cpu")
     with pytest.raises(ValueError):
         proc(np.zeros((2, p.n_doppler, p.n_range, 2), np.int16))
-    with pytest.raises(NotImplementedError):
-        tpl.make_processor(p, mode="fixed", fixed_fft="scaled", device="cpu")
+    # fixed_fft="scaled" is ported; an unknown transform and the fused
+    # route with it raise ValueError, as JAX's.
+    with pytest.raises(ValueError, match="bfp"):
+        tpl.make_processor(p, mode="fixed", fixed_fft="xfft", device="cpu")
+    with pytest.raises(ValueError, match="fused"):
+        tpl.make_processor(p, mode="fixed", fixed_fft="scaled",
+                           frontend="fused", device="cpu")
     # The hw-compat streaming CFAR is ported: a valid mode; an unknown
     # geometry and one it cannot take (block scale) raise ValueError.
     tpl.make_processor(p, mode="fixed", cfar_geometry="hw_stream",

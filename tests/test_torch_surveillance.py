@@ -33,11 +33,11 @@ import fmcw_tpu
 import fmcw_tpu_torch
 from fmcw_tpu.models import pipeline as jpl
 from fmcw_tpu.runtime import surveillance as jsv
-from fmcw_tpu.utils import checkpoint as jck, viz
+from fmcw_tpu.utils import checkpoint as jck
 from fmcw_tpu_torch.golden import reference
 from fmcw_tpu_torch.models import pipeline as tpl, scenario as tsc
 from fmcw_tpu_torch.runtime import surveillance as tsv
-from fmcw_tpu_torch.utils import checkpoint as tck
+from fmcw_tpu_torch.utils import checkpoint as tck, viz
 
 torch.set_num_threads(2)
 
