@@ -170,7 +170,19 @@ hw-stream model; the demo's run function (tools/visualize.run_demo) at
 --sharded 4 (a LocalMesh): each mode's kernels launched, the fixed logs
 byte-identical to the same scans on the CPU, the sharded logs to the
 single card's, scans/s; the demo's kernels at its shapes against their
-twins, timed.  It prints the card's name and
+twins, timed.  Then the range lengths n_range = n2 x 128 (phase 36, n2
+<= 16: JAX's fused kernel's set): kernel A at every n2 x 128 (both
+entries, nd 8, 40 and 128, within TOL of the twins; chirp shards at sp 2
+and 4 bit-equal to the whole frame); kernel B at 2048, 1536 and 384 rows
+(per-cell, block at scale_block 8 and 16, CA/GO/SO, bypass, override,
+radius 0 and 2: magnitudes within TOL, decisions bit for bit on the
+kernel's own magnitudes; the magnitude-only entry bit-equal to the
+detect entry's magnitudes; the split entry at sp 2 and 4; a 2048x256
+long CPI); the main path at those lengths (batch 128, per-cell and
+fast(): float auto now fused, through the margin gate, frames/s beside
+the staged route); the debug taps, reflect, hw-compat float and the
+array model at 2048x128; LocalMesh at sp 2 and 4; the entries' times.
+It prints the card's name and
 power limit, one JSON line listing the kernels, and as its last line
 {"ok": true, "device": {...}}.
 Any failed check raises, and the script then exits non-zero; without CUDA
@@ -5987,7 +5999,8 @@ def long_main_path(card: str, dev, pgr: int):
     return launches, summary
 
 
-def long_other_routes(card: str, dev, pgr: int):
+def long_other_routes(card: str, dev, pgr: int, p=None,
+                      tag: str = "long"):
     """Phase 32c: at 1024x256 and batch 16 the float debug taps on the
     fused route (kernel A, kernel B's magnitude-only entry, the rank-select
     CFAR's grouping entry) and float "auto" under reflect edges (the
@@ -5999,14 +6012,15 @@ def long_other_routes(card: str, dev, pgr: int):
     ref_angle 0 (kernel B's detect entry per beam, cross-beam grouping) and
     1 (the magnitude-only entry, the 3D CFAR), cube 0 through the array
     gate against the plain route.  Returns {kernel: launches} of one path:
-    the magnitude-only entry's in the debug taps' run."""
+    the magnitude-only entry's in the debug taps' run.  Phase 36c runs it
+    at another frame (``p``), its lines and errors tagged ``tag``."""
     import torch
     from fmcw_tpu_torch import kernels, parity
     from fmcw_tpu_torch.golden import reference
     from fmcw_tpu_torch.models import pipeline as pl
     from fmcw_tpu_torch.ops import cfar as C
     launches = {}
-    p = long_params(LONG_ND)
+    p = p or long_params(LONG_ND)
     batch = torch.as_tensor(make_batch(p, ARRAY_BATCH, seed=4), device=dev)
     kw = dict(peak_group_radius=pgr, include_debug=True)
     proc = pl.make_batch_processor(p, device=dev, **kw)
@@ -6014,12 +6028,12 @@ def long_other_routes(card: str, dev, pgr: int):
     out = proc(batch)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    log(f"long debug taps: route {proc.route}, launches "
+    log(f"{tag} debug taps: route {proc.route}, launches "
         + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
     if proc.route != "fused" or min(counts["range_fft"],
                                     counts["slowtime_mag"],
                                     counts["cfar_rank_group"]) < 1:
-        raise AssertionError("long debug taps skipped a kernel")
+        raise AssertionError(f"{tag} debug taps skipped a kernel")
     launches["slowtime_mag"] = counts["slowtime_mag"]
     ref = pl.make_processor(p, frontend="plain", device=dev, **kw)(batch[0])
     ok, report = parity.margin_gate(
@@ -6027,9 +6041,9 @@ def long_other_routes(card: str, dev, pgr: int):
         ref["mag_map"].cpu().numpy(), ref["threshold_map"].cpu().numpy(),
         ref["scale_map"].cpu().numpy(), radius=pgr,
         capacity=p.tracker.max_dets, targets=reference.golden_targets(p))
-    log(f"long debug taps frame 0 vs plain path: {report}")
+    log(f"{tag} debug taps frame 0 vs plain path: {report}")
     if not ok:
-        raise AssertionError("long debug taps: margin gate failed")
+        raise AssertionError(f"{tag} debug taps: margin gate failed")
     del out, ref
     # Reflect edges (the magnitude-only entry, then the standalone CFAR's
     # reflect entry and the plain grouping) through the margin gate, and
@@ -6043,18 +6057,18 @@ def long_other_routes(card: str, dev, pgr: int):
     counts = kernels.launch_counts()
     if proc.route != "fused" or min(counts["slowtime_mag"],
                                     counts["cfar_detect"]) < 1:
-        raise AssertionError("long reflect route skipped a kernel")
+        raise AssertionError(f"{tag} reflect route skipped a kernel")
     ref = pl.make_processor(r, frontend="plain", device=dev, **kw)(batch[0])
     ok, report = parity.margin_gate(
         parity.detection_set(out, 0), parity.detection_set(ref),
         ref["mag_map"].cpu().numpy(), ref["threshold_map"].cpu().numpy(),
         ref["scale_map"].cpu().numpy(), radius=pgr,
         capacity=p.tracker.max_dets, targets=reference.golden_targets(p))
-    log(f"long reflect auto: launches "
+    log(f"{tag} reflect auto: launches "
         + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
         + f"; frame 0 vs plain path: {report}")
     if not ok:
-        raise AssertionError("long reflect: margin gate failed")
+        raise AssertionError(f"{tag} reflect: margin gate failed")
     del out, ref
     proc = pl.make_batch_processor(p, cfar_geometry="hw_stream", device=dev)
     kernels.reset_launch_counts()
@@ -6064,14 +6078,14 @@ def long_other_routes(card: str, dev, pgr: int):
     det, _, _ = C.cfar_2d_hw_stream(out["mag_map"], cfar=p.cfar,
                                     integer=False)
     same = bits_equal(det, out["det_map"])
-    log(f"long hw_stream float fused: launches "
+    log(f"{tag} hw_stream float fused: launches "
         + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
         + f"; det maps {'bit-identical' if same else 'DIFFER'} to the twin "
         f"on the route's magnitudes ({int((det != 0).sum())} detections)")
     if (proc.route != "fused" or not same
             or min(counts["slowtime_mag"], counts["cfar_detect_hw_stream"])
             < 1):
-        raise AssertionError("long hw_stream route failed its check")
+        raise AssertionError(f"{tag} hw_stream route failed its check")
     del out, det
     beam = matched_beam()
     cubes = torch.as_tensor(make_cubes(p, ARRAY_BATCH), device=dev)
@@ -6087,13 +6101,15 @@ def long_other_routes(card: str, dev, pgr: int):
         out = aproc(cubes)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-        log(f"long array {name}: route {aproc.route}, launches "
+        log(f"{tag} array {name}: route {aproc.route}, launches "
             + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
         if aproc.route != "fused" or any(counts[k] < 1 for k in need):
-            raise AssertionError(f"long array {name} skipped a kernel")
+            raise AssertionError(f"{tag} array {name} skipped a kernel")
+        if name == "percell/grouped":
+            launches["range_fft_float"] = counts["range_fft_float"]
         if not bool((out["beam_bin"][:, 0] == beam).all()) or int(
                 out["nonfinite_count"].sum()) != 0:
-            raise AssertionError(f"long array {name}: strongest detection "
+            raise AssertionError(f"{tag} array {name}: strongest detection "
                                  f"off beam {beam} or non-finite cells")
         ref = pl.make_array_processor(p, n_elems=N_ELEMS, n_beams=N_BEAMS,
                                       frontend="plain", device=dev,
@@ -6109,24 +6125,27 @@ def long_other_routes(card: str, dev, pgr: int):
             targets=reference.golden_targets(p), target_beam=beam,
             capacity=p.tracker.max_dets)
         del T, S, M, ref, out
-        log(f"long array {name} cube 0 vs plain path: {report} ({card})")
+        log(f"{tag} array {name} cube 0 vs plain path: {report} ({card})")
         if not ok:
-            raise AssertionError(f"long array {name}: array gate failed")
+            raise AssertionError(f"{tag} array {name}: array gate failed")
     return launches
 
 
-def long_local_mesh(card: str, dev, pgr: int):
+def long_local_mesh(card: str, dev, pgr: int, configs=None,
+                    tag: str = "long"):
     """Phase 32d: make_sharded_processor on a LocalMesh at sp 2 and 4 at
     1024x256 (batch 16): per-cell (kernel B's split entry), block (the
     magnitude-only entry, the sharded block tail) and the debug taps, every
     output bit-equal to the single card's.  Returns {kernel: launches} of
-    one path: the split entry's in the per-cell run at sp 4."""
+    one path: the split entry's in the per-cell run at sp 4.  Phase 36c
+    runs it on other ``configs`` (name, params, keywords, kernel), its
+    lines tagged ``tag``."""
     import torch
     from fmcw_tpu_torch import kernels
     from fmcw_tpu_torch.models import pipeline as pl
     from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
     launches = {}
-    for name, p, kw, need in (
+    for name, p, kw, need in configs or (
             ("cell", long_params(LONG_ND), {}, "slowtime_detect_split"),
             ("block", long_params(LONG_ND, scale_mode="block"), {},
              "slowtime_mag"),
@@ -6143,15 +6162,16 @@ def long_local_mesh(card: str, dev, pgr: int):
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
             diff = [k for k in ref if not torch.equal(out[k], ref[k])]
-            log(f"long LocalMesh {name} sp={sp}: launches "
+            log(f"{tag} LocalMesh {name} sp={sp}: launches "
                 + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
                 + f"; {'all outputs bit-equal' if not diff else diff} to "
                 f"the single card")
             if diff or out.keys() != ref.keys() or counts[need] < 1:
-                raise AssertionError(f"long LocalMesh {name} sp={sp} "
+                raise AssertionError(f"{tag} LocalMesh {name} sp={sp} "
                                      f"differs or skipped {need}")
             if name == "cell" and sp == SPLIT_SPS[-1]:
                 launches[need] = counts[need]
+                launches["range_frontend"] = counts["range_frontend"]
     return launches
 
 
@@ -7301,6 +7321,360 @@ def demo_phase(card: str, dev):
                   "scans": DEMO_SCANS, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Range lengths n2 x 128: kernel A at 384 .. 2048 and kernel B at those rows
+# (phase 36)
+# ---------------------------------------------------------------------------
+
+LENGTHS = tuple(n2 * 128 for n2 in range(1, 17))   # JAX's n2 x 128, n2 <= 16
+LENGTH_NRS = (2048, 1536, 384)
+LENGTH_BATCH = 16               # frames of each kernel-B case
+LENGTH_SRC_A = "fmcw_tpu_torch/csrc/range_fft.cu"
+LENGTH_SRC_B = "fmcw_tpu_torch/csrc/slowtime_detect.cu"
+# Kernel B's cases at each length (36b): (variant, scale mode, scale block,
+# bypass, scale override, grouping radius).
+LENGTH_CASES = (("os", "cell", 8, False, 0, 2),
+                ("os", "cell", 8, True, 4, 0),
+                ("os", "block", 8, False, 0, 2),
+                ("os", "block", 16, False, 0, 2),
+                ("os", "block", 16, True, 6, 0),
+                ("ca", "cell", 8, False, 0, 2),
+                ("go", "block", 16, False, 0, 2),
+                ("so", "cell", 8, False, 6, 2))
+
+
+def length_params(nr: int, nd: int = 128, variant: str = "os",
+                  scale_mode: str = "cell", sb: int = 8):
+    import fmcw_tpu_torch as P
+    return P.RadarParams(n_range=nr, n_doppler=nd, cfar=P.CfarParams(
+        variant=variant, scale_mode=scale_mode, scale_block=sb))
+
+
+def length_kernel_a_checks(dev):
+    """Phase 36a: kernel A at every n2 x 128 (n2 1..16: the powers of two
+    128 .. 1024 as before, and the dense stage's 384 .. 2048), nd 8, 40
+    and 128, batch 2, both entries (int16 I/Q and float planes) within TOL
+    of their twins' peak, on seeded full-scale noise; at nd 128 the chirp
+    shards of sp 2 and 4 (``split_frontend.range_frontend``, row 3) bit-
+    equal to the whole frame's columns.  Returns {entry: largest absolute
+    error}."""
+    import numpy as np
+    import torch
+    from fmcw_tpu_torch.ops import frontend as F
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    rng = np.random.default_rng(23)
+    errs = {"range_fft": 0.0, "range_fft_float": 0.0}
+    for n in LENGTHS:
+        rel = 0.0
+        for nd in RANGE_CHIRPS:
+            iq = torch.as_tensor(rng.integers(-32768, 32768, (2, nd, n, 2),
+                                              dtype=np.int16), device=dev)
+            planes = torch.as_tensor(rng.standard_normal((2, 2, nd, n)) * 1e3,
+                                     dtype=torch.float32, device=dev)
+            whole = F.range_fft(iq)
+            for name, got, want in (
+                    ("range_fft", whole, F.range_fft_plain(iq)),
+                    ("range_fft_float", F.range_fft_float(*planes),
+                     F.range_fft_float_plain(*planes))):
+                torch.cuda.synchronize()
+                peak = float(torch.maximum(want[0].abs().max(),
+                                           want[1].abs().max()))
+                err = float(torch.maximum((got[0] - want[0]).abs().max(),
+                                          (got[1] - want[1]).abs().max()))
+                errs[name] = max(errs[name], err)
+                rel = max(rel, err / peak)
+                if not err <= TOL * peak:
+                    raise AssertionError(f"{name} at n={n} nd={nd}: err "
+                                         f"{err / peak:.3g} of peak")
+            if nd == RANGE_CHIRPS[-1]:
+                for sp in SPLIT_SPS:
+                    ndl = nd // sp
+                    for s in range(sp):
+                        cols = slice(s * ndl, (s + 1) * ndl)
+                        part = SF.range_frontend(iq[:, cols])
+                        if not all(bits_equal(x, w[..., cols])
+                                   for x, w in zip(part, whole)):
+                            raise AssertionError(
+                                f"range_frontend n={n} sp={sp} shard {s} "
+                                f"differs from the whole frame")
+        log(f"kernel A n={n} nd {RANGE_CHIRPS} batch 2, int16 and float: "
+            f"worst err {rel:.3g} of peak (tol {TOL}); chirp shards sp "
+            f"{SPLIT_SPS} bit-equal to the whole frame")
+    return errs
+
+
+def length_kernel_b_checks(dev, pgr: int):
+    """Phase 36b: kernel B at n_range 2048, 1536 and 384 (x 128, batch 16
+    of bench.py's stimulus through kernel A): each case of LENGTH_CASES
+    (_b_case: magnitudes within TOL of the twin's peak, the decision, row
+    maxima and counts bit for bit against detect_plain on the kernel's own
+    magnitudes; per-cell, block at scale_block 8 and 16, CA/GO/SO, bypass,
+    override, radius 0 and 2), with the tile each launched; the
+    magnitude-only entry within TOL and bit-equal to the detect entry's
+    magnitudes; the split entry at sp 2 and 4 (OS and CA) bit-equal to the
+    whole frame (``long_split_case``); and one long CPI, 2048x256 (per-cell
+    and block 16).  Returns {entry: largest absolute magnitude error}."""
+    import torch
+    from fmcw_tpu_torch.ops import frontend as F
+    errs = {"detect": 0.0, "mag": 0.0, "split": 0.0}
+    for nr in LENGTH_NRS:
+        iq = torch.as_tensor(make_batch(length_params(nr), LENGTH_BATCH,
+                                        seed=36), device=dev)
+        re, im = F.range_fft(iq)
+        del iq
+        tiles = []
+        for variant, mode, sb, bypass, so, radius in LENGTH_CASES:
+            p = length_params(nr, 128, variant, mode, sb)
+            tiles.append(F._slowtime_config(1, nr, 128, p.cfar, so,
+                                            radius).T)
+            errs["detect"] = max(errs["detect"], _b_case(
+                f"n={nr}", re, im, p, bypass, so, radius))
+        log(f"kernel B n={nr}: tiles {tiles} rows for the cases "
+            f"{[c[:3] for c in LENGTH_CASES]}")
+        p = length_params(nr)
+        _, emitted, _, _, nf = F.slowtime_detect(
+            re, im, cfar=p.cfar, peak_group_radius=pgr, emit_mag=True)
+        mag, nf2 = F.slowtime_mag(re, im)
+        pmag = F.slowtime_mag_plain(re, im, False)
+        torch.cuda.synchronize()
+        err = float((mag - pmag).abs().max())
+        peak = float(pmag.abs().max())
+        errs["mag"] = max(errs["mag"], err)
+        same = bits_equal(mag, emitted) and torch.equal(nf, nf2)
+        log(f"slowtime_mag {nr}x128 batch {LENGTH_BATCH}: err "
+            f"{err / peak:.3g} of peak, "
+            f"{'bit-equal' if same else 'DIFFERS'} to the detect entry's "
+            f"magnitudes")
+        if not (err <= TOL * peak and same):
+            raise AssertionError(f"slowtime_mag disagrees at n={nr}")
+        del mag, pmag, emitted
+        errs["split"] = max(errs["split"],
+                            long_split_case(dev, re, im, 128, pgr))
+        del re, im
+    iq = torch.as_tensor(make_batch(length_params(2048, 256), 8, seed=37),
+                         device=dev)
+    re, im = F.range_fft(iq)
+    for mode, sb in (("cell", 8), ("block", 16)):
+        errs["detect"] = max(errs["detect"], _b_case(
+            "long", re, im, length_params(2048, 256, "os", mode, sb), False,
+            0, pgr))
+    return errs
+
+
+def length_main_path(card: str, dev, pgr: int):
+    """Phase 36c, the main path: batch 128 of bench.py's stimulus at
+    2048x128, 1536x128 and 384x128 through make_batch_processor
+    (include_maps=False), the entry config (per-cell) and fast() (block,
+    scale_block 8): float "auto" is the fused route (before: staged); the
+    kernels it launches; frame 0 through the margin gate against the plain
+    route's exact taps; frames/s beside the staged route, timed in the
+    same run.  Returns ({(kernel, n): launches}, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    launches, summary = {}, {}
+    for nr in LENGTH_NRS:
+        for name, p in (("cell", P.RadarParams(n_range=nr)),
+                        ("block", P.fast().replace(n_range=nr))):
+            proc = pl.make_batch_processor(p, peak_group_radius=pgr,
+                                           include_maps=False, device=dev)
+            if proc.route != "fused":
+                raise AssertionError(f"{nr}x128 auto is {proc.route}")
+            batch = torch.as_tensor(make_batch(p, BATCH), device=dev)
+            kernels.reset_launch_counts()
+            out = proc(batch)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            log(f"main path {name} {nr}x128: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+            if counts["range_fft"] < 1 or counts["slowtime_detect"] < 1:
+                raise AssertionError(f"main path {name} {nr} skipped a "
+                                     f"kernel")
+            launches[("range_fft", nr)] = launches.get(
+                ("range_fft", nr), 0) + counts["range_fft"]
+            launches[(name, nr)] = counts["slowtime_detect"]
+            for key in ("range_bin", "doppler_bin", "mag", "valid"):
+                if tuple(out[key].shape) != (BATCH, p.tracker.max_dets):
+                    raise AssertionError(f"{key} shape "
+                                         f"{tuple(out[key].shape)}")
+            if not bool(torch.isfinite(out["mag"]).all()) or int(
+                    out["nonfinite_count"].sum()) != 0:
+                raise AssertionError("non-finite magnitudes")
+            ref = pl.make_processor(p, peak_group_radius=pgr,
+                                    frontend="plain", include_debug=True,
+                                    cfar_rank_bits=None, device=dev)(
+                                        batch[0])
+            ok, report = parity.margin_gate(
+                parity.detection_set(out, 0), parity.detection_set(ref),
+                ref["mag_map"].cpu().numpy(),
+                ref["threshold_map"].cpu().numpy(),
+                ref["scale_map"].cpu().numpy(), radius=pgr,
+                capacity=p.tracker.max_dets,
+                targets=reference.golden_targets(p))
+            log(f"main path {name} {nr}x128 frame 0 vs plain path: {report}")
+            if not ok:
+                raise AssertionError(f"main path {name} {nr}: margin gate "
+                                     f"failed")
+            del ref, out
+            staged = pl.make_batch_processor(p, frontend="staged",
+                                             peak_group_radius=pgr,
+                                             include_maps=False, device=dev)
+            fps = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 10)
+            fps_staged = BATCH * 1e3 / cuda_ms(lambda: staged(batch), 3)
+            summary[f"{name}@{nr}"] = {"frames_per_s": fps,
+                                       "staged_frames_per_s": fps_staged}
+            log(f"main path {name} {nr}x128: {fps:.1f} frames/s (fused), "
+                f"staged route {fps_staged:.1f} frames/s at batch {BATCH} "
+                f"({card})")
+            del batch
+    return launches, summary
+
+
+def length_timings(card: str, dev, pgr: int, errs, launches):
+    """Phase 36d: graph-replay times at 2048x128, 1536x128 and 384x128,
+    batch 128: kernel A (int16; the float entry at 2048, the array model's
+    shape), its chirp-shard entry at sp 4 (row 3), kernel B per-cell and
+    block (fast()) and its split entry on the sp 4 range shard (row 5),
+    each beside its bound (bound_range_fft, bound_range_fft_float,
+    bound_slowtime, bound_slowtime_split: an n-point FFT a chirp, whatever
+    the kernel runs), its plain twin and torch.fft.fft of the same planes.
+    Returns (kernel rows, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend as F
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    from fmcw_tpu_torch.ops.window import hamming_float
+    rows, summary = [], {}
+    line_a = "fmcw_tpu/ops/frontend_pallas.py:623"
+    line_3 = "fmcw_tpu/ops/split_frontend.py:73"
+    line_5 = "fmcw_tpu/ops/split_frontend.py:518"
+    for nr in LENGTH_NRS:
+        nd, sp = 128, 4
+        iq = torch.as_tensor(make_batch(P.RadarParams(n_range=nr), BATCH,
+                                        seed=38), device=dev)
+        win = torch.as_tensor(hamming_float(nr), device=dev)
+        zw = torch.complex(iq[..., 0].float() * win, iq[..., 1].float() * win)
+        fft_a = graph_ms(lambda: torch.fft.fft(zw, dim=-1))
+        ndl = nd // sp
+        shard = iq[:, ndl:2 * ndl].contiguous()
+        zs = zw[:, ndl:2 * ndl].contiguous()
+        fft_3 = graph_ms(lambda: torch.fft.fft(zs, dim=-1))
+        del zw, zs
+        entries = [
+            (f"range_fft[n={nr}]", LENGTH_SRC_A, line_a,
+             lambda: F.range_fft(iq), lambda: F.range_fft_plain(iq),
+             bound_range_fft(BATCH, nd, nr),
+             launches.get(("range_fft", nr), 0), errs["range_fft"], fft_a),
+            (f"range_frontend[n={nr},sp4]", LENGTH_SRC_A, line_3,
+             lambda: SF.range_frontend(shard),
+             lambda: F.range_fft_plain(shard),
+             bound_range_fft(BATCH, ndl, nr),
+             launches.get(("range_frontend", nr), 0), errs["range_fft"],
+             fft_3)]
+        if nr == LENGTH_NRS[0]:
+            br = iq[..., 0].float().contiguous()
+            bi = iq[..., 1].float().contiguous()
+            entries.append((
+                f"range_fft_float[n={nr}]", LENGTH_SRC_A, line_a,
+                lambda: F.range_fft_float(br, bi),
+                lambda: F.range_fft_float_plain(br, bi),
+                bound_range_fft_float(BATCH, nd, nr),
+                launches.get(("range_fft_float", nr), 0),
+                errs["range_fft_float"], fft_a))
+        re, im = F.range_fft(iq)
+        z = torch.complex(re, im)
+        fft_b = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        for name, p in (("cell", P.RadarParams(n_range=nr)),
+                        ("block", P.fast().replace(n_range=nr))):
+            kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+            entries.append((
+                f"slowtime_detect[{name},n={nr}]", LENGTH_SRC_B, line_a,
+                lambda kw=kw: F.slowtime_detect(re, im, False, 0, **kw),
+                lambda kw=kw: F.slowtime_detect_plain(re, im, False, 0,
+                                                      **kw),
+                bound_slowtime(BATCH, nr, nd, p.cfar),
+                launches.get((name, nr), 0), errs["detect"], fft_b))
+        cfar = P.RadarParams().cfar
+        nrl, h = nr // sp, cfar.halo_range + pgr
+        ext = torch.arange(nrl - h, 2 * nrl + h, device=dev) % nr
+        lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+        args = (re[:, core].contiguous(), im[:, core].contiguous(),
+                (re[:, lo].contiguous(), im[:, lo].contiguous()),
+                (re[:, hi].contiguous(), im[:, hi].contiguous()), False, 0,
+                nrl)
+        skw = dict(cfar=cfar, n_range_total=nr, peak_group_radius=pgr)
+        z = torch.complex(re[:, ext], im[:, ext])
+        fft_5 = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        entries.append((
+            f"slowtime_detect_split[n={nr},sp4]", LENGTH_SRC_B, line_5,
+            lambda: SF.slowtime_detect_split(*args, **skw),
+            lambda: SF.slowtime_detect_split_plain(*args, **skw),
+            bound_slowtime_split(BATCH, nrl, nd, h, cfar),
+            launches.get(("slowtime_detect_split", nr), 0), errs["split"],
+            fft_5))
+        for name, src, line, call, plain, (bound, by), n, err, lib in entries:
+            ms = graph_ms(call)
+            plain_ms = cuda_ms(plain, 2, 1)
+            log(f"{name} batch {BATCH}: {ms:.4f} ms (graph), plain "
+                f"{plain_ms:.4f} ms, torch.fft.fft of its planes {lib:.4f} "
+                f"ms, bound {bound:.4f} ms ({by}), {n} launches on the "
+                f"path ({card})")
+            summary[name] = {"ms": ms, "plain_ms": plain_ms, "fft_ms": lib,
+                             "bound_ms": bound, "bound_by": by}
+            # torch.fft.fft computes kernel A's transform (the window
+            # applied); of kernel B's entries it is the transform's share.
+            rows.append(dict(name=name, route="cuda", source=src,
+                             replaces=line, launches=n, max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by,
+                             library_ms=lib if "range" in name else None))
+        del iq, re, im, args, shard
+        torch.cuda.empty_cache()
+    return rows, summary
+
+
+def length_phase(card: str, dev, pgr: int):
+    """Phase 36: kernel A at every n2 x 128 and kernel B at those rows
+    (36a-d above; 36c also runs phase 32's other routes (the debug taps,
+    reflect, hw-compat float, the array model) and LocalMesh at 2048x128,
+    and the LocalMesh per-cell route at 1536 and 384).  Returns (kernel
+    rows, summary)."""
+    import torch
+    t0 = time.perf_counter()
+    errs = length_kernel_a_checks(dev)
+    t1 = time.perf_counter()
+    errs.update(length_kernel_b_checks(dev, pgr))
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    launches, summary = length_main_path(card, dev, pgr)
+    p = length_params(2048)
+    other = long_other_routes(card, dev, pgr, p, tag="2048x128")
+    mesh = long_local_mesh(card, dev, pgr, (
+        ("cell", p, {}, "slowtime_detect_split"),
+        ("block", length_params(2048, scale_mode="block", sb=16), {},
+         "slowtime_mag"),
+        ("debug", p, dict(include_debug=True), "slowtime_mag")),
+        tag="2048x128")
+    launches.update({(k, 2048): v for k, v in mesh.items()})
+    for nr in LENGTH_NRS[1:]:
+        mesh = long_local_mesh(card, dev, pgr, (
+            ("cell", length_params(nr), {}, "slowtime_detect_split"),),
+            tag=f"{nr}x128")
+        launches.update({(k, nr): v for k, v in mesh.items()})
+    launches[("range_fft_float", 2048)] = other.get("range_fft_float", 0)
+    t3 = time.perf_counter()
+    rows, timings = length_timings(card, dev, pgr, errs, launches)
+    log(f"range-length phase: 36a {t1 - t0:.1f} s, 36b {t2 - t1:.1f} s, "
+        f"36c {t3 - t2:.1f} s, 36d {time.perf_counter() - t3:.1f} s")
+    return rows, {"main_path": summary, "timings": timings,
+                  "launches": {f"{k[0]}@{k[1]}": v
+                               for k, v in launches.items()}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7625,6 +7999,12 @@ def main() -> int:
     log(f"phases 1-34: {time.perf_counter() - t_start:.1f} s")
     demo_rows, demo_summary = demo_phase(card, dev)
 
+    # 36. Range lengths n2 x 128: kernel A at every length against its
+    #     twin, kernel B at 2048, 1536 and 384 rows, the routes there,
+    #     timings.
+    log(f"phases 1-35: {time.perf_counter() - t_start:.1f} s")
+    length_rows, length_summary = length_phase(card, dev, pgr)
+
     # The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
@@ -7640,7 +8020,7 @@ def main() -> int:
     rows += (fixed_rows + array_rows + split_rows + rank_rows + entry_rows
              + hw_rows + variant_rows + reflect_rows + rank_reflect_rows
              + cfar3d_reflect_rows + long_rows + fixed_long_rows
-             + scaled_rows + demo_rows)
+             + scaled_rows + demo_rows + length_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
@@ -7665,6 +8045,7 @@ def main() -> int:
                     "fixed_long_cpi": fixed_long_summary,
                     "scaled": scaled_summary,
                     "demo": demo_summary,
+                    "range_lengths": length_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

@@ -22,27 +22,41 @@
 // MFLOP a frame, 0.013 ms a batch at 67 TFLOP/s FP32.  So the kernel must
 // keep HBM streaming and spend little else.
 //
-// The plan.  n = N1 x N2, N2 = 2^floor(log2(n) / 2), N1 = n / N2 (32 x 32
-// at n = 1024).  A group's input (8 consecutive chirps, one contiguous run
-// of 32 KiB int16 or 2 x 32 KiB float at n = 1024) arrives by one TMA bulk
-// copy per plane into shared memory.  A large batch runs one block per
-// group and leaves the balancing to the block scheduler; a small one (fewer
-// than four groups per resident block, e.g. a chirp shard) keeps every
-// block resident, walking the groups gi = blockIdx.x + k gridDim.x with the
-// next group's copy in flight while this one is transformed.  Per group:
+// The lengths: the powers of two 16 .. 1024, and JAX's n = n2 x 128 with
+// n2 <= kMaxSlices (frontend_pallas.py::_ct_split, its check at :1217):
+// 384, 640, 768, ..., 1920 and 2048.  Each is n = kO x m with m = 2^k the
+// radix-2 transform below and kO = 1 (powers of two to 1024), 2 (2048) or
+// the odd factor 3 .. 15.  For kO > 1 a dense kO-point stage comes first
+// (decimation in frequency): for each output class k2 < kO,
+//   y[i1] = W_n^(i1 k2) sum_{i2 < kO} w x[i1 + m i2] W_kO^(i2 k2),  i1 < m,
+// and the m-point transform of y gives X[kO k1 + k2].  The block runs the
+// kO transforms of its group, kSlices of them at once (about 256 threads),
+// from the group's input loaded once.  The dense stage costs kO complex
+// FMAs a sample and class; its twiddles come from a float64-built table.
+//
+// The plan of the m-point transform.  m = N1 x N2, N2 = 2^floor(log2(m) /
+// 2), N1 = m / N2 (32 x 32 at m = 1024).  A group's input (8 consecutive
+// chirps, one contiguous run of 32 KiB int16 or 2 x 32 KiB float at n =
+// 1024) arrives by one TMA bulk copy per plane into shared memory.  A large
+// batch runs one block per group and leaves the balancing to the block
+// scheduler; a small one (fewer than four groups per resident block, e.g. a
+// chirp shard) keeps every block resident, walking the groups gi =
+// blockIdx.x + k gridDim.x with the next group's copy in flight while this
+// one is transformed.  Per group and class:
 //  1. pass 1: lane t of chirp c1 (N2 lanes a chirp, 32 / N2 chirps a warp)
-//     takes samples t + N2 m, m < N1, windows them and runs an N1-point DFT
-//     over m in registers (radix-2, constant twiddles W_32^e as float
-//     literals), then multiplies by W_n^(t ka) from the host table, laid out
-//     tw[ka N2 + t] so that a warp reads it coalesced;
+//     takes samples t + N2 m', m' < N1, windows them (kO > 1: the dense
+//     stage's sums) and runs an N1-point DFT over m' in registers (radix-2,
+//     constant twiddles W_32^e as float literals), then multiplies by W_m^(t
+//     ka) from the host table, laid out tw[ka N2 + t] so that a warp reads
+//     it coalesced;
 //  2. the exchange: the values go through shared memory, one padded region
-//     per chirp and plane, re and im at once; one block barrier;
+//     per chirp and plane (and slice), re and im at once; one block barrier;
 //  3. pass 2: thread (chirp c2 = tid mod 8, column q = tid / 8) runs N2-point
 //     DFTs over t for its columns q + N2 j and holds X[q + N2 j + N1 kb];
 //  4. the corner turn is the store, straight from registers: a warp holds 8
 //     chirps x 4 consecutive columns, so each store instruction writes 4
-//     range rows x 8 consecutive chirps, whole 32-byte sectors.
-// Two block barriers a group.  At n = 1024 both sides of the exchange touch
+//     range rows (kO k1 + k2) x 8 consecutive chirps, whole 32-byte sectors.
+// Two block barriers a class.  At n = 1024 both sides of the exchange touch
 // 32 banks per warp instruction; 128 registers a thread for int16 input
 // (two resident blocks of 256 threads: 98 KiB of shared memory each), one
 // 130 KiB block for float input.  The window and twiddles are read per group
@@ -50,8 +64,9 @@
 // FP32 with FMA throughout; each chirp's arithmetic depends on nothing but
 // the chirp, so a chirp shard gives exactly the whole frame's columns.
 // Agreement with the plain twin (window times dense DFT matmul) is held to
-// 1e-5 of the map peak.  tests/test_torch_range_fft_plan.py models this plan
-// (loads, DFTs, twiddle and exchange indices, store) in numpy.
+// 1e-5 of the map peak.  tests/test_torch_range_fft_plan.py models the
+// power-of-two plan (loads, DFTs, twiddle and exchange indices, store) in
+// numpy, tests/test_torch_range_lengths.py the dense stage and slices.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,8 +76,10 @@
 namespace {
 
 constexpr int kChirps = 8;      // chirps per group, a block's unit of work
-constexpr int kMinLog2N = 4;
-constexpr int kMaxLog2N = 10;
+constexpr int kMinLog2N = 4;    // the powers of two 16 ..
+constexpr int kMaxLog2N = 10;   //   .. 1024
+constexpr int kSlice = 128;     // JAX's lane slice: n = n2 x kSlice,
+constexpr int kMaxSlices = 16;  //   n2 <= kMaxSlices
 
 // W_32^e = exp(-2 pi i e / 32), e < 16: cos and sin computed in float64 and
 // rounded to float32.  Indexed by compile-time constants only, so each read
@@ -96,25 +113,34 @@ __device__ __forceinline__ void static_for(F&& f) {
     unrolled(f, std::make_integer_sequence<int, N>{});
 }
 
-// The factorisation, launch shape and shared memory for n = 2^kLog2N.
-template <bool kFloat, int kLog2N>
+// The factorisation, launch shape and shared memory for n = kO x 2^kLog2M.
+template <bool kFloat, int kLog2M, int kO = 1>
 struct Plan {
-    static constexpr int n = 1 << kLog2N;
-    static constexpr int kLog2N2 = kLog2N / 2;
+    static constexpr int m = 1 << kLog2M;            // the radix-2 transform
+    static constexpr int n = kO * m;                 // samples a chirp
+    static constexpr int kLog2N2 = kLog2M / 2;
     static constexpr int N2 = 1 << kLog2N2;          // lanes per chirp
-    static constexpr int N1 = n / N2;                // points per lane
-    static constexpr int kLog2N1 = kLog2N - kLog2N2;
-    static constexpr int kThreads = kChirps * N2;
+    static constexpr int N1 = m / N2;                // points per lane
+    static constexpr int kLog2N1 = kLog2M - kLog2N2;
+    static constexpr int kLanes = kChirps * N2;      // one transform's threads
+    // kO > 1: the classes k2 < kO in kRounds rounds of kSlices transforms
+    // at once, at most 256 threads, the rounds as even as they go.
+    static constexpr int kMostSlices = kLanes >= 256 ? 1 : 256 / kLanes;
+    static constexpr int kRounds = (kO + kMostSlices - 1) / kMostSlices;
+    static constexpr int kSlices = (kO + kRounds - 1) / kRounds;
+    static constexpr int kThreads = kSlices * kLanes;
     static constexpr int kRow = N1 + 1;              // exchange row (t)
     // A chirp's exchange region, padded to 4 (mod 32) words: the second
-    // pass's warp (8 chirps x 4 columns) then reads 32 banks at n = 1024.
+    // pass's warp (8 chirps x 4 columns) then reads 32 banks at m = 1024.
     static constexpr int kRegion = N2 * kRow + (36 - N2 * kRow % 32) % 32;
     static constexpr int kExchange = kChirps * kRegion;   // one plane
     static constexpr int kPlane = kChirps * n;       // one input plane
     static constexpr int kIn = kPlane * (kFloat ? 2 : 1);
     static constexpr int kInBytes = kIn * 4;
-    // Input buffer, the two exchange planes, the mbarrier.
-    static constexpr int kSmemBytes = (kIn + 2 * kExchange) * 4 + 16;
+    // Input buffer, the two exchange planes of each slice, the mbarrier.
+    static constexpr int kSmemBytes =
+        (kIn + 2 * kSlices * kExchange) * 4 + 16;
+    static_assert(kSmemBytes <= 232448, "a group does not fit a block");
     // Resident blocks: as many as shared memory allows, at most 512 threads
     // an SM (128 registers a thread).
     static constexpr int kBySmem = 232448 / (kSmemBytes + 1024);
@@ -239,21 +265,144 @@ __device__ __forceinline__ void get(float (&x)[P::N1], const float* xch,
     });
 }
 
+// Sample i of chirp c of the group's input, windowed (kO > 1's loads).
+template <typename P, bool kFloat>
+__device__ __forceinline__ void windowed(const float* in, const float* win,
+                                         int c, int i, float& r, float& im) {
+    if constexpr (kFloat) {
+        r = in[c * P::n + i];
+        im = in[P::kPlane + c * P::n + i];
+    } else {
+        const uint32_t w = reinterpret_cast<const uint32_t*>(in)[c * P::n + i];
+        r = (float)(int16_t)(w & 0xffffu);
+        im = (float)(int16_t)(w >> 16);
+    }
+    const float w = ld_nc(win + i);
+    r = __fmul_rn(r, w);
+    im = __fmul_rn(im, w);
+}
+
+// Pass 1 of class k2 (kO = 1: the one class) for lane t of chirp c1:
+// x[m'] for the samples t + N2 m' (kO > 1: the dense stage's sums), the
+// N1-point DFT over m', then W_m^(t ka) = tw[ka N2 + t].
+template <typename P, bool kFloat, int kO>
+__device__ __forceinline__ void pass1(const float* in, const float* win,
+                                      const float2* tw, int k2, int c1,
+                                      int t, float (&xr)[P::N1],
+                                      float (&xi)[P::N1]) {
+    constexpr int n = P::n, m = P::m, N1 = P::N1, N2 = P::N2;
+    if constexpr (kO == 1) {
+        // Window: lane t takes samples t + N2 m' of chirp c1.
+        if constexpr (kFloat) {
+            const float* re = in + c1 * n + t;
+            const float* im = re + P::kPlane;
+            static_for<N1>([&](auto mm) {
+                constexpr int mv = decltype(mm)::value;
+                xr[mv] = re[N2 * mv];
+                xi[mv] = im[N2 * mv];
+            });
+        } else {
+            const uint32_t* iq =
+                reinterpret_cast<const uint32_t*>(in) + c1 * n + t;
+            static_for<N1>([&](auto mm) {
+                constexpr int mv = decltype(mm)::value;
+                const uint32_t w = iq[N2 * mv];
+                xr[mv] = (float)(int16_t)(w & 0xffffu);
+                xi[mv] = (float)(int16_t)(w >> 16);
+            });
+        }
+        static_for<N1>([&](auto mm) {
+            constexpr int mv = decltype(mm)::value;
+            const float w = ld_nc(win + t + N2 * mv);
+            xr[mv] = __fmul_rn(xr[mv], w);
+            xi[mv] = __fmul_rn(xi[mv], w);
+        });
+    } else {
+        // The dense kO-point stage: point i1 = t + N2 m' sums its kO
+        // windowed samples i1 + m i2 times W_kO^(i2 k2), then takes
+        // W_n^(i1 k2).
+        const float2* twn = tw + m + k2 * m;
+        const float2* two = tw + m + n;
+        float cr[kO], ci[kO];
+        static_for<kO>([&](auto ii) {
+            constexpr int i2 = decltype(ii)::value;
+            const float2 w = ld_nc(two + i2 * k2 % kO);
+            cr[i2] = w.x;
+            ci[i2] = w.y;
+        });
+        static_for<N1>([&](auto mm) {
+            constexpr int mv = decltype(mm)::value;
+            const int i1 = t + N2 * mv;
+            float ar = 0.0f, ai = 0.0f;
+            static_for<kO>([&](auto ii) {
+                constexpr int i2 = decltype(ii)::value;
+                float r, im;
+                windowed<P, kFloat>(in, win, c1, i1 + m * i2, r, im);
+                ar = fmaf(r, cr[i2], ar);
+                ar = fmaf(-im, ci[i2], ar);
+                ai = fmaf(r, ci[i2], ai);
+                ai = fmaf(im, cr[i2], ai);
+            });
+            const float2 w = ld_nc(twn + i1);
+            xr[mv] = fmaf(ar, w.x, -ai * w.y);
+            xi[mv] = fmaf(ar, w.y, ai * w.x);
+        });
+    }
+    dft<N1, 0, N1>(xr, xi);
+    static_for<N1 - 1>([&](auto kk) {
+        constexpr int ka = decltype(kk)::value + 1;
+        constexpr int p = bit_reverse(ka, P::kLog2N1);
+        const float2 w = ld_nc(tw + ka * N2 + t);
+        const float r = fmaf(xr[p], w.x, -xi[p] * w.y);
+        xi[p] = fmaf(xr[p], w.y, xi[p] * w.x);
+        xr[p] = r;
+    });
+}
+
+// Pass 2 and the store: N2-point DFTs over t', x[j N2 + bit_reverse(kb)] =
+// X_m[q + N2 j + N1 kb] of chirp c2 = X[kO (q + N2 j + N1 kb) + k2], stored
+// straight from registers to row kO (q + N2 j + N1 kb) + k2 of the column
+// at `base`: each warp instruction 4 range rows x 8 consecutive chirps (32
+// bytes).
+template <typename P, int kO>
+__device__ __forceinline__ void pass2_store(float (&xr)[P::N1],
+                                            float (&xi)[P::N1], int q, int k2,
+                                            size_t base, int nd,
+                                            float* out_re, float* out_im) {
+    constexpr int N1 = P::N1, N2 = P::N2;
+    static_for<N1 / N2>([&](auto jj) {
+        constexpr int j = decltype(jj)::value;
+        dft<N2, j * N2, N1>(xr, xi);
+    });
+    static_for<N1>([&](auto i) {
+        constexpr int j = decltype(i)::value / N2;
+        constexpr int kb = decltype(i)::value % N2;
+        constexpr int p = j * N2 + bit_reverse(kb, P::kLog2N2);
+        const size_t at =
+            base + (size_t)(kO * (q + N2 * j + N1 * kb) + k2) * nd;
+        out_re[at] = xr[p];
+        out_im[at] = xi[p];
+    });
+}
+
 // kFloat: the input is two float32 planes (src0 = re, src1 = im); else
-// src0 is the int16 I/Q pairs.
-template <bool kFloat, int kLog2N>
-__global__ void __launch_bounds__(Plan<kFloat, kLog2N>::kThreads,
-                                  Plan<kFloat, kLog2N>::kMinBlocks)
+// src0 is the int16 I/Q pairs.  tw: the m-point plan's table tw[ka N2 + t]
+// (m entries); for kO > 1 followed by W_n^(i1 k2) at [m + k2 m + i1] (n
+// entries) and W_kO^e at [m + n + e] (kO entries).
+template <bool kFloat, int kLog2M, int kO>
+__global__ void __launch_bounds__(Plan<kFloat, kLog2M, kO>::kThreads,
+                                  Plan<kFloat, kLog2M, kO>::kMinBlocks)
 range_fft_kernel(const void* __restrict__ src0, const void* __restrict__ src1,
                  const float* __restrict__ win, const float2* __restrict__ tw,
                  float* __restrict__ out_re, float* __restrict__ out_im,
                  int nd, int groups) {
-    using P = Plan<kFloat, kLog2N>;
+    using P = Plan<kFloat, kLog2M, kO>;
     constexpr int n = P::n, N1 = P::N1, N2 = P::N2;
     extern __shared__ __align__(16) float smem[];
     float* in = smem;
-    float* xch = smem + P::kIn;
-    uint64_t* bar = reinterpret_cast<uint64_t*>(xch + 2 * P::kExchange);
+    float* xch0 = smem + P::kIn;
+    uint64_t* bar =
+        reinterpret_cast<uint64_t*>(xch0 + 2 * P::kSlices * P::kExchange);
     const int per_frame = nd / kChirps;
 
     if (threadIdx.x == 0) {
@@ -267,96 +416,64 @@ range_fft_kernel(const void* __restrict__ src0, const void* __restrict__ src1,
     int it = 0;
     for (int gi = blockIdx.x; gi < groups; gi += gridDim.x, ++it) {
         wait_parity(bar, it & 1);
-        // The thread's indices, read anew each group: nothing derived from
-        // them is held in registers across the loop.
-        int tid;
-        asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
-        const int t = tid & (N2 - 1);                  // pass 1: lane t
-        const int c1 = tid >> P::kLog2N2;              //   of chirp c1
-        const int c2 = tid & (kChirps - 1);            // pass 2: chirp c2,
-        const int q = tid / kChirps;                   //   columns q + N2 j
+        // kO > 1: round r runs classes k2 = r kSlices + s on the slices s.
+        for (int round = 0; round < P::kRounds; ++round) {
+            // The thread's indices, read anew each group: nothing derived
+            // from them is held in registers across the loop.
+            int tid;
+            asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+            const int s = P::kSlices == 1 ? 0 : tid / P::kLanes;
+            const int l = P::kSlices == 1 ? tid : tid & (P::kLanes - 1);
+            const int k2 = round * P::kSlices + s;
+            const bool active = kO == 1 || k2 < kO;   // uniform in a slice
+            float* xch = xch0 + s * 2 * P::kExchange;
+            const int t = l & (N2 - 1);               // pass 1: lane t
+            const int c1 = l >> P::kLog2N2;           //   of chirp c1
+            const int c2 = l & (kChirps - 1);         // pass 2: chirp c2,
+            const int q = l / kChirps;                //   columns q + N2 j
 
-        // 1. Window: lane t takes samples t + N2 m of chirp c1.
-        float xr[N1], xi[N1];
-        if constexpr (kFloat) {
-            const float* re = in + c1 * n + t;
-            const float* im = re + P::kPlane;
-            static_for<N1>([&](auto mm) {
-                constexpr int m = decltype(mm)::value;
-                xr[m] = re[N2 * m];
-                xi[m] = im[N2 * m];
-            });
-        } else {
-            const uint32_t* iq =
-                reinterpret_cast<const uint32_t*>(in) + c1 * n + t;
-            static_for<N1>([&](auto mm) {
-                constexpr int m = decltype(mm)::value;
-                const uint32_t w = iq[N2 * m];
-                xr[m] = (float)(int16_t)(w & 0xffffu);
-                xi[m] = (float)(int16_t)(w >> 16);
-            });
+            float xr[N1], xi[N1];
+            if (active) {
+                pass1<P, kFloat, kO>(in, win, tw, k2, c1, t, xr, xi);
+                // Exchange across the block's chirps, in the slice's
+                // regions.
+                put<P>(xr, xch, c1, t);
+                put<P>(xi, xch + P::kExchange, c1, t);
+            }
+            // The barrier also frees the input buffer in the last round:
+            // the next group's load starts into it.
+            __syncthreads();
+            if (tid == 0 && round == P::kRounds - 1 &&
+                gi + (int)gridDim.x < groups) {
+                asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+                prefetch<P>(src0, src1, in, bar, gi + gridDim.x);
+            }
+            if (active) {
+                get<P>(xr, xch, c2, q);
+                get<P>(xi, xch + P::kExchange, c2, q);
+            }
+            __syncthreads();                // the regions are free again
+
+            if (active) {
+                const int b = gi / per_frame;
+                const int c0 = (gi - b * per_frame) * kChirps;
+                pass2_store<P, kO>(xr, xi, q, k2,
+                                   (size_t)b * n * nd + c0 + c2, nd, out_re,
+                                   out_im);
+            }
         }
-        static_for<N1>([&](auto mm) {
-            constexpr int m = decltype(mm)::value;
-            const float w = ld_nc(win + t + N2 * m);
-            xr[m] = __fmul_rn(xr[m], w);
-            xi[m] = __fmul_rn(xi[m], w);
-        });
-
-        // 2. N1-point DFT over m, then W_n^(t ka) = tw[ka N2 + t].
-        dft<N1, 0, N1>(xr, xi);
-        static_for<N1 - 1>([&](auto kk) {
-            constexpr int ka = decltype(kk)::value + 1;
-            constexpr int p = bit_reverse(ka, P::kLog2N1);
-            const float2 w = ld_nc(tw + ka * N2 + t);
-            const float r = fmaf(xr[p], w.x, -xi[p] * w.y);
-            xi[p] = fmaf(xr[p], w.y, xi[p] * w.x);
-            xr[p] = r;
-        });
-
-        // 3. Exchange across the block's chirps.  The barrier also frees
-        //    the input buffer: the next group's load starts into it.
-        put<P>(xr, xch, c1, t);
-        put<P>(xi, xch + P::kExchange, c1, t);
-        __syncthreads();
-        if (tid == 0 && gi + (int)gridDim.x < groups) {
-            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-            prefetch<P>(src0, src1, in, bar, gi + gridDim.x);
-        }
-        get<P>(xr, xch, c2, q);
-        get<P>(xi, xch + P::kExchange, c2, q);
-        __syncthreads();                // the regions are free again
-
-        // 4. N2-point DFTs over t': x[j N2 + bit_reverse(kb)] = X[q + N2 j
-        //    + N1 kb] of chirp c2; stored straight from registers, each warp
-        //    instruction 4 range rows x 8 consecutive chirps (32 bytes).
-        static_for<N1 / N2>([&](auto jj) {
-            constexpr int j = decltype(jj)::value;
-            dft<N2, j * N2, N1>(xr, xi);
-        });
-        const int b = gi / per_frame;
-        const int c0 = (gi - b * per_frame) * kChirps;
-        const size_t base = (size_t)b * n * nd + c0 + c2;
-        static_for<N1>([&](auto i) {
-            constexpr int j = decltype(i)::value / N2;
-            constexpr int kb = decltype(i)::value % N2;
-            constexpr int p = j * N2 + bit_reverse(kb, P::kLog2N2);
-            const size_t at = base + (size_t)(q + N2 * j + N1 * kb) * nd;
-            out_re[at] = xr[p];
-            out_im[at] = xi[p];
-        });
     }
 }
 
 // Launches one block per group when there are more than four groups per
 // resident block slot (blocks per SM x SMs, computed once per process), else
 // one block per slot (or per group, if fewer), each walking its groups.
-template <bool kFloat, int kLog2N>
+template <bool kFloat, int kLog2M, int kO>
 cudaError_t launch_n(const void* src0, const void* src1, const void* win,
                      const void* tw, void* out_re, void* out_im, int batch,
                      int nd, cudaStream_t stream) {
-    using P = Plan<kFloat, kLog2N>;
-    auto* kernel = range_fft_kernel<kFloat, kLog2N>;
+    using P = Plan<kFloat, kLog2M, kO>;
+    auto* kernel = range_fft_kernel<kFloat, kLog2M, kO>;
     static int slots = 0;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmemBytes);
@@ -385,38 +502,51 @@ cudaError_t launch_n(const void* src0, const void* src1, const void* win,
     return cudaGetLastError();
 }
 
-int log2_exact(int n) {
-    int l = 0;
-    while ((1 << l) < n) ++l;
-    return (1 << l) == n ? l : -1;
+// The lengths kernel A takes: a power of two 2^kMinLog2N .. 2^kMaxLog2N, or
+// n2 x kSlice with n2 <= kMaxSlices.
+bool length_ok(int n) {
+    const bool pow2 = n > 0 && (n & (n - 1)) == 0;
+    return (pow2 && n >= (1 << kMinLog2N) && n <= (1 << kMaxLog2N)) ||
+           (n > 0 && n % kSlice == 0 && n / kSlice <= kMaxSlices);
 }
 
 template <bool kFloat>
 int launch(const void* src0, const void* src1, const void* win,
            const void* tw, void* out_re, void* out_im, int batch, int nd,
            int n, void* stream) {
-    const int log2n = log2_exact(n);
-    if (batch < 1 || log2n < kMinLog2N || log2n > kMaxLog2N ||
-        nd < kChirps || nd % kChirps != 0 ||
+    if (batch < 1 || !length_ok(n) || nd < kChirps || nd % kChirps != 0 ||
         (long long)batch * nd > 0x7fffffffLL ||
         ((reinterpret_cast<uintptr_t>(src0) |
           reinterpret_cast<uintptr_t>(src1)) & 15))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err = cudaErrorInvalidValue;
-    switch (log2n) {
-#define FMCW_RANGE_FFT_CASE(L)                                              \
-    case L:                                                                 \
-        err = launch_n<kFloat, L>(src0, src1, win, tw, out_re, out_im,      \
-                                  batch, nd, s);                            \
+    // n = kO x 2^L (ops/frontend.range_fft_split).
+    switch (n) {
+#define FMCW_RANGE_FFT_CASE(N, L, O)                                        \
+    case N:                                                                 \
+        err = launch_n<kFloat, L, O>(src0, src1, win, tw, out_re, out_im,   \
+                                     batch, nd, s);                         \
         break;
-        FMCW_RANGE_FFT_CASE(4)
-        FMCW_RANGE_FFT_CASE(5)
-        FMCW_RANGE_FFT_CASE(6)
-        FMCW_RANGE_FFT_CASE(7)
-        FMCW_RANGE_FFT_CASE(8)
-        FMCW_RANGE_FFT_CASE(9)
-        FMCW_RANGE_FFT_CASE(10)
+        FMCW_RANGE_FFT_CASE(16, 4, 1)
+        FMCW_RANGE_FFT_CASE(32, 5, 1)
+        FMCW_RANGE_FFT_CASE(64, 6, 1)
+        FMCW_RANGE_FFT_CASE(128, 7, 1)
+        FMCW_RANGE_FFT_CASE(256, 8, 1)
+        FMCW_RANGE_FFT_CASE(512, 9, 1)
+        FMCW_RANGE_FFT_CASE(1024, 10, 1)
+        FMCW_RANGE_FFT_CASE(384, 7, 3)
+        FMCW_RANGE_FFT_CASE(640, 7, 5)
+        FMCW_RANGE_FFT_CASE(768, 8, 3)
+        FMCW_RANGE_FFT_CASE(896, 7, 7)
+        FMCW_RANGE_FFT_CASE(1152, 7, 9)
+        FMCW_RANGE_FFT_CASE(1280, 8, 5)
+        FMCW_RANGE_FFT_CASE(1408, 7, 11)
+        FMCW_RANGE_FFT_CASE(1536, 9, 3)
+        FMCW_RANGE_FFT_CASE(1664, 7, 13)
+        FMCW_RANGE_FFT_CASE(1792, 8, 7)
+        FMCW_RANGE_FFT_CASE(1920, 7, 15)
+        FMCW_RANGE_FFT_CASE(2048, 10, 2)
 #undef FMCW_RANGE_FFT_CASE
     }
     return (int)err;
@@ -425,7 +555,7 @@ int launch(const void* src0, const void* src1, const void* win,
 template <bool kFloat>
 int blocks_per_sm() {
     using P = Plan<kFloat, kMaxLog2N>;
-    auto* kernel = range_fft_kernel<kFloat, kMaxLog2N>;
+    auto* kernel = range_fft_kernel<kFloat, kMaxLog2N, 1>;
     int blocks = 0;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmemBytes);

@@ -49,10 +49,15 @@ class SlowtimeConfig(ctypes.Structure):
         "row_off", "r_total", "variant", "W", "HC")]
 
 
-# Constants of the slow-time sources that the host picks its tile geometry
-# with (ops/frontend._slowtime_config), before any launch; each mirrors the
+# Constants of the kernel sources that the host picks kernel A's lengths
+# (ops/frontend.range_length_ok) and kernel B's tile geometry
+# (ops/frontend._slowtime_config) with, before any launch; each mirrors the
 # constexpr named beside it, and tests/test_torch_longcpi.py reads the
 # sources to hold them equal.
+RANGE_MIN_LOG2 = 4          # range_fft.cu kMinLog2N: powers of two 16 ..
+RANGE_MAX_LOG2 = 10         # range_fft.cu kMaxLog2N:   .. 1024
+RANGE_SLICE = 128           # range_fft.cu kSlice: or n2 x 128,
+RANGE_MAX_SLICES = 16       # range_fft.cu kMaxSlices:   n2 <= 16
 MAX_ROWS = 128              # slowtime_common.cuh kMaxRows: T + 2H
 MAX_BLK = 256               # slowtime_common.cuh kMaxBlk: a tile's blocks
 MAX_SMEM = 232448           # slowtime_common.cuh kMaxSmem: 227 KB

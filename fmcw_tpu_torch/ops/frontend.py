@@ -8,7 +8,9 @@ turn, as ``fmcw_tpu/ops/split_frontend.py`` splits it across chips:
   FFT per chirp, stored range-major — int16 (B, nd, nr, 2) -> planar float32
   re/im (B, nr, nd); ``range_fft_float``, the same kernel's entry point for
   float32 planes (B, nd, nr) (the array model's beamformed data: the TPU
-  kernel takes int16 or float32);
+  kernel takes int16 or float32); n_range a power of two 16 .. 1024 or
+  JAX's n2 x 128 with n2 <= 16 (``range_length_ok``: a dense o-point
+  stage, then the power-of-two plan, ``range_fft_split``);
 * ``slowtime_detect`` (kernel B, ``csrc/slowtime_detect.cu``): the
   slow-time chain (MTI, Doppler window, an FP32 Doppler FFT per range row),
   magnitude, 2D CFAR with per-cell or block scale (``csrc/cfar_tile.cuh``:
@@ -23,7 +25,8 @@ turn, as ``fmcw_tpu/ops/split_frontend.py`` splits it across chips:
   split transform into the magnitude map, then a decide kernel over tiles
   of rows x chunks of Doppler columns (``_slowtime_config``;
   csrc/slowtime_long.cuh, shared with the fixed kernel), two launches that
-  ``launches`` both counts.
+  ``launches`` both counts.  Short CPIs decide in tiles of 64 rows, or 32,
+  16 or 8 where 64 does not divide the rows or fit (``_short_tile``).
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch twin (``range_fft_plain``, ``range_fft_float_plain``,
@@ -64,22 +67,52 @@ reset_launch_counts = kernels.reset_launch_counts
 
 
 def range_fft_plan(n: int) -> tuple[int, int]:
-    """Kernel A's factorisation n = N1 x N2 (``Plan`` in csrc/range_fft.cu):
-    N2 = 2^floor(log2(n) / 2) lanes per chirp, N1 = n / N2 points per
-    lane."""
+    """The two-pass factorisation of a power of two n = N1 x N2 (``Plan``
+    in csrc/range_fft.cu, and the fixed range kernel's): N2 =
+    2^floor(log2(n) / 2) lanes per chirp, N1 = n / N2 points per lane."""
     n2 = 1 << (n.bit_length() - 1) // 2
     return n // n2, n2
+
+
+def range_length_ok(n: int) -> bool:
+    """Does kernel A take n_range ``n``: a power of two 16 .. 1024, or
+    JAX's n2 x 128 with n2 <= 16 (``fmcw_tpu/ops/frontend_pallas.py::
+    _ct_split``, ``fmcw_tpu/models/pipeline.frontend_kernel_supported``)?"""
+    pow2 = n > 0 and not n & (n - 1)
+    return ((pow2 and 1 << kernels.RANGE_MIN_LOG2 <= n
+             <= 1 << kernels.RANGE_MAX_LOG2)
+            or (n > 0 and n % kernels.RANGE_SLICE == 0
+                and n // kernels.RANGE_SLICE <= kernels.RANGE_MAX_SLICES))
+
+
+def range_fft_split(n: int) -> tuple[int, int]:
+    """Kernel A's n = o x m: the dense o-point stage before the radix-2
+    m-point transform (``range_fft_plan(m)``).  o = 1 for the powers of
+    two to 1024, 2 for 2048 (two 1024-point transforms), else the odd
+    factor of n (3 .. 15)."""
+    if n > 1 << kernels.RANGE_MAX_LOG2 and not n & (n - 1):
+        return n >> kernels.RANGE_MAX_LOG2, 1 << kernels.RANGE_MAX_LOG2
+    m = n & -n                          # the largest power of two in n
+    return n // m, m
 
 
 @functools.lru_cache(maxsize=32)
 def _tables(n: int, device: str):
     """Kernel A constants on ``device``: the float window, and the twiddle
-    table between its two passes, tw[ka N2 + t] = exp(-2 pi i t ka / n)
-    for ka < N1, t < N2 (``range_fft_plan``), computed in float64 then
-    float32: a warp reads one ka's row coalesced."""
-    n1, n2 = range_fft_plan(n)
-    m = np.outer(np.arange(n1), np.arange(n2)).ravel().astype(np.float64)
-    ang = -2.0 * np.pi * m / n
+    table, computed in float64 then float32, (entries, 2) re/im pairs.
+    With n = o x m (``range_fft_split``) and m = N1 x N2
+    (``range_fft_plan``): first tw[ka N2 + t] = exp(-2 pi i t ka / m) for
+    ka < N1, t < N2, between the m-point transform's two passes (a warp
+    reads one ka's row coalesced); for o > 1 then the dense stage's
+    exp(-2 pi i i1 k2 / n) at [m + k2 m + i1] (i1 < m, k2 < o) and
+    exp(-2 pi i e / o) at [m + n + e] (e < o)."""
+    o, m = range_fft_split(n)
+    n1, n2 = range_fft_plan(m)
+    ang = [np.outer(np.arange(n1), np.arange(n2)).ravel() / m]
+    if o > 1:
+        ang += [np.outer(np.arange(o), np.arange(m)).ravel() / n,
+                np.arange(o) / o]
+    ang = -2.0 * np.pi * np.concatenate(ang).astype(np.float64)
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
     return (torch.as_tensor(hamming_float(n), device=device),
             torch.as_tensor(tw, device=device))
@@ -142,12 +175,14 @@ def _device_kind(x: torch.Tensor) -> str:
 # ---------------------------------------------------------------------------
 
 def check_range_geometry(nr: int, nd: int, name: str = "range_fft"):
-    """Raises NotImplementedError for a frame that the range kernels (kernel
-    A and the fixed-point one) do not take."""
-    if nr & (nr - 1) or not 16 <= nr <= 1024 or nd % 8:
+    """Raises NotImplementedError for a frame that kernel A does not take
+    (``range_length_ok``, n_doppler a multiple of 8).  The fixed range
+    kernel takes less: ``frontend_fixed.check_range_geometry_fixed``."""
+    if not range_length_ok(nr) or nd % 8:
         raise NotImplementedError(
-            f"{name} kernel needs n_range a power of two in [16, 1024] "
-            f"and n_doppler a multiple of 8; got {nr}x{nd}")
+            f"{name} kernel needs n_range a power of two in [16, 1024] or "
+            f"n2 x 128 with n2 <= 16, and n_doppler a multiple of 8; got "
+            f"{nr}x{nd}")
 
 
 def range_fft_plain(iq: torch.Tensor):
@@ -362,6 +397,32 @@ def _long_geometry(nr, nd, cfar, scale_override, pgr, name):
         f"peak_group_radius={pgr} fits a block")
 
 
+def _tiles(nr: int) -> tuple[int, ...]:
+    """Kernel B's row tiles of a short CPI, in order of preference:
+    ``TILE_ROWS`` (or all rows, fewer), then 32, 16, 8."""
+    return tuple(dict.fromkeys((min(TILE_ROWS, nr), 32, 16, 8)))
+
+
+def _short_tile(nr, nd, halo, cfar, pgr):
+    """The largest row tile T of ``_tiles`` that divides the map's ``nr``
+    rows and fits a block with ``halo`` rows on each side (T + 2 halo <=
+    MAX_ROWS; block scale: whole blocks and at most MAX_BLK of them), or
+    None.  T = 64 wherever it fits: 2048 rows at the block scale 16 (48
+    halo rows) take 32, and so do range shards of 96 or 352 rows."""
+    block = cfar.scale_mode == "block"
+    sb = cfar.scale_block
+    if cfar.halo_doppler >= nd or pgr >= nd:
+        return None
+    for tile in _tiles(nr):
+        if (nr % tile == 0 and tile + 2 * halo <= kernels.MAX_ROWS
+                and (not block
+                     or (tile % sb == 0 and nd % sb == 0
+                         and (tile + 2 * halo) // sb * (nd // sb)
+                         <= kernels.MAX_BLK))):
+            return tile
+    return None
+
+
 def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
                      exact_mag=False, name="slowtime_detect", row_off=0,
                      r_total=None):
@@ -385,19 +446,14 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
         tile, chunk, halo, halo_cols = _long_geometry(
             nr, nd, cfar, scale_override, peak_group_radius, name)
     else:
-        tile = min(TILE_ROWS, nr)
         halo = _kernel_halo(cfar, peak_group_radius)
-        ok = (nr % tile == 0 and tile + 2 * halo <= kernels.MAX_ROWS
-              and cfar.halo_doppler < nd and peak_group_radius < nd
-              and (not block
-                   or (tile % sb == 0 and nd % sb == 0
-                       and (tile + 2 * halo) // sb * (nd // sb)
-                       <= kernels.MAX_BLK)))
-        if not ok:
+        tile = _short_tile(nr, nd, halo, cfar, peak_group_radius)
+        if tile is None:
             raise NotImplementedError(
                 f"{name} kernel: {nr}x{nd} map with {cfar} and "
-                f"peak_group_radius={peak_group_radius} does not fit its "
-                f"tile ({tile} rows + 2 x {halo} halo rows <= 128)")
+                f"peak_group_radius={peak_group_radius} fits no tile (T rows "
+                f"+ 2 x {halo} halo rows <= 128, T in {_tiles(nr)} dividing "
+                f"{nr})")
     return kernels.SlowtimeConfig(
         batch=B, R=nr, ND=nd, T=tile, H=halo, W=chunk, HC=halo_cols,
         hr=cfar.halo_range, hd=cfar.halo_doppler, gr=cfar.guard_range,

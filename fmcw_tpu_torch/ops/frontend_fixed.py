@@ -80,6 +80,28 @@ def _range_tables(n: int, coef_width: int, device: str):
 # Range half
 # ---------------------------------------------------------------------------
 
+def check_fixed_range_length(nr: int, name: str = "range_fft_fixed"):
+    """Raises NotImplementedError at kernel A's lengths that the fixed range
+    kernel does not take yet: n2 x 128 beyond the powers of two 16 .. 1024
+    (384 .. 2048, ``frontend.range_length_ok``), the fixed kernel's next
+    slice (ROADMAP.md, the TPU kernels' options)."""
+    if F.range_length_ok(nr) and (nr & (nr - 1)
+                                  or nr > 1 << kernels.RANGE_MAX_LOG2):
+        raise NotImplementedError(
+            f"{name} kernel: n_range {nr} = n2 x 128 is kernel A's, float "
+            f"only; the fixed range kernel at n2 x 128 (384 .. 2048) is the "
+            f"next slice: it takes a power of two in [16, 1024]")
+
+
+def check_range_geometry_fixed(nr: int, nd: int,
+                               name: str = "range_fft_fixed"):
+    """Raises NotImplementedError for a frame that the fixed range kernel
+    does not take: n_range a power of two in [16, 1024]
+    (``check_fixed_range_length``), n_doppler a multiple of 8."""
+    check_fixed_range_length(nr, name)
+    F.check_range_geometry(nr, nd, name)
+
+
 def fixed_transform(i_v: torch.Tensor, q_v: torch.Tensor, scale_sch=None):
     """The fixed chain's transform along the last axis: with ``scale_sch``
     None the dense float64 DFT, then BFP per transform; with a per-stage
@@ -136,7 +158,7 @@ def launch_range_fft_fixed(iq: torch.Tensor, coef_width: int = 16,
     per chirp, so a chirp shard gives exactly the matching columns (and its
     share of the saturation count) of the whole frame's output."""
     B, nd, nr, _ = iq.shape
-    F.check_range_geometry(nr, nd, "range_fft_fixed")
+    check_range_geometry_fixed(nr, nd)
     rnd = window_rounding_constant(coef_width, rounding)
     iq = F._aligned(iq)
     win, tw = _range_tables(nr, coef_width, str(iq.device))
@@ -286,7 +308,7 @@ def fused_fixed_detect_supported(p: RadarParams, peak_group_radius: int = 0,
     if include_debug:
         return False
     try:
-        F.check_range_geometry(p.n_range, p.n_doppler)
+        check_range_geometry_fixed(p.n_range, p.n_doppler)
         fixed_config(F._slowtime_config(1, p.n_range, p.n_doppler, p.cfar,
                                         0, peak_group_radius),
                      p.cfar, p.notch_mode, "zero", False, p.coef_width,

@@ -271,8 +271,10 @@ def sp_ring(mesh):
 
 def split_frontend_supported(p: RadarParams, sp: int) -> bool:
     """Can the kernels run the split front end of an sp-sharded mesh: the
-    range kernels on chirp shards (n_range a power of two in [16, 1024],
-    n_doppler/sp a multiple of 8, ``ops/frontend.check_range_geometry``) and
+    range kernels on chirp shards (kernel A's lengths, a power of two in
+    [16, 1024] or n2 x 128 with n2 <= 16, and n_doppler/sp a multiple of
+    8: ``ops/frontend.check_range_geometry``; fixed "fused" also asks
+    ``ops/frontend_fixed.check_fixed_range_length``) and
     the magnitude-only kernel on range shards
     (``ops/frontend.check_mag_geometry``)?  (JAX's 128-lane rule is the
     TPU's and does not apply.)"""
@@ -291,8 +293,9 @@ def split_detect_supported(p: RadarParams, sp: int,
     """Can the split entry (kernel B's, float32, or the fixed kernel's:
     both take the same shards) decide on the range shards:
     ``split_frontend_supported``, wrap edges and per-cell scale (any
-    variant), its tile (``ops/frontend._slowtime_config``: 64 rows + 2
-    (halo_range + peak_group_radius) halo rows <= 128, or at a long CPI the
+    variant), its tile (``ops/frontend._slowtime_config``: 64, 32, 16 or 8
+    rows dividing the shard's + 2 (halo_range + peak_group_radius) halo
+    rows <= 128, or at a long CPI the
     decide kernel's tile), and a halo that one neighbour holds?"""
     h = p.cfar.halo_range + peak_group_radius
     if (not split_frontend_supported(p, sp) or p.cfar.scale_mode != "cell"
@@ -375,6 +378,8 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                 "frontend='fused' with mode='fixed' runs the fused "
                 "fixed-point kernels, which compute no debug taps (as on "
                 "one device)")
+        if route == "fused":
+            FX.check_fixed_range_length(p.n_range)
     nrl = p.n_range // sp
     ndc = p.n_doppler // sp
     hr, pgr = p.cfar.halo_range, peak_group_radius

@@ -71,8 +71,14 @@ stimulus, 1024x128 frames):
   hw-compat routes' frames/s (``cfar_geometry="hw_stream"``, fixed
   ``auto`` and float ``fused``, radius 2).
 
-With ``--slowtime-only`` it times the two slow-time kernels' entries alone
-by graph replay: at 1024x128 kernel B per-cell and block, the fixed kernel
+With ``--front-end-only`` it times kernel A's three entries (int16,
+float, the sp = 4 chirp shard) and kernel B's four (per-cell, block,
+magnitude-only, the sp = 4 range shard) by graph replay, with the float
+main path's frames/s per-cell and block, at 1024x128 and, where the
+checkout's kernel A takes them, at the n2 x 128 range lengths 2048, 1536
+and 384.  With ``--slowtime-only`` it times the two slow-time kernels'
+entries alone by graph replay: at 1024x128 kernel B per-cell and block,
+the fixed kernel
 per-cell, block and CA and its row-6 shard; at the long CPI 1024x256
 kernel B per-cell, block and GO and, where the checkout's fixed kernel
 takes long CPIs, the fixed kernel per-cell, block and CA, with the fused
@@ -120,6 +126,9 @@ def main() -> int:
     ap.add_argument("--slowtime-only", action="store_true",
                     help="time the slow-time kernels' entries alone, short "
                          "and long CPIs")
+    ap.add_argument("--front-end-only", action="store_true",
+                    help="time kernel A's and kernel B's entries alone, at "
+                         "1024x128 and the n2 x 128 range lengths")
     args = ap.parse_args()
     everything = not (args.cfar3d_only or args.cfar_detect_only
                       or args.beam_group_only)
@@ -181,6 +190,53 @@ def main() -> int:
 
     entry = P.RadarParams()
     ms, fft, graph, fft_graph, copy, fps = {}, {}, {}, {}, {}, {}
+    if args.front_end_only:
+        pgr = 2
+        for nr in (1024, 2048, 1536, 384):
+            # The lengths the checkout's kernel A takes.
+            if nr != 1024 and not getattr(F, "range_length_ok",
+                                          lambda n: False)(nr):
+                continue
+            ep = entry.replace(n_range=nr)
+            iq = make_batch(ep)
+            br = iq[..., 0].float().contiguous()
+            bi = iq[..., 1].float().contiguous()
+            nd4 = ep.n_doppler // SP
+            shard = iq[:, nd4:2 * nd4].contiguous()
+            re, im = F.range_fft(iq)
+            h, nrl = ep.cfar.halo_range + pgr, nr // SP
+            ext = torch.arange(nrl - h, 2 * nrl + h, device="cuda") % nr
+            lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+            rshard = (re[:, core].contiguous(), im[:, core].contiguous(),
+                      (re[:, lo].contiguous(), im[:, lo].contiguous()),
+                      (re[:, hi].contiguous(), im[:, hi].contiguous()),
+                      False, 0, nrl)
+            skw = dict(cfar=ep.cfar, n_range_total=nr, peak_group_radius=pgr)
+            calls = {
+                f"range_fft[{nr}]": lambda: F.range_fft(iq),
+                f"range_fft_float[{nr}]": lambda: F.range_fft_float(br, bi),
+                f"range_frontend[{nr},sp4]": lambda: SF.range_frontend(shard),
+                f"slowtime_mag[{nr}]": lambda: F.slowtime_mag(re, im),
+                f"slowtime_detect_split[{nr},sp4]": (
+                    lambda: SF.slowtime_detect_split(*rshard, **skw))}
+            for name, p in (("cell", ep), ("block", P.fast().replace(
+                    n_range=nr))):
+                kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+                calls[f"slowtime_detect[{name},{nr}]"] = (
+                    lambda kw=kw: F.slowtime_detect(re, im, False, 0, **kw))
+                proc = pl.make_batch_processor(p, peak_group_radius=pgr,
+                                               include_maps=False,
+                                               device="cuda")
+                fps[f"float/{name}/{proc.route},{nr}"] = BATCH * 1e3 / cuda_ms(
+                    lambda: proc(iq), 10, 2)
+            for name, call in calls.items():
+                graph[name] = graph_ms(call)
+            del iq, br, bi, shard, re, im, rshard
+            torch.cuda.empty_cache()
+        print(json.dumps({"root": str(args.root), "graph_ms": graph,
+                          "frames_per_s": fps, "batch": BATCH,
+                          "card": card}), flush=True)
+        return 0
     if args.slowtime_only:
         pgr = 2
         for nd in (entry.n_doppler, 256):

@@ -401,6 +401,43 @@ def test_wrappers_launch_kernels_for_cuda_tensors(as_if_cuda):
     assert CD.cfar_detect_group.launches == 1 and CD.cfar_detect.launches == 0
 
 
+@pytest.mark.parametrize("nr", [384, 2048])
+def test_range_lengths_launch_kernel_a(as_if_cuda, nr):
+    """Kernel A takes JAX's n_range = n2 x 128 (n2 <= 16): both entries
+    and the chirp-shard entry launch ``fmcw_range_fft`` /
+    ``fmcw_range_fft_float`` with that length and the dense stage's table,
+    no twin; kernel B takes the map; the fixed range kernel refuses the
+    length before any launch, its wrapper and the chirp-shard one."""
+    p = fmcw_tpu_torch.RadarParams(n_range=nr, n_doppler=16)
+    iq = _iq(p, 2)
+    re, im = F.range_fft(iq)
+    br, bi = _planes((2, p.n_doppler, nr))
+    F.range_fft_float(br, bi)
+    SF.range_frontend(iq[:, :8])
+    assert [c[0] for c in as_if_cuda.calls] == ["range_fft",
+                                                "range_fft_float",
+                                                "range_fft"]
+    assert [c[1][-2] for c in as_if_cuda.calls] == [nr, nr, nr]
+    o, m = F.range_fft_split(nr)
+    assert o > 1 and F._tables(nr, "cpu")[1].shape == (m + nr + o, 2)
+    assert (F.range_fft.launches, F.range_fft_float.launches,
+            SF.range_frontend.launches) == (1, 1, 1)
+    F.slowtime_detect(re, im, cfar=p.cfar, peak_group_radius=2)
+    assert as_if_cuda.calls[-1][0] == "slowtime_detect"
+    assert as_if_cuda.calls[-1][1][9]._obj.T == F.TILE_ROWS
+    as_if_cuda.calls.clear()
+    with pytest.raises(NotImplementedError, match="next slice"):
+        FX.range_fft_fixed(iq)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        SF.range_frontend_fixed(iq[:, :8])
+    for bad in (320, 4096):
+        q = fmcw_tpu_torch.RadarParams(n_range=bad, n_doppler=16)
+        with pytest.raises(NotImplementedError):
+            F.range_fft(torch.zeros((1, 16, bad, 2), dtype=torch.int16))
+        assert not F.fused_detect_supported(q)
+    assert as_if_cuda.calls == [] and FX.range_fft_fixed.launches == 0
+
+
 def test_failed_launch_raises(as_if_cuda):
     as_if_cuda.err = 1
     with pytest.raises(RuntimeError, match="CUDA error"):

@@ -555,13 +555,18 @@ MIRRORED = {
     "DECIDE_THREADS": ("slowtime_long.cuh", "kDecideThreads"),
     "LONG_CPI_INNER": ("slowtime_long.cuh", "kInner"),
     "LONG_CPI_MAX_SPLIT": ("slowtime_long.cuh", "kMaxSplit"),
+    "RANGE_MIN_LOG2": ("range_fft.cu", "kMinLog2N"),
+    "RANGE_MAX_LOG2": ("range_fft.cu", "kMaxLog2N"),
+    "RANGE_SLICE": ("range_fft.cu", "kSlice"),
+    "RANGE_MAX_SLICES": ("range_fft.cu", "kMaxSlices"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(MIRRORED))
 def test_host_geometry_constants_match_the_sources(name):
-    """Each constant the host picks kernel B's tile with equals the
-    constexpr of the CUDA source it mirrors, so the two cannot drift."""
+    """Each constant the host picks kernel B's tile or kernel A's lengths
+    with equals the constexpr of the CUDA source it mirrors, so the two
+    cannot drift."""
     from fmcw_tpu_torch import kernels
     src, cname = MIRRORED[name]
     text = (kernels.CSRC / src).read_text()
