@@ -182,6 +182,23 @@ long CPI); the main path at those lengths (batch 128, per-cell and
 fast(): float auto now fused, through the margin gate, frames/s beside
 the staged route); the debug taps, reflect, hw-compat float and the
 array model at 2048x128; LocalMesh at sp 2 and 4; the entries' times.
+Then the fixed kernels at those lengths (phase 37): the fixed range
+kernel at every n2 x 128 (nd 8, 40 and 128, noise and x40, both window
+roundings, values and saturation counts equal to the twin; chirp shards
+at sp 2 and 4 bit-equal to the whole frame) and on tie frames
+(golden.reference.range_tie_frames: exact half-LSB ties on the quarter,
+eighth, sixth and twelfth turns) equal to the twin, its differences from
+the golden model counted and all at exact bins (ROADMAP fault 5); the
+fixed slow-time kernel at 2048, 1536 and 384 rows against its twin (kernel
+B's cases, block 16 at T = 32, the split entry at sp 2 and 4 with 96-row
+shards, a 2048x256 long CPI); fixed "fused" at batch 128 at those lengths
+(per-cell, fast() and at 2048 block 16: only the two fixed kernels, no
+plain stage, every output bit-equal to frontend="plain", the golden
+model on every per-cell frame and 32 of the others, in worker processes,
+but at located exact bins; frames/s beside the staged route); float auto
+at 2048x128 with block 16 through the margin gate; LocalMesh at sp 2 and
+4; the entries' times with bounds, kernel B's and the fixed slow-time
+kernel's block 16 among them.
 It prints the card's name and
 power limit, one JSON line listing the kernels, and as its last line
 {"ok": true, "device": {...}}.
@@ -6404,7 +6421,8 @@ def fixed_long_kernel_checks(dev, pgr: int):
     return errs, tw_bins
 
 
-def fixed_long_split_case(dev, re, im, nd: int, pgr: int) -> float:
+def fixed_long_split_case(dev, re, im, nd: int, pgr: int,
+                          tag: str = "fixed split long") -> float:
     """The fixed split entry on the sp 2 and 4 shards of (re, im), their
     neighbours' rows as halos, against the whole-frame launch and the
     twin (fixed_variant_kernel_checks' comparison).  Returns the largest
@@ -6447,7 +6465,7 @@ def fixed_long_split_case(dev, re, im, nd: int, pgr: int) -> float:
                              and torch.equal(n_s, n2))
                     n_sum, s_sum = n_sum + n_s, s_sum + st
                 same &= torch.equal(n_sum, ndet) and torch.equal(s_sum, sat)
-                log(f"fixed split long {variant} {nr}x{nd} sp={sp} "
+                log(f"{tag} {variant} {nr}x{nd} sp={sp} "
                     f"bypass={bypass}: shards "
                     f"{'bit-equal' if same else 'DIFFER'} to the whole-frame "
                     f"entry and the twin ({int(ndet.sum())} detections, "
@@ -6551,21 +6569,24 @@ def fixed_long_main_path(card: str, dev, pgr: int, pool):
     return launches, summary, golden
 
 
-def fixed_long_local_mesh(card: str, dev, pgr: int):
+def fixed_long_local_mesh(card: str, dev, pgr: int, configs=None,
+                          tag: str = "fixed long"):
     """Phase 33c: make_sharded_processor(mode="fixed", frontend="fused") on
     a LocalMesh at sp 2 and 4 at 1024x256 (batch 16), OS and CA per-cell:
     the fixed range kernel's chirp shards and the fixed split entry, no
     plain stage, every output bit-equal to the single card's fused route.
-    Returns the split entry's launches in the OS run at sp 4."""
+    Returns {kernel: launches} of the first config's run at sp 4.  Phase
+    37e runs it on other ``configs`` (variant, params), its lines tagged
+    ``tag``."""
     import torch
     from fmcw_tpu_torch import kernels
     from fmcw_tpu_torch.models import pipeline as pl
     from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
-    launches = 0
+    launches = None
     kw = dict(mode="fixed", frontend="fused", peak_group_radius=pgr,
               include_maps=True)
-    for variant in ("os", "ca"):
-        p = long_params(LONG_ND, variant)
+    for variant, p in configs or (("os", long_params(LONG_ND, "os")),
+                                  ("ca", long_params(LONG_ND, "ca"))):
         batch = torch.as_tensor(make_batch(p, ARRAY_BATCH, seed=45),
                                 device=dev)
         ref = pl.make_batch_processor(p, device=dev, **kw)(batch)
@@ -6577,17 +6598,17 @@ def fixed_long_local_mesh(card: str, dev, pgr: int):
                 torch.cuda.synchronize()
             counts = {k: v for k, v in kernels.launch_counts().items() if v}
             diff = [k for k in ref if not torch.equal(out[k], ref[k])]
-            log(f"fixed long LocalMesh {variant} sp={sp}: launches "
+            log(f"{tag} LocalMesh {variant} sp={sp}: launches "
                 + ", ".join(f"{k}={v}" for k, v in counts.items())
                 + f"; {'all outputs bit-equal' if not diff else diff} to the "
                 f"single card")
             if (diff or plain.calls or not counts.get("range_frontend_fixed")
                     or not counts.get("slowtime_detect_fixed_split")):
-                raise AssertionError(f"fixed long LocalMesh {variant} "
+                raise AssertionError(f"{tag} LocalMesh {variant} "
                                      f"sp={sp}: {diff}, {counts}, "
                                      f"{plain.calls}")
-            if variant == "os" and sp == SPLIT_SPS[-1]:
-                launches = counts["slowtime_detect_fixed_split"]
+            if launches is None and sp == SPLIT_SPS[-1]:
+                launches = counts
     return launches
 
 
@@ -6686,7 +6707,8 @@ def fixed_long_phase(card: str, dev, pgr: int):
         t1 = time.perf_counter()
         errs, tw_bins = fixed_long_kernel_checks(dev, pgr)
         t2 = time.perf_counter()
-        launches["split"] = fixed_long_local_mesh(card, dev, pgr)
+        launches["split"] = fixed_long_local_mesh(card, dev, pgr)[
+            "slowtime_detect_fixed_split"]
         t3 = time.perf_counter()
         rows, timings = fixed_long_timings(card, dev, pgr, errs, launches)
         t4 = time.perf_counter()
@@ -7675,6 +7697,477 @@ def length_phase(card: str, dev, pgr: int):
                                for k, v in launches.items()}}
 
 
+# ---------------------------------------------------------------------------
+# The fixed kernels at the range lengths n2 x 128 (phase 37)
+# ---------------------------------------------------------------------------
+
+FIXED_LENGTH_SRC = "fmcw_tpu_torch/csrc/range_fft_fixed.cu"
+FIXED_LENGTH_NEW = tuple(n for n in LENGTHS if n & (n - 1)) + (2048,)
+
+
+def exact_bin(k: int, n: int) -> bool:
+    """A quarter-, eighth-, sixth- or twelfth-turn bin of an n-point
+    transform: 24 k / n whole (ROADMAP fault 5: the golden model's
+    mixed-radix np.fft.fft need not give these exactly, and may round their
+    exact ties the other way)."""
+    return k * 24 % n == 0
+
+
+def fixed_length_range_checks(dev) -> int:
+    """Phase 37a: the fixed range kernel at every n2 x 128 (n2 1..16: the
+    powers of two 128 .. 1024 as before, and the dense stage's 384 ..
+    2048), nd 8, 40 and 128, batch 2, on seeded full-scale noise and the
+    saturating x40 stimulus, both window roundings: values and saturation
+    counts equal to the twin (0 values differ); at nd 128 the chirp shards
+    of sp 2 and 4 (``split_frontend.range_frontend_fixed``, row 4)
+    bit-equal to the whole frame's columns, their saturation counts
+    summing to the frame's.  Returns the number of values checked."""
+    import numpy as np
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    rng = np.random.default_rng(37)
+    checked = 0
+    for n in LENGTHS:
+        for nd in RANGE_CHIRPS:
+            hot = hot_batch(P.RadarParams(n_range=n, n_doppler=nd), 2)
+            for stim in (rng.integers(-32768, 32768, (2, nd, n, 2),
+                                      dtype=np.int16), hot):
+                iq = torch.as_tensor(stim, device=dev)
+                for rounding in ("unbiased", "biased"):
+                    got = FX.range_fft_fixed(iq, rounding=rounding)
+                    want = FX.range_fft_fixed_plain(iq, rounding=rounding)
+                    torch.cuda.synchronize()
+                    n_off = int((got[0] != want[0]).sum()
+                                + (got[1] != want[1]).sum())
+                    checked += 2 * got[0].numel()
+                    if n_off or not torch.equal(got[2], want[2]):
+                        raise AssertionError(
+                            f"range_fft_fixed at n={n} nd={nd} {rounding}: "
+                            f"{n_off} values differ, saturation "
+                            f"{got[2].tolist()} vs {want[2].tolist()}")
+                    if nd != RANGE_CHIRPS[-1] or rounding != "unbiased":
+                        continue
+                    for sp in SPLIT_SPS:
+                        ndl, sat = nd // sp, 0
+                        for k in range(sp):
+                            cols = slice(k * ndl, (k + 1) * ndl)
+                            part = SF.range_frontend_fixed(iq[:, cols])
+                            sat = sat + part[2]
+                            if not all(bits_equal(x, w[..., cols]) for x, w
+                                       in zip(part[:2], got[:2])):
+                                raise AssertionError(
+                                    f"range_frontend_fixed n={n} sp={sp} "
+                                    f"shard {k} differs from the frame")
+                        if not torch.equal(sat, got[2]):
+                            raise AssertionError(
+                                f"range_frontend_fixed n={n} sp={sp}: "
+                                f"saturations do not sum to the frame's")
+        log(f"range_fft_fixed n={n} nd {RANGE_CHIRPS} batch 2, noise and "
+            f"x40, both roundings: 0 values differ from the twin, "
+            f"saturation exact; chirp shards sp {SPLIT_SPS} bit-equal")
+    return checked
+
+
+def fixed_length_tie_checks(dev):
+    """Phase 37b: tie frames (golden.reference.range_tie_frames, 2 frames x
+    16 chirps, each chirp an exact half-LSB tie at bin 0, at bin n/8 with
+    its sqrt(2)/2 terms cancelling, and where 12 divides n at bin n/12 or
+    n/6 with its sqrt(3)/2 part 0) at every n2 x 128 beyond the powers of
+    two and at 2048: the fixed range kernel bit-equal to its twin; against
+    the golden numpy model (golden_range) the values that differ all lie
+    at exact bins (``exact_bin``) and at 2048 none.  Returns {n: values
+    that differ from the golden model}."""
+    import numpy as np
+    import torch
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    counts = {}
+    for n in FIXED_LENGTH_NEW:
+        kinds = ("quarter", "eighth") + (("twelfth",) if n % 12 == 0
+                                         else ())
+        where = {}
+        for kind in kinds:
+            frames = reference.range_tie_frames(n + len(kind), 2, 16, n, kind)
+            iq = torch.as_tensor(frames, device=dev)
+            got = FX.range_fft_fixed(iq)
+            want = FX.range_fft_fixed_plain(iq)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"range_fft_fixed on {kind}-turn ties "
+                                     f"at n={n} differs from its twin")
+            g_re, g_im = golden_range(frames)
+            re, im = got[0].cpu().numpy(), got[1].cpu().numpy()
+            off = np.argwhere((re != g_re) | (im != g_im))[:, 1]
+            where[kind] = sorted({int(k) for k in off})
+            counts[n] = counts.get(n, 0) + off.size
+            if (not all(exact_bin(int(k), n) for k in off)
+                    or off.size and not n & (n - 1)):
+                raise AssertionError(f"range_fft_fixed on {kind}-turn ties "
+                                     f"at n={n}: golden differences off the "
+                                     f"exact bins: {where[kind]}")
+        log(f"range_fft_fixed tie frames n={n} ({', '.join(kinds)}): twin "
+            f"bit-equal; {counts[n]} values differ from the golden model, "
+            f"at exact bins {where}")
+    return counts
+
+
+def golden_frames_located(job):
+    """A worker process's job: golden_frames_check's, with the golden
+    model's fault-5 differences allowed where they are located: magnitude
+    rows that differ all at exact bins (``exact_bin``), detections that
+    differ all within ``reach`` rows of such a row.  Returns (ok, the
+    detections, the magnitude rows that differ)."""
+    import numpy as np
+    from fmcw_tpu_torch.golden import fixed_point as gfx, reference
+    frames, mags, dets, p, radius = job
+    reach = p.cfar.halo_range + radius
+    ok, n, off = True, 0, 0
+    for f, m, d in zip(frames, mags, dets):
+        gmag, gdet = reference.process_frame_fixed(
+            f[..., 0] + 1j * f[..., 1].astype(np.float64), p)
+        if radius:
+            gdet = gfx.peak_group(gdet, radius)
+        rows = np.unique(np.argwhere(gmag != m)[:, 0])
+        near = np.zeros(p.n_range, bool)
+        for k in rows:
+            near[np.arange(k - reach, k + reach + 1) % p.n_range] = True
+        ok &= bool(all(exact_bin(int(k), p.n_range) for k in rows)
+                   and not ((gdet != d).any(-1) & ~near).any())
+        n += int((gdet > 0).sum())
+        off += rows.size
+    return ok, n, off
+
+
+def fixed_length_main_path(card: str, dev, pgr: int, pool):
+    """Phase 37c, the slice's main path: batch 128 of bench.py's stimulus
+    at 2048x128, 1536x128 and 384x128 through make_batch_processor(mode=
+    "fixed", frontend="fused"), the entry config (per-cell), fast() (block,
+    scale_block 8) and at 2048 JAX's own block 16 (T = 32): only
+    range_fft_fixed and slowtime_detect_fixed launch, no plain stage
+    (PlainStages); every output bit-equal to frontend="plain" on the card;
+    the mag and det maps of every per-cell frame and the first 32 of the
+    others held to the golden model by worker processes
+    (golden_frames_located, collected by the caller); frames/s beside fixed
+    "auto" (the staged route), both without the maps.  Then float "auto"
+    at 2048x128 with scale_block 16 (kernel B at T = 32), its launches and
+    frame 0 through the margin gate.  Returns ({(kernel or config, n):
+    launches}, summary, golden futures)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    launches, summary, golden = {}, {}, []
+    for nr in LENGTH_NRS:
+        configs = [("cell", P.RadarParams(n_range=nr)),
+                   ("block", P.fast().replace(n_range=nr))]
+        if nr == 2048:
+            configs.append(("block16", length_params(nr, scale_mode="block",
+                                                     sb=16)))
+        for name, p in configs:
+            frames = make_batch(p, BATCH, seed=47)
+            batch = torch.as_tensor(frames, device=dev)
+            proc = pl.make_batch_processor(p, mode="fixed", frontend="fused",
+                                           peak_group_radius=pgr, device=dev)
+            kernels.reset_launch_counts()
+            with PlainStages() as plain:
+                out = proc(batch)
+                torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            log(f"fixed main path {name} {nr}x128: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items())
+                + f"; plain stages {plain.calls or 'none'}")
+            if (proc.route != "fused" or plain.calls or set(counts) != {
+                    "range_fft_fixed", "slowtime_detect_fixed"}):
+                raise AssertionError(f"fixed main path {name} {nr}: the "
+                                     f"fused route ran {counts}, "
+                                     f"{plain.calls}")
+            launches[("range_fft_fixed", nr)] = (
+                launches.get(("range_fft_fixed", nr), 0)
+                + counts["range_fft_fixed"])
+            launches[(name, nr)] = counts["slowtime_detect_fixed"]
+            ref = pl.make_batch_processor(p, mode="fixed", frontend="plain",
+                                          peak_group_radius=pgr,
+                                          device=dev)(batch)
+            diff = [k for k in ref if not torch.equal(ref[k], out[k])]
+            if diff or out.keys() != ref.keys() or int(
+                    out["n_dets"].min()) <= 0:
+                raise AssertionError(f"fixed main path {name} {nr}: fused "
+                                     f"and plain differ in {diff}")
+            del ref
+            n_gold = BATCH if name == "cell" else 32
+            mags = out["mag_map"][:n_gold].cpu().numpy()
+            dets = out["det_map"][:n_gold].cpu().numpy()
+            for i in range(0, n_gold, 16):
+                golden.append(((name, nr), pool.submit(
+                    golden_frames_located, (frames[i:i + 16],
+                                            mags[i:i + 16], dets[i:i + 16],
+                                            p, pgr))))
+            del out, mags, dets
+            lean = {fe: pl.make_batch_processor(
+                p, mode="fixed", frontend=fe, peak_group_radius=pgr,
+                include_maps=False, device=dev) for fe in ("fused", "auto")}
+            fps = BATCH * 1e3 / cuda_ms(lambda: lean["fused"](batch), 10)
+            fps_staged = BATCH * 1e3 / cuda_ms(lambda: lean["auto"](batch), 2,
+                                               1)
+            summary[f"{name}@{nr}"] = {"frames_per_s": fps,
+                                       "staged_frames_per_s": fps_staged}
+            log(f"fixed main path {name} {nr}x128: fused bit-equal to plain "
+                f"in every output; {fps:.1f} frames/s, staged "
+                f"{fps_staged:.1f} frames/s ({fps / fps_staged:.2f}x) at "
+                f"batch {BATCH} ({card})")
+            del batch, lean
+            torch.cuda.empty_cache()
+    p = length_params(2048, scale_mode="block", sb=16)
+    batch = torch.as_tensor(make_batch(p, BATCH, seed=48), device=dev)
+    proc = pl.make_batch_processor(p, peak_group_radius=pgr,
+                                   include_maps=False, device=dev)
+    kernels.reset_launch_counts()
+    out = proc(batch)
+    torch.cuda.synchronize()
+    launches[("float_block16", 2048)] = kernels.launch_counts()[
+        "slowtime_detect"]
+    ref = pl.make_processor(p, peak_group_radius=pgr, frontend="plain",
+                            include_debug=True, cfar_rank_bits=None,
+                            device=dev)(batch[0])
+    ok, report = parity.margin_gate(
+        parity.detection_set(out, 0), parity.detection_set(ref),
+        ref["mag_map"].cpu().numpy(), ref["threshold_map"].cpu().numpy(),
+        ref["scale_map"].cpu().numpy(), radius=pgr,
+        capacity=p.tracker.max_dets, targets=reference.golden_targets(p))
+    log(f"float main path block 16 2048x128 ({proc.route}, slowtime_detect "
+        f"launched {launches[('float_block16', 2048)]}x) frame 0 vs plain "
+        f"path: {report}")
+    if proc.route != "fused" or not ok:
+        raise AssertionError("float block 16 at 2048: margin gate failed")
+    return launches, summary, golden
+
+
+def fixed_length_slowtime_checks(dev, pgr: int):
+    """Phase 37d: the fixed slow-time kernel at 2048, 1536 and 384 rows (x
+    128, batch 16 of bench.py's stimulus through the fixed range kernel):
+    each case of LENGTH_CASES (_fx_case: magnitudes and saturations equal
+    to the twin, the decision bit for bit on the kernel's magnitudes;
+    per-cell, block 8 and 16 (2048 rows at block 16: T = 32), CA / GO / SO,
+    bypass, overrides, radius 0 and 2) with the tile each launched; the
+    split entry at sp 2 and 4 (fixed_long_split_case: OS and CA, MTI on and
+    bypassed; 384 / 4 = 96-row shards at T = 32) bit-equal to the whole
+    frame and the twin; a 2048x256 long CPI per-cell and block 16.
+    Returns {entry: largest magnitude difference}."""
+    import torch
+    from fmcw_tpu_torch.ops import frontend as F, frontend_fixed as FX
+    errs = {"detect": 0.0, "split": 0.0}
+    for nr in LENGTH_NRS:
+        iq = torch.as_tensor(make_batch(length_params(nr), LENGTH_BATCH,
+                                        seed=37), device=dev)
+        re, im, _ = FX.range_fft_fixed(iq)
+        del iq
+        tiles = []
+        for variant, mode, sb, bypass, so, radius in LENGTH_CASES:
+            p = length_params(nr, 128, variant, mode, sb)
+            tiles.append(F._slowtime_config(1, nr, 128, p.cfar, so,
+                                            radius).T)
+            errs["detect"] = max(errs["detect"], _fx_case(
+                f"n={nr}", re, im, p, bypass, so, radius))
+        log(f"slowtime_detect_fixed n={nr}: tiles {tiles} rows for the "
+            f"cases {[c[:3] for c in LENGTH_CASES]}")
+        errs["split"] = max(errs["split"], fixed_long_split_case(
+            dev, re, im, 128, pgr, tag="fixed split"))
+        del re, im
+    iq = torch.as_tensor(make_batch(length_params(2048, 256), 8, seed=38),
+                         device=dev)
+    re, im, _ = FX.range_fft_fixed(iq)
+    for mode, sb in (("cell", 8), ("block", 16)):
+        errs["detect"] = max(errs["detect"], _fx_case(
+            "long", re, im, length_params(2048, 256, "os", mode, sb), False,
+            0, pgr))
+    return errs
+
+
+def fixed_length_timings(card: str, dev, pgr: int, errs, launches):
+    """Phase 37f: graph-replay times at 2048x128, 1536x128 and 384x128,
+    batch 128: the fixed range kernel and its chirp-shard entry at sp 4
+    (row 4); the fixed slow-time kernel per-cell, block (fast()) and, at
+    2048, block 16 (T = 32), and its split entry on the sp 4 range shard
+    (row 6); kernel B at block 16 at 2048 (T = 32); each beside its bound
+    (bound_range_fft_fixed: the function's least work, an n-point FFT a
+    chirp, whatever the kernel runs; bound_slowtime_fixed,
+    bound_slowtime_fixed_split, bound_slowtime), its plain twin and
+    torch.fft.fft of its planes (complex128 for the fixed kernels).
+    Returns (kernel rows, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend as F, frontend_fixed as FX
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    from fmcw_tpu_torch.ops.window import hamming_q15, window_apply_fixed
+    rows, summary = [], {}
+    line_2 = "fmcw_tpu/ops/frontend_pallas.py:813"
+    line_4 = "fmcw_tpu/ops/split_frontend.py:111"
+    line_6 = "fmcw_tpu/ops/split_frontend.py:625"
+    for nr in LENGTH_NRS:
+        nd, sp = 128, 4
+        ndl = nd // sp
+        iq = torch.as_tensor(make_batch(P.RadarParams(n_range=nr), BATCH,
+                                        seed=39), device=dev)
+        shard = iq[:, ndl:2 * ndl].contiguous()
+        wi, wq, _ = window_apply_fixed(iq[..., 0], iq[..., 1],
+                                       hamming_q15(nr)[None, :])
+        z = torch.complex(wi.double(), wq.double())
+        del wi, wq
+        fft_r = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        zs = z[:, ndl:2 * ndl].contiguous()
+        fft_4 = graph_ms(lambda: torch.fft.fft(zs, dim=-1))
+        del z, zs
+        entries = [
+            (f"range_fft_fixed[n={nr}]", FIXED_LENGTH_SRC, line_2,
+             lambda: FX.range_fft_fixed(iq),
+             lambda: FX.range_fft_fixed_plain(iq),
+             bound_range_fft_fixed(BATCH, nd, nr),
+             launches.get(("range_fft_fixed", nr), 0), 0.0, fft_r, True),
+            (f"range_frontend_fixed[n={nr},sp4]", FIXED_LENGTH_SRC, line_4,
+             lambda: SF.range_frontend_fixed(shard),
+             lambda: FX.range_fft_fixed_plain(shard),
+             bound_range_fft_fixed(BATCH, ndl, nr),
+             launches.get(("range_frontend_fixed", nr), 0), 0.0, fft_4,
+             True)]
+        re, im, _ = FX.range_fft_fixed(iq)
+        z = torch.complex(re.double(), im.double())
+        fft_b = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        configs = [("cell", P.RadarParams(n_range=nr)),
+                   ("block", P.fast().replace(n_range=nr))]
+        if nr == 2048:
+            configs.append(("block16", length_params(nr, scale_mode="block",
+                                                     sb=16)))
+        for name, p in configs:
+            kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+            entries.append((
+                f"slowtime_detect_fixed[{name},n={nr}]", FIXED_LONG_SRC,
+                line_2,
+                lambda kw=kw: FX.slowtime_detect_fixed(re, im, False, 0,
+                                                       **kw),
+                lambda kw=kw: FX.slowtime_detect_fixed_plain(re, im, False,
+                                                             0, **kw),
+                bound_slowtime_fixed(BATCH, nr, nd, p.cfar),
+                launches.get((name, nr), 0), errs["detect"], fft_b, False))
+        cfar = P.RadarParams().cfar
+        nrl, h = nr // sp, cfar.halo_range + pgr
+        ext = torch.arange(nrl - h, 2 * nrl + h, device=dev) % nr
+        lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+        args = (re[:, core].contiguous(), im[:, core].contiguous(),
+                (re[:, lo].contiguous(), im[:, lo].contiguous()),
+                (re[:, hi].contiguous(), im[:, hi].contiguous()), False, 0,
+                nrl)
+        skw = dict(cfar=cfar, n_range_total=nr, peak_group_radius=pgr)
+        z = torch.complex(re[:, ext].double(), im[:, ext].double())
+        fft_6 = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        entries.append((
+            f"slowtime_detect_fixed_split[n={nr},sp4]", FIXED_LONG_SRC,
+            line_6, lambda: SF.slowtime_detect_fixed_split(*args, **skw),
+            lambda: SF.slowtime_detect_fixed_split_plain(*args, **skw),
+            bound_slowtime_fixed_split(BATCH, nrl, nd, h, cfar),
+            launches.get(("slowtime_detect_fixed_split", nr), 0),
+            errs["split"], fft_6, False))
+        if nr == 2048:
+            fre, fim = F.range_fft(iq)
+            z = torch.complex(fre, fim)
+            fft_f = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+            del z
+            p = length_params(nr, scale_mode="block", sb=16)
+            kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+            entries.append((
+                f"slowtime_detect[block16,n={nr}]", LENGTH_SRC_B,
+                "fmcw_tpu/ops/frontend_pallas.py:623",
+                lambda: F.slowtime_detect(fre, fim, False, 0, **kw),
+                lambda: F.slowtime_detect_plain(fre, fim, False, 0, **kw),
+                bound_slowtime(BATCH, nr, nd, p.cfar),
+                launches.get(("float_block16", nr), 0), 0.0, fft_f, False))
+        for name, src, line, call, plain, (bound, by), n, err, lib, whole in (
+                entries):
+            ms = graph_ms(call)
+            plain_ms = cuda_ms(plain, 2, 1)
+            log(f"{name} batch {BATCH}: {ms:.4f} ms (graph), plain "
+                f"{plain_ms:.4f} ms, torch.fft.fft of its planes {lib:.4f} "
+                f"ms, bound {bound:.4f} ms ({by}), {n} launches on the path "
+                f"({card})")
+            summary[name] = {"ms": ms, "plain_ms": plain_ms, "fft_ms": lib,
+                             "bound_ms": bound, "bound_by": by}
+            # torch.fft.fft of the windowed chirps computes the range
+            # kernel's transform (not its BFP); of the slow-time entries it
+            # is the transform's share (the summary's fft_ms).
+            rows.append(dict(name=name, route="cuda", source=src,
+                             replaces=line, launches=n, max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by, library_ms=lib if whole else None))
+        del iq, re, im, args, shard
+        torch.cuda.empty_cache()
+    return rows, summary
+
+
+def fixed_length_phase(card: str, dev, pgr: int):
+    """Phase 37: the fixed kernels at the range lengths n2 x 128 (37a-f
+    above; 37e: make_sharded_processor(mode="fixed", frontend="fused") on
+    a LocalMesh at sp 2 and 4 at 2048x128, 1536x128 and 384x128, per-cell,
+    fixed_long_local_mesh); the main path first, whose golden checks run in
+    worker processes during the rest.  Returns (kernel rows, summary)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    import torch
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    with cf.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        launches, summary, golden = fixed_length_main_path(card, dev, pgr,
+                                                           pool)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        checked = fixed_length_range_checks(dev)
+        ties = fixed_length_tie_checks(dev)
+        t2 = time.perf_counter()
+        errs = fixed_length_slowtime_checks(dev, pgr)
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        for nr in LENGTH_NRS:
+            mesh = fixed_long_local_mesh(
+                card, dev, pgr, (("os", length_params(nr)),),
+                tag=f"fixed {nr}x128")
+            launches.update({(k, nr): v for k, v in mesh.items()})
+        t4 = time.perf_counter()
+        rows, timings = fixed_length_timings(card, dev, pgr, errs, launches)
+        t5 = time.perf_counter()
+        done = {}
+        for key, fut in golden:
+            ok, n, off = fut.result()
+            acc = done.setdefault(key, [True, 0, 0, 0])
+            acc[0] &= ok
+            acc[1] += n
+            acc[2] += off
+            acc[3] += 16
+        for (name, nr), (ok, n, off, frames) in done.items():
+            log(f"fixed main path {name} {nr}x128: mag and det maps vs the "
+                f"golden process_frame_fixed on {frames} frames: "
+                f"{'equal' if ok else 'DIFFER'} but at located exact bins "
+                f"({off} magnitude rows there; {n} detections)")
+            if not ok:
+                raise AssertionError(f"fixed main path {name} {nr} differs "
+                                     f"from the golden model")
+    t6 = time.perf_counter()
+    log(f"fixed range-length phase: 37c {t1 - t0:.1f} s, 37a-b "
+        f"{t2 - t1:.1f} s ({checked} values), 37d {t3 - t2:.1f} s, 37e "
+        f"{t4 - t3:.1f} s, 37f {t5 - t4:.1f} s, golden wait "
+        f"{t6 - t5:.1f} s")
+    return rows, {"main_path": summary, "timings": timings,
+                  "golden_tie_differences": ties,
+                  "golden_frame_rows_at_exact_bins": {
+                      f"{k[0]}@{k[1]}": v[2] for k, v in done.items()},
+                  "launches": {f"{k[0]}@{k[1]}": v
+                               for k, v in launches.items()}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8005,6 +8498,14 @@ def main() -> int:
     log(f"phases 1-35: {time.perf_counter() - t_start:.1f} s")
     length_rows, length_summary = length_phase(card, dev, pgr)
 
+    # 37. The fixed kernels at the range lengths n2 x 128: the fixed range
+    #     kernel at every length against its twin and on tie frames against
+    #     the golden model, the fixed slow-time kernel at those rows, the
+    #     fused fixed route there, a LocalMesh, timings.
+    log(f"phases 1-36: {time.perf_counter() - t_start:.1f} s")
+    fixed_length_rows, fixed_length_summary = fixed_length_phase(card, dev,
+                                                                 pgr)
+
     # The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
@@ -8020,7 +8521,7 @@ def main() -> int:
     rows += (fixed_rows + array_rows + split_rows + rank_rows + entry_rows
              + hw_rows + variant_rows + reflect_rows + rank_reflect_rows
              + cfar3d_reflect_rows + long_rows + fixed_long_rows
-             + scaled_rows + demo_rows + length_rows)
+             + scaled_rows + demo_rows + length_rows + fixed_length_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
@@ -8046,6 +8547,7 @@ def main() -> int:
                     "scaled": scaled_summary,
                     "demo": demo_summary,
                     "range_lengths": length_summary,
+                    "fixed_range_lengths": fixed_length_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

@@ -91,6 +91,46 @@
 // whole frame's columns (and its share of the saturation count).
 // tests/test_torch_range_fft_fixed_plan.py models this plan in numpy, bit
 // for bit against the golden model.
+//
+// The lengths n = n2 x 128 beyond the powers of two (384, 640, ..., 1920
+// and 2048: JAX's _ct_split, frontend_pallas.py:78-91) run as n = kO x m,
+// m = 2^k the plan above and kO = 2 (2048) or the odd factor 3 .. 15 (kernel
+// A's split, ops/frontend.range_fft_split).  A dense kO-point stage comes
+// first (decimation in frequency): for each output class k2 < kO,
+//   y[i1] = W_n^(i1 k2) sum_{i2 < kO} w x[i1 + m i2] W_kO^(i2 k2),  i1 < m,
+// in FP64 from the table's exact twiddles64(n) values, and the m-point plan
+// of y gives X[kO k1 + k2].  As in kernel A the block runs its group's
+// classes kSlices at once (about 256 threads, one exchange region each) in
+// kRounds rounds.  What differs from kernel A:
+//  * the Q15 window is applied once, in place in the input buffer, right
+//    after the copy lands (each sample windowed and its saturations counted
+//    once, not once a class); the windowed values are int16 by construction;
+//  * BFP takes the peak over all n bins of a chirp, so no class can be
+//    quantized before every class is done.  A group's FP64 spectrum (8
+//    chirps x n x 16 B, 256 KiB at 2048) does not fit a block, so the group
+//    runs two sweeps of its classes: the first only takes the peak, the
+//    second recomputes each class, quantizes and stores it straight from
+//    registers (row kO k1 + k2, 4 rows x 8 chirps a warp instruction).
+//    That is twice the FP64 work of one sweep, chosen over a scratch
+//    spectrum in global memory for being simple and using no memory beyond
+//    the block's; the paired store is the powers of two's only;
+//  * the exact bins.  Every quarter- and eighth-turn bin k = j n / 8 is a
+//    multiple of kO, so it lies in class 0, whose dense stage is a sum of
+//    integers (W = 1): the m-point plan's exact paths above carry over.
+//    Where 3 divides n (384, 768, 1152, 1536, 1920) the sixth- and
+//    twelfth-turn bins k = j n / 12 (j not a multiple of 3) fall in classes
+//    kO / 3 and 2 kO / 3, which irrational twiddles reach; they are computed
+//    from the exact class sums of the windowed chirp (twelfth_bins, the
+//    twin's ops/fft._twelfth_turn_bins) and replace the transform's values
+//    in both sweeps;
+//  * one input buffer where two do not fit under 196 KiB (1536 and 2048):
+//    the next group's copy starts when the second sweep's last round has
+//    read the buffer.
+// The bound at these lengths: the dense stage is kO complex FMAs a sample
+// and class, so at kO = 15 the FP64 pipe, not HBM, sets the time (the
+// function's least work, 5 n log2 n a chirp, is what the bound counts).
+// tests/test_torch_fixed_range_lengths.py models this plan in numpy, bit
+// for bit against the plain twin.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,9 +142,23 @@
 namespace {
 
 constexpr int kChirps = 8;      // chirps per group, a block's unit of work
-constexpr int kMinLog2N = 4;
-constexpr int kMaxLog2N = 10;
-constexpr int kStages = 2;      // input ring
+constexpr int kMinLog2N = 4;    // the powers of two 16 ..
+constexpr int kMaxLog2N = 10;   //   .. 1024
+constexpr int kSlice = 128;     // JAX's lane slice: n = n2 x kSlice,
+constexpr int kMaxSlices = 16;  //   n2 <= kMaxSlices
+constexpr int kSmemCap = 200704;   // 196 KiB: the carve-out leaves L1 60 KB
+
+// sqrt(3)/2 rounded to nearest (ops/fft.C3; cos(pi / 6) in libm is one ulp
+// above it).
+constexpr double kC3 = 0x1.bb67ae8584caap-1;
+
+// W_12^j = cos(pi j / 6) - i sin(pi j / 6), its cos and sin each written
+// c2 / 2 + c3 sqrt(3)/2: {c2 of the cos, c3 of the cos, c2 of the sin, c3
+// of the sin} (ops/fft.W12_PARTS).
+__constant__ int4 kW12[12] = {
+    {2, 0, 0, 0},  {0, 1, 1, 0},   {1, 0, 0, 1},   {0, 0, 2, 0},
+    {-1, 0, 0, 1}, {0, -1, 1, 0},  {-2, 0, 0, 0},  {0, -1, -1, 0},
+    {-1, 0, 0, -1}, {0, 0, -2, 0}, {1, 0, 0, -1},  {0, 1, -1, 0}};
 
 // W_32^e = exp(-2 pi i e / 32), e < 16: ops/fft.twiddles64(32), as exact
 // hex literals (e = 8 is exactly -i and is applied as a swap).  Indexed by
@@ -143,24 +197,32 @@ __device__ __forceinline__ void static_for(F&& f) {
     unrolled(f, std::make_integer_sequence<int, N>{});
 }
 
-// The factorisation, launch shape and shared memory for n = 2^kLog2N.
-template <int kLog2N>
+// The factorisation, launch shape and shared memory for n = kO x 2^kLog2M.
+template <int kLog2M, int kO = 1>
 struct Plan {
-    static constexpr int n = 1 << kLog2N;
-    static constexpr int kLog2N2 = kLog2N / 2;
+    static constexpr int m = 1 << kLog2M;            // the radix-2 transform
+    static constexpr int n = kO * m;                 // samples a chirp
+    static constexpr int kLog2N2 = kLog2M / 2;
     static constexpr int N2 = 1 << kLog2N2;          // lanes per chirp
-    static constexpr int N1 = n / N2;                // points per lane
-    static constexpr int kLog2N1 = kLog2N - kLog2N2;
-    static constexpr int kThreads = kChirps * N2;
+    static constexpr int N1 = m / N2;                // points per lane
+    static constexpr int kLog2N1 = kLog2M - kLog2N2;
+    static constexpr int kLanes = kChirps * N2;      // one transform's threads
+    // kO > 1: the classes k2 < kO in kRounds rounds of kSlices transforms
+    // at once, at most 256 threads, the rounds as even as they go (kernel
+    // A's rule).
+    static constexpr int kMostSlices = kLanes >= 256 ? 1 : 256 / kLanes;
+    static constexpr int kRounds = (kO + kMostSlices - 1) / kMostSlices;
+    static constexpr int kSlices = (kO + kRounds - 1) / kRounds;
+    static constexpr int kThreads = kSlices * kLanes;
     static constexpr int kWarps = kThreads / 32;
     // A chirp's exchange region in doubles: N2 rows (t) of N1 columns
     // (ka), column ka of row t stored at (ka + t) mod N1, and the region
-    // padded to 2 (mod 16): at n = 1024 pass 1's half-warp (16 rows) and
+    // padded to 2 (mod 16): at m = 1024 pass 1's half-warp (16 rows) and
     // pass 2's (8 chirps x 2 columns) then hit 16 distinct 8-byte bank
     // pairs, with no padded rows (which would take shared memory past 196
     // KB, where the carve-out leaves L1 28 KB for the window and twiddles
     // instead of 60 KB).
-    static constexpr int kRegion = n + (18 - n % 16) % 16;
+    static constexpr int kRegion = m + (18 - m % 16) % 16;
     static constexpr int kExchange = kChirps * kRegion;   // one plane
     static constexpr int kIn = kChirps * n;          // 32-bit I/Q words
     static constexpr int kInBytes = kIn * 4;
@@ -169,15 +231,29 @@ struct Plan {
     // in the exchange region, kTileSkew bytes in (the copy-out's 16-byte
     // reads of the two tiles then fall in different banks).
     static constexpr int kTileSkew = 64;
-    // Input ring, the two exchange planes, per-warp peaks and saturation
-    // counts, the ring's mbarriers.
+    // After the input ring: the exchange planes of each slice, per-warp
+    // peaks and saturation counts, the exact sixth- and twelfth-turn bins
+    // (kO a multiple of 3: [chirp][j] double2, j < 12), the ring's
+    // mbarriers.
+    static constexpr int kOffPeakR = 2 * kSlices * kExchange * 8;
+    static constexpr int kOffExactR = kOffPeakR + kWarps * kChirps * 4;
+    static constexpr int kExactBytes = kO % 3 == 0 ? kChirps * 12 * 16 : 0;
+    static constexpr int kOffSatR = kOffExactR + kExactBytes;
+    static constexpr int kOffBarR = kOffSatR + ((kWarps * 4 + 15) / 16) * 16;
+    static constexpr int kRest = kOffBarR + 2 * 8;
+    // Input ring: two buffers, or one where two do not fit under kSmemCap
+    // (kO > 1 only: 1536 and 2048).
+    static constexpr int kStages =
+        kO == 1 || 2 * kInBytes + kRest <= kSmemCap ? 2 : 1;
     static constexpr int kOffXch = kStages * kInBytes;
-    static constexpr int kOffPeak = kOffXch + 2 * kExchange * 8;
-    static constexpr int kOffSat = kOffPeak + kWarps * kChirps * 4;
-    static constexpr int kOffBar = kOffSat + ((kWarps * 4 + 15) / 16) * 16;
+    static constexpr int kOffPeak = kOffXch + kOffPeakR;
+    static constexpr int kOffExact = kOffXch + kOffExactR;
+    static constexpr int kOffSat = kOffXch + kOffSatR;
+    static constexpr int kOffBar = kOffXch + kOffBarR;
     static constexpr int kSmemBytes = kOffBar + kStages * 8;
-    static_assert(kTileSkew + kInBytes <= 2 * kExchange * 8,
+    static_assert(kO > 1 || kTileSkew + kInBytes <= 2 * kExchange * 8,
                   "a tile fits in the exchange region");
+    static_assert(kSmemBytes <= kSmemCap, "a group does not fit a block");
 };
 
 // (r + i i) *= W_32^e.
@@ -309,11 +385,11 @@ __device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
 // What a block shares: its shared-memory areas and the launch's arguments.
 template <typename P>
 struct Ctx {
-    uint32_t* in;                       // input ring, kStages buffers
+    uint32_t* in;                       // input ring, P::kStages buffers
     double* xch;                        // exchange, two planes
     unsigned* peak_s;                   // [warp][chirp] peak keys
     int* sat_s;                         // [warp]
-    uint64_t* bar;                      // [kStages]
+    uint64_t* bar;                      // [P::kStages]
     const uint32_t* iq;
     const int* win;
     const double2* tw;
@@ -505,6 +581,313 @@ __device__ __forceinline__ void quantize_rows(const double (&xr)[P::N1],
     });
 }
 
+// ---------------------------------------------------------------------------
+// n = kO x m, kO > 1: the dense kO-point stage before the m-point plan
+// ---------------------------------------------------------------------------
+
+// The group's 8 chirps windowed in place: each 32-bit I/Q word of `buf`
+// becomes its windowed (I, Q), int16 by construction (window_q15 clips),
+// the saturations summed by warp into shared memory: each sample once.
+// Every thread then fences its writes against the next bulk copy into
+// `buf` (the async proxy).
+template <typename P>
+__device__ __forceinline__ void window_in_place(const Ctx<P>& cx,
+                                                uint32_t* buf, int tid) {
+    int nsat = 0;
+#pragma unroll 4
+    for (int w = tid; w < P::kIn; w += P::kThreads) {
+        const uint32_t v = buf[w];
+        const int c = ld_nc(cx.win + w % P::n);
+        int si, sq;
+        const int vi = fmcw::window_q15((int16_t)(v & 0xffffu), c, cx.rnd,
+                                        cx.shift, &si);
+        const int vq = fmcw::window_q15((int16_t)(v >> 16), c, cx.rnd,
+                                        cx.shift, &sq);
+        nsat += si + sq;
+        buf[w] = ((uint32_t)vi & 0xffffu) | ((uint32_t)vq << 16);
+    }
+    nsat = fmcw::warp_sum(nsat);
+    if ((tid & 31) == 0) cx.sat_s[tid >> 5] = nsat;
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The bins k = j n / 12 (j < 12 not a multiple of 3: the sixth and twelfth
+// turns) of each chirp of the group, exactly, from its windowed samples in
+// `buf` (ops/fft._twelfth_turn_bins): with T_r the samples s = r (mod 12)
+// summed, X = sum_r T_r W_12^(r j) = E / 2 + (sqrt(3)/2) B, E and B sums of
+// integers (below 2^28 at n = 1920), then E / 2 + RN(kC3 B) in FP64, the
+// twin's operations, into exact[chirp][j].  Where B is 0 the part is
+// the half-integer E / 2, a round-half tie of the BFP scaling that the
+// transform's rounded twiddles need not give exactly.  Warp w takes chirps
+// w, w + kWarps, ...: lane l < 12 sums the class r = l, then computes bin
+// j = l (slowtime_detect_fixed.cu's twelfth_bins over a chirp).
+template <typename P>
+__device__ __forceinline__ void twelfth_bins(const uint32_t* buf,
+                                             double2* exact, int tid) {
+    const int l = tid & 31;
+    for (int c = tid >> 5; c < kChirps; c += P::kWarps) {
+        int tr = 0, ti = 0;
+        if (l < 12) {
+            for (int s = l; s < P::n; s += 12) {
+                const uint32_t v = buf[c * P::n + s];
+                tr += (int16_t)(v & 0xffffu);
+                ti += (int16_t)(v >> 16);
+            }
+        }
+        int er = 0, ei = 0, br = 0, bi = 0;
+        for (int r = 0; r < 12; ++r) {
+            const int a = __shfl_sync(0xffffffffu, tr, r);
+            const int b = __shfl_sync(0xffffffffu, ti, r);
+            const int4 w = kW12[(r * l) % 12];
+            er += w.x * a + w.z * b;
+            ei += w.x * b - w.z * a;
+            br += w.y * a + w.w * b;
+            bi += w.y * b - w.w * a;
+        }
+        if (l < 12 && l % 3 != 0)
+            exact[c * 12 + l] = make_double2(
+                __dadd_rn(0.5 * (double)er, __dmul_rn(kC3, (double)br)),
+                __dadd_rn(0.5 * (double)ei, __dmul_rn(kC3, (double)bi)));
+    }
+}
+
+// Class k2 of the group on the threads of slice s (l: the thread's lane in
+// the slice): the dense stage over the windowed input `buf` into pass 1's
+// points, the m-point plan's pass 1, the exchange through the slice's
+// regions, pass 2, then the exact bins (class 0's eighth turns, from
+// column 0 as for the powers of two; the sixth and twelfth turns from
+// `exact`).  X[kO (q + N2 j + N1 kb) + k2] of chirp c2 lands in x[j N2 +
+// bit_reverse(kb)].  Two block barriers, which every thread passes
+// (`active`: the slice has a class this round); after_b1() runs on thread 0
+// after the first.
+template <typename P, typename F>
+__device__ __forceinline__ void class_transform(
+        const Ctx<P>& cx, const uint32_t* buf, const double2* exact, int k2,
+        bool active, int s, int l, double (&xr)[P::N1], double (&xi)[P::N1],
+        F&& after_b1) {
+    constexpr int m = P::m, n = P::n, N1 = P::N1, N2 = P::N2;
+    constexpr int kO = n / m;
+    const int t = l & (N2 - 1);                    // pass 1: lane t
+    const int c1 = l >> P::kLog2N2;                //   of chirp c1
+    const int c2 = l & (kChirps - 1);              // pass 2: chirp c2,
+    const int q = l / kChirps;                     //   columns q + N2 j
+    double* const xch = cx.xch + s * 2 * P::kExchange;
+    if (active) {
+        // 1. The dense stage: point i1 = t + N2 m' sums its kO windowed
+        //    samples i1 + m i2 times W_kO^(i2 k2) = tw[m + n + i2 k2 mod
+        //    kO], then takes W_n^(i1 k2) = tw[m + k2 m + i1].  Class 0
+        //    multiplies by exactly 1: a sum of integers.
+        const double2* twn = cx.tw + m + k2 * m + t;
+        const double2* two = cx.tw + m + n;
+        double cr[kO], ci[kO];
+        static_for<kO>([&](auto ii) {
+            constexpr int i2 = decltype(ii)::value;
+            const double2 w = ld_nc(two + i2 * k2 % kO);
+            cr[i2] = w.x;
+            ci[i2] = w.y;
+        });
+        const uint32_t* src = buf + c1 * n + t;
+        static_for<N1>([&](auto mm) {
+            constexpr int mv = decltype(mm)::value;
+            double ar = 0.0, ai = 0.0;
+            static_for<kO>([&](auto ii) {
+                constexpr int i2 = decltype(ii)::value;
+                const uint32_t v = src[N2 * mv + m * i2];
+                const double r = int_to_double((int16_t)(v & 0xffffu));
+                const double im = int_to_double((int16_t)(v >> 16));
+                ar = fma(r, cr[i2], ar);
+                ar = fma(-im, ci[i2], ar);
+                ai = fma(r, ci[i2], ai);
+                ai = fma(im, cr[i2], ai);
+            });
+            const double2 w = ld_nc(twn + N2 * mv);
+            xr[mv] = fma(ar, w.x, -ai * w.y);
+            xi[mv] = fma(ar, w.y, ai * w.x);
+        });
+        // 2. N1-point DFT over m', then W_m^(t ka) = tw[ka N2 + t].
+        dft<N1, 0, N1>(xr, xi);
+        static_for<N1 - 1>([&](auto kk) {
+            constexpr int ka = decltype(kk)::value + 1;
+            constexpr int p = bit_reverse(ka, P::kLog2N1);
+            const double2 w = ld_nc(cx.tw + ka * N2 + t);
+            const double r = fma(xr[p], w.x, -xi[p] * w.y);
+            xi[p] = fma(xr[p], w.y, xi[p] * w.x);
+            xr[p] = r;
+        });
+        // 3. Exchange: row t of chirp c1's region.
+        static_for<N1>([&](auto kk) {
+            constexpr int ka = decltype(kk)::value;
+            constexpr int p = bit_reverse(ka, P::kLog2N1);
+            const int at = c1 * P::kRegion + t * N1 + ((ka + t) & (N1 - 1));
+            xch[at] = xr[p];
+            xch[P::kExchange + at] = xi[p];
+        });
+    }
+    __syncthreads();
+    int tid;
+    asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+    if (tid == 0) after_b1();
+    if (active) {
+        static_for<N1>([&](auto i) {
+            constexpr int j = decltype(i)::value / N2;
+            constexpr int tp = decltype(i)::value % N2;
+            const int at =
+                c2 * P::kRegion + tp * N1 + ((q + N2 * j + tp) & (N1 - 1));
+            xr[j * N2 + tp] = xch[at];
+            xi[j * N2 + tp] = xch[P::kExchange + at];
+        });
+        // 4. N2-point DFTs over t'; the exact bins.
+        static_for<N1 / N2>([&](auto jj) {
+            constexpr int j = decltype(jj)::value;
+            dft<N2, j * N2, N1>(xr, xi);
+        });
+        if (k2 == 0 && q == 0)
+            eighth_turn_bins<P>(xr, xi, xch + c2 * P::kRegion,
+                                xch + P::kExchange + c2 * P::kRegion);
+        if constexpr (kO % 3 == 0) {
+            // Bin k = j n / 12 is X_m[k1] of class k % kO, k1 = k / kO =
+            // q + N2 jj + N1 kb.
+            static_for<12>([&](auto jv) {
+                constexpr int j = decltype(jv)::value;
+                if constexpr (j % 3 != 0) {
+                    constexpr int k = j * (n / 12), k1 = k / kO;
+                    constexpr int p = (k1 / N2) % (N1 / N2) * N2 +
+                                      bit_reverse(k1 / N1, P::kLog2N2);
+                    if (k2 == k % kO && q == k1 % N2) {
+                        const double2 e = exact[c2 * 12 + j];
+                        xr[p] = e.x;
+                        xi[p] = e.y;
+                    }
+                }
+            });
+        }
+    }
+    __syncthreads();                    // the regions are free again
+}
+
+// n = kO x m, kO > 1: a unit is one group of 8 chirps.  Per group: the
+// window in place (its saturations into sat[b]), the exact sixth- and
+// twelfth-turn bins (kO a multiple of 3), then the classes twice, in
+// rounds of kSlices: the first sweep takes each thread's peak key, and the
+// max over the chirp's lanes and the block's warps gives its scale; the
+// second recomputes each class, quantizes it and stores it straight from
+// registers, each warp instruction 4 range rows kO k1 + k2 x 8 consecutive
+// chirps.
+template <int kLog2M, int kO>
+__global__ void __launch_bounds__(Plan<kLog2M, kO>::kThreads, 1)
+range_fft_fixed_dense_kernel(const uint32_t* __restrict__ iq,
+                             const int* __restrict__ win,
+                             const double2* __restrict__ tw,
+                             int16_t* __restrict__ out_re,
+                             int16_t* __restrict__ out_im,
+                             int* __restrict__ sat, int nd, int units,
+                             int rnd, int shift) {
+    using P = Plan<kLog2M, kO>;
+    constexpr int n = P::n, N1 = P::N1;
+    constexpr int kStages = P::kStages;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const Ctx<P> cx{reinterpret_cast<uint32_t*>(smem),
+                    reinterpret_cast<double*>(smem + P::kOffXch),
+                    reinterpret_cast<unsigned*>(smem + P::kOffPeak),
+                    reinterpret_cast<int*>(smem + P::kOffSat),
+                    reinterpret_cast<uint64_t*>(smem + P::kOffBar),
+                    iq, win, tw, sat, rnd, shift};
+    double2* const exact = reinterpret_cast<double2*>(smem + P::kOffExact);
+    const int per_frame = nd / kChirps;            // units a frame
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < kStages; ++s)
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                         :: "r"(smem_addr(cx.bar + s)) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        for (int s = 0; s < kStages; ++s) {
+            const int gi = blockIdx.x + s * gridDim.x;
+            if (gi < units)
+                prefetch<P>(iq, cx.in + s * P::kIn, cx.bar + s, gi);
+        }
+    }
+    __syncthreads();
+
+    int k = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++k) {
+        const int b = u / per_frame;
+        const int c0 = (u - b * per_frame) * kChirps;
+        const int stage = k % kStages;
+        uint32_t* buf = cx.in + stage * P::kIn;
+        wait_parity(cx.bar + stage, (k / kStages) & 1);
+        int tid;
+        asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+        window_in_place<P>(cx, buf, tid);
+        __syncthreads();
+        if (tid == 0) {
+            int s = 0;
+            for (int w = 0; w < P::kWarps; ++w) s += cx.sat_s[w];
+            if (s) atomicAdd(cx.sat + b, s);
+        }
+        if constexpr (kO % 3 == 0) twelfth_bins<P>(buf, exact, tid);
+        unsigned key = 0;
+        double scale = 1.0;
+#pragma unroll 1
+        for (int sweep = 0; sweep < 2; ++sweep) {
+#pragma unroll 1
+            for (int round = 0; round < P::kRounds; ++round) {
+                // The thread's indices, read anew each round: nothing
+                // derived from them is held in registers across the loop.
+                asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+                const int s = P::kSlices == 1 ? 0 : tid / P::kLanes;
+                const int l = tid & (P::kLanes - 1);
+                const int k2 = round * P::kSlices + s;
+                const bool active = k2 < kO;       // uniform in a slice
+                double xr[N1], xi[N1];
+                class_transform<P>(cx, buf, exact, k2, active, s, l, xr,
+                                   xi, [&] {
+                    // The second sweep's last round has read the buffer:
+                    // it takes the copy kStages units on.
+                    const int next = u + kStages * (int)gridDim.x;
+                    if (sweep == 1 && round == P::kRounds - 1 &&
+                        next < units) {
+                        asm volatile("fence.proxy.async.shared::cta;"
+                                     ::: "memory");
+                        prefetch<P>(iq, buf, cx.bar + stage, next);
+                    }
+                });
+                if (!active) continue;
+                if (sweep == 0) {
+                    static_for<N1>([&](auto i) {
+                        constexpr int j = decltype(i)::value;
+                        key = max(key, max(abs_key(xr[j]), abs_key(xi[j])));
+                    });
+                } else {
+                    const size_t base = (size_t)b * n * nd + c0 +
+                                        (l & (kChirps - 1)) +
+                                        (size_t)(kO * (l / kChirps) + k2) * nd;
+                    quantize_rows<P>(xr, xi, scale,
+                                     [&](int row, int re, int im) {
+                        const size_t at = base + (size_t)(kO * row) * nd;
+                        out_re[at] = (int16_t)re;
+                        out_im[at] = (int16_t)im;
+                    });
+                }
+            }
+            if (sweep == 0) {
+                // The BFP exponent of chirp tid mod 8: the max over the
+                // warp's lanes of the chirp, then over every slice's warps.
+                asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+                key = max(key, __shfl_xor_sync(0xffffffffu, key, 8));
+                key = max(key, __shfl_xor_sync(0xffffffffu, key, 16));
+                if ((tid & 31) < kChirps)
+                    cx.peak_s[(tid >> 5) * kChirps + (tid & 31)] = key;
+                __syncthreads();
+                static_for<P::kWarps>([&](auto w) {
+                    key = max(key, cx.peak_s[decltype(w)::value * kChirps +
+                                             (tid & (kChirps - 1))]);
+                });
+                scale = scale_from_key(key);
+            }
+        }
+    }
+}
+
 // kPairs (nd a multiple of 16): the block takes units of two groups, 16
 // consecutive chirps, so that each range row's int16 values form whole
 // 32-byte sectors.  The first group's quantized tile goes to its own input
@@ -533,6 +916,7 @@ range_fft_fixed_kernel(const uint32_t* __restrict__ iq,
                     reinterpret_cast<int*>(smem + P::kOffSat),
                     reinterpret_cast<uint64_t*>(smem + P::kOffBar),
                     iq, win, tw, sat, rnd, shift};
+    constexpr int kStages = P::kStages;
     const int per_frame = nd / (kChirps * kPer);   // units a frame
 
     if (threadIdx.x == 0) {
@@ -632,15 +1016,25 @@ range_fft_fixed_kernel(const uint32_t* __restrict__ iq,
     }
 }
 
+// The kernel of n = kO x 2^kLog2M: the powers of two's (kO = 1, paired or
+// not), else the dense stage's.
+template <int kLog2M, int kO, bool kPairs>
+auto kernel_of() {
+    if constexpr (kO == 1)
+        return range_fft_fixed_kernel<kLog2M, kPairs>;
+    else
+        return range_fft_fixed_dense_kernel<kLog2M, kO>;
+}
+
 // Launches at most one block per resident slot (blocks per SM x SMs): each
 // walks its units through the input ring.  The shared-memory attribute and
 // the slot count are set once per process and device.
-template <int kLog2N, bool kPairs>
+template <int kLog2M, int kO, bool kPairs>
 cudaError_t launch_n(const void* iq, const void* win, const void* tw,
                      void* out_re, void* out_im, void* sat, int batch,
                      int nd, int rnd, int shift, cudaStream_t stream) {
-    using P = Plan<kLog2N>;
-    auto* kernel = range_fft_fixed_kernel<kLog2N, kPairs>;
+    using P = Plan<kLog2M, kO>;
+    auto* kernel = kernel_of<kLog2M, kO, kPairs>();
     static int slots[64] = {};
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -671,28 +1065,31 @@ cudaError_t launch_n(const void* iq, const void* win, const void* tw,
     return cudaGetLastError();
 }
 
-int log2_exact(int n) {
-    int l = 0;
-    while ((1 << l) < n) ++l;
-    return (1 << l) == n ? l : -1;
+// The lengths the kernel takes: a power of two 2^kMinLog2N .. 2^kMaxLog2N,
+// or n2 x kSlice with n2 <= kMaxSlices (kernel A's, range_fft.cu).
+bool length_ok(int n) {
+    const bool pow2 = n > 0 && (n & (n - 1)) == 0;
+    return (pow2 && n >= (1 << kMinLog2N) && n <= (1 << kMaxLog2N)) ||
+           (n > 0 && n % kSlice == 0 && n / kSlice <= kMaxSlices);
 }
 
 }  // namespace
 
 // iq: int16 (batch, nd, n, 2), 16-byte aligned; win: int32 (n,) Q15
-// coefficients; tw: complex float64 (n,) with tw[ka N2 + t] = exp(-2 pi i t
-// ka / n) for the plan's n = N1 x N2 (ops/frontend_fixed._range_tables);
-// out_re/out_im: int16 (batch, n, nd); sat: int32 (batch,), zeroed by the
-// caller.  rnd/shift: the window's rounding constant and extraction shift.
-// Returns the CUDA error code of the launch (0 on success).
+// coefficients; tw: complex float64, with n = kO x m (ops/frontend.
+// range_fft_split) and m = N1 x N2: tw[ka N2 + t] = exp(-2 pi i t ka / m)
+// (m entries), for kO > 1 followed by exp(-2 pi i i1 k2 / n) at [m + k2 m
+// + i1] and exp(-2 pi i e / kO) at [m + n + e] (ops/frontend_fixed.
+// _range_tables); out_re/out_im: int16 (batch, n, nd); sat: int32 (batch,),
+// zeroed by the caller.  rnd/shift: the window's rounding constant and
+// extraction shift.  Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int fmcw_range_fft_fixed(const void* iq, const void* win,
                                     const void* tw, void* out_re,
                                     void* out_im, void* sat, int batch,
                                     int nd, int n, int rnd, int shift,
                                     void* stream) {
-    const int log2n = log2_exact(n);
-    if (batch < 1 || log2n < kMinLog2N || log2n > kMaxLog2N ||
-        nd < kChirps || nd % kChirps != 0 ||
+    if (batch < 1 || !length_ok(n) || nd < kChirps || nd % kChirps != 0 ||
         (long long)batch * nd > 0x7fffffffLL || shift < 1 || shift > 30 ||
         ((reinterpret_cast<uintptr_t>(iq) |
           reinterpret_cast<uintptr_t>(out_re) |
@@ -700,23 +1097,42 @@ extern "C" int fmcw_range_fft_fixed(const void* iq, const void* win,
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err = cudaErrorInvalidValue;
-    switch (log2n) {
-#define FMCW_RANGE_FFT_FIXED_CASE(L)                                        \
-    case L:                                                                 \
+    // n = kO x 2^L (ops/frontend.range_fft_split).
+    switch (n) {
+#define FMCW_RANGE_FFT_FIXED_POW2(N, L)                                     \
+    case N:                                                                 \
         err = nd % (2 * kChirps) == 0                                       \
-                  ? launch_n<L, true>(iq, win, tw, out_re, out_im, sat,     \
-                                      batch, nd, rnd, shift, s)             \
-                  : launch_n<L, false>(iq, win, tw, out_re, out_im, sat,    \
-                                       batch, nd, rnd, shift, s);           \
+                  ? launch_n<L, 1, true>(iq, win, tw, out_re, out_im, sat,  \
+                                         batch, nd, rnd, shift, s)          \
+                  : launch_n<L, 1, false>(iq, win, tw, out_re, out_im, sat, \
+                                          batch, nd, rnd, shift, s);        \
         break;
-        FMCW_RANGE_FFT_FIXED_CASE(4)
-        FMCW_RANGE_FFT_FIXED_CASE(5)
-        FMCW_RANGE_FFT_FIXED_CASE(6)
-        FMCW_RANGE_FFT_FIXED_CASE(7)
-        FMCW_RANGE_FFT_FIXED_CASE(8)
-        FMCW_RANGE_FFT_FIXED_CASE(9)
-        FMCW_RANGE_FFT_FIXED_CASE(10)
-#undef FMCW_RANGE_FFT_FIXED_CASE
+#define FMCW_RANGE_FFT_FIXED_DENSE(N, L, O)                                 \
+    case N:                                                                 \
+        err = launch_n<L, O, false>(iq, win, tw, out_re, out_im, sat, batch, \
+                                    nd, rnd, shift, s);                     \
+        break;
+        FMCW_RANGE_FFT_FIXED_POW2(16, 4)
+        FMCW_RANGE_FFT_FIXED_POW2(32, 5)
+        FMCW_RANGE_FFT_FIXED_POW2(64, 6)
+        FMCW_RANGE_FFT_FIXED_POW2(128, 7)
+        FMCW_RANGE_FFT_FIXED_POW2(256, 8)
+        FMCW_RANGE_FFT_FIXED_POW2(512, 9)
+        FMCW_RANGE_FFT_FIXED_POW2(1024, 10)
+        FMCW_RANGE_FFT_FIXED_DENSE(384, 7, 3)
+        FMCW_RANGE_FFT_FIXED_DENSE(640, 7, 5)
+        FMCW_RANGE_FFT_FIXED_DENSE(768, 8, 3)
+        FMCW_RANGE_FFT_FIXED_DENSE(896, 7, 7)
+        FMCW_RANGE_FFT_FIXED_DENSE(1152, 7, 9)
+        FMCW_RANGE_FFT_FIXED_DENSE(1280, 8, 5)
+        FMCW_RANGE_FFT_FIXED_DENSE(1408, 7, 11)
+        FMCW_RANGE_FFT_FIXED_DENSE(1536, 9, 3)
+        FMCW_RANGE_FFT_FIXED_DENSE(1664, 7, 13)
+        FMCW_RANGE_FFT_FIXED_DENSE(1792, 8, 7)
+        FMCW_RANGE_FFT_FIXED_DENSE(1920, 7, 15)
+        FMCW_RANGE_FFT_FIXED_DENSE(2048, 10, 2)
+#undef FMCW_RANGE_FFT_FIXED_POW2
+#undef FMCW_RANGE_FFT_FIXED_DENSE
     }
     return (int)err;
 }

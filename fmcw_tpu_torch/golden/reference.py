@@ -11,6 +11,9 @@ oracle of the port's ``mode="fixed"``.
 own) — frames, or range-major planes, that put exact round-half ties on
 eighth-turn Doppler bins: the stimuli that tell an exact Doppler transform
 from a rounded one; ``eighth_turn_ties`` finds those ties in windowed rows.
+``range_tie_frames`` (the port's own) — frames whose chirps put exact
+round-half ties on the range transform's exact bins (quarter, eighth,
+sixth and twelfth turns).
 ``rank_adversarial_maps`` (the port's own) — magnitude maps of tied,
 non-finite, negative and out-of-range keys for the rank-select CFAR.
 """
@@ -279,6 +282,123 @@ def doppler_quarter_tie_planes(seed: int, batch: int, n_range: int,
             ok = np.flatnonzero(reach == want)
             row[-1, 0] = xs[ok[np.abs(xs[ok] - row[-1, 0]).argmin()]]
     return x[..., 0].astype(np.int16), x[..., 1].astype(np.int16)
+
+
+# W_12^j = cos(pi j / 6) - i sin(pi j / 6), its cos and sin each written
+# c2 / 2 + c3 sqrt(3)/2: (c2, c3) of the cos, then of the sin (ops/fft.
+# W12_PARTS).
+_W12_PARTS = ((2, 0, 0, 0), (0, 1, 1, 0), (1, 0, 0, 1), (0, 0, 2, 0),
+              (-1, 0, 0, 1), (0, -1, 1, 0), (-2, 0, 0, 0), (0, -1, -1, 0),
+              (-1, 0, 0, -1), (0, 0, -2, 0), (1, 0, 0, -1), (0, 1, -1, 0))
+
+
+def twelfth_parts(j: int):
+    """The integer coefficients of the real part of bin j n/12 over the
+    class sums (T_r of I, T_r of Q; s = r mod 12) of a windowed chirp:
+    (E, B), each (2, 12), with Re X = E . T / 2 + (sqrt(3)/2) B . T."""
+    e = np.zeros((2, 12), np.int64)
+    b = np.zeros((2, 12), np.int64)
+    for r in range(12):
+        c2, c3, s2, s3 = _W12_PARTS[r * j % 12]
+        e[:, r] = c2, s2
+        b[:, r] = c3, s3
+    return e, b
+
+
+def range_tie_frames(seed: int, batch: int, n_doppler: int, n_range: int,
+                     kind: str, rounding: str = "unbiased",
+                     coef_width: int = 16):
+    """int16 frames (batch, n_doppler, n_range, 2) each of whose chirps puts
+    an exact half-LSB tie of the range stage's BFP scaling on a bin that
+    the transform must give exactly: small noise (+-60) on a DC offset of
+    20000 in I (DC is the chirp's peak, and sets its exponent s >= 1), with
+    samples chosen so that
+    ``kind="quarter"``: bin 0's real part (the windowed I summed) ties;
+    ``kind="eighth"``: bin n/8's sqrt(2)/2 terms cancel (class sums mod 8,
+    T_1 = T_5 and T_3 = T_7, I and Q) and its real part u_0 + Im u_2 ties;
+    ``kind="twelfth"`` (12 dividing n): bin n/12 (even chirps; a twelfth
+    turn) or n/6 (odd chirps; a sixth turn) has its sqrt(3)/2 part B = 0
+    and its real part E / 2 ties (``twelfth_parts``).  Each chosen sample
+    is one whose window coefficient is below 2^14 (the first samples of
+    the chirp), where the window reaches every integer."""
+    n = n_range
+    if kind == "twelfth" and n % 12:
+        raise ValueError(f"twelfth-turn ties need 12 | n_range, got {n}")
+    rng = np.random.default_rng(seed)
+    iq = rng.integers(-60, 60, (batch, n_doppler, n, 2)) + np.array(
+        [20000, 0])
+    coef = fx.hamming_coeffs(n, coef_width)
+    xs = np.arange(-32768, 32768)
+    low = np.flatnonzero(coef[: n // 2] < 1 << (coef_width - 2))
+    reach = {}
+
+    def windowed(x):
+        return fx.window_apply(x, x, coef, coef_width, rounding)[0]
+
+    def set_sample(x, idx, want):
+        if idx not in reach:
+            reach[idx] = fx.window_apply(xs, xs, np.full(xs.shape, coef[idx]),
+                                         coef_width, rounding)[0]
+        ok = np.flatnonzero(reach[idx] == want)
+        x[idx] = xs[ok[np.abs(xs[ok] - x[idx]).argmin()]]
+
+    def exponent(w):
+        return max(1, int(w.sum() - 1).bit_length() - 15)
+
+    def toward(value, target, s):
+        """The step d with value + d = target (mod 2^s), |d| <= 2^(s-1)."""
+        d = (target - value) % (1 << s)
+        return d - (1 << s) if d > 1 << (s - 1) else d
+
+    if kind not in ("quarter", "eighth", "twelfth"):
+        raise ValueError(f"kind must be quarter, eighth or twelfth, got "
+                         f"{kind!r}")
+    at12 = {r: int(low[low % 12 == r].max()) for r in range(12)}
+    for c, chirp in enumerate(iq.reshape(-1, n, 2)):
+        if kind == "quarter":
+            at = int(low.max())
+            for _ in range(3):
+                w = windowed(chirp[:, 0])
+                s = exponent(w)
+                set_sample(chirp[:, 0], at, int(w[at]) + toward(
+                    int(w.sum()), 1 << (s - 1), s))
+        elif kind == "eighth":
+            for plane in (0, 1):
+                for src, dst in ((1, 5), (3, 7)):
+                    w = windowed(chirp[:, plane])
+                    cls = w.reshape(-1, 8).sum(0)
+                    set_sample(chirp[:, plane], dst,
+                               int(cls[src] - (cls[dst] - w[dst])))
+            for _ in range(3):
+                wi, wq = windowed(chirp[:, 0]), windowed(chirp[:, 1])
+                ci, cq = wi.reshape(-1, 8).sum(0), wq.reshape(-1, 8).sum(0)
+                er = int(ci[0] - ci[4] + cq[2] - cq[6])
+                s = exponent(wi)
+                # Sample 4 (class 4) enters er with the sign -1.
+                set_sample(chirp[:, 0], 4, int(wi[4]) - toward(
+                    er, 1 << (s - 1), s))
+        else:
+            e, b = twelfth_parts(1 + c % 2)
+            # B's sample: of a class that B reads (+-1) and E does not;
+            # E's: of a class of I that E reads once and B does not.
+            pb, rb = next((pl, r) for pl in (0, 1) for r in range(12)
+                          if abs(b[pl, r]) == 1 and e[pl, r] == 0)
+            r_e = next(r for r in range(12) if abs(e[0, r]) == 1
+                       and b[0, r] == 0 and (pb, rb) != (0, r))
+            for _ in range(3):
+                w = [windowed(chirp[:, pl]) for pl in (0, 1)]
+                t = [x.reshape(-1, 12).sum(0) for x in w]
+                bsum = int(b[0] @ t[0] + b[1] @ t[1])
+                set_sample(chirp[:, pb], at12[rb],
+                           int(w[pb][at12[rb]]) - bsum * int(b[pb, rb]))
+                w = [windowed(chirp[:, pl]) for pl in (0, 1)]
+                t = [x.reshape(-1, 12).sum(0) for x in w]
+                esum = int(e[0] @ t[0] + e[1] @ t[1])
+                s = exponent(w[0])
+                # E = 2^s (mod 2^(s+1)), so E / 2 = 2^(s-1) (mod 2^s).
+                set_sample(chirp[:, 0], at12[r_e], int(w[0][at12[r_e]])
+                           + toward(esum, 1 << s, s + 1) * int(e[0, r_e]))
+    return iq.astype(np.int16)
 
 
 def eighth_turn_ties(i_w: np.ndarray, q_w: np.ndarray):

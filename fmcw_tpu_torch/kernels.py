@@ -54,10 +54,12 @@ class SlowtimeConfig(ctypes.Structure):
 # (ops/frontend._slowtime_config) with, before any launch; each mirrors the
 # constexpr named beside it, and tests/test_torch_longcpi.py reads the
 # sources to hold them equal.
-RANGE_MIN_LOG2 = 4          # range_fft.cu kMinLog2N: powers of two 16 ..
-RANGE_MAX_LOG2 = 10         # range_fft.cu kMaxLog2N:   .. 1024
-RANGE_SLICE = 128           # range_fft.cu kSlice: or n2 x 128,
-RANGE_MAX_SLICES = 16       # range_fft.cu kMaxSlices:   n2 <= 16
+# The range lengths (kernel A's and the fixed range kernel's, the same
+# constants in range_fft.cu and range_fft_fixed.cu):
+RANGE_MIN_LOG2 = 4          # kMinLog2N: powers of two 16 ..
+RANGE_MAX_LOG2 = 10         # kMaxLog2N:   .. 1024
+RANGE_SLICE = 128           # kSlice: or n2 x 128,
+RANGE_MAX_SLICES = 16       # kMaxSlices:   n2 <= 16
 MAX_ROWS = 128              # slowtime_common.cuh kMaxRows: T + 2H
 MAX_BLK = 256               # slowtime_common.cuh kMaxBlk: a tile's blocks
 MAX_SMEM = 232448           # slowtime_common.cuh kMaxSmem: 227 KB

@@ -149,10 +149,11 @@ any number of rows its tile of 64, 32, 16 or 8 rows divides
 (``ops/frontend._short_tile``).  So float "auto" is "fused" at those
 lengths on every float route (the debug taps, reflect, hw-compat, the
 array model), as JAX's "auto" takes its kernel.  The fixed range kernel
-takes the powers of two only: at the other n2 x 128 fixed "auto" is the
-staged route and fixed "fused" raises NotImplementedError
-(``ops/frontend_fixed.check_fixed_range_length``), on one device and on a
-mesh.
+takes the same lengths (the dense stage in FP64, its classes run twice
+for the BFP peak over the whole chirp): fixed "fused" runs
+``range_fft_fixed`` and ``slowtime_detect_fixed`` there, on one device
+and on a mesh, per-cell and block, every variant, long CPIs included;
+fixed "auto" stays the staged route, as at every length.
 
 ``fixed_fft="scaled"`` (fixed mode) swaps the fixed chain's transforms for
 the QUICK-mode XFFT variants' stage-scaled integer arithmetic
@@ -382,12 +383,9 @@ def make_batch_processor(params: RadarParams | None = None,
         window_rounding_constant(p.coef_width, window_rounding)
         if route == "fused" and not FX.fused_fixed_detect_supported(
                 p, peak_group_radius, include_debug):
-            # A Doppler length the kernels do not take (192, n2d > 16) or
-            # a range length kernel A takes and the fixed kernel not yet
-            # (n2 x 128: 384 .. 2048) raises NotImplementedError, as their
-            # wrappers and the mesh.
+            # A Doppler length the kernels do not take (192, n2d > 16)
+            # raises NotImplementedError, as their wrappers and the mesh.
             F.check_doppler(p.n_doppler, "slowtime_detect_fixed")
-            FX.check_fixed_range_length(p.n_range)
             raise ValueError(
                 "frontend='fused' with mode='fixed' runs the fused "
                 "fixed-point kernels, which need a wrap-edge CfarParams "

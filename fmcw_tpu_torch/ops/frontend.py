@@ -175,9 +175,9 @@ def _device_kind(x: torch.Tensor) -> str:
 # ---------------------------------------------------------------------------
 
 def check_range_geometry(nr: int, nd: int, name: str = "range_fft"):
-    """Raises NotImplementedError for a frame that kernel A does not take
-    (``range_length_ok``, n_doppler a multiple of 8).  The fixed range
-    kernel takes less: ``frontend_fixed.check_range_geometry_fixed``."""
+    """Raises NotImplementedError for a frame that kernel A, or the fixed
+    range kernel (they take the same lengths), does not take
+    (``range_length_ok``, n_doppler a multiple of 8)."""
     if not range_length_ok(nr) or nd % 8:
         raise NotImplementedError(
             f"{name} kernel needs n_range a power of two in [16, 1024] or "
@@ -364,12 +364,15 @@ def _chunk_words(t: int, w: int, h: int, hc: int, pgr: int, block: bool,
     return (t + 2 * h) * wc + region + t + 1
 
 
-def _long_geometry(nr, nd, cfar, scale_override, pgr, name):
+def _long_geometry(nr, nd, cfar, scale_override, pgr, name, int_map=False):
     """The long-CPI decide kernel's tile: (T rows, W columns, H halo rows,
     HC halo columns).  The largest T, then W, of a block whose shared
     memory lets two blocks share an SM, else one; within the strips a
     thread holds (64 cells) and, block scale, whole blocks and the block
-    grid a tile holds; the kernel's own arithmetic (``long_config_ok``)."""
+    grid a tile holds; the kernel's own arithmetic (``long_config_ok``).
+    ``int_map`` (the fixed kernels' int32 maps): T + 2 H at most
+    ``kernels.MAX_ROWS`` rows, so that an integer column sum held in float
+    stays exact (``frontend_fixed.fixed_config``)."""
     block = cfar.scale_mode == "block"
     sb = cfar.scale_block
     h = _kernel_halo(cfar, pgr)
@@ -379,6 +382,7 @@ def _long_geometry(nr, nd, cfar, scale_override, pgr, name):
         rows, wc = t + 2 * pgr, w + 2 * hc
         units = -(-rows // kernels.STRIP) * (w + 2 * pgr)
         return (nr % t == 0 and nd % w == 0 and rows >= kernels.STRIP
+                and (not int_map or t + 2 * h <= kernels.MAX_ROWS)
                 and -(-units // kernels.DECIDE_THREADS) * kernels.STRIP <= 64
                 and (not block or (t % sb == 0 and w % sb == 0
                                    and (t + 2 * h) // sb * (wc // sb)
@@ -425,7 +429,7 @@ def _short_tile(nr, nd, halo, cfar, pgr):
 
 def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
                      exact_mag=False, name="slowtime_detect", row_off=0,
-                     r_total=None):
+                     r_total=None, int_map=False):
     """The kernel-B tile geometry (shared with the fixed-point kernel and
     the split entries, whose map is a range shard of ``r_total`` rows
     starting at ``row_off``), with the CFAR variant (``VARIANT_CODES``,
@@ -433,7 +437,8 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
     kernels do not take, reflect edges among it (``ops/cfar.check_wrap``:
     their detect epilogues wrap, as JAX's fused kernels; the
     magnitude-only entry takes any edges).  A long CPI takes the decide
-    kernel's tile of rows x a chunk of columns (``_long_geometry``)."""
+    kernel's tile of rows x a chunk of columns (``_long_geometry``;
+    ``int_map``: the fixed kernels' int32 map)."""
     C.check_wrap(cfar, name)
     check_doppler(nd, name)
     if int(scale_override) < 0:
@@ -444,7 +449,7 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
     chunk = halo_cols = 0
     if long_cpi(nd):
         tile, chunk, halo, halo_cols = _long_geometry(
-            nr, nd, cfar, scale_override, peak_group_radius, name)
+            nr, nd, cfar, scale_override, peak_group_radius, name, int_map)
     else:
         halo = _kernel_halo(cfar, peak_group_radius)
         tile = _short_tile(nr, nd, halo, cfar, peak_group_radius)

@@ -64,12 +64,24 @@ def _tables(n: int, coef_width: int, device: str):
 @functools.lru_cache(maxsize=32)
 def _range_tables(n: int, coef_width: int, device: str):
     """The range kernel's constants on ``device``: the int32 Q15 window, and
-    the float64 twiddles between its two passes, tw[ka N2 + t] =
-    exp(-2 pi i t ka / n) = ``twiddles64(n)[t ka]`` for ka < N1, t < N2
-    (``ops/frontend.range_fft_plan``), as (n, 2) re/im pairs: exact at the
-    quarter turns, and a warp reads one ka's row coalesced."""
-    n1, n2 = F.range_fft_plan(n)
-    tw = twiddles64(n)[np.outer(np.arange(n1), np.arange(n2)).ravel()]
+    the float64 twiddles as (entries, 2) re/im pairs.  With n = o x m
+    (``ops/frontend.range_fft_split``) and m = N1 x N2
+    (``ops/frontend.range_fft_plan``): first the m-point plan's twiddles
+    between its two passes, tw[ka N2 + t] = exp(-2 pi i t ka / m) =
+    ``twiddles64(m)[t ka]`` for ka < N1, t < N2 (a warp reads one ka's row
+    coalesced); for o > 1 then the dense stage's W_n^(i1 k2) =
+    ``twiddles64(n)[i1 k2 mod n]`` at [m + k2 m + i1] (i1 < m, k2 < o) and
+    W_o^e = ``twiddles64(n)[e m]`` at [m + n + e] (e < o).  Exact at the
+    quarter turns, so class 0's dense stage multiplies by exactly 1; the
+    powers of two 16 .. 1024 keep their n-entry table."""
+    o, m = F.range_fft_split(n)
+    n1, n2 = F.range_fft_plan(m)
+    tw = [twiddles64(m)[np.outer(np.arange(n1), np.arange(n2)).ravel()]]
+    if o > 1:
+        k2, i1 = np.divmod(np.arange(n), m)
+        full = twiddles64(n)
+        tw += [full[i1 * k2 % n], full[np.arange(o) * m]]
+    tw = np.concatenate(tw)
     tw = np.stack([tw.real, tw.imag], axis=-1)
     return (torch.as_tensor(hamming_q15(n, coef_width).astype(np.int32),
                             device=device),
@@ -79,28 +91,6 @@ def _range_tables(n: int, coef_width: int, device: str):
 # ---------------------------------------------------------------------------
 # Range half
 # ---------------------------------------------------------------------------
-
-def check_fixed_range_length(nr: int, name: str = "range_fft_fixed"):
-    """Raises NotImplementedError at kernel A's lengths that the fixed range
-    kernel does not take yet: n2 x 128 beyond the powers of two 16 .. 1024
-    (384 .. 2048, ``frontend.range_length_ok``), the fixed kernel's next
-    slice (ROADMAP.md, the TPU kernels' options)."""
-    if F.range_length_ok(nr) and (nr & (nr - 1)
-                                  or nr > 1 << kernels.RANGE_MAX_LOG2):
-        raise NotImplementedError(
-            f"{name} kernel: n_range {nr} = n2 x 128 is kernel A's, float "
-            f"only; the fixed range kernel at n2 x 128 (384 .. 2048) is the "
-            f"next slice: it takes a power of two in [16, 1024]")
-
-
-def check_range_geometry_fixed(nr: int, nd: int,
-                               name: str = "range_fft_fixed"):
-    """Raises NotImplementedError for a frame that the fixed range kernel
-    does not take: n_range a power of two in [16, 1024]
-    (``check_fixed_range_length``), n_doppler a multiple of 8."""
-    check_fixed_range_length(nr, name)
-    F.check_range_geometry(nr, nd, name)
-
 
 def fixed_transform(i_v: torch.Tensor, q_v: torch.Tensor, scale_sch=None):
     """The fixed chain's transform along the last axis: with ``scale_sch``
@@ -154,11 +144,16 @@ def launch_range_fft_fixed(iq: torch.Tensor, coef_width: int = 16,
     groups' quantized tiles are staged in shared memory and copied out as
     whole 32-byte sectors; otherwise the corner turn is stored from
     registers.  Its bound is the bytes (0.0401 ms at batch 128 of 1024x128
-    on an H100), with the FP64 pipe close behind.  Window, FFT and BFP are
-    per chirp, so a chirp shard gives exactly the matching columns (and its
-    share of the saturation count) of the whole frame's output."""
+    on an H100), with the FP64 pipe close behind.  At n_range = n2 x 128
+    beyond the powers of two (384 .. 2048, kernel A's lengths) the group is
+    windowed in place, a dense o-point FP64 stage comes first (n = o x m,
+    ``ops/frontend.range_fft_split``), and the classes run twice, the
+    first sweep for the BFP peak over all n bins, the second to quantize
+    and store.  Window, FFT and BFP are per chirp, so a chirp shard gives
+    exactly the matching columns (and its share of the saturation count)
+    of the whole frame's output."""
     B, nd, nr, _ = iq.shape
-    check_range_geometry_fixed(nr, nd)
+    F.check_range_geometry(nr, nd, "range_fft_fixed")
     rnd = window_rounding_constant(coef_width, rounding)
     iq = F._aligned(iq)
     win, tw = _range_tables(nr, coef_width, str(iq.device))
@@ -263,7 +258,8 @@ def slowtime_detect_fixed(re: torch.Tensor, im: torch.Tensor,
     B, nr, nd = re.shape
     cfg = fixed_config(
         F._slowtime_config(B, nr, nd, cfar, scale_override,
-                           peak_group_radius, name="slowtime_detect_fixed"),
+                           peak_group_radius, name="slowtime_detect_fixed",
+                           int_map=True),
         cfar, notch_mode, transient, mti_bypass, coef_width, rounding,
         "slowtime_detect_fixed")
     # A long CPI decides on its magnitude map (always written) and combines
@@ -308,9 +304,9 @@ def fused_fixed_detect_supported(p: RadarParams, peak_group_radius: int = 0,
     if include_debug:
         return False
     try:
-        check_range_geometry_fixed(p.n_range, p.n_doppler)
+        F.check_range_geometry(p.n_range, p.n_doppler, "range_fft_fixed")
         fixed_config(F._slowtime_config(1, p.n_range, p.n_doppler, p.cfar,
-                                        0, peak_group_radius),
+                                        0, peak_group_radius, int_map=True),
                      p.cfar, p.notch_mode, "zero", False, p.coef_width,
                      "unbiased", "")
     except NotImplementedError:

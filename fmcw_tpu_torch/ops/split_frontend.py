@@ -172,10 +172,10 @@ def slowtime_detect_split_plain(re, im, halo_lo, halo_hi, mti_bypass=False,
 
 
 def _split_config(re, cfar, scale_override, peak_group_radius, exact_mag,
-                  row_offset, n_range_total, name):
+                  row_offset, n_range_total, name, int_map=False):
     """The split entries' tile geometry: per-cell scale only, as JAX's split
     body (every variant: OS, and CA/GO/SO in the kernels' mean
-    epilogues), long CPIs included."""
+    epilogues), long CPIs included (``int_map``: the fixed entry's)."""
     if cfar.scale_mode != "cell":
         raise NotImplementedError(
             f"{name} kernel: per-cell scale only (the block scale runs the "
@@ -183,7 +183,8 @@ def _split_config(re, cfar, scale_override, peak_group_radius, exact_mag,
     B, nrl, nd = re.shape
     return F._slowtime_config(B, nrl, nd, cfar, scale_override,
                               peak_group_radius, exact_mag, name=name,
-                              row_off=row_offset, r_total=n_range_total)
+                              row_off=row_offset, r_total=n_range_total,
+                              int_map=int_map)
 
 
 @kernels.counted
@@ -332,7 +333,7 @@ def slowtime_detect_fixed_split(re: torch.Tensor, im: torch.Tensor,
     cfg = FX.fixed_config(
         _split_config(re, cfar, scale_override, peak_group_radius, False,
                       row_offset, n_range_total,
-                      "slowtime_detect_fixed_split"),
+                      "slowtime_detect_fixed_split", int_map=True),
         cfar, notch_mode, transient, mti_bypass, coef_width, rounding,
         "slowtime_detect_fixed_split")
     B, nrl, nd = re.shape

@@ -271,10 +271,10 @@ def sp_ring(mesh):
 
 def split_frontend_supported(p: RadarParams, sp: int) -> bool:
     """Can the kernels run the split front end of an sp-sharded mesh: the
-    range kernels on chirp shards (kernel A's lengths, a power of two in
-    [16, 1024] or n2 x 128 with n2 <= 16, and n_doppler/sp a multiple of
-    8: ``ops/frontend.check_range_geometry``; fixed "fused" also asks
-    ``ops/frontend_fixed.check_fixed_range_length``) and
+    range kernels on chirp shards (kernel A's lengths, which the fixed
+    range kernel takes too, a power of two in [16, 1024] or n2 x 128 with
+    n2 <= 16, and n_doppler/sp a multiple of 8:
+    ``ops/frontend.check_range_geometry``) and
     the magnitude-only kernel on range shards
     (``ops/frontend.check_mag_geometry``)?  (JAX's 128-lane rule is the
     TPU's and does not apply.)"""
@@ -378,8 +378,6 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                 "frontend='fused' with mode='fixed' runs the fused "
                 "fixed-point kernels, which compute no debug taps (as on "
                 "one device)")
-        if route == "fused":
-            FX.check_fixed_range_length(p.n_range)
     nrl = p.n_range // sp
     ndc = p.n_doppler // sp
     hr, pgr = p.cfar.halo_range, peak_group_radius

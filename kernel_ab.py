@@ -76,7 +76,11 @@ float, the sp = 4 chirp shard) and kernel B's four (per-cell, block,
 magnitude-only, the sp = 4 range shard) by graph replay, with the float
 main path's frames/s per-cell and block, at 1024x128 and, where the
 checkout's kernel A takes them, at the n2 x 128 range lengths 2048, 1536
-and 384.  With ``--slowtime-only`` it times the two slow-time kernels'
+and 384.  With ``--fixed-range-only`` it times the fixed range kernel's
+two entries (``range_fft_fixed``, the sp = 4 chirp shard) by graph replay
+and the fused fixed route's frames/s, per-cell, at 1024x128 and, where the
+checkout's fixed kernels take them, at 2048, 1536 and 384.  With
+``--slowtime-only`` it times the two slow-time kernels'
 entries alone by graph replay: at 1024x128 kernel B per-cell and block,
 the fixed kernel
 per-cell, block and CA and its row-6 shard; at the long CPI 1024x256
@@ -129,6 +133,10 @@ def main() -> int:
     ap.add_argument("--front-end-only", action="store_true",
                     help="time kernel A's and kernel B's entries alone, at "
                          "1024x128 and the n2 x 128 range lengths")
+    ap.add_argument("--fixed-range-only", action="store_true",
+                    help="time the fixed range kernel's entries and the "
+                         "fused fixed route alone, at 1024x128 and the n2 "
+                         "x 128 range lengths")
     args = ap.parse_args()
     everything = not (args.cfar3d_only or args.cfar_detect_only
                       or args.beam_group_only)
@@ -232,6 +240,31 @@ def main() -> int:
             for name, call in calls.items():
                 graph[name] = graph_ms(call)
             del iq, br, bi, shard, re, im, rshard
+            torch.cuda.empty_cache()
+        print(json.dumps({"root": str(args.root), "graph_ms": graph,
+                          "frames_per_s": fps, "batch": BATCH,
+                          "card": card}), flush=True)
+        return 0
+    if args.fixed_range_only:
+        pgr = 2
+        for nr in (1024, 2048, 1536, 384):
+            ep = entry.replace(n_range=nr)
+            # The lengths the checkout's fixed kernels take.
+            if not FX.fused_fixed_detect_supported(ep, pgr):
+                continue
+            iq = make_batch(ep)
+            nd4 = ep.n_doppler // SP
+            shard = iq[:, nd4:2 * nd4].contiguous()
+            graph[f"range_fft_fixed[{nr}]"] = graph_ms(
+                lambda: FX.range_fft_fixed(iq))
+            graph[f"range_frontend_fixed[{nr},sp4]"] = graph_ms(
+                lambda: SF.range_frontend_fixed(shard))
+            proc = pl.make_batch_processor(
+                ep, mode="fixed", frontend="fused", peak_group_radius=pgr,
+                include_maps=False, device="cuda")
+            fps[f"fixed/cell/fused,{nr}"] = BATCH * 1e3 / cuda_ms(
+                lambda: proc(iq), 10, 2)
+            del iq, shard
             torch.cuda.empty_cache()
         print(json.dumps({"root": str(args.root), "graph_ms": graph,
                           "frames_per_s": fps, "batch": BATCH,

@@ -313,7 +313,8 @@ def test_long_tables_and_exact_plane():
 def kernel_decide_long(mag, cfar, so, pgr, hc=None):
     """The decide kernel's decision, grouping and counts of (B, R, D)
     integer magnitudes at a long CPI with the fixed semantics: tiles of T
-    rows x W columns (``ops/frontend._slowtime_config``) with H halo rows
+    rows x W columns (``ops/frontend._slowtime_config``, the fixed
+    kernels' tile: ``int_map``) with H halo rows
     and HC halo columns (``hc`` overrides it), wrapped; the T + 2 pgr rows
     and W + 2 pgr columns the grouping reads decided in strips of 8 cells;
     full and guard column sums once per tile in float32 (asserted exact);
@@ -323,7 +324,7 @@ def kernel_decide_long(mag, cfar, so, pgr, hc=None):
     twin's ``block_scale_map``.  Returns (det, row_max, n_dets), int64."""
     mag = mag.astype(np.int64)
     B, R, D = mag.shape
-    cfg = F._slowtime_config(B, R, D, cfar, so, pgr)
+    cfg = F._slowtime_config(B, R, D, cfar, so, pgr, int_map=True)
     T, W, H = cfg.T, cfg.W, cfg.H
     HC = cfg.HC if hc is None else hc
     E, WC, rows = T + 2 * H, W + 2 * HC, T + 2 * pgr

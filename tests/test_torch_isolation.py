@@ -406,8 +406,11 @@ def test_range_lengths_launch_kernel_a(as_if_cuda, nr):
     """Kernel A takes JAX's n_range = n2 x 128 (n2 <= 16): both entries
     and the chirp-shard entry launch ``fmcw_range_fft`` /
     ``fmcw_range_fft_float`` with that length and the dense stage's table,
-    no twin; kernel B takes the map; the fixed range kernel refuses the
-    length before any launch, its wrapper and the chirp-shard one."""
+    no twin; kernel B takes the map; so does the fixed range kernel: its
+    wrapper and the chirp-shard one launch ``fmcw_range_fft_fixed`` with
+    that length and its longer table (the dense stage's twiddles after
+    the m-point plan's), no twin; 320 and 4096 are refused before any
+    launch."""
     p = fmcw_tpu_torch.RadarParams(n_range=nr, n_doppler=16)
     iq = _iq(p, 2)
     re, im = F.range_fft(iq)
@@ -426,16 +429,24 @@ def test_range_lengths_launch_kernel_a(as_if_cuda, nr):
     assert as_if_cuda.calls[-1][0] == "slowtime_detect"
     assert as_if_cuda.calls[-1][1][9]._obj.T == F.TILE_ROWS
     as_if_cuda.calls.clear()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        FX.range_fft_fixed(iq)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        SF.range_frontend_fixed(iq[:, :8])
+    FX.range_fft_fixed(iq)
+    SF.range_frontend_fixed(iq[:, :8])
+    assert [c[0] for c in as_if_cuda.calls] == ["range_fft_fixed"] * 2
+    assert [c[1][-4] for c in as_if_cuda.calls] == [nr, nr]
+    assert [c[1][-5] for c in as_if_cuda.calls] == [16, 8]
+    assert FX._range_tables(nr, 16, "cpu")[1].shape == (m + nr + o, 2)
+    assert (FX.range_fft_fixed.launches,
+            SF.range_frontend_fixed.launches) == (1, 1)
+    as_if_cuda.calls.clear()
     for bad in (320, 4096):
         q = fmcw_tpu_torch.RadarParams(n_range=bad, n_doppler=16)
-        with pytest.raises(NotImplementedError):
-            F.range_fft(torch.zeros((1, 16, bad, 2), dtype=torch.int16))
+        frames = torch.zeros((1, 16, bad, 2), dtype=torch.int16)
+        for fn in (F.range_fft, FX.range_fft_fixed):
+            with pytest.raises(NotImplementedError):
+                fn(frames)
         assert not F.fused_detect_supported(q)
-    assert as_if_cuda.calls == [] and FX.range_fft_fixed.launches == 0
+        assert not FX.fused_fixed_detect_supported(q)
+    assert as_if_cuda.calls == [] and FX.range_fft_fixed.launches == 1
 
 
 def test_failed_launch_raises(as_if_cuda):

@@ -559,17 +559,23 @@ MIRRORED = {
     "RANGE_MAX_LOG2": ("range_fft.cu", "kMaxLog2N"),
     "RANGE_SLICE": ("range_fft.cu", "kSlice"),
     "RANGE_MAX_SLICES": ("range_fft.cu", "kMaxSlices"),
+    # The fixed range kernel takes kernel A's lengths: the same constants.
+    "RANGE_MIN_LOG2:fixed": ("range_fft_fixed.cu", "kMinLog2N"),
+    "RANGE_MAX_LOG2:fixed": ("range_fft_fixed.cu", "kMaxLog2N"),
+    "RANGE_SLICE:fixed": ("range_fft_fixed.cu", "kSlice"),
+    "RANGE_MAX_SLICES:fixed": ("range_fft_fixed.cu", "kMaxSlices"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(MIRRORED))
 def test_host_geometry_constants_match_the_sources(name):
-    """Each constant the host picks kernel B's tile or kernel A's lengths
-    with equals the constexpr of the CUDA source it mirrors, so the two
-    cannot drift."""
+    """Each constant the host picks kernel B's tile or the range kernels'
+    lengths with equals the constexpr of the CUDA source it mirrors (a
+    name with a ``:`` suffix: the same host constant in another source),
+    so the two cannot drift."""
     from fmcw_tpu_torch import kernels
     src, cname = MIRRORED[name]
     text = (kernels.CSRC / src).read_text()
     found = re.findall(rf"constexpr\s+int\s+{cname}\s*=\s*(\d+)\s*;", text)
     assert len(found) == 1, (src, cname, found)
-    assert int(found[0]) == getattr(kernels, name)
+    assert int(found[0]) == getattr(kernels, name.split(":")[0])

@@ -401,6 +401,14 @@ def _hot(rng, B, nd, n):
         32767)) for i in range(B)])
 
 
+def _bit_length(x):
+    """int.bit_length of each element of an int64 array (the count of
+    powers of two up to |x|)."""
+    powers = np.int64(1) << np.arange(63, dtype=np.int64)
+    return np.searchsorted(powers, np.abs(np.asarray(x, np.int64)),
+                           side="right")
+
+
 def _ties(rng, B, nd, n, rounding):
     """Noise on a DC offset (DC is each chirp's peak bin), with the central
     I sample of each chirp chosen so that the DC bin's scaled value is an
@@ -419,8 +427,7 @@ def _ties(rng, B, nd, n, rounding):
                                          coef, COEF_WIDTH, rounding)
             base = int(i_w.sum() - i_w[mid])
             dc = base + vs
-            s = np.maximum(0, np.array([int(d - 1).bit_length() for d in dc])
-                           - 15)
+            s = np.maximum(0, _bit_length(dc - 1) - 15)
             ok = (s > 0) & (dc % (1 << s) == 1 << np.maximum(s - 1, 0))
             pick = np.flatnonzero(ok)
             iq[bi, c, mid, 0] = xs[pick[np.abs(vs[pick] - i_w[mid]).argmin()]]

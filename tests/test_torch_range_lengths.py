@@ -24,8 +24,8 @@ of m, o classes a group in rounds of slices.  Here:
   2048x16, per-cell and block (scale_block 8 and 16), through the margin
   gate, float "auto" resolving to "fused"; the array model at 384 through
   the array gate; a LocalMesh at sp 2 equal to one device; fixed "auto"
-  at 384 equal to the golden model, fixed "fused" raising
-  NotImplementedError on one device and on a mesh; 320 and 4096 refused;
+  and fixed "fused" at 384 equal to the golden model, on one device and
+  on a mesh; 320 and 4096 refused;
 * JAX's fused kernel in interpret mode at 384x16 against the model's
   range output through the slow-time twin.
 """
@@ -421,26 +421,30 @@ def test_local_mesh_equals_single_device(kw):
 
 
 def test_fixed_mode_at_384():
-    """Fixed "auto" at 384x32 is the staged route and equals the golden
-    model bit for bit; fixed "fused" raises NotImplementedError naming the
-    next slice (the fixed range kernel at n2 x 128), on one device and on
-    a LocalMesh at sp 1 and 2, before any launch."""
+    """Fixed "auto" at 384x32 is the staged route, and fixed "fused" the
+    fixed kernels' route (their twins here) on one device and on a
+    LocalMesh at sp 1 and 2; each equals the golden model bit for bit;
+    ``fused_fixed_detect_supported`` agrees with JAX's gate (both True:
+    JAX's fused fixed kernel takes 384 x 32 per-cell)."""
     p = _params(384, 32)
     z = tref.two_target_frame(p)
-    proc = tpl.make_batch_processor(p, mode="fixed", device="cpu")
-    assert proc.route == "staged"
-    assert not FX.fused_fixed_detect_supported(p)
-    out = proc(tpl.complex_to_iq(z)[None])
+    iq = tpl.complex_to_iq(z)[None]
     mag, det = tref.process_frame_fixed(z, p)
-    assert np.array_equal(out["det_map"][0].numpy(), det)
-    assert np.array_equal(out["mag_map"][0].numpy(), mag)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tpl.make_batch_processor(p, mode="fixed", frontend="fused",
-                                 device="cpu")
+    assert FX.fused_fixed_detect_supported(p)
+    assert jpl.fused_fixed_detect_supported(_jparams(p))
+    for fe, route in (("auto", "staged"), ("fused", "fused")):
+        proc = tpl.make_batch_processor(p, mode="fixed", frontend=fe,
+                                        device="cpu")
+        assert proc.route == route
+        out = proc(iq)
+        assert np.array_equal(out["det_map"][0].numpy(), det)
+        assert np.array_equal(out["mag_map"][0].numpy(), mag)
     for sp in (1, 2):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            make_sharded_processor(LocalMesh(1, sp, "cpu"), p, mode="fixed",
-                                   frontend="fused")
+        out = make_sharded_processor(LocalMesh(1, sp, "cpu"), p,
+                                     mode="fixed", frontend="fused",
+                                     include_maps=True)(iq)
+        assert np.array_equal(out["det_map"][0].numpy(), det)
+        assert np.array_equal(out["mag_map"][0].numpy(), mag)
 
 
 def test_refused_lengths_take_the_staged_route():
