@@ -199,6 +199,16 @@ but at located exact bins; frames/s beside the staged route); float auto
 at 2048x128 with block 16 through the margin gate; LocalMesh at sp 2 and
 4; the entries' times with bounds, kernel B's and the fixed slow-time
 kernel's block 16 among them.
+Then kernel B's dense lengths (phase 38: n_doppler a multiple of 8 below
+2048 that is neither 16..128 nor n2d x 128): every one of the 237 on a
+64-row map against the twins (detect per-cell and block, the bypass, the
+override, magnitude-only, the split entry; notch 3 and CA/GO/SO at a
+spread of lengths); float auto at batch 128 at 1024x96, 1024x192 and
+1024x1016, per-cell and fast() (only kernel A, kernel B's two launches and
+the top-K; the margin gate; det maps bit-equal to the plain decision on
+the kernel's magnitudes; frames/s beside the staged route); the debug taps,
+reflect, hw-compat float and the array model at 1024x96; LocalMesh at sp 2
+and 4; the entries' times with bounds.
 It prints the card's name and
 power limit, one JSON line listing the kernels, and as its last line
 {"ok": true, "device": {...}}.
@@ -5900,12 +5910,15 @@ def long_kernel_checks(dev, pgr: int):
     return errs
 
 
-def long_split_case(dev, re, im, nd: int, pgr: int) -> float:
-    """The split entry on the sp 2 and 4 shards of (re, im), their
+def long_split_case(dev, re, im, nd: int, pgr: int,
+                    variants=("os", "ca"), sps=SPLIT_SPS,
+                    tag: str = "long") -> float:
+    """The split entry on the sp 2 and 4 (``sps``) shards of (re, im), their
     neighbours' rows as halos, against the whole-frame launch (det,
     magnitudes, row maxima bit-equal, counts summing) and the twin's
-    decision on the whole frame's magnitudes.  Returns the largest
-    absolute magnitude error against the twin."""
+    decision on the whole frame's magnitudes, for OS and CA
+    (``variants``).  Returns the largest absolute magnitude error against
+    the twin."""
     import torch
     from fmcw_tpu_torch.ops import frontend as F
     from fmcw_tpu_torch.ops import split_frontend as SF
@@ -5914,11 +5927,11 @@ def long_split_case(dev, re, im, nd: int, pgr: int) -> float:
     pmag = F.slowtime_mag_plain(re, im, False)
     peak = float(pmag.abs().max())
     worst = 0.0
-    for variant in ("os", "ca"):
+    for variant in variants:
         p = long_params(nd, variant)
         kw = dict(cfar=p.cfar, peak_group_radius=pgr, emit_mag=True)
         det, mag, rmax, ndet, nf = F.slowtime_detect(re, im, False, 0, **kw)
-        for sp in SPLIT_SPS:
+        for sp in sps:
             nrl = nr // sp
             same, total, total_nf = True, 0, 0
             for s in range(sp):
@@ -5943,7 +5956,7 @@ def long_split_case(dev, re, im, nd: int, pgr: int) -> float:
                 total_nf = total_nf + f_s
             same &= (torch.equal(total, ndet) and torch.equal(total_nf, nf)
                      and worst <= TOL * peak)
-            log(f"split long {variant} {nr}x{nd} sp={sp}: shards "
+            log(f"split {tag} {variant} {nr}x{nd} sp={sp}: shards "
                 f"{'bit-equal' if same else 'DIFFER'} to the whole-frame "
                 f"entry and its twin ({int(ndet.sum())} detections)")
             if not same:
@@ -6016,6 +6029,49 @@ def long_main_path(card: str, dev, pgr: int):
     return launches, summary
 
 
+def mag_route_case(dev, pgr: int, p, batch, tag: str,
+                   reflect: bool = False) -> int:
+    """A float route on ``batch`` through kernel B's magnitude-only entry,
+    frame 0 through the margin gate against the plain route's: the debug
+    taps on the fused route (kernel A, the magnitude-only entry, the
+    rank-select CFAR's grouping entry) or, with ``reflect``, float "auto"
+    under reflect edges (kernel A, the magnitude-only entry, the standalone
+    CFAR's reflect entry, the plain grouping).  Returns the magnitude-only
+    entry's launches in that run."""
+    import torch
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    kw = dict(peak_group_radius=pgr, include_debug=True)
+    if reflect:
+        what, need = "reflect auto", ("range_fft", "slowtime_mag",
+                                      "cfar_detect")
+        p = p.replace(cfar=dataclasses.replace(p.cfar, edge_mode="reflect"))
+        proc = pl.make_batch_processor(p, peak_group_radius=pgr, device=dev)
+    else:
+        what, need = "debug taps", ("range_fft", "slowtime_mag",
+                                    "cfar_rank_group")
+        proc = pl.make_batch_processor(p, device=dev, **kw)
+    kernels.reset_launch_counts()
+    out = proc(batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"{tag} {what}: route {proc.route}, launches "
+        + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+    if proc.route != "fused" or min(counts[k] for k in need) < 1:
+        raise AssertionError(f"{tag} {what} skipped a kernel")
+    ref = pl.make_processor(p, frontend="plain", device=dev, **kw)(batch[0])
+    ok, report = parity.margin_gate(
+        parity.detection_set(out, 0), parity.detection_set(ref),
+        ref["mag_map"].cpu().numpy(), ref["threshold_map"].cpu().numpy(),
+        ref["scale_map"].cpu().numpy(), radius=pgr,
+        capacity=p.tracker.max_dets, targets=reference.golden_targets(p))
+    log(f"{tag} {what} frame 0 vs plain path: {report}")
+    if not ok:
+        raise AssertionError(f"{tag} {what}: margin gate failed")
+    return counts["slowtime_mag"]
+
+
 def long_other_routes(card: str, dev, pgr: int, p=None,
                       tag: str = "long"):
     """Phase 32c: at 1024x256 and batch 16 the float debug taps on the
@@ -6040,28 +6096,7 @@ def long_other_routes(card: str, dev, pgr: int, p=None,
     p = p or long_params(LONG_ND)
     batch = torch.as_tensor(make_batch(p, ARRAY_BATCH, seed=4), device=dev)
     kw = dict(peak_group_radius=pgr, include_debug=True)
-    proc = pl.make_batch_processor(p, device=dev, **kw)
-    kernels.reset_launch_counts()
-    out = proc(batch)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    log(f"{tag} debug taps: route {proc.route}, launches "
-        + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
-    if proc.route != "fused" or min(counts["range_fft"],
-                                    counts["slowtime_mag"],
-                                    counts["cfar_rank_group"]) < 1:
-        raise AssertionError(f"{tag} debug taps skipped a kernel")
-    launches["slowtime_mag"] = counts["slowtime_mag"]
-    ref = pl.make_processor(p, frontend="plain", device=dev, **kw)(batch[0])
-    ok, report = parity.margin_gate(
-        parity.detection_set(out, 0), parity.detection_set(ref),
-        ref["mag_map"].cpu().numpy(), ref["threshold_map"].cpu().numpy(),
-        ref["scale_map"].cpu().numpy(), radius=pgr,
-        capacity=p.tracker.max_dets, targets=reference.golden_targets(p))
-    log(f"{tag} debug taps frame 0 vs plain path: {report}")
-    if not ok:
-        raise AssertionError(f"{tag} debug taps: margin gate failed")
-    del out, ref
+    launches["slowtime_mag"] = mag_route_case(dev, pgr, p, batch, tag)
     # Reflect edges (the magnitude-only entry, then the standalone CFAR's
     # reflect entry and the plain grouping) through the margin gate, and
     # the hw-compat float route (the magnitude-only entry, then the
@@ -8091,7 +8126,8 @@ def fixed_length_timings(card: str, dev, pgr: int, errs, launches):
             plain_ms = cuda_ms(plain, 2, 1)
             log(f"{name} batch {BATCH}: {ms:.4f} ms (graph), plain "
                 f"{plain_ms:.4f} ms, torch.fft.fft of its planes {lib:.4f} "
-                f"ms, bound {bound:.4f} ms ({by}), {n} launches on the path "
+                f"ms, bound {bound:.4f} ms ({by}), "
+                f"{'not on a path' if n is None else f'{n} launches'} "
                 f"({card})")
             summary[name] = {"ms": ms, "plain_ms": plain_ms, "fft_ms": lib,
                              "bound_ms": bound, "bound_by": by}
@@ -8164,6 +8200,341 @@ def fixed_length_phase(card: str, dev, pgr: int):
                   "golden_tie_differences": ties,
                   "golden_frame_rows_at_exact_bins": {
                       f"{k[0]}@{k[1]}": v[2] for k, v in done.items()},
+                  "launches": {f"{k[0]}@{k[1]}": v
+                               for k, v in launches.items()}}
+
+
+# ---------------------------------------------------------------------------
+# The dense lengths: kernel B's dense operator (phase 38)
+# ---------------------------------------------------------------------------
+
+DENSE_NR = 1024
+DENSE_NDS = (96, 192, 1016)     # the slice's full-width lengths
+DENSE_SRC = "fmcw_tpu_torch/csrc/slowtime_detect.cu"
+DENSE_ROWS, DENSE_FRAMES = 64, 2        # each length's small map (38a)
+# The 3-pulse MTI, the exact magnitude and CA/GO/SO at a spread of lengths
+# (38a): every inner transform m (8 .. 64), o from 1 to 255.
+DENSE_SPREAD = (8, 24, 40, 48, 96, 136, 192, 200, 504, 1016, 1984, 2040)
+DENSE_LINES = {"detect": "fmcw_tpu/ops/frontend_pallas.py:719",
+               "mag": "fmcw_tpu/ops/frontend_pallas.py:719",
+               "split": "fmcw_tpu/ops/split_frontend.py:562"}
+
+
+def dense_lengths():
+    """Kernel B's dense lengths (ops/frontend.dense_cpi): 8, 24 .. 2040."""
+    from fmcw_tpu_torch.ops import frontend as F
+    return tuple(nd for nd in range(8, 2049, 8) if F.dense_cpi(nd))
+
+
+def dense_params(nd: int, variant: str = "os", scale_mode: str = "cell",
+                 notch_mode: int = 2, nr: int = DENSE_NR):
+    import fmcw_tpu_torch as P
+    return P.RadarParams(n_range=nr, n_doppler=nd, notch_mode=notch_mode,
+                         cfar=P.CfarParams(variant=variant,
+                                           scale_mode=scale_mode))
+
+
+def dense_kernel_checks(dev, pgr: int):
+    """Phase 38a: kernel B at every dense length (237: 8, 24 .. 2040) on 64
+    rows x 2 frames of bench.py's stimulus through kernel A (within TOL of
+    its twin): the detect entry per-cell (MTI on, notch 2, radius pgr) and
+    block (the bypass, override 4, radius 1) through _b_case (magnitudes
+    within TOL of the twin's peak, decisions, row maxima and counts bit for
+    bit on the kernel's magnitudes); the magnitude-only entry within TOL and
+    bit-equal to the detect entry's magnitudes; the split entry at sp 2 (OS;
+    at DENSE_SPREAD OS and CA at sp 2 and 4) bit-equal to the whole-frame
+    launch's rows and the twin's decision on them.  At DENSE_SPREAD also
+    notch 3 with both transients and the exact magnitude, and CA / GO / SO
+    per-cell and block.  Returns {entry: largest absolute magnitude
+    error}."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from fmcw_tpu_torch.ops import fft as TF
+    from fmcw_tpu_torch.ops import frontend as F
+    errs = {"detect": 0.0, "mag": 0.0, "split": 0.0}
+    # The twin's folded matrices (float64 on the host, O(nd^3)) are built
+    # ahead on worker threads while the card checks the lengths before;
+    # each length waits for its own, then finds it in the twin's cache.
+    lengths = dense_lengths()
+    pool = ThreadPoolExecutor(4)
+    ahead = {nd: pool.submit(TF.doppler_matrices, nd) for nd in lengths[:8]}
+    for i, nd in enumerate(lengths):
+        if i + 8 < len(lengths):
+            ahead[lengths[i + 8]] = pool.submit(TF.doppler_matrices,
+                                                lengths[i + 8])
+        ahead.pop(nd).result()
+        p = dense_params(nd, nr=DENSE_ROWS)
+        iq = torch.as_tensor(make_batch(p, DENSE_FRAMES, seed=nd),
+                             device=dev)
+        re, im = F.range_fft(iq)
+        pre, pim = F.range_fft_plain(iq)
+        torch.cuda.synchronize()
+        peak = float(torch.maximum(pre.abs().max(), pim.abs().max()))
+        if not float(torch.maximum((re - pre).abs().max(),
+                                   (im - pim).abs().max())) <= TOL * peak:
+            raise AssertionError(f"range_fft disagrees at {nd} chirps")
+        cases = [(p, False, 0, pgr, {}),
+                 (dense_params(nd, scale_mode="block", nr=DENSE_ROWS), True,
+                  4, 1, {})]
+        if nd in DENSE_SPREAD:
+            cases += [(dense_params(nd, notch_mode=3, nr=DENSE_ROWS), False,
+                       0, pgr, dict(transient="passthrough", exact_mag=True)),
+                      (dense_params(nd, "os", "block", 3, DENSE_ROWS), False,
+                       0, pgr, dict(transient="zero"))]
+            cases += [(dense_params(nd, v, mode, nr=DENSE_ROWS), False, 0,
+                       pgr, {}) for v, mode in (
+                          ("ca", "cell"), ("go", "block"), ("so", "cell"),
+                          ("ca", "block"))]
+        for q, bypass, so, radius, kw in cases:
+            errs["detect"] = max(errs["detect"], _b_case(
+                "dense", re, im, q, bypass, so, radius, kw))
+        _, emitted, _, _, nf = F.slowtime_detect(
+            re, im, cfar=p.cfar, peak_group_radius=pgr, emit_mag=True)
+        mag, nf2 = F.slowtime_mag(re, im)
+        pmag = F.slowtime_mag_plain(re, im, False)
+        torch.cuda.synchronize()
+        err = float((mag - pmag).abs().max())
+        errs["mag"] = max(errs["mag"], err)
+        if not (err <= TOL * float(pmag.abs().max())
+                and bits_equal(mag, emitted) and torch.equal(nf, nf2)):
+            raise AssertionError(f"slowtime_mag disagrees at {nd}")
+        spread = nd in DENSE_SPREAD
+        errs["split"] = max(errs["split"], long_split_case(
+            dev, re, im, nd, pgr, ("os", "ca") if spread else ("os",),
+            SPLIT_SPS if spread else (2,), tag="dense"))
+        del re, im, pre, pim, mag, pmag, emitted
+    pool.shutdown()
+    log(f"dense lengths: {len(lengths)} checked, errors {errs}")
+    return errs
+
+
+def dense_main_path(card: str, dev, pgr: int, errs):
+    """Phase 38b, the slice's main path: batch 128 of bench.py's stimulus at
+    1024x96, 1024x192 and 1024x1016 (o = 127, the outer sums' worst case
+    here) through make_batch_processor(include_maps=False), the entry
+    config (per-cell) and fast() (block): float "auto" is the fused route
+    (before: staged); only kernel A, kernel B's two launches and the top-K
+    run; kernel B on the whole batch's planes (131,072 rows: the map
+    kernel's row-striding loop, the decide kernel's 16 row tiles) through
+    _b_case, magnitudes within TOL of the twin and the decision bit for bit
+    on them (the largest error joins errs["detect"]); frame 0 through the
+    margin gate against the plain route's exact taps; on 4 frames with the
+    maps the route's det maps bit-equal to the plain decision (detect_plain)
+    on its magnitudes; frames/s beside the staged route, timed in the same
+    run.  Returns ({(kernel, nd): launches}, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import frontend as F
+    launches, summary = {}, {}
+    for nd in DENSE_NDS:
+        for name, p in (("cell", P.RadarParams(n_doppler=nd)),
+                        ("block", P.fast().replace(n_doppler=nd))):
+            proc = pl.make_batch_processor(p, peak_group_radius=pgr,
+                                           include_maps=False, device=dev)
+            if proc.route != "fused":
+                raise AssertionError(f"1024x{nd} auto is {proc.route}")
+            batch = torch.as_tensor(make_batch(p, BATCH), device=dev)
+            kernels.reset_launch_counts()
+            out = proc(batch)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            log(f"dense main path {name} 1024x{nd}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items()))
+            if counts != {"range_fft": 1, "slowtime_detect": 2}:
+                raise AssertionError(f"dense main path {name} {nd}: "
+                                     f"launches {counts}")
+            launches[("range_fft", nd)] = launches.get(
+                ("range_fft", nd), 0) + counts["range_fft"]
+            launches[(name, nd)] = counts["slowtime_detect"]
+            re, im = F.range_fft(batch)
+            errs["detect"] = max(errs["detect"], _b_case(
+                f"main path batch {BATCH}", re, im, p, False, 0, pgr))
+            del re, im
+            for key in ("range_bin", "doppler_bin", "mag", "valid"):
+                if tuple(out[key].shape) != (BATCH, p.tracker.max_dets):
+                    raise AssertionError(f"{key} shape "
+                                         f"{tuple(out[key].shape)}")
+            if not bool(torch.isfinite(out["mag"]).all()) or int(
+                    out["nonfinite_count"].sum()) != 0:
+                raise AssertionError("non-finite magnitudes")
+            ref = pl.make_processor(p, peak_group_radius=pgr,
+                                    frontend="plain", include_debug=True,
+                                    cfar_rank_bits=None, device=dev)(
+                                        batch[0])
+            ok, report = parity.margin_gate(
+                parity.detection_set(out, 0), parity.detection_set(ref),
+                ref["mag_map"].cpu().numpy(),
+                ref["threshold_map"].cpu().numpy(),
+                ref["scale_map"].cpu().numpy(), radius=pgr,
+                capacity=p.tracker.max_dets,
+                targets=reference.golden_targets(p))
+            log(f"dense main path {name} 1024x{nd} frame 0 vs plain path: "
+                f"{report}")
+            if not ok:
+                raise AssertionError(f"dense main path {name} {nd}: margin "
+                                     f"gate failed")
+            del ref, out
+            maps = pl.make_batch_processor(p, peak_group_radius=pgr,
+                                           device=dev)(batch[:4])
+            det = F.detect_plain(maps["mag_map"], p.cfar, 0, pgr)[0]
+            torch.cuda.synchronize()
+            if not bits_equal(det, maps["det_map"]):
+                raise AssertionError(f"dense main path {name} {nd}: det maps "
+                                     f"differ from the plain decision")
+            del maps, det
+            staged = pl.make_batch_processor(p, frontend="staged",
+                                             peak_group_radius=pgr,
+                                             include_maps=False, device=dev)
+            fps = BATCH * 1e3 / cuda_ms(lambda: proc(batch), 10)
+            fps_staged = BATCH * 1e3 / cuda_ms(lambda: staged(batch), 3)
+            summary[f"{name}@{nd}"] = {"frames_per_s": fps,
+                                       "staged_frames_per_s": fps_staged}
+            log(f"dense main path {name} 1024x{nd}: {fps:.1f} frames/s "
+                f"(fused; det maps bit-equal to the plain decision on 4 "
+                f"frames), staged route {fps_staged:.1f} frames/s at batch "
+                f"{BATCH} ({card})")
+            del batch
+            torch.cuda.empty_cache()
+    return launches, summary
+
+
+def dense_timings(card: str, dev, pgr: int, errs, launches):
+    """Phase 38e: graph-replay times at 1024x96 and 1024x192 (batch 128)
+    and 1024x1016 (batch 16): kernel B's detect entry per-cell and block
+    (fast()), its magnitude-only entry and its split entry on the sp 4
+    range shard (rows 256..512 with their halo rows), each beside its bound
+    (bound_slowtime, bound_slowtime_mag, bound_slowtime_split: an nd-point
+    FFT a row, whatever the kernel runs), its plain twin and torch.fft.fft
+    of its complex planes along Doppler (no PyTorch call computes an entry:
+    the FFT is its transform's share).  An entry joins the kernels line
+    only at a length where phases 38b-d counted its launches on a path
+    (the split entry at 1016, which no mesh takes, stays in the summary).
+    Returns (kernel rows, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend as F
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    rows, summary = [], {}
+    for nd, batch in ((96, BATCH), (192, BATCH), (1016, 16)):
+        iq = torch.as_tensor(make_batch(P.RadarParams(n_doppler=nd), batch,
+                                        seed=39), device=dev)
+        re, im = F.range_fft(iq)
+        del iq
+        z = torch.complex(re, im)
+        fft = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        entries = []
+        for name, p in (("cell", P.RadarParams(n_doppler=nd)),
+                        ("block", P.fast().replace(n_doppler=nd))):
+            kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+            entries.append((
+                f"slowtime_detect[dense,{name},{nd}]",
+                lambda kw=kw: F.slowtime_detect(re, im, False, 0, **kw),
+                lambda kw=kw: F.slowtime_detect_plain(re, im, False, 0,
+                                                      **kw),
+                bound_slowtime(batch, DENSE_NR, nd, p.cfar),
+                (name, nd), errs["detect"],
+                DENSE_LINES["detect"], fft))
+        entries.append((
+            f"slowtime_mag[dense,{nd}]", lambda: F.slowtime_mag(re, im),
+            lambda: F.slowtime_mag_plain(re, im, False),
+            bound_slowtime_mag(batch, DENSE_NR, nd),
+            ("slowtime_mag", nd), errs["mag"],
+            DENSE_LINES["mag"], fft))
+        cfar = P.RadarParams().cfar
+        sp, s = 4, 1
+        nrl, h = DENSE_NR // sp, cfar.halo_range + pgr
+        ext = torch.arange(s * nrl - h, (s + 1) * nrl + h,
+                           device=dev) % DENSE_NR
+        lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+        args = (re[:, core].contiguous(), im[:, core].contiguous(),
+                (re[:, lo].contiguous(), im[:, lo].contiguous()),
+                (re[:, hi].contiguous(), im[:, hi].contiguous()), False, 0,
+                s * nrl)
+        skw = dict(cfar=cfar, n_range_total=DENSE_NR, peak_group_radius=pgr)
+        z = torch.complex(re[:, ext], im[:, ext])
+        fft_shard = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        entries.append((
+            f"slowtime_detect_split[dense,{nd},sp4]",
+            lambda: SF.slowtime_detect_split(*args, **skw),
+            lambda: SF.slowtime_detect_split_plain(*args, **skw),
+            bound_slowtime_split(batch, nrl, nd, h, cfar),
+            ("slowtime_detect_split", nd), errs["split"],
+            DENSE_LINES["split"], fft_shard))
+        for name, call, plain, (bound, by), key, err, line, lib in entries:
+            n = launches.get(key)
+            ms = graph_ms(call, 10 if nd > 512 else 20)
+            plain_ms = cuda_ms(plain, 2, 1)
+            log(f"{name} batch {batch}: {ms:.4f} ms (graph), plain "
+                f"{plain_ms:.4f} ms, torch.fft.fft of its planes {lib:.4f} "
+                f"ms, bound {bound:.4f} ms ({by}), "
+                f"{'not on a path' if n is None else f'{n} launches'} "
+                f"({card})")
+            summary[f"{name}x{batch}"] = {
+                "ms": ms, "plain_ms": plain_ms, "fft_ms": lib,
+                "bound_ms": bound, "bound_by": by}
+            if n is None:
+                continue
+            rows.append(dict(name=name, route="cuda", source=DENSE_SRC,
+                             replaces=line, launches=n, max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by, library_ms=None))
+        del re, im, args
+        torch.cuda.empty_cache()
+    return rows, summary
+
+
+def dense_phase(card: str, dev, pgr: int):
+    """Phase 38: kernel B's dense operator (38a-e: 38a every dense length
+    against the twins; 38b the main path at 1024x96, 1024x192, 1024x1016;
+    38c phase 32's other routes (the debug taps, reflect, hw-compat float,
+    the array model at ref_angle 0 and 1) at 1024x96, the debug taps at
+    1024x192 and reflect auto at 1024x1016; 38d a LocalMesh at sp 2 and 4 at 1024x96
+    (per-cell, block, debug) and 1024x192 (per-cell; 1016 / sp is no
+    multiple of 8, so no mesh takes 1016); 38e the entries' times, on the
+    kernels line where 38b-d counted the entry's launches at that length).
+    Returns (kernel rows, summary)."""
+    import torch
+    t0 = time.perf_counter()
+    errs = dense_kernel_checks(dev, pgr)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    launches, summary = dense_main_path(card, dev, pgr, errs)
+    t2 = time.perf_counter()
+    p96 = dense_params(96)
+    other = long_other_routes(card, dev, pgr, p96, tag="1024x96")
+    launches[("slowtime_mag", 96)] = other["slowtime_mag"]
+    # The magnitude-only entry's count at the other timed lengths: the
+    # debug taps at 192; at 1016 reflect "auto" (the rank-select CFAR's
+    # tile does not fit a 1016-column map, so the debug taps raise there).
+    for nd, reflect in ((192, False), (1016, True)):
+        p = dense_params(nd)
+        batch = torch.as_tensor(make_batch(p, ARRAY_BATCH, seed=4),
+                                device=dev)
+        launches[("slowtime_mag", nd)] = mag_route_case(
+            dev, pgr, p, batch, f"1024x{nd}", reflect)
+        del batch
+    t3 = time.perf_counter()
+    for nd, configs in (
+            (96, (("cell", p96, {}, "slowtime_detect_split"),
+                  ("block", dense_params(96, scale_mode="block"), {},
+                   "slowtime_mag"),
+                  ("debug", p96, dict(include_debug=True), "slowtime_mag"))),
+            (192, (("cell", dense_params(192), {},
+                    "slowtime_detect_split"),))):
+        mesh = long_local_mesh(card, dev, pgr, configs, tag=f"1024x{nd}")
+        launches[("slowtime_detect_split", nd)] = mesh[
+            "slowtime_detect_split"]
+    t4 = time.perf_counter()
+    rows, timings = dense_timings(card, dev, pgr, errs, launches)
+    log(f"dense phase: 38a {t1 - t0:.1f} s, 38b {t2 - t1:.1f} s, 38c "
+        f"{t3 - t2:.1f} s, 38d {t4 - t3:.1f} s, 38e "
+        f"{time.perf_counter() - t4:.1f} s")
+    return rows, {"main_path": summary, "timings": timings,
                   "launches": {f"{k[0]}@{k[1]}": v
                                for k, v in launches.items()}}
 
@@ -8506,6 +8877,13 @@ def main() -> int:
     fixed_length_rows, fixed_length_summary = fixed_length_phase(card, dev,
                                                                  pgr)
 
+    # 38. The dense lengths (n_doppler a multiple of 8 below 2048, neither
+    #     16..128 nor n2d x 128): kernel B's dense operator at every such
+    #     length against its twins, the main path at 1024x96, 1024x192 and
+    #     1024x1016, the other routes and a LocalMesh, timings.
+    log(f"phases 1-37: {time.perf_counter() - t_start:.1f} s")
+    dense_rows, dense_summary = dense_phase(card, dev, pgr)
+
     # The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
@@ -8521,7 +8899,8 @@ def main() -> int:
     rows += (fixed_rows + array_rows + split_rows + rank_rows + entry_rows
              + hw_rows + variant_rows + reflect_rows + rank_reflect_rows
              + cfar3d_reflect_rows + long_rows + fixed_long_rows
-             + scaled_rows + demo_rows + length_rows + fixed_length_rows)
+             + scaled_rows + demo_rows + length_rows + fixed_length_rows
+             + dense_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
@@ -8548,6 +8927,7 @@ def main() -> int:
                     "demo": demo_summary,
                     "range_lengths": length_summary,
                     "fixed_range_lengths": fixed_length_summary,
+                    "dense_doppler": dense_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

@@ -34,8 +34,9 @@ struct SlowtimeConfig {
     // The CFAR variant: 0 OS (counting), 1 CA, 2 GO, 3 SO (cfar_tile.cuh's
     // window means), in both kernels.
     int variant;
-    // Long CPIs (kernel B at ND = n2d x 128): the decision's column chunk
-    // W and its column halo HC (slowtime_detect.cu's decide kernel).
+    // Long and dense CPIs (kernel B's two-launch lengths, slowtime_long.
+    // cuh): the decision's column chunk W and its column halo HC
+    // (slowtime_detect.cu's decide kernel).
     int W, HC;
 };
 
@@ -47,13 +48,14 @@ constexpr int kMaxSmem = 232448;        // 227 KB, an H100 block's most
 constexpr int kMaxDevices = 64;
 
 // The lane plan of a row's slow-time FFT: L = min(32, ND) lanes a row, P =
-// ND / L chirps a lane (chirp s = l P + p), G = 32 / L rows a warp.
+// ND / L chirps a lane (chirp s = l P + p), G = 32 / L rows a warp.  ND 8
+// is the dense rows' smallest inner transform (slowtime_detect.cu).
 template <int ND>
 struct Row {
     static constexpr int L = ND < 32 ? ND : 32;     // lanes per row
     static constexpr int P = ND / L;                // chirps per lane
     static constexpr int G = 32 / L;                // rows per warp
-    static constexpr int kLog2L = L == 32 ? 5 : 4;
+    static constexpr int kLog2L = L == 32 ? 5 : L == 16 ? 4 : 3;
 };
 
 // A detection tile's shared memory, in 4-byte words: the E x ND magnitude

@@ -78,7 +78,7 @@
 // TPU's parity planes are its layout, not the map's).  A tile of whole
 // rows no longer fits a block (at ND = 2048 one row is 8 KB of
 // magnitudes), so every entry runs two launches there: the magnitude-only
-// kernel at long CPIs (slowtime_mag_long_kernel) writes the map, then the
+// kernel at long CPIs (slowtime_map_kernel<128>) writes the map, then the
 // decide kernel (slowtime_long.cuh's slowtime_decide_kernel, shared with
 // the fixed kernel) reads it in tiles of T rows x a chunk of W columns,
 // with H halo rows and HC halo columns that wrap on both axes (or, in the
@@ -87,6 +87,27 @@
 // plain twin's bit for bit on the same magnitudes.  The extra map write
 // and read (8 B a cell) is the cost of the design; the TPU kernel keeps
 // the frame in VMEM.
+//
+// Dense lengths (fmcw::dense_cpi: n_doppler ND a multiple of 8 below 2048
+// that is neither a short row nor a long CPI, 8, 24, 40 .. 2040): the dense
+// slow-time operator of the TPU kernel (the n2d == 1 branch of _kernel,
+// frontend_pallas.py:719-725, and of _kernel_slowtime, split_frontend.py:
+// 562-568, which contract the chirp axis with the folded matrices
+// doppler_matrices(ND)).  Here a row runs the long row's plan with smaller
+// inner transforms (dense_row): ND = o x m, m = ND & -ND (8 .. 64), o odd
+// (1 .. 255); the outer DFT_o as direct sums over the blocks of m chirps,
+// the twiddle W_ND^(j1 k2), then an m-point lane transform (lane_fft<m>,
+// G = 32 / min(32, m) classes a warp at once), bin q of class k2 stored at
+// Doppler bin o q + k2.  An FFT, not the folded matrix: the kernel stays on
+// the accurate side of the twin under strong stationary clutter
+// (tests/test_torch_slowtime_plan.py, tests/test_torch_dense_doppler.py).
+// The same two launches as at long CPIs: the map kernel (slowtime_map_
+// kernel<m>), then the decide kernel in tiles of T rows x W columns (W a
+// multiple of 8 up to 128 that divides ND: 96 at 96 and 192, 8 at 1016 =
+// 8 x 127).  Bound on an
+// H100: the direct sums cost o - 1 complex multiply-adds a sample (126 at
+// 1016, 254 at 2040), against the ~log2(ND) of an FFT that the bound
+// counts; at the small lengths, the map's extra write and read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,7 +128,7 @@ constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMagWarps = 8;            // magnitude-only kernel
 constexpr int kMagRowsPerWarp = 4;
-constexpr int kLongWarps = 4;           // long-CPI magnitude kernel
+constexpr int kLongWarps = 4;           // the map kernel (long, dense)
 constexpr int kLongBlocks = 8192;       // its grid (rows striding)
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -310,23 +331,26 @@ __device__ __forceinline__ void slowtime_row(const float* rr, const float* ri,
 // The slow-time chain of a long row (ND = n2d x 128)
 // ---------------------------------------------------------------------------
 
-// A long row's lane constants for its 128-point inner transforms, read from
-// the ND-point table tw[m] = exp(-2 pi i m / ND): the stage twiddles W_2h^j
-// = tw[j (128 / 2h) n2d] and W_128^(p k1) = tw[p k1 n2d].  The window runs
-// over the whole row first (long_row), so w is unused.
-__device__ __forceinline__ LaneTables<kInner> long_lane_tables(
-        const float2* tw, int l, int n2d) {
-    using R = Row<kInner>;
-    LaneTables<kInner> t;
+// A long or dense row's lane constants for its M-point inner transforms
+// (M = 128 at a long CPI, m at a dense length), read from the ND-point
+// table tw[m] = exp(-2 pi i m / ND) at stride = ND / M: the stage twiddles
+// W_2h^j = tw[j (M / 2h) stride] and W_M^(p k1) = tw[p k1 stride].  The
+// window runs over the whole row first (long_row, dense_row), so w is
+// unused.
+template <int M>
+__device__ __forceinline__ LaneTables<M> inner_lane_tables(const float2* tw,
+                                                           int l, int stride) {
+    using R = Row<M>;
+    LaneTables<M> t;
 #pragma unroll
     for (int st = 0; st < R::kLog2L; ++st) {
         const int h = R::L >> (st + 1);
-        t.stw[st] = tw[(l & (h - 1)) * (kInner / (2 * h)) * n2d];
+        t.stw[st] = tw[(l & (h - 1)) * (M / (2 * h)) * stride];
     }
     const int k1 = (int)(__brev((unsigned)l) >> (32 - R::kLog2L));
 #pragma unroll
     for (int p = 0; p < R::P; ++p) {
-        t.ptw[p] = tw[p * k1 * n2d];
+        t.ptw[p] = tw[p * k1 * stride];
         t.w[p] = 1.f;
     }
     return t;
@@ -429,6 +453,111 @@ __device__ __forceinline__ void long_row(
         }
         lane_fft<kInner>(xr, xi, t, l, exact, [&](int k, float v) {
             out[k * n2d + k2d] = v;
+        });
+    }
+    __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// The slow-time chain of a dense row (ND = o x m, fmcw::dense_cpi)
+// ---------------------------------------------------------------------------
+
+// The slow-time chain and magnitude of a dense row (rr, ri) on the 32 lanes
+// of a warp: the long row's plan with m-point inner transforms, ND = o x m
+// with m = ND & -ND (8 .. 64) and o = ND / m (odd, 1 .. 255), chirp s = m j2
+// + j1:
+//   1. the pulse canceller and the window over the whole row into the
+//      warp's buffers zr / zi (ND floats each): lane l takes chirps s =
+//      128 i + 4 l + q, the two chirps before its first read from the row;
+//   2. for the classes k2 = 0 .. o-1, G = 32 / L at a time (L = min(32, m)
+//      lanes a class, P = m / L points a lane; lane group g = lane / L takes
+//      k2 = k0 + g, and past o computes class o - 1 again and stores
+//      nothing, so every lane stays in the shuffles): lane l's points j1 =
+//      l P + p of the outer DFT_o over the blocks, sum_j2 z[m j2 + j1]
+//      W_o^(j2 k2) (j2 ascending, W_o^e = tw[e m], direct sums), the
+//      twiddle W_ND^(j1 k2), and the m-point lane transform (lane_fft<m>),
+//      whose bin q is the row's Doppler bin o q + k2: its magnitude goes to
+//      out[o q + k2], natural order.
+// Every float operation an _rn intrinsic, the long row's sequence: an FFT,
+// not the folded matrix of the twin (which is up to 2.1e-4 of the peak off
+// a float64 chain under strong stationary clutter).  All 32 lanes call
+// it.
+template <int M>
+__device__ __forceinline__ void dense_row(
+        const float* rr, const float* ri, const float* win, const float2* tw,
+        const LaneTables<M>& t, int lane, const SlowtimeConfig& c,
+        float* zr, float* zi, float* out) {
+    using R = Row<M>;
+    constexpr int P = R::P, L = R::L, G = R::G;
+    const int nd = c.ND, o = nd / M;
+    for (int b0 = 0; b0 < nd; b0 += 4 * 32) {
+        const int s0 = b0 + 4 * lane;
+        if (s0 >= nd) break;
+        float xr[4], xi[4], w[4];
+        load_points<4>(rr + b0, lane, xr);
+        load_points<4>(ri + b0, lane, xi);
+        load_points<4>(win + b0, lane, w);
+        if (!c.bypass) {
+            float p1r = 0.f, p1i = 0.f, p2r = 0.f, p2i = 0.f;
+            if (s0 > 0) {
+                p1r = rr[s0 - 1]; p1i = ri[s0 - 1];
+                p2r = rr[s0 - 2]; p2i = ri[s0 - 2];
+            }
+#pragma unroll
+            for (int q = 3; q >= 0; --q) {
+                const int i1 = q >= 1 ? q - 1 : 0, i2 = q >= 2 ? q - 2 : 0;
+                const float a1r = q >= 1 ? xr[i1] : p1r;
+                const float a1i = q >= 1 ? xi[i1] : p1i;
+                const float a2r = q >= 2 ? xr[i2] : (q == 1 ? p1r : p2r);
+                const float a2i = q >= 2 ? xi[i2] : (q == 1 ? p1i : p2i);
+                float yr, yi;
+                if (c.notch_mode == 2) {
+                    yr = __fsub_rn(xr[q], a1r);
+                    yi = __fsub_rn(xi[q], a1i);
+                } else {
+                    yr = __fadd_rn(__fmaf_rn(-2.f, a1r, xr[q]), a2r);
+                    yi = __fadd_rn(__fmaf_rn(-2.f, a1i, xi[q]), a2i);
+                }
+                if (c.transient_zero && s0 + q < c.notch_mode - 1)
+                    yr = yi = 0.f;
+                xr[q] = yr;
+                xi[q] = yi;
+            }
+        }
+        *reinterpret_cast<float4*>(zr + s0) = make_float4(
+            __fmul_rn(xr[0], w[0]), __fmul_rn(xr[1], w[1]),
+            __fmul_rn(xr[2], w[2]), __fmul_rn(xr[3], w[3]));
+        *reinterpret_cast<float4*>(zi + s0) = make_float4(
+            __fmul_rn(xi[0], w[0]), __fmul_rn(xi[1], w[1]),
+            __fmul_rn(xi[2], w[2]), __fmul_rn(xi[3], w[3]));
+    }
+    __syncwarp();
+    const bool exact = c.exact_mag != 0;
+    const int g = lane / L, l = lane % L;
+    for (int k0 = 0; k0 < o; k0 += G) {
+        const bool own = k0 + g < o;
+        const int k2 = own ? k0 + g : o - 1;
+        float xr[P], xi[P];
+        load_points<P>(zr, l, xr);
+        load_points<P>(zi, l, xi);
+        int e = 0;
+        for (int j2 = 1; j2 < o; ++j2) {
+            e += k2;
+            if (e >= o) e -= o;
+            const float2 w = tw[e * M];
+            float br[P], bi[P];
+            load_points<P>(zr + j2 * M, l, br);
+            load_points<P>(zi + j2 * M, l, bi);
+#pragma unroll
+            for (int q = 0; q < P; ++q) cmac(xr[q], xi[q], br[q], bi[q], w);
+        }
+        if (k2 > 0) {
+#pragma unroll
+            for (int q = 0; q < P; ++q)
+                cmul(xr[q], xi[q], tw[(l * P + q) * k2]);
+        }
+        lane_fft<M>(xr, xi, t, l, exact, [&](int k, float v) {
+            if (own) out[k * o + k2] = v;
         });
     }
     __syncwarp();
@@ -589,19 +718,19 @@ slowtime_mag_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Long CPIs: the map, then the decision in chunks
+// Long and dense CPIs: the map, then the decision in chunks
 // ---------------------------------------------------------------------------
 
-// The magnitude map of a long-CPI batch: warp w of a block takes rows
-// blockIdx.x kLongWarps + w, striding by the grid; each row's chain
-// (long_row) in the warp's 3 ND floats of shared memory, the magnitudes
-// stored row-major (16-byte stores) with the frame's non-finite count.
-// kHalo (the split entry): the map is the shard's halo-extended slab (B, R
-// + 2H, ND), slab row e from FrameRows row e - H; only the shard's own rows
-// are counted.
-template <bool kHalo>
+// The magnitude map of a long-CPI (M = kInner, long_row) or dense (M = m,
+// dense_row) batch: warp w of a block takes rows blockIdx.x kLongWarps + w,
+// striding by the grid; each row's chain in the warp's 3 ND floats of
+// shared memory, the magnitudes stored row-major (16-byte stores) with the
+// frame's non-finite count.  kHalo (the split entry): the map is the
+// shard's halo-extended slab (B, R + 2H, ND), slab row e from FrameRows row
+// e - H; only the shard's own rows are counted.
+template <int M, bool kHalo>
 __global__ void __launch_bounds__(kLongWarps * 32)
-slowtime_mag_long_kernel(const Params p) {
+slowtime_map_kernel(const Params p) {
     extern __shared__ float smem[];
     const SlowtimeConfig& c = p.c;
     const int ND = c.ND;
@@ -609,7 +738,8 @@ slowtime_mag_long_kernel(const Params p) {
     float* zr = smem + warp * 3 * ND;
     float* zi = zr + ND;
     float* out = zi + ND;
-    const LaneTables<kInner> tabs = long_lane_tables(p.tw, l, ND / kInner);
+    const LaneTables<M> tabs =
+        inner_lane_tables<M>(p.tw, l % Row<M>::L, ND / M);
     const int map_rows = kHalo ? c.R + 2 * c.H : c.R;
     const long long total = (long long)c.batch * map_rows;
     for (long long row = (long long)blockIdx.x * kLongWarps + warp;
@@ -620,7 +750,10 @@ slowtime_mag_long_kernel(const Params p) {
         fmcw::frame_rows<kHalo>(p.xr, p.xi, p.lo_r, p.lo_i, p.hi_r, p.hi_i,
                                 b, c.R, c.H, ND)
             .row(kHalo ? e - c.H : e, rr, ri);
-        long_row(rr, ri, p.win, p.tw, tabs, l, c, zr, zi, out);
+        if constexpr (M == kInner)
+            long_row(rr, ri, p.win, p.tw, tabs, l, c, zr, zi, out);
+        else
+            dense_row<M>(rr, ri, p.win, p.tw, tabs, l, c, zr, zi, out);
         float* dst = p.mag + row * ND;
         int nf = 0;
         for (int s = 4 * l; s < ND; s += 128) {
@@ -670,10 +803,10 @@ int launch_mag(const Params& p, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-template <bool kHalo>
-int launch_mag_long(const Params& p, cudaStream_t stream) {
+template <int M, bool kHalo>
+int launch_map(const Params& p, cudaStream_t stream) {
     static bool ready[fmcw::kMaxDevices] = {};
-    auto* kernel = slowtime_mag_long_kernel<kHalo>;
+    auto* kernel = slowtime_map_kernel<M, kHalo>;
     const cudaError_t err = fmcw::prepare(kernel, ready);
     if (err != cudaSuccess) return (int)err;
     const long long rows =
@@ -685,13 +818,38 @@ int launch_mag_long(const Params& p, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-// A long CPI's detection: the map (p.mag), then its decision.
+// The map of a two-launch length (two_launch): long_row at a long CPI,
+// dense_row<m> at a dense length, m = ND & -ND.
 template <bool kHalo>
-int launch_long(const Params& p, cudaStream_t stream) {
-    const int err = launch_mag_long<kHalo>(p, stream);
+int launch_map_nd(const Params& p, cudaStream_t stream) {
+    if (long_cpi(p.c.ND)) return launch_map<kInner, kHalo>(p, stream);
+    switch (p.c.ND & -p.c.ND) {
+        case 8: return launch_map<8, kHalo>(p, stream);
+        case 16: return launch_map<16, kHalo>(p, stream);
+        case 32: return launch_map<32, kHalo>(p, stream);
+        case 64: return launch_map<64, kHalo>(p, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// A long or dense CPI's detection: the map (p.mag), then its decision.
+template <bool kHalo>
+int launch_two(const Params& p, cudaStream_t stream) {
+    const int err = launch_map_nd<kHalo>(p, stream);
     if (err) return err;
     return fmcw::launch_decide<float, fmcw::MapSem<float>, float, kHalo>(
         {p.mag, p.det, p.row_max, p.n_dets, p.c}, stream);
+}
+
+// The lengths that run two launches, the map kernel then the decide kernel:
+// the long CPIs and the dense lengths.
+inline bool two_launch(int nd) { return long_cpi(nd) || fmcw::dense_cpi(nd); }
+
+// The map kernel reads rows of ND floats as float4 (8 | ND): their bases
+// must be 16-byte aligned.
+template <typename... T>
+bool aligned16(const T*... ptrs) {
+    return (((((uintptr_t)ptrs) & 15) == 0) && ...);
 }
 
 }  // namespace
@@ -702,17 +860,20 @@ int launch_long(const Params& p, cudaStream_t stream) {
 // n_dets/nonfinite: int32 (batch,), zeroed by the caller.  cfg's notch_mode
 // (2 or 3), transient_zero and bypass select the pulse canceller, its
 // variant the CFAR (0 OS, 1 CA, 2 GO, 3 SO).  A long CPI (ND = n2d x 128,
-// n2d 2 .. 16) takes cfg's chunk W and column halo HC, needs mag (the map
-// the decision reads) and row_max zeroed by the caller, and runs two
-// launches.  Returns the CUDA error code of the launches (0 on success).
+// n2d 2 .. 16) or a dense length (fmcw::dense_cpi: 8, 24 .. 2040) takes
+// cfg's chunk W and column halo HC, needs mag (the map the decision reads)
+// and row_max zeroed by the caller, and runs two launches.  Returns the
+// CUDA error code of the launches (0 on success).
 extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
                                     const void* win, const void* tw,
                                     void* det, void* mag, void* row_max,
                                     void* n_dets, void* nonfinite,
                                     const SlowtimeConfig* cfg, void* stream) {
     const SlowtimeConfig c = *cfg;
-    const bool lng = long_cpi(c.ND);
-    if (!(lng ? fmcw::long_config_ok(c) && mag : detect_config_ok(c)) ||
+    const bool two = two_launch(c.ND);
+    if (!(two ? fmcw::decide_config_ok(c) && mag &&
+                    aligned16(xr, xi, win, mag)
+              : detect_config_ok(c)) ||
         !win || !tw)
         return (int)cudaErrorInvalidValue;
     Params p{static_cast<const float*>(xr), static_cast<const float*>(xi),
@@ -722,7 +883,7 @@ extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
              static_cast<float*>(row_max),   static_cast<int*>(n_dets),
              static_cast<int*>(nonfinite),   c};
     const cudaStream_t s = (cudaStream_t)stream;
-    if (lng) return launch_long<false>(p, s);
+    if (two) return launch_two<false>(p, s);
     switch (c.ND) {
         case 16: return launch<16, false>(p, s);
         case 32: return launch<32, false>(p, s);
@@ -735,9 +896,9 @@ extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
 // Magnitude only: xr/xi float32 (batch, R, ND), 16-byte aligned; win/tw as
 // fmcw_slowtime_detect; mag float32 (batch, R, ND); nonfinite int32
 // (batch,), zeroed by the caller.  Reads cfg's batch, R, ND, exact_mag,
-// notch_mode, transient_zero and bypass; ND 16, 32, 64, 128 or n2d x 128
-// (n2d 2 .. 16).  Returns the CUDA error code of the launch (0 on
-// success).
+// notch_mode, transient_zero and bypass; ND 16, 32, 64, 128, n2d x 128
+// (n2d 2 .. 16) or a dense length (fmcw::dense_cpi).  Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int fmcw_slowtime_mag(const void* xr, const void* xi,
                                  const void* win, const void* tw, void* mag,
                                  void* nonfinite, const SlowtimeConfig* cfg,
@@ -753,7 +914,9 @@ extern "C" int fmcw_slowtime_mag(const void* xr, const void* xi,
              nullptr,                        nullptr,
              static_cast<int*>(nonfinite),   c};
     const cudaStream_t s = (cudaStream_t)stream;
-    if (long_cpi(c.ND)) return launch_mag_long<false>(p, s);
+    if (two_launch(c.ND))
+        return aligned16(xr, xi, win, mag) ? launch_map_nd<false>(p, s)
+                                           : (int)cudaErrorInvalidValue;
     switch (c.ND) {
         case 16: return launch_mag<16>(p, s);
         case 32: return launch_mag<32>(p, s);
@@ -770,18 +933,20 @@ extern "C" int fmcw_slowtime_mag(const void* xr, const void* xi,
 // cfg's row_off is the shard's first row in the frame and r_total the
 // frame's rows (grouping ties break by global row ids).  Per-cell scale
 // only, any variant.  Outputs as fmcw_slowtime_detect, for the shard's R
-// rows; at a long CPI mag is the halo-extended slab (batch, R + 2H, ND)
-// whose rows H .. H + R - 1 are the shard's magnitudes (the map the
-// decision reads) and row_max is zeroed by the caller.
+// rows; at a long CPI or a dense length mag is the halo-extended slab
+// (batch, R + 2H, ND) whose rows H .. H + R - 1 are the shard's magnitudes
+// (the map the decision reads) and row_max is zeroed by the caller.
 extern "C" int fmcw_slowtime_detect_split(
         const void* xr, const void* xi, const void* lo_r, const void* lo_i,
         const void* hi_r, const void* hi_i, const void* win, const void* tw,
         void* det, void* mag, void* row_max, void* n_dets, void* nonfinite,
         const SlowtimeConfig* cfg, void* stream) {
     const SlowtimeConfig c = *cfg;
-    const bool lng = long_cpi(c.ND);
-    const bool ok = lng ? fmcw::long_split_config_ok(c) && mag
-                        : fmcw::split_config_ok(c) && detect_config_ok(c);
+    const bool two = two_launch(c.ND);
+    const bool ok =
+        two ? fmcw::decide_config_ok(c) && fmcw::split_decide_ok(c) && mag &&
+                  aligned16(xr, xi, lo_r, lo_i, hi_r, hi_i, win, mag)
+            : fmcw::split_config_ok(c) && detect_config_ok(c);
     if (!ok || !lo_r || !lo_i || !hi_r || !hi_i || !win || !tw)
         return (int)cudaErrorInvalidValue;
     Params p{static_cast<const float*>(xr),   static_cast<const float*>(xi),
@@ -792,7 +957,7 @@ extern "C" int fmcw_slowtime_detect_split(
              static_cast<float*>(row_max),    static_cast<int*>(n_dets),
              static_cast<int*>(nonfinite),    c};
     const cudaStream_t s = (cudaStream_t)stream;
-    if (lng) return launch_long<true>(p, s);
+    if (two) return launch_two<true>(p, s);
     switch (c.ND) {
         case 16: return launch<16, true>(p, s);
         case 32: return launch<32, true>(p, s);

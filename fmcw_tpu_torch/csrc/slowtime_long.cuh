@@ -2,7 +2,9 @@
 // detect.cu (float32 maps) and slowtime_detect_fixed.cu (int32 maps held
 // in float, fmcw::IntInFloat): at n_doppler ND = n2d x 128 (2 <= n2d <= 16,
 // the long-CPI Doppler split of the TPU kernels) a tile of whole rows no
-// longer fits a block (at ND = 2048 one row is 8 KB of magnitudes), so each
+// longer fits a block (at ND = 2048 one row is 8 KB of magnitudes), and in
+// slowtime_detect.cu at the dense lengths (dense_cpi: 8, 24 .. 2040, the
+// TPU kernels' dense operator) too, so each
 // entry runs two launches: its own magnitude kernel writes the map, then
 // the decide kernel here (slowtime_decide_kernel) reads it in tiles of T
 // rows x a chunk of W columns, with H halo rows and HC halo columns that
@@ -24,10 +26,23 @@ namespace fmcw {
 constexpr int kDecideThreads = 256;     // the decide kernel's block
 constexpr int kInner = 128;             // a long row's inner transform
 constexpr int kMaxSplit = 16;           // n2d, as JAX's split
+constexpr int kDenseAlign = 8;          // a dense length's multiple
+constexpr int kMaxDense = 2048;         // and its ceiling
 
 // ND = n2d x 128, 2 <= n2d <= 16: the long-CPI split.
 inline bool long_cpi(int nd) {
     return nd > kInner && nd % kInner == 0 && nd / kInner <= kMaxSplit;
+}
+
+// The dense lengths of kernel B (its dense operator, JAX's n2d == 1 branch
+// at any n_doppler): a multiple of 8 below 2048 that is neither a short
+// row (16, 32, 64, 128) nor a long CPI, ND = o x m with m = ND & -ND in
+// 8 .. 64 and o odd (1 .. 255).  8 | ND keeps every row of float32 16-byte
+// aligned.  JAX's folded matrices take 16 ND^2 bytes of VMEM, its whole
+// limit at 2048, so it runs no dense length there or above.
+inline bool dense_cpi(int nd) {
+    return nd >= kDenseAlign && nd < kMaxDense && nd % kDenseAlign == 0 &&
+           nd % kInner != 0 && nd != 16 && nd != 32 && nd != 64;
 }
 
 // The decision tile of a long-CPI map: T + 2H rows of W + 2HC columns, laid
@@ -38,10 +53,12 @@ __host__ __device__ inline TileLayout chunk_layout(const SlowtimeConfig& c) {
     return tile_layout(t, 1);
 }
 
-inline bool long_config_ok(const SlowtimeConfig& c) {
+// The decide kernel's tile of a map of ND columns (any ND its map kernel
+// writes: long_config_ok, and kernel B's dense lengths).
+inline bool decide_config_ok(const SlowtimeConfig& c) {
     const int E = c.T + 2 * c.H, WC = c.W + 2 * c.HC;
     const int rows = c.T + 2 * c.pgr;
-    if (!long_cpi(c.ND) || c.batch < 1 || c.batch > 65535 || c.T < 1 ||
+    if (c.ND < 1 || c.batch < 1 || c.batch > 65535 || c.T < 1 ||
         c.R % c.T || c.W < 1 || c.ND % c.W || c.pgr < 0 ||
         c.hr + c.pgr > c.H || c.hd + c.pgr > c.HC || c.hd >= c.ND ||
         c.pgr >= c.ND || c.row_off < 0 || c.r_total < c.R + c.row_off ||
@@ -60,10 +77,18 @@ inline bool long_config_ok(const SlowtimeConfig& c) {
            (size_t)chunk_layout(c).total * sizeof(float) <= (size_t)kMaxSmem;
 }
 
+inline bool long_config_ok(const SlowtimeConfig& c) {
+    return long_cpi(c.ND) && decide_config_ok(c);
+}
+
 // The split entries decide with the per-cell scale only, on exactly the
 // exchanged halo rows.
+inline bool split_decide_ok(const SlowtimeConfig& c) {
+    return !c.block_mode && c.H == c.hr + c.pgr;
+}
+
 inline bool long_split_config_ok(const SlowtimeConfig& c) {
-    return long_config_ok(c) && !c.block_mode && c.H == c.hr + c.pgr;
+    return long_config_ok(c) && split_decide_ok(c);
 }
 
 // A map value in the tile: float maps as they are, int32 maps (at most

@@ -67,6 +67,10 @@ STRIP = 8                   # cfar_tile.cuh kStrip: cells a thread decides
 DECIDE_THREADS = 256        # slowtime_long.cuh kDecideThreads
 LONG_CPI_INNER = 128        # slowtime_long.cuh kInner
 LONG_CPI_MAX_SPLIT = 16     # slowtime_long.cuh kMaxSplit
+DENSE_ALIGN = 8             # slowtime_long.cuh kDenseAlign: dense lengths
+DENSE_MAX = 2048            # slowtime_long.cuh kMaxDense:  8 | nd < 2048
+MAP_WARPS = 4               # slowtime_detect.cu kLongWarps: the map kernel's
+                            # warps a block, 3 nd floats of shared memory each
 
 
 class CfarDetectConfig(ctypes.Structure):

@@ -212,17 +212,22 @@ def resolve_frontend(mode: str, frontend: str,
     (``ops/frontend.fused_detect_supported``, with ``peak_group_radius``
     and ``mag_only`` as there, and the magnitude-only entry for edges other
     than wrap; decided here, before any launch), else "staged", as JAX's
-    "auto" falls back to its XLA chain.  Without ``p`` the float32 "auto"
-    is "fused"."""
+    "auto" falls back to its XLA chain.  An explicit float32 "fused" asks
+    the same checks on every device (``ops/frontend.check_fused_detect``)
+    and raises their NotImplementedError where the kernels do not take
+    ``p``, so the CPU refuses what the card would.  Without ``p`` the
+    float32 "auto" is "fused"."""
     if frontend not in FRONTENDS:
         raise ValueError(f"frontend must be one of {FRONTENDS}, got "
                          f"{frontend!r}")
+    mag_only = mag_only or (p is not None and p.cfar.edge_mode != "wrap")
+    if frontend == "fused" and mode == "float32" and p is not None:
+        F.check_fused_detect(p, peak_group_radius, mag_only)
     if frontend != "auto":
         return frontend
     if mode != "float32":
         return "staged"
-    if p is None or F.fused_detect_supported(
-            p, peak_group_radius, mag_only or p.cfar.edge_mode != "wrap"):
+    if p is None or F.fused_detect_supported(p, peak_group_radius, mag_only):
         return "fused"
     return "staged"
 
@@ -383,9 +388,10 @@ def make_batch_processor(params: RadarParams | None = None,
         window_rounding_constant(p.coef_width, window_rounding)
         if route == "fused" and not FX.fused_fixed_detect_supported(
                 p, peak_group_radius, include_debug):
-            # A Doppler length the kernels do not take (192, n2d > 16)
-            # raises NotImplementedError, as their wrappers and the mesh.
-            F.check_doppler(p.n_doppler, "slowtime_detect_fixed")
+            # A Doppler length the fixed kernels do not take (a dense
+            # length such as 192, n2d > 16) raises NotImplementedError, as
+            # their wrappers and the mesh.
+            FX.check_fixed_doppler(p.n_doppler, "slowtime_detect_fixed")
             raise ValueError(
                 "frontend='fused' with mode='fixed' runs the fused "
                 "fixed-point kernels, which need a wrap-edge CfarParams "

@@ -20,13 +20,15 @@ turn, as ``fmcw_tpu/ops/split_frontend.py`` splits it across chips:
   (``rdm_frontend(detect=False)``: the magnitude and the non-finite count,
   no CFAR).  Its twin folds the slow-time chain into one float32 matrix
   (``ops/fft.doppler_apply``); the two agree within 1e-5 of the peak.
-  n_doppler 16, 32, 64 and 128, and the long CPIs n2d x 128 (n2d 2 .. 16,
-  JAX's long-CPI Doppler split, ``long_cpi``): there every entry runs the
-  split transform into the magnitude map, then a decide kernel over tiles
-  of rows x chunks of Doppler columns (``_slowtime_config``;
-  csrc/slowtime_long.cuh, shared with the fixed kernel), two launches that
-  ``launches`` both counts.  Short CPIs decide in tiles of 64 rows, or 32,
-  16 or 8 where 64 does not divide the rows or fit (``_short_tile``).
+  n_doppler 16, 32, 64 and 128, the long CPIs n2d x 128 (n2d 2 .. 16,
+  JAX's long-CPI Doppler split, ``long_cpi``) and the dense lengths (every
+  other multiple of 8 below 2048, JAX's dense operator, ``dense_cpi``):
+  at the last two every entry runs the row transform into the magnitude
+  map, then a decide kernel over tiles of rows x chunks of Doppler columns
+  (``two_launch``, ``_slowtime_config``; csrc/slowtime_long.cuh, shared
+  with the fixed kernel), two launches that ``launches`` both counts.
+  Short CPIs decide in tiles of 64 rows, or 32, 16 or 8 where 64 does not
+  divide the rows or fit (``_short_tile``).
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch twin (``range_fft_plain``, ``range_fft_float_plain``,
@@ -56,10 +58,11 @@ from .window import hamming_float
 # Range rows per kernel-B block.
 TILE_ROWS = 64
 
-# Kernel B's Doppler lengths: the short rows one warp transforms, and the
-# long CPIs n2d x kernels.LONG_CPI_INNER with 2 <= n2d <=
+# Kernel B's Doppler lengths: the short rows one warp transforms, the long
+# CPIs n2d x kernels.LONG_CPI_INNER with 2 <= n2d <=
 # kernels.LONG_CPI_MAX_SPLIT (JAX's long-CPI split,
-# fmcw_tpu/models/pipeline.py _doppler_split, and its cap).
+# fmcw_tpu/models/pipeline.py _doppler_split, and its cap), and the dense
+# lengths between (``dense_cpi``).
 SHORT_CPIS = (16, 32, 64, 128)
 
 
@@ -327,14 +330,37 @@ def long_cpi(nd: int) -> bool:
             and nd // inner <= kernels.LONG_CPI_MAX_SPLIT)
 
 
+def dense_cpi(nd: int) -> bool:
+    """Is ``nd`` a dense length of kernel B (``fmcw::dense_cpi``): a
+    multiple of ``kernels.DENSE_ALIGN`` below ``kernels.DENSE_MAX`` that is
+    neither in ``SHORT_CPIS`` nor a long CPI (8, 24, 40 .. 2040)?  There
+    JAX's fused kernel contracts with the dense folded matrices
+    (``_doppler_split`` returns 1); kernel B runs an o x m FFT
+    (csrc/slowtime_detect.cu ``dense_row``)."""
+    return (kernels.DENSE_ALIGN <= nd < kernels.DENSE_MAX
+            and nd % kernels.DENSE_ALIGN == 0 and nd not in SHORT_CPIS
+            and not long_cpi(nd))
+
+
+def two_launch(nd: int) -> bool:
+    """Does kernel B run two launches at ``nd`` (the map kernel, then the
+    decide kernel): a long CPI or a dense length?"""
+    return long_cpi(nd) or dense_cpi(nd)
+
+
 def check_doppler(nd: int, name: str) -> None:
-    """Raises NotImplementedError for an n_doppler that the slow-time
-    kernel ``name`` (kernel B or the fixed one) does not take: they take
-    ``SHORT_CPIS`` and the long CPIs."""
-    if nd in SHORT_CPIS or long_cpi(nd):
+    """Raises NotImplementedError for an n_doppler that kernel B ``name``
+    does not take: ``SHORT_CPIS``, the long CPIs and the dense lengths
+    (the fixed kernel's own check, ``frontend_fixed.check_fixed_doppler``,
+    refuses the dense lengths)."""
+    if nd in SHORT_CPIS or two_launch(nd):
         return
-    raise NotImplementedError(f"{name} kernel: n_doppler 16, 32, 64, 128 or "
-                              f"n2d x 128 with n2d in 2..16, got {nd}")
+    raise NotImplementedError(
+        f"{name} kernel: n_doppler 16, 32, 64, 128, n2d x 128 with n2d in "
+        f"2..16, or a multiple of 8 below 2048, got {nd} (JAX's fused "
+        f"kernel runs no dense length at or above 2048 either: its folded "
+        f"matrices take 16 nd^2 bytes of VMEM, its whole 64 MiB limit at "
+        f"2048)")
 
 
 def _kernel_halo(cfar: CfarParams, peak_group_radius: int,
@@ -364,9 +390,13 @@ def _chunk_words(t: int, w: int, h: int, hc: int, pgr: int, block: bool,
     return (t + 2 * h) * wc + region + t + 1
 
 
-def _long_geometry(nr, nd, cfar, scale_override, pgr, name, int_map=False):
-    """The long-CPI decide kernel's tile: (T rows, W columns, H halo rows,
-    HC halo columns).  The largest T, then W, of a block whose shared
+def _decide_geometry(nr, nd, cfar, scale_override, pgr, name,
+                     int_map=False):
+    """The decide kernel's tile at a two-launch length (a long CPI or a
+    dense length): (T rows, W columns, H halo rows, HC halo columns).  W
+    divides nd: a power of two at a long CPI, a multiple of 8 up to 128 at
+    a dense length (96 at 96 and 192, 120 at 2040, 8 at 1016 = 8 x 127).
+    The largest T, then W, of a block whose shared
     memory lets two blocks share an SM, else one; within the strips a
     thread holds (64 cells) and, block scale, whole blocks and the block
     grid a tile holds; the kernel's own arithmetic (``long_config_ok``).
@@ -390,10 +420,12 @@ def _long_geometry(nr, nd, cfar, scale_override, pgr, name, int_map=False):
                 and 4 * _chunk_words(t, w, h, hc, pgr, block,
                                      int(scale_override)) <= limit)
 
+    widths = ((128, 64, 32, 16, 8) if long_cpi(nd)
+              else range(128, 0, -kernels.DENSE_ALIGN))
     if cfar.halo_doppler < nd and pgr < nd:
         for limit in (kernels.MAX_SMEM // 2, kernels.MAX_SMEM):
             for t in (64, 32, 16, 8):
-                for w in (128, 64, 32, 16, 8):
+                for w in widths:
                     if fits(t, w, limit):
                         return t, w, h, hc
     raise NotImplementedError(
@@ -436,9 +468,9 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
     taken by both kernels); raises NotImplementedError for what the
     kernels do not take, reflect edges among it (``ops/cfar.check_wrap``:
     their detect epilogues wrap, as JAX's fused kernels; the
-    magnitude-only entry takes any edges).  A long CPI takes the decide
-    kernel's tile of rows x a chunk of columns (``_long_geometry``;
-    ``int_map``: the fixed kernels' int32 map)."""
+    magnitude-only entry takes any edges).  A long CPI or a dense length
+    takes the decide kernel's tile of rows x a chunk of columns
+    (``_decide_geometry``; ``int_map``: the fixed kernels' int32 map)."""
     C.check_wrap(cfar, name)
     check_doppler(nd, name)
     if int(scale_override) < 0:
@@ -447,8 +479,8 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
     sb = cfar.scale_block
     n_blk = 9 * sb * sb
     chunk = halo_cols = 0
-    if long_cpi(nd):
-        tile, chunk, halo, halo_cols = _long_geometry(
+    if two_launch(nd):
+        tile, chunk, halo, halo_cols = _decide_geometry(
             nr, nd, cfar, scale_override, peak_group_radius, name, int_map)
     else:
         halo = _kernel_halo(cfar, peak_group_radius)
@@ -500,16 +532,16 @@ def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
         _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
                          exact_mag), cfar, notch_mode, transient, mti_bypass,
         "slowtime_detect")
-    # A long CPI decides on its magnitude map (always written) and combines
-    # its chunks' row maxima into zeros.
-    lng = long_cpi(nd)
+    # A long CPI or a dense length decides on its magnitude map (always
+    # written) and combines its chunks' row maxima into zeros.
+    two = two_launch(nd)
     dev = re.device
     re = _aligned(re.to(torch.float32))
     im = _aligned(im.to(torch.float32))
     win, tw = _slowtime_tables(nd, str(dev))
     det = torch.empty((B, nr, nd), dtype=torch.float32, device=dev)
-    mag = torch.empty_like(det) if emit_mag or lng else None
-    row_max = (torch.zeros if lng else torch.empty)(
+    mag = torch.empty_like(det) if emit_mag or two else None
+    row_max = (torch.zeros if two else torch.empty)(
         (B, nr), dtype=torch.float32, device=dev)
     n_dets = torch.zeros((B,), dtype=torch.int32, device=dev)
     nonfinite = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -520,14 +552,14 @@ def slowtime_detect(re: torch.Tensor, im: torch.Tensor, mti_bypass=False,
         row_max.data_ptr(), n_dets.data_ptr(), nonfinite.data_ptr(),
         ctypes.byref(cfg), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "slowtime_detect")
-    slowtime_detect.launches += 2 if lng else 1
+    slowtime_detect.launches += 2 if two else 1
     return det, (mag if emit_mag else None), row_max, n_dets, nonfinite
 
 
 def check_mag_geometry(nr: int, nd: int) -> None:
     """Raises NotImplementedError for an nr x nd map that the
     magnitude-only kernel (one range row per lane group, or per warp at a
-    long CPI; any number of rows) does not take."""
+    long CPI or a dense length; any number of rows) does not take."""
     check_doppler(nd, "slowtime_mag")
 
 
@@ -572,23 +604,34 @@ def slowtime_mag(re: torch.Tensor, im: torch.Tensor, mti_bypass=False, *,
 # The fused front-end
 # ---------------------------------------------------------------------------
 
+def check_fused_detect(p: RadarParams, peak_group_radius: int = 0,
+                       mag_only: bool = False) -> None:
+    """Raises NotImplementedError, with the kernel's reason, unless the
+    front-end kernels take ``p``'s frame and CFAR: kernel A's frame, and
+    kernel B's tile (``mag_only``: its magnitude-only entry, which the
+    debug taps and the hw-compat CFAR run), long CPIs and dense lengths
+    included.  The kernels' own checks, before any launch and on any
+    device: explicit float ``frontend="fused"`` asks it on the CPU too
+    (``models/pipeline.resolve_frontend``), so it raises where the card
+    would."""
+    check_range_geometry(p.n_range, p.n_doppler)
+    if mag_only:
+        check_mag_geometry(p.n_range, p.n_doppler)
+    else:
+        _detect_config(_slowtime_config(1, p.n_range, p.n_doppler, p.cfar, 0,
+                                        peak_group_radius),
+                       p.cfar, p.notch_mode, "zero", False, "slowtime_detect")
+
+
 def fused_detect_supported(p: RadarParams, peak_group_radius: int = 0,
                            mag_only: bool = False) -> bool:
-    """Do the front-end kernels take ``p``'s frame and CFAR: kernel A's
-    frame, and kernel B's tile (``mag_only``: its magnitude-only entry,
-    which the debug taps and the hw-compat CFAR run), long CPIs included?
-    Asked of the kernels' own checks, before any launch; the counterpart of
+    """Do the front-end kernels take ``p``'s frame and CFAR
+    (``check_fused_detect``)?  The counterpart of
     ``fmcw_tpu/models/pipeline.frontend_kernel_supported``.  The fixed
     kernels share these checks
     (``frontend_fixed.fused_fixed_detect_supported``)."""
     try:
-        check_range_geometry(p.n_range, p.n_doppler)
-        if mag_only:
-            check_mag_geometry(p.n_range, p.n_doppler)
-        else:
-            _detect_config(_slowtime_config(1, p.n_range, p.n_doppler,
-                                            p.cfar, 0, peak_group_radius),
-                           p.cfar, p.notch_mode, "zero", False, "")
+        check_fused_detect(p, peak_group_radius, mag_only)
     except NotImplementedError:
         return False
     return True

@@ -205,15 +205,30 @@ def slowtime_detect_fixed_plain(re, im, mti_bypass=False, scale_override=0,
     return det, (mag if emit_mag else None), row_max, n_dets, sat
 
 
+def check_fixed_doppler(nd: int, name: str) -> None:
+    """Raises NotImplementedError for an n_doppler that the fixed slow-time
+    kernel does not take: it takes kernel B's short rows and long CPIs
+    (``frontend.check_doppler``), not the dense lengths
+    (``frontend.dense_cpi``: kernel B's dense operator has no fixed
+    counterpart yet)."""
+    F.check_doppler(nd, name)
+    if F.dense_cpi(nd):
+        raise NotImplementedError(
+            f"{name} kernel: n_doppler {nd} is a dense length (neither 16, "
+            f"32, 64, 128 nor n2d x 128); the fixed slow-time kernel has no "
+            f"dense operator (float32 runs it on kernel B)")
+
+
 def fixed_config(cfg, cfar: CfarParams, notch_mode: int, transient: str,
                  mti_bypass, coef_width: int, rounding: str, name: str):
     """The fixed slow-time entries' kernel config: the tile geometry
     ``cfg`` (with the CFAR variant's code) with the MTI and Q15 window
     fields set; raises NotImplementedError for what the kernel does not
-    take (an OS training set over ``frontend.MAX_PACKED_REFS`` cells, or
-    at a long CPI a decide tile of more than ``kernels.MAX_ROWS`` rows,
-    whose integer column sums would leave float's exact range, among
-    it)."""
+    take (a dense length, ``check_fixed_doppler``; an OS training set over
+    ``frontend.MAX_PACKED_REFS`` cells, or at a long CPI a decide tile of
+    more than ``kernels.MAX_ROWS`` rows, whose integer column sums would
+    leave float's exact range, among it)."""
+    check_fixed_doppler(cfg.ND, name)
     cfg = F._detect_config(cfg, cfar, notch_mode, transient, mti_bypass,
                            name)
     if F.long_cpi(cfg.ND) and cfg.T + 2 * cfg.H > kernels.MAX_ROWS:

@@ -202,9 +202,10 @@ def slowtime_detect_split(re: torch.Tensor, im: torch.Tensor,
     rows ``row_offset`` .. ``row_offset + nrl`` of a frame of
     ``n_range_total`` rows.  Returns ``(det (B, nrl, nd), mag | None,
     row_max (B, nrl), n_dets (B,), nonfinite (B,))`` for the shard's rows.
-    At a long CPI the kernel writes the magnitudes of the halo-extended
-    slab (B, nrl + 2h, nd), which its decision reads (two launches), and
-    ``mag`` is the shard's rows of it (a view).
+    At a long CPI or a dense length (``ops/frontend.two_launch``) the
+    kernel writes the magnitudes of the halo-extended slab (B, nrl + 2h,
+    nd), which its decision reads (two launches), and ``mag`` is the
+    shard's rows of it (a view).
 
     ``detect=False`` is the magnitude-only form (JAX's
     ``slowtime_detect(detect=False)``, the block-scale front end): no halo,
@@ -235,18 +236,18 @@ def slowtime_detect_split(re: torch.Tensor, im: torch.Tensor,
         raise ValueError(f"slowtime_detect_split kernel takes float32 "
                          f"planes, got {re.dtype}")
     B, nrl, nd = re.shape
-    lng = F.long_cpi(nd)
+    two = F.two_launch(nd)
     dev = re.device
     planes = [F._aligned(x) for x in (re, im, *halo_lo, *halo_hi)]
     win, tw = F._slowtime_tables(nd, str(dev))
     det = torch.empty((B, nrl, nd), dtype=torch.float32, device=dev)
-    if lng:
+    if two:
         slab = torch.empty((B, nrl + 2 * h, nd), dtype=torch.float32,
                            device=dev)
         mag = slab[:, h:h + nrl] if emit_mag else None
     else:
         slab = mag = torch.empty_like(det) if emit_mag else None
-    row_max = (torch.zeros if lng else torch.empty)(
+    row_max = (torch.zeros if two else torch.empty)(
         (B, nrl), dtype=torch.float32, device=dev)
     n_dets = torch.zeros((B,), dtype=torch.int32, device=dev)
     nonfinite = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -257,7 +258,7 @@ def slowtime_detect_split(re: torch.Tensor, im: torch.Tensor,
         row_max.data_ptr(), n_dets.data_ptr(), nonfinite.data_ptr(),
         ctypes.byref(cfg), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "slowtime_detect_split")
-    slowtime_detect_split.launches += 2 if lng else 1
+    slowtime_detect_split.launches += 2 if two else 1
     return det, mag, row_max, n_dets, nonfinite
 
 

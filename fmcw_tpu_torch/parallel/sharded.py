@@ -289,19 +289,24 @@ def split_frontend_supported(p: RadarParams, sp: int) -> bool:
 
 
 def split_detect_supported(p: RadarParams, sp: int,
-                           peak_group_radius: int = 0) -> bool:
-    """Can the split entry (kernel B's, float32, or the fixed kernel's:
-    both take the same shards) decide on the range shards:
+                           peak_group_radius: int = 0,
+                           fixed: bool = False) -> bool:
+    """Can the split entry (kernel B's, float32, or with ``fixed`` the
+    fixed kernel's) decide on the range shards:
     ``split_frontend_supported``, wrap edges and per-cell scale (any
     variant), its tile (``ops/frontend._slowtime_config``: 64, 32, 16 or 8
     rows dividing the shard's + 2 (halo_range + peak_group_radius) halo
-    rows <= 128, or at a long CPI the
-    decide kernel's tile), and a halo that one neighbour holds?"""
+    rows <= 128, or at a long CPI or a dense length the decide kernel's
+    tile; the fixed kernel takes no dense length,
+    ``ops/frontend_fixed.check_fixed_doppler``), and a halo that one
+    neighbour holds?"""
     h = p.cfar.halo_range + peak_group_radius
     if (not split_frontend_supported(p, sp) or p.cfar.scale_mode != "cell"
             or h > p.n_range // sp):
         return False
     try:
+        if fixed:
+            FX.check_fixed_doppler(p.n_doppler, "slowtime_detect_fixed_split")
         F._slowtime_config(1, p.n_range // sp, p.n_doppler, p.cfar, 0,
                            peak_group_radius)
     except NotImplementedError:
@@ -403,7 +408,7 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                 "frontend='fused' with mode='fixed' on an sp-sharded mesh "
                 "runs the split fixed kernels, which take the per-cell "
                 "scale and wrap edges only (as JAX's)")
-        ok = (split_detect_supported(p, sp, pgr) if split_detect
+        ok = (split_detect_supported(p, sp, pgr, fixed) if split_detect
               else split_frontend_supported(p, sp))
         if not ok:
             raise NotImplementedError(

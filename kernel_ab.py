@@ -86,7 +86,10 @@ the fixed kernel
 per-cell, block and CA and its row-6 shard; at the long CPI 1024x256
 kernel B per-cell, block and GO and, where the checkout's fixed kernel
 takes long CPIs, the fixed kernel per-cell, block and CA, with the fused
-fixed route's frames/s there.  With ``--cfar3d-only`` it times the 3D
+fixed route's frames/s there; and, where the checkout's kernel B takes
+them (``ops/frontend.dense_cpi``), at the dense lengths 1024x96, 1024x192
+and 1024x1016 kernel B per-cell, block, GO and its magnitude-only
+entry.  With ``--cfar3d-only`` it times the 3D
 CFAR's two entries and the 3D array
 route alone, with ``--cfar-detect-only`` the standalone CFAR's entries and
 the staged routes alone, with ``--beam-group-only`` the cross-beam
@@ -272,8 +275,12 @@ def main() -> int:
         return 0
     if args.slowtime_only:
         pgr = 2
-        for nd in (entry.n_doppler, 256):
-            lng = nd > 128
+        dense = getattr(F, "dense_cpi", lambda n: False)
+        for nd in (entry.n_doppler, 256, 96, 192, 1016):
+            # The dense lengths where the checkout's kernel B takes them.
+            if nd in (96, 192, 1016) and not dense(nd):
+                continue
+            lng = nd != entry.n_doppler         # two launches
             ep = entry.replace(n_doppler=nd)
             iq = make_batch(ep)
             re, im = F.range_fft(iq)
@@ -296,6 +303,8 @@ def main() -> int:
                     calls[f"slowtime_detect_fixed[{ftag}]"] = (
                         lambda fkw=fkw: FX.slowtime_detect_fixed(
                             fre, fim, False, 0, **fkw))
+            if dense(nd):
+                calls[f"slowtime_mag[{nd}]"] = lambda: F.slowtime_mag(re, im)
             if not lng:
                 nr = ep.n_range
                 h, nrl = ep.cfar.halo_range + pgr, nr // SP

@@ -210,24 +210,26 @@ def test_array_processor_routes_and_rejections():
     assert tpl.make_array_processor(p, device="cpu").route == "fused"
     assert tpl.resolve_array_frontend("auto") == "fused"
     assert tpl.resolve_array_frontend("staged") == "staged"
-    # A long CPI (n_doppler 256 = 2 x 128): kernel B's split takes it, so
-    # "auto" is the fused route at both ref_angles (as JAX's "auto" takes
-    # its kernel).  A map the kernels cannot take (n_doppler 192, or 4096
-    # = 32 x 128): "auto" takes the staged chain, decided when the
-    # processor is built; "fused", asked for, keeps to the kernels, with no
-    # quiet fallback (they raise on the card,
-    # tests/test_torch_isolation.py).
-    long_cpi = p.replace(n_doppler=256)
+    # A long CPI (n_doppler 256 = 2 x 128) and a dense length (192): kernel
+    # B takes them, so "auto" is the fused route at both ref_angles (as
+    # JAX's "auto" takes its kernel).  A map the kernels cannot take
+    # (n_doppler 100, off kernel A's multiple of 8, or 4096 = 32 x 128):
+    # "auto" takes the staged chain, decided when the processor is built;
+    # "fused", asked for, keeps to the kernels, with no quiet fallback: it
+    # raises when the processor is built, on the CPU as on the card
+    # (tests/test_torch_isolation.py).
     for ref_angle in (0, 1):
-        assert tpl.make_array_processor(long_cpi, ref_angle=ref_angle,
-                                        device="cpu").route == "fused"
-        for nd in (192, 4096):
+        for nd in (256, 192):
+            assert tpl.make_array_processor(p.replace(n_doppler=nd),
+                                            ref_angle=ref_angle,
+                                            device="cpu").route == "fused"
+        for nd in (100, 4096):
             refused = p.replace(n_doppler=nd)
             assert tpl.make_array_processor(refused, ref_angle=ref_angle,
                                             device="cpu").route == "staged"
-            assert tpl.make_array_processor(refused, ref_angle=ref_angle,
-                                            frontend="fused",
-                                            device="cpu").route == "fused"
+            with pytest.raises(NotImplementedError):
+                tpl.make_array_processor(refused, ref_angle=ref_angle,
+                                         frontend="fused", device="cpu")
     with pytest.raises(ValueError):
         tpl.make_array_processor(p, frontend="pallas", device="cpu")
     proc = tpl.make_array_processor(p, device="cpu")

@@ -496,8 +496,9 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
     # The fixed slow-time kernel takes them too: its long row into the
     # int32 map, then the decide kernel, two launches, the same decide
     # tile, the map handed over though no magnitudes are asked for and the
-    # row maxima zeroed; no plain twin.  n2d above 16 and other lengths
-    # above 128 stay refused by both.
+    # row maxima zeroed; no plain twin.  n2d above 16 and lengths off 8
+    # stay refused by both; a dense length (192) is kernel B's only: two
+    # launches there, and the fixed kernel refuses it.
     i16 = long_cpi.to(torch.int16)
     det, mag, rmax, _, _ = FX.slowtime_detect_fixed(i16, i16, cfar=p.cfar,
                                                     peak_group_radius=1)
@@ -509,7 +510,7 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
     assert args[5] is not None and not rmax.any()
     assert det.dtype == rmax.dtype == torch.int32
     assert FX.slowtime_detect_fixed.launches == 2
-    for nd in (4096, 192):
+    for nd in (4096, 100):
         x = torch.zeros((1, 128, nd))
         with pytest.raises(NotImplementedError):
             F.slowtime_detect(x, x, cfar=p.cfar)
@@ -517,6 +518,14 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
             FX.slowtime_detect_fixed(x.to(torch.int16), x.to(torch.int16),
                                      cfar=p.cfar)
     assert len(as_if_cuda.calls) == 2
+    x = torch.zeros((1, 128, 192))
+    with pytest.raises(NotImplementedError, match="dense"):
+        FX.slowtime_detect_fixed(x.to(torch.int16), x.to(torch.int16),
+                                 cfar=p.cfar)
+    F.slowtime_detect(x, x, cfar=p.cfar)
+    name, args = as_if_cuda.calls[-1]
+    assert name == "slowtime_detect" and args[9]._obj.W == 96
+    assert len(as_if_cuda.calls) == 3 and F.slowtime_detect.launches == 4
 
 
 def test_fixed_wrappers_take_plain_twin_on_cpu(monkeypatch):
@@ -674,7 +683,7 @@ def test_array_kernels_reject_unported_configs(as_if_cuda):
     br, bi = _planes((1, p.n_doppler, 48))
     with pytest.raises(NotImplementedError):
         F.range_fft_float(br, bi)                   # n_range not 2^k
-    for nd in (4096, 192):
+    for nd in (4096, 100):
         x = torch.zeros((1, 128, nd))
         with pytest.raises(NotImplementedError):
             F.slowtime_mag(x, x)
@@ -689,36 +698,41 @@ def test_array_kernels_reject_unported_configs(as_if_cuda):
         C3.cfar3d_detect(narrow, cfar=p.cfar, ref_angle=1)   # halo >= D
     with pytest.raises(NotImplementedError):
         BG.beam_group(cube.int(), 1)
-    assert as_if_cuda.calls == []
+    F.slowtime_mag(*(torch.zeros((1, 128, 192)),) * 2)
+    assert [c[0] for c in as_if_cuda.calls] == ["slowtime_mag"]
+    as_if_cuda.calls.clear()
     # The array processor's fused route keeps to the kernels: on a long
-    # CPI kernel A runs, then kernel B (its detect entry at ref_angle 0,
-    # its magnitude-only entry at ref_angle 1, then the 3D CFAR); "auto" is
-    # that route, decided before any launch.  Where kernel B refuses
-    # (n2d 32, or 192 chirps) kernel A runs and kernel B raises instead of
-    # falling back to the plain transforms; "auto" takes the staged chain.
-    long_cpi = p.replace(n_doppler=256)
-    iq = np.zeros((4, long_cpi.n_doppler, long_cpi.n_range, 2), np.int16)
-    for ref_angle, launched in ((0, "slowtime_detect"),
-                                (1, "slowtime_mag")):
-        kw = dict(n_elems=4, n_beams=4, ref_angle=ref_angle, device="cpu")
-        assert tpl.make_array_processor(long_cpi, **kw).route == "fused"
-        as_if_cuda.calls.clear()
-        tpl.make_array_processor(long_cpi, frontend="fused", **kw)(iq)
-        assert [c[0] for c in as_if_cuda.calls][:2] == ["range_fft_float",
-                                                        launched]
-    for nd in (192, 4096):
+    # CPI and a dense length kernel A runs, then kernel B (its detect entry
+    # at ref_angle 0, its magnitude-only entry at ref_angle 1, then the 3D
+    # CFAR); "auto" is that route, decided before any launch.  Where kernel
+    # B refuses (n2d 32, or 100 chirps, off kernel A's multiple of 8) an
+    # explicit "fused" raises before any launch, on every device, instead
+    # of falling back to the plain transforms; "auto" takes the staged
+    # chain.
+    for nd in (256, 192):
+        taken = p.replace(n_doppler=nd)
+        iq = np.zeros((4, nd, taken.n_range, 2), np.int16)
+        for ref_angle, launched in ((0, "slowtime_detect"),
+                                    (1, "slowtime_mag")):
+            kw = dict(n_elems=4, n_beams=4, ref_angle=ref_angle,
+                      device="cpu")
+            assert tpl.make_array_processor(taken, **kw).route == "fused"
+            as_if_cuda.calls.clear()
+            tpl.make_array_processor(taken, frontend="fused", **kw)(iq)
+            assert [c[0] for c in as_if_cuda.calls][:2] == [
+                "range_fft_float", launched]
+    for nd in (100, 4096):
         refused = p.replace(n_doppler=nd)
         iq = np.zeros((1, 4, nd, p.n_range, 2), np.int16)
         for ref_angle in (0, 1):
             kw = dict(n_elems=4, n_beams=4, ref_angle=ref_angle,
                       device="cpu")
             assert tpl.make_array_processor(refused, **kw).route == "staged"
-            proc = tpl.make_batch_array_processor(refused, frontend="fused",
-                                                  **kw)
             as_if_cuda.calls.clear()
             with pytest.raises(NotImplementedError):
-                proc(iq)
-            assert [c[0] for c in as_if_cuda.calls] == ["range_fft_float"]
+                tpl.make_batch_array_processor(refused, frontend="fused",
+                                               **kw)(iq)
+            assert as_if_cuda.calls == []
 
 
 def test_split_wrappers_launch_kernels_for_cuda_tensors(as_if_cuda):

@@ -376,8 +376,10 @@ def test_decide_geometry_fits_the_kernel():
     """Every long CPI the split takes (n2d 2..16) gets a decide tile at the
     repository's windows, per-cell and block, radius 0..8: W divides nd,
     T the rows, at most 64 cells a thread, the block grid within 256 blocks
-    and the shared memory within an H100 block's 227 KB; n2d 32 and 192
-    chirps are refused."""
+    and the shared memory within an H100 block's 227 KB; n2d 32 and 100
+    chirps (off kernel A's multiple of 8) are refused, and 192 chirps (a
+    dense length, tests/test_torch_dense_doppler.py) take the same decide
+    kernel's tile."""
     for nd in range(256, 2049, 128):
         for cfar in (fmcw_tpu_torch.CfarParams(),
                      fmcw_tpu_torch.CfarParams(scale_mode="block"),
@@ -394,10 +396,12 @@ def test_decide_geometry_fits_the_kernel():
                     sb = cfar.scale_block
                     assert (c.T + 2 * c.H) // sb * ((c.W + 2 * c.HC) // sb) \
                         <= 256
-    for nd in (4096, 192):
+    for nd in (4096, 100):
         with pytest.raises(NotImplementedError):
             F._slowtime_config(1, 1024, nd, fmcw_tpu_torch.CfarParams(), 0,
                                2)
+    c = F._slowtime_config(1, 1024, 192, fmcw_tpu_torch.CfarParams(), 0, 2)
+    assert (c.T, c.W, c.H, c.HC) == (64, 96, 8, 7)
 
 
 @pytest.mark.parametrize("variant", ["os", "ca", "go", "so"])
@@ -527,7 +531,9 @@ def test_fixed_fused_long_cpi_names_the_next_slice():
     """Fixed "fused" at a long CPI (the fixed slow-time kernel's long-CPI
     split, tests/test_torch_fixed_longcpi.py) is the route on one device
     and on a mesh, sp 1 and 2; fixed "auto" there stays the staged route,
-    as JAX's; 192 chirps and n2d 32 stay refused, before any launch."""
+    as JAX's; 192 chirps (a dense length, which kernel B alone takes,
+    tests/test_torch_dense_doppler.py) and n2d 32 stay refused, before any
+    launch."""
     p = fmcw_tpu_torch.RadarParams(n_range=128, n_doppler=256)
     kw = dict(mode="fixed", frontend="fused")
     assert tpl.make_batch_processor(p, device="cpu", **kw).route == "fused"
@@ -555,6 +561,9 @@ MIRRORED = {
     "DECIDE_THREADS": ("slowtime_long.cuh", "kDecideThreads"),
     "LONG_CPI_INNER": ("slowtime_long.cuh", "kInner"),
     "LONG_CPI_MAX_SPLIT": ("slowtime_long.cuh", "kMaxSplit"),
+    "DENSE_ALIGN": ("slowtime_long.cuh", "kDenseAlign"),
+    "DENSE_MAX": ("slowtime_long.cuh", "kMaxDense"),
+    "MAP_WARPS": ("slowtime_detect.cu", "kLongWarps"),
     "RANGE_MIN_LOG2": ("range_fft.cu", "kMinLog2N"),
     "RANGE_MAX_LOG2": ("range_fft.cu", "kMaxLog2N"),
     "RANGE_SLICE": ("range_fft.cu", "kSlice"),

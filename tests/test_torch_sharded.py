@@ -344,15 +344,20 @@ def test_processor_validates_mesh_shape_and_input():
                                    include_debug=True)
     # Long CPIs: the float routes take them (kernel B's split entry on the
     # range shards, tests/test_torch_longcpi.py) and so does fixed "fused"
-    # (the fixed split entry, tests/test_torch_fixed_longcpi.py); no route
-    # takes n2d 32 or 192 chirps.
+    # (the fixed split entry, tests/test_torch_fixed_longcpi.py); so do the
+    # float routes at a dense length (192 chirps,
+    # tests/test_torch_dense_doppler.py); no route takes n2d 32 or 100
+    # chirps (off kernel A's multiple of 8).
     long_cpi = p.replace(n_doppler=256)
     assert TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
                                       long_cpi).route == "fused"
     assert TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"), long_cpi,
                                       mode="fixed",
                                       frontend="fused").route == "fused"
-    for nd in (192, 4096):
+    assert TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
+                                      p.replace(n_doppler=192)).route == \
+        "fused"
+    for nd in (100, 4096):
         with pytest.raises(NotImplementedError):
             TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
                                        p.replace(n_doppler=nd))
