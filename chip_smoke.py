@@ -209,6 +209,15 @@ the top-K; the margin gate; det maps bit-equal to the plain decision on
 the kernel's magnitudes; frames/s beside the staged route); the debug taps,
 reflect, hw-compat float and the array model at 1024x96; LocalMesh at sp 2
 and 4; the entries' times with bounds.
+Then wide maps in the standalone CFAR kernels (phase 39: column chunks in
+cfar_rank.cu, cfar_detect.cu and cfar_3d_detect.cu): the rank layout's
+host mirror against fmcw_cfar_rank_smem; every chunked entry against its
+twin bit for bit at 1024 x 584 .. 4096 (sp 4 shards included); the float
+and fixed debug taps at 1024x1016 and 1024x2048, fixed auto at 1024x1920
+and 1024x2048 (the golden model), the 3D array model at ref_angle 1 and 2
+at 1024x1016 and 1024x1024, a LocalMesh at sp 4 on the debug taps at
+1024x2048; the entries' times and the rank plan's two choices.
+(--wide-cfar-only runs phase 39 alone.)
 It prints the card's name and
 power limit, one JSON line listing the kernels, and as its last line
 {"ok": true, "device": {...}}.
@@ -7851,24 +7860,29 @@ def fixed_length_tie_checks(dev):
 def golden_frames_located(job):
     """A worker process's job: golden_frames_check's, with the golden
     model's fault-5 differences allowed where they are located: magnitude
-    rows that differ all at exact bins (``exact_bin``), detections that
-    differ all within ``reach`` rows of such a row.  Returns (ok, the
+    rows (the range axis; with a sixth item "doppler" in the job, columns)
+    that differ all at exact bins (``exact_bin``), detections that differ
+    all within ``reach`` rows (columns) of such a row.  Returns (ok, the
     detections, the magnitude rows that differ)."""
     import numpy as np
     from fmcw_tpu_torch.golden import fixed_point as gfx, reference
-    frames, mags, dets, p, radius = job
-    reach = p.cfar.halo_range + radius
+    frames, mags, dets, p, radius, *axis = job
+    doppler = axis == ["doppler"]
+    n_bins = p.n_doppler if doppler else p.n_range
+    reach = (p.cfar.halo_doppler if doppler else p.cfar.halo_range) + radius
     ok, n, off = True, 0, 0
     for f, m, d in zip(frames, mags, dets):
         gmag, gdet = reference.process_frame_fixed(
             f[..., 0] + 1j * f[..., 1].astype(np.float64), p)
         if radius:
             gdet = gfx.peak_group(gdet, radius)
+        if doppler:
+            gmag, m, gdet, d = gmag.T, m.T, gdet.T, d.T
         rows = np.unique(np.argwhere(gmag != m)[:, 0])
-        near = np.zeros(p.n_range, bool)
+        near = np.zeros(n_bins, bool)
         for k in rows:
-            near[np.arange(k - reach, k + reach + 1) % p.n_range] = True
-        ok &= bool(all(exact_bin(int(k), p.n_range) for k in rows)
+            near[np.arange(k - reach, k + reach + 1) % n_bins] = True
+        ok &= bool(all(exact_bin(int(k), n_bins) for k in rows)
                    and not ((gdet != d).any(-1) & ~near).any())
         n += int((gdet > 0).sum())
         off += rows.size
@@ -8493,7 +8507,7 @@ def dense_phase(card: str, dev, pgr: int):
     against the twins; 38b the main path at 1024x96, 1024x192, 1024x1016;
     38c phase 32's other routes (the debug taps, reflect, hw-compat float,
     the array model at ref_angle 0 and 1) at 1024x96, the debug taps at
-    1024x192 and reflect auto at 1024x1016; 38d a LocalMesh at sp 2 and 4 at 1024x96
+    1024x192 and 1024x1016; 38d a LocalMesh at sp 2 and 4 at 1024x96
     (per-cell, block, debug) and 1024x192 (per-cell; 1016 / sp is no
     multiple of 8, so no mesh takes 1016); 38e the entries' times, on the
     kernels line where 38b-d counted the entry's launches at that length).
@@ -8509,14 +8523,16 @@ def dense_phase(card: str, dev, pgr: int):
     other = long_other_routes(card, dev, pgr, p96, tag="1024x96")
     launches[("slowtime_mag", 96)] = other["slowtime_mag"]
     # The magnitude-only entry's count at the other timed lengths: the
-    # debug taps at 192; at 1016 reflect "auto" (the rank-select CFAR's
-    # tile does not fit a 1016-column map, so the debug taps raise there).
-    for nd, reflect in ((192, False), (1016, True)):
+    # debug taps at 192 and 1016 (the rank-select CFAR's chunks there).
+    # Float "auto" under reflect edges at 1016 runs too; its count is
+    # logged only.
+    for nd, reflect in ((192, False), (1016, False), (1016, True)):
         p = dense_params(nd)
         batch = torch.as_tensor(make_batch(p, ARRAY_BATCH, seed=4),
                                 device=dev)
-        launches[("slowtime_mag", nd)] = mag_route_case(
-            dev, pgr, p, batch, f"1024x{nd}", reflect)
+        n = mag_route_case(dev, pgr, p, batch, f"1024x{nd}", reflect)
+        if not reflect:
+            launches[("slowtime_mag", nd)] = n
         del batch
     t3 = time.perf_counter()
     for nd, configs in (
@@ -8535,6 +8551,485 @@ def dense_phase(card: str, dev, pgr: int):
         f"{t3 - t2:.1f} s, 38d {t4 - t3:.1f} s, 38e "
         f"{time.perf_counter() - t4:.1f} s")
     return rows, {"main_path": summary, "timings": timings,
+                  "launches": {f"{k[0]}@{k[1]}": v
+                               for k, v in launches.items()}}
+
+
+# ---------------------------------------------------------------------------
+# Wide maps in the standalone CFAR kernels: column chunks (phase 39)
+# ---------------------------------------------------------------------------
+
+WIDE_NR = 1024
+WIDE_DS = (584, 768, 1016, 1024, 1816, 2048, 4096)
+WIDE_SRC = {"cfar_rank": "fmcw_tpu_torch/csrc/cfar_rank.cu",
+            "cfar_detect": "fmcw_tpu_torch/csrc/cfar_detect.cu",
+            "cfar3d_detect": "fmcw_tpu_torch/csrc/cfar_3d_detect.cu"}
+WIDE_LINES = {"cfar_rank": "fmcw_tpu/ops/cfar_pallas.py:58",
+              "cfar_detect": "fmcw_tpu/ops/cfar_pallas.py:155",
+              "cfar3d_detect": "fmcw_tpu/ops/cfar_pallas.py:569"}
+
+
+def wide_map(B: int, D: int, integer: bool, seed: int, dev):
+    """(B, 1024, D) maps made on the card from a seeded generator:
+    exponential noise (mean 8), 2% of the cells x 40; int32 maps truncated
+    (ties within windows and between grouping neighbours), float maps on a
+    0.5 grid with a NaN, a +Inf and a -0.0 in frame 0."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.empty((B, WIDE_NR, D), device=dev).exponential_(
+        1 / 8, generator=g)
+    strong = torch.rand(m.shape, generator=g, device=dev) < 0.02
+    m = torch.where(strong, m * 40, m)
+    if integer:
+        return m.to(torch.int32)
+    m = torch.round(m * 2) / 2
+    m[0, 3, 5], m[0, 7, D - 1], m[0, 9, 0] = float("nan"), float("inf"), -0.0
+    return m
+
+
+def wide_shard(m, hr: int, reflect: bool):
+    """The sp 4 range shard 0 of maps m (B, R, D) with its hr halo rows on
+    each side, as the sharded tail gets it: the neighbours' rows, wrapped
+    or (reflect, at the global edge) mirrored; and its own rows."""
+    import torch
+    R = m.shape[-2]
+    nrl = R // 4
+    rows = torch.arange(-hr, nrl + hr, device=m.device)
+    rows = rows.abs() if reflect else rows % R
+    return m[:, rows].contiguous(), slice(0, nrl)
+
+
+def wide_pair(what: str, got, want) -> float:
+    """Kernel outputs against the twin's, bit for bit, or raises; returns
+    the largest |difference| (0)."""
+    import torch
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    same = len(got) == len(want) and all(
+        bits_equal(a, b) for a, b in zip(got, want))
+    if not same:
+        raise AssertionError(f"{what} disagrees with its twin")
+    return max(float((a.double() - b.double()).nan_to_num().abs().max())
+               for a, b in zip(got, want))
+
+
+def wide_rank_check(dev):
+    """Phase 39a: ops/cfar_rank.tile_bytes, the host mirror of
+    csrc/cfar_rank.cu's layout() that plans the rank tiles, equal to
+    fmcw_cfar_rank_smem over a grid of widths, chunks, tile rows, windows,
+    grouping radii, key bits and scale modes.  Returns the configurations
+    checked."""
+    import ctypes
+    import itertools
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.ops import cfar_rank as RK
+    lib = kernels.load()
+    n = 0
+    for D, W, T, (hr, hd), pgr, bits, block in itertools.product(
+            (96, 584, 1016, 4096), (32, 96, 128, None), (1, 8, 32),
+            ((6, 5), (3, 3), (12, 15)), (-1, 0, 2), (16, 31),
+            (False, True)):
+        W = D if W is None or W > D else W
+        cfg = kernels.CfarRankConfig(
+            batch=1, R=1024, D=D, T=T, hr=hr, hd=hd, gr=1, gd=1, n_ref=8,
+            k=4, block_mode=int(block), bits=bits, pgr=pgr, W=W)
+        want = lib.fmcw_cfar_rank_smem(ctypes.byref(cfg))
+        got = RK.tile_bytes(T, D, W, hr, hd, pgr, bits, not block)
+        if got != want:
+            raise AssertionError(f"cfar_rank tile_bytes {got} != the "
+                                 f"kernel's {want} at {cfg}")
+        n += 1
+    log(f"cfar_rank tile_bytes: the kernel's layout() on {n} "
+        f"configurations")
+    return n
+
+
+def wide_entry_checks(dev):
+    """Phase 39b: the chunked entries of the three kernels against their
+    twins bit for bit at 1024 rows x each width of WIDE_DS (batch 4, 2 above
+    1024 columns; the plans there in the log): the rank select (float 16
+    and 31 key bits, int32, the override, a given block scale map, wrap
+    and reflect, the 7- and 9-row windows too; its grouping entry at radius
+    0-2), the standalone CFAR
+    (int32 and float, per-cell and a scale map, the override, wrap and
+    reflect; its grouping entry at radius 0-2), their sp 4 prepadded range
+    shards (wrap, and the reflect edge shard), and the 3D CFAR at
+    ref_angle 1-3 on 4-plane cubes (float and int32, wrap and reflect, a
+    prepadded beam shard).  Returns {entry: largest error} (0)."""
+    import dataclasses as dc
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import cfar as C, cfar3d_detect as C3
+    from fmcw_tpu_torch.ops import cfar_detect as CD, cfar_rank as RK
+    full, fast = P.RadarParams().cfar, P.fast().cfar
+    refl = dc.replace(full, edge_mode="reflect")
+    rblk = dc.replace(fast, edge_mode="reflect")
+    # Windows of 7 and 9 rows: the rank select's chunks of a window it does
+    # not unroll (from 1816 columns on; with grouping from 768 or 1016).
+    w3 = P.quick().cfar
+    w4 = dc.replace(w3, ref_range=3)
+    hr = full.halo_range
+    errs = {}
+    for D in WIDE_DS:
+        B = 4 if D <= 1024 else 2
+        fm = wide_map(B, D, False, D, dev)
+        im = wide_map(B, D, True, D + 1, dev)
+        fs, is_ = C.block_scale_map(fm, fast), C.block_scale_map(im, fast)
+        ir = C.block_scale_map(im, rblk)
+        rank = [("float,16 bits", fm, 0, full, 16, None),
+                ("int32,16 bits,so 4", im, 4, full, 16, None),
+                ("float,exact,scale map", fm, 0, fast, None, fs),
+                ("reflect,float,16 bits", fm, 0, refl, 16, None),
+                ("reflect,int32,exact,scale map", im, 0, rblk, None, ir),
+                ("hr 3,float,16 bits", fm, 0, w3, 16, None),
+                ("hr 4,int32,exact", im, 2, w4, None, None),
+                ("reflect,hr 3,int32,16 bits", im, 0,
+                 dc.replace(w3, edge_mode="reflect"), 16, None),
+                ("reflect,hr 4,float,exact", fm, 0,
+                 dc.replace(w4, edge_mode="reflect"), None, None)]
+        for what, m, so, cfar, bits, sm in rank:
+            kw = dict(cfar=cfar, bits=bits, scale_map=sm)
+            key = f"cfar_rank[{what}]"
+            errs[key] = max(errs.get(key, 0.0), wide_pair(
+                f"{key} 1024x{D}", RK.cfar_rank(m, so, **kw),
+                RK.cfar_rank_plain(m, so, **kw)))
+            if cfar.edge_mode == "wrap":
+                for pgr in (0, 1, 2):
+                    key = f"cfar_rank_group[{what}]"
+                    errs[key] = max(errs.get(key, 0.0), wide_pair(
+                        f"{key} radius {pgr} 1024x{D}",
+                        RK.cfar_rank_group(m, so, peak_group_radius=pgr,
+                                           **kw),
+                        RK.cfar_rank_group_plain(m, so,
+                                                 peak_group_radius=pgr,
+                                                 **kw)))
+        det = [("int32", im, 0, full, None), ("float,so 4", fm, 4, full, None),
+               ("int32,scale map", im, 0, fast, is_),
+               ("float,scale map", fm, 0, fast, fs),
+               ("reflect,int32", im, 0, refl, None),
+               ("reflect,float,scale map", fm, 4, rblk,
+                C.block_scale_map(fm, rblk))]
+        for what, m, so, cfar, sm in det:
+            key = f"cfar_detect[{what}]"
+            errs[key] = max(errs.get(key, 0.0), detect_case(
+                f"wide 1024x{D} {what}", m, so, cfar, scale_map=sm,
+                pgrs=(0, 1, 2) if cfar.edge_mode == "wrap" else ()))
+        # The sp 4 range shards of the sharded tails: wrap (rows 256 ..
+        # of 1024 wrap to the last rows at shard 0) and the reflect edge
+        # shard; a block shard with its rows of the whole map's scale.
+        for what, m, cfar, sm, reflect in (
+                ("float", fm, full, None, False),
+                ("int32,scale map", im, fast, is_, False),
+                ("reflect,float", fm, refl, None, True)):
+            m_h, own = wide_shard(m, hr, reflect)
+            sm = None if sm is None else sm[:, own].contiguous()
+            key = f"cfar_detect[prepadded,{what}]"
+            errs[key] = max(errs.get(key, 0.0), detect_case(
+                f"wide 1024x{D} sp 4 shard {what}", m_h, 0, cfar,
+                scale_map=sm, prepadded=True))
+            kw = dict(cfar=cfar, bits=16, scale_map=sm, prepadded_range=True)
+            key = f"cfar_rank[prepadded,{what}]"
+            errs[key] = max(errs.get(key, 0.0), wide_pair(
+                f"{key} 1024x{D}", RK.cfar_rank(m_h, **kw),
+                RK.cfar_rank_plain(m_h, **kw)))
+        del fm, im, fs, is_, ir
+        cube = wide_map(4, D, False, 3 * D, dev)[None]
+        icube = wide_map(4, D, True, 3 * D + 1, dev)[None]
+        for what, c, cfar, ra, pre in (
+                ("float,ref_angle 1", cube, full, 1, False),
+                ("int32,ref_angle 2,reflect", icube, refl, 2, False),
+                ("float,ref_angle 3", cube, full, 3, False),
+                ("int32,ref_angle 1,reflect", icube, refl, 1, False),
+                ("float,prepadded,ref_angle 1", cube, full, 1, True)):
+            kw = dict(cfar=cfar, ref_angle=ra, prepadded_angle=pre)
+            key = f"cfar3d_detect[{what}]"
+            errs[key] = max(errs.get(key, 0.0), wide_pair(
+                f"{key} 1024x{D}", C3.cfar3d_detect(c, **kw),
+                C3.cfar3d_detect_plain(c, **kw)))
+        del cube, icube
+        torch.cuda.empty_cache()
+        log(f"wide 1024x{D}: every entry bit-identical to its twin; plans "
+            f"cfar_detect_group (T, strip, W) "
+            f"{CD.tile_plan(WIDE_NR, D, hr, full.halo_doppler, 2)}, "
+            f"cfar_rank_group (T, W) "
+            f"{RK.tile_plan(WIDE_NR, D, hr, full.halo_doppler, 2, 16, True)}"
+            f", cfar3d_detect ref_angle 1 / 2 "
+            f"{C3.tile_plan(WIDE_NR, D, 1, hr, full.halo_doppler)} / "
+            f"{C3.tile_plan(WIDE_NR, D, 2, hr, full.halo_doppler)}")
+    return errs
+
+
+def wide_paths(card: str, dev, pgr: int, pool):
+    """Phase 39c: the processors at batch 16 (16 cubes), each path's
+    launches counted (reset just before it, read just after):
+    * the float debug taps (kernel A, the magnitude-only entry, the
+      rank-select CFAR's grouping entry, chunked) at 1024x1016 and
+      1024x2048, frame 0 through the margin gate against the plain route;
+      fixed mode's debug taps there (the staged route's plain stages, the
+      grouping entry on int32 maps), every output bit-equal to the plain
+      route;
+    * fixed "auto" per-cell (the standalone CFAR's grouping entry,
+      chunked) at 1024x1920 and 1024x2048: every output bit-equal to the
+      plain route, the mag and det maps of 4 frames to the golden
+      process_frame_fixed (worker processes), at 1920 but at located exact
+      Doppler bins (ROADMAP fault 5: 1920 = 15 x 128 is mixed radix);
+    * the array model's 3D CFAR at ref_angle 1 and 2 at 1024x1016 and
+      1024x1024 (8 elements x 8 beams), cube 0 through the array gate;
+    * a LocalMesh at sp 4 on the debug taps at 1024x2048 (the sharded tail's
+      prepadded rank select), every output bit-equal to the single card.
+    Returns ({(entry, nd): launches}, maps for the timings, golden
+    futures)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import cfar as C
+    from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
+    launches, maps, golden = {}, {}, []
+
+    def counted(proc, batch):
+        kernels.reset_launch_counts()
+        out = proc(batch)
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in kernels.launch_counts().items() if v}
+
+    for nd in (1016, 2048):
+        p = P.RadarParams(n_doppler=nd)
+        batch = torch.as_tensor(make_batch(p, ARRAY_BATCH, seed=39),
+                                device=dev)
+        kw = dict(peak_group_radius=pgr, include_debug=True)
+        proc = pl.make_batch_processor(p, device=dev, **kw)
+        out, counts = counted(proc, batch)
+        log(f"wide 1024x{nd} float debug taps: route {proc.route}, launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items()))
+        if proc.route != "fused" or "cfar_rank_group" not in counts:
+            raise AssertionError(f"1024x{nd} debug taps skipped a kernel")
+        launches[("cfar_rank_group[float,16 bits]", nd)] = counts[
+            "cfar_rank_group"]
+        ref = pl.make_processor(p, frontend="plain", device=dev,
+                                **kw)(batch[0])
+        ok, report = parity.margin_gate(
+            parity.detection_set(out, 0), parity.detection_set(ref),
+            ref["mag_map"].cpu().numpy(), ref["threshold_map"].cpu().numpy(),
+            ref["scale_map"].cpu().numpy(), radius=pgr,
+            capacity=p.tracker.max_dets, targets=reference.golden_targets(p))
+        log(f"wide 1024x{nd} float debug taps frame 0 vs plain path: "
+            f"{report}")
+        if not ok:
+            raise AssertionError(f"1024x{nd} debug taps: margin gate failed")
+        maps[("float", nd)] = out["mag_map"]
+        del out, ref
+    # Fixed mode: the debug taps at 1016 and 2048, "auto" at 1920 and 2048
+    # (the golden model on 4 frames of each of the latter).
+    for nd, name, kw in ((1016, "debug", dict(include_debug=True)),
+                         (2048, "debug", dict(include_debug=True)),
+                         (1920, "auto", {}), (2048, "auto", {})):
+        p = P.RadarParams(n_doppler=nd)
+        frames = make_batch(p, ARRAY_BATCH, seed=41)
+        batch = torch.as_tensor(frames, device=dev)
+        proc = pl.make_batch_processor(p, mode="fixed", device=dev,
+                                       peak_group_radius=pgr, **kw)
+        out, counts = counted(proc, batch)
+        entry = "cfar_rank_group" if name == "debug" else "cfar_detect_group"
+        log(f"wide 1024x{nd} fixed {name}: route {proc.route}, launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items()))
+        if entry not in counts:
+            raise AssertionError(f"1024x{nd} fixed {name} skipped {entry}")
+        launches[(f"{entry}[int32,16 bits]" if name == "debug"
+                  else f"{entry}[int32]", nd)] = counts[entry]
+        want = pl.make_batch_processor(p, mode="fixed", device=dev,
+                                       frontend="plain",
+                                       peak_group_radius=pgr, **kw)(batch)
+        diff = [k for k in want if not torch.equal(out[k], want[k])]
+        log(f"wide 1024x{nd} fixed {name}: "
+            f"{'every output bit-equal' if not diff else diff} to the "
+            f"plain route, {int(out['n_dets'].min())}.."
+            f"{int(out['n_dets'].max())} detections a frame")
+        if diff:
+            raise AssertionError(f"1024x{nd} fixed {name} differs")
+        if name == "auto":
+            for i in (0, 2):
+                golden.append((nd, pool.submit(golden_frames_located, (
+                    frames[i:i + 2], out["mag_map"][i:i + 2].cpu().numpy(),
+                    out["det_map"][i:i + 2].cpu().numpy(), p, pgr,
+                    "doppler"))))
+        maps[("int32", nd)] = out["mag_map"]
+        del out, want, batch
+    # The array model's 3D CFAR.
+    beam = matched_beam()
+    for nd in (1016, 1024):
+        p = P.RadarParams(n_doppler=nd)
+        batch = torch.as_tensor(make_cubes(p, ARRAY_BATCH), device=dev)
+        for ra in (1, 2):
+            kw = dict(ref_angle=ra, peak_group_radius=pgr)
+            proc = pl.make_batch_array_processor(
+                p, n_elems=N_ELEMS, n_beams=N_BEAMS, device=dev, **kw)
+            out, counts = counted(proc, batch)
+            log(f"wide 1024x{nd} array ref_angle {ra}: route {proc.route}, "
+                f"launches " + ", ".join(f"{k}={v}" for k, v in
+                                          counts.items()))
+            if "cfar3d_detect" not in counts:
+                raise AssertionError(f"1024x{nd} array skipped the 3D CFAR")
+            launches[(f"cfar3d_detect[ref_angle {ra}]", nd)] = counts[
+                "cfar3d_detect"]
+            ref = pl.make_array_processor(
+                p, n_elems=N_ELEMS, n_beams=N_BEAMS, frontend="plain",
+                device=dev, **kw)(batch[0])
+            Mc = ref["mag_cube"]
+            _, T, S = C.cfar_3d(Mc, 0, p.cfar, ra, 0, need_debug=True)
+            ok, report = parity.array_gate(
+                parity.array_set(out, 0), parity.array_set(ref),
+                Mc.cpu().numpy(), T.cpu().numpy(), S.cpu().numpy(),
+                radius=pgr, beam_radius=0,
+                targets=reference.golden_targets(p), target_beam=beam,
+                capacity=p.tracker.max_dets)
+            log(f"wide 1024x{nd} array ref_angle {ra} cube 0 vs plain path: "
+                f"{report}")
+            if not ok:
+                raise AssertionError(f"1024x{nd} array ref_angle {ra}: "
+                                     f"array gate failed")
+            maps[("cube", nd)] = out["mag_cube"]
+            del out, ref, Mc, T, S
+        del batch
+        torch.cuda.empty_cache()
+    # A LocalMesh at sp 4 on the debug taps.
+    p = P.RadarParams(n_doppler=2048)
+    batch = torch.as_tensor(make_batch(p, ARRAY_BATCH, seed=7), device=dev)
+    kw = dict(peak_group_radius=pgr, include_debug=True, include_maps=True)
+    want = pl.make_batch_processor(p, device=dev, **kw)(batch)
+    proc = SH.make_sharded_processor(M.LocalMesh(1, 4, dev), p, **kw)
+    out, counts = counted(proc, batch)
+    diff = [k for k in want if not torch.equal(out[k], want[k])]
+    log(f"wide 1024x2048 LocalMesh debug sp=4: launches "
+        + ", ".join(f"{k}={v}" for k, v in counts.items())
+        + f"; {'all outputs bit-equal' if not diff else diff} to the "
+        f"single card")
+    if diff or "cfar_rank" not in counts:
+        raise AssertionError("1024x2048 LocalMesh debug sp 4 differs or "
+                             "skipped the rank select")
+    launches[("cfar_rank[prepadded,float,16 bits]", 2048)] = counts[
+        "cfar_rank"]
+    del out, want, batch
+    torch.cuda.empty_cache()
+    return launches, maps, golden
+
+
+def wide_timings(card: str, dev, pgr: int, errs, launches, maps):
+    """Phase 39d: each entry that phase 39c counted, at its width and batch
+    16 (16 cubes for the 3D CFAR) on that path's maps: the kernel (CUDA
+    events, eager; 3 launches), its twin (one call), the bound
+    (bound_cfar_rank, bound_cfar_detect, bound_cfar3d); no PyTorch call
+    computes an entry (library_ms null).  Returns (kernel rows,
+    summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import cfar3d_detect as C3
+    from fmcw_tpu_torch.ops import cfar_detect as CD, cfar_rank as RK
+    full = P.RadarParams().cfar
+    hr, hd = full.halo_range, full.halo_doppler
+    rows, summary = [], {}
+    for (entry, nd), n in sorted(launches.items()):
+        base = entry.split("[")[0]
+        kernel_name = base.replace("_group", "")
+        if base.startswith("cfar_rank"):
+            bits, group = 16, base == "cfar_rank_group"
+            if entry.startswith("cfar_rank[prepadded"):
+                m, _ = wide_shard(maps[("float", nd)], hr, False)
+                kw = dict(cfar=full, bits=bits, prepadded_range=True)
+                R = m.shape[-2] - 2 * hr
+            else:
+                m = maps[("int32" if "int32" in entry else "float", nd)]
+                kw = dict(cfar=full, bits=bits)
+                R = WIDE_NR
+                if group:
+                    kw["peak_group_radius"] = pgr
+            call = RK.cfar_rank_group if group else RK.cfar_rank
+            twin = RK.cfar_rank_group_plain if group else RK.cfar_rank_plain
+            run = (lambda: call(m, **kw))
+            plain = (lambda: twin(m, **kw))
+            bound, by = bound_cfar_rank(m.shape[0], R, nd, full, bits,
+                                        not m.is_floating_point(), False,
+                                        group)
+            plan = RK.tile_plan(R, nd, hr, hd, pgr if group else -1, bits,
+                                True)
+        elif base.startswith("cfar_detect"):
+            m = maps[("int32", nd)]
+            kw = dict(cfar=full, peak_group_radius=pgr)
+            run = (lambda: CD.cfar_detect_group(m, **kw))
+            plain = (lambda: CD.cfar_detect_group_plain(m, **kw))
+            in_float = int(m.abs().max()) <= CD.float_max(full)
+            bound, by = bound_cfar_detect(m.shape[0], WIDE_NR, nd, full,
+                                          in_float, group=True)
+            plan = CD.tile_plan(WIDE_NR, nd, hr, hd, pgr)
+        else:
+            ra = int(entry.split()[-1].rstrip("]"))
+            m = maps[("cube", nd)]
+            kw = dict(cfar=full, ref_angle=ra)
+            run = (lambda: C3.cfar3d_detect(m, **kw))
+            plain = (lambda: C3.cfar3d_detect_plain(m, **kw))
+            bound, by = bound_cfar3d(m.numel(), full, ra, 0, False)
+            plan = C3.tile_plan(WIDE_NR, nd, ra, hr, hd)
+        ms = cuda_ms(run, 3, 1)
+        plain_ms = cuda_ms(plain, 1, 0)
+        name = f"{entry},1024x{nd}"
+        log(f"{name} batch {m.shape[0]}: {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bound:.4f} ms ({by}), {n} launches, plan {plan} "
+            f"({card})")
+        summary[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": by, "plan": list(plan)}
+        # 39b held each entry of this kernel bit for bit (errors 0).
+        err = max(v for k, v in errs.items() if k.startswith(kernel_name))
+        rows.append(dict(name=name, route="cuda",
+                         source=WIDE_SRC[kernel_name],
+                         replaces=WIDE_LINES[kernel_name], launches=n,
+                         max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         library_ms=None))
+    return rows, summary
+
+
+def wide_phase(card: str, dev, pgr: int):
+    """Phase 39: the standalone CFAR kernels on wide maps (39a the rank
+    layout's host mirror; 39b every chunked entry against its twin; 39c the
+    processors at the wide maps; 39d timings);
+    the golden checks of 39c run in worker processes during 39d.  Returns
+    (kernel rows, summary)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    import torch
+    t0 = time.perf_counter()
+    n_layouts = wide_rank_check(dev)
+    errs = wide_entry_checks(dev)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    workers = max(1, min(4, (os.cpu_count() or 2) - 1))
+    with cf.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        launches, maps, golden = wide_paths(card, dev, pgr, pool)
+        t2 = time.perf_counter()
+        rows, timings = wide_timings(card, dev, pgr, errs, launches, maps)
+        del maps
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        for nd, fut in golden:
+            ok, n, off = fut.result()
+            log(f"wide 1024x{nd} fixed auto: mag and det maps of 2 frames "
+                f"vs the golden process_frame_fixed: "
+                f"{'equal' if ok else 'DIFFER'} ({n} detections; {off} "
+                f"magnitude columns differ"
+                f"{', all at exact Doppler bins' if off else ''})")
+            if nd == 2048 and off:
+                raise AssertionError("1024x2048 fixed auto: magnitudes "
+                                     "differ from the golden model")
+            if not ok:
+                raise AssertionError(f"1024x{nd} fixed auto differs from "
+                                     f"the golden model")
+    log(f"wide phase: 39a-b {t1 - t0:.1f} s, 39c {t2 - t1:.1f} s, 39d "
+        f"{t3 - t2:.1f} s, golden wait {time.perf_counter() - t3:.1f} s")
+    return rows, {"rank_layouts_checked": n_layouts, "timings": timings,
                   "launches": {f"{k[0]}@{k[1]}": v
                                for k, v in launches.items()}}
 
@@ -8575,6 +9070,16 @@ def main() -> int:
     block = P.fast()
     pgr = 2
     results = {}
+    if "--wide-cfar-only" in sys.argv[1:]:
+        # Phase 39 alone: the standalone CFAR kernels on wide maps.
+        wide_rows, wide_summary = wide_phase(card, dev, pgr)
+        keys = ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        log(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                    for r in wide_rows],
+                        "wide_cfar": wide_summary, "card": card}))
+        return 0
     if "--nccl-only" in sys.argv[1:]:
         # Phase 19 alone, for a multi-GPU machine: the NCCL mesh against
         # the single GPU, nothing else.
@@ -8884,6 +9389,13 @@ def main() -> int:
     log(f"phases 1-37: {time.perf_counter() - t_start:.1f} s")
     dense_rows, dense_summary = dense_phase(card, dev, pgr)
 
+    # 39. Wide maps in the standalone CFAR kernels (column chunks): the rank
+    #     layout's host mirror, every chunked entry against its twin at
+    #     584 .. 4096 columns, the debug taps, fixed auto, the 3D array
+    #     model and a LocalMesh at wide maps, timings.
+    log(f"phases 1-38: {time.perf_counter() - t_start:.1f} s")
+    wide_rows, wide_summary = wide_phase(card, dev, pgr)
+
     # The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
@@ -8900,7 +9412,7 @@ def main() -> int:
              + hw_rows + variant_rows + reflect_rows + rank_reflect_rows
              + cfar3d_reflect_rows + long_rows + fixed_long_rows
              + scaled_rows + demo_rows + length_rows + fixed_length_rows
-             + dense_rows)
+             + dense_rows + wide_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
@@ -8928,6 +9440,7 @@ def main() -> int:
                     "range_lengths": length_summary,
                     "fixed_range_lengths": fixed_length_summary,
                     "dense_doppler": dense_summary,
+                    "wide_cfar": wide_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

@@ -78,6 +78,19 @@
 // port keeps its separable order on the mirrored cube, so float means may
 // differ from JAX's in their last bits (integer sums are exact).  A single
 // mirror: ha < A (whole cubes) and hr < R, hd < D.
+//
+// Column chunks (W < D: planes wider than a tile of whole rows fits, at the
+// repository's window above 1376 / 824 / 592 columns with 3 / 5 / 7 beam
+// planes; the model of the decide kernel, slowtime_long.cuh).  A block
+// takes T rows x a chunk of W columns of its 2 ha + 1 planes at the
+// reflect entry's layout: tile rows of W + 2 hd cells from map column c0 -
+// hd, wrapped modulo D or mirrored (fmcw::chunk_col), so that the windows
+// of its T x W cells lie in the tile unwrapped; steps 2-3 run as for the
+// reflect entry (the column sums of the same columns, added in the same
+// order), so decisions and scales are the whole-row tile's bit for bit.
+// It stores the columns of its chunk below D.  Whole rows (W = D: the wrap
+// and reflect entries) keep their code and launches
+// (ops/cfar3d_detect.tile_plan picks W).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,6 +108,7 @@ struct Cfar3dConfig {
     int strip, packed;
     int reflect;    // numpy's "reflect" edges (the beam axis too unless
                     // prepadded)
+    int W;          // columns a block decides: D, or a chunk of them
 };
 
 namespace {
@@ -105,10 +119,16 @@ constexpr int kThreads = 256;
 constexpr int kBlocksPerSM = 3;
 constexpr int kMaxPackedInt = 32767;   // hi * 65536 + lo stays below 2^31
 
-// The tile's row pitch: D, or D + 2 hd for the reflect entry, whose rows
-// carry their mirrored column halo.
+// Do the tile's rows carry their column halo: the reflect entry and
+// column chunks.
+__host__ __device__ inline bool halo(const Cfar3dConfig& c) {
+    return c.reflect || c.W < c.D;
+}
+
+// The tile's row pitch: D, or W + 2 hd where the rows carry their column
+// halo (D + 2 hd for the reflect entry's whole rows).
 __host__ __device__ inline int pitch(const Cfar3dConfig& c) {
-    return c.reflect ? c.D + 2 * c.hd : c.D;
+    return halo(c) ? c.W + 2 * c.hd : c.D;
 }
 
 __host__ __device__ inline size_t smem_elems(const Cfar3dConfig& c) {
@@ -118,10 +138,12 @@ __host__ __device__ inline size_t smem_elems(const Cfar3dConfig& c) {
 }
 
 // kD: the tile's row pitch at compile time (0: at run time); kReflect: the
-// reflect entry (mirrored planes, rows and column halo; columns read
-// unwrapped).
+// reflect entry's whole rows (mirrored planes, rows and column halo;
+// columns read unwrapped); kChunk: a column chunk (its rows carry their
+// column halo, wrapped or, with c.reflect, mirrored with the planes and
+// rows; columns read unwrapped).
 template <typename V, int S, int HR, int GR, bool kPacked, int kD,
-          bool kReflect>
+          bool kReflect, bool kChunk>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
                      int* __restrict__ scale_out, const Cfar3dConfig c) {
@@ -130,29 +152,38 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
     extern __shared__ int4 smem_v4[];
     const int np = 2 * c.ha + 1;
     const int T = c.T;
+    constexpr bool kHalo = kReflect || kChunk;
     const int P = kD > 0 ? kD : pitch(c);  // the tile's row pitch
-    const int D = kReflect ? c.D : P;      // the columns decided
-    const int off = kReflect ? c.hd : 0;   // tile column of column 0
+    // The columns decided, and the map's (D = P: at compile time with kD).
+    const int D = kChunk ? c.W : (kReflect ? c.D : P);
+    const int DM = kChunk ? c.D : D;
+    const int off = kHalo ? c.hd : 0;      // tile column of column 0
     // Tile column of window column d + dd: unwrapped where the rows carry
     // their halo, else modulo D.
     auto wcol = [&](int d, int dd) {
-        return kReflect ? off + d + dd : fmcw::wrap_col(d + dd, D);
+        return kHalo ? off + d + dd : fmcw::wrap_col(d + dd, D);
     };
     const int E = T + 2 * c.hr;
     V* tile = reinterpret_cast<V*>(smem_v4);      // np planes x E rows x P
     V* cs = tile + (size_t)np * E * P;            // np planes x T rows x P
-    const int r0 = blockIdx.x * T;
+    // blockIdx.x walks the chunks of a tile of rows, then the tiles; the
+    // decided column d is map column c0 + d.
+    const int n_chunks = kChunk ? (c.D + c.W - 1) / c.W : 1;
+    const int r0 = (kChunk ? (int)(blockIdx.x / n_chunks) : blockIdx.x) * T;
+    const int c0 = kChunk ? (int)(blockIdx.x % n_chunks) * c.W : 0;
     const int a = blockIdx.y;
     const int b = blockIdx.z;
 
     // 1. The planes' rows r0 - hr .. r0 + T + hr - 1, a warp a row (the
-    //    reflect entry: mirrored, each with its mirrored column halo, by
-    //    4-byte copies, as rows of D + 2 hd cells put the cube's columns
-    //    off a 16-byte boundary).
+    //    reflect entry: mirrored, each with its mirrored column halo; a
+    //    chunk: its columns c0 - hd .., wrapped or mirrored; by 4-byte
+    //    copies, as rows of W + 2 hd cells put the cube's columns off a
+    //    16-byte boundary).
     {
         const int a_in = c.prepadded ? c.A + 2 * c.ha : c.A;
-        const bool vec = !kReflect && (D & 3) == 0 &&
+        const bool vec = !kHalo && (D & 3) == 0 &&
                          ((uintptr_t)cube & 15) == 0;
+        const bool refl = kChunk ? c.reflect : kReflect;
         const int lane = threadIdx.x & 31;
         for (int row = threadIdx.x >> 5; row < np * E;
              row += kThreads / 32) {
@@ -160,14 +191,19 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
             const int e = row - p * E;
             const int plane =
                 c.prepadded ? a + p
-                            : (kReflect ? fmcw::reflect_mod(a - c.ha + p, c.A)
-                                        : fmcw::wrap_mod(a - c.ha + p, c.A));
-            const int mrow = kReflect ? fmcw::reflect_mod(r0 - c.hr + e, c.R)
-                                      : fmcw::wrap_mod(r0 - c.hr + e, c.R);
+                            : (refl ? fmcw::reflect_mod(a - c.ha + p, c.A)
+                                    : fmcw::wrap_mod(a - c.ha + p, c.A));
+            const int mrow = refl ? fmcw::reflect_mod(r0 - c.hr + e, c.R)
+                                  : fmcw::wrap_mod(r0 - c.hr + e, c.R);
             const V* src =
-                cube + (((size_t)b * a_in + plane) * c.R + mrow) * D;
+                cube + (((size_t)b * a_in + plane) * c.R + mrow) * DM;
             V* dst = tile + (size_t)row * P;
-            if constexpr (kReflect) {
+            if constexpr (kChunk) {
+                for (int j = lane; j < P; j += 32)
+                    fmcw::cp_async4(
+                        dst + j,
+                        src + fmcw::chunk_col(c0 - c.hd + j, c.D, refl));
+            } else if constexpr (kReflect) {
                 for (int j = lane; j < P; j += 32)
                     fmcw::cp_async4(dst + j,
                                     src + fmcw::mirror_col(j - c.hd, c.D));
@@ -257,7 +293,7 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
 #pragma unroll
                 for (int s = 0; s < S; ++s) hl[s] = 0;
                 for (int p = 0; p < np; ++p)
-                    fmcw::walk_window_t<S, HR, GR, !kReflect>(
+                    fmcw::walk_window_t<S, HR, GR, !kHalo>(
                         tile + ((size_t)p * E + i0) * P + off, P, d, g,
                         p >= g_lo && p <= g_hi, [&](int, int s, V v) {
                             hl[s] = fmcw::count_hi_lo(hl[s], v, t_hi[s],
@@ -274,7 +310,7 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
 #pragma unroll
                 for (int s = 0; s < S; ++s) hi[s] = lo[s] = 0;
                 for (int p = 0; p < np; ++p)
-                    fmcw::walk_window_t<S, HR, GR, !kReflect>(
+                    fmcw::walk_window_t<S, HR, GR, !kHalo>(
                         tile + ((size_t)p * E + i0) * P + off, P, d, g,
                         p >= g_lo && p <= g_hi, [&](int, int s, V v) {
                             hi[s] = fmcw::count_add(
@@ -298,16 +334,16 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
             cnt[s] = 0;
         }
         for (int p = 0; p < np; ++p)
-            fmcw::walk_window_t<S, HR, GR, !kReflect>(
+            fmcw::walk_window_t<S, HR, GR, !kHalo>(
                 tile + ((size_t)p * E + i0) * P + off, P, d, g,
                 p >= g_lo && p <= g_hi, [&](int, int s, V v) {
                     cnt[s] = fmcw::count_add(cnt[s], fmcw::is_ge(v, q[s]));
                 });
-        const size_t out0 = (((size_t)b * c.A + a) * c.R + r0) * D + d;
+        const size_t out0 = (((size_t)b * c.A + a) * c.R + r0) * DM + c0 + d;
 #pragma unroll
         for (int s = 0; s < S; ++s) {
-            if (i0 + s < rows_out) {
-                const size_t o = out0 + (size_t)(i0 + s) * D;
+            if (i0 + s < rows_out && (!kChunk || c0 + d < DM)) {
+                const size_t o = out0 + (size_t)(i0 + s) * DM;
                 det[o] = (fmcw::as_int(cnt[s]) < c.k && cut[s] > V(0))
                              ? cut[s] : V(0);
                 scale_out[o] = sc[s];
@@ -317,15 +353,17 @@ cfar3d_detect_kernel(const V* __restrict__ cube, V* __restrict__ det,
 }
 
 template <typename V, int S, int HR, int GR, bool kPacked, int kD = 0,
-          bool kReflect = false>
+          bool kReflect = false, bool kChunk = false>
 int launch_variant(const void* cube, void* det, void* scale_out,
                    const Cfar3dConfig& c, cudaStream_t stream) {
     const size_t smem = smem_elems(c) * sizeof(V);
-    auto* kernel = cfar3d_detect_kernel<V, S, HR, GR, kPacked, kD, kReflect>;
+    auto* kernel =
+        cfar3d_detect_kernel<V, S, HR, GR, kPacked, kD, kReflect, kChunk>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((c.R + c.T - 1) / c.T, c.A, c.batch);
+    const int n_chunks = kChunk ? (c.D + c.W - 1) / c.W : 1;
+    const dim3 grid((c.R + c.T - 1) / c.T * n_chunks, c.A, c.batch);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const V*>(cube), static_cast<V*>(det),
         static_cast<int*>(scale_out), c);
@@ -346,22 +384,23 @@ int launch_window(const void* cube, void* det, void* scale_out,
 
 // The reflect entry's variants: the same choice, with only the default
 // window (6, 2) unrolled at its pitch of 128 + 10 columns (each unrolled
-// variant costs build time).
-template <typename V>
-int launch_reflect(const void* cube, void* det, void* scale_out,
-                   const Cfar3dConfig& c, cudaStream_t s) {
+// variant costs build time); the column chunks' (kChunk) likewise, at a
+// chunk of 128 columns.
+template <typename V, bool kReflect, bool kChunk>
+int launch_halo(const void* cube, void* det, void* scale_out,
+                const Cfar3dConfig& c, cudaStream_t s) {
     constexpr int S = fmcw::kStrip;
     if (c.strip == 1)
-        return launch_variant<V, 1, 0, 0, false, 0, true>(cube, det,
-                                                          scale_out, c, s);
+        return launch_variant<V, 1, 0, 0, false, 0, kReflect, kChunk>(
+            cube, det, scale_out, c, s);
     if (!c.packed)
-        return launch_variant<V, S, 0, 0, false, 0, true>(cube, det,
-                                                          scale_out, c, s);
+        return launch_variant<V, S, 0, 0, false, 0, kReflect, kChunk>(
+            cube, det, scale_out, c, s);
     if (c.hr == 6 && c.gr == 2 && pitch(c) == 138)
-        return launch_variant<V, S, 6, 2, true, 138, true>(cube, det,
-                                                           scale_out, c, s);
-    return launch_variant<V, S, 0, 0, true, 0, true>(cube, det, scale_out, c,
-                                                     s);
+        return launch_variant<V, S, 6, 2, true, 138, kReflect, kChunk>(
+            cube, det, scale_out, c, s);
+    return launch_variant<V, S, 0, 0, true, 0, kReflect, kChunk>(
+        cube, det, scale_out, c, s);
 }
 
 // The strip length, the count's packing, the window and the row pitch pick
@@ -370,7 +409,10 @@ template <typename V>
 int launch(const void* cube, void* det, void* scale_out,
            const Cfar3dConfig& c, cudaStream_t s) {
     constexpr int S = fmcw::kStrip;
-    if (c.reflect) return launch_reflect<V>(cube, det, scale_out, c, s);
+    if (c.W < c.D)
+        return launch_halo<V, false, true>(cube, det, scale_out, c, s);
+    if (c.reflect)
+        return launch_halo<V, true, false>(cube, det, scale_out, c, s);
     if (c.strip == 1)
         return launch_variant<V, 1, 0, 0, false>(cube, det, scale_out, c, s);
     if (!c.packed)
@@ -389,8 +431,9 @@ int launch(const void* cube, void* det, void* scale_out,
 // D).  strip: 8 (fmcw::kStrip, T >= 8) or 1; packed: hi and lo in one count
 // (n_ref <= 4094 for float, 32767 for int32 cubes); reflect: numpy's mirror
 // in place of the wrap on every axis (the beam axis not, prepadded; a
-// single mirror: ha < A unless prepadded, hr < R, hd < D).  Returns the
-// CUDA error code of the launch (0 on success).
+// single mirror: ha < A unless prepadded, hr < R, hd < D); W: D (whole
+// rows) or a chunk of fewer columns.  Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int fmcw_cfar_3d_detect(const void* cube, void* det,
                                    void* scale_out, const Cfar3dConfig* cfg,
                                    void* stream) {
@@ -398,7 +441,8 @@ extern "C" int fmcw_cfar_3d_detect(const void* cube, void* det,
     const int max_packed =
         c.integer ? kMaxPackedInt : fmcw::kMaxPackedRef<float>;
     if (c.batch < 1 || c.batch > 65535 || c.A < 1 || c.A > 65535 ||
-        c.R < 1 || c.D < 1 || c.T < 1 || c.hd >= c.D || c.hr < c.gr ||
+        c.R < 1 || c.D < 1 || c.T < 1 || c.W < 1 || c.W > c.D ||
+        c.hd >= c.D || c.hr < c.gr ||
         c.hd < c.gd || c.ha < 1 || c.ga < 0 || c.ga >= c.ha || c.so < 0 ||
         !(c.strip == 1 || (c.strip == fmcw::kStrip && c.T >= c.strip)) ||
         (c.packed && (c.strip == 1 || c.n_ref > max_packed)) ||

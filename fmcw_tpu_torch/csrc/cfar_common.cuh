@@ -69,6 +69,16 @@ __device__ __forceinline__ int mirror_col(int c, int n) {
     return c < 0 ? -c : (c >= n ? 2 * (n - 1) - c : c);
 }
 
+// The map column of column x of a column chunk's tile (x counted from the
+// chunk's first loaded column, which may lie before column 0 or past D - 1):
+// wrapped modulo D, or numpy's "reflect" (the reflect entries).  The chunked
+// entries of cfar_rank.cu, cfar_detect.cu and cfar_3d_detect.cu load a
+// tile of T + 2 (hr + pgr) rows x W + 2 (hd + pgr) columns through it.
+__device__ __forceinline__ int chunk_col(int x, int D, bool reflect) {
+    if ((unsigned)x < (unsigned)D) return x;
+    return reflect ? reflect_mod(x, D) : wrap_mod(x, D);
+}
+
 __device__ __forceinline__ float vadd(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ int vadd(int a, int b) { return a + b; }
 __device__ __forceinline__ float vsub(float a, float b) { return __fsub_rn(a, b); }
@@ -257,6 +267,15 @@ __device__ __forceinline__ void from_ordered(int b, int* out) { *out = b; }
 __device__ __forceinline__ bool nonfinite(float v) { return !isfinite(v); }
 __device__ __forceinline__ bool nonfinite(int) { return false; }
 
+// A chunk's row maximum (ordered int image, 0 where the chunk's row has no
+// detection) into a row of row_max, which the caller zeroed: the chunks of
+// a row combine by atomicMax on the ordered image (float maps: on the
+// float bits; det is never negative or NaN).
+template <typename V>
+__device__ __forceinline__ void merge_row_max(V* row_max, int ord) {
+    if (ord) atomicMax(reinterpret_cast<int*>(row_max), ord);
+}
+
 // Grouping and stores of a kernel tile's T rows (map rows r0 .. r0+T-1):
 // det_s holds the decisions of map rows r0-pgr .. r0+T+pgr-1, mag_s the
 // magnitudes with the tile's first row at mag_s row H.  Writes det (and
@@ -288,6 +307,52 @@ __device__ void group_store(const V* det_s, const V* mag_s, int T, int H,
     }
     if (my_dets) atomicAdd(&counts[0], my_dets);
     if (my_nf) atomicAdd(&counts[1], my_nf);
+}
+
+// Grouping and stores of a column chunk's T x W cells (map rows r0 ..
+// r0 + T - 1, map columns c0 .. c0 + W - 1): det_s (T + 2 pgr rows of NC =
+// W + 2 pgr) holds the decisions of map rows r0 - pgr .. and map columns
+// c0 - pgr .. (wrapped modulo D), so every neighbour lies in it unwrapped.
+// As group_store (the strict maximum of the (2 pgr + 1)^2 wrapped
+// neighbourhood, ties to the lower linear index of the map), storing only
+// columns below D (a ragged last chunk); det is frame b's (R, D) map, the
+// row maxima go into rmax_s[T] (ordered ints, zeroed by the caller), the
+// detection count into counts[0].
+template <typename V, typename O>
+__device__ void group_store_chunk(const V* det_s, int T, int W, int pgr,
+                                  int R, int D, int r0, int c0, O* det,
+                                  int* rmax_s, int* counts) {
+    const int NC = W + 2 * pgr;
+    const int wn = min(W, D - c0);              // columns stored
+    int my_dets = 0;
+    for (int idx = threadIdx.x; idx < T * wn; idx += blockDim.x) {
+        const int t = idx / wn;
+        const int j = idx - t * wn;
+        const V* cell = det_s + (t + pgr) * NC + j + pgr;
+        const V m = *cell;
+        V out = m;
+        if (pgr > 0 && m > V(0)) {
+            const int r = r0 + t, d = c0 + j;
+            const int id = r * D + d;
+            for (int dr = -pgr; dr <= pgr && out > V(0); ++dr) {
+                const int nr = wrap_mod(r + dr, R);
+                for (int dd = -pgr; dd <= pgr; ++dd) {
+                    if (dr == 0 && dd == 0) continue;
+                    const V v = cell[dr * NC + dd];
+                    if (v > m || (v == m && nr * D + wrap_mod(d + dd, D) < id)) {
+                        out = V(0);
+                        break;
+                    }
+                }
+            }
+        }
+        det[(size_t)(r0 + t) * D + c0 + j] = static_cast<O>(out);
+        if (out > V(0)) {
+            ++my_dets;
+            atomicMax(&rmax_s[t], ordered(out));
+        }
+    }
+    if (my_dets) atomicAdd(&counts[0], my_dets);
 }
 
 }  // namespace fmcw

@@ -114,6 +114,23 @@
 // No grouping: peak grouping wraps whatever the edges, and a seam tile's
 // grouping rows would need windows mirrored at the far edge (the plain
 // ops/cfar.peak_group follows, as XLA's grouping follows JAX's kernel).
+//
+// Column chunks (W < D: maps wider than a tile of whole rows fits, at the
+// repository's window above 1808 columns with the grouping entry; the
+// model of the decide kernel, slowtime_long.cuh).  A block takes T rows x
+// a chunk of W columns at the reflect entry's layout: tile rows of W + 2
+// (hd + pgr) cells from map column c0 - pgr - hd, wrapped modulo D or
+// mirrored (fmcw::chunk_col), so that the windows and grouping
+// neighbourhoods of its T + 2 pgr rows x W + 2 pgr decided columns lie in
+// the tile unwrapped; steps 2-4 run as for the reflect entry (the column
+// sums of the same columns, added in the same order), so decisions and
+// scales are the whole-row tile's bit for bit.  It stores its T x W cells
+// (a ragged last chunk only the columns below D); the grouping entry
+// groups them by fmcw::group_store_chunk and combines its row maxima by
+// atomicMax on the ordered image into a row_max the caller zeroed.  Whole
+// rows (W = D: the wrap, reflect and flat-stream entries) keep their code
+// and launches (ops/cfar_detect.tile_plan picks W; the flat-stream entry
+// takes whole rows only).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,6 +156,7 @@ struct CfarDetectConfig {
     // The reflect entry (reflect = 1): numpy's "reflect" edges on both axes
     // (on the Doppler axis alone for a prepadded shard).
     int reflect;
+    int W;              // columns a block decides: D, or a chunk of them
 };
 
 namespace {
@@ -148,8 +166,9 @@ constexpr int kBlocksPerSM = 3;
 
 // Where step 1 takes the tile's rows from: a whole map or prepadded shard
 // with wrapped rows and columns; the flat-stream entry's ext streams; the
-// reflect entry's mirrored rows and columns.
-constexpr int kMapSrc = 0, kFlatSrc = 1, kReflectSrc = 2;
+// reflect entry's mirrored rows and columns; a column chunk (wrapped, or
+// with c.reflect mirrored), its rows carrying their column halo.
+constexpr int kMapSrc = 0, kFlatSrc = 1, kReflectSrc = 2, kChunkSrc = 3;
 
 // Shared memory layout, in 4-byte words (the C entry checks its total;
 // ops/cfar_detect.tile_bytes mirrors it).
@@ -157,10 +176,38 @@ struct Layout {
     int cs_full, cs_guard, det_s, rmax, counts, total;
 };
 
-// The tile's row pitch: D, or D + 2 hd for the flat-stream and reflect
-// entries, whose rows carry their column halo.
+// Do the tile's rows carry their column halo: the flat-stream and reflect
+// entries and column chunks.
+__host__ __device__ inline bool halo(const CfarDetectConfig& c) {
+    return c.flat || c.reflect || c.W < c.D;
+}
+
+// The tile's row pitch: D, or W + 2 (hd + pgr) where the rows carry their
+// column halo (D + 2 hd for the flat-stream and reflect entries, W = D
+// without grouping).
 __host__ __device__ inline int pitch(const CfarDetectConfig& c) {
-    return (c.flat || c.reflect) ? c.D + 2 * c.hd : c.D;
+    const int pg = c.pgr > 0 ? c.pgr : 0;
+    return halo(c) ? c.W + 2 * (c.hd + pg) : c.D;
+}
+
+// The columns a block decides: D, or with the column halo W + 2 pgr.
+__host__ __device__ inline int decided_cols(const CfarDetectConfig& c) {
+    const int pg = c.pgr > 0 ? c.pgr : 0;
+    return halo(c) ? c.W + 2 * pg : c.D;
+}
+
+// A block's first map row and (with the column halo) first map column:
+// blockIdx.x walks the chunks of a tile of rows, then the tiles.
+__device__ __forceinline__ void block_origin(const CfarDetectConfig& c,
+                                             bool chunks, int& r0, int& c0) {
+    if (!chunks) {
+        r0 = blockIdx.x * c.T;
+        c0 = 0;
+        return;
+    }
+    const int n = (c.D + c.W - 1) / c.W;
+    r0 = (int)(blockIdx.x / n) * c.T;
+    c0 = (int)(blockIdx.x % n) * c.W;
 }
 
 __host__ __device__ inline Layout layout(const CfarDetectConfig& c) {
@@ -173,7 +220,7 @@ __host__ __device__ inline Layout layout(const CfarDetectConfig& c) {
     l.cs_full = (c.T + 2 * (c.hr + pg)) * P;    // after the tile
     l.cs_guard = l.cs_full + cs;
     l.det_s = l.cs_guard + cs;
-    l.rmax = l.det_s + (group ? rows * c.D : 0);
+    l.rmax = l.det_s + (group ? rows * decided_cols(c) : 0);
     l.counts = l.rmax + (group ? c.T : 0);
     l.total = l.counts + (group ? 2 : 0);
     return l;
@@ -188,10 +235,12 @@ __device__ __forceinline__ int to_map(float v, int*) {
 // Steps 3-5 on a tile of type V (the map's, or float for an int32 tile
 // counted in float) with thresholds by Sem, storing in the map's type O.
 // kD: the tile's row pitch at compile time (0: at run time); kHalo: the
-// flat-stream and reflect entries (rows of D + 2 hd cells that carry their
-// column halo, columns unwrapped; no grouping).
+// flat-stream and reflect entries and column chunks (rows of W + 2 (hd +
+// pgr) cells that carry their column halo, columns unwrapped); kChunk: a
+// column chunk (its own columns stored, the grouping entry's by
+// group_store_chunk).
 template <typename V, typename Sem, typename O, int S, int HR, int GR,
-          bool kPacked, int kD, bool kHalo>
+          bool kPacked, int kD, bool kHalo, bool kChunk>
 __device__ __forceinline__ void decide_block(
         const V* tile, int* smem, const int* __restrict__ scale_in,
         O* __restrict__ det, int* __restrict__ scale_out,
@@ -201,7 +250,9 @@ __device__ __forceinline__ void decide_block(
     using Cnt = fmcw::Count<V>;
     const Layout lay = layout(c);
     const int P = kD > 0 ? kD : pitch(c);       // the tile's row pitch
-    const int D = kHalo ? c.D : P;              // the columns decided
+    // The columns decided, and the map's (D = P: at compile time with kD).
+    const int D = kChunk ? decided_cols(c) : (kHalo ? c.D : P);
+    const int DM = kHalo ? c.D : P;
     const int off = kHalo ? c.hd : 0;           // tile column of column 0
     // Tile column of window column d + j: unwrapped where the rows carry
     // their halo, else modulo D.
@@ -213,7 +264,8 @@ __device__ __forceinline__ void decide_block(
     const bool group = c.pgr >= 0;
     const int pg = group ? c.pgr : 0;
     const int rows = c.T + 2 * pg;              // map rows r0 - pg ..
-    const int r0 = blockIdx.x * c.T;
+    int r0, c0;                                 // decided column d: map
+    block_origin(c, kChunk, r0, c0);            // column c0 - pg + d
     const int b = blockIdx.y;
     const int tid = threadIdx.x;
     const int rows_out = min(c.T, c.R - r0);    // rows stored
@@ -271,11 +323,12 @@ __device__ __forceinline__ void decide_block(
 #pragma unroll
             for (int s = 0; s < S; ++s) sc[s] = c.so;
         } else if (c.block_mode) {
+            const int col = kChunk ? fmcw::wrap_mod(c0 - pg + d, DM) : d;
 #pragma unroll
             for (int s = 0; s < S; ++s)
                 sc[s] = scale_in[((size_t)b * c.R +
-                                  fmcw::wrap_mod(r0 - pg + i0 + s, c.R)) * D +
-                                 d];
+                                  fmcw::wrap_mod(r0 - pg + i0 + s, c.R)) *
+                                     DM + col];
         } else {
             // Box sums in the twin's order (columns ascending), then the
             // thresholds and the hi/lo counts.  Integer sums (int32 maps,
@@ -359,32 +412,48 @@ __device__ __forceinline__ void decide_block(
             row0, P, d, g, true, [&](int, int s, V v) {
                 cnt[s] = fmcw::count_add(cnt[s], fmcw::is_ge(v, q[s]));
             });
+        // The stored columns: every one of whole rows; of a chunk's, its
+        // own W below D.
+        const int mcol = kChunk ? c0 - pg + d : d;
+        const bool own_col = !kChunk || (d >= pg && d < pg + c.W &&
+                                         mcol < DM);
 #pragma unroll
         for (int s = 0; s < S; ++s) {
             const O out = (fmcw::as_int(cnt[s]) < c.k && cut[s] > V(0))
                               ? to_map(cut[s], (O*)nullptr) : O(0);
             if (group) det_s[(i0 + s) * D + d] = out;
             const int t = i0 + s - pg;          // the tile's own row
-            if (t >= 0 && t < rows_out) {
-                const size_t o = ((size_t)b * c.R + r0 + t) * D + d;
+            if (own_col && t >= 0 && t < rows_out) {
+                const size_t o = ((size_t)b * c.R + r0 + t) * DM + mcol;
                 scale_out[o] = sc[s];
                 if (!group) det[o] = out;
             }
         }
     }
-    if (kHalo || !group) return;
+    if ((kHalo && !kChunk) || !group) return;
     __syncthreads();
 
     // 5. Peak grouping of the stored rows, row maxima and the count (the
-    //    tile is only read for its non-finite count, which is not kept).
+    //    tile is only read for its non-finite count, which is not kept; a
+    //    chunk's row maxima combine with the other chunks').
     int* rmax_s = smem + lay.rmax;
     int* counts = smem + lay.counts;
-    fmcw::group_store(det_s, reinterpret_cast<const O*>(tile), rows_out,
-                      hr + pg, pg, c.R, D, r0, ((size_t)b * c.R + r0) * D,
-                      det, (O*)nullptr, rmax_s, counts);
+    if constexpr (kChunk)
+        fmcw::group_store_chunk(det_s, rows_out, c.W, pg, c.R, c.D, r0, c0,
+                                det + (size_t)b * c.R * c.D, rmax_s, counts);
+    else
+        fmcw::group_store(det_s, reinterpret_cast<const O*>(tile), rows_out,
+                          hr + pg, pg, c.R, D, r0, ((size_t)b * c.R + r0) * D,
+                          det, (O*)nullptr, rmax_s, counts);
     __syncthreads();
-    for (int t = tid; t < rows_out; t += kThreads)
-        fmcw::from_ordered(rmax_s[t], row_max + (size_t)b * c.R + r0 + t);
+    for (int t = tid; t < rows_out; t += kThreads) {
+        if constexpr (kChunk)
+            fmcw::merge_row_max(row_max + (size_t)b * c.R + r0 + t,
+                                rmax_s[t]);
+        else
+            fmcw::from_ordered(rmax_s[t],
+                               row_max + (size_t)b * c.R + r0 + t);
+    }
     if (tid == 0 && counts[0]) atomicAdd(&n_dets[b], counts[0]);
 }
 
@@ -402,7 +471,8 @@ cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
     const int pg = c.pgr > 0 ? c.pgr : 0;
     const int H = c.hr + pg;                    // tile row of map row r0
     const int E = c.T + 2 * H;
-    const int r0 = blockIdx.x * c.T;
+    int r0, c0;
+    block_origin(c, kSrc == kChunkSrc, r0, c0);
     const int tid = threadIdx.x;
 
     // 1. Map rows r0 - H .. r0 + T + H - 1, a warp a row.
@@ -449,6 +519,28 @@ cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
                                 src + fmcw::mirror_col(j - c.hd, c.D));
         }
         asm volatile("cp.async.wait_all;" ::: "memory");
+    } else if constexpr (kSrc == kChunkSrc) {
+        // Map row r0 - H + e, wrapped or mirrored (a prepadded shard's row
+        // r0 + e), its columns c0 - pg - hd .. in tile columns 0 .. D - 1,
+        // wrapped or mirrored.  4-byte copies: rows of W + 2 (hd + pg)
+        // cells put the map's columns off a 16-byte boundary.
+        const int rows_in = c.prepadded ? c.R + 2 * c.hr : c.R;
+        const V* src0 = map + (size_t)blockIdx.y * rows_in * c.D;
+        const int x0 = c0 - pg - c.hd;
+        const bool refl = c.reflect;
+        const int lane = tid & 31;
+        for (int e = tid >> 5; e < E; e += kThreads / 32) {
+            const int row =
+                c.prepadded ? fmcw::wrap_mod(r0 + e, rows_in)
+                            : (refl ? fmcw::reflect_mod(r0 - H + e, c.R)
+                                    : fmcw::wrap_mod(r0 - H + e, c.R));
+            const V* src = src0 + (size_t)row * c.D;
+            V* dst = tile + (size_t)e * D;
+            for (int j = lane; j < D; j += 32)
+                fmcw::cp_async4(dst + j,
+                                src + fmcw::chunk_col(x0 + j, c.D, refl));
+        }
+        asm volatile("cp.async.wait_all;" ::: "memory");
     } else {
         const int rows_in = c.prepadded ? c.R + 2 * c.hr : c.R;
         const V* src0 = map + (size_t)blockIdx.y * rows_in * D;
@@ -491,14 +583,14 @@ cfar_detect_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
                 ft[i] = __int2float_rn(tile[i]);
             __syncthreads();
             decide_block<float, fmcw::IntInFloat, V, S, HR, GR, kPacked, kD,
-                         kSrc != kMapSrc>(ft, smem, scale_in, det, scale_out,
-                                          row_max, n_dets, c);
+                         kSrc != kMapSrc, kSrc == kChunkSrc>(
+                ft, smem, scale_in, det, scale_out, row_max, n_dets, c);
             return;
         }
     }
     decide_block<V, fmcw::MapSem<V>, V, S, HR, GR, kPacked, kD,
-                 kSrc != kMapSrc>(tile, smem, scale_in, det, scale_out,
-                                  row_max, n_dets, c);
+                 kSrc != kMapSrc, kSrc == kChunkSrc>(
+        tile, smem, scale_in, det, scale_out, row_max, n_dets, c);
 }
 
 template <typename V, int S, int HR, int GR, bool kPacked, int kD = 0,
@@ -511,7 +603,8 @@ int launch_variant(const void* map, const void* scale_in, void* det,
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((c.R + c.T - 1) / c.T, c.batch);
+    const int n_chunks = kSrc == kChunkSrc ? (c.D + c.W - 1) / c.W : 1;
+    const dim3 grid((c.R + c.T - 1) / c.T * n_chunks, c.batch);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const V*>(map), static_cast<const int*>(scale_in),
         static_cast<V*>(det), static_cast<int*>(scale_out),
@@ -579,30 +672,36 @@ int launch_flat(const void* ext, void* det, void* scale_out,
         ext, nullptr, det, scale_out, nullptr, nullptr, c, s);
 }
 
-// The reflect entry's variants: the same choice, with only the default
-// window (6, 2) unrolled at its pitch of 128 + 10 columns.
-template <typename V>
-int launch_reflect(const void* map, const void* scale_in, void* det,
-                   void* scale_out, const CfarDetectConfig& c,
-                   cudaStream_t s) {
+// The reflect entry's variants (kSrc = kReflectSrc) and the column chunks'
+// (kChunkSrc): the same choice, with only the reflect entry's default
+// window (6, 2) unrolled, at its pitch of 128 + 10 columns at D = 128 (a
+// chunk has that pitch only at widths of 3688 and more, where one variant
+// fewer saves build time).
+template <typename V, int kSrc>
+int launch_halo(const void* map, const void* scale_in, void* det,
+                void* scale_out, void* row_max, void* n_dets,
+                const CfarDetectConfig& c, cudaStream_t s) {
     constexpr int S = fmcw::kStrip;
     if (c.strip == 1)
-        return launch_variant<V, 1, 0, 0, false, 0, kReflectSrc>(
-            map, scale_in, det, scale_out, nullptr, nullptr, c, s);
+        return launch_variant<V, 1, 0, 0, false, 0, kSrc>(
+            map, scale_in, det, scale_out, row_max, n_dets, c, s);
     if (!c.packed)
-        return launch_variant<V, S, 0, 0, false, 0, kReflectSrc>(
-            map, scale_in, det, scale_out, nullptr, nullptr, c, s);
-    if (c.hr == 6 && c.gr == 2 && pitch(c) == 138)
-        return launch_variant<V, S, 6, 2, true, 138, kReflectSrc>(
-            map, scale_in, det, scale_out, nullptr, nullptr, c, s);
-    return launch_variant<V, S, 0, 0, true, 0, kReflectSrc>(
-        map, scale_in, det, scale_out, nullptr, nullptr, c, s);
+        return launch_variant<V, S, 0, 0, false, 0, kSrc>(
+            map, scale_in, det, scale_out, row_max, n_dets, c, s);
+    if constexpr (kSrc == kReflectSrc) {
+        if (c.hr == 6 && c.gr == 2 && pitch(c) == 138)
+            return launch_variant<V, S, 6, 2, true, 138, kSrc>(
+                map, scale_in, det, scale_out, row_max, n_dets, c, s);
+    }
+    return launch_variant<V, S, 0, 0, true, 0, kSrc>(
+        map, scale_in, det, scale_out, row_max, n_dets, c, s);
 }
 
 // The checks both kinds of entry share.
 bool config_ok(const CfarDetectConfig& c) {
     return c.batch >= 1 && c.batch <= 65535 && c.R >= 1 && c.D >= 1 &&
-           c.T >= 1 && c.hr >= c.gr && c.hd >= c.gd && c.gr >= 0 &&
+           c.T >= 1 && c.W >= 1 && c.W <= c.D && c.hr >= c.gr &&
+           c.hd >= c.gd && c.gr >= 0 &&
            c.gd >= 0 && c.so >= 0 && c.k >= 1 && c.k <= c.n_ref &&
            c.float_max >= 0 && c.float_max < (1 << 23) &&
            (c.strip == 1 || (c.strip == fmcw::kStrip && c.T >= c.strip)) &&
@@ -617,7 +716,8 @@ int run_flat(const void* ext, void* det, void* scale_out,
     // Every padded row lies inside its frame's ext stream.
     const long lo = (long)c.start0 - (long)c.hr * c.D - c.hd;
     const long hi = (long)c.start0 + (long)(c.R + c.hr) * c.D + c.hd;
-    if (!config_ok(c) || c.flat != 1 || c.block_mode || c.prepadded ||
+    if (!config_ok(c) || c.flat != 1 || c.W != c.D || c.block_mode ||
+        c.prepadded ||
         c.reflect || c.pgr != -1 || lo < 0 || hi > c.stride)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
@@ -636,11 +736,22 @@ int run(const void* map, const void* scale_in, void* det, void* scale_out,
         (c.block_mode && scale_in == nullptr))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
+    if (c.W < c.D)
+        return c.integer
+                   ? launch_halo<int, kChunkSrc>(map, scale_in, det,
+                                                 scale_out, row_max, n_dets,
+                                                 c, s)
+                   : launch_halo<float, kChunkSrc>(map, scale_in, det,
+                                                   scale_out, row_max,
+                                                   n_dets, c, s);
     if (c.reflect)
         return c.integer
-                   ? launch_reflect<int>(map, scale_in, det, scale_out, c, s)
-                   : launch_reflect<float>(map, scale_in, det, scale_out, c,
-                                           s);
+                   ? launch_halo<int, kReflectSrc>(map, scale_in, det,
+                                                   scale_out, nullptr,
+                                                   nullptr, c, s)
+                   : launch_halo<float, kReflectSrc>(map, scale_in, det,
+                                                     scale_out, nullptr,
+                                                     nullptr, c, s);
     return c.integer ? launch<int>(map, scale_in, det, scale_out, row_max,
                                    n_dets, c, s)
                      : launch<float>(map, scale_in, det, scale_out, row_max,
@@ -654,8 +765,8 @@ int run(const void* map, const void* scale_in, void* det, void* scale_out,
 // (batch, R, D) with block_mode, else null; scale_out: int32 (batch, R,
 // D).  strip: 8 (fmcw::kStrip, T >= 8) or 1; packed: hi and lo in one count
 // (n_ref <= 4094); pgr -1; reflect: numpy's mirror in place of the wrap
-// (hr < R unless prepadded, hd < D).  Returns the CUDA error code of the
-// launch (0 on success).
+// (hr < R unless prepadded, hd < D); W: D (whole rows) or a chunk of fewer
+// columns.  Returns the CUDA error code of the launch (0 on success).
 extern "C" int fmcw_cfar_detect(const void* map, const void* scale_in,
                                 void* det, void* scale_out,
                                 const CfarDetectConfig* cfg, void* stream) {
@@ -664,8 +775,8 @@ extern "C" int fmcw_cfar_detect(const void* map, const void* scale_in,
 }
 
 // The grouping entry: as fmcw_cfar_detect on a whole map (not prepadded,
-// wrap edges) with pgr >= 0; row_max: the map's type (batch, R); n_dets: int32
-// (batch,), zeroed by the caller.
+// wrap edges) with pgr >= 0; row_max: the map's type (batch, R), zeroed by
+// the caller where W < D; n_dets: int32 (batch,), zeroed by the caller.
 extern "C" int fmcw_cfar_detect_group(const void* map, const void* scale_in,
                                       void* det, void* scale_out,
                                       void* row_max, void* n_dets,
@@ -682,7 +793,7 @@ extern "C" int fmcw_cfar_detect_group(const void* map, const void* scale_in,
 // range axis; lanes: the stream's Doppler axis), no wrap on either axis:
 // every window reads its halo from the stream, row carry included.  det:
 // the stream's type (batch, R, D); scale_out: int32 (batch, R, D).  No
-// block scale, no grouping, not prepadded.
+// block scale, no grouping, not prepadded, whole rows (W = D).
 extern "C" int fmcw_cfar_detect_flat(const void* ext, void* det,
                                      void* scale_out,
                                      const CfarDetectConfig* cfg,

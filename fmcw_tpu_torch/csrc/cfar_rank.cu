@@ -74,6 +74,24 @@
 // hd < D.  No grouping: peak grouping wraps whatever the edges (the plain
 // ops/cfar.peak_group follows, ops/cfar_rank.cfar_rank_then_group).
 //
+// Column chunks (W < D: maps wider than a tile of whole rows fits, at
+// the repository's window 584 columns and up with the grouping entry's 16
+// key bits): a block takes a tile of T rows x a chunk of W columns, the
+// model of the decide kernel (slowtime_long.cuh).  It loads T + 2 (hr +
+// pgr) rows of W + 2 (hd + pgr) columns, tile column x holding map column
+// c0 - pgr - hd + x wrapped modulo D (the reflect entry: mirrored,
+// fmcw::chunk_col), so every window and grouping neighbourhood of its
+// cells lies in the tile unwrapped; builds the bit planes over those
+// columns (extended column x = tile column x), the column sums over them,
+// and decides its T + 2 pgr rows x W + 2 pgr columns with the same walks;
+// the box sums add the same column sums in the same order, so est, scale,
+// threshold and det are the whole-row tile's bit for bit.  It stores its T
+// x W cells (a ragged last chunk only the columns below D), groups them
+// with fmcw::group_store_chunk and combines its row maxima by atomicMax on
+// the ordered image into a row_max the caller zeroed.  The tile's layout
+// then depends on W, not on D.  Whole rows (W = D) keep the launches they
+// had (ops/cfar_rank.tile_plan picks W).
+//
 // Bound on an H100: the POPC pipe — per cell bits x ceil((2 hr + 1) / 2)
 // population counts (16 a clock an SM), ~2.5 integer ops beside each (64
 // a clock) — against 16 bytes in and out per cell (20 with a scale map).
@@ -91,6 +109,7 @@ struct CfarRankConfig {
     int block_mode, so, integer, prepadded, bits;
     int pgr;    // grouping radius; -1: no grouping (det as decided)
     int reflect;    // numpy's "reflect" edges (rows too unless prepadded)
+    int W;      // columns a block decides: D (whole rows), or a chunk
 };
 
 namespace {
@@ -104,19 +123,38 @@ struct Layout {
     int tile, planes, cs_full, cs_guard, det_s, rmax, counts, total;
 };
 
+// The tile's row pitch P and the columns NC its block decides: whole rows
+// (P = NC = D, columns wrapped or mirrored where they are read), or a chunk
+// (P = W + 2 (hd + pgr) columns that carry the window and grouping halo,
+// NC = W + 2 pgr).
+__host__ __device__ inline bool chunked(const CfarRankConfig& c) {
+    return c.W < c.D;
+}
+
+__host__ __device__ inline int pitch(const CfarRankConfig& c) {
+    const int pg = c.pgr > 0 ? c.pgr : 0;
+    return chunked(c) ? c.W + 2 * (c.hd + pg) : c.D;
+}
+
+__host__ __device__ inline int decided_cols(const CfarRankConfig& c) {
+    const int pg = c.pgr > 0 ? c.pgr : 0;
+    return chunked(c) ? c.W + 2 * pg : c.D;
+}
+
 __host__ __device__ inline Layout layout(const CfarRankConfig& c) {
     const int pg = c.pgr > 0 ? c.pgr : 0;
     const int E = c.T + 2 * (c.hr + pg);        // tile rows
     const int rows = c.T + 2 * pg;              // decided rows
-    const int npair = (c.D + 31) / 32;
+    const int P = pitch(c), NC = decided_cols(c);
+    const int npair = (NC + 31) / 32;
     const bool colsums = !c.block_mode && c.so == 0;
     Layout l;
     l.tile = 0;
-    l.planes = (E * c.D + 1) & ~1;              // 8-byte aligned pairs
+    l.planes = (E * P + 1) & ~1;                // 8-byte aligned pairs
     l.cs_full = l.planes + 2 * c.bits * npair * E;
-    l.cs_guard = l.cs_full + (colsums ? rows * c.D : 0);
-    l.det_s = l.cs_guard + (colsums ? rows * c.D : 0);
-    l.rmax = l.det_s + (c.pgr >= 0 ? rows * c.D : 0);
+    l.cs_guard = l.cs_full + (colsums ? rows * P : 0);
+    l.det_s = l.cs_guard + (colsums ? rows * P : 0);
+    l.rmax = l.det_s + (c.pgr >= 0 ? rows * NC : 0);
     l.counts = l.rmax + (c.pgr >= 0 ? c.T : 0);
     l.total = l.counts + (c.pgr >= 0 ? 2 : 0);
     return l;
@@ -278,9 +316,12 @@ __device__ __forceinline__ void walk_cells(const uint2* planes, int E,
 }
 
 // kReflect: the reflect entry (mirrored rows, plane columns and box-sum
-// columns); the wrap instantiations keep their code.
-template <typename V, int NR, bool kReflect>
-__global__ void __launch_bounds__(kThreads, 2)
+// columns); the wrap instantiations keep their code.  kChunk: a chunk of
+// W columns (chunked(c)); whole rows keep their code.  A chunk's walk of
+// a window whose rows are known at run time only (NR = 0) takes the
+// registers of one block an SM (at two it spills).
+template <typename V, int NR, bool kReflect, bool kChunk>
+__global__ void __launch_bounds__(kThreads, kChunk && NR == 0 ? 1 : 2)
 cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
                  V* __restrict__ det, V* __restrict__ thr,
                  int* __restrict__ scale_out, V* __restrict__ row_max,
@@ -300,9 +341,15 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
     const int E = c.T + 2 * H;
     const int rows = c.T + 2 * pg;              // decided rows
     const int D = c.D;
-    const int npair = (D + 31) / 32;
+    const int P = kChunk ? pitch(c) : D;        // the tile's row pitch
+    const int NC = kChunk ? decided_cols(c) : D;
+    const int npair = (NC + 31) / 32;
     const int b = blockIdx.y;
-    const int r0 = blockIdx.x * c.T;
+    const int n_chunks = kChunk ? (D + c.W - 1) / c.W : 1;
+    const int r0 = (kChunk ? blockIdx.x / n_chunks : blockIdx.x) * c.T;
+    // The chunk's first column, and the map column of tile column 0.
+    const int c0 = kChunk ? (blockIdx.x % n_chunks) * c.W : 0;
+    const int x0 = c0 - pg - c.hd;
     const int tid = threadIdx.x;
     const int rows_in = c.prepadded ? c.R + 2 * c.hr : c.R;
     const V* src = map + (size_t)b * rows_in * D;
@@ -314,7 +361,13 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
         return kReflect ? fmcw::reflect_mod(r0 - H + e, c.R)
                         : fmcw::wrap_mod(r0 - H + e, c.R);
     };
-    if ((D & 3) == 0 && ((uintptr_t)src & 15) == 0) {
+    if (kChunk) {
+        for (int idx = tid; idx < E * P; idx += kThreads) {
+            const int e = idx / P;
+            tile[idx] = src[(size_t)map_row(e) * D +
+                            fmcw::chunk_col(x0 + idx - e * P, D, kReflect)];
+        }
+    } else if ((D & 3) == 0 && ((uintptr_t)src & 15) == 0) {
         const int D4 = D >> 2;
 #pragma unroll 4
         for (int idx = tid; idx < E * D4; idx += kThreads) {
@@ -338,7 +391,9 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
     //         (extended columns 32 w .. 32 w + 31), lane i keeps plane i's
     //         ballot and stores it as word w of pair w and word w - 1 ... of
     //         pair w - 1.  Planes are [bit][pair][tile row].  Extended
-    //         column x holds column x - hd mod D, or reflect(x - hd).
+    //         column x holds column x - hd mod D, or reflect(x - hd); in a
+    //         chunk tile column x (keys past the tile 0: no window reaches
+    //         them).
     const int top = c.integer ? c.bits - 1 : 30;
     const int kmax = (int)((2u << top) - 1u);
     {
@@ -347,10 +402,16 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
         for (int u = tid >> 5; u < E * nw; u += kThreads / 32) {
             const int e = u / nw;
             const int w = u % nw;
-            const int x = 32 * w + lane - c.hd;
-            const int col = kReflect ? fmcw::reflect_mod(x, D)
-                                     : fmcw::wrap_mod(x, D);
-            const int key = key_of(tile[e * D + col]);
+            int key;
+            if (kChunk) {
+                const int x = 32 * w + lane;
+                key = x < P ? key_of(tile[e * P + x]) : 0;
+            } else {
+                const int x = 32 * w + lane - c.hd;
+                const int col = kReflect ? fmcw::reflect_mod(x, D)
+                                         : fmcw::wrap_mod(x, D);
+                key = key_of(tile[e * D + col]);
+            }
             const int kc = key < 0 ? 0 : (key > kmax ? kmax : key);
             unsigned mine = 0;
             for (int i = 0; i < c.bits; ++i) {
@@ -366,18 +427,19 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
         }
     }
     //         Column sums of the per-cell scale: rows e - hr .. e + hr and
-    //         e - gr .. e + gr of each decided tile row e, ascending.
+    //         e - gr .. e + gr of each decided tile row e, ascending, over
+    //         every column of the tile.
     const bool colsums = !c.block_mode && c.so == 0;
     if (colsums) {
-        for (int idx = tid; idx < rows * D; idx += kThreads) {
-            const int t = idx / D;
-            const int d = idx % D;
-            const V* col = tile + t * D + d;    // window row 0 of row t + hr
+        for (int idx = tid; idx < rows * P; idx += kThreads) {
+            const int t = idx / P;
+            const int d = idx % P;
+            const V* col = tile + t * P + d;    // window row 0 of row t + hr
             V f = col[0];
-            for (int i = 1; i <= 2 * c.hr; ++i) f = fmcw::vadd(f, col[i * D]);
-            V gs = col[(c.hr - c.gr) * D];
+            for (int i = 1; i <= 2 * c.hr; ++i) f = fmcw::vadd(f, col[i * P]);
+            V gs = col[(c.hr - c.gr) * P];
             for (int i = c.hr - c.gr + 1; i <= c.hr + c.gr; ++i)
-                gs = fmcw::vadd(gs, col[i * D]);
+                gs = fmcw::vadd(gs, col[i * P]);
             cs_full[idx] = f;
             cs_guard[idx] = gs;
         }
@@ -391,41 +453,50 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
                                 << (c.hd - c.gd);
     const int bit_stride = npair * E;
     const size_t out0 = ((size_t)b * c.R + r0) * D;
-    // The column of window column d + j: wrapped, or mirrored (hd < D).
-    auto wcol = [&](int j) {
-        return kReflect ? fmcw::mirror_col(j, D) : fmcw::wrap_col(j, D);
+    // The column of window column d + j: wrapped, or mirrored (hd < D); in
+    // a chunk, decided column d's window column j lies at tile column d +
+    // hd + j.
+    auto wcol = [&](int d, int j) {
+        if (kChunk) return d + c.hd + j;
+        return kReflect ? fmcw::mirror_col(d + j, D)
+                        : fmcw::wrap_col(d + j, D);
     };
+    const int off = kChunk ? c.hd : 0;          // tile column of column 0
     auto decide = [&](int t, int d, int prefix) {
         const V est = from_key(prefix, (V*)nullptr);
         const int mrow = r0 - pg + t;           // map row of the cell
+        const int mcol = kChunk ? c0 - pg + d : d;  // map column (< D:
+                                                // stored, or whole rows)
         int sc;
         if (c.so != 0) {
             sc = c.so;
         } else if (c.block_mode) {
             int rr = mrow % c.R;
             if (rr < 0) rr += c.R;
-            sc = scale_in[((size_t)b * c.R + rr) * D + d];
+            sc = scale_in[((size_t)b * c.R + rr) * D +
+                          (kChunk ? fmcw::wrap_mod(mcol, D) : d)];
         } else {
-            const V* cf = cs_full + t * D;
-            const V* cg = cs_guard + t * D;
-            V full = cf[wcol(d - c.hd)];
+            const V* cf = cs_full + t * P;
+            const V* cg = cs_guard + t * P;
+            V full = cf[wcol(d, -c.hd)];
             for (int j = -c.hd + 1; j <= c.hd; ++j)
-                full = fmcw::vadd(full, cf[wcol(d + j)]);
-            V guard = cg[wcol(d - c.gd)];
+                full = fmcw::vadd(full, cf[wcol(d, j)]);
+            V guard = cg[wcol(d, -c.gd)];
             for (int j = -c.gd + 1; j <= c.gd; ++j)
-                guard = fmcw::vadd(guard, cg[wcol(d + j)]);
+                guard = fmcw::vadd(guard, cg[wcol(d, j)]);
             V t_hi, t_lo;
             fmcw::scale_thresholds(fmcw::vsub(full, guard), c.n_ref, t_hi,
                                    t_lo);
             sc = est > t_hi ? c.scale_max
                             : (est < t_lo ? c.scale_min : c.scale_nom);
         }
-        const V cut = tile[(t + c.hr) * D + d];
+        const V cut = tile[(t + c.hr) * P + off + d];
         const V threshold = scaled(est, sc);
         const bool pass = cut > threshold;
-        const bool own = t >= pg && t < pg + c.T;
+        const bool own = t >= pg && t < pg + c.T &&
+                         (!kChunk || (d >= pg && d < pg + c.W && mcol < D));
         if (own) {
-            const size_t o = out0 + (size_t)(t - pg) * D + d;
+            const size_t o = out0 + (size_t)(t - pg) * D + mcol;
             thr[o] = threshold;
             scale_out[o] = sc;
             if (!group) det[o] = pass ? cut : V(0);
@@ -433,13 +504,13 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
         // Grouping drops what peak_group drops: with a radius, a
         // non-positive CUT (an integer threshold that wrapped) never stays.
         if (group)
-            det_s[t * D + d] = pass && (pg == 0 || cut > V(0)) ? cut : V(0);
+            det_s[t * NC + d] = pass && (pg == 0 || cut > V(0)) ? cut : V(0);
     };
     const int nrows = 2 * c.hr + 1;
     bool done = false;
     if constexpr (NR > 0) {
         if (rows >= kStrip && W <= 16) {
-            walk_cells<NR, kStrip, true>(planes, E, rows, D, bit_stride,
+            walk_cells<NR, kStrip, true>(planes, E, rows, NC, bit_stride,
                                          nrows, c.hr - c.gr, c.hr + c.gr,
                                          field_mask, guard_mask, c.bits, top,
                                          c.k, decide);
@@ -447,31 +518,42 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
         }
     }
     if (!done)
-        walk_cells<NR, 1, false>(planes, E, rows, D, bit_stride, nrows,
+        walk_cells<NR, 1, false>(planes, E, rows, NC, bit_stride, nrows,
                                  c.hr - c.gr, c.hr + c.gr, field_mask,
                                  guard_mask, c.bits, top, c.k, decide);
     if (!group) return;
     __syncthreads();
 
-    // ---- 4. Peak grouping of the T rows, row maxima and the count.
-    fmcw::group_store(det_s, tile, c.T, H, pg, c.R, D, r0, out0, det,
-                      (V*)nullptr, rmax_s, counts);
+    // ---- 4. Peak grouping of the T rows, row maxima and the count (a
+    //         chunk's row maxima combined with the other chunks').
+    if constexpr (kChunk)
+        fmcw::group_store_chunk(det_s, c.T, c.W, pg, c.R, D, r0, c0,
+                                det + (size_t)b * c.R * D, rmax_s, counts);
+    else
+        fmcw::group_store(det_s, tile, c.T, H, pg, c.R, D, r0, out0, det,
+                          (V*)nullptr, rmax_s, counts);
     __syncthreads();
-    for (int t = tid; t < c.T; t += kThreads)
-        row_max[(size_t)b * c.R + r0 + t] = from_key(rmax_s[t], (V*)nullptr);
+    for (int t = tid; t < c.T; t += kThreads) {
+        if constexpr (kChunk)
+            fmcw::merge_row_max(row_max + (size_t)b * c.R + r0 + t,
+                                rmax_s[t]);
+        else
+            row_max[(size_t)b * c.R + r0 + t] =
+                from_key(rmax_s[t], (V*)nullptr);
+    }
     if (tid == 0 && counts[0]) atomicAdd(&n_dets[b], counts[0]);
 }
 
-template <typename V, int NR, bool kReflect = false>
+template <typename V, int NR, bool kReflect = false, bool kChunk = false>
 int launch_nr(const void* map, const void* scale_in, void* det, void* thr,
               void* scale_out, void* row_max, void* n_dets,
               const CfarRankConfig& c, cudaStream_t stream) {
     const size_t smem = (size_t)layout(c).total * 4;
-    auto* kernel = cfar_rank_kernel<V, NR, kReflect>;
+    auto* kernel = cfar_rank_kernel<V, NR, kReflect, kChunk>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid(c.R / c.T, c.batch);
+    const dim3 grid((c.R / c.T) * ((c.D + c.W - 1) / c.W), c.batch);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const V*>(map), static_cast<const int*>(scale_in),
         static_cast<V*>(det), static_cast<V*>(thr),
@@ -481,12 +563,29 @@ int launch_nr(const void* map, const void* scale_in, void* det, void* thr,
 }
 
 // The repository's windows (hr 6: 13 rows; hr 3: 7 rows) walk unrolled;
-// the reflect entry unrolls only the default window (each unrolled variant
-// costs build time).
+// the reflect entry and the chunks unroll only the default window (each
+// unrolled variant costs build time; the hr 3 window's maps, 128 x 32,
+// never chunk).
 template <typename V>
 int launch(const void* map, const void* scale_in, void* det, void* thr,
            void* scale_out, void* row_max, void* n_dets,
            const CfarRankConfig& c, cudaStream_t s) {
+    if (chunked(c)) {
+        if (c.reflect)
+            return c.hr == 6
+                       ? launch_nr<V, 13, true, true>(map, scale_in, det, thr,
+                                                      scale_out, row_max,
+                                                      n_dets, c, s)
+                       : launch_nr<V, 0, true, true>(map, scale_in, det, thr,
+                                                     scale_out, row_max,
+                                                     n_dets, c, s);
+        if (c.hr == 6)
+            return launch_nr<V, 13, false, true>(map, scale_in, det, thr,
+                                                 scale_out, row_max, n_dets,
+                                                 c, s);
+        return launch_nr<V, 0, false, true>(map, scale_in, det, thr,
+                                            scale_out, row_max, n_dets, c, s);
+    }
     if (c.reflect)
         return c.hr == 6
                    ? launch_nr<V, 13, true>(map, scale_in, det, thr,
@@ -505,7 +604,8 @@ int launch(const void* map, const void* scale_in, void* det, void* thr,
 
 }  // namespace
 
-// Shared memory bytes of a configuration (the wrapper picks T with it).
+// Shared memory bytes of a configuration (ops/cfar_rank.tile_bytes mirrors
+// it; chip_smoke.py holds the two equal).
 extern "C" int fmcw_cfar_rank_smem(const CfarRankConfig* cfg) {
     return layout(*cfg).total * 4;
 }
@@ -514,7 +614,9 @@ extern "C" int fmcw_cfar_rank_smem(const CfarRankConfig* cfg) {
 // D) with prepadded; det, thr: the map's type (batch, R, D); scale_in: int32
 // (batch, R, D) with block_mode, else null; scale_out: int32 (batch, R, D);
 // with pgr >= 0 (grouping; not prepadded) row_max: the map's type (batch,
-// R) and n_dets: int32 (batch,), zeroed by the caller, else null.
+// R) and n_dets: int32 (batch,), zeroed by the caller, else null.  W: D
+// (whole rows) or a chunk of fewer columns (row_max then zeroed by the
+// caller too).
 // reflect: numpy's mirror in place of the wrap (hr < R unless prepadded,
 // hd < D; no grouping).  Returns the CUDA error code of the launch (0 on
 // success).
@@ -525,6 +627,7 @@ extern "C" int fmcw_cfar_rank(const void* map, const void* scale_in,
     const CfarRankConfig c = *cfg;
     const bool group = c.pgr >= 0;
     if (c.batch < 1 || c.batch > 65535 || c.T < 1 || c.R % c.T != 0 ||
+        c.W < 1 || c.W > c.D ||
         c.hd >= c.D || 2 * c.hd + 1 > 32 || c.hr < c.gr || c.hd < c.gd ||
         c.gr < 0 || c.gd < 0 || 2 * c.hr + 1 > kMaxRows || c.so < 0 ||
         c.k < 1 || c.k > c.n_ref || c.bits < 1 || c.bits > 31 ||

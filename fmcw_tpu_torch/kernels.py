@@ -81,7 +81,7 @@ class CfarDetectConfig(ctypes.Structure):
         "scale_min", "scale_nom", "scale_max",
         "block_mode", "so", "integer", "prepadded",
         "strip", "packed", "pgr", "float_max", "flat", "start0", "stride",
-        "reflect")]
+        "reflect", "W")]
 
 
 class CfarRankConfig(ctypes.Structure):
@@ -91,7 +91,7 @@ class CfarRankConfig(ctypes.Structure):
         "hr", "hd", "gr", "gd", "n_ref", "k",
         "scale_min", "scale_nom", "scale_max",
         "block_mode", "so", "integer", "prepadded", "bits", "pgr",
-        "reflect")]
+        "reflect", "W")]
 
 
 class Cfar3dConfig(ctypes.Structure):
@@ -100,7 +100,7 @@ class Cfar3dConfig(ctypes.Structure):
         "batch", "A", "R", "D", "T", "ha", "ga",
         "hr", "hd", "gr", "gd", "n_ref", "k",
         "scale_min", "scale_nom", "scale_max", "so", "integer", "prepadded",
-        "strip", "packed", "reflect")]
+        "strip", "packed", "reflect", "W")]
 
 
 class BeamGroupConfig(ctypes.Structure):

@@ -179,6 +179,7 @@ import torch
 from ..device import resolve_device
 from ..params import RadarParams
 from ..ops import beamform as BF, cfar as C, detect as DET
+from ..ops import cfar3d_detect as C3, cfar_detect as CD, cfar_rank as RK
 from ..ops import frontend as F, frontend_fixed as FX
 from ..ops.beam_group import beam_group, beam_group_plain
 from ..ops.cfar3d_detect import cfar3d_detect, cfar3d_detect_plain
@@ -283,19 +284,67 @@ def scaled_schedules(p: RadarParams, fixed_fft: str, mode: str,
     return sch
 
 
-def cfar_group_route(cfar, plain: bool = False) -> Callable:
+def cfar_group_route(cfar, plain: bool, shape,
+                     peak_group_radius: int = 0) -> Callable:
     """The CFAR and grouping of a route that decides on its magnitude maps
     (the staged routes, and every route under reflect edges), with
     ``cfar_detect_group``'s signature and outputs: for OS its grouping
     entry with wrap edges, the reflect entry then the plain grouping
     (``cfar_detect_then_group``) with reflect edges, the twins on "plain"
-    (``plain``); the plain ``ops/cfar.cfar_2d_group`` for CA/GO/SO."""
+    (``plain``); the plain ``ops/cfar.cfar_2d_group`` for CA/GO/SO.  The
+    kernel it returns is asked on the host, on every device, whether it
+    takes the (R, D) maps ``shape`` the step will take
+    (``ops/cfar_detect.check_kernel``: its window checks and tile plan), so
+    that a processor refuses at build, with its NotImplementedError, what
+    the card would refuse at the call."""
     if cfar.variant != "os":
         return C.cfar_2d_group
     if plain:
         return cfar_detect_group_plain
-    return (cfar_detect_group if cfar.edge_mode == "wrap"
-            else cfar_detect_then_group)
+    wrap = cfar.edge_mode == "wrap"
+    CD.check_kernel(*shape, cfar, peak_group_radius if wrap else -1,
+                    cfar.scale_mode == "block")
+    return cfar_detect_group if wrap else cfar_detect_then_group
+
+
+def cfar_decide_route(cfar, route: str, shape, peak_group_radius: int,
+                      include_debug: bool, bits: int | None) -> Callable:
+    """``make_batch_processor``'s CFAR and grouping on (R, D) magnitude maps
+    (``shape``) for the routes that decide on them (the staged routes, the
+    debug taps, reflect edges): ``fn(mag, so) -> (det, threshold, scale,
+    row_max, n_dets)``, threshold and scale the debug taps (None without
+    them), row_max and n_dets None where the grouping is plain.  Without
+    the taps ``cfar_group_route``; with them the rank-select CFAR (its
+    grouping entry, or under reflect the reflect entry then the plain
+    grouping), its twin on "plain", the plain ``ops/cfar.cfar_2d`` for
+    CA/GO/SO.  The kernel chosen is asked at once whether it takes the maps
+    (``cfar_group_route``, ``ops/cfar_rank.check_kernel``)."""
+    plain = route == "plain"
+    pgr = peak_group_radius
+    if not include_debug:
+        step = cfar_group_route(cfar, plain, shape, pgr)
+
+        def decide(mag, so):
+            det, scale, row_max, n_dets = step(mag, so, cfar=cfar,
+                                               peak_group_radius=pgr)
+            return det, None, scale, row_max, n_dets
+        return decide
+    if cfar.variant == "os" and not plain:
+        wrap = cfar.edge_mode == "wrap"
+        RK.check_kernel(*shape, cfar, bits, pgr if wrap else -1,
+                        cfar.scale_mode == "block")
+        step = cfar_rank_group if wrap else cfar_rank_then_group
+        return lambda mag, so: step(mag, so, cfar=cfar, bits=bits,
+                                    peak_group_radius=pgr)
+
+    def decide_plain(mag, so):
+        if cfar.variant != "os":
+            det, threshold, scale = C.cfar_2d(mag, so, cfar, need_debug=True)
+        else:
+            det, threshold, scale = cfar_rank_plain(mag, so, cfar=cfar,
+                                                    bits=bits)
+        return C.peak_group(det, pgr), threshold, scale, None, None
+    return decide_plain
 
 
 def _plain_cfar3d(cube, scale_override=0, *, cfar, ref_angle,
@@ -305,14 +354,24 @@ def _plain_cfar3d(cube, scale_override=0, *, cfar, ref_angle,
     return det, scale
 
 
-def cfar3d_route(cfar, plain: bool) -> Callable:
+def cfar3d_route(cfar, plain: bool, shape, ref_angle: int,
+                 guard_angle: int = 0, prepadded: bool = False) -> Callable:
     """The angle-extended CFAR's decision, ``cfar3d_detect``'s signature:
     the 3D CFAR kernel (its twin on "plain") for OS, the plain
     ``ops/cfar.cfar_3d`` for CA/GO/SO (JAX's ``cfar_3d`` sends them to its
-    XLA body)."""
+    XLA body).  The kernel is asked on the host, on every device, whether
+    it takes the (n_beams, R, D) planes ``shape`` of a cube (a beam shard's
+    own planes, its halo planes added, with ``prepadded``;
+    ``ops/cfar3d_detect.cfar3d_config``), as ``cfar_group_route`` asks."""
     if cfar.variant != "os":
         return _plain_cfar3d
-    return cfar3d_detect_plain if plain else cfar3d_detect
+    if plain:
+        return cfar3d_detect_plain
+    A, R, D = shape
+    ha = ref_angle + guard_angle
+    C3.cfar3d_config((1, A + (2 * ha if prepadded else 0), R, D), cfar,
+                     ref_angle, guard_angle, prepadded_angle=prepadded)
+    return cfar3d_detect
 
 
 def make_batch_processor(params: RadarParams | None = None,
@@ -399,12 +458,20 @@ def make_batch_processor(params: RadarParams | None = None,
                 "(fused_fixed_detect_supported)")
     max_dets = p.tracker.max_dets
     bits = debug_bits(p.cfar, mode == "fixed", cfar_rank_bits)
-    # The debug taps' rank select: its grouping entry, or under reflect
-    # the reflect entry then the plain grouping.
-    rank_step = cfar_rank_then_group if standalone else cfar_rank_group
+    # The standalone CFAR step, chosen here, its kernel asked at once
+    # whether it takes the maps: the flat-stream entry for hw-compat, else
+    # on the routes that decide on their magnitude maps.
+    hw_decide = cfar_detect_hw_stream
+    if hw and route == "plain":
+        hw_decide = C.hw_stream_decide_plain
+    elif hw:
+        CD.check_flat_kernel(p.n_range, p.n_doppler, p.cfar)
+    decide = None
+    if not hw and (route == "staged" or include_debug or standalone
+                   or scaled):
+        decide = cfar_decide_route(p.cfar, route, (p.n_range, p.n_doppler),
+                                   peak_group_radius, include_debug, bits)
     hlen = 2 * hw_stream_lag(p.cfar, p.n_doppler)
-    decide = (C.hw_stream_decide_plain if route == "plain"
-              else cfar_detect_hw_stream)
 
     def magnitudes(iq, bypass):
         """The route's magnitude maps for the standalone CFAR: (mag,
@@ -439,7 +506,7 @@ def make_batch_processor(params: RadarParams | None = None,
         det, threshold, scale, *carry = C.cfar_2d_hw_stream(
             mag, so, cfar=p.cfar, integer=mode == "fixed", hist=hist,
             streaming=streaming, need_debug=include_debug, label_roll=False,
-            decide=decide)
+            decide=hw_decide)
         det = C.peak_group(det, peak_group_radius)
         shift = C.hw_stream_label_shift(p.cfar, p.n_doppler, streaming)
         det = torch.roll(det.reshape(det.shape[0], -1), -shift,
@@ -458,24 +525,9 @@ def make_batch_processor(params: RadarParams | None = None,
         if hw:
             det, mag, sat, nonfinite, threshold, scale, carry = hw_stream(
                 iq, bypass, so, hist, streaming)
-        elif route == "staged" or include_debug or standalone or scaled:
+        elif decide is not None:
             mag, sat, nonfinite = magnitudes(iq, bypass)
-            if include_debug and p.cfar.variant != "os":
-                det, threshold, scale = C.cfar_2d(mag, so, p.cfar,
-                                                  need_debug=True)
-                det = C.peak_group(det, peak_group_radius)
-            elif include_debug and route != "plain":
-                det, threshold, scale, row_max, n_dets = rank_step(
-                    mag, so, cfar=p.cfar, bits=bits,
-                    peak_group_radius=peak_group_radius)
-            elif include_debug:
-                det, threshold, scale = cfar_rank_plain(mag, so, cfar=p.cfar,
-                                                        bits=bits)
-                det = C.peak_group(det, peak_group_radius)
-            else:
-                det, _, row_max, n_dets = cfar_group_route(
-                    p.cfar, route == "plain")(
-                    mag, so, cfar=p.cfar, peak_group_radius=peak_group_radius)
+            det, threshold, scale, row_max, n_dets = decide(mag, so)
         elif mode == "fixed":
             det, mag, sat, row_max, n_dets = FX.rdm_frontend_fixed_detect(
                 iq, bypass, so, cfar=p.cfar, notch_mode=p.notch_mode,
@@ -642,8 +694,14 @@ def make_batch_array_processor(params: RadarParams | None = None,
                  exact_mag=magnitude_exact)
     range_fft = F.range_fft_float_plain if plain else F.range_fft_float
     detect = F.slowtime_detect_plain if plain else F.slowtime_detect
-    cfar3d = cfar3d_route(p.cfar, plain)
-    cfar2d = cfar_group_route(p.cfar, plain)
+    # The standalone CFAR per beam (staged, reflect) or the 3D CFAR, their
+    # kernels asked at once whether they take the maps.
+    cfar3d = cfar2d = None
+    if ref_angle > 0:
+        cfar3d = cfar3d_route(p.cfar, plain, (nb, nr, nd), ref_angle,
+                              guard_angle)
+    elif route == "staged" or reflect:
+        cfar2d = cfar_group_route(p.cfar, plain, (nr, nd), peak_group_radius)
     group = beam_group_plain if plain else beam_group
 
     def process(iq, mti_bypass=False, scale_override=0) -> dict:

@@ -22,11 +22,19 @@ A (a whole cube), halo_range < R and halo_doppler < D; the twin
 (``ops/cfar.cfar_3d`` on the mirrored cube) takes numpy's semantics beyond
 that too.  Both sum the training set in the wrap kernel's separable order
 on the mirrored cube (``ops/cfar.cfar_3d``'s docstring).
+
+Planes wider than a tile of whole rows fits (above 1376 / 824 / 592
+columns at the default window with 3 / 5 / 7 beam planes) are cut into
+column chunks of W columns with their window halo, at the reflect entry's
+layout (the whole cube's decisions bit for bit).  ``cfar3d_config`` plans
+the tile on the host, so that the array processors ask it at build.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
+import functools
 
 import torch
 
@@ -48,6 +56,8 @@ STRIP = 8
 # count: float hi * 4096 + lo (cfar_tile.cuh's kMaxPackedRef<float>), int
 # hi * 65536 + lo below 2^31.
 MAX_PACKED_REF = {False: 4094, True: 32767}
+# Column chunks are multiples of this many columns.
+CHUNK = 32
 
 
 def cfar3d_detect_plain(cube: torch.Tensor, scale_override: int = 0, *,
@@ -66,33 +76,53 @@ def _tile_bytes(T: int, P: int, ha: int, hr: int) -> int:
     return np_ * ((T + 2 * hr) * P + T * P) * 4
 
 
-def tile_plan(R: int, D: int, ha: int, hr: int,
-              pitch: int | None = None) -> tuple[int, int]:
-    """(T, strip) of the kernel's blocks for an R x D map with 2 ha + 1
-    beam planes and range halo hr, the tile's rows ``pitch`` cells apart
-    (D; the reflect entry's D + 2 hd).  Strips of STRIP rows: T from STRIP to
-    min(64, max(R, STRIP)) within _TILE_BYTES, the least strip rows over the
-    map (ceil(R / T) blocks of ceil(T / STRIP) strips), ties to the larger T;
-    a last block past R decides wrapped rows and stores none of them.  When
-    no such T fits, T = STRIP within _MAX_BYTES; then strips of one cell, T
-    < STRIP; else NotImplementedError."""
-    P = pitch or D
+def _plan(R: int, ha: int, hr: int, shapes):
+    """(T, strip, W) for the first tier that fits among ``shapes``, (W,
+    pitch, chunks a tile of rows), widest first; None where none does.
+    Strips of STRIP rows: T from STRIP to min(64, max(R, STRIP)) within
+    _TILE_BYTES, the least strip columns over the map (ceil(R / T) blocks
+    of ceil(T / STRIP) strips, times the chunks' W columns), ties to the
+    larger W, then T; a last block past R decides wrapped rows and stores
+    none of them.  Then T = STRIP within _MAX_BYTES; then strips of one
+    cell, T < STRIP."""
+    def strip_cols(t, w, n):
+        return (R + t - 1) // t * ((t + STRIP - 1) // STRIP) * n * w
 
-    def strip_rows(t):
-        return (R + t - 1) // t * ((t + STRIP - 1) // STRIP)
+    # A tile grows with T: the rows that fit are STRIP .. the largest.
+    top = range(STRIP, min(64, max(R, STRIP)) + 1)
+    cands = [(strip_cols(t, w, n), -w, -t) for w, p, n in shapes
+             for t in top[:bisect.bisect_right(
+                 top, False,
+                 key=lambda t: _tile_bytes(t, p, ha, hr) > _TILE_BYTES)]]
+    if cands:
+        _, w, t = min(cands)
+        return -t, STRIP, -w
+    for t, strip in [(STRIP, STRIP)] + [(t, 1) for t in range(STRIP - 1, 0,
+                                                                -1)]:
+        for w, p, _ in shapes:
+            if _tile_bytes(t, p, ha, hr) <= _MAX_BYTES:
+                return t, strip, w
+    return None
 
-    fits = [t for t in range(STRIP, min(64, max(R, STRIP)) + 1)
-            if _tile_bytes(t, P, ha, hr) <= _TILE_BYTES]
-    if fits:
-        return min(fits, key=lambda t: (strip_rows(t), -t)), STRIP
-    if _tile_bytes(STRIP, P, ha, hr) <= _MAX_BYTES:
-        return STRIP, STRIP
-    for t in range(STRIP - 1, 0, -1):
-        if _tile_bytes(t, P, ha, hr) <= _MAX_BYTES:
-            return t, 1
-    raise NotImplementedError(
-        f"cfar3d_detect kernel: a {R}x{D} map with {2 * ha + 1} beam "
-        f"planes and range halo {hr} does not fit its shared-memory tile")
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(R: int, D: int, ha: int, hr: int, hd: int,
+              reflect: bool = False) -> tuple[int, int, int]:
+    """(T, strip, W) of the kernel's blocks for an R x D map with 2 ha + 1
+    beam planes and halo (hr, hd): whole rows (W = D; tile rows of D cells,
+    the reflect entry's D + 2 hd) by ``_plan``'s tiers, as the kernel has
+    always taken them; else column chunks, W a multiple of CHUNK below D,
+    tile rows of W + 2 hd cells; else NotImplementedError."""
+    plan = _plan(R, ha, hr, [(D, D + 2 * hd if reflect else D, 1)])
+    if plan is None:
+        plan = _plan(R, ha, hr, [(w, w + 2 * hd, -(-D // w)) for w in
+                                 range((D - 1) // CHUNK * CHUNK, 0, -CHUNK)])
+    if plan is None:
+        raise NotImplementedError(
+            f"cfar3d_detect kernel: a {R}x{D} map with {2 * ha + 1} beam "
+            f"planes and halo ({hr}, {hd}) does not fit its shared-memory "
+            f"tile")
+    return plan
 
 
 def _check_angles(ref_angle: int, guard_angle: int) -> None:
@@ -132,8 +162,8 @@ def cfar3d_config(shape, cfar: CfarParams, ref_angle: int, guard_angle: int,
     offs = C._offsets_3d(cfar, ref_angle, guard_angle)
     n_ref = len(offs)
     k = n_ref - min((n_ref * cfar.rank_pct) // 100, n_ref - 1)
-    T, strip = tile_plan(R, D, ha, cfar.halo_range,
-                         D + 2 * cfar.halo_doppler if reflect else None)
+    T, strip, W = tile_plan(R, D, ha, cfar.halo_range, cfar.halo_doppler,
+                            reflect)
     return kernels.Cfar3dConfig(
         batch=B, A=A, R=R, D=D, T=T,
         ha=ha, ga=guard_angle, hr=cfar.halo_range, hd=cfar.halo_doppler,
@@ -143,7 +173,7 @@ def cfar3d_config(shape, cfar: CfarParams, ref_angle: int, guard_angle: int,
         integer=int(integer), prepadded=int(prepadded_angle), strip=strip,
         packed=int(strip == STRIP
                    and n_ref <= MAX_PACKED_REF[bool(integer)]),
-        reflect=int(reflect))
+        reflect=int(reflect), W=W)
 
 
 @kernels.counted

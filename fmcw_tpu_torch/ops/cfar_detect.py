@@ -53,11 +53,19 @@ The kernel's blocks (``tile_plan``): T range rows a block, strips of
 ``STRIP`` cells of one column a thread, the tile within ``_TILE_BYTES`` of
 shared memory so that three blocks share an SM; an int32 tile whose values
 lie within ``float_max`` is counted in float (``csrc/cfar_detect.cu``).
+Maps wider than a tile of whole rows fits (above 1808 columns at the
+default window with grouping radius 2) are cut into column chunks of W
+columns with their window and grouping halo (the whole map's decisions
+bit for bit); the flat-stream entry keeps whole rows.  ``check_kernel``
+asks the same on the host, so that the processors refuse at build what
+the kernel would refuse at the call.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
+import functools
 
 import torch
 
@@ -75,6 +83,8 @@ STRIP = 8
 _TILE_BYTES = 72 * 1024
 _MAX_BYTES = 227 * 1024
 MAX_PACKED_REF = 4094
+# Column chunks are multiples of this many columns.
+CHUNK = 32
 
 
 def cfar_detect_plain(mag: torch.Tensor, scale_override: int = 0, *,
@@ -106,10 +116,12 @@ def cfar_detect_group_plain(mag: torch.Tensor, scale_override: int = 0, *,
 def tile_bytes(T: int, D: int, hr: int, pgr: int = -1,
                block: bool = False, pitch: int | None = None) -> int:
     """Shared memory of a block of T rows (``csrc/cfar_detect.cu``'s
-    layout): the tile's T + 2 (hr + pgr) rows of ``pitch`` cells (D; the
-    flat-stream and reflect entries' D + 2 hd); per-cell scale with hr > 0, the full and
-    guard column sums of the T + 2 pgr decided rows; grouping (pgr >= 0),
-    their decisions, T row maxima and 2 counts."""
+    layout) that decides D columns: the tile's T + 2 (hr + pgr) rows of
+    ``pitch`` cells (D; rows that carry their column halo: the flat-stream
+    and reflect entries' D + 2 hd, a chunk's W + 2 (hd + pgr) for D = W +
+    2 pgr decided columns); per-cell scale with hr > 0, the full and guard
+    column sums of the T + 2 pgr decided rows; grouping (pgr >= 0), their
+    decisions, T row maxima and 2 counts."""
     pg = max(pgr, 0)
     P = pitch or D
     rows = T + 2 * pg
@@ -121,40 +133,65 @@ def tile_bytes(T: int, D: int, hr: int, pgr: int = -1,
     return 4 * words
 
 
-def tile_plan(R: int, D: int, hr: int, pgr: int = -1,
-              block: bool = False,
-              pitch: int | None = None) -> tuple[int, int]:
-    """(T, strip) of the kernel's blocks for an R x D map with range halo
-    hr and grouping radius pgr (-1: none).  Strips of STRIP rows: T from
-    STRIP to min(64, max(R, STRIP)) within _TILE_BYTES, the fewest strip
-    steps a thread takes over the map (ceil(R / T) blocks of ceil(units /
-    THREADS) steps, a unit a strip of one column of the T + 2 pgr decided
-    rows), ties to the larger T; a last block past R decides wrapped rows
-    and stores none of them.  When no such T fits, T = STRIP within
-    _MAX_BYTES; then strips of one cell, T < STRIP; else
-    NotImplementedError."""
+def _plan(R: int, hr: int, pgr: int, block: bool, shapes):
+    """(T, strip, W) for the first tier that fits among ``shapes``, (W,
+    decided columns, pitch, blocks a tile of rows), widest first; None
+    where none does.  Strips of STRIP rows: T from STRIP to min(64, max(R,
+    STRIP)) within _TILE_BYTES, the fewest strip steps a thread takes over
+    the map (ceil(R / T) x chunks blocks of ceil(units / THREADS) steps, a
+    unit a strip of one column of the T + 2 pgr decided rows), ties to the
+    larger W, then T; a last block past R decides wrapped rows and stores
+    none of them.  Then T = STRIP within _MAX_BYTES; then strips of one
+    cell, T < STRIP."""
     pg = max(pgr, 0)
 
-    def steps(t):
-        units = -(-(t + 2 * pg) // STRIP) * D
-        return -(-R // t) * -(-units // THREADS)
+    def steps(t, nc, n):
+        units = -(-(t + 2 * pg) // STRIP) * nc
+        return -(-R // t) * n * -(-units // THREADS)
 
-    def fits(t, limit):
-        return tile_bytes(t, D, hr, pgr, block, pitch) <= limit
+    def fits(t, nc, p, limit):
+        return tile_bytes(t, nc, hr, pgr, block, p) <= limit
 
-    cands = [t for t in range(STRIP, min(64, max(R, STRIP)) + 1)
-             if fits(t, _TILE_BYTES)]
+    # A tile grows with T: the rows that fit are STRIP .. the largest.
+    top = range(STRIP, min(64, max(R, STRIP)) + 1)
+    cands = [(steps(t, nc, n), -w, -t) for w, nc, p, n in shapes
+             for t in top[:bisect.bisect_right(
+                 top, False, key=lambda t: not fits(t, nc, p, _TILE_BYTES))]]
     if cands:
-        return min(cands, key=lambda t: (steps(t), -t)), STRIP
-    if fits(STRIP, _MAX_BYTES):
-        return STRIP, STRIP
-    for t in range(STRIP - 1, 0, -1):
-        if fits(t, _MAX_BYTES):
-            return t, 1
-    raise NotImplementedError(
-        f"cfar_detect kernel: a {R}x{D} map with halo {hr}"
-        f"{f' and grouping radius {pgr}' if pgr > 0 else ''} does not fit "
-        f"its shared-memory tile")
+        _, w, t = min(cands)
+        return -t, STRIP, -w
+    for t, strip in [(STRIP, STRIP)] + [(t, 1) for t in range(STRIP - 1, 0,
+                                                                -1)]:
+        for w, nc, p, _ in shapes:
+            if fits(t, nc, p, _MAX_BYTES):
+                return t, strip, w
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(R: int, D: int, hr: int, hd: int, pgr: int = -1,
+              block: bool = False,
+              mode: str = "wrap") -> tuple[int, int, int]:
+    """(T, strip, W) of the kernel's blocks for an R x D map with halo (hr,
+    hd) and grouping radius pgr (-1: none): whole rows (W = D; tile rows of
+    D cells, or D + 2 hd for the reflect and flat-stream entries, ``mode``
+    "reflect" / "flat") by ``_plan``'s tiers, as the kernel has always
+    taken them; else (not "flat") column chunks, W a multiple of CHUNK
+    below D, tile rows of W + 2 (hd + pgr) cells; else
+    NotImplementedError."""
+    pg = max(pgr, 0)
+    plan = _plan(R, hr, pgr, block,
+                 [(D, D, D if mode == "wrap" else D + 2 * hd, 1)])
+    if plan is None and mode != "flat":
+        plan = _plan(R, hr, pgr, block,
+                     [(w, w + 2 * pg, w + 2 * (hd + pg), -(-D // w))
+                      for w in range((D - 1) // CHUNK * CHUNK, 0, -CHUNK)])
+    if plan is None:
+        raise NotImplementedError(
+            f"cfar_detect kernel: a {R}x{D} map with halo ({hr}, {hd})"
+            f"{f' and grouping radius {pgr}' if pgr > 0 else ''} does not "
+            f"fit its shared-memory tile")
+    return plan
 
 
 def float_max(cfar: CfarParams) -> int:
@@ -167,6 +204,21 @@ def float_max(cfar: CfarParams) -> int:
     return min((1 << 23) - 1, (1 << 24) // nr, ((1 << 31) - 1) // (nr * nd))
 
 
+def check_map(R: int, D: int, cfar: CfarParams, prepadded: bool,
+              name: str) -> None:
+    """The maps the CFAR kernels take (this one and ``ops/cfar_rank``'s):
+    R >= 1 rows (a prepadded shard's own), halo_doppler < D, and under
+    reflect edges a single mirror, halo_range < R for a whole map;
+    NotImplementedError otherwise."""
+    if (cfar.halo_doppler >= D or R < 1
+            or (cfar.edge_mode == "reflect" and not prepadded
+                and cfar.halo_range >= R)):
+        raise NotImplementedError(
+            f"{name} kernel: a {R}x{D} map with halo "
+            f"({cfar.halo_range}, {cfar.halo_doppler})"
+            f"{' prepadded' if prepadded else ''}")
+
+
 def kernel_inputs(mag: torch.Tensor, scale_override: int, cfar: CfarParams,
                   scale_map: torch.Tensor | None, prepadded_range: bool,
                   name: str):
@@ -175,7 +227,7 @@ def kernel_inputs(mag: torch.Tensor, scale_override: int, cfar: CfarParams,
     ``(m (B, R_in, D) contiguous, lead dims, R, D, block mode, the int32
     (B, R, D) scale map or None)``; the block scale map is computed here
     when none is given.  Reflect edges take a single mirror: halo_range <
-    R (a whole map) and halo_doppler < D."""
+    R (a whole map) and halo_doppler < D (``check_map``)."""
     C.check_os_supported(cfar)
     if mag.dtype not in (torch.int32, torch.float32):
         raise ValueError(f"{name} kernel takes int32 or float32 maps, got "
@@ -185,13 +237,7 @@ def kernel_inputs(mag: torch.Tensor, scale_override: int, cfar: CfarParams,
     *lead, R_in, D = mag.shape
     pad = cfar.halo_range if prepadded_range else 0
     R = R_in - 2 * pad
-    if (cfar.halo_doppler >= D or R < 1
-            or (cfar.edge_mode == "reflect" and not prepadded_range
-                and cfar.halo_range >= R)):
-        raise NotImplementedError(
-            f"{name} kernel: a {R_in}x{D} map with halo "
-            f"({cfar.halo_range}, {cfar.halo_doppler})"
-            f"{' prepadded' if prepadded_range else ''}")
+    check_map(R, D, cfar, prepadded_range, name)
     m = mag.reshape(-1, R_in, D).contiguous()
     scale_in = C.block_scale(m, cfar, scale_map, prepadded_range)
     block = scale_in is not None
@@ -212,8 +258,8 @@ def detect_config(B: int, R: int, D: int, cfar: CfarParams,
     reflect = cfar.edge_mode == "reflect"
     if reflect and pgr >= 0:
         C.check_wrap(cfar, "cfar_detect_group")
-    pitch = D + 2 * cfar.halo_doppler if reflect else None
-    T, strip = tile_plan(R, D, cfar.halo_range, pgr, block, pitch)
+    T, strip, W = tile_plan(R, D, cfar.halo_range, cfar.halo_doppler, pgr,
+                            block, "reflect" if reflect else "wrap")
     return kernels.CfarDetectConfig(
         batch=B, R=R, D=D, T=T, hr=cfar.halo_range, hd=cfar.halo_doppler,
         gr=cfar.guard_range, gd=cfar.guard_doppler, n_ref=cfar.n_ref,
@@ -222,7 +268,19 @@ def detect_config(B: int, R: int, D: int, cfar: CfarParams,
         block_mode=int(block), so=int(scale_override), integer=int(integer),
         prepadded=int(prepadded), strip=strip,
         packed=int(strip == STRIP and cfar.n_ref <= MAX_PACKED_REF),
-        pgr=pgr, float_max=float_max(cfar), reflect=int(reflect))
+        pgr=pgr, float_max=float_max(cfar), reflect=int(reflect), W=W)
+
+
+def check_kernel(R: int, D: int, cfar: CfarParams, pgr: int = -1,
+                 block: bool = False, prepadded: bool = False,
+                 name: str = "cfar_detect") -> None:
+    """What the kernel takes, asked on the host (any device): OS, the map
+    (``check_map``), the grouping entry's wrap edges and a tile
+    (``detect_config``); raises NotImplementedError otherwise (ValueError
+    for a variant other than OS)."""
+    C.check_os_supported(cfar)
+    check_map(R, D, cfar, prepadded, name)
+    detect_config(1, R, D, cfar, prepadded=prepadded, block=block, pgr=pgr)
 
 
 def _launch(mag, scale_override, cfar, scale_map, prepadded_range, pgr,
@@ -244,7 +302,9 @@ def _launch(mag, scale_override, cfar, scale_map, prepadded_range, pgr,
         err = lib.fmcw_cfar_detect(*maps, ctypes.byref(cfg), stream)
         kernels.check(err, name)
         return det.reshape(*lead, R, D), scale.reshape(*lead, R, D)
-    row_max = torch.empty((B, R), dtype=m.dtype, device=m.device)
+    # Chunks combine their row maxima into a zeroed row_max.
+    row_max = (torch.empty if cfg.W == D else torch.zeros)(
+        (B, R), dtype=m.dtype, device=m.device)
     n_dets = torch.zeros(B, dtype=torch.int32, device=m.device)
     err = lib.fmcw_cfar_detect_group(*maps, row_max.data_ptr(),
                                      n_dets.data_ptr(), ctypes.byref(cfg),
@@ -330,7 +390,7 @@ def flat_config(B: int, R: int, D: int, start0: int, stride: int,
     if start0 - hr * D - hd < 0 or start0 + (R + hr) * D + hd > stride:
         raise ValueError(f"ext streams of {stride} cells do not hold the "
                          f"windows of {R}x{D} cells from {start0}")
-    T, strip = tile_plan(R, D, hr, pitch=D + 2 * hd)
+    T, strip, W = tile_plan(R, D, hr, hd, mode="flat")
     return kernels.CfarDetectConfig(
         batch=B, R=R, D=D, T=T, hr=hr, hd=hd, gr=sw.guard_range,
         gd=sw.guard_doppler, n_ref=sw.n_ref, k=sw.n_ref - sw.rank_idx,
@@ -338,7 +398,15 @@ def flat_config(B: int, R: int, D: int, start0: int, stride: int,
         scale_max=sw.scale_max, block_mode=0, so=int(scale_override),
         integer=int(integer), prepadded=0, strip=strip,
         packed=int(strip == STRIP and sw.n_ref <= MAX_PACKED_REF), pgr=-1,
-        float_max=float_max(sw), flat=1, start0=start0, stride=stride)
+        float_max=float_max(sw), flat=1, start0=start0, stride=stride, W=W)
+
+
+def check_flat_kernel(R: int, D: int, cfar: CfarParams) -> None:
+    """The flat-stream entry's tile for R x D maps under ``cfar``'s crossed
+    window (``flat_config``'s plan, whole rows), asked on the host;
+    NotImplementedError where none fits."""
+    sw = C.hw_stream_params(cfar)
+    tile_plan(R, D, sw.halo_range, sw.halo_doppler, mode="flat")
 
 
 @kernels.counted

@@ -52,6 +52,7 @@ edges, as ``ops/cfar_detect.cfar_detect_group``): reflect maps take
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -144,17 +145,82 @@ def cfar_rank_group_plain(mag: torch.Tensor, scale_override: int = 0, *,
     return det, threshold, scale, row_max, n_dets
 
 
-# Rows per block at most, and the shared memory a block may take so that
-# two blocks share an SM.
+# Rows per block at most, the shared memory a block may take so that two
+# blocks share an SM, and the column chunks' multiple (the width of a
+# bit-plane word).
 TILE_ROWS = 32
 _TILE_BYTES = 112 * 1024
+CHUNK = 32
 
 
-def _launch(mag, scale_override, cfar, bits, scale_map, prepadded_range,
-            pgr, name):
-    """Launch csrc/cfar_rank.cu on a CUDA map: (det, threshold, scale,
-    row_max, n_dets), the last two None without grouping (pgr = -1); the
-    reflect entry for ``cfar.edge_mode == "reflect"`` (no grouping)."""
+def tile_bytes(T: int, D: int, W: int, hr: int, hd: int, pgr: int,
+               bits: int, colsums: bool) -> int:
+    """Shared memory of a block (``csrc/cfar_rank.cu``'s ``layout()``): the
+    tile's T + 2 (hr + pg) rows of P cells (whole rows, W = D: P = D; a
+    chunk: P = W + 2 (hd + pg)), 8-byte aligned; 2 x ``bits`` bit planes of
+    ceil(NC / 32) word pairs a tile row (NC = D, or W + 2 pg the chunk's
+    decided columns); with ``colsums`` (per-cell scale, no override) the
+    full and guard column sums of the T + 2 pg decided rows x P; with
+    grouping (pgr >= 0) their decisions (x NC), T row maxima and 2 counts."""
+    pg = max(pgr, 0)
+    P, NC = (D, D) if W >= D else (W + 2 * (hd + pg), W + 2 * pg)
+    E, rows = T + 2 * (hr + pg), T + 2 * pg
+    words = (E * P + 1) & ~1
+    words += 2 * bits * (-(-NC // 32)) * E
+    if colsums:
+        words += 2 * rows * P
+    if pgr >= 0:
+        words += rows * NC + T + 2
+    return 4 * words
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(R: int, D: int, hr: int, hd: int, pgr: int, bits: int,
+              colsums: bool) -> tuple[int, int]:
+    """(T, W) of the kernel's blocks for an R x D map: T rows (a power of
+    two dividing R, at most TILE_ROWS) and W columns a block, within
+    _TILE_BYTES (two blocks an SM).  Whole rows (W = D) with the largest
+    such T that fits, as the kernel has always taken them; else column
+    chunks: W a multiple of CHUNK below D and T, with the fewest tile cells
+    loaded over the map (the halo rows and columns each block loads
+    again), ties to the larger W.  NotImplementedError where no tile
+    fits."""
+    def rows(w):
+        t = math.gcd(R, TILE_ROWS)
+        while t > 1 and tile_bytes(t, D, w, hr, hd, pgr, bits,
+                                   colsums) > _TILE_BYTES:
+            t //= 2
+        fits = tile_bytes(t, D, w, hr, hd, pgr, bits, colsums) <= _TILE_BYTES
+        return t if fits else None
+
+    t = rows(D)
+    if t:
+        return t, D
+    pg = max(pgr, 0)
+    best = None
+    for w in range(CHUNK, D, CHUNK):
+        t = rows(w)
+        if t is None:
+            continue
+        cells = (R // t) * -(-D // w) * (t + 2 * (hr + pg)) * (
+            w + 2 * (hd + pg))
+        if best is None or cells <= best[0]:
+            best = (cells, t, w)
+    if best is None:
+        raise NotImplementedError(
+            f"cfar_rank kernel: a {R}x{D} map with halo ({hr}, {hd}) and "
+            f"{bits} key bits does not fit its shared-memory tile")
+    return best[1], best[2]
+
+
+def check_kernel(R: int, D: int, cfar: CfarParams, bits: int | None,
+                 pgr: int = -1, block: bool = False,
+                 prepadded: bool = False, name: str = "cfar_rank"):
+    """What the kernel takes, asked on the host (any device): the window
+    (at most 31 rows and 32 columns), the map (``ops/cfar_detect.
+    check_map``) and a tile (``tile_plan``, without an override: the
+    largest tile); raises NotImplementedError otherwise.  Returns the key
+    bits walked."""
     b = check_bits(bits)
     if pgr >= 0:
         C.check_wrap(cfar, name)
@@ -163,31 +229,40 @@ def _launch(mag, scale_override, cfar, bits, scale_map, prepadded_range,
         raise NotImplementedError(
             f"{name} kernel: a window of {2 * hr + 1} x {2 * hd + 1} cells "
             f"(at most 31 rows and 32 columns)")
+    CD.check_map(R, D, cfar, prepadded, name)
+    tile_plan(R, D, hr, hd, pgr, b, not block)
+    return b
+
+
+def _launch(mag, scale_override, cfar, bits, scale_map, prepadded_range,
+            pgr, name):
+    """Launch csrc/cfar_rank.cu on a CUDA map: (det, threshold, scale,
+    row_max, n_dets), the last two None without grouping (pgr = -1); the
+    reflect entry for ``cfar.edge_mode == "reflect"`` (no grouping)."""
     m, lead, R, D, block, scale_in = CD.kernel_inputs(
         mag, scale_override, cfar, scale_map, prepadded_range, name)
+    b = check_kernel(R, D, cfar, bits, pgr, block, prepadded_range, name)
+    hr, hd = cfar.halo_range, cfar.halo_doppler
+    T, W = tile_plan(R, D, hr, hd, pgr, b,
+                     not block and int(scale_override) == 0)
     B = m.shape[0]
     lib = kernels.load()
     cfg = kernels.CfarRankConfig(
-        batch=B, R=R, D=D, T=math.gcd(R, TILE_ROWS), hr=hr, hd=hd,
+        batch=B, R=R, D=D, T=T, hr=hr, hd=hd,
         gr=cfar.guard_range, gd=cfar.guard_doppler, n_ref=cfar.n_ref,
         k=cfar.n_ref - cfar.rank_idx, scale_min=cfar.scale_min,
         scale_nom=cfar.scale_nom, scale_max=cfar.scale_max,
         block_mode=int(block), so=int(scale_override),
         integer=int(m.dtype == torch.int32), prepadded=int(prepadded_range),
-        bits=b, pgr=pgr, reflect=int(cfar.edge_mode == "reflect"))
-    while cfg.T > 1 and lib.fmcw_cfar_rank_smem(ctypes.byref(cfg)) > \
-            _TILE_BYTES:
-        cfg.T //= 2
-    if lib.fmcw_cfar_rank_smem(ctypes.byref(cfg)) > _TILE_BYTES:
-        raise NotImplementedError(
-            f"{name} kernel: a {R}x{D} map with halo {hr} does not fit its "
-            f"shared-memory tile")
+        bits=b, pgr=pgr, reflect=int(cfar.edge_mode == "reflect"), W=W)
     det = torch.empty((B, R, D), dtype=m.dtype, device=m.device)
     thr = torch.empty_like(det)
     scale = torch.empty((B, R, D), dtype=torch.int32, device=m.device)
     row_max = n_dets = None
     if pgr >= 0:
-        row_max = torch.empty((B, R), dtype=m.dtype, device=m.device)
+        # Chunks combine their row maxima into a zeroed row_max.
+        row_max = (torch.empty if W == D else torch.zeros)(
+            (B, R), dtype=m.dtype, device=m.device)
         n_dets = torch.zeros(B, dtype=torch.int32, device=m.device)
     err = lib.fmcw_cfar_rank(
         m.data_ptr(), scale_in.data_ptr() if block else None, det.data_ptr(),

@@ -110,11 +110,11 @@ import torch.distributed as dist
 
 from ..models import pipeline as PL
 from ..ops import beamform as BF, cfar as C, detect as DET
+from ..ops import cfar_detect as CD, cfar_rank as RK
 from ..ops import frontend as F, frontend_fixed as FX
 from ..ops import split_frontend as SF
 from ..ops.beam_group import beam_group, beam_group_plain
-from ..ops.cfar_detect import cfar_detect
-from ..ops.cfar_rank import cfar_rank, cfar_rank_plain, debug_bits
+from ..ops.cfar_rank import debug_bits
 from ..ops.fft import dft_apply, doppler_apply
 from ..ops.magnitude import magnitude_float
 from ..ops.notch import check_notch
@@ -345,6 +345,39 @@ def _gather_dp(outs, mesh, local: bool, dp: int, keys) -> dict:
     return out
 
 
+def shard_cfar_route(p: RadarParams, route: str, include_debug: bool,
+                     bits: int | None, rows: int) -> Callable:
+    """The sharded tail's CFAR on a range shard of ``rows`` rows prepadded
+    with its halo rows: ``fn(m_h, so, scale_map) -> (det, threshold,
+    scale)`` (threshold None without the debug taps): with the taps the
+    rank-select CFAR's prepadded entry (its twin on "plain"), else the
+    standalone CFAR's; CA/GO/SO and "plain" without the taps the plain
+    ``ops/cfar.cfar_2d``.  The kernel chosen is asked at once, on the host
+    and every device, whether it takes the shard (``check_kernel`` of
+    ``ops/cfar_rank`` or ``ops/cfar_detect``), so that the processor
+    refuses at build what the card would refuse at the call."""
+    cfar = p.cfar
+    pre = dict(prepadded_range=True)
+    if cfar.variant != "os" or (route == "plain" and not include_debug):
+        return lambda m_h, so, sm: C.cfar_2d(
+            m_h, so, cfar, need_debug=include_debug, scale_map=sm, **pre)
+    block = cfar.scale_mode == "block"
+    if include_debug:
+        rank = RK.cfar_rank_plain
+        if route != "plain":
+            RK.check_kernel(rows, p.n_doppler, cfar, bits, block=block,
+                            prepadded=True)
+            rank = RK.cfar_rank
+        return lambda m_h, so, sm: rank(m_h, so, cfar=cfar, bits=bits,
+                                        scale_map=sm, **pre)
+    CD.check_kernel(rows, p.n_doppler, cfar, block=block, prepadded=True)
+
+    def detect(m_h, so, sm):
+        det, scale = CD.cfar_detect(m_h, so, cfar=cfar, scale_map=sm, **pre)
+        return det, None, scale
+    return detect
+
+
 def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                            mode: str = "float32", frontend: str = "auto",
                            window_rounding: str = "unbiased",
@@ -425,9 +458,10 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
             magnitude_exact=magnitude_exact, include_maps=include_maps,
             include_debug=include_debug, cfar_rank_bits=cfar_rank_bits,
             device=dev)
-    rank = cfar_rank_plain if route == "plain" else cfar_rank
-    plain_tail = route == "plain" or p.cfar.variant != "os"
     bits = debug_bits(p.cfar, fixed, cfar_rank_bits)
+    tail_cfar = None
+    if sp > 1 and not split_detect:
+        tail_cfar = shard_cfar_route(p, route, include_debug, bits, nrl)
     ring = sp_ring(mesh) if sp > 1 else None
     my_shards = list(range(sp)) if local else [sp_rank]
     offsets = [s * nrl for s in my_shards]
@@ -476,25 +510,10 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
         out = []
         for m, (lo, hi), sm in zip(mags, ring.halo(mags, hr,
                                                    p.cfar.edge_mode), scales):
-            m_h = torch.cat([lo, m, hi], dim=-2)
+            det, thr, scale = tail_cfar(torch.cat([lo, m, hi], dim=-2), so,
+                                        sm)
             if include_debug:
-                if p.cfar.variant == "os":
-                    det, thr, scale = rank(m_h, so, cfar=p.cfar, bits=bits,
-                                           scale_map=sm,
-                                           prepadded_range=True)
-                else:
-                    det, thr, scale = C.cfar_2d(
-                        m_h, so, p.cfar, need_debug=True, scale_map=sm,
-                        prepadded_range=True)
                 scale = scale.to(m.dtype)       # the map's type, as JAX's tap
-            elif plain_tail:
-                det, _, scale = C.cfar_2d(m_h, so, p.cfar, scale_map=sm,
-                                          prepadded_range=True)
-                thr = None
-            else:
-                det, scale = cfar_detect(m_h, so, cfar=p.cfar, scale_map=sm,
-                                         prepadded_range=True)
-                thr = None
             out.append((det, {"threshold_map": thr, "scale_map": scale}))
         if pgr > 0:
             dets = [d for d, _ in out]
@@ -671,8 +690,15 @@ def make_sharded_array_processor(mesh=None, params: RadarParams | None = None,
                  exact_mag=magnitude_exact)
     range_fft = F.range_fft_float_plain if plain else F.range_fft_float
     detect = F.slowtime_detect_plain if plain else F.slowtime_detect
-    cfar3d = PL.cfar3d_route(p.cfar, plain)
-    cfar2d = PL.cfar_group_route(p.cfar, plain)
+    # The shards' 3D CFAR or standalone CFAR per beam (staged, reflect),
+    # their kernels asked at once whether they take the shards' maps.
+    cfar3d = cfar2d = None
+    if sp > 1 and ref_angle > 0:
+        cfar3d = PL.cfar3d_route(p.cfar, plain, (bl, nr, nd), ref_angle,
+                                 guard_angle, prepadded=True)
+    elif sp > 1 and (route == "staged" or reflect):
+        cfar2d = PL.cfar_group_route(p.cfar, plain, (nr, nd),
+                                     peak_group_radius)
     group = beam_group_plain if plain else beam_group
     single = None
     if sp == 1:

@@ -97,7 +97,20 @@ grouping (TPU row 11, ``csrc/beam_group.cu``) alone: its whole-cube entry
 (radius 1 on kernel B's per-cell det cubes of 16 cubes x 8 beams) and its
 sp = 4 shard entry (2 beams and one halo plane on each side, global beam
 ids), eager and by graph replay, and the array route it ends, per-cell
-grouped, in cubes/s (a design step's A/B).  Prints the card's name and
+grouped, in cubes/s (a design step's A/B).  With ``--wide-cfar-only``
+it times the standalone CFAR kernels' entries (TPU rows 7-10) by graph
+replay on seeded noise maps: the rank select's grouping entry (float and
+int32, 16 key bits, radius 2), the standalone CFAR's grouping entry (int32,
+radius 2) and its entry with a block scale map (float), the 3D CFAR at
+ref_angle 1 and 2 (8-beam cubes), and the reflect entries (the
+standalone CFAR's on float and int32 maps, the rank select's float 16
+bits, the 3D CFAR's at ref_angle 1) — at 1024x128 (batch 128, 16 cubes) and,
+where the checkout's plans take them (its wrapper raises
+NotImplementedError where they do not: "not taken"), at 1024x1016 and
+1024x2048 (batch 16, 2 cubes); there, where the checkout plans the rank
+tiles on the host (``ops/cfar_rank.tile_bytes``), also the rank select's
+grouping entry with its tiles grown from 112 KB to 227 KB (whole rows
+first, then chunks: "227 KB plan").  Prints the card's name and
 power limit
 and one JSON line.  To compare two
 commits on one card, unpack the other commit into a directory (``git
@@ -110,6 +123,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -136,13 +150,17 @@ def main() -> int:
     ap.add_argument("--front-end-only", action="store_true",
                     help="time kernel A's and kernel B's entries alone, at "
                          "1024x128 and the n2 x 128 range lengths")
+    ap.add_argument("--wide-cfar-only", action="store_true",
+                    help="time the standalone CFAR kernels' entries alone, "
+                         "at 1024x128 and the wide maps 1024x1016, "
+                         "1024x2048")
     ap.add_argument("--fixed-range-only", action="store_true",
                     help="time the fixed range kernel's entries and the "
                          "fused fixed route alone, at 1024x128 and the n2 "
                          "x 128 range lengths")
     args = ap.parse_args()
     everything = not (args.cfar3d_only or args.cfar_detect_only
-                      or args.beam_group_only)
+                      or args.beam_group_only or args.wide_cfar_only)
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
@@ -201,6 +219,101 @@ def main() -> int:
 
     entry = P.RadarParams()
     ms, fft, graph, fft_graph, copy, fps = {}, {}, {}, {}, {}, {}
+    if args.wide_cfar_only:
+        from fmcw_tpu_torch.ops import cfar as C, cfar3d_detect as C3
+        from fmcw_tpu_torch.ops import cfar_detect as CD, cfar_rank as RK
+        full, fast = entry.cfar, P.fast().cfar
+        refl = dataclasses.replace(full, edge_mode="reflect")
+
+        def noise(B, D, integer, seed):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            m = torch.empty((B, 1024, D), device="cuda").exponential_(
+                1 / 8, generator=g)
+            strong = torch.rand(m.shape, generator=g, device="cuda") < 0.02
+            m = torch.where(strong, m * 40, m)
+            return m.to(torch.int32) if integer else m
+
+        def rank_plan_smem(R, D, hr, hd, pgr, bits, colsums):
+            """The rank plan grown to kernels.MAX_SMEM (one block an SM)
+            in place of its 112 KB: whole rows with the largest T that
+            fits, else the chunks with the fewest cells loaded."""
+            best = None
+            for w in [D] + list(range(RK.CHUNK, D, RK.CHUNK)):
+                t = math.gcd(R, RK.TILE_ROWS)
+                while t > 1 and RK.tile_bytes(t, D, w, hr, hd, pgr, bits,
+                                              colsums) > kernels.MAX_SMEM:
+                    t //= 2
+                if RK.tile_bytes(t, D, w, hr, hd, pgr, bits,
+                                 colsums) > kernels.MAX_SMEM:
+                    continue
+                if w == D:
+                    return t, D
+                pg = max(pgr, 0)
+                cells = (R // t) * -(-D // w) * (t + 2 * (hr + pg)) * (
+                    w + 2 * (hd + pg))
+                if best is None or cells <= best[0]:
+                    best = (cells, t, w)
+            return best[1:]
+
+        def with_rank_plan(plan, call):
+            """call() with the rank wrapper's plan swapped for ``plan``."""
+            def run():
+                saved, RK.tile_plan = RK.tile_plan, plan
+                try:
+                    return call()
+                finally:
+                    RK.tile_plan = saved
+            return run
+
+        for D, B in ((128, BATCH), (1016, 16), (2048, 16)):
+            fm, im = noise(B, D, False, D), noise(B, D, True, D + 1)
+            fs = C.block_scale_map(fm, fast)
+            cube = fm.reshape(B // 8, 8, 1024, D)
+            calls = {
+                f"cfar_rank_group[float,16 bits,{D}]": lambda: (
+                    RK.cfar_rank_group(fm, cfar=full, bits=16,
+                                       peak_group_radius=2)),
+                f"cfar_rank_group[int32,16 bits,{D}]": lambda: (
+                    RK.cfar_rank_group(im, cfar=full, bits=16,
+                                       peak_group_radius=2)),
+                f"cfar_detect_group[int32,{D}]": lambda: (
+                    CD.cfar_detect_group(im, cfar=full,
+                                         peak_group_radius=2)),
+                f"cfar_detect[float,scale map,{D}]": lambda: (
+                    CD.cfar_detect(fm, cfar=fast, scale_map=fs)),
+                f"cfar3d_detect[ref_angle 1,{D}]": lambda: (
+                    C3.cfar3d_detect(cube, cfar=full, ref_angle=1)),
+                f"cfar3d_detect[ref_angle 2,{D}]": lambda: (
+                    C3.cfar3d_detect(cube, cfar=full, ref_angle=2)),
+                f"cfar_detect[reflect,float,{D}]": lambda: (
+                    CD.cfar_detect(fm, cfar=refl)),
+                f"cfar_detect[reflect,int32,{D}]": lambda: (
+                    CD.cfar_detect(im, cfar=refl)),
+                f"cfar_rank[reflect,float,16 bits,{D}]": lambda: (
+                    RK.cfar_rank(fm, cfar=refl, bits=16)),
+                f"cfar3d_detect[reflect,ref_angle 1,{D}]": lambda: (
+                    C3.cfar3d_detect(cube, cfar=refl, ref_angle=1))}
+            if D > 128 and hasattr(RK, "tile_bytes"):
+                # The rank plan's other choice: tiles grown to 227 KB.
+                calls[f"cfar_rank_group[float,16 bits,{D},227 KB plan]"] = (
+                    with_rank_plan(rank_plan_smem, calls[
+                        f"cfar_rank_group[float,16 bits,{D}]"]))
+            for name, call in calls.items():
+                try:
+                    call()
+                    torch.cuda.synchronize()
+                except NotImplementedError:
+                    graph[name] = None
+                    continue
+                graph[name] = graph_ms(call, 10 if D > 128 else 20)
+            del fm, im, fs, cube
+            torch.cuda.empty_cache()
+        for name, t in graph.items():
+            print(f"{name}: " + ("not taken" if t is None
+                                 else f"{t:.4f} ms (graph)"), flush=True)
+        print(json.dumps({"root": str(args.root), "graph_ms": graph,
+                          "card": card}), flush=True)
+        return 0
     if args.front_end_only:
         pgr = 2
         for nr in (1024, 2048, 1536, 384):

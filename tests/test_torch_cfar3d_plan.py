@@ -359,20 +359,29 @@ def _parent_takes(R, D, ha, hr) -> bool:
 
 def test_tile_plan_takes_every_configuration_the_parent_took():
     """Across map sizes, windows and beam halos: wherever the parent kernel
-    took the cube, the plan gives a tile that fits, with strips of 8 when 8
-    rows fit and T at least 8 then; the default is T = 16 (three blocks an
-    SM) and packed."""
+    took the cube, the plan gives whole rows (W = D) in a tile that fits,
+    with strips of 8 when 8 rows fit and T at least 8 then; elsewhere
+    column chunks (W < D, a multiple of 32) that fit, or a refusal where
+    one row of a 32-column chunk does not; the default is T = 16 (three
+    blocks an SM) and packed."""
     taken = 0
     for R in (1, 6, 7, 8, 37, 64, 100, 1000, 1024, 4096):
         for D in (8, 16, 128, 256, 1024):
             for ha in (1, 2, 3, 8, 14, 20):
                 for hr in (1, 3, 6, 12):
                     if not _parent_takes(R, D, ha, hr):
-                        with pytest.raises(NotImplementedError):
-                            C3.tile_plan(R, D, ha, hr)
+                        if not _parent_takes(R, 32 + 2 * 5, ha, hr):
+                            with pytest.raises(NotImplementedError):
+                                C3.tile_plan(R, D, ha, hr, 5)
+                            continue
+                        T, strip, W = C3.tile_plan(R, D, ha, hr, 5)
+                        assert W < D and W % 32 == 0
+                        assert C3._tile_bytes(T, W + 10, ha,
+                                              hr) <= 227 * 1024
                         continue
                     taken += 1
-                    T, strip = C3.tile_plan(R, D, ha, hr)
+                    T, strip, W = C3.tile_plan(R, D, ha, hr, 5)
+                    assert W == D
                     assert C3._tile_bytes(T, D, ha, hr) <= 227 * 1024
                     eight = C3._tile_bytes(8, D, ha, hr) <= 227 * 1024
                     assert (strip, T >= 8) == ((8, True) if eight

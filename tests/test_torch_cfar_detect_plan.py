@@ -533,10 +533,12 @@ def _parent_takes(R, D, hr) -> bool:
 def test_tile_plan_takes_every_configuration_the_parent_took():
     """Across map sizes and windows, per-cell and a scale map: wherever the
     parent kernel took the map (and beyond: the new kernel takes tiles up
-    to 227 KB), the plan gives a tile that fits 227 KB,
-    with strips of 8 where 8 rows fit and T at least 8 then; the defaults
-    are T = 32 (per-cell), 28 (grouped, radius 2) and 64 (a scale map),
-    packed, three blocks an SM."""
+    to 227 KB), the plan gives whole rows (W = D) in a tile that fits 227
+    KB, with strips of 8 where 8 rows fit and T at least 8 then; the
+    defaults are T = 32 (per-cell), 28 (grouped, radius 2) and 64 (a scale
+    map), packed, three blocks an SM.  Where whole rows do not fit, the map
+    is cut into column chunks (25 rows of 24576 columns: W < D); a window
+    whose one row of a 32-column chunk passes 227 KB is refused."""
     taken = 0
     for R in (1, 6, 7, 8, 37, 64, 100, 1000, 1024, 4096):
         for D in (8, 16, 128, 1024, 4096, 8192, 24576):
@@ -545,14 +547,16 @@ def test_tile_plan_takes_every_configuration_the_parent_took():
                     if not _parent_takes(R, D, hr):
                         continue
                     taken += 1
-                    T, strip = CD.tile_plan(R, D, hr, -1, block)
+                    T, strip, W = CD.tile_plan(R, D, hr, 0, -1, block)
+                    assert W == D
                     assert CD.tile_bytes(T, D, hr, -1, block) <= 227 * 1024
                     eight = CD.tile_bytes(8, D, hr, -1, block) <= 227 * 1024
                     assert (strip, T >= 8) == ((8, True) if eight
                                                else (1, False))
     assert taken > 500
-    with pytest.raises(NotImplementedError):        # 25 rows of 24576
-        CD.tile_plan(1024, 24576, 12)
+    assert CD.tile_plan(1024, 24576, 12, 5)[2] < 24576  # 25 rows: chunks
+    with pytest.raises(NotImplementedError):        # 2001 rows of 32 + 2 hd
+        CD.tile_plan(4096, 24576, 1000, 5)
     for pgr, block, T in ((-1, False, 32), (2, False, 28), (-1, True, 64)):
         cfg = CD.detect_config(128, 1024, 128, FULL, 0, True, block=block,
                                pgr=pgr)

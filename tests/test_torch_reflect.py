@@ -436,7 +436,9 @@ def test_kernel_config_and_limits():
     cfar = _reflect(fmcw_tpu_torch.CfarParams())
     cfg = CD.detect_config(128, 1024, 128, cfar)
     assert cfg.reflect == 1 and cfg.flat == 0
-    assert (cfg.T, cfg.strip) == CD.tile_plan(1024, 128, 6, pitch=138)
+    assert (cfg.T, cfg.strip, cfg.W) == CD.tile_plan(1024, 128, 6, 5,
+                                                     mode="reflect")
+    assert CD.tile_bytes(cfg.T, 128, 6, pitch=138) * 3 <= 227 * 1024
     assert CD.detect_config(128, 1024, 128, cfar.__class__()).reflect == 0
     m = torch.zeros((2, 6, 32), dtype=torch.int32)
     with pytest.raises(NotImplementedError):

@@ -306,8 +306,8 @@ def test_kernel_configs_and_limits():
     ha for a prepadded shard); the grouping entry wraps only."""
     cfar = _reflect(fmcw_tpu_torch.CfarParams())
     cfg = C3.cfar3d_config((16, 8, 1024, 128), cfar, 1, 0)
-    assert cfg.reflect == 1 and (cfg.T, cfg.strip) == C3.tile_plan(
-        1024, 128, 1, 6, 138) == (16, 8)
+    assert cfg.reflect == 1 and (cfg.T, cfg.strip, cfg.W) == C3.tile_plan(
+        1024, 128, 1, 6, 5, reflect=True) == (16, 8, 128)
     assert C3._tile_bytes(cfg.T, 138, 1, 6) * 3 <= 227 * 1024
     assert C3.cfar3d_config((16, 8, 1024, 128), cfar.__class__(), 1,
                             0).reflect == 0
