@@ -218,6 +218,19 @@ and 1024x2048 (the golden model), the 3D array model at ref_angle 1 and 2
 at 1024x1016 and 1024x1024, a LocalMesh at sp 4 on the debug taps at
 1024x2048; the entries' times and the rank plan's two choices.
 (--wide-cfar-only runs phase 39 alone.)
+Then the fixed dense operator (phase 40: the fixed slow-time kernel at the
+dense lengths, an o x m FFT row in FP64 into the int32 map, then the
+decide kernel): both its entries at all 237 dense lengths on 64-row maps
+against the twin bit for bit (per-cell and block, the bypass, the
+override; at a spread of lengths covering o = 1, 3 | o and each m 8..64
+also notch 3, passthrough, biased rounding, CA/GO/SO, radius 0-2, the x40
+saturating batch, the split entry at sp 4); quarter-, eighth- and
+twelfth-turn tie planes equal to the twin, their differences from the
+golden model all at exact bins; fixed "fused" at batch 128 at 1024x96,
+1024x192 and 1024x1016 (per-cell, fast() block, CA: only the fixed
+kernels, bit-equal to frontend="plain", the golden model but at located
+exact bins, frames/s beside the staged route); a LocalMesh at sp 2 and 4;
+the entries' times with bounds.  (--fixed-dense-only runs phase 40 alone.)
 It prints the card's name and
 power limit, one JSON line listing the kernels, and as its last line
 {"ok": true, "device": {...}}.
@@ -4052,11 +4065,12 @@ def variant_split_checks(dev, pgr: int):
 LARGE_SO = 1 << 20
 
 
-def _fx_case(what, re, im, p, bypass, so, pgr, kw=None):
+def _fx_case(what, re, im, p, bypass, so, pgr, kw=None, quiet=False):
     """The fixed slow-time kernel on int16 planes (re, im) against its twin:
     magnitudes and the Doppler window's saturations equal, the decision
-    (det, row maxima, n_dets) bit for bit on the kernel's magnitudes.
-    Returns the largest absolute magnitude difference (0)."""
+    (det, row maxima, n_dets) bit for bit on the kernel's magnitudes; the
+    case logged unless ``quiet``.  Returns the largest absolute magnitude
+    difference (0)."""
     import torch
     from fmcw_tpu_torch.ops import frontend as F, frontend_fixed as FX
     kw = kw or {}
@@ -4070,11 +4084,12 @@ def _fx_case(what, re, im, p, bypass, so, pgr, kw=None):
     err = int((mag - pmag).abs().max())
     same = (err == 0 and torch.equal(sat, psat) and torch.equal(det, d2)
             and torch.equal(rmax, r2) and torch.equal(ndet, n2))
-    log(f"slowtime_detect_fixed {p.cfar.variant} {what} {p.n_range}x"
-        f"{p.n_doppler} {p.cfar.scale_mode} bypass={bypass} so={so} "
-        f"pgr={pgr} {kw}: mag {err} LSB, saturation {int(sat.sum())}, "
-        f"decision {'bit-identical' if same else 'DIFFERS'}, n_dets "
-        f"{int(ndet.min())}..{int(ndet.max())}")
+    if not quiet or not same:
+        log(f"slowtime_detect_fixed {p.cfar.variant} {what} {p.n_range}x"
+            f"{p.n_doppler} {p.cfar.scale_mode} bypass={bypass} so={so} "
+            f"pgr={pgr} {kw}: mag {err} LSB, saturation {int(sat.sum())}, "
+            f"decision {'bit-identical' if same else 'DIFFERS'}, n_dets "
+            f"{int(ndet.min())}..{int(ndet.max())}")
     if not same:
         raise AssertionError(f"slowtime_detect_fixed {p.cfar.variant} "
                              f"{what}: differs from its twin")
@@ -6466,25 +6481,30 @@ def fixed_long_kernel_checks(dev, pgr: int):
 
 
 def fixed_long_split_case(dev, re, im, nd: int, pgr: int,
-                          tag: str = "fixed split long") -> float:
-    """The fixed split entry on the sp 2 and 4 shards of (re, im), their
-    neighbours' rows as halos, against the whole-frame launch and the
-    twin (fixed_variant_kernel_checks' comparison).  Returns the largest
-    magnitude difference against the twin (0)."""
+                          tag: str = "fixed split long",
+                          variants=("os", "ca"), sps=SPLIT_SPS,
+                          bypasses=(False, True),
+                          quiet: bool = False) -> float:
+    """The fixed split entry on the sp 2 and 4 (``sps``) shards of (re,
+    im), their neighbours' rows as halos, against the whole-frame launch
+    and the twin (fixed_variant_kernel_checks' comparison), OS and CA
+    (``variants``), the MTI on and bypassed (``bypasses``); each case
+    logged unless ``quiet``.  Returns the largest magnitude difference
+    against the twin (0)."""
     import torch
     from fmcw_tpu_torch.ops import frontend_fixed as FX
     from fmcw_tpu_torch.ops import split_frontend as SF
     nr = re.shape[1]
     h = long_params(nd).cfar.halo_range + pgr
     worst = 0
-    for bypass in (False, True):
+    for bypass in bypasses:
         pmag = FX.slowtime_mag_fixed_plain(re, im, bypass)[0]
-        for variant in ("os", "ca"):
+        for variant in variants:
             p = long_params(nd, variant)
             kw = dict(cfar=p.cfar, peak_group_radius=pgr, emit_mag=True)
             det, mag, rmax, ndet, sat = FX.slowtime_detect_fixed(
                 re, im, bypass, 0, **kw)
-            for sp in SPLIT_SPS:
+            for sp in sps:
                 nrl = nr // sp
                 same, n_sum, s_sum = True, 0, 0
                 for s in range(sp):
@@ -6509,11 +6529,13 @@ def fixed_long_split_case(dev, re, im, nd: int, pgr: int,
                              and torch.equal(n_s, n2))
                     n_sum, s_sum = n_sum + n_s, s_sum + st
                 same &= torch.equal(n_sum, ndet) and torch.equal(s_sum, sat)
-                log(f"{tag} {variant} {nr}x{nd} sp={sp} "
-                    f"bypass={bypass}: shards "
-                    f"{'bit-equal' if same else 'DIFFER'} to the whole-frame "
-                    f"entry and the twin ({int(ndet.sum())} detections, "
-                    f"saturation {int(sat.sum())})")
+                if not quiet or not same:
+                    log(f"{tag} {variant} {nr}x{nd} sp={sp} "
+                        f"bypass={bypass}: shards "
+                        f"{'bit-equal' if same else 'DIFFER'} to the "
+                        f"whole-frame entry and the twin "
+                        f"({int(ndet.sum())} detections, saturation "
+                        f"{int(sat.sum())})")
                 if not same:
                     raise AssertionError(f"slowtime_detect_fixed_split long "
                                          f"{variant} at {nd} sp={sp} differs")
@@ -9034,6 +9056,379 @@ def wide_phase(card: str, dev, pgr: int):
                                for k, v in launches.items()}}
 
 
+# ---------------------------------------------------------------------------
+# The fixed dense operator: the fixed slow-time kernel at the dense lengths
+# (phase 40)
+# ---------------------------------------------------------------------------
+
+FIXED_DENSE_SRC = "fmcw_tpu_torch/csrc/slowtime_detect_fixed.cu"
+FIXED_DENSE_LINES = {"detect": "fmcw_tpu/ops/frontend_pallas.py:958",
+                     "split": "fmcw_tpu/ops/split_frontend.py:700"}
+# 40a's option cases: o = 1 (8), 3 | o (24, 48, 96, 120, 192, 360, 2040),
+# every inner transform m (8: 8 .. 2040, 16: 48, 32: 96, 64: 192, 1984).
+FIXED_DENSE_SPREAD = (8, 24, 40, 48, 96, 120, 136, 192, 360, 1016, 1984,
+                      2040)
+# 40b's golden frames a config (the golden model takes ~0.5 / 1 / 5 s a
+# frame at 96 / 192 / 1016 chirps, in worker processes).
+FIXED_DENSE_GOLDEN = {96: 16, 192: 16, 1016: 4}
+
+
+def fixed_dense_tie_checks(dev, nd: int) -> int:
+    """Phase 40a's ties: the fixed slow-time kernel on exact round-half
+    ties at a dense length, MTI bypassed, radius 0, 64 rows each:
+    quarter-turn tie planes (bin 0, golden.reference.
+    doppler_quarter_tie_planes), eighth-turn tie planes (bin nd/8,
+    doppler_eighth_tie_planes; none at 8) and, where 3 divides o,
+    twelfth-turn tie planes (bins j nd/12, doppler_twelfth_tie_planes):
+    the kernel bit-equal to its twin (magnitudes and decisions); against
+    the golden numpy model (np.fft.fft, mixed radix) values may differ at
+    exact bins only (``exact_bin``; ROADMAP fault 5), detections within the
+    window's Doppler halo of such a bin, and are counted.  Returns those
+    values."""
+    import numpy as np
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.ops import frontend as F, frontend_fixed as FX
+    p = P.RadarParams(n_range=64, n_doppler=nd)
+    planes = {"quarter": reference.doppler_quarter_tie_planes(nd, 1, 64, nd)}
+    for seed in range(nd, nd + 8):
+        try:
+            planes["eighth"] = reference.doppler_eighth_tie_planes(seed, 1,
+                                                                   64, nd)
+            break
+        except ValueError:          # too few chirps (8)
+            continue
+    if FX.map_split(nd)[0] % 3 == 0:
+        planes["twelfth"] = reference.doppler_twelfth_tie_planes(nd, 1, 64,
+                                                                 nd)
+    off_all = 0
+    reach = p.cfar.halo_doppler
+    for name, (re, im) in planes.items():
+        gold = [reference.process_rows_fixed(a.astype(np.int64),
+                                             b.astype(np.int64), p,
+                                             mti_bypass=True)
+                for a, b in zip(re, im)]
+        tre, tim = torch.as_tensor(re, device=dev), torch.as_tensor(
+            im, device=dev)
+        det, mag, _, ndet, _ = FX.slowtime_detect_fixed(
+            tre, tim, True, 0, cfar=p.cfar, emit_mag=True)
+        tmag, _ = FX.slowtime_mag_fixed_plain(tre, tim, True)
+        tdet = F.detect_plain(tmag, p.cfar, 0, 0)[0]
+        same_twin = bits_equal(mag, tmag) and bits_equal(det, tdet)
+        mag, det = mag.cpu().numpy(), det.cpu().numpy()
+        gmag = np.stack([g[0] for g in gold])
+        gdet = np.stack([g[1] for g in gold])
+        off = np.unique(np.argwhere(mag != gmag)[:, -1])
+        near = np.zeros(nd, bool)
+        for k in off:
+            near[np.arange(k - reach, k + reach + 1) % nd] = True
+        located = (all(exact_bin(int(k), nd) for k in off)
+                   and not ((det != gdet).any((0, 1)) & ~near).any())
+        n_off = int((mag != gmag).sum())
+        log(f"fixed dense {name}-turn ties at 64x{nd}: {n_off} magnitudes "
+            f"differ from the golden model (Doppler bins "
+            f"{off.tolist()[:8]}), twin "
+            f"{'bit-equal' if same_twin else 'DIFFERS'}")
+        if not same_twin or not located:
+            raise AssertionError(f"fixed dense {name}-turn ties at {nd} "
+                                 f"differ")
+        off_all += n_off
+    return off_all
+
+
+def fixed_dense_kernel_checks(dev, pgr: int):
+    """Phase 40a: the fixed slow-time kernel at every dense length (237: 8,
+    24 .. 2040) on 64 rows x 2 frames of bench.py's stimulus through the
+    fixed range kernel (equal to its twin): the whole-frame entry per-cell
+    (MTI on, notch 2, radius pgr) and block (the bypass, override 4,
+    radius 1) through _fx_case (magnitudes and saturations equal to the
+    twin, the decision bit for bit on the kernel's magnitudes); the split
+    entry at sp 2 (OS, MTI on) bit-equal to the whole-frame launch's rows
+    and the twin's decision.  At FIXED_DENSE_SPREAD also notch 3 with the
+    passthrough transient and biased rounding, the 3-pulse block route,
+    override 6 with radius 0, CA / GO / SO per-cell and block, the
+    saturating x40 batch (MTI on and bypassed), the split entry at sp 2
+    and 4 (OS and CA, MTI on and bypassed) and the tie planes
+    (fixed_dense_tie_checks).  Returns ({entry: largest magnitude
+    difference}, the golden model's differences at exact bins)."""
+    import torch
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    errs = {"detect": 0.0, "split": 0.0}
+    tie_bins = 0
+    for nd in dense_lengths():
+        p = dense_params(nd, nr=DENSE_ROWS)
+        iq = torch.as_tensor(make_batch(p, DENSE_FRAMES, seed=nd),
+                             device=dev)
+        re, im, sat_r = FX.range_fft_fixed(iq)
+        want = FX.range_fft_fixed_plain(iq)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((re, im, sat_r), want)):
+            raise AssertionError(f"range_fft_fixed differs at {nd} chirps")
+        spread = nd in FIXED_DENSE_SPREAD
+        cases = [(p, False, 0, pgr, {}),
+                 (dense_params(nd, scale_mode="block", nr=DENSE_ROWS), True,
+                  4, 1, {})]
+        if spread:
+            cases += [
+                (dense_params(nd, notch_mode=3, nr=DENSE_ROWS), False, 0,
+                 pgr, dict(transient="passthrough", rounding="biased")),
+                (dense_params(nd, "os", "block", 3, DENSE_ROWS), False, 0,
+                 pgr, dict(transient="zero")),
+                (p, False, 6, 0, {})]
+            cases += [(dense_params(nd, v, mode, nr=DENSE_ROWS), False, 0,
+                       pgr, {}) for v, mode in (
+                          ("ca", "cell"), ("go", "block"), ("so", "cell"),
+                          ("ca", "block"))]
+        for q, bypass, so, radius, kw in cases:
+            errs["detect"] = max(errs["detect"], _fx_case(
+                "dense", re, im, q, bypass, so, radius, kw, quiet=True))
+        if spread:
+            hot = torch.as_tensor(hot_batch(p, 2), device=dev)
+            hre, him, _ = FX.range_fft_fixed(hot)
+            for bypass in (False, True):
+                _fx_case("dense x40", hre, him, p, bypass, 0, pgr,
+                         quiet=True)
+            del hot, hre, him
+            tie_bins += fixed_dense_tie_checks(dev, nd)
+        errs["split"] = max(errs["split"], fixed_long_split_case(
+            dev, re, im, nd, pgr, "fixed dense split",
+            ("os", "ca") if spread else ("os",),
+            SPLIT_SPS if spread else (2,),
+            (False, True) if spread else (False,), quiet=True))
+        log(f"fixed dense {DENSE_ROWS}x{nd} (o x m = "
+            f"{' x '.join(map(str, FX.map_split(nd)))}): range kernel, "
+            f"{len(cases)} whole-frame cases"
+            f"{', x40, ties' if spread else ''} and the split entry "
+            f"bit-equal to the twins")
+        del re, im, want
+    log(f"fixed dense lengths: {len(dense_lengths())} checked, errors "
+        f"{errs}, golden differences at exact bins {tie_bins}")
+    return errs, tie_bins
+
+
+def fixed_dense_main_path(card: str, dev, pgr: int, pool):
+    """Phase 40b, the slice's main path: batch 128 of bench.py's stimulus
+    at 1024x96, 1024x192 and 1024x1016 through make_batch_processor(mode=
+    "fixed", frontend="fused"), the entry config (per-cell), fast() (block)
+    and CA: only range_fft_fixed and the fixed slow-time kernel's two
+    launches, no plain stage (PlainStages); every output bit-equal to
+    frontend="plain" on the card; the mag and det maps of the first
+    FIXED_DENSE_GOLDEN frames held to the golden process_frame_fixed by
+    worker processes (golden_frames_located on the Doppler axis: equal but
+    at located exact bins; collected by the caller); frames/s beside fixed
+    "auto" (the staged route), both without the maps.  Returns ({(config,
+    nd): launches}, summary, golden futures)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    launches, summary, golden = {}, {}, []
+    for nd in DENSE_NDS:
+        for name, p in (("cell", P.RadarParams(n_doppler=nd)),
+                        ("block", P.fast().replace(n_doppler=nd)),
+                        ("ca", dense_params(nd, "ca"))):
+            frames = make_batch(p, BATCH, seed=49)
+            batch = torch.as_tensor(frames, device=dev)
+            proc = pl.make_batch_processor(p, mode="fixed", frontend="fused",
+                                           peak_group_radius=pgr, device=dev)
+            kernels.reset_launch_counts()
+            with PlainStages() as plain:
+                out = proc(batch)
+                torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            log(f"fixed dense main path {name} 1024x{nd}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items())
+                + f"; plain stages {plain.calls or 'none'}")
+            if (proc.route != "fused" or plain.calls or counts != {
+                    "range_fft_fixed": 1, "slowtime_detect_fixed": 2}):
+                raise AssertionError(f"fixed dense main path {name} {nd}: "
+                                     f"the fused route ran {counts}, "
+                                     f"{plain.calls}")
+            launches[("range_fft_fixed", nd)] = (
+                launches.get(("range_fft_fixed", nd), 0)
+                + counts["range_fft_fixed"])
+            launches[(name, nd)] = counts["slowtime_detect_fixed"]
+            ref = pl.make_batch_processor(p, mode="fixed", frontend="plain",
+                                          peak_group_radius=pgr,
+                                          device=dev)(batch)
+            diff = [k for k in ref if not torch.equal(ref[k], out[k])]
+            if diff or out.keys() != ref.keys() or int(
+                    out["n_dets"].min()) <= 0:
+                raise AssertionError(f"fixed dense main path {name} {nd}: "
+                                     f"fused and plain differ in {diff}")
+            del ref
+            n_gold = FIXED_DENSE_GOLDEN[nd]
+            mags = out["mag_map"][:n_gold].cpu().numpy()
+            dets = out["det_map"][:n_gold].cpu().numpy()
+            for i in range(0, n_gold, 4):
+                golden.append(((name, nd), pool.submit(
+                    golden_frames_located, (frames[i:i + 4], mags[i:i + 4],
+                                            dets[i:i + 4], p, pgr,
+                                            "doppler"))))
+            del out, mags, dets
+            lean = {fe: pl.make_batch_processor(
+                p, mode="fixed", frontend=fe, peak_group_radius=pgr,
+                include_maps=False, device=dev) for fe in ("fused", "auto")}
+            fps = BATCH * 1e3 / cuda_ms(lambda: lean["fused"](batch), 10)
+            fps_staged = BATCH * 1e3 / cuda_ms(lambda: lean["auto"](batch), 2,
+                                               1)
+            summary[f"{name}@{nd}"] = {"frames_per_s": fps,
+                                       "staged_frames_per_s": fps_staged}
+            log(f"fixed dense main path {name} 1024x{nd}: fused bit-equal "
+                f"to plain in every output; {fps:.1f} frames/s, staged "
+                f"{fps_staged:.1f} frames/s ({fps / fps_staged:.2f}x) at "
+                f"batch {BATCH} ({card})")
+            del batch, lean
+            torch.cuda.empty_cache()
+    return launches, summary, golden
+
+
+def fixed_dense_timings(card: str, dev, pgr: int, errs, launches):
+    """Phase 40d: graph-replay times at 1024x96 and 1024x192 (batch 128)
+    and 1024x1016 (batch 16): the fixed slow-time kernel's whole-frame
+    entry per-cell, block (fast()) and CA, and its split entry on the sp 4
+    range shard (rows 256..512 with their halo rows), each beside its
+    bound (bound_slowtime_fixed, bound_slowtime_fixed_split: an nd-point
+    FP64 FFT a row, whatever the kernel runs), its plain twin and
+    torch.fft.fft (complex128) of its planes along Doppler, the
+    transform's share (no PyTorch call computes an entry).  An entry joins
+    the kernels line only at a length where 40b-c counted its launches on
+    a path.  Returns (kernel rows, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend_fixed as FX
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    rows, summary = [], {}
+    for nd, batch in ((96, BATCH), (192, BATCH), (1016, 16)):
+        iq = torch.as_tensor(make_batch(P.RadarParams(n_doppler=nd), batch,
+                                        seed=51), device=dev)
+        re, im, _ = FX.range_fft_fixed(iq)
+        del iq
+        z = torch.complex(re.double(), im.double())
+        fft = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        entries = []
+        for name, p in (("cell", P.RadarParams(n_doppler=nd)),
+                        ("block", P.fast().replace(n_doppler=nd)),
+                        ("ca", dense_params(nd, "ca"))):
+            kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+            entries.append((
+                f"slowtime_detect_fixed[dense,{name},{nd}]",
+                lambda kw=kw: FX.slowtime_detect_fixed(re, im, False, 0,
+                                                       **kw),
+                lambda kw=kw: FX.slowtime_detect_fixed_plain(re, im, False,
+                                                             0, **kw),
+                bound_slowtime_fixed(batch, DENSE_NR, nd, p.cfar),
+                (name, nd), errs["detect"], FIXED_DENSE_LINES["detect"],
+                fft))
+        cfar = P.RadarParams().cfar
+        sp, s = 4, 1
+        nrl, h = DENSE_NR // sp, cfar.halo_range + pgr
+        ext = torch.arange(s * nrl - h, (s + 1) * nrl + h,
+                           device=dev) % DENSE_NR
+        lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+        args = (re[:, core].contiguous(), im[:, core].contiguous(),
+                (re[:, lo].contiguous(), im[:, lo].contiguous()),
+                (re[:, hi].contiguous(), im[:, hi].contiguous()), False, 0,
+                s * nrl)
+        skw = dict(cfar=cfar, n_range_total=DENSE_NR, peak_group_radius=pgr)
+        z = torch.complex(re[:, ext].double(), im[:, ext].double())
+        fft_shard = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        entries.append((
+            f"slowtime_detect_fixed_split[dense,{nd},sp4]",
+            lambda: SF.slowtime_detect_fixed_split(*args, **skw),
+            lambda: SF.slowtime_detect_fixed_split_plain(*args, **skw),
+            bound_slowtime_fixed_split(batch, nrl, nd, h, cfar),
+            ("slowtime_detect_fixed_split", nd), errs["split"],
+            FIXED_DENSE_LINES["split"], fft_shard))
+        for name, call, plain, (bound, by), key, err, line, lib in entries:
+            n = launches.get(key)
+            ms = graph_ms(call, 10 if nd > 512 else 20)
+            plain_ms = cuda_ms(plain, 2, 1)
+            log(f"{name} batch {batch}: {ms:.4f} ms (graph), plain "
+                f"{plain_ms:.4f} ms, torch.fft.fft complex128 of its planes "
+                f"{lib:.4f} ms, bound {bound:.4f} ms ({by}), "
+                f"{'not on a path' if n is None else f'{n} launches'} "
+                f"({card})")
+            summary[f"{name}x{batch}"] = {
+                "ms": ms, "plain_ms": plain_ms, "fft_ms": lib,
+                "bound_ms": bound, "bound_by": by}
+            if n is None:
+                continue
+            rows.append(dict(name=name, route="cuda", source=FIXED_DENSE_SRC,
+                             replaces=line, launches=n, max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by, library_ms=None))
+        del re, im, args
+        torch.cuda.empty_cache()
+    return rows, summary
+
+
+def fixed_dense_phase(card: str, dev, pgr: int):
+    """Phase 40: the fixed slow-time kernel's dense operator (40a every
+    dense length against the twins and the tie planes; 40b the main path
+    at 1024x96, 1024x192 and 1024x1016; 40c make_sharded_processor(mode=
+    "fixed", frontend="fused") on a LocalMesh at sp 2 and 4 at 1024x96 (OS
+    and CA) and 1024x192 (OS), equal to the single card
+    (fixed_long_local_mesh; 1016 / sp is no multiple of 8, so no mesh
+    takes 1016); 40d the entries' times); the main path first, whose
+    golden checks run in worker processes during the rest.  Returns
+    (kernel rows, summary)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    import torch
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    with cf.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        launches, summary, golden = fixed_dense_main_path(card, dev, pgr,
+                                                          pool)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        errs, tie_bins = fixed_dense_kernel_checks(dev, pgr)
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        for nd, configs in ((96, (("os", dense_params(96)),
+                                  ("ca", dense_params(96, "ca")))),
+                            (192, (("os", dense_params(192)),))):
+            mesh = fixed_long_local_mesh(card, dev, pgr, configs,
+                                         tag=f"fixed dense 1024x{nd}")
+            launches[("slowtime_detect_fixed_split", nd)] = mesh[
+                "slowtime_detect_fixed_split"]
+        t3 = time.perf_counter()
+        rows, timings = fixed_dense_timings(card, dev, pgr, errs, launches)
+        t4 = time.perf_counter()
+        done = {}
+        for key, fut in golden:
+            ok, n, off = fut.result()
+            acc = done.setdefault(key, [True, 0, 0, 0])
+            acc[0] &= ok
+            acc[1] += n
+            acc[2] += off
+            acc[3] += 4
+        for (name, nd), (ok, n, off, frames) in done.items():
+            log(f"fixed dense main path {name} 1024x{nd}: mag and det maps "
+                f"vs the golden process_frame_fixed on {frames} frames: "
+                f"{'equal' if ok else 'DIFFER'} but at located exact bins "
+                f"({off} magnitude columns there; {n} detections)")
+            if not ok:
+                raise AssertionError(f"fixed dense main path {name} {nd} "
+                                     f"differs from the golden model")
+    t5 = time.perf_counter()
+    log(f"fixed dense phase: 40b {t1 - t0:.1f} s, 40a {t2 - t1:.1f} s, 40c "
+        f"{t3 - t2:.1f} s, 40d {t4 - t3:.1f} s, golden wait "
+        f"{t5 - t4:.1f} s")
+    return rows, {"main_path": summary, "timings": timings,
+                  "golden_tie_differences": tie_bins,
+                  "golden_frame_columns_at_exact_bins": {
+                      f"{k[0]}@{k[1]}": v[2] for k, v in done.items()},
+                  "launches": {f"{k[0]}@{k[1]}": v
+                               for k, v in launches.items()}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9070,16 +9465,22 @@ def main() -> int:
     block = P.fast()
     pgr = 2
     results = {}
-    if "--wide-cfar-only" in sys.argv[1:]:
-        # Phase 39 alone: the standalone CFAR kernels on wide maps.
-        wide_rows, wide_summary = wide_phase(card, dev, pgr)
-        keys = ("name", "route", "source", "replaces", "launches",
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")
-        log(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                    for r in wide_rows],
-                        "wide_cfar": wide_summary, "card": card}))
-        return 0
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for flag, phase, summary_key in (
+            ("--wide-cfar-only", wide_phase, "wide_cfar"),
+            ("--fixed-dense-only", fixed_dense_phase, "fixed_dense")):
+        if flag in sys.argv[1:]:
+            # Phase 39 (the standalone CFAR kernels on wide maps) or 40
+            # (the fixed dense operator) alone.
+            t0 = time.perf_counter()
+            rows, summary = phase(card, dev, pgr)
+            log(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                        for r in rows],
+                            summary_key: summary, "card": card}))
+            log(f"chip_smoke {flag}: passed in "
+                f"{time.perf_counter() - t0:.1f} s")
+            return 0
     if "--nccl-only" in sys.argv[1:]:
         # Phase 19 alone, for a multi-GPU machine: the NCCL mesh against
         # the single GPU, nothing else.
@@ -9396,6 +9797,12 @@ def main() -> int:
     log(f"phases 1-38: {time.perf_counter() - t_start:.1f} s")
     wide_rows, wide_summary = wide_phase(card, dev, pgr)
 
+    # 40. The fixed dense operator: the fixed slow-time kernel at every
+    #     dense length against its twin and on tie planes, fixed "fused" at
+    #     1024x96, 1024x192 and 1024x1016, a LocalMesh, timings.
+    log(f"phases 1-39: {time.perf_counter() - t_start:.1f} s")
+    fixed_dense_rows, fixed_dense_summary = fixed_dense_phase(card, dev, pgr)
+
     # The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
@@ -9412,9 +9819,7 @@ def main() -> int:
              + hw_rows + variant_rows + reflect_rows + rank_reflect_rows
              + cfar3d_reflect_rows + long_rows + fixed_long_rows
              + scaled_rows + demo_rows + length_rows + fixed_length_rows
-             + dense_rows + wide_rows)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+             + dense_rows + wide_rows + fixed_dense_rows)
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
                     "frames_per_s": frames_per_s, "stages_ms": stages,
                     "fixed": fixed_summary, "array": array_summary,
@@ -9441,6 +9846,7 @@ def main() -> int:
                     "fixed_range_lengths": fixed_length_summary,
                     "dense_doppler": dense_summary,
                     "wide_cfar": wide_summary,
+                    "fixed_dense": fixed_dense_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

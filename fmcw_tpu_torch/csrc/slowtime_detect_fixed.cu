@@ -108,20 +108,46 @@
 // the TPU kernels (frontend_pallas.py _kernel_fixed :835-840 and its n2d >
 // 1 branch :971-1006, split_frontend.py _kernel_slowtime_fixed :640-642
 // and :709-733).  Every entry runs two launches there, as kernel B's:
-// slowtime_mag_long_kernel writes the int32 magnitude map, one warp a row
-// (long_row: the MTI and window over the whole row, then per plane k2d
-// the outer DFT_n2d, the twiddle W_ND^(j1 k2d) and the short rows' 128-
-// point lane transform, the spectrum plane-major in shared memory; the
+// slowtime_map_kernel writes the int32 magnitude map, one warp a row
+// (split_row<128>: the MTI and window over the whole row, then per class
+// k2 the outer DFT_n2d, the twiddle W_ND^(j1 k2) and the short rows' 128-
+// point lane transform, the spectrum class-major in shared memory; the
 // BFP exponent from the whole row's peak; natural-order stores), then
 // slowtime_long.cuh's decide kernel decides it on IntInFloat tiles of T
 // rows x a chunk of W columns.  The exact quarter- and eighth-turn bins
-// all lie on plane 0, whose outer DFT is a sum of integers (long_row);
+// all lie on class 0, whose outer DFT is a sum of integers (split_row);
 // where 3 divides n2d, the sixth- and twelfth-turn bins (cos and sin
 // half-integers or multiples of sqrt(3)/2) are recomputed exactly from
 // class sums (twelfth_bins), in the kernel and its twin alike.
 // Sixteenth-turn bins (k = m ND/16, m odd, at n2d >= 2) and the n2d-th
 // turns of n2d = 5, 7, ... are not treated as exact, as the short rows'
 // sixteenth turns are not.
+//
+// Dense lengths (fmcw::dense_cpi: ND a multiple of 8 below 2048 that is
+// neither a short row nor a long CPI, 8, 24, 40 .. 2040): the dense
+// slow-time operator of the TPU kernels (the n2d == 1 branch of
+// _kernel_fixed, frontend_pallas.py:958-965, and of _kernel_slowtime_fixed,
+// split_frontend.py:700-706, which contract the chirp axis with the dense
+// DFT matrix).  Here the same two launches, the map from split_row<m>:
+// ND = o x m with m = ND & -ND (8 .. 64) and o = ND / m odd (1 .. 255),
+// kernel B's dense_row plan in FP64 (the outer DFT_o as direct sums over
+// the blocks of m chirps, the twiddle W_ND^(j1 k2), an m-point lane
+// transform, G = 32 / min(32, m) classes a warp at once, bin q of class k2
+// at Doppler bin o q + k2).  Its exact bins: every quarter- and eighth-turn
+// bin j ND/8 lies on class 0 (o divides ND/8, since 8 | m), whose outer sums
+// are integers below 255 x 32768 < 2^23 and whose eighth-turn E and P stay
+// below 2040 x 32768 < 2^27 in int32; at m = 8 .. 32 (one point a lane)
+// class 0's eighth-turn lanes take their class sums over their own group of
+// L lanes.  Where 3 divides o (80 of the 237 lengths, 24, 96, 120 .. 2040)
+// 12 divides ND and the twelve bins j ND/12 lie on classes 0, o/3 and 2o/3,
+// recomputed from the chirps' class sums mod 12 (twelfth_bins at the class
+// pitch).  So the map equals the twin's dense FP64 product (with ops/fft.
+// _eighth_turn_bins and _twelfth_turn_bins) bit for bit.  Its cost: the
+// direct sums take o - 1 complex FP64 multiply-adds a sample (126 at 1016,
+// 254 at 2040) against the ~log2(ND) of an FFT that the bound counts, and
+// the map's extra write and read (8 B a cell).  Shared memory: o x (m +
+// pad) double2 and 2 ND int16 a warp, 44,880 B at 2040, four warps a block
+// (179,520 B, one block an SM).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -311,6 +337,26 @@ __device__ __forceinline__ void lane_dft(double (&yr)[Row<N>::P],
     }
 }
 
+// The exact parts u of the eighth-turn bins of an L-point transform held one
+// integer point (tr, ti) a lane (all 32 lanes call it, L lanes a group):
+// the class sums T_r (r = l mod 8) over the lane group, u_r = T_r -
+// T_(r+4) on lanes r < 4, gathered from them.
+template <int L>
+__device__ __forceinline__ void eighth_sums(int tr, int ti, int (&u)[8]) {
+#pragma unroll
+    for (int o = L / 2; o >= 8; o >>= 1) {
+        tr += __shfl_xor_sync(kFull, tr, o, L);
+        ti += __shfl_xor_sync(kFull, ti, o, L);
+    }
+    const int ur = tr - __shfl_xor_sync(kFull, tr, 4, L);
+    const int ui = ti - __shfl_xor_sync(kFull, ti, 4, L);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        u[2 * j] = __shfl_sync(kFull, ur, j, L);
+        u[2 * j + 1] = __shfl_sync(kFull, ui, j, L);
+    }
+}
+
 // The magnitude max + (min >> 2) + (min >> 3) of a bin quantized with the
 // BFP scale sc (magnitude_calc.vhd:70-88).
 __device__ __forceinline__ int int_magnitude(double xr, double xi,
@@ -387,25 +433,9 @@ __device__ __forceinline__ int slowtime_row(const int16_t* rr,
         xi[p] = fmcw::window_q15(xi[p], w, c.rnd, c.shift, &s);
         sat += s;
     }
-    // u: the exact parts of the lane's eighth-turn bins (eighth_bin).  At
-    // P = 1 the class sums T_r (r = l mod 8) over the lane group, u_r =
-    // T_r - T_(r+4) on lanes r < 4, gathered from them.
+    // u: the exact parts of the lane's eighth-turn bins (eighth_bin).
     int u[8] = {};
-    if constexpr (P == 1) {
-        int tr = xr[0], ti = xi[0];
-#pragma unroll
-        for (int o = L / 2; o >= 8; o >>= 1) {
-            tr += __shfl_xor_sync(kFull, tr, o, L);
-            ti += __shfl_xor_sync(kFull, ti, o, L);
-        }
-        const int ur = tr - __shfl_xor_sync(kFull, tr, 4, L);
-        const int ui = ti - __shfl_xor_sync(kFull, ti, 4, L);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            u[2 * j] = __shfl_sync(kFull, ur, j, L);
-            u[2 * j + 1] = __shfl_sync(kFull, ui, j, L);
-        }
-    }
+    if constexpr (P == 1) eighth_sums<L>(xr[0], xi[0], u);
     // 2-3. FP64 (exact), the lane transform, the exact eighth-turn bins.
     double yr[P], yi[P], xo[P], yo[P];
 #pragma unroll
@@ -428,23 +458,28 @@ __device__ __forceinline__ int slowtime_row(const int16_t* rr,
 }
 
 // ---------------------------------------------------------------------------
-// The fixed slow-time chain of a long row (ND = n2d x 128)
+// The fixed slow-time chain of a long or dense row (ND = o x M)
 // ---------------------------------------------------------------------------
 
-// The pitch, in complex values, of a plane of a long row's spectrum in
-// shared memory: 128 bins and a pad, so that the eight lanes of a
-// quarter-warp that read eight consecutive natural bins (planes k mod n2d,
-// bins k / n2d) reach eight different 16-byte bank groups at n2d = 2, 3,
-// 4, 8 and 16.
-__host__ __device__ inline int plane_pitch(int n2d) {
-    return kInner + (8 + n2d - 1) / n2d;
+// A two-launch length's inner transform M: 128 at a long CPI (o = n2d), ND
+// & -ND (8 .. 64) at a dense length (o = ND / M, odd).
+inline int inner_len(int nd) { return long_cpi(nd) ? kInner : nd & -nd; }
+
+// The pitch, in complex values, of a class of a long or dense row's
+// spectrum in shared memory: M bins and a pad, so that the eight lanes of
+// a quarter-warp that read eight consecutive natural bins (classes k mod o,
+// bins k / o) reach eight different 16-byte bank groups at o = 1, 2, 3, 4,
+// 8 and 16 (and mostly above 8: an odd pitch).
+__host__ __device__ inline int class_pitch(int m, int o) {
+    return m + (8 + o - 1) / o;
 }
 
-// A warp's shared memory at a long CPI: the spectrum (n2d planes of
-// double2) and the windowed chirps (int16 I and Q).
-__host__ __device__ inline size_t long_warp_bytes(int nd) {
-    const int n2d = nd / kInner;
-    return (size_t)n2d * plane_pitch(n2d) * sizeof(double2) +
+// A warp's shared memory at a two-launch length ND = o x m: the spectrum (o
+// classes of double2) and the windowed chirps (int16 I and Q); a multiple
+// of 16 bytes (8 | ND).  ops/frontend_fixed.map_warp_bytes mirrors it.
+__host__ __device__ inline size_t map_warp_bytes(int nd, int m) {
+    const int o = nd / m;
+    return (size_t)o * class_pitch(m, o) * sizeof(double2) +
            2 * (size_t)nd * sizeof(int16_t);
 }
 
@@ -456,18 +491,18 @@ __constant__ int4 kW12[12] = {
     {-1, 0, 0, 1}, {0, -1, 1, 0},  {-2, 0, 0, 0},  {0, -1, -1, 0},
     {-1, 0, 0, -1}, {0, 0, -2, 0}, {1, 0, 0, -1},  {0, 1, -1, 0}};
 
-// The twelve bins k = m ND/12 (m = lane < 12) of a long row that 12
-// divides (n2d a multiple of 3), exactly, over the transform's values in
-// the spectrum spec (ops/fft._twelfth_turn_bins): with T_r the windowed
-// chirps (zr, zi) summed over s = r (mod 12), X = sum_r T_r W_12^(r m) =
-// E / 2 + (sqrt(3)/2) B, E and B sums of integers (below 2^28 at ND =
-// 1920), then E / 2 + RN(kC3 B) in FP64, the twin's operations.  Where B
-// is 0 the part is the half-integer E / 2, a round-half tie of the BFP
-// scaling that the transform's rounded twiddles need not give exactly.
-// All 32 lanes call it.
+// The twelve bins k = m ND/12 (m = lane < 12) of a row that 12 divides (o
+// a multiple of 3), exactly, over the transform's values in the spectrum
+// spec (o classes at pitch `pitch`; ops/fft._twelfth_turn_bins): with T_r
+// the windowed chirps (zr, zi) summed over s = r (mod 12), X = sum_r T_r
+// W_12^(r m) = E / 2 + (sqrt(3)/2) B, E and B sums of integers (below
+// 2^28 at ND = 2040), then E / 2 + RN(kC3 B) in FP64, the twin's
+// operations.  Where B is 0 the part is the half-integer E / 2, a
+// round-half tie of the BFP scaling that the transform's rounded twiddles
+// need not give exactly.  All 32 lanes call it.
 __device__ __forceinline__ void twelfth_bins(const int16_t* zr,
                                              const int16_t* zi, int nd,
-                                             int l, int n2d, int pitch,
+                                             int l, int o, int pitch,
                                              double2* spec) {
     int tr = 0, ti = 0;
     if (l < 12) {
@@ -492,82 +527,104 @@ __device__ __forceinline__ void twelfth_bins(const int16_t* zr,
         const double xi = __dadd_rn(0.5 * (double)ei,
                                     __dmul_rn(kC3, (double)bi));
         const int k = l * (nd / 12);
-        spec[(k % n2d) * pitch + k / n2d] = make_double2(xr, xi);
+        spec[(k % o) * pitch + k / o] = make_double2(xr, xi);
     }
 }
 
 // acc += z w in the order (z.re w.re - z.im w.im) as two fmas each, as
-// slowtime_detect.cu's long row.
+// slowtime_detect.cu's long and dense rows.
 __device__ __forceinline__ void cmac(double& ar, double& ai, double zr,
                                      double zi, double2 w) {
     ar = __fma_rn(zr, w.x, __fma_rn(-zi, w.y, ar));
     ai = __fma_rn(zr, w.y, __fma_rn(zi, w.x, ai));
 }
 
-// Chirps 4 l .. 4 l + 3 of an int16 row as doubles.
+// Chirps l P .. l P + P - 1 of an int16 row as doubles.
+template <int P>
 __device__ __forceinline__ void load_points64(const int16_t* row, int l,
-                                              double (&x)[4]) {
-    int v[4];
-    load_points<4>(row, l, v);
+                                              double (&x)[P]) {
+    int v[P];
+    load_points<P>(row, l, v);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) x[q] = (double)v[q];
+    for (int q = 0; q < P; ++q) x[q] = (double)v[q];
 }
 
-// The fixed slow-time chain of a long row (rr, ri) on the 32 lanes of a
-// warp, JAX's long-CPI split (chirp s = 128 j2 + j1), into the int32
-// magnitudes out[ND] (natural order); returns the lane's Doppler-window
-// saturations:
-//   1. the saturating MTI in int32 over the whole row (lane l takes chirps
-//      s = 128 i + 4 l + q, the history before its first chirp from the
-//      lane below, lane 0's from lane 31 of the block before), the Q15
-//      window (fmcw::window_q15) into the warp's int16 buffers zr / zi;
-//   2. for k2d = 0 .. n2d-1, in FP64: lane l's points j1 = 4 l + q of the
-//      outer DFT_n2d over the blocks, sum_j2 z[128 j2 + j1] W_n2d^(j2 k2d)
-//      (j2 ascending, W_n2d^m = tw[128 m]), the twiddle W_ND^(j1 k2d)
-//      (none at k2d = 0) and the 128-point lane transform (lane_dft<128>,
-//      stride n2d), whose bin q is the row's Doppler bin n2d q + k2d,
-//      stored plane-major in spec (pitch plane_pitch(n2d)).  The
-//      quarter- and eighth-turn bins k = m ND/8 are multiples of n2d: they
-//      lie on plane 0, whose outer DFT is a sum of integers (W = tw[0] =
-//      1, exact) with no twiddle, so the short rows' exact-bin argument
-//      and eighth_bin hold there (on plane 0 only: the other planes'
-//      inputs are not integers).  Plane 0's sums reach 16 x 32768 and its
-//      eighth-turn E and P 2^26, inside int32;
-//   3. where n2d is a multiple of 3, the twelve bins m ND/12 recomputed
-//      exactly over the transform's (twelfth_bins);
-//   4. the BFP exponent from the peak of the whole row, every plane (JAX's
+// The fixed slow-time chain of a long or dense row (rr, ri) on the 32 lanes
+// of a warp, ND = o x M, chirp s = M j2 + j1 (a long CPI: M = 128, o = n2d,
+// JAX's long-CPI split; a dense length: M = ND & -ND, 8 .. 64, o = ND / M,
+// odd, 1 .. 255, kernel B's dense_row plan), into the int32 magnitudes
+// out[ND] (natural order); returns the lane's Doppler-window saturations:
+//   1. the saturating MTI in int32 over the whole row in blocks of 128
+//      chirps (lane l takes chirps s = 128 i + 4 l + q; the two chirps
+//      before its first from the lane below, lane 0's from lane 31 of the
+//      block before, at a long CPI, or read from the row at a dense
+//      length, whose last block is partial), the Q15 window
+//      (fmcw::window_q15) into the warp's int16 buffers zr / zi;
+//   2. for the classes k2 = 0 .. o-1, G = 32 / L at a time (L = min(32, M)
+//      lanes a class, P = M / L points a lane; lane group g = lane / L
+//      takes k2 = k0 + g, and past o computes class o - 1 again and stores
+//      nothing, so every lane stays in the shuffles), in FP64: lane l's
+//      points j1 = l P + p of the outer DFT_o over the blocks, sum_j2 z[M
+//      j2 + j1] W_o^(j2 k2) (j2 ascending, W_o^e = tw[e M], direct sums),
+//      the twiddle W_ND^(j1 k2) (none at k2 = 0) and the M-point lane
+//      transform (lane_dft<M>, stride o), whose bin q is the row's Doppler
+//      bin o q + k2, stored class-major in spec (pitch class_pitch(M, o)).
+//      The quarter- and eighth-turn bins k = j ND/8 are multiples of o (8 |
+//      M): they lie on class 0, whose outer DFT is a sum of integers (W =
+//      tw[0] = 1, exact) with no twiddle, so the short rows' exact-bin
+//      argument and eighth_bin hold there (on class 0 only: the other
+//      classes' inputs are not integers); at P = 1 class 0's u comes from
+//      its class sums over the lane group (eighth_sums).  Class 0's sums
+//      stay below 255 x 32768 (dense) or 16 x 32768 (long) and its
+//      eighth-turn E and P below 2^27, inside int32;
+//   3. where 3 divides o, the twelve bins m ND/12 (on classes 0, o/3 and
+//      2o/3) recomputed exactly over the transform's (twelfth_bins);
+//   4. the BFP exponent from the peak of the whole row, every class (JAX's
 //      per-row peak across its parity planes), then quantization and the
-//      integer magnitude of each natural bin k, read from plane k mod n2d
+//      integer magnitude of each natural bin k, read from class k mod o
 //      (two passes over the spectrum).
 // Every FP64 operation an _rn intrinsic, so a row is the same instruction
 // sequence in every entry.  All 32 lanes call it.
-__device__ __forceinline__ int long_row(const int16_t* rr, const int16_t* ri,
-                                        const int* win, const double2* tw,
-                                        int l, const SlowtimeConfig& c,
-                                        double2* spec, int16_t* zr,
-                                        int16_t* zi, int* out) {
-    const int n2d = c.ND / kInner;
-    const int pitch = plane_pitch(n2d);
-    int h1r = 0, h1i = 0, h2r = 0, h2i = 0;
+template <int M>
+__device__ __forceinline__ int split_row(const int16_t* rr, const int16_t* ri,
+                                         const int* win, const double2* tw,
+                                         int lane, const SlowtimeConfig& c,
+                                         double2* spec, int16_t* zr,
+                                         int16_t* zi, int* out) {
+    using R = Row<M>;
+    constexpr int P = R::P, L = R::L, G = R::G;
+    const int nd = c.ND, o = nd / M;
+    const int pitch = class_pitch(M, o);
     int sat = 0;
+    int h1r = 0, h1i = 0, h2r = 0, h2i = 0;
 #pragma unroll 1
-    for (int i = 0; i < n2d; ++i) {
-        const int s0 = i * kInner + 4 * l;
+    for (int b0 = 0; b0 < nd; b0 += 4 * 32) {
+        const int s0 = b0 + 4 * lane;
+        if (s0 >= nd) break;
         int xr[4], xi[4];
-        load_points<4>(rr + i * kInner, l, xr);
-        load_points<4>(ri + i * kInner, l, xi);
+        load_points<4>(rr + b0, lane, xr);
+        load_points<4>(ri + b0, lane, xi);
         if (!c.bypass) {
-            int p1r = __shfl_up_sync(kFull, xr[3], 1);
-            int p1i = __shfl_up_sync(kFull, xi[3], 1);
-            int p2r = __shfl_up_sync(kFull, xr[2], 1);
-            int p2i = __shfl_up_sync(kFull, xi[2], 1);
-            if (l == 0) {
-                p1r = h1r; p1i = h1i; p2r = h2r; p2i = h2i;
+            int p1r = 0, p1i = 0, p2r = 0, p2i = 0;
+            if constexpr (M == kInner) {
+                // A long row's blocks are whole: the history from the lane
+                // below, lane 0's from lane 31 of the block before.
+                p1r = __shfl_up_sync(kFull, xr[3], 1);
+                p1i = __shfl_up_sync(kFull, xi[3], 1);
+                p2r = __shfl_up_sync(kFull, xr[2], 1);
+                p2i = __shfl_up_sync(kFull, xi[2], 1);
+                if (lane == 0) {
+                    p1r = h1r; p1i = h1i; p2r = h2r; p2i = h2i;
+                }
+                h1r = __shfl_sync(kFull, xr[3], 31);
+                h1i = __shfl_sync(kFull, xi[3], 31);
+                h2r = __shfl_sync(kFull, xr[2], 31);
+                h2i = __shfl_sync(kFull, xi[2], 31);
+            } else if (s0 > 0) {
+                // A dense row's last block is partial: from the row.
+                p1r = rr[s0 - 1]; p1i = ri[s0 - 1];
+                p2r = rr[s0 - 2]; p2i = ri[s0 - 2];
             }
-            h1r = __shfl_sync(kFull, xr[3], 31);
-            h1i = __shfl_sync(kFull, xi[3], 31);
-            h2r = __shfl_sync(kFull, xr[2], 31);
-            h2i = __shfl_sync(kFull, xi[2], 31);
 #pragma unroll
             for (int q = 3; q >= 0; --q) {
                 const int i1 = q >= 1 ? q - 1 : 0, i2 = q >= 2 ? q - 2 : 0;
@@ -610,47 +667,59 @@ __device__ __forceinline__ int long_row(const int16_t* rr, const int16_t* ri,
         *reinterpret_cast<uint2*>(zi + s0) = make_uint2(pi[0], pi[1]);
     }
     __syncwarp();
-    const int k1 = (int)(__brev((unsigned)l) >> 27);
+    const int g = lane / L, l = lane % L;
+    const int k1 = (int)(__brev((unsigned)l) >> (32 - R::kLog2L));
 #pragma unroll 1
-    for (int k2d = 0; k2d < n2d; ++k2d) {
-        double yr[4], yi[4];
-        load_points64(zr, l, yr);
-        load_points64(zi, l, yi);
-        int m = 0;
+    for (int k0 = 0; k0 < o; k0 += G) {
+        const bool own = k0 + g < o;
+        const int k2 = own ? k0 + g : o - 1;
+        double yr[P], yi[P];
+        load_points64<P>(zr, l, yr);
+        load_points64<P>(zi, l, yi);
+        int e = 0;
 #pragma unroll 2
-        for (int j2 = 1; j2 < n2d; ++j2) {
-            m += k2d;
-            if (m >= n2d) m -= n2d;
-            const double2 w = ld_nc(tw + m * kInner);
-            double br[4], bi[4];
-            load_points64(zr + j2 * kInner, l, br);
-            load_points64(zi + j2 * kInner, l, bi);
+        for (int j2 = 1; j2 < o; ++j2) {
+            e += k2;
+            if (e >= o) e -= o;
+            const double2 w = ld_nc(tw + e * M);
+            double br[P], bi[P];
+            load_points64<P>(zr + j2 * M, l, br);
+            load_points64<P>(zi + j2 * M, l, bi);
 #pragma unroll
-            for (int q = 0; q < 4; ++q) cmac(yr[q], yi[q], br[q], bi[q], w);
+            for (int q = 0; q < P; ++q) cmac(yr[q], yi[q], br[q], bi[q], w);
         }
-        if (k2d > 0) {
+        if (k2 > 0) {
 #pragma unroll
-            for (int q = 0; q < 4; ++q)
-                cmul(yr[q], yi[q], ld_nc(tw + (4 * l + q) * k2d));
+            for (int q = 0; q < P; ++q)
+                cmul(yr[q], yi[q], ld_nc(tw + (l * P + q) * k2));
         }
+        // Class 0's outer sums are integers: at P = 1 its eighth-turn lanes
+        // read their class sums (every group runs the shuffles; only class
+        // 0 reads u).
         int u[8] = {};
-        double xo[4], yo[4];
-        lane_dft<kInner>(yr, yi, tw, n2d, l, k2d == 0, u, xo, yo);
-        double2* plane = spec + k2d * pitch;
+        if constexpr (P == 1)
+            eighth_sums<L>(__double2int_rn(yr[0]), __double2int_rn(yi[0]),
+                           u);
+        double xo[P], yo[P];
+        lane_dft<M>(yr, yi, tw, o, l, k2 == 0, u, xo, yo);
+        if (own) {
+            double2* cls = spec + k2 * pitch;
 #pragma unroll
-        for (int k2 = 0; k2 < 4; ++k2)
-            plane[k1 + 32 * k2] = make_double2(xo[k2], yo[k2]);
+            for (int q = 0; q < P; ++q)
+                cls[k1 + L * q] = make_double2(xo[q], yo[q]);
+        }
     }
-    if (n2d % 3 == 0) twelfth_bins(zr, zi, c.ND, l, n2d, pitch, spec);
+    __syncwarp();
+    if (o % 3 == 0) twelfth_bins(zr, zi, nd, lane, o, pitch, spec);
     __syncwarp();
     double pk = 0.0;
-    for (int k = l; k < c.ND; k += 32) {
-        const double2 v = spec[(k % n2d) * pitch + k / n2d];
+    for (int k = lane; k < nd; k += 32) {
+        const double2 v = spec[(k % o) * pitch + k / o];
         pk = fmax(pk, fmax(fabs(v.x), fabs(v.y)));
     }
     const double sc = fmcw::bfp_scale(fmcw::warp_max<32>(pk));
-    for (int k = l; k < c.ND; k += 32) {
-        const double2 v = spec[(k % n2d) * pitch + k / n2d];
+    for (int k = lane; k < nd; k += 32) {
+        const double2 v = spec[(k % o) * pitch + k / o];
         out[k] = int_magnitude(v.x, v.y, sc);
     }
     __syncwarp();
@@ -779,25 +848,26 @@ slowtime_detect_fixed_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Long CPIs: the map, then the decision in chunks (slowtime_long.cuh)
+// Long and dense CPIs: the map, then the decision in chunks
+// (slowtime_long.cuh)
 // ---------------------------------------------------------------------------
 
-// The int32 magnitude map of a long-CPI batch: warp w of a block takes rows
-// blockIdx.x kLongWarps + w, striding by the grid, each row's chain
-// (long_row) in the warp's long_warp_bytes of shared memory, with the
-// frame's Doppler-window saturations.  kHalo (the split entry): the map is
-// the shard's halo-extended slab (B, R + 2H, ND), slab row e from
-// FrameRows row e - H; only the shard's own rows are counted.
-template <bool kHalo>
+// The int32 magnitude map of a long-CPI (M = kInner) or dense (M = ND &
+// -ND) batch: warp w of a block takes rows blockIdx.x kLongWarps + w,
+// striding by the grid, each row's chain (split_row<M>) in the warp's
+// map_warp_bytes of shared memory, with the frame's Doppler-window
+// saturations.  kHalo (the split entry): the map is the shard's
+// halo-extended slab (B, R + 2H, ND), slab row e from FrameRows row e - H;
+// only the shard's own rows are counted.
+template <int M, bool kHalo>
 __global__ void __launch_bounds__(kLongWarps * 32)
-slowtime_mag_long_kernel(const Params p) {
+slowtime_map_kernel(const Params p) {
     extern __shared__ double2 lsm[];
     const SlowtimeConfig& c = p.c;
-    const int ND = c.ND;
+    const int ND = c.ND, o = ND / M;
     const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
-    double2* spec = lsm + warp * (long_warp_bytes(ND) / sizeof(double2));
-    int16_t* zr = reinterpret_cast<int16_t*>(
-        spec + (ND / kInner) * plane_pitch(ND / kInner));
+    double2* spec = lsm + warp * (map_warp_bytes(ND, M) / sizeof(double2));
+    int16_t* zr = reinterpret_cast<int16_t*>(spec + o * class_pitch(M, o));
     int16_t* zi = zr + ND;
     const int map_rows = kHalo ? c.R + 2 * c.H : c.R;
     const long long total = (long long)c.batch * map_rows;
@@ -809,8 +879,8 @@ slowtime_mag_long_kernel(const Params p) {
         fmcw::frame_rows<kHalo>(p.xr, p.xi, p.lo_r, p.lo_i, p.hi_r, p.hi_i,
                                 b, c.R, c.H, ND)
             .row(kHalo ? e - c.H : e, rr, ri);
-        int sat = long_row(rr, ri, p.win, p.tw, l, c, spec, zr, zi,
-                           p.mag + row * ND);
+        int sat = split_row<M>(rr, ri, p.win, p.tw, l, c, spec, zr, zi,
+                               p.mag + row * ND);
         sat = fmcw::warp_sum(sat);
         const bool own = !kHalo || (e >= c.H && e < c.H + c.R);
         if (l == 0 && sat && own) atomicAdd(&p.sat[b], sat);
@@ -847,39 +917,53 @@ int launch_nd(const Params& p, cudaStream_t stream) {
     }
 }
 
-template <bool kHalo>
-int launch_mag_long(const Params& p, cudaStream_t stream) {
+template <int M, bool kHalo>
+int launch_map(const Params& p, cudaStream_t stream) {
     static bool ready[fmcw::kMaxDevices] = {};
-    auto* kernel = slowtime_mag_long_kernel<kHalo>;
+    auto* kernel = slowtime_map_kernel<M, kHalo>;
     const cudaError_t err = fmcw::prepare(kernel, ready);
     if (err != cudaSuccess) return (int)err;
     const long long rows =
         (long long)p.c.batch * (p.c.R + (kHalo ? 2 * p.c.H : 0));
     long long blocks = (rows + kLongWarps - 1) / kLongWarps;
     if (blocks > kLongBlocks) blocks = kLongBlocks;
-    const size_t smem = kLongWarps * long_warp_bytes(p.c.ND);
+    const size_t smem = kLongWarps * map_warp_bytes(p.c.ND, M);
     kernel<<<(unsigned)blocks, kLongWarps * 32, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
-// A long CPI's detection: the int32 map (p.mag), then its decision on
-// IntInFloat tiles.
+// A long or dense CPI's detection: the int32 map (p.mag) from
+// split_row<inner_len(ND)>, then its decision on IntInFloat tiles.
 template <bool kHalo>
-int launch_long(const Params& p, cudaStream_t stream) {
-    const int err = launch_mag_long<kHalo>(p, stream);
+int launch_two(const Params& p, cudaStream_t stream) {
+    int err;
+    switch (inner_len(p.c.ND)) {
+        case 8: err = launch_map<8, kHalo>(p, stream); break;
+        case 16: err = launch_map<16, kHalo>(p, stream); break;
+        case 32: err = launch_map<32, kHalo>(p, stream); break;
+        case 64: err = launch_map<64, kHalo>(p, stream); break;
+        case kInner: err = launch_map<kInner, kHalo>(p, stream); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
     if (err) return err;
     return fmcw::launch_decide<int, Sem, int, kHalo>(
         {p.mag, p.det, p.row_max, p.n_dets, p.c}, stream);
 }
 
-// The fixed entries' long CPIs: the decide kernel's tile (long_config_ok),
-// the Q15 window's shift, and E = T + 2H <= kMaxRows rows, so that an
-// IntInFloat column sum (at most E magnitudes of 45,056: 5.8e6) stays
-// below 2^24, exact in float.
-inline bool long_fixed_config_ok(const SlowtimeConfig& c) {
-    return fmcw::long_config_ok(c) && c.T + 2 * c.H <= fmcw::kMaxRows &&
-           c.shift >= 1 && c.shift <= 30 &&
-           kLongWarps * long_warp_bytes(c.ND) <= (size_t)kMaxSmem;
+// The lengths that run two launches, the map kernel then the decide kernel:
+// the long CPIs and the dense lengths (as kernel B's).
+inline bool two_launch(int nd) { return long_cpi(nd) || fmcw::dense_cpi(nd); }
+
+// The fixed entries' two-launch lengths: the decide kernel's tile
+// (decide_config_ok), the Q15 window's shift, E = T + 2H <= kMaxRows rows,
+// so that an IntInFloat column sum (at most E magnitudes of 45,056: 5.8e6)
+// stays below 2^24, exact in float, and the map kernel's shared memory.
+inline bool two_launch_config_ok(const SlowtimeConfig& c) {
+    return two_launch(c.ND) && fmcw::decide_config_ok(c) &&
+           c.T + 2 * c.H <= fmcw::kMaxRows && c.shift >= 1 &&
+           c.shift <= 30 &&
+           kLongWarps * map_warp_bytes(c.ND, inner_len(c.ND)) <=
+               (size_t)kMaxSmem;
 }
 
 }  // namespace
@@ -889,10 +973,11 @@ inline bool long_fixed_config_ok(const SlowtimeConfig& c) {
 // quarter turns; det: int32 (batch, R, ND); mag: same or null; row_max:
 // int32 (batch, R); n_dets/sat: int32 (batch,), zeroed by the caller.
 // cfg's variant selects the CFAR (0 OS, 1 CA, 2 GO, 3 SO).  A long CPI
-// (ND = n2d x 128, n2d 2 .. 16) takes cfg's chunk W and column halo HC,
-// needs mag (the map the decision reads) and row_max zeroed by the
-// caller, and runs two launches.  Returns the CUDA error code of the
-// launches (0 on success).
+// (ND = n2d x 128, n2d 2 .. 16: split_row<128>) or a dense length
+// (fmcw::dense_cpi, 8, 24 .. 2040: split_row<m>, ND = o x m, m = ND & -ND)
+// takes cfg's chunk W and column halo HC, needs mag (the map the decision
+// reads) and row_max zeroed by the caller, and runs two launches.
+// Returns the CUDA error code of the launches (0 on success).
 extern "C" int fmcw_slowtime_detect_fixed(const void* xr, const void* xi,
                                           const void* win, const void* tw,
                                           void* det, void* mag, void* row_max,
@@ -900,8 +985,8 @@ extern "C" int fmcw_slowtime_detect_fixed(const void* xr, const void* xi,
                                           const SlowtimeConfig* cfg,
                                           void* stream) {
     const SlowtimeConfig c = *cfg;
-    const bool lng = long_cpi(c.ND);
-    if (!(lng ? long_fixed_config_ok(c) && mag : detect_config_ok(c)) ||
+    const bool two = two_launch(c.ND);
+    if (!(two ? two_launch_config_ok(c) && mag : detect_config_ok(c)) ||
         !win || !tw)
         return (int)cudaErrorInvalidValue;
     Params p{static_cast<const int16_t*>(xr), static_cast<const int16_t*>(xi),
@@ -910,7 +995,7 @@ extern "C" int fmcw_slowtime_detect_fixed(const void* xr, const void* xi,
              static_cast<int*>(det),          static_cast<int*>(mag),
              static_cast<int*>(row_max),      static_cast<int*>(n_dets),
              static_cast<int*>(sat),          c};
-    if (lng) return launch_long<false>(p, (cudaStream_t)stream);
+    if (two) return launch_two<false>(p, (cudaStream_t)stream);
     return launch_nd<false>(p, (cudaStream_t)stream);
 }
 
@@ -921,8 +1006,9 @@ extern "C" int fmcw_slowtime_detect_fixed(const void* xr, const void* xi,
 // cfg's row_off and r_total place the shard in the frame.  Per-cell scale
 // only, any variant.  Outputs as fmcw_slowtime_detect_fixed, for the
 // shard's R rows; sat counts the Doppler window's saturations of those
-// rows only.  At a long CPI mag is the halo-extended slab (batch, R + 2H,
-// ND) whose rows H .. H + R - 1 are the shard's magnitudes (the map the
+// rows only.  At a long CPI or a dense length (the whole-frame entry's
+// split_row plans) mag is the halo-extended slab (batch, R + 2H, ND)
+// whose rows H .. H + R - 1 are the shard's magnitudes (the map the
 // decision reads) and row_max is zeroed by the caller.
 extern "C" int fmcw_slowtime_detect_fixed_split(
         const void* xr, const void* xi, const void* lo_r, const void* lo_i,
@@ -930,9 +1016,9 @@ extern "C" int fmcw_slowtime_detect_fixed_split(
         void* det, void* mag, void* row_max, void* n_dets, void* sat,
         const SlowtimeConfig* cfg, void* stream) {
     const SlowtimeConfig c = *cfg;
-    const bool lng = long_cpi(c.ND);
-    const bool ok = lng ? fmcw::long_split_config_ok(c) &&
-                              long_fixed_config_ok(c) && mag
+    const bool two = two_launch(c.ND);
+    const bool ok = two ? fmcw::split_decide_ok(c) &&
+                              two_launch_config_ok(c) && mag
                         : fmcw::split_config_ok(c) && detect_config_ok(c);
     if (!ok || !lo_r || !lo_i || !hi_r || !hi_i || !win || !tw)
         return (int)cudaErrorInvalidValue;
@@ -943,6 +1029,6 @@ extern "C" int fmcw_slowtime_detect_fixed_split(
              static_cast<int*>(det),            static_cast<int*>(mag),
              static_cast<int*>(row_max),        static_cast<int*>(n_dets),
              static_cast<int*>(sat),            c};
-    if (lng) return launch_long<true>(p, (cudaStream_t)stream);
+    if (two) return launch_two<true>(p, (cudaStream_t)stream);
     return launch_nd<true>(p, (cudaStream_t)stream);
 }

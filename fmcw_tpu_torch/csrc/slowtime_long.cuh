@@ -2,10 +2,10 @@
 // detect.cu (float32 maps) and slowtime_detect_fixed.cu (int32 maps held
 // in float, fmcw::IntInFloat): at n_doppler ND = n2d x 128 (2 <= n2d <= 16,
 // the long-CPI Doppler split of the TPU kernels) a tile of whole rows no
-// longer fits a block (at ND = 2048 one row is 8 KB of magnitudes), and in
-// slowtime_detect.cu at the dense lengths (dense_cpi: 8, 24 .. 2040, the
-// TPU kernels' dense operator) too, so each
-// entry runs two launches: its own magnitude kernel writes the map, then
+// longer fits a block (at ND = 2048 one row is 8 KB of magnitudes), and
+// at the dense lengths (dense_cpi: 8, 24 .. 2040, the TPU kernels' dense
+// operator) the kernels take the same plan, so each entry runs two
+// launches: its own magnitude kernel writes the map, then
 // the decide kernel here (slowtime_decide_kernel) reads it in tiles of T
 // rows x a chunk of W columns, with H halo rows and HC halo columns that
 // wrap on both axes (or, in the split entries, the rows of the shard's
@@ -53,8 +53,8 @@ __host__ __device__ inline TileLayout chunk_layout(const SlowtimeConfig& c) {
     return tile_layout(t, 1);
 }
 
-// The decide kernel's tile of a map of ND columns (any ND its map kernel
-// writes: long_config_ok, and kernel B's dense lengths).
+// The decide kernel's tile of a map of ND columns (any ND a map kernel
+// writes: the long CPIs and the dense lengths).
 inline bool decide_config_ok(const SlowtimeConfig& c) {
     const int E = c.T + 2 * c.H, WC = c.W + 2 * c.HC;
     const int rows = c.T + 2 * c.pgr;
@@ -77,18 +77,10 @@ inline bool decide_config_ok(const SlowtimeConfig& c) {
            (size_t)chunk_layout(c).total * sizeof(float) <= (size_t)kMaxSmem;
 }
 
-inline bool long_config_ok(const SlowtimeConfig& c) {
-    return long_cpi(c.ND) && decide_config_ok(c);
-}
-
 // The split entries decide with the per-cell scale only, on exactly the
 // exchanged halo rows.
 inline bool split_decide_ok(const SlowtimeConfig& c) {
     return !c.block_mode && c.H == c.hr + c.pgr;
-}
-
-inline bool long_split_config_ok(const SlowtimeConfig& c) {
-    return long_config_ok(c) && split_decide_ok(c);
 }
 
 // A map value in the tile: float maps as they are, int32 maps (at most

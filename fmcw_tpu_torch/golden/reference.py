@@ -11,6 +11,8 @@ oracle of the port's ``mode="fixed"``.
 own) — frames, or range-major planes, that put exact round-half ties on
 eighth-turn Doppler bins: the stimuli that tell an exact Doppler transform
 from a rounded one; ``eighth_turn_ties`` finds those ties in windowed rows.
+``doppler_quarter_tie_planes`` and ``doppler_twelfth_tie_planes`` (the
+port's own) do the same at the quarter and the twelfth turns.
 ``range_tie_frames`` (the port's own) — frames whose chirps put exact
 round-half ties on the range transform's exact bins (quarter, eighth,
 sixth and twelfth turns).
@@ -19,6 +21,8 @@ non-finite, negative and out-of-range keys for the rank-select CFAR.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -282,6 +286,38 @@ def doppler_quarter_tie_planes(seed: int, batch: int, n_range: int,
             ok = np.flatnonzero(reach == want)
             row[-1, 0] = xs[ok[np.abs(xs[ok] - row[-1, 0]).argmin()]]
     return x[..., 0].astype(np.int16), x[..., 1].astype(np.int16)
+
+
+def doppler_twelfth_tie_planes(seed: int, batch: int, n_range: int,
+                               n_doppler: int, rounding: str = "unbiased",
+                               coef_width: int = 16):
+    """Range-major int16 planes (re, im), each (batch, n_range, n_doppler),
+    for the slow-time stage with the MTI bypassed, n_doppler a multiple of
+    12: each row is one chirp s = 1 (mod 12) in I, prime to n_doppler, at a
+    seeded place and value whose Doppler-windowed value z is odd, and
+    zeros.  Bin k is then z W^(s k): at k = j n_doppler/12 (j not a
+    multiple of 3) z W_12^(s j), one part +-z / 2, a half-integer whose
+    sqrt(3)/2 part is 0; the row's peak |z| < 2^15 leaves the BFP scaling
+    at 0, so each is an exact half-LSB tie.  No other bin has a
+    half-integer part (s prime to n_doppler keeps each bin's turn)."""
+    nd = n_doppler
+    if nd % 12:
+        raise ValueError(f"n_doppler {nd} is not a multiple of 12")
+    rng = np.random.default_rng(seed)
+    coef = fx.hamming_coeffs(nd, coef_width)
+    re = np.zeros((batch, n_range, nd), np.int64)
+    for row in re.reshape(-1, nd):
+        while True:
+            s = 12 * int(rng.integers(nd // 12)) + 1
+            x = int(rng.integers(4000, 32000)) * int(rng.choice((-1, 1)))
+            xs = np.clip(x + np.arange(64), -32768, 32767)
+            z = fx.window_apply(xs, xs, np.full(xs.shape, coef[s]),
+                                coef_width, rounding)[0]
+            odd = np.flatnonzero(z % 2)
+            if odd.size and math.gcd(s, nd) == 1:
+                row[s] = xs[odd[0]]
+                break
+    return re.astype(np.int16), np.zeros_like(re, np.int16)
 
 
 # W_12^j = cos(pi j / 6) - i sin(pi j / 6), its cos and sin each written

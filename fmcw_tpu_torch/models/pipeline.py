@@ -134,13 +134,16 @@ split transform into the magnitude map, then its decide kernel over tiles
 of rows x chunks of Doppler columns, ``ops/frontend.py``), so float
 "auto" is "fused" there, as JAX's "auto" takes its kernel; the debug taps,
 reflect edges and the array model (``ref_angle`` 0 and > 0) run its
-entries as at short CPIs.  Other n_doppler above 128 (192, or n2d > 16)
-take the staged route under "auto", and "fused" raises.  The fixed
-slow-time kernel takes them too (the same split in FP64, the BFP exponent
-from the whole row, its int32 map decided by kernel B's decide kernel):
-fixed "fused" runs ``range_fft_fixed`` and ``slowtime_detect_fixed``
-there, per-cell and block, every variant; fixed "auto" stays the staged
-route, as JAX's "auto" stays on its XLA chain.
+entries as at short CPIs.  So do the dense lengths (every other multiple
+of 8 below 2048, 8, 24 .. 2040, ``ops/frontend.dense_cpi``: JAX's dense
+operator), an o x m FFT row into the same map.  Other n_doppler (off a
+multiple of 8, or from 2048 up but the long CPIs) take the staged route
+under "auto", and "fused" raises.  The fixed slow-time kernel takes the
+long CPIs and the dense lengths too (the same plans in FP64, the BFP
+exponent from the whole row, its int32 map decided by kernel B's decide
+kernel): fixed "fused" runs ``range_fft_fixed`` and
+``slowtime_detect_fixed`` there, per-cell and block, every variant; fixed
+"auto" stays the staged route, as JAX's "auto" stays on its XLA chain.
 
 Range lengths: kernel A takes the powers of two 16 .. 1024 and JAX's n2 x
 128 with n2 <= 16 (384, 640, ..., 2048; ``ops/frontend.range_length_ok``,
@@ -447,10 +450,10 @@ def make_batch_processor(params: RadarParams | None = None,
         window_rounding_constant(p.coef_width, window_rounding)
         if route == "fused" and not FX.fused_fixed_detect_supported(
                 p, peak_group_radius, include_debug):
-            # A Doppler length the fixed kernels do not take (a dense
-            # length such as 192, n2d > 16) raises NotImplementedError, as
-            # their wrappers and the mesh.
-            FX.check_fixed_doppler(p.n_doppler, "slowtime_detect_fixed")
+            # A Doppler length the fixed kernels do not take (n2d > 16,
+            # off a multiple of 8) raises NotImplementedError, as their
+            # wrappers and the mesh.
+            F.check_doppler(p.n_doppler, "slowtime_detect_fixed")
             raise ValueError(
                 "frontend='fused' with mode='fixed' runs the fused "
                 "fixed-point kernels, which need a wrap-edge CfarParams "

@@ -349,10 +349,9 @@ def two_launch(nd: int) -> bool:
 
 
 def check_doppler(nd: int, name: str) -> None:
-    """Raises NotImplementedError for an n_doppler that kernel B ``name``
-    does not take: ``SHORT_CPIS``, the long CPIs and the dense lengths
-    (the fixed kernel's own check, ``frontend_fixed.check_fixed_doppler``,
-    refuses the dense lengths)."""
+    """Raises NotImplementedError for an n_doppler that kernel B or the
+    fixed slow-time kernel (``name``) does not take: they take
+    ``SHORT_CPIS``, the long CPIs and the dense lengths."""
     if nd in SHORT_CPIS or two_launch(nd):
         return
     raise NotImplementedError(
@@ -399,7 +398,7 @@ def _decide_geometry(nr, nd, cfar, scale_override, pgr, name,
     The largest T, then W, of a block whose shared
     memory lets two blocks share an SM, else one; within the strips a
     thread holds (64 cells) and, block scale, whole blocks and the block
-    grid a tile holds; the kernel's own arithmetic (``long_config_ok``).
+    grid a tile holds; the kernel's own arithmetic (``decide_config_ok``).
     ``int_map`` (the fixed kernels' int32 maps): T + 2 H at most
     ``kernels.MAX_ROWS`` rows, so that an integer column sum held in float
     stays exact (``frontend_fixed.fixed_config``)."""

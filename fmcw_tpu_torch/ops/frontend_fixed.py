@@ -13,11 +13,13 @@ path, split at the corner turn like the float kernels of ``ops/frontend.py``:
   MTI, Q15 Doppler window with saturation count, Doppler FFT, BFP per range
   bin, integer magnitude, integer 2D CFAR (OS by counting, or the CA / GO
   / SO window means; per-cell or block scale), peak grouping, row maxima
-  and counts.  n_doppler 16 .. 128, and the long CPIs n2d x 128 (n2d 2 ..
-  16, JAX's long-CPI split): there the kernel writes the int32 magnitude
-  map, then kernel B's decide kernel (csrc/slowtime_long.cuh) decides it
-  in tiles of rows x chunks of Doppler columns, two launches that
-  ``launches`` both counts.
+  and counts.  n_doppler 16 .. 128, the long CPIs n2d x 128 (n2d 2 .. 16,
+  JAX's long-CPI split) and the dense lengths (every other multiple of 8
+  below 2048, JAX's dense operator, ``frontend.dense_cpi``): at the last
+  two the kernel writes the int32 magnitude map (an o x m split of the
+  row, ``map_split``), then kernel B's decide kernel
+  (csrc/slowtime_long.cuh) decides it in tiles of rows x chunks of Doppler
+  columns, two launches that ``launches`` both counts.
 
 The twins compose the stage ops of the staged chain (``ops/window``,
 ``ops/fft``, ``ops/notch``, ``ops/magnitude``, ``ops/cfar``), with the
@@ -205,18 +207,23 @@ def slowtime_detect_fixed_plain(re, im, mti_bypass=False, scale_override=0,
     return det, (mag if emit_mag else None), row_max, n_dets, sat
 
 
-def check_fixed_doppler(nd: int, name: str) -> None:
-    """Raises NotImplementedError for an n_doppler that the fixed slow-time
-    kernel does not take: it takes kernel B's short rows and long CPIs
-    (``frontend.check_doppler``), not the dense lengths
-    (``frontend.dense_cpi``: kernel B's dense operator has no fixed
-    counterpart yet)."""
-    F.check_doppler(nd, name)
-    if F.dense_cpi(nd):
-        raise NotImplementedError(
-            f"{name} kernel: n_doppler {nd} is a dense length (neither 16, "
-            f"32, 64, 128 nor n2d x 128); the fixed slow-time kernel has no "
-            f"dense operator (float32 runs it on kernel B)")
+def map_split(nd: int) -> tuple[int, int]:
+    """The fixed map kernel's nd = o x m at a two-launch length
+    (``frontend.two_launch``; csrc/slowtime_detect_fixed.cu ``inner_len``):
+    m = 128 and o = n2d at a long CPI, m = nd & -nd (8 .. 64) and o = nd /
+    m (odd, 1 .. 255) at a dense length."""
+    m = kernels.LONG_CPI_INNER if F.long_cpi(nd) else nd & -nd
+    return nd // m, m
+
+
+def map_warp_bytes(nd: int) -> int:
+    """A map-kernel warp's shared memory at a two-launch length, as the
+    kernel's ``map_warp_bytes`` counts it: o classes of m + ceil(8 / o)
+    double2 (the spectrum, padded against bank conflicts) and the row's
+    windowed int16 I and Q.  44,880 B at 2040; ``kernels.MAP_WARPS`` warps
+    a block."""
+    o, m = map_split(nd)
+    return o * (m + -(-8 // o)) * 16 + 4 * nd
 
 
 def fixed_config(cfg, cfar: CfarParams, notch_mode: int, transient: str,
@@ -224,17 +231,24 @@ def fixed_config(cfg, cfar: CfarParams, notch_mode: int, transient: str,
     """The fixed slow-time entries' kernel config: the tile geometry
     ``cfg`` (with the CFAR variant's code) with the MTI and Q15 window
     fields set; raises NotImplementedError for what the kernel does not
-    take (a dense length, ``check_fixed_doppler``; an OS training set over
-    ``frontend.MAX_PACKED_REFS`` cells, or at a long CPI a decide tile of
-    more than ``kernels.MAX_ROWS`` rows, whose integer column sums would
-    leave float's exact range, among it)."""
-    check_fixed_doppler(cfg.ND, name)
+    take (an OS training set over ``frontend.MAX_PACKED_REFS`` cells, or
+    at a long CPI or a dense length a decide tile of more than
+    ``kernels.MAX_ROWS`` rows, whose integer column sums would leave
+    float's exact range, or a map kernel over its shared memory, among
+    it).  ``cfg``'s n_doppler was checked where it was built
+    (``frontend._slowtime_config``)."""
     cfg = F._detect_config(cfg, cfar, notch_mode, transient, mti_bypass,
                            name)
-    if F.long_cpi(cfg.ND) and cfg.T + 2 * cfg.H > kernels.MAX_ROWS:
-        raise NotImplementedError(
-            f"{name} kernel: a long-CPI decide tile of {cfg.T} + 2 x "
-            f"{cfg.H} rows, more than {kernels.MAX_ROWS}")
+    if F.two_launch(cfg.ND):
+        if cfg.T + 2 * cfg.H > kernels.MAX_ROWS:
+            raise NotImplementedError(
+                f"{name} kernel: a decide tile of {cfg.T} + 2 x {cfg.H} "
+                f"rows, more than {kernels.MAX_ROWS}")
+        if kernels.MAP_WARPS * map_warp_bytes(cfg.ND) > kernels.MAX_SMEM:
+            raise NotImplementedError(
+                f"{name} kernel: the map kernel's {kernels.MAP_WARPS} x "
+                f"{map_warp_bytes(cfg.ND)} B of shared memory at "
+                f"{cfg.ND} chirps")
     cfg.rnd = window_rounding_constant(coef_width, rounding)
     cfg.shift = coef_width - 2
     return cfg
@@ -253,9 +267,10 @@ def slowtime_detect_fixed(re: torch.Tensor, im: torch.Tensor,
     the Doppler window's saturation count.  ``mti_bypass`` and
     ``scale_override`` are runtime controls.  Every CFAR variant: OS by
     counting, CA / GO / SO by the kernel's integer window-mean epilogue
-    (its ``kMean`` instantiation).  At a long CPI the kernel writes the
-    magnitude map, which its decision reads (two launches).  Launches the
-    CUDA kernel for CUDA tensors; the plain twin for CPU tensors."""
+    (its ``kMean`` instantiation).  At a long CPI or a dense length the
+    kernel writes the magnitude map, which its decision reads (two
+    launches).  Launches the CUDA kernel for CUDA tensors; the plain twin
+    for CPU tensors."""
     if re.dim() != 3 or re.shape != im.shape:
         raise ValueError(f"expected re/im (B, nr, nd), got "
                          f"{tuple(re.shape)} and {tuple(im.shape)}")
@@ -277,15 +292,15 @@ def slowtime_detect_fixed(re: torch.Tensor, im: torch.Tensor,
                            int_map=True),
         cfar, notch_mode, transient, mti_bypass, coef_width, rounding,
         "slowtime_detect_fixed")
-    # A long CPI decides on its magnitude map (always written) and combines
-    # its chunks' row maxima into zeros.
-    lng = F.long_cpi(nd)
+    # A long CPI or a dense length decides on its magnitude map (always
+    # written) and combines its chunks' row maxima into zeros.
+    two = F.two_launch(nd)
     dev = re.device
     re, im = F._aligned(re), F._aligned(im)
     win, tw = _tables(nd, coef_width, str(dev))
     det = torch.empty((B, nr, nd), dtype=torch.int32, device=dev)
-    mag = torch.empty_like(det) if emit_mag or lng else None
-    row_max = (torch.zeros if lng else torch.empty)(
+    mag = torch.empty_like(det) if emit_mag or two else None
+    row_max = (torch.zeros if two else torch.empty)(
         (B, nr), dtype=torch.int32, device=dev)
     n_dets = torch.zeros((B,), dtype=torch.int32, device=dev)
     sat = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -296,7 +311,7 @@ def slowtime_detect_fixed(re: torch.Tensor, im: torch.Tensor,
         row_max.data_ptr(), n_dets.data_ptr(), sat.data_ptr(),
         ctypes.byref(cfg), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "slowtime_detect_fixed")
-    slowtime_detect_fixed.launches += 2 if lng else 1
+    slowtime_detect_fixed.launches += 2 if two else 1
     return det, (mag if emit_mag else None), row_max, n_dets, sat
 
 
@@ -311,11 +326,11 @@ def fused_fixed_detect_supported(p: RadarParams, peak_group_radius: int = 0,
     fused_fixed_detect_supported``, asked of the kernels' own checks: no
     debug taps, and a frame and CFAR (any variant, wrap edges: reflect
     gives False, and ``frontend="fused"`` then raises ValueError, as JAX's)
-    that both kernels take, long CPIs included.  JAX's limit on the window
-    (its sums below 2^24, for the TPU's float32 sums) does not apply:
-    these kernels sum in int32; the OS variant's float packed count takes
-    at most ``frontend.MAX_PACKED_REFS`` training cells, the CA/GO/SO
-    epilogue counts nothing."""
+    that both kernels take, long CPIs and dense lengths included.  JAX's
+    limit on the window (its sums below 2^24, for the TPU's float32 sums)
+    does not apply: these kernels sum in int32; the OS variant's float
+    packed count takes at most ``frontend.MAX_PACKED_REFS`` training
+    cells, the CA/GO/SO epilogue counts nothing."""
     if include_debug:
         return False
     try:

@@ -304,9 +304,10 @@ def slowtime_detect_fixed_split(re: torch.Tensor, im: torch.Tensor,
     ``(det int32 (B, nrl, nd), mag | None, row_max int32 (B, nrl), n_dets
     (B,), sat (B,))``, ``sat`` the Doppler window's saturations of the
     shard's own rows; every CFAR variant, as the whole-frame entry.  At a
-    long CPI the kernel writes the magnitudes of the halo-extended slab
-    (B, nrl + 2h, nd), which its decision reads (two launches), and
-    ``mag`` is the shard's rows of it (a view).
+    long CPI or a dense length (``ops/frontend.two_launch``) the kernel
+    writes the magnitudes of the halo-extended slab (B, nrl + 2h, nd),
+    which its decision reads (two launches), and ``mag`` is the shard's
+    rows of it (a view).
     ``detect=False`` (a fixed magnitude-only kernel) does not exist, as in
     JAX's split path: it raises.  Launches the split kernel for CUDA
     tensors; the plain twin for CPU tensors."""
@@ -338,18 +339,18 @@ def slowtime_detect_fixed_split(re: torch.Tensor, im: torch.Tensor,
         cfar, notch_mode, transient, mti_bypass, coef_width, rounding,
         "slowtime_detect_fixed_split")
     B, nrl, nd = re.shape
-    lng = F.long_cpi(nd)
+    two = F.two_launch(nd)
     dev = re.device
     planes = [F._aligned(x) for x in (re, im, *halo_lo, *halo_hi)]
     win, tw = FX._tables(nd, coef_width, str(dev))
     det = torch.empty((B, nrl, nd), dtype=torch.int32, device=dev)
-    if lng:
+    if two:
         slab = torch.empty((B, nrl + 2 * h, nd), dtype=torch.int32,
                            device=dev)
         mag = slab[:, h:h + nrl] if emit_mag else None
     else:
         slab = mag = torch.empty_like(det) if emit_mag else None
-    row_max = (torch.zeros if lng else torch.empty)(
+    row_max = (torch.zeros if two else torch.empty)(
         (B, nrl), dtype=torch.int32, device=dev)
     n_dets = torch.zeros((B,), dtype=torch.int32, device=dev)
     sat = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -360,7 +361,7 @@ def slowtime_detect_fixed_split(re: torch.Tensor, im: torch.Tensor,
         row_max.data_ptr(), n_dets.data_ptr(), sat.data_ptr(),
         ctypes.byref(cfg), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "slowtime_detect_fixed_split")
-    slowtime_detect_fixed_split.launches += 2 if lng else 1
+    slowtime_detect_fixed_split.launches += 2 if two else 1
     return det, mag, row_max, n_dets, sat
 
 

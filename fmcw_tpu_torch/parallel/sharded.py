@@ -297,18 +297,15 @@ def split_detect_supported(p: RadarParams, sp: int,
     variant), its tile (``ops/frontend._slowtime_config``: 64, 32, 16 or 8
     rows dividing the shard's + 2 (halo_range + peak_group_radius) halo
     rows <= 128, or at a long CPI or a dense length the decide kernel's
-    tile; the fixed kernel takes no dense length,
-    ``ops/frontend_fixed.check_fixed_doppler``), and a halo that one
-    neighbour holds?"""
+    tile, with ``fixed`` the int32 map's), and a halo that one neighbour
+    holds?"""
     h = p.cfar.halo_range + peak_group_radius
     if (not split_frontend_supported(p, sp) or p.cfar.scale_mode != "cell"
             or h > p.n_range // sp):
         return False
     try:
-        if fixed:
-            FX.check_fixed_doppler(p.n_doppler, "slowtime_detect_fixed_split")
         F._slowtime_config(1, p.n_range // sp, p.n_doppler, p.cfar, 0,
-                           peak_group_radius)
+                           peak_group_radius, int_map=fixed)
     except NotImplementedError:
         return False
     return True

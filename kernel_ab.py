@@ -110,7 +110,13 @@ NotImplementedError where they do not: "not taken"), at 1024x1016 and
 1024x2048 (batch 16, 2 cubes); there, where the checkout plans the rank
 tiles on the host (``ops/cfar_rank.tile_bytes``), also the rank select's
 grouping entry with its tiles grown from 112 KB to 227 KB (whole rows
-first, then chunks: "227 KB plan").  Prints the card's name and
+first, then chunks: "227 KB plan").  With ``--fixed-dense-only`` it
+times the fixed slow-time kernel's entries by graph replay: per-cell,
+block (fast()) and CA, and the row-6 range shard (sp = 4), at 1024x128
+and the long CPI 1024x256 (batch 128) and, where the checkout's kernel
+takes them ("not taken" elsewhere), at the dense lengths 1024x96,
+1024x192 (batch 128) and 1024x1016 (batch 16), with the fused fixed
+route's frames/s per-cell.  Prints the card's name and
 power limit
 and one JSON line.  To compare two
 commits on one card, unpack the other commit into a directory (``git
@@ -154,6 +160,10 @@ def main() -> int:
                     help="time the standalone CFAR kernels' entries alone, "
                          "at 1024x128 and the wide maps 1024x1016, "
                          "1024x2048")
+    ap.add_argument("--fixed-dense-only", action="store_true",
+                    help="time the fixed slow-time kernel's entries alone, "
+                         "at 1024x128, 1024x256 and the dense lengths "
+                         "1024x96, 1024x192, 1024x1016")
     ap.add_argument("--fixed-range-only", action="store_true",
                     help="time the fixed range kernel's entries and the "
                          "fused fixed route alone, at 1024x128 and the n2 "
@@ -210,10 +220,10 @@ def main() -> int:
             fn()
         return cuda_ms(graph.replay, iters)
 
-    def make_batch(p, seed=0):
+    def make_batch(p, seed=0, batch=BATCH):
         rng = np.random.default_rng(seed)
         frame = pl.complex_to_iq(reference.two_target_frame(p))
-        iq = np.stack([frame] * BATCH)
+        iq = np.stack([frame] * batch)
         iq = iq + rng.integers(-8, 8, iq.shape).astype(np.int16)
         return torch.as_tensor(iq, device="cuda")
 
@@ -385,6 +395,56 @@ def main() -> int:
         print(json.dumps({"root": str(args.root), "graph_ms": graph,
                           "frames_per_s": fps, "batch": BATCH,
                           "card": card}), flush=True)
+        return 0
+    if args.fixed_dense_only:
+        pgr = 2
+        for nd in (entry.n_doppler, 256, 96, 192, 1016):
+            batch = 16 if nd > 512 else BATCH
+            ep = entry.replace(n_doppler=nd)
+            iq = make_batch(ep, batch=batch)
+            re, im, _ = FX.range_fft_fixed(iq)
+            calls = {}
+            for name, p in (("cell", ep), ("block", P.fast().replace(
+                    n_doppler=nd)), ("ca", ep.replace(cfar=dataclasses.replace(
+                        ep.cfar, variant="ca")))):
+                kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+                calls[f"slowtime_detect_fixed[{name},{nd}]"] = (
+                    lambda kw=kw: FX.slowtime_detect_fixed(re, im, False, 0,
+                                                           **kw))
+            nr = ep.n_range
+            h, nrl = ep.cfar.halo_range + pgr, nr // SP
+            ext = torch.arange(nrl - h, 2 * nrl + h, device="cuda") % nr
+            lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+            fshard = (re[:, core].contiguous(), im[:, core].contiguous(),
+                      (re[:, lo].contiguous(), im[:, lo].contiguous()),
+                      (re[:, hi].contiguous(), im[:, hi].contiguous()),
+                      False, 0, nrl)
+            skw = dict(cfar=ep.cfar, n_range_total=nr, peak_group_radius=pgr)
+            calls[f"slowtime_detect_fixed_split[{nd},sp4]"] = (
+                lambda: SF.slowtime_detect_fixed_split(*fshard, **skw))
+            for name, call in calls.items():
+                # The lengths the checkout's fixed kernel takes (its
+                # wrapper raises NotImplementedError elsewhere).
+                try:
+                    call()
+                    torch.cuda.synchronize()
+                except NotImplementedError:
+                    graph[name] = None
+                    continue
+                graph[name] = graph_ms(call, 10 if nd > 512 else 50)
+            if FX.fused_fixed_detect_supported(ep, pgr):
+                proc = pl.make_batch_processor(
+                    ep, mode="fixed", frontend="fused", peak_group_radius=pgr,
+                    include_maps=False, device="cuda")
+                fps[f"fixed/cell/fused,{nd}"] = batch * 1e3 / cuda_ms(
+                    lambda: proc(iq), 10, 2)
+            del iq, re, im, fshard
+            torch.cuda.empty_cache()
+        for name, t in graph.items():
+            print(f"{name}: " + ("not taken" if t is None
+                                 else f"{t:.4f} ms (graph)"), flush=True)
+        print(json.dumps({"root": str(args.root), "graph_ms": graph,
+                          "frames_per_s": fps, "card": card}), flush=True)
         return 0
     if args.slowtime_only:
         pgr = 2

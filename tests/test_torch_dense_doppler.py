@@ -29,7 +29,8 @@ B runs an o x m FFT instead:
   model at 128x48 against JAX's XLA array processor; a LocalMesh at sp 2
   equal to one device; the launches under the ``as_if_cuda`` stand-in
   (kernel A, then kernel B's map and decide kernels in one entry); fixed
-  "fused" refused at the dense lengths.
+  "fused" built at the dense lengths (the fixed slow-time kernel's dense
+  operator, tests/test_torch_fixed_dense.py).
 """
 
 import dataclasses
@@ -431,26 +432,32 @@ def test_dense_lengths_launch_map_then_decide(as_if_cuda):
     assert SF.slowtime_detect_split.launches == 4
 
 
-def test_fixed_fused_refuses_the_dense_lengths():
-    """Fixed "fused" at 96 and 192 raises NotImplementedError on one device
-    and on a mesh (sp 1 and 2), before any launch, and
-    ``fused_fixed_detect_supported`` says so; fixed "auto" stays the staged
-    route.  Explicit float "fused" raises where the card would (100
-    chirps: kernel A's multiple of 8; 2056: above 2048) on the CPU too."""
+def test_fixed_fused_builds_at_the_dense_lengths():
+    """Fixed "fused" at 96 and 192 builds on one device and on a mesh (sp 1
+    and 2), its route "fused", and ``fused_fixed_detect_supported`` says
+    so (the fixed slow-time kernel's dense operator); fixed "auto" stays
+    the staged route.  Float and fixed "fused" raise where the card would
+    (100 chirps: kernel A's multiple of 8; 2056: above 2048) on the CPU
+    too, on one device and on a mesh."""
     kw = dict(mode="fixed", frontend="fused")
     for nd in (96, 192):
         p = fmcw_tpu_torch.RadarParams(n_range=128, n_doppler=nd)
-        assert not FX.fused_fixed_detect_supported(p)
+        assert FX.fused_fixed_detect_supported(p)
         assert F.fused_detect_supported(p, 2)
-        with pytest.raises(NotImplementedError, match="dense"):
-            tpl.make_batch_processor(p, device="cpu", **kw)
+        assert tpl.make_batch_processor(p, device="cpu",
+                                        **kw).route == "fused"
         for sp in (1, 2):
-            with pytest.raises(NotImplementedError):
-                make_sharded_processor(LocalMesh(1, sp, "cpu"), p, **kw)
+            assert make_sharded_processor(LocalMesh(1, sp, "cpu"), p,
+                                          **kw).route == "fused"
         assert tpl.make_batch_processor(p, mode="fixed",
                                         device="cpu").route == "staged"
     for nd in (100, 2056):
         q = fmcw_tpu_torch.RadarParams(n_range=256, n_doppler=nd)
+        assert not FX.fused_fixed_detect_supported(q)
         assert tpl.make_batch_processor(q, device="cpu").route == "staged"
         with pytest.raises(NotImplementedError):
             tpl.make_batch_processor(q, frontend="fused", device="cpu")
+        with pytest.raises(NotImplementedError):
+            tpl.make_batch_processor(q, device="cpu", **kw)
+        with pytest.raises(NotImplementedError):
+            make_sharded_processor(LocalMesh(1, 2, "cpu"), q, **kw)

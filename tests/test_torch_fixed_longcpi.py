@@ -71,7 +71,7 @@ def _kc3():
 
 def kernel_rows_long(re, im, notch=2, transient="zero", bypass=False,
                      rounding="unbiased", exact=True):
-    """The kernel's long row (``long_row``) on every row of int16 planes
+    """The kernel's long row (``split_row<128>``) on every row of int16 planes
     (..., nd), nd = n2d x 128: (mag int64 (..., nd), Doppler-window
     saturations per row, the spectrum (xr, xi) before quantization, the
     windowed rows).  ``exact=False``: without the exact eighth-turn bins
@@ -475,8 +475,9 @@ def test_fixed_long_geometry_fits_the_kernel():
     block, radius 0..8, gets a decide tile that the fixed entries take
     (``frontend_fixed.fixed_config``: T + 2H <= 128 rows, so an IntInFloat
     column sum of 45,056s stays below 2^24), and
-    ``fused_fixed_detect_supported`` says so; 192 and 4096 chirps are
-    refused."""
+    ``fused_fixed_detect_supported`` says so; 100 and 4096 chirps are
+    refused (192, a dense length, is taken: tests/test_torch_fixed_dense.
+    py)."""
     for nd in range(256, 2049, 128):
         for cfar in (fmcw_tpu_torch.CfarParams(),
                      fmcw_tpu_torch.CfarParams(scale_mode="block"),
@@ -489,9 +490,11 @@ def test_fixed_long_geometry_fits_the_kernel():
                 assert (c.T + 2 * c.H) * 45056 < 2 ** 24
                 p = fmcw_tpu_torch.RadarParams(n_doppler=nd, cfar=cfar)
                 assert FX.fused_fixed_detect_supported(p, pgr)
-    for nd in (192, 4096):
+    for nd in (100, 4096):
         p = fmcw_tpu_torch.RadarParams(n_doppler=nd)
         assert not FX.fused_fixed_detect_supported(p)
+    assert FX.fused_fixed_detect_supported(
+        fmcw_tpu_torch.RadarParams(n_doppler=192))
 
 
 # ---------------------------------------------------------------------------

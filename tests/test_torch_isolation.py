@@ -497,8 +497,8 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
     # int32 map, then the decide kernel, two launches, the same decide
     # tile, the map handed over though no magnitudes are asked for and the
     # row maxima zeroed; no plain twin.  n2d above 16 and lengths off 8
-    # stay refused by both; a dense length (192) is kernel B's only: two
-    # launches there, and the fixed kernel refuses it.
+    # stay refused by both; a dense length (192) takes both kernels' two
+    # launches, the same decide tile.
     i16 = long_cpi.to(torch.int16)
     det, mag, rmax, _, _ = FX.slowtime_detect_fixed(i16, i16, cfar=p.cfar,
                                                     peak_group_radius=1)
@@ -519,13 +519,16 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
                                      cfar=p.cfar)
     assert len(as_if_cuda.calls) == 2
     x = torch.zeros((1, 128, 192))
-    with pytest.raises(NotImplementedError, match="dense"):
-        FX.slowtime_detect_fixed(x.to(torch.int16), x.to(torch.int16),
-                                 cfar=p.cfar)
+    _, mag, rmax, _, _ = FX.slowtime_detect_fixed(
+        x.to(torch.int16), x.to(torch.int16), cfar=p.cfar)
+    name, args = as_if_cuda.calls[-1]
+    assert name == "slowtime_detect_fixed" and args[9]._obj.W == 96
+    assert mag is None and args[5] is not None and not rmax.any()
+    assert FX.slowtime_detect_fixed.launches == 4
     F.slowtime_detect(x, x, cfar=p.cfar)
     name, args = as_if_cuda.calls[-1]
     assert name == "slowtime_detect" and args[9]._obj.W == 96
-    assert len(as_if_cuda.calls) == 3 and F.slowtime_detect.launches == 4
+    assert len(as_if_cuda.calls) == 4 and F.slowtime_detect.launches == 4
 
 
 def test_fixed_wrappers_take_plain_twin_on_cpu(monkeypatch):

@@ -531,9 +531,9 @@ def test_fixed_fused_long_cpi_names_the_next_slice():
     """Fixed "fused" at a long CPI (the fixed slow-time kernel's long-CPI
     split, tests/test_torch_fixed_longcpi.py) is the route on one device
     and on a mesh, sp 1 and 2; fixed "auto" there stays the staged route,
-    as JAX's; 192 chirps (a dense length, which kernel B alone takes,
-    tests/test_torch_dense_doppler.py) and n2d 32 stay refused, before any
-    launch."""
+    as JAX's; 100 chirps (off a multiple of 8) and n2d 32 stay refused,
+    before any launch, and 192 (a dense length: the fixed dense operator,
+    tests/test_torch_fixed_dense.py) is the fused route too."""
     p = fmcw_tpu_torch.RadarParams(n_range=128, n_doppler=256)
     kw = dict(mode="fixed", frontend="fused")
     assert tpl.make_batch_processor(p, device="cpu", **kw).route == "fused"
@@ -542,13 +542,16 @@ def test_fixed_fused_long_cpi_names_the_next_slice():
                                       **kw).route == "fused"
     assert tpl.make_batch_processor(p, mode="fixed",
                                     device="cpu").route == "staged"
-    for nd in (192, 4096):
+    for nd in (100, 4096):
         q = p.replace(n_doppler=nd)
         assert not FX.fused_fixed_detect_supported(q)
         with pytest.raises(NotImplementedError):
             tpl.make_batch_processor(q, device="cpu", **kw)
         with pytest.raises(NotImplementedError):
             make_sharded_processor(LocalMesh(1, 2, "cpu"), q, **kw)
+    q = p.replace(n_doppler=192)
+    assert FX.fused_fixed_detect_supported(q)
+    assert tpl.make_batch_processor(q, device="cpu", **kw).route == "fused"
 
 
 # The host's copies of the kernel sources' constants (fmcw_tpu_torch/
