@@ -231,6 +231,20 @@ golden model all at exact bins; fixed "fused" at batch 128 at 1024x96,
 kernels, bit-equal to frontend="plain", the golden model but at located
 exact bins, frames/s beside the staged route); a LocalMesh at sp 2 and 4;
 the entries' times with bounds.  (--fixed-dense-only runs phase 40 alone.)
+Then n_doppler off a multiple of 8 in the float kernels (phase 41: kernel
+A's partial last group of 8 chirps a frame, kernel B's dense row with m = nd
+& -nd in 1, 2, 4 and the decide kernel's ragged last chunk): kernel A's
+both entries at 1024x100 (batch 128), 1024x250 (batch 3) and 1024x2047
+(batch 1) and its chirp shards of 100 / 4 and 1016 / 4 (bit-equal to the
+whole frame); kernel B's detect and magnitude-only entries at every such
+length 6 .. 2047 on 16-row maps (magnitudes within TOL of a float64
+chain on the card, and of the twin at every length to 256, every prime
+and 2047; decisions bit for bit); float auto per-cell and "fused" CA at
+1024x100, 1024x250, 1024x1021 and 1024x2047 (the margin gate, frames/s
+beside the staged route); the debug taps, reflect, hw-compat float and
+the array model at 1024x100; LocalMesh at sp 2 and 4 at 1024x100 and
+1024x1016; fixed "fused" refused at build; the entries' times with
+bounds.  (--odd-doppler-only runs phase 41 alone.)
 It prints the card's name and
 power limit, one JSON line listing the kernels, and as its last line
 {"ok": true, "device": {...}}.
@@ -9429,6 +9443,502 @@ def fixed_dense_phase(card: str, dev, pgr: int):
                                for k, v in launches.items()}}
 
 
+# ---------------------------------------------------------------------------
+# n_doppler off a multiple of 8 (phase 41)
+# ---------------------------------------------------------------------------
+
+ODD_NR = 1024
+ODD_NDS = (100, 250, 1021, 2047)        # the slice's full-width lengths
+ODD_SWEEP_ROWS, ODD_SWEEP_FRAMES = 16, 2        # 41b's small maps
+# 41b's lengths held to the plain twin too (its folded matrices are built
+# on the host, O(nd^3)): every length to 256 (every m in 1, 2, 4), every
+# prime, a few m = 2 and 4 lengths above, and 2047.
+ODD_TWIN_MORE = (500, 502, 1020, 1022, 1500, 1502, 2044, 2046)
+ODD_SRC = {"range": "fmcw_tpu_torch/csrc/range_fft.cu",
+           "slowtime": "fmcw_tpu_torch/csrc/slowtime_detect.cu"}
+ODD_LINES = {"range": "fmcw_tpu/ops/frontend_pallas.py:623",
+             "shard": "fmcw_tpu/ops/split_frontend.py:73",
+             "detect": "fmcw_tpu/ops/frontend_pallas.py:719",
+             "split": "fmcw_tpu/ops/split_frontend.py:562"}
+ODD_MTI = ((2, "zero", False), (3, "passthrough", False), (3, "zero", False),
+           (2, "zero", True))
+
+
+def odd_lengths():
+    """Kernel B's lengths off a multiple of 8 (ops/frontend.unaligned_cpi)
+    that the entry window admits (halo_doppler 5 below nd): 6, 7, 9 ..
+    2047, 1787 of them."""
+    from fmcw_tpu_torch.ops import frontend as F
+    return tuple(nd for nd in range(6, 2048) if F.unaligned_cpi(nd))
+
+
+def odd_batch(nd: int) -> int:
+    return BATCH if nd < 512 else ARRAY_BATCH
+
+
+def odd_twin_lengths(lengths):
+    """41b's lengths held to the plain twin (``ODD_TWIN_MORE``)."""
+    def prime(n):
+        return n > 1 and all(n % q for q in range(2, int(n ** 0.5) + 1))
+    return tuple(nd for nd in lengths if nd <= 256 or prime(nd)
+                 or nd in ODD_TWIN_MORE or nd == lengths[-1])
+
+
+def chain64_mag(re, im, notch: int, transient: str, bypass: bool):
+    """The slow-time chain of range-major planes in float64 on the card
+    (pulse canceller, window, torch.fft.fft complex128) and the kernel's
+    magnitude formula (max + 0.375 min): the reference of the 41b lengths
+    that are not held to the twin."""
+    import torch
+    from fmcw_tpu_torch.ops.window import hamming_float
+    nd = re.shape[-1]
+    x = torch.complex(re.double(), im.double())
+    if not bypass:
+        p1 = torch.nn.functional.pad(x[..., :-1], (1, 0))
+        p2 = torch.nn.functional.pad(x[..., :-2], (2, 0))
+        x = x - p1 if notch == 2 else x - 2 * p1 + p2
+        if transient == "zero":
+            x[..., :notch - 1] = 0
+    w = torch.as_tensor(hamming_float(nd), dtype=torch.float64,
+                        device=re.device)
+    z = torch.fft.fft(x * w, dim=-1)
+    a, b = z.real.abs(), z.imag.abs()
+    return torch.maximum(a, b) + 0.375 * torch.minimum(a, b)
+
+
+def odd_kernel_a_checks(dev):
+    """Phase 41a: kernel A at lengths off a multiple of 8, both entries
+    (int16 I/Q, float32 planes) within TOL of the peak of their twins:
+    1024x100 at batch 128 (13 groups a frame, the last of 4 chirps),
+    1024x250 at batch 3 (the last of 2) and
+    1024x2047 at batch 1; the chirp shards of 100 / 4 (25 chirps) and 1016
+    / 4 (254) through split_frontend.range_frontend (batch 16), each
+    bit-equal to the whole frame's columns and within TOL of the twin.
+    Returns {entry: largest absolute error}."""
+    import numpy as np
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend as F
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    errs = {"range_fft": 0.0, "range_fft_float": 0.0, "range_frontend": 0.0}
+    rng = np.random.default_rng(41)
+
+    def close(got, want, what):
+        torch.cuda.synchronize()
+        peak = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+        err = float(torch.maximum((got[0] - want[0]).abs().max(),
+                                  (got[1] - want[1]).abs().max()))
+        if not err <= TOL * peak:
+            raise AssertionError(f"{what}: err {err / peak:.3g} of peak")
+        return err, err / peak
+
+    for nd, batch in ((100, BATCH), (250, 3), (2047, 1)):
+        iq = torch.as_tensor(make_batch(P.RadarParams(n_doppler=nd), batch,
+                                        seed=nd), device=dev)
+        planes = torch.as_tensor(rng.standard_normal((2, batch, nd, ODD_NR))
+                                 * 1e3, dtype=torch.float32, device=dev)
+        e1, r1 = close(F.range_fft(iq), F.range_fft_plain(iq),
+                       f"range_fft 1024x{nd}")
+        e2, r2 = close(F.range_fft_float(*planes),
+                       F.range_fft_float_plain(*planes),
+                       f"range_fft_float 1024x{nd}")
+        errs["range_fft"] = max(errs["range_fft"], e1)
+        errs["range_fft_float"] = max(errs["range_fft_float"], e2)
+        log(f"kernel A 1024x{nd} batch {batch}: int16 err {r1:.3g}, float "
+            f"err {r2:.3g} of peak (tol {TOL})")
+    for nd in (100, 1016):
+        iq = torch.as_tensor(make_batch(P.RadarParams(n_doppler=nd),
+                                        ARRAY_BATCH, seed=nd), device=dev)
+        whole = F.range_fft(iq)
+        ndl = nd // 4
+        for s in range(4):
+            shard = iq[:, s * ndl:(s + 1) * ndl].contiguous()
+            got = SF.range_frontend(shard)
+            cols = slice(s * ndl, (s + 1) * ndl)
+            if not (bits_equal(got[0], whole[0][..., cols])
+                    and bits_equal(got[1], whole[1][..., cols])):
+                raise AssertionError(f"range_frontend 1024x{nd} shard {s} "
+                                     f"differs from the whole frame")
+            e, _ = close(got, F.range_fft_plain(shard),
+                         f"range_frontend 1024x{nd} shard {s}")
+            errs["range_frontend"] = max(errs["range_frontend"], e)
+        log(f"kernel A chirp shards of 1024x{nd} (sp 4, {ndl} chirps, "
+            f"batch {ARRAY_BATCH}): bit-equal to the whole frame, within "
+            f"TOL of the twin")
+    return errs
+
+
+def odd_sweep(dev, pgr: int):
+    """Phase 41b: at every length off a multiple of 8 (6 .. 2047, 1787) on
+    a 16-row map of 2 frames (kernel A's last group of 8 chirps a frame
+    partial; the twin within TOL), kernel B's detect entry and its map
+    kernel's entry (slowtime_mag): magnitudes within TOL of the peak of the
+    float64 chain on the card (chain64_mag) and, at odd_twin_lengths, of
+    the plain twin; the decision, row maxima and counts bit for bit the
+    twin's on the kernel's own magnitudes; the magnitude-only entry
+    bit-equal to the detect entry's magnitudes.  The MTI settings, the
+    CFAR variants (OS, CA, GO, SO) and radii 0-2 rotate across the lengths.
+    Returns {check: largest absolute magnitude error}."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import fft as TF
+    from fmcw_tpu_torch.ops import frontend as F
+    lengths = odd_lengths()
+    twins = odd_twin_lengths(lengths)
+    errs = {"detect": 0.0, "mag": 0.0, "chain64": 0.0,
+            "sweep_range_fft": 0.0}
+    rel = {"twin": 0.0, "chain64": 0.0}
+    plan = [(nd, *ODD_MTI[i % len(ODD_MTI)], ("os", "ca", "go", "so")[
+        i // 4 % 4], i % 3) for i, nd in enumerate(lengths)]
+    # The twin's folded matrices (the twin's cache holds 16), built ahead
+    # on worker threads, 8 lengths at a time.
+    pool = ThreadPoolExecutor(4)
+    queue = [(nd, notch, transient) for nd, notch, transient, *_ in plan
+             if nd in twins]
+    ahead = {key: pool.submit(TF.doppler_matrices, *key)
+             for key in queue[:8]}
+    queue = queue[8:]
+    for nd, notch, transient, bypass, variant, radius in plan:
+        p = P.RadarParams(n_range=ODD_SWEEP_ROWS, n_doppler=nd,
+                          notch_mode=notch,
+                          cfar=P.CfarParams(variant=variant))
+        iq = torch.as_tensor(make_batch(p, ODD_SWEEP_FRAMES, seed=nd),
+                             device=dev)
+        re, im = F.range_fft(iq)
+        pre, pim = F.range_fft_plain(iq)
+        kw = dict(notch_mode=notch, transient=transient)
+        det, mag, rmax, ndet, nf = F.slowtime_detect(
+            re, im, bypass, 0, cfar=p.cfar, peak_group_radius=radius,
+            emit_mag=True, **kw)
+        mag2, nf2 = F.slowtime_mag(re, im, bypass, **kw)
+        d2, r2, n2, f2 = F.detect_plain(mag, p.cfar, 0, radius)
+        ref = chain64_mag(re, im, notch, transient, bypass)
+        torch.cuda.synchronize()
+        peak_a = float(torch.maximum(pre.abs().max(), pim.abs().max()))
+        err_a = float(torch.maximum((re - pre).abs().max(),
+                                    (im - pim).abs().max()))
+        peak = float(ref.max())
+        err64 = float((mag.double() - ref).abs().max())
+        ok = (err_a <= TOL * peak_a and err64 <= TOL * peak
+              and bits_equal(det, d2) and bits_equal(rmax, r2)
+              and torch.equal(ndet, n2) and torch.equal(nf, f2)
+              and bits_equal(mag, mag2) and torch.equal(nf, nf2))
+        errs["sweep_range_fft"] = max(errs["sweep_range_fft"], err_a)
+        errs["chain64"] = max(errs["chain64"], err64)
+        rel["chain64"] = max(rel["chain64"], err64 / peak)
+        if (nd, notch, transient) in ahead:
+            ahead.pop((nd, notch, transient)).result()
+            if queue:
+                key = queue.pop(0)
+                ahead[key] = pool.submit(TF.doppler_matrices, *key)
+            pmag = F.slowtime_mag_plain(re, im, bypass, **kw)
+            torch.cuda.synchronize()
+            err = float((mag - pmag).abs().max())
+            ppeak = float(pmag.abs().max())
+            ok &= err <= TOL * ppeak
+            errs["detect"] = max(errs["detect"], err)
+            errs["mag"] = max(errs["mag"], err)
+            rel["twin"] = max(rel["twin"], err / ppeak)
+        if not ok:
+            raise AssertionError(
+                f"kernel B at 16x{nd} {variant} notch {notch} {transient} "
+                f"bypass={bypass} pgr={radius}: A err {err_a / peak_a:.3g}, "
+                f"mag err {err64 / peak:.3g} of the float64 chain's peak, "
+                f"decision {'same' if bits_equal(det, d2) else 'DIFFERS'}")
+    pool.shutdown(cancel_futures=True)
+    log(f"odd lengths: {len(lengths)} checked (6 .. 2047; {len(twins)} "
+        f"also against the plain twin): magnitudes within "
+        f"{rel['chain64']:.3g} of the float64 chain's peak, "
+        f"{rel['twin']:.3g} of the twin's; decisions bit-identical")
+    return errs
+
+
+def odd_main_path(card: str, dev, pgr: int, errs):
+    """Phase 41c, the slice's main path: bench.py's stimulus at 1024x100
+    and 1024x250 (batch 128), 1024x1021 and 1024x2047 (batch 16) through
+    make_batch_processor(include_maps=False): float "auto" per-cell and
+    "fused" with CA, each the fused route (before: staged, "fused"
+    raised); only kernel A and kernel B's two launches and the top-K run;
+    kernel B on the whole batch through _b_case (magnitudes within TOL,
+    decisions bit for bit); frame 0 through the margin gate against the
+    plain route's exact taps; frames/s beside the staged route.  Returns
+    ({(kernel, nd): launches}, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels, parity
+    from fmcw_tpu_torch.golden import reference
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.ops import frontend as F
+    launches, summary = {}, {}
+    for nd in ODD_NDS:
+        B = odd_batch(nd)
+        for name, p, fe in (
+                ("cell", P.RadarParams(n_doppler=nd), "auto"),
+                ("ca", P.RadarParams(n_doppler=nd, cfar=P.CfarParams(
+                    variant="ca")), "fused")):
+            proc = pl.make_batch_processor(p, frontend=fe,
+                                           peak_group_radius=pgr,
+                                           include_maps=False, device=dev)
+            if proc.route != "fused":
+                raise AssertionError(f"1024x{nd} {fe} is {proc.route}")
+            batch = torch.as_tensor(make_batch(p, B), device=dev)
+            kernels.reset_launch_counts()
+            out = proc(batch)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            log(f"odd main path {name} ({fe}) 1024x{nd}: launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items()))
+            if counts != {"range_fft": 1, "slowtime_detect": 2}:
+                raise AssertionError(f"odd main path {name} {nd}: launches "
+                                     f"{counts}")
+            launches[("range_fft", nd)] = launches.get(
+                ("range_fft", nd), 0) + 1
+            launches[(name, nd)] = counts["slowtime_detect"]
+            re, im = F.range_fft(batch)
+            errs["detect"] = max(errs["detect"], _b_case(
+                f"main path batch {B}", re, im, p, False, 0, pgr))
+            del re, im
+            for key in ("range_bin", "doppler_bin", "mag", "valid"):
+                if tuple(out[key].shape) != (B, p.tracker.max_dets):
+                    raise AssertionError(f"{key} shape "
+                                         f"{tuple(out[key].shape)}")
+            if not bool(torch.isfinite(out["mag"]).all()) or int(
+                    out["nonfinite_count"].sum()) != 0:
+                raise AssertionError("non-finite magnitudes")
+            ref = pl.make_processor(p, peak_group_radius=pgr,
+                                    frontend="plain", include_debug=True,
+                                    cfar_rank_bits=None, device=dev)(
+                                        batch[0])
+            ok, report = parity.margin_gate(
+                parity.detection_set(out, 0), parity.detection_set(ref),
+                ref["mag_map"].cpu().numpy(),
+                ref["threshold_map"].cpu().numpy(),
+                ref["scale_map"].cpu().numpy(), radius=pgr,
+                capacity=p.tracker.max_dets,
+                targets=reference.golden_targets(p))
+            log(f"odd main path {name} 1024x{nd} frame 0 vs plain path: "
+                f"{report}")
+            if not ok:
+                raise AssertionError(f"odd main path {name} {nd}: margin "
+                                     f"gate failed")
+            del ref, out
+            staged = pl.make_batch_processor(p, frontend="staged",
+                                             peak_group_radius=pgr,
+                                             include_maps=False, device=dev)
+            fps = B * 1e3 / cuda_ms(lambda: proc(batch), 5, 2)
+            fps_staged = B * 1e3 / cuda_ms(lambda: staged(batch), 3, 1)
+            summary[f"{name}@{nd}"] = {"frames_per_s": fps,
+                                       "staged_frames_per_s": fps_staged,
+                                       "batch": B}
+            log(f"odd main path {name} 1024x{nd}: {fps:.1f} frames/s "
+                f"(fused), staged route {fps_staged:.1f} frames/s at batch "
+                f"{B} ({card})")
+            del batch
+            torch.cuda.empty_cache()
+    return launches, summary
+
+
+def odd_fixed_refuses(dev):
+    """Phase 41c: fixed "fused" at 1024x100 raises NotImplementedError when
+    the processor is built, on one card and on a LocalMesh at sp 2, before
+    any launch (the fixed kernels' multiple of 8: the next slice); fixed
+    "auto" stays the staged route."""
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch import kernels
+    from fmcw_tpu_torch.models import pipeline as pl
+    from fmcw_tpu_torch.parallel import mesh as M, sharded as SH
+    p = P.RadarParams(n_doppler=100)
+    kernels.reset_launch_counts()
+    for what, build in (
+            ("one card", lambda: pl.make_batch_processor(
+                p, mode="fixed", frontend="fused", device=dev)),
+            ("LocalMesh sp 2", lambda: SH.make_sharded_processor(
+                M.LocalMesh(1, 2, dev), p, mode="fixed", frontend="fused"))):
+        try:
+            build()
+        except NotImplementedError as e:
+            log(f"fixed fused 1024x100 on {what}: refused at build ({e})")
+        else:
+            raise AssertionError(f"fixed fused 1024x100 built on {what}")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError("a refused fixed build launched a kernel")
+    if pl.make_batch_processor(p, mode="fixed", device=dev).route != "staged":
+        raise AssertionError("fixed auto at 1024x100 is not staged")
+
+
+def odd_timings(card: str, dev, pgr: int, errs, launches):
+    """Phase 41d: graph-replay times at 1024x100, 1024x250 (batch 128),
+    1024x1021 and 1024x2047 (batch 16): kernel A (int16; float at 100), its
+    chirp shard at 100 / 4 and 1016 / 4, kernel B's detect entry per-cell
+    and CA (the map kernel, then the decide kernel), its magnitude-only
+    entry (the map kernel alone; the decide kernel's share is the
+    difference, logged) and its split entry on the sp 4 range shard at
+    1024x100 and 1024x1016, each beside its bound (an nd-point FFT a row,
+    whatever the kernel runs), its plain twin and torch.fft.fft of its
+    planes (kernel A's library_ms; beside kernel B's entries logged only:
+    no PyTorch call computes them).  An entry joins the kernels line where
+    41c counted its launches on a path.  Returns (kernel rows, summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    from fmcw_tpu_torch.ops import frontend as F
+    from fmcw_tpu_torch.ops import split_frontend as SF
+    from fmcw_tpu_torch.ops.window import hamming_float
+    rows, summary = [], {}
+    win = torch.as_tensor(hamming_float(ODD_NR), device=dev)
+
+    def add(name, src, line, key, err, call, plain, bound, lib, lib_row):
+        n = launches.get(key)
+        ms = graph_ms(call, 5 if "1021" in name or "2047" in name else 10)
+        plain_ms = cuda_ms(plain, 1, 1)
+        b, by = bound
+        log(f"{name}: {ms:.4f} ms (graph), plain {plain_ms:.4f} ms, "
+            f"torch.fft.fft {lib:.4f} ms, bound {b:.4f} ms ({by}), "
+            f"{'not on a path' if n is None else f'{n} launches'} ({card})")
+        summary[name] = {"ms": ms, "plain_ms": plain_ms, "fft_ms": lib,
+                         "bound_ms": b, "bound_by": by}
+        if n is not None:
+            rows.append(dict(name=name, route="cuda", source=src,
+                             replaces=line, launches=n, max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=b,
+                             bound_by=by,
+                             library_ms=lib if lib_row else None))
+        return ms
+
+    for nd in ODD_NDS + (1016,):
+        B = odd_batch(nd)
+        p = P.RadarParams(n_doppler=nd)
+        iq = torch.as_tensor(make_batch(p, B, seed=41), device=dev)
+        zw = torch.complex(iq[..., 0].float() * win, iq[..., 1].float() * win)
+        lib_a = graph_ms(lambda: torch.fft.fft(zw, dim=-1))
+        del zw
+        if nd != 1016:
+            add(f"range_fft[odd,{nd}]", ODD_SRC["range"], ODD_LINES["range"],
+                ("range_fft", nd), errs["range_fft"],
+                lambda: F.range_fft(iq), lambda: F.range_fft_plain(iq),
+                bound_range_fft(B, nd, ODD_NR), lib_a, True)
+        if nd in (100, 1016):
+            ndl = nd // 4
+            shard = iq[:, ndl:2 * ndl].contiguous()
+            zs = torch.complex(shard[..., 0].float() * win,
+                               shard[..., 1].float() * win)
+            lib_s = graph_ms(lambda: torch.fft.fft(zs, dim=-1))
+            add(f"range_frontend[odd,{nd},sp4]", ODD_SRC["range"],
+                ODD_LINES["shard"], ("range_frontend", nd),
+                errs["range_frontend"], lambda: SF.range_frontend(shard),
+                lambda: F.range_fft_plain(shard),
+                bound_range_fft(B, ndl, ODD_NR), lib_s, True)
+            del zs
+        re, im = F.range_fft(iq)
+        del iq
+        if nd == 100:
+            beams = (re.transpose(1, 2).contiguous(),
+                     im.transpose(1, 2).contiguous())
+            add(f"range_fft_float[odd,{nd}]", ODD_SRC["range"],
+                ODD_LINES["range"], ("range_fft_float", nd),
+                errs["range_fft_float"], lambda: F.range_fft_float(*beams),
+                lambda: F.range_fft_float_plain(*beams),
+                bound_range_fft_float(B, nd, ODD_NR), lib_a, True)
+            del beams
+        z = torch.complex(re, im)
+        fft = graph_ms(lambda: torch.fft.fft(z, dim=-1))
+        del z
+        if nd != 1016:
+            ms = {}
+            for name, q in (("cell", p), ("ca", p.replace(
+                    cfar=P.CfarParams(variant="ca")))):
+                kw = dict(cfar=q.cfar, peak_group_radius=pgr)
+                ms[name] = add(
+                    f"slowtime_detect[odd,{name},{nd}]", ODD_SRC["slowtime"],
+                    ODD_LINES["detect"], (name, nd), errs["detect"],
+                    lambda kw=kw: F.slowtime_detect(re, im, False, 0, **kw),
+                    lambda kw=kw: F.slowtime_detect_plain(re, im, False, 0,
+                                                          **kw),
+                    bound_slowtime(B, ODD_NR, nd, q.cfar), fft, False)
+            ms["mag"] = add(
+                f"slowtime_mag[odd,{nd}]", ODD_SRC["slowtime"],
+                ODD_LINES["detect"], ("slowtime_mag", nd), errs["mag"],
+                lambda: F.slowtime_mag(re, im),
+                lambda: F.slowtime_mag_plain(re, im, False),
+                bound_slowtime_mag(B, ODD_NR, nd), fft, False)
+            log(f"1024x{nd} batch {B}: the map kernel {ms['mag']:.4f} ms, "
+                f"the decide kernel per-cell {ms['cell'] - ms['mag']:.4f} / "
+                f"CA {ms['ca'] - ms['mag']:.4f} ms (the detect entry's "
+                f"time less the map's) ({card})")
+            summary[f"decide[cell,{nd}]"] = ms["cell"] - ms["mag"]
+            summary[f"decide[ca,{nd}]"] = ms["ca"] - ms["mag"]
+        if nd in (100, 1016):
+            cfar = p.cfar
+            sp, s = 4, 1
+            nrl, h = ODD_NR // sp, cfar.halo_range + pgr
+            ext = torch.arange(s * nrl - h, (s + 1) * nrl + h,
+                               device=dev) % ODD_NR
+            lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+            args = (re[:, core].contiguous(), im[:, core].contiguous(),
+                    (re[:, lo].contiguous(), im[:, lo].contiguous()),
+                    (re[:, hi].contiguous(), im[:, hi].contiguous()), False,
+                    0, s * nrl)
+            skw = dict(cfar=cfar, n_range_total=ODD_NR, peak_group_radius=pgr)
+            zsh = torch.complex(re[:, ext], im[:, ext])
+            fft_shard = graph_ms(lambda: torch.fft.fft(zsh, dim=-1))
+            del zsh
+            add(f"slowtime_detect_split[odd,{nd},sp4]", ODD_SRC["slowtime"],
+                ODD_LINES["split"], ("slowtime_detect_split", nd),
+                errs["detect"], lambda: SF.slowtime_detect_split(*args, **skw),
+                lambda: SF.slowtime_detect_split_plain(*args, **skw),
+                bound_slowtime_split(B, nrl, nd, h, cfar), fft_shard, False)
+            del args
+        del re, im
+        torch.cuda.empty_cache()
+    return rows, summary
+
+
+def odd_phase(card: str, dev, pgr: int):
+    """Phase 41: n_doppler off a multiple of 8 in the float kernels (41a
+    kernel A's partial groups and its chirp shards; 41b kernel
+    B's map and detect entries at every such length below 2048; 41c the
+    main path at 1024x100, 250, 1021 and 2047 (float auto per-cell,
+    "fused" CA), the debug taps, reflect, hw-compat float and the array
+    model at 1024x100, LocalMesh sp 2 and 4 at 1024x100 (per-cell, debug)
+    and 1024x1016 (per-cell, 254 chirps a shard at sp 4), fixed "fused"
+    refused at build; 41d the entries' times).  Returns (kernel rows,
+    summary)."""
+    import torch
+    import fmcw_tpu_torch as P
+    t0 = time.perf_counter()
+    errs = odd_kernel_a_checks(dev)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    errs.update(odd_sweep(dev, pgr))
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    launches, summary = odd_main_path(card, dev, pgr, errs)
+    p100 = P.RadarParams(n_doppler=100)
+    other = long_other_routes(card, dev, pgr, p100, tag="odd 1024x100")
+    launches[("slowtime_mag", 100)] = other["slowtime_mag"]
+    launches[("range_fft_float", 100)] = other["range_fft_float"]
+    for nd, configs in (
+            (100, (("cell", p100, {}, "slowtime_detect_split"),
+                   ("debug", p100, dict(include_debug=True),
+                    "slowtime_mag"))),
+            (1016, (("cell", P.RadarParams(n_doppler=1016), {},
+                     "slowtime_detect_split"),))):
+        mesh = long_local_mesh(card, dev, pgr, configs,
+                               tag=f"odd 1024x{nd}")
+        launches[("slowtime_detect_split", nd)] = mesh[
+            "slowtime_detect_split"]
+        launches[("range_frontend", nd)] = mesh["range_frontend"]
+    odd_fixed_refuses(dev)
+    t3 = time.perf_counter()
+    rows, timings = odd_timings(card, dev, pgr, errs, launches)
+    log(f"odd phase: 41a {t1 - t0:.1f} s, 41b {t2 - t1:.1f} s, 41c "
+        f"{t3 - t2:.1f} s, 41d {time.perf_counter() - t3:.1f} s")
+    return rows, {"main_path": summary, "timings": timings,
+                  "errors": errs,
+                  "launches": {f"{k[0]}@{k[1]}": v
+                               for k, v in launches.items()}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9469,10 +9979,12 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for flag, phase, summary_key in (
             ("--wide-cfar-only", wide_phase, "wide_cfar"),
-            ("--fixed-dense-only", fixed_dense_phase, "fixed_dense")):
+            ("--fixed-dense-only", fixed_dense_phase, "fixed_dense"),
+            ("--odd-doppler-only", odd_phase, "odd_doppler")):
         if flag in sys.argv[1:]:
-            # Phase 39 (the standalone CFAR kernels on wide maps) or 40
-            # (the fixed dense operator) alone.
+            # Phase 39 (the standalone CFAR kernels on wide maps), 40 (the
+            # fixed dense operator) or 41 (n_doppler off a multiple of 8)
+            # alone.
             t0 = time.perf_counter()
             rows, summary = phase(card, dev, pgr)
             log(json.dumps({"kernels": [{k: r[k] for k in keys}
@@ -9803,6 +10315,14 @@ def main() -> int:
     log(f"phases 1-39: {time.perf_counter() - t_start:.1f} s")
     fixed_dense_rows, fixed_dense_summary = fixed_dense_phase(card, dev, pgr)
 
+    # 41. n_doppler off a multiple of 8 in the float kernels: kernel A's
+    #     partial groups, kernel B at every such length below
+    #     2048, the main path at 1024x100, 250, 1021 and 2047, the other
+    #     routes, a LocalMesh (1016 / 4 = 254 chirps a shard), fixed
+    #     "fused" refused, timings.
+    log(f"phases 1-40: {time.perf_counter() - t_start:.1f} s")
+    odd_rows, odd_summary = odd_phase(card, dev, pgr)
+
     # The kernels line.
     replaces = "fmcw_tpu/ops/frontend_pallas.py:623"
     rows = [dict(name="range_fft", route="cuda",
@@ -9819,7 +10339,7 @@ def main() -> int:
              + hw_rows + variant_rows + reflect_rows + rank_reflect_rows
              + cfar3d_reflect_rows + long_rows + fixed_long_rows
              + scaled_rows + demo_rows + length_rows + fixed_length_rows
-             + dense_rows + wide_rows + fixed_dense_rows)
+             + dense_rows + wide_rows + fixed_dense_rows + odd_rows)
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows],
                     "frames_per_s": frames_per_s, "stages_ms": stages,
                     "fixed": fixed_summary, "array": array_summary,
@@ -9847,6 +10367,7 @@ def main() -> int:
                     "dense_doppler": dense_summary,
                     "wide_cfar": wide_summary,
                     "fixed_dense": fixed_dense_summary,
+                    "odd_doppler": odd_summary,
                     "batch": BATCH,
                     "card": card}))
     log(f"chip_smoke: all phases passed in "

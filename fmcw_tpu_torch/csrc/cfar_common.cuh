@@ -310,43 +310,46 @@ __device__ void group_store(const V* det_s, const V* mag_s, int T, int H,
 }
 
 // Grouping and stores of a column chunk's T x W cells (map rows r0 ..
-// r0 + T - 1, map columns c0 .. c0 + W - 1): det_s (T + 2 pgr rows of NC =
-// W + 2 pgr) holds the decisions of map rows r0 - pgr .. and map columns
-// c0 - pgr .. (wrapped modulo D), so every neighbour lies in it unwrapped.
-// As group_store (the strict maximum of the (2 pgr + 1)^2 wrapped
-// neighbourhood, ties to the lower linear index of the map), storing only
-// columns below D (a ragged last chunk); det is frame b's (R, D) map, the
-// row maxima go into rmax_s[T] (ordered ints, zeroed by the caller), the
-// detection count into counts[0].
+// r0 + T - 1, map columns c0 .. c0 + W - 1): det_s (T + 2 pgr rows at a
+// pitch of `pitch` values) holds from tile column col0 on the decisions of
+// map rows r0 - pgr .. and map columns c0 - pgr .. (wrapped modulo D), so
+// every neighbour lies in it unwrapped.  As group_store (the strict maximum
+// of the (2 pgr + 1)^2 wrapped neighbourhood, ties to the lower linear
+// index of the map), with global row ids row_id0 + t (a range shard's,
+// wrapping modulo r_total), storing only columns below D (a ragged last
+// chunk); det points at the chunk's first map row (row t at det + t D),
+// the row maxima go into rmax_s[T] (ordered ints, zeroed by the caller),
+// the detection count into counts[0].
 template <typename V, typename O>
-__device__ void group_store_chunk(const V* det_s, int T, int W, int pgr,
-                                  int R, int D, int r0, int c0, O* det,
-                                  int* rmax_s, int* counts) {
-    const int NC = W + 2 * pgr;
+__device__ void group_store_chunk(const V* det_s, int pitch, int col0, int T,
+                                  int W, int pgr, int r_total, int D,
+                                  int row_id0, int c0, O* det, int* rmax_s,
+                                  int* counts) {
     const int wn = min(W, D - c0);              // columns stored
     int my_dets = 0;
     for (int idx = threadIdx.x; idx < T * wn; idx += blockDim.x) {
         const int t = idx / wn;
         const int j = idx - t * wn;
-        const V* cell = det_s + (t + pgr) * NC + j + pgr;
+        const V* cell = det_s + (t + pgr) * pitch + col0 + pgr + j;
         const V m = *cell;
         V out = m;
         if (pgr > 0 && m > V(0)) {
-            const int r = r0 + t, d = c0 + j;
+            const int r = row_id0 + t, d = c0 + j;
             const int id = r * D + d;
             for (int dr = -pgr; dr <= pgr && out > V(0); ++dr) {
-                const int nr = wrap_mod(r + dr, R);
+                const int nr = wrap_mod(r + dr, r_total);
                 for (int dd = -pgr; dd <= pgr; ++dd) {
                     if (dr == 0 && dd == 0) continue;
-                    const V v = cell[dr * NC + dd];
-                    if (v > m || (v == m && nr * D + wrap_mod(d + dd, D) < id)) {
+                    const V v = cell[dr * pitch + dd];
+                    const int nid = nr * D + wrap_mod(d + dd, D);
+                    if (v > m || (v == m && nid < id)) {
                         out = V(0);
                         break;
                     }
                 }
             }
         }
-        det[(size_t)(r0 + t) * D + c0 + j] = static_cast<O>(out);
+        det[(size_t)t * D + c0 + j] = static_cast<O>(out);
         if (out > V(0)) {
             ++my_dets;
             atomicMax(&rmax_s[t], ordered(out));

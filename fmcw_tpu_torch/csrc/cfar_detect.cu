@@ -439,8 +439,10 @@ __device__ __forceinline__ void decide_block(
     int* rmax_s = smem + lay.rmax;
     int* counts = smem + lay.counts;
     if constexpr (kChunk)
-        fmcw::group_store_chunk(det_s, rows_out, c.W, pg, c.R, c.D, r0, c0,
-                                det + (size_t)b * c.R * c.D, rmax_s, counts);
+        fmcw::group_store_chunk(det_s, c.W + 2 * pg, 0, rows_out, c.W, pg,
+                                c.R, c.D, r0, c0,
+                                det + ((size_t)b * c.R + r0) * c.D, rmax_s,
+                                counts);
     else
         fmcw::group_store(det_s, reinterpret_cast<const O*>(tile), rows_out,
                           hr + pg, pg, c.R, D, r0, ((size_t)b * c.R + r0) * D,

@@ -527,8 +527,9 @@ cfar_rank_kernel(const V* __restrict__ map, const int* __restrict__ scale_in,
     // ---- 4. Peak grouping of the T rows, row maxima and the count (a
     //         chunk's row maxima combined with the other chunks').
     if constexpr (kChunk)
-        fmcw::group_store_chunk(det_s, c.T, c.W, pg, c.R, D, r0, c0,
-                                det + (size_t)b * c.R * D, rmax_s, counts);
+        fmcw::group_store_chunk(det_s, c.W + 2 * pg, 0, c.T, c.W, pg, c.R,
+                                D, r0, c0, det + ((size_t)b * c.R + r0) * D,
+                                rmax_s, counts);
     else
         fmcw::group_store(det_s, tile, c.T, H, pg, c.R, D, r0, out0, det,
                           (V*)nullptr, rmax_s, counts);

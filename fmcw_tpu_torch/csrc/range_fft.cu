@@ -7,7 +7,11 @@
 // fmcw_tpu/ops/split_frontend.py::_kernel_range (:73).  The TPU kernel keeps
 // the whole 1 MiB frame in VMEM; here the frame is cut along the chirp axis
 // into groups of kChirps = 8 chirps, and the slow-time half runs as kernel B
-// (slowtime_detect.cu) on range tiles.
+// (slowtime_detect.cu) on range tiles.  Any chirp count nd: a frame is
+// ceil(nd / 8) groups, the last partial where 8 does not divide nd (its
+// bulk copy cut to its chirps, its missing chirps transformed from stale
+// shared memory and not stored); at 8 | nd every group, copy and store
+// is whole.
 //
 // In:  iq int16 (B, nd, n, 2), I/Q interleaved (read as one 32-bit word),
 //      or (fmcw_range_fft_float, the array model's beamformed data) planar
@@ -136,7 +140,6 @@ struct Plan {
     static constexpr int kExchange = kChirps * kRegion;   // one plane
     static constexpr int kPlane = kChirps * n;       // one input plane
     static constexpr int kIn = kPlane * (kFloat ? 2 : 1);
-    static constexpr int kInBytes = kIn * 4;
     // Input buffer, the two exchange planes of each slice, the mbarrier.
     static constexpr int kSmemBytes =
         (kIn + 2 * kSlices * kExchange) * 4 + 16;
@@ -215,20 +218,31 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
         :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-// One thread: group gi's input (8 consecutive chirps, contiguous in each
-// plane) into `buf`, completion counted on `bar`.
-template <typename P>
+// One thread: group gi's input (its chirps c0 .. c0 + 7 of frame f, or to
+// the frame's last chirp, contiguous in each plane: n 4-byte words a
+// chirp, a multiple of 16 bytes) into `buf`, completion counted on `bar`.
+// kWhole (8 | nd): every group is 8 chirps, the gi-th of the batch.
+template <typename P, bool kWhole>
 __device__ __forceinline__ void prefetch(const void* src0, const void* src1,
-                                         float* buf, uint64_t* bar, int gi) {
+                                         float* buf, uint64_t* bar, int gi,
+                                         int nd, int per_frame) {
     const uint32_t b = smem_addr(bar);
+    uint32_t bytes = P::kPlane * 4;
+    size_t off = (size_t)gi * P::kPlane;
+    if constexpr (!kWhole) {
+        const int f = gi / per_frame;
+        const int c0 = (gi - f * per_frame) * kChirps;
+        bytes = (nd - c0 < kChirps ? nd - c0 : kChirps) * P::n * 4;
+        off = ((size_t)f * nd + c0) * P::n;
+    }
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(b), "r"(P::kInBytes) : "memory");
-    const size_t off = (size_t)gi * P::kPlane;
-    bulk_load(smem_addr(buf), static_cast<const float*>(src0) + off,
-              P::kPlane * 4, b);
+                 :: "r"(b), "r"(P::kIn > P::kPlane ? 2 * bytes : bytes)
+                 : "memory");
+    bulk_load(smem_addr(buf), static_cast<const float*>(src0) + off, bytes,
+              b);
     if constexpr (P::kIn > P::kPlane)   // float input: the im plane
         bulk_load(smem_addr(buf + P::kPlane),
-                  static_cast<const float*>(src1) + off, P::kPlane * 4, b);
+                  static_cast<const float*>(src1) + off, bytes, b);
 }
 
 __device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
@@ -388,8 +402,9 @@ __device__ __forceinline__ void pass2_store(float (&xr)[P::N1],
 // kFloat: the input is two float32 planes (src0 = re, src1 = im); else
 // src0 is the int16 I/Q pairs.  tw: the m-point plan's table tw[ka N2 + t]
 // (m entries); for kO > 1 followed by W_n^(i1 k2) at [m + k2 m + i1] (n
-// entries) and W_kO^e at [m + n + e] (kO entries).
-template <bool kFloat, int kLog2M, int kO>
+// entries) and W_kO^e at [m + n + e] (kO entries).  kWhole: 8 | nd (whole
+// groups; else a frame's last group is partial).
+template <bool kFloat, int kLog2M, int kO, bool kWhole>
 __global__ void __launch_bounds__(Plan<kFloat, kLog2M, kO>::kThreads,
                                   Plan<kFloat, kLog2M, kO>::kMinBlocks)
 range_fft_kernel(const void* __restrict__ src0, const void* __restrict__ src1,
@@ -403,13 +418,14 @@ range_fft_kernel(const void* __restrict__ src0, const void* __restrict__ src1,
     float* xch0 = smem + P::kIn;
     uint64_t* bar =
         reinterpret_cast<uint64_t*>(xch0 + 2 * P::kSlices * P::kExchange);
-    const int per_frame = nd / kChirps;
+    const int per_frame =
+        kWhole ? nd / kChirps : (nd + kChirps - 1) / kChirps;
 
     if (threadIdx.x == 0) {
         asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
                      :: "r"(smem_addr(bar)) : "memory");
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-        prefetch<P>(src0, src1, in, bar, blockIdx.x);
+        prefetch<P, kWhole>(src0, src1, in, bar, blockIdx.x, nd, per_frame);
     }
     __syncthreads();
 
@@ -446,7 +462,8 @@ range_fft_kernel(const void* __restrict__ src0, const void* __restrict__ src1,
             if (tid == 0 && round == P::kRounds - 1 &&
                 gi + (int)gridDim.x < groups) {
                 asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-                prefetch<P>(src0, src1, in, bar, gi + gridDim.x);
+                prefetch<P, kWhole>(src0, src1, in, bar, gi + gridDim.x,
+                                    nd, per_frame);
             }
             if (active) {
                 get<P>(xr, xch, c2, q);
@@ -457,9 +474,10 @@ range_fft_kernel(const void* __restrict__ src0, const void* __restrict__ src1,
             if (active) {
                 const int b = gi / per_frame;
                 const int c0 = (gi - b * per_frame) * kChirps;
-                pass2_store<P, kO>(xr, xi, q, k2,
-                                   (size_t)b * n * nd + c0 + c2, nd, out_re,
-                                   out_im);
+                if (kWhole || c0 + c2 < nd)     // a partial last group
+                    pass2_store<P, kO>(xr, xi, q, k2,
+                                       (size_t)b * n * nd + c0 + c2, nd,
+                                       out_re, out_im);
             }
         }
     }
@@ -468,12 +486,12 @@ range_fft_kernel(const void* __restrict__ src0, const void* __restrict__ src1,
 // Launches one block per group when there are more than four groups per
 // resident block slot (blocks per SM x SMs, computed once per process), else
 // one block per slot (or per group, if fewer), each walking its groups.
-template <bool kFloat, int kLog2M, int kO>
-cudaError_t launch_n(const void* src0, const void* src1, const void* win,
-                     const void* tw, void* out_re, void* out_im, int batch,
-                     int nd, cudaStream_t stream) {
+template <bool kFloat, int kLog2M, int kO, bool kWhole>
+cudaError_t launch_nw(const void* src0, const void* src1, const void* win,
+                      const void* tw, void* out_re, void* out_im, int batch,
+                      int nd, cudaStream_t stream) {
     using P = Plan<kFloat, kLog2M, kO>;
-    auto* kernel = range_fft_kernel<kFloat, kLog2M, kO>;
+    auto* kernel = range_fft_kernel<kFloat, kLog2M, kO, kWhole>;
     static int slots = 0;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmemBytes);
@@ -491,7 +509,7 @@ cudaError_t launch_n(const void* src0, const void* src1, const void* win,
         if (per_sm < 1) return cudaErrorInvalidConfiguration;
         slots = per_sm * sms;
     }
-    const int groups = batch * (nd / kChirps);
+    const int groups = batch * ((nd + kChirps - 1) / kChirps);
     const int grid = groups > 4 * slots ? groups
                      : groups < slots   ? groups
                                         : slots;
@@ -500,6 +518,18 @@ cudaError_t launch_n(const void* src0, const void* src1, const void* win,
         static_cast<const float2*>(tw), static_cast<float*>(out_re),
         static_cast<float*>(out_im), nd, groups);
     return cudaGetLastError();
+}
+
+// The whole-group instantiation at 8 | nd, else the partial-group one.
+template <bool kFloat, int kLog2M, int kO>
+cudaError_t launch_n(const void* src0, const void* src1, const void* win,
+                     const void* tw, void* out_re, void* out_im, int batch,
+                     int nd, cudaStream_t stream) {
+    return nd % kChirps == 0
+               ? launch_nw<kFloat, kLog2M, kO, true>(
+                     src0, src1, win, tw, out_re, out_im, batch, nd, stream)
+               : launch_nw<kFloat, kLog2M, kO, false>(
+                     src0, src1, win, tw, out_re, out_im, batch, nd, stream);
 }
 
 // The lengths kernel A takes: a power of two 2^kMinLog2N .. 2^kMaxLog2N, or
@@ -514,8 +544,8 @@ template <bool kFloat>
 int launch(const void* src0, const void* src1, const void* win,
            const void* tw, void* out_re, void* out_im, int batch, int nd,
            int n, void* stream) {
-    if (batch < 1 || !length_ok(n) || nd < kChirps || nd % kChirps != 0 ||
-        (long long)batch * nd > 0x7fffffffLL ||
+    if (batch < 1 || !length_ok(n) || nd < 1 ||
+        (long long)batch * (nd + kChirps - 1) > 0x7fffffffLL ||
         ((reinterpret_cast<uintptr_t>(src0) |
           reinterpret_cast<uintptr_t>(src1)) & 15))
         return (int)cudaErrorInvalidValue;
@@ -555,7 +585,7 @@ int launch(const void* src0, const void* src1, const void* win,
 template <bool kFloat>
 int blocks_per_sm() {
     using P = Plan<kFloat, kMaxLog2N>;
-    auto* kernel = range_fft_kernel<kFloat, kMaxLog2N, 1>;
+    auto* kernel = range_fft_kernel<kFloat, kMaxLog2N, 1, true>;
     int blocks = 0;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmemBytes);
@@ -567,10 +597,11 @@ int blocks_per_sm() {
 
 }  // namespace
 
-// iq: int16 (batch, nd, n, 2), 16-byte aligned; win: float32 (n,); tw:
-// complex float32 (n,) with tw[ka N2 + t] = exp(-2 pi i t ka / n) for the
-// plan's n = N1 x N2 (ops/frontend._tables); out_re/out_im: float32 (batch,
-// n, nd).  Returns the CUDA error code of the launch (0 on success).
+// iq: int16 (batch, nd, n, 2), any nd >= 1, 16-byte aligned; win: float32
+// (n,); tw: complex float32 (n,) with tw[ka N2 + t] = exp(-2 pi i t ka /
+// n) for the plan's n = N1 x N2 (ops/frontend._tables); out_re/out_im:
+// float32 (batch, n, nd).  Returns the CUDA error code of the launch (0
+// on success).
 extern "C" int fmcw_range_fft(const void* iq, const void* win, const void* tw,
                               void* out_re, void* out_im, int batch, int nd,
                               int n, void* stream) {

@@ -48,14 +48,22 @@ constexpr int kMaxSmem = 232448;        // 227 KB, an H100 block's most
 constexpr int kMaxDevices = 64;
 
 // The lane plan of a row's slow-time FFT: L = min(32, ND) lanes a row, P =
-// ND / L chirps a lane (chirp s = l P + p), G = 32 / L rows a warp.  ND 8
-// is the dense rows' smallest inner transform (slowtime_detect.cu).
+// ND / L chirps a lane (chirp s = l P + p), G = 32 / L rows a warp.  ND 1
+// is the dense rows' smallest inner transform (slowtime_detect.cu; 8 in
+// slowtime_detect_fixed.cu), the identity.
 template <int ND>
 struct Row {
     static constexpr int L = ND < 32 ? ND : 32;     // lanes per row
     static constexpr int P = ND / L;                // chirps per lane
     static constexpr int G = 32 / L;                // rows per warp
-    static constexpr int kLog2L = L == 32 ? 5 : L == 16 ? 4 : 3;
+    static constexpr int kLog2L = L == 32 ? 5 : L == 16 ? 4 : L == 8 ? 3
+                                  : L == 4  ? 2 : L == 2  ? 1 : 0;
+    // Lane l's bin of the L-point transform across the lanes:
+    // bit_reverse(l) over kLog2L bits.
+    static __device__ __forceinline__ int bin(int l) {
+        if constexpr (kLog2L == 0) return 0;
+        else return (int)(__brev((unsigned)l) >> (32 - kLog2L));
+    }
 };
 
 // A detection tile's shared memory, in 4-byte words: the E x ND magnitude

@@ -69,7 +69,7 @@
 // Doppler split of the TPU kernel (frontend_pallas.py _ct_split_rows and
 // the n2d > 1 branches of _kernel, :633-654 and :719-773, and of
 // split_frontend.py _kernel_slowtime, :518-570).  A row's chain
-// (long_row) is the split: chirp s = 128 j2 + j1; the pulse canceller and
+// (dense_row<128>) is the split: chirp s = 128 j2 + j1; the pulse canceller and
 // the window over the whole row first, into the warp's shared buffers
 // (the history crossing block edges by shuffles); then for each k2d the
 // outer DFT_n2d over the blocks (direct sums), the twiddle W_ND^(j1 k2d)
@@ -108,6 +108,18 @@
 // H100: the direct sums cost o - 1 complex multiply-adds a sample (126 at
 // 1016, 254 at 2040), against the ~log2(ND) of an FFT that the bound
 // counts; at the small lengths, the map's extra write and read.
+//
+// Lengths off a multiple of 8 (unaligned_cpi: every ND below 2048 with 8
+// not dividing it, 1 .. 2047; JAX's dense operator takes them as any
+// other): the same dense_row<m> with m = ND & -ND in 1, 2, 4 (L = m lanes a
+// class, G = 32 / m classes a warp, lane_fft<1> the identity) and o up to
+// 2047, so at an odd ND the row is one direct DFT (O(ND^2), as JAX's
+// folded matrices).  Rows of ND floats are no longer 16-byte aligned: the
+// canceller and window loads and the map's stores take kRowVec<m> floats
+// (4, 2 or 1), the ragged row end reads 0, and the warp buffers keep a
+// pitch of a multiple of 4 (map_pitch).  The decide kernel takes a chunk W
+// that need not divide ND (a ragged last chunk whose columns past ND are
+// decided, on the map's wrapped columns, but not stored).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -157,7 +169,7 @@ struct Params {
 // W_ND^(p k1) for its output column k1 = bit_reverse(l), its window values.
 template <int ND>
 struct LaneTables {
-    float2 stw[Row<ND>::kLog2L];
+    float2 stw[Row<ND>::kLog2L > 0 ? Row<ND>::kLog2L : 1];
     float2 ptw[Row<ND>::P];
     float w[Row<ND>::P];
 };
@@ -173,7 +185,7 @@ __device__ __forceinline__ LaneTables<ND> lane_tables(const float* win,
         const int h = R::L >> (st + 1);
         t.stw[st] = tw[(l & (h - 1)) * (ND / (2 * h))];
     }
-    const int k1 = (int)(__brev((unsigned)l) >> (32 - R::kLog2L));
+    const int k1 = R::bin(l);
 #pragma unroll
     for (int p = 0; p < R::P; ++p) {
         t.ptw[p] = tw[p * k1];
@@ -244,7 +256,7 @@ __device__ __forceinline__ void lane_fft(float (&xr)[Row<ND>::P],
     // X[k1 + L k2] = sum_p Y_p[k1] W_ND^(p k1) W_P^(p k2).
 #pragma unroll
     for (int p = 1; p < P; ++p) cmul(xr[p], xi[p], t.ptw[p]);
-    const int k1 = (int)(__brev((unsigned)l) >> (32 - R::kLog2L));
+    const int k1 = R::bin(l);
     if constexpr (P == 1) {
         sink(k1, magnitude(xr[0], xi[0], exact));
     } else if constexpr (P == 2) {
@@ -328,15 +340,14 @@ __device__ __forceinline__ void slowtime_row(const float* rr, const float* ri,
 }
 
 // ---------------------------------------------------------------------------
-// The slow-time chain of a long row (ND = n2d x 128)
+// The slow-time chain of a long or dense row (ND = o x M)
 // ---------------------------------------------------------------------------
 
 // A long or dense row's lane constants for its M-point inner transforms
 // (M = 128 at a long CPI, m at a dense length), read from the ND-point
 // table tw[m] = exp(-2 pi i m / ND) at stride = ND / M: the stage twiddles
 // W_2h^j = tw[j (M / 2h) stride] and W_M^(p k1) = tw[p k1 stride].  The
-// window runs over the whole row first (long_row, dense_row), so w is
-// unused.
+// window runs over the whole row first (dense_row), so w is unused.
 template <int M>
 __device__ __forceinline__ LaneTables<M> inner_lane_tables(const float2* tw,
                                                            int l, int stride) {
@@ -347,7 +358,7 @@ __device__ __forceinline__ LaneTables<M> inner_lane_tables(const float2* tw,
         const int h = R::L >> (st + 1);
         t.stw[st] = tw[(l & (h - 1)) * (M / (2 * h)) * stride];
     }
-    const int k1 = (int)(__brev((unsigned)l) >> (32 - R::kLog2L));
+    const int k1 = R::bin(l);
 #pragma unroll
     for (int p = 0; p < R::P; ++p) {
         t.ptw[p] = tw[p * k1 * stride];
@@ -363,143 +374,101 @@ __device__ __forceinline__ void cmac(float& ar, float& ai, float zr, float zi,
     ai = __fmaf_rn(zr, w.y, __fmaf_rn(zi, w.x, ai));
 }
 
-// The slow-time chain and magnitude of a long row (rr, ri) on the 32 lanes
-// of a warp, JAX's long-CPI split (chirp s = 128 j2 + j1):
-//   1. the pulse canceller and the window over the whole row into the
-//      warp's buffers zr / zi (ND floats each): lane l takes chirps s =
-//      128 i + 4 l + q, the history before its first chirp from the lane
-//      below, and lane 0's from lane 31 of the block before;
-//   2. for k2d = 0 .. n2d-1: lane l's points j1 = 4 l + p of the outer
-//      DFT_n2d over the blocks, sum_j2 z[128 j2 + j1] W_n2d^(j2 k2d)
-//      (j2 ascending, W_n2d^m = tw[128 m]), the twiddle W_ND^(j1 k2d), and
-//      the 128-point lane transform (lane_fft<128>), whose bin q is the
-//      row's Doppler bin n2d q + k2d: its magnitude goes to out[n2d q +
-//      k2d], natural order.
-// Every float operation an _rn intrinsic (slowtime_row's), so a row is the
-// same instruction sequence in every entry.  All 32 lanes call it.
-__device__ __forceinline__ void long_row(
-        const float* rr, const float* ri, const float* win, const float2* tw,
-        const LaneTables<kInner>& t, int l, const SlowtimeConfig& c,
-        float* zr, float* zi, float* out) {
-    const int n2d = c.ND / kInner;
-    float h1r = 0.f, h1i = 0.f, h2r = 0.f, h2i = 0.f;
-    for (int i = 0; i < n2d; ++i) {
-        const int s0 = i * kInner + 4 * l;
-        float xr[4], xi[4], w[4];
-        load_points<4>(rr + i * kInner, l, xr);
-        load_points<4>(ri + i * kInner, l, xi);
-        load_points<4>(win + i * kInner, l, w);
-        if (!c.bypass) {
-            float p1r = __shfl_up_sync(kFull, xr[3], 1);
-            float p1i = __shfl_up_sync(kFull, xi[3], 1);
-            float p2r = __shfl_up_sync(kFull, xr[2], 1);
-            float p2i = __shfl_up_sync(kFull, xi[2], 1);
-            if (l == 0) {
-                p1r = h1r; p1i = h1i; p2r = h2r; p2i = h2i;
-            }
-            h1r = __shfl_sync(kFull, xr[3], 31);
-            h1i = __shfl_sync(kFull, xi[3], 31);
-            h2r = __shfl_sync(kFull, xr[2], 31);
-            h2i = __shfl_sync(kFull, xi[2], 31);
-#pragma unroll
-            for (int q = 3; q >= 0; --q) {
-                const int i1 = q >= 1 ? q - 1 : 0, i2 = q >= 2 ? q - 2 : 0;
-                const float a1r = q >= 1 ? xr[i1] : p1r;
-                const float a1i = q >= 1 ? xi[i1] : p1i;
-                const float a2r = q >= 2 ? xr[i2] : (q == 1 ? p1r : p2r);
-                const float a2i = q >= 2 ? xi[i2] : (q == 1 ? p1i : p2i);
-                float yr, yi;
-                if (c.notch_mode == 2) {
-                    yr = __fsub_rn(xr[q], a1r);
-                    yi = __fsub_rn(xi[q], a1i);
-                } else {
-                    yr = __fadd_rn(__fmaf_rn(-2.f, a1r, xr[q]), a2r);
-                    yi = __fadd_rn(__fmaf_rn(-2.f, a1i, xi[q]), a2i);
-                }
-                if (c.transient_zero && s0 + q < c.notch_mode - 1)
-                    yr = yi = 0.f;
-                xr[q] = yr;
-                xi[q] = yi;
-            }
+// The widest load a row of ND floats allows, V = min(4, ND & -ND) floats: a
+// row whose base is 16-byte aligned (the entries' aligned16) then starts at
+// a multiple of 4 V bytes.
+template <int M>
+constexpr int kRowVec = M >= 4 ? 4 : M;
+
+// Inner transforms below 8 points (the lengths off a multiple of 8): the
+// outer sums' twiddles W_o^e = tw[e M], e < o, are read from a copy in
+// shared memory (a warp's 32 classes gather 32 of them a step: from global
+// memory through L1 up to 32 cache lines a load).
+template <int M>
+constexpr bool kSharedTw = M < 8;
+
+// x[q] = row[s0 + q], q < 4, for s0 a multiple of 4 below nd, in loads of
+// V floats; 0 past the row's end (V < 4: a row of nd = 4 i + V ... values).
+template <int V>
+__device__ __forceinline__ void load_run(const float* row, int s0, int nd,
+                                         float (&x)[4]) {
+    if constexpr (V == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(row + s0);
+        x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+    } else if constexpr (V == 2) {
+        const float2 a = *reinterpret_cast<const float2*>(row + s0);
+        x[0] = a.x; x[1] = a.y;
+        x[2] = x[3] = 0.f;
+        if (s0 + 2 < nd) {
+            const float2 b = *reinterpret_cast<const float2*>(row + s0 + 2);
+            x[2] = b.x; x[3] = b.y;
         }
-        *reinterpret_cast<float4*>(zr + s0) = make_float4(
-            __fmul_rn(xr[0], w[0]), __fmul_rn(xr[1], w[1]),
-            __fmul_rn(xr[2], w[2]), __fmul_rn(xr[3], w[3]));
-        *reinterpret_cast<float4*>(zi + s0) = make_float4(
-            __fmul_rn(xi[0], w[0]), __fmul_rn(xi[1], w[1]),
-            __fmul_rn(xi[2], w[2]), __fmul_rn(xi[3], w[3]));
+    } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x[q] = s0 + q < nd ? row[s0 + q] : 0.f;
     }
-    __syncwarp();
-    const bool exact = c.exact_mag != 0;
-    for (int k2d = 0; k2d < n2d; ++k2d) {
-        float xr[4], xi[4];
-        load_points<4>(zr, l, xr);
-        load_points<4>(zi, l, xi);
-        int m = 0;
-        for (int j2 = 1; j2 < n2d; ++j2) {
-            m += k2d;
-            if (m >= n2d) m -= n2d;
-            const float2 w = tw[m * kInner];
-            float br[4], bi[4];
-            load_points<4>(zr + j2 * kInner, l, br);
-            load_points<4>(zi + j2 * kInner, l, bi);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) cmac(xr[q], xi[q], br[q], bi[q], w);
-        }
-        if (k2d > 0) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-                cmul(xr[q], xi[q], tw[(4 * l + q) * k2d]);
-        }
-        lane_fft<kInner>(xr, xi, t, l, exact, [&](int k, float v) {
-            out[k * n2d + k2d] = v;
-        });
-    }
-    __syncwarp();
 }
 
-// ---------------------------------------------------------------------------
-// The slow-time chain of a dense row (ND = o x m, fmcw::dense_cpi)
-// ---------------------------------------------------------------------------
-
-// The slow-time chain and magnitude of a dense row (rr, ri) on the 32 lanes
-// of a warp: the long row's plan with m-point inner transforms, ND = o x m
-// with m = ND & -ND (8 .. 64) and o = ND / m (odd, 1 .. 255), chirp s = m j2
-// + j1:
+// The slow-time chain and magnitude of a long or dense row (rr, ri) on the
+// 32 lanes of a warp: ND = o x M, chirp s = M j2 + j1; at a long CPI M =
+// kInner = 128 and o = n2d (JAX's long-CPI split), at a dense length M = ND
+// & -ND (1 .. 64) and o = ND / M odd (1 .. 2047):
 //   1. the pulse canceller and the window over the whole row into the
-//      warp's buffers zr / zi (ND floats each): lane l takes chirps s =
-//      128 i + 4 l + q, the two chirps before its first read from the row;
-//   2. for the classes k2 = 0 .. o-1, G = 32 / L at a time (L = min(32, m)
-//      lanes a class, P = m / L points a lane; lane group g = lane / L takes
+//      warp's buffers zr / zi (ND floats each, at a pitch of a multiple of
+//      4): lane l takes chirps s = 128 i + 4 l + q, in loads of
+//      kRowVec<M> floats (a ragged row end reads 0 and its values are never
+//      read); the history before its first chirp at a long CPI by shuffles
+//      (from the lane below, lane 0's from lane 31 of the block before), at
+//      a dense length read from the row;
+//   2. for the classes k2 = 0 .. o-1, G = 32 / L at a time (L = min(32, M)
+//      lanes a class, P = M / L points a lane; lane group g = lane / L takes
 //      k2 = k0 + g, and past o computes class o - 1 again and stores
 //      nothing, so every lane stays in the shuffles): lane l's points j1 =
-//      l P + p of the outer DFT_o over the blocks, sum_j2 z[m j2 + j1]
-//      W_o^(j2 k2) (j2 ascending, W_o^e = tw[e m], direct sums), the
-//      twiddle W_ND^(j1 k2), and the m-point lane transform (lane_fft<m>),
-//      whose bin q is the row's Doppler bin o q + k2: its magnitude goes to
-//      out[o q + k2], natural order.
-// Every float operation an _rn intrinsic, the long row's sequence: an FFT,
-// not the folded matrix of the twin (which is up to 2.1e-4 of the peak off
-// a float64 chain under strong stationary clutter).  All 32 lanes call
-// it.
+//      l P + p of the outer DFT_o over the blocks, sum_j2 z[M j2 + j1]
+//      W_o^(j2 k2) (j2 ascending, W_o^e = tw[e M], direct sums), the
+//      twiddle W_ND^(j1 k2), and the M-point lane transform (lane_fft<M>;
+//      M = 1: none), whose bin q is the row's Doppler bin o q + k2: its
+//      magnitude goes to out[o q + k2], natural order.  kSharedTw<M>: W_o^e
+//      from tw_o[e], the block's copy in shared memory.
+// Every float operation an _rn intrinsic, so a row is the same instruction
+// sequence in every entry: an FFT, not the folded matrix of the twin (which
+// is up to 2.1e-4 of the peak off a float64 chain under strong stationary
+// clutter).  All 32 lanes call it.
 template <int M>
 __device__ __forceinline__ void dense_row(
         const float* rr, const float* ri, const float* win, const float2* tw,
         const LaneTables<M>& t, int lane, const SlowtimeConfig& c,
-        float* zr, float* zi, float* out) {
+        float* zr, float* zi, float* out, const float2* tw_o) {
     using R = Row<M>;
-    constexpr int P = R::P, L = R::L, G = R::G;
+    constexpr int P = R::P, L = R::L, G = R::G, V = kRowVec<M>;
     const int nd = c.ND, o = nd / M;
+    float h1r = 0.f, h1i = 0.f, h2r = 0.f, h2i = 0.f;
     for (int b0 = 0; b0 < nd; b0 += 4 * 32) {
         const int s0 = b0 + 4 * lane;
-        if (s0 >= nd) break;
+        if constexpr (M != kInner) {
+            if (s0 >= nd) break;
+        }
         float xr[4], xi[4], w[4];
-        load_points<4>(rr + b0, lane, xr);
-        load_points<4>(ri + b0, lane, xi);
-        load_points<4>(win + b0, lane, w);
+        load_run<V>(rr, s0, nd, xr);
+        load_run<V>(ri, s0, nd, xi);
+        load_run<V>(win, s0, nd, w);
         if (!c.bypass) {
             float p1r = 0.f, p1i = 0.f, p2r = 0.f, p2i = 0.f;
-            if (s0 > 0) {
+            if constexpr (M == kInner) {
+                // The long row's shuffles (fewer registers than reading
+                // the history from the row).
+                p1r = __shfl_up_sync(kFull, xr[3], 1);
+                p1i = __shfl_up_sync(kFull, xi[3], 1);
+                p2r = __shfl_up_sync(kFull, xr[2], 1);
+                p2i = __shfl_up_sync(kFull, xi[2], 1);
+                if (lane == 0) {
+                    p1r = h1r; p1i = h1i; p2r = h2r; p2i = h2i;
+                }
+                h1r = __shfl_sync(kFull, xr[3], 31);
+                h1i = __shfl_sync(kFull, xi[3], 31);
+                h2r = __shfl_sync(kFull, xr[2], 31);
+                h2i = __shfl_sync(kFull, xi[2], 31);
+            } else if (s0 > 0) {
                 p1r = rr[s0 - 1]; p1i = ri[s0 - 1];
                 p2r = rr[s0 - 2]; p2i = ri[s0 - 2];
             }
@@ -544,7 +513,7 @@ __device__ __forceinline__ void dense_row(
         for (int j2 = 1; j2 < o; ++j2) {
             e += k2;
             if (e >= o) e -= o;
-            const float2 w = tw[e * M];
+            const float2 w = kSharedTw<M> ? tw_o[e] : tw[e * M];
             float br[P], bi[P];
             load_points<P>(zr + j2 * M, l, br);
             load_points<P>(zi + j2 * M, l, bi);
@@ -721,23 +690,36 @@ slowtime_mag_kernel(const Params p) {
 // Long and dense CPIs: the map, then the decision in chunks
 // ---------------------------------------------------------------------------
 
-// The magnitude map of a long-CPI (M = kInner, long_row) or dense (M = m,
-// dense_row) batch: warp w of a block takes rows blockIdx.x kLongWarps + w,
-// striding by the grid; each row's chain in the warp's 3 ND floats of
-// shared memory, the magnitudes stored row-major (16-byte stores) with the
-// frame's non-finite count.  kHalo (the split entry): the map is the
-// shard's halo-extended slab (B, R + 2H, ND), slab row e from FrameRows row
-// e - H; only the shard's own rows are counted.
+// A map-kernel warp's buffers: three rows of ND floats at a pitch of a
+// multiple of 4 floats (16-byte aligned rows for dense_row's stores).
+__host__ __device__ inline int map_pitch(int nd) { return (nd + 3) & ~3; }
+
+// The magnitude map of a long-CPI (M = kInner) or dense (M = m) batch
+// (dense_row<M>): warp w of a block takes rows blockIdx.x kLongWarps + w,
+// striding by the grid; each row's chain in the warp's 3 map_pitch(ND)
+// floats of shared memory (kSharedTw<M>: then the block's o outer
+// twiddles), the magnitudes stored row-major (stores of
+// kRowVec<M> floats: 16 bytes where 4 | ND) with the frame's non-finite
+// count.  kHalo (the split entry): the map is the shard's halo-extended
+// slab (B, R + 2H, ND), slab row e from FrameRows row e - H; only the
+// shard's own rows are counted.
 template <int M, bool kHalo>
 __global__ void __launch_bounds__(kLongWarps * 32)
 slowtime_map_kernel(const Params p) {
     extern __shared__ float smem[];
+    constexpr int V = kRowVec<M>;
     const SlowtimeConfig& c = p.c;
-    const int ND = c.ND;
+    const int ND = c.ND, pitch = map_pitch(ND);
     const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
-    float* zr = smem + warp * 3 * ND;
-    float* zi = zr + ND;
-    float* out = zi + ND;
+    float* zr = smem + warp * 3 * pitch;
+    float* zi = zr + pitch;
+    float* out = zi + pitch;
+    float2* tw_o = reinterpret_cast<float2*>(smem + kLongWarps * 3 * pitch);
+    if constexpr (kSharedTw<M>) {
+        for (int e = threadIdx.x; e < ND / M; e += kLongWarps * 32)
+            tw_o[e] = p.tw[e * M];
+        __syncthreads();
+    }
     const LaneTables<M> tabs =
         inner_lane_tables<M>(p.tw, l % Row<M>::L, ND / M);
     const int map_rows = kHalo ? c.R + 2 * c.H : c.R;
@@ -750,17 +732,23 @@ slowtime_map_kernel(const Params p) {
         fmcw::frame_rows<kHalo>(p.xr, p.xi, p.lo_r, p.lo_i, p.hi_r, p.hi_i,
                                 b, c.R, c.H, ND)
             .row(kHalo ? e - c.H : e, rr, ri);
-        if constexpr (M == kInner)
-            long_row(rr, ri, p.win, p.tw, tabs, l, c, zr, zi, out);
-        else
-            dense_row<M>(rr, ri, p.win, p.tw, tabs, l, c, zr, zi, out);
+        dense_row<M>(rr, ri, p.win, p.tw, tabs, l, c, zr, zi, out, tw_o);
         float* dst = p.mag + row * ND;
         int nf = 0;
-        for (int s = 4 * l; s < ND; s += 128) {
-            const float4 v = *reinterpret_cast<const float4*>(out + s);
-            *reinterpret_cast<float4*>(dst + s) = v;
-            nf += !isfinite(v.x) + !isfinite(v.y) + !isfinite(v.z) +
-                  !isfinite(v.w);
+        for (int s = V * l; s < ND; s += 32 * V) {
+            if constexpr (V == 4) {
+                const float4 v = *reinterpret_cast<const float4*>(out + s);
+                *reinterpret_cast<float4*>(dst + s) = v;
+                nf += !isfinite(v.x) + !isfinite(v.y) + !isfinite(v.z) +
+                      !isfinite(v.w);
+            } else if constexpr (V == 2) {
+                const float2 v = *reinterpret_cast<const float2*>(out + s);
+                *reinterpret_cast<float2*>(dst + s) = v;
+                nf += !isfinite(v.x) + !isfinite(v.y);
+            } else {
+                dst[s] = out[s];
+                nf += !isfinite(out[s]);
+            }
         }
         nf = __reduce_add_sync(kFull, nf);
         const bool own = !kHalo || (e >= c.H && e < c.H + c.R);
@@ -813,17 +801,22 @@ int launch_map(const Params& p, cudaStream_t stream) {
         (long long)p.c.batch * (p.c.R + (kHalo ? 2 * p.c.H : 0));
     long long blocks = (rows + kLongWarps - 1) / kLongWarps;
     if (blocks > kLongBlocks) blocks = kLongBlocks;
-    const size_t smem = (size_t)kLongWarps * 3 * p.c.ND * sizeof(float);
+    const size_t smem =
+        (size_t)kLongWarps * 3 * map_pitch(p.c.ND) * sizeof(float) +
+        (kSharedTw<M> ? (size_t)(p.c.ND / M) * sizeof(float2) : 0);
     kernel<<<(unsigned)blocks, kLongWarps * 32, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
-// The map of a two-launch length (two_launch): long_row at a long CPI,
-// dense_row<m> at a dense length, m = ND & -ND.
+// The map of a two-launch length (two_launch): dense_row<128> at a long
+// CPI, dense_row<m> at a dense length, m = ND & -ND.
 template <bool kHalo>
 int launch_map_nd(const Params& p, cudaStream_t stream) {
     if (long_cpi(p.c.ND)) return launch_map<kInner, kHalo>(p, stream);
     switch (p.c.ND & -p.c.ND) {
+        case 1: return launch_map<1, kHalo>(p, stream);
+        case 2: return launch_map<2, kHalo>(p, stream);
+        case 4: return launch_map<4, kHalo>(p, stream);
         case 8: return launch_map<8, kHalo>(p, stream);
         case 16: return launch_map<16, kHalo>(p, stream);
         case 32: return launch_map<32, kHalo>(p, stream);
@@ -841,12 +834,21 @@ int launch_two(const Params& p, cudaStream_t stream) {
         {p.mag, p.det, p.row_max, p.n_dets, p.c}, stream);
 }
 
-// The lengths that run two launches, the map kernel then the decide kernel:
-// the long CPIs and the dense lengths.
-inline bool two_launch(int nd) { return long_cpi(nd) || fmcw::dense_cpi(nd); }
+// The lengths off a multiple of kDenseAlign below kMaxDense (1 .. 2047,
+// m = ND & -ND in 1, 2, 4): this kernel's dense operator takes them too (the
+// fixed slow-time kernel does not yet), with a ragged last decide chunk.
+inline bool unaligned_cpi(int nd) {
+    return nd >= 1 && nd < fmcw::kMaxDense && nd % fmcw::kDenseAlign != 0;
+}
 
-// The map kernel reads rows of ND floats as float4 (8 | ND): their bases
-// must be 16-byte aligned.
+// The lengths that run two launches, the map kernel then the decide kernel:
+// the long CPIs, the dense lengths and the lengths off a multiple of 8.
+inline bool two_launch(int nd) {
+    return long_cpi(nd) || fmcw::dense_cpi(nd) || unaligned_cpi(nd);
+}
+
+// The map kernel reads rows of ND floats in loads of kRowVec<m> floats
+// (16 bytes where 4 | ND): their bases must be 16-byte aligned.
 template <typename... T>
 bool aligned16(const T*... ptrs) {
     return (((((uintptr_t)ptrs) & 15) == 0) && ...);
@@ -860,7 +862,8 @@ bool aligned16(const T*... ptrs) {
 // n_dets/nonfinite: int32 (batch,), zeroed by the caller.  cfg's notch_mode
 // (2 or 3), transient_zero and bypass select the pulse canceller, its
 // variant the CFAR (0 OS, 1 CA, 2 GO, 3 SO).  A long CPI (ND = n2d x 128,
-// n2d 2 .. 16) or a dense length (fmcw::dense_cpi: 8, 24 .. 2040) takes
+// n2d 2 .. 16), a dense length (fmcw::dense_cpi: 8, 24 .. 2040) or a
+// length off a multiple of 8 (unaligned_cpi: 1 .. 2047) takes
 // cfg's chunk W and column halo HC, needs mag (the map the decision reads)
 // and row_max zeroed by the caller, and runs two launches.  Returns the
 // CUDA error code of the launches (0 on success).
@@ -871,7 +874,7 @@ extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
                                     const SlowtimeConfig* cfg, void* stream) {
     const SlowtimeConfig c = *cfg;
     const bool two = two_launch(c.ND);
-    if (!(two ? fmcw::decide_config_ok(c) && mag &&
+    if (!(two ? fmcw::decide_config_ok(c, true) && mag &&
                     aligned16(xr, xi, win, mag)
               : detect_config_ok(c)) ||
         !win || !tw)
@@ -897,8 +900,9 @@ extern "C" int fmcw_slowtime_detect(const void* xr, const void* xi,
 // fmcw_slowtime_detect; mag float32 (batch, R, ND); nonfinite int32
 // (batch,), zeroed by the caller.  Reads cfg's batch, R, ND, exact_mag,
 // notch_mode, transient_zero and bypass; ND 16, 32, 64, 128, n2d x 128
-// (n2d 2 .. 16) or a dense length (fmcw::dense_cpi).  Returns the CUDA
-// error code of the launch (0 on success).
+// (n2d 2 .. 16), a dense length (fmcw::dense_cpi) or a length off a
+// multiple of 8 (unaligned_cpi).  Returns the CUDA error code of the launch
+// (0 on success).
 extern "C" int fmcw_slowtime_mag(const void* xr, const void* xi,
                                  const void* win, const void* tw, void* mag,
                                  void* nonfinite, const SlowtimeConfig* cfg,
@@ -944,8 +948,8 @@ extern "C" int fmcw_slowtime_detect_split(
     const SlowtimeConfig c = *cfg;
     const bool two = two_launch(c.ND);
     const bool ok =
-        two ? fmcw::decide_config_ok(c) && fmcw::split_decide_ok(c) && mag &&
-                  aligned16(xr, xi, lo_r, lo_i, hi_r, hi_i, win, mag)
+        two ? fmcw::decide_config_ok(c, true) && fmcw::split_decide_ok(c) &&
+                  mag && aligned16(xr, xi, lo_r, lo_i, hi_r, hi_i, win, mag)
             : fmcw::split_config_ok(c) && detect_config_ok(c);
     if (!ok || !lo_r || !lo_i || !hi_r || !hi_i || !win || !tw)
         return (int)cudaErrorInvalidValue;

@@ -4,15 +4,20 @@
 // the long-CPI Doppler split of the TPU kernels) a tile of whole rows no
 // longer fits a block (at ND = 2048 one row is 8 KB of magnitudes), and
 // at the dense lengths (dense_cpi: 8, 24 .. 2040, the TPU kernels' dense
-// operator) the kernels take the same plan, so each entry runs two
+// operator; kernel B also every length off a multiple of 8 below 2048) the
+// kernels take the same plan, so each entry runs two
 // launches: its own magnitude kernel writes the map, then
 // the decide kernel here (slowtime_decide_kernel) reads it in tiles of T
 // rows x a chunk of W columns, with H halo rows and HC halo columns that
 // wrap on both axes (or, in the split entries, the rows of the shard's
 // halo-extended slab), and runs the short tiles' cfar_tile.cuh /
 // cfar_common.cuh decision on them: the decisions are the plain twin's bit
-// for bit on the same magnitudes.  Row maxima combine across chunks by
-// atomicMax (float maps: on the float bits; det is never negative or NaN).
+// for bit on the same magnitudes; a chunk W that does not divide ND
+// (kernel B's maps off a multiple of 8) leaves a ragged last chunk, whose
+// columns past ND are decided on the wrapped map and not stored
+// (cfar_common.cuh's group_store_chunk).  Row maxima combine across chunks
+// by atomicMax (float maps: on the float bits; det is never negative or
+// NaN).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,13 +58,22 @@ __host__ __device__ inline TileLayout chunk_layout(const SlowtimeConfig& c) {
     return tile_layout(t, 1);
 }
 
+// The decide kernel's column chunks of a map: ceil(ND / W), the last one
+// ragged where W does not divide ND.
+__host__ __device__ inline int n_chunks(const SlowtimeConfig& c) {
+    return (c.ND + c.W - 1) / c.W;
+}
+
 // The decide kernel's tile of a map of ND columns (any ND a map kernel
-// writes: the long CPIs and the dense lengths).
-inline bool decide_config_ok(const SlowtimeConfig& c) {
+// writes: the long CPIs and the dense lengths, and kernel B's lengths off a
+// multiple of 8).  ragged (kernel B's float maps): W need not divide ND,
+// the last chunk's columns past ND are decided but not stored.
+inline bool decide_config_ok(const SlowtimeConfig& c, bool ragged = false) {
     const int E = c.T + 2 * c.H, WC = c.W + 2 * c.HC;
     const int rows = c.T + 2 * c.pgr;
     if (c.ND < 1 || c.batch < 1 || c.batch > 65535 || c.T < 1 ||
-        c.R % c.T || c.W < 1 || c.ND % c.W || c.pgr < 0 ||
+        c.R % c.T || c.W < 1 || c.W > c.ND || (!ragged && c.ND % c.W) ||
+        c.pgr < 0 ||
         c.hr + c.pgr > c.H || c.hd + c.pgr > c.HC || c.hd >= c.ND ||
         c.pgr >= c.ND || c.row_off < 0 || c.r_total < c.R + c.row_off ||
         rows < kStrip || c.variant < 0 || c.variant > kSO ||
@@ -71,7 +85,7 @@ inline bool decide_config_ok(const SlowtimeConfig& c) {
          c.HC % c.sb || c.ND % c.sb || c.H < 2 * c.sb + c.pgr ||
          c.HC < 2 * c.sb + c.pgr || (E / c.sb) * (WC / c.sb) > kMaxBlk))
         return false;
-    return (long long)(c.R / c.T) * (c.ND / c.W) <= 0x7fffffffLL &&
+    return (long long)(c.R / c.T) * n_chunks(c) <= 0x7fffffffLL &&
            (strip_units(rows, c.W + 2 * c.pgr) + kDecideThreads - 1) /
                    kDecideThreads * kStrip <= 64 &&
            (size_t)chunk_layout(c).total * sizeof(float) <= (size_t)kMaxSmem;
@@ -96,48 +110,6 @@ __device__ __forceinline__ void combine_max(float* row_max, int bits) {
 }
 __device__ __forceinline__ void combine_max(int* row_max, int bits) {
     atomicMax(row_max, (int)__int_as_float(bits));
-}
-
-// Peak grouping and stores of a chunk's T x W cells (map rows r0 .., map
-// columns c0 ..; tile columns HC ..): det_s (rows x WC) holds the
-// decisions of rows r0 - pgr .. and of tile columns HC - pgr .. HC + W +
-// pgr - 1.  As group_store (a strict maximum of the (2 pgr + 1)^2
-// neighbourhood, ties to the lower linear index), with the global ids
-// (row_id modulo r_total) ND + (column modulo ND); row maxima into rmax_s,
-// the detection count into counts[0].
-template <typename O>
-__device__ __forceinline__ void group_store_chunk(
-        const float* det_s, int T, int W, int WC, int HC, int pgr,
-        int r_total, int ND, int row_id0, int c0, O* det_out, int* rmax_s,
-        int* counts) {
-    int my_dets = 0;
-    for (int idx = threadIdx.x; idx < T * W; idx += blockDim.x) {
-        const int t = idx / W, j = idx % W;
-        const int er = t + pgr, d = HC + j;
-        const float m = det_s[er * WC + d];
-        float out = m;
-        if (pgr > 0 && m > 0.f) {
-            const int id = (row_id0 + t) * ND + c0 + j;
-            for (int dr = -pgr; dr <= pgr && out > 0.f; ++dr) {
-                const int nr = wrap_mod(row_id0 + t + dr, r_total);
-                for (int dd = -pgr; dd <= pgr; ++dd) {
-                    if (dr == 0 && dd == 0) continue;
-                    const float v = det_s[(er + dr) * WC + d + dd];
-                    const int nid = nr * ND + wrap_mod(c0 + j + dd, ND);
-                    if (v > m || (v == m && nid < id)) {
-                        out = 0.f;
-                        break;
-                    }
-                }
-            }
-        }
-        det_out[(size_t)t * ND + c0 + j] = static_cast<O>(out);
-        if (out > 0.f) {
-            ++my_dets;
-            atomicMax(&rmax_s[t], __float_as_int(out));
-        }
-    }
-    if (my_dets) atomicAdd(&counts[0], my_dets);
 }
 
 // The decide kernel's operands: the map M (B, R, ND), or with kHalo the
@@ -184,9 +156,9 @@ slowtime_decide_kernel(const DecideArgs<M, O> p) {
     int* counts = reinterpret_cast<int*>(dsm + lay.counts);
     const int tid = threadIdx.x;
     const int b = blockIdx.y;
-    const int n_chunks = ND / c.W;
-    const int r0 = (int)(blockIdx.x / n_chunks) * c.T;
-    const int c0 = (int)(blockIdx.x % n_chunks) * c.W;
+    const int chunks = n_chunks(c);
+    const int r0 = (int)(blockIdx.x / chunks) * c.T;
+    const int c0 = (int)(blockIdx.x % chunks) * c.W;
 
     for (int i = tid; i < c.T; i += kDecideThreads) rmax_s[i] = 0;
     if (tid == 0) counts[0] = 0;
@@ -230,8 +202,8 @@ slowtime_decide_kernel(const DecideArgs<M, O> p) {
                                    c.variant, c.HC - c.pgr, c.W + 2 * c.pgr);
 
     // ---- 3. Grouping, stores, row maxima and the count.
-    group_store_chunk(det_s, c.T, c.W, WC, c.HC, c.pgr, c.r_total, ND,
-                      c.row_off + r0, c0,
+    group_store_chunk(det_s, WC, c.HC - c.pgr, c.T, c.W, c.pgr, c.r_total,
+                      ND, c.row_off + r0, c0,
                       p.det + ((size_t)b * c.R + r0) * ND, rmax_s, counts);
     __syncthreads();
     O* row_max = p.row_max + (size_t)b * c.R + r0;
@@ -251,7 +223,7 @@ int launch_decide(const DecideArgs<M, O>& p, cudaStream_t stream) {
     const cudaError_t err = prepare(kernel, ready[mean]);
     if (err != cudaSuccess) return (int)err;
     const size_t smem = (size_t)chunk_layout(p.c).total * sizeof(float);
-    const dim3 grid((p.c.R / p.c.T) * (p.c.ND / p.c.W), p.c.batch);
+    const dim3 grid((p.c.R / p.c.T) * n_chunks(p.c), p.c.batch);
     kernel<<<grid, kDecideThreads, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }

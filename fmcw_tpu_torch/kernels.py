@@ -69,10 +69,13 @@ LONG_CPI_INNER = 128        # slowtime_long.cuh kInner
 LONG_CPI_MAX_SPLIT = 16     # slowtime_long.cuh kMaxSplit
 DENSE_ALIGN = 8             # slowtime_long.cuh kDenseAlign: dense lengths
 DENSE_MAX = 2048            # slowtime_long.cuh kMaxDense:  8 | nd < 2048
+                            # (kernel B: any nd < 2048, ops/frontend.
+                            # unaligned_cpi)
 MAP_WARPS = 4               # slowtime_detect.cu kLongWarps: the map kernel's
-                            # warps a block, 3 nd floats of shared memory
-                            # each (slowtime_detect_fixed.cu's kLongWarps:
-                            # ops/frontend_fixed.map_warp_bytes each)
+                            # warps a block, 3 x map_pitch(nd) floats of
+                            # shared memory each (slowtime_detect_fixed.cu's
+                            # kLongWarps: ops/frontend_fixed.map_warp_bytes
+                            # each)
 
 
 class CfarDetectConfig(ctypes.Structure):

@@ -136,14 +136,21 @@ of rows x chunks of Doppler columns, ``ops/frontend.py``), so float
 reflect edges and the array model (``ref_angle`` 0 and > 0) run its
 entries as at short CPIs.  So do the dense lengths (every other multiple
 of 8 below 2048, 8, 24 .. 2040, ``ops/frontend.dense_cpi``: JAX's dense
-operator), an o x m FFT row into the same map.  Other n_doppler (off a
-multiple of 8, or from 2048 up but the long CPIs) take the staged route
-under "auto", and "fused" raises.  The fixed slow-time kernel takes the
-long CPIs and the dense lengths too (the same plans in FP64, the BFP
-exponent from the whole row, its int32 map decided by kernel B's decide
-kernel): fixed "fused" runs ``range_fft_fixed`` and
-``slowtime_detect_fixed`` there, per-cell and block, every variant; fixed
-"auto" stays the staged route, as JAX's "auto" stays on its XLA chain.
+operator), an o x m FFT row into the same map, and every other n_doppler
+below 2048 (off a multiple of 8, 1 .. 2047 as the CFAR window admits,
+``ops/frontend.unaligned_cpi``: kernel A with a partial last group of
+8 chirps a frame, kernel B's row with m = nd & -nd in 1, 2, 4 and a ragged last
+decide chunk), on one device and on an sp mesh where sp divides
+n_doppler.  Other n_doppler (from 2048 up but the long CPIs) take the
+staged route under "auto", and "fused" raises.  The block scale keeps its
+rule: n_doppler a multiple of scale_block.  The fixed slow-time kernel
+takes the long CPIs and the dense lengths too (the same plans in FP64,
+the BFP exponent from the whole row, its int32 map decided by kernel B's
+decide kernel): fixed "fused" runs ``range_fft_fixed`` and
+``slowtime_detect_fixed`` there, per-cell and block, every variant; off a
+multiple of 8 it raises NotImplementedError when the processor is built,
+on every device.  Fixed "auto" stays the staged route, as JAX's "auto"
+stays on its XLA chain.
 
 Range lengths: kernel A takes the powers of two 16 .. 1024 and JAX's n2 x
 128 with n2 <= 16 (384, 640, ..., 2048; ``ops/frontend.range_length_ok``,
@@ -453,7 +460,8 @@ def make_batch_processor(params: RadarParams | None = None,
             # A Doppler length the fixed kernels do not take (n2d > 16,
             # off a multiple of 8) raises NotImplementedError, as their
             # wrappers and the mesh.
-            F.check_doppler(p.n_doppler, "slowtime_detect_fixed")
+            F.check_doppler(p.n_doppler, "slowtime_detect_fixed",
+                            int_map=True)
             raise ValueError(
                 "frontend='fused' with mode='fixed' runs the fused "
                 "fixed-point kernels, which need a wrap-edge CfarParams "

@@ -21,12 +21,16 @@ turn, as ``fmcw_tpu/ops/split_frontend.py`` splits it across chips:
   no CFAR).  Its twin folds the slow-time chain into one float32 matrix
   (``ops/fft.doppler_apply``); the two agree within 1e-5 of the peak.
   n_doppler 16, 32, 64 and 128, the long CPIs n2d x 128 (n2d 2 .. 16,
-  JAX's long-CPI Doppler split, ``long_cpi``) and the dense lengths (every
-  other multiple of 8 below 2048, JAX's dense operator, ``dense_cpi``):
-  at the last two every entry runs the row transform into the magnitude
-  map, then a decide kernel over tiles of rows x chunks of Doppler columns
+  JAX's long-CPI Doppler split, ``long_cpi``), the dense lengths (every
+  other multiple of 8 below 2048, JAX's dense operator, ``dense_cpi``)
+  and every length below 2048 off a multiple of 8 (the same operator,
+  ``unaligned_cpi``; the fixed kernels do not take them yet): at the last
+  three every entry runs the row transform into the magnitude map, then a
+  decide kernel over tiles of rows x chunks of Doppler columns
   (``two_launch``, ``_slowtime_config``; csrc/slowtime_long.cuh, shared
-  with the fixed kernel), two launches that ``launches`` both counts.
+  with the fixed kernel; off a multiple of 8 the last chunk is ragged),
+  two launches that ``launches`` both counts.  Kernel A takes any chirp
+  count (``check_range_geometry``).
   Short CPIs decide in tiles of 64 rows, or 32, 16 or 8 where 64 does not
   divide the rows or fit (``_short_tile``).
 
@@ -178,14 +182,15 @@ def _device_kind(x: torch.Tensor) -> str:
 # ---------------------------------------------------------------------------
 
 def check_range_geometry(nr: int, nd: int, name: str = "range_fft"):
-    """Raises NotImplementedError for a frame that kernel A, or the fixed
-    range kernel (they take the same lengths), does not take
-    (``range_length_ok``, n_doppler a multiple of 8)."""
-    if not range_length_ok(nr) or nd % 8:
+    """Raises NotImplementedError for a frame that kernel A does not take:
+    n_range off ``range_length_ok``; any chirp count nd >= 1 (the batch's
+    chirps run in groups of 8, csrc/range_fft.cu).  The fixed range kernel
+    takes the same n_range with n_doppler a multiple of 8
+    (``frontend_fixed.check_range_geometry_fixed``)."""
+    if not range_length_ok(nr) or nd < 1:
         raise NotImplementedError(
             f"{name} kernel needs n_range a power of two in [16, 1024] or "
-            f"n2 x 128 with n2 <= 16, and n_doppler a multiple of 8; got "
-            f"{nr}x{nd}")
+            f"n2 x 128 with n2 <= 16, and n_doppler >= 1; got {nr}x{nd}")
 
 
 def range_fft_plain(iq: torch.Tensor):
@@ -331,35 +336,52 @@ def long_cpi(nd: int) -> bool:
 
 
 def dense_cpi(nd: int) -> bool:
-    """Is ``nd`` a dense length of kernel B (``fmcw::dense_cpi``): a
-    multiple of ``kernels.DENSE_ALIGN`` below ``kernels.DENSE_MAX`` that is
-    neither in ``SHORT_CPIS`` nor a long CPI (8, 24, 40 .. 2040)?  There
-    JAX's fused kernel contracts with the dense folded matrices
-    (``_doppler_split`` returns 1); kernel B runs an o x m FFT
-    (csrc/slowtime_detect.cu ``dense_row``)."""
+    """Is ``nd`` a dense length of both slow-time kernels
+    (``fmcw::dense_cpi``): a multiple of ``kernels.DENSE_ALIGN`` below
+    ``kernels.DENSE_MAX`` that is neither in ``SHORT_CPIS`` nor a long CPI
+    (8, 24, 40 .. 2040)?  There JAX's fused kernel contracts with the dense
+    folded matrices (``_doppler_split`` returns 1); kernel B runs an o x m
+    FFT (csrc/slowtime_detect.cu ``dense_row``), the fixed kernel the same
+    plan in FP64."""
     return (kernels.DENSE_ALIGN <= nd < kernels.DENSE_MAX
             and nd % kernels.DENSE_ALIGN == 0 and nd not in SHORT_CPIS
             and not long_cpi(nd))
 
 
+def unaligned_cpi(nd: int) -> bool:
+    """Is ``nd`` a length of kernel B off a multiple of
+    ``kernels.DENSE_ALIGN`` below ``kernels.DENSE_MAX`` (1 .. 2047; csrc/
+    slowtime_detect.cu ``unaligned_cpi``)?  JAX's dense operator takes them
+    as any other; kernel B runs ``dense_row`` with m = nd & -nd in 1, 2, 4
+    and a ragged last decide chunk.  The fixed slow-time kernel does not
+    take them (``check_doppler(int_map=True)``)."""
+    return 1 <= nd < kernels.DENSE_MAX and nd % kernels.DENSE_ALIGN != 0
+
+
 def two_launch(nd: int) -> bool:
     """Does kernel B run two launches at ``nd`` (the map kernel, then the
-    decide kernel): a long CPI or a dense length?"""
-    return long_cpi(nd) or dense_cpi(nd)
+    decide kernel): a long CPI, a dense length or a length off a multiple
+    of 8 (the fixed kernel: one of the first two, which its
+    ``check_doppler`` leaves it)?"""
+    return long_cpi(nd) or dense_cpi(nd) or unaligned_cpi(nd)
 
 
-def check_doppler(nd: int, name: str) -> None:
-    """Raises NotImplementedError for an n_doppler that kernel B or the
-    fixed slow-time kernel (``name``) does not take: they take
-    ``SHORT_CPIS``, the long CPIs and the dense lengths."""
-    if nd in SHORT_CPIS or two_launch(nd):
+def check_doppler(nd: int, name: str, int_map: bool = False) -> None:
+    """Raises NotImplementedError for an n_doppler that kernel B (or, with
+    ``int_map``, the fixed slow-time kernel; ``name`` either) does not take:
+    both take ``SHORT_CPIS``, the long CPIs and the dense lengths; kernel B
+    also every length below 2048 off a multiple of 8 (``unaligned_cpi``)."""
+    if nd in SHORT_CPIS or long_cpi(nd) or dense_cpi(nd):
         return
+    if not int_map and unaligned_cpi(nd):
+        return
+    rule = ("a multiple of 8 below 2048" if int_map
+            else "any other length below 2048")
     raise NotImplementedError(
         f"{name} kernel: n_doppler 16, 32, 64, 128, n2d x 128 with n2d in "
-        f"2..16, or a multiple of 8 below 2048, got {nd} (JAX's fused "
-        f"kernel runs no dense length at or above 2048 either: its folded "
-        f"matrices take 16 nd^2 bytes of VMEM, its whole 64 MiB limit at "
-        f"2048)")
+        f"2..16, or {rule}, got {nd} (JAX's fused kernel runs no dense "
+        f"length at or above 2048 either: its folded matrices take 16 nd^2 "
+        f"bytes of VMEM, its whole 64 MiB limit at 2048)")
 
 
 def _kernel_halo(cfar: CfarParams, peak_group_radius: int,
@@ -389,19 +411,44 @@ def _chunk_words(t: int, w: int, h: int, hc: int, pgr: int, block: bool,
     return (t + 2 * h) * wc + region + t + 1
 
 
+@functools.lru_cache(maxsize=4096)
+def _chunk_widths(nd: int, sb: int) -> tuple[int, ...]:
+    """The decide kernel's chunk widths W at ``nd``, in order of preference
+    (the largest first, at most 128).  A long CPI: the powers of two 128 ..
+    8 (the multiples of 8 dividing nd would change the tile at 1024x384
+    and other long CPIs where 128 does not fit: 96 before 64).  A dense
+    length: the multiples of 8 that divide nd (96 at 96 and 192, 8 at 1016
+    = 8 x 127).  A length off a multiple of 8 (``unaligned_cpi``): for k =
+    1, 2 .. chunks, the smallest W (a multiple of the block scale's ``sb``,
+    which divides nd there) with ceil(nd / W) = k, a ragged last chunk
+    where W does not divide nd (100: 100, 50, 34 .. at the per-cell
+    scale)."""
+    if long_cpi(nd):
+        return (128, 64, 32, 16, 8)
+    if not unaligned_cpi(nd):
+        return tuple(w for w in range(128, 0, -kernels.DENSE_ALIGN)
+                     if nd % w == 0)
+    widths = []
+    for w in range(min(128, nd) // sb * sb, 0, -sb):
+        k = -(-nd // w)                        # chunks of at most w
+        w = -(-(-(-nd // k)) // sb) * sb        # the smallest that many
+        if w not in widths:
+            widths.append(w)
+    return tuple(widths)
+
+
 def _decide_geometry(nr, nd, cfar, scale_override, pgr, name,
                      int_map=False):
-    """The decide kernel's tile at a two-launch length (a long CPI or a
-    dense length): (T rows, W columns, H halo rows, HC halo columns).  W
-    divides nd: a power of two at a long CPI, a multiple of 8 up to 128 at
-    a dense length (96 at 96 and 192, 120 at 2040, 8 at 1016 = 8 x 127).
-    The largest T, then W, of a block whose shared
-    memory lets two blocks share an SM, else one; within the strips a
-    thread holds (64 cells) and, block scale, whole blocks and the block
-    grid a tile holds; the kernel's own arithmetic (``decide_config_ok``).
-    ``int_map`` (the fixed kernels' int32 maps): T + 2 H at most
-    ``kernels.MAX_ROWS`` rows, so that an integer column sum held in float
-    stays exact (``frontend_fixed.fixed_config``)."""
+    """The decide kernel's tile at a two-launch length (a long CPI, a dense
+    length or, kernel B, a length off a multiple of 8): (T rows, W
+    columns, H halo rows, HC halo columns), W from ``_chunk_widths`` (a
+    ragged last chunk off a multiple of 8).  The largest T, then W, of a
+    block whose shared memory lets two blocks share an SM, else one;
+    within the strips a thread holds (64 cells) and, block scale, whole
+    blocks and the block grid a tile holds; the kernel's own arithmetic
+    (``decide_config_ok``).  ``int_map`` (the fixed kernels' int32 maps):
+    T + 2 H at most ``kernels.MAX_ROWS`` rows, so that an integer column
+    sum held in float stays exact (``frontend_fixed.fixed_config``)."""
     block = cfar.scale_mode == "block"
     sb = cfar.scale_block
     h = _kernel_halo(cfar, pgr)
@@ -410,18 +457,18 @@ def _decide_geometry(nr, nd, cfar, scale_override, pgr, name,
     def fits(t, w, limit):
         rows, wc = t + 2 * pgr, w + 2 * hc
         units = -(-rows // kernels.STRIP) * (w + 2 * pgr)
-        return (nr % t == 0 and nd % w == 0 and rows >= kernels.STRIP
+        return (nr % t == 0 and rows >= kernels.STRIP
                 and (not int_map or t + 2 * h <= kernels.MAX_ROWS)
                 and -(-units // kernels.DECIDE_THREADS) * kernels.STRIP <= 64
                 and (not block or (t % sb == 0 and w % sb == 0
+                                   and nd % sb == 0
                                    and (t + 2 * h) // sb * (wc // sb)
                                    <= kernels.MAX_BLK))
                 and 4 * _chunk_words(t, w, h, hc, pgr, block,
                                      int(scale_override)) <= limit)
 
-    widths = ((128, 64, 32, 16, 8) if long_cpi(nd)
-              else range(128, 0, -kernels.DENSE_ALIGN))
     if cfar.halo_doppler < nd and pgr < nd:
+        widths = _chunk_widths(nd, sb if block else 1)
         for limit in (kernels.MAX_SMEM // 2, kernels.MAX_SMEM):
             for t in (64, 32, 16, 8):
                 for w in widths:
@@ -471,7 +518,7 @@ def _slowtime_config(B, nr, nd, cfar, scale_override, peak_group_radius,
     takes the decide kernel's tile of rows x a chunk of columns
     (``_decide_geometry``; ``int_map``: the fixed kernels' int32 map)."""
     C.check_wrap(cfar, name)
-    check_doppler(nd, name)
+    check_doppler(nd, name, int_map)
     if int(scale_override) < 0:
         raise ValueError(f"scale_override must be >= 0, got {scale_override}")
     block = cfar.scale_mode == "block"

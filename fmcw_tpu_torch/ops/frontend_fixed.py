@@ -52,6 +52,19 @@ from .notch import check_notch, mti_notch_fixed
 from .window import hamming_q15, window_apply_fixed, window_rounding_constant
 
 
+def check_range_geometry_fixed(nr: int, nd: int,
+                               name: str = "range_fft_fixed") -> None:
+    """Raises NotImplementedError for a frame that the fixed range kernel
+    does not take: kernel A's n_range (``frontend.range_length_ok``) and
+    n_doppler a multiple of 8 (its groups of 8 chirps are whole frames'
+    chirps; kernel A takes any count, ``frontend.check_range_geometry``)."""
+    if not F.range_length_ok(nr) or nd < 8 or nd % 8:
+        raise NotImplementedError(
+            f"{name} kernel needs n_range a power of two in [16, 1024] or "
+            f"n2 x 128 with n2 <= 16, and n_doppler a multiple of 8; got "
+            f"{nr}x{nd}")
+
+
 @functools.lru_cache(maxsize=32)
 def _tables(n: int, coef_width: int, device: str):
     """The int32 Q15 window and the float64 twiddles tw[m] = exp(-2 pi i m
@@ -155,7 +168,7 @@ def launch_range_fft_fixed(iq: torch.Tensor, coef_width: int = 16,
     exactly the matching columns (and its share of the saturation count)
     of the whole frame's output."""
     B, nd, nr, _ = iq.shape
-    F.check_range_geometry(nr, nd, "range_fft_fixed")
+    check_range_geometry_fixed(nr, nd)
     rnd = window_rounding_constant(coef_width, rounding)
     iq = F._aligned(iq)
     win, tw = _range_tables(nr, coef_width, str(iq.device))
@@ -334,7 +347,7 @@ def fused_fixed_detect_supported(p: RadarParams, peak_group_radius: int = 0,
     if include_debug:
         return False
     try:
-        F.check_range_geometry(p.n_range, p.n_doppler, "range_fft_fixed")
+        check_range_geometry_fixed(p.n_range, p.n_doppler)
         fixed_config(F._slowtime_config(1, p.n_range, p.n_doppler, p.cfar,
                                         0, peak_group_radius, int_map=True),
                      p.cfar, p.notch_mode, "zero", False, p.coef_width,

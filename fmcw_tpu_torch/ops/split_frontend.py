@@ -11,10 +11,12 @@ these entry points:
   ``range_frontend_fixed`` (row 4, ``_kernel_range_fixed``): kernel A
   (``csrc/range_fft.cu``) and the fixed-point range kernel
   (``csrc/range_fft_fixed.cu``) on a chirp shard (B, nd/sp, nr, 2).  Each
-  block transforms its own 8 chirps, and the fixed kernel's window,
-  saturation count and BFP exponent are per chirp, so a shard's output is
-  bit for bit the matching columns of the whole frame's (and its share of
-  the count): the kernels serve unchanged.  Their range-major store
+  chirp's transform depends on that chirp alone (kernel A takes any
+  nd/sp, a partial last group of 8 chirps a frame; the fixed kernel needs
+  nd/sp a multiple of 8), and the fixed kernel's window, saturation count and
+  BFP exponent are per chirp, so a shard's output is bit for bit the
+  matching columns of the whole frame's (and its share of the count): the
+  kernels serve unchanged.  Their range-major store
   (B, nr, nd/sp) keeps each destination shard's nr/sp range rows together
   for the all-to-all.
 * ``slowtime_detect_split`` (row 5, ``_kernel_slowtime``) and

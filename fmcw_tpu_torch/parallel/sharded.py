@@ -98,7 +98,13 @@ Long CPIs (n_doppler = n2d x 128, n2d 2..16): the float routes take them
 as on one device (kernel B's split entry decides on its halo-extended
 slab, the magnitude-only entry feeds the block, reflect and debug tails;
 JAX's ``sharded.py:78-91``), and so does fixed ``"fused"`` (the fixed
-split entry on its int32 slab, per-cell scale only, as JAX's).
+split entry on its int32 slab, per-cell scale only, as JAX's).  So do the
+float routes at every n_doppler below 2048 that sp divides, off a
+multiple of 8 too (1024x100 at sp 2 and 4, 50 and 25 chirps a shard;
+1024x1016 at sp 4, 254 a shard: kernel A's last group of 8 chirps a
+frame is partial there); fixed ``"fused"`` needs n_doppler / sp a multiple of 8
+(``split_frontend_supported(fixed=True)``) and raises NotImplementedError
+elsewhere.
 """
 
 from __future__ import annotations
@@ -269,19 +275,24 @@ def sp_ring(mesh):
 # Gates
 # ---------------------------------------------------------------------------
 
-def split_frontend_supported(p: RadarParams, sp: int) -> bool:
+def split_frontend_supported(p: RadarParams, sp: int,
+                             fixed: bool = False) -> bool:
     """Can the kernels run the split front end of an sp-sharded mesh: the
-    range kernels on chirp shards (kernel A's lengths, which the fixed
-    range kernel takes too, a power of two in [16, 1024] or n2 x 128 with
-    n2 <= 16, and n_doppler/sp a multiple of 8:
-    ``ops/frontend.check_range_geometry``) and
-    the magnitude-only kernel on range shards
+    range kernel on chirp shards (n_range a power of two in [16, 1024] or
+    n2 x 128 with n2 <= 16; kernel A any n_doppler/sp,
+    ``ops/frontend.check_range_geometry``, with ``fixed`` the fixed range
+    kernel's n_doppler/sp a multiple of 8,
+    ``ops/frontend_fixed.check_range_geometry_fixed``) and the
+    magnitude-only kernel on range shards
     (``ops/frontend.check_mag_geometry``)?  (JAX's 128-lane rule is the
     TPU's and does not apply.)"""
     if p.n_range % sp or p.n_doppler % sp:
         return False
     try:
-        F.check_range_geometry(p.n_range, p.n_doppler // sp)
+        if fixed:
+            FX.check_range_geometry_fixed(p.n_range, p.n_doppler // sp)
+        else:
+            F.check_range_geometry(p.n_range, p.n_doppler // sp)
         F.check_mag_geometry(p.n_range // sp, p.n_doppler)
     except NotImplementedError:
         return False
@@ -300,7 +311,8 @@ def split_detect_supported(p: RadarParams, sp: int,
     tile, with ``fixed`` the int32 map's), and a halo that one neighbour
     holds?"""
     h = p.cfar.halo_range + peak_group_radius
-    if (not split_frontend_supported(p, sp) or p.cfar.scale_mode != "cell"
+    if (not split_frontend_supported(p, sp, fixed)
+            or p.cfar.scale_mode != "cell"
             or h > p.n_range // sp):
         return False
     try:
@@ -439,7 +451,7 @@ def make_sharded_processor(mesh=None, params: RadarParams | None = None,
                 "runs the split fixed kernels, which take the per-cell "
                 "scale and wrap edges only (as JAX's)")
         ok = (split_detect_supported(p, sp, pgr, fixed) if split_detect
-              else split_frontend_supported(p, sp))
+              else split_frontend_supported(p, sp, fixed))
         if not ok:
             raise NotImplementedError(
                 f"the split front-end kernels do not take a "

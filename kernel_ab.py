@@ -116,7 +116,14 @@ block (fast()) and CA, and the row-6 range shard (sp = 4), at 1024x128
 and the long CPI 1024x256 (batch 128) and, where the checkout's kernel
 takes them ("not taken" elsewhere), at the dense lengths 1024x96,
 1024x192 (batch 128) and 1024x1016 (batch 16), with the fused fixed
-route's frames/s per-cell.  Prints the card's name and
+route's frames/s per-cell.  With ``--odd-doppler-only`` it times kernel
+A's three entries (int16, float, the sp = 4 chirp shard where sp divides
+n_doppler) and kernel B's (per-cell, block, CA, magnitude-only, the sp = 4
+range shard) by graph replay, with the float main path's frames/s
+per-cell, at 1024x128, 1024x96, 1024x256 (batch 128) and 1024x1016 (batch
+16) and, where the checkout's kernels take them ("not taken" elsewhere),
+at the lengths off a multiple of 8 1024x100, 1024x250 (batch 128),
+1024x1021 and 1024x2047 (batch 16).  Prints the card's name and
 power limit
 and one JSON line.  To compare two
 commits on one card, unpack the other commit into a directory (``git
@@ -164,6 +171,10 @@ def main() -> int:
                     help="time the fixed slow-time kernel's entries alone, "
                          "at 1024x128, 1024x256 and the dense lengths "
                          "1024x96, 1024x192, 1024x1016")
+    ap.add_argument("--odd-doppler-only", action="store_true",
+                    help="time kernel A's and kernel B's entries alone, at "
+                         "1024x128, 96, 256, 1016 and the lengths off a "
+                         "multiple of 8 1024x100, 250, 1021, 2047")
     ap.add_argument("--fixed-range-only", action="store_true",
                     help="time the fixed range kernel's entries and the "
                          "fused fixed route alone, at 1024x128 and the n2 "
@@ -395,6 +406,71 @@ def main() -> int:
         print(json.dumps({"root": str(args.root), "graph_ms": graph,
                           "frames_per_s": fps, "batch": BATCH,
                           "card": card}), flush=True)
+        return 0
+    if args.odd_doppler_only:
+        pgr = 2
+        for nd in (entry.n_doppler, 96, 256, 1016, 100, 250, 1021, 2047):
+            batch = 16 if nd > 512 else BATCH
+            ep = entry.replace(n_doppler=nd)
+            iq = make_batch(ep, batch=batch)
+            calls = {}
+            try:
+                re, im = F.range_fft(iq)
+            except NotImplementedError:
+                # A length the checkout's kernel A does not take.
+                print(f"{nd}: not taken", flush=True)
+                graph[f"range_fft[{nd}]"] = None
+                continue
+            beams = (re.transpose(1, 2).contiguous(),
+                     im.transpose(1, 2).contiguous())
+            calls[f"range_fft[{nd}]"] = lambda: F.range_fft(iq)
+            calls[f"range_fft_float[{nd}]"] = lambda: F.range_fft_float(
+                *beams)
+            if nd % SP == 0:
+                shard = iq[:, nd // SP:2 * nd // SP].contiguous()
+                calls[f"range_frontend[{nd},sp4]"] = (
+                    lambda: SF.range_frontend(shard))
+            for name, p in (("cell", ep), ("block", P.fast().replace(
+                    n_doppler=nd)), ("ca", ep.replace(cfar=dataclasses.replace(
+                        ep.cfar, variant="ca")))):
+                kw = dict(cfar=p.cfar, peak_group_radius=pgr)
+                calls[f"slowtime_detect[{name},{nd}]"] = (
+                    lambda kw=kw: F.slowtime_detect(re, im, False, 0, **kw))
+            calls[f"slowtime_mag[{nd}]"] = lambda: F.slowtime_mag(re, im)
+            nr = ep.n_range
+            h, nrl = ep.cfar.halo_range + pgr, nr // SP
+            ext = torch.arange(nrl - h, 2 * nrl + h, device="cuda") % nr
+            lo, hi, core = ext[:h], ext[h + nrl:], ext[h:h + nrl]
+            rshard = (re[:, core].contiguous(), im[:, core].contiguous(),
+                      (re[:, lo].contiguous(), im[:, lo].contiguous()),
+                      (re[:, hi].contiguous(), im[:, hi].contiguous()),
+                      False, 0, nrl)
+            skw = dict(cfar=ep.cfar, n_range_total=nr, peak_group_radius=pgr)
+            calls[f"slowtime_detect_split[{nd},sp4]"] = (
+                lambda: SF.slowtime_detect_split(*rshard, **skw))
+            for name, call in calls.items():
+                # The entries the checkout's kernels take at nd (their
+                # wrappers raise NotImplementedError elsewhere).
+                try:
+                    call()
+                    torch.cuda.synchronize()
+                except NotImplementedError:
+                    graph[name] = None
+                    continue
+                graph[name] = graph_ms(call, 10 if nd > 512 else 50)
+            if F.fused_detect_supported(ep, pgr):
+                proc = pl.make_batch_processor(
+                    ep, peak_group_radius=pgr, include_maps=False,
+                    device="cuda")
+                fps[f"float/cell/{proc.route},{nd}"] = batch * 1e3 / cuda_ms(
+                    lambda: proc(iq), 10, 2)
+            del iq, re, im, beams, rshard
+            torch.cuda.empty_cache()
+        for name, t in graph.items():
+            print(f"{name}: " + ("not taken" if t is None
+                                 else f"{t:.4f} ms (graph)"), flush=True)
+        print(json.dumps({"root": str(args.root), "graph_ms": graph,
+                          "frames_per_s": fps, "card": card}), flush=True)
         return 0
     if args.fixed_dense_only:
         pgr = 2

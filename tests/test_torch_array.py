@@ -210,20 +210,20 @@ def test_array_processor_routes_and_rejections():
     assert tpl.make_array_processor(p, device="cpu").route == "fused"
     assert tpl.resolve_array_frontend("auto") == "fused"
     assert tpl.resolve_array_frontend("staged") == "staged"
-    # A long CPI (n_doppler 256 = 2 x 128) and a dense length (192): kernel
-    # B takes them, so "auto" is the fused route at both ref_angles (as
-    # JAX's "auto" takes its kernel).  A map the kernels cannot take
-    # (n_doppler 100, off kernel A's multiple of 8, or 4096 = 32 x 128):
-    # "auto" takes the staged chain, decided when the processor is built;
-    # "fused", asked for, keeps to the kernels, with no quiet fallback: it
-    # raises when the processor is built, on the CPU as on the card
-    # (tests/test_torch_isolation.py).
+    # A long CPI (n_doppler 256 = 2 x 128), a dense length (192) and a
+    # length off a multiple of 8 (100): kernel B takes them, so "auto" is
+    # the fused route at both ref_angles (as JAX's "auto" takes its
+    # kernel).  A map the kernels cannot take (n_doppler 2056, above 2048,
+    # or 4096 = 32 x 128): "auto" takes the staged chain, decided when the
+    # processor is built; "fused", asked for, keeps to the kernels, with no
+    # quiet fallback: it raises when the processor is built, on the CPU as
+    # on the card (tests/test_torch_isolation.py).
     for ref_angle in (0, 1):
-        for nd in (256, 192):
+        for nd in (256, 192, 100):
             assert tpl.make_array_processor(p.replace(n_doppler=nd),
                                             ref_angle=ref_angle,
                                             device="cpu").route == "fused"
-        for nd in (100, 4096):
+        for nd in (2056, 4096):
             refused = p.replace(n_doppler=nd)
             assert tpl.make_array_processor(refused, ref_angle=ref_angle,
                                             device="cpu").route == "staged"

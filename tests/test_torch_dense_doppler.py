@@ -113,8 +113,10 @@ def kernel_slowtime_dense(re, im, notch=2, transient="zero", bypass=False,
 def test_dense_lengths_are_jax_dense_operator():
     """The 237 dense lengths: every multiple of 8 below 2048 but the short
     rows and the long CPIs; at each JAX's kernel takes the dense operator
-    (``_doppler_split`` 1); lengths off 8 (kernel A's rule) and from 2048
-    up are not dense, and kernel B refuses them (2048 is a long CPI)."""
+    (``_doppler_split`` 1); lengths off 8 and from 2048 up are not dense:
+    kernel B refuses those from 2048 up (2048 is a long CPI), the fixed
+    slow-time kernel also those off 8 (kernel B takes them,
+    tests/test_torch_odd_doppler.py)."""
     assert len(DENSE) == 237 and DENSE[:4] == (8, 24, 40, 48)
     assert DENSE[-1] == 2040 and 96 in DENSE and 1016 in DENSE
     for nd in DENSE:
@@ -125,7 +127,12 @@ def test_dense_lengths_are_jax_dense_operator():
     for nd in (4, 12, 100, 2044, 2056, 4096, 2048 + 128):
         assert not F.dense_cpi(nd)
         with pytest.raises(NotImplementedError):
+            F.check_doppler(nd, "slowtime_detect_fixed", int_map=True)
+        if nd < 2048:
             F.check_doppler(nd, "slowtime_detect")
+        else:
+            with pytest.raises(NotImplementedError):
+                F.check_doppler(nd, "slowtime_detect")
     assert not F.dense_cpi(2048) and F.long_cpi(2048)
 
 
@@ -436,9 +443,10 @@ def test_fixed_fused_builds_at_the_dense_lengths():
     """Fixed "fused" at 96 and 192 builds on one device and on a mesh (sp 1
     and 2), its route "fused", and ``fused_fixed_detect_supported`` says
     so (the fixed slow-time kernel's dense operator); fixed "auto" stays
-    the staged route.  Float and fixed "fused" raise where the card would
-    (100 chirps: kernel A's multiple of 8; 2056: above 2048) on the CPU
-    too, on one device and on a mesh."""
+    the staged route.  Fixed "fused" raises where the card would (100
+    chirps: the fixed kernels' multiple of 8; 2056: above 2048), float
+    "fused" at 2056 (100 chirps build fused, tests/test_torch_odd_doppler
+    .py), on the CPU too, on one device and on a mesh."""
     kw = dict(mode="fixed", frontend="fused")
     for nd in (96, 192):
         p = fmcw_tpu_torch.RadarParams(n_range=128, n_doppler=nd)
@@ -454,9 +462,14 @@ def test_fixed_fused_builds_at_the_dense_lengths():
     for nd in (100, 2056):
         q = fmcw_tpu_torch.RadarParams(n_range=256, n_doppler=nd)
         assert not FX.fused_fixed_detect_supported(q)
-        assert tpl.make_batch_processor(q, device="cpu").route == "staged"
-        with pytest.raises(NotImplementedError):
-            tpl.make_batch_processor(q, frontend="fused", device="cpu")
+        if nd < 2048:
+            assert tpl.make_batch_processor(
+                q, frontend="fused", device="cpu").route == "fused"
+        else:
+            assert tpl.make_batch_processor(q, device="cpu").route == \
+                "staged"
+            with pytest.raises(NotImplementedError):
+                tpl.make_batch_processor(q, frontend="fused", device="cpu")
         with pytest.raises(NotImplementedError):
             tpl.make_batch_processor(q, device="cpu", **kw)
         with pytest.raises(NotImplementedError):

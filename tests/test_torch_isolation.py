@@ -496,9 +496,11 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
     # The fixed slow-time kernel takes them too: its long row into the
     # int32 map, then the decide kernel, two launches, the same decide
     # tile, the map handed over though no magnitudes are asked for and the
-    # row maxima zeroed; no plain twin.  n2d above 16 and lengths off 8
-    # stay refused by both; a dense length (192) takes both kernels' two
-    # launches, the same decide tile.
+    # row maxima zeroed; no plain twin.  n2d above 16 and 2056 (above
+    # 2048) stay refused by both; a dense length (192) takes both kernels'
+    # two launches, the same decide tile; 100 chirps (off a multiple of 8)
+    # only kernel B's, a chunk of all 100 columns (the fixed kernel
+    # refuses them, tests/test_torch_odd_doppler.py).
     i16 = long_cpi.to(torch.int16)
     det, mag, rmax, _, _ = FX.slowtime_detect_fixed(i16, i16, cfar=p.cfar,
                                                     peak_group_radius=1)
@@ -510,7 +512,7 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
     assert args[5] is not None and not rmax.any()
     assert det.dtype == rmax.dtype == torch.int32
     assert FX.slowtime_detect_fixed.launches == 2
-    for nd in (4096, 100):
+    for nd in (4096, 2056):
         x = torch.zeros((1, 128, nd))
         with pytest.raises(NotImplementedError):
             F.slowtime_detect(x, x, cfar=p.cfar)
@@ -529,6 +531,14 @@ def test_kernel_rejects_unported_configs(as_if_cuda):
     name, args = as_if_cuda.calls[-1]
     assert name == "slowtime_detect" and args[9]._obj.W == 96
     assert len(as_if_cuda.calls) == 4 and F.slowtime_detect.launches == 4
+    x = torch.zeros((1, 128, 100))
+    with pytest.raises(NotImplementedError):
+        FX.slowtime_detect_fixed(x.to(torch.int16), x.to(torch.int16),
+                                 cfar=p.cfar)
+    F.slowtime_detect(x, x, cfar=p.cfar)
+    name, args = as_if_cuda.calls[-1]
+    assert name == "slowtime_detect" and args[9]._obj.W == 100
+    assert len(as_if_cuda.calls) == 5 and F.slowtime_detect.launches == 6
 
 
 def test_fixed_wrappers_take_plain_twin_on_cpu(monkeypatch):
@@ -686,7 +696,7 @@ def test_array_kernels_reject_unported_configs(as_if_cuda):
     br, bi = _planes((1, p.n_doppler, 48))
     with pytest.raises(NotImplementedError):
         F.range_fft_float(br, bi)                   # n_range not 2^k
-    for nd in (4096, 100):
+    for nd in (4096, 2056):
         x = torch.zeros((1, 128, nd))
         with pytest.raises(NotImplementedError):
             F.slowtime_mag(x, x)
@@ -702,17 +712,18 @@ def test_array_kernels_reject_unported_configs(as_if_cuda):
     with pytest.raises(NotImplementedError):
         BG.beam_group(cube.int(), 1)
     F.slowtime_mag(*(torch.zeros((1, 128, 192)),) * 2)
-    assert [c[0] for c in as_if_cuda.calls] == ["slowtime_mag"]
+    F.slowtime_mag(*(torch.zeros((1, 128, 100)),) * 2)
+    assert [c[0] for c in as_if_cuda.calls] == ["slowtime_mag"] * 2
     as_if_cuda.calls.clear()
     # The array processor's fused route keeps to the kernels: on a long
     # CPI and a dense length kernel A runs, then kernel B (its detect entry
     # at ref_angle 0, its magnitude-only entry at ref_angle 1, then the 3D
     # CFAR); "auto" is that route, decided before any launch.  Where kernel
-    # B refuses (n2d 32, or 100 chirps, off kernel A's multiple of 8) an
-    # explicit "fused" raises before any launch, on every device, instead
-    # of falling back to the plain transforms; "auto" takes the staged
-    # chain.
-    for nd in (256, 192):
+    # B refuses (n2d 32, or 2056 chirps, above 2048) an explicit "fused"
+    # raises before any launch, on every device, instead of falling back
+    # to the plain transforms; "auto" takes the staged chain.  100 chirps
+    # (off a multiple of 8) take the fused route too.
+    for nd in (256, 192, 100):
         taken = p.replace(n_doppler=nd)
         iq = np.zeros((4, nd, taken.n_range, 2), np.int16)
         for ref_angle, launched in ((0, "slowtime_detect"),
@@ -724,7 +735,7 @@ def test_array_kernels_reject_unported_configs(as_if_cuda):
             tpl.make_array_processor(taken, frontend="fused", **kw)(iq)
             assert [c[0] for c in as_if_cuda.calls][:2] == [
                 "range_fft_float", launched]
-    for nd in (100, 4096):
+    for nd in (2056, 4096):
         refused = p.replace(n_doppler=nd)
         iq = np.zeros((1, 4, nd, p.n_range, 2), np.int16)
         for ref_angle in (0, 1):

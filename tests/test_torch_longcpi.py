@@ -376,10 +376,12 @@ def test_decide_geometry_fits_the_kernel():
     """Every long CPI the split takes (n2d 2..16) gets a decide tile at the
     repository's windows, per-cell and block, radius 0..8: W divides nd,
     T the rows, at most 64 cells a thread, the block grid within 256 blocks
-    and the shared memory within an H100 block's 227 KB; n2d 32 and 100
-    chirps (off kernel A's multiple of 8) are refused, and 192 chirps (a
-    dense length, tests/test_torch_dense_doppler.py) take the same decide
-    kernel's tile."""
+    and the shared memory within an H100 block's 227 KB; n2d 32 and 2056
+    chirps (above 2048) are refused, and 192 chirps (a dense length,
+    tests/test_torch_dense_doppler.py) and 100 chirps (off a multiple of 8:
+    one ragged-free chunk of 100 columns, tests/test_torch_odd_doppler.py)
+    take the same decide kernel's tile; the fixed kernel's int32 map
+    refuses 100."""
     for nd in range(256, 2049, 128):
         for cfar in (fmcw_tpu_torch.CfarParams(),
                      fmcw_tpu_torch.CfarParams(scale_mode="block"),
@@ -396,12 +398,17 @@ def test_decide_geometry_fits_the_kernel():
                     sb = cfar.scale_block
                     assert (c.T + 2 * c.H) // sb * ((c.W + 2 * c.HC) // sb) \
                         <= 256
-    for nd in (4096, 100):
+    for nd in (4096, 2056):
         with pytest.raises(NotImplementedError):
             F._slowtime_config(1, 1024, nd, fmcw_tpu_torch.CfarParams(), 0,
                                2)
     c = F._slowtime_config(1, 1024, 192, fmcw_tpu_torch.CfarParams(), 0, 2)
     assert (c.T, c.W, c.H, c.HC) == (64, 96, 8, 7)
+    c = F._slowtime_config(1, 1024, 100, fmcw_tpu_torch.CfarParams(), 0, 2)
+    assert (c.T, c.W, c.H, c.HC) == (64, 100, 8, 7)
+    with pytest.raises(NotImplementedError):
+        F._slowtime_config(1, 1024, 100, fmcw_tpu_torch.CfarParams(), 0, 2,
+                           int_map=True)
 
 
 @pytest.mark.parametrize("variant", ["os", "ca", "go", "so"])

@@ -346,8 +346,9 @@ def test_processor_validates_mesh_shape_and_input():
     # range shards, tests/test_torch_longcpi.py) and so does fixed "fused"
     # (the fixed split entry, tests/test_torch_fixed_longcpi.py); so do the
     # float routes at a dense length (192 chirps,
-    # tests/test_torch_dense_doppler.py); no route takes n2d 32 or 100
-    # chirps (off kernel A's multiple of 8).
+    # tests/test_torch_dense_doppler.py) and off a multiple of 8 (100
+    # chirps, 50 a shard, tests/test_torch_odd_doppler.py); no route takes
+    # n2d 32 or 2056 chirps (above 2048).
     long_cpi = p.replace(n_doppler=256)
     assert TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
                                       long_cpi).route == "fused"
@@ -357,7 +358,10 @@ def test_processor_validates_mesh_shape_and_input():
     assert TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
                                       p.replace(n_doppler=192)).route == \
         "fused"
-    for nd in (100, 4096):
+    assert TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
+                                      p.replace(n_doppler=100)).route == \
+        "fused"
+    for nd in (2056, 4096):
         with pytest.raises(NotImplementedError):
             TSH.make_sharded_processor(TM.LocalMesh(1, 2, "cpu"),
                                        p.replace(n_doppler=nd))
